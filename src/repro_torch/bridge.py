@@ -1,0 +1,82 @@
+"""Parameters across the package boundary, as nested dicts of numpy arrays.
+
+The reference's parameters reach the port as nested dicts of numpy arrays
+in the reference's tree layout. A quantized leaf arrives as a dict
+``{"qvalues", "scales", "group_size", "fmt"}``. A bfloat16 array (the
+``ml_dtypes`` type numpy gets from JAX) crosses bit-exactly as its int16
+bit pattern, so this module needs neither JAX nor ``ml_dtypes``.
+
+``init_params_numpy`` draws weights in that same layout from a seeded
+numpy ``RandomState``, whose stream numpy keeps fixed across versions; the
+reference and the port can then run identical weights without either one
+importing the other.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.quant import QuantizedTensor
+from repro_torch.device import resolve_device
+
+_QT_KEYS = {"qvalues", "scales", "group_size"}
+
+
+def _to_tensor(a, device: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(a).view(np.int16).copy()
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def params_from_numpy(tree, device="cuda"):
+    """Nested dicts of numpy arrays -> the port's params on ``device``."""
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            if _QT_KEYS <= set(node):
+                fmt = str(node.get("fmt", "int8"))
+                if fmt != "int8":
+                    raise NotImplementedError(f"quant format {fmt!r} is not yet ported")
+                return QuantizedTensor(_to_tensor(node["qvalues"], dev),
+                                       _to_tensor(node["scales"], dev),
+                                       int(node["group_size"]), fmt)
+            return {k: conv(v) for k, v in node.items()}
+        return _to_tensor(node, dev)
+
+    return conv(tree)
+
+
+def init_params_numpy(cfg: ModelConfig, seed: int) -> dict:
+    """Random f32 weights in the reference ``init_lm`` layout (dense GQA
+    decoder): N(0, 1/in) projections, N(0, 0.02^2) embeddings, unit norms.
+    Stacked layer leaves are (L, out, in). The draws are f32 whatever
+    ``cfg.param_dtype`` says; the golden run uses an f32 config."""
+    rng = np.random.RandomState(seed)
+    d, L, vp = cfg.d_model, cfg.num_layers, cfg.vocab_padded
+
+    def normal(shape, scale):
+        return (rng.standard_normal(shape).astype(np.float32) * np.float32(scale))
+
+    def dense(out_dim, in_dim, lead=()):
+        return normal((*lead, out_dim, in_dim), in_dim ** -0.5)
+
+    params = {
+        "embed": normal((vp, d), 0.02),
+        "layers": {
+            "att_norm": np.ones((L, d), np.float32),
+            "attn": {"wqkv": dense(cfg.q_dim + 2 * cfg.kv_dim, d, (L,)),
+                     "wo": dense(d, cfg.q_dim, (L,))},
+            "ffn_norm": np.ones((L, d), np.float32),
+            "mlp": {"w13": dense(2 * cfg.d_ff, d, (L,)),
+                    "w2": dense(d, cfg.d_ff, (L,))},
+        },
+        "final_norm": np.ones((d,), np.float32),
+    }
+    if not cfg.tie_embeddings:
+        params["classifier"] = dense(vp, d)
+    return params

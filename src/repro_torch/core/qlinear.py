@@ -1,0 +1,52 @@
+"""Quantization-aware linear / embedding primitives (counterpart of
+``repro/core/qlinear.py``).
+
+Every weight-bearing matmul goes through ``linear``: a plain tensor weight
+is an ordinary matmul in the activation's dtype; a
+:class:`~repro_torch.core.quant.QuantizedTensor` weight becomes the paper's
+W8A8 GQMV/GQMM (run-time int8 activation quantization + the group-wise
+kernel). Weights keep the paper's (out, in) layout with groups along in.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.quant import QuantizedTensor
+from repro_torch.kernels import ops
+
+__all__ = ["linear", "embedding_lookup", "split_fused"]
+
+
+def linear(w, x: torch.Tensor) -> torch.Tensor:
+    """y = x @ W^T for W (out, in); the quantized kernel when W is quantized.
+    The kernel's f32 output is rounded to the activation dtype, as in the
+    reference."""
+    if isinstance(w, QuantizedTensor):
+        return ops.quantized_matmul(x, w).to(x.dtype)
+    return F.linear(x, w.to(x.dtype))
+
+
+def embedding_lookup(w, ids: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """Row gather from a (vocab, d) table; dequantizes only the gathered rows
+    when the table is quantized (the paper quantizes W_embeddings)."""
+    if isinstance(w, QuantizedTensor):
+        q = w.qvalues[ids]                          # (..., d) int8
+        s = w.scales[ids]                           # (..., d / GS)
+        g = q.reshape(*q.shape[:-1], w.num_groups, w.group_size).to(dtype)
+        return (g * s[..., None].to(dtype)).reshape(q.shape)
+    return w[ids].to(dtype)
+
+
+def split_fused(y: torch.Tensor, sizes: tuple[int, ...]):
+    """Split the output of a fused projection (paper Alg. 2 lines 4, 12)."""
+    outs, off = [], 0
+    for s in sizes:
+        outs.append(y[..., off:off + s])
+        off += s
+    if off != y.shape[-1]:
+        raise ValueError(
+            f"split_fused sizes {tuple(sizes)} sum to {off} but the fused "
+            f"output has trailing dim {y.shape[-1]} (shape {tuple(y.shape)})")
+    return outs

@@ -1,0 +1,85 @@
+"""Uniform model API (counterpart of ``repro/models/registry.py``).
+
+Only the dense GQA ``decoder_lm`` family is ported, and of the
+architectures only TinyLlama-1.1B; ``load_config`` names the others and
+raises "not yet ported" for them. ``Model`` keeps the reference's
+capability flags, each declared explicitly; every fast path that is not
+ported yet (paged KV, speculative verify, the serving core's slot hooks)
+is declared off.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Callable
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer as _tf
+
+ARCH_IDS = [
+    "tinyllama-1.1b",
+    "pixtral-12b",
+    "rwkv6-7b",
+    "minicpm3-4b",
+    "deepseek-coder-33b",
+    "gemma2-2b",
+    "internlm2-1.8b",
+    "dbrx-132b",
+    "deepseek-v2-lite-16b",
+    "zamba2-7b",
+    "seamless-m4t-large-v2",
+]
+
+PORTED_ARCHS = ("tinyllama-1.1b",)
+
+
+def load_config(arch_id: str) -> ModelConfig:
+    if arch_id not in ARCH_IDS:
+        raise ValueError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
+    if arch_id not in PORTED_ARCHS:
+        raise NotImplementedError(
+            f"{arch_id} is not yet ported to repro_torch; ported: {PORTED_ARCHS}")
+    mod = importlib.import_module(
+        f"repro_torch.configs.{arch_id.replace('-', '_').replace('.', '_')}")
+    return mod.CONFIG
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    init: Callable               # (seed=0, device="cuda") -> params
+    init_cache: Callable         # (batch, cache_len, dtype, device) -> cache
+    prefill: Callable            # (params, batch, cache_len) -> (logits, cache)
+    decode: Callable             # (params, token, cache, pos) -> (logits, cache)
+    # the reference's capability surface (see repro.models.registry.Model)
+    supports_lengths: bool = False
+    supports_paged: bool = False
+    supports_spec: bool = False
+    cache_kind: str = "none"
+
+
+def build(cfg: ModelConfig) -> Model:
+    if cfg.model_type != "decoder_lm":
+        raise NotImplementedError(
+            f"model_type {cfg.model_type!r} is not yet ported to repro_torch")
+    _tf._check_ported(cfg)
+
+    def prefill(params, batch, cache_len):
+        return _tf.lm_prefill(params, batch["tokens"], cfg, cache_len,
+                              lengths=batch.get("lengths"))
+
+    return Model(
+        cfg=cfg,
+        init=lambda seed=0, device="cuda": _tf.init_lm(cfg, device, seed=seed),
+        init_cache=lambda b, t, dt, device: _tf.lm_init_cache(cfg, b, t, dt, device),
+        prefill=prefill,
+        decode=lambda p, tok, cache, pos: _tf.lm_decode(p, tok, cache, pos, cfg),
+        supports_lengths=True,
+        # paged KV, speculative verify and the slot hooks of the serving
+        # core are later slices: declared off until their paths are ported
+        supports_paged=False,
+        supports_spec=False,
+        cache_kind="none",
+    )
+

@@ -1,0 +1,117 @@
+"""Inference engine: prefill, then greedy decode (counterpart of
+``repro/serving/engine.py``, the uniform and ragged ``generate`` paths).
+
+The reference jits a ``lax.scan`` over decode steps; here the loop runs
+eagerly on the device. Sampled tokens, positions and the EOS ``done`` mask
+stay on the device throughout, so the loop never waits for the card; the
+tokens cross to the host once, at the end. Paged decode, speculative
+decode, quantized KV and the non-int8 weight formats are later slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping
+
+import torch
+
+from repro_torch.core.policy import quantize_params, quantized_fraction
+from repro_torch.core.tree import tree_to
+from repro_torch.device import resolve_device
+from repro_torch.models.registry import Model
+from repro_torch.serving.sampling import make_sampler
+
+
+@dataclasses.dataclass
+class GenerationResult:
+    tokens: torch.Tensor        # (b, max_new_tokens) sampled token ids, on the host
+    logits_last: torch.Tensor   # (b, vocab_padded) logits of the last decode step, on the device
+    steps: int                  # decode forward passes
+
+
+class InferenceEngine:
+    """Batched generation over a registry ``Model`` on one device.
+
+    ``quantize``: False keeps float weights; True applies the config's
+    ``quant_format`` ("int8", the paper's group-wise W8A8), as does the
+    string "int8". ``device`` defaults to "cuda" and raises when CUDA is
+    missing; pass "cpu" to run on the CPU. ``params`` are moved there.
+    """
+
+    def __init__(self, model: Model, params, *, cache_len: int,
+                 quantize: bool | str = False, eos_id: int | None = None,
+                 device: str | torch.device = "cuda"):
+        self.device = resolve_device(device)
+        self.model = model
+        self.cfg = model.cfg
+        self.cache_len = cache_len
+        self.eos_id = eos_id
+        params = tree_to(params, self.device)
+        if quantize is not False and quantize is not None:
+            formats = self.cfg.quant_format if quantize is True else quantize
+            params = quantize_params(params, self.cfg.group_size, formats=formats)
+        self.params = params
+        self.quantized_fraction = quantized_fraction(params)
+
+    def _device_batch(self, batch: Mapping) -> dict:
+        out = {"tokens": torch.as_tensor(batch["tokens"]).to(self.device, torch.long)}
+        if batch.get("lengths") is not None:
+            out["lengths"] = torch.as_tensor(batch["lengths"]).to(self.device, torch.long)
+        return out
+
+    # -- one-step APIs ---------------------------------------------------------
+    @torch.inference_mode()
+    def prefill(self, batch: Mapping):
+        return self.model.prefill(self.params, self._device_batch(batch), self.cache_len)
+
+    @torch.inference_mode()
+    def decode_step(self, token, cache, pos):
+        """pos: int or (b,) per-request position tensor."""
+        return self.model.decode(self.params, token, cache, pos)
+
+    # -- full generation -------------------------------------------------------
+    @torch.inference_mode()
+    def generate(self, batch: Mapping, max_new_tokens: int, *, sampler: str = "greedy",
+                 lengths=None) -> GenerationResult:
+        """``lengths`` (b,) enables ragged right-padded prompts: row i's pads
+        are masked in prefill, its first token is sampled from the logits at
+        lengths[i]-1, and decode runs on per-request position counters."""
+        if max_new_tokens < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+        sample = make_sampler(sampler)
+        if lengths is not None:
+            batch = dict(batch, lengths=lengths)
+        batch = self._device_batch(batch)
+        b, prompt_len = batch["tokens"].shape
+        lengths = batch.get("lengths")
+        # validate up front: an index past the cache would fail mid-decode
+        start_max = prompt_len if lengths is None else int(lengths.max())
+        need = max(prompt_len, start_max + max_new_tokens)
+        if need > self.cache_len:
+            raise ValueError(
+                f"KV cache overflow: prompt_len={prompt_len} (max start {start_max}) "
+                f"+ max_new_tokens={max_new_tokens} needs {need} slots but "
+                f"cache_len={self.cache_len}")
+
+        logits, cache = self.model.prefill(self.params, batch, self.cache_len)
+        tok = sample(logits)
+        # ragged rows continue at their own lengths (per-row cache commits);
+        # a uniform batch keeps one host-side position counter
+        pos = lengths.clone() if lengths is not None else prompt_len
+        eos = self.eos_id
+        done = tok == eos if eos is not None else None
+        out = torch.empty((b, max_new_tokens), dtype=torch.long, device=self.device)
+        out[:, 0] = tok
+        # max_new_tokens decode steps, the last one's token discarded: the
+        # reference's scan, whose final logits are logits_last
+        for step in range(max_new_tokens):
+            logits, cache = self.model.decode(self.params, tok, cache, pos)
+            nxt = sample(logits)
+            if eos is not None:
+                nxt = torch.where(done, eos, nxt)
+                done = done | (nxt == eos)
+            if step + 1 < max_new_tokens:
+                out[:, step + 1] = nxt
+            tok = nxt
+            pos = pos + 1
+        return GenerationResult(tokens=out.cpu(), logits_last=logits, steps=max_new_tokens)

@@ -1,0 +1,34 @@
+"""Shared helpers for the port's parity tests (``tests/test_torch_*.py``).
+
+The two packages exchange parameters as nested dicts of numpy arrays, the
+form ``repro_torch.bridge.params_from_numpy`` reads; these helpers convert
+the reference's pytrees (with ``QuantizedTensor`` leaves) to and from it.
+"""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+
+from repro.core.quant import QuantizedTensor as JQT
+
+
+def jax_to_numpy(tree):
+    """Reference params -> nested dicts of numpy arrays (bridge format)."""
+    if isinstance(tree, dict):
+        return {k: jax_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, JQT):
+        return {"qvalues": np.asarray(tree.qvalues), "scales": np.asarray(tree.scales),
+                "group_size": tree.group_size, "fmt": tree.fmt}
+    return np.asarray(tree)
+
+
+def numpy_to_jax(tree):
+    """Bridge-format numpy dicts -> reference params."""
+    if isinstance(tree, dict):
+        if {"qvalues", "scales", "group_size"} <= set(tree):
+            return JQT(jnp.asarray(tree["qvalues"]), jnp.asarray(tree["scales"]),
+                       int(tree["group_size"]), tree.get("fmt", "int8"))
+        return {k: numpy_to_jax(v) for k, v in tree.items()}
+    return jnp.asarray(tree)
+

@@ -1,0 +1,67 @@
+"""Port configs and registry against the reference, field for field."""
+
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.configs.base import ModelConfig as JModelConfig  # noqa: E402
+from repro.models import registry as jreg  # noqa: E402
+from repro_torch.configs.base import ModelConfig  # noqa: E402
+from repro_torch.models import registry  # noqa: E402
+
+UNPORTED = [a for a in jreg.ARCH_IDS if a != "tinyllama-1.1b"]
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_tinyllama_config_equals_reference(reduced):
+    ref = jreg.load_config("tinyllama-1.1b")
+    cfg = registry.load_config("tinyllama-1.1b")
+    if reduced:
+        ref, cfg = ref.reduced(), cfg.reduced()
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
+    for prop in ("vocab_padded", "resolved_head_dim", "q_dim", "kv_dim"):
+        assert getattr(cfg, prop) == getattr(ref, prop), prop
+
+
+def test_dataclass_fields_and_defaults_match_reference():
+    mine = {f.name: f.default for f in dataclasses.fields(ModelConfig)}
+    ref = {f.name: f.default for f in dataclasses.fields(JModelConfig)}
+    assert mine == ref
+
+
+def test_dtypes_are_torch_dtypes():
+    cfg = registry.load_config("tinyllama-1.1b")
+    assert cfg.pdtype() is torch.bfloat16 and cfg.cdtype() is torch.bfloat16
+    red = cfg.reduced()
+    assert red.pdtype() is torch.float32 and red.cdtype() is torch.float32
+
+
+def test_arch_ids_match_reference():
+    assert registry.ARCH_IDS == jreg.ARCH_IDS
+
+
+@pytest.mark.parametrize("arch", UNPORTED)
+def test_unported_arch_raises_not_yet_ported(arch):
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        registry.load_config(arch)
+
+
+def test_unknown_arch_raises():
+    with pytest.raises(ValueError, match="unknown arch"):
+        registry.load_config("llama-9000")
+
+
+def test_model_declares_capabilities():
+    model = registry.build(registry.load_config("tinyllama-1.1b").reduced())
+    assert model.supports_lengths is True
+    assert model.supports_paged is False and model.supports_spec is False
+    assert model.cache_kind == "none"
+
+
+def test_build_refuses_unported_features():
+    cfg = dataclasses.replace(registry.load_config("tinyllama-1.1b").reduced(),
+                              sliding_window=8)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        registry.build(cfg)

@@ -1,0 +1,112 @@
+"""CUDA kernels of the port on the card: each kernel against its plain
+version, the wrappers' argument checks, and a small end-to-end run.
+
+Every test here needs a CUDA device and ``nvcc``; on a machine without them
+they skip. This file imports neither JAX nor the reference package, so it
+runs on the GPU machine as it is:
+
+    python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerance: the int32 group sums are exact, so kernel and plain version
+differ only by the f32 order of the sum across groups (rtol 1e-5, atol
+1e-5 * max|plain|).
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import gqmv as kern  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.models.registry import build, load_config  # noqa: E402
+from repro_torch.serving.engine import InferenceEngine  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the GPU machine)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _rand(dev, m, n, gs, b, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    wq = torch.randint(-127, 128, (m, n), generator=g, device=dev, dtype=torch.int8)
+    ws = torch.rand((m, n // gs), generator=g, device=dev) + 1e-3
+    xshape = (n,) if b is None else (b, n)
+    xq = torch.randint(-127, 128, xshape, generator=g, device=dev, dtype=torch.int8)
+    xs = torch.rand((*xshape[:-1], n // gs), generator=g, device=dev) + 1e-3
+    return wq, ws, xq, xs
+
+
+def _close(got, want):
+    atol = 1e-5 * want.abs().max()
+    assert torch.allclose(got, want, rtol=1e-5, atol=float(atol)), \
+        float((got - want).abs().max())
+
+
+@pytest.mark.parametrize("gs", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("b", [1, 3, 4, 8, 13])
+def test_gqmm_kernel_matches_plain(dev, gs, b):
+    args = _rand(dev, 200, 1024, gs, b, seed=gs + b)
+    before = kern.LAUNCHES["gqmm_int8"]
+    got = kern.gqmm_cuda(*args, group_size=gs)
+    assert kern.LAUNCHES["gqmm_int8"] == before + 1
+    _close(got, ref.gqmm_ref(*args, group_size=gs))
+
+
+@pytest.mark.parametrize("gs", [16, 32, 256])
+@pytest.mark.parametrize("m,n", [(5, 256), (2560, 2048), (2048, 5632)])
+def test_gqmv_kernel_matches_plain(dev, gs, m, n):
+    args = _rand(dev, m, n, gs, None, seed=m)
+    _close(kern.gqmv_cuda(*args, group_size=gs), ref.gqmv_ref(*args, group_size=gs))
+
+
+def test_auto_dispatch_launches_kernel_on_cuda(dev):
+    args = _rand(dev, 64, 256, 32, 2)
+    before = kern.LAUNCHES["gqmm_int8"]
+    ops.gqmm(*args, group_size=32)
+    assert kern.LAUNCHES["gqmm_int8"] == before + 1
+    ops.gqmm(*args, group_size=32, impl="plain")
+    assert kern.LAUNCHES["gqmm_int8"] == before + 1
+
+
+def test_wrappers_reject_bad_arguments(dev):
+    wq, ws, xq, xs = _rand(dev, 64, 256, 32, 4)
+    bad = [
+        ((wq.float(), ws, xq, xs, 32), TypeError),               # dtype
+        ((wq, ws.double(), xq, xs, 32), TypeError),
+        ((wq, ws, xq.float(), xs, 32), TypeError),
+        ((wq, ws[:, :4], xq, xs, 32), ValueError),               # shape
+        ((wq, ws, xq[:, :128], xs, 32), ValueError),
+        ((wq, ws, xq, xs, 48), ValueError),                      # group size
+        ((wq.t(), ws, xq, xs, 32), ValueError),                  # contiguity
+        ((wq, ws, xq, xs[:, ::2], 32), ValueError),
+        ((wq.cpu(), ws, xq, xs, 32), ValueError),                # device
+        ((wq[:, 1:-15], ws, xq, xs, 32), ValueError),
+    ]
+    unaligned = torch.empty(64 * 256 + 1, dtype=torch.int8, device=dev)[1:].view(64, 256)
+    unaligned.copy_(wq)
+    bad.append(((unaligned, ws, xq, xs, 32), ValueError))        # 16-byte alignment
+    for (a, b_, c, d, gs), exc in bad:
+        with pytest.raises(exc):
+            kern.gqmm_cuda(a, b_, c, d, group_size=gs)
+    with pytest.raises(ValueError):
+        kern.gqmv_cuda(wq, ws, xq, xs, group_size=32)          # 2-D x to GQMV
+
+
+def test_engine_on_cuda_matches_plain_tokens(dev):
+    cfg = load_config("tinyllama-1.1b").reduced()
+    model = build(cfg)
+    engine = InferenceEngine(model, model.init(seed=0, device=dev), cache_len=24,
+                             quantize=True, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 8), generator=torch.Generator().manual_seed(0))
+    kern.reset_launches()
+    res = engine.generate({"tokens": toks}, 8)
+    assert kern.LAUNCHES["gqmm_int8"] == (4 * cfg.num_layers + 1) * 9
+    with ops.impl_scope("plain"):
+        plain = engine.generate({"tokens": toks}, 8)
+    assert torch.equal(res.tokens, plain.tokens)
