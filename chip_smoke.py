@@ -7,13 +7,23 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``.
 It imports the port only (never JAX nor the reference package) and fails,
 printing no result, when CUDA is missing. Phases, each fatal on failure:
 
-1. build:    compile every CUDA source of the port with nvcc (sm_90a).
+1. build:    compile every CUDA source of the port with nvcc (sm_90a), one
+             nvcc per source, all started together.
 2. kernels:  GQMM at b in {1, 4, 256} and GQMV at b=1, at every TinyLlama
              projection shape, against their plain PyTorch versions on the
              card (rtol 1e-5, atol 1e-5 * max|plain|: the int32 group sums
              are exact, only the f32 order of <= 22 group terms differs),
              timed with CUDA events over weight copies that exceed the L2,
              behind a GPU spin that keeps the host's launch cost out.
+             Then paged decode attention (bf16, f32, int8 and fp8 pools;
+             b in {1, 8, 32}, BS in {8, 16}, MB*BS in {256, 2048}, KV 4, G 8,
+             hd 64, softcap None or 50; random non-identity block tables with
+             sink entries past each row's position) against its plain
+             version: within 1e-5 * max|plain| at f32 inputs (another f32
+             summation order); at bf16 inputs within 1e-2 * max|plain| of the
+             plain arithmetic run in f32 on the same values (the kernel rounds
+             once, to bf16, at the end). Timed the same way, over pools larger
+             than the L2.
 3. serve:    full-width TinyLlama-1.1B (22 layers, d 2048, bf16, int8
              weights from the port's own init_lm) through
              InferenceEngine.generate: batch 4, prompt 64, 32 greedy tokens.
@@ -27,7 +37,18 @@ printing no result, when CUDA is missing. Phases, each fatal on failure:
 4. golden:   TinyLlama at full width (depth cut to the golden file's), f32,
              int8 weights drawn by bridge.init_params_numpy: the greedy
              tokens must equal the reference package's (written by
-             tests/make_torch_golden.py) exactly.
+             tests/make_torch_golden.py) exactly, for InferenceEngine.generate
+             and for serve_ragged(mode="paged") on a float KV pool; the int8
+             and fp8 pools' agreement is shown.
+5. ragged:   the serve CLI's --ragged path at full width: the phase-3 model
+             through serve_ragged with 16 requests (prompts 16-192 tokens,
+             budgets 8-64, seed 0), 8 slots, chunk 4, block size 8, in paged
+             mode with float, int8 and fp8 KV pools and in continuous mode.
+             Each paged pass must launch the paged-attention kernel exactly
+             22 x its decode steps. A paged pass on the plain versions gives
+             the token agreement, one paged decode step of 8 rows the logits
+             (within 5e-2 * max|logit|), and a pass with half the default
+             pool the backpressure path.
 
 The lines before the last are a JSON object of the kernels, then the card's
 name and power limit from nvidia-smi; the last line is
@@ -39,6 +60,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import hashlib
+import itertools
 import json
 import math
 import subprocess
@@ -56,13 +78,27 @@ from repro_torch.bridge import init_params_numpy, params_from_numpy  # noqa: E40
 from repro_torch.core.quant import QuantizedTensor, quantize_activation  # noqa: E402
 from repro_torch.kernels import cuda_build, ops  # noqa: E402
 from repro_torch.kernels import gqmv as kern  # noqa: E402
-from repro_torch.kernels.ref import gqmm_ref, gqmv_ref  # noqa: E402
+from repro_torch.kernels import paged_attn as pkern  # noqa: E402
+from repro_torch.kernels.ref import gqmm_ref, gqmv_ref, paged_attention_ref  # noqa: E402
+from repro_torch.models.attention import FP8_MAX  # noqa: E402
+from repro_torch.models.common import decode_mask  # noqa: E402
 from repro_torch.models.registry import build, load_config  # noqa: E402
+from repro_torch.models.transformer import contiguous_to_paged  # noqa: E402
+from repro_torch.serving.batching import (  # noqa: E402
+    Request,
+    bucket_length,
+    pad_bucket,
+    serve_ragged,
+    slot_scheduler,
+)
 from repro_torch.serving.engine import InferenceEngine  # noqa: E402
+from repro_torch.serving.paged import paged_scheduler  # noqa: E402
 
-# H100 SXM data-sheet peaks (dense): HBM bytes/s, int8 tensor operations/s
+# H100 SXM data-sheet peaks (dense): HBM bytes/s, int8 tensor operations/s,
+# float32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+F32_OPS_PER_S = 67e12
 
 ARCH = "tinyllama-1.1b"
 # (name, m, n): every quantized projection TinyLlama runs, per layer and once
@@ -76,9 +112,32 @@ GOLDEN_FILE = ROOT / "src" / "repro_torch" / "golden_tinyllama.json"
 GOLDEN = {"arch": ARCH, "num_layers": 2, "dtype": "float32", "quantize": "int8",
           "seed": 0, "prompt_seed": 1, "batch": 2, "prompt_len": 16,
           "max_new_tokens": 16}
-SOURCES = {"gqmv_int8": "src/repro_torch/csrc/gqmm.cu", "gqmm_int8": "src/repro_torch/csrc/gqmm.cu"}
+# the golden ragged trace, served by serve_ragged(mode="paged") on the
+# golden model with a float, int8 and fp8 KV pool
+GOLDEN_RAGGED = {"prompt_seed": 2, "prompt_lens": [5, 16, 9, 12, 3],
+                 "budgets": [8, 4, 12, 6, 10], "max_new_tokens": 12, "slots": 3,
+                 "chunk": 4, "block_size": 8, "cache_len": 32,
+                 "kv": ["float", "int8", "fp8"]}
+# phase 2, paged attention: TinyLlama's KV heads, query heads per KV head
+# and head dim; every pool type, batch, block size and table width below
+PAGED = {"kv": 4, "g": 8, "hd": 64, "batches": (1, 8, 32), "block_sizes": (8, 16),
+         "widths": (256, 2048), "pools": ("float", "int8", "fp8"),
+         "qdtypes": (torch.bfloat16, torch.float32), "softcaps": (None, 50.0)}
+PAGED_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# the shape of the ragged serve's decode (phase 5): 8 slots, blocks of 8,
+# 256-token tables, bf16 queries; the kernels line reports this call
+PAGED_MAIN = {"b": 8, "bs": 8, "T": 256, "qdtype": "bfloat16", "softcap": None}
+# phase 5: the ragged trace at full width
+RAGGED = {"requests": 16, "prompt_lens": (16, 192), "budgets": (8, 64), "seed": 0,
+          "slots": 8, "chunk": 4, "block_size": 8}
+SOURCES = {"gqmv_int8": "src/repro_torch/csrc/gqmm.cu", "gqmm_int8": "src/repro_torch/csrc/gqmm.cu",
+           "paged_attn": "src/repro_torch/csrc/paged_attn.cu",
+           "paged_attn_quant": "src/repro_torch/csrc/paged_attn.cu"}
 REPLACES = {"gqmv_int8": "src/repro/kernels/gqmv.py:166",     # gqmv_pallas
-            "gqmm_int8": "src/repro/kernels/gqmv.py:312"}     # gqmm_pallas
+            "gqmm_int8": "src/repro/kernels/gqmv.py:312",     # gqmm_pallas
+            # paged_attention_pallas: _paged_kernel / _paged_quant_kernel
+            "paged_attn": "src/repro/kernels/paged_attn.py:116",
+            "paged_attn_quant": "src/repro/kernels/paged_attn.py:116"}
 
 
 def golden_config():
@@ -90,6 +149,11 @@ def golden_config():
 def golden_prompt(vocab_size: int) -> np.ndarray:
     rng = np.random.RandomState(GOLDEN["prompt_seed"])
     return rng.randint(0, vocab_size, size=(GOLDEN["batch"], GOLDEN["prompt_len"]))
+
+
+def golden_ragged_prompts(vocab_size: int) -> list[list[int]]:
+    rng = np.random.RandomState(GOLDEN_RAGGED["prompt_seed"])
+    return [rng.randint(0, vocab_size, size=n).tolist() for n in GOLDEN_RAGGED["prompt_lens"]]
 
 
 def weights_checksum(tree) -> str:
@@ -111,8 +175,8 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def bound_s(nbytes: int, ops: int) -> tuple[float, str]:
-    tb, to = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+def bound_s(nbytes: int, ops: int, ops_per_s: float = INT8_OPS_PER_S) -> tuple[float, str]:
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -174,6 +238,7 @@ def profile_device(fn, reps: int) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"device_ms": total, "kernels": count // reps,
             "gqmm_ms": sum(v for k, v in by_name.items() if "gqmm_int8_kernel" in k),
+            "paged_ms": sum(v for k, v in by_name.items() if "paged_attn_kernel" in k),
             "top": top}
 
 
@@ -230,6 +295,112 @@ def phase_kernels(dev) -> list[dict]:
     return rows
 
 
+def _paged_pools(gen, dev, pool: str, qdt, nb: int, bs: int):
+    """Random K and V pools (NB, BS, KV, hd) of one pool type, finite
+    everywhere (fp8 values stay inside e4m3's range), and the f32 row
+    scales (NB, BS, KV) of a quantized pool."""
+    shape = (nb, bs, PAGED["kv"], PAGED["hd"])
+    if pool == "float":
+        return (torch.randn(shape, generator=gen, device=dev).to(qdt),
+                torch.randn(shape, generator=gen, device=dev).to(qdt), None, None)
+    out = []
+    for _ in range(2):
+        x = torch.randn(shape, generator=gen, device=dev)
+        if pool == "int8":
+            out.append((x * 40).round().clamp(-127, 127).to(torch.int8))
+        else:
+            out.append((x * 100).clamp(-FP8_MAX, FP8_MAX).to(torch.float8_e4m3fn))
+    scales = [torch.rand(shape[:-1], generator=gen, device=dev) * 0.02 + 1e-3 for _ in range(2)]
+    return out[0], out[1], scales[0], scales[1]
+
+
+def paged_call_bytes_ops(q, k_pages, pos, mask, table, quant: bool) -> tuple[int, int]:
+    """The bytes a paged decode-attention call must move and the operations
+    it must do, for these inputs: the committed rows t < pos[i] of each row
+    (the current token comes from k_new / v_new), K and V and their scales,
+    plus q, k_new, v_new, mask, table and pos read once and ctx written once;
+    q . k and p . v at 2 operations per multiply-add."""
+    b, kv, g, hd = q.shape
+    rows = int(pos.sum())
+    nbytes = rows * kv * hd * k_pages.element_size() * 2 + (rows * kv * 4 * 2 if quant else 0)
+    nbytes += 2 * q.numel() * q.element_size() + 2 * b * kv * hd * q.element_size()
+    nbytes += 4 * (mask.numel() + table.numel() + pos.numel())
+    return nbytes, 4 * g * hd * kv * (rows + b)
+
+
+def phase_paged_kernels(dev) -> list[dict]:
+    """The paged decode-attention kernel against its plain version at every
+    pool type and shape of ``PAGED``; timed where softcap is None."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    kv, g, hd = PAGED["kv"], PAGED["g"], PAGED["hd"]
+    rows = []
+    for qdt, pool, b, bs, T in itertools.product(
+            PAGED["qdtypes"], PAGED["pools"], PAGED["batches"], PAGED["block_sizes"],
+            PAGED["widths"]):
+        quant = pool != "float"
+        kname = "paged_attn_quant" if quant else "paged_attn"
+        mb = T // bs
+        # enough tables over distinct blocks that a timed run reads more
+        # than the 50 MB L2 holds
+        elt = qdt.itemsize if pool == "float" else 1
+        variants = max(1, min(1000, math.ceil(160e6 / (b * (T // 2) * kv * hd * elt * 2))))
+        nb = variants * b * mb + 1                                  # block 0: the sink
+        kp, vp, ks, vs = _paged_pools(gen, dev, pool, qdt, nb, bs)
+        pos = torch.randint(0, T, (b,), generator=gen, device=dev)
+        tables = (torch.randperm(nb - 1, generator=gen, device=dev) + 1).reshape(variants, b, mb)
+        # entries past each row's position point at the sink
+        past = torch.arange(mb, device=dev)[None, :] > (pos // bs)[:, None]
+        tables = torch.where(past[None], 0, tables).to(torch.int32)
+        pos32 = pos.to(torch.int32)
+        q = torch.randn((b, kv, g, hd), generator=gen, device=dev).to(qdt)
+        kn = torch.randn((b, kv, hd), generator=gen, device=dev).to(qdt)
+        vn = torch.randn((b, kv, hd), generator=gen, device=dev).to(qdt)
+        mask = decode_mask(T, pos)
+        # the plain arithmetic in f32 on the same values
+        q32, kn32, vn32 = q.float(), kn.float(), vn.float()
+        kp32, vp32 = (kp.float(), vp.float()) if pool == "float" else (kp, vp)
+        for softcap in PAGED["softcaps"]:
+            kw = dict(scale=hd ** -0.5, softcap=softcap, k_scales=ks, v_scales=vs)
+            got = pkern.paged_attention_cuda(q, kp, vp, tables[0], pos32, kn, vn, mask, **kw)
+            want = paged_attention_ref(q32, kp32, vp32, tables[0], pos, kn32, vn32, mask, **kw)
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(want).all()):
+                raise AssertionError("the paged plain version is not finite")
+            err = (got.float() - want).abs().max().item()
+            tol = PAGED_TOL[qdt] * want.abs().max().item()
+            row = {"kernel": kname, "qdtype": str(qdt).split(".")[-1], "pool": pool, "b": b,
+                   "bs": bs, "T": T, "softcap": softcap, "max_abs_err": err, "tol": tol}
+            if qdt == torch.bfloat16:
+                same = paged_attention_ref(q, kp, vp, tables[0], pos, kn, vn, mask, **kw)
+                row["err_vs_plain_bf16"] = (got.float() - same.float()).abs().max().item()
+            if not err <= tol:
+                raise AssertionError(f"{kname}: kernel disagrees with its plain version: {row}")
+            if softcap is None:
+                k_ms, k_host = device_time_ms(
+                    lambda i: pkern.paged_attention_cuda(
+                        q, kp, vp, tables[i % variants], pos32, kn, vn, mask, **kw),
+                    max(50, variants))
+                # the plain version's enqueue outlasts every GPU spin (some
+                # step of it waits for the card): its device time comes
+                # from the profiler instead
+                turn = itertools.count()
+                p_ms = profile_device(lambda: paged_attention_ref(
+                    q, kp, vp, tables[next(turn) % variants], pos, kn, vn, mask, **kw),
+                    3)["device_ms"]
+                nbytes, nops = paged_call_bytes_ops(q, kp, pos, mask, tables[0], quant)
+                bnd, by = bound_s(nbytes, nops, F32_OPS_PER_S)
+                row.update({"us": 1e3 * k_ms, "host_us": 1e3 * k_host, "plain_us": 1e3 * p_ms,
+                            "bound_us": 1e6 * bnd, "bound_by": by, "bytes": nbytes,
+                            "variants": variants})
+            rows.append(row)
+            log(f"[paged] {row['qdtype']:8s} {pool:5s} b={b:2d} BS={bs:2d} T={T:4d} "
+                f"cap={softcap}  max|err| {err:.2e} (tol {tol:.1e})"
+                + (f"  {row['us']:7.1f} us  plain {row['plain_us']:8.1f} us  bound "
+                   f"{row['bound_us']:5.2f} us ({row['bound_by']})" if "us" in row else ""))
+        del kp, vp, ks, vs, tables, kp32, vp32
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 3: full-width serving, kernels against plain, and the matvec path
 # ---------------------------------------------------------------------------
@@ -274,7 +445,7 @@ def step_timing(projs, b: int, dev, rows) -> dict:
             "bound_by": by}
 
 
-def phase_serve(dev, rows) -> dict:
+def phase_serve(dev, rows) -> tuple[dict, InferenceEngine]:
     cfg = load_config(ARCH)
     model = build(cfg)
     t0 = time.perf_counter()
@@ -389,7 +560,176 @@ def phase_serve(dev, rows) -> dict:
     out["matvec_max_abs_err"] = err
     log(f"[serve] matvec path: {len(projs)} GQMV launches through quantized_matmul, "
         f"max|err| vs plain {err:.2e}")
-    return out
+    return out, engine
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the ragged path (serve_ragged) at full width
+# ---------------------------------------------------------------------------
+
+def ragged_trace(vocab_size: int) -> list[Request]:
+    rng = np.random.default_rng(RAGGED["seed"])
+    n = RAGGED["requests"]
+    lens = rng.integers(RAGGED["prompt_lens"][0], RAGGED["prompt_lens"][1] + 1, size=n)
+    budgets = rng.integers(RAGGED["budgets"][0], RAGGED["budgets"][1] + 1, size=n)
+    return [Request(i, rng.integers(0, vocab_size, size=int(m)).tolist(), max_new=int(k))
+            for i, (m, k) in enumerate(zip(lens, budgets))]
+
+
+def _served(reqs, out, vocab_padded: int) -> int:
+    """Checks the responses of one pass; returns the tokens generated."""
+    for r, resp in zip(reqs, out):
+        t = np.asarray(resp.tokens)
+        if resp.id != r.id or t.shape != (r.max_new,) or resp.length != r.max_new or not (
+                (t >= 0) & (t < vocab_padded)).all():
+            raise AssertionError(f"bad response for request {r.id}: {resp}")
+    return sum(resp.length for resp in out)
+
+
+def _ragged_pass(engine, reqs, mode: str, **kw) -> tuple[list, dict]:
+    """One serve_ragged pass, every launch count set to 0 just before it and
+    read just after; host clock around it, ended by a synchronise."""
+    sk = dict(slots=RAGGED["slots"], chunk=RAGGED["chunk"])
+    if mode == "paged":
+        sk.update(block_size=RAGGED["block_size"], **kw)
+    kern.reset_launches()
+    pkern.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = serve_ragged(engine, reqs, RAGGED["budgets"][1], mode=mode, **sk)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**kern.LAUNCHES, **pkern.LAUNCHES}
+    sched = paged_scheduler(engine, **sk) if mode == "paged" else slot_scheduler(engine, **sk)
+    toks = _served(reqs, out, engine.cfg.vocab_padded)
+    info = {"mode": mode, "kv": engine.cfg.kv_quant or "float", "wall_s": wall, "tokens": toks,
+            "tok_s": toks / wall, "rounds": sched.last_rounds,
+            "decode_steps": sched.last_decode_steps, "ms_per_round": 1e3 * wall / sched.last_rounds,
+            "ms_per_decode_step": 1e3 * wall / sched.last_decode_steps, "launches": launches}
+    if mode == "paged":
+        info.update(peak_blocks=sched.last_peak_blocks, pool_blocks=sched.num_blocks - 1,
+                    footprint_blocks=RAGGED["slots"] * sched.blocks_per_req)
+    return out, info
+
+
+def _agreement(a, b) -> float:
+    same = sum(int((np.asarray(x.tokens) == np.asarray(y.tokens)).sum()) for x, y in zip(a, b))
+    return same / sum(len(x.tokens) for x in a)
+
+
+def _first_step_logits(engine, reqs, dev) -> dict:
+    """One paged decode step of the trace's first ``slots`` requests after
+    their prefill, over a pool whose blocks are permuted (a non-identity
+    table), on the kernels and on the plain versions."""
+    group = reqs[:RAGGED["slots"]]
+    length = bucket_length(max(len(r.tokens) for r in group))
+    toks, lens = pad_bucket(group, length)
+    model, params = engine.model, engine.params
+    with torch.inference_mode():
+        logits, cache = model.prefill(params, {"tokens": torch.from_numpy(toks).to(dev),
+                                               "lengths": torch.from_numpy(lens).to(dev)}, length)
+        pool, table = contiguous_to_paged(cache, RAGGED["block_size"])
+        nb = next(iter(pool.values())).shape[1]
+        perm = torch.randperm(nb, generator=torch.Generator().manual_seed(4)).to(dev)
+        moved = {}
+        for name, leaf in pool.items():
+            moved[name] = torch.empty_like(leaf)
+            moved[name][:, perm] = leaf
+        table = perm[table.long()].to(torch.int32)
+        tok, pos = logits.argmax(-1), torch.from_numpy(lens).to(dev)
+        got, _ = model.decode_paged(params, tok, {k: v.clone() for k, v in moved.items()},
+                                    table, pos)
+        with ops.impl_scope("plain"):
+            want, _ = model.decode_paged(params, tok, {k: v.clone() for k, v in moved.items()},
+                                         table, pos)
+        err = (got.float() - want.float()).abs().max().item() / want.float().abs().max().item()
+        prof = profile_device(lambda: model.decode_paged(params, tok, moved, table, pos), 3)
+    if not err <= LOGIT_TOL:
+        raise AssertionError(f"paged decode logits differ from plain by {err:.3e}")
+    return {"logit_rel_err": err, "profile": prof, "b": len(group),
+            "positions": lens.tolist()}
+
+
+def phase_ragged(dev, engine0) -> dict:
+    cfg = engine0.cfg
+    reqs = ragged_trace(cfg.vocab_size)
+    cache_len = max(max(bucket_length(len(r.tokens)), len(r.tokens) + r.max_new) for r in reqs)
+    engines = {kvq: InferenceEngine(engine0.model, engine0.params, cache_len=cache_len,
+                                    kv_quant=kvq, device=dev) for kvq in (None, "int8", "fp8")}
+    warm = [Request(r.id, r.tokens, max_new=3) for r in reqs[:2]]
+    for eng in engines.values():
+        serve_ragged(eng, warm, 3, mode="paged", slots=RAGGED["slots"], chunk=RAGGED["chunk"],
+                     block_size=RAGGED["block_size"])
+    serve_ragged(engines[None], warm, 3, mode="continuous", slots=RAGGED["slots"],
+                 chunk=RAGGED["chunk"])
+    log(f"[ragged] {len(reqs)} requests, prompt lengths {sorted(len(r.tokens) for r in reqs)}, "
+        f"budgets {sorted(r.max_new for r in reqs)}; cache_len {cache_len}, slots "
+        f"{RAGGED['slots']}, chunk {RAGGED['chunk']}, block size {RAGGED['block_size']}")
+
+    passes, outs = {}, {}
+
+    def show(name, info, extra=""):
+        log(f"[ragged] {name:13s} {info['tokens']} tokens in {info['wall_s']:.2f} s "
+            f"({info['tok_s']:.1f} tok/s, prefill included); {info['rounds']} rounds "
+            f"({info['ms_per_round']:.1f} ms each), {info['decode_steps']} decode steps; "
+            f"GQMM {info['launches']['gqmm_int8']}, paged_attn "
+            f"{info['launches']['paged_attn']}, paged_attn_quant "
+            f"{info['launches']['paged_attn_quant']}"
+            + (f"; peak {info['peak_blocks']} of {info['pool_blocks']} pool blocks "
+               f"(contiguous footprint {info['footprint_blocks']})" if "peak_blocks" in info
+               else "") + extra)
+
+    def check_launches(name, info, kname):
+        want = cfg.num_layers * info["decode_steps"]
+        other = "paged_attn" if kname == "paged_attn_quant" else "paged_attn_quant"
+        if info["launches"][kname] != want or want == 0 or info["launches"][other]:
+            raise AssertionError(f"{name}: {kname} launched {info['launches'][kname]} times "
+                                 f"({other} {info['launches'][other]}), expected "
+                                 f"{cfg.num_layers} x {info['decode_steps']}")
+
+    for kvq in (None, "int8", "fp8"):
+        name = f"paged_{kvq or 'float'}"
+        outs[name], passes[name] = _ragged_pass(engines[kvq], reqs, "paged")
+        check_launches(name, passes[name], "paged_attn" if kvq is None else "paged_attn_quant")
+        show(name, passes[name])
+    outs["continuous"], passes["continuous"] = _ragged_pass(engines[None], reqs, "continuous")
+    if passes["continuous"]["launches"]["paged_attn"]:
+        raise AssertionError("the continuous pass launched the paged-attention kernel")
+    agree = {k: _agreement(outs[k], outs["continuous"]) for k in outs if k != "continuous"}
+    show("continuous", passes["continuous"],
+         "; token agreement with paged float/int8/fp8 "
+         + "/".join(f"{agree[f'paged_{k}']:.4f}" for k in ("float", "int8", "fp8")))
+
+    with ops.impl_scope("plain"):
+        outs["paged_plain"], passes["paged_plain"] = _ragged_pass(engines[None], reqs, "paged")
+    if any(passes["paged_plain"]["launches"].values()):
+        raise AssertionError("the plain pass launched a kernel")
+    agree["plain"] = _agreement(outs["paged_float"], outs["paged_plain"])
+    show("paged_plain", passes["paged_plain"],
+         f"; token agreement with the kernels' pass {agree['plain']:.4f}")
+
+    # backpressure: a pool of half the default (contiguous-footprint) size
+    half = passes["paged_float"]["footprint_blocks"] // 2 + 1
+    outs["paged_half"], passes["paged_half"] = _ragged_pass(engines[None], reqs, "paged",
+                                                            num_blocks=half)
+    check_launches("paged_half", passes["paged_half"], "paged_attn")
+    if passes["paged_half"]["peak_blocks"] > half - 1:
+        raise AssertionError("the half pool's peak exceeds the pool")
+    agree["half"] = _agreement(outs["paged_float"], outs["paged_half"])
+    show("paged_half", passes["paged_half"],
+         f"; token agreement with the default pool {agree['half']:.4f}")
+
+    logits = {kvq or "float": _first_step_logits(engines[kvq], reqs, dev)
+              for kvq in (None, "int8")}
+    for k, v in logits.items():
+        p = v["profile"]
+        log(f"[ragged] one paged decode step, {k} pool, b={v['b']}: logits kernel vs plain "
+            f"max|diff|/max|logit| {v['logit_rel_err']:.3e} (tol {LOGIT_TOL}); device "
+            f"{p['device_ms']:.3f} ms, paged attention {p['paged_ms']:.4f} ms, GQMM "
+            f"{p['gqmm_ms']:.3f} ms, {p['kernels']} kernels")
+    return {"cache_len": cache_len, "passes": passes, "agreement": agree,
+            "first_step": logits,
+            "trace": [{"len": len(r.tokens), "max_new": r.max_new} for r in reqs]}
 
 
 # ---------------------------------------------------------------------------
@@ -426,12 +766,49 @@ def phase_golden(dev) -> dict:
         f"GQMM launches {launches['gqmm_int8']})")
     if got != golden["tokens"]:
         raise AssertionError(f"golden tokens differ:\n port {got}\n  ref {golden['tokens']}")
-    return {"tokens_equal": same, "tokens_total": total, "launches": launches}
+
+    # the ragged trace through serve_ragged(mode="paged"), one KV pool type each
+    gr, ref = GOLDEN_RAGGED, golden["ragged"]
+    for k, v in gr.items():
+        if ref[k] != v:
+            raise AssertionError(f"{GOLDEN_FILE.name}: ragged {k}={ref[k]!r}, this script "
+                                 f"uses {v!r}")
+    prompts = golden_ragged_prompts(cfg.vocab_size)
+    if prompts != ref["prompts"]:
+        raise AssertionError("golden ragged prompts differ")
+    reqs = [Request(i, p, max_new=n) for i, (p, n) in enumerate(zip(prompts, gr["budgets"]))]
+    ragged = {}
+    for kv in gr["kv"]:
+        # the int8 weights of the engine above
+        eng = InferenceEngine(engine.model, engine.params, device=dev, cache_len=gr["cache_len"],
+                              kv_quant=None if kv == "float" else kv)
+        kern.reset_launches()
+        pkern.reset_launches()
+        out = serve_ragged(eng, reqs, gr["max_new_tokens"], mode="paged", slots=gr["slots"],
+                           chunk=gr["chunk"], block_size=gr["block_size"])
+        toks = [np.asarray(r.tokens).tolist() for r in out]
+        lengths = [r.length for r in out]
+        peak = paged_scheduler(eng, slots=gr["slots"], chunk=gr["chunk"],
+                               block_size=gr["block_size"]).last_peak_blocks
+        same_r = sum(a == b for ra, rb in zip(toks, ref["tokens"][kv]) for a, b in zip(ra, rb))
+        total_r = sum(gr["budgets"])
+        ragged[kv] = {"tokens_equal": same_r, "tokens_total": total_r, "peak_blocks": peak,
+                      "launches": {**kern.LAUNCHES, **pkern.LAUNCHES}}
+        log(f"[golden] serve_ragged paged, {kv} KV pool: {same_r}/{total_r} tokens equal the "
+            f"reference's; lengths {'equal' if lengths == ref['lengths'][kv] else 'differ'}, "
+            f"peak blocks {peak} (reference {ref['peak_blocks'][kv]}); launches "
+            f"{ragged[kv]['launches']}")
+        if kv == "float" and (toks != ref["tokens"][kv] or lengths != ref["lengths"][kv]
+                              or peak != ref["peak_blocks"][kv]):
+            raise AssertionError(f"golden ragged tokens differ (float pool):\n port {toks}\n"
+                                 f"  ref {ref['tokens'][kv]}")
+    return {"tokens_equal": same, "tokens_total": total, "launches": launches,
+            "ragged": ragged}
 
 
 # ---------------------------------------------------------------------------
 
-def kernel_entries(rows, serve) -> list[dict]:
+def kernel_entries(rows, serve, prows, ragged) -> list[dict]:
     entries = []
     for kname, step_key, launches, path in (
             ("gqmm_int8", "step_gqmm", serve["launches"]["gqmm_int8"],
@@ -452,6 +829,31 @@ def kernel_entries(rows, serve) -> list[dict]:
             "path": path,
             "shapes": [{k: r[k] for k in ("shape", "m", "n", "b", "us", "plain_us",
                                           "bound_us", "max_abs_err")} for r in mine],
+        })
+    passes = ragged["passes"]
+    for kname, pool, names in (("paged_attn", "float", ("paged_float",)),
+                               ("paged_attn_quant", "int8", ("paged_int8", "paged_fp8"))):
+        mine = [r for r in prows if r["kernel"] == kname]
+        main = next(r for r in mine if r["pool"] == pool and all(
+            r[k] == v for k, v in PAGED_MAIN.items()))
+        entries.append({
+            "name": kname, "route": "cuda", "source": SOURCES[kname],
+            "replaces": REPLACES[kname],
+            "launches": sum(passes[n]["launches"][kname] for n in names),
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": main["us"] / 1e3, "plain_ms": main["plain_us"] / 1e3,
+            "bound_ms": main["bound_us"] / 1e3, "bound_by": main["bound_by"],
+            "library_ms": None,
+            "per": f"one call at b={PAGED_MAIN['b']}, BS {PAGED_MAIN['bs']}, MB*BS "
+                   f"{PAGED_MAIN['T']}, KV 4, G 8, hd 64, bf16 q, {pool} pool (the ragged "
+                   "serve's decode shape); max_abs_err over every phase-2 case",
+            "path": "serve_ragged(mode='paged'), " + " and ".join(
+                f"{passes[n]['kv']} KV ({passes[n]['launches'][kname]} launches = "
+                f"{passes[n]['launches'][kname] // passes[n]['decode_steps']} layers x "
+                f"{passes[n]['decode_steps']} decode steps)" for n in names),
+            "shapes": [{k: r[k] for k in ("qdtype", "pool", "b", "bs", "T", "us", "plain_us",
+                                          "bound_us", "max_abs_err", "tol")}
+                       for r in mine if "us" in r],
         })
     return entries
 
@@ -484,18 +886,22 @@ def main(argv=None) -> int:
                 log(f"[build] {b.name}: {line.strip()}")
 
     rows = phase_kernels(dev)
-    serve = phase_serve(dev, rows)
+    prows = phase_paged_kernels(dev)
+    serve, engine = phase_serve(dev, rows)
+    ragged = phase_ragged(dev, engine)
+    del engine
     golden = phase_golden(dev)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
-    entries = kernel_entries(rows, serve)
+    entries = kernel_entries(rows, serve, prows, ragged)
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
         Path(args.report).write_text(json.dumps(
-            {"card": smi, "kernel_rows": rows, "serve": serve, "golden": golden,
-             "kernels": entries, "seconds": time.perf_counter() - t_start}, indent=1))
+            {"card": smi, "kernel_rows": rows, "paged_rows": prows, "serve": serve,
+             "ragged": ragged, "golden": golden, "kernels": entries,
+             "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -1,0 +1,106 @@
+"""Least time one H100 could take for the function of each TPU kernel of the
+reference package, computed from TinyLlama-1.1B's shapes.
+
+    python -m repro_torch.kernels.bounds
+
+A bound is the larger of two times: the bytes the function must move (each
+input read once, each output written once) over the HBM rate, and the
+operations it must do over the card's peak rate for their type (NVIDIA's
+data sheet, H100 SXM, dense, at 700 W). Nothing here runs a kernel; the
+paged-attention bound depends on the positions of a run and is computed by
+``chip_smoke.py`` from its own inputs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.configs.base import ModelConfig
+
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"int8": 1979e12, "fp8": 1979e12, "bf16": 989e12, "f32": 67e12}
+# weight formats of the reference's GQMV/GQMM kernels: bits per stored value
+# and the operations' type (int formats take the int8 tensor rate)
+WEIGHT_BITS = {"int8": 8, "int4": 4, "int3": 3, "fp8": 8}
+
+
+@dataclasses.dataclass(frozen=True)
+class Bound:
+    nbytes: int
+    ops: int
+    rate: str
+
+    @property
+    def seconds(self) -> float:
+        return max(self.nbytes / HBM_BYTES_PER_S, self.ops / PEAK_OPS_PER_S[self.rate])
+
+    @property
+    def bound_by(self) -> str:
+        tb = self.nbytes / HBM_BYTES_PER_S
+        return "bytes" if tb >= self.ops / PEAK_OPS_PER_S[self.rate] else "operations"
+
+
+def projections(cfg: ModelConfig) -> list[tuple[int, int, int]]:
+    """(m, n, count) of the quantized projections of one forward pass."""
+    hd = cfg.resolved_head_dim
+    qkv = (cfg.num_heads + 2 * cfg.num_kv_heads) * hd
+    layer = [(qkv, cfg.d_model), (cfg.d_model, cfg.num_heads * hd),
+             (2 * cfg.d_ff, cfg.d_model), (cfg.d_model, cfg.d_ff)]
+    return [(m, n, cfg.num_layers) for m, n in layer] + [(cfg.vocab_size, cfg.d_model, 1)]
+
+
+def projection_pass(cfg: ModelConfig, fmt: str, b: int) -> Bound:
+    """The 89 W8A8-style projections of one forward pass at batch b: weights
+    at ``fmt``'s width and their f32 group scales, int8 activations and their
+    scales in, f32 outputs out; 2 operations per multiply-add."""
+    gs, bits = cfg.group_size, WEIGHT_BITS[fmt]
+    nbytes = ops = 0
+    for m, n, count in projections(cfg):
+        nbytes += count * (m * n * bits // 8 + 4 * m * n // gs + b * n + 4 * b * n // gs + 4 * b * m)
+        ops += count * 2 * b * m * n
+    return Bound(nbytes, ops, "fp8" if fmt == "fp8" else "int8")
+
+
+def rmsnorm_quant(cfg: ModelConfig, b: int) -> Bound:
+    """One fused RMSNorm + int8 activation quantization of (b, d) bf16 rows:
+    x and the norm weight in, int8 rows and f32 group scales out; about 8 f32
+    operations per element (square, sum, scale, weight, absmax, divide, round,
+    clip)."""
+    d = cfg.d_model
+    return Bound(2 * b * d + 2 * d + b * d + 4 * b * d // cfg.group_size, 8 * b * d, "f32")
+
+
+def flash_prefill(cfg: ModelConfig, b: int, s: int) -> Bound:
+    """One layer's causal prefill attention over (b, s) bf16 tokens: q and
+    out (b, H, s, hd), k and v (b, KV, s, hd); q . k and p . v over the
+    s (s + 1) / 2 causal pairs of each head, on the bf16 tensor cores."""
+    hd = cfg.resolved_head_dim
+    q = b * cfg.num_heads * s * hd
+    kv = b * cfg.num_kv_heads * s * hd
+    return Bound(2 * (2 * q + 2 * kv), 4 * b * cfg.num_heads * hd * s * (s + 1) // 2, "bf16")
+
+
+def table(cfg: ModelConfig) -> list[tuple[str, str, Bound]]:
+    rows = [("B1 gqmv_pallas (int8)", "one pass, b=1", projection_pass(cfg, "int8", 1)),
+            ("B3 gqmm_pallas (int8)", "one pass, b=4", projection_pass(cfg, "int8", 4)),
+            ("B3 gqmm_pallas (int8)", "one pass, b=256", projection_pass(cfg, "int8", 256))]
+    for tag, fmt in (("B5", "int4"), ("B6", "int3"), ("B7", "fp8")):
+        rows += [(f"{tag} gqmv_{fmt}_pallas", "one pass, b=1", projection_pass(cfg, fmt, 1)),
+                 (f"{tag} gqmm_{fmt}_pallas", "one pass, b=4", projection_pass(cfg, fmt, 4))]
+    rows += [("B2 rmsnorm_quant_pallas", "one call, b=4", rmsnorm_quant(cfg, 4)),
+             ("B2 rmsnorm_quant_pallas", "one call, b=256", rmsnorm_quant(cfg, 256)),
+             ("B4 flash_attention_pallas", "one layer, 4 x 64 tokens", flash_prefill(cfg, 4, 64))]
+    return rows
+
+
+def main() -> None:
+    from repro_torch.configs.tinyllama_1_1b import CONFIG
+
+    print(f"{'kernel':28s} {'work':26s} {'bytes':>13s} {'operations':>15s} {'bound us':>10s}  by")
+    for name, work, bnd in table(CONFIG):
+        print(f"{name:28s} {work:26s} {bnd.nbytes:13d} {bnd.ops:15d} "
+              f"{1e6 * bnd.seconds:10.3f}  {bnd.bound_by}")
+
+
+if __name__ == "__main__":
+    main()

@@ -31,6 +31,7 @@ NVCC_FLAGS = (
 # library name -> its sources under csrc/
 LIBRARIES: dict[str, tuple[str, ...]] = {
     "gqmm": ("gqmm.cu",),
+    "paged_attn": ("paged_attn.cu",),
 }
 
 

@@ -1,4 +1,5 @@
-"""Entry points for the quantized matmuls (counterpart of ``repro/kernels/ops.py``).
+"""Entry points for the quantized matmuls and paged decode attention
+(counterpart of ``repro/kernels/ops.py``).
 
 ``impl`` picks the implementation, as in the reference:
 
@@ -23,6 +24,7 @@ import torch
 
 from repro_torch.core.quant import QuantizedTensor, quantize_activation
 from repro_torch.kernels import gqmv as _cuda
+from repro_torch.kernels import paged_attn as _paged
 from repro_torch.kernels import ref as _ref
 
 IMPLS = ("auto", "cuda", "plain")
@@ -63,6 +65,24 @@ def gqmm(wq, ws, xq, xs, *, group_size: int, impl: str | None = None) -> torch.T
     if _resolve(impl, wq) == "cuda":
         return _cuda.gqmm_cuda(wq, ws, xq, xs, group_size=group_size)
     return _ref.gqmm_ref(wq, ws, xq, xs, group_size=group_size)
+
+
+def paged_attention(q, k_pages, v_pages, block_table, pos, k_new, v_new, mask, *,
+                    scale: float, softcap: float | None = None, k_scales=None,
+                    v_scales=None, impl: str | None = None) -> torch.Tensor:
+    """One paged decode-attention step -> ctx (b, KV*G*hd).
+
+    q (b, KV, G, hd); pools (NB, BS, KV, hd) float, or int8/fp8 with
+    per-row f32 ``k_scales``/``v_scales`` (NB, BS, KV); block_table (b, MB);
+    pos (b,); k_new/v_new (b, KV, hd) the current token's uncommitted rows;
+    mask (b, MB*BS) additive (a decode mask: see ``kernels/paged_attn.py``).
+    The plain version gathers the virtual sequence through the block table;
+    the CUDA kernel reads only the live blocks and dequantizes in-kernel."""
+    args = (q, k_pages, v_pages, block_table, pos, k_new, v_new, mask)
+    kw = dict(scale=scale, softcap=softcap, k_scales=k_scales, v_scales=v_scales)
+    if _resolve(impl, q) == "cuda":
+        return _paged.paged_attention_cuda(*args, **kw)
+    return _ref.paged_attention_ref(*args, **kw)
 
 
 def quantized_matmul(x: torch.Tensor, w: QuantizedTensor, *,

@@ -1,0 +1,171 @@
+"""CUDA paged decode-attention kernel for Hopper: checked wrapper and launch counts.
+
+Counterpart of ``repro/kernels/paged_attn.py``. The kernel is in
+``csrc/paged_attn.cu`` (its design and bound are noted there):
+
+  paged_attention_cuda  <- ``paged_attention_pallas``: float pools
+                           (``_paged_kernel``) and int8/fp8 pools with
+                           per-row f32 scales (``_paged_quant_kernel``)
+
+The wrapper takes CUDA tensors only: it checks device, dtype, shape,
+contiguity and the alignment of the pool's vector loads and raises on
+anything else; converts the block table and positions to int32 explicitly
+(the port's positions are ``long``); allocates the output with
+``torch.empty``; launches on the current stream; raises if the launch
+reports a CUDA error; and counts the launch in ``LAUNCHES`` under
+``paged_attn`` (float pool) or ``paged_attn_quant`` (int8/fp8 pool).
+
+One property of the kernel the caller relies on: a pool block whose mask
+entries are all <= -1e29 is skipped, neither read nor summed. That is exact
+whenever every row has an unmasked column, as every decode mask has
+(``models/common.decode_mask``: column ``pos`` is always open), so pass
+decode masks. The plain version is ``kernels/ref.paged_attention_ref``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import cuda_build
+
+# dtype codes of csrc/paged_attn.cu
+_Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_QUANT_DTYPES = {torch.int8: 2, torch.float8_e4m3fn: 3}
+
+THREADS, TILE_COLS, MAX_OUT, MAX_SMEM = 128, 64, 8, 48 * 1024
+
+# launches per pool kind; a run zeroes these, drives the model, and reads them
+LAUNCHES: dict[str, int] = {"paged_attn": 0, "paged_attn_quant": 0}
+
+_LIB: list[ctypes.CDLL] = []
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _lib() -> ctypes.CDLL:
+    if not _LIB:
+        lib = cuda_build.load("paged_attn")
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.paged_attn.argtypes = [p] * 11 + [i] * 7 + [f, f, i, i, i, p]
+        lib.paged_attn.restype = i
+        _LIB.append(lib)
+    return _LIB[0]
+
+
+def smem_bytes(g: int, hd: int, bs: int) -> int:
+    """Shared memory of one CTA, as ``csrc/paged_attn.cu`` sizes it."""
+    tb = 1 if bs >= TILE_COLS else TILE_COLS // bs
+    tc = tb * bs
+    return 4 * (g * hd + tc * (hd + 1) + tc * hd + g * tc + 3 * g) + 4 * tb
+
+
+def _check(q, k_pages, v_pages, block_table, pos, k_new, v_new, mask, k_scales, v_scales):
+    named = {"q": q, "k_pages": k_pages, "v_pages": v_pages, "block_table": block_table,
+             "pos": pos, "k_new": k_new, "v_new": v_new, "mask": mask}
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("a quantized pool needs both k_scales and v_scales")
+    quant = k_scales is not None
+    if quant:
+        named.update(k_scales=k_scales, v_scales=v_scales)
+    for name, t in named.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor, got device {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if len({t.device for t in named.values()}) != 1:
+        raise ValueError("all tensors must be on one device")
+    if q.dtype not in _Q_DTYPES:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    for name in ("k_new", "v_new"):
+        if named[name].dtype != q.dtype:
+            raise TypeError(f"{name} must be {q.dtype} like q, got {named[name].dtype}")
+    if v_pages.dtype != k_pages.dtype:
+        raise TypeError(f"v_pages must be {k_pages.dtype} like k_pages, got {v_pages.dtype}")
+    if quant:
+        if k_pages.dtype not in _QUANT_DTYPES:
+            raise TypeError(f"a pool with scales must be int8 or float8_e4m3fn, "
+                            f"got {k_pages.dtype}")
+        for name in ("k_scales", "v_scales"):
+            if named[name].dtype != torch.float32:
+                raise TypeError(f"{name} must be float32, got {named[name].dtype}")
+    elif k_pages.dtype != q.dtype:
+        raise TypeError(f"a float pool must be {q.dtype} like q, got {k_pages.dtype} "
+                        "(int8/fp8 pools need k_scales and v_scales)")
+    if mask.dtype != torch.float32:
+        raise TypeError(f"mask must be float32, got {mask.dtype}")
+    for name in ("block_table", "pos"):
+        if named[name].dtype not in (torch.int32, torch.int64):
+            raise TypeError(f"{name} must be int32 or int64, got {named[name].dtype}")
+    if q.ndim != 4:
+        raise ValueError(f"q must be (b, KV, G, hd), got shape {tuple(q.shape)}")
+    b, kv, g, hd = q.shape
+    if k_pages.ndim != 4 or k_pages.shape[2:] != (kv, hd):
+        raise ValueError(f"k_pages must be (NB, BS, {kv}, {hd}), got {tuple(k_pages.shape)}")
+    nb, bs = k_pages.shape[:2]
+    if tuple(v_pages.shape) != tuple(k_pages.shape):
+        raise ValueError(f"v_pages must be {tuple(k_pages.shape)}, got {tuple(v_pages.shape)}")
+    if quant:
+        for name in ("k_scales", "v_scales"):
+            if tuple(named[name].shape) != (nb, bs, kv):
+                raise ValueError(f"{name} must be {(nb, bs, kv)}, "
+                                 f"got {tuple(named[name].shape)}")
+    if block_table.ndim != 2 or block_table.shape[0] != b or block_table.shape[1] < 1:
+        raise ValueError(f"block_table must be ({b}, MB) with MB >= 1, "
+                         f"got {tuple(block_table.shape)}")
+    mb = block_table.shape[1]
+    if tuple(pos.shape) != (b,):
+        raise ValueError(f"pos must be ({b},), got {tuple(pos.shape)}")
+    for name in ("k_new", "v_new"):
+        if tuple(named[name].shape) != (b, kv, hd):
+            raise ValueError(f"{name} must be {(b, kv, hd)}, got {tuple(named[name].shape)}")
+    if tuple(mask.shape) != (b, mb * bs):
+        raise ValueError(f"mask must be {(b, mb * bs)}, got {tuple(mask.shape)}")
+    if not 1 <= b <= 65535 or hd % 4 or g * hd > MAX_OUT * THREADS:
+        raise ValueError(f"unsupported shape b={b}, G={g}, hd={hd}: the kernel takes "
+                         f"1 <= b <= 65535, hd a multiple of 4 and G * hd <= "
+                         f"{MAX_OUT * THREADS}")
+    if smem_bytes(g, hd, bs) > MAX_SMEM:
+        raise ValueError(f"block size {bs} with G={g}, hd={hd} needs "
+                         f"{smem_bytes(g, hd, bs)} bytes of shared memory (max {MAX_SMEM})")
+    for name in ("k_pages", "v_pages"):
+        if named[name].data_ptr() % (4 * named[name].element_size()):
+            raise ValueError(f"{name} must be aligned to 4 elements for the kernel's "
+                             "vector loads")
+    return b, kv, g, hd, bs, mb, nb, quant
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
+
+
+def paged_attention_cuda(q, k_pages, v_pages, block_table, pos, k_new, v_new, mask, *,
+                         scale: float, softcap: float | None = None,
+                         k_scales=None, v_scales=None) -> torch.Tensor:
+    """ctx (b, KV * G * hd) in q's dtype: one decode step of attention over
+    the block pool (see ``kernels/ref.paged_attention_ref`` for the math)."""
+    b, kv, g, hd, bs, mb, nb, quant = _check(q, k_pages, v_pages, block_table, pos,
+                                             k_new, v_new, mask, k_scales, v_scales)
+    table32 = block_table.to(torch.int32)       # explicit: the kernel reads int32
+    pos32 = pos.to(torch.int32)
+    out = torch.empty((b, kv * g * hd), dtype=q.dtype, device=q.device)
+    pool_code = _QUANT_DTYPES[k_pages.dtype] if quant else _Q_DTYPES[q.dtype]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _lib().paged_attn(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        k_scales.data_ptr() if quant else None, v_scales.data_ptr() if quant else None,
+        table32.data_ptr(), pos32.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+        mask.data_ptr(), out.data_ptr(), b, kv, g, hd, bs, mb, nb,
+        float(scale), float(softcap or 0.0), _Q_DTYPES[q.dtype], pool_code,
+        q.device.index, stream)
+    name = "paged_attn_quant" if quant else "paged_attn"
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
+    return out

@@ -1,7 +1,8 @@
-"""Plain PyTorch versions of the GQMV/GQMM kernels (paper Algorithm 1).
+"""Plain PyTorch versions of the port's CUDA kernels.
 
-Counterpart of ``repro/kernels/ref.py`` (``gqmv_ref``, ``gqmm_ref``) and
-the yardstick the CUDA kernels in ``csrc/gqmm.cu`` are held to:
+Counterpart of ``repro/kernels/ref.py`` (``gqmv_ref``, ``gqmm_ref``,
+``paged_attention_ref``) and the yardstick the CUDA kernels in ``csrc/``
+are held to. GQMV/GQMM (paper Algorithm 1, ``csrc/gqmm.cu``):
 
   for each output row i:
     for each group j (of GS columns):
@@ -58,3 +59,68 @@ def gqmm_ref(
     group_sums = torch.einsum("mgk,bgk->bmg", wg, xg)           # exact (b, m, ng)
     scaled = group_sums * ws[None] * xs[:, None, :]
     return scaled.sum(dim=-1)
+
+
+def paged_attention_ref(
+    q: torch.Tensor,            # (b, KV, G, hd) decode-step queries, grouped
+    k_pages: torch.Tensor,      # (NB, BS, KV, hd) one layer's block pool
+    v_pages: torch.Tensor,      # (NB, BS, KV, hd)
+    block_table: torch.Tensor,  # (b, MB) physical block per virtual block
+    pos: torch.Tensor,          # (b,) current decode position per row
+    k_new: torch.Tensor,        # (b, KV, hd) current token's K (not yet committed)
+    v_new: torch.Tensor,        # (b, KV, hd)
+    mask: torch.Tensor,         # (b, T) additive decode mask, T = MB * BS
+    *,
+    scale: float,
+    softcap: float | None = None,
+    k_scales: torch.Tensor | None = None,   # (NB, BS, KV) quantized-pool scales
+    v_scales: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain version of the paged decode-attention kernel (``csrc/paged_attn.cu``),
+    the reference's ``paged_attention_ref`` op for op.
+
+    Row i's keys live in pool blocks ``block_table[i]``: virtual position t
+    maps to slot ``(block_table[i, t // BS], t % BS)``. The gathered virtual
+    sequence is attended with the current token handled explicitly: its
+    score overwrites column ``pos``, and its value is added after the
+    attention weight at ``pos`` is zeroed, so stale rows in recycled or sink
+    blocks never contribute (every other unwritten column is masked).
+
+    With ``k_scales``/``v_scales`` the pool holds int8/fp8 rows with one f32
+    scale per (block row, kv head), factored outside the dots as in the
+    reference: ``(q . k_q) * k_s`` and ``(attn * v_s) . v_q``.
+
+    Returns ctx (b, KV * G * hd) in ``q``'s dtype.
+    """
+    b, kv, g, hd = q.shape
+    bs = k_pages.shape[1]
+    mb = block_table.shape[1]
+    table = block_table.long()
+    pos = pos.long()
+    k = k_pages[table].reshape(b, mb * bs, kv, hd)
+    v = v_pages[table].reshape(b, mb * bs, kv, hd)
+    quant = k_scales is not None
+    if quant:
+        k = k.to(q.dtype)
+        ks = k_scales[table].reshape(b, mb * bs, kv)              # (b, T, KV)
+        vs = v_scales[table].reshape(b, mb * bs, kv)
+    scores = torch.einsum("bkgh,btkh->bkgt", q, k).to(torch.float32)
+    if quant:
+        scores = scores * ks.permute(0, 2, 1)[:, :, None, :]      # (b, KV, 1, T)
+    cur = torch.einsum("bkgh,bkh->bkg", q, k_new).to(torch.float32)
+    rows = torch.arange(b, device=q.device)
+    scores[rows, :, :, pos] = cur
+    scores = scores * scale
+    if softcap:
+        scores = softcap * torch.tanh(scores / softcap)
+    scores = scores + mask[:, None, None, :]
+    attn = torch.softmax(scores, dim=-1)
+    attn_cur = attn[rows, :, :, pos][..., None].to(q.dtype)       # (b, KV, G, 1)
+    attn_z = attn.clone()
+    attn_z[rows, :, :, pos] = 0.0
+    if quant:
+        attn_z = attn_z * vs.permute(0, 2, 1)[:, :, None, :]
+        v = v.to(q.dtype)
+    ctx = torch.einsum("bkgt,btkh->bkgh", attn_z.to(q.dtype), v)
+    ctx = ctx + attn_cur * v_new[:, :, None, :]
+    return ctx.reshape(b, kv * g * hd)

@@ -1,8 +1,11 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch <id> [...]``.
 
-Counterpart of the uniform-batch path of ``repro/launch/serve.py``: random
-weights from ``--seed``, group-wise W8A8 PTQ unless ``--no-quantize``, then
-a batch of greedy requests, timed warm (first call) and hot. Runs on
+Counterpart of ``repro/launch/serve.py``: random weights from ``--seed``,
+group-wise W8A8 PTQ unless ``--no-quantize``, optionally a quantized KV
+cache (``--kv-quant int8|fp8``), then greedy requests, timed warm (first
+call) and hot: a uniform batch through ``InferenceEngine.generate``, or
+with ``--ragged`` a mixed-length trace through ``serve_ragged`` (``--mode``
+auto/paged/continuous/bucketed, ``--slots``, ``--block-size``). Runs on
 ``--device cuda`` by default; pass ``--device cpu`` to run on the CPU.
 """
 
@@ -16,6 +19,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.registry import build, load_config
+from repro_torch.serving.batching import Request, bucket_length, resolve_mode, serve_ragged
 from repro_torch.serving.engine import InferenceEngine
 
 
@@ -34,7 +38,20 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=64, help="tokens to generate")
     ap.add_argument("--no-quantize", action="store_true",
                     help="float weights instead of the paper's W8A8")
+    ap.add_argument("--kv-quant", default=None, choices=["int8", "fp8"],
+                    help="store the KV cache quantized (per-row scales, "
+                         "dequantized in the attention kernel)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ragged", action="store_true",
+                    help="serve a mixed-length trace through serve_ragged "
+                         "(paged/continuous-batching scheduler where supported)")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="decode slots for --ragged continuous batching")
+    ap.add_argument("--mode", default="auto",
+                    help="--ragged scheduler: auto, paged, continuous, or bucketed "
+                         "(auto prefers paged; validated against the arch's capabilities)")
+    ap.add_argument("--block-size", type=int, default=8,
+                    help="KV block size (tokens) for the paged scheduler")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
@@ -47,12 +64,39 @@ def main(argv=None):
         cfg = cfg.reduced()
     model = build(cfg)
     params = model.init(seed=args.seed, device=device)
-    engine = InferenceEngine(model, params, cache_len=args.prompt_len + args.steps,
-                             quantize=not args.no_quantize, device=device)
+    cache_len = args.prompt_len + args.steps
+    if args.ragged:
+        # ragged prompts are padded up to power-of-two buckets
+        cache_len = max(cache_len, bucket_length(args.prompt_len))
+    try:
+        engine = InferenceEngine(model, params, cache_len=cache_len,
+                                 quantize=not args.no_quantize, kv_quant=args.kv_quant,
+                                 device=device)
+    except ValueError as e:
+        ap.error(str(e))
     print(f"arch: {cfg.arch_id}  device: {device}  quantized bytes fraction: "
-          f"{engine.quantized_fraction:.3f}")
+          f"{engine.quantized_fraction:.3f}  kv cache: {args.kv_quant or cfg.param_dtype}")
 
     rng = np.random.default_rng(args.seed)
+    if args.ragged:
+        lengths = rng.integers(2, args.prompt_len + 1, size=(args.batch,))
+        reqs = [Request(i, rng.integers(0, cfg.vocab_size, size=(n,)).tolist())
+                for i, n in enumerate(lengths)]
+        try:
+            mode = resolve_mode(engine, args.mode)    # resolved for the report
+        except ValueError as e:
+            ap.error(str(e))                          # lists the valid modes
+        kw = dict(slots=args.slots, mode=mode, block_size=args.block_size)
+        serve_ragged(engine, reqs, args.steps, **kw)  # warm
+        t0 = time.perf_counter()
+        out = serve_ragged(engine, reqs, args.steps, **kw)
+        hot = time.perf_counter() - t0
+        toks = sum(r.length for r in out)
+        print(f"ragged ({mode}, lengths {sorted(lengths.tolist())}): "
+              f"{toks} tokens in {hot:.2f}s ({toks / hot:.2f} tok/s)")
+        print("first sequence:", out[0].tokens[:16].tolist())
+        return out
+
     batch = {"tokens": torch.as_tensor(
         rng.integers(0, cfg.vocab_size, size=(args.batch, args.prompt_len)))}
     _, warm = _timed(engine, batch, args.steps)

@@ -1,11 +1,21 @@
 """GQA attention (counterpart of the GQA half of ``repro/models/attention.py``).
 
-Only the reference's default path is ported: full ``_mha`` attention in
-prefill and decode over the base (b, T, KV, hd) cache layout, with
-``blockwise_attention``, ``deferred_decode_cache``, the kvt layout and
-quantized KV off. The mask selectors keep the reference's sliding-window
-arguments, which stay None until a windowed config (gemma2) is ported. The
-sharding annotations (``logical.constrain``) come with the sharding slice.
+Ported paths, with the reference's default flags (``blockwise_attention``,
+``deferred_decode_cache`` and the kvt layout off):
+
+- full ``_mha`` attention in prefill and decode over the base
+  (b, T, KV, hd) cache layout;
+- the quantized KV cache (``cfg.kv_quant`` "int8"/"fp8"): kvt-major rows
+  with per-row f32 scales, written by ``gqa_prefill`` and read by
+  ``gqa_decode_deferred_quant``;
+- paged decode over a block pool (``gqa_decode_paged``), float or
+  quantized, through ``kernels/ops.paged_attention`` (the CUDA kernel on
+  the card), with the deferred commits ``commit_layers_paged`` /
+  ``commit_layers_bkt``.
+
+The mask selectors keep the reference's sliding-window arguments, which
+stay None until a windowed config (gemma2) is ported. The sharding
+annotations (``logical.constrain``) come with the sharding slice.
 
 Projections go through ``linear``, so the same code runs float weights or
 the W8A8 kernels. QKV is one fused projection (paper Alg. 2 line 4).
@@ -21,6 +31,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.qlinear import linear, split_fused
+from repro_torch.kernels import ops
 from repro_torch.models.common import (
     apply_rope,
     causal_mask,
@@ -50,9 +61,59 @@ def _commit_bt(cache: torch.Tensor, rows: torch.Tensor, pos) -> torch.Tensor:
     return cache
 
 
+def _col_update(scores: torch.Tensor, cur: torch.Tensor, pos) -> torch.Tensor:
+    """scores (b, ..., t): overwrite column ``pos`` (per row when a (b,)
+    tensor) with cur (b, ...), in place."""
+    if isinstance(pos, torch.Tensor) and pos.ndim:
+        idx = (torch.arange(scores.shape[0], device=scores.device),) + (
+            slice(None),) * (scores.ndim - 2) + (pos,)
+        scores[idx] = cur
+    else:
+        scores[..., pos] = cur
+    return scores
+
+
+def _col_at(attn: torch.Tensor, pos) -> torch.Tensor:
+    """attn (b, ..., t) -> (b, ..., 1) column at ``pos`` (per row when a tensor)."""
+    if isinstance(pos, torch.Tensor) and pos.ndim:
+        idx = (torch.arange(attn.shape[0], device=attn.device),) + (
+            slice(None),) * (attn.ndim - 2) + (pos,)
+        return attn[idx][..., None]
+    return attn[..., pos:pos + 1]
+
+
 def _bcast_decode_mask(m: torch.Tensor) -> torch.Tensor:
     """decode mask (t,) or (b, t) -> broadcastable over (b, s=1, t) scores."""
     return m[None, None, :] if m.ndim == 1 else m[:, None, :]
+
+
+def commit_layers_paged(pages: torch.Tensor, rows: torch.Tensor, block_table: torch.Tensor,
+                        pos: torch.Tensor) -> torch.Tensor:
+    """Deferred paged commit: write rows (L, b, KV[, hd]) into the block pool
+    (L, NB, BS, KV[, hd]) at each row's (physical block, offset) for virtual
+    position ``pos`` (b,), for all layers at once, IN PLACE (the reference
+    returns an updated copy). The block index is clamped to the table width
+    so a frozen position never escapes its own table row. Duplicate targets
+    (frozen slots all mapped to the sink block 0) are harmless."""
+    bs = pages.shape[2]
+    b = rows.shape[1]
+    idx = torch.clamp(pos // bs, max=block_table.shape[1] - 1)
+    phys = block_table[torch.arange(b, device=pages.device), idx].long()
+    pages[:, phys, pos % bs] = rows
+    return pages
+
+
+def commit_layers_bkt(cache: torch.Tensor, rows: torch.Tensor, pos) -> torch.Tensor:
+    """Deferred-decode commit, (L, b, KV, T, ...) layout (the quantized
+    cache): write rows (L, b, KV, 1, ...) at time ``pos``, in place."""
+    if isinstance(pos, torch.Tensor) and pos.ndim:
+        b, kv = cache.shape[1], cache.shape[2]
+        dev = cache.device
+        cache[:, torch.arange(b, device=dev)[:, None], torch.arange(kv, device=dev)[None, :],
+              pos[:, None]] = rows[:, :, :, 0]
+    else:
+        cache[:, :, :, pos] = rows[:, :, :, 0]
+    return cache
 
 
 def init_gqa(gen: torch.Generator, cfg: ModelConfig, lead: tuple[int, ...] = ()) -> dict:
@@ -130,6 +191,14 @@ def gqa_prefill(p, x: torch.Tensor, cfg: ModelConfig, cache_len: int, *, window=
         v = torch.where(valid, v, 0)
         mask = mask[None] + length_mask(lengths, s)[:, None, :]     # (b, s, s)
     ctx = _mha(q, k, v, mask, cfg)
+    kvq = kv_quant_format(cfg)
+    if kvq:
+        # kvt-major storage rows (b, KV, T, hd) and scales (b, KV, T)
+        kq, ks = _quantize_rows(k.permute(0, 2, 1, 3), kvq)
+        vq, vs = _quantize_rows(v.permute(0, 2, 1, 3), kvq)
+        pad, pad_s = (0, 0, 0, cache_len - s), (0, cache_len - s)
+        return linear(p["wo"], ctx), (_pad_rows(kq, pad), F.pad(ks, pad_s),
+                                      _pad_rows(vq, pad), F.pad(vs, pad_s))
     pad = (0, 0, 0, 0, 0, cache_len - s)                            # time axis 1
     return linear(p["wo"], ctx), (F.pad(k, pad), F.pad(v, pad))
 
@@ -147,3 +216,113 @@ def gqa_decode(p, x: torch.Tensor, cache, pos, cfg: ModelConfig, *, window=None,
         _flag_decode_mask(k_cache.shape[1], pos, window, use_window, x.device))
     ctx = _mha(q, k_cache, v_cache, mask, cfg)                      # (b, 1, q_dim)
     return linear(p["wo"], ctx[:, 0, :]), (k_cache, v_cache)
+
+
+# KV-cache quantization storage dtypes (cfg.kv_quant / serve --kv-quant):
+# one scale per (position, kv head) row, group = head_dim, the paper's
+# group-wise symmetric scheme (Eq. 1) applied to the cache.
+KV_STORE_DTYPES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
+FP8_MAX = 448.0      # float8_e4m3fn's largest finite value
+
+
+def kv_quant_format(cfg: ModelConfig) -> str | None:
+    """The active KV-cache quantization format, ``cfg.kv_quant`` (the
+    reference's legacy ``int8_kv_cache`` flag is not ported)."""
+    kvq = cfg.kv_quant
+    if kvq is not None and kvq not in KV_STORE_DTYPES:
+        raise ValueError(f"unknown kv_quant format {kvq!r}; supported: "
+                         f"{sorted(KV_STORE_DTYPES)}")
+    return kvq
+
+
+def _quantize_rows(t: torch.Tensor, fmt: str = "int8"):
+    """Symmetric quantization over the last axis (head_dim = one group),
+    Eq. 1, bit-exact against the reference. t (..., hd) -> (storage rows,
+    f32 scales (...)). int8: S = absmax * 2/255, round half to even, clip to
+    +-127. fp8: S = absmax / 448, a cast onto the e4m3 grid. A zero row
+    keeps scale 0 and values 0."""
+    t32 = t.to(torch.float32)
+    absmax = t32.abs().amax(dim=-1)
+    if fmt == "fp8":
+        scales = absmax / FP8_MAX
+        safe = torch.where(scales > 0, scales, 1.0)
+        return (t32 / safe[..., None]).to(torch.float8_e4m3fn), scales
+    scales = absmax * (2.0 / 255.0)
+    safe = torch.where(scales > 0, scales, 1.0)
+    q = torch.clamp(torch.round(t32 / safe[..., None]), -127, 127)
+    return q.to(torch.int8), scales
+
+
+def _pad_rows(x: torch.Tensor, pad) -> torch.Tensor:
+    """F.pad for storage rows: fp8 has no pad kernel, so pad its bytes."""
+    if x.dtype == torch.float8_e4m3fn:
+        return F.pad(x.view(torch.uint8), pad).view(torch.float8_e4m3fn)
+    return F.pad(x, pad)
+
+
+def gqa_decode_deferred_quant(p, x: torch.Tensor, cache, pos, cfg: ModelConfig, *,
+                              window=None, use_window=None):
+    """Quantized-KV-cache decode over the kvt layout (int8 or fp8 rows):
+    scores = (q . k_q) * k_s; ctx = (attn * v_s) . v_q, the per-row scales
+    factored out of the sums like the GQMV group scales. The cache is read
+    only; returns (y, (k_q, k_s, v_q, v_s) rows (b, KV, 1[, hd])) for the
+    caller to commit with ``commit_layers_bkt``. Plain PyTorch: the
+    reference runs XLA here too, no kernel."""
+    kq_c, ks_c, vq_c, vs_c = cache      # (b, KV, T, hd) storage, (b, KV, T) f32
+    b = x.shape[0]
+    hd, kv_heads, h = cfg.resolved_head_dim, cfg.num_kv_heads, cfg.num_heads
+    g = h // kv_heads
+    t = kq_c.shape[2]
+    q, k_new, v_new = _qkv(p, x[:, None, :], cfg, _pos_rows(pos, b, x.device))
+    qg = q.reshape(b, kv_heads, g, hd)
+    scores = torch.einsum("bkgh,bkth->bkgt", qg, kq_c.to(x.dtype)).to(torch.float32)
+    scores = scores * ks_c[:, :, None, :]
+    cur = torch.einsum("bkgh,bkh->bkg", qg, k_new[:, 0]).to(torch.float32)
+    scores = _col_update(scores, cur, pos)
+    scores = scores * _gqa_scale(cfg)
+    dm = _flag_decode_mask(t, pos, window, use_window, x.device)
+    scores = scores + (dm[None, None, None, :] if dm.ndim == 1 else dm[:, None, None, :])
+    attn = torch.softmax(scores, dim=-1)                            # f32 (b, KV, G, T)
+    ctx = torch.einsum("bkgt,bkth->bkgh", (attn * vs_c[:, :, None, :]).to(x.dtype),
+                       vq_c.to(x.dtype))
+    ctx = ctx + _col_at(attn, pos).to(x.dtype) * v_new[:, 0][:, :, None, :]
+    ctx = ctx.reshape(b, h * hd)
+    kvq = kv_quant_format(cfg) or "int8"
+    kq_n, ks_n = _quantize_rows(k_new[:, 0], kvq)                   # (b, KV, hd) / (b, KV)
+    vq_n, vs_n = _quantize_rows(v_new[:, 0], kvq)
+    rows = (kq_n[:, :, None, :], ks_n[:, :, None], vq_n[:, :, None, :], vs_n[:, :, None])
+    return linear(p["wo"], ctx), rows
+
+
+def gqa_decode_paged(p, x: torch.Tensor, pages, block_table: torch.Tensor, pos: torch.Tensor,
+                     cfg: ModelConfig, *, window=None, use_window=None, scales=None):
+    """Paged decode step: attention over one layer's block pool through each
+    row's block table (``kernels/ops.paged_attention``: the CUDA kernel on
+    the card), the current token handled explicitly so the pool is read
+    only. x (b, d_model); pages (k_pages, v_pages) each (NB, BS, KV, hd);
+    block_table (b, MB); pos (b,) virtual positions. With cfg.kv_quant the
+    pool rows are int8/fp8 and ``scales`` is (k_scales, v_scales), each
+    (NB, BS, KV). Returns (y, rows): (k_new, v_new) (b, KV, hd), or the
+    quantized (k_q, k_s, v_q, v_s), for ``commit_layers_paged``."""
+    k_pages, v_pages = pages
+    b = x.shape[0]
+    hd, kv_heads = cfg.resolved_head_dim, cfg.num_kv_heads
+    q, k_new, v_new = _qkv(p, x[:, None, :], cfg, _pos_rows(pos, b, x.device))
+    g = cfg.num_heads // kv_heads
+    t = block_table.shape[1] * k_pages.shape[1]
+    k_scales, v_scales = scales if scales is not None else (None, None)
+    # the kernel takes contiguous rows; q, k_new and v_new are views of the
+    # fused QKV projection
+    qg = q.reshape(b, kv_heads, g, hd).contiguous()
+    kn, vn = k_new[:, 0].contiguous(), v_new[:, 0].contiguous()
+    mask = _flag_decode_mask(t, pos, window, use_window, x.device)     # (b, t)
+    ctx = ops.paged_attention(
+        qg, k_pages, v_pages, block_table, pos, kn, vn, mask,
+        scale=_gqa_scale(cfg), softcap=cfg.attn_logit_softcap or None,
+        k_scales=k_scales, v_scales=v_scales)
+    kvq = cfg.kv_quant
+    if kvq:
+        kq, ks = _quantize_rows(kn, kvq)                            # (b, KV, hd) / (b, KV)
+        vq, vs = _quantize_rows(vn, kvq)
+        return linear(p["wo"], ctx), (kq, ks, vq, vs)
+    return linear(p["wo"], ctx), (kn, vn)

@@ -3,9 +3,10 @@
 Only the dense GQA ``decoder_lm`` family is ported, and of the
 architectures only TinyLlama-1.1B; ``load_config`` names the others and
 raises "not yet ported" for them. ``Model`` keeps the reference's
-capability flags, each declared explicitly; every fast path that is not
-ported yet (paged KV, speculative verify, the serving core's slot hooks)
-is declared off.
+capability flags, each declared explicitly: ragged lengths, the paged
+block-pool cache (``init_paged_cache``/``decode_paged``) and the serving
+core's slot hooks (``cache_kind="kv"``, ``insert_slots``/``gather_slots``)
+are ported; speculative verify is not, so ``supports_spec`` stays off.
 """
 
 from __future__ import annotations
@@ -55,8 +56,12 @@ class Model:
     # the reference's capability surface (see repro.models.registry.Model)
     supports_lengths: bool = False
     supports_paged: bool = False
+    init_paged_cache: Callable | None = None   # (num_blocks, block_size, dtype, device) -> pool
+    decode_paged: Callable | None = None       # (params, tok, pool, table, pos) -> (logits, pool)
     supports_spec: bool = False
     cache_kind: str = "none"
+    insert_slots: Callable | None = None       # (cache, rows, slots) -> cache
+    gather_slots: Callable | None = None       # (cache, slots) -> per-slot rows
 
 
 def build(cfg: ModelConfig) -> Model:
@@ -76,10 +81,15 @@ def build(cfg: ModelConfig) -> Model:
         prefill=prefill,
         decode=lambda p, tok, cache, pos: _tf.lm_decode(p, tok, cache, pos, cfg),
         supports_lengths=True,
-        # paged KV, speculative verify and the slot hooks of the serving
-        # core are later slices: declared off until their paths are ported
-        supports_paged=False,
+        supports_paged=True,
+        init_paged_cache=lambda nb, bs, dt, device: _tf.lm_init_paged_cache(
+            cfg, nb, bs, dt, device),
+        decode_paged=lambda p, tok, cache, table, pos: _tf.lm_decode_paged(
+            p, tok, cache, table, pos, cfg),
+        # speculative verify (lm_verify / lm_commit_verify) is not ported
         supports_spec=False,
-        cache_kind="none",
+        cache_kind="kv",
+        insert_slots=_tf.lm_insert_slots,
+        gather_slots=_tf.lm_gather_slots,
     )
 

@@ -4,8 +4,10 @@ the dense GQA path of TinyLlama.
 Parameters keep the reference's tree: stacked (L, ...) layer leaves under
 the same keys, so a reference checkpoint crosses through ``bridge.py``
 unchanged. The reference scans over layers; here a Python loop takes one
-layer's views out of the stacked leaves at a time. The KV cache is the base
-(L, b, T, KV, hd) layout and decode writes it in place.
+layer's views out of the stacked leaves at a time. The caches are the
+reference's layouts: the contiguous base (L, b, T, KV, hd) cache, its
+quantized kvt variant (``cfg.kv_quant``), and the paged block pool
+(float or quantized). Decode writes them in place.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from repro_torch.models.common import dense_init, embed_init, rmsnorm
 def _check_ported(cfg: ModelConfig) -> None:
     unported = [name for name, on in (
         ("mla", cfg.mla), ("moe", cfg.moe), ("gemma_norms", cfg.gemma_norms),
-        ("sliding_window", cfg.sliding_window), ("kv_quant", cfg.kv_quant),
+        ("sliding_window", cfg.sliding_window),
         ("attn_logit_softcap", cfg.attn_logit_softcap),
         ("final_logit_softcap", cfg.final_logit_softcap),
         ("frontend", cfg.frontend)) if on]
@@ -83,9 +85,84 @@ def _block(lp, x: torch.Tensor, cfg: ModelConfig, attn_fn) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def lm_init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype, device) -> dict:
-    shape = (cfg.num_layers, batch, cache_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    """The contiguous KV cache: base (L, b, T, KV, hd) leaves ``k``/``v``,
+    or with cfg.kv_quant the kvt-major storage rows ``k_q``/``v_q``
+    (L, b, KV, T, hd) and their f32 scales ``k_s``/``v_s`` (L, b, KV, T)."""
+    hd = cfg.resolved_head_dim
+    kvq = attn.kv_quant_format(cfg)
+    if kvq:
+        sdt = attn.KV_STORE_DTYPES[kvq]
+        qshape = (cfg.num_layers, batch, cfg.num_kv_heads, cache_len, hd)
+        sshape = qshape[:-1]
+        return {"k_q": torch.zeros(qshape, dtype=sdt, device=device),
+                "k_s": torch.zeros(sshape, dtype=torch.float32, device=device),
+                "v_q": torch.zeros(qshape, dtype=sdt, device=device),
+                "v_s": torch.zeros(sshape, dtype=torch.float32, device=device)}
+    shape = (cfg.num_layers, batch, cache_len, cfg.num_kv_heads, hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def lm_insert_slots(cache: dict, rows: dict, slots: torch.Tensor) -> dict:
+    """Scatter per-request prefill cache ``rows`` into decode ``slots`` of a
+    batched contiguous cache, in place. Every cache layout keeps batch on
+    axis 1 of each (L, b, ...) leaf, so one axis-1 scatter covers them all
+    (the serving core's slot-admission contract, serving/core.py)."""
+    for name, big in cache.items():
+        big[:, slots] = rows[name]
+    return cache
+
+
+def lm_gather_slots(cache: dict, slots: torch.Tensor) -> dict:
+    """Inverse of ``lm_insert_slots``: the per-slot cache rows for ``slots``."""
+    return {name: big[:, slots] for name, big in cache.items()}
+
+
+def lm_init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int, dtype,
+                        device) -> dict:
+    """Block-pool KV cache: (L, NB, BS, KV, hd) leaves ``k_pages``/``v_pages``;
+    with cfg.kv_quant the pages hold int8/fp8 rows and ``k_scales``/
+    ``v_scales`` (L, NB, BS, KV) their f32 scales. Block 0 is the
+    allocator's write-off sink (serving/paged.py); blocks are recycled
+    without zeroing, since paged attention never reads an unmasked stale
+    slot."""
+    hd = cfg.resolved_head_dim
+    shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads, hd)
+    kvq = attn.kv_quant_format(cfg)
+    if kvq:
+        sdt = attn.KV_STORE_DTYPES[kvq]
+        return {"k_pages": torch.zeros(shape, dtype=sdt, device=device),
+                "k_scales": torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+                "v_pages": torch.zeros(shape, dtype=sdt, device=device),
+                "v_scales": torch.zeros(shape[:-1], dtype=torch.float32, device=device)}
+    return {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
+            "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def contiguous_to_paged(cache: dict, block_size: int):
+    """Reshape a contiguous (L, b, T, KV, hd) cache into a block pool plus
+    identity block tables: row i owns blocks [i*MB, (i+1)*MB). T must be a
+    multiple of ``block_size``. A quantized cache ({k_q, k_s, v_q, v_s},
+    kvt layout (L, b, KV, T, ...)) maps to the quantized pool layout
+    ({k_pages, k_scales, v_pages, v_scales}, time-major blocks)."""
+    quant = "k_q" in cache
+    first = cache["k_q"] if quant else cache["k"]
+    L, b = first.shape[:2]
+    t = first.shape[3] if quant else first.shape[2]
+    if t % block_size:
+        raise ValueError(f"cache_len {t} not a multiple of block_size {block_size}")
+    mb = t // block_size
+
+    def pool(leaf):
+        if quant:                                 # (L, b, KV, T, ...) -> (L, b, T, KV, ...)
+            leaf = leaf.movedim(3, 2)
+        return leaf.reshape(L, b * mb, block_size, *leaf.shape[3:])
+
+    table = torch.arange(b * mb, dtype=torch.int32, device=first.device).reshape(b, mb)
+    if quant:
+        return {"k_pages": pool(cache["k_q"]), "k_scales": pool(cache["k_s"]),
+                "v_pages": pool(cache["v_q"]), "v_scales": pool(cache["v_s"])}, table
+    return {"k_pages": pool(cache["k"]), "v_pages": pool(cache["v"])}, table
 
 
 def lm_prefill(params, tokens: torch.Tensor, cfg: ModelConfig, cache_len: int,
@@ -99,13 +176,14 @@ def lm_prefill(params, tokens: torch.Tensor, cfg: ModelConfig, cache_len: int,
     x = _embed(params, tokens, cfg)
     b = x.shape[0]
     cache = lm_init_cache(cfg, b, cache_len, x.dtype, x.device)
+    names = ("k_q", "k_s", "v_q", "v_s") if attn.kv_quant_format(cfg) else ("k", "v")
     for i in range(cfg.num_layers):
         lp = tree_index(params["layers"], i)
 
         def attn_fn(h, lp=lp, i=i):
-            y, (k, v) = attn.gqa_prefill(lp["attn"], h, cfg, cache_len, lengths=lengths)
-            cache["k"][i] = k
-            cache["v"][i] = v
+            y, leaves = attn.gqa_prefill(lp["attn"], h, cfg, cache_len, lengths=lengths)
+            for name, leaf in zip(names, leaves):
+                cache[name][i] = leaf
             return y
 
         x = _block(lp, x, cfg, attn_fn)
@@ -118,15 +196,65 @@ def lm_prefill(params, tokens: torch.Tensor, cfg: ModelConfig, cache_len: int,
 
 def lm_decode(params, token: torch.Tensor, cache: dict, pos, cfg: ModelConfig):
     """One decode step. token (b,); pos an int or (b,) per-request positions.
-    Returns (logits (b, vocab_padded), cache); the cache is updated in place."""
+    Returns (logits (b, vocab_padded), cache); the cache is updated in place.
+
+    The float cache is written by each layer before it attends
+    (``gqa_decode``); the quantized cache is read only by the layers and
+    their new rows are committed after the last one (``commit_layers_bkt``),
+    as in the reference."""
     _check_ported(cfg)
+    quant = attn.kv_quant_format(cfg) is not None
     x = embedding_lookup(params["embed"], token, cfg.cdtype())
+    rows: list = []
     for i in range(cfg.num_layers):
         lp = tree_index(params["layers"], i)
 
         def attn_fn(h, lp=lp, i=i):
+            if quant:
+                c = (cache["k_q"][i], cache["k_s"][i], cache["v_q"][i], cache["v_s"][i])
+                y, r = attn.gqa_decode_deferred_quant(lp["attn"], h, c, pos, cfg)
+                rows.append(r)
+                return y
             y, _ = attn.gqa_decode(lp["attn"], h, (cache["k"][i], cache["v"][i]), pos, cfg)
             return y
 
         x = _block(lp, x, cfg, attn_fn)
+    if quant:
+        for j, name in enumerate(("k_q", "k_s", "v_q", "v_s")):
+            attn.commit_layers_bkt(cache[name], torch.stack([r[j] for r in rows]), pos)
+    return _logits(params, x, cfg), cache
+
+
+def lm_decode_paged(params, token: torch.Tensor, cache: dict, block_table: torch.Tensor,
+                    pos, cfg: ModelConfig):
+    """One paged decode step. token (b,); cache the ``*_pages`` block pool;
+    block_table (b, MB) physical block per virtual block; pos (b,) virtual
+    positions (an int is broadcast). Returns (logits, cache).
+
+    Deferred: the layers read the pool through the block table (the CUDA
+    kernel on the card) and return only their new K/V rows, committed after
+    the last layer with one scatter per leaf at each row's (physical block,
+    offset) (``attention.commit_layers_paged``), in place."""
+    _check_ported(cfg)
+    quant = attn.kv_quant_format(cfg) is not None
+    if not isinstance(pos, torch.Tensor) or not pos.ndim:
+        pos = torch.full((token.shape[0],), int(pos), dtype=torch.long, device=token.device)
+    x = embedding_lookup(params["embed"], token, cfg.cdtype())
+    rows: list = []
+    for i in range(cfg.num_layers):
+        lp = tree_index(params["layers"], i)
+
+        def attn_fn(h, lp=lp, i=i):
+            scales = (cache["k_scales"][i], cache["v_scales"][i]) if quant else None
+            y, r = attn.gqa_decode_paged(
+                lp["attn"], h, (cache["k_pages"][i], cache["v_pages"][i]), block_table,
+                pos, cfg, scales=scales)
+            rows.append(r)
+            return y
+
+        x = _block(lp, x, cfg, attn_fn)
+    names = ("k_pages", "k_scales", "v_pages", "v_scales") if quant else ("k_pages", "v_pages")
+    for j, name in enumerate(names):
+        attn.commit_layers_paged(cache[name], torch.stack([r[j] for r in rows]),
+                                 block_table, pos)
     return _logits(params, x, cfg), cache

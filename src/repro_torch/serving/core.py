@@ -1,0 +1,375 @@
+"""The scheduling core: one serving loop, pluggable per-slot cache adapters
+(counterpart of ``repro/serving/core.py``).
+
+Every continuous-batching mode is the same host loop: validate, admit
+pending requests into fixed decode slots (one batched prefill per admission
+group), decode in rounds, finish slots at EOS or budget, and return
+Responses in arrival order. What differs between modes is only how a slot's
+decode state is laid out and addressed:
+
+- ``ContiguousAdapter``: one ``cache_len``-wide KV row per slot, batch on
+  axis 1 of every leaf.
+- ``PagedAdapter`` (serving/paged.py): a ``BlockPool`` of fixed-size KV
+  blocks behind per-slot block tables; admission is reservation-gated and
+  blocks are allocated on demand and reclaimed the step a slot finishes.
+
+``SchedulerCore`` owns the queue, the slots, the budgets and the Response
+finalization; adapters own the device work (prefill, insert, decode).
+Adapters return device tensors and the core makes the host transfers: one
+per admission wave (the first tokens) and one per decode round (the
+round's tokens). Positions advance on the host by the round's step count,
+so they never cross back. Greedy sampling only. Not ported: speculative
+rounds (``spec_k`` raises, as the reference does for a family without a
+verify path), the repro-san sanitizer hooks and ``RecurrentAdapter`` (no
+recurrent family is ported).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections import defaultdict, deque
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.serving.sampling import make_sampler
+
+__all__ = [
+    "CacheAdapter",
+    "ContiguousAdapter",
+    "Request",
+    "Response",
+    "SchedulerCore",
+    "bucket_length",
+    "finalize_tokens",
+    "make_response",
+    "pad_bucket",
+]
+
+
+@dataclasses.dataclass
+class Request:
+    id: int
+    tokens: list[int]
+    # per-request decode budget; None falls back to the serve call's
+    # max_new_tokens
+    max_new: int | None = None
+
+
+@dataclasses.dataclass
+class Response:
+    id: int
+    tokens: np.ndarray
+    # true generated length: tokens[:length] are real, the rest is padding
+    # (EOS, or 0 when the engine has no eos_id)
+    length: int | None = None
+
+
+def finalize_tokens(toks: list[int], budget: int, eos: int | None):
+    """Trim at EOS, pad to ``budget``; returns (tokens (budget,), true length).
+    ``length`` counts the real generated tokens, the EOS included."""
+    t = toks[:budget]
+    if eos is not None and eos in t:
+        t = t[: t.index(eos) + 1]
+    length = len(t)
+    t = t + [eos if eos is not None else 0] * (budget - length)
+    return np.asarray(t, np.int32), length
+
+
+def make_response(req: Request, toks: list[int], budget: int, eos: int | None) -> Response:
+    """The one Response construction path of every serving mode: trim at
+    EOS, pad to the request's budget, carry the true generated length."""
+    tokens, length = finalize_tokens(toks, budget, eos)
+    return Response(id=req.id, tokens=tokens, length=length)
+
+
+def bucket_length(n: int, *, minimum: int = 8) -> int:
+    b = minimum
+    while b < n:
+        b *= 2
+    return b
+
+
+def pad_bucket(reqs: Sequence[Request], length: int, pad_id: int = 0):
+    """Right-pad to ``length``; returns (tokens (b, length), true lengths)."""
+    toks = np.full((len(reqs), length), pad_id, np.int64)
+    lens = np.zeros((len(reqs),), np.int64)
+    for i, r in enumerate(reqs):
+        toks[i, : len(r.tokens)] = r.tokens
+        lens[i] = len(r.tokens)
+    return toks, lens
+
+
+# ---------------------------------------------------------------------------
+# cache adapters
+# ---------------------------------------------------------------------------
+
+class CacheAdapter:
+    """Per-slot cache policy behind ``SchedulerCore``. The verbs map onto the
+    loop as:
+
+      alloc    ``can_admit`` / ``on_admit``  (paged: reservation-gated block
+               allocation; contiguous: a free slot is the allocation)
+      insert   ``prefill`` + ``insert``      (batched prefill rows scattered
+               into the admitted slots)
+      commit   ``decode_round``              (advances the cache in place)
+      free     ``on_finish``                 (paged: blocks back to the pool,
+               table row sunk)
+
+    ``prefill`` and ``decode_round`` return device tensors; the core makes
+    the host transfers."""
+
+    kind: str = "abstract"
+
+    def bind(self, core) -> None:
+        """Attach to a core."""
+        raise NotImplementedError
+
+    def validate(self, requests, budget) -> None:
+        """Reject requests that could never be served (capacity/layout)."""
+
+    def begin_serve(self):
+        """Fresh per-serve device cache (plus any host-side pool state)."""
+        raise NotImplementedError
+
+    def can_admit(self, r: Request, budget: int) -> bool:
+        return True
+
+    def on_admit(self, s: int, r: Request, budget: int) -> None:
+        """Per-slot allocation at admission (paged: prompt blocks + table)."""
+
+    def group_len(self, n: int) -> int:
+        """Padded prefill length for an ``n``-token prompt; admission groups
+        share one batched prefill per distinct value."""
+        raise NotImplementedError
+
+    def prefill(self, params, toks: torch.Tensor, lens: torch.Tensor):
+        """Batched prefill + greedy first token -> (first tokens, cache rows)."""
+        raise NotImplementedError
+
+    def insert(self, cache, rows, group, length: int):
+        """Scatter prefill ``rows`` into ``group``'s slots; returns cache."""
+        raise NotImplementedError
+
+    def before_round(self, pos, live) -> None:
+        """Pre-round host bookkeeping (paged: on-demand block growth)."""
+
+    def check_positions(self, pos, live) -> None:
+        """Assert live positions are addressable (cache edge, table edge)."""
+
+    def round_steps(self, live: np.ndarray, remaining: np.ndarray) -> int:
+        """Decode steps of the next round, from the host's budgets."""
+        return self.core.chunk
+
+    def decode_round(self, params, tok, cache, pos, live, steps: int):
+        """Up to ``steps`` decode steps -> (toks (n, b) on the device, n,
+        cache). Frozen slots (``live`` False) keep their token and position."""
+        raise NotImplementedError
+
+    def on_finish(self, s: int) -> None:
+        """Free slot ``s``'s allocation (the core froze its tok/pos)."""
+
+    def end_serve(self) -> None:
+        """Post-serve bookkeeping (paged: pool high-water accounting)."""
+
+    def san_state(self) -> dict:
+        """The adapter's host allocator state, ``{"pool": BlockPool | None,
+        "table": block-table ndarray | None}`` (the reference's sanitizer
+        registration; the sanitizer itself is not ported)."""
+        raise NotImplementedError(f"{self.kind}: adapter registers no allocator state")
+
+
+class ContiguousAdapter(CacheAdapter):
+    """One ``cache_len``-wide cache row per slot, batch on axis 1 of every
+    leaf (``Model.insert_slots`` / ``Model.gather_slots``); live positions
+    are bounded by ``cache_len``."""
+
+    kind = "contiguous"
+
+    def __init__(self, engine):
+        if not engine.model.supports_lengths:
+            raise ValueError(
+                f"{engine.cfg.arch_id}: continuous batching needs length-aware "
+                "prefill and per-request decode positions (decoder_lm families)")
+        self.engine = engine
+
+    def bind(self, core):
+        self.core = core
+
+    def validate(self, requests, budget):
+        cache_len = self.engine.cache_len
+        for r in requests:
+            need = max(bucket_length(len(r.tokens)), len(r.tokens) + budget(r))
+            if need > cache_len:
+                raise ValueError(
+                    f"request {r.id}: len={len(r.tokens)} + max_new={budget(r)} "
+                    f"needs {need} cache slots but cache_len={cache_len}")
+
+    def begin_serve(self):
+        engine = self.engine
+        return engine.model.init_cache(self.core.slots, engine.cache_len,
+                                       engine.cfg.cdtype(), engine.device)
+
+    def group_len(self, n):
+        return bucket_length(n)
+
+    def prefill(self, params, toks, lens):
+        logits, rows = self.engine.model.prefill(
+            params, {"tokens": toks, "lengths": lens}, self.engine.cache_len)
+        return self.core.sample(logits), rows
+
+    def insert(self, cache, rows, group, length):
+        del length
+        slots = torch.tensor([s for s, _ in group], device=self.engine.device)
+        return self.engine.model.insert_slots(cache, rows, slots)
+
+    def check_positions(self, pos, live):
+        cache_len = self.engine.cache_len
+        assert not live.any() or int(pos[live].max()) < cache_len, (
+            f"live slot position escaped the cache: {pos[live]} >= cache_len={cache_len}")
+
+    def decode_round(self, params, tok, cache, pos, live, steps):
+        # chunk rounds run full length; a slot that finishes mid-chunk idles
+        # frozen to the round's end, and budgets are trimmed on the host
+        model, sample = self.engine.model, self.core.sample
+        toks = []
+        for _ in range(steps):
+            logits, cache = model.decode(params, tok, cache, pos)
+            tok = torch.where(live, sample(logits), tok)
+            pos = torch.where(live, pos + 1, pos)
+            toks.append(tok)
+        return torch.stack(toks), steps, cache
+
+    def san_state(self):
+        # slot rows are the allocation: no pool, no table
+        return {"pool": None, "table": None}
+
+
+# ---------------------------------------------------------------------------
+# the scheduling core
+# ---------------------------------------------------------------------------
+
+class SchedulerCore:
+    """The one serving loop: admission -> grouped prefill -> decode rounds ->
+    finish -> finalize, over any ``CacheAdapter``.
+
+    Responses always contain exactly the request's budget of tokens;
+    sequences that hit EOS early are padded with EOS (``make_response``).
+    Host transfers: one per admission wave and one per decode round."""
+
+    def __init__(self, engine, adapter: CacheAdapter, *, slots: int = 4, chunk: int = 4,
+                 sampler: str = "greedy", spec_k: int | None = None):
+        if spec_k is not None:
+            if spec_k < 2:
+                raise ValueError(f"spec_k must be >= 2, got {spec_k}")
+            if not engine.model.supports_spec:
+                raise ValueError(
+                    f"{engine.cfg.arch_id}: model family has no speculative "
+                    "verify path (GQA decoder_lm families only)")
+        self.engine = engine
+        self.adapter = adapter
+        self.slots = slots
+        self.chunk = chunk
+        self.sample = make_sampler(sampler)
+        self.rounds = 0                # decode rounds of the last serve
+        self.decode_steps = 0          # decode forward passes of the last serve
+        adapter.bind(self)
+
+    @torch.inference_mode()
+    def serve(self, requests: Sequence[Request], max_new_tokens: int) -> list[Response]:
+        engine, adapter, B = self.engine, self.adapter, self.slots
+        eos, dev = engine.eos_id, engine.device
+
+        def budget(r: Request) -> int:
+            return r.max_new if r.max_new is not None else max_new_tokens
+
+        adapter.validate(requests, budget)
+        cache = adapter.begin_serve()
+        pending = deque(requests)
+        slot_req: list[Request | None] = [None] * B
+        slot_toks: list[list[int]] = [[] for _ in range(B)]
+        tok = np.zeros((B,), np.int64)
+        pos = np.zeros((B,), np.int64)
+        live = np.zeros((B,), bool)
+        remaining = np.zeros((B,), np.int64)
+        out: dict[int, Response] = {}
+        self.rounds = self.decode_steps = 0
+
+        def finish(s: int):
+            r = slot_req[s]
+            out[r.id] = make_response(r, slot_toks[s], budget(r), eos)
+            slot_req[s], slot_toks[s] = None, []
+            remaining[s] = 0
+            live[s] = False                # token and position stay frozen
+            adapter.on_finish(s)
+
+        while pending or live.any():
+            # admission: pop pending in arrival order while a slot (and, for
+            # gated adapters, worst-case capacity) is free; one batched
+            # prefill per distinct group length, one scatter-insert per group
+            free_slots = [s for s in range(B) if slot_req[s] is None]
+            admitted: dict[int, list[tuple[int, Request]]] = defaultdict(list)
+            while free_slots and pending:
+                r = pending[0]
+                if not adapter.can_admit(r, budget(r)):
+                    break                  # backpressure: decode frees space
+                pending.popleft()
+                s = free_slots.pop(0)
+                slot_req[s], slot_toks[s] = r, []
+                live[s] = True
+                adapter.on_admit(s, r, budget(r))
+                admitted[adapter.group_len(len(r.tokens))].append((s, r))
+            staged = []
+            for length, group in admitted.items():
+                toks_np, lens_np = pad_bucket([r for _, r in group], length)
+                t0, rows = adapter.prefill(engine.params, torch.from_numpy(toks_np).to(dev),
+                                           torch.from_numpy(lens_np).to(dev))
+                cache = adapter.insert(cache, rows, group, length)
+                staged.append((group, t0))
+            if staged:
+                # ONE host transfer for the whole admission wave
+                first = torch.cat([t for _, t in staged]).tolist()
+                k = 0
+                for group, _ in staged:
+                    for s, r in group:
+                        t = first[k]
+                        k += 1
+                        slot_toks[s] = [t]
+                        tok[s], pos[s] = t, len(r.tokens)
+                        remaining[s] = budget(r) - 1
+                        if budget(r) <= 1 or (eos is not None and t == eos):
+                            finish(s)
+
+            if not live.any():
+                if pending:
+                    continue
+                break
+
+            adapter.before_round(pos, live)
+            adapter.check_positions(pos, live)
+            toks_d, steps, cache = adapter.decode_round(
+                engine.params, torch.from_numpy(tok).to(dev), cache,
+                torch.from_numpy(pos).to(dev), torch.from_numpy(live).to(dev),
+                adapter.round_steps(live, remaining))
+            # ONE host transfer per round: the round's tokens; positions
+            # advance here by the step count, as they did on the device
+            toks_np = toks_d[:steps].cpu().numpy()                  # (steps, B)
+            self.rounds += 1
+            self.decode_steps += steps
+            pos = np.where(live, pos + steps, pos)
+            for s in range(B):
+                if not live[s]:
+                    continue
+                n = budget(slot_req[s])
+                slot_toks[s].extend(int(t) for t in toks_np[:, s])
+                tok[s] = slot_toks[s][-1]
+                remaining[s] = n - len(slot_toks[s])
+                done = len(slot_toks[s]) >= n
+                if eos is not None and eos in slot_toks[s][:n]:
+                    done = True
+                if done:
+                    finish(s)
+
+        adapter.end_serve()
+        return [out[r.id] for r in requests]

@@ -1,11 +1,12 @@
 """Inference engine: prefill, then greedy decode (counterpart of
-``repro/serving/engine.py``, the uniform and ragged ``generate`` paths).
+``repro/serving/engine.py``: the uniform and ragged ``generate`` paths, the
+paged path over an identity-mapped block pool, and the quantized KV cache).
 
 The reference jits a ``lax.scan`` over decode steps; here the loop runs
 eagerly on the device. Sampled tokens, positions and the EOS ``done`` mask
 stay on the device throughout, so the loop never waits for the card; the
-tokens cross to the host once, at the end. Paged decode, speculative
-decode, quantized KV and the non-int8 weight formats are later slices.
+tokens cross to the host once, at the end. Speculative decode, top-p and
+the non-int8 weight formats are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,7 +19,9 @@ import torch
 from repro_torch.core.policy import quantize_params, quantized_fraction
 from repro_torch.core.tree import tree_to
 from repro_torch.device import resolve_device
-from repro_torch.models.registry import Model
+from repro_torch.models.attention import KV_STORE_DTYPES
+from repro_torch.models.registry import Model, build
+from repro_torch.models.transformer import contiguous_to_paged
 from repro_torch.serving.sampling import make_sampler
 
 
@@ -34,14 +37,29 @@ class InferenceEngine:
 
     ``quantize``: False keeps float weights; True applies the config's
     ``quant_format`` ("int8", the paper's group-wise W8A8), as does the
-    string "int8". ``device`` defaults to "cuda" and raises when CUDA is
-    missing; pass "cpu" to run on the CPU. ``params`` are moved there.
+    string "int8". ``kv_quant`` ("int8" or "fp8") stores the KV cache,
+    contiguous or paged, at storage width with per-row f32 scales,
+    dequantized inside attention; GQA decoder_lm families only. ``device``
+    defaults to "cuda" and raises when CUDA is missing; pass "cpu" to run
+    on the CPU. ``params`` are moved there.
     """
 
     def __init__(self, model: Model, params, *, cache_len: int,
                  quantize: bool | str = False, eos_id: int | None = None,
-                 device: str | torch.device = "cuda"):
+                 kv_quant: str | None = None, device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
+        if kv_quant:
+            if kv_quant not in KV_STORE_DTYPES:
+                raise ValueError(f"unknown kv_quant format {kv_quant!r}; supported: "
+                                 f"{sorted(KV_STORE_DTYPES)}")
+            if not model.supports_paged:
+                # supports_paged == "GQA decoder_lm cache layouts", the
+                # families whose KV rows the quantized layout covers
+                raise ValueError(f"{model.cfg.arch_id}: kv_quant covers the GQA "
+                                 "decoder_lm cache layouts only")
+            if model.cfg.kv_quant != kv_quant:
+                # rebuild so every model closure sees the threaded config
+                model = build(dataclasses.replace(model.cfg, kv_quant=kv_quant))
         self.model = model
         self.cfg = model.cfg
         self.cache_len = cache_len
@@ -72,10 +90,17 @@ class InferenceEngine:
     # -- full generation -------------------------------------------------------
     @torch.inference_mode()
     def generate(self, batch: Mapping, max_new_tokens: int, *, sampler: str = "greedy",
-                 lengths=None) -> GenerationResult:
+                 lengths=None, paged: bool = False, block_size: int = 8) -> GenerationResult:
         """``lengths`` (b,) enables ragged right-padded prompts: row i's pads
         are masked in prefill, its first token is sampled from the logits at
-        lengths[i]-1, and decode runs on per-request position counters."""
+        lengths[i]-1, and decode runs on per-request position counters.
+        ``paged`` decodes through the block-table path over an
+        identity-mapped pool of ``block_size``-token blocks, token-identical
+        to the contiguous path (the mixed-traffic scheduler is
+        serving/paged.py)."""
+        if paged and not self.model.supports_paged:
+            raise ValueError(f"{self.cfg.arch_id}: model family has no paged decode path "
+                             "(GQA decoder_lm families only)")
         if max_new_tokens < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
         sample = make_sampler(sampler)
@@ -93,11 +118,20 @@ class InferenceEngine:
                 f"+ max_new_tokens={max_new_tokens} needs {need} slots but "
                 f"cache_len={self.cache_len}")
 
-        logits, cache = self.model.prefill(self.params, batch, self.cache_len)
+        cache_len = self.cache_len
+        if paged:
+            # pad the prefill target up to whole blocks so the contiguous
+            # rows reshape exactly into the pool
+            cache_len = -(-cache_len // block_size) * block_size
+        logits, cache = self.model.prefill(self.params, batch, cache_len)
         tok = sample(logits)
         # ragged rows continue at their own lengths (per-row cache commits);
         # a uniform batch keeps one host-side position counter
         pos = lengths.clone() if lengths is not None else prompt_len
+        if paged:
+            cache, table = contiguous_to_paged(cache, block_size)
+            if lengths is None:
+                pos = torch.full((b,), prompt_len, dtype=torch.long, device=self.device)
         eos = self.eos_id
         done = tok == eos if eos is not None else None
         out = torch.empty((b, max_new_tokens), dtype=torch.long, device=self.device)
@@ -105,7 +139,10 @@ class InferenceEngine:
         # max_new_tokens decode steps, the last one's token discarded: the
         # reference's scan, whose final logits are logits_last
         for step in range(max_new_tokens):
-            logits, cache = self.model.decode(self.params, tok, cache, pos)
+            if paged:
+                logits, cache = self.model.decode_paged(self.params, tok, cache, table, pos)
+            else:
+                logits, cache = self.model.decode(self.params, tok, cache, pos)
             nxt = sample(logits)
             if eos is not None:
                 nxt = torch.where(done, eos, nxt)

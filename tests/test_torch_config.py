@@ -55,9 +55,14 @@ def test_unknown_arch_raises():
 
 def test_model_declares_capabilities():
     model = registry.build(registry.load_config("tinyllama-1.1b").reduced())
-    assert model.supports_lengths is True
-    assert model.supports_paged is False and model.supports_spec is False
-    assert model.cache_kind == "none"
+    jmodel = jreg.build(jreg.load_config("tinyllama-1.1b").reduced())
+    assert model.supports_lengths is jmodel.supports_lengths is True
+    assert model.supports_paged is jmodel.supports_paged is True
+    assert model.cache_kind == jmodel.cache_kind == "kv"
+    for hook in ("init_paged_cache", "decode_paged", "insert_slots", "gather_slots"):
+        assert callable(getattr(model, hook)), hook
+    # speculative verify is not ported: declared off, unlike the reference
+    assert model.supports_spec is False and jmodel.supports_spec is True
 
 
 def test_build_refuses_unported_features():

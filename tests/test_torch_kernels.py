@@ -1,9 +1,11 @@
-"""Plain GQMV/GQMM versions and the quantized-matmul entry points of the port,
-against the reference's XLA oracle (``kernels/ref.py``) and its Pallas kernel
-in interpret mode. The CUDA kernels themselves run in tests/test_torch_cuda.py.
+"""Plain versions of the port's kernels (GQMV/GQMM, paged decode attention)
+and their entry points, against the reference's XLA oracle
+(``kernels/ref.py``) and its Pallas kernels in interpret mode. The CUDA
+kernels themselves run in tests/test_torch_cuda.py.
 
 The group sums are exact integers on both sides; the f32 outputs may differ
-only by the order of the sum across groups (rtol 1e-6).
+only by the order of the sum across groups (rtol 1e-6). Paged attention
+sums softmax-weighted rows in f32 in another order (rtol 1e-5).
 """
 
 import numpy as np
@@ -18,10 +20,12 @@ from repro.core import quant as jquant  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.gqmv import gqmm_pallas, gqmv_pallas  # noqa: E402
+from repro.kernels.paged_attn import paged_attention_pallas  # noqa: E402
 from repro_torch.core import qlinear  # noqa: E402
 from repro_torch.core.quant import QuantizedTensor  # noqa: E402
 from repro_torch.kernels import gqmv as kern  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import paged_attn as paged_kern  # noqa: E402
 
 
 def _mk(m, n, gs, b, seed):
@@ -153,3 +157,115 @@ def test_split_fused():
     assert a.shape == (2, 2) and b.shape == (2, 4)
     with pytest.raises(ValueError, match="sum to"):
         qlinear.split_fused(y, (2, 3))
+
+
+# ---------------------------------------------------------------------------
+# paged decode attention (B8 float pool, B9 int8/fp8 pool)
+# ---------------------------------------------------------------------------
+
+def _paged_inputs(pool: str, softcap, seed: int, b=3, kv=2, g=4, hd=16, bs=4, mb=6):
+    """Random pool, a non-identity table whose entries past each row's
+    position point at the sink block 0 (stale data there), random positions
+    and the decode mask: as numpy, for both packages."""
+    rng = np.random.default_rng(seed)
+    nb = b * mb + 1
+    shape = (nb, bs, kv, hd)
+    q = rng.normal(size=(b, kv, g, hd)).astype(np.float32)
+    kn, vn = (rng.normal(size=(b, kv, hd)).astype(np.float32) for _ in range(2))
+    pos = rng.integers(0, mb * bs, size=(b,))
+    table = (rng.permutation(nb - 1)[: b * mb] + 1).reshape(b, mb)
+    table = np.where(np.arange(mb)[None, :] > pos[:, None] // bs, 0, table).astype(np.int32)
+    mask = np.where(np.arange(mb * bs)[None, :] <= pos[:, None], 0.0, -1e30).astype(np.float32)
+    out = dict(q=q, k_new=kn, v_new=vn, pos=pos, table=table, mask=mask)
+    if pool == "float":
+        out["k_pages"], out["v_pages"] = (rng.normal(size=shape).astype(np.float32)
+                                          for _ in range(2))
+    else:
+        jdt = jnp.int8 if pool == "int8" else jnp.float8_e4m3fn
+        for name in ("k", "v"):
+            vals = rng.normal(size=shape) * (40 if pool == "int8" else 100)
+            vals = np.clip(np.round(vals) if pool == "int8" else vals, -127, 127)
+            out[f"{name}_pages"] = np.asarray(jnp.asarray(vals, jnp.float32).astype(jdt))
+            out[f"{name}_scales"] = rng.uniform(1e-3, 2e-2, size=shape[:-1]).astype(np.float32)
+    out["softcap"] = softcap
+    return out
+
+
+def _paged_call(fn, a, to, **kw):
+    quant = "k_scales" in a
+    return fn(to(a["q"]), to(a["k_pages"]), to(a["v_pages"]), to(a["table"]), to(a["pos"]),
+              to(a["k_new"]), to(a["v_new"]), to(a["mask"]), scale=0.25, softcap=a["softcap"],
+              k_scales=to(a["k_scales"]) if quant else None,
+              v_scales=to(a["v_scales"]) if quant else None, **kw)
+
+
+def _to_torch(x):
+    if x.dtype == jnp.float8_e4m3fn:
+        return torch.from_numpy(np.array(x).view(np.uint8)).view(torch.float8_e4m3fn)
+    return torch.from_numpy(np.array(x))
+
+
+@pytest.mark.parametrize("softcap", [None, 50.0])
+@pytest.mark.parametrize("pool", ["float", "int8", "fp8"])
+def test_plain_paged_attention_matches_oracle_and_pallas(pool, softcap):
+    a = _paged_inputs(pool, softcap, seed={"float": 0, "int8": 1, "fp8": 2}[pool])
+    got = _paged_call(ref.paged_attention_ref, a, _to_torch).numpy()
+    oracle = np.asarray(_paged_call(jref.paged_attention_ref, a, jnp.asarray))
+    pallas = np.asarray(_paged_call(paged_attention_pallas, a, jnp.asarray, interpret=True))
+    assert got.shape == (3, 2 * 4 * 16) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, oracle, rtol=1e-5, atol=1e-5 * np.abs(oracle).max())
+    np.testing.assert_allclose(got, pallas, rtol=1e-5, atol=1e-5 * np.abs(oracle).max())
+
+
+def test_plain_paged_attention_ignores_stale_pool_rows():
+    """The row at pos and every masked row may hold anything finite: the
+    current token's K/V replace the first, the mask hides the rest."""
+    a = _paged_inputs("float", None, seed=3)
+    base = _paged_call(ref.paged_attention_ref, a, _to_torch)
+    stale = dict(a, k_pages=a["k_pages"] * 0 + 1e3, v_pages=a["v_pages"] * 0 - 1e3)
+    for i, p in enumerate(a["pos"]):
+        for t in range(p):              # keep the committed rows
+            blk, off = a["table"][i, t // 4], t % 4
+            stale["k_pages"][blk, off] = a["k_pages"][blk, off]
+            stale["v_pages"][blk, off] = a["v_pages"][blk, off]
+    assert torch.equal(_paged_call(ref.paged_attention_ref, stale, _to_torch), base)
+
+
+def test_paged_attention_dispatch_and_no_fallback():
+    a = _paged_inputs("int8", None, seed=4)
+    before = dict(paged_kern.LAUNCHES)
+    got = _paged_call(ops.paged_attention, a, _to_torch)
+    assert paged_kern.LAUNCHES == before          # the CPU runs the plain version
+    torch.testing.assert_close(got, _paged_call(ref.paged_attention_ref, a, _to_torch))
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        _paged_call(ops.paged_attention, a, _to_torch, impl="cuda")
+    with ops.impl_scope("cuda"), pytest.raises(ValueError, match="must be a CUDA tensor"):
+        _paged_call(ops.paged_attention, a, _to_torch)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        _paged_call(paged_kern.paged_attention_cuda, a, _to_torch)
+    assert paged_kern.LAUNCHES == before
+
+
+def test_paged_kernel_shared_memory_sizing():
+    # TinyLlama (G 8, hd 64) at the serve CLI's block sizes fits the static 48 KB
+    assert paged_kern.smem_bytes(8, 64, 8) <= paged_kern.MAX_SMEM
+    assert paged_kern.smem_bytes(8, 64, 16) <= paged_kern.MAX_SMEM
+    assert paged_kern.smem_bytes(8, 128, 128) > paged_kern.MAX_SMEM
+
+
+def test_kernel_bounds_from_tinyllama_shapes():
+    """The shape-derived bounds PERF.md quotes for the kernels still to port."""
+    from repro_torch.configs.tinyllama_1_1b import CONFIG
+    from repro_torch.kernels import bounds
+
+    assert sum(c for _, _, c in bounds.projections(CONFIG)) == 89
+    rows = {(name, work): b for name, work, b in bounds.table(CONFIG)}
+    int8 = rows[("B1 gqmv_pallas (int8)", "one pass, b=1")]
+    assert int8.bound_by == "bytes" and abs(int8.seconds - 314.2e-6) < 0.1e-6
+    # int4 and int3 store a half and three eighths of int8's weight bytes
+    int4 = rows[("B5 gqmv_int4_pallas", "one pass, b=1")]
+    int3 = rows[("B6 gqmv_int3_pallas", "one pass, b=1")]
+    weights = sum(m * n * c for m, n, c in bounds.projections(CONFIG))
+    assert int8.nbytes - int4.nbytes == weights // 2
+    assert int8.nbytes - int3.nbytes == 5 * weights // 8
+    assert all(b.bound_by == "bytes" for b in rows.values())

@@ -41,7 +41,9 @@ def _imported_modules(tree: ast.AST) -> list[str]:
 def test_port_file_list_is_complete():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for must in ("chip_smoke.py", "src/repro_torch/serving/engine.py",
-                 "src/repro_torch/models/registry.py", "src/repro_torch/kernels/gqmv.py"):
+                 "src/repro_torch/models/registry.py", "src/repro_torch/kernels/gqmv.py",
+                 "src/repro_torch/kernels/paged_attn.py", "src/repro_torch/serving/core.py",
+                 "src/repro_torch/serving/batching.py", "src/repro_torch/serving/paged.py"):
         assert must in names
 
 

@@ -134,3 +134,15 @@ def test_golden_file_matches_chip_smoke():
                                                    cs.GOLDEN["max_new_tokens"])
     assert len(golden["weights_checksum"]) == 64 and golden["made_by"] == \
         "tests/make_torch_golden.py"
+    # the ragged trace served by serve_ragged(mode="paged"), per KV pool type
+    ragged = golden["ragged"]
+    for k, v in cs.GOLDEN_RAGGED.items():
+        assert ragged[k] == v, k
+    assert ragged["prompts"] == cs.golden_ragged_prompts(cfg.vocab_size)
+    assert [len(p) for p in ragged["prompts"]] == cs.GOLDEN_RAGGED["prompt_lens"]
+    for kv in cs.GOLDEN_RAGGED["kv"]:
+        assert [len(t) for t in ragged["tokens"][kv]] == cs.GOLDEN_RAGGED["budgets"]
+        assert ragged["lengths"][kv] == cs.GOLDEN_RAGGED["budgets"]    # no eos_id
+        assert all(0 <= t < cfg.vocab_size for row in ragged["tokens"][kv] for t in row)
+        assert 0 < ragged["peak_blocks"][kv] <= cs.GOLDEN_RAGGED["slots"] * -(
+            -cs.GOLDEN_RAGGED["cache_len"] // cs.GOLDEN_RAGGED["block_size"])
