@@ -9,12 +9,17 @@ printing no result, when CUDA is missing. Phases, each fatal on failure:
 
 1. build:    compile every CUDA source of the port with nvcc (sm_90a), one
              nvcc per source, all started together.
-2. kernels:  GQMM at b in {1, 4, 256} and GQMV at b=1, at every TinyLlama
-             projection shape, against their plain PyTorch versions on the
-             card (rtol 1e-5, atol 1e-5 * max|plain|: the int32 group sums
-             are exact, only the f32 order of <= 22 group terms differs),
-             timed with CUDA events over weight copies that exceed the L2,
-             behind a GPU spin that keeps the host's launch cost out.
+2. kernels:  GQMM at b in {1, 4, 256} and GQMV at b=1, for int8, int4,
+             int3 and fp8 weights, at every TinyLlama projection shape,
+             against their plain PyTorch versions on the card (int8, int4,
+             int3: rtol 1e-5, atol 1e-5 * max|plain|, since the int32 group
+             sums are exact and only the f32 order of <= 22 group terms
+             differs; fp8: rtol 5e-4, atol 1e-4, the reference's tolerance
+             for its fp8 kernel, since the group dots are f32 sums), timed
+             with CUDA events over weight copies that exceed the L2, behind
+             a GPU spin that keeps the host's launch cost out. Then each
+             kernel at every group size 16-256 on a small shape (and int3 on
+             rows that are only 2-byte aligned), checked only.
              Then paged decode attention (bf16, f32, int8 and fp8 pools;
              b in {1, 8, 32}, BS in {8, 16}, MB*BS in {256, 2048}, KV 4, G 8,
              hd 64, softcap None or 50; random non-identity block tables with
@@ -23,23 +28,33 @@ printing no result, when CUDA is missing. Phases, each fatal on failure:
              summation order); at bf16 inputs within 1e-2 * max|plain| of the
              plain arithmetic run in f32 on the same values (the kernel rounds
              once, to bf16, at the end). Timed the same way, over pools larger
-             than the L2.
-3. serve:    full-width TinyLlama-1.1B (22 layers, d 2048, bf16, int8
-             weights from the port's own init_lm) through
-             InferenceEngine.generate: batch 4, prompt 64, 32 greedy tokens.
-             The GQMM launch count must be 89 per forward pass (4 per layer
-             x 22 + classifier). The same run on the plain versions must give
+             than the L2. Beside them, the library call for the prefill
+             attention B4 would port (scaled_dot_product_attention, causal,
+             GQA 32/4 heads, hd 64, bf16, 4 x 64 tokens) is timed.
+3. serve:    full-width TinyLlama-1.1B (22 layers, d 2048, bf16, weights
+             from the port's own init_lm) through InferenceEngine.generate:
+             batch 4, prompt 64, 32 greedy tokens, once with int8 weights and
+             once each with int4, int3, fp8, mixed and mixed3. The GQMM
+             launch count must be 89 per forward pass (4 per layer x 22 +
+             classifier): all of the weight format's kernel, or for the
+             presets 88 of the packed format's and 1 of int8's (the
+             classifier). The same run on the plain versions must give
              first-step logits within 5e-2 * max|logit| (bf16 rounds every
              projection output to 2^-8 and 22 layers compound the kernel's
              other f32 summation order); the greedy-token agreement is shown.
              Then the matvec path: ops.quantized_matmul on 1-D activations
-             (the GQMV kernel) over the same 89 projections.
+             (the GQMV kernels) over the same 89 projections.
 4. golden:   TinyLlama at full width (depth cut to the golden file's), f32,
-             int8 weights drawn by bridge.init_params_numpy: the greedy
-             tokens must equal the reference package's (written by
+             weights drawn by bridge.init_params_numpy: the greedy tokens
+             must equal the reference package's (written by
              tests/make_torch_golden.py) exactly, for InferenceEngine.generate
-             and for serve_ragged(mode="paged") on a float KV pool; the int8
-             and fp8 pools' agreement is shown.
+             with int8 weights and for serve_ragged(mode="paged") on a float
+             KV pool. With int4, int3, fp8, mixed and mixed3 weights the
+             free-running agreement is shown beside the CPU's (one int8
+             activation rounded across a .5 tie changes a trajectory), and
+             the reference's tokens replayed step by step must each be the
+             card's greedy choice or within 3e-2 of max|logit| of it. The
+             quantized pools' agreement is shown.
 5. ragged:   the serve CLI's --ragged path at full width: the phase-3 model
              through serve_ragged with 16 requests (prompts 16-192 tokens,
              budgets 8-64, seed 0), 8 slots, chunk 4, block size 8, in paged
@@ -48,7 +63,9 @@ printing no result, when CUDA is missing. Phases, each fatal on failure:
              22 x its decode steps. A paged pass on the plain versions gives
              the token agreement, one paged decode step of 8 rows the logits
              (within 5e-2 * max|logit|), and a pass with half the default
-             pool the backpressure path.
+             pool the backpressure path. Last, one paged pass with mixed3
+             weights (int3 attention/FFN, int8 classifier), which must launch
+             the int3 GQMM and the paged-attention kernel.
 
 The lines before the last are a JSON object of the kernels, then the card's
 name and power limit from nvidia-smi; the last line is
@@ -75,12 +92,18 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.bridge import init_params_numpy, params_from_numpy  # noqa: E402
-from repro_torch.core.quant import QuantizedTensor, quantize_activation  # noqa: E402
+from repro_torch.core.policy import resolve_format_map  # noqa: E402
+from repro_torch.core.quant import (  # noqa: E402
+    FP8_MAX,
+    QuantizedTensor,
+    get_format,
+    quantize,
+    quantize_activation,
+)
 from repro_torch.kernels import cuda_build, ops  # noqa: E402
 from repro_torch.kernels import gqmv as kern  # noqa: E402
 from repro_torch.kernels import paged_attn as pkern  # noqa: E402
-from repro_torch.kernels.ref import gqmm_ref, gqmv_ref, paged_attention_ref  # noqa: E402
-from repro_torch.models.attention import FP8_MAX  # noqa: E402
+from repro_torch.kernels.ref import paged_attention_ref  # noqa: E402
 from repro_torch.models.common import decode_mask  # noqa: E402
 from repro_torch.models.registry import build, load_config  # noqa: E402
 from repro_torch.models.transformer import contiguous_to_paged  # noqa: E402
@@ -98,6 +121,7 @@ from repro_torch.serving.paged import paged_scheduler  # noqa: E402
 # float32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+BF16_OPS_PER_S = 989e12
 F32_OPS_PER_S = 67e12
 
 ARCH = "tinyllama-1.1b"
@@ -106,12 +130,33 @@ PROJECTIONS = (("wqkv", 2560, 2048), ("wo", 2048, 2048), ("w13", 11264, 2048),
                ("w2", 2048, 5632), ("classifier", 32000, 2048))
 KERNEL_BATCHES = (1, 4, 256)
 RTOL = 1e-5
+# weight formats of phase 2, the fp8 tolerance (rtol, absolute atol), and
+# the card's peak rate for the products (fp8 x int8 runs at bf16's rate:
+# bf16 holds both exactly, which is how a tensor-core version would
+# compute them)
+WEIGHT_FORMATS = ("int8", "int4", "int3", "fp8")
+FP8_TOL = (5e-4, 1e-4)
+OPS_PER_S = {"int8": INT8_OPS_PER_S, "int4": INT8_OPS_PER_S, "int3": INT8_OPS_PER_S,
+             "fp8": BF16_OPS_PER_S}
+GS_SWEEP = {"m": 200, "n": 1024, "batches": (1, 4, 13), "group_sizes": (16, 32, 64, 128, 256)}
+# phase 3's weight settings after int8, and the one phase 5 serves paged
+FORMAT_SETTINGS = ("int4", "int3", "fp8", "mixed", "mixed3")
+RAGGED_FORMAT = "mixed3"
+# B4's yardstick: causal GQA prefill attention at the serve's shape
+SDPA = {"b": 4, "s": 64, "heads": 32, "kv_heads": 4, "hd": 64}
 SERVE = {"batch": 4, "prompt_len": 64, "max_new_tokens": 32, "seed": 0}
 LOGIT_TOL = 5e-2
+# a replayed golden token may lose the card's greedy choice only to a near
+# tie: one int8 activation rounded to the other side of a .5 boundary moves
+# the golden config's logits by up to 1.3e-2 of max|logit|
+# (tests/trace_torch_golden.py on the CPU; the CPU's own replay of uniform
+# int3 loses three steps, by margins up to 1.32e-2), so a lost step's margin
+# stays below twice that
+TIE_MARGIN = 3e-2
 GOLDEN_FILE = ROOT / "src" / "repro_torch" / "golden_tinyllama.json"
 GOLDEN = {"arch": ARCH, "num_layers": 2, "dtype": "float32", "quantize": "int8",
           "seed": 0, "prompt_seed": 1, "batch": 2, "prompt_len": 16,
-          "max_new_tokens": 16}
+          "max_new_tokens": 16, "weight_formats": list(FORMAT_SETTINGS)}
 # the golden ragged trace, served by serve_ragged(mode="paged") on the
 # golden model with a float, int8 and fp8 KV pool
 GOLDEN_RAGGED = {"prompt_seed": 2, "prompt_lens": [5, 16, 9, 12, 3],
@@ -130,11 +175,18 @@ PAGED_MAIN = {"b": 8, "bs": 8, "T": 256, "qdtype": "bfloat16", "softcap": None}
 # phase 5: the ragged trace at full width
 RAGGED = {"requests": 16, "prompt_lens": (16, 192), "budgets": (8, 64), "seed": 0,
           "slots": 8, "chunk": 4, "block_size": 8}
-SOURCES = {"gqmv_int8": "src/repro_torch/csrc/gqmm.cu", "gqmm_int8": "src/repro_torch/csrc/gqmm.cu",
+SOURCES = {**{f"{k}_{f}": "src/repro_torch/csrc/gqmm.cu" for f in WEIGHT_FORMATS
+              for k in ("gqmv", "gqmm")},
            "paged_attn": "src/repro_torch/csrc/paged_attn.cu",
            "paged_attn_quant": "src/repro_torch/csrc/paged_attn.cu"}
 REPLACES = {"gqmv_int8": "src/repro/kernels/gqmv.py:166",     # gqmv_pallas
             "gqmm_int8": "src/repro/kernels/gqmv.py:312",     # gqmm_pallas
+            "gqmv_int4": "src/repro/kernels/gqmv.py:182",     # gqmv_int4_pallas
+            "gqmm_int4": "src/repro/kernels/gqmv.py:329",     # gqmm_int4_pallas
+            "gqmv_int3": "src/repro/kernels/gqmv.py:198",     # gqmv_int3_pallas
+            "gqmm_int3": "src/repro/kernels/gqmv.py:346",     # gqmm_int3_pallas
+            "gqmv_fp8": "src/repro/kernels/gqmv.py:214",      # gqmv_fp8_pallas
+            "gqmm_fp8": "src/repro/kernels/gqmv.py:363",      # gqmm_fp8_pallas
             # paged_attention_pallas: _paged_kernel / _paged_quant_kernel
             "paged_attn": "src/repro/kernels/paged_attn.py:116",
             "paged_attn_quant": "src/repro/kernels/paged_attn.py:116"}
@@ -216,28 +268,33 @@ def device_time_ms(fn, iters: int, host_ms_guess: float = 0.1) -> tuple[float, f
 
 def profile_device(fn, reps: int) -> dict:
     """Device time per call of fn() by kernel name, from torch.profiler's
-    CUDA activity (CUPTI also sees the kernels launched through ctypes)."""
+    CUDA activity (CUPTI also sees the kernels launched through ctypes).
+    A profile that now and then comes back without CUDA activity is taken
+    again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    by_name: dict[str, float] = {}
-    count = 0
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total", 0) or 0
-        if us > 0:
-            by_name[evt.key] = by_name.get(evt.key, 0.0) + us / 1e3 / reps
-            count += evt.count
-    total = sum(by_name.values())
-    if total <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by_name: dict[str, float] = {}
+        count = 0
+        for evt in prof.key_averages():
+            us = getattr(evt, "self_device_time_total", 0) or 0
+            if us > 0:
+                by_name[evt.key] = by_name.get(evt.key, 0.0) + us / 1e3 / reps
+                count += evt.count
+        total = sum(by_name.values())
+        if total > 0:
+            break
+    else:
+        raise RuntimeError("torch.profiler recorded no device time in three profiles")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"device_ms": total, "kernels": count // reps,
-            "gqmm_ms": sum(v for k, v in by_name.items() if "gqmm_int8_kernel" in k),
+            "gqmm_ms": sum(v for k, v in by_name.items() if "gqmm_kernel" in k),
             "paged_ms": sum(v for k, v in by_name.items() if "paged_attn_kernel" in k),
             "top": top}
 
@@ -252,40 +309,57 @@ def _rand_q(gen, shape, gs, dev):
     return q, s
 
 
-def check_close(name, got, want):
+def _rand_weights(gen, fmt: str, m: int, n: int, gs: int, dev):
+    """(storage, scales) of an (m, n) weight: random int8 values and scales
+    for int8, random normal weights quantized by the port for the others."""
+    if fmt == "int8":
+        return _rand_q(gen, (m, n), gs, dev)
+    w = quantize(torch.randn((m, n), generator=gen, device=dev), gs, fmt)
+    return w.qvalues, w.scales
+
+
+def check_close(name, got, want, fmt: str = "int8"):
     err = (got - want).abs()
-    tol = RTOL * want.abs() + RTOL * want.abs().max()
+    if fmt == "fp8":
+        tol = FP8_TOL[0] * want.abs() + FP8_TOL[1]
+    else:
+        tol = RTOL * want.abs() + RTOL * want.abs().max()
     if not bool((err <= tol).all()):
         raise AssertionError(f"{name}: kernel disagrees with its plain version "
                              f"(max |err| {err.max().item():.3e}, tol {tol.max().item():.3e})")
     return err.max().item()
 
 
+def _kernel_fns(kind: str, fmt: str):
+    """(CUDA wrapper, plain version) of GQMV or GQMM for one weight format."""
+    hook = ops.KERNEL_HOOKS[get_format(fmt).kernel]
+    return getattr(hook, f"{kind}_cuda"), getattr(hook, f"{kind}_plain")
+
+
 def phase_kernels(dev) -> list[dict]:
     gen = torch.Generator(device=dev).manual_seed(0)
     gs = load_config(ARCH).group_size
     rows = []
-    for name, m, n in PROJECTIONS:
-        wq, ws = _rand_q(gen, (m, n), gs, dev)
+    for fmt, (name, m, n) in itertools.product(WEIGHT_FORMATS, PROJECTIONS):
+        wq, ws = _rand_weights(gen, fmt, m, n, gs, dev)
         wbytes = wq.numel() + 4 * ws.numel()
         copies = max(1, math.ceil(160e6 / wbytes))          # cycle through > 3x the L2
         pool = [(wq, ws)] + [(wq.clone(), ws.clone()) for _ in range(copies - 1)]
-        for kname, b in [("gqmm_int8", bb) for bb in KERNEL_BATCHES] + [("gqmv_int8", 1)]:
-            xq, xs = _rand_q(gen, (b, n) if kname == "gqmm_int8" else (n,), gs, dev)
-            if kname == "gqmm_int8":
-                kfn, pfn = kern.gqmm_cuda, gqmm_ref
-            else:
-                kfn, pfn = kern.gqmv_cuda, gqmv_ref
+        for kind, b in [("gqmm", bb) for bb in KERNEL_BATCHES] + [("gqmv", 1)]:
+            kname = f"{kind}_{fmt}"
+            xq, xs = _rand_q(gen, (b, n) if kind == "gqmm" else (n,), gs, dev)
+            kfn, pfn = _kernel_fns(kind, fmt)
             got = kfn(wq, ws, xq, xs, group_size=gs)
             want = pfn(wq, ws, xq, xs, group_size=gs)
             torch.cuda.synchronize()
-            err = check_close(f"{kname} {name} b={b}", got, want)
+            err = check_close(f"{kname} {name} b={b}", got, want, fmt)
             k_ms, k_host = device_time_ms(
                 lambda i: kfn(*pool[i % copies], xq, xs, group_size=gs), max(50, 2 * copies))
             p_ms, _ = device_time_ms(
                 lambda i: pfn(*pool[i % copies], xq, xs, group_size=gs), 5, host_ms_guess=1.0)
-            bnd, by = bound_s(call_bytes(wq, ws, xq, xs, got.numel()), 2 * b * m * n)
-            rows.append({"kernel": kname, "shape": name, "m": m, "n": n, "b": b,
+            bnd, by = bound_s(call_bytes(wq, ws, xq, xs, got.numel()), 2 * b * m * n,
+                              OPS_PER_S[fmt])
+            rows.append({"kernel": kname, "fmt": fmt, "shape": name, "m": m, "n": n, "b": b,
                          "max_abs_err": err, "us": 1e3 * k_ms, "host_us": 1e3 * k_host,
                          "plain_us": 1e3 * p_ms, "bound_us": 1e6 * bnd, "bound_by": by})
             log(f"[kernels] {kname:9s} {name:10s} m={m:5d} n={n:4d} b={b:3d}  "
@@ -293,6 +367,66 @@ def phase_kernels(dev) -> list[dict]:
                 f"plain {1e3 * p_ms:8.1f} us  bound {1e6 * bnd:6.1f} us ({by})")
         del pool
     return rows
+
+
+def phase_group_sizes(dev) -> list[dict]:
+    """Every kernel at every group size on a small shape, and the int3
+    kernels on 18-byte rows (n = 48 at GS 16) of a stacked leaf's layer
+    slices, whose rows and lanes are only 2-byte aligned. Checked only."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    m, n = GS_SWEEP["m"], GS_SWEEP["n"]
+    rows = []
+    cases = [(fmt, gs, kind, b) for fmt in WEIGHT_FORMATS for gs in GS_SWEEP["group_sizes"]
+             for kind, b in [("gqmm", bb) for bb in GS_SWEEP["batches"]] + [("gqmv", 1)]]
+    for fmt, gs, kind, b in cases:
+        wq, ws = _rand_weights(gen, fmt, m, n, gs, dev)
+        xq, xs = _rand_q(gen, (b, n) if kind == "gqmm" else (n,), gs, dev)
+        kfn, pfn = _kernel_fns(kind, fmt)
+        err = check_close(f"{kind}_{fmt} GS {gs} b={b}", kfn(wq, ws, xq, xs, group_size=gs),
+                          pfn(wq, ws, xq, xs, group_size=gs), fmt)
+        rows.append({"kernel": f"{kind}_{fmt}", "gs": gs, "m": m, "n": n, "b": b,
+                     "max_abs_err": err})
+    stacked = quantize(torch.randn((3, 9, 48), generator=gen, device=dev), 16, "int3")
+    for kind, b in (("gqmm", 2), ("gqmv", 1)):
+        xq, xs = _rand_q(gen, (b, 48) if kind == "gqmm" else (48,), 16, dev)
+        kfn, pfn = _kernel_fns(kind, "int3")
+        for i in range(3):
+            w = stacked[i]
+            err = check_close(f"{kind}_int3 18-byte rows, layer {i}",
+                              kfn(w.qvalues, w.scales, xq, xs, group_size=16),
+                              pfn(w.qvalues, w.scales, xq, xs, group_size=16), "int3")
+            rows.append({"kernel": f"{kind}_int3", "gs": 16, "m": 9, "n": 48, "b": b,
+                         "max_abs_err": err, "layer_slice": i})
+    torch.cuda.synchronize()
+    log(f"[kernels] {len(rows)} group-size cases pass (GS {GS_SWEEP['group_sizes']}, "
+        f"{m} x {n}, b in {GS_SWEEP['batches']} and GQMV; int3 on 18-byte rows)")
+    return rows
+
+
+def phase_sdpa(dev) -> dict:
+    """The library call for B4's function (causal GQA prefill attention), as
+    a yardstick for a later port; the port does not call it."""
+    F = torch.nn.functional
+    gen = torch.Generator(device=dev).manual_seed(6)
+    b, s, h, kv, hd = (SDPA[k] for k in ("b", "s", "heads", "kv_heads", "hd"))
+    q = torch.randn((b, h, s, hd), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((b, kv, s, hd), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((b, kv, s, hd), generator=gen, device=dev).to(torch.bfloat16)
+    out = F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+    ref_out = F.scaled_dot_product_attention(
+        q.float(), k.float().repeat_interleave(h // kv, 1), v.float().repeat_interleave(h // kv, 1),
+        is_causal=True)
+    err = (out.float() - ref_out).abs().max().item()
+    if not err <= 2e-2 * ref_out.abs().max().item():
+        raise AssertionError(f"scaled_dot_product_attention disagrees with f32: {err:.3e}")
+    ms, _ = device_time_ms(lambda i: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), 50)
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    flops = 4 * b * h * hd * s * (s + 1) // 2          # q.k and p.v over the causal half
+    bnd, by = bound_s(nbytes, flops, BF16_OPS_PER_S)
+    log(f"[sdpa] scaled_dot_product_attention causal GQA {h}/{kv} heads, hd {hd}, bf16, "
+        f"{b} x {s} tokens: {1e3 * ms:.2f} us per call (bound {1e6 * bnd:.2f} us, {by})")
+    return {"ms": ms, "bound_ms": 1e3 * bnd, "bound_by": by, **SDPA}
 
 
 def _paged_pools(gen, dev, pool: str, qdt, nb: int, bs: int):
@@ -417,45 +551,62 @@ def model_projections(params) -> list[QuantizedTensor]:
 
 def step_timing(projs, b: int, dev, rows) -> dict:
     """One forward pass's 89 projections back to back at batch b (b=1 as
-    1-D GQMV) on the model's own weights: the kernels' device time, and the
-    summed bound. The plain versions' time is the sum of their per-shape
-    device times from phase 2 (a back-to-back pass of them queues more
-    launches than the GPU-spin timing can hold)."""
+    1-D GQMV) on the model's own weights, each through its format's kernel:
+    the kernels' device time, and the pass's bound (all bytes over the
+    memory rate against every call's operations over its peak rate). The
+    plain versions' time is the sum of their per-shape device times from
+    phase 2 (a back-to-back pass of them queues more launches than the
+    GPU-spin timing can hold)."""
     gen = torch.Generator(device=dev).manual_seed(1)
-    acts, nbytes, nops = [], 0, 0
+    kind = "gqmm" if b > 1 else "gqmv"
+    acts, nbytes, op_s = [], 0, 0.0
     for w in projs:
         m, n = w.shape
         x = torch.randn((b, n) if b > 1 else (n,), generator=gen, device=dev)
         xq = quantize_activation(x, w.group_size)
-        acts.append((w, xq))
+        acts.append((w, xq, _kernel_fns(kind, w.fmt)[0]))
         nbytes += call_bytes(w.qvalues, w.scales, xq.qvalues, xq.scales, b * m)
-        nops += 2 * b * m * n
-    kname, kfn = ("gqmm_int8", kern.gqmm_cuda) if b > 1 else ("gqmv_int8", kern.gqmv_cuda)
+        op_s += 2 * b * m * n / OPS_PER_S[w.fmt]
 
     def step(_):
-        for w, xq in acts:
+        for w, xq, kfn in acts:
             kfn(w.qvalues, w.scales, xq.qvalues, xq.scales, group_size=w.group_size)
 
     k_ms, k_host = device_time_ms(step, 4, host_ms_guess=4.0)
-    plain_us = {(r["m"], r["n"]): r["plain_us"] for r in rows
-                if r["kernel"] == kname and r["b"] == b}
-    p_ms = sum(plain_us[tuple(w.shape)] for w in projs) / 1e3
-    bnd, by = bound_s(nbytes, nops)
+    plain_us = {(r["fmt"], r["m"], r["n"]): r["plain_us"] for r in rows
+                if r["kernel"].startswith(kind) and r["b"] == b}
+    p_ms = sum(plain_us[(w.fmt, *w.shape)] for w in projs) / 1e3
+    tb = nbytes / HBM_BYTES_PER_S
+    bnd, by = (tb, "bytes") if tb >= op_s else (op_s, "operations")
     return {"ms": k_ms, "host_ms": k_host, "plain_ms": p_ms, "bound_ms": 1e3 * bnd,
             "bound_by": by}
 
 
-def phase_serve(dev, rows) -> tuple[dict, InferenceEngine]:
-    cfg = load_config(ARCH)
-    model = build(cfg)
+def launches_per_pass(cfg, quantize) -> dict[str, int]:
+    """GQMM launches of one forward pass by kernel, from the weight policy:
+    wqkv and wo take the attn class's format, w13 and w2 the ffn class's,
+    the classifier its own (TinyLlama's GS 256 packs every format)."""
+    fmap = resolve_format_map(cfg.quant_format if quantize is True else quantize)
+    out: dict[str, int] = {}
+    for cls, count in (("attn", 2 * cfg.num_layers), ("ffn", 2 * cfg.num_layers),
+                       ("classifier", 1)):
+        k = f"gqmm_{fmap[cls]}"
+        out[k] = out.get(k, 0) + count
+    return out
+
+
+def phase_serve(dev, rows, model, params, quantize) -> tuple[dict, InferenceEngine]:
+    """Full-width generate with one weight setting: launches per pass,
+    timing, logits against the plain versions, the profiler's view of a
+    decode step, the 89-projection pass on the kernels, and the matvec path."""
+    cfg = model.cfg
+    tag = "int8" if quantize is True else quantize
     t0 = time.perf_counter()
-    params = model.init(seed=SERVE["seed"], device=dev)
     engine = InferenceEngine(model, params, cache_len=SERVE["prompt_len"] + SERVE["max_new_tokens"],
-                             quantize=True, device=dev)
-    del params
+                             quantize=quantize, device=dev)
     torch.cuda.synchronize()
-    log(f"[serve] {cfg.arch_id}: {cfg.num_layers} layers, d {cfg.d_model}, {cfg.param_dtype}, "
-        f"int8 fraction {engine.quantized_fraction:.3f}, init+quantize "
+    log(f"[serve {tag}] {cfg.arch_id}: {cfg.num_layers} layers, d {cfg.d_model}, "
+        f"{cfg.param_dtype}, quantized fraction {engine.quantized_fraction:.3f}, quantize "
         f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(SERVE["seed"])
     batch = {"tokens": torch.as_tensor(
@@ -468,7 +619,7 @@ def phase_serve(dev, rows) -> tuple[dict, InferenceEngine]:
     logits_k, _ = engine.prefill(batch)
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
-    prefill_launches = dict(kern.LAUNCHES)
+    prefill_launches = {k: v for k, v in kern.LAUNCHES.items() if v}
 
     # the main path: counts zeroed just before, read just after
     kern.reset_launches()
@@ -478,14 +629,14 @@ def phase_serve(dev, rows) -> tuple[dict, InferenceEngine]:
     t_gen = time.perf_counter() - t0
     launches = dict(kern.LAUNCHES)
 
-    per_pass = 4 * cfg.num_layers + 1
+    per_pass = launches_per_pass(cfg, quantize)
     passes = 1 + SERVE["max_new_tokens"]
-    if prefill_launches["gqmm_int8"] != per_pass:
-        raise AssertionError(f"prefill launched GQMM {prefill_launches['gqmm_int8']} "
-                             f"times, expected {per_pass}")
-    if launches["gqmm_int8"] != per_pass * passes:
-        raise AssertionError(f"generate launched GQMM {launches['gqmm_int8']} times, "
-                             f"expected {per_pass} x {passes}")
+    if prefill_launches != per_pass:
+        raise AssertionError(f"{tag}: prefill launched {prefill_launches}, expected {per_pass}")
+    want = {k: per_pass.get(k, 0) * passes for k in launches}
+    if launches != want:
+        raise AssertionError(f"{tag}: generate launched {launches}, expected {want} "
+                             f"({per_pass} x {passes} passes)")
     toks = res.tokens
     if toks.shape != (SERVE["batch"], SERVE["max_new_tokens"]) or not bool(
             ((toks >= 0) & (toks < cfg.vocab_padded)).all()):
@@ -500,45 +651,51 @@ def phase_serve(dev, rows) -> tuple[dict, InferenceEngine]:
     logit_err = (lk - lp).abs().max().item() / lp.abs().max().item()
     agree = (toks == res_p.tokens).float().mean().item()
     first_agree = (toks[:, 0] == res_p.tokens[:, 0]).float().mean().item()
-    log(f"[serve] first-step logits kernel vs plain: max|diff|/max|logit| {logit_err:.3e} "
-        f"(tol {LOGIT_TOL}); greedy-token agreement {agree:.4f} (first token {first_agree:.2f})")
+    log(f"[serve {tag}] first-step logits kernel vs plain: max|diff|/max|logit| "
+        f"{logit_err:.3e} (tol {LOGIT_TOL}); greedy-token agreement {agree:.4f} "
+        f"(first token {first_agree:.2f})")
     if not logit_err <= LOGIT_TOL:
-        raise AssertionError(f"kernel logits differ from plain by {logit_err:.3e}")
+        raise AssertionError(f"{tag}: kernel logits differ from plain by {logit_err:.3e}")
 
     b, p, new = SERVE["batch"], SERVE["prompt_len"], SERVE["max_new_tokens"]
     t_decode = t_gen - t_prefill
-    out = {"prefill_s": t_prefill, "generate_s": t_gen, "decode_s": t_decode,
+    out = {"quantize": tag, "prefill_s": t_prefill, "generate_s": t_gen, "decode_s": t_decode,
            "prefill_tok_s": b * p / t_prefill, "decode_tok_s": b * new / t_decode,
            "decode_ms_per_step": 1e3 * t_decode / new,
-           "launches": launches, "prefill_launches": prefill_launches,
-           "logit_rel_err": logit_err, "token_agreement": agree}
-    log(f"[serve] prefill {b}x{p}: {t_prefill * 1e3:.1f} ms ({out['prefill_tok_s']:.0f} tok/s); "
-        f"decode {new} steps: {t_decode * 1e3:.1f} ms ({out['decode_tok_s']:.1f} tok/s, "
-        f"{out['decode_ms_per_step']:.2f} ms/step); GQMM launches {launches['gqmm_int8']} "
-        f"= {per_pass} x {passes}")
+           "launches": launches, "prefill_launches": prefill_launches, "per_pass": per_pass,
+           "logit_rel_err": logit_err, "token_agreement": agree,
+           "quantized_fraction": engine.quantized_fraction}
+    log(f"[serve {tag}] prefill {b}x{p}: {t_prefill * 1e3:.1f} ms ({out['prefill_tok_s']:.0f} "
+        f"tok/s); decode {new} steps: {t_decode * 1e3:.1f} ms ({out['decode_tok_s']:.1f} tok/s, "
+        f"{out['decode_ms_per_step']:.2f} ms/step); GQMM launches "
+        f"{ {k: v for k, v in launches.items() if v} } = {per_pass} x {passes}")
 
     # where the card's time goes: kernel time by name from the profiler
     logits0, cache = engine.prefill(batch)
     tok0 = logits0.argmax(-1)
     steps = iter(range(p, p + 8))
     dec = profile_device(lambda: engine.decode_step(tok0, cache, next(steps)), 3)
-    pre = profile_device(lambda: engine.prefill(batch), 1)
-    out.update({"decode_profile": dec, "prefill_profile": pre,
-                "decode_device_busy_share": dec["device_ms"] / out["decode_ms_per_step"],
-                "prefill_device_busy_share": pre["device_ms"] / (1e3 * t_prefill)})
-    log(f"[serve] profiler: decode step {dec['device_ms']:.3f} ms of device time "
-        f"({100 * out['decode_device_busy_share']:.1f} % of the {out['decode_ms_per_step']:.2f} ms "
-        f"step), GQMM {dec['gqmm_ms']:.3f} ms, {dec['kernels']} kernels; prefill "
-        f"{pre['device_ms']:.3f} ms ({100 * out['prefill_device_busy_share']:.1f} % busy), "
-        f"GQMM {pre['gqmm_ms']:.3f} ms")
+    out.update({"decode_profile": dec,
+                "decode_device_busy_share": dec["device_ms"] / out["decode_ms_per_step"]})
+    msg = (f"[serve {tag}] profiler: decode step {dec['device_ms']:.3f} ms of device time "
+           f"({100 * out['decode_device_busy_share']:.1f} % of the "
+           f"{out['decode_ms_per_step']:.2f} ms step), GQMM {dec['gqmm_ms']:.3f} ms, "
+           f"{dec['kernels']} kernels")
+    if quantize is True:
+        pre = profile_device(lambda: engine.prefill(batch), 1)
+        out.update({"prefill_profile": pre,
+                    "prefill_device_busy_share": pre["device_ms"] / (1e3 * t_prefill)})
+        msg += (f"; prefill {pre['device_ms']:.3f} ms ({100 * out['prefill_device_busy_share']:.1f}"
+                f" % busy), GQMM {pre['gqmm_ms']:.3f} ms")
+    log(msg)
     for name, ms in dec["top"]:
-        log(f"[serve]   decode {ms:8.4f} ms/step  {name[:90]}")
+        log(f"[serve {tag}]   decode {ms:8.4f} ms/step  {name[:90]}")
 
     projs = model_projections(engine.params)
     out["step_gqmm"] = step_timing(projs, SERVE["batch"], dev, rows)
     out["step_gqmv"] = step_timing(projs, 1, dev, rows)
     sm, sv = out["step_gqmm"], out["step_gqmv"]
-    log(f"[serve] one pass of 89 projections: GQMM b={b} {sm['ms']:.3f} ms (plain "
+    log(f"[serve {tag}] one pass of 89 projections: GQMM b={b} {sm['ms']:.3f} ms (plain "
         f"{sm['plain_ms']:.2f} ms, bound {sm['bound_ms']:.3f} ms); GQMV {sv['ms']:.3f} ms "
         f"(plain {sv['plain_ms']:.2f} ms, bound {sv['bound_ms']:.3f} ms)")
 
@@ -549,17 +706,18 @@ def phase_serve(dev, rows) -> tuple[dict, InferenceEngine]:
     kern.reset_launches()
     ys = [ops.quantized_matmul(x, w) for x, w in zip(xs, projs)]
     torch.cuda.synchronize()
-    out["matvec_launches"] = dict(kern.LAUNCHES)
-    if out["matvec_launches"]["gqmv_int8"] != len(projs):
-        raise AssertionError(f"matvec path launched GQMV {out['matvec_launches']['gqmv_int8']} "
-                             f"times, expected {len(projs)}")
+    out["matvec_launches"] = {k: v for k, v in kern.LAUNCHES.items() if v}
+    want_mv = {k.replace("gqmm", "gqmv"): v for k, v in per_pass.items()}
+    if out["matvec_launches"] != want_mv:
+        raise AssertionError(f"{tag}: matvec path launched {out['matvec_launches']}, "
+                             f"expected {want_mv}")
     err = 0.0
     for x, w, y in zip(xs, projs, ys):
         err = max(err, check_close("quantized_matmul 1-D", y,
-                                   ops.quantized_matmul(x, w, impl="plain")))
+                                   ops.quantized_matmul(x, w, impl="plain"), w.fmt))
     out["matvec_max_abs_err"] = err
-    log(f"[serve] matvec path: {len(projs)} GQMV launches through quantized_matmul, "
-        f"max|err| vs plain {err:.2e}")
+    log(f"[serve {tag}] matvec path: GQMV launches {out['matvec_launches']} through "
+        f"quantized_matmul, max|err| vs plain {err:.2e}")
     return out, engine
 
 
@@ -650,7 +808,7 @@ def _first_step_logits(engine, reqs, dev) -> dict:
             "positions": lens.tolist()}
 
 
-def phase_ragged(dev, engine0) -> dict:
+def phase_ragged(dev, engine0, engine_fmt) -> dict:
     cfg = engine0.cfg
     reqs = ragged_trace(cfg.vocab_size)
     cache_len = max(max(bucket_length(len(r.tokens)), len(r.tokens) + r.max_new) for r in reqs)
@@ -672,7 +830,7 @@ def phase_ragged(dev, engine0) -> dict:
         log(f"[ragged] {name:13s} {info['tokens']} tokens in {info['wall_s']:.2f} s "
             f"({info['tok_s']:.1f} tok/s, prefill included); {info['rounds']} rounds "
             f"({info['ms_per_round']:.1f} ms each), {info['decode_steps']} decode steps; "
-            f"GQMM {info['launches']['gqmm_int8']}, paged_attn "
+            f"GQMM { {k: v for k, v in info['launches'].items() if v and 'gqm' in k} }, paged_attn "
             f"{info['launches']['paged_attn']}, paged_attn_quant "
             f"{info['launches']['paged_attn_quant']}"
             + (f"; peak {info['peak_blocks']} of {info['pool_blocks']} pool blocks "
@@ -719,6 +877,23 @@ def phase_ragged(dev, engine0) -> dict:
     show("paged_half", passes["paged_half"],
          f"; token agreement with the default pool {agree['half']:.4f}")
 
+    # the packed-weight preset (int3 attention/FFN, int8 classifier), float pool
+    eng3 = InferenceEngine(engine_fmt.model, engine_fmt.params, cache_len=cache_len, device=dev)
+    serve_ragged(eng3, warm, 3, mode="paged", slots=RAGGED["slots"], chunk=RAGGED["chunk"],
+                 block_size=RAGGED["block_size"])
+    name = f"paged_{RAGGED_FORMAT}"
+    outs[name], passes[name] = _ragged_pass(eng3, reqs, "paged")
+    check_launches(name, passes[name], "paged_attn")
+    per_pass = launches_per_pass(cfg, RAGGED_FORMAT)
+    got = {k: v for k, v in passes[name]["launches"].items() if v and k.startswith("gqm")}
+    forwards = got.get("gqmm_int8", 0) // per_pass["gqmm_int8"]
+    if forwards < 1 or got != {k: v * forwards for k, v in per_pass.items()}:
+        raise AssertionError(f"{name}: GQMM launches {got}, expected {per_pass} per forward")
+    agree[RAGGED_FORMAT] = _agreement(outs["paged_float"], outs[name])
+    show(name, passes[name], f" ({forwards} forward passes); token agreement with int8 "
+         f"weights {agree[RAGGED_FORMAT]:.4f}")
+    del eng3
+
     logits = {kvq or "float": _first_step_logits(engines[kvq], reqs, dev)
               for kvq in (None, "int8")}
     for k, v in logits.items():
@@ -735,6 +910,25 @@ def phase_ragged(dev, engine0) -> dict:
 # ---------------------------------------------------------------------------
 # phase 4: golden tokens from the reference package
 # ---------------------------------------------------------------------------
+
+def replay_choices(engine, prompt, tokens) -> list[dict]:
+    """Prefill, then decode the reference's tokens (b, T) step by step; at
+    each step where the card's greedy token is not the reference's, the gap
+    between the card's top logit and the reference token's logit, as a
+    fraction of max|logit|."""
+    off = []
+    with torch.inference_mode():
+        logits, cache = engine.prefill({"tokens": torch.as_tensor(prompt)})
+        for step in range(tokens.shape[1]):
+            want = torch.as_tensor(tokens[:, step], device=logits.device)
+            lg = logits.float()
+            gap = (lg.max(-1).values - lg.gather(1, want[:, None])[:, 0]) / lg.abs().max()
+            for row in torch.nonzero(lg.argmax(-1) != want).flatten().tolist():
+                off.append({"step": step, "row": row, "margin": gap[row].item()})
+            if step + 1 < tokens.shape[1]:
+                logits, cache = engine.decode_step(want, cache, prompt.shape[1] + step)
+    return off
+
 
 def phase_golden(dev) -> dict:
     golden = json.loads(GOLDEN_FILE.read_text())
@@ -793,7 +987,8 @@ def phase_golden(dev) -> dict:
         same_r = sum(a == b for ra, rb in zip(toks, ref["tokens"][kv]) for a, b in zip(ra, rb))
         total_r = sum(gr["budgets"])
         ragged[kv] = {"tokens_equal": same_r, "tokens_total": total_r, "peak_blocks": peak,
-                      "launches": {**kern.LAUNCHES, **pkern.LAUNCHES}}
+                      "launches": {k: v for k, v in {**kern.LAUNCHES, **pkern.LAUNCHES}.items()
+                                   if v}}
         log(f"[golden] serve_ragged paged, {kv} KV pool: {same_r}/{total_r} tokens equal the "
             f"reference's; lengths {'equal' if lengths == ref['lengths'][kv] else 'differ'}, "
             f"peak blocks {peak} (reference {ref['peak_blocks'][kv]}); launches "
@@ -802,31 +997,66 @@ def phase_golden(dev) -> dict:
                               or peak != ref["peak_blocks"][kv]):
             raise AssertionError(f"golden ragged tokens differ (float pool):\n port {toks}\n"
                                  f"  ref {ref['tokens'][kv]}")
+
+    # generate with the other weight settings. Free-running tokens are shown:
+    # one int8 activation that f32 order rounds to the other side of a .5
+    # tie changes a trajectory (ROADMAP Queue C). Required: replayed on the
+    # reference's tokens, every one of them is the card's greedy choice or
+    # within TIE_MARGIN of its top logit.
+    formats = {}
+    cpu_equal = golden["port_cpu_equal"]["generate"]
+    for fmt in GOLDEN["weight_formats"]:
+        eng = InferenceEngine(engine.model, params, device=dev, quantize=fmt,
+                              cache_len=GOLDEN["prompt_len"] + GOLDEN["max_new_tokens"])
+        kern.reset_launches()
+        got_f = eng.generate({"tokens": torch.as_tensor(prompt)},
+                             GOLDEN["max_new_tokens"]).tokens.tolist()
+        launches_f = {k: v for k, v in kern.LAUNCHES.items() if v}
+        want_f = golden["formats"][fmt]
+        same_f = sum(a == b for ra, rb in zip(got_f, want_f) for a, b in zip(ra, rb))
+        off = replay_choices(eng, prompt, np.asarray(want_f))
+        formats[fmt] = {"tokens_equal": same_f, "tokens_total": total,
+                        "cpu_tokens_equal": cpu_equal[fmt], "launches": launches_f,
+                        "replay_differs": off}
+        log(f"[golden] generate, {fmt} weights: {same_f}/{total} tokens equal the reference's "
+            f"(the port's plain path on the CPU: {cpu_equal[fmt]}/{total}); replayed on the "
+            f"reference's tokens, the card's choice differs at {len(off)} of {total} steps"
+            + "".join(f"; step {o['step']} row {o['row']}: margin {o['margin']:.2e}" for o in off)
+            + f" (margins as a fraction of max|logit|, tol {TIE_MARGIN}); launches {launches_f}")
+        if any(o["margin"] > TIE_MARGIN for o in off):
+            raise AssertionError(f"golden replay ({fmt} weights): the reference's token is "
+                                 f"not a near-tie of the card's choice: {off}")
+        del eng
     return {"tokens_equal": same, "tokens_total": total, "launches": launches,
-            "ragged": ragged}
+            "ragged": ragged, "formats": formats}
 
 
 # ---------------------------------------------------------------------------
 
-def kernel_entries(rows, serve, prows, ragged) -> list[dict]:
+def kernel_entries(rows, gsrows, serves, prows, ragged) -> list[dict]:
+    """The kernels line. A GQMV/GQMM kernel's times are one forward pass of
+    its format's uniform setting; its launches add up every phase-3 run
+    that launched it (the presets launch int4/int3 and the int8 classifier)."""
     entries = []
-    for kname, step_key, launches, path in (
-            ("gqmm_int8", "step_gqmm", serve["launches"]["gqmm_int8"],
-             f"InferenceEngine.generate, batch {SERVE['batch']}, prompt {SERVE['prompt_len']}, "
-             f"{SERVE['max_new_tokens']} tokens"),
-            ("gqmv_int8", "step_gqmv", serve["matvec_launches"]["gqmv_int8"],
-             "ops.quantized_matmul on 1-D activations over the 89 projections")):
+    for fmt, kind in itertools.product(WEIGHT_FORMATS, ("gqmm", "gqmv")):
+        kname = f"{kind}_{fmt}"
+        key = "launches" if kind == "gqmm" else "matvec_launches"
+        runs = {tag: sv[key].get(kname, 0) for tag, sv in serves.items() if sv[key].get(kname)}
         mine = [r for r in rows if r["kernel"] == kname]
-        step = serve[step_key]
+        step = serves[fmt]["step_gqmm" if kind == "gqmm" else "step_gqmv"]
         entries.append({
             "name": kname, "route": "cuda", "source": SOURCES[kname],
-            "replaces": REPLACES[kname], "launches": launches,
-            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "replaces": REPLACES[kname], "launches": sum(runs.values()),
+            "max_abs_err": max(r["max_abs_err"] for r in mine + gsrows if r["kernel"] == kname),
             "ms": step["ms"], "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
             "bound_by": step["bound_by"], "library_ms": None,
-            "per": "one forward pass of the 89 TinyLlama projections at b="
-                   + str(SERVE["batch"] if kname == "gqmm_int8" else 1),
-            "path": path,
+            "per": f"one forward pass of the 89 TinyLlama projections with {fmt} weights at b="
+                   + str(SERVE["batch"] if kind == "gqmm" else 1),
+            "path": ("InferenceEngine.generate, batch {b}, prompt {p}, {n} tokens".format(
+                b=SERVE["batch"], p=SERVE["prompt_len"], n=SERVE["max_new_tokens"])
+                if kind == "gqmm" else
+                "ops.quantized_matmul on 1-D activations over the 89 projections")
+            + "; launches by weight setting " + ", ".join(f"{t} {c}" for t, c in runs.items()),
             "shapes": [{k: r[k] for k in ("shape", "m", "n", "b", "us", "plain_us",
                                           "bound_us", "max_abs_err")} for r in mine],
         })
@@ -886,21 +1116,33 @@ def main(argv=None) -> int:
                 log(f"[build] {b.name}: {line.strip()}")
 
     rows = phase_kernels(dev)
+    gsrows = phase_group_sizes(dev)
+    sdpa = phase_sdpa(dev)
     prows = phase_paged_kernels(dev)
-    serve, engine = phase_serve(dev, rows)
-    ragged = phase_ragged(dev, engine)
-    del engine
+    model = build(load_config(ARCH))
+    params = model.init(seed=SERVE["seed"], device=dev)
+    serves, engines = {}, {}
+    for quantize in (True, *FORMAT_SETTINGS):
+        tag = "int8" if quantize is True else quantize
+        serves[tag], eng = phase_serve(dev, rows, model, params, quantize)
+        if tag in ("int8", RAGGED_FORMAT):
+            engines[tag] = eng
+        del eng
+    del params
+    ragged = phase_ragged(dev, engines["int8"], engines[RAGGED_FORMAT])
+    del engines
     golden = phase_golden(dev)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
-    entries = kernel_entries(rows, serve, prows, ragged)
+    entries = kernel_entries(rows, gsrows, serves, prows, ragged)
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
         Path(args.report).write_text(json.dumps(
-            {"card": smi, "kernel_rows": rows, "paged_rows": prows, "serve": serve,
-             "ragged": ragged, "golden": golden, "kernels": entries,
+            {"card": smi, "kernel_rows": rows, "group_size_rows": gsrows, "sdpa": sdpa,
+             "paged_rows": prows, "serve": serves, "ragged": ragged, "golden": golden,
+             "kernels": entries,
              "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))

@@ -2,9 +2,11 @@
 
 The reference's parameters reach the port as nested dicts of numpy arrays
 in the reference's tree layout. A quantized leaf arrives as a dict
-``{"qvalues", "scales", "group_size", "fmt"}``. A bfloat16 array (the
-``ml_dtypes`` type numpy gets from JAX) crosses bit-exactly as its int16
-bit pattern, so this module needs neither JAX nor ``ml_dtypes``.
+``{"qvalues", "scales", "group_size", "fmt"}`` in any registered format:
+int8, packed int4 (int8 bytes), packed int3 (uint8 bytes) or fp8. The
+``ml_dtypes`` arrays numpy gets from JAX cross bit-exactly as their bit
+patterns, bfloat16 as int16 and float8_e4m3fn as uint8, so this module
+needs neither JAX nor ``ml_dtypes``.
 
 ``init_params_numpy`` draws weights in that same layout from a seeded
 numpy ``RandomState``, whose stream numpy keeps fixed across versions; the
@@ -18,17 +20,21 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.quant import QuantizedTensor
+from repro_torch.core.quant import QuantizedTensor, get_format
 from repro_torch.device import resolve_device
 
 _QT_KEYS = {"qvalues", "scales", "group_size"}
+# ml_dtypes types -> (the numpy type of their bit pattern, the torch type)
+_BIT_CAST = {"bfloat16": (np.int16, torch.bfloat16),
+             "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
 
 
 def _to_tensor(a, device: torch.device) -> torch.Tensor:
     a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
-        bits = np.ascontiguousarray(a).view(np.int16).copy()
-        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+    if a.dtype.name in _BIT_CAST:
+        bits_type, dtype = _BIT_CAST[a.dtype.name]
+        bits = np.ascontiguousarray(a).view(bits_type).copy()
+        return torch.from_numpy(bits).view(dtype).to(device)
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
@@ -40,10 +46,11 @@ def params_from_numpy(tree, device="cuda"):
         if isinstance(node, dict):
             if _QT_KEYS <= set(node):
                 fmt = str(node.get("fmt", "int8"))
-                if fmt != "int8":
-                    raise NotImplementedError(f"quant format {fmt!r} is not yet ported")
-                return QuantizedTensor(_to_tensor(node["qvalues"], dev),
-                                       _to_tensor(node["scales"], dev),
+                qv = _to_tensor(node["qvalues"], dev)
+                want = get_format(fmt).storage_dtype
+                if qv.dtype != want:
+                    raise TypeError(f"{fmt} qvalues must be stored as {want}, got {qv.dtype}")
+                return QuantizedTensor(qv, _to_tensor(node["scales"], dev),
                                        int(node["group_size"]), fmt)
             return {k: conv(v) for k, v in node.items()}
         return _to_tensor(node, dev)

@@ -4,21 +4,25 @@ The paper quantizes token embeddings, classifier, attention projections and
 FFN matrices, and leaves RMSNorm weights in float (Table I). Leaves are
 matched by their '/'-joined tree path exactly as in the reference, so the
 same leaves are quantized with the same group sizes. Stacked layer leaves
-(L, out, in) are quantized along the last axis. Only the uniform ``int8``
-format is ported; the reference's int4/int3/fp8 formats and mixed presets
-raise "not yet ported".
+(L, out, in) are quantized along the last axis.
+
+On top of whether a leaf is quantized, the policy decides in which format:
+leaves fall into layer classes (embed / classifier / attn / ffn / other)
+and a format map gives each class a registry format. The "mixed" preset
+keeps embeddings and classifier at int8 and packs attention/FFN to int4;
+"mixed3" packs them to int3.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Mapping
 
 import torch
 
 from repro_torch.core.quant import (
     QuantizedTensor,
+    get_format,
     largest_pow2_group,
-    quantize,
 )
 from repro_torch.core.tree import tree_leaves, tree_map_with_path
 
@@ -37,6 +41,17 @@ LEAF_CLASSES = ("embed", "classifier", "attn", "ffn", "other")
 _FFN_LEAVES = ("w13", "w2", "wff1", "wff2", "wffr")
 _ATTN_CONTAINERS = ("attn", "cross", "mamba")
 
+# embeddings and classifier keep int8; the attention/FFN projections, the
+# bulk of decode's weight bytes, drop to packed int4 ("mixed") or int3
+MIXED_FORMAT_MAP: dict[str, str | None] = {
+    "embed": "int8", "classifier": "int8", "attn": "int4", "ffn": "int4", "other": "int8"}
+MIXED3_FORMAT_MAP: dict[str, str | None] = {
+    "embed": "int8", "classifier": "int8", "attn": "int3", "ffn": "int3", "other": "int8"}
+FORMAT_POLICIES: dict[str, Mapping[str, str | None]] = {
+    "mixed": MIXED_FORMAT_MAP,
+    "mixed3": MIXED3_FORMAT_MAP,
+}
+
 
 def leaf_class(path: str) -> str:
     """Bucket a '/'-joined parameter path into one of LEAF_CLASSES."""
@@ -53,6 +68,31 @@ def leaf_class(path: str) -> str:
     if any(c in parts for c in _ATTN_CONTAINERS) or leaf.startswith("w"):
         return "attn"
     return "other"
+
+
+def resolve_format_map(formats) -> dict[str, str | None]:
+    """A format selector -> a complete {layer class: format} map.
+
+    ``formats`` is a registry format name (uniform), a preset of
+    FORMAT_POLICIES, or a partial {class: name | None} map: classes left
+    out get "int8" and an explicit None leaves that class in float."""
+    if isinstance(formats, str):
+        if formats in FORMAT_POLICIES:
+            return dict(FORMAT_POLICIES[formats])
+        get_format(formats)  # raises with the registered names on a typo
+        return {c: formats for c in LEAF_CLASSES}
+    if isinstance(formats, Mapping):
+        bad = set(formats) - set(LEAF_CLASSES)
+        if bad:
+            raise ValueError(f"unknown layer classes {sorted(bad)}; valid: {LEAF_CLASSES}")
+        out: dict[str, str | None] = {c: "int8" for c in LEAF_CLASSES}
+        for cls, name in formats.items():
+            if name is not None:
+                get_format(name)
+            out[cls] = name
+        return out
+    raise TypeError(f"formats must be a format/policy name or a {{class: format}} map, "
+                    f"got {type(formats).__name__}")
 
 
 def should_quantize(path: str, leaf: Any, group_size: int) -> bool:
@@ -75,21 +115,27 @@ def leaf_group_size(path: str, leaf, preferred: int) -> int | None:
 
 
 def quantize_params(params, group_size: int, formats="int8"):
-    """PTQ entry point: replace every quantizable weight leaf with an int8
-    :class:`QuantizedTensor` (groups along the trailing/contraction axis)."""
-    if formats != "int8":
-        raise NotImplementedError(
-            f"quantize formats {formats!r} are not yet ported to repro_torch; "
-            "only the uniform 'int8' (paper W8A8) is")
+    """PTQ entry point: replace every quantizable weight leaf with a
+    :class:`QuantizedTensor` (groups along the trailing/contraction axis) in
+    the format its layer class maps to (``resolve_format_map``). A packed
+    format whose pack factor does not divide the leaf's group size falls
+    back to int8, never to float."""
+    fmt_map = resolve_format_map(formats)
 
     def convert(path, leaf):
         p = path.lower()
         if not should_quantize(p, leaf, 16):
             return leaf
+        fmt_name = fmt_map[leaf_class(p)]
+        if fmt_name is None:
+            return leaf
         gs = leaf_group_size(p, leaf, group_size)
         if gs is None:
             return leaf
-        return quantize(leaf, gs, "int8")
+        fmt = get_format(fmt_name)
+        if gs % fmt.pack:
+            fmt = get_format("int8")  # packing impossible on this geometry
+        return fmt.quantize(leaf, gs)
 
     return tree_map_with_path(convert, params)
 
@@ -105,3 +151,14 @@ def quantized_fraction(params) -> float:
         else:
             tot_bits += leaf.numel() * leaf.element_size() * 8
     return q_bits / max(tot_bits, 1)
+
+
+def format_breakdown(params) -> dict[str, int]:
+    """Stored bytes per quantization format, plus 'float' for the rest."""
+    out: dict[str, int] = {}
+    for leaf in tree_leaves(params):
+        if isinstance(leaf, QuantizedTensor):
+            out[leaf.fmt] = out.get(leaf.fmt, 0) + leaf.nbytes()
+        else:
+            out["float"] = out.get("float", 0) + leaf.numel() * leaf.element_size()
+    return out

@@ -4,8 +4,9 @@
 Every weight-bearing matmul goes through ``linear``: a plain tensor weight
 is an ordinary matmul in the activation's dtype; a
 :class:`~repro_torch.core.quant.QuantizedTensor` weight becomes the paper's
-W8A8 GQMV/GQMM (run-time int8 activation quantization + the group-wise
-kernel). Weights keep the paper's (out, in) layout with groups along in.
+GQMV/GQMM (run-time int8 activation quantization + the group-wise kernel
+of the weight's format: W8A8, W4A8, W3A8 or fp8 weights). Weights keep the
+paper's (out, in) layout with groups along in.
 """
 
 from __future__ import annotations
@@ -30,12 +31,14 @@ def linear(w, x: torch.Tensor) -> torch.Tensor:
 
 def embedding_lookup(w, ids: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """Row gather from a (vocab, d) table; dequantizes only the gathered rows
-    when the table is quantized (the paper quantizes W_embeddings)."""
+    when the table is quantized (the paper quantizes W_embeddings). Packed
+    formats gather their storage rows and unpack them."""
     if isinstance(w, QuantizedTensor):
-        q = w.qvalues[ids]                          # (..., d) int8
+        q = w.qvalues[ids]                          # (..., d / pack * pack_storage)
         s = w.scales[ids]                           # (..., d / GS)
-        g = q.reshape(*q.shape[:-1], w.num_groups, w.group_size).to(dtype)
-        return (g * s[..., None].to(dtype)).reshape(q.shape)
+        v = w.format.unpack_values(q)               # (..., d) logical values
+        g = v.reshape(*v.shape[:-1], w.num_groups, w.group_size).to(dtype)
+        return (g * s[..., None].to(dtype)).reshape(v.shape)
     return w[ids].to(dtype)
 
 

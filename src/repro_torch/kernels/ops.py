@@ -1,7 +1,12 @@
 """Entry points for the quantized matmuls and paged decode attention
 (counterpart of ``repro/kernels/ops.py``).
 
-``impl`` picks the implementation, as in the reference:
+The weight format picks the GQMV/GQMM pair: every registered
+:class:`~repro_torch.core.quant.QuantFormat` names a kernel hook
+(``fmt.kernel``), and ``KERNEL_HOOKS`` maps it to the CUDA kernels and
+their plain versions, as the reference's table maps it to its Pallas
+kernels and XLA oracles. ``impl`` picks the implementation, as in the
+reference:
 
   'auto'   the CUDA kernel for a CUDA tensor, the plain version for a CPU
            tensor (the CPU is the only reason the plain version runs)
@@ -19,13 +24,49 @@ raises.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import functools
+from typing import Callable
 
 import torch
 
-from repro_torch.core.quant import QuantizedTensor, quantize_activation
+from repro_torch.core.quant import QuantizedTensor, get_format, quantize_activation
 from repro_torch.kernels import gqmv as _cuda
 from repro_torch.kernels import paged_attn as _paged
 from repro_torch.kernels import ref as _ref
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelHook:
+    """GQMV/GQMM implementations for one weight storage format, all with the
+    signature (wq, ws, xq, xs, *, group_size); ``wq`` is the format's
+    storage array (packed for int4/int3), activations are int8."""
+
+    gqmv_cuda: Callable
+    gqmm_cuda: Callable
+    gqmv_plain: Callable
+    gqmm_plain: Callable
+
+
+def _cuda_pair(fmt: str) -> tuple[Callable, Callable]:
+    return (functools.partial(_cuda.gqmv_cuda, fmt=fmt),
+            functools.partial(_cuda.gqmm_cuda, fmt=fmt))
+
+
+KERNEL_HOOKS: dict[str, KernelHook] = {
+    "gqmv_int8": KernelHook(*_cuda_pair("int8"), _ref.gqmv_ref, _ref.gqmm_ref),
+    "gqmv_int4": KernelHook(*_cuda_pair("int4"), _ref.gqmv_int4_ref, _ref.gqmm_int4_ref),
+    "gqmv_int3": KernelHook(*_cuda_pair("int3"), _ref.gqmv_int3_ref, _ref.gqmm_int3_ref),
+    "gqmv_fp8": KernelHook(*_cuda_pair("fp8"), _ref.gqmv_fp8_ref, _ref.gqmm_fp8_ref),
+}
+
+
+def _hook(kernel: str) -> KernelHook:
+    try:
+        return KERNEL_HOOKS[kernel]
+    except KeyError:
+        raise ValueError(f"unknown kernel hook {kernel!r}; registered: "
+                         f"{sorted(KERNEL_HOOKS)}") from None
 
 IMPLS = ("auto", "cuda", "plain")
 _SCOPE = {"impl": "auto"}
@@ -53,18 +94,21 @@ def _resolve(impl: str | None, t: torch.Tensor) -> str:
     return impl
 
 
-def gqmv(wq, ws, xq, xs, *, group_size: int, impl: str | None = None) -> torch.Tensor:
-    """out (m,) = groupwise-quantized W (m, n) @ x (n,). Paper Alg. 1."""
-    if _resolve(impl, wq) == "cuda":
-        return _cuda.gqmv_cuda(wq, ws, xq, xs, group_size=group_size)
-    return _ref.gqmv_ref(wq, ws, xq, xs, group_size=group_size)
+def gqmv(wq, ws, xq, xs, *, group_size: int, impl: str | None = None,
+         kernel: str = "gqmv_int8") -> torch.Tensor:
+    """out (m,) = groupwise-quantized W (m, n) @ x (n,). Paper Alg. 1.
+    ``wq`` is the storage array of the format that owns ``kernel``."""
+    hook = _hook(kernel)
+    fn = hook.gqmv_cuda if _resolve(impl, wq) == "cuda" else hook.gqmv_plain
+    return fn(wq, ws, xq, xs, group_size=group_size)
 
 
-def gqmm(wq, ws, xq, xs, *, group_size: int, impl: str | None = None) -> torch.Tensor:
+def gqmm(wq, ws, xq, xs, *, group_size: int, impl: str | None = None,
+         kernel: str = "gqmv_int8") -> torch.Tensor:
     """out (b, m) = batched GQMV; b = tokens for prefill / batch for decode."""
-    if _resolve(impl, wq) == "cuda":
-        return _cuda.gqmm_cuda(wq, ws, xq, xs, group_size=group_size)
-    return _ref.gqmm_ref(wq, ws, xq, xs, group_size=group_size)
+    hook = _hook(kernel)
+    fn = hook.gqmm_cuda if _resolve(impl, wq) == "cuda" else hook.gqmm_plain
+    return fn(wq, ws, xq, xs, group_size=group_size)
 
 
 def paged_attention(q, k_pages, v_pages, block_table, pos, k_new, v_new, mask, *,
@@ -89,18 +133,19 @@ def quantized_matmul(x: torch.Tensor, w: QuantizedTensor, *,
                      impl: str | None = None) -> torch.Tensor:
     """y = x @ dequant(w).T with run-time int8 activation quantization.
 
-    ``x`` is float (..., n); ``w`` an int8 QuantizedTensor (m, n). Returns
+    ``x`` is float (..., n); ``w`` a QuantizedTensor (m, n logical) in any
+    registered format, whose kernel hook picks the GQMV/GQMM pair. Returns
     float32 (..., m). A 1-D ``x`` goes to GQMV, anything else (flattened to
     rows) to GQMM, the reference's dispatch.
     """
-    if w.fmt != "int8":
-        raise NotImplementedError(f"kernels for format {w.fmt!r} are not yet ported")
+    kernel = get_format(w.fmt).kernel
     xq = quantize_activation(x, group_size=w.group_size)
     lead = x.shape[:-1]
     if lead == ():
         return gqmv(w.qvalues, w.scales, xq.qvalues, xq.scales,
-                    group_size=w.group_size, impl=impl)
+                    group_size=w.group_size, impl=impl, kernel=kernel)
     flat_q = xq.qvalues.reshape(-1, x.shape[-1])
     flat_s = xq.scales.reshape(-1, xq.scales.shape[-1])
-    out = gqmm(w.qvalues, w.scales, flat_q, flat_s, group_size=w.group_size, impl=impl)
+    out = gqmm(w.qvalues, w.scales, flat_q, flat_s, group_size=w.group_size, impl=impl,
+               kernel=kernel)
     return out.reshape(*lead, w.shape[0])

@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the port's CUDA kernels.
 
-Counterpart of ``repro/kernels/ref.py`` (``gqmv_ref``, ``gqmm_ref``,
-``paged_attention_ref``) and the yardstick the CUDA kernels in ``csrc/``
-are held to. GQMV/GQMM (paper Algorithm 1, ``csrc/gqmm.cu``):
+Counterpart of ``repro/kernels/ref.py`` (``gqmv_ref``, ``gqmm_ref``, their
+int4/int3/fp8 siblings, ``paged_attention_ref``) and the yardstick the CUDA
+kernels in ``csrc/`` are held to. GQMV/GQMM (paper Algorithm 1,
+``csrc/gqmm.cu``):
 
   for each output row i:
     for each group j (of GS columns):
@@ -17,11 +18,20 @@ either; callers that time it still turn TF32 off). ``torch.matmul`` has no
 int32 kernel on CUDA, which is why the reference's int32 einsum becomes an
 f32 one here. The f32 scaling keeps the oracle's association,
 ``(group_sums * ws) * xs``, for both shapes.
+
+The int4 and int3 versions unpack the weights to int8 values first (their
+group sums are exact too, |w| <= 7). They keep the reference oracles' own
+association, which is not int8's: ``group_sums * (ws * xs)`` for GQMV and
+``(group_sums * xs) * ws`` for GQMM. fp8 weights are cast to f32 and the
+group dots run in f32, so their group sums are rounded (not exact) and the
+kernel is held to them by a tolerance.
 """
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core.quant import unpack_int3, unpack_int4
 
 
 def gqmv_ref(
@@ -59,6 +69,61 @@ def gqmm_ref(
     group_sums = torch.einsum("mgk,bgk->bmg", wg, xg)           # exact (b, m, ng)
     scaled = group_sums * ws[None] * xs[:, None, :]
     return scaled.sum(dim=-1)
+
+
+def _group_sums_mv(wv: torch.Tensor, xq: torch.Tensor, group_size: int) -> torch.Tensor:
+    """(m, ng) f32 group dots of logical weight values (m, n) and x (n,)."""
+    m, n = wv.shape
+    ng = n // group_size
+    return torch.einsum("mgk,gk->mg", wv.reshape(m, ng, group_size).to(torch.float32),
+                        xq.reshape(ng, group_size).to(torch.float32))
+
+
+def _group_sums_mm(wv: torch.Tensor, xq: torch.Tensor, group_size: int) -> torch.Tensor:
+    """(b, m, ng) f32 group dots of logical weight values (m, n) and x (b, n)."""
+    m, n = wv.shape
+    ng = n // group_size
+    return torch.einsum("mgk,bgk->bmg", wv.reshape(m, ng, group_size).to(torch.float32),
+                        xq.reshape(xq.shape[0], ng, group_size).to(torch.float32))
+
+
+def _gqmv_combined(wv, ws, xq, xs, group_size: int) -> torch.Tensor:
+    return (_group_sums_mv(wv, xq, group_size) * (ws * xs[None, :])).sum(dim=-1)
+
+
+def _gqmm_xs_first(wv, ws, xq, xs, group_size: int) -> torch.Tensor:
+    return ((_group_sums_mm(wv, xq, group_size) * xs[:, None, :]) * ws[None]).sum(dim=-1)
+
+
+def gqmv_int4_ref(wp, ws, xq, xs, *, group_size: int) -> torch.Tensor:
+    """Packed-int4 GQMV: wp int8 (m, n // 2), two nibbles per byte. (m,) f32."""
+    return _gqmv_combined(unpack_int4(wp), ws, xq, xs, group_size)
+
+
+def gqmm_int4_ref(wp, ws, xq, xs, *, group_size: int) -> torch.Tensor:
+    """Packed-int4 GQMM: xq (b, n). Returns (b, m) f32."""
+    return _gqmm_xs_first(unpack_int4(wp), ws, xq, xs, group_size)
+
+
+def gqmv_int3_ref(wp, ws, xq, xs, *, group_size: int) -> torch.Tensor:
+    """Packed-int3 GQMV: wp uint8 (m, n // 8 * 3), eight 3-bit fields per
+    three bytes. Returns (m,) f32."""
+    return _gqmv_combined(unpack_int3(wp), ws, xq, xs, group_size)
+
+
+def gqmm_int3_ref(wp, ws, xq, xs, *, group_size: int) -> torch.Tensor:
+    """Packed-int3 GQMM: xq (b, n). Returns (b, m) f32."""
+    return _gqmm_xs_first(unpack_int3(wp), ws, xq, xs, group_size)
+
+
+def gqmv_fp8_ref(wq, ws, xq, xs, *, group_size: int) -> torch.Tensor:
+    """fp8-weight GQMV: wq float8_e4m3fn (m, n), group dots in f32. (m,) f32."""
+    return _gqmv_combined(wq, ws, xq, xs, group_size)
+
+
+def gqmm_fp8_ref(wq, ws, xq, xs, *, group_size: int) -> torch.Tensor:
+    """fp8-weight GQMM: xq (b, n). Returns (b, m) f32."""
+    return _gqmm_xs_first(wq, ws, xq, xs, group_size)
 
 
 def paged_attention_ref(

@@ -1,7 +1,8 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch <id> [...]``.
 
 Counterpart of ``repro/launch/serve.py``: random weights from ``--seed``,
-group-wise W8A8 PTQ unless ``--no-quantize``, optionally a quantized KV
+group-wise PTQ unless ``--no-quantize`` (the config's W8A8, or
+``--quantize-format`` int8/int4/int3/fp8/mixed/mixed3), optionally a quantized KV
 cache (``--kv-quant int8|fp8``), then greedy requests, timed warm (first
 call) and hot: a uniform batch through ``InferenceEngine.generate``, or
 with ``--ragged`` a mixed-length trace through ``serve_ragged`` (``--mode``
@@ -17,6 +18,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.core.policy import format_breakdown
 from repro_torch.device import resolve_device
 from repro_torch.models.registry import build, load_config
 from repro_torch.serving.batching import Request, bucket_length, resolve_mode, serve_ragged
@@ -38,6 +40,9 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=64, help="tokens to generate")
     ap.add_argument("--no-quantize", action="store_true",
                     help="float weights instead of the paper's W8A8")
+    ap.add_argument("--quantize-format", default=None,
+                    help="registry format (int8, int4, int3, fp8) or policy preset "
+                         "(mixed, mixed3); default: the arch config's quant_format")
     ap.add_argument("--kv-quant", default=None, choices=["int8", "fp8"],
                     help="store the KV cache quantized (per-row scales, "
                          "dequantized in the attention kernel)")
@@ -68,14 +73,19 @@ def main(argv=None):
     if args.ragged:
         # ragged prompts are padded up to power-of-two buckets
         cache_len = max(cache_len, bucket_length(args.prompt_len))
+    quantize: bool | str = not args.no_quantize
+    if quantize and args.quantize_format is not None:
+        quantize = args.quantize_format
     try:
-        engine = InferenceEngine(model, params, cache_len=cache_len,
-                                 quantize=not args.no_quantize, kv_quant=args.kv_quant,
-                                 device=device)
+        engine = InferenceEngine(model, params, cache_len=cache_len, quantize=quantize,
+                                 kv_quant=args.kv_quant, device=device)
     except ValueError as e:
         ap.error(str(e))
+    breakdown = format_breakdown(engine.params)
     print(f"arch: {cfg.arch_id}  device: {device}  quantized bytes fraction: "
-          f"{engine.quantized_fraction:.3f}  kv cache: {args.kv_quant or cfg.param_dtype}")
+          f"{engine.quantized_fraction:.3f}  "
+          + "  ".join(f"{k}: {v / 1e6:.2f}MB" for k, v in sorted(breakdown.items()))
+          + f"  kv cache: {args.kv_quant or cfg.param_dtype}")
 
     rng = np.random.default_rng(args.seed)
     if args.ragged:

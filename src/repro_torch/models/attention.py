@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.qlinear import linear, split_fused
+from repro_torch.core.quant import FP8_MAX
 from repro_torch.kernels import ops
 from repro_torch.models.common import (
     apply_rope,
@@ -222,7 +223,6 @@ def gqa_decode(p, x: torch.Tensor, cache, pos, cfg: ModelConfig, *, window=None,
 # one scale per (position, kv head) row, group = head_dim, the paper's
 # group-wise symmetric scheme (Eq. 1) applied to the cache.
 KV_STORE_DTYPES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
-FP8_MAX = 448.0      # float8_e4m3fn's largest finite value
 
 
 def kv_quant_format(cfg: ModelConfig) -> str | None:

@@ -5,8 +5,8 @@ paged path over an identity-mapped block pool, and the quantized KV cache).
 The reference jits a ``lax.scan`` over decode steps; here the loop runs
 eagerly on the device. Sampled tokens, positions and the EOS ``done`` mask
 stay on the device throughout, so the loop never waits for the card; the
-tokens cross to the host once, at the end. Speculative decode, top-p and
-the non-int8 weight formats are not ported yet.
+tokens cross to the host once, at the end. Speculative decode and top-p
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -35,9 +35,20 @@ class GenerationResult:
 class InferenceEngine:
     """Batched generation over a registry ``Model`` on one device.
 
-    ``quantize``: False keeps float weights; True applies the config's
-    ``quant_format`` ("int8", the paper's group-wise W8A8), as does the
-    string "int8". ``kv_quant`` ("int8" or "fp8") stores the KV cache,
+    ``quantize`` selects the weight formats (``core/policy.py``):
+
+      False / None   float weights
+      True           the config's ``quant_format`` ("int8", the paper's W8A8)
+      "int8", "int4", "int3", "fp8"
+                     one registry format for every quantized leaf
+      "mixed"        embeddings and classifier int8, attention/FFN
+                     projections packed int4
+      "mixed3"       the same with attention/FFN packed int3
+      {class: fmt}   an explicit layer-class -> format map
+                     (``resolve_format_map``; a class mapped to None stays
+                     float)
+
+    ``kv_quant`` ("int8" or "fp8") stores the KV cache,
     contiguous or paged, at storage width with per-row f32 scales,
     dequantized inside attention; GQA decoder_lm families only. ``device``
     defaults to "cuda" and raises when CUDA is missing; pass "cpu" to run
@@ -45,7 +56,8 @@ class InferenceEngine:
     """
 
     def __init__(self, model: Model, params, *, cache_len: int,
-                 quantize: bool | str = False, eos_id: int | None = None,
+                 quantize: bool | str | Mapping[str, str | None] = False,
+                 eos_id: int | None = None,
                  kv_quant: str | None = None, device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
         if kv_quant:

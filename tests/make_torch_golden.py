@@ -5,13 +5,19 @@
 Builds TinyLlama at full width (depth cut to ``chip_smoke.GOLDEN``'s layer
 count, f32 params and compute) with ``repro_torch.bridge.init_params_numpy``,
 then runs the REFERENCE package on the CPU: ``quantize_params`` (int8, via
-``InferenceEngine(quantize=True)``), greedy ``InferenceEngine.generate``, and
+``InferenceEngine(quantize=True)``), greedy ``InferenceEngine.generate``,
 ``serve_ragged(mode="paged")`` over the ragged trace ``chip_smoke.GOLDEN_RAGGED``
-with a float, int8 and fp8 KV pool. The tokens, lengths and pool high-water
-marks, the prompts, a hash of the weights and the library versions go to
-``src/repro_torch/golden_tinyllama.json``. ``chip_smoke.py`` rebuilds the
-same weights on the card and requires the port's tokens to be identical
-(the float pool's; the quantized pools' agreement is shown).
+with a float, int8 and fp8 KV pool, and ``generate`` once more with each
+weight setting of ``chip_smoke.GOLDEN["weight_formats"]`` (int4, int3, fp8,
+mixed, mixed3). The tokens, lengths and pool high-water marks, the prompts,
+a hash of the weights and the library versions go to
+``src/repro_torch/golden_tinyllama.json``, together with how many of those
+tokens the PORT's plain path reproduces on the CPU (``port_cpu_equal``).
+``chip_smoke.py`` rebuilds the same weights on the card and requires the
+port's tokens to be identical for int8 ``generate`` and the float pool; for
+the other settings it requires every replayed reference token to be the
+card's greedy choice or a near tie of it, and shows the free-running count
+beside the CPU's.
 
 A helper, not a test (pytest does not collect it); it imports both packages.
 """
@@ -31,12 +37,21 @@ import chip_smoke  # noqa: E402
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 from _torch_helpers import numpy_to_jax  # noqa: E402
 from repro.models.registry import build, load_config  # noqa: E402
 from repro.serving.batching import Request, serve_ragged  # noqa: E402
 from repro.serving.engine import InferenceEngine  # noqa: E402
-from repro_torch.bridge import init_params_numpy  # noqa: E402
+from repro_torch.bridge import init_params_numpy, params_from_numpy  # noqa: E402
+from repro_torch.models.registry import build as tbuild  # noqa: E402
+from repro_torch.serving.batching import Request as TRequest  # noqa: E402
+from repro_torch.serving.batching import serve_ragged as tserve_ragged  # noqa: E402
+from repro_torch.serving.engine import InferenceEngine as TEngine  # noqa: E402
+
+
+def _equal(a, b) -> int:
+    return sum(x == y for ra, rb in zip(a, b) for x, y in zip(ra, rb))
 
 
 def main() -> None:
@@ -67,19 +82,53 @@ def main() -> None:
         (sched,) = eng._paged_schedulers.values()
         ragged["peak_blocks"][kv] = sched.last_peak_blocks
 
+    cache_len = g["prompt_len"] + g["max_new_tokens"]
+    formats = {}
+    for fmt in g["weight_formats"]:
+        eng = InferenceEngine(build(cfg), numpy_to_jax(tree), quantize=fmt, cache_len=cache_len)
+        res_f = eng.generate({"tokens": jnp.asarray(prompt, jnp.int32)}, g["max_new_tokens"])
+        formats[fmt] = np.asarray(res_f.tokens).tolist()
+
+    # the port's plain path on the CPU over the same weights: how many of the
+    # reference's tokens it reproduces (chip_smoke shows it beside the
+    # card's count)
+    tparams = params_from_numpy(tree, "cpu")
+
+    def port_generate(quantize):
+        te = TEngine(tbuild(cfg_port), tparams, quantize=quantize, cache_len=cache_len,
+                     device="cpu")
+        return te.generate({"tokens": torch.as_tensor(prompt)}, g["max_new_tokens"]).tokens.tolist()
+
+    port_cpu = {"generate": {"int8": _equal(port_generate(g["quantize"]),
+                                               np.asarray(res.tokens).tolist())},
+                "ragged": {}}
+    for fmt in g["weight_formats"]:
+        port_cpu["generate"][fmt] = _equal(port_generate(fmt), formats[fmt])
+    for kv in gr["kv"]:
+        te = TEngine(tbuild(cfg_port), tparams, quantize=g["quantize"], cache_len=gr["cache_len"],
+                     kv_quant=None if kv == "float" else kv, device="cpu")
+        reqs = [TRequest(i, p, max_new=n) for i, (p, n) in enumerate(zip(prompts, gr["budgets"]))]
+        got = tserve_ragged(te, reqs, gr["max_new_tokens"], mode="paged", slots=gr["slots"],
+                            chunk=gr["chunk"], block_size=gr["block_size"])
+        port_cpu["ragged"][kv] = _equal([np.asarray(r.tokens).tolist() for r in got],
+                                        ragged["tokens"][kv])
+
     out = dict(g)
     out.update({
         "d_model": cfg.d_model,
         "prompt": prompt.tolist(),
         "tokens": np.asarray(res.tokens).tolist(),
         "ragged": ragged,
+        "formats": formats,
+        "port_cpu_equal": port_cpu,
         "weights_checksum": chip_smoke.weights_checksum(tree),
         "numpy": np.__version__,
         "jax": jax.__version__,
         "made_by": "tests/make_torch_golden.py",
     })
     chip_smoke.GOLDEN_FILE.write_text(json.dumps(out, indent=1) + "\n")
-    print(f"wrote {chip_smoke.GOLDEN_FILE.relative_to(ROOT)}: tokens {out['tokens']}")
+    print(f"wrote {chip_smoke.GOLDEN_FILE.relative_to(ROOT)}: tokens {out['tokens']}; "
+          f"the port's plain path on the CPU reproduces {port_cpu}")
 
 
 if __name__ == "__main__":

@@ -7,9 +7,11 @@ runs on the GPU machine as it is:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerance: the int32 group sums are exact, so kernel and plain version
-differ only by the f32 order of the sum across groups (rtol 1e-5, atol
-1e-5 * max|plain|). The paged attention kernel sums in f32 in another order
+Tolerance: the int32 group sums of the int8, int4 and int3 kernels are
+exact, so kernel and plain version differ only by the f32 order of the sum
+across groups (rtol 1e-5, atol 1e-5 * max|plain|); fp8 group sums are f32
+sums in another order (rtol 5e-4, atol 1e-4, the reference's tolerance for
+its fp8 kernel). The paged attention kernel sums in f32 in another order
 than its plain version (1e-5 * max|plain| at f32 inputs); at bf16 inputs it
 rounds once where the plain path rounds scores and weights to bf16 too, so
 it is held to the plain arithmetic in f32 on the same values (1e-2).
@@ -19,6 +21,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import quant  # noqa: E402
 from repro_torch.kernels import gqmv as kern  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import paged_attn as paged_kern  # noqa: E402
@@ -114,6 +117,99 @@ def test_engine_on_cuda_matches_plain_tokens(dev):
     kern.reset_launches()
     res = engine.generate({"tokens": toks}, 8)
     assert kern.LAUNCHES["gqmm_int8"] == (4 * cfg.num_layers + 1) * 9
+    with ops.impl_scope("plain"):
+        plain = engine.generate({"tokens": toks}, 8)
+    assert torch.equal(res.tokens, plain.tokens)
+
+
+# ---------------------------------------------------------------------------
+# int4, int3 and fp8 weights (csrc/gqmm.cu)
+# ---------------------------------------------------------------------------
+
+LOWBIT = ("int4", "int3", "fp8")
+PLAIN = {"int4": (ref.gqmv_int4_ref, ref.gqmm_int4_ref),
+         "int3": (ref.gqmv_int3_ref, ref.gqmm_int3_ref),
+         "fp8": (ref.gqmv_fp8_ref, ref.gqmm_fp8_ref)}
+
+
+def _rand_fmt(dev, fmt, m, n, gs, b, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = quant.quantize(torch.randn((m, n), generator=g, device=dev), gs, fmt)
+    xshape = (n,) if b is None else (b, n)
+    x = quant.quantize_activation(torch.randn(xshape, generator=g, device=dev), gs)
+    return w.qvalues, w.scales, x.qvalues, x.scales
+
+
+def _close_fmt(fmt, got, want):
+    if fmt == "fp8":
+        assert torch.allclose(got, want, rtol=5e-4, atol=1e-4), float((got - want).abs().max())
+    else:
+        _close(got, want)
+
+
+@pytest.mark.parametrize("gs", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("b", [1, 3, 4, 8, 13])
+@pytest.mark.parametrize("fmt", LOWBIT)
+def test_lowbit_gqmm_kernel_matches_plain(dev, fmt, gs, b):
+    args = _rand_fmt(dev, fmt, 200, 1024, gs, b, seed=gs + b)
+    before = kern.LAUNCHES[f"gqmm_{fmt}"]
+    got = kern.gqmm_cuda(*args, group_size=gs, fmt=fmt)
+    assert kern.LAUNCHES[f"gqmm_{fmt}"] == before + 1
+    _close_fmt(fmt, got, PLAIN[fmt][1](*args, group_size=gs))
+
+
+@pytest.mark.parametrize("gs,m,n", [(gs, m, n) for gs in (16, 32, 256) for m, n in (
+    (5, 256), (2560, 2048), (2048, 5632))] + [(16, 7, 48)])
+@pytest.mark.parametrize("fmt", LOWBIT)
+def test_lowbit_gqmv_kernel_matches_plain(dev, fmt, gs, m, n):
+    args = _rand_fmt(dev, fmt, m, n, gs, None, seed=m)
+    _close_fmt(fmt, kern.gqmv_cuda(*args, group_size=gs, fmt=fmt),
+               PLAIN[fmt][0](*args, group_size=gs))
+
+
+def test_int3_rows_only_two_byte_aligned(dev):
+    """n = 48 at GS 16: an int3 row is 18 bytes, so rows and the lanes'
+    6-byte chunks are 2-byte aligned only; a layer slice of a stacked leaf
+    starts mid-allocation."""
+    w = quant.quantize(torch.randn((3, 9, 48), device=dev), 16, "int3")
+    x = quant.quantize_activation(torch.randn((2, 48), device=dev), 16)
+    for i in range(3):
+        wi = w[i]
+        got = kern.gqmm_cuda(wi.qvalues, wi.scales, x.qvalues, x.scales, group_size=16,
+                             fmt="int3")
+        _close(got, ref.gqmm_int3_ref(wi.qvalues, wi.scales, x.qvalues, x.scales,
+                                      group_size=16))
+
+
+def test_lowbit_wrappers_reject_bad_arguments(dev):
+    wq, ws, xq, xs = _rand_fmt(dev, "int4", 64, 256, 32, 4)
+    bad = [
+        ((wq.view(torch.uint8), ws, xq, xs, "int4"), TypeError),   # storage dtype
+        ((wq, ws, xq, xs, "int3"), TypeError),
+        ((torch.zeros(64, 256, dtype=torch.int8, device=dev), ws, xq, xs, "int4"), ValueError),
+        ((wq, ws, xq, xs, "int2"), ValueError),
+    ]
+    for (a, b_, c, d, fmt), exc in bad:
+        with pytest.raises(exc):
+            kern.gqmm_cuda(a, b_, c, d, group_size=32, fmt=fmt)
+
+
+@pytest.mark.parametrize("formats", ["int4", "int3", "fp8", "mixed", "mixed3"])
+def test_engine_formats_on_cuda_launch_their_kernels(dev, formats):
+    cfg = load_config("tinyllama-1.1b").reduced()
+    model = build(cfg)
+    engine = InferenceEngine(model, model.init(seed=0, device=dev), cache_len=24,
+                             quantize=formats, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 8), generator=torch.Generator().manual_seed(0))
+    kern.reset_launches()
+    res = engine.generate({"tokens": toks}, 8)
+    passes = 9
+    if formats in ("mixed", "mixed3"):
+        packed = "int4" if formats == "mixed" else "int3"
+        assert kern.LAUNCHES[f"gqmm_{packed}"] == 4 * cfg.num_layers * passes
+        assert kern.LAUNCHES["gqmm_int8"] == passes                 # the classifier
+    else:
+        assert kern.LAUNCHES[f"gqmm_{formats}"] == (4 * cfg.num_layers + 1) * passes
     with ops.impl_scope("plain"):
         plain = engine.generate({"tokens": toks}, 8)
     assert torch.equal(res.tokens, plain.tokens)

@@ -90,8 +90,8 @@ def test_dequantize_matches_reference(dtype):
 def test_indivisible_and_unported_formats_raise():
     with pytest.raises(ValueError, match="divisible"):
         quant.quantize_groupwise(torch.ones(4, 48), 32)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        quant.quantize(torch.ones(4, 64), 32, fmt="int4")
+    with pytest.raises(ValueError, match="unknown quant format 'int2'"):
+        quant.quantize(torch.ones(4, 64), 32, fmt="int2")
 
 
 @pytest.mark.parametrize("path", [
@@ -151,8 +151,10 @@ def test_quantize_params_stacked_layers_along_last_axis():
 
 
 def test_quantize_params_unported_formats_raise():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        policy.quantize_params({"w": torch.ones(4, 64)}, 32, formats="mixed")
+    with pytest.raises(ValueError, match="unknown quant format 'int2'"):
+        policy.quantize_params({"w": torch.ones(4, 64)}, 32, formats="int2")
+    with pytest.raises(ValueError, match="unknown quant format 'int2'"):
+        policy.quantize_params({"w": torch.ones(4, 64)}, 32, formats={"attn": "int2"})
 
 
 def test_bridge_bf16_crosses_bit_exact():

@@ -146,3 +146,17 @@ def test_golden_file_matches_chip_smoke():
         assert all(0 <= t < cfg.vocab_size for row in ragged["tokens"][kv] for t in row)
         assert 0 < ragged["peak_blocks"][kv] <= cs.GOLDEN_RAGGED["slots"] * -(
             -cs.GOLDEN_RAGGED["cache_len"] // cs.GOLDEN_RAGGED["block_size"])
+    # generate under every other weight setting, and how many tokens the
+    # port's plain path reproduced on the CPU (chip_smoke shows it beside
+    # the card's count)
+    total = cs.GOLDEN["batch"] * cs.GOLDEN["max_new_tokens"]
+    assert list(golden["formats"]) == cs.GOLDEN["weight_formats"] == list(cs.FORMAT_SETTINGS)
+    for fmt, toks in golden["formats"].items():
+        assert np.asarray(toks).shape == (cs.GOLDEN["batch"], cs.GOLDEN["max_new_tokens"])
+        assert all(0 <= t < cfg.vocab_size for row in toks for t in row)
+    cpu = golden["port_cpu_equal"]
+    assert set(cpu["generate"]) == {"int8", *cs.FORMAT_SETTINGS}
+    assert all(0 <= n <= total for n in cpu["generate"].values())
+    assert cpu["generate"]["int8"] == total         # the int8 golden run is required exact
+    assert set(cpu["ragged"]) == set(cs.GOLDEN_RAGGED["kv"])
+    assert cpu["ragged"]["float"] == sum(cs.GOLDEN_RAGGED["budgets"])

@@ -1,0 +1,122 @@
+"""Trace where the port's golden run on the card first leaves its run on the CPU.
+
+    PYTHONPATH=src python tests/trace_torch_card.py [FORMAT ...]
+
+Run on a machine with a CUDA card. For each weight setting (default: int8
+int4 int3 fp8 mixed mixed3) it builds the golden configuration
+(``chip_smoke.GOLDEN``: TinyLlama at full width, 2 layers, f32, the golden
+weights and prompt), quantizes it with the port, and runs ``generate`` three
+ways: on the card with the CUDA kernels, on the card with the plain
+versions, and on the CPU with the plain versions; it prints each run's
+agreement with the reference's golden tokens. Then it replays the golden
+tokens through prefill and every decode step on the card (kernels) and on
+the CPU in lockstep, records the input of every quantized projection, and
+prints the first int8 activation the two devices round differently: step,
+projection, row, column, and each device's x and x / S. Imports the port
+only (no JAX), like ``chip_smoke.py``.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+
+import chip_smoke  # noqa: E402
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from repro_torch.bridge import init_params_numpy, params_from_numpy  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.models.registry import build  # noqa: E402
+from repro_torch.serving.engine import InferenceEngine  # noqa: E402
+
+
+def _equal(a, b) -> int:
+    return sum(x == y for ra, rb in zip(a, b) for x, y in zip(ra, rb))
+
+
+def _replay(engine, prompt, tokens) -> list[list]:
+    """Prefill, then decode the given tokens; every quantized projection's
+    (x, xq, xs) per forward pass, on the host."""
+    calls: list = []
+    qmm = ops.quantized_matmul
+
+    def record(x, w, *, impl=None):
+        q = ops.quantize_activation(x, group_size=w.group_size)
+        calls[-1].append([t.float().cpu().numpy() if t.is_floating_point() else t.cpu().numpy()
+                          for t in (x, q.qvalues, q.scales)])
+        return qmm(x, w, impl=impl)
+
+    ops.quantized_matmul = record
+    try:
+        with torch.inference_mode():
+            calls.append([])
+            _, cache = engine.prefill({"tokens": torch.as_tensor(prompt)})
+            for step in range(tokens.shape[1] - 1):
+                calls.append([])
+                tok = torch.as_tensor(tokens[:, step]).to(engine.device)
+                _, cache = engine.decode_step(tok, cache, prompt.shape[1] + step)
+    finally:
+        ops.quantized_matmul = qmm
+    return calls
+
+
+def main(formats) -> None:
+    g = chip_smoke.GOLDEN
+    golden = json.loads(chip_smoke.GOLDEN_FILE.read_text())
+    cfg = chip_smoke.golden_config()
+    tree = init_params_numpy(cfg, g["seed"])
+    prompt = chip_smoke.golden_prompt(cfg.vocab_size)
+    cache_len = g["prompt_len"] + g["max_new_tokens"]
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = build(cfg)
+    names = ["wqkv", "wo", "w13", "w2"] * cfg.num_layers + ["classifier"]
+    for fmt in formats:
+        want = golden["tokens"] if fmt == "int8" else golden["formats"][fmt]
+        engines = {d: InferenceEngine(model, params_from_numpy(tree, d), quantize=fmt,
+                                      cache_len=cache_len, device=d) for d in ("cuda", "cpu")}
+        runs = {}
+        for label, dname, impl in (("card kernels", "cuda", "auto"),
+                                   ("card plain", "cuda", "plain"), ("cpu plain", "cpu", "auto")):
+            with ops.impl_scope(impl):
+                toks = engines[dname].generate({"tokens": torch.as_tensor(prompt)},
+                                               g["max_new_tokens"]).tokens.tolist()
+            runs[label] = _equal(toks, want)
+        total = g["batch"] * g["max_new_tokens"]
+        print(f"{fmt}: tokens equal to the reference's: "
+              + ", ".join(f"{k} {v}/{total}" for k, v in runs.items()), flush=True)
+        tokens = np.asarray(want)
+        card, cpu = (_replay(engines[d], prompt, tokens) for d in ("cuda", "cpu"))
+        first = None
+        for step, (cs, ps) in enumerate(zip(card, cpu)):
+            for i, ((x0, q0, s0), (x1, q1, s1)) in enumerate(zip(cs, ps)):
+                flips = np.argwhere(q0 != q1)
+                if len(flips):
+                    first = (step, i, x0, q0, s0, x1, q1, s1, flips)
+                    break
+            if first:
+                break
+        if first is None:
+            print(f"  {fmt}: no int8 activation differs between card and CPU over the replay")
+            continue
+        step, i, x0, q0, s0, x1, q1, s1, flips = first
+        gs = x0.shape[-1] // s0.shape[-1]
+        print(f"  {fmt}: first int8 flip at {'prefill' if step == 0 else f'decode step {step}'}, "
+              f"call {i} ({names[i]}, layer {i // 4}); float inputs max|dx| "
+              f"{np.abs(x0 - x1).max():.3e} at max|x| {np.abs(x1).max():.3e}; {len(flips)} flips")
+        for j in flips[:4]:
+            j = tuple(int(k) for k in j)
+            grp = (*j[:-1], j[-1] // gs)
+            print(f"    at {j}: card x={x0[j]!r} x/S={x0[j] / s0[grp]!r} -> {q0[j]}; "
+                  f"cpu x={x1[j]!r} x/S={x1[j] / s1[grp]!r} -> {q1[j]}", flush=True)
+        del engines, card, cpu
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:] or ["int8", *chip_smoke.FORMAT_SETTINGS])
