@@ -28,9 +28,18 @@ printing no result, when CUDA is missing. Phases, each fatal on failure:
              summation order); at bf16 inputs within 1e-2 * max|plain| of the
              plain arithmetic run in f32 on the same values (the kernel rounds
              once, to bf16, at the end). Timed the same way, over pools larger
-             than the L2. Beside them, the library call for the prefill
-             attention B4 would port (scaled_dot_product_attention, causal,
-             GQA 32/4 heads, hd 64, bf16, 4 x 64 tokens) is timed.
+             than the L2.
+             Then flash attention (B4): causal GQA 32/4 heads, hd 64, at
+             4 x 64 and 1 x 2048 tokens (timed, beside
+             scaled_dot_product_attention, the library call for the same
+             function, which the port never calls), window 32 + soft cap 50,
+             non-causal, hd 32 and 128, and 4 x 200 tokens, in bf16 and f32,
+             with the paged kernel's tolerance rule. Then the fused RMSNorm +
+             quantize (B2) at (4, 2048), (256, 2048) and (256, 5632), GS 256
+             (timed), and at every GS 16-256 on (13, 1024), bf16 and f32
+             input, zero groups included: scales within rtol 1e-5, int8
+             values equal except by 1 where the plain x/S lies within
+             max(1e-5, 1e-6 * |x/S|) of a .5 boundary (RMSQ_TIE).
 3. serve:    full-width TinyLlama-1.1B (22 layers, d 2048, bf16, weights
              from the port's own init_lm) through InferenceEngine.generate:
              batch 4, prompt 64, 32 greedy tokens, once with int8 weights and
@@ -66,6 +75,23 @@ printing no result, when CUDA is missing. Phases, each fatal on failure:
              pool the backpressure path. Last, one paged pass with mixed3
              weights (int3 attention/FFN, int8 classifier), which must launch
              the int3 GQMM and the paged-attention kernel.
+6. flags:    the reference's perf-variant flags (core/flags.py) on the
+             phase-3 int8 model: (a) generate (batch 4, prompt 64, 32
+             tokens) under blockwise_attention, deferred_decode_cache and
+             kvt_cache_layout: 22 flash launches per prefill, first-step
+             logits within 5e-2 * max|logit| of the plain versions, tokens
+             beside phase 3's, decode timing and a profiled step; (b) one
+             1 x 2048 prefill under blockwise_attention with prefill_dequant
+             around it: 22 flash launches, no GQMM, the flash kernel's device
+             time per layer; (c) Model.forward on (2, 512) tokens under
+             blockwise_attention: 22 flash launches, logits within 5e-2 *
+             max|logit| of the plain versions; (d) the standalone
+             ops.rmsnorm_quant at the model's 45 norm sites.
+             The golden phase (run last) adds int8 generate under the three
+             serving flags: exact tokens if the port's CPU run was exact,
+             else the replay rule above (the CPU run is not exact: the flash
+             kernel's f32 order moves one int8 activation of layer 0's wo
+             input across a .5 tie, as ROADMAP Queue C records).
 
 The lines before the last are a JSON object of the kernels, then the card's
 name and power limit from nvidia-smi; the last line is
@@ -100,11 +126,18 @@ from repro_torch.core.quant import (  # noqa: E402
     quantize,
     quantize_activation,
 )
+from repro_torch.core import flags  # noqa: E402
 from repro_torch.kernels import cuda_build, ops  # noqa: E402
+from repro_torch.kernels import flash_attn as fkern  # noqa: E402
 from repro_torch.kernels import gqmv as kern  # noqa: E402
 from repro_torch.kernels import paged_attn as pkern  # noqa: E402
-from repro_torch.kernels.ref import paged_attention_ref  # noqa: E402
-from repro_torch.models.common import decode_mask  # noqa: E402
+from repro_torch.kernels import rmsnorm_quant as rkern  # noqa: E402
+from repro_torch.kernels.ref import (  # noqa: E402
+    flash_attention_ref,
+    paged_attention_ref,
+    rmsnorm_quant_ref,
+)
+from repro_torch.models.common import decode_mask, rmsnorm  # noqa: E402
 from repro_torch.models.registry import build, load_config  # noqa: E402
 from repro_torch.models.transformer import contiguous_to_paged  # noqa: E402
 from repro_torch.serving.batching import (  # noqa: E402
@@ -142,8 +175,33 @@ GS_SWEEP = {"m": 200, "n": 1024, "batches": (1, 4, 13), "group_sizes": (16, 32, 
 # phase 3's weight settings after int8, and the one phase 5 serves paged
 FORMAT_SETTINGS = ("int4", "int3", "fp8", "mixed", "mixed3")
 RAGGED_FORMAT = "mixed3"
-# B4's yardstick: causal GQA prefill attention at the serve's shape
-SDPA = {"b": 4, "s": 64, "heads": 32, "kv_heads": 4, "hd": 64}
+# phase 2, flash attention (B4): TinyLlama's causal GQA 32/4 heads at hd 64,
+# timed beside scaled_dot_product_attention (the library call for the same
+# function, a yardstick the port never calls) at the serve's prefill
+# (4 x 64) and at one 2048-token prompt; then checked-only cases: window +
+# soft cap, non-causal, hd 32 and 128, a length that is no power of two.
+# (name, b, heads, kv_heads, s, t, hd, causal, window, softcap)
+FLASH_TIMED = (("4x64", 4, 32, 4, 64, 64, 64, True, None, None),
+               ("1x2048", 1, 32, 4, 2048, 2048, 64, True, None, None))
+FLASH_CHECKED = (("window32_cap50", 2, 8, 2, 256, 256, 64, True, 32, 50.0),
+                 ("non_causal", 2, 8, 2, 64, 96, 64, False, None, None),
+                 ("hd32", 2, 8, 2, 128, 128, 32, True, None, None),
+                 ("hd128", 2, 8, 2, 128, 128, 128, True, None, None),
+                 ("4x200", 4, 32, 4, 200, 200, 64, True, None, None))
+FLASH_DTYPES = (torch.bfloat16, torch.float32)
+FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+FLASH_MAIN = "4x64"          # the kernels line reports the serve's prefill shape
+# phase 2, fused RMSNorm + quantize (B2): TinyLlama's rows at GS 256, then
+# every group size on a small shape; checked at bf16 and f32 input
+RMSQ_TIMED = ((4, 2048), (256, 2048), (256, 5632))
+RMSQ_SWEEP = {"m": 13, "n": 1024, "group_sizes": (16, 32, 64, 128, 256)}
+RMSQ_DTYPES = (torch.bfloat16, torch.float32)
+RMSQ_MAIN = (256, 2048)
+# phase 6: the perf-variant flags on the phase-3 model and int8 weights
+SERVE_FLAGS = {"blockwise_attention": True, "deferred_decode_cache": True,
+               "kvt_cache_layout": True}
+LONG_PREFILL = {"b": 1, "s": 2048}
+FORWARD = {"b": 2, "s": 512}
 SERVE = {"batch": 4, "prompt_len": 64, "max_new_tokens": 32, "seed": 0}
 LOGIT_TOL = 5e-2
 # a replayed golden token may lose the card's greedy choice only to a near
@@ -156,7 +214,8 @@ TIE_MARGIN = 3e-2
 GOLDEN_FILE = ROOT / "src" / "repro_torch" / "golden_tinyllama.json"
 GOLDEN = {"arch": ARCH, "num_layers": 2, "dtype": "float32", "quantize": "int8",
           "seed": 0, "prompt_seed": 1, "batch": 2, "prompt_len": 16,
-          "max_new_tokens": 16, "weight_formats": list(FORMAT_SETTINGS)}
+          "max_new_tokens": 16, "weight_formats": list(FORMAT_SETTINGS),
+          "flags": SERVE_FLAGS}
 # the golden ragged trace, served by serve_ragged(mode="paged") on the
 # golden model with a float, int8 and fp8 KV pool
 GOLDEN_RAGGED = {"prompt_seed": 2, "prompt_lens": [5, 16, 9, 12, 3],
@@ -178,7 +237,9 @@ RAGGED = {"requests": 16, "prompt_lens": (16, 192), "budgets": (8, 64), "seed": 
 SOURCES = {**{f"{k}_{f}": "src/repro_torch/csrc/gqmm.cu" for f in WEIGHT_FORMATS
               for k in ("gqmv", "gqmm")},
            "paged_attn": "src/repro_torch/csrc/paged_attn.cu",
-           "paged_attn_quant": "src/repro_torch/csrc/paged_attn.cu"}
+           "paged_attn_quant": "src/repro_torch/csrc/paged_attn.cu",
+           "flash_attn": "src/repro_torch/csrc/flash_attn.cu",
+           "rmsnorm_quant": "src/repro_torch/csrc/rmsnorm_quant.cu"}
 REPLACES = {"gqmv_int8": "src/repro/kernels/gqmv.py:166",     # gqmv_pallas
             "gqmm_int8": "src/repro/kernels/gqmv.py:312",     # gqmm_pallas
             "gqmv_int4": "src/repro/kernels/gqmv.py:182",     # gqmv_int4_pallas
@@ -189,7 +250,9 @@ REPLACES = {"gqmv_int8": "src/repro/kernels/gqmv.py:166",     # gqmv_pallas
             "gqmm_fp8": "src/repro/kernels/gqmv.py:363",      # gqmm_fp8_pallas
             # paged_attention_pallas: _paged_kernel / _paged_quant_kernel
             "paged_attn": "src/repro/kernels/paged_attn.py:116",
-            "paged_attn_quant": "src/repro/kernels/paged_attn.py:116"}
+            "paged_attn_quant": "src/repro/kernels/paged_attn.py:116",
+            "flash_attn": "src/repro/kernels/flash_attn.py:82",       # flash_attention_pallas
+            "rmsnorm_quant": "src/repro/kernels/rmsnorm_quant.py:36"}  # rmsnorm_quant_pallas
 
 
 def golden_config():
@@ -296,6 +359,7 @@ def profile_device(fn, reps: int) -> dict:
     return {"device_ms": total, "kernels": count // reps,
             "gqmm_ms": sum(v for k, v in by_name.items() if "gqmm_kernel" in k),
             "paged_ms": sum(v for k, v in by_name.items() if "paged_attn_kernel" in k),
+            "flash_ms": sum(v for k, v in by_name.items() if "flash_attn_kernel" in k),
             "top": top}
 
 
@@ -403,30 +467,165 @@ def phase_group_sizes(dev) -> list[dict]:
     return rows
 
 
-def phase_sdpa(dev) -> dict:
-    """The library call for B4's function (causal GQA prefill attention), as
-    a yardstick for a later port; the port does not call it."""
+def flash_bytes_ops(q, k, causal: bool) -> tuple[int, int]:
+    """The bytes flash attention must move (q, k, v read once, out written
+    once) and its operations (q . k and p . v, 2 per multiply-add, over the
+    visible pairs: the causal half with the diagonal, or every pair)."""
+    bh, s, hd = q.shape
+    t = k.shape[1]
+    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+    pairs = bh * (s * (s + 1) // 2 if causal and s == t else s * t)
+    return nbytes, 4 * hd * pairs
+
+
+def _sdpa_ms(q4, k4, v4) -> tuple[float, float]:
+    """(device ms, max |err| against the f32 arithmetic) of
+    scaled_dot_product_attention, causal GQA, on (b, H, s, hd) tensors."""
     F = torch.nn.functional
-    gen = torch.Generator(device=dev).manual_seed(6)
-    b, s, h, kv, hd = (SDPA[k] for k in ("b", "s", "heads", "kv_heads", "hd"))
-    q = torch.randn((b, h, s, hd), generator=gen, device=dev).to(torch.bfloat16)
-    k = torch.randn((b, kv, s, hd), generator=gen, device=dev).to(torch.bfloat16)
-    v = torch.randn((b, kv, s, hd), generator=gen, device=dev).to(torch.bfloat16)
-    out = F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+    h, kv = q4.shape[1], k4.shape[1]
+    out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True, enable_gqa=True)
     ref_out = F.scaled_dot_product_attention(
-        q.float(), k.float().repeat_interleave(h // kv, 1), v.float().repeat_interleave(h // kv, 1),
-        is_causal=True)
+        q4.float(), k4.float().repeat_interleave(h // kv, 1),
+        v4.float().repeat_interleave(h // kv, 1), is_causal=True)
     err = (out.float() - ref_out).abs().max().item()
     if not err <= 2e-2 * ref_out.abs().max().item():
         raise AssertionError(f"scaled_dot_product_attention disagrees with f32: {err:.3e}")
     ms, _ = device_time_ms(lambda i: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), 50)
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
-    flops = 4 * b * h * hd * s * (s + 1) // 2          # q.k and p.v over the causal half
-    bnd, by = bound_s(nbytes, flops, BF16_OPS_PER_S)
-    log(f"[sdpa] scaled_dot_product_attention causal GQA {h}/{kv} heads, hd {hd}, bf16, "
-        f"{b} x {s} tokens: {1e3 * ms:.2f} us per call (bound {1e6 * bnd:.2f} us, {by})")
-    return {"ms": ms, "bound_ms": 1e3 * bnd, "bound_by": by, **SDPA}
+        q4, k4, v4, is_causal=True, enable_gqa=True), 50)
+    return ms, err
+
+
+def phase_flash_kernels(dev) -> tuple[list[dict], dict]:
+    """The flash-attention kernel (B4) against its plain version at every
+    case of FLASH_TIMED and FLASH_CHECKED, at bf16 and f32 inputs: within
+    1e-5 * max|plain| at f32 (another f32 summation order), and at bf16
+    within 1e-2 * max|plain| of the plain arithmetic run in f32 on the same
+    values (the kernel rounds once, at the end). The timed cases are timed
+    beside their plain version and scaled_dot_product_attention (bf16, the
+    library's causal GQA path)."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rows, sdpa = [], {}
+    for case, dt in itertools.product(FLASH_TIMED + FLASH_CHECKED, FLASH_DTYPES):
+        name, b, h, kv, s, t, hd, causal, window, cap = case
+        q = torch.randn((b * h, s, hd), generator=gen, device=dev).to(dt)
+        k = torch.randn((b * kv, t, hd), generator=gen, device=dev).to(dt)
+        v = torch.randn((b * kv, t, hd), generator=gen, device=dev).to(dt)
+        kw = dict(group=h // kv, scale=hd ** -0.5, causal=causal, window=window, softcap=cap)
+        got = fkern.flash_attention_cuda(q, k, v, **kw)
+        want = flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want).abs().max().item()
+        tol = FLASH_TOL[dt] * want.abs().max().item()
+        row = {"kernel": "flash_attn", "case": name, "dtype": str(dt).split(".")[-1], "b": b,
+               "heads": h, "kv_heads": kv, "s": s, "t": t, "hd": hd, "causal": causal,
+               "window": window, "softcap": cap, "max_abs_err": err, "tol": tol}
+        if not err <= tol:
+            raise AssertionError(f"flash_attn: kernel disagrees with its plain version: {row}")
+        if case in FLASH_TIMED:
+            k_ms, k_host = device_time_ms(lambda i: fkern.flash_attention_cuda(q, k, v, **kw), 20)
+            p_ms = profile_device(lambda: flash_attention_ref(q, k, v, **kw), 3)["device_ms"]
+            nbytes, nops = flash_bytes_ops(q, k, causal)
+            bnd, by = bound_s(nbytes, nops, BF16_OPS_PER_S if dt == torch.bfloat16
+                              else F32_OPS_PER_S)
+            row.update({"us": 1e3 * k_ms, "host_us": 1e3 * k_host, "plain_us": 1e3 * p_ms,
+                        "bound_us": 1e6 * bnd, "bound_by": by})
+            if dt == torch.bfloat16:
+                q4 = q.reshape(b, h, s, hd)
+                sd_ms, sd_err = _sdpa_ms(q4, k.reshape(b, kv, t, hd), v.reshape(b, kv, t, hd))
+                row["library_us"] = 1e3 * sd_ms
+                sdpa[name] = {"ms": sd_ms, "max_abs_err_vs_f32": sd_err, "b": b, "s": s,
+                              "heads": h, "kv_heads": kv, "hd": hd}
+        rows.append(row)
+        log(f"[flash] {row['dtype']:8s} {name:14s} b*H={b * h:3d} s={s:4d} t={t:4d} hd={hd:3d} "
+            f"causal={causal} window={window} cap={cap}  max|err| {err:.2e} (tol {tol:.1e})"
+            + (f"  {row['us']:9.2f} us  plain {row['plain_us']:9.1f} us  bound "
+               f"{row['bound_us']:7.2f} us ({row['bound_by']})" if "us" in row else "")
+            + (f"  sdpa {row['library_us']:7.2f} us" if "library_us" in row else ""))
+        del q, k, v, got, want
+    return rows, sdpa
+
+
+# A fused RMSNorm + quantize value may round to the other side of a .5 tie
+# from the plain version's: the kernel sums the squares in another order, so
+# inv differs, and although inv cancels from x / S, the roundings of
+# x * inv * w, of the group's absmax * inv * w * 2/255 and of the quotient do
+# not (about a dozen f32 roundings, 2^-24 each, relative to |x / S|). A flip
+# is allowed where the plain x / S lies within RMSQ_TIE of a .5 boundary:
+# 1e-5, or 1e-6 * |x / S| where that is larger.
+RMSQ_TIE = (1e-5, 1e-6)
+
+
+def rmsq_ties(x, w, gs, q, qp, sp) -> tuple[int, bool, float]:
+    """(values that differ, whether every one is a tie flip, the largest
+    distance of a flipped plain x / S from its .5 boundary)."""
+    diff = q.to(torch.int32) - qp.to(torch.int32)
+    flips = int((diff != 0).sum())
+    if not flips:
+        return 0, True, 0.0
+    normed = rmsnorm(x.float(), w)
+    ratio = (normed.reshape(*sp.shape, gs) / torch.where(sp > 0, sp, 1.0)[..., None])
+    ratio = ratio.reshape(q.shape)
+    dist = (ratio - ratio.floor() - 0.5).abs()
+    near = dist <= torch.clamp(RMSQ_TIE[1] * ratio.abs(), min=RMSQ_TIE[0])
+    ok = diff.abs().max().item() <= 1 and bool(near[diff != 0].all())
+    return flips, ok, dist[diff != 0].max().item()
+
+
+def _rmsq_check(name, x, w, gs, got) -> dict:
+    """The fused kernel's (int8, scales) against the plain version: scales
+    within rtol 1e-5; int8 values equal except by 1 at a .5 tie (RMSQ_TIE)."""
+    qp, sp = rmsnorm_quant_ref(x, w, group_size=gs)
+    q, sc = got
+    if not bool(torch.allclose(sc, sp, rtol=1e-5, atol=0)):
+        raise AssertionError(f"rmsnorm_quant {name}: scales differ by "
+                             f"{(sc - sp).abs().max().item():.3e}")
+    flips, ok, far = rmsq_ties(x, w, gs, q, qp, sp)
+    if not ok:
+        raise AssertionError(f"rmsnorm_quant {name}: {flips} int8 values differ, not all at "
+                             f"a .5 tie (farthest {far:.3e} from one)")
+    return {"max_scale_rel_err": ((sc - sp).abs() / sp.clamp(min=1e-30)).max().item(),
+            "max_scale_abs_err": (sc - sp).abs().max().item(),
+            "tie_flips": flips, "farthest_tie": far, "elements": q.numel()}
+
+
+def phase_rmsnorm_kernels(dev) -> list[dict]:
+    """The fused RMSNorm + quantize kernel (B2) against its plain version at
+    TinyLlama's rows (GS 256; timed) and at every group size on a small
+    shape, bf16 and f32 input, each with a row holding a group of zeros."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    gs0 = load_config(ARCH).group_size
+    cases = ([(m, n, gs0, True) for m, n in RMSQ_TIMED]
+             + [(RMSQ_SWEEP["m"], RMSQ_SWEEP["n"], g, False) for g in RMSQ_SWEEP["group_sizes"]])
+    rows = []
+    for (m, n, gs, timed), dt in itertools.product(cases, RMSQ_DTYPES):
+        x = (torch.randn((m, n), generator=gen, device=dev) * 3).to(dt)
+        x[0, :gs] = 0
+        w = (1 + 0.1 * torch.randn((n,), generator=gen, device=dev)).to(dt)
+        got = rkern.rmsnorm_quant_cuda(x, w, group_size=gs)
+        torch.cuda.synchronize()
+        if got[0][0, :gs].any() or got[1][0, 0] != 0:
+            raise AssertionError("rmsnorm_quant: a group of zeros did not stay zero")
+        row = {"kernel": "rmsnorm_quant", "m": m, "n": n, "gs": gs,
+               "dtype": str(dt).split(".")[-1],
+               **_rmsq_check(f"({m}, {n}) GS {gs} {dt}", x, w, gs, got)}
+        if timed:
+            k_ms, k_host = device_time_ms(lambda i: rkern.rmsnorm_quant_cuda(x, w, group_size=gs),
+                                          100)
+            p_ms = profile_device(lambda: rmsnorm_quant_ref(x, w, group_size=gs), 3)["device_ms"]
+            nbytes = x.numel() * x.element_size() + w.numel() * w.element_size() + m * n + \
+                4 * m * n // gs
+            bnd, by = bound_s(nbytes, 8 * m * n, F32_OPS_PER_S)
+            row.update({"us": 1e3 * k_ms, "host_us": 1e3 * k_host, "plain_us": 1e3 * p_ms,
+                        "bound_us": 1e6 * bnd, "bound_by": by})
+            log(f"[rmsnorm_quant] {row['dtype']:8s} ({m:3d}, {n:4d}) GS {gs}  scales rel err "
+                f"{row['max_scale_rel_err']:.1e}, {row['tie_flips']} tie flips of {m * n} "
+                f"(farthest {row['farthest_tie']:.1e})  "
+                f"{row['us']:7.2f} us (host {row['host_us']:5.1f})  plain {row['plain_us']:7.1f} "
+                f"us  bound {row['bound_us']:5.3f} us ({by})")
+        rows.append(row)
+    log(f"[rmsnorm_quant] {len(rows)} cases pass (GS {RMSQ_SWEEP['group_sizes']} at "
+        f"({RMSQ_SWEEP['m']}, {RMSQ_SWEEP['n']}); bf16 and f32 input; zero groups)")
+    return rows
 
 
 def _paged_pools(gen, dev, pool: str, qdt, nb: int, bs: int):
@@ -664,7 +863,7 @@ def phase_serve(dev, rows, model, params, quantize) -> tuple[dict, InferenceEngi
            "decode_ms_per_step": 1e3 * t_decode / new,
            "launches": launches, "prefill_launches": prefill_launches, "per_pass": per_pass,
            "logit_rel_err": logit_err, "token_agreement": agree,
-           "quantized_fraction": engine.quantized_fraction}
+           "quantized_fraction": engine.quantized_fraction, "tokens": toks.tolist()}
     log(f"[serve {tag}] prefill {b}x{p}: {t_prefill * 1e3:.1f} ms ({out['prefill_tok_s']:.0f} "
         f"tok/s); decode {new} steps: {t_decode * 1e3:.1f} ms ({out['decode_tok_s']:.1f} tok/s, "
         f"{out['decode_ms_per_step']:.2f} ms/step); GQMM launches "
@@ -908,6 +1107,189 @@ def phase_ragged(dev, engine0, engine_fmt) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the perf-variant flags at full width
+# ---------------------------------------------------------------------------
+
+def _flash_launches(fn):
+    """Runs fn() with the flash and GQMM launch counts set to 0 just before;
+    returns (fn's result, flash launches, GQMM launches by kernel)."""
+    fkern.reset_launches()
+    kern.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, fkern.LAUNCHES["flash_attn"], {k: v for k, v in kern.LAUNCHES.items() if v}
+
+
+def phase_flags(dev, engine, serve3) -> dict:
+    """The phase-3 int8 model under the reference's perf-variant flags.
+
+    (a) generate, batch 4, prompt 64, 32 tokens, under blockwise_attention,
+        deferred_decode_cache and kvt_cache_layout: the flash kernel runs
+        once per layer in the prefill (22), decode commits each step's rows
+        after the last layer into the (L, b, KV, T, hd) cache; first-step
+        logits against the same run on the plain versions; greedy tokens
+        beside phase 3's default-flag run; timing and a profiled decode step.
+    (b) one prefill of 1 x 2048 tokens under blockwise_attention with
+        prefill_dequant set around it only: 22 flash launches, no GQMM; the
+        flash kernel's device time per layer from the profiler.
+    (c) Model.forward on (2, 512) tokens under blockwise_attention: 22 flash
+        launches, logits against the plain versions.
+    (d) the standalone fused RMSNorm + quantize through ops.rmsnorm_quant at
+        the model's 45 norm sites (22 attention norms, 22 FFN norms, the
+        final norm) on bf16 rows of b*s = 256, against its plain version and
+        beside the model's unfused path (rmsnorm rounded to bf16, then
+        quantize_activation), which it differs from by design.
+    """
+    cfg, model, params = engine.cfg, engine.model, engine.params
+    L = cfg.num_layers
+    rng = np.random.default_rng(SERVE["seed"])
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, size=(SERVE["batch"], SERVE["prompt_len"])))}
+    out: dict = {}
+
+    # (a) serving under the three flags
+    with flags.overrides(**SERVE_FLAGS):
+        engine.generate(batch, 2)                                     # warm-up
+        torch.cuda.synchronize()
+        (logits_k, cache), pre_flash, pre_gqmm = _flash_launches(lambda: engine.prefill(batch))
+        if pre_flash != L:
+            raise AssertionError(f"flags prefill launched flash_attn {pre_flash} times, "
+                                 f"expected {L}")
+        kv_shape = tuple(cache["k"].shape)
+        want_shape = (L, SERVE["batch"], cfg.num_kv_heads, engine.cache_len,
+                      cfg.resolved_head_dim)
+        if kv_shape != want_shape:
+            raise AssertionError(f"kvt cache {kv_shape}, expected {want_shape}")
+        t0 = time.perf_counter()
+        (logits0, _), _, _ = _flash_launches(lambda: engine.prefill(batch))
+        t_prefill = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res, gen_flash, gen_gqmm = _flash_launches(
+            lambda: engine.generate(batch, SERVE["max_new_tokens"]))
+        t_gen = time.perf_counter() - t0
+        passes = 1 + SERVE["max_new_tokens"]
+        per_pass = launches_per_pass(cfg, True)
+        if gen_flash != L or gen_gqmm != {k: v * passes for k, v in per_pass.items()}:
+            raise AssertionError(f"flags generate launched flash_attn {gen_flash} (expected "
+                                 f"{L}), GQMM {gen_gqmm} (expected {per_pass} x {passes})")
+        toks = res.tokens
+        if toks.shape != (SERVE["batch"], SERVE["max_new_tokens"]) or not bool(
+                torch.isfinite(res.logits_last).all()):
+            raise AssertionError(f"flags generate: bad output {tuple(toks.shape)}")
+        with ops.impl_scope("plain"):
+            (logits_p, _), plain_flash, _ = _flash_launches(lambda: engine.prefill(batch))
+            res_p = engine.generate(batch, SERVE["max_new_tokens"])
+        if plain_flash:
+            raise AssertionError("the plain prefill launched the flash kernel")
+        lk, lp = logits_k.float(), logits_p.float()
+        logit_err = (lk - lp).abs().max().item() / lp.abs().max().item()
+        if not logit_err <= LOGIT_TOL:
+            raise AssertionError(f"flags: kernel logits differ from plain by {logit_err:.3e}")
+        steps = itertools.count(SERVE["prompt_len"])       # <= 13 calls, inside cache_len
+        tok0 = logits0.argmax(-1)
+        _, cache = engine.prefill(batch)
+        dec = profile_device(lambda: engine.decode_step(tok0, cache, next(steps)), 3)
+    t_decode = t_gen - t_prefill
+    ms_step = 1e3 * t_decode / SERVE["max_new_tokens"]
+    base = torch.as_tensor(serve3["tokens"])
+    out["generate"] = {
+        "flash_launches_prefill": pre_flash, "flash_launches_generate": gen_flash,
+        "gqmm_launches_generate": gen_gqmm, "cache_shape": list(kv_shape),
+        "logit_rel_err": logit_err,
+        "token_agreement_plain": (toks == res_p.tokens).float().mean().item(),
+        "token_agreement_phase3": (toks == base).float().mean().item(),
+        "prefill_s": t_prefill, "generate_s": t_gen, "decode_ms_per_step": ms_step,
+        "decode_profile": dec, "decode_device_busy_share": dec["device_ms"] / ms_step,
+        "phase3_decode_ms_per_step": serve3["decode_ms_per_step"]}
+    g = out["generate"]
+    log(f"[flags] generate {SERVE['batch']}x{SERVE['prompt_len']}, {SERVE['max_new_tokens']} "
+        f"tokens under {sorted(SERVE_FLAGS)}: flash_attn {pre_flash} per prefill, cache "
+        f"{kv_shape}; first-step logits kernel vs plain {logit_err:.3e} (tol {LOGIT_TOL}); "
+        f"greedy agreement with plain {g['token_agreement_plain']:.4f}, with phase 3's "
+        f"default-flag run {g['token_agreement_phase3']:.4f}")
+    log(f"[flags] prefill {1e3 * t_prefill:.1f} ms; decode {ms_step:.2f} ms/step (phase 3: "
+        f"{serve3['decode_ms_per_step']:.2f}); profiler: decode step {dec['device_ms']:.3f} ms "
+        f"of device time ({100 * g['decode_device_busy_share']:.1f} % busy), GQMM "
+        f"{dec['gqmm_ms']:.3f} ms, {dec['kernels']} kernels")
+
+    # (b) one long prompt: blockwise attention, prefill_dequant around the prefill only
+    gen = torch.Generator(device=dev).manual_seed(8)
+    long = {"tokens": torch.randint(0, cfg.vocab_size, (LONG_PREFILL["b"], LONG_PREFILL["s"]),
+                                    generator=gen, device=dev)}
+    with flags.overrides(blockwise_attention=True), torch.inference_mode():
+        with flags.overrides(prefill_dequant=True):
+            model.prefill(params, long, LONG_PREFILL["s"])            # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (lg, _), long_flash, long_gqmm = _flash_launches(
+                lambda: model.prefill(params, long, LONG_PREFILL["s"]))
+            t_long = time.perf_counter() - t0
+            prof = profile_device(lambda: model.prefill(params, long, LONG_PREFILL["s"]), 1)
+        if long_flash != L or long_gqmm:
+            raise AssertionError(f"long prefill launched flash_attn {long_flash} (expected {L}) "
+                                 f"and GQMM {long_gqmm} (expected none)")
+        if not bool(torch.isfinite(lg).all()):
+            raise AssertionError("long prefill: non-finite logits")
+    out["long_prefill"] = {"tokens": LONG_PREFILL["s"], "flash_launches": long_flash,
+                           "gqmm_launches": long_gqmm, "wall_s": t_long, "profile": prof,
+                           "flash_ms_per_layer": prof["flash_ms"] / L}
+    log(f"[flags] prefill 1x{LONG_PREFILL['s']} (blockwise, prefill_dequant): flash_attn "
+        f"{long_flash} launches, GQMM {long_gqmm or 0}; {1e3 * t_long:.1f} ms wall, "
+        f"{prof['device_ms']:.2f} ms on the card, flash {prof['flash_ms'] / L:.3f} ms per layer")
+
+    # (c) the scoring forward
+    fwd = {"tokens": torch.randint(0, cfg.vocab_size, (FORWARD["b"], FORWARD["s"]),
+                                   generator=gen, device=dev)}
+    with flags.overrides(blockwise_attention=True), torch.inference_mode():
+        model.forward(params, fwd)                                    # warm-up
+        got, fwd_flash, fwd_gqmm = _flash_launches(lambda: model.forward(params, fwd))
+        with ops.impl_scope("plain"):
+            want = model.forward(params, fwd)
+    if fwd_flash != L or tuple(got.shape) != (FORWARD["b"], FORWARD["s"], cfg.vocab_padded):
+        raise AssertionError(f"Model.forward launched flash_attn {fwd_flash} (expected {L}), "
+                             f"logits {tuple(got.shape)}")
+    fwd_err = (got.float() - want.float()).abs().max().item() / want.float().abs().max().item()
+    if not fwd_err <= LOGIT_TOL:
+        raise AssertionError(f"Model.forward: kernel logits differ from plain by {fwd_err:.3e}")
+    out["forward"] = {"flash_launches": fwd_flash, "gqmm_launches": fwd_gqmm,
+                      "logit_rel_err": fwd_err,
+                      "argmax_agreement": (got.argmax(-1) == want.argmax(-1)).float().mean()
+                      .item()}
+    log(f"[flags] Model.forward {FORWARD['b']}x{FORWARD['s']} (blockwise): flash_attn "
+        f"{fwd_flash} launches, GQMM {fwd_gqmm}; logits kernel vs plain {fwd_err:.3e} (tol "
+        f"{LOGIT_TOL}), argmax agreement {out['forward']['argmax_agreement']:.4f}")
+    del got, want
+
+    # (d) the standalone fused RMSNorm + quantize at the model's norm sites
+    lay = params["layers"]
+    weights = [lay["att_norm"][i] for i in range(L)] + [lay["ffn_norm"][i] for i in range(L)]
+    weights.append(params["final_norm"])
+    xs = [torch.randn((SERVE["batch"] * SERVE["prompt_len"], cfg.d_model), generator=gen,
+                      device=dev).to(torch.bfloat16) for _ in weights]
+    rkern.reset_launches()
+    fused = [ops.rmsnorm_quant(x, w, group_size=cfg.group_size) for x, w in zip(xs, weights)]
+    torch.cuda.synchronize()
+    launches = rkern.LAUNCHES["rmsnorm_quant"]
+    if launches != len(weights):
+        raise AssertionError(f"rmsnorm_quant launched {launches} times, expected {len(weights)}")
+    flips = unfused_diff = 0
+    far = 0.0
+    for x, w, got in zip(xs, weights, fused):
+        chk = _rmsq_check("model site", x, w, cfg.group_size, got)
+        flips, far = flips + chk["tie_flips"], max(far, chk["farthest_tie"])
+        unf = quantize_activation(rmsnorm(x, w), cfg.group_size).qvalues
+        unfused_diff += int((unf != got[0]).sum())
+    total = sum(x.numel() for x in xs)
+    out["rmsnorm_quant"] = {"launches": launches, "tie_flips": flips, "farthest_tie": far,
+                            "differ_from_unfused": unfused_diff, "elements": total}
+    log(f"[flags] ops.rmsnorm_quant at the model's {len(weights)} norm sites, bf16 rows "
+        f"{tuple(xs[0].shape)}: {launches} launches, {flips} tie flips against the plain "
+        f"version (farthest {far:.2e} from .5); {unfused_diff} of {total} int8 values differ "
+        "from the model's unfused path (rmsnorm rounded to bf16, then quantize_activation)")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: golden tokens from the reference package
 # ---------------------------------------------------------------------------
 
@@ -1027,16 +1409,49 @@ def phase_golden(dev) -> dict:
             raise AssertionError(f"golden replay ({fmt} weights): the reference's token is "
                                  f"not a near-tie of the card's choice: {off}")
         del eng
+    # int8 generate under the perf-variant flags (blockwise prefill through
+    # the flash kernel, deferred decode into the kvt cache): exact tokens
+    # where the port's CPU run was exact, else the replay rule above
+    with flags.overrides(**GOLDEN["flags"]):
+        eng = InferenceEngine(engine.model, engine.params, device=dev,
+                              cache_len=GOLDEN["prompt_len"] + GOLDEN["max_new_tokens"])
+        fkern.reset_launches()
+        kern.reset_launches()
+        got_fl = eng.generate({"tokens": torch.as_tensor(prompt)},
+                              GOLDEN["max_new_tokens"]).tokens.tolist()
+        launches_fl = {k: v for k, v in {**kern.LAUNCHES, **fkern.LAUNCHES}.items() if v}
+        want_fl = golden["flags_tokens"]
+        same_fl = sum(a == b for ra, rb in zip(got_fl, want_fl) for a, b in zip(ra, rb))
+        off_fl = replay_choices(eng, prompt, np.asarray(want_fl))
+    cpu_fl = golden["port_cpu_equal"]["generate_flags"]
+    flagged = {"tokens_equal": same_fl, "tokens_total": total, "cpu_tokens_equal": cpu_fl,
+               "launches": launches_fl, "replay_differs": off_fl}
+    log(f"[golden] generate, int8 weights under {sorted(GOLDEN['flags'])}: {same_fl}/{total} "
+        f"tokens equal the reference's (the port's plain path on the CPU: {cpu_fl}/{total}); "
+        f"replayed, the card's choice differs at {len(off_fl)} steps"
+        + "".join(f"; step {o['step']} row {o['row']}: margin {o['margin']:.2e}" for o in off_fl)
+        + f"; launches {launches_fl}")
+    if launches_fl.get("flash_attn") != GOLDEN["num_layers"]:
+        raise AssertionError(f"golden flags run launched {launches_fl}, expected "
+                             f"{GOLDEN['num_layers']} flash_attn")
+    if cpu_fl == total and got_fl != want_fl:
+        raise AssertionError(f"golden tokens under the flags differ:\n port {got_fl}\n"
+                             f"  ref {want_fl}")
+    if any(o["margin"] > TIE_MARGIN for o in off_fl):
+        raise AssertionError(f"golden replay under the flags: the reference's token is not a "
+                             f"near-tie of the card's choice: {off_fl}")
     return {"tokens_equal": same, "tokens_total": total, "launches": launches,
-            "ragged": ragged, "formats": formats}
+            "ragged": ragged, "formats": formats, "flags": flagged}
 
 
 # ---------------------------------------------------------------------------
 
-def kernel_entries(rows, gsrows, serves, prows, ragged) -> list[dict]:
+def kernel_entries(rows, gsrows, serves, prows, ragged, frows, rqrows, flagres) -> list[dict]:
     """The kernels line. A GQMV/GQMM kernel's times are one forward pass of
     its format's uniform setting; its launches add up every phase-3 run
-    that launched it (the presets launch int4/int3 and the int8 classifier)."""
+    that launched it (the presets launch int4/int3 and the int8 classifier).
+    The flash kernel's launches add up phase 6's three runs, the fused
+    RMSNorm + quantize's its standalone run."""
     entries = []
     for fmt, kind in itertools.product(WEIGHT_FORMATS, ("gqmm", "gqmv")):
         kname = f"{kind}_{fmt}"
@@ -1085,6 +1500,44 @@ def kernel_entries(rows, gsrows, serves, prows, ragged) -> list[dict]:
                                           "bound_us", "max_abs_err", "tol")}
                        for r in mine if "us" in r],
         })
+    main = next(r for r in frows if r["case"] == FLASH_MAIN and r["dtype"] == "bfloat16")
+    fl = (flagres["generate"]["flash_launches_generate"], flagres["long_prefill"]["flash_launches"],
+          flagres["forward"]["flash_launches"])
+    entries.append({
+        "name": "flash_attn", "route": "cuda", "source": SOURCES["flash_attn"],
+        "replaces": REPLACES["flash_attn"], "launches": sum(fl),
+        "max_abs_err": max(r["max_abs_err"] for r in frows),
+        "ms": main["us"] / 1e3, "plain_ms": main["plain_us"] / 1e3,
+        "bound_ms": main["bound_us"] / 1e3, "bound_by": main["bound_by"],
+        "library_ms": main["library_us"] / 1e3,
+        "per": f"one call, causal GQA 32/4, hd 64, bf16, {FLASH_MAIN} tokens (one layer of the "
+               "serve's prefill); library: scaled_dot_product_attention on the same inputs; "
+               "max_abs_err over every phase-2 case",
+        "path": f"phase 6 under blockwise_attention: generate ({fl[0]} launches, one prefill), "
+                f"a 1x{LONG_PREFILL['s']} prefill ({fl[1]}), Model.forward "
+                f"{FORWARD['b']}x{FORWARD['s']} ({fl[2]})",
+        "shapes": [{k: r.get(k) for k in ("case", "dtype", "s", "us", "plain_us", "bound_us",
+                                          "bound_by", "library_us", "max_abs_err")}
+                   for r in frows if "us" in r],
+    })
+    main = next(r for r in rqrows if (r["m"], r["n"]) == RMSQ_MAIN and "us" in r
+                and r["dtype"] == "bfloat16")
+    entries.append({
+        "name": "rmsnorm_quant", "route": "cuda", "source": SOURCES["rmsnorm_quant"],
+        "replaces": REPLACES["rmsnorm_quant"],
+        "launches": flagres["rmsnorm_quant"]["launches"],
+        "max_abs_err": max(r["max_scale_abs_err"] for r in rqrows),
+        "ms": main["us"] / 1e3, "plain_ms": main["plain_us"] / 1e3,
+        "bound_ms": main["bound_us"] / 1e3, "bound_by": main["bound_by"], "library_ms": None,
+        "per": f"one call on bf16 rows {RMSQ_MAIN}, GS 256; max_abs_err is the largest "
+               "scale error over every phase-2 case (the int8 values are equal but for .5 "
+               "ties, counted as tie_flips); no single PyTorch call does RMSNorm and group "
+               "quantization",
+        "path": "standalone op (no model path calls it, in the reference or the port): "
+                "ops.rmsnorm_quant at the model's 45 norm sites, phase 6 (d)",
+        "shapes": [{k: r.get(k) for k in ("m", "n", "dtype", "us", "plain_us", "bound_us",
+                                          "tie_flips")} for r in rqrows if "us" in r],
+    })
     return entries
 
 
@@ -1117,7 +1570,8 @@ def main(argv=None) -> int:
 
     rows = phase_kernels(dev)
     gsrows = phase_group_sizes(dev)
-    sdpa = phase_sdpa(dev)
+    frows, sdpa = phase_flash_kernels(dev)
+    rqrows = phase_rmsnorm_kernels(dev)
     prows = phase_paged_kernels(dev)
     model = build(load_config(ARCH))
     params = model.init(seed=SERVE["seed"], device=dev)
@@ -1130,18 +1584,20 @@ def main(argv=None) -> int:
         del eng
     del params
     ragged = phase_ragged(dev, engines["int8"], engines[RAGGED_FORMAT])
+    flagres = phase_flags(dev, engines["int8"], serves["int8"])
     del engines
     golden = phase_golden(dev)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
-    entries = kernel_entries(rows, gsrows, serves, prows, ragged)
+    entries = kernel_entries(rows, gsrows, serves, prows, ragged, frows, rqrows, flagres)
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
         Path(args.report).write_text(json.dumps(
             {"card": smi, "kernel_rows": rows, "group_size_rows": gsrows, "sdpa": sdpa,
-             "paged_rows": prows, "serve": serves, "ragged": ragged, "golden": golden,
+             "flash_rows": frows, "rmsnorm_quant_rows": rqrows, "paged_rows": prows,
+             "serve": serves, "ragged": ragged, "flags": flagres, "golden": golden,
              "kernels": entries,
              "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import flags
 from repro_torch.core.quant import QuantizedTensor
 from repro_torch.kernels import ops
 
@@ -23,8 +24,15 @@ __all__ = ["linear", "embedding_lookup", "split_fused"]
 def linear(w, x: torch.Tensor) -> torch.Tensor:
     """y = x @ W^T for W (out, in); the quantized kernel when W is quantized.
     The kernel's f32 output is rounded to the activation dtype, as in the
-    reference."""
+    reference.
+
+    Under ``flags.prefill_dequant`` a quantized weight is dequantized to the
+    activation dtype and multiplied as a float matrix, for every call while
+    the flag is set (decode too), as the reference's code does; the
+    reference leaves that product to XLA, so no kernel of the port runs."""
     if isinstance(w, QuantizedTensor):
+        if flags.get("prefill_dequant"):
+            return torch.einsum("...i,oi->...o", x, w.dequantize(x.dtype))
         return ops.quantized_matmul(x, w).to(x.dtype)
     return F.linear(x, w.to(x.dtype))
 

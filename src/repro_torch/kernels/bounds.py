@@ -61,23 +61,31 @@ def projection_pass(cfg: ModelConfig, fmt: str, b: int) -> Bound:
     return Bound(nbytes, ops, "fp8" if fmt == "fp8" else "int8")
 
 
-def rmsnorm_quant(cfg: ModelConfig, b: int) -> Bound:
-    """One fused RMSNorm + int8 activation quantization of (b, d) bf16 rows:
-    x and the norm weight in, int8 rows and f32 group scales out; about 8 f32
-    operations per element (square, sum, scale, weight, absmax, divide, round,
-    clip)."""
-    d = cfg.d_model
-    return Bound(2 * b * d + 2 * d + b * d + 4 * b * d // cfg.group_size, 8 * b * d, "f32")
+DTYPE_BYTES = {"bf16": 2, "f32": 4}
 
 
-def flash_prefill(cfg: ModelConfig, b: int, s: int) -> Bound:
-    """One layer's causal prefill attention over (b, s) bf16 tokens: q and
-    out (b, H, s, hd), k and v (b, KV, s, hd); q . k and p . v over the
-    s (s + 1) / 2 causal pairs of each head, on the bf16 tensor cores."""
+def rmsnorm_quant(cfg: ModelConfig, b: int, n: int | None = None, dtype: str = "bf16") -> Bound:
+    """One fused RMSNorm + int8 activation quantization of (b, n) rows
+    (n = d_model by default) stored as ``dtype``: x and the norm weight (of
+    the same type) in, int8 rows and f32 group scales out. The reference
+    kernel reads any float type and computes in f32, so each input type is
+    its own row of the table; about 8 f32 operations per element (square,
+    sum, scale, weight, absmax, divide, round, clip)."""
+    n = cfg.d_model if n is None else n
+    e = DTYPE_BYTES[dtype]
+    return Bound(e * b * n + e * n + b * n + 4 * b * n // cfg.group_size, 8 * b * n, "f32")
+
+
+def flash_prefill(cfg: ModelConfig, b: int, s: int, dtype: str = "bf16") -> Bound:
+    """One layer's causal prefill attention over (b, s) tokens stored as
+    ``dtype``: q and out (b, H, s, hd), k and v (b, KV, s, hd); q . k and
+    p . v over the s (s + 1) / 2 causal pairs of each head, at the tensor
+    cores' bf16 rate (f32 inputs at the f32 rate outside them)."""
     hd = cfg.resolved_head_dim
     q = b * cfg.num_heads * s * hd
     kv = b * cfg.num_kv_heads * s * hd
-    return Bound(2 * (2 * q + 2 * kv), 4 * b * cfg.num_heads * hd * s * (s + 1) // 2, "bf16")
+    e = DTYPE_BYTES[dtype]
+    return Bound(e * (2 * q + 2 * kv), 4 * b * cfg.num_heads * hd * s * (s + 1) // 2, dtype)
 
 
 def table(cfg: ModelConfig) -> list[tuple[str, str, Bound]]:
@@ -87,18 +95,22 @@ def table(cfg: ModelConfig) -> list[tuple[str, str, Bound]]:
     for tag, fmt in (("B5", "int4"), ("B6", "int3"), ("B7", "fp8")):
         rows += [(f"{tag} gqmv_{fmt}_pallas", "one pass, b=1", projection_pass(cfg, fmt, 1)),
                  (f"{tag} gqmm_{fmt}_pallas", "one pass, b=4", projection_pass(cfg, fmt, 4))]
-    rows += [("B2 rmsnorm_quant_pallas", "one call, b=4", rmsnorm_quant(cfg, 4)),
-             ("B2 rmsnorm_quant_pallas", "one call, b=256", rmsnorm_quant(cfg, 256)),
-             ("B4 flash_attention_pallas", "one layer, 4 x 64 tokens", flash_prefill(cfg, 4, 64))]
+    for dt in ("bf16", "f32"):
+        rows += [("B2 rmsnorm_quant_pallas", f"one call, {dt} ({b}, {n})",
+                  rmsnorm_quant(cfg, b, n, dt))
+                 for b, n in ((4, cfg.d_model), (256, cfg.d_model), (256, cfg.d_ff))]
+    for dt in ("bf16", "f32"):
+        rows += [("B4 flash_attention_pallas", f"one layer, {dt} {b} x {s} tokens",
+                  flash_prefill(cfg, b, s, dt)) for b, s in ((4, 64), (1, 2048))]
     return rows
 
 
 def main() -> None:
     from repro_torch.configs.tinyllama_1_1b import CONFIG
 
-    print(f"{'kernel':28s} {'work':26s} {'bytes':>13s} {'operations':>15s} {'bound us':>10s}  by")
+    print(f"{'kernel':28s} {'work':32s} {'bytes':>13s} {'operations':>15s} {'bound us':>10s}  by")
     for name, work, bnd in table(CONFIG):
-        print(f"{name:28s} {work:26s} {bnd.nbytes:13d} {bnd.ops:15d} "
+        print(f"{name:28s} {work:32s} {bnd.nbytes:13d} {bnd.ops:15d} "
               f"{1e6 * bnd.seconds:10.3f}  {bnd.bound_by}")
 
 

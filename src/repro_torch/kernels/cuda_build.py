@@ -32,6 +32,8 @@ NVCC_FLAGS = (
 LIBRARIES: dict[str, tuple[str, ...]] = {
     "gqmm": ("gqmm.cu",),
     "paged_attn": ("paged_attn.cu",),
+    "flash_attn": ("flash_attn.cu",),
+    "rmsnorm_quant": ("rmsnorm_quant.cu",),
 }
 
 

@@ -1,0 +1,102 @@
+"""CUDA flash-attention kernel for Hopper: checked wrapper and launch count.
+
+Counterpart of ``repro/kernels/flash_attn.py``. The kernel is in
+``csrc/flash_attn.cu`` (its design and bound are noted there):
+
+  flash_attention_cuda  <- ``flash_attention_pallas`` (``_flash_kernel``):
+                           causal / windowed / soft-capped GQA attention
+                           with an online softmax, f32 inside
+
+The wrapper takes CUDA tensors only: it checks device, dtype, shape and
+contiguity (the kernel reads q (b*H, s, hd) and k/v (b*KV, t, hd) rows as
+dense arrays; a permuted view of the model's (b, s, H, hd) projection would
+be read wrongly, so the caller makes them contiguous) and raises on
+anything else; allocates the output with ``torch.empty``; launches on the
+current stream; raises if the launch reports a CUDA error; and adds one to
+``LAUNCHES["flash_attn"]``. The plain version is
+``kernels/ref.flash_attention_ref``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import cuda_build
+
+# dtype codes of csrc/flash_attn.cu
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+HEAD_DIMS = (32, 64, 128)
+
+# launches; a run zeroes this, drives the model, and reads it
+LAUNCHES: dict[str, int] = {"flash_attn": 0}
+
+_LIB: list[ctypes.CDLL] = []
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _lib() -> ctypes.CDLL:
+    if not _LIB:
+        lib = cuda_build.load("flash_attn")
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.flash_attn.argtypes = [p] * 4 + [i] * 6 + [f, i, i, f, i, i, p]
+        lib.flash_attn.restype = i
+        _LIB.append(lib)
+    return _LIB[0]
+
+
+def _check(q, k, v, *, group: int, window) -> tuple[int, int, int, int, int]:
+    """Validates the kernel's arguments; returns (b*H, b*KV, s, t, hd)."""
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(x).__name__}")
+        if x.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor, got device {x.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous (stride {x.stride()}, shape "
+                             f"{tuple(x.shape)})")
+        if x.ndim != 3:
+            raise ValueError(f"{name} must be 3-D, got shape {tuple(x.shape)}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"q must be float32, bfloat16 or float16, got {q.dtype}")
+    for name, x in (("k", k), ("v", v)):
+        if x.dtype != q.dtype:
+            raise TypeError(f"{name} must be {q.dtype} like q, got {x.dtype}")
+    if len({q.device, k.device, v.device}) != 1:
+        raise ValueError("q, k and v must be on one device")
+    bh, s, hd = q.shape
+    bkv, t, hdk = k.shape
+    if hd not in HEAD_DIMS or hdk != hd:
+        raise ValueError(f"head dims must match and be one of {HEAD_DIMS}, got q {hd}, k {hdk}")
+    if tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"v must be {tuple(k.shape)} like k, got {tuple(v.shape)}")
+    if group < 1 or bkv * group != bh:
+        raise ValueError(f"q rows ({bh}) must be k rows ({bkv}) x group ({group})")
+    if not 1 <= bh <= 65535 or s < 1 or t < 1:
+        raise ValueError(f"unsupported shape: b*H={bh} (1..65535), s={s}, t={t}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1 or None, got {window}")
+    return bh, bkv, s, t, hd
+
+
+def flash_attention_cuda(q, k, v, *, group: int, scale: float, causal: bool = True,
+                         window: int | None = None,
+                         softcap: float | None = None) -> torch.Tensor:
+    """out (b*H, s, hd) in q's dtype (see ``kernels/ref.flash_attention_ref``
+    for the math)."""
+    bh, bkv, s, t, hd = _check(q, k, v, group=group, window=window)
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _lib().flash_attn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, bkv, s, t, hd, group,
+        float(scale), int(bool(causal)), int(window or 0), float(softcap or 0.0),
+        _DTYPES[q.dtype], q.device.index, stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attn kernel launch failed with CUDA error {rc}")
+    LAUNCHES["flash_attn"] += 1
+    return out

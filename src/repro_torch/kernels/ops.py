@@ -1,5 +1,7 @@
-"""Entry points for the quantized matmuls and paged decode attention
-(counterpart of ``repro/kernels/ops.py``).
+"""Entry points for the quantized matmuls, paged decode attention, flash
+attention and the fused RMSNorm + quantize (counterpart of
+``repro/kernels/ops.py`` and of the reference's Pallas entry points
+``flash_attention_pallas`` / ``rmsnorm_quant_pallas``).
 
 The weight format picks the GQMV/GQMM pair: every registered
 :class:`~repro_torch.core.quant.QuantFormat` names a kernel hook
@@ -31,9 +33,11 @@ from typing import Callable
 import torch
 
 from repro_torch.core.quant import QuantizedTensor, get_format, quantize_activation
+from repro_torch.kernels import flash_attn as _flash
 from repro_torch.kernels import gqmv as _cuda
 from repro_torch.kernels import paged_attn as _paged
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import rmsnorm_quant as _rmsq
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,6 +131,34 @@ def paged_attention(q, k_pages, v_pages, block_table, pos, k_new, v_new, mask, *
     if _resolve(impl, q) == "cuda":
         return _paged.paged_attention_cuda(*args, **kw)
     return _ref.paged_attention_ref(*args, **kw)
+
+
+def flash_attention(q, k, v, *, group: int, scale: float, causal: bool = True,
+                    window: int | None = None, softcap: float | None = None,
+                    impl: str | None = None) -> torch.Tensor:
+    """Chunked online-softmax attention -> out (b*H, s, hd) in q's dtype.
+
+    q (b*H, s, hd), k and v (b*KV, t, hd), batch and heads flattened; query
+    row i reads K/V row i // group. Scores in f32: scale, soft cap, causal and
+    window masks counted from position 0, online softmax (see
+    ``kernels/ref.flash_attention_ref``). The CUDA kernel skips the tiles
+    above the diagonal and outside the window; the plain version walks
+    ``flags.attention_chunk`` chunks of every key."""
+    kw = dict(group=group, scale=scale, causal=causal, window=window, softcap=softcap)
+    if _resolve(impl, q) == "cuda":
+        return _flash.flash_attention_cuda(q, k, v, **kw)
+    return _ref.flash_attention_ref(q, k, v, **kw)
+
+
+def rmsnorm_quant(x, w, *, group_size: int, eps: float = 1e-5,
+                  impl: str | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused RMSNorm and int8 group quantization of x (m, n) with weight w
+    (n,) -> (int8 (m, n), f32 scales (m, n / group_size)). A standalone op:
+    the model keeps the reference's unfused ``rmsnorm`` + activation
+    quantization."""
+    if _resolve(impl, x) == "cuda":
+        return _rmsq.rmsnorm_quant_cuda(x, w, group_size=group_size, eps=eps)
+    return _ref.rmsnorm_quant_ref(x, w, group_size=group_size, eps=eps)
 
 
 def quantized_matmul(x: torch.Tensor, w: QuantizedTensor, *,

@@ -1,7 +1,9 @@
 """Plain PyTorch versions of the port's CUDA kernels.
 
 Counterpart of ``repro/kernels/ref.py`` (``gqmv_ref``, ``gqmm_ref``, their
-int4/int3/fp8 siblings, ``paged_attention_ref``) and the yardstick the CUDA
+int4/int3/fp8 siblings, ``paged_attention_ref``), of the reference's
+oracles for its flash-attention and fused RMSNorm + quantize kernels
+(``flash_attention_ref``, ``rmsnorm_quant_ref``), and the yardstick the CUDA
 kernels in ``csrc/`` are held to. GQMV/GQMM (paper Algorithm 1,
 ``csrc/gqmm.cu``):
 
@@ -31,7 +33,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.quant import unpack_int3, unpack_int4
+from repro_torch.core import flags
+from repro_torch.core.quant import quantize_groupwise, unpack_int3, unpack_int4
+from repro_torch.models.common import NEG_INF, rmsnorm
 
 
 def gqmv_ref(
@@ -189,3 +193,68 @@ def paged_attention_ref(
     ctx = torch.einsum("bkgt,btkh->bkgh", attn_z.to(q.dtype), v)
     ctx = ctx + attn_cur * v_new[:, :, None, :]
     return ctx.reshape(b, kv * g * hd)
+
+
+def flash_attention_ref(
+    q: torch.Tensor,    # (b*H, s, hd), batch and heads flattened
+    k: torch.Tensor,    # (b*KV, t, hd)
+    v: torch.Tensor,    # (b*KV, t, hd)
+    *,
+    group: int,         # query heads per KV head: query row i reads KV row i // group
+    scale: float,
+    causal: bool = True,
+    window: int | None = None,
+    softcap: float | None = None,
+    chunk: int | None = None,
+) -> torch.Tensor:
+    """Plain version of the flash-attention kernel (``csrc/flash_attn.cu``):
+    the reference Pallas kernel's chunked online softmax
+    (``flash_attention_pallas``), all in f32. Per K/V chunk: scores
+    ``q . k * scale``, then ``softcap * tanh(s / softcap)``, then the masks
+    (causal ``k_pos <= q_pos``, window ``q_pos - k_pos < window``, both
+    counted from position 0) as ``NEG_INF``, then the running max, the
+    rescaled denominator and accumulator; the output is
+    ``acc / max(l, 1e-30)`` in q's dtype. ``chunk`` defaults to
+    ``flags.attention_chunk``, cut to a divisor of t as the reference's
+    ``_mha_blockwise`` cuts it."""
+    bh, s, hd = q.shape
+    t = k.shape[1]
+    chunk = int(flags.get("attention_chunk") if chunk is None else chunk)
+    chunk = min(chunk, t)
+    while t % chunk:
+        chunk //= 2
+    qf = q.to(torch.float32)
+    kf = k.to(torch.float32).repeat_interleave(group, dim=0)
+    vf = v.to(torch.float32).repeat_interleave(group, dim=0)
+    m = torch.full((bh, s), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((bh, s), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((bh, s, hd), dtype=torch.float32, device=q.device)
+    q_pos = torch.arange(s, device=q.device)[:, None]
+    for c0 in range(0, t, chunk):
+        sc = torch.einsum("hsd,htd->hst", qf, kf[:, c0:c0 + chunk]) * scale
+        if softcap is not None:
+            sc = softcap * torch.tanh(sc / softcap)
+        k_pos = c0 + torch.arange(chunk, device=q.device)[None, :]
+        ok = torch.ones((s, chunk), dtype=torch.bool, device=q.device)
+        if causal:
+            ok &= k_pos <= q_pos
+        if window is not None:
+            ok &= (q_pos - k_pos) < window
+        sc = torch.where(ok, sc, NEG_INF)
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("hst,htd->hsd", p, vf[:, c0:c0 + chunk])
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+
+
+def rmsnorm_quant_ref(x: torch.Tensor, w: torch.Tensor, *, group_size: int,
+                      eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the fused RMSNorm + int8 group quantization kernel
+    (``csrc/rmsnorm_quant.cu``), the reference's oracle op for op: the
+    port's ``rmsnorm`` on the f32 input, then ``quantize_groupwise``.
+    x (m, n) any float dtype, w (n,) -> (int8 (m, n), f32 scales (m, n/GS))."""
+    qt = quantize_groupwise(rmsnorm(x.to(torch.float32), w, eps), group_size)
+    return qt.qvalues, qt.scales

@@ -1,13 +1,22 @@
 """GQA attention (counterpart of the GQA half of ``repro/models/attention.py``).
 
-Ported paths, with the reference's default flags (``blockwise_attention``,
-``deferred_decode_cache`` and the kvt layout off):
+Ported paths, under the reference's default flags and its perf-variant
+flags (``core/flags.py``):
 
-- full ``_mha`` attention in prefill and decode over the base
-  (b, T, KV, hd) cache layout;
-- the quantized KV cache (``cfg.kv_quant`` "int8"/"fp8"): kvt-major rows
-  with per-row f32 scales, written by ``gqa_prefill`` and read by
-  ``gqa_decode_deferred_quant``;
+- full ``_mha`` attention in the scoring forward (``gqa_forward``),
+  prefill and decode over the base (b, T, KV, hd) cache layout;
+- ``blockwise_attention``: ``_mha_blockwise`` in the forward and in
+  prefill, through ``kernels/ops.flash_attention`` (the CUDA flash kernel
+  on the card);
+- ``deferred_decode_cache``: ``gqa_decode_deferred`` reads the cache only
+  and returns the new K/V rows, committed after the last layer with
+  ``commit_layers_bt``;
+- ``kvt_cache_layout``: the float cache stored (b, KV, T, hd), written by
+  ``gqa_prefill``, read by ``gqa_decode_deferred`` and committed with
+  ``commit_layers_bkt``;
+- the quantized KV cache (``cfg.kv_quant`` "int8"/"fp8", or the
+  ``int8_kv_cache`` flag): kvt-major rows with per-row f32 scales, written
+  by ``gqa_prefill`` and read by ``gqa_decode_deferred_quant``;
 - paged decode over a block pool (``gqa_decode_paged``), float or
   quantized, through ``kernels/ops.paged_attention`` (the CUDA kernel on
   the card), with the deferred commits ``commit_layers_paged`` /
@@ -30,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import flags
 from repro_torch.core.qlinear import linear, split_fused
 from repro_torch.core.quant import FP8_MAX
 from repro_torch.kernels import ops
@@ -62,6 +72,19 @@ def _commit_bt(cache: torch.Tensor, rows: torch.Tensor, pos) -> torch.Tensor:
     return cache
 
 
+def _commit_bkt(cache: torch.Tensor, rows: torch.Tensor, pos) -> torch.Tensor:
+    """Write rows (b, KV, 1, ...) into cache (b, KV, T, ...) at time ``pos``,
+    in place (the reference returns an updated copy)."""
+    if isinstance(pos, torch.Tensor) and pos.ndim:
+        b, kv = cache.shape[:2]
+        dev = cache.device
+        cache[torch.arange(b, device=dev)[:, None], torch.arange(kv, device=dev)[None, :],
+              pos[:, None]] = rows[:, :, 0]
+    else:
+        cache[:, :, pos] = rows[:, :, 0]
+    return cache
+
+
 def _col_update(scores: torch.Tensor, cur: torch.Tensor, pos) -> torch.Tensor:
     """scores (b, ..., t): overwrite column ``pos`` (per row when a (b,)
     tensor) with cur (b, ...), in place."""
@@ -88,6 +111,17 @@ def _bcast_decode_mask(m: torch.Tensor) -> torch.Tensor:
     return m[None, None, :] if m.ndim == 1 else m[:, None, :]
 
 
+def commit_layers_bt(cache: torch.Tensor, rows: torch.Tensor, pos) -> torch.Tensor:
+    """Deferred-decode commit, (L, b, T, ...) layout: write rows
+    (L, b, 1, ...) at time ``pos`` (an int, or (b,) per-row positions), for
+    all layers at once, in place (the reference returns an updated copy)."""
+    if isinstance(pos, torch.Tensor) and pos.ndim:
+        cache[:, torch.arange(cache.shape[1], device=cache.device), pos] = rows[:, :, 0]
+    else:
+        cache[:, :, pos] = rows[:, :, 0]
+    return cache
+
+
 def commit_layers_paged(pages: torch.Tensor, rows: torch.Tensor, block_table: torch.Tensor,
                         pos: torch.Tensor) -> torch.Tensor:
     """Deferred paged commit: write rows (L, b, KV[, hd]) into the block pool
@@ -105,8 +139,9 @@ def commit_layers_paged(pages: torch.Tensor, rows: torch.Tensor, block_table: to
 
 
 def commit_layers_bkt(cache: torch.Tensor, rows: torch.Tensor, pos) -> torch.Tensor:
-    """Deferred-decode commit, (L, b, KV, T, ...) layout (the quantized
-    cache): write rows (L, b, KV, 1, ...) at time ``pos``, in place."""
+    """Deferred-decode commit, (L, b, KV, T, ...) layout (the kvt and
+    quantized caches): write rows (L, b, KV, 1, ...) at time ``pos``, in
+    place."""
     if isinstance(pos, torch.Tensor) and pos.ndim:
         b, kv = cache.shape[1], cache.shape[2]
         dev = cache.device
@@ -153,6 +188,46 @@ def _mha(q, k, v, mask: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return out.reshape(b, s, h * hd)
 
 
+def _mha_blockwise(q, k, v, cfg: ModelConfig, *, causal=True, window=None,
+                   use_window=None, lengths=None) -> torch.Tensor:
+    """Chunked online-softmax attention (flash-style), the reference's
+    ``_mha_blockwise`` with its signature; q (b, s, H, hd), k and v
+    (b, t, KV, hd) -> (b, s, H * hd). Runs ``ops.flash_attention`` (the CUDA
+    kernel on the card, the reference's ``flash_attention_pallas``) on
+    (b * H, s, hd) / (b * KV, t, hd) copies of the heads, all in f32 inside.
+
+    ``lengths`` (ragged prefill) is accepted and not passed on: the kernel
+    masks causally only, and for the rows that are read that is the same
+    attention. A query at position p < lengths[i] sees keys <= p, all of
+    them valid; the caller zeroes the pad K/V rows before attention and
+    caching; and the logits are taken at lengths[i] - 1. Only the hidden
+    states at pad positions differ from the reference's, and nothing reads
+    them. ``use_window`` (gemma2's per-layer local/global switch) is a
+    static bool or None here; a tensor raises until a windowed family is
+    ported.
+
+    At bf16 the reference rounds its chunk scores and weights to bf16; the
+    kernel and its plain version keep f32 and round the output once."""
+    if isinstance(use_window, torch.Tensor):
+        raise NotImplementedError(
+            "a per-layer tensor use_window (gemma2's local/global layers) is not ported; "
+            "pass a bool or None")
+    if lengths is not None and not causal:
+        raise ValueError("ragged lengths need causal attention")
+    if use_window is not None and not use_window:
+        window = None
+    b, s, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    # the kernel reads dense (b*heads, len, hd) rows: q/k/v are views of the
+    # fused QKV projection, so these copies are needed
+    qf = q.permute(0, 2, 1, 3).reshape(b * h, s, hd).contiguous()
+    kf = k.permute(0, 2, 1, 3).reshape(b * kv, t, hd).contiguous()
+    vf = v.permute(0, 2, 1, 3).reshape(b * kv, t, hd).contiguous()
+    out = ops.flash_attention(qf, kf, vf, group=h // kv, scale=_gqa_scale(cfg), causal=causal,
+                              window=window, softcap=cfg.attn_logit_softcap or None)
+    return out.reshape(b, h, s, hd).permute(0, 2, 1, 3).reshape(b, s, h * hd)
+
+
 def _flag_mask(s: int, window, use_window, device) -> torch.Tensor:
     """(s, s) additive mask; ``use_window`` (a bool tensor) selects the
     sliding-window variant per layer (gemma2's local/global alternation)."""
@@ -175,23 +250,49 @@ def _flag_decode_mask(cache_len: int, pos, window, use_window, device) -> torch.
     return torch.where(use_window, local, full)
 
 
-def gqa_prefill(p, x: torch.Tensor, cfg: ModelConfig, cache_len: int, *, window=None,
-                use_window=None, lengths: torch.Tensor | None = None):
-    """Returns (y, (k_cache, v_cache)) with caches padded to cache_len.
-
-    ``lengths`` (b,) marks each row's true prompt length in a right-padded
-    batch: keys at positions >= lengths[i] are masked out and their K/V rows
-    zeroed before caching, as in the reference."""
+def gqa_forward(p, x: torch.Tensor, cfg: ModelConfig, *, window=None, use_window=None,
+                causal=True) -> torch.Tensor:
+    """Full-sequence self-attention (the scoring/training forward): blockwise
+    (``_mha_blockwise``) under ``flags.blockwise_attention`` when s > 1,
+    else ``_mha`` with the flag mask (no mask when not ``causal``)."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _qkv(p, x, cfg, positions)
-    mask = _flag_mask(s, window, use_window, x.device)
+    if flags.get("blockwise_attention") and s > 1:
+        ctx = _mha_blockwise(q, k, v, cfg, causal=causal, window=window,
+                             use_window=use_window)
+    else:
+        mask = (_flag_mask(s, window, use_window, x.device) if causal
+                else torch.zeros((s, s), dtype=torch.float32, device=x.device))
+        ctx = _mha(q, k, v, mask, cfg)
+    return linear(p["wo"], ctx)
+
+
+def gqa_prefill(p, x: torch.Tensor, cfg: ModelConfig, cache_len: int, *, window=None,
+                use_window=None, lengths: torch.Tensor | None = None):
+    """Returns (y, (k_cache, v_cache)) with caches padded to cache_len: the
+    base (b, T, KV, hd) layout, (b, KV, T, hd) under
+    ``flags.kvt_cache_layout``, or the quantized kvt rows and scales.
+
+    ``lengths`` (b,) marks each row's true prompt length in a right-padded
+    batch: keys at positions >= lengths[i] are masked out and their K/V rows
+    zeroed before caching, as in the reference (the blockwise path masks
+    causally only; see ``_mha_blockwise``)."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None, :]
+    q, k, v = _qkv(p, x, cfg, positions)
     if lengths is not None:
         valid = (torch.arange(s, device=x.device)[None, :] < lengths[:, None])[..., None, None]
         k = torch.where(valid, k, 0)
         v = torch.where(valid, v, 0)
-        mask = mask[None] + length_mask(lengths, s)[:, None, :]     # (b, s, s)
-    ctx = _mha(q, k, v, mask, cfg)
+    if flags.get("blockwise_attention") and s > 1:
+        ctx = _mha_blockwise(q, k, v, cfg, window=window, use_window=use_window,
+                             lengths=lengths)
+    else:
+        mask = _flag_mask(s, window, use_window, x.device)
+        if lengths is not None:
+            mask = mask[None] + length_mask(lengths, s)[:, None, :]     # (b, s, s)
+        ctx = _mha(q, k, v, mask, cfg)
     kvq = kv_quant_format(cfg)
     if kvq:
         # kvt-major storage rows (b, KV, T, hd) and scales (b, KV, T)
@@ -200,6 +301,10 @@ def gqa_prefill(p, x: torch.Tensor, cfg: ModelConfig, cache_len: int, *, window=
         pad, pad_s = (0, 0, 0, cache_len - s), (0, cache_len - s)
         return linear(p["wo"], ctx), (_pad_rows(kq, pad), F.pad(ks, pad_s),
                                       _pad_rows(vq, pad), F.pad(vs, pad_s))
+    if flags.get("kvt_cache_layout"):
+        pad = (0, 0, 0, cache_len - s)                              # (b, KV, T, hd)
+        return linear(p["wo"], ctx), (F.pad(k.permute(0, 2, 1, 3), pad),
+                                      F.pad(v.permute(0, 2, 1, 3), pad))
     pad = (0, 0, 0, 0, 0, cache_len - s)                            # time axis 1
     return linear(p["wo"], ctx), (F.pad(k, pad), F.pad(v, pad))
 
@@ -226,9 +331,9 @@ KV_STORE_DTYPES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
 
 
 def kv_quant_format(cfg: ModelConfig) -> str | None:
-    """The active KV-cache quantization format, ``cfg.kv_quant`` (the
-    reference's legacy ``int8_kv_cache`` flag is not ported)."""
-    kvq = cfg.kv_quant
+    """The active KV-cache quantization format: ``cfg.kv_quant``, or "int8"
+    under the reference's older ``int8_kv_cache`` flag."""
+    kvq = cfg.kv_quant or ("int8" if flags.get("int8_kv_cache") else None)
     if kvq is not None and kvq not in KV_STORE_DTYPES:
         raise ValueError(f"unknown kv_quant format {kvq!r}; supported: "
                          f"{sorted(KV_STORE_DTYPES)}")
@@ -291,6 +396,50 @@ def gqa_decode_deferred_quant(p, x: torch.Tensor, cache, pos, cfg: ModelConfig, 
     kq_n, ks_n = _quantize_rows(k_new[:, 0], kvq)                   # (b, KV, hd) / (b, KV)
     vq_n, vs_n = _quantize_rows(v_new[:, 0], kvq)
     rows = (kq_n[:, :, None, :], ks_n[:, :, None], vq_n[:, :, None, :], vs_n[:, :, None])
+    return linear(p["wo"], ctx), rows
+
+
+def gqa_decode_deferred(p, x: torch.Tensor, cache, pos, cfg: ModelConfig, *, window=None,
+                        use_window=None):
+    """Decode WITHOUT writing the cache: attends over the read-only cache
+    (whose slot at ``pos`` is still zero) plus the freshly computed K/V row,
+    and returns that row for the caller to commit after the last layer
+    (``commit_layers_bt``, or ``commit_layers_bkt`` for the kvt layout).
+    Both float layouts: (b, T, KV, hd), and (b, KV, T, hd) under
+    ``flags.kvt_cache_layout``. The current token enters through
+    ``_col_update`` (its score replaces column ``pos``) and ``_col_at`` (its
+    weight times its value row), as in the reference. Plain PyTorch: the
+    reference runs XLA here too, no kernel."""
+    k_cache, v_cache = cache
+    b = x.shape[0]
+    hd, kv_heads, h = cfg.resolved_head_dim, cfg.num_kv_heads, cfg.num_heads
+    g = h // kv_heads
+    kvt = bool(flags.get("kvt_cache_layout"))
+    q, k_new, v_new = _qkv(p, x[:, None, :], cfg, _pos_rows(pos, b, x.device))
+    t = k_cache.shape[2] if kvt else k_cache.shape[1]
+    qg = q.reshape(b, kv_heads, g, hd)
+    if kvt:
+        scores = torch.einsum("bkgh,bkth->bkgt", qg, k_cache).to(torch.float32)
+    else:
+        scores = torch.einsum("bkgh,btkh->bkgt", qg, k_cache).to(torch.float32)
+    cur = torch.einsum("bkgh,bkh->bkg", qg, k_new[:, 0]).to(torch.float32)
+    scores = _col_update(scores, cur, pos)
+    scores = scores * _gqa_scale(cfg)
+    mask = _flag_decode_mask(t, pos, window, use_window, x.device)
+    scores = scores + (mask[None, None, None, :] if mask.ndim == 1 else mask[:, None, None, :])
+    attn = torch.softmax(scores, dim=-1).to(x.dtype)                # (b, KV, G, T)
+    # the cache's slot at pos is zero, so its contribution is exactly the
+    # current-token term below
+    if kvt:
+        ctx = torch.einsum("bkgt,bkth->bkgh", attn, v_cache)
+    else:
+        ctx = torch.einsum("bkgt,btkh->bkgh", attn, v_cache)
+    ctx = ctx + _col_at(attn, pos) * v_new[:, 0][:, :, None, :]
+    ctx = ctx.reshape(b, h * hd)
+    if kvt:
+        rows = (k_new[:, 0][:, :, None, :], v_new[:, 0][:, :, None, :])     # (b, KV, 1, hd)
+    else:
+        rows = (k_new, v_new)                                               # (b, 1, KV, hd)
     return linear(p["wo"], ctx), rows
 
 

@@ -2,7 +2,8 @@
 
 Only the dense GQA ``decoder_lm`` family is ported, and of the
 architectures only TinyLlama-1.1B; ``load_config`` names the others and
-raises "not yet ported" for them. ``Model`` keeps the reference's
+raises "not yet ported" for them. ``Model`` keeps the reference's entry
+points (the scoring ``forward``, ``prefill``, ``decode``) and its
 capability flags, each declared explicitly: ragged lengths, the paged
 block-pool cache (``init_paged_cache``/``decode_paged``) and the serving
 core's slot hooks (``cache_kind="kv"``, ``insert_slots``/``gather_slots``)
@@ -50,6 +51,7 @@ def load_config(arch_id: str) -> ModelConfig:
 class Model:
     cfg: ModelConfig
     init: Callable               # (seed=0, device="cuda") -> params
+    forward: Callable            # (params, batch, remat=True) -> logits (b, s, vocab_padded)
     init_cache: Callable         # (batch, cache_len, dtype, device) -> cache
     prefill: Callable            # (params, batch, cache_len) -> (logits, cache)
     decode: Callable             # (params, token, cache, pos) -> (logits, cache)
@@ -70,6 +72,9 @@ def build(cfg: ModelConfig) -> Model:
             f"model_type {cfg.model_type!r} is not yet ported to repro_torch")
     _tf._check_ported(cfg)
 
+    def forward(params, batch, remat=True):
+        return _tf.lm_forward(params, batch["tokens"], cfg, remat=remat)
+
     def prefill(params, batch, cache_len):
         return _tf.lm_prefill(params, batch["tokens"], cfg, cache_len,
                               lengths=batch.get("lengths"))
@@ -77,6 +82,7 @@ def build(cfg: ModelConfig) -> Model:
     return Model(
         cfg=cfg,
         init=lambda seed=0, device="cuda": _tf.init_lm(cfg, device, seed=seed),
+        forward=forward,
         init_cache=lambda b, t, dt, device: _tf.lm_init_cache(cfg, b, t, dt, device),
         prefill=prefill,
         decode=lambda p, tok, cache, pos: _tf.lm_decode(p, tok, cache, pos, cfg),

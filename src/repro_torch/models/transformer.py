@@ -5,9 +5,12 @@ Parameters keep the reference's tree: stacked (L, ...) layer leaves under
 the same keys, so a reference checkpoint crosses through ``bridge.py``
 unchanged. The reference scans over layers; here a Python loop takes one
 layer's views out of the stacked leaves at a time. The caches are the
-reference's layouts: the contiguous base (L, b, T, KV, hd) cache, its
-quantized kvt variant (``cfg.kv_quant``), and the paged block pool
-(float or quantized). Decode writes them in place.
+reference's layouts: the contiguous base (L, b, T, KV, hd) cache, the kvt
+(L, b, KV, T, hd) cache (``flags.kvt_cache_layout``), its quantized variant
+(``cfg.kv_quant`` or ``flags.int8_kv_cache``), and the paged block pool
+(float or quantized). Decode writes them in place. ``lm_forward`` is the
+scoring forward (``Model.forward``); ``flags.blockwise_attention`` sends its
+attention and prefill's through the flash kernel.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import flags
 from repro_torch.core.qlinear import embedding_lookup, linear
 from repro_torch.core.tree import tree_index
 from repro_torch.device import resolve_device
@@ -81,13 +85,31 @@ def _block(lp, x: torch.Tensor, cfg: ModelConfig, attn_fn) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# training / scoring forward
+# ---------------------------------------------------------------------------
+
+def lm_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *, remat: bool = True
+               ) -> torch.Tensor:
+    """tokens (b, s) -> logits (b, s, vocab_padded). ``remat`` is accepted
+    for the reference's signature and has no effect: nothing here keeps
+    activations for a backward pass (training is not ported)."""
+    _check_ported(cfg)
+    x = _embed(params, tokens, cfg)
+    for i in range(cfg.num_layers):
+        lp = tree_index(params["layers"], i)
+        x = _block(lp, x, cfg, lambda h, lp=lp: attn.gqa_forward(lp["attn"], h, cfg))
+    return _logits(params, x, cfg)
+
+
+# ---------------------------------------------------------------------------
 # serving: prefill + decode
 # ---------------------------------------------------------------------------
 
 def lm_init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype, device) -> dict:
     """The contiguous KV cache: base (L, b, T, KV, hd) leaves ``k``/``v``,
-    or with cfg.kv_quant the kvt-major storage rows ``k_q``/``v_q``
-    (L, b, KV, T, hd) and their f32 scales ``k_s``/``v_s`` (L, b, KV, T)."""
+    (L, b, KV, T, hd) under ``flags.kvt_cache_layout``, or with a quantized
+    KV format the kvt-major storage rows ``k_q``/``v_q`` (L, b, KV, T, hd)
+    and their f32 scales ``k_s``/``v_s`` (L, b, KV, T)."""
     hd = cfg.resolved_head_dim
     kvq = attn.kv_quant_format(cfg)
     if kvq:
@@ -98,7 +120,10 @@ def lm_init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype, device) -
                 "k_s": torch.zeros(sshape, dtype=torch.float32, device=device),
                 "v_q": torch.zeros(qshape, dtype=sdt, device=device),
                 "v_s": torch.zeros(sshape, dtype=torch.float32, device=device)}
-    shape = (cfg.num_layers, batch, cache_len, cfg.num_kv_heads, hd)
+    if flags.get("kvt_cache_layout"):
+        shape = (cfg.num_layers, batch, cfg.num_kv_heads, cache_len, hd)
+    else:
+        shape = (cfg.num_layers, batch, cache_len, cfg.num_kv_heads, hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -198,12 +223,17 @@ def lm_decode(params, token: torch.Tensor, cache: dict, pos, cfg: ModelConfig):
     """One decode step. token (b,); pos an int or (b,) per-request positions.
     Returns (logits (b, vocab_padded), cache); the cache is updated in place.
 
-    The float cache is written by each layer before it attends
-    (``gqa_decode``); the quantized cache is read only by the layers and
-    their new rows are committed after the last one (``commit_layers_bkt``),
-    as in the reference."""
+    By default the float cache is written by each layer before it attends
+    (``gqa_decode``). Under ``flags.deferred_decode_cache``, the kvt layout
+    (which implies it) or a quantized KV cache, the layers read the cache
+    only and return their new rows, committed once after the last layer with
+    one write per leaf (``commit_layers_bt``, or ``commit_layers_bkt`` for
+    the (L, b, KV, T, ...) layouts), as in the reference; no layer reads its
+    own uncommitted row from the cache."""
     _check_ported(cfg)
     quant = attn.kv_quant_format(cfg) is not None
+    kvt = bool(flags.get("kvt_cache_layout")) or quant
+    deferred = bool(flags.get("deferred_decode_cache")) or kvt
     x = embedding_lookup(params["embed"], token, cfg.cdtype())
     rows: list = []
     for i in range(cfg.num_layers):
@@ -215,13 +245,20 @@ def lm_decode(params, token: torch.Tensor, cache: dict, pos, cfg: ModelConfig):
                 y, r = attn.gqa_decode_deferred_quant(lp["attn"], h, c, pos, cfg)
                 rows.append(r)
                 return y
-            y, _ = attn.gqa_decode(lp["attn"], h, (cache["k"][i], cache["v"][i]), pos, cfg)
+            c = (cache["k"][i], cache["v"][i])
+            if deferred:
+                y, r = attn.gqa_decode_deferred(lp["attn"], h, c, pos, cfg)
+                rows.append(r)
+                return y
+            y, _ = attn.gqa_decode(lp["attn"], h, c, pos, cfg)
             return y
 
         x = _block(lp, x, cfg, attn_fn)
-    if quant:
-        for j, name in enumerate(("k_q", "k_s", "v_q", "v_s")):
-            attn.commit_layers_bkt(cache[name], torch.stack([r[j] for r in rows]), pos)
+    if deferred:
+        names = ("k_q", "k_s", "v_q", "v_s") if quant else ("k", "v")
+        commit = attn.commit_layers_bkt if kvt else attn.commit_layers_bt
+        for j, name in enumerate(names):
+            commit(cache[name], torch.stack([r[j] for r in rows]), pos)
     return _logits(params, x, cfg), cache
 
 
@@ -234,7 +271,11 @@ def lm_decode_paged(params, token: torch.Tensor, cache: dict, block_table: torch
     Deferred: the layers read the pool through the block table (the CUDA
     kernel on the card) and return only their new K/V rows, committed after
     the last layer with one scatter per leaf at each row's (physical block,
-    offset) (``attention.commit_layers_paged``), in place."""
+    offset) (``attention.commit_layers_paged``), in place. The pool keeps
+    the base float layout: the kvt / int8_kv_cache flags raise."""
+    if flags.get("kvt_cache_layout") or flags.get("int8_kv_cache"):
+        raise ValueError("paged KV cache supports the base float KV layout "
+                         "(kvt_cache_layout / int8_kv_cache flags off)")
     _check_ported(cfg)
     quant = attn.kv_quant_format(cfg) is not None
     if not isinstance(pos, torch.Tensor) or not pos.ndim:

@@ -26,6 +26,7 @@ from typing import Sequence
 
 import numpy as np
 
+from repro_torch.core import flags
 from repro_torch.serving.core import (
     ContiguousAdapter,
     Request,
@@ -160,6 +161,11 @@ def resolve_mode(engine, mode: str) -> str:
             raise ValueError(f"{engine.cfg.arch_id} does not support mode={mode!r}; "
                              f"valid modes: {', '.join(ok)} (or 'auto')")
         return mode
+    # the paged pool keeps the base float KV layout; under the kvt/int8 cache
+    # flags auto resolves to the contiguous scheduler, whose decode paths
+    # support those layouts
+    if ok[0] == "paged" and (flags.get("kvt_cache_layout") or flags.get("int8_kv_cache")):
+        return ok[1]
     return ok[0]
 
 

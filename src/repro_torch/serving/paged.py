@@ -39,6 +39,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import flags
 from repro_torch.serving.core import (
     CacheAdapter,
     Request,
@@ -154,6 +155,9 @@ class PagedAdapter(CacheAdapter):
     # -- CacheAdapter surface ------------------------------------------------
 
     def validate(self, requests, budget):
+        if flags.get("kvt_cache_layout") or flags.get("int8_kv_cache"):
+            raise ValueError("paged serving supports the base float KV layout "
+                             "(kvt_cache_layout / int8_kv_cache flags off)")
         mb, bs = self.blocks_per_req, self.block_size
         for r in requests:
             need = max(self._prompt_pad(len(r.tokens)), len(r.tokens) + budget(r))

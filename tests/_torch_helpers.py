@@ -3,14 +3,20 @@
 The two packages exchange parameters as nested dicts of numpy arrays, the
 form ``repro_torch.bridge.params_from_numpy`` reads; these helpers convert
 the reference's pytrees (with ``QuantizedTensor`` leaves) to and from it.
+The perf-variant flags are separate globals in the two packages;
+``both_flags`` sets a variant in both.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import jax.numpy as jnp
 import numpy as np
 
+from repro.core import flags as jflags
 from repro.core.quant import QuantizedTensor as JQT
+from repro_torch.core import flags as tflags
 
 
 def jax_to_numpy(tree):
@@ -32,3 +38,10 @@ def numpy_to_jax(tree):
         return {k: numpy_to_jax(v) for k, v in tree.items()}
     return jnp.asarray(tree)
 
+
+
+@contextlib.contextmanager
+def both_flags(**kw):
+    """Enter ``flags.overrides(**kw)`` in the reference and in the port."""
+    with jflags.overrides(**kw), tflags.overrides(**kw):
+        yield

@@ -7,17 +7,19 @@ count, f32 params and compute) with ``repro_torch.bridge.init_params_numpy``,
 then runs the REFERENCE package on the CPU: ``quantize_params`` (int8, via
 ``InferenceEngine(quantize=True)``), greedy ``InferenceEngine.generate``,
 ``serve_ragged(mode="paged")`` over the ragged trace ``chip_smoke.GOLDEN_RAGGED``
-with a float, int8 and fp8 KV pool, and ``generate`` once more with each
+with a float, int8 and fp8 KV pool, ``generate`` once more with each
 weight setting of ``chip_smoke.GOLDEN["weight_formats"]`` (int4, int3, fp8,
-mixed, mixed3). The tokens, lengths and pool high-water marks, the prompts,
+mixed, mixed3), and int8 ``generate`` under the perf-variant flags
+``chip_smoke.GOLDEN["flags"]`` (blockwise prefill, deferred decode, kvt
+cache). The tokens, lengths and pool high-water marks, the prompts,
 a hash of the weights and the library versions go to
 ``src/repro_torch/golden_tinyllama.json``, together with how many of those
 tokens the PORT's plain path reproduces on the CPU (``port_cpu_equal``).
 ``chip_smoke.py`` rebuilds the same weights on the card and requires the
 port's tokens to be identical for int8 ``generate`` and the float pool; for
-the other settings it requires every replayed reference token to be the
-card's greedy choice or a near tie of it, and shows the free-running count
-beside the CPU's.
+the other settings, and for the flags where the CPU run was not exact, it
+requires every replayed reference token to be the card's greedy choice or a
+near tie of it, and shows the free-running count beside the CPU's.
 
 A helper, not a test (pytest does not collect it); it imports both packages.
 """
@@ -39,7 +41,7 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from _torch_helpers import numpy_to_jax  # noqa: E402
+from _torch_helpers import both_flags, numpy_to_jax  # noqa: E402
 from repro.models.registry import build, load_config  # noqa: E402
 from repro.serving.batching import Request, serve_ragged  # noqa: E402
 from repro.serving.engine import InferenceEngine  # noqa: E402
@@ -89,6 +91,12 @@ def main() -> None:
         res_f = eng.generate({"tokens": jnp.asarray(prompt, jnp.int32)}, g["max_new_tokens"])
         formats[fmt] = np.asarray(res_f.tokens).tolist()
 
+    with both_flags(**g["flags"]):
+        eng = InferenceEngine(build(cfg), numpy_to_jax(tree), quantize=g["quantize"],
+                              cache_len=cache_len)
+        flags_tokens = np.asarray(eng.generate({"tokens": jnp.asarray(prompt, jnp.int32)},
+                                               g["max_new_tokens"]).tokens).tolist()
+
     # the port's plain path on the CPU over the same weights: how many of the
     # reference's tokens it reproduces (chip_smoke shows it beside the
     # card's count)
@@ -104,6 +112,8 @@ def main() -> None:
                 "ragged": {}}
     for fmt in g["weight_formats"]:
         port_cpu["generate"][fmt] = _equal(port_generate(fmt), formats[fmt])
+    with both_flags(**g["flags"]):
+        port_cpu["generate_flags"] = _equal(port_generate(g["quantize"]), flags_tokens)
     for kv in gr["kv"]:
         te = TEngine(tbuild(cfg_port), tparams, quantize=g["quantize"], cache_len=gr["cache_len"],
                      kv_quant=None if kv == "float" else kv, device="cpu")
@@ -120,6 +130,7 @@ def main() -> None:
         "tokens": np.asarray(res.tokens).tolist(),
         "ragged": ragged,
         "formats": formats,
+        "flags_tokens": flags_tokens,
         "port_cpu_equal": port_cpu,
         "weights_checksum": chip_smoke.weights_checksum(tree),
         "numpy": np.__version__,

@@ -14,18 +14,27 @@ sums in another order (rtol 5e-4, atol 1e-4, the reference's tolerance for
 its fp8 kernel). The paged attention kernel sums in f32 in another order
 than its plain version (1e-5 * max|plain| at f32 inputs); at bf16 inputs it
 rounds once where the plain path rounds scores and weights to bf16 too, so
-it is held to the plain arithmetic in f32 on the same values (1e-2).
+it is held to the plain arithmetic in f32 on the same values (1e-2). The
+flash-attention kernel is held to its plain version the same way (1e-5 *
+max|plain| at f32, 1e-2 at bf16 against the f32 arithmetic). The fused
+RMSNorm + quantize kernel's scales are within rtol 1e-5 of the plain
+version's, and its int8 values equal them except where the plain x/S lies
+within max(1e-5, 1e-6 * |x/S|) of a .5 boundary (the sum of squares is
+taken in another order; see chip_smoke.RMSQ_TIE).
 """
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import quant  # noqa: E402
+from repro_torch.core import flags, quant  # noqa: E402
+from repro_torch.kernels import flash_attn as flash_kern  # noqa: E402
 from repro_torch.kernels import gqmv as kern  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import paged_attn as paged_kern  # noqa: E402
+from repro_torch.kernels import rmsnorm_quant as rmsq_kern  # noqa: E402
 from repro_torch.models.common import decode_mask  # noqa: E402
+from repro_torch.models.common import rmsnorm as common_rmsnorm  # noqa: E402
 from repro_torch.models.registry import build, load_config  # noqa: E402
 from repro_torch.serving.core import Request  # noqa: E402
 from repro_torch.serving.engine import InferenceEngine  # noqa: E402
@@ -300,3 +309,117 @@ def test_paged_serve_on_cuda_launches_kernel_and_matches_plain(dev, kv_quant):
         plain = PagedScheduler(engine, slots=2, chunk=2).serve(reqs, 8)
     for a, b in zip(out, plain):       # the reduced config is f32
         assert a.length == b.length and (a.tokens == b.tokens).all()
+
+
+# ---------------------------------------------------------------------------
+# flash attention (csrc/flash_attn.cu)
+# ---------------------------------------------------------------------------
+
+def _flash(dev, bh, bkv, s, t, hd, dtype=torch.float32, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn((n, m, hd), generator=gen, device=dev).to(dtype)
+            for n, m in ((bh, s), (bkv, t), (bkv, t))]
+
+
+@pytest.mark.parametrize("bh,bkv,s,t,hd,causal,window,softcap", [
+    (128, 16, 64, 64, 64, True, None, None),      # TinyLlama 4 x 64, GQA 32/4
+    (32, 4, 200, 200, 64, True, None, None),      # a length that is no power of two
+    (8, 8, 128, 128, 32, True, 32, 50.0),         # window + soft cap
+    (4, 4, 64, 96, 32, False, None, None),        # non-causal, t != s
+    (16, 4, 70, 70, 128, True, None, None),       # hd 128, ragged tiles
+    (8, 2, 33, 33, 32, True, 5, None),
+])
+def test_flash_kernel_matches_plain_f32(dev, bh, bkv, s, t, hd, causal, window, softcap):
+    q, k, v = _flash(dev, bh, bkv, s, t, hd, seed=s + hd)
+    kw = dict(group=bh // bkv, scale=hd ** -0.5, causal=causal, window=window, softcap=softcap)
+    before = flash_kern.LAUNCHES["flash_attn"]
+    got = flash_kern.flash_attention_cuda(q, k, v, **kw)
+    assert flash_kern.LAUNCHES["flash_attn"] == before + 1
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def test_flash_kernel_bf16_within_rounding_of_plain(dev):
+    q, k, v = _flash(dev, 128, 16, 64, 64, 64, dtype=torch.bfloat16, seed=3)
+    got = flash_kern.flash_attention_cuda(q, k, v, group=8, scale=0.125)
+    assert got.dtype == torch.bfloat16
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(), group=8, scale=0.125)
+    assert (got.float() - want).abs().max() <= 1e-2 * want.abs().max()
+
+
+def test_flash_kernel_rejects_bad_arguments(dev):
+    q, k, v = _flash(dev, 8, 2, 16, 16, 32)
+    bad = [
+        ((q.double(), k, v), {}, TypeError),
+        ((q, k.half(), v), {}, TypeError),
+        ((q.transpose(1, 2).contiguous().transpose(1, 2), k, v), {}, ValueError),
+        ((q, k, v[:, :8]), {}, ValueError),
+        ((q, k, v), dict(group=3), ValueError),
+        ((q[..., :16].contiguous(), k[..., :16].contiguous(), v[..., :16].contiguous()), {},
+         ValueError),                                     # hd 16
+        ((q.cpu(), k, v), {}, ValueError),
+        ((q, k, v), dict(window=0), ValueError),
+    ]
+    for args, extra, exc in bad:
+        with pytest.raises(exc):
+            flash_kern.flash_attention_cuda(*args, **{"group": 4, "scale": 0.2, **extra})
+
+
+def test_blockwise_forward_on_cuda_launches_kernel_per_layer(dev):
+    cfg = load_config("tinyllama-1.1b").reduced()
+    model = build(cfg)
+    params = model.init(seed=0, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), generator=torch.Generator().manual_seed(0))
+    with flags.overrides(blockwise_attention=True):
+        flash_kern.reset_launches()
+        got = model.forward(params, {"tokens": toks.to(dev)})
+        assert flash_kern.LAUNCHES["flash_attn"] == cfg.num_layers
+        with ops.impl_scope("plain"):
+            want = model.forward(params, {"tokens": toks.to(dev)})
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+# ---------------------------------------------------------------------------
+# fused RMSNorm + int8 group quantization (csrc/rmsnorm_quant.cu)
+# ---------------------------------------------------------------------------
+
+def _assert_rmsq_close(x, w, gs, got):
+    qp, sp = ref.rmsnorm_quant_ref(x, w, group_size=gs)
+    q, s = got
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    assert torch.allclose(s, sp, rtol=1e-5, atol=0)
+    diff = q.to(torch.int32) - qp.to(torch.int32)
+    if diff.any():
+        # only values the plain version puts at a .5 tie: within
+        # max(1e-5, 1e-6 * |x/S|) of the boundary (chip_smoke.RMSQ_TIE)
+        normed = common_rmsnorm(x.float(), w)
+        ratio = normed.reshape(*s.shape, gs) / torch.where(sp > 0, sp, 1.0)[..., None]
+        ratio = ratio.reshape(q.shape)
+        near = (ratio - ratio.floor() - 0.5).abs() <= torch.clamp(1e-6 * ratio.abs(), min=1e-5)
+        assert diff.abs().max() <= 1 and bool(near[diff != 0].all())
+
+
+@pytest.mark.parametrize("m,n,gs", [(4, 2048, 256), (256, 2048, 256), (256, 5632, 256)]
+                         + [(13, 1024, g) for g in (16, 32, 64, 128, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_quant_kernel_matches_plain(dev, m, n, gs, dtype):
+    gen = torch.Generator(device=dev).manual_seed(m + gs)
+    x = (torch.randn((m, n), generator=gen, device=dev) * 3).to(dtype)
+    x[0, :gs] = 0                                          # a group of zeros
+    w = torch.randn((n,), generator=gen, device=dev)
+    before = rmsq_kern.LAUNCHES["rmsnorm_quant"]
+    got = rmsq_kern.rmsnorm_quant_cuda(x, w, group_size=gs)
+    assert rmsq_kern.LAUNCHES["rmsnorm_quant"] == before + 1
+    assert not got[0][0, :gs].any() and got[1][0, 0] == 0
+    _assert_rmsq_close(x, w, gs, got)
+
+
+def test_rmsnorm_quant_kernel_rejects_bad_arguments(dev):
+    x = torch.randn((4, 256), device=dev)
+    w = torch.randn((256,), device=dev)
+    bad = [((x.double(), w, 64), TypeError), ((x, w[:128], 64), ValueError),
+           ((x, w, 48), ValueError), ((x.t(), w, 64), ValueError),
+           ((x.cpu(), w, 64), ValueError), ((x[0], w, 64), ValueError)]
+    for (a, b_, gs), exc in bad:
+        with pytest.raises(exc):
+            rmsq_kern.rmsnorm_quant_cuda(a, b_, group_size=gs)

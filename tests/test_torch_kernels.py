@@ -254,7 +254,7 @@ def test_paged_kernel_shared_memory_sizing():
 
 
 def test_kernel_bounds_from_tinyllama_shapes():
-    """The shape-derived bounds PERF.md quotes for the kernels still to port."""
+    """The shape-derived bounds PERF.md quotes beside the kernels' times."""
     from repro_torch.configs.tinyllama_1_1b import CONFIG
     from repro_torch.kernels import bounds
 
@@ -268,4 +268,13 @@ def test_kernel_bounds_from_tinyllama_shapes():
     weights = sum(m * n * c for m, n, c in bounds.projections(CONFIG))
     assert int8.nbytes - int4.nbytes == weights // 2
     assert int8.nbytes - int3.nbytes == 5 * weights // 8
-    assert all(b.bound_by == "bytes" for b in rows.values())
+    # B2 at bf16 and f32 input (the kernel reads either, computes in f32);
+    # B4 at TinyLlama's 4 x 64 prefill is bound by bytes, at 1 x 2048 by the
+    # bf16 tensor-core rate over the causal half of the products
+    b2 = rows[("B2 rmsnorm_quant_pallas", "one call, bf16 (4, 2048)")]
+    b2f = rows[("B2 rmsnorm_quant_pallas", "one call, f32 (4, 2048)")]
+    assert b2f.nbytes - b2.nbytes == 2 * (4 * 2048 + 2048)
+    long = rows[("B4 flash_attention_pallas", "one layer, bf16 1 x 2048 tokens")]
+    assert long.bound_by == "operations" and long.ops == 4 * 32 * 64 * 2048 * 2049 // 2
+    assert all(b.bound_by == "bytes" for (_, work), b in rows.items()
+               if "1 x 2048" not in work)

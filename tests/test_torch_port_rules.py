@@ -43,7 +43,9 @@ def test_port_file_list_is_complete():
     for must in ("chip_smoke.py", "src/repro_torch/serving/engine.py",
                  "src/repro_torch/models/registry.py", "src/repro_torch/kernels/gqmv.py",
                  "src/repro_torch/kernels/paged_attn.py", "src/repro_torch/serving/core.py",
-                 "src/repro_torch/serving/batching.py", "src/repro_torch/serving/paged.py"):
+                 "src/repro_torch/serving/batching.py", "src/repro_torch/serving/paged.py",
+                 "src/repro_torch/core/flags.py", "src/repro_torch/kernels/flash_attn.py",
+                 "src/repro_torch/kernels/rmsnorm_quant.py"):
         assert must in names
 
 

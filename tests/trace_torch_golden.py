@@ -1,6 +1,6 @@
 """Trace where the port's golden prefill first leaves the reference's.
 
-    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/trace_torch_golden.py [FORMAT]
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/trace_torch_golden.py [FORMAT] [--flags]
 
 Builds the golden configuration (``chip_smoke.GOLDEN``: TinyLlama at full
 width, 2 layers, f32), quantizes it with the REFERENCE in ``FORMAT`` (a
@@ -9,8 +9,11 @@ packages' prefill on the golden prompt on the CPU, and prints, for every
 quantized projection in call order and every batch row: the largest
 difference of the float input, the number of int8 activation values the two
 packages round differently, and the largest output difference; then the
-first few of those rounding flips with each package's x and x / S. A helper
-(pytest does not collect it); it imports both packages.
+first few of those rounding flips with each package's x and x / S. With
+``--flags`` both prefills run under the perf-variant flags of
+``chip_smoke.GOLDEN["flags"]`` (blockwise attention: the reference's
+``_mha_blockwise`` against the port's flash attention). A helper (pytest
+does not collect it); it imports both packages.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from _torch_helpers import jax_to_numpy, numpy_to_jax  # noqa: E402
+from _torch_helpers import both_flags, jax_to_numpy, numpy_to_jax  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.models.registry import build, load_config  # noqa: E402
 from repro.serving.engine import InferenceEngine  # noqa: E402
@@ -60,7 +63,7 @@ def _capture():
     return ref, port
 
 
-def main(fmt: str = "int8") -> None:
+def main(fmt: str = "int8", with_flags: bool = False) -> None:
     g = chip_smoke.GOLDEN
     cfg_port = chip_smoke.golden_config()
     cfg = dataclasses.replace(load_config(g["arch"]), num_layers=g["num_layers"],
@@ -71,11 +74,13 @@ def main(fmt: str = "int8") -> None:
     engine = InferenceEngine(build(cfg), numpy_to_jax(tree), quantize=fmt, cache_len=cache_len)
     del tree
     ref, port = _capture()
-    jl, _ = jax.jit(lambda p, t: engine.model.prefill(p, {"tokens": t}, cache_len))(
-        engine.params, jnp.asarray(prompt, jnp.int32))
-    with torch.inference_mode():
-        tl, _ = tbuild(cfg_port).prefill(params_from_numpy(jax_to_numpy(engine.params), "cpu"),
-                                         {"tokens": torch.as_tensor(prompt)}, cache_len)
+    with both_flags(**(g["flags"] if with_flags else {})):
+        jl, _ = jax.jit(lambda p, t: engine.model.prefill(p, {"tokens": t}, cache_len))(
+            engine.params, jnp.asarray(prompt, jnp.int32))
+        with torch.inference_mode():
+            tl, _ = tbuild(cfg_port).prefill(
+                params_from_numpy(jax_to_numpy(engine.params), "cpu"),
+                {"tokens": torch.as_tensor(prompt)}, cache_len)
     names = ["wqkv", "wo", "w13", "w2"] * cfg.num_layers + ["classifier"]
     for i, ((x0, q0, s0, o0), (x1, q1, s1, o1)) in enumerate(zip(ref, port)):
         for r in range(x0.shape[0]):
@@ -95,4 +100,5 @@ def main(fmt: str = "int8") -> None:
 
 
 if __name__ == "__main__":
-    main(*sys.argv[1:2])
+    args = [a for a in sys.argv[1:] if a != "--flags"]
+    main(*args[:1], with_flags="--flags" in sys.argv[1:])
