@@ -23,18 +23,20 @@ printing no result, when CUDA is missing. Phases, each fatal on failure:
              Then paged decode attention (bf16, f32, int8 and fp8 pools;
              b in {1, 8, 32}, BS in {8, 16}, MB*BS in {256, 2048}, KV 4, G 8,
              hd 64, softcap None or 50; random non-identity block tables with
-             sink entries past each row's position) against its plain
-             version: within 1e-5 * max|plain| at f32 inputs (another f32
-             summation order); at bf16 inputs within 1e-2 * max|plain| of the
-             plain arithmetic run in f32 on the same values (the kernel rounds
-             once, to bf16, at the end). Timed the same way, over pools larger
-             than the L2.
+             sink entries past each row's position; the split plan of each
+             shape shown) against its plain version: within 1e-5 * max|plain|
+             at f32 inputs (another f32 summation order); at bf16 inputs
+             within 1e-2 * max|plain| of the plain arithmetic run in f32 on
+             the same values (the kernel rounds once, to bf16, at the end).
+             Timed the same way, over pools larger than the L2, with each
+             time's share of its bound.
              Then flash attention (B4): causal GQA 32/4 heads, hd 64, at
              4 x 64 and 1 x 2048 tokens (timed, beside
-             scaled_dot_product_attention, the library call for the same
-             function, which the port never calls), window 32 + soft cap 50,
-             non-causal, hd 32 and 128, and 4 x 200 tokens, in bf16 and f32,
-             with the paged kernel's tolerance rule. Then the fused RMSNorm +
+             scaled_dot_product_attention on the same inputs, the library
+             call for the same function, which the port never calls), window
+             32 + soft cap 50, non-causal, hd 32 and 128, and 4 x 200 tokens;
+             bf16 runs the tensor-core kernel, f32 the CUDA-core one, with
+             the paged kernel's tolerance rule. Then the fused RMSNorm +
              quantize (B2) at (4, 2048), (256, 2048) and (256, 5632), GS 256
              (timed), and at every GS 16-256 on (13, 1024), bf16 and f32
              input, zero groups included: scales within rtol 1e-5, int8
@@ -68,10 +70,11 @@ printing no result, when CUDA is missing. Phases, each fatal on failure:
              through serve_ragged with 16 requests (prompts 16-192 tokens,
              budgets 8-64, seed 0), 8 slots, chunk 4, block size 8, in paged
              mode with float, int8 and fp8 KV pools and in continuous mode.
-             Each paged pass must launch the paged-attention kernel exactly
+             Each paged pass must launch the paged-attention op exactly
              22 x its decode steps. A paged pass on the plain versions gives
              the token agreement, one paged decode step of 8 rows the logits
-             (within 5e-2 * max|logit|), and a pass with half the default
+             (within 5e-2 * max|logit|) and its paged-attention kernels (split
+             passes and combines) and time, and a pass with half the default
              pool the backpressure path. Last, one paged pass with mixed3
              weights (int3 attention/FFN, int8 classifier), which must launch
              the int3 GQMM and the paged-attention kernel.
@@ -82,19 +85,25 @@ printing no result, when CUDA is missing. Phases, each fatal on failure:
              logits within 5e-2 * max|logit| of the plain versions, tokens
              beside phase 3's, decode timing and a profiled step; (b) one
              1 x 2048 prefill under blockwise_attention with prefill_dequant
-             around it: 22 flash launches, no GQMM, the flash kernel's device
-             time per layer; (c) Model.forward on (2, 512) tokens under
+             around it: 22 flash launches, no GQMM, its device time split
+             into flash attention, float products and elementwise work;
+             (c) Model.forward on (2, 512) tokens under
              blockwise_attention: 22 flash launches, logits within 5e-2 *
              max|logit| of the plain versions; (d) the standalone
              ops.rmsnorm_quant at the model's 45 norm sites.
-             The golden phase (run last) adds int8 generate under the three
-             serving flags: exact tokens if the port's CPU run was exact,
-             else the replay rule above (the CPU run is not exact: the flash
-             kernel's f32 order moves one int8 activation of layer 0's wo
-             input across a .5 tie, as ROADMAP Queue C records).
+             The bf16 model runs the tensor-core flash kernel (counted as
+             flash_attn). The golden phase (run last) adds int8 generate
+             under the three serving flags on the f32 model (the CUDA-core
+             kernel, flash_attn_f32): exact tokens if the port's CPU run was
+             exact, else the replay rule above (the CPU run is not exact: the
+             flash kernel's f32 order moves one int8 activation of layer 0's
+             wo input across a .5 tie, as ROADMAP Queue C records).
 
-The lines before the last are a JSON object of the kernels, then the card's
-name and power limit from nvidia-smi; the last line is
+Every time is printed beside the card's name and power limit from
+nvidia-smi. The lines before the last are a JSON object of the kernels (13
+entries: B4 has a tensor-core and an f32 entry; the paged entries carry the
+b = 32, MB*BS 2048 row beside the serve's shape), then the card's name and
+power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -229,8 +238,10 @@ PAGED = {"kv": 4, "g": 8, "hd": 64, "batches": (1, 8, 32), "block_sizes": (8, 16
          "qdtypes": (torch.bfloat16, torch.float32), "softcaps": (None, 50.0)}
 PAGED_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # the shape of the ragged serve's decode (phase 5): 8 slots, blocks of 8,
-# 256-token tables, bf16 queries; the kernels line reports this call
+# 256-token tables, bf16 queries; the kernels line reports this call, and
+# beside it a long-cache batch (32 rows of 2048-token tables)
 PAGED_MAIN = {"b": 8, "bs": 8, "T": 256, "qdtype": "bfloat16", "softcap": None}
+PAGED_LARGE = {"b": 32, "bs": 8, "T": 2048, "qdtype": "bfloat16", "softcap": None}
 # phase 5: the ragged trace at full width
 RAGGED = {"requests": 16, "prompt_lens": (16, 192), "budgets": (8, 64), "seed": 0,
           "slots": 8, "chunk": 4, "block_size": 8}
@@ -239,6 +250,7 @@ SOURCES = {**{f"{k}_{f}": "src/repro_torch/csrc/gqmm.cu" for f in WEIGHT_FORMATS
            "paged_attn": "src/repro_torch/csrc/paged_attn.cu",
            "paged_attn_quant": "src/repro_torch/csrc/paged_attn.cu",
            "flash_attn": "src/repro_torch/csrc/flash_attn.cu",
+           "flash_attn_f32": "src/repro_torch/csrc/flash_attn.cu",
            "rmsnorm_quant": "src/repro_torch/csrc/rmsnorm_quant.cu"}
 REPLACES = {"gqmv_int8": "src/repro/kernels/gqmv.py:166",     # gqmv_pallas
             "gqmm_int8": "src/repro/kernels/gqmv.py:312",     # gqmm_pallas
@@ -252,6 +264,7 @@ REPLACES = {"gqmv_int8": "src/repro/kernels/gqmv.py:166",     # gqmv_pallas
             "paged_attn": "src/repro/kernels/paged_attn.py:116",
             "paged_attn_quant": "src/repro/kernels/paged_attn.py:116",
             "flash_attn": "src/repro/kernels/flash_attn.py:82",       # flash_attention_pallas
+            "flash_attn_f32": "src/repro/kernels/flash_attn.py:82",
             "rmsnorm_quant": "src/repro/kernels/rmsnorm_quant.py:36"}  # rmsnorm_quant_pallas
 
 
@@ -288,6 +301,16 @@ def weights_checksum(tree) -> str:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+CARD = {"smi": "not read"}      # set by main() before any phase; printed beside the times
 
 
 def bound_s(nbytes: int, ops: int, ops_per_s: float = INT8_OPS_PER_S) -> tuple[float, str]:
@@ -344,22 +367,32 @@ def profile_device(fn, reps: int) -> dict:
                 fn()
             torch.cuda.synchronize()
         by_name: dict[str, float] = {}
-        count = 0
+        counts: dict[str, int] = {}
         for evt in prof.key_averages():
             us = getattr(evt, "self_device_time_total", 0) or 0
             if us > 0:
                 by_name[evt.key] = by_name.get(evt.key, 0.0) + us / 1e3 / reps
-                count += evt.count
+                counts[evt.key] = counts.get(evt.key, 0) + evt.count
+        count = sum(counts.values())
         total = sum(by_name.values())
         if total > 0:
             break
     else:
         raise RuntimeError("torch.profiler recorded no device time in three profiles")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+
+    def ms(pred):
+        return sum(v for k, v in by_name.items() if pred(k))
+
+    # the port's kernels by name (the paged op's split pass and combine, both
+    # flash kernels); float products: cuBLAS / CUTLASS GEMMs
+    products = ("gemm", "nvjet", "xmma", "cutlass", "cublas", "s16816")
     return {"device_ms": total, "kernels": count // reps,
-            "gqmm_ms": sum(v for k, v in by_name.items() if "gqmm_kernel" in k),
-            "paged_ms": sum(v for k, v in by_name.items() if "paged_attn_kernel" in k),
-            "flash_ms": sum(v for k, v in by_name.items() if "flash_attn_kernel" in k),
+            "gqmm_ms": ms(lambda k: "gqmm_kernel" in k),
+            "paged_ms": ms(lambda k: "paged_attn" in k),
+            "paged_kernels": sum(c for k, c in counts.items() if "paged_attn" in k) // reps,
+            "flash_ms": ms(lambda k: "flash_attn" in k),
+            "products_ms": ms(lambda k: any(w in k.lower() for w in products)),
             "top": top}
 
 
@@ -496,13 +529,15 @@ def _sdpa_ms(q4, k4, v4) -> tuple[float, float]:
 
 
 def phase_flash_kernels(dev) -> tuple[list[dict], dict]:
-    """The flash-attention kernel (B4) against its plain version at every
-    case of FLASH_TIMED and FLASH_CHECKED, at bf16 and f32 inputs: within
-    1e-5 * max|plain| at f32 (another f32 summation order), and at bf16
-    within 1e-2 * max|plain| of the plain arithmetic run in f32 on the same
-    values (the kernel rounds once, at the end). The timed cases are timed
-    beside their plain version and scaled_dot_product_attention (bf16, the
-    library's causal GQA path)."""
+    """The flash-attention kernels (B4) against their plain version at every
+    case of FLASH_TIMED and FLASH_CHECKED: f32 inputs run the CUDA-core
+    kernel, within 1e-5 * max|plain| (another f32 summation order); bf16
+    inputs the tensor-core kernel, within 1e-2 * max|plain| of the plain
+    arithmetic run in f32 on the same values (it rounds P to bf16 before
+    P V, up to 2^-9 relative per weight, and the output once). The timed
+    cases are timed beside their plain version and
+    scaled_dot_product_attention on the same inputs (the library's causal
+    GQA path), with the bound and the kernel's share of it."""
     gen = torch.Generator(device=dev).manual_seed(6)
     rows, sdpa = [], {}
     for case, dt in itertools.product(FLASH_TIMED + FLASH_CHECKED, FLASH_DTYPES):
@@ -516,7 +551,8 @@ def phase_flash_kernels(dev) -> tuple[list[dict], dict]:
         torch.cuda.synchronize()
         err = (got.float() - want).abs().max().item()
         tol = FLASH_TOL[dt] * want.abs().max().item()
-        row = {"kernel": "flash_attn", "case": name, "dtype": str(dt).split(".")[-1], "b": b,
+        row = {"kernel": fkern.kernel_name(dt), "case": name, "dtype": str(dt).split(".")[-1],
+               "b": b,
                "heads": h, "kv_heads": kv, "s": s, "t": t, "hd": hd, "causal": causal,
                "window": window, "softcap": cap, "max_abs_err": err, "tol": tol}
         if not err <= tol:
@@ -528,19 +564,20 @@ def phase_flash_kernels(dev) -> tuple[list[dict], dict]:
             bnd, by = bound_s(nbytes, nops, BF16_OPS_PER_S if dt == torch.bfloat16
                               else F32_OPS_PER_S)
             row.update({"us": 1e3 * k_ms, "host_us": 1e3 * k_host, "plain_us": 1e3 * p_ms,
-                        "bound_us": 1e6 * bnd, "bound_by": by})
-            if dt == torch.bfloat16:
-                q4 = q.reshape(b, h, s, hd)
-                sd_ms, sd_err = _sdpa_ms(q4, k.reshape(b, kv, t, hd), v.reshape(b, kv, t, hd))
-                row["library_us"] = 1e3 * sd_ms
-                sdpa[name] = {"ms": sd_ms, "max_abs_err_vs_f32": sd_err, "b": b, "s": s,
-                              "heads": h, "kv_heads": kv, "hd": hd}
+                        "bound_us": 1e6 * bnd, "bound_by": by, "bound_share": 1e3 * bnd / k_ms})
+            q4 = q.reshape(b, h, s, hd)
+            sd_ms, sd_err = _sdpa_ms(q4, k.reshape(b, kv, t, hd), v.reshape(b, kv, t, hd))
+            row["library_us"] = 1e3 * sd_ms
+            sdpa[f"{name} {row['dtype']}"] = {"ms": sd_ms, "max_abs_err_vs_f32": sd_err, "b": b,
+                                              "s": s, "heads": h, "kv_heads": kv, "hd": hd}
         rows.append(row)
-        log(f"[flash] {row['dtype']:8s} {name:14s} b*H={b * h:3d} s={s:4d} t={t:4d} hd={hd:3d} "
-            f"causal={causal} window={window} cap={cap}  max|err| {err:.2e} (tol {tol:.1e})"
+        log(f"[flash] {row['kernel']:14s} {row['dtype']:8s} {name:14s} b*H={b * h:3d} s={s:4d} "
+            f"t={t:4d} hd={hd:3d} causal={causal} window={window} cap={cap}  max|err| "
+            f"{err:.2e} (tol {tol:.1e})"
             + (f"  {row['us']:9.2f} us  plain {row['plain_us']:9.1f} us  bound "
-               f"{row['bound_us']:7.2f} us ({row['bound_by']})" if "us" in row else "")
-            + (f"  sdpa {row['library_us']:7.2f} us" if "library_us" in row else ""))
+               f"{row['bound_us']:7.2f} us ({row['bound_by']}, {100 * row['bound_share']:.1f} % "
+               f"of it)  sdpa {row['library_us']:7.2f} us ({row['us'] / row['library_us']:.2f}x)"
+               f" [{CARD['smi']}]" if "us" in row else ""))
         del q, k, v, got, want
     return rows, sdpa
 
@@ -663,7 +700,9 @@ def paged_call_bytes_ops(q, k_pages, pos, mask, table, quant: bool) -> tuple[int
 
 def phase_paged_kernels(dev) -> list[dict]:
     """The paged decode-attention kernel against its plain version at every
-    pool type and shape of ``PAGED``; timed where softcap is None."""
+    pool type and shape of ``PAGED`` (the split plan S of each shape shown);
+    timed where softcap is None, with the bound and the kernel's share of
+    it."""
     gen = torch.Generator(device=dev).manual_seed(3)
     kv, g, hd = PAGED["kv"], PAGED["g"], PAGED["hd"]
     rows = []
@@ -702,17 +741,21 @@ def phase_paged_kernels(dev) -> list[dict]:
             err = (got.float() - want).abs().max().item()
             tol = PAGED_TOL[qdt] * want.abs().max().item()
             row = {"kernel": kname, "qdtype": str(qdt).split(".")[-1], "pool": pool, "b": b,
-                   "bs": bs, "T": T, "softcap": softcap, "max_abs_err": err, "tol": tol}
+                   "bs": bs, "T": T, "softcap": softcap, "max_abs_err": err, "tol": tol,
+                   "splits": pkern.split_plan(b, kv, mb, bs)[0]}
             if qdt == torch.bfloat16:
                 same = paged_attention_ref(q, kp, vp, tables[0], pos, kn, vn, mask, **kw)
                 row["err_vs_plain_bf16"] = (got.float() - same.float()).abs().max().item()
             if not err <= tol:
                 raise AssertionError(f"{kname}: kernel disagrees with its plain version: {row}")
             if softcap is None:
+                # a call launches up to two kernels (the split pass and the
+                # combine) and the launch queue holds about a thousand, so at
+                # most 400 calls wait behind the GPU spin
                 k_ms, k_host = device_time_ms(
                     lambda i: pkern.paged_attention_cuda(
                         q, kp, vp, tables[i % variants], pos32, kn, vn, mask, **kw),
-                    max(50, variants))
+                    min(400, max(50, variants)))
                 # the plain version's enqueue outlasts every GPU spin (some
                 # step of it waits for the card): its device time comes
                 # from the profiler instead
@@ -724,12 +767,14 @@ def phase_paged_kernels(dev) -> list[dict]:
                 bnd, by = bound_s(nbytes, nops, F32_OPS_PER_S)
                 row.update({"us": 1e3 * k_ms, "host_us": 1e3 * k_host, "plain_us": 1e3 * p_ms,
                             "bound_us": 1e6 * bnd, "bound_by": by, "bytes": nbytes,
-                            "variants": variants})
+                            "variants": variants, "bound_share": 1e3 * bnd / k_ms})
             rows.append(row)
             log(f"[paged] {row['qdtype']:8s} {pool:5s} b={b:2d} BS={bs:2d} T={T:4d} "
-                f"cap={softcap}  max|err| {err:.2e} (tol {tol:.1e})"
-                + (f"  {row['us']:7.1f} us  plain {row['plain_us']:8.1f} us  bound "
-                   f"{row['bound_us']:5.2f} us ({row['bound_by']})" if "us" in row else ""))
+                f"S={row['splits']:2d} cap={softcap}  max|err| {err:.2e} (tol {tol:.1e})"
+                + (f"  {row['us']:7.2f} us  plain {row['plain_us']:8.1f} us  bound "
+                   f"{row['bound_us']:5.2f} us ({row['bound_by']}, "
+                   f"{100 * row['bound_share']:.1f} % of it) [{CARD['smi']}]" if "us" in row
+                   else ""))
         del kp, vp, ks, vs, tables, kp32, vp32
     return rows
 
@@ -1099,8 +1144,9 @@ def phase_ragged(dev, engine0, engine_fmt) -> dict:
         p = v["profile"]
         log(f"[ragged] one paged decode step, {k} pool, b={v['b']}: logits kernel vs plain "
             f"max|diff|/max|logit| {v['logit_rel_err']:.3e} (tol {LOGIT_TOL}); device "
-            f"{p['device_ms']:.3f} ms, paged attention {p['paged_ms']:.4f} ms, GQMM "
-            f"{p['gqmm_ms']:.3f} ms, {p['kernels']} kernels")
+            f"{p['device_ms']:.3f} ms, paged attention {p['paged_ms']:.4f} ms in "
+            f"{p['paged_kernels']} kernels (split passes and combines), GQMM "
+            f"{p['gqmm_ms']:.3f} ms, {p['kernels']} kernels [{CARD['smi']}]")
     return {"cache_len": cache_len, "passes": passes, "agreement": agree,
             "first_step": logits,
             "trace": [{"len": len(r.tokens), "max_new": r.max_new} for r in reqs]}
@@ -1112,12 +1158,13 @@ def phase_ragged(dev, engine0, engine_fmt) -> dict:
 
 def _flash_launches(fn):
     """Runs fn() with the flash and GQMM launch counts set to 0 just before;
-    returns (fn's result, flash launches, GQMM launches by kernel)."""
+    returns (fn's result, flash launches by kernel, GQMM launches by kernel)."""
     fkern.reset_launches()
     kern.reset_launches()
     out = fn()
     torch.cuda.synchronize()
-    return out, fkern.LAUNCHES["flash_attn"], {k: v for k, v in kern.LAUNCHES.items() if v}
+    return (out, {k: v for k, v in fkern.LAUNCHES.items() if v},
+            {k: v for k, v in kern.LAUNCHES.items() if v})
 
 
 def phase_flags(dev, engine, serve3) -> dict:
@@ -1142,6 +1189,8 @@ def phase_flags(dev, engine, serve3) -> dict:
     """
     cfg, model, params = engine.cfg, engine.model, engine.params
     L = cfg.num_layers
+    # the model is bf16: every layer's flash attention is the tensor-core kernel
+    per_prefill = {"flash_attn": L}
     rng = np.random.default_rng(SERVE["seed"])
     batch = {"tokens": torch.as_tensor(
         rng.integers(0, cfg.vocab_size, size=(SERVE["batch"], SERVE["prompt_len"])))}
@@ -1152,9 +1201,8 @@ def phase_flags(dev, engine, serve3) -> dict:
         engine.generate(batch, 2)                                     # warm-up
         torch.cuda.synchronize()
         (logits_k, cache), pre_flash, pre_gqmm = _flash_launches(lambda: engine.prefill(batch))
-        if pre_flash != L:
-            raise AssertionError(f"flags prefill launched flash_attn {pre_flash} times, "
-                                 f"expected {L}")
+        if pre_flash != per_prefill:
+            raise AssertionError(f"flags prefill launched {pre_flash}, expected {per_prefill}")
         kv_shape = tuple(cache["k"].shape)
         want_shape = (L, SERVE["batch"], cfg.num_kv_heads, engine.cache_len,
                       cfg.resolved_head_dim)
@@ -1169,9 +1217,10 @@ def phase_flags(dev, engine, serve3) -> dict:
         t_gen = time.perf_counter() - t0
         passes = 1 + SERVE["max_new_tokens"]
         per_pass = launches_per_pass(cfg, True)
-        if gen_flash != L or gen_gqmm != {k: v * passes for k, v in per_pass.items()}:
-            raise AssertionError(f"flags generate launched flash_attn {gen_flash} (expected "
-                                 f"{L}), GQMM {gen_gqmm} (expected {per_pass} x {passes})")
+        if gen_flash != per_prefill or gen_gqmm != {k: v * passes for k, v in per_pass.items()}:
+            raise AssertionError(f"flags generate launched {gen_flash} (expected "
+                                 f"{per_prefill}), GQMM {gen_gqmm} (expected {per_pass} x "
+                                 f"{passes})")
         toks = res.tokens
         if toks.shape != (SERVE["batch"], SERVE["max_new_tokens"]) or not bool(
                 torch.isfinite(res.logits_last).all()):
@@ -1203,7 +1252,7 @@ def phase_flags(dev, engine, serve3) -> dict:
         "phase3_decode_ms_per_step": serve3["decode_ms_per_step"]}
     g = out["generate"]
     log(f"[flags] generate {SERVE['batch']}x{SERVE['prompt_len']}, {SERVE['max_new_tokens']} "
-        f"tokens under {sorted(SERVE_FLAGS)}: flash_attn {pre_flash} per prefill, cache "
+        f"tokens under {sorted(SERVE_FLAGS)}: {pre_flash} per prefill, cache "
         f"{kv_shape}; first-step logits kernel vs plain {logit_err:.3e} (tol {LOGIT_TOL}); "
         f"greedy agreement with plain {g['token_agreement_plain']:.4f}, with phase 3's "
         f"default-flag run {g['token_agreement_phase3']:.4f}")
@@ -1225,17 +1274,23 @@ def phase_flags(dev, engine, serve3) -> dict:
                 lambda: model.prefill(params, long, LONG_PREFILL["s"]))
             t_long = time.perf_counter() - t0
             prof = profile_device(lambda: model.prefill(params, long, LONG_PREFILL["s"]), 1)
-        if long_flash != L or long_gqmm:
-            raise AssertionError(f"long prefill launched flash_attn {long_flash} (expected {L}) "
+        if long_flash != per_prefill or long_gqmm:
+            raise AssertionError(f"long prefill launched {long_flash} (expected {per_prefill}) "
                                  f"and GQMM {long_gqmm} (expected none)")
         if not bool(torch.isfinite(lg).all()):
             raise AssertionError("long prefill: non-finite logits")
+    other_ms = prof["device_ms"] - prof["flash_ms"] - prof["products_ms"] - prof["gqmm_ms"]
     out["long_prefill"] = {"tokens": LONG_PREFILL["s"], "flash_launches": long_flash,
                            "gqmm_launches": long_gqmm, "wall_s": t_long, "profile": prof,
-                           "flash_ms_per_layer": prof["flash_ms"] / L}
-    log(f"[flags] prefill 1x{LONG_PREFILL['s']} (blockwise, prefill_dequant): flash_attn "
-        f"{long_flash} launches, GQMM {long_gqmm or 0}; {1e3 * t_long:.1f} ms wall, "
-        f"{prof['device_ms']:.2f} ms on the card, flash {prof['flash_ms'] / L:.3f} ms per layer")
+                           "flash_ms_per_layer": prof["flash_ms"] / L,
+                           "elementwise_ms": other_ms}
+    log(f"[flags] prefill 1x{LONG_PREFILL['s']} (blockwise, prefill_dequant): {long_flash} "
+        f"launches, GQMM {long_gqmm or 0}; {1e3 * t_long:.1f} ms wall, {prof['device_ms']:.2f} "
+        f"ms on the card: flash attention {prof['flash_ms']:.2f} ms "
+        f"({prof['flash_ms'] / L:.3f} ms per layer), float products {prof['products_ms']:.2f} "
+        f"ms, elementwise passes and copies {other_ms:.2f} ms [{CARD['smi']}]")
+    for name, ms in prof["top"]:
+        log(f"[flags]   long prefill {ms:8.3f} ms  {name[:90]}")
 
     # (c) the scoring forward
     fwd = {"tokens": torch.randint(0, cfg.vocab_size, (FORWARD["b"], FORWARD["s"]),
@@ -1245,8 +1300,9 @@ def phase_flags(dev, engine, serve3) -> dict:
         got, fwd_flash, fwd_gqmm = _flash_launches(lambda: model.forward(params, fwd))
         with ops.impl_scope("plain"):
             want = model.forward(params, fwd)
-    if fwd_flash != L or tuple(got.shape) != (FORWARD["b"], FORWARD["s"], cfg.vocab_padded):
-        raise AssertionError(f"Model.forward launched flash_attn {fwd_flash} (expected {L}), "
+    if fwd_flash != per_prefill or tuple(got.shape) != (FORWARD["b"], FORWARD["s"],
+                                                         cfg.vocab_padded):
+        raise AssertionError(f"Model.forward launched {fwd_flash} (expected {per_prefill}), "
                              f"logits {tuple(got.shape)}")
     fwd_err = (got.float() - want.float()).abs().max().item() / want.float().abs().max().item()
     if not fwd_err <= LOGIT_TOL:
@@ -1255,8 +1311,8 @@ def phase_flags(dev, engine, serve3) -> dict:
                       "logit_rel_err": fwd_err,
                       "argmax_agreement": (got.argmax(-1) == want.argmax(-1)).float().mean()
                       .item()}
-    log(f"[flags] Model.forward {FORWARD['b']}x{FORWARD['s']} (blockwise): flash_attn "
-        f"{fwd_flash} launches, GQMM {fwd_gqmm}; logits kernel vs plain {fwd_err:.3e} (tol "
+    log(f"[flags] Model.forward {FORWARD['b']}x{FORWARD['s']} (blockwise): {fwd_flash} "
+        f"launches, GQMM {fwd_gqmm}; logits kernel vs plain {fwd_err:.3e} (tol "
         f"{LOGIT_TOL}), argmax agreement {out['forward']['argmax_agreement']:.4f}")
     del got, want
 
@@ -1431,9 +1487,11 @@ def phase_golden(dev) -> dict:
         f"replayed, the card's choice differs at {len(off_fl)} steps"
         + "".join(f"; step {o['step']} row {o['row']}: margin {o['margin']:.2e}" for o in off_fl)
         + f"; launches {launches_fl}")
-    if launches_fl.get("flash_attn") != GOLDEN["num_layers"]:
+    # the golden model is f32: the CUDA-core flash kernel, once per layer
+    if launches_fl.get("flash_attn_f32") != GOLDEN["num_layers"] or launches_fl.get(
+            "flash_attn"):
         raise AssertionError(f"golden flags run launched {launches_fl}, expected "
-                             f"{GOLDEN['num_layers']} flash_attn")
+                             f"{GOLDEN['num_layers']} flash_attn_f32")
     if cpu_fl == total and got_fl != want_fl:
         raise AssertionError(f"golden tokens under the flags differ:\n port {got_fl}\n"
                              f"  ref {want_fl}")
@@ -1446,17 +1504,40 @@ def phase_golden(dev) -> dict:
 
 # ---------------------------------------------------------------------------
 
-def kernel_entries(rows, gsrows, serves, prows, ragged, frows, rqrows, flagres) -> list[dict]:
+def _phase_gqmm_launches(kname, kind, serves, ragged, flagres) -> dict[str, int]:
+    """Launches of one GQMV/GQMM kernel on the main paths, by run: phase 3's
+    generate per weight setting (its matvec path for GQMV), phase 5's ragged
+    passes, phase 6's generate and Model.forward (the 1 x 2048 prefill runs
+    prefill_dequant: no GQMM)."""
+    key = "launches" if kind == "gqmm" else "matvec_launches"
+    runs = {f"phase 3 {tag}": sv[key].get(kname, 0) for tag, sv in serves.items()}
+    runs.update({f"phase 5 {name}": ps["launches"].get(kname, 0)
+                 for name, ps in ragged["passes"].items()})
+    runs["phase 6 generate"] = flagres["generate"]["gqmm_launches_generate"].get(kname, 0)
+    runs["phase 6 forward"] = flagres["forward"]["gqmm_launches"].get(kname, 0)
+    return {k: v for k, v in runs.items() if v}
+
+
+def _timing(row) -> dict:
+    """The kernels line's time fields from one timed phase-2 row."""
+    return {"ms": row["us"] / 1e3, "plain_ms": row["plain_us"] / 1e3,
+            "bound_ms": row["bound_us"] / 1e3, "bound_by": row["bound_by"],
+            "bound_share": row["bound_us"] / row["us"]}
+
+
+def kernel_entries(rows, gsrows, serves, prows, ragged, frows, rqrows, flagres,
+                   golden) -> list[dict]:
     """The kernels line. A GQMV/GQMM kernel's times are one forward pass of
-    its format's uniform setting; its launches add up every phase-3 run
-    that launched it (the presets launch int4/int3 and the int8 classifier).
-    The flash kernel's launches add up phase 6's three runs, the fused
+    its format's uniform setting; its launches add up every run of phases 3,
+    5 and 6 that launched it (the presets launch int4/int3 and the int8
+    classifier). The paged kernel's launches are phase 5's passes; the
+    tensor-core flash kernel's phase 6's three runs (bf16), the CUDA-core
+    flash kernel's the golden phase's run under the flags (f32); the fused
     RMSNorm + quantize's its standalone run."""
     entries = []
     for fmt, kind in itertools.product(WEIGHT_FORMATS, ("gqmm", "gqmv")):
         kname = f"{kind}_{fmt}"
-        key = "launches" if kind == "gqmm" else "matvec_launches"
-        runs = {tag: sv[key].get(kname, 0) for tag, sv in serves.items() if sv[key].get(kname)}
+        runs = _phase_gqmm_launches(kname, kind, serves, ragged, flagres)
         mine = [r for r in rows if r["kernel"] == kname]
         step = serves[fmt]["step_gqmm" if kind == "gqmm" else "step_gqmv"]
         entries.append({
@@ -1464,71 +1545,85 @@ def kernel_entries(rows, gsrows, serves, prows, ragged, frows, rqrows, flagres) 
             "replaces": REPLACES[kname], "launches": sum(runs.values()),
             "max_abs_err": max(r["max_abs_err"] for r in mine + gsrows if r["kernel"] == kname),
             "ms": step["ms"], "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
-            "bound_by": step["bound_by"], "library_ms": None,
+            "bound_by": step["bound_by"], "bound_share": step["bound_ms"] / step["ms"],
+            "library_ms": None,
             "per": f"one forward pass of the 89 TinyLlama projections with {fmt} weights at b="
                    + str(SERVE["batch"] if kind == "gqmm" else 1),
-            "path": ("InferenceEngine.generate, batch {b}, prompt {p}, {n} tokens".format(
-                b=SERVE["batch"], p=SERVE["prompt_len"], n=SERVE["max_new_tokens"])
-                if kind == "gqmm" else
-                "ops.quantized_matmul on 1-D activations over the 89 projections")
-            + "; launches by weight setting " + ", ".join(f"{t} {c}" for t, c in runs.items()),
+            "path": ("InferenceEngine.generate (batch {b}, prompt {p}, {n} tokens), serve_ragged, "
+                     "the flags' generate and Model.forward".format(
+                         b=SERVE["batch"], p=SERVE["prompt_len"], n=SERVE["max_new_tokens"])
+                     if kind == "gqmm" else
+                     "ops.quantized_matmul on 1-D activations over the 89 projections")
+            + "; launches by run " + ", ".join(f"{t} {c}" for t, c in runs.items()),
+            "launches_by_run": runs,
             "shapes": [{k: r[k] for k in ("shape", "m", "n", "b", "us", "plain_us",
                                           "bound_us", "max_abs_err")} for r in mine],
         })
     passes = ragged["passes"]
-    for kname, pool, names in (("paged_attn", "float", ("paged_float",)),
+    for kname, pool, names in (("paged_attn", "float", ("paged_float", "paged_half",
+                                                        f"paged_{RAGGED_FORMAT}")),
                                ("paged_attn_quant", "int8", ("paged_int8", "paged_fp8"))):
         mine = [r for r in prows if r["kernel"] == kname]
-        main = next(r for r in mine if r["pool"] == pool and all(
-            r[k] == v for k, v in PAGED_MAIN.items()))
+
+        def timed(shape, pool=pool, mine=mine):
+            return next(r for r in mine if r["pool"] == pool and "us" in r and all(
+                r[k] == v for k, v in shape.items()))
+
+        main, large = timed(PAGED_MAIN), timed(PAGED_LARGE)
         entries.append({
             "name": kname, "route": "cuda", "source": SOURCES[kname],
             "replaces": REPLACES[kname],
             "launches": sum(passes[n]["launches"][kname] for n in names),
-            "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "ms": main["us"] / 1e3, "plain_ms": main["plain_us"] / 1e3,
-            "bound_ms": main["bound_us"] / 1e3, "bound_by": main["bound_by"],
+            "max_abs_err": max(r["max_abs_err"] for r in mine), **_timing(main),
             "library_ms": None,
             "per": f"one call at b={PAGED_MAIN['b']}, BS {PAGED_MAIN['bs']}, MB*BS "
                    f"{PAGED_MAIN['T']}, KV 4, G 8, hd 64, bf16 q, {pool} pool (the ragged "
-                   "serve's decode shape); max_abs_err over every phase-2 case",
+                   f"serve's decode shape; {main['splits']} splits); max_abs_err over every "
+                   "phase-2 case",
+            f"b{PAGED_LARGE['b']}_T{PAGED_LARGE['T']}": {
+                **_timing(large), "splits": large["splits"],
+                "per": f"one call at b={PAGED_LARGE['b']}, BS {PAGED_LARGE['bs']}, MB*BS "
+                       f"{PAGED_LARGE['T']}, bf16 q, {pool} pool, random positions"},
             "path": "serve_ragged(mode='paged'), " + " and ".join(
-                f"{passes[n]['kv']} KV ({passes[n]['launches'][kname]} launches = "
+                f"{n} ({passes[n]['kv']} KV, {passes[n]['launches'][kname]} launches = "
                 f"{passes[n]['launches'][kname] // passes[n]['decode_steps']} layers x "
                 f"{passes[n]['decode_steps']} decode steps)" for n in names),
-            "shapes": [{k: r[k] for k in ("qdtype", "pool", "b", "bs", "T", "us", "plain_us",
-                                          "bound_us", "max_abs_err", "tol")}
+            "shapes": [{k: r[k] for k in ("qdtype", "pool", "b", "bs", "T", "splits", "us",
+                                          "plain_us", "bound_us", "max_abs_err", "tol")}
                        for r in mine if "us" in r],
         })
-    main = next(r for r in frows if r["case"] == FLASH_MAIN and r["dtype"] == "bfloat16")
-    fl = (flagres["generate"]["flash_launches_generate"], flagres["long_prefill"]["flash_launches"],
-          flagres["forward"]["flash_launches"])
-    entries.append({
-        "name": "flash_attn", "route": "cuda", "source": SOURCES["flash_attn"],
-        "replaces": REPLACES["flash_attn"], "launches": sum(fl),
-        "max_abs_err": max(r["max_abs_err"] for r in frows),
-        "ms": main["us"] / 1e3, "plain_ms": main["plain_us"] / 1e3,
-        "bound_ms": main["bound_us"] / 1e3, "bound_by": main["bound_by"],
-        "library_ms": main["library_us"] / 1e3,
-        "per": f"one call, causal GQA 32/4, hd 64, bf16, {FLASH_MAIN} tokens (one layer of the "
-               "serve's prefill); library: scaled_dot_product_attention on the same inputs; "
-               "max_abs_err over every phase-2 case",
-        "path": f"phase 6 under blockwise_attention: generate ({fl[0]} launches, one prefill), "
-                f"a 1x{LONG_PREFILL['s']} prefill ({fl[1]}), Model.forward "
-                f"{FORWARD['b']}x{FORWARD['s']} ({fl[2]})",
-        "shapes": [{k: r.get(k) for k in ("case", "dtype", "s", "us", "plain_us", "bound_us",
-                                          "bound_by", "library_us", "max_abs_err")}
-                   for r in frows if "us" in r],
-    })
+    fl = {"generate": flagres["generate"]["flash_launches_generate"],
+          f"1x{LONG_PREFILL['s']} prefill": flagres["long_prefill"]["flash_launches"],
+          f"Model.forward {FORWARD['b']}x{FORWARD['s']}": flagres["forward"]["flash_launches"]}
+    gfl = golden["flags"]["launches"]
+    for kname, dtype, runs, path in (
+            ("flash_attn", "bfloat16", fl, "phase 6 under blockwise_attention (bf16 model): "),
+            ("flash_attn_f32", "float32", {"golden generate under the flags": gfl},
+             "the golden phase's int8 generate under the serving flags (f32 model): ")):
+        mine = [r for r in frows if r["kernel"] == kname]
+        main = next(r for r in mine if r["case"] == FLASH_MAIN and "us" in r)
+        counts = {k: v.get(kname, 0) for k, v in runs.items()}
+        entries.append({
+            "name": kname, "route": "cuda", "source": SOURCES[kname],
+            "replaces": REPLACES[kname], "launches": sum(counts.values()),
+            "max_abs_err": max(r["max_abs_err"] for r in mine), **_timing(main),
+            "library_ms": main["library_us"] / 1e3,
+            "per": f"one call, causal GQA 32/4, hd 64, {dtype}, {FLASH_MAIN} tokens (one layer "
+                   "of the serve's prefill); library: scaled_dot_product_attention on the same "
+                   "inputs; max_abs_err over every phase-2 case of this kernel",
+            "path": path + ", ".join(f"{k} ({v})" for k, v in counts.items()),
+            "shapes": [{k: r.get(k) for k in ("case", "dtype", "s", "us", "plain_us", "bound_us",
+                                              "bound_by", "library_us", "max_abs_err")}
+                       for r in mine if "us" in r],
+        })
     main = next(r for r in rqrows if (r["m"], r["n"]) == RMSQ_MAIN and "us" in r
                 and r["dtype"] == "bfloat16")
     entries.append({
         "name": "rmsnorm_quant", "route": "cuda", "source": SOURCES["rmsnorm_quant"],
         "replaces": REPLACES["rmsnorm_quant"],
         "launches": flagres["rmsnorm_quant"]["launches"],
-        "max_abs_err": max(r["max_scale_abs_err"] for r in rqrows),
-        "ms": main["us"] / 1e3, "plain_ms": main["plain_us"] / 1e3,
-        "bound_ms": main["bound_us"] / 1e3, "bound_by": main["bound_by"], "library_ms": None,
+        "max_abs_err": max(r["max_scale_abs_err"] for r in rqrows), **_timing(main),
+        "library_ms": None,
         "per": f"one call on bf16 rows {RMSQ_MAIN}, GS 256; max_abs_err is the largest "
                "scale error over every phase-2 case (the int8 values are equal but for .5 "
                "ties, counted as tie_flips); no single PyTorch call does RMSNorm and group "
@@ -1554,8 +1649,10 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
+    CARD["smi"] = card()
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
-        f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+        f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
+        f"nvidia-smi: {CARD['smi']}")
 
     t0 = time.perf_counter()
     built = cuda_build.build_all()
@@ -1588,10 +1685,15 @@ def main(argv=None) -> int:
     del engines
     golden = phase_golden(dev)
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True).stdout.strip().splitlines()[0]
-    entries = kernel_entries(rows, gsrows, serves, prows, ragged, frows, rqrows, flagres)
+    smi = card()
+    entries = kernel_entries(rows, gsrows, serves, prows, ragged, frows, rqrows, flagres,
+                             golden)
+    for e in entries:
+        log(f"[kernels] {e['name']:16s} {e['launches']:6d} launches  {1e3 * e['ms']:10.3f} us  "
+            f"bound {1e3 * e['bound_ms']:9.3f} us ({e['bound_by']}, {100 * e['bound_share']:.1f} "
+            f"% of it)  plain {1e3 * e['plain_ms']:10.1f} us"
+            + (f"  library {1e3 * e['library_ms']:8.2f} us" if e["library_ms"] else "")
+            + f"  [{smi}]")
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
         Path(args.report).write_text(json.dumps(

@@ -23,23 +23,42 @@
 // of the q . k and p . v products (2 * 2 * hd operations per pair) over
 // the bf16 tensor-core rate is the larger, so it is bound by operations.
 //
-// Design (first, simple version). The TPU kernel's grid walks the K/V
-// blocks in order and carries m, l and acc in VMEM scratch; here one CTA
-// of 128 threads owns one (row of b*H, tile of 32 query positions) and
-// walks the K/V tiles of 64 keys itself, so no state crosses CTAs. Each
-// tile is staged in shared memory as f32 (K padded to hd + 1 floats a row,
-// so the threads of a warp read different banks), every thread forms
-// scores from shared memory with CUDA-core f32 FMAs, one warp per query
-// position updates m and l, and every thread rescales and accumulates its
-// own output elements in registers. Tiles above the causal diagonal or
-// wholly outside the window are skipped: they add nothing to any position
-// that has a visible key (the softmax weight of a masked key is
-// exp(-1e30 - m) = 0 once m is finite, and a tile processed while m is
-// still -1e30 is wiped by the factor exp(-1e30 - m) = 0 that the first
-// visible key brings). Keys past t (the ragged tail of the last tile) get
-// a score of -inf and weight 0; query positions past s are computed but not
-// stored. mma/wgmma bf16 tensor-core products, cp.async/TMA staging and a
-// split over keys are later work.
+// Two kernels, chosen by dtype (never by a failure):
+//
+// bf16 / fp16: flash_attn_mma_kernel, on the tensor cores (FA2's shape on
+// mma.sync). One CTA of 4 warps owns 64 query rows of one (b*H) row, 16
+// rows a warp, and walks 64-key K/V tiles. The tiles arrive through a
+// 2-stage cp.async ring of 16-byte copies into an XOR-swizzled layout (so
+// the ldmatrix reads of 8 rows hit 8 different bank groups), the next tile
+// in flight while this one is multiplied. Q fragments are loaded once with
+// ldmatrix; S = Q K^T runs as mma.sync.m16n8k16 with f32 accumulators; the
+// scale, soft cap, masks and the online softmax run on S in registers (row
+// max and sum across the 4 lanes of a row with shuffles, in f32); P is
+// rounded to bf16 / fp16 in registers and reused as the A operand of
+// P V, with V read by ldmatrix.trans. Rounding P adds up to 2^-9 (bf16)
+// relative per weight; the denominator l sums the f32 weights. Only tiles
+// that straddle the diagonal, the window's edge or the end of t are
+// masked. Query tiles are handed out longest first (causal rows near the
+// end see the most keys).
+//
+// f32: flash_attn_kernel, the first design on the CUDA cores, kept as it
+// was: f32 values do not fit bf16 tensor-core operands within 1e-5, TF32
+// keeps about three decimal digits, and the f32 golden replay under the
+// serving flags rests on this kernel's order of operations. One CTA of 128
+// threads owns (row of b*H, tile of 32 query positions) and walks 64-key
+// tiles staged in shared memory as f32 (K padded to hd + 1 floats a row);
+// every thread forms scores with f32 FMAs, one warp per query position
+// updates m and l, and every thread rescales and accumulates its own output
+// elements in registers.
+//
+// Both kernels skip tiles above the causal diagonal or wholly outside the
+// window: they add nothing to any position that has a visible key (the
+// softmax weight of a masked key is exp(-1e30 - m) = 0 once m is finite,
+// and a tile processed while m is still -1e30 is wiped by the factor
+// exp(-1e30 - m) = 0 that the first visible key brings). Keys past t (the
+// ragged tail of the last tile) get a score of -inf and weight 0; query
+// positions past s are computed but not stored. wgmma with TMA is the next
+// design for the tensor-core path.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -56,12 +75,7 @@ constexpr int kBK = 64;           // keys per staged tile
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
-
 __device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-__device__ __forceinline__ void store_f32(__half* p, float x) { *p = __float2half(x); }
 
 template <int HD>
 constexpr size_t smem_bytes() {
@@ -79,7 +93,8 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// T: dtype of q, k, v and the output (float, bf16 or fp16); HD: head dim.
+// T: dtype of q, k, v and the output (float; bf16 and fp16 take the
+// tensor-core kernel below); HD: head dim.
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_attn_kernel(const T* __restrict__ q,      // (b*H, s, HD)
@@ -235,6 +250,310 @@ int launch_hd(const void* q, const void* k, const void* v, void* out, int bh, in
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 / fp16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaThreads = 128;  // 4 warps
+constexpr int kMmaBQ = 64;        // query rows per CTA, 16 per warp
+constexpr int kMmaBK = 64;        // keys per K/V tile
+constexpr int kStages = 2;        // K/V tiles in the cp.async ring
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int HD>
+constexpr size_t mma_smem_bytes() {
+  return 2 * ((size_t)kMmaBQ * HD + 2 * (size_t)kStages * kMmaBK * HD);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// c += a (16x16, row) * b (16x8, col), f32 accumulators; pack() rounds two
+// f32 values to one register of the operand type (lo = lower column)
+template <typename T>
+struct Mma;
+template <>
+struct Mma<__nv_bfloat16> {
+  static __device__ __forceinline__ void run(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                             uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+};
+template <>
+struct Mma<__half> {
+  static __device__ __forceinline__ void run(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                             uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+};
+
+// Element offset of (row, 16-byte chunk) in a tile of HD-element rows. The
+// chunk is XORed with bits of the row so that 8 consecutive rows at one
+// logical chunk (one ldmatrix 8x8 matrix) land in 8 different 16-byte bank
+// groups: with 8 or more chunks a row, chunk ^ (row & 7); with 4 (hd 32,
+// two rows per 128 bytes), chunk ^ ((row >> 1) & 3).
+template <int HD>
+__device__ __forceinline__ int swz(int row, int chunk) {
+  constexpr int kChunks = HD / 8;
+  const int pc = kChunks >= 8 ? (chunk ^ (row & 7)) : (chunk ^ ((row >> 1) & 3));
+  return row * HD + pc * 8;
+}
+
+// T: bf16 or fp16 (q, k, v and the output); HD: head dim (32, 64, 128).
+template <typename T, int HD>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_attn_mma_kernel(const T* __restrict__ q,   // (b*H, s, HD)
+                      const T* __restrict__ k,   // (b*KV, t, HD)
+                      const T* __restrict__ v,   // (b*KV, t, HD)
+                      T* __restrict__ out,       // (b*H, s, HD)
+                      int s, int t, int group, float scale, int causal, int window,
+                      float softcap) {
+  constexpr int kChunks = HD / 8;       // 16-byte chunks a row
+  constexpr int kKSteps = HD / 16;      // k-steps of q . k
+  constexpr int kSTiles = kMmaBK / 8;   // n-tiles of S (8 keys each)
+  constexpr int kOTiles = HD / 8;       // n-tiles of O (8 dims each)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* q_s = reinterpret_cast<T*>(smem_raw);     // (BQ, HD), swizzled
+  T* k_s = q_s + kMmaBQ * HD;                  // (stages, BK, HD), swizzled
+  T* v_s = k_s + kStages * kMmaBK * HD;        // (stages, BK, HD), swizzled
+
+  const int nqt = (s + kMmaBQ - 1) / kMmaBQ;
+  const int q0 = (nqt - 1 - (int)blockIdx.x) * kMmaBQ;   // longest causal rows first
+  const int row = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;   // mma fragment row / column pair
+  const int nq = min(kMmaBQ, s - q0);
+  const T* qb = q + ((size_t)row * s + q0) * HD;
+  const T* kb = k + (size_t)(row / group) * t * HD;
+  const T* vb = v + (size_t)(row / group) * t * HD;
+
+  for (int e = tid; e < kMmaBQ * kChunks; e += kMmaThreads) {
+    const int r = e / kChunks, ch = e % kChunks;
+    cp_async16(q_s + swz<HD>(r, ch), qb + (size_t)min(r, nq - 1) * HD + ch * 8, r < nq);
+  }
+  // the keys this tile of query positions can see: none past the last
+  // position (causal), none at or before first position - window
+  const int k_end = causal ? min(t, q0 + nq) : t;
+  const int k_begin = window > 0 ? (max(0, q0 - window + 1) / kMmaBK) * kMmaBK : 0;
+  const int ntiles = k_end > k_begin ? (k_end - k_begin + kMmaBK - 1) / kMmaBK : 0;
+
+  auto load_kv = [&](int tile, int stage) {
+    const int k0 = k_begin + tile * kMmaBK;
+    T* ks = k_s + stage * kMmaBK * HD;
+    T* vs = v_s + stage * kMmaBK * HD;
+    for (int e = tid; e < kMmaBK * kChunks; e += kMmaThreads) {
+      const int r = e / kChunks, ch = e % kChunks;
+      const size_t off = (size_t)min(k0 + r, t - 1) * HD + ch * 8;
+      cp_async16(ks + swz<HD>(r, ch), kb + off, k0 + r < t);
+      cp_async16(vs + swz<HD>(r, ch), vb + off, k0 + r < t);
+    }
+  };
+  if (ntiles > 0) load_kv(0, 0);
+  cp_async_commit();                    // group 0: Q and the first tile
+
+  uint32_t qf[kKSteps][4];
+  float o[kOTiles][4];
+#pragma unroll
+  for (int n = 0; n < kOTiles; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_r[2] = {kNegInf, kNegInf};    // rows gid and gid + 8 of the warp's 16
+  float l_r[2] = {0.f, 0.f};            // this lane's share of each row's sum
+  const int qp_lo = q0 + warp * 16 + gid;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it & 1;
+    if (it + 1 < ntiles) load_kv(it + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();                 // tile it (and Q) have landed
+    __syncthreads();
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < kKSteps; ++kk)
+        ldmatrix_x4(qf[kk], q_s + swz<HD>(warp * 16 + (lane & 15), 2 * kk + (lane >> 4)));
+    }
+
+    // S = Q K^T: 16 rows x 64 keys a warp
+    const T* ks = k_s + st * kMmaBK * HD;
+    float sc[kSTiles][4];
+#pragma unroll
+    for (int j = 0; j < kSTiles; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk) {
+#pragma unroll
+      for (int j = 0; j < kSTiles; j += 2) {
+        uint32_t b[4];
+        ldmatrix_x4(b, ks + swz<HD>(j * 8 + (lane >> 4) * 8 + (lane & 7),
+                                    2 * kk + ((lane >> 3) & 1)));
+        Mma<T>::run(sc[j], qf[kk], b[0], b[1]);
+        Mma<T>::run(sc[j + 1], qf[kk], b[2], b[3]);
+      }
+    }
+
+    // scale, soft cap, masks (only on tiles at an edge), running max
+    const int k0 = k_begin + it * kMmaBK;
+    const bool edge = k0 + kMmaBK > t || (causal && k0 + kMmaBK - 1 > q0) ||
+                      (window > 0 && q0 + kMmaBQ - 1 - k0 >= window);
+    float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+    for (int j = 0; j < kSTiles; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[j][e] * scale;
+        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+        if (edge) {
+          const int kp = k0 + j * 8 + 2 * tig + (e & 1);
+          const int qp = qp_lo + (e >> 1) * 8;
+          if (kp >= t) {
+            x = -INFINITY;              // no key here: weight 0
+          } else if ((causal && kp > qp) || (window > 0 && qp - kp >= window)) {
+            x = kNegInf;
+          }
+        }
+        sc[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    }
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      alpha[h] = exp2f((m_r[h] - mx[h]) * kLog2e);
+      m_r[h] = mx[h];
+    }
+#pragma unroll
+    for (int j = 0; j < kSTiles; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float w = exp2f((sc[j][e] - mx[e >> 1]) * kLog2e);
+        sc[j][e] = w;
+        rs[e >> 1] += w;
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l_r[h] = l_r[h] * alpha[h] + rs[h];
+#pragma unroll
+    for (int n = 0; n < kOTiles; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+
+    // O += P V: P from the S accumulators (the C layout of two n-tiles is
+    // the A layout of one k-step), V through ldmatrix.trans
+    const T* vs = v_s + st * kMmaBK * HD;
+#pragma unroll
+    for (int kk = 0; kk < kMmaBK / 16; ++kk) {
+      uint32_t a[4];
+      a[0] = Mma<T>::pack(sc[2 * kk][0], sc[2 * kk][1]);
+      a[1] = Mma<T>::pack(sc[2 * kk][2], sc[2 * kk][3]);
+      a[2] = Mma<T>::pack(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
+      a[3] = Mma<T>::pack(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
+#pragma unroll
+      for (int n = 0; n < kOTiles; n += 2) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, vs + swz<HD>(kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7),
+                                          n + (lane >> 4)));
+        Mma<T>::run(o[n], a, b[0], b[1]);
+        Mma<T>::run(o[n + 1], a, b[2], b[3]);
+      }
+    }
+    __syncthreads();                    // stage st is free for tile it + 2
+  }
+  cp_async_wait<0>();
+
+  // each row's denominator: the sum over the 4 lanes that share it
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 1);
+    l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 2);
+    l_r[h] = fmaxf(l_r[h], 1e-30f);
+  }
+  T* ob = out + ((size_t)row * s + q0) * HD;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = warp * 16 + gid + h * 8;
+    if (r < nq) {
+#pragma unroll
+      for (int n = 0; n < kOTiles; ++n) {
+        const uint32_t pair = Mma<T>::pack(o[n][2 * h] / l_r[h], o[n][2 * h + 1] / l_r[h]);
+        *reinterpret_cast<uint32_t*>(ob + (size_t)r * HD + n * 8 + 2 * tig) = pair;
+      }
+    }
+  }
+}
+
+template <typename T, int HD>
+int launch_mma(const void* q, const void* k, const void* v, void* out, int bh, int s, int t,
+               int group, float scale, int causal, int window, float softcap,
+               cudaStream_t stream) {
+  constexpr size_t bytes = mma_smem_bytes<HD>();
+  if (bytes > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(flash_attn_mma_kernel<T, HD>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid((s + kMmaBQ - 1) / kMmaBQ, bh);
+  flash_attn_mma_kernel<T, HD><<<grid, kMmaThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(out), s, t, group, scale, causal, window, softcap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_mma_hd(const void* q, const void* k, const void* v, void* out, int bh, int s, int t,
+                  int hd, int group, float scale, int causal, int window, float softcap,
+                  cudaStream_t stream) {
+  if (hd == 32) return launch_mma<T, 32>(q, k, v, out, bh, s, t, group, scale, causal, window,
+                                         softcap, stream);
+  if (hd == 64) return launch_mma<T, 64>(q, k, v, out, bh, s, t, group, scale, causal, window,
+                                         softcap, stream);
+  if (hd == 128) return launch_mma<T, 128>(q, k, v, out, bh, s, t, group, scale, causal, window,
+                                           softcap, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 // dtype codes shared with kernels/flash_attn.py
 enum Dtype { kF32 = 0, kBF16 = 1, kF16 = 2 };
 
@@ -242,7 +561,8 @@ enum Dtype { kF32 = 0, kBF16 = 1, kF16 = 2 };
 
 // Returns cudaGetLastError() after the launch (0 on success); the Python
 // wrapper raises on anything else. window <= 0 means no window, softcap
-// <= 0 no soft cap.
+// <= 0 no soft cap. f32 runs the CUDA-core kernel, bf16 and fp16 the
+// tensor-core kernel (whose 16-byte copies need 16-byte aligned q, k, v).
 extern "C" int flash_attn(const void* q, const void* k, const void* v, void* out, int bh,
                           int bkv, int s, int t, int hd, int group, float scale, int causal,
                           int window, float softcap, int dtype, int device, void* stream) {
@@ -255,10 +575,10 @@ extern "C" int flash_attn(const void* q, const void* k, const void* v, void* out
     return launch_hd<float>(q, k, v, out, bh, s, t, hd, group, scale, causal, window, softcap,
                             st);
   if (dtype == kBF16)
-    return launch_hd<__nv_bfloat16>(q, k, v, out, bh, s, t, hd, group, scale, causal, window,
-                                    softcap, st);
+    return launch_mma_hd<__nv_bfloat16>(q, k, v, out, bh, s, t, hd, group, scale, causal, window,
+                                        softcap, st);
   if (dtype == kF16)
-    return launch_hd<__half>(q, k, v, out, bh, s, t, hd, group, scale, causal, window, softcap,
-                             st);
+    return launch_mma_hd<__half>(q, k, v, out, bh, s, t, hd, group, scale, causal, window,
+                                 softcap, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

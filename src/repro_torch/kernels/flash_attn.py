@@ -5,7 +5,9 @@ Counterpart of ``repro/kernels/flash_attn.py``. The kernel is in
 
   flash_attention_cuda  <- ``flash_attention_pallas`` (``_flash_kernel``):
                            causal / windowed / soft-capped GQA attention
-                           with an online softmax, f32 inside
+                           with an online softmax, f32 inside; bf16 and
+                           fp16 inputs run on the tensor cores
+                           (``mma.sync``), f32 inputs on the CUDA cores
 
 The wrapper takes CUDA tensors only: it checks device, dtype, shape and
 contiguity (the kernel reads q (b*H, s, hd) and k/v (b*KV, t, hd) rows as
@@ -13,7 +15,8 @@ dense arrays; a permuted view of the model's (b, s, H, hd) projection would
 be read wrongly, so the caller makes them contiguous) and raises on
 anything else; allocates the output with ``torch.empty``; launches on the
 current stream; raises if the launch reports a CUDA error; and adds one to
-``LAUNCHES["flash_attn"]``. The plain version is
+``LAUNCHES`` under the kernel the dtype chose: ``flash_attn`` (bf16 / fp16,
+tensor cores) or ``flash_attn_f32`` (f32, CUDA cores). The plain version is
 ``kernels/ref.flash_attention_ref``.
 """
 
@@ -29,8 +32,9 @@ from repro_torch.kernels import cuda_build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 HEAD_DIMS = (32, 64, 128)
 
-# launches; a run zeroes this, drives the model, and reads it
-LAUNCHES: dict[str, int] = {"flash_attn": 0}
+# launches by kernel: the tensor-core kernel (bf16 / fp16) and the CUDA-core
+# kernel (f32); a run zeroes these, drives the model, and reads them
+LAUNCHES: dict[str, int] = {"flash_attn": 0, "flash_attn_f32": 0}
 
 _LIB: list[ctypes.CDLL] = []
 
@@ -81,6 +85,11 @@ def _check(q, k, v, *, group: int, window) -> tuple[int, int, int, int, int]:
         raise ValueError(f"unsupported shape: b*H={bh} (1..65535), s={s}, t={t}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
+    if q.dtype != torch.float32:
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            if x.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned for the tensor-core "
+                                 "kernel's 16-byte copies")
     return bh, bkv, s, t, hd
 
 
@@ -96,7 +105,13 @@ def flash_attention_cuda(q, k, v, *, group: int, scale: float, causal: bool = Tr
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, bkv, s, t, hd, group,
         float(scale), int(bool(causal)), int(window or 0), float(softcap or 0.0),
         _DTYPES[q.dtype], q.device.index, stream)
+    name = kernel_name(q.dtype)
     if rc != 0:
-        raise RuntimeError(f"flash_attn kernel launch failed with CUDA error {rc}")
-    LAUNCHES["flash_attn"] += 1
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
+    LAUNCHES[name] += 1
     return out
+
+
+def kernel_name(dtype: torch.dtype) -> str:
+    """The ``LAUNCHES`` key of the kernel that inputs of ``dtype`` run."""
+    return "flash_attn_f32" if dtype == torch.float32 else "flash_attn"

@@ -8,12 +8,16 @@ Counterpart of ``repro/kernels/paged_attn.py``. The kernel is in
                            per-row f32 scales (``_paged_quant_kernel``)
 
 The wrapper takes CUDA tensors only: it checks device, dtype, shape,
-contiguity and the alignment of the pool's vector loads and raises on
+contiguity and the alignment of the pool's 16-byte copies and raises on
 anything else; converts the block table and positions to int32 explicitly
-(the port's positions are ``long``); allocates the output with
-``torch.empty``; launches on the current stream; raises if the launch
-reports a CUDA error; and counts the launch in ``LAUNCHES`` under
-``paged_attn`` (float pool) or ``paged_attn_quant`` (int8/fp8 pool).
+(the port's positions are ``long``); picks the split plan from the shapes
+alone (:func:`split_plan`: no host sync); allocates the output, and for
+more than one split the f32 scratch of the partial sums, with
+``torch.empty``; launches on the current stream (the split pass, then the
+combine when there is more than one split, in one C call); raises if a
+launch reports a CUDA error; and counts one launch of the op in
+``LAUNCHES`` under ``paged_attn`` (float pool) or ``paged_attn_quant``
+(int8/fp8 pool).
 
 One property of the kernel the caller relies on: a pool block whose mask
 entries are all <= -1e29 is skipped, neither read nor summed. That is exact
@@ -34,7 +38,17 @@ from repro_torch.kernels import cuda_build
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _QUANT_DTYPES = {torch.int8: 2, torch.float8_e4m3fn: 3}
 
-THREADS, TILE_COLS, MAX_OUT, MAX_SMEM = 128, 64, 8, 48 * 1024
+# csrc/paged_attn.cu: threads a CTA, columns a tile (whole blocks), output
+# elements a thread, tiles of K/V rows in the ring, tiles of mask / table
+# entries, the most shared memory a CTA can opt into, the head dims it is
+# built for
+THREADS, TILE_COLS, MAX_OUT = 256, 64, 4
+STAGES, SLOTS, MAX_SMEM = 3, 5, 232448
+HEAD_DIMS = (32, 64, 128)
+# split-K aims at this many CTAs: eight for each of the H100's 132 SMs; at
+# most MAX_SPLITS splits a row (the combine stages every split's m and l);
+# two tiles a split or more once a row has PAIR_FROM tiles
+SMS, CTAS_PER_SM, MAX_SPLITS, PAIR_FROM = 132, 8, 64, 8
 
 # launches per pool kind; a run zeroes these, drives the model, and reads them
 LAUNCHES: dict[str, int] = {"paged_attn": 0, "paged_attn_quant": 0}
@@ -51,17 +65,42 @@ def _lib() -> ctypes.CDLL:
     if not _LIB:
         lib = cuda_build.load("paged_attn")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.paged_attn.argtypes = [p] * 11 + [i] * 7 + [f, f, i, i, i, p]
+        lib.paged_attn.argtypes = [p] * 12 + [i] * 9 + [f, f, i, i, i, p]
         lib.paged_attn.restype = i
         _LIB.append(lib)
     return _LIB[0]
 
 
-def smem_bytes(g: int, hd: int, bs: int) -> int:
-    """Shared memory of one CTA, as ``csrc/paged_attn.cu`` sizes it."""
-    tb = 1 if bs >= TILE_COLS else TILE_COLS // bs
+def tile_blocks(bs: int) -> int:
+    """Blocks a tile: whole blocks filling 64 columns (one if larger)."""
+    return 1 if bs >= TILE_COLS else TILE_COLS // bs
+
+
+def smem_bytes(g: int, hd: int, bs: int, elt: int, quant: bool) -> int:
+    """Dynamic shared memory of one split-pass CTA, as ``csrc/paged_attn.cu``
+    sizes it: ``STAGES`` stages of K and V rows (``elt`` bytes an element)
+    and, for a quantized pool, their f32 scales; then q, k_new, v_new, the
+    scores, alpha / l / m, ``SLOTS`` slots of mask values and table entries,
+    and ``STAGES`` stages of row offsets."""
+    tb = tile_blocks(bs)
     tc = tb * bs
-    return 4 * (g * hd + tc * (hd + 1) + tc * hd + g * tc + 3 * g) + 4 * tb
+    return (2 * STAGES * tc * hd * elt + (2 * STAGES * tc * 4 if quant else 0)
+            + 4 * (g * hd + 2 * hd + g * tc + 3 * g) + 4 * (SLOTS * (tc + tb) + STAGES * tc))
+
+
+def split_plan(b: int, kv: int, mb: int, bs: int) -> tuple[int, int]:
+    """(S, tiles per split) from the shapes alone: enough splits of a row's
+    tiles that the grid (KV, b, S) has about ``CTAS_PER_SM`` CTAs for each
+    SM, at most ``MAX_SPLITS`` a row, every split non-empty, and at least
+    two tiles a split once a row has ``PAIR_FROM`` tiles (a split's first
+    tile waits for two memory round trips, the mask and table entries and
+    then the rows; a second tile's loads hide behind the first one's sums).
+    Never reads positions or the mask, so choosing it needs no host sync."""
+    ntiles = -(-mb // tile_blocks(bs))
+    want = -(-SMS * CTAS_PER_SM // (b * kv))
+    most = ntiles // 2 if ntiles >= PAIR_FROM else ntiles
+    tps = -(-ntiles // max(1, min(most, want, MAX_SPLITS)))
+    return -(-ntiles // tps), tps
 
 
 def _check(q, k_pages, v_pages, block_table, pos, k_new, v_new, mask, k_scales, v_scales):
@@ -127,17 +166,18 @@ def _check(q, k_pages, v_pages, block_table, pos, k_new, v_new, mask, k_scales, 
             raise ValueError(f"{name} must be {(b, kv, hd)}, got {tuple(named[name].shape)}")
     if tuple(mask.shape) != (b, mb * bs):
         raise ValueError(f"mask must be {(b, mb * bs)}, got {tuple(mask.shape)}")
-    if not 1 <= b <= 65535 or hd % 4 or g * hd > MAX_OUT * THREADS:
+    if not 1 <= b <= 65535 or hd not in HEAD_DIMS or g * hd > MAX_OUT * THREADS:
         raise ValueError(f"unsupported shape b={b}, G={g}, hd={hd}: the kernel takes "
-                         f"1 <= b <= 65535, hd a multiple of 4 and G * hd <= "
+                         f"1 <= b <= 65535, hd in {HEAD_DIMS} and G * hd <= "
                          f"{MAX_OUT * THREADS}")
-    if smem_bytes(g, hd, bs) > MAX_SMEM:
-        raise ValueError(f"block size {bs} with G={g}, hd={hd} needs "
-                         f"{smem_bytes(g, hd, bs)} bytes of shared memory (max {MAX_SMEM})")
+    need = smem_bytes(g, hd, bs, k_pages.element_size(), quant)
+    if need > MAX_SMEM:
+        raise ValueError(f"block size {bs} with G={g}, hd={hd} needs {need} bytes of "
+                         f"shared memory (max {MAX_SMEM})")
     for name in ("k_pages", "v_pages"):
-        if named[name].data_ptr() % (4 * named[name].element_size()):
-            raise ValueError(f"{name} must be aligned to 4 elements for the kernel's "
-                             "vector loads")
+        if named[name].data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for the kernel's 16-byte "
+                             "copies")
     return b, kv, g, hd, bs, mb, nb, quant
 
 
@@ -156,13 +196,17 @@ def paged_attention_cuda(q, k_pages, v_pages, block_table, pos, k_new, v_new, ma
     table32 = block_table.to(torch.int32)       # explicit: the kernel reads int32
     pos32 = pos.to(torch.int32)
     out = torch.empty((b, kv * g * hd), dtype=q.dtype, device=q.device)
+    nsplit, tps = split_plan(b, kv, mb, bs)
+    part = (torch.empty((b, kv, nsplit, g, hd + 2), dtype=torch.float32, device=q.device)
+            if nsplit > 1 else None)
     pool_code = _QUANT_DTYPES[k_pages.dtype] if quant else _Q_DTYPES[q.dtype]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _lib().paged_attn(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_scales.data_ptr() if quant else None, v_scales.data_ptr() if quant else None,
         table32.data_ptr(), pos32.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-        mask.data_ptr(), out.data_ptr(), b, kv, g, hd, bs, mb, nb,
+        mask.data_ptr(), out.data_ptr(), None if part is None else part.data_ptr(),
+        b, kv, g, hd, bs, mb, nb, nsplit, tps,
         float(scale), float(softcap or 0.0), _Q_DTYPES[q.dtype], pool_code,
         q.device.index, stream)
     name = "paged_attn_quant" if quant else "paged_attn"

@@ -12,11 +12,14 @@ exact, so kernel and plain version differ only by the f32 order of the sum
 across groups (rtol 1e-5, atol 1e-5 * max|plain|); fp8 group sums are f32
 sums in another order (rtol 5e-4, atol 1e-4, the reference's tolerance for
 its fp8 kernel). The paged attention kernel sums in f32 in another order
-than its plain version (1e-5 * max|plain| at f32 inputs); at bf16 inputs it
-rounds once where the plain path rounds scores and weights to bf16 too, so
-it is held to the plain arithmetic in f32 on the same values (1e-2). The
-flash-attention kernel is held to its plain version the same way (1e-5 *
-max|plain| at f32, 1e-2 at bf16 against the f32 arithmetic). The fused
+than its plain version (1e-5 * max|plain| at f32 inputs, any number of
+splits); at bf16 inputs it rounds once where the plain path rounds scores
+and weights to bf16 too, so it is held to the plain arithmetic in f32 on
+the same values (1e-2). The flash-attention kernel is held to its plain
+version the same way: 1e-5 * max|plain| at f32 (the CUDA-core kernel), and
+1e-2 * max|plain| of the f32 arithmetic on the same values at bf16 and fp16
+(the tensor-core kernel rounds P to the input type before P V: up to 2^-9
+relative per weight in bf16). The fused
 RMSNorm + quantize kernel's scales are within rtol 1e-5 of the plain
 version's, and its int8 values equal them except where the plain x/S lies
 within max(1e-5, 1e-6 * |x/S|) of a .5 boundary (the sum of squares is
@@ -275,6 +278,30 @@ def test_paged_kernel_bf16_within_rounding_of_plain(dev, pool):
     assert (got.float() - want).abs().max() <= 1e-2 * want.abs().max()
 
 
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pool", ["float", "int8", "fp8"])
+def test_paged_kernel_split_k_with_dead_splits(dev, pool, qdt):
+    """One row of 2048 columns in blocks of 8 (32 tiles) at b = 1: the plan
+    cuts it into 32 one-tile splits; positions near the start leave most
+    splits with every block dead (table entries past pos point at the
+    sink), and a position in the last tile leaves none dead. Held to the
+    plain arithmetic in f32 on the same values."""
+    b, bs, mb = 2, 8, 256
+    assert paged_kern.split_plan(b, 4, mb, bs)[0] > 1
+    args, kw = _paged(dev, pool, qdt, b=b, bs=bs, mb=mb, seed=11)
+    q, kp, vp, table, pos, kn, vn, mask = args
+    pos = torch.tensor([70, mb * bs - 3], device=dev)
+    table = torch.where(torch.arange(mb, device=dev)[None] > pos[:, None] // bs, 0,
+                        table.clamp(min=1))
+    mask = decode_mask(mb * bs, pos)
+    args = (q, kp, vp, table, pos, kn, vn, mask)
+    got = paged_kern.paged_attention_cuda(*args, **kw)
+    up = [a.float() if a.dtype == torch.bfloat16 else a for a in args]
+    want = ref.paged_attention_ref(*up, **kw)
+    tol = 1e-5 if qdt == torch.float32 else 1e-2
+    assert (got.float() - want).abs().max() <= tol * want.abs().max()
+
+
 def test_paged_kernel_rejects_bad_arguments(dev):
     args, kw = _paged(dev, "int8", torch.float32)
     q, kp, vp, table, pos, kn, vn, mask = args
@@ -332,9 +359,9 @@ def _flash(dev, bh, bkv, s, t, hd, dtype=torch.float32, seed=0):
 def test_flash_kernel_matches_plain_f32(dev, bh, bkv, s, t, hd, causal, window, softcap):
     q, k, v = _flash(dev, bh, bkv, s, t, hd, seed=s + hd)
     kw = dict(group=bh // bkv, scale=hd ** -0.5, causal=causal, window=window, softcap=softcap)
-    before = flash_kern.LAUNCHES["flash_attn"]
+    before = flash_kern.LAUNCHES["flash_attn_f32"]
     got = flash_kern.flash_attention_cuda(q, k, v, **kw)
-    assert flash_kern.LAUNCHES["flash_attn"] == before + 1
+    assert flash_kern.LAUNCHES["flash_attn_f32"] == before + 1
     want = ref.flash_attention_ref(q, k, v, **kw)
     assert (got - want).abs().max() <= 1e-5 * want.abs().max()
 
@@ -345,6 +372,46 @@ def test_flash_kernel_bf16_within_rounding_of_plain(dev):
     assert got.dtype == torch.bfloat16
     want = ref.flash_attention_ref(q.float(), k.float(), v.float(), group=8, scale=0.125)
     assert (got.float() - want).abs().max() <= 1e-2 * want.abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("bh,bkv,s,t,hd,causal,window,softcap", [
+    (128, 16, 64, 64, 64, True, None, None),      # TinyLlama 4 x 64, GQA 32/4
+    (32, 4, 2048, 2048, 64, True, None, None),    # one 2048-token prompt
+    (32, 4, 200, 200, 32, True, None, None),      # s, t not multiples of 64
+    (16, 4, 70, 70, 128, True, None, None),       # hd 128, ragged tiles
+    (8, 8, 130, 130, 64, True, 32, 50.0),         # window + soft cap
+    (8, 2, 100, 37, 64, False, None, None),       # non-causal, t < s, t not a multiple
+    (4, 4, 64, 200, 128, False, None, 30.0),      # non-causal, t > s, soft cap
+    (8, 2, 33, 33, 32, True, 5, None),            # a window narrower than a tile
+])
+def test_flash_tensor_core_kernel_within_rounding_of_plain(dev, dtype, bh, bkv, s, t, hd,
+                                                           causal, window, softcap):
+    q, k, v = _flash(dev, bh, bkv, s, t, hd, dtype=dtype, seed=s + t + hd)
+    kw = dict(group=bh // bkv, scale=hd ** -0.5, causal=causal, window=window, softcap=softcap)
+    before = dict(flash_kern.LAUNCHES)
+    got = flash_kern.flash_attention_cuda(q, k, v, **kw)
+    assert flash_kern.LAUNCHES == {**before, "flash_attn": before["flash_attn"] + 1}
+    assert got.dtype == dtype and got.shape == q.shape
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+    assert (got.float() - want).abs().max() <= 1e-2 * want.abs().max()
+
+
+def test_flash_variant_counters_follow_the_dtype(dev):
+    """bf16 and fp16 count under flash_attn (tensor cores), f32 under
+    flash_attn_f32 (CUDA cores): chosen by dtype, never by a failure."""
+    flash_kern.reset_launches()
+    for dtype, n in ((torch.bfloat16, 2), (torch.float16, 1), (torch.float32, 3)):
+        q, k, v = _flash(dev, 8, 2, 40, 40, 64, dtype=dtype)
+        for _ in range(n):
+            flash_kern.flash_attention_cuda(q, k, v, group=4, scale=0.125)
+    assert flash_kern.LAUNCHES == {"flash_attn": 3, "flash_attn_f32": 3}
+    assert flash_kern.kernel_name(torch.bfloat16) == "flash_attn"
+    q, k, v = _flash(dev, 8, 2, 40, 40, 64, dtype=torch.bfloat16)
+    shifted = torch.empty(q.numel() + 4, dtype=q.dtype, device=dev)[4:].view(q.shape)
+    shifted.copy_(q)                                   # contiguous, 8 bytes off 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_kern.flash_attention_cuda(shifted, k, v, group=4, scale=0.125)
 
 
 def test_flash_kernel_rejects_bad_arguments(dev):
@@ -373,7 +440,8 @@ def test_blockwise_forward_on_cuda_launches_kernel_per_layer(dev):
     with flags.overrides(blockwise_attention=True):
         flash_kern.reset_launches()
         got = model.forward(params, {"tokens": toks.to(dev)})
-        assert flash_kern.LAUNCHES["flash_attn"] == cfg.num_layers
+        # the reduced config is f32: the CUDA-core kernel, once per layer
+        assert flash_kern.LAUNCHES == {"flash_attn": 0, "flash_attn_f32": cfg.num_layers}
         with ops.impl_scope("plain"):
             want = model.forward(params, {"tokens": toks.to(dev)})
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()

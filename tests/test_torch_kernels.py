@@ -247,10 +247,14 @@ def test_paged_attention_dispatch_and_no_fallback():
 
 
 def test_paged_kernel_shared_memory_sizing():
-    # TinyLlama (G 8, hd 64) at the serve CLI's block sizes fits the static 48 KB
-    assert paged_kern.smem_bytes(8, 64, 8) <= paged_kern.MAX_SMEM
-    assert paged_kern.smem_bytes(8, 64, 16) <= paged_kern.MAX_SMEM
-    assert paged_kern.smem_bytes(8, 128, 128) > paged_kern.MAX_SMEM
+    # TinyLlama (G 8, hd 64) at the serve CLI's block sizes fits the 227 KB a
+    # CTA can opt into with every pool type, an int8/fp8 pool the static 48 KB
+    for bs in (8, 16):
+        for elt, quant in ((2, False), (4, False), (1, True)):
+            assert paged_kern.smem_bytes(8, 64, bs, elt, quant) <= paged_kern.MAX_SMEM
+        assert paged_kern.smem_bytes(8, 64, bs, 1, True) <= 48 * 1024
+    # an f32 pool of 128-row blocks at hd 128 does not fit: the wrapper refuses it
+    assert paged_kern.smem_bytes(8, 128, 128, 4, False) > paged_kern.MAX_SMEM
 
 
 def test_kernel_bounds_from_tinyllama_shapes():
