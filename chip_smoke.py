@@ -9,17 +9,22 @@ printing no result, when CUDA is missing. Phases, each fatal on failure:
 
 1. build:    compile every CUDA source of the port with nvcc (sm_90a), one
              nvcc per source, all started together.
-2. kernels:  GQMM at b in {1, 4, 256} and GQMV at b=1, for int8, int4,
-             int3 and fp8 weights, at every TinyLlama projection shape,
+2. kernels:  GQMM at b in {1, 4, 16, 64, 256} and GQMV at b=1, for int8,
+             int4, int3 and fp8 weights, at every TinyLlama projection shape,
              against their plain PyTorch versions on the card (int8, int4,
              int3: rtol 1e-5, atol 1e-5 * max|plain|, since the int32 group
              sums are exact and only the f32 order of <= 22 group terms
              differs; fp8: rtol 5e-4, atol 1e-4, the reference's tolerance
              for its fp8 kernel, since the group dots are f32 sums), timed
              with CUDA events over weight copies that exceed the L2, behind
-             a GPU spin that keeps the host's launch cost out. Then each
-             kernel at every group size 16-256 on a small shape (and int3 on
-             rows that are only 2-byte aligned), checked only.
+             a GPU spin that keeps the host's launch cost out; beside the int8
+             GQMM at b=256, torch._int_mm on the same int8 operands (the
+             tensor-core product without group scales, a yardstick the port
+             never calls; int_mm_us). Then int8 and int3 GQMM at b = 8 and 16
+             with each of their two designs (the times that set the
+             cut-over), and each kernel at every group size 16-256 on a small
+             shape at b up to 40 (and int3 on rows that are only 2-byte
+             aligned), checked only.
              Then paged decode attention (bf16, f32, int8 and fp8 pools;
              b in {1, 8, 32}, BS in {8, 16}, MB*BS in {256, 2048}, KV 4, G 8,
              hd 64, softcap None or 50; random non-identity block tables with
@@ -29,7 +34,8 @@ printing no result, when CUDA is missing. Phases, each fatal on failure:
              within 1e-2 * max|plain| of the plain arithmetic run in f32 on
              the same values (the kernel rounds once, to bf16, at the end).
              Timed the same way, over pools larger than the L2, with each
-             time's share of its bound.
+             time's share of its bound; then, checked only, gemma2's paged
+             shape: G 2 at hd 256 over bf16, f32, int8 and fp8 pools.
              Then flash attention (B4): causal GQA 32/4 heads, hd 64, at
              4 x 64 and 1 x 2048 tokens (timed, beside
              scaled_dot_product_attention on the same inputs, the library
@@ -65,7 +71,12 @@ printing no result, when CUDA is missing. Phases, each fatal on failure:
              activation rounded across a .5 tie changes a trajectory), and
              the reference's tokens replayed step by step must each be the
              card's greedy choice or within 3e-2 of max|logit| of it. The
-             quantized pools' agreement is shown.
+             quantized pools' agreement is shown. Then the deep golden: the
+             same prompt at TinyLlama's full 22 layers, one weight draw
+             shared by an f32 and an int8 engine; f32 tokens must be exact,
+             int8 tokens exact or, replayed, lost only at steps traced to a
+             .5 activation tie (the CPU's, in the golden file, and the
+             card's, DEEP_CARD_TIES), each within 3e-2 of max|logit|.
 5. ragged:   the serve CLI's --ragged path at full width: the phase-3 model
              through serve_ragged with 16 requests (prompts 16-192 tokens,
              budgets 8-64, seed 0), 8 slots, chunk 4, block size 8, in paged
@@ -170,7 +181,13 @@ ARCH = "tinyllama-1.1b"
 # (name, m, n): every quantized projection TinyLlama runs, per layer and once
 PROJECTIONS = (("wqkv", 2560, 2048), ("wo", 2048, 2048), ("w13", 11264, 2048),
                ("w2", 2048, 5632), ("classifier", 32000, 2048))
-KERNEL_BATCHES = (1, 4, 256)
+KERNEL_BATCHES = (1, 4, 16, 64, 256)
+# int8 / int3 GQMM: both designs timed at these b, the cut-over's
+# neighbourhood (kern.SMALL_MAX_B), on every projection
+CUTOVER_BATCHES = (8, 16)
+# torch._int_mm (int8 tensor-core product, no group scales; the port never
+# calls it) timed at this b on the int8 operands, as a yardstick
+INT_MM_B = 256
 RTOL = 1e-5
 # weight formats of phase 2, the fp8 tolerance (rtol, absolute atol), and
 # the card's peak rate for the products (fp8 x int8 runs at bf16's rate:
@@ -180,7 +197,8 @@ WEIGHT_FORMATS = ("int8", "int4", "int3", "fp8")
 FP8_TOL = (5e-4, 1e-4)
 OPS_PER_S = {"int8": INT8_OPS_PER_S, "int4": INT8_OPS_PER_S, "int3": INT8_OPS_PER_S,
              "fp8": BF16_OPS_PER_S}
-GS_SWEEP = {"m": 200, "n": 1024, "batches": (1, 4, 13), "group_sizes": (16, 32, 64, 128, 256)}
+GS_SWEEP = {"m": 200, "n": 1024, "batches": (1, 4, 13, 40),
+            "group_sizes": (16, 32, 64, 128, 256)}
 # phase 3's weight settings after int8, and the one phase 5 serves paged
 FORMAT_SETTINGS = ("int4", "int3", "fp8", "mixed", "mixed3")
 RAGGED_FORMAT = "mixed3"
@@ -225,6 +243,19 @@ GOLDEN = {"arch": ARCH, "num_layers": 2, "dtype": "float32", "quantize": "int8",
           "seed": 0, "prompt_seed": 1, "batch": 2, "prompt_len": 16,
           "max_new_tokens": 16, "weight_formats": list(FORMAT_SETTINGS),
           "flags": SERVE_FLAGS}
+# the deep golden: the same prompt and weights drawn the same way, at
+# TinyLlama's full depth; f32 weights (token-exact) and int8 weights (exact,
+# or the reference's token replayed, lost only at steps traced to a .5
+# activation tie, each within TIE_MARGIN). The CPU's tie step is in the
+# golden file (tests/test_torch_deep_tie.py traces it); the card's f32
+# order rounds that tie as the reference does but another one, layer 2's w2
+# input at row 0, position 2, column 1490 (x/S 24.500008 on the card,
+# 24.499998 in the reference; the float inputs 2.9e-6 apart at max|x| 8.9),
+# not, which loses row 0's token at decode step 11 (`python
+# tests/trace_torch_card.py int8 --layers 22 --against NPZ`, the NPZ from
+# `tests/trace_torch_golden.py int8 --layers 22 --steps 16 --dump NPZ`)
+GOLDEN_DEEP = {"num_layers": 22, "settings": ["float32", "int8"]}
+DEEP_CARD_TIES = {"int8": [(11, 0)]}      # (decode step, batch row)
 # the golden ragged trace, served by serve_ragged(mode="paged") on the
 # golden model with a float, int8 and fp8 KV pool
 GOLDEN_RAGGED = {"prompt_seed": 2, "prompt_lens": [5, 16, 9, 12, 3],
@@ -237,6 +268,12 @@ PAGED = {"kv": 4, "g": 8, "hd": 64, "batches": (1, 8, 32), "block_sizes": (8, 16
          "widths": (256, 2048), "pools": ("float", "int8", "fp8"),
          "qdtypes": (torch.bfloat16, torch.float32), "softcaps": (None, 50.0)}
 PAGED_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# gemma2's paged shape (G 2 at hd 256; an f32 pool runs 32-column tiles):
+# every pool type, one split (256 columns at b = 3 is 4 tiles) and many
+PAGED_HD256 = {"kv": 4, "g": 2, "hd": 256, "b": 3, "bs": 8, "widths": (256, 2048),
+               "cases": (("float", torch.bfloat16), ("float", torch.float32),
+                         ("int8", torch.bfloat16), ("fp8", torch.bfloat16),
+                         ("int8", torch.float32))}
 # the shape of the ragged serve's decode (phase 5): 8 slots, blocks of 8,
 # 256-token tables, bf16 queries; the kernels line reports this call, and
 # beside it a long-cache batch (32 rows of 2048-token tables)
@@ -268,9 +305,9 @@ REPLACES = {"gqmv_int8": "src/repro/kernels/gqmv.py:166",     # gqmv_pallas
             "rmsnorm_quant": "src/repro/kernels/rmsnorm_quant.py:36"}  # rmsnorm_quant_pallas
 
 
-def golden_config():
+def golden_config(num_layers: int | None = None):
     cfg = load_config(GOLDEN["arch"])
-    return dataclasses.replace(cfg, num_layers=GOLDEN["num_layers"],
+    return dataclasses.replace(cfg, num_layers=num_layers or GOLDEN["num_layers"],
                                param_dtype=GOLDEN["dtype"], compute_dtype=GOLDEN["dtype"])
 
 
@@ -388,7 +425,7 @@ def profile_device(fn, reps: int) -> dict:
     # flash kernels); float products: cuBLAS / CUTLASS GEMMs
     products = ("gemm", "nvjet", "xmma", "cutlass", "cublas", "s16816")
     return {"device_ms": total, "kernels": count // reps,
-            "gqmm_ms": ms(lambda k: "gqmm_kernel" in k),
+            "gqmm_ms": ms(lambda k: "gqmm_" in k),
             "paged_ms": ms(lambda k: "paged_attn" in k),
             "paged_kernels": sum(c for k, c in counts.items() if "paged_attn" in k) // reps,
             "flash_ms": ms(lambda k: "flash_attn" in k),
@@ -456,12 +493,57 @@ def phase_kernels(dev) -> list[dict]:
                 lambda i: pfn(*pool[i % copies], xq, xs, group_size=gs), 5, host_ms_guess=1.0)
             bnd, by = bound_s(call_bytes(wq, ws, xq, xs, got.numel()), 2 * b * m * n,
                               OPS_PER_S[fmt])
-            rows.append({"kernel": kname, "fmt": fmt, "shape": name, "m": m, "n": n, "b": b,
-                         "max_abs_err": err, "us": 1e3 * k_ms, "host_us": 1e3 * k_host,
-                         "plain_us": 1e3 * p_ms, "bound_us": 1e6 * bnd, "bound_by": by})
+            row = {"kernel": kname, "fmt": fmt, "shape": name, "m": m, "n": n, "b": b,
+                   "max_abs_err": err, "us": 1e3 * k_ms, "host_us": 1e3 * k_host,
+                   "plain_us": 1e3 * p_ms, "bound_us": 1e6 * bnd, "bound_by": by}
+            if kind == "gqmm" and fmt in kern.TC_FORMATS:
+                row["design"] = "%s/%d" % kern.gqmm_design(b, m, n, gs, fmt)
+            if (kname, b) == ("gqmm_int8", INT_MM_B):
+                row["int_mm_us"] = 1e3 * device_time_ms(
+                    lambda i: torch._int_mm(xq, pool[i % copies][0].t()), max(50, 2 * copies))[0]
+            rows.append(row)
             log(f"[kernels] {kname:9s} {name:10s} m={m:5d} n={n:4d} b={b:3d}  "
                 f"max|err| {err:.2e}  {1e3 * k_ms:8.1f} us (host {1e3 * k_host:5.1f})  "
-                f"plain {1e3 * p_ms:8.1f} us  bound {1e6 * bnd:6.1f} us ({by})")
+                f"plain {1e3 * p_ms:8.1f} us  bound {1e6 * bnd:6.1f} us ({by})"
+                + (f"  design {row['design']}" if "design" in row else "")
+                + (f"  int_mm {row['int_mm_us']:.1f} us" if "int_mm_us" in row else "")
+                + f"  [{CARD['smi']}]")
+        del pool
+    return rows
+
+
+def phase_cutover(dev) -> list[dict]:
+    """int8 and int3 GQMM at the b of CUTOVER_BATCHES with each design (the
+    library's cut-over moved by kern.set_small_max_b), on every projection:
+    the times that set kern.SMALL_MAX_B. Both designs are checked against
+    the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    gs = load_config(ARCH).group_size
+    rows = []
+    for fmt, (name, m, n) in itertools.product(kern.TC_FORMATS, PROJECTIONS):
+        wq, ws = _rand_weights(gen, fmt, m, n, gs, dev)
+        copies = max(1, math.ceil(160e6 / (wq.numel() + 4 * ws.numel())))
+        pool = [(wq, ws)] + [(wq.clone(), ws.clone()) for _ in range(copies - 1)]
+        kfn, pfn = _kernel_fns("gqmm", fmt)
+        for b in CUTOVER_BATCHES:
+            xq, xs = _rand_q(gen, (b, n), gs, dev)
+            want = pfn(wq, ws, xq, xs, group_size=gs)
+            row = {"kernel": f"gqmm_{fmt}", "shape": name, "m": m, "n": n, "b": b}
+            for design, cut in (("small", 10 ** 6), ("large", 0)):
+                prev = kern.set_small_max_b(cut)
+                try:
+                    check_close(f"gqmm_{fmt} {name} b={b} {design}",
+                                kfn(wq, ws, xq, xs, group_size=gs), want, fmt)
+                    row[f"{design}_us"] = 1e3 * device_time_ms(
+                        lambda i: kfn(*pool[i % copies], xq, xs, group_size=gs),
+                        max(50, 2 * copies))[0]
+                finally:
+                    kern.set_small_max_b(prev)
+            row["runs"] = kern.gqmm_design(b, m, n, gs, fmt)[0]
+            rows.append(row)
+            log(f"[cut-over] gqmm_{fmt} {name:10s} b={b:2d}  small {row['small_us']:7.1f} us  "
+                f"large {row['large_us']:7.1f} us  (runs {row['runs']}; cut-over "
+                f"{kern.SMALL_MAX_B}) [{CARD['smi']}]")
         del pool
     return rows
 
@@ -665,11 +747,12 @@ def phase_rmsnorm_kernels(dev) -> list[dict]:
     return rows
 
 
-def _paged_pools(gen, dev, pool: str, qdt, nb: int, bs: int):
+def _paged_pools(gen, dev, pool: str, qdt, nb: int, bs: int, kv: int = PAGED["kv"],
+                 hd: int = PAGED["hd"]):
     """Random K and V pools (NB, BS, KV, hd) of one pool type, finite
     everywhere (fp8 values stay inside e4m3's range), and the f32 row
     scales (NB, BS, KV) of a quantized pool."""
-    shape = (nb, bs, PAGED["kv"], PAGED["hd"])
+    shape = (nb, bs, kv, hd)
     if pool == "float":
         return (torch.randn(shape, generator=gen, device=dev).to(qdt),
                 torch.randn(shape, generator=gen, device=dev).to(qdt), None, None)
@@ -776,6 +859,48 @@ def phase_paged_kernels(dev) -> list[dict]:
                    f"{100 * row['bound_share']:.1f} % of it) [{CARD['smi']}]" if "us" in row
                    else ""))
         del kp, vp, ks, vs, tables, kp32, vp32
+    return rows
+
+
+def phase_paged_hd256(dev) -> list[dict]:
+    """The paged kernel at hd 256 (PAGED_HD256), every pool type, against
+    its plain version with the tolerance of phase 2's other paged cases.
+    Checked only."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    c = PAGED_HD256
+    kv, g, hd, b, bs = c["kv"], c["g"], c["hd"], c["b"], c["bs"]
+    rows = []
+    for (pool, qdt), T in itertools.product(c["cases"], c["widths"]):
+        mb = T // bs
+        nb = b * mb + 1
+        kp, vp, ks, vs = _paged_pools(gen, dev, pool, qdt, nb, bs, kv, hd)
+        pos = torch.randint(0, T, (b,), generator=gen, device=dev)
+        table = (torch.randperm(nb - 1, generator=gen, device=dev) + 1).reshape(b, mb)
+        table = torch.where(torch.arange(mb, device=dev)[None] > (pos // bs)[:, None], 0, table)
+        q = torch.randn((b, kv, g, hd), generator=gen, device=dev).to(qdt)
+        kn, vn = (torch.randn((b, kv, hd), generator=gen, device=dev).to(qdt) for _ in range(2))
+        mask = decode_mask(T, pos)
+        kw = dict(scale=hd ** -0.5, k_scales=ks, v_scales=vs)
+        got = pkern.paged_attention_cuda(q, kp, vp, table, pos, kn, vn, mask, **kw)
+        up = [t.float() if pool == "float" or t.dtype == torch.bfloat16 else t
+              for t in (q, kp, vp)]
+        want = paged_attention_ref(up[0], up[1], up[2], table, pos, kn.float(), vn.float(),
+                                   mask, **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want).abs().max().item()
+        tol = PAGED_TOL[qdt] * want.abs().max().item()
+        cols = pkern.tile_cols(hd, kp.element_size())
+        row = {"kernel": "paged_attn_quant" if ks is not None else "paged_attn", "pool": pool,
+               "qdtype": str(qdt).split(".")[-1], "b": b, "g": g, "hd": hd, "bs": bs, "T": T,
+               "tile_cols": cols, "splits": pkern.split_plan(b, kv, mb, bs, cols)[0],
+               "max_abs_err": err, "tol": tol}
+        if not err <= tol:
+            raise AssertionError(f"paged attention at hd 256 disagrees with its plain version: "
+                                 f"{row}")
+        rows.append(row)
+        log(f"[paged] hd 256 G 2 {row['qdtype']:8s} {pool:5s} b={b} BS={bs} T={T:4d} "
+            f"tile {cols} S={row['splits']:2d}  max|err| {err:.2e} (tol {tol:.1e})")
+        del kp, vp, ks, vs
     return rows
 
 
@@ -1502,6 +1627,70 @@ def phase_golden(dev) -> dict:
             "ragged": ragged, "formats": formats, "flags": flagged}
 
 
+def phase_golden_deep(dev) -> dict:
+    """The golden prompt at TinyLlama's full depth (GOLDEN_DEEP): one draw
+    of the 22-layer f32 weights, shared by an f32 and an int8 engine. f32
+    tokens must equal the reference's. int8 tokens must too, unless the
+    reference's tokens, replayed step by step, lose the card's greedy choice
+    only at steps traced to a .5 activation tie (the port's CPU run's, which
+    tests/test_torch_deep_tie.py traces, and the card's, DEEP_CARD_TIES),
+    each within TIE_MARGIN."""
+    golden = json.loads(GOLDEN_FILE.read_text())["deep"]
+    for k, v in GOLDEN_DEEP.items():
+        if golden[k] != v:
+            raise AssertionError(f"{GOLDEN_FILE.name}: deep {k}={golden[k]!r}, this script "
+                                 f"uses {v!r}")
+    cfg = golden_config(GOLDEN_DEEP["num_layers"])
+    t0 = time.perf_counter()
+    tree = init_params_numpy(cfg, GOLDEN["seed"])
+    if weights_checksum(tree) != golden["weights_checksum"]:
+        raise AssertionError("numpy drew other 22-layer weights than the golden run")
+    params = params_from_numpy(tree, dev)
+    del tree
+    t_weights = time.perf_counter() - t0
+    prompt = golden_prompt(cfg.vocab_size)
+    model = build(cfg)
+    total = GOLDEN["batch"] * GOLDEN["max_new_tokens"]
+    out = {"weights_s": t_weights}
+    for setting in GOLDEN_DEEP["settings"]:
+        t1 = time.perf_counter()
+        quantize = GOLDEN["quantize"] if setting == "int8" else False
+        eng = InferenceEngine(model, params, device=dev, quantize=quantize,
+                              cache_len=GOLDEN["prompt_len"] + GOLDEN["max_new_tokens"])
+        kern.reset_launches()
+        got = eng.generate({"tokens": torch.as_tensor(prompt)},
+                           GOLDEN["max_new_tokens"]).tokens.tolist()
+        launches = {k: v for k, v in kern.LAUNCHES.items() if v}
+        want = golden["tokens"][setting]
+        same = sum(a == b for ra, rb in zip(got, want) for a, b in zip(ra, rb))
+        off = replay_choices(eng, prompt, np.asarray(want))
+        ties = {(o["step"], o["row"]) for o in golden["port_cpu_replay_differs"][setting]}
+        ties |= set(DEEP_CARD_TIES.get(setting, []))
+        out[setting] = {"tokens_equal": same, "tokens_total": total,
+                        "cpu_tokens_equal": golden["port_cpu_equal"][setting],
+                        "replay_differs": off, "cpu_ties": sorted(ties), "launches": launches,
+                        "seconds": time.perf_counter() - t1}
+        log(f"[golden] {cfg.num_layers} layers, {setting} weights: {same}/{total} tokens equal "
+            f"the reference's (the port's plain path on the CPU: "
+            f"{golden['port_cpu_equal'][setting]}/{total}); replayed, the card's choice differs "
+            f"at {len(off)} steps" + "".join(f"; step {o['step']} row {o['row']}: margin "
+                                             f"{o['margin']:.2e}" for o in off)
+            + f" (traced ties, CPU's and card's: {sorted(ties)}); launches {launches}; "
+            f"{out[setting]['seconds']:.1f} s")
+        if setting == "float32" and got != want:
+            raise AssertionError(f"deep golden f32 tokens differ:\n port {got}\n  ref {want}")
+        if got != want and not off:
+            raise AssertionError("deep golden int8 tokens differ with no replayed tie")
+        for o in off:
+            if (o["step"], o["row"]) not in ties or o["margin"] > TIE_MARGIN:
+                raise AssertionError(f"deep golden {setting}: the reference's token at step "
+                                     f"{o['step']} row {o['row']} is not a traced tie of the "
+                                     f"card's choice: {o}")
+        del eng
+    del params
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 def _phase_gqmm_launches(kname, kind, serves, ragged, flagres) -> dict[str, int]:
@@ -1556,9 +1745,17 @@ def kernel_entries(rows, gsrows, serves, prows, ragged, frows, rqrows, flagres,
                      "ops.quantized_matmul on 1-D activations over the 89 projections")
             + "; launches by run " + ", ".join(f"{t} {c}" for t, c in runs.items()),
             "launches_by_run": runs,
-            "shapes": [{k: r[k] for k in ("shape", "m", "n", "b", "us", "plain_us",
-                                          "bound_us", "max_abs_err")} for r in mine],
+            "shapes": [{k: r[k] for k in ("shape", "m", "n", "b", "us", "plain_us", "bound_us",
+                                          "max_abs_err", "design", "int_mm_us") if k in r}
+                       for r in mine],
         })
+        if kname == "gqmm_int8":
+            entries[-1]["int_mm_us"] = {r["shape"]: r["int_mm_us"] for r in mine
+                                        if "int_mm_us" in r}
+            entries[-1]["library_note"] = (
+                f"library_ms is null: no PyTorch call applies per-group scales; int_mm_us is "
+                f"torch._int_mm on the same int8 operands at b={INT_MM_B} (the int8 "
+                f"tensor-core product without the scales), a yardstick the port never calls")
     passes = ragged["passes"]
     for kname, pool, names in (("paged_attn", "float", ("paged_float", "paged_half",
                                                         f"paged_{RAGGED_FORMAT}")),
@@ -1666,10 +1863,12 @@ def main(argv=None) -> int:
                 log(f"[build] {b.name}: {line.strip()}")
 
     rows = phase_kernels(dev)
+    corows = phase_cutover(dev)
     gsrows = phase_group_sizes(dev)
     frows, sdpa = phase_flash_kernels(dev)
     rqrows = phase_rmsnorm_kernels(dev)
     prows = phase_paged_kernels(dev)
+    p256rows = phase_paged_hd256(dev)
     model = build(load_config(ARCH))
     params = model.init(seed=SERVE["seed"], device=dev)
     serves, engines = {}, {}
@@ -1684,6 +1883,7 @@ def main(argv=None) -> int:
     flagres = phase_flags(dev, engines["int8"], serves["int8"])
     del engines
     golden = phase_golden(dev)
+    golden["deep"] = phase_golden_deep(dev)
 
     smi = card()
     entries = kernel_entries(rows, gsrows, serves, prows, ragged, frows, rqrows, flagres,
@@ -1697,8 +1897,10 @@ def main(argv=None) -> int:
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
         Path(args.report).write_text(json.dumps(
-            {"card": smi, "kernel_rows": rows, "group_size_rows": gsrows, "sdpa": sdpa,
+            {"card": smi, "kernel_rows": rows, "cutover_rows": corows,
+             "group_size_rows": gsrows, "sdpa": sdpa,
              "flash_rows": frows, "rmsnorm_quant_rows": rqrows, "paged_rows": prows,
+             "paged_hd256_rows": p256rows,
              "serve": serves, "ragged": ragged, "flags": flagres, "golden": golden,
              "kernels": entries,
              "seconds": time.perf_counter() - t_start}, indent=1))

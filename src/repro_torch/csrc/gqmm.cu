@@ -10,7 +10,9 @@
 //   gqmv_fp8  <- gqmv_fp8_pallas   gqmm_fp8  <- gqmm_fp8_pallas      (B7)
 // The six Pallas kernels after B1/B3 share B1/B3's two compute bodies
 // (_gqmv_compute, _gqmm_compute) behind a stage that unpacks the weights,
-// and so do these: one kernel template, one weight loader per format.
+// and so do these: one kernel template, one weight loader per format, for
+// every GQMV and for int4 / fp8 GQMM; int8 and int3 GQMM have two designs
+// of their own on the tensor cores.
 //
 // What they compute (paper Alg. 1): for every output row i and batch row b,
 // the products of each quantization group (GS columns) are summed, the
@@ -30,23 +32,72 @@
 // would be the limit. All eight kernels are HBM-bound there: the least time
 // is the weight-plus-scale bytes over the memory rate, so int4 and int3 can
 // at best take 0.52x and 0.40x of int8's time on TinyLlama's projections.
+// At a prefill's b = 256 the products are 2*b*m*n int8 operations against
+// m*n weight bytes plus a 4*b*m-byte f32 output: bytes and int8 tensor-core
+// operations bound them about equally (wo 2.1 us, classifier 29.8 us).
 //
-// Design (first, simple version). The TPU kernel's sequential n-block grid
-// axis, which carries the sum in VMEM, does not carry over: here one warp
-// owns one output row for a tile of BB batch rows and walks the whole
+// GQMV (all formats) and the int4 / fp8 GQMM: the first, simple design
+// (gqmm_kernel). The TPU kernel's sequential n-block grid axis, which
+// carries the sum in VMEM, does not carry over: here one warp owns one
+// output row for a tile of BB <= 8 batch rows and walks the whole
 // contraction itself, so no sum crosses blocks and each block writes its
 // own output rows. Each lane takes 16 logical weights per step (16 bytes of
 // int8 or fp8, 8 of int4, 6 of int3: warp loads of 512, 256 or 192
 // contiguous bytes), unpacks them in registers and dots them with its 16
-// activation bytes. A group is GS/16 lanes, an aligned power-of-two
-// segment, whose partial sums are added with xor shuffles before the
-// segment's first lane scales the group sum and keeps a per-lane f32 sum; a
-// warp shuffle reduction adds the lanes at the end. __fmul_rn and __fadd_rn
-// keep nvcc from contracting the scaling into an FMA, so each scaled term
-// of an integer format is bit-equal to the plain version's; only the order
-// of the f32 sum across groups differs (and, for fp8, the order within a
-// group). Tensor cores for large b and TMA/cp.async pipelining are later
-// work.
+// activation bytes (__dp4a). A group is GS/16 lanes, an aligned
+// power-of-two segment, whose partial sums are added with xor shuffles
+// before the segment's first lane scales the group sum and keeps a per-lane
+// f32 sum; a warp shuffle reduction adds the lanes at the end.
+//
+// int8 GQMM (B3, gqmm_pallas) and int3 GQMM (B6, gqmm_int3_pallas): two
+// designs on the int8 tensor cores, chosen by b (run_gqmm_tc).
+// - Small, b <= kSmallMaxB (decode; gqmm_small_kernel). Bound: the weight
+//   bytes. The first design re-read each weight row for every 8 batch rows,
+//   re-read the activations per warp-row, kept one 16-byte load a lane in
+//   flight behind a chain of dp4a, shuffles and scale loads per batch row,
+//   and ran 4-iteration warps on small grids. Here a CTA of 8 warps owns 16
+//   weight rows for every batch row; the activations (b <= 16 rows), their
+//   scales and the 16 rows' weight scales are staged in shared memory once
+//   per CTA by cp.async, behind the first weight loads. The warps take the
+//   contraction's units of whole groups (at GS 256 one group: 4 k-spans of
+//   64 columns) in rounds, one unit each; each lane keeps up to 16 16-byte
+//   weight loads in flight (its unit's k-spans of two rows, and the next
+//   round's, double-buffered in registers) and feeds them straight to
+//   m16n8k32 mmas as A fragments, so a group's int32 sum is formed by the
+//   tensor core with no shuffle, and the scales are applied once per group.
+//   Each round's scaled terms pass through shared memory to one thread per
+//   output, which adds them in group order. kSmallMaxB: see gqmv.py's
+//   SMALL_MAX_B, set from phase-2 times of both designs.
+// - Large, b > kSmallMaxB (prefill; gqmm_mma_kernel). Bound: bytes and
+//   operations alike. A CTA owns 128 (or, where that leaves SMs idle, 64)
+//   weight rows x 64 batch rows, one warpgroup a 64 x 64 block. A 5-stage
+//   ring brings 128-byte slices of both: the TMA unit loads each tile with
+//   one instruction (2-D tensor maps; zeros past m, b and n; the 128-byte
+//   swizzle) onto an mbarrier, cp.async the slice's scales. At GS >= 32
+//   wgmma m64n64k32 s8 reads both tiles from shared memory (the X and W
+//   tiles are both K-major, as int8 wgmma requires, so nothing is
+//   transposed); at GS 16, where a group is half a k-step, ldmatrix feeds
+//   mma.sync m16n8k32 with the other half's weights zeroed. After a group's
+//   GS/32 k-steps the s32 sums are converted, scaled and added into f32
+//   sums. int3 tiles arrive packed and are unpacked to int8 in the same
+//   swizzle (int3 rows that are not 16-byte aligned, or n no multiple of
+//   128, run the first design instead). What bounds it now: the tiles are re-read from L2 by every CTA
+//   that shares them (64 x 64 blocks: (1/64 + 1/64) of the product's
+//   operations in bytes), ~32 MB at wo and ~380 MB at the classifier for
+//   b = 256, against 4 and 65 MB of weights. Larger tiles or TMA multicast
+//   across a cluster are the next step. (16-byte cp.async from every
+//   thread held each SM to ~16 KB in flight; mma.sync s8 ran at ~200 TOPS.)
+// Both keep the plain versions' arithmetic: exact int32 group sums and each
+// scaled term bit-equal (__fmul_rn, no contraction; int8 (s*ws)*xs, int3
+// (s*xs)*ws). The f32 sum across groups runs in one order in both designs,
+// the first design's at GS 256: the even groups left to right, the odd
+// groups left to right, then the two added. (The 2-layer int8 golden stays token-exact on
+// the card with it; with one left-to-right sum a .5 activation tie flips.)
+//
+// __fmul_rn and __fadd_rn keep nvcc from contracting the scaling into an
+// FMA, so each scaled term of an integer format is bit-equal to the plain
+// version's; only the order of the f32 sum across groups differs (and, for
+// fp8, the order within a group).
 //
 // Unpacking. int4: the low nibble holds the even element. The four low
 // nibbles of a 32-bit word (elements 0, 2, 4, 6) and the four high ones
@@ -61,10 +112,13 @@
 // float2 (both exact), and multiplied by the activation as f32 (exact: 4 x
 // 7 significant bits), so the only roundings are the f32 sums.
 
+#include <cuda.h>   // CUtensorMap and its enums; the encoder is looked up at run time
+#include <cudaTypedefs.h>
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
 
 namespace {
 
@@ -290,24 +344,854 @@ int run_gqmm(const void* wq, const void* ws, const void* xq, const void* xs, voi
   return launch<W, 8, false, kXsFirst>(wq, ws, xq, xs, out, b, m, n, gs_log2, s);
 }
 
+// ---------------------------------------------------------------------------
+// B3 (int8) and B6 (int3) GQMM on the int8 tensor cores (the two designs of
+// the note at the top). Shared pieces first.
+
+constexpr int kSms = 132;         // the H100's SMs
+constexpr int kMaxSmem = 232448;  // 227 KB, the most a block can opt into
+constexpr int kMaxDevices = 64;
+
+// Small design (b <= kSmallMaxB): one CTA of kSmallWarps warps owns
+// kSmallRows weight rows; its warps take the contraction's units of whole
+// groups in rounds; a k-span is 64 logical weights of a row.
+constexpr int kSmallMaxB = 16;    // the cut-over (phase-2 times, see the note at the top)
+constexpr int kSmallRows = 16;
+constexpr int kSmallWarps = 8;
+constexpr int kSpan = 64;
+constexpr int kUnroll = 4;        // k-spans of weight loads in flight a round (a unit's most)
+constexpr int kUnitGroups = 4;    // groups a unit holds at most (GS 16: a k-span)
+
+// Large design (b > kSmallMaxB): a CTA owns a tile of 128 or 64 weight rows
+// x kLargeCols batch rows; the contraction streams through a kStagesTc-deep
+// ring of kBK-byte slices.
+constexpr int kLargeCols = 64;
+constexpr int kBK = 128;
+constexpr int kStagesTc = 5;   // stages of the ring: two 64-row CTAs fit an SM (deeper gained nothing)
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// d += a (16 x 32, rows) . b (32 x 8, columns), s8 x s8 -> exact s32
+__device__ __forceinline__ void mma_k32(int (&c)[4], int a0, int a1, int a2, int a3, int b0,
+                                        int b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(int (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// one group's scaled term, each product rounded on its own (no FMA):
+// int8 (s * ws) * xs, int3 (s * xs) * ws, as the plain versions
+template <bool kXsFirst>
+__device__ __forceinline__ float group_term(int s, float wsc, float xsc) {
+  const float sf = __int2float_rn(s);   // exact: |s| <= 127^2 * 256 < 2^24
+  return kXsFirst ? __fmul_rn(__fmul_rn(sf, xsc), wsc) : __fmul_rn(__fmul_rn(sf, wsc), xsc);
+}
+
+// Weight loaders: 16 logical weights of a row from logical column k (a
+// multiple of 16), raw (fetch, a load in flight) then as four words of
+// sign-extended int8 (unpack). A load past m or n gives zeros.
+struct TcInt8 {
+  using Raw = int4;
+  static constexpr bool kMayMisalign = false;   // the wrapper checks 16-byte rows
+  __host__ __device__ __forceinline__ static size_t row_bytes(int n) { return (size_t)n; }
+  __device__ __forceinline__ static Raw fetch(const uint8_t* wq, size_t rb, int row, int k,
+                                              bool ok) {
+    return ok ? __ldg(reinterpret_cast<const int4*>(wq + row * rb + k)) : make_int4(0, 0, 0, 0);
+  }
+  __device__ __forceinline__ static void unpack(const Raw& r, int (&w)[4]) {
+    w[0] = r.x;
+    w[1] = r.y;
+    w[2] = r.z;
+    w[3] = r.w;
+  }
+};
+
+// int3: 16 weights are 6 bytes at 6 * (k / 16) of the row, read as three
+// 16-bit words (rows are only 2-byte aligned)
+struct TcInt3 {
+  struct Raw {
+    unsigned u0, u1, u2;
+  };
+  static constexpr bool kMayMisalign = true;    // rows are only 2-byte aligned
+  // whether the large design's 16-byte copies can stream these rows (48
+  // bytes a slice of a row)
+  static bool ring_ok(const void* wq, int n) {
+    return (reinterpret_cast<uintptr_t>(wq) & 15) == 0 && n % kBK == 0;
+  }
+  __host__ __device__ __forceinline__ static size_t row_bytes(int n) { return (size_t)n / 8 * 3; }
+  __device__ __forceinline__ static Raw fetch(const uint8_t* wq, size_t rb, int row, int k,
+                                              bool ok) {
+    if (!ok) return Raw{0u, 0u, 0u};
+    const unsigned short* p =
+        reinterpret_cast<const unsigned short*>(wq + row * rb) + 3 * (k >> 4);
+    return Raw{__ldg(p), __ldg(p + 1), __ldg(p + 2)};
+  }
+  __device__ __forceinline__ static void unpack(const Raw& r, int (&w)[4]) {
+    const unsigned lo = r.u0 | ((r.u1 & 0xFFu) << 16);  // elements 0..7
+    const unsigned hi = (r.u1 >> 8) | (r.u2 << 8);      // elements 8..15
+    w[0] = sext3(lo);
+    w[1] = sext3(lo >> 12);
+    w[2] = sext3(hi);
+    w[3] = sext3(hi >> 12);
+  }
+};
+
+__host__ __device__ inline int small_x_stride(int n) {
+  // whole k-spans, then rounded so that rows start 64 bytes apart mod 128:
+  // the 8 rows a B-fragment load touches fall in distinct bank groups
+  const int spans = (n + kSpan - 1) / kSpan;
+  return (spans * kSpan + 127) / 128 * 128 + 64;
+}
+
+// Dynamic shared memory of a small-design CTA (kernels/gqmv.small_smem_bytes
+// mirrors it): X rows (8 NB, stride), xs (8 NB, ng), ws (kSmallRows, ng),
+// and one round's scaled terms (kSmallWarps, kUnitGroups, kSmallRows, 8 NB).
+__host__ __device__ inline size_t small_smem_bytes(int nb8, int n, int ng) {
+  return (size_t)8 * nb8 * small_x_stride(n) + 4 * ((size_t)8 * nb8 * ng) +
+         4 * ((size_t)kSmallRows * ng) +
+         4 * ((size_t)kSmallWarps * kUnitGroups * kSmallRows * 8 * nb8);
+}
+
+// Small design. The contraction is cut into units of whole groups (one
+// group of GS >= 64 columns, or one 64-column k-span of 64/GS groups) and
+// walked in rounds: in round r, warp w multiplies unit r * kSmallWarps + w,
+// while its loads of the next round's unit are in flight. Lane (gid =
+// lane / 4, t = lane % 4) holds, for every k-span of its unit, the 16
+// logical weights 16t..16t+15 of rows gid and gid + 8 (two 16-byte loads
+// for int8) and the same 16 activation bytes of batch row gid of each 8-row
+// tile. Inside a k-span the mma's k order is a permutation of the 64
+// columns, the same for weights and activations, so the int32 sums are the
+// group sums: the first m16n8k32 takes bytes 0-7 of every lane's 16, the
+// second bytes 8-15. A group narrower than a k-span (GS 16, 32) is summed by
+// mmas whose weights are zero outside it. Each group's scaled terms go to
+// shared memory; after the round one thread per output adds the round's
+// terms in group order into its even-group or odd-group sum, so the order is
+// the large design's.
+template <class L, int NB, bool kXsFirst>
+__global__ void __launch_bounds__(kSmallWarps * 32, 2)
+gqmm_small_kernel(const uint8_t* __restrict__ wq, const float* __restrict__ ws,
+                  const int8_t* __restrict__ xq, const float* __restrict__ xs,
+                  float* __restrict__ out, int b, int m, int n, int gs_log2) {
+  extern __shared__ __align__(16) unsigned char smem_small[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, t = lane & 3;
+  const int m0 = blockIdx.x * kSmallRows;
+  const int ng = n >> gs_log2, gs = 1 << gs_log2;
+  const int xstride = small_x_stride(n);
+  int8_t* x_s = reinterpret_cast<int8_t*>(smem_small);                          // (8 NB, xstride)
+  float* xs_s = reinterpret_cast<float*>(smem_small + (size_t)8 * NB * xstride);  // (8 NB, ng)
+  float* ws_s = xs_s + 8 * NB * ng;                                               // (16, ng)
+  float* t_s = ws_s + kSmallRows * ng;                     // (warps, unit groups, 16, 8 NB)
+
+  const int ugroups = gs >= kSpan ? 1 : kSpan >> gs_log2;  // groups a unit
+  const int uspans = gs >= kSpan ? gs / kSpan : 1;         // k-spans a unit (<= kUnroll)
+  const int nspan = (n + kSpan - 1) / kSpan;
+  const int nunits = (nspan + uspans - 1) / uspans;
+  const int nrounds = (nunits + kSmallWarps - 1) / kSmallWarps;
+  const size_t rb = L::row_bytes(n);
+  const int r0 = m0 + gid, r1 = m0 + gid + 8;
+
+  typename L::Raw cur[kUnroll][2], nxt[kUnroll][2];
+  // this warp's unit of round `round` (nothing past the last unit)
+  auto fetch = [&](typename L::Raw (&buf)[kUnroll][2], int round) {
+    const int u = round * kSmallWarps + warp;
+#pragma unroll
+    for (int i = 0; i < kUnroll; ++i) {
+      const int k = (u * uspans + i) * kSpan + 16 * t;
+      const bool ok = u < nunits && i < uspans && k < n;
+      buf[i][0] = L::fetch(wq, rb, r0, k, ok && r0 < m);
+      buf[i][1] = L::fetch(wq, rb, r1, k, ok && r1 < m);
+    }
+  };
+  // the first weight loads go out before the activations are staged
+  fetch(cur, 0);
+  for (int e = tid; e < 8 * NB * (xstride / 16); e += kSmallWarps * 32) {
+    const int r = e / (xstride / 16), c = e % (xstride / 16);
+    const bool ok = r < b && c * 16 < n;
+    cp_async16(x_s + (size_t)r * xstride + c * 16, ok ? xq + (size_t)r * n + c * 16 : xq, ok);
+  }
+  for (int e = tid; e < 8 * NB * ng; e += kSmallWarps * 32) {
+    const int r = e / ng;
+    cp_async4(xs_s + e, r < b ? xs + e : xs, r < b);
+  }
+  for (int e = tid; e < kSmallRows * ng; e += kSmallWarps * 32) {
+    const int r = e / ng;
+    cp_async4(ws_s + e, m0 + r < m ? ws + (size_t)m0 * ng + e : ws, m0 + r < m);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  int c[NB][4];
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[j][i] = 0;
+  // group g's scaled terms (the jg-th of this warp's unit) into t_s
+  auto put_group = [&](int g, int jg) {
+    const float w0 = ws_s[gid * ng + g], w1 = ws_s[(gid + 8) * ng + g];
+    float* tw = t_s + (size_t)(warp * kUnitGroups + jg) * kSmallRows * 8 * NB;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const int c0 = j * 8 + 2 * t;
+      const float x0 = xs_s[c0 * ng + g], x1 = xs_s[(c0 + 1) * ng + g];
+      tw[gid * 8 * NB + c0] = group_term<kXsFirst>(c[j][0], w0, x0);
+      tw[gid * 8 * NB + c0 + 1] = group_term<kXsFirst>(c[j][1], w0, x1);
+      tw[(gid + 8) * 8 * NB + c0] = group_term<kXsFirst>(c[j][2], w1, x0);
+      tw[(gid + 8) * 8 * NB + c0 + 1] = group_term<kXsFirst>(c[j][3], w1, x1);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) c[j][i] = 0;
+    }
+  };
+  // thread tid < 16 * 8 NB owns output (row tid % 16, batch row tid / 16)
+  const int orow = tid % kSmallRows, ocol = tid / kSmallRows;
+  float even = 0.f, odd = 0.f;
+
+  for (int round = 0; round < nrounds; ++round) {
+    if (round + 1 < nrounds) fetch(nxt, round + 1);
+    const int u = round * kSmallWarps + warp;
+    if (u < nunits) {
+#pragma unroll
+      for (int i = 0; i < kUnroll; ++i) {
+        const int s = u * uspans + i;
+        if (i < uspans && s < nspan) {
+          int w0[4], w1[4];
+          L::unpack(cur[i][0], w0);
+          L::unpack(cur[i][1], w1);
+          int4 xv[NB];
+#pragma unroll
+          for (int j = 0; j < NB; ++j)
+            xv[j] = *reinterpret_cast<const int4*>(x_s + (size_t)(j * 8 + gid) * xstride +
+                                                   s * kSpan + 16 * t);
+          if (gs >= kSpan) {
+#pragma unroll
+            for (int j = 0; j < NB; ++j) {
+              mma_k32(c[j], w0[0], w1[0], w0[1], w1[1], xv[j].x, xv[j].y);
+              mma_k32(c[j], w0[2], w1[2], w0[3], w1[3], xv[j].z, xv[j].w);
+            }
+          } else {
+            // GS 16 or 32: lane t's 16 weights lie in the span's group 16t / GS
+            const int mine = (16 * t) >> gs_log2;
+            for (int jg = 0; jg < ugroups; ++jg) {
+              if (s * ugroups + jg >= ng) break;
+              const bool on = mine == jg;
+#pragma unroll
+              for (int j = 0; j < NB; ++j) {
+                mma_k32(c[j], on ? w0[0] : 0, on ? w1[0] : 0, on ? w0[1] : 0, on ? w1[1] : 0,
+                        xv[j].x, xv[j].y);
+                mma_k32(c[j], on ? w0[2] : 0, on ? w1[2] : 0, on ? w0[3] : 0, on ? w1[3] : 0,
+                        xv[j].z, xv[j].w);
+              }
+              put_group(s * ugroups + jg, jg);
+            }
+          }
+        }
+      }
+      if (gs >= kSpan) put_group(u, 0);
+    }
+    __syncthreads();          // the round's terms are in t_s
+    if (tid < kSmallRows * 8 * NB) {
+      for (int w = 0; w < kSmallWarps; ++w) {
+        const int uw = round * kSmallWarps + w;
+        if (uw >= nunits) break;
+        for (int jg = 0; jg < ugroups; ++jg) {
+          const int g = uw * ugroups + jg;
+          if (g >= ng) break;
+          const float v = t_s[((size_t)(w * kUnitGroups + jg) * kSmallRows + orow) * 8 * NB + ocol];
+          if (g & 1) odd = __fadd_rn(odd, v);
+          else even = __fadd_rn(even, v);
+        }
+      }
+    }
+    __syncthreads();          // t_s is free for the next round
+#pragma unroll
+    for (int i = 0; i < kUnroll; ++i) {
+      cur[i][0] = nxt[i][0];
+      cur[i][1] = nxt[i][1];
+    }
+  }
+  if (tid < kSmallRows * 8 * NB && m0 + orow < m && ocol < b)
+    out[(size_t)ocol * m + m0 + orow] = __fadd_rn(even, odd);
+}
+
+// Large design: a CTA of 2 WM warps owns weight rows m0 .. m0 + 32 WM and
+// batch rows b0 .. b0 + 64. At GS >= 32 each warpgroup computes 64 of the
+// rows for all 64 batch rows with wgmma; at GS 16 warp (wm, wb) computes a
+// 32 x 32 block as 2 x 4 mma.sync m16n8 tiles. Each stage of the ring holds
+// a kBK-byte slice of the contraction for the CTA's weight rows and batch
+// rows, brought by the TMA unit (one cp.async.bulk.tensor a tile,
+// completing on the stage's mbarrier; rows and columns past m, b or n
+// arrive as zeros), and the weight and activation scales of the slice's
+// groups, by cp.async; all but one stage ahead, so no global load is waited
+// on inside the loop but the ring's. (16-byte cp.async from every thread
+// held each SM to ~16 KB in flight, ~1.3 us a slice whatever the grid.)
+// The TMA's 128-byte swizzle puts 16-byte chunk ch of row r at chunk
+// ch ^ (r % 8): wgmma's descriptors name that layout, and each ldmatrix
+// phase reads 8 distinct bank groups. int3 weights arrive packed (48 bytes
+// a row a slice) and are unpacked to int8 into one tile, in the same
+// swizzle, before the slice is multiplied, so the mma body is shared.
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n .reg .pred p;\n WAIT_%=:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      " @!p bra WAIT_%=;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+// the box of tensor map tm at (x, y) -> shared dst, completing on bar
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* tm, int x, int y,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(tm)), "r"(x), "r"(y), "r"(bar)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor of a K-major tile of 128-byte rows in the
+// 128-byte swizzle, 8-row atoms 1 KB apart, starting at addr.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// d (64 x 64 s32, this warpgroup's) = a (64 x 32 s8) . b (32 x 64 s8), plus
+// d when accumulate; both operands from shared memory
+__device__ __forceinline__ void wgmma_s8(int (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8"
+      " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n wgmma.wait_group.sync.aligned 0;\n" ::
+                   : "memory");
+}
+
+template <class L>
+struct TcRing;   // how a slice's weights reach the int8 rows ldmatrix reads
+
+template <>
+struct TcRing<TcInt8> {
+  static constexpr int kSliceBytes = kBK;   // bytes a weight row a slice, as stored
+  static constexpr bool kUnpacked = false;  // ldmatrix reads the ring itself
+  __device__ __forceinline__ static int x_of(int k0) { return k0; }
+  template <int kThr, int kRows>
+  __device__ __forceinline__ static void unpack(const unsigned char*, unsigned char*, int) {}
+};
+
+template <>
+struct TcRing<TcInt3> {
+  static constexpr int kSliceBytes = kBK / 8 * 3;   // 48: 128 3-bit fields, packed
+  static constexpr bool kUnpacked = true;
+  __device__ __forceinline__ static int x_of(int k0) { return k0 / 8 * 3; }
+  // the slice's packed rows -> the int8 tile, 16 fields (6 bytes) a chunk
+  template <int kThr, int kRows>
+  __device__ __forceinline__ static void unpack(const unsigned char* w_s, unsigned char* tile,
+                                                int tid) {
+    for (int e = tid; e < kRows * (kBK / 16); e += kThr) {
+      const int r = e >> 3, ch = e & 7;
+      const unsigned short* q =
+          reinterpret_cast<const unsigned short*>(w_s + r * kSliceBytes) + 3 * ch;
+      int w[4];
+      TcInt3::unpack(TcInt3::Raw{q[0], q[1], q[2]}, w);
+      *reinterpret_cast<int4*>(tile + r * kBK + ((ch ^ (r & 7)) << 4)) =
+          make_int4(w[0], w[1], w[2], w[3]);
+    }
+  }
+};
+
+// groups whose scales a stage holds: the slice's (kBK / GS of them, or the
+// one group a slice of a wider group lies in)
+constexpr int kStageGroups = 8;   // kBK / 16, at GS 16
+constexpr int kScaleStride = 9;   // floats a row of them: 8 rows fall in distinct banks
+constexpr int kSwizzleAlign = 1024;   // a 128-byte-swizzled tile starts on 1 KB
+static_assert(kStageGroups == kBK / 16 && kScaleStride == kStageGroups + 1, "scale layout");
+
+__host__ __device__ constexpr size_t round_up_1k(size_t x) {
+  return (x + kSwizzleAlign - 1) / kSwizzleAlign * kSwizzleAlign;
+}
+
+// A stage: the weight tile (1 KB multiple), the activation tile, the
+// scales, padded to 1 KB so every stage's tiles start swizzle-aligned.
+template <class L>
+__host__ __device__ constexpr size_t large_stage_bytes(int rows) {
+  return round_up_1k((size_t)rows * TcRing<L>::kSliceBytes + (size_t)kLargeCols * kBK +
+                     4 * (size_t)(rows + kLargeCols) * kScaleStride);
+}
+
+// Dynamic shared memory of a large-design CTA (kernels/gqmv.large_smem_bytes
+// mirrors it): 1 KB of room to align the base, kStagesTc stages, for int3
+// the unpacked int8 tile, then one mbarrier a stage.
+template <class L>
+__host__ __device__ constexpr size_t large_smem_bytes(int wm) {
+  return kSwizzleAlign + kStagesTc * large_stage_bytes<L>(32 * wm) +
+         (TcRing<L>::kUnpacked ? (size_t)32 * wm * kBK : 0) + 8 * kStagesTc;
+}
+
+template <class L, int WM, bool kXsFirst, bool kWg>
+__global__ void __launch_bounds__(WM * 64)
+gqmm_mma_kernel(const __grid_constant__ CUtensorMap tm_w, const __grid_constant__ CUtensorMap tm_x,
+                const float* __restrict__ ws, const float* __restrict__ xs,
+                float* __restrict__ out, int b, int m, int n, int gs_log2) {
+  constexpr int kThr = WM * 64, kRows = 32 * WM;
+  using Ring = TcRing<L>;
+  constexpr size_t kStageBytes = large_stage_bytes<L>(kRows);
+  static_assert(large_smem_bytes<L>(WM) <= kMaxSmem, "the ring fits the opt-in");
+  constexpr int kTxBytes = kRows * Ring::kSliceBytes + kLargeCols * kBK;
+  extern __shared__ __align__(128) unsigned char smem_tc[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, t = lane & 3;
+  const int wm = warp % WM, wb = warp / WM;
+  const int b0 = blockIdx.x * kLargeCols, m0 = blockIdx.y * kRows;
+  const int ng = n >> gs_log2, gs = 1 << gs_log2;
+  const int nk = (n + kBK - 1) / kBK;
+  const int sgroups = max(1, kBK >> gs_log2);        // groups whose scales a stage holds
+
+  unsigned char* base = smem_tc + ((kSwizzleAlign - (smem_addr(smem_tc) & (kSwizzleAlign - 1))) &
+                                   (kSwizzleAlign - 1));
+  auto stage = [&](int kt) { return base + (size_t)(kt % kStagesTc) * kStageBytes; };
+  auto x_stage = [&](int kt) { return stage(kt) + kRows * Ring::kSliceBytes; };
+  auto ws_stage = [&](int kt) { return reinterpret_cast<float*>(x_stage(kt) + kLargeCols * kBK); };
+  auto xs_stage = [&](int kt) { return ws_stage(kt) + kRows * kScaleStride; };
+  unsigned char* tile = base + kStagesTc * kStageBytes;   // int3: the unpacked weights
+  const uint32_t bars = smem_addr(tile + (Ring::kUnpacked ? (size_t)kRows * kBK : 0));
+  if (tid == 0) {
+    for (int i = 0; i < kStagesTc; ++i) mbar_init(bars + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // slice kt: thread 0 sets the stage's byte count and issues the two tile
+  // loads; every thread copies scales
+  auto fetch = [&](int kt) {
+    const int k0 = kt * kBK;
+    if (tid == 0) {
+      const uint32_t bar = bars + 8 * (kt % kStagesTc);
+      // the stage was last read by ldmatrix (generic proxy) before the
+      // barrier that precedes this fetch: order those reads before the
+      // tile loads' writes (async proxy)
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_expect_tx(bar, kTxBytes);
+      tma_load(smem_addr(stage(kt)), &tm_w, Ring::x_of(k0), m0, bar);
+      tma_load(smem_addr(x_stage(kt)), &tm_x, k0, b0, bar);
+    }
+    const int g0 = k0 >> gs_log2;
+    float* wsd = ws_stage(kt);
+    for (int e = tid; e < (kRows + kLargeCols) * sgroups; e += kThr) {
+      const int r = e / sgroups, j = e - r * sgroups, g = g0 + j;
+      if (r < kRows) {
+        const bool ok = m0 + r < m && g < ng;
+        cp_async4(wsd + r * kScaleStride + j, ok ? ws + (size_t)(m0 + r) * ng + g : ws, ok);
+      } else {
+        const int rx = r - kRows;
+        const bool ok = b0 + rx < b && g < ng;
+        cp_async4(wsd + r * kScaleStride + j, ok ? xs + (size_t)(b0 + rx) * ng + g : xs, ok);
+      }
+    }
+  };
+
+  if constexpr (kWg) {
+    // warpgroup wg owns weight rows 64 wg .. 64 wg + 63 of the tile, all 64
+    // batch rows; warp w4 of it rows 16 w4 .. 16 w4 + 15, lane (gid, t) the
+    // m16n8 fragment of each 8-column tile j: d[4j + i] at row gid + 8 (i / 2),
+    // batch row 8j + 2t + i % 2
+    const int wg = warp >> 2, w4 = warp & 3;
+    int d[32];
+    float ev[32], od[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      d[i] = 0;
+      ev[i] = od[i] = 0.f;
+    }
+    const int lrow = wg * 64 + w4 * 16 + gid;     // tile rows lrow, lrow + 8
+    auto finish = [&](int g, const float* wsd, const float* xsd, int j0) {
+      const bool is_odd = g & 1;
+      const float w0 = wsd[lrow * kScaleStride + j0], w1 = wsd[(lrow + 8) * kScaleStride + j0];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float x0 = xsd[(8 * j + 2 * t) * kScaleStride + j0];
+        const float x1 = xsd[(8 * j + 2 * t + 1) * kScaleStride + j0];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float term = group_term<kXsFirst>(d[4 * j + i], i < 2 ? w0 : w1, i & 1 ? x1 : x0);
+          const float sum = __fadd_rn(is_odd ? od[4 * j + i] : ev[4 * j + i], term);
+          if (is_odd) od[4 * j + i] = sum;
+          else ev[4 * j + i] = sum;
+        }
+      }
+    };
+#pragma unroll
+    for (int s = 0; s < kStagesTc - 1; ++s) {
+      if (s < nk) fetch(s);
+      cp_async_commit();
+    }
+    for (int kt = 0; kt < nk; ++kt) {
+      cp_async_wait<kStagesTc - 2>();
+      mbar_wait(bars + 8 * (kt % kStagesTc), (kt / kStagesTc) & 1);
+      __syncthreads();        // everyone's scales are in; slice kt - 1's stage is free
+      const int nx = kt + kStagesTc - 1;
+      if (nx < nk) fetch(nx);
+      cp_async_commit();
+      if (Ring::kUnpacked) {
+        Ring::template unpack<kThr, kRows>(stage(kt), tile, tid);
+        // generic stores, read next by wgmma (async proxy)
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        __syncthreads();
+      }
+      const uint64_t da = sw128_desc(smem_addr(Ring::kUnpacked ? tile : stage(kt)) + wg * 64 * kBK);
+      const uint64_t db = sw128_desc(smem_addr(x_stage(kt)));
+      const float* wsd = ws_stage(kt);
+      const float* xsd = xs_stage(kt);
+      const int g0 = (kt * kBK) >> gs_log2;
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kBK / 32; ++ks) {
+        const int k = kt * kBK + ks * 32;
+        if (k < n) {
+          // the k-step's 32 bytes lie 32 ks bytes into the swizzled rows; a
+          // group's first k-step starts the sum afresh
+          wgmma_s8(d, da + 2 * ks, db + 2 * ks, (k & (gs - 1)) != 0);
+          if (((k + 32) & (gs - 1)) == 0) {
+            wgmma_commit_wait();
+            const int g = k >> gs_log2;
+            finish(g, wsd, xsd, g - g0);
+            wgmma_fence();
+          }
+        }
+      }
+      wgmma_commit_wait();    // the stage's tiles are read before the next barrier frees them
+    }
+    cp_async_wait<0>();
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = m0 + lrow + (i >> 1) * 8;
+        const int col = b0 + 8 * j + 2 * t + (i & 1);
+        if (r < m && col < b) out[(size_t)col * m + r] = __fadd_rn(ev[4 * j + i], od[4 * j + i]);
+      }
+    return;
+  }
+
+  // mma.sync (GS 16): s32 group sums; the scaled terms of even and of odd
+  // groups, each added left to right
+  int c[2][4][4];
+  float even[2][4][4], odd[2][4][4];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        c[a][j][i] = 0;
+        even[a][j][i] = odd[a][j][i] = 0.f;
+      }
+  // group g, whose scales are entry j0 of the stage's, is complete: its
+  // terms into the sums of its parity (one copy of the code for both)
+  auto finish_group = [&](int g, const float* wsd, const float* xsd, int j0) {
+    const bool is_odd = g & 1;
+    float wsc[2][2], xsc[4][2];
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        wsc[a][h] = wsd[(wm * 32 + a * 16 + gid + 8 * h) * kScaleStride + j0];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) xsc[j][h] = xsd[(wb * 32 + j * 8 + 2 * t + h) * kScaleStride + j0];
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float term = group_term<kXsFirst>(c[a][j][i], wsc[a][i >> 1], xsc[j][i & 1]);
+          const float sum = __fadd_rn(is_odd ? odd[a][j][i] : even[a][j][i], term);
+          if (is_odd) odd[a][j][i] = sum;
+          else even[a][j][i] = sum;
+          c[a][j][i] = 0;
+        }
+  };
+
+#pragma unroll
+  for (int s = 0; s < kStagesTc - 1; ++s) {
+    if (s < nk) fetch(s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kStagesTc - 2>();                                  // slice kt's scales
+    mbar_wait(bars + 8 * (kt % kStagesTc), (kt / kStagesTc) & 1);    // and its tiles
+    __syncthreads();          // everyone's scales are in; slice kt - 1's stage is free
+    const int nx = kt + kStagesTc - 1;
+    if (nx < nk) fetch(nx);
+    cp_async_commit();
+    if (Ring::kUnpacked) {
+      Ring::template unpack<kThr, kRows>(stage(kt), tile, tid);
+      __syncthreads();
+    }
+    const uint32_t wbase = smem_addr(Ring::kUnpacked ? tile : stage(kt));
+    const uint32_t xbase = smem_addr(x_stage(kt));
+    const float* wsd = ws_stage(kt);
+    const float* xsd = xs_stage(kt);
+    const int g0 = (kt * kBK) >> gs_log2;
+#pragma unroll
+    for (int ks = 0; ks < kBK / 32; ++ks) {
+      const int k = kt * kBK + ks * 32;
+      if (k < n) {
+        int af[2][4], bf[4][2];
+        const int j8 = lane >> 3;
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          const int r = wm * 32 + a * 16 + (lane & 7) + (j8 & 1) * 8;
+          const int ch = 2 * ks + (j8 >> 1);
+          ldmatrix_x4(af[a], wbase + r * kBK + ((ch ^ (r & 7)) << 4));
+        }
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          const int r = wb * 32 + p * 16 + (lane & 7) + (j8 >> 1) * 8;
+          const int ch = 2 * ks + (j8 & 1);
+          int q[4];
+          ldmatrix_x4(q, xbase + r * kBK + ((ch ^ (r & 7)) << 4));
+          bf[2 * p][0] = q[0];
+          bf[2 * p][1] = q[1];
+          bf[2 * p + 1][0] = q[2];
+          bf[2 * p + 1][1] = q[3];
+        }
+        if (gs >= 32) {
+#pragma unroll
+          for (int a = 0; a < 2; ++a)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              mma_k32(c[a][j], af[a][0], af[a][1], af[a][2], af[a][3], bf[j][0], bf[j][1]);
+          if (((k + 32) & (gs - 1)) == 0) {
+            const int g = k >> gs_log2;
+            finish_group(g, wsd, xsd, g - g0);
+          }
+        } else {
+          // GS 16: columns 0-15 of the step are one group (fragments 0 and
+          // 1 of A), 16-31 the next (fragments 2 and 3)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int g = (k >> 4) + h;
+            if (g < ng) {
+#pragma unroll
+              for (int a = 0; a < 2; ++a)
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                  mma_k32(c[a][j], h ? 0 : af[a][0], h ? 0 : af[a][1], h ? af[a][2] : 0,
+                          h ? af[a][3] : 0, bf[j][0], bf[j][1]);
+              finish_group(g, wsd, xsd, g - g0);
+            }
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = m0 + wm * 32 + a * 16 + gid + (i >> 1) * 8;
+        const int col = b0 + wb * 32 + j * 8 + 2 * t + (i & 1);
+        if (r < m && col < b) out[(size_t)col * m + r] = __fadd_rn(even[a][j][i], odd[a][j][i]);
+      }
+}
+
+// The driver's tensor-map encoder, looked up once through the runtime (the
+// library links no driver library).
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// A 2-D byte tensor map: rows of row_bytes (a multiple of 16) at ptr (16-byte
+// aligned), boxes of box_x bytes x box_y rows, zeros outside.
+bool byte_map(CUtensorMap* tm, const void* ptr, uint64_t row_bytes, uint64_t rows, int box_x,
+              int box_y, bool swizzle) {
+  const auto encode = tensor_map_encoder();
+  if (!encode) return false;
+  const cuuint64_t dims[2] = {row_bytes, rows};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_x), static_cast<cuuint32_t>(box_y)};
+  const cuuint32_t estr[2] = {1, 1};
+  return encode(tm, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims, strides, box,
+                estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// b at or below which the small design runs; a timing knob (gqmm_set_small_max_b)
+int g_small_max_b = kSmallMaxB;
+
+// the opt-in above 48 KB of dynamic shared memory, once per device for the
+// kernel whose flags are `done`
+template <class K>
+cudaError_t opt_in(K kernel, bool (&done)[kMaxDevices], int device) {
+  if (done[device]) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (err == cudaSuccess) done[device] = true;
+  return err;
+}
+
+template <class L, int NB, bool kXsFirst>
+int launch_small(const void* wq, const void* ws, const void* xq, const void* xs, void* out, int b,
+                 int m, int n, int gs_log2, int device, cudaStream_t stream) {
+  const auto kernel = gqmm_small_kernel<L, NB, kXsFirst>;
+  static bool opted[kMaxDevices] = {};
+  cudaError_t err = opt_in(kernel, opted, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<(m + kSmallRows - 1) / kSmallRows, kSmallWarps * 32,
+           small_smem_bytes(NB, n, n >> gs_log2), stream>>>(
+      static_cast<const uint8_t*>(wq), static_cast<const float*>(ws),
+      static_cast<const int8_t*>(xq), static_cast<const float*>(xs), static_cast<float*>(out), b,
+      m, n, gs_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class L, int WM, bool kXsFirst, bool kWg>
+int launch_large(const void* wq, const void* ws, const void* xq, const void* xs, void* out, int b,
+                 int m, int n, int gs_log2, int device, cudaStream_t stream) {
+  const auto kernel = gqmm_mma_kernel<L, WM, kXsFirst, kWg>;
+  static bool opted[kMaxDevices] = {};
+  cudaError_t err = opt_in(kernel, opted, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap tm_w, tm_x;
+  if (!byte_map(&tm_w, wq, L::row_bytes(n), m, TcRing<L>::kSliceBytes, 32 * WM,
+                !TcRing<L>::kUnpacked) ||
+      !byte_map(&tm_x, xq, n, b, kBK, kLargeCols, true))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((b + kLargeCols - 1) / kLargeCols, (m + 32 * WM - 1) / (32 * WM));
+  kernel<<<grid, WM * 64, large_smem_bytes<L>(WM), stream>>>(
+      tm_w, tm_x, static_cast<const float*>(ws), static_cast<const float*>(xs),
+      static_cast<float*>(out), b, m, n, gs_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The design for (b, m, n): small for b <= the cut-over (8-row tiles of
+// batch rows: 1 or 2), else large, 128-row tiles where they alone give a
+// CTA to every SM, else 64-row tiles (kernels/gqmv.gqmm_design mirrors it).
+template <class L, bool kXsFirst>
+int run_gqmm_tc(const void* wq, const void* ws, const void* xq, const void* xs, void* out, int b,
+                int m, int n, int group_size, int device, void* stream) {
+  const int gs_log2 = log2_group(group_size);
+  if (bad_args(b, m, n, gs_log2) || device < 0 || device >= kMaxDevices ||
+      (m + 63) / 64 > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int ng = n >> gs_log2;
+  if (b <= g_small_max_b && b <= 8 && small_smem_bytes(1, n, ng) <= kMaxSmem)
+    return launch_small<L, 1, kXsFirst>(wq, ws, xq, xs, out, b, m, n, gs_log2, device, s);
+  if (b <= g_small_max_b && b <= 16 && small_smem_bytes(2, n, ng) <= kMaxSmem)
+    return launch_small<L, 2, kXsFirst>(wq, ws, xq, xs, out, b, m, n, gs_log2, device, s);
+  // int3 rows the ring's 16-byte copies cannot stream (not 16-byte aligned,
+  // or n no multiple of 128: a layer slice of an odd shape) run the first
+  // design
+  if constexpr (L::kMayMisalign) {
+    if (!L::ring_ok(wq, n))
+      return run_gqmm<Int3Weights, kXsFirst>(wq, ws, xq, xs, out, b, m, n, group_size, device,
+                                             stream);
+  }
+  // wgmma for GS >= 32 (a k-step of 32 columns is whole groups); mma.sync,
+  // which can sum half a k-step, at GS 16
+  const bool wide = (long)((m + 127) / 128) * ((b + kLargeCols - 1) / kLargeCols) >= kSms;
+#define GQMM_LARGE(WM_, WG_) \
+  launch_large<L, WM_, kXsFirst, WG_>(wq, ws, xq, xs, out, b, m, n, gs_log2, device, s)
+  if (gs_log2 >= 5) return wide ? GQMM_LARGE(4, true) : GQMM_LARGE(2, true);
+  return wide ? GQMM_LARGE(4, false) : GQMM_LARGE(2, false);
+#undef GQMM_LARGE
+}
+
 }  // namespace
 
 // Every entry point returns cudaGetLastError() after the launch (0 on
 // success); the Python wrapper raises on anything else. wq is the format's
 // storage: int8 (m, n), int8 (m, n/2), uint8 (m, 3n/8) or e4m3 (m, n).
-#define GQMM_ENTRY_POINTS(FMT, W, XS_FIRST)                                                  \
+#define GQMV_ENTRY_POINT(FMT, W)                                                             \
   extern "C" int gqmv_##FMT(const void* wq, const void* ws, const void* xq, const void* xs, \
                             void* out, int m, int n, int group_size, int device,            \
                             void* stream) {                                                 \
     return run_gqmv<W>(wq, ws, xq, xs, out, m, n, group_size, device, stream);              \
-  }                                                                                         \
+  }
+#define GQMM_ENTRY_POINT(FMT, RUN)                                                           \
   extern "C" int gqmm_##FMT(const void* wq, const void* ws, const void* xq, const void* xs, \
                             void* out, int b, int m, int n, int group_size, int device,     \
                             void* stream) {                                                 \
-    return run_gqmm<W, XS_FIRST>(wq, ws, xq, xs, out, b, m, n, group_size, device, stream); \
+    return RUN(wq, ws, xq, xs, out, b, m, n, group_size, device, stream);                   \
   }
 
-GQMM_ENTRY_POINTS(int8, Int8Weights, false)
-GQMM_ENTRY_POINTS(int4, Int4Weights, true)
-GQMM_ENTRY_POINTS(int3, Int3Weights, true)
-GQMM_ENTRY_POINTS(fp8, Fp8Weights, true)
+GQMV_ENTRY_POINT(int8, Int8Weights)
+GQMV_ENTRY_POINT(int4, Int4Weights)
+GQMV_ENTRY_POINT(int3, Int3Weights)
+GQMV_ENTRY_POINT(fp8, Fp8Weights)
+GQMM_ENTRY_POINT(int8, (run_gqmm_tc<TcInt8, false>))
+GQMM_ENTRY_POINT(int4, (run_gqmm<Int4Weights, true>))
+GQMM_ENTRY_POINT(int3, (run_gqmm_tc<TcInt3, true>))
+GQMM_ENTRY_POINT(fp8, (run_gqmm<Fp8Weights, true>))
+
+// Sets the largest b that takes the small design of int8 and int3 GQMM
+// (both designs are exact; only their times differ) and returns the
+// previous value. For timing the two designs at one b.
+extern "C" int gqmm_set_small_max_b(int b) {
+  const int prev = g_small_max_b;
+  g_small_max_b = b;
+  return prev;
+}

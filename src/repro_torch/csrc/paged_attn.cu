@@ -27,7 +27,8 @@
 // carries the softmax state in VMEM. Here:
 // - Pass 1 (paged_attn_kernel): the grid is (KV, b, S). Split s of a row
 //   walks its own contiguous run of tiles of whole blocks (64 columns for
-//   blocks of <= 64 rows) with an online softmax, one CTA of 256 threads
+//   blocks of <= 64 rows; 32 for an f32 pool at hd 256, whose 1 KB rows
+//   would not fit three 64-column stages) with an online softmax, one CTA of 256 threads
 //   (two warps on each scheduler; registers capped so that three CTAs
 //   share an SM). With S = 1 it writes ctx; with S > 1 it writes its
 //   running max m, denominator l and unnormalised accumulator for the G
@@ -81,6 +82,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTileCols = 64;    // virtual columns staged per tile (whole blocks)
+constexpr int kWideRow = 512;    // a row wider than this (f32 at hd 256) halves the tile
 constexpr int kMaxOut = 4;       // output elements per thread: G * hd <= 1024
 constexpr int kColLanes = 64;    // columns the score loop covers at once
 constexpr int kHeadLanes = kThreads / kColLanes;   // thread groups over the heads
@@ -148,7 +150,13 @@ __device__ __forceinline__ void unpack16<__nv_fp8_e4m3>(const uint4& raw, float*
 __device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
-__host__ __device__ inline int tile_blocks(int bs) { return bs >= kTileCols ? 1 : kTileCols / bs; }
+// Columns a tile: 64, or 32 where a staged row is wider than 512 bytes (an
+// f32 pool at hd 256), so that three stages of K and V rows fit in 227 KB.
+__host__ __device__ constexpr int tile_cols(int hd, int elt) {
+  return hd * elt > kWideRow ? kTileCols / 2 : kTileCols;
+}
+
+__host__ __device__ inline int tile_blocks(int bs, int cols) { return bs >= cols ? 1 : cols / bs; }
 
 __host__ __device__ inline size_t row_bytes(int hd, int elt) { return (size_t)hd * elt; }
 
@@ -169,7 +177,7 @@ __device__ __forceinline__ int kswz(int row, int chunk) {
 // the scores (G, tc), alpha, l and m (G,), kSlots slots of mask values
 // (tc,) and table entries (tb,), and kStages stages of row offsets (tc,).
 __host__ __device__ inline size_t smem_bytes(int g, int hd, int bs, int elt, bool quant) {
-  const size_t tb = tile_blocks(bs), tc = tb * bs;
+  const size_t tb = tile_blocks(bs, tile_cols(hd, elt)), tc = tb * bs;
   return 2 * kStages * tc * row_bytes(hd, elt) + (quant ? 2 * kStages * tc * 4 : 0) +
          4 * ((size_t)g * hd + 2 * (size_t)hd + (size_t)g * tc + 3 * (size_t)g) +
          4 * (kSlots * (tc + tb) + kStages * tc);
@@ -276,7 +284,7 @@ __device__ __forceinline__ void weigh_values(float (&acc)[kMaxOut], const unsign
 
 // T: dtype of q, k_new, v_new and the output (float or bf16).
 // S: storage dtype of the pool (T itself, int8 or fp8 e4m3).
-// HD: head dim (32, 64 or 128).
+// HD: head dim (32, 64, 128 or 256).
 template <typename T, typename S, bool kQuant, int HD>
 __global__ void __launch_bounds__(kThreads, kMinCtasPerSm)
 paged_attn_kernel(const T* __restrict__ q,             // (b, KV, G, HD)
@@ -298,7 +306,7 @@ paged_attn_kernel(const T* __restrict__ q,             // (b, KV, G, HD)
   constexpr int kRB = HD * sizeof(S);         // bytes a staged row
   const int k = blockIdx.x, i = blockIdx.y, split = blockIdx.z, nsplit = gridDim.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int tb = tile_blocks(bs), tc = tb * bs;
+  const int tb = tile_blocks(bs, tile_cols(HD, sizeof(S))), tc = tb * bs;
   const int ntiles = (mb + tb - 1) / tb;
   const int t_begin = split * tps;
   int t_end = min(ntiles, t_begin + tps);     // t_begin when every block is dead
@@ -712,6 +720,7 @@ int launch_hd(const void* q, const void* kp, const void* vp, const void* ks, con
   if (hd == 32) return launch<T, S, kQuant, 32>(PAGED_HD_ARGS);
   if (hd == 64) return launch<T, S, kQuant, 64>(PAGED_HD_ARGS);
   if (hd == 128) return launch<T, S, kQuant, 128>(PAGED_HD_ARGS);
+  if (hd == 256) return launch<T, S, kQuant, 256>(PAGED_HD_ARGS);
 #undef PAGED_HD_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -735,8 +744,10 @@ extern "C" int paged_attn(const void* q, const void* k_pages, const void* v_page
                           void* stream) {
   const bool quant = pool_dtype == kI8 || pool_dtype == kFP8;
   const int elt = quant ? 1 : (pool_dtype == kF32 ? 4 : 2);
-  const int ntiles = mb >= 1 && bs >= 1 ? (mb + tile_blocks(bs) - 1) / tile_blocks(bs) : 0;
-  if (b < 1 || b > 65535 || kv < 1 || g < 1 || (hd != 32 && hd != 64 && hd != 128) ||
+  const int tb = bs >= 1 ? tile_blocks(bs, tile_cols(hd, elt)) : 1;
+  const int ntiles = mb >= 1 && bs >= 1 ? (mb + tb - 1) / tb : 0;
+  if (b < 1 || b > 65535 || kv < 1 || g < 1 ||
+      (hd != 32 && hd != 64 && hd != 128 && hd != 256) ||
       bs < 1 || mb < 1 || nb < 1 || g * hd > kMaxOut * kThreads || device < 0 ||
       device >= kMaxDevices || smem_bytes(g, hd, bs, elt, quant) > kMaxSmem || nsplit < 1 ||
       nsplit > kMaxSplits || tps < 1 || (nsplit - 1) * tps >= ntiles || nsplit * tps < ntiles ||

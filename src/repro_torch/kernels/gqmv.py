@@ -9,6 +9,13 @@ weight format:
   gqmm_cuda(fmt=...)  <- ``gqmm_pallas`` / ``gqmm_{int4,int3,fp8}_pallas``
                          (batched: prefill b = tokens, decode b = batch)
 
+int8 and int3 GQMM run one of two designs, chosen by b in
+``csrc/gqmm.cu`` (``run_gqmm_tc``) and mirrored by :func:`gqmm_design`:
+the small one (decode: activations staged in shared memory, weights
+streamed into tensor-core fragments) for b <= ``SMALL_MAX_B``, the large
+one (prefill: a ring of weight and activation tiles, filled by the TMA
+unit, into ``mma.sync`` s8) above it.
+
 ``wq`` is the format's storage array: int8 (m, n) for int8, packed int8
 (m, n/2) for int4, packed uint8 (m, 3n/8) for int3, float8_e4m3fn (m, n)
 for fp8. Activations are int8 in every format. Each wrapper takes CUDA
@@ -36,11 +43,77 @@ GROUP_SIZES = (16, 32, 64, 128, 256)
 # loads (16 bytes of int8 or fp8, 8 of int4, 6 of int3 as 16-bit words)
 WEIGHT_FORMATS: dict[str, int] = {"int8": 16, "int4": 8, "int3": 2, "fp8": 16}
 
+# csrc/gqmm.cu, int8/int3 GQMM. SMALL_MAX_B is the cut-over, set from the
+# times of both designs at b = 8 and 16 (chip_smoke.py's cut-over rows,
+# PERF.md). The small design: weight rows a CTA, warps a CTA (one unit of
+# whole groups each per round), logical weights a k-span, k-spans of loads
+# in flight a round, groups a unit at most. The large design: batch rows a
+# CTA, weight rows a CTA (WIDE_ROWS where that gives every SM a CTA, else
+# NARROW_ROWS), bytes of the contraction a stage, stages of the ring, groups
+# whose scales a stage holds at most, the floats a row of them takes, and
+# the alignment of a 128-byte-swizzled tile.
+SMALL_MAX_B = 16
+SMALL_ROWS, SMALL_WARPS, SPAN, UNROLL, UNIT_GROUPS = 16, 8, 64, 4, 4
+LARGE_COLS, WIDE_ROWS, NARROW_ROWS, BK, STAGES = 64, 128, 64, 128, 5
+STAGE_GROUPS, SCALE_STRIDE, SWIZZLE_ALIGN = 8, 9, 1024
+SMS, MAX_SMEM = 132, 232448
+TC_FORMATS = ("int8", "int3")
+
 # launches per kernel; a run zeroes these, drives the model, and reads them
 LAUNCHES: dict[str, int] = {f"{kind}_{fmt}": 0 for fmt in WEIGHT_FORMATS
                             for kind in ("gqmv", "gqmm")}
 
 _LIB: list[ctypes.CDLL] = []
+
+
+def small_x_stride(n: int) -> int:
+    """Bytes between staged activation rows of the small design."""
+    spans = -(-n // SPAN)
+    return -(-spans * SPAN // 128) * 128 + 64
+
+
+def small_smem_bytes(tiles8: int, n: int, ng: int) -> int:
+    """Dynamic shared memory of a small-design CTA with ``tiles8`` 8-row
+    tiles of batch rows, as ``csrc/gqmm.cu`` sizes it: the activation rows,
+    their scales, the CTA's weight scales and one round's scaled terms."""
+    return (8 * tiles8 * small_x_stride(n) + 4 * 8 * tiles8 * ng + 4 * SMALL_ROWS * ng
+            + 4 * SMALL_WARPS * UNIT_GROUPS * SMALL_ROWS * 8 * tiles8)
+
+
+def large_smem_bytes(fmt: str, rows: int) -> int:
+    """Dynamic shared memory of a large-design CTA of ``rows`` weight rows:
+    1 KB of room to align the base, STAGES stages (the weights' slice as
+    stored, int3 packed at 48 bytes a row; the activations' slice; both
+    scales; padded to 1 KB, where a 128-byte-swizzled tile must start),
+    for int3 the unpacked int8 tile, then an 8-byte mbarrier a stage."""
+    slice_bytes = BK if fmt == "int8" else BK // 8 * 3
+    stage = rows * slice_bytes + LARGE_COLS * BK + 4 * (rows + LARGE_COLS) * SCALE_STRIDE
+    stage = -(-stage // SWIZZLE_ALIGN) * SWIZZLE_ALIGN
+    return SWIZZLE_ALIGN + STAGES * stage + (rows * BK if fmt == "int3" else 0) + 8 * STAGES
+
+
+def gqmm_design(b: int, m: int, n: int, group_size: int, fmt: str = "int8",
+                aligned: bool = True, small_max_b: int = SMALL_MAX_B) -> tuple[str, int]:
+    """(design, width) that int8/int3 GQMM runs for these shapes:
+    ("small", 8-row tiles of batch rows), ("large", weight rows a CTA), or,
+    for int3 rows the large design's 16-byte copies cannot stream (storage
+    not 16-byte ``aligned``, or n no multiple of BK), ("first", 0): the first
+    design."""
+    ng = n // group_size
+    for tiles8 in (1, 2):
+        if b <= min(small_max_b, 8 * tiles8) and small_smem_bytes(tiles8, n, ng) <= MAX_SMEM:
+            return "small", tiles8
+    if fmt == "int3" and (not aligned or n % BK):
+        return "first", 0
+    wide = -(-m // WIDE_ROWS) * -(-b // LARGE_COLS) >= SMS
+    return "large", WIDE_ROWS if wide else NARROW_ROWS
+
+
+def set_small_max_b(b: int) -> int:
+    """Set the cut-over of the compiled int8/int3 GQMM (the library's, not
+    ``SMALL_MAX_B``) and return the previous one: for timing both designs
+    at one b. Both designs give the same int32 group sums and scaled terms."""
+    return int(_lib().gqmm_set_small_max_b(int(b)))
 
 
 def reset_launches() -> None:
@@ -57,6 +130,8 @@ def _lib() -> ctypes.CDLL:
             mv.argtypes = [p, p, p, p, p, i, i, i, i, p]
             mm.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
             mv.restype = mm.restype = i
+        lib.gqmm_set_small_max_b.argtypes = [i]
+        lib.gqmm_set_small_max_b.restype = i
         _LIB.append(lib)
     return _LIB[0]
 

@@ -38,13 +38,13 @@ from repro_torch.kernels import cuda_build
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _QUANT_DTYPES = {torch.int8: 2, torch.float8_e4m3fn: 3}
 
-# csrc/paged_attn.cu: threads a CTA, columns a tile (whole blocks), output
-# elements a thread, tiles of K/V rows in the ring, tiles of mask / table
-# entries, the most shared memory a CTA can opt into, the head dims it is
-# built for
-THREADS, TILE_COLS, MAX_OUT = 256, 64, 4
+# csrc/paged_attn.cu: threads a CTA, columns a tile (whole blocks; half as
+# many where a staged row is wider than WIDE_ROW bytes), output elements a
+# thread, tiles of K/V rows in the ring, tiles of mask / table entries, the
+# most shared memory a CTA can opt into, the head dims it is built for
+THREADS, TILE_COLS, WIDE_ROW, MAX_OUT = 256, 64, 512, 4
 STAGES, SLOTS, MAX_SMEM = 3, 5, 232448
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 # split-K aims at this many CTAs: eight for each of the H100's 132 SMs; at
 # most MAX_SPLITS splits a row (the combine stages every split's m and l);
 # two tiles a split or more once a row has PAIR_FROM tiles
@@ -71,9 +71,16 @@ def _lib() -> ctypes.CDLL:
     return _LIB[0]
 
 
-def tile_blocks(bs: int) -> int:
-    """Blocks a tile: whole blocks filling 64 columns (one if larger)."""
-    return 1 if bs >= TILE_COLS else TILE_COLS // bs
+def tile_cols(hd: int, elt: int) -> int:
+    """Columns a tile for rows of ``hd`` values of ``elt`` bytes: 64, or 32
+    where a row is wider than 512 bytes (an f32 pool at hd 256), so that
+    three stages of K and V rows fit in shared memory."""
+    return TILE_COLS // 2 if hd * elt > WIDE_ROW else TILE_COLS
+
+
+def tile_blocks(bs: int, cols: int = TILE_COLS) -> int:
+    """Blocks a tile: whole blocks filling ``cols`` columns (one if larger)."""
+    return 1 if bs >= cols else cols // bs
 
 
 def smem_bytes(g: int, hd: int, bs: int, elt: int, quant: bool) -> int:
@@ -82,21 +89,22 @@ def smem_bytes(g: int, hd: int, bs: int, elt: int, quant: bool) -> int:
     and, for a quantized pool, their f32 scales; then q, k_new, v_new, the
     scores, alpha / l / m, ``SLOTS`` slots of mask values and table entries,
     and ``STAGES`` stages of row offsets."""
-    tb = tile_blocks(bs)
+    tb = tile_blocks(bs, tile_cols(hd, elt))
     tc = tb * bs
     return (2 * STAGES * tc * hd * elt + (2 * STAGES * tc * 4 if quant else 0)
             + 4 * (g * hd + 2 * hd + g * tc + 3 * g) + 4 * (SLOTS * (tc + tb) + STAGES * tc))
 
 
-def split_plan(b: int, kv: int, mb: int, bs: int) -> tuple[int, int]:
+def split_plan(b: int, kv: int, mb: int, bs: int, cols: int = TILE_COLS) -> tuple[int, int]:
     """(S, tiles per split) from the shapes alone: enough splits of a row's
     tiles that the grid (KV, b, S) has about ``CTAS_PER_SM`` CTAs for each
     SM, at most ``MAX_SPLITS`` a row, every split non-empty, and at least
     two tiles a split once a row has ``PAIR_FROM`` tiles (a split's first
     tile waits for two memory round trips, the mask and table entries and
     then the rows; a second tile's loads hide behind the first one's sums).
-    Never reads positions or the mask, so choosing it needs no host sync."""
-    ntiles = -(-mb // tile_blocks(bs))
+    Never reads positions or the mask, so choosing it needs no host sync.
+    ``cols`` is the tile's width (:func:`tile_cols` of the pool's rows)."""
+    ntiles = -(-mb // tile_blocks(bs, cols))
     want = -(-SMS * CTAS_PER_SM // (b * kv))
     most = ntiles // 2 if ntiles >= PAIR_FROM else ntiles
     tps = -(-ntiles // max(1, min(most, want, MAX_SPLITS)))
@@ -196,7 +204,7 @@ def paged_attention_cuda(q, k_pages, v_pages, block_table, pos, k_new, v_new, ma
     table32 = block_table.to(torch.int32)       # explicit: the kernel reads int32
     pos32 = pos.to(torch.int32)
     out = torch.empty((b, kv * g * hd), dtype=q.dtype, device=q.device)
-    nsplit, tps = split_plan(b, kv, mb, bs)
+    nsplit, tps = split_plan(b, kv, mb, bs, tile_cols(hd, k_pages.element_size()))
     part = (torch.empty((b, kv, nsplit, g, hd + 2), dtype=torch.float32, device=q.device)
             if nsplit > 1 else None)
     pool_code = _QUANT_DTYPES[k_pages.dtype] if quant else _Q_DTYPES[q.dtype]

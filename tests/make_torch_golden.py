@@ -1,6 +1,6 @@
 """Write the golden tokens that ``chip_smoke.py`` holds the port to.
 
-    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_torch_golden.py
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_torch_golden.py [--deep-only]
 
 Builds TinyLlama at full width (depth cut to ``chip_smoke.GOLDEN``'s layer
 count, f32 params and compute) with ``repro_torch.bridge.init_params_numpy``,
@@ -20,6 +20,16 @@ port's tokens to be identical for int8 ``generate`` and the float pool; for
 the other settings, and for the flags where the CPU run was not exact, it
 requires every replayed reference token to be the card's greedy choice or a
 near tie of it, and shows the free-running count beside the CPU's.
+
+The deep section (``chip_smoke.GOLDEN_DEEP``) repeats the golden prompt on
+the same weights drawn at TinyLlama's full depth of 22 layers: the
+reference's greedy tokens with f32 weights and with int8 weights, the
+port's plain CPU agreement with each, and the steps at which the port's CPU
+run, replayed on the reference's tokens, chooses another token (with the
+margin as a fraction of max|logit|): the ties that
+``tests/test_torch_deep_tie.py`` traces to a .5 activation tie. It takes
+about 4 minutes and 15 GB on an 8-core CPU; ``--deep-only`` recomputes just
+that section and keeps the rest of the file.
 
 A helper, not a test (pytest does not collect it); it imports both packages.
 """
@@ -56,7 +66,48 @@ def _equal(a, b) -> int:
     return sum(x == y for ra, rb in zip(a, b) for x, y in zip(ra, rb))
 
 
+def deep_section(prompt: np.ndarray) -> dict:
+    """The 22-layer golden: reference tokens with f32 and int8 weights, and
+    the port's plain CPU run against them (free-running and replayed)."""
+    g, gd = chip_smoke.GOLDEN, chip_smoke.GOLDEN_DEEP
+    cfg_port = chip_smoke.golden_config(gd["num_layers"])
+    cfg = dataclasses.replace(load_config(g["arch"]), num_layers=gd["num_layers"],
+                              param_dtype=g["dtype"], compute_dtype=g["dtype"])
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(cfg_port), "config drift"
+    tree = init_params_numpy(cfg_port, g["seed"])
+    out = dict(gd, tokens={}, port_cpu_equal={}, port_cpu_replay_differs={},
+               weights_checksum=chip_smoke.weights_checksum(tree))
+    cache_len = g["prompt_len"] + g["max_new_tokens"]
+    jparams = numpy_to_jax(tree)
+    tparams = params_from_numpy(tree, "cpu")
+    del tree
+    for setting in gd["settings"]:
+        quantize = g["quantize"] if setting == "int8" else False
+        eng = InferenceEngine(build(cfg), jparams, quantize=quantize, cache_len=cache_len)
+        want = np.asarray(eng.generate({"tokens": jnp.asarray(prompt, jnp.int32)},
+                                       g["max_new_tokens"]).tokens).tolist()
+        del eng
+        te = TEngine(tbuild(cfg_port), tparams, quantize=quantize, cache_len=cache_len,
+                     device="cpu")
+        got = te.generate({"tokens": torch.as_tensor(prompt)}, g["max_new_tokens"]).tokens.tolist()
+        out["tokens"][setting] = want
+        out["port_cpu_equal"][setting] = _equal(got, want)
+        out["port_cpu_replay_differs"][setting] = chip_smoke.replay_choices(te, prompt,
+                                                                            np.asarray(want))
+        del te
+        print(f"deep golden, {setting}: the port's plain CPU run matches "
+              f"{out['port_cpu_equal'][setting]} of the reference's tokens; replayed, it "
+              f"differs at {out['port_cpu_replay_differs'][setting]}", flush=True)
+    return out
+
+
 def main() -> None:
+    if "--deep-only" in sys.argv[1:]:
+        out = json.loads(chip_smoke.GOLDEN_FILE.read_text())
+        out["deep"] = deep_section(np.asarray(out["prompt"]))
+        chip_smoke.GOLDEN_FILE.write_text(json.dumps(out, indent=1) + "\n")
+        print(f"wrote the deep section of {chip_smoke.GOLDEN_FILE.relative_to(ROOT)}")
+        return
     g = chip_smoke.GOLDEN
     cfg_port = chip_smoke.golden_config()
     cfg = dataclasses.replace(load_config(g["arch"]), num_layers=g["num_layers"],
@@ -132,6 +183,7 @@ def main() -> None:
         "formats": formats,
         "flags_tokens": flags_tokens,
         "port_cpu_equal": port_cpu,
+        "deep": deep_section(prompt),
         "weights_checksum": chip_smoke.weights_checksum(tree),
         "numpy": np.__version__,
         "jax": jax.__version__,

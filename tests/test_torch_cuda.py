@@ -193,6 +193,63 @@ def test_int3_rows_only_two_byte_aligned(dev):
                                       group_size=16))
 
 
+# int8 (B3) and int3 (B6) GQMM: the small design at b <= kern.SMALL_MAX_B,
+# the tensor-core ring above it; m not a multiple of any tile, b ragged
+TC_BATCHES = (1, 4, 8, 9, 16, 64, 200, 256)
+
+
+def _rand_tc(dev, fmt, m, n, gs, b, seed):
+    return _rand(dev, m, n, gs, b, seed) if fmt == "int8" else _rand_fmt(dev, fmt, m, n, gs, b,
+                                                                        seed)
+
+
+def _plain_tc(fmt):
+    return ref.gqmm_ref if fmt == "int8" else ref.gqmm_int3_ref
+
+
+@pytest.mark.parametrize("gs", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("b", TC_BATCHES)
+@pytest.mark.parametrize("fmt", kern.TC_FORMATS)
+def test_tensor_core_gqmm_matches_plain(dev, fmt, gs, b):
+    args = _rand_tc(dev, fmt, 200, 1024, gs, b, seed=gs + b)
+    before = kern.LAUNCHES[f"gqmm_{fmt}"]
+    got = kern.gqmm_cuda(*args, group_size=gs, fmt=fmt)
+    assert kern.LAUNCHES[f"gqmm_{fmt}"] == before + 1
+    _close(got, _plain_tc(fmt)(*args, group_size=gs))
+
+
+@pytest.mark.parametrize("m,n,gs,b", [(4100, 2048, 256, 256), (2048, 2048, 256, 256),
+                                      (300, 1040, 16, 70), (300, 1056, 32, 70),
+                                      (300, 1040, 16, 5), (300, 1056, 32, 11),
+                                      (2560, 2048, 256, 4), (2048, 5632, 256, 16)])
+@pytest.mark.parametrize("fmt", kern.TC_FORMATS)
+def test_tensor_core_gqmm_tiles_and_partial_slices(dev, fmt, m, n, gs, b):
+    """The wide (128-row) and narrow tiles of the large design, a
+    contraction that ends inside a 128-byte slice and a 64-column k-span
+    (n = 1040 at GS 16, 1056 at GS 32), and the small design at w2's
+    width."""
+    args = _rand_tc(dev, fmt, m, n, gs, b, seed=m + b)
+    _close(kern.gqmm_cuda(*args, group_size=gs, fmt=fmt), _plain_tc(fmt)(*args, group_size=gs))
+
+
+@pytest.mark.parametrize("b", [1, 4, 9, 16])
+@pytest.mark.parametrize("fmt", kern.TC_FORMATS)
+def test_tensor_core_gqmm_designs_agree_at_one_b(dev, fmt, b):
+    """Both designs at the same b (the library's cut-over moved): each
+    within the tolerance of the plain version, and of each other."""
+    args = _rand_tc(dev, fmt, 2048, 2048, 256, b, seed=b)
+    want = _plain_tc(fmt)(*args, group_size=256)
+    small = kern.gqmm_cuda(*args, group_size=256, fmt=fmt)
+    prev = kern.set_small_max_b(0)
+    try:
+        large = kern.gqmm_cuda(*args, group_size=256, fmt=fmt)
+    finally:
+        kern.set_small_max_b(prev)
+    assert prev == kern.SMALL_MAX_B
+    _close(small, want)
+    _close(large, want)
+
+
 def test_lowbit_wrappers_reject_bad_arguments(dev):
     wq, ws, xq, xs = _rand_fmt(dev, "int4", 64, 256, 32, 4)
     bad = [
@@ -295,6 +352,21 @@ def test_paged_kernel_split_k_with_dead_splits(dev, pool, qdt):
                         table.clamp(min=1))
     mask = decode_mask(mb * bs, pos)
     args = (q, kp, vp, table, pos, kn, vn, mask)
+    got = paged_kern.paged_attention_cuda(*args, **kw)
+    up = [a.float() if a.dtype == torch.bfloat16 else a for a in args]
+    want = ref.paged_attention_ref(*up, **kw)
+    tol = 1e-5 if qdt == torch.float32 else 1e-2
+    assert (got.float() - want).abs().max() <= tol * want.abs().max()
+
+
+@pytest.mark.parametrize("qdt,pool", [(torch.bfloat16, "float"), (torch.float32, "float"),
+                                      (torch.bfloat16, "int8"), (torch.bfloat16, "fp8"),
+                                      (torch.float32, "int8")])
+@pytest.mark.parametrize("mb", [12, 256])
+def test_paged_kernel_head_dim_256(dev, qdt, pool, mb):
+    """gemma2's paged shape: G 2 at hd 256, blocks of 8, one split and many;
+    an f32 pool runs 32-column tiles."""
+    args, kw = _paged(dev, pool, qdt, b=3, bs=8, mb=mb, kv=4, g=2, hd=256, seed=mb)
     got = paged_kern.paged_attention_cuda(*args, **kw)
     up = [a.float() if a.dtype == torch.bfloat16 else a for a in args]
     want = ref.paged_attention_ref(*up, **kw)

@@ -1,0 +1,326 @@
+"""The arithmetic of the tensor-core int8 (B3) and int3 (B6) GQMM designs
+of ``csrc/gqmm.cu``, emulated in plain PyTorch on the CPU and held against
+the reference package (the CUDA kernels run in tests/test_torch_cuda.py on
+the card).
+
+- Large design (b above the cut-over): tiles of weight rows x 64 batch rows
+  (ragged edges zero-filled), int32 sums of 32-column k-steps (16 at GS 16)
+  added into each group's sum, each group's sum scaled as the plain version
+  scales it (int8 ``(s * ws) * xs``, int3 ``(s * xs) * ws``, each product
+  rounded in f32) and added in f32 into an even-group or odd-group sum,
+  each left to right; the output is even + odd.
+- Small design (b at or below the cut-over): units of whole groups (a group
+  of GS >= 64, else a 64-column k-span), one per warp per round of 8; each
+  round's terms added in group order into the even and odd sums, as above.
+
+The one order of both designs is the first design's at GS 256 (the even groups summed
+on one lane, the odd ones on another, then added): with it the 2-layer
+int8 golden stays token-exact on the card.
+
+Both are held to the reference's oracles (``gqmm_ref``, ``gqmm_int3_ref``)
+and its Pallas kernels in interpret mode on numpy-made inputs: the int32
+group sums must be equal, the outputs within 1e-5 of max|ref| (another f32
+order of the sum across groups). Then the constants of ``kernels/gqmv.py``
+against ``csrc/gqmm.cu``, and the paged kernel's head dims against the
+reference's paged configs.
+"""
+
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import quant as jquant  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.gqmv import gqmm_int3_pallas, gqmm_pallas  # noqa: E402
+from repro.models.registry import ARCH_IDS, build as jbuild, load_config as jload  # noqa: E402
+from repro_torch.core.quant import unpack_int3  # noqa: E402
+from repro_torch.kernels import gqmv as kern  # noqa: E402
+from repro_torch.kernels import paged_attn as paged_kern  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+
+CSRC = Path(kern.__file__).resolve().parents[1] / "csrc"
+GROUP_SIZES = (16, 32, 64, 128, 256)
+
+
+def _inputs(fmt, m, n, gs, b, seed):
+    """numpy-made (wq storage, ws, xq, xs) and the int8 weight values."""
+    rng = np.random.default_rng(seed)
+    xq = rng.integers(-127, 128, (b, n), dtype=np.int8)
+    xs = (rng.random((b, n // gs), dtype=np.float32) * 1e-2 + 1e-4).astype(np.float32)
+    if fmt == "int8":
+        wq = rng.integers(-127, 128, (m, n), dtype=np.int8)
+        ws = (rng.random((m, n // gs), dtype=np.float32) * 1e-2 + 1e-4).astype(np.float32)
+        return wq, ws, xq, xs, wq
+    w = jquant.quantize_int3(jnp.asarray(rng.standard_normal((m, n), dtype=np.float32)), gs)
+    wq, ws = np.array(w.qvalues), np.array(w.scales)
+    return wq, ws, xq, xs, unpack_int3(torch.from_numpy(wq.copy())).numpy()
+
+
+def _term(sums, ws, xs, fmt):
+    """(b, m, ng) f32 scaled terms, each product rounded in f32."""
+    s = sums.to(torch.float32)
+    if fmt == "int8":
+        return (s * ws[None]) * xs[:, None, :]
+    return (s * xs[:, None, :]) * ws[None]
+
+
+def _step_sums(wv, xq, gs):
+    """(b, m, ng) int64 group sums built from the k-steps the mma runs:
+    32 columns (16 at GS 16), each an exact integer dot."""
+    m, n = wv.shape
+    b = xq.shape[0]
+    step = min(gs, 32)
+    w = torch.from_numpy(wv.astype(np.int64)).reshape(m, n // step, step)
+    x = torch.from_numpy(xq.astype(np.int64)).reshape(b, n // step, step)
+    steps = torch.einsum("mks,bks->bmk", w, x)
+    return steps.reshape(b, m, n // gs, gs // step).sum(-1)
+
+
+def emulate_large(wv, ws, xq, xs, gs, fmt, rows=kern.WIDE_ROWS):
+    """The large design: tiles of ``rows`` weight rows x LARGE_COLS batch
+    rows, zero-padded at the ragged edges; groups added left to right."""
+    m, n = wv.shape
+    b = xq.shape[0]
+    mp, bp = -(-m // rows) * rows, -(-b // kern.LARGE_COLS) * kern.LARGE_COLS
+    wpad = np.zeros((mp, n), np.int8)
+    wpad[:m] = wv
+    xpad = np.zeros((bp, n), np.int8)
+    xpad[:b] = xq
+    wsp = torch.zeros((mp, n // gs))
+    wsp[:m] = torch.from_numpy(ws)
+    xsp = torch.zeros((bp, n // gs))
+    xsp[:b] = torch.from_numpy(xs)
+    out = torch.zeros((bp, mp))
+    for m0 in range(0, mp, rows):
+        for b0 in range(0, bp, kern.LARGE_COLS):
+            wt, xt = wpad[m0:m0 + rows], xpad[b0:b0 + kern.LARGE_COLS]
+            terms = _term(_step_sums(wt, xt, gs), wsp[m0:m0 + rows], xsp[b0:b0 + kern.LARGE_COLS],
+                          fmt)
+            out[b0:b0 + kern.LARGE_COLS, m0:m0 + rows] = _even_odd(terms, range(terms.shape[-1]))
+    return out[:b, :m]
+
+
+def _even_odd(terms, groups):
+    """even + odd: the terms of ``groups`` (in the order given) added into
+    the sum of their parity, each starting from 0."""
+    sums = [torch.zeros(terms.shape[:2]), torch.zeros(terms.shape[:2])]
+    for g in groups:
+        sums[g % 2] = sums[g % 2] + terms[..., g]
+    return sums[0] + sums[1]
+
+
+def small_rounds(n, gs):
+    """The small design's rounds: for each, every warp's unit as the list of
+    its groups (a warp past the last unit has none)."""
+    width = max(gs, kern.SPAN)
+    per_unit, ng = width // gs if gs < kern.SPAN else 1, n // gs
+    nunits = -(-n // width)
+    rounds = []
+    for r in range(-(-nunits // kern.SMALL_WARPS)):
+        units = [r * kern.SMALL_WARPS + w for w in range(kern.SMALL_WARPS)]
+        rounds.append([[g for g in range(u * per_unit, (u + 1) * per_unit) if g < ng]
+                       if u < nunits else [] for u in units])
+    return rounds
+
+
+def emulate_small(wv, ws, xq, xs, gs, fmt):
+    """The small design: each round's terms, warp by warp and group by
+    group, into the even and odd sums."""
+    terms = _term(_step_sums(wv, xq, gs), torch.from_numpy(ws), torch.from_numpy(xs), fmt)
+    order = [g for rnd in small_rounds(wv.shape[1], gs) for unit in rnd for g in unit]
+    return _even_odd(terms, order)
+
+
+def _oracles(fmt, wq, ws, xq, xs, gs):
+    oracle = jref.gqmm_ref if fmt == "int8" else jref.gqmm_int3_ref
+    pallas = gqmm_pallas if fmt == "int8" else gqmm_int3_pallas
+    args = tuple(jnp.asarray(a) for a in (wq, ws, xq, xs))
+    return (np.asarray(oracle(*args, group_size=gs)),
+            np.asarray(pallas(*args, group_size=gs, interpret=True)))
+
+
+def _within(got, want):
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+# (m, n, b): m no multiple of a tile; b on both sides of the cut-over
+SHAPES = [(200, 1024, 3), (200, 1024, 16), (200, 1024, 17), (70, 512, 70)]
+
+
+@pytest.mark.parametrize("gs", GROUP_SIZES)
+@pytest.mark.parametrize("m,n,b", SHAPES)
+@pytest.mark.parametrize("fmt", kern.TC_FORMATS)
+def test_tensor_core_designs_match_reference(fmt, gs, m, n, b):
+    wq, ws, xq, xs, wv = _inputs(fmt, m, n, gs, b, seed=gs * 7 + b)
+    want, pallas = _oracles(fmt, wq, ws, xq, xs, gs)
+    plain = (ref.gqmm_ref if fmt == "int8" else ref.gqmm_int3_ref)(
+        *(torch.from_numpy(np.array(a)) for a in (wq, ws, xq, xs)), group_size=gs).numpy()
+    for rows in (kern.WIDE_ROWS, kern.NARROW_ROWS):
+        large = emulate_large(wv, ws, xq, xs, gs, fmt, rows).numpy()
+        _within(large, want)
+        _within(large, pallas)
+    small = emulate_small(wv, ws, xq, xs, gs, fmt).numpy()
+    _within(small, want)
+    _within(small, pallas)
+    _within(plain, want)
+
+
+@pytest.mark.parametrize("gs", GROUP_SIZES)
+@pytest.mark.parametrize("fmt", kern.TC_FORMATS)
+def test_k_step_group_sums_equal_the_reference(fmt, gs):
+    """The int32 sums the mmas build (32-column k-steps, 16 at GS 16) are the
+    reference's group sums exactly."""
+    m, n, b = 40, 512, 9
+    wq, ws, xq, xs, wv = _inputs(fmt, m, n, gs, b, seed=gs)
+    ng = n // gs
+    want = np.einsum("mgk,bgk->bmg", wv.reshape(m, ng, gs).astype(np.int32),
+                     xq.reshape(b, ng, gs).astype(np.int32))
+    assert np.array_equal(_step_sums(wv, xq, gs).numpy(), want)
+
+
+@pytest.mark.parametrize("n,gs", [(2048, 256), (5632, 256), (1024, 16), (1056, 32)])
+@pytest.mark.parametrize("fmt", kern.TC_FORMATS)
+def test_designs_agree_bitwise_and_keep_each_scaled_term(fmt, n, gs):
+    """Both designs add the groups in one order (even groups, odd groups,
+    each left to right): equal bits, at any b. Each term is the plain
+    version's product, rounded twice in f32 in its association."""
+    wq, ws, xq, xs, wv = _inputs(fmt, 64, n, gs, 5, seed=1)
+    assert torch.equal(emulate_small(wv, ws, xq, xs, gs, fmt),
+                       emulate_large(wv, ws, xq, xs, gs, fmt))
+    wq, ws, xq, xs, wv = _inputs(fmt, 64, 2048, 256, 5, seed=1)
+    sums = _step_sums(wv, xq, 256)
+    t = _term(sums, torch.from_numpy(ws), torch.from_numpy(xs), fmt)
+    s32 = sums.numpy().astype(np.float32)
+    if fmt == "int8":
+        want = (s32 * ws[None]) * xs[:, None, :]
+    else:
+        want = (s32 * xs[:, None, :]) * ws[None]
+    assert np.array_equal(t.numpy(), want)
+
+
+@pytest.mark.parametrize("n,gs", [(2048, 256), (5632, 256), (1024, 16), (1056, 32), (48, 16),
+                                  (256, 256), (1024, 128)])
+def test_small_design_rounds_cover_every_group_once_in_order(n, gs):
+    rounds = small_rounds(n, gs)
+    order = [g for rnd in rounds for unit in rnd for g in unit]
+    assert order == list(range(n // gs))
+    for rnd in rounds:
+        assert len(rnd) == kern.SMALL_WARPS
+        for unit in rnd:
+            # a unit is whole groups in whole k-spans, at most UNROLL spans
+            # of loads and UNIT_GROUPS groups
+            assert len(unit) <= kern.UNIT_GROUPS
+            assert not unit or unit[0] * gs % kern.SPAN == 0
+            assert len(unit) * gs <= kern.UNROLL * kern.SPAN
+
+
+def _cuda_constants() -> dict[str, int]:
+    src = (CSRC / "gqmm.cu").read_text()
+    return {name: int(val) for name, val in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+
+
+def test_design_constants_mirror_the_cuda_source():
+    c = _cuda_constants()
+    assert c["kSmallMaxB"] == kern.SMALL_MAX_B
+    assert c["kSmallRows"] == kern.SMALL_ROWS and c["kSmallWarps"] == kern.SMALL_WARPS
+    assert c["kSpan"] == kern.SPAN and c["kUnroll"] == kern.UNROLL
+    assert c["kUnitGroups"] == kern.UNIT_GROUPS
+    assert c["kLargeCols"] == kern.LARGE_COLS and c["kBK"] == kern.BK
+    assert c["kStagesTc"] == kern.STAGES and c["kSms"] == kern.SMS
+    assert c["kStageGroups"] == kern.STAGE_GROUPS == kern.BK // 16
+    assert c["kScaleStride"] == kern.SCALE_STRIDE
+    assert c["kSwizzleAlign"] == kern.SWIZZLE_ALIGN
+    assert c["kMaxSmem"] == kern.MAX_SMEM
+    src = (CSRC / "gqmm.cu").read_text()
+    # the large design's two tile widths: 32 rows a warp, 2 (narrow) or 4
+    # (wide) warps along the rows
+    assert "GQMM_LARGE(4, true)" in src and "GQMM_LARGE(2, true)" in src
+    assert (32 * 4, 32 * 2) == (kern.WIDE_ROWS, kern.NARROW_ROWS)
+
+
+@pytest.mark.parametrize("b,m,want", [(1, 2048, ("small", 1)), (4, 32000, ("small", 1)),
+                                      (8, 2560, ("small", 1)), (9, 2048, ("small", 2)),
+                                      (16, 11264, ("small", 2)), (17, 2048, ("large", 64)),
+                                      (64, 2048, ("large", 64)), (256, 2048, ("large", 64)),
+                                      (256, 2560, ("large", 64)), (256, 11264, ("large", 128)),
+                                      (256, 32000, ("large", 128))])
+def test_design_choice_by_b(b, m, want):
+    """At TinyLlama's shapes: decode and the ragged serve's b <= 8 run the
+    small design; the 4 x 64 prefill's b = 256 the large one, with 64-row
+    tiles where 128-row ones would leave SMs idle (wo, wqkv, w2)."""
+    assert kern.gqmm_design(b, m, 2048, 256) == want
+
+
+def test_small_smem_bytes_mirror_the_layout():
+    """Activation rows at a stride 64 bytes past a multiple of 128 (so the
+    8 rows of a B-fragment load fall in distinct bank groups), their
+    scales, the CTA's 16 rows of weight scales, one round's scaled terms
+    (8 warps x 4 groups x 16 rows x the batch rows)."""
+    for n, gs, t8 in ((2048, 256, 1), (5632, 256, 2), (1040, 16, 2)):
+        stride = kern.small_x_stride(n)
+        assert stride % 128 == 64 and stride >= n
+        ng = n // gs
+        assert kern.small_smem_bytes(t8, n, ng) == (8 * t8 * stride + 4 * 8 * t8 * ng
+                                                    + 4 * 16 * ng + 4 * 8 * 4 * 16 * 8 * t8)
+    assert kern.small_smem_bytes(2, 5632, 5632 // 256) <= kern.MAX_SMEM
+
+
+@pytest.mark.parametrize("fmt", kern.TC_FORMATS)
+def test_large_smem_bytes_fit_the_opt_in(fmt):
+    """Five stages (the weight slice, int3 packed at 48 bytes a row; the
+    activation slice; both scales; each padded to 1 KB, where a 128-byte-
+    swizzled TMA tile must start), int3's unpacked tile and an mbarrier a
+    stage, with 1 KB of room to align the base, fit the 227 KB a CTA can opt
+    into; two 64-row CTAs fit an SM."""
+    assert 2 * kern.large_smem_bytes(fmt, kern.NARROW_ROWS) <= 228 * 1024
+    for rows in (kern.NARROW_ROWS, kern.WIDE_ROWS):
+        w_tile = rows * (128 if fmt == "int8" else 48)
+        stage = -(-(w_tile + 64 * 128 + 4 * (rows + 64) * 9) // 1024) * 1024
+        want = 1024 + 5 * stage + (rows * 128 if fmt == "int3" else 0) + 8 * 5
+        assert kern.large_smem_bytes(fmt, rows) == want <= kern.MAX_SMEM
+        assert w_tile % 1024 == 0              # the activation tile starts swizzle-aligned
+
+
+def test_int3_rows_the_ring_cannot_stream_run_the_first_design():
+    assert kern.gqmm_design(64, 300, 1040, 16, "int3") == ("first", 0)
+    assert kern.gqmm_design(64, 300, 1024, 16, "int3", aligned=False) == ("first", 0)
+    assert kern.gqmm_design(64, 300, 1024, 16, "int3") == ("large", 64)
+    assert kern.gqmm_design(64, 300, 1040, 16, "int8") == ("large", 64)
+    assert kern.gqmm_design(4, 300, 1040, 16, "int3", aligned=False) == ("small", 1)
+
+
+def test_paged_head_dims_cover_the_reference_paged_configs():
+    """Every head dim of a reference config whose model has a paged path
+    (gemma2-2b's 256 among them) is one the port's paged kernel takes, with
+    its G * hd within the kernel's outputs a CTA."""
+    seen = set()
+    for arch in ARCH_IDS:
+        cfg = jload(arch)
+        if cfg.model_type != "decoder_lm" or not jbuild(cfg).supports_paged:
+            continue
+        hd, g = cfg.resolved_head_dim, cfg.num_heads // cfg.num_kv_heads
+        seen.add(hd)
+        assert hd in paged_kern.HEAD_DIMS, arch
+        assert g * hd <= paged_kern.MAX_OUT * paged_kern.THREADS, arch
+    assert 256 in seen
+
+
+@pytest.mark.parametrize("hd,elt,cols", [(256, 4, 32), (256, 2, 64), (256, 1, 64),
+                                         (128, 4, 64), (64, 2, 64)])
+def test_paged_tile_width_fits_shared_memory(hd, elt, cols):
+    """Only an f32 pool at hd 256 runs 32-column tiles; at G 2 and blocks of
+    8 every pool type at hd 256 fits the 227 KB a CTA can opt into."""
+    assert paged_kern.tile_cols(hd, elt) == cols
+    quant = elt == 1
+    assert paged_kern.smem_bytes(2, hd, 8, elt, quant) <= paged_kern.MAX_SMEM
+    tb = paged_kern.tile_blocks(8, cols)
+    tc = tb * 8
+    regions = [3 * 2 * tc * hd * elt, (3 * 2 * tc * 4) if quant else 0, 4 * 2 * hd, 4 * 2 * hd,
+               4 * 2 * tc, 4 * 3 * 2, 4 * 5 * tc, 4 * 5 * tb, 4 * 3 * tc]
+    assert paged_kern.smem_bytes(2, hd, 8, elt, quant) == sum(regions)

@@ -224,8 +224,9 @@ def test_split_plan_covers_every_tile_once():
 
 
 def test_split_plan_depends_on_shapes_only():
-    """The plan is a pure function of (b, KV, MB, BS): no positions, no mask,
-    so the wrapper never reads the card to choose it. The golden ragged
+    """The plan is a pure function of (b, KV, MB, BS) and the tile width: no
+    positions, no mask, so the wrapper never reads the card to choose it.
+    The golden ragged
     trace's shape (3 slots, 4 KV heads, a 32-token cache in blocks of 8)
     runs one split, which keeps the first design's order of arithmetic; the
     ragged serve's (8 slots, 256 tokens in blocks of 8) runs one split per
@@ -233,7 +234,9 @@ def test_split_plan_depends_on_shapes_only():
     16 splits of 2."""
     import inspect
 
-    assert list(inspect.signature(paged_kern.split_plan).parameters) == ["b", "kv", "mb", "bs"]
+    # cols, the tile's width, is tile_cols of the pool's row shape
+    assert list(inspect.signature(paged_kern.split_plan).parameters) == ["b", "kv", "mb", "bs",
+                                                                         "cols"]
     assert paged_kern.split_plan(3, 4, 32 // 8, 8) == (1, 1)
     assert paged_kern.split_plan(8, 4, 256 // 8, 8) == (4, 1)
     assert paged_kern.split_plan(32, 4, 2048 // 8, 8) == (8, 4)
