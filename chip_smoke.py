@@ -20,11 +20,13 @@ printing no result, when CUDA is missing. Phases, each fatal on failure:
              a GPU spin that keeps the host's launch cost out; beside the int8
              GQMM at b=256, torch._int_mm on the same int8 operands (the
              tensor-core product without group scales, a yardstick the port
-             never calls; int_mm_us). Then int8 and int3 GQMM at b = 8 and 16
-             with each of their two designs (the times that set the
-             cut-over), and each kernel at every group size 16-256 on a small
-             shape at b up to 40 (and int3 on rows that are only 2-byte
-             aligned), checked only.
+             never calls; int_mm_us). Then GQMM of every format at b = 8 and
+             16 with each of its two designs (the times that set the
+             cut-over); the int4 and fp8 GQMM designs at every projection,
+             every group size 16-256 and b in {4, 8, 16, 256}, checked only;
+             and each kernel at every group size 16-256 on a small shape at b
+             up to 40 (and int3 on rows that are only 2-byte aligned),
+             checked only.
              Then paged decode attention (bf16, f32, int8 and fp8 pools;
              b in {1, 8, 32}, BS in {8, 16}, MB*BS in {256, 2048}, KV 4, G 8,
              hd 64, softcap None or 50; random non-identity block tables with
@@ -37,10 +39,12 @@ printing no result, when CUDA is missing. Phases, each fatal on failure:
              time's share of its bound; then, checked only, gemma2's paged
              shape: G 2 at hd 256 over bf16, f32, int8 and fp8 pools.
              Then flash attention (B4): causal GQA 32/4 heads, hd 64, at
-             4 x 64 and 1 x 2048 tokens (timed, beside
+             4 x 64 and 1 x 2048 tokens, gemma2's 8/4 heads at hd 256 and
+             zamba2's 32/32 at hd 112 over 1 x 2048 (timed, beside
              scaled_dot_product_attention on the same inputs, the library
              call for the same function, which the port never calls), window
-             32 + soft cap 50, non-causal, hd 32 and 128, and 4 x 200 tokens;
+             + soft cap 50 (at hd 64, 256 and 112), non-causal, hd 32 and
+             128, and 4 x 200 tokens;
              bf16 runs the tensor-core kernel, f32 the CUDA-core one, with
              the paged kernel's tolerance rule. Then the fused RMSNorm +
              quantize (B2) at (4, 2048), (256, 2048) and (256, 5632), GS 256
@@ -59,8 +63,9 @@ printing no result, when CUDA is missing. Phases, each fatal on failure:
              first-step logits within 5e-2 * max|logit| (bf16 rounds every
              projection output to 2^-8 and 22 layers compound the kernel's
              other f32 summation order); the greedy-token agreement is shown.
-             Then the matvec path: ops.quantized_matmul on 1-D activations
-             (the GQMV kernels) over the same 89 projections.
+             The 89 projections are timed as one pass at b = 4 and at the
+             prefill's b = 256. Then the matvec path: ops.quantized_matmul on
+             1-D activations (the GQMV kernels) over the same 89 projections.
 4. golden:   TinyLlama at full width (depth cut to the golden file's), f32,
              weights drawn by bridge.init_params_numpy: the greedy tokens
              must equal the reference package's (written by
@@ -182,17 +187,22 @@ ARCH = "tinyllama-1.1b"
 PROJECTIONS = (("wqkv", 2560, 2048), ("wo", 2048, 2048), ("w13", 11264, 2048),
                ("w2", 2048, 5632), ("classifier", 32000, 2048))
 KERNEL_BATCHES = (1, 4, 16, 64, 256)
-# int8 / int3 GQMM: both designs timed at these b, the cut-over's
+# GQMM of every format: both designs timed at these b, the cut-over's
 # neighbourhood (kern.SMALL_MAX_B), on every projection
 CUTOVER_BATCHES = (8, 16)
+# the int4 and fp8 GQMM designs (small at b <= kern.SMALL_MAX_B, large
+# above), checked against their plain versions at every projection, every
+# group size and these b
+TC_SWEEP = {"formats": ("int4", "fp8"), "batches": (4, 8, 16, 256),
+            "group_sizes": (16, 32, 64, 128, 256)}
 # torch._int_mm (int8 tensor-core product, no group scales; the port never
 # calls it) timed at this b on the int8 operands, as a yardstick
 INT_MM_B = 256
 RTOL = 1e-5
 # weight formats of phase 2, the fp8 tolerance (rtol, absolute atol), and
-# the card's peak rate for the products (fp8 x int8 runs at bf16's rate:
-# bf16 holds both exactly, which is how a tensor-core version would
-# compute them)
+# the card's peak rate for the products (fp8 x int8 runs at f16's and
+# bf16's rate: both hold e4m3 and int8 values exactly, and the fp8 GQMM
+# runs the f16 tensor cores)
 WEIGHT_FORMATS = ("int8", "int4", "int3", "fp8")
 FP8_TOL = (5e-4, 1e-4)
 OPS_PER_S = {"int8": INT8_OPS_PER_S, "int4": INT8_OPS_PER_S, "int3": INT8_OPS_PER_S,
@@ -205,16 +215,23 @@ RAGGED_FORMAT = "mixed3"
 # phase 2, flash attention (B4): TinyLlama's causal GQA 32/4 heads at hd 64,
 # timed beside scaled_dot_product_attention (the library call for the same
 # function, a yardstick the port never calls) at the serve's prefill
-# (4 x 64) and at one 2048-token prompt; then checked-only cases: window +
-# soft cap, non-causal, hd 32 and 128, a length that is no power of two.
+# (4 x 64) and at one 2048-token prompt, then gemma2-2b's heads (8/4 at hd
+# 256) and zamba2-7b's shared attention's (32/32 at hd 112) over one
+# 2048-token prompt; then checked-only cases: window + soft cap (also at hd
+# 256 and 112, gemma2's soft cap 50), non-causal, hd 32 and 128, a length
+# that is no power of two.
 # (name, b, heads, kv_heads, s, t, hd, causal, window, softcap)
 FLASH_TIMED = (("4x64", 4, 32, 4, 64, 64, 64, True, None, None),
-               ("1x2048", 1, 32, 4, 2048, 2048, 64, True, None, None))
+               ("1x2048", 1, 32, 4, 2048, 2048, 64, True, None, None),
+               ("gemma2_1x2048", 1, 8, 4, 2048, 2048, 256, True, None, None),
+               ("zamba2_1x2048", 1, 32, 32, 2048, 2048, 112, True, None, None))
 FLASH_CHECKED = (("window32_cap50", 2, 8, 2, 256, 256, 64, True, 32, 50.0),
                  ("non_causal", 2, 8, 2, 64, 96, 64, False, None, None),
                  ("hd32", 2, 8, 2, 128, 128, 32, True, None, None),
                  ("hd128", 2, 8, 2, 128, 128, 128, True, None, None),
-                 ("4x200", 4, 32, 4, 200, 200, 64, True, None, None))
+                 ("4x200", 4, 32, 4, 200, 200, 64, True, None, None),
+                 ("hd256_window48_cap50", 2, 8, 4, 256, 256, 256, True, 48, 50.0),
+                 ("hd112_window48_cap50", 2, 8, 8, 200, 200, 112, True, 48, 50.0))
 FLASH_DTYPES = (torch.bfloat16, torch.float32)
 FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 FLASH_MAIN = "4x64"          # the kernels line reports the serve's prefill shape
@@ -513,10 +530,10 @@ def phase_kernels(dev) -> list[dict]:
 
 
 def phase_cutover(dev) -> list[dict]:
-    """int8 and int3 GQMM at the b of CUTOVER_BATCHES with each design (the
-    library's cut-over moved by kern.set_small_max_b), on every projection:
-    the times that set kern.SMALL_MAX_B. Both designs are checked against
-    the plain version."""
+    """GQMM of every format at the b of CUTOVER_BATCHES with each design
+    (the library's cut-over moved by kern.set_small_max_b), on every
+    projection: the times that set kern.SMALL_MAX_B. Both designs are
+    checked against the plain version."""
     gen = torch.Generator(device=dev).manual_seed(9)
     gs = load_config(ARCH).group_size
     rows = []
@@ -545,6 +562,36 @@ def phase_cutover(dev) -> list[dict]:
                 f"large {row['large_us']:7.1f} us  (runs {row['runs']}; cut-over "
                 f"{kern.SMALL_MAX_B}) [{CARD['smi']}]")
         del pool
+    return rows
+
+
+def phase_tc_sweep(dev) -> list[dict]:
+    """The int4 and fp8 GQMM designs against their plain versions at every
+    TinyLlama projection, every group size and each b of TC_SWEEP (the
+    small design at b <= kern.SMALL_MAX_B, the large one at 256), with the
+    design each shape runs. Checked only."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rows = []
+    for fmt, (name, m, n), gs in itertools.product(TC_SWEEP["formats"], PROJECTIONS,
+                                                   TC_SWEEP["group_sizes"]):
+        wq, ws = _rand_weights(gen, fmt, m, n, gs, dev)
+        kfn, pfn = _kernel_fns("gqmm", fmt)
+        for b in TC_SWEEP["batches"]:
+            xq, xs = _rand_q(gen, (b, n), gs, dev)
+            design = "%s/%d" % kern.gqmm_design(b, m, n, gs, fmt)
+            err = check_close(f"gqmm_{fmt} {name} GS {gs} b={b} ({design})",
+                              kfn(wq, ws, xq, xs, group_size=gs),
+                              pfn(wq, ws, xq, xs, group_size=gs), fmt)
+            rows.append({"kernel": f"gqmm_{fmt}", "shape": name, "m": m, "n": n, "gs": gs,
+                         "b": b, "design": design, "max_abs_err": err})
+        del wq, ws
+    torch.cuda.synchronize()
+    for fmt in TC_SWEEP["formats"]:
+        mine = [r for r in rows if r["kernel"] == f"gqmm_{fmt}"]
+        designs = sorted({(r["b"], r["design"].split("/")[0]) for r in mine})
+        log(f"[kernels] gqmm_{fmt}: {len(mine)} cases pass (every projection, GS "
+            f"{TC_SWEEP['group_sizes']}, b in {TC_SWEEP['batches']}; designs by b "
+            f"{designs}), max|err| {max(r['max_abs_err'] for r in mine):.2e}")
     return rows
 
 
@@ -1062,11 +1109,14 @@ def phase_serve(dev, rows, model, params, quantize) -> tuple[dict, InferenceEngi
 
     projs = model_projections(engine.params)
     out["step_gqmm"] = step_timing(projs, SERVE["batch"], dev, rows)
+    out["step_gqmm_prefill"] = step_timing(projs, b * p, dev, rows)
     out["step_gqmv"] = step_timing(projs, 1, dev, rows)
-    sm, sv = out["step_gqmm"], out["step_gqmv"]
+    sm, sp, sv = out["step_gqmm"], out["step_gqmm_prefill"], out["step_gqmv"]
     log(f"[serve {tag}] one pass of 89 projections: GQMM b={b} {sm['ms']:.3f} ms (plain "
-        f"{sm['plain_ms']:.2f} ms, bound {sm['bound_ms']:.3f} ms); GQMV {sv['ms']:.3f} ms "
-        f"(plain {sv['plain_ms']:.2f} ms, bound {sv['bound_ms']:.3f} ms)")
+        f"{sm['plain_ms']:.2f} ms, bound {sm['bound_ms']:.3f} ms); GQMM b={b * p} "
+        f"{sp['ms']:.3f} ms (plain {sp['plain_ms']:.2f} ms, bound {sp['bound_ms']:.3f} ms); "
+        f"GQMV {sv['ms']:.3f} ms (plain {sv['plain_ms']:.2f} ms, bound {sv['bound_ms']:.3f} ms)"
+        f" [{CARD['smi']}]")
 
     # the matvec path: 1-D activations reach GQMV through quantized_matmul
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -1745,6 +1795,9 @@ def kernel_entries(rows, gsrows, serves, prows, ragged, frows, rqrows, flagres,
                      "ops.quantized_matmul on 1-D activations over the 89 projections")
             + "; launches by run " + ", ".join(f"{t} {c}" for t, c in runs.items()),
             "launches_by_run": runs,
+            **({f"b{SERVE['batch'] * SERVE['prompt_len']}_pass": {
+                k: serves[fmt]["step_gqmm_prefill"][k]
+                for k in ("ms", "plain_ms", "bound_ms", "bound_by")}} if kind == "gqmm" else {}),
             "shapes": [{k: r[k] for k in ("shape", "m", "n", "b", "us", "plain_us", "bound_us",
                                           "max_abs_err", "design", "int_mm_us") if k in r}
                        for r in mine],
@@ -1864,6 +1917,7 @@ def main(argv=None) -> int:
 
     rows = phase_kernels(dev)
     corows = phase_cutover(dev)
+    tcrows = phase_tc_sweep(dev)
     gsrows = phase_group_sizes(dev)
     frows, sdpa = phase_flash_kernels(dev)
     rqrows = phase_rmsnorm_kernels(dev)
@@ -1886,8 +1940,8 @@ def main(argv=None) -> int:
     golden["deep"] = phase_golden_deep(dev)
 
     smi = card()
-    entries = kernel_entries(rows, gsrows, serves, prows, ragged, frows, rqrows, flagres,
-                             golden)
+    entries = kernel_entries(rows, gsrows + tcrows, serves, prows, ragged, frows, rqrows,
+                             flagres, golden)
     for e in entries:
         log(f"[kernels] {e['name']:16s} {e['launches']:6d} launches  {1e3 * e['ms']:10.3f} us  "
             f"bound {1e3 * e['bound_ms']:9.3f} us ({e['bound_by']}, {100 * e['bound_share']:.1f} "
@@ -1898,7 +1952,7 @@ def main(argv=None) -> int:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
         Path(args.report).write_text(json.dumps(
             {"card": smi, "kernel_rows": rows, "cutover_rows": corows,
-             "group_size_rows": gsrows, "sdpa": sdpa,
+             "tc_sweep_rows": tcrows, "group_size_rows": gsrows, "sdpa": sdpa,
              "flash_rows": frows, "rmsnorm_quant_rows": rqrows, "paged_rows": prows,
              "paged_hd256_rows": p256rows,
              "serve": serves, "ragged": ragged, "flags": flagres, "golden": golden,

@@ -39,7 +39,14 @@
 // relative per weight; the denominator l sums the f32 weights. Only tiles
 // that straddle the diagonal, the window's edge or the end of t are
 // masked. Query tiles are handed out longest first (causal rows near the
-// end see the most keys).
+// end see the most keys). Head dims 32, 64, 112, 128 and 256: at hd 112
+// (14 chunks of 16 bytes a row, which chunk ^ (row & 7) would carry past
+// the row) the staged rows are padded to 128 elements; the q . k k-steps
+// (7) and the O n-tiles (14) stay whole. At hd 256 O alone holds 128 f32
+// registers a lane, so the K/V tile is 32 keys and Q's fragments are
+// reloaded from shared memory every k-step instead of held (64 registers),
+// which keeps the kernel out of local memory; its 98,304 bytes of shared
+// memory are opted into.
 //
 // f32: flash_attn_kernel, the first design on the CUDA cores, kept as it
 // was: f32 values do not fit bf16 tensor-core operands within 1e-5, TF32
@@ -49,7 +56,9 @@
 // tiles staged in shared memory as f32 (K padded to hd + 1 floats a row);
 // every thread forms scores with f32 FMAs, one warp per query position
 // updates m and l, and every thread rescales and accumulates its own output
-// elements in registers.
+// elements in registers (hd / 4 of them: 64 at hd 256). Its shared memory,
+// 4 * (32 hd + 64 (hd + 1) + 64 hd + 32 * 64 + 96) bytes, is 172,672 at hd
+// 256, opted into at every launch.
 //
 // Both kernels skip tiles above the causal diagonal or wholly outside the
 // window: they add nothing to any position that has a visible key (the
@@ -237,16 +246,18 @@ int launch(const void* q, const void* k, const void* v, void* out, int bh, int s
   return static_cast<int>(cudaGetLastError());
 }
 
+// every head dim the wrapper takes (kernels/flash_attn.HEAD_DIMS)
+#define FLASH_HEAD_DIMS(X) X(32) X(64) X(112) X(128) X(256)
+
 template <typename T>
 int launch_hd(const void* q, const void* k, const void* v, void* out, int bh, int s, int t,
               int hd, int group, float scale, int causal, int window, float softcap,
               cudaStream_t stream) {
-  if (hd == 32) return launch<T, 32>(q, k, v, out, bh, s, t, group, scale, causal, window,
-                                     softcap, stream);
-  if (hd == 64) return launch<T, 64>(q, k, v, out, bh, s, t, group, scale, causal, window,
-                                     softcap, stream);
-  if (hd == 128) return launch<T, 128>(q, k, v, out, bh, s, t, group, scale, causal, window,
-                                       softcap, stream);
+#define FLASH_HD(H)                                                                         \
+  if (hd == H) return launch<T, H>(q, k, v, out, bh, s, t, group, scale, causal, window, \
+                                   softcap, stream);
+  FLASH_HEAD_DIMS(FLASH_HD)
+#undef FLASH_HD
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -256,13 +267,33 @@ int launch_hd(const void* q, const void* k, const void* v, void* out, int bh, in
 
 constexpr int kMmaThreads = 128;  // 4 warps
 constexpr int kMmaBQ = 64;        // query rows per CTA, 16 per warp
-constexpr int kMmaBK = 64;        // keys per K/V tile
 constexpr int kStages = 2;        // K/V tiles in the cp.async ring
 constexpr float kLog2e = 1.4426950408889634f;
 
+// Elements a staged row takes: the head dim, or, where its 16-byte chunks
+// are no multiple of 8 (hd 112: 14), the next multiple of 64, so that the
+// swizzle chunk ^ (row & 7) stays a permutation inside the row.
+template <int HD>
+__host__ __device__ constexpr int row_elems() {
+  return HD < 64 || HD % 64 == 0 ? HD : (HD + 63) / 64 * 64;
+}
+// Keys a K/V tile: 64, or 32 at hd 256, where O's accumulators alone take
+// 128 registers a lane (S takes 4 a lane per 8 keys).
+template <int HD>
+__host__ __device__ constexpr int kv_tile() {
+  return HD > 128 ? 32 : 64;
+}
+// Q's fragments stay in registers (4 a lane per 16 dims) up to hd 128; at
+// hd 256 (64 registers) they are reloaded from shared memory every k-step.
+template <int HD>
+__host__ __device__ constexpr bool q_in_regs() {
+  return HD <= 128;
+}
+
 template <int HD>
 constexpr size_t mma_smem_bytes() {
-  return 2 * ((size_t)kMmaBQ * HD + 2 * (size_t)kStages * kMmaBK * HD);
+  return 2 * ((size_t)kMmaBQ * row_elems<HD>() +
+              2 * (size_t)kStages * kv_tile<HD>() * row_elems<HD>());
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -324,19 +355,20 @@ struct Mma<__half> {
   }
 };
 
-// Element offset of (row, 16-byte chunk) in a tile of HD-element rows. The
-// chunk is XORed with bits of the row so that 8 consecutive rows at one
-// logical chunk (one ldmatrix 8x8 matrix) land in 8 different 16-byte bank
-// groups: with 8 or more chunks a row, chunk ^ (row & 7); with 4 (hd 32,
-// two rows per 128 bytes), chunk ^ ((row >> 1) & 3).
+// Element offset of (row, 16-byte chunk) in a tile of row_elems<HD>()-element
+// rows. The chunk is XORed with bits of the row so that 8 consecutive rows
+// at one logical chunk (one ldmatrix 8x8 matrix) land in 8 different
+// 16-byte bank groups: with 8 or more chunks a row, chunk ^ (row & 7); with
+// 4 (hd 32, two rows per 128 bytes), chunk ^ ((row >> 1) & 3).
 template <int HD>
 __device__ __forceinline__ int swz(int row, int chunk) {
-  constexpr int kChunks = HD / 8;
-  const int pc = kChunks >= 8 ? (chunk ^ (row & 7)) : (chunk ^ ((row >> 1) & 3));
-  return row * HD + pc * 8;
+  constexpr int kRow = row_elems<HD>();
+  const int pc = kRow >= 64 ? (chunk ^ (row & 7)) : (chunk ^ ((row >> 1) & 3));
+  return row * kRow + pc * 8;
 }
 
-// T: bf16 or fp16 (q, k, v and the output); HD: head dim (32, 64, 128).
+// T: bf16 or fp16 (q, k, v and the output); HD: head dim (32, 64, 112, 128,
+// 256).
 template <typename T, int HD>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_attn_mma_kernel(const T* __restrict__ q,   // (b*H, s, HD)
@@ -347,12 +379,15 @@ flash_attn_mma_kernel(const T* __restrict__ q,   // (b*H, s, HD)
                       float softcap) {
   constexpr int kChunks = HD / 8;       // 16-byte chunks a row
   constexpr int kKSteps = HD / 16;      // k-steps of q . k
-  constexpr int kSTiles = kMmaBK / 8;   // n-tiles of S (8 keys each)
+  constexpr int kKeys = kv_tile<HD>();  // keys a K/V tile
+  constexpr int kSTiles = kKeys / 8;    // n-tiles of S (8 keys each)
   constexpr int kOTiles = HD / 8;       // n-tiles of O (8 dims each)
+  constexpr int kRow = row_elems<HD>();
+  constexpr bool kQRegs = q_in_regs<HD>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* q_s = reinterpret_cast<T*>(smem_raw);     // (BQ, HD), swizzled
-  T* k_s = q_s + kMmaBQ * HD;                  // (stages, BK, HD), swizzled
-  T* v_s = k_s + kStages * kMmaBK * HD;        // (stages, BK, HD), swizzled
+  T* q_s = reinterpret_cast<T*>(smem_raw);     // (BQ, kRow), swizzled
+  T* k_s = q_s + kMmaBQ * kRow;                // (stages, BK, kRow), swizzled
+  T* v_s = k_s + kStages * kKeys * kRow;       // (stages, BK, kRow), swizzled
 
   const int nqt = (s + kMmaBQ - 1) / kMmaBQ;
   const int q0 = (nqt - 1 - (int)blockIdx.x) * kMmaBQ;   // longest causal rows first
@@ -371,14 +406,14 @@ flash_attn_mma_kernel(const T* __restrict__ q,   // (b*H, s, HD)
   // the keys this tile of query positions can see: none past the last
   // position (causal), none at or before first position - window
   const int k_end = causal ? min(t, q0 + nq) : t;
-  const int k_begin = window > 0 ? (max(0, q0 - window + 1) / kMmaBK) * kMmaBK : 0;
-  const int ntiles = k_end > k_begin ? (k_end - k_begin + kMmaBK - 1) / kMmaBK : 0;
+  const int k_begin = window > 0 ? (max(0, q0 - window + 1) / kKeys) * kKeys : 0;
+  const int ntiles = k_end > k_begin ? (k_end - k_begin + kKeys - 1) / kKeys : 0;
 
   auto load_kv = [&](int tile, int stage) {
-    const int k0 = k_begin + tile * kMmaBK;
-    T* ks = k_s + stage * kMmaBK * HD;
-    T* vs = v_s + stage * kMmaBK * HD;
-    for (int e = tid; e < kMmaBK * kChunks; e += kMmaThreads) {
+    const int k0 = k_begin + tile * kKeys;
+    T* ks = k_s + stage * kKeys * kRow;
+    T* vs = v_s + stage * kKeys * kRow;
+    for (int e = tid; e < kKeys * kChunks; e += kMmaThreads) {
       const int r = e / kChunks, ch = e % kChunks;
       const size_t off = (size_t)min(k0 + r, t - 1) * HD + ch * 8;
       cp_async16(ks + swz<HD>(r, ch), kb + off, k0 + r < t);
@@ -388,7 +423,7 @@ flash_attn_mma_kernel(const T* __restrict__ q,   // (b*H, s, HD)
   if (ntiles > 0) load_kv(0, 0);
   cp_async_commit();                    // group 0: Q and the first tile
 
-  uint32_t qf[kKSteps][4];
+  uint32_t qf[kQRegs ? kKSteps : 1][4];   // Q's fragments, where they stay in registers
   float o[kOTiles][4];
 #pragma unroll
   for (int n = 0; n < kOTiles; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
@@ -402,32 +437,43 @@ flash_attn_mma_kernel(const T* __restrict__ q,   // (b*H, s, HD)
     cp_async_commit();
     cp_async_wait<1>();                 // tile it (and Q) have landed
     __syncthreads();
-    if (it == 0) {
+    auto q_frag = [&](uint32_t (&r)[4], int kk) {
+      ldmatrix_x4(r, q_s + swz<HD>(warp * 16 + (lane & 15), 2 * kk + (lane >> 4)));
+    };
+    if constexpr (kQRegs) {
+      if (it == 0) {
 #pragma unroll
-      for (int kk = 0; kk < kKSteps; ++kk)
-        ldmatrix_x4(qf[kk], q_s + swz<HD>(warp * 16 + (lane & 15), 2 * kk + (lane >> 4)));
+        for (int kk = 0; kk < kKSteps; ++kk) q_frag(qf[kk], kk);
+      }
     }
 
-    // S = Q K^T: 16 rows x 64 keys a warp
-    const T* ks = k_s + st * kMmaBK * HD;
+    // S = Q K^T: 16 rows x kKeys keys a warp
+    const T* ks = k_s + st * kKeys * kRow;
     float sc[kSTiles][4];
 #pragma unroll
     for (int j = 0; j < kSTiles; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < kKSteps; ++kk) {
+      uint32_t qk[4];
+      if constexpr (kQRegs) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qk[i] = qf[kk][i];
+      } else {
+        q_frag(qk, kk);
+      }
 #pragma unroll
       for (int j = 0; j < kSTiles; j += 2) {
         uint32_t b[4];
         ldmatrix_x4(b, ks + swz<HD>(j * 8 + (lane >> 4) * 8 + (lane & 7),
                                     2 * kk + ((lane >> 3) & 1)));
-        Mma<T>::run(sc[j], qf[kk], b[0], b[1]);
-        Mma<T>::run(sc[j + 1], qf[kk], b[2], b[3]);
+        Mma<T>::run(sc[j], qk, b[0], b[1]);
+        Mma<T>::run(sc[j + 1], qk, b[2], b[3]);
       }
     }
 
     // scale, soft cap, masks (only on tiles at an edge), running max
-    const int k0 = k_begin + it * kMmaBK;
-    const bool edge = k0 + kMmaBK > t || (causal && k0 + kMmaBK - 1 > q0) ||
+    const int k0 = k_begin + it * kKeys;
+    const bool edge = k0 + kKeys > t || (causal && k0 + kKeys - 1 > q0) ||
                       (window > 0 && q0 + kMmaBQ - 1 - k0 >= window);
     float mx[2] = {m_r[0], m_r[1]};
 #pragma unroll
@@ -481,9 +527,9 @@ flash_attn_mma_kernel(const T* __restrict__ q,   // (b*H, s, HD)
 
     // O += P V: P from the S accumulators (the C layout of two n-tiles is
     // the A layout of one k-step), V through ldmatrix.trans
-    const T* vs = v_s + st * kMmaBK * HD;
+    const T* vs = v_s + st * kKeys * kRow;
 #pragma unroll
-    for (int kk = 0; kk < kMmaBK / 16; ++kk) {
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
       uint32_t a[4];
       a[0] = Mma<T>::pack(sc[2 * kk][0], sc[2 * kk][1]);
       a[1] = Mma<T>::pack(sc[2 * kk][2], sc[2 * kk][3]);
@@ -545,12 +591,11 @@ template <typename T>
 int launch_mma_hd(const void* q, const void* k, const void* v, void* out, int bh, int s, int t,
                   int hd, int group, float scale, int causal, int window, float softcap,
                   cudaStream_t stream) {
-  if (hd == 32) return launch_mma<T, 32>(q, k, v, out, bh, s, t, group, scale, causal, window,
-                                         softcap, stream);
-  if (hd == 64) return launch_mma<T, 64>(q, k, v, out, bh, s, t, group, scale, causal, window,
-                                         softcap, stream);
-  if (hd == 128) return launch_mma<T, 128>(q, k, v, out, bh, s, t, group, scale, causal, window,
-                                           softcap, stream);
+#define FLASH_HD(H)                                                                             \
+  if (hd == H) return launch_mma<T, H>(q, k, v, out, bh, s, t, group, scale, causal, window, \
+                                       softcap, stream);
+  FLASH_HEAD_DIMS(FLASH_HD)
+#undef FLASH_HD
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

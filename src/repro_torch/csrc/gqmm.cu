@@ -36,9 +36,10 @@
 // m*n weight bytes plus a 4*b*m-byte f32 output: bytes and int8 tensor-core
 // operations bound them about equally (wo 2.1 us, classifier 29.8 us).
 //
-// GQMV (all formats) and the int4 / fp8 GQMM: the first, simple design
-// (gqmm_kernel). The TPU kernel's sequential n-block grid axis, which
-// carries the sum in VMEM, does not carry over: here one warp owns one
+// GQMV (all formats), and int4 / int3 GQMM on rows the large design's ring
+// cannot stream: the first, simple design (gqmm_kernel). The TPU kernel's
+// sequential n-block grid axis, which carries the sum in VMEM, does not
+// carry over: here one warp owns one
 // output row for a tile of BB <= 8 batch rows and walks the whole
 // contraction itself, so no sum crosses blocks and each block writes its
 // own output rows. Each lane takes 16 logical weights per step (16 bytes of
@@ -49,8 +50,14 @@
 // before the segment's first lane scales the group sum and keeps a per-lane
 // f32 sum; a warp shuffle reduction adds the lanes at the end.
 //
-// int8 GQMM (B3, gqmm_pallas) and int3 GQMM (B6, gqmm_int3_pallas): two
-// designs on the int8 tensor cores, chosen by b (run_gqmm_tc).
+// GQMM, every format: two designs on the tensor cores, chosen by b
+// (run_gqmm_tc): int8 (B3, gqmm_pallas), int4 (B5, gqmm_int4_pallas) and
+// int3 (B6, gqmm_int3_pallas) on the int8 tensor cores, the packed formats
+// unpacked to int8 on the way (a loader each: TcInt8, TcInt4, TcInt3); fp8
+// (B7, gqmm_fp8_pallas) on the f16 tensor cores (TcFp8): e4m3 and int8
+// values are exact in f16 and their products exact in f32, so the group
+// sums differ from the plain version's only in the order of the f32
+// additions, and the card's rate for them is bf16's.
 // - Small, b <= kSmallMaxB (decode; gqmm_small_kernel). Bound: the weight
 //   bytes. The first design re-read each weight row for every 8 batch rows,
 //   re-read the activations per warp-row, kept one 16-byte load a lane in
@@ -65,6 +72,11 @@
 //   round's, double-buffered in registers) and feeds them straight to
 //   m16n8k32 mmas as A fragments, so a group's int32 sum is formed by the
 //   tensor core with no shuffle, and the scales are applied once per group.
+//   int4 lanes fetch 8 bytes for their 16 weights and unpack them into the
+//   same four int8 words. fp8 lanes fetch 16 bytes as int8's do and convert
+//   them in registers into m16n8k16 f16 A fragments (four mmas a k-span);
+//   the int8 activations stay staged as int8 (f16 would double the staging:
+//   184 KB for w2's rows at b = 16) and are converted as they are read.
 //   Each round's scaled terms pass through shared memory to one thread per
 //   output, which adds them in group order. kSmallMaxB: see gqmv.py's
 //   SMALL_MAX_B, set from phase-2 times of both designs.
@@ -79,20 +91,29 @@
 //   transposed); at GS 16, where a group is half a k-step, ldmatrix feeds
 //   mma.sync m16n8k32 with the other half's weights zeroed. After a group's
 //   GS/32 k-steps the s32 sums are converted, scaled and added into f32
-//   sums. int3 tiles arrive packed and are unpacked to int8 in the same
-//   swizzle (int3 rows that are not 16-byte aligned, or n no multiple of
-//   128, run the first design instead). What bounds it now: the tiles are re-read from L2 by every CTA
+//   sums. int3 and int4 tiles arrive packed (48 and 64 bytes a row a slice)
+//   and are unpacked to int8 in the same swizzle (their rows that are not
+//   16-byte aligned, or n no multiple of 128, run the first design
+//   instead). fp8 (m64n64k16 f16, f32 sums, at every GS: a k16-step is whole
+//   groups even at GS 16): each warp converts its rows' e4m3 bytes into
+//   wgmma's A fragments in registers, 8 k16-steps a slice; the int8
+//   activation tile is converted once a slice into an f16 tile (two atoms of
+//   128-byte rows, the same swizzle) that wgmma reads as B; after a group's
+//   GS/16 k-steps the f32 sums are scaled and added as the integer sums are.
+//   What bounds it now: the tiles are re-read from L2 by every CTA
 //   that shares them (64 x 64 blocks: (1/64 + 1/64) of the product's
 //   operations in bytes), ~32 MB at wo and ~380 MB at the classifier for
 //   b = 256, against 4 and 65 MB of weights. Larger tiles or TMA multicast
 //   across a cluster are the next step. (16-byte cp.async from every
 //   thread held each SM to ~16 KB in flight; mma.sync s8 ran at ~200 TOPS.)
 // Both keep the plain versions' arithmetic: exact int32 group sums and each
-// scaled term bit-equal (__fmul_rn, no contraction; int8 (s*ws)*xs, int3
-// (s*xs)*ws). The f32 sum across groups runs in one order in both designs,
-// the first design's at GS 256: the even groups left to right, the odd
-// groups left to right, then the two added. (The 2-layer int8 golden stays token-exact on
-// the card with it; with one left-to-right sum a .5 activation tie flips.)
+// scaled term bit-equal (__fmul_rn, no contraction; int8 (s*ws)*xs, int4
+// and int3 (s*xs)*ws); fp8's group sums are f32 in the tensor core's order,
+// each term (s*xs)*ws. The f32 sum across groups runs in one order in both
+// designs, the first design's at GS 256: the even groups left to right, the
+// odd groups left to right, then the two added. (The 2-layer int8 golden
+// stays token-exact on the card with it; with one left-to-right sum a .5
+// activation tie flips.)
 //
 // __fmul_rn and __fadd_rn keep nvcc from contracting the scaling into an
 // FMA, so each scaled term of an integer format is bit-equal to the plain
@@ -103,7 +124,9 @@
 // nibbles of a 32-bit word (elements 0, 2, 4, 6) and the four high ones
 // (1, 3, 5, 7) are sign-extended in place with one per-byte subtraction,
 // (v ^ 8) - 8, and dotted with the even and odd activation bytes picked by
-// __byte_perm: the integer group sum is exact in any order. int3: eight
+// __byte_perm: the integer group sum is exact in any order. The tensor-core
+// designs interleave the two back into element order with __byte_perm
+// (unpack_int4_word), the order of the activation bytes. int3: eight
 // 3-bit fields per little-endian 24-bit word (element i in bits 3i..3i+2);
 // a lane's 6 bytes are two words, read as three 16-bit loads (an int3 row
 // is 3n/8 bytes, so a lane's chunk is only 2-byte aligned), and each run of
@@ -368,6 +391,7 @@ constexpr int kUnitGroups = 4;    // groups a unit holds at most (GS 16: a k-spa
 constexpr int kLargeCols = 64;
 constexpr int kBK = 128;
 constexpr int kStagesTc = 5;   // stages of the ring: two 64-row CTAs fit an SM (deeper gained nothing)
+constexpr int kStagesF16 = 4;  // fp8's, whose f16 activation tile takes 16 KB more: two still fit
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -396,6 +420,32 @@ __device__ __forceinline__ void mma_k32(int (&c)[4], int a0, int a1, int a2, int
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
+// d += a (16 x 16, rows) . b (16 x 8, columns), f16 x f16 -> f32
+__device__ __forceinline__ void mma_f16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                        uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// two e4m3 values (low byte first) -> one f16x2 register (low half first), exactly
+__device__ __forceinline__ uint32_t fp8x2_to_h2(unsigned pair) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(pair & 0xFFFFu), __NV_E4M3);
+  return static_cast<uint32_t>(h.x) | (static_cast<uint32_t>(h.y) << 16);
+}
+
+// int8 bytes 2h, 2h + 1 of v -> one f16x2 register, exactly: the byte
+// biased by 128 is the mantissa of the f16 1024 + 128 + x, minus 1152
+__device__ __forceinline__ uint32_t i8x2_to_h2(unsigned v, int h) {
+  const unsigned biased = __byte_perm(v ^ 0x80808080u, 0x64646464u, h ? 0x4342 : 0x4140);
+  const __half2 r = __hsub2(*reinterpret_cast<const __half2*>(&biased),
+                            __half2(__float2half(1152.f), __float2half(1152.f)));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
 __device__ __forceinline__ void ldmatrix_x4(int (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -403,18 +453,27 @@ __device__ __forceinline__ void ldmatrix_x4(int (&r)[4], uint32_t addr) {
 }
 
 // one group's scaled term, each product rounded on its own (no FMA):
-// int8 (s * ws) * xs, int3 (s * xs) * ws, as the plain versions
+// int8 (s * ws) * xs, int4 / int3 / fp8 (s * xs) * ws, as the plain versions
+template <bool kXsFirst>
+__device__ __forceinline__ float group_term(float sf, float wsc, float xsc) {
+  return kXsFirst ? __fmul_rn(__fmul_rn(sf, xsc), wsc) : __fmul_rn(__fmul_rn(sf, wsc), xsc);
+}
 template <bool kXsFirst>
 __device__ __forceinline__ float group_term(int s, float wsc, float xsc) {
-  const float sf = __int2float_rn(s);   // exact: |s| <= 127^2 * 256 < 2^24
-  return kXsFirst ? __fmul_rn(__fmul_rn(sf, xsc), wsc) : __fmul_rn(__fmul_rn(sf, wsc), xsc);
+  // exact: |s| <= 127^2 * 256 < 2^24
+  return group_term<kXsFirst>(__int2float_rn(s), wsc, xsc);
 }
 
 // Weight loaders: 16 logical weights of a row from logical column k (a
 // multiple of 16), raw (fetch, a load in flight) then as four words of
-// sign-extended int8 (unpack). A load past m or n gives zeros.
+// sign-extended int8 (unpack; fp8: the four words of e4m3 bytes). A load
+// past m or n gives zeros. Acc: the type of a group sum (exact int32, or
+// f32 for fp8). kMayMisalign: rows the large design's ring may not stream,
+// which then run the first design (First) by shape (ring_ok).
 struct TcInt8 {
   using Raw = int4;
+  using Acc = int;
+  static constexpr bool kFloat = false;
   static constexpr bool kMayMisalign = false;   // the wrapper checks 16-byte rows
   __host__ __device__ __forceinline__ static size_t row_bytes(int n) { return (size_t)n; }
   __device__ __forceinline__ static Raw fetch(const uint8_t* wq, size_t rb, int row, int k,
@@ -435,6 +494,9 @@ struct TcInt3 {
   struct Raw {
     unsigned u0, u1, u2;
   };
+  using Acc = int;
+  using First = Int3Weights;
+  static constexpr bool kFloat = false;
   static constexpr bool kMayMisalign = true;    // rows are only 2-byte aligned
   // whether the large design's 16-byte copies can stream these rows (48
   // bytes a slice of a row)
@@ -458,6 +520,74 @@ struct TcInt3 {
     w[3] = sext3(hi >> 12);
   }
 };
+
+// four packed int4 bytes (elements 0..7) -> two words of sign-extended int8
+// in element order: lo holds elements 0..3, hi 4..7
+__device__ __forceinline__ void unpack_int4_word(unsigned v, int& lo, int& hi) {
+  const unsigned even = v & 0x0F0F0F0Fu, odd = (v >> 4) & 0x0F0F0F0Fu;   // 0,2,4,6 / 1,3,5,7
+  lo = sext4(__byte_perm(even, odd, 0x5140));
+  hi = sext4(__byte_perm(even, odd, 0x7362));
+}
+
+// int4: 16 weights are 8 bytes at k / 2 of the row, the low nibble the even
+// element (rows are 8-byte aligned: n / 2 bytes, n a multiple of 16);
+// unpacked into element order, the order of the activation bytes
+struct TcInt4 {
+  using Raw = uint2;
+  using Acc = int;
+  using First = Int4Weights;
+  static constexpr bool kFloat = false;
+  static constexpr bool kMayMisalign = true;    // rows are 8-byte aligned; the ring needs 16
+  // whether the large design's TMA can stream these rows (64 bytes a slice
+  // of a row)
+  static bool ring_ok(const void* wq, int n) {
+    return (reinterpret_cast<uintptr_t>(wq) & 15) == 0 && n % kBK == 0;
+  }
+  __host__ __device__ __forceinline__ static size_t row_bytes(int n) { return (size_t)n / 2; }
+  __device__ __forceinline__ static Raw fetch(const uint8_t* wq, size_t rb, int row, int k,
+                                              bool ok) {
+    return ok ? __ldg(reinterpret_cast<const uint2*>(wq + row * rb + (k >> 1)))
+              : make_uint2(0u, 0u);
+  }
+  __device__ __forceinline__ static void unpack(const Raw& r, int (&w)[4]) {
+    unpack_int4_word(r.x, w[0], w[1]);
+    unpack_int4_word(r.y, w[2], w[3]);
+  }
+};
+
+// fp8: 16 e4m3 bytes, fetched and kept as int8's are; the mma converts
+// them to f16 and sums in f32
+struct TcFp8 : TcInt8 {
+  using Acc = float;
+  static constexpr bool kFloat = true;
+};
+
+// One 64-column k-span of the small design: rows gid and gid + 8 (w0, w1:
+// the lane's 16 weights of each, as four words) times batch rows gid of an
+// 8-row tile (xv: the lane's same 16 activation bytes), added into the
+// tile's accumulators c; the weights count as zeros where !on. Integer
+// formats: two m16n8k32 s8 mmas, bytes 0-7 then 8-15 of every lane's 16.
+// fp8: four m16n8k16 f16 mmas; mma i takes the lane's columns 4i..4i+3 as
+// k-slots 2t, 2t+1, 2t+8, 2t+9 of both operands (e4m3 and int8 are exact
+// in f16, their products exact in f32).
+template <class L>
+__device__ __forceinline__ void span_mma(typename L::Acc (&c)[4], const int (&w0)[4],
+                                         const int (&w1)[4], const int4& xv, bool on) {
+  if constexpr (L::kFloat) {
+    const int x[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const unsigned a0 = on ? static_cast<unsigned>(w0[i]) : 0u;
+      const unsigned a1 = on ? static_cast<unsigned>(w1[i]) : 0u;
+      mma_f16(c, fp8x2_to_h2(a0), fp8x2_to_h2(a1), fp8x2_to_h2(a0 >> 16), fp8x2_to_h2(a1 >> 16),
+              i8x2_to_h2(static_cast<unsigned>(x[i]), 0),
+              i8x2_to_h2(static_cast<unsigned>(x[i]), 1));
+    }
+  } else {
+    mma_k32(c, on ? w0[0] : 0, on ? w1[0] : 0, on ? w0[1] : 0, on ? w1[1] : 0, xv.x, xv.y);
+    mma_k32(c, on ? w0[2] : 0, on ? w1[2] : 0, on ? w0[3] : 0, on ? w1[3] : 0, xv.z, xv.w);
+  }
+}
 
 __host__ __device__ inline int small_x_stride(int n) {
   // whole k-spans, then rounded so that rows start 64 bytes apart mod 128:
@@ -545,7 +675,7 @@ gqmm_small_kernel(const uint8_t* __restrict__ wq, const float* __restrict__ ws,
   cp_async_wait<0>();
   __syncthreads();
 
-  int c[NB][4];
+  typename L::Acc c[NB][4];
 #pragma unroll
   for (int j = 0; j < NB; ++j)
 #pragma unroll
@@ -588,23 +718,14 @@ gqmm_small_kernel(const uint8_t* __restrict__ wq, const float* __restrict__ ws,
                                                    s * kSpan + 16 * t);
           if (gs >= kSpan) {
 #pragma unroll
-            for (int j = 0; j < NB; ++j) {
-              mma_k32(c[j], w0[0], w1[0], w0[1], w1[1], xv[j].x, xv[j].y);
-              mma_k32(c[j], w0[2], w1[2], w0[3], w1[3], xv[j].z, xv[j].w);
-            }
+            for (int j = 0; j < NB; ++j) span_mma<L>(c[j], w0, w1, xv[j], true);
           } else {
             // GS 16 or 32: lane t's 16 weights lie in the span's group 16t / GS
             const int mine = (16 * t) >> gs_log2;
             for (int jg = 0; jg < ugroups; ++jg) {
               if (s * ugroups + jg >= ng) break;
-              const bool on = mine == jg;
 #pragma unroll
-              for (int j = 0; j < NB; ++j) {
-                mma_k32(c[j], on ? w0[0] : 0, on ? w1[0] : 0, on ? w0[1] : 0, on ? w1[1] : 0,
-                        xv[j].x, xv[j].y);
-                mma_k32(c[j], on ? w0[2] : 0, on ? w1[2] : 0, on ? w0[3] : 0, on ? w1[3] : 0,
-                        xv[j].z, xv[j].w);
-              }
+              for (int j = 0; j < NB; ++j) span_mma<L>(c[j], w0, w1, xv[j], mine == jg);
               put_group(s * ugroups + jg, jg);
             }
           }
@@ -701,6 +822,24 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[32], uint64_t a, uint64_t b, i
         "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
       : "l"(a), "l"(b), "r"(accumulate));
 }
+// d (64 x 64 f32, this warpgroup's) = a (64 x 16 f16, registers: the
+// m16n8k16 A fragment of each warp's 16 rows) . b (16 x 64 f16, shared
+// memory, K-major), plus d when accumulate
+__device__ __forceinline__ void wgmma_f16(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                          int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16"
+      " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -742,6 +881,31 @@ struct TcRing<TcInt3> {
   }
 };
 
+template <>
+struct TcRing<TcInt4> {
+  static constexpr int kSliceBytes = kBK / 2;   // 64: 128 nibbles, packed
+  static constexpr bool kUnpacked = true;
+  __device__ __forceinline__ static int x_of(int k0) { return k0 / 2; }
+  // the slice's packed rows -> the int8 tile, 16 nibbles (8 bytes) a chunk
+  template <int kThr, int kRows>
+  __device__ __forceinline__ static void unpack(const unsigned char* w_s, unsigned char* tile,
+                                                int tid) {
+    for (int e = tid; e < kRows * (kBK / 16); e += kThr) {
+      const int r = e >> 3, ch = e & 7;
+      int w[4];
+      TcInt4::unpack(*reinterpret_cast<const uint2*>(w_s + r * kSliceBytes + 8 * ch), w);
+      *reinterpret_cast<int4*>(tile + r * kBK + ((ch ^ (r & 7)) << 4)) =
+          make_int4(w[0], w[1], w[2], w[3]);
+    }
+  }
+};
+
+// fp8: the weights stay in the ring as e4m3 bytes (each warp converts its
+// rows' A fragments in registers); the activations' int8 tile is converted
+// to an f16 tile beside the ring (x_to_f16)
+template <>
+struct TcRing<TcFp8> : TcRing<TcInt8> {};
+
 // groups whose scales a stage holds: the slice's (kBK / GS of them, or the
 // one group a slice of a wider group lies in)
 constexpr int kStageGroups = 8;   // kBK / 16, at GS 16
@@ -761,13 +925,46 @@ __host__ __device__ constexpr size_t large_stage_bytes(int rows) {
                      4 * (size_t)(rows + kLargeCols) * kScaleStride);
 }
 
+// fp8: the f16 activation tile, two 1 KB-aligned atoms of 64 columns (128
+// bytes) x kLargeCols rows in the 128-byte swizzle, K-major as wgmma's B
+constexpr int kXAtomBytes = kLargeCols * 128;
+
+template <class L>
+__host__ __device__ constexpr int ring_stages() {
+  return L::kFloat ? kStagesF16 : kStagesTc;
+}
+
 // Dynamic shared memory of a large-design CTA (kernels/gqmv.large_smem_bytes
-// mirrors it): 1 KB of room to align the base, kStagesTc stages, for int3
-// the unpacked int8 tile, then one mbarrier a stage.
+// mirrors it): 1 KB of room to align the base, ring_stages<L>() stages, for
+// int3 and int4 the unpacked int8 tile, for fp8 the f16 activation tile,
+// then one mbarrier a stage.
 template <class L>
 __host__ __device__ constexpr size_t large_smem_bytes(int wm) {
-  return kSwizzleAlign + kStagesTc * large_stage_bytes<L>(32 * wm) +
-         (TcRing<L>::kUnpacked ? (size_t)32 * wm * kBK : 0) + 8 * kStagesTc;
+  return kSwizzleAlign + ring_stages<L>() * large_stage_bytes<L>(32 * wm) +
+         (TcRing<L>::kUnpacked ? (size_t)32 * wm * kBK : 0) +
+         (L::kFloat ? (size_t)2 * kXAtomBytes : 0) + 8 * ring_stages<L>();
+}
+
+// fp8: the stage's int8 activation tile (kLargeCols rows of kBK bytes in the
+// 128-byte swizzle) -> the f16 tile xh: 16 bytes of row r (columns 16 ch ..
+// 16 ch + 15) become chunks 2 (ch % 4) and 2 (ch % 4) + 1 of row r of atom
+// ch / 4, swizzled the same way
+template <int kThr>
+__device__ __forceinline__ void x_to_f16(const unsigned char* x_s, unsigned char* xh, int tid) {
+  for (int e = tid; e < kLargeCols * (kBK / 16); e += kThr) {
+    const int r = e >> 3, ch = e & 7;
+    const int4 v = *reinterpret_cast<const int4*>(x_s + r * kBK + ((ch ^ (r & 7)) << 4));
+    const unsigned w[4] = {static_cast<unsigned>(v.x), static_cast<unsigned>(v.y),
+                           static_cast<unsigned>(v.z), static_cast<unsigned>(v.w)};
+    unsigned char* row = xh + (ch >> 2) * kXAtomBytes + r * 128;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c2 = 2 * (ch & 3) + h;
+      *reinterpret_cast<uint4*>(row + ((c2 ^ (r & 7)) << 4)) =
+          make_uint4(i8x2_to_h2(w[2 * h], 0), i8x2_to_h2(w[2 * h], 1),
+                     i8x2_to_h2(w[2 * h + 1], 0), i8x2_to_h2(w[2 * h + 1], 1));
+    }
+  }
 }
 
 template <class L, int WM, bool kXsFirst, bool kWg>
@@ -776,6 +973,7 @@ gqmm_mma_kernel(const __grid_constant__ CUtensorMap tm_w, const __grid_constant_
                 const float* __restrict__ ws, const float* __restrict__ xs,
                 float* __restrict__ out, int b, int m, int n, int gs_log2) {
   constexpr int kThr = WM * 64, kRows = 32 * WM;
+  constexpr int kStages = ring_stages<L>();
   using Ring = TcRing<L>;
   constexpr size_t kStageBytes = large_stage_bytes<L>(kRows);
   static_assert(large_smem_bytes<L>(WM) <= kMaxSmem, "the ring fits the opt-in");
@@ -791,14 +989,15 @@ gqmm_mma_kernel(const __grid_constant__ CUtensorMap tm_w, const __grid_constant_
 
   unsigned char* base = smem_tc + ((kSwizzleAlign - (smem_addr(smem_tc) & (kSwizzleAlign - 1))) &
                                    (kSwizzleAlign - 1));
-  auto stage = [&](int kt) { return base + (size_t)(kt % kStagesTc) * kStageBytes; };
+  auto stage = [&](int kt) { return base + (size_t)(kt % kStages) * kStageBytes; };
   auto x_stage = [&](int kt) { return stage(kt) + kRows * Ring::kSliceBytes; };
   auto ws_stage = [&](int kt) { return reinterpret_cast<float*>(x_stage(kt) + kLargeCols * kBK); };
   auto xs_stage = [&](int kt) { return ws_stage(kt) + kRows * kScaleStride; };
-  unsigned char* tile = base + kStagesTc * kStageBytes;   // int3: the unpacked weights
-  const uint32_t bars = smem_addr(tile + (Ring::kUnpacked ? (size_t)kRows * kBK : 0));
+  unsigned char* tile = base + kStages * kStageBytes;   // int3, int4: the unpacked weights
+  unsigned char* xh = tile + (Ring::kUnpacked ? (size_t)kRows * kBK : 0);   // fp8: f16 X
+  const uint32_t bars = smem_addr(xh + (L::kFloat ? 2 * kXAtomBytes : 0));
   if (tid == 0) {
-    for (int i = 0; i < kStagesTc; ++i) mbar_init(bars + 8 * i, 1);
+    for (int i = 0; i < kStages; ++i) mbar_init(bars + 8 * i, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -808,7 +1007,7 @@ gqmm_mma_kernel(const __grid_constant__ CUtensorMap tm_w, const __grid_constant_
   auto fetch = [&](int kt) {
     const int k0 = kt * kBK;
     if (tid == 0) {
-      const uint32_t bar = bars + 8 * (kt % kStagesTc);
+      const uint32_t bar = bars + 8 * (kt % kStages);
       // the stage was last read by ldmatrix (generic proxy) before the
       // barrier that precedes this fetch: order those reads before the
       // tile loads' writes (async proxy)
@@ -838,7 +1037,7 @@ gqmm_mma_kernel(const __grid_constant__ CUtensorMap tm_w, const __grid_constant_
     // m16n8 fragment of each 8-column tile j: d[4j + i] at row gid + 8 (i / 2),
     // batch row 8j + 2t + i % 2
     const int wg = warp >> 2, w4 = warp & 3;
-    int d[32];
+    typename L::Acc d[32];
     float ev[32], od[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
@@ -863,41 +1062,80 @@ gqmm_mma_kernel(const __grid_constant__ CUtensorMap tm_w, const __grid_constant_
       }
     };
 #pragma unroll
-    for (int s = 0; s < kStagesTc - 1; ++s) {
+    for (int s = 0; s < kStages - 1; ++s) {
       if (s < nk) fetch(s);
       cp_async_commit();
     }
     for (int kt = 0; kt < nk; ++kt) {
-      cp_async_wait<kStagesTc - 2>();
-      mbar_wait(bars + 8 * (kt % kStagesTc), (kt / kStagesTc) & 1);
+      cp_async_wait<kStages - 2>();
+      mbar_wait(bars + 8 * (kt % kStages), (kt / kStages) & 1);
       __syncthreads();        // everyone's scales are in; slice kt - 1's stage is free
-      const int nx = kt + kStagesTc - 1;
+      const int nx = kt + kStages - 1;
       if (nx < nk) fetch(nx);
       cp_async_commit();
-      if (Ring::kUnpacked) {
-        Ring::template unpack<kThr, kRows>(stage(kt), tile, tid);
+      if (Ring::kUnpacked || L::kFloat) {
+        if constexpr (Ring::kUnpacked) Ring::template unpack<kThr, kRows>(stage(kt), tile, tid);
+        if constexpr (L::kFloat) x_to_f16<kThr>(x_stage(kt), xh, tid);
         // generic stores, read next by wgmma (async proxy)
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         __syncthreads();
       }
-      const uint64_t da = sw128_desc(smem_addr(Ring::kUnpacked ? tile : stage(kt)) + wg * 64 * kBK);
-      const uint64_t db = sw128_desc(smem_addr(x_stage(kt)));
       const float* wsd = ws_stage(kt);
       const float* xsd = xs_stage(kt);
       const int g0 = (kt * kBK) >> gs_log2;
-      wgmma_fence();
+      if constexpr (L::kFloat) {
+        // fp8: the warp's A fragments of the slice's 8 k16-steps, from its
+        // rows lrow, lrow + 8 of the e4m3 tile (chunk ks of a row holds
+        // columns 16 ks .. 16 ks + 15; lane t takes 2t, 2t + 1, 2t + 8,
+        // 2t + 9), converted to f16; the f16 activations are B
+        const unsigned char* w_s = stage(kt);
+        uint32_t af[kBK / 16][4];
 #pragma unroll
-      for (int ks = 0; ks < kBK / 32; ++ks) {
-        const int k = kt * kBK + ks * 32;
-        if (k < n) {
-          // the k-step's 32 bytes lie 32 ks bytes into the swizzled rows; a
-          // group's first k-step starts the sum afresh
-          wgmma_s8(d, da + 2 * ks, db + 2 * ks, (k & (gs - 1)) != 0);
-          if (((k + 32) & (gs - 1)) == 0) {
-            wgmma_commit_wait();
-            const int g = k >> gs_log2;
-            finish(g, wsd, xsd, g - g0);
-            wgmma_fence();
+        for (int ks = 0; ks < kBK / 16; ++ks) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const unsigned short* row = reinterpret_cast<const unsigned short*>(
+                w_s + (lrow + 8 * h) * kBK + ((ks ^ gid) << 4));
+            af[ks][h] = fp8x2_to_h2(row[t]);
+            af[ks][2 + h] = fp8x2_to_h2(row[t + 4]);
+          }
+        }
+        const uint64_t db = sw128_desc(smem_addr(xh));
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < kBK / 16; ++ks) {
+          const int k = kt * kBK + ks * 16;
+          if (k < n) {
+            // the k-step's 32 bytes of f16 lie 32 (ks % 4) bytes into the
+            // swizzled rows of atom ks / 4
+            wgmma_f16(d, af[ks], db + (ks >> 2) * (kXAtomBytes >> 4) + 2 * (ks & 3),
+                      (k & (gs - 1)) != 0);
+            if (((k + 16) & (gs - 1)) == 0) {
+              wgmma_commit_wait();
+              const int g = k >> gs_log2;
+              finish(g, wsd, xsd, g - g0);
+              wgmma_fence();
+            }
+          }
+        }
+      } else {
+        const uint64_t da =
+            sw128_desc(smem_addr(Ring::kUnpacked ? tile : stage(kt)) + wg * 64 * kBK);
+        const uint64_t db = sw128_desc(smem_addr(x_stage(kt)));
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < kBK / 32; ++ks) {
+          const int k = kt * kBK + ks * 32;
+          if (k < n) {
+            // the k-step's 32 bytes lie 32 ks bytes into the swizzled rows; a
+            // group's first k-step starts the sum afresh
+            wgmma_s8(d, da + 2 * ks, db + 2 * ks, (k & (gs - 1)) != 0);
+            if (((k + 32) & (gs - 1)) == 0) {
+              wgmma_commit_wait();
+              const int g = k >> gs_log2;
+              finish(g, wsd, xsd, g - g0);
+              wgmma_fence();
+            }
           }
         }
       }
@@ -915,8 +1153,9 @@ gqmm_mma_kernel(const __grid_constant__ CUtensorMap tm_w, const __grid_constant_
     return;
   }
 
-  // mma.sync (GS 16): s32 group sums; the scaled terms of even and of odd
-  // groups, each added left to right
+  // mma.sync (GS 16, integer formats; fp8 runs wgmma at every GS): s32
+  // group sums; the scaled terms of even and of odd groups, each added left
+  // to right
   int c[2][4][4];
   float even[2][4][4], odd[2][4][4];
 #pragma unroll
@@ -957,15 +1196,15 @@ gqmm_mma_kernel(const __grid_constant__ CUtensorMap tm_w, const __grid_constant_
   };
 
 #pragma unroll
-  for (int s = 0; s < kStagesTc - 1; ++s) {
+  for (int s = 0; s < kStages - 1; ++s) {
     if (s < nk) fetch(s);
     cp_async_commit();
   }
   for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kStagesTc - 2>();                                  // slice kt's scales
-    mbar_wait(bars + 8 * (kt % kStagesTc), (kt / kStagesTc) & 1);    // and its tiles
+    cp_async_wait<kStages - 2>();                                  // slice kt's scales
+    mbar_wait(bars + 8 * (kt % kStages), (kt / kStages) & 1);    // and its tiles
     __syncthreads();          // everyone's scales are in; slice kt - 1's stage is free
-    const int nx = kt + kStagesTc - 1;
+    const int nx = kt + kStages - 1;
     if (nx < nk) fetch(nx);
     cp_async_commit();
     if (Ring::kUnpacked) {
@@ -1142,21 +1381,25 @@ int run_gqmm_tc(const void* wq, const void* ws, const void* xq, const void* xs, 
     return launch_small<L, 1, kXsFirst>(wq, ws, xq, xs, out, b, m, n, gs_log2, device, s);
   if (b <= g_small_max_b && b <= 16 && small_smem_bytes(2, n, ng) <= kMaxSmem)
     return launch_small<L, 2, kXsFirst>(wq, ws, xq, xs, out, b, m, n, gs_log2, device, s);
-  // int3 rows the ring's 16-byte copies cannot stream (not 16-byte aligned,
-  // or n no multiple of 128: a layer slice of an odd shape) run the first
-  // design
+  // int3 / int4 rows the ring cannot stream (not 16-byte aligned, or n no
+  // multiple of 128: a layer slice of an odd shape) run the first design
   if constexpr (L::kMayMisalign) {
     if (!L::ring_ok(wq, n))
-      return run_gqmm<Int3Weights, kXsFirst>(wq, ws, xq, xs, out, b, m, n, group_size, device,
-                                             stream);
+      return run_gqmm<typename L::First, kXsFirst>(wq, ws, xq, xs, out, b, m, n, group_size,
+                                                   device, stream);
   }
   // wgmma for GS >= 32 (a k-step of 32 columns is whole groups); mma.sync,
-  // which can sum half a k-step, at GS 16
+  // which can sum half a k-step, at GS 16. fp8's k16-steps are whole groups
+  // at every GS: wgmma throughout.
   const bool wide = (long)((m + 127) / 128) * ((b + kLargeCols - 1) / kLargeCols) >= kSms;
 #define GQMM_LARGE(WM_, WG_) \
   launch_large<L, WM_, kXsFirst, WG_>(wq, ws, xq, xs, out, b, m, n, gs_log2, device, s)
-  if (gs_log2 >= 5) return wide ? GQMM_LARGE(4, true) : GQMM_LARGE(2, true);
-  return wide ? GQMM_LARGE(4, false) : GQMM_LARGE(2, false);
+  if constexpr (L::kFloat) {
+    return wide ? GQMM_LARGE(4, true) : GQMM_LARGE(2, true);
+  } else {
+    if (gs_log2 >= 5) return wide ? GQMM_LARGE(4, true) : GQMM_LARGE(2, true);
+    return wide ? GQMM_LARGE(4, false) : GQMM_LARGE(2, false);
+  }
 #undef GQMM_LARGE
 }
 
@@ -1183,13 +1426,13 @@ GQMV_ENTRY_POINT(int4, Int4Weights)
 GQMV_ENTRY_POINT(int3, Int3Weights)
 GQMV_ENTRY_POINT(fp8, Fp8Weights)
 GQMM_ENTRY_POINT(int8, (run_gqmm_tc<TcInt8, false>))
-GQMM_ENTRY_POINT(int4, (run_gqmm<Int4Weights, true>))
+GQMM_ENTRY_POINT(int4, (run_gqmm_tc<TcInt4, true>))
 GQMM_ENTRY_POINT(int3, (run_gqmm_tc<TcInt3, true>))
-GQMM_ENTRY_POINT(fp8, (run_gqmm<Fp8Weights, true>))
+GQMM_ENTRY_POINT(fp8, (run_gqmm_tc<TcFp8, true>))
 
-// Sets the largest b that takes the small design of int8 and int3 GQMM
-// (both designs are exact; only their times differ) and returns the
-// previous value. For timing the two designs at one b.
+// Sets the largest b that takes the small design of GQMM (both designs
+// keep the plain versions' arithmetic; only their times differ) and
+// returns the previous value. For timing the two designs at one b.
 extern "C" int gqmm_set_small_max_b(int b) {
   const int prev = g_small_max_b;
   g_small_max_b = b;

@@ -30,7 +30,17 @@ from repro_torch.kernels import cuda_build
 
 # dtype codes of csrc/flash_attn.cu
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-HEAD_DIMS = (32, 64, 128)
+# head dims both kernels are built for: TinyLlama's 64, 128 (internlm2,
+# deepseek-coder, pixtral, dbrx), gemma2's 256, zamba2's shared attention's
+# 112 and the reduced configs' 32
+HEAD_DIMS = (32, 64, 112, 128, 256)
+
+
+def kv_tile(hd: int) -> int:
+    """Keys a K/V tile of the tensor-core kernel (``kv_tile`` in
+    ``csrc/flash_attn.cu``): 64, or 32 at hd 256, where the output's
+    accumulators take 128 registers a lane."""
+    return 32 if hd > 128 else 64
 
 # launches by kernel: the tensor-core kernel (bf16 / fp16) and the CUDA-core
 # kernel (f32); a run zeroes these, drives the model, and reads them

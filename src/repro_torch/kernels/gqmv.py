@@ -9,12 +9,17 @@ weight format:
   gqmm_cuda(fmt=...)  <- ``gqmm_pallas`` / ``gqmm_{int4,int3,fp8}_pallas``
                          (batched: prefill b = tokens, decode b = batch)
 
-int8 and int3 GQMM run one of two designs, chosen by b in
+Every GQMM runs one of two designs on the tensor cores, chosen by b in
 ``csrc/gqmm.cu`` (``run_gqmm_tc``) and mirrored by :func:`gqmm_design`:
 the small one (decode: activations staged in shared memory, weights
-streamed into tensor-core fragments) for b <= ``SMALL_MAX_B``, the large
+streamed into ``mma.sync`` fragments) for b <= ``SMALL_MAX_B``, the large
 one (prefill: a ring of weight and activation tiles, filled by the TMA
-unit, into ``mma.sync`` s8) above it.
+unit, into ``wgmma``) above it. int8, int4 and int3 run the int8 tensor
+cores (int4 and int3 weights unpacked to int8 on the way); fp8 runs the
+f16 ones (e4m3 weights and int8 activations are exact in f16, their
+products exact in f32). int4 and int3 rows the large design's ring cannot
+stream run the first design (one warp an output row, ``__dp4a``), as GQMV
+always does.
 
 ``wq`` is the format's storage array: int8 (m, n) for int8, packed int8
 (m, n/2) for int4, packed uint8 (m, 3n/8) for int3, float8_e4m3fn (m, n)
@@ -43,21 +48,30 @@ GROUP_SIZES = (16, 32, 64, 128, 256)
 # loads (16 bytes of int8 or fp8, 8 of int4, 6 of int3 as 16-bit words)
 WEIGHT_FORMATS: dict[str, int] = {"int8": 16, "int4": 8, "int3": 2, "fp8": 16}
 
-# csrc/gqmm.cu, int8/int3 GQMM. SMALL_MAX_B is the cut-over, set from the
-# times of both designs at b = 8 and 16 (chip_smoke.py's cut-over rows,
-# PERF.md). The small design: weight rows a CTA, warps a CTA (one unit of
-# whole groups each per round), logical weights a k-span, k-spans of loads
-# in flight a round, groups a unit at most. The large design: batch rows a
+# csrc/gqmm.cu, GQMM. SMALL_MAX_B is the cut-over, set from the times of
+# both designs at b = 8 and 16 (chip_smoke.py's cut-over rows, PERF.md).
+# The small design: weight rows a CTA, warps a CTA (one unit of whole
+# groups each per round), logical weights a k-span, k-spans of loads in
+# flight a round, groups a unit at most. The large design: batch rows a
 # CTA, weight rows a CTA (WIDE_ROWS where that gives every SM a CTA, else
 # NARROW_ROWS), bytes of the contraction a stage, stages of the ring, groups
-# whose scales a stage holds at most, the floats a row of them takes, and
-# the alignment of a 128-byte-swizzled tile.
+# whose scales a stage holds at most, the floats a row of them takes, the
+# alignment of a 128-byte-swizzled tile, and fp8's f16 activation tile (two
+# atoms of 128-byte rows) and stages (one fewer, so that two 64-row CTAs
+# still fit an SM).
 SMALL_MAX_B = 16
 SMALL_ROWS, SMALL_WARPS, SPAN, UNROLL, UNIT_GROUPS = 16, 8, 64, 4, 4
 LARGE_COLS, WIDE_ROWS, NARROW_ROWS, BK, STAGES = 64, 128, 64, 128, 5
+FP8_STAGES = 4
 STAGE_GROUPS, SCALE_STRIDE, SWIZZLE_ALIGN = 8, 9, 1024
+X_ATOM_BYTES = LARGE_COLS * 128
 SMS, MAX_SMEM = 132, 232448
-TC_FORMATS = ("int8", "int3")
+TC_FORMATS = ("int8", "int4", "int3", "fp8")
+# bytes a weight row takes in a stage of the ring, as stored (int4 and int3
+# packed, then unpacked to an int8 tile), and the formats whose rows the
+# ring may not stream (then the first design runs)
+SLICE_BYTES = {"int8": BK, "int4": BK // 2, "int3": BK // 8 * 3, "fp8": BK}
+PACKED = ("int4", "int3")
 
 # launches per kernel; a run zeroes these, drives the model, and reads them
 LAUNCHES: dict[str, int] = {f"{kind}_{fmt}": 0 for fmt in WEIGHT_FORMATS
@@ -82,37 +96,41 @@ def small_smem_bytes(tiles8: int, n: int, ng: int) -> int:
 
 def large_smem_bytes(fmt: str, rows: int) -> int:
     """Dynamic shared memory of a large-design CTA of ``rows`` weight rows:
-    1 KB of room to align the base, STAGES stages (the weights' slice as
-    stored, int3 packed at 48 bytes a row; the activations' slice; both
-    scales; padded to 1 KB, where a 128-byte-swizzled tile must start),
-    for int3 the unpacked int8 tile, then an 8-byte mbarrier a stage."""
-    slice_bytes = BK if fmt == "int8" else BK // 8 * 3
-    stage = rows * slice_bytes + LARGE_COLS * BK + 4 * (rows + LARGE_COLS) * SCALE_STRIDE
+    1 KB of room to align the base, STAGES stages (FP8_STAGES for fp8; the
+    weights' slice as stored, int4 packed at 64 bytes a row, int3 at 48; the
+    activations' slice; both scales; padded to 1 KB, where a
+    128-byte-swizzled tile must start), for int4 and int3 the unpacked int8
+    tile, for fp8 the f16
+    activation tile, then an 8-byte mbarrier a stage."""
+    stage = (rows * SLICE_BYTES[fmt] + LARGE_COLS * BK
+             + 4 * (rows + LARGE_COLS) * SCALE_STRIDE)
     stage = -(-stage // SWIZZLE_ALIGN) * SWIZZLE_ALIGN
-    return SWIZZLE_ALIGN + STAGES * stage + (rows * BK if fmt == "int3" else 0) + 8 * STAGES
+    stages = FP8_STAGES if fmt == "fp8" else STAGES
+    return (SWIZZLE_ALIGN + stages * stage + (rows * BK if fmt in PACKED else 0)
+            + (2 * X_ATOM_BYTES if fmt == "fp8" else 0) + 8 * stages)
 
 
 def gqmm_design(b: int, m: int, n: int, group_size: int, fmt: str = "int8",
                 aligned: bool = True, small_max_b: int = SMALL_MAX_B) -> tuple[str, int]:
-    """(design, width) that int8/int3 GQMM runs for these shapes:
-    ("small", 8-row tiles of batch rows), ("large", weight rows a CTA), or,
-    for int3 rows the large design's 16-byte copies cannot stream (storage
-    not 16-byte ``aligned``, or n no multiple of BK), ("first", 0): the first
-    design."""
+    """(design, width) that GQMM runs for these shapes: ("small", 8-row
+    tiles of batch rows), ("large", weight rows a CTA), or, for int4 and
+    int3 rows the large design's ring cannot stream (storage not 16-byte
+    ``aligned``, or n no multiple of BK), ("first", 0): the first design."""
     ng = n // group_size
     for tiles8 in (1, 2):
         if b <= min(small_max_b, 8 * tiles8) and small_smem_bytes(tiles8, n, ng) <= MAX_SMEM:
             return "small", tiles8
-    if fmt == "int3" and (not aligned or n % BK):
+    if fmt in PACKED and (not aligned or n % BK):
         return "first", 0
     wide = -(-m // WIDE_ROWS) * -(-b // LARGE_COLS) >= SMS
     return "large", WIDE_ROWS if wide else NARROW_ROWS
 
 
 def set_small_max_b(b: int) -> int:
-    """Set the cut-over of the compiled int8/int3 GQMM (the library's, not
+    """Set the cut-over of the compiled GQMM (the library's, not
     ``SMALL_MAX_B``) and return the previous one: for timing both designs
-    at one b. Both designs give the same int32 group sums and scaled terms."""
+    at one b. Both designs give the same int32 group sums and scaled terms
+    (fp8: f32 group sums, in another order)."""
     return int(_lib().gqmm_set_small_max_b(int(b)))
 
 

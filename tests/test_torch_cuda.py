@@ -193,8 +193,29 @@ def test_int3_rows_only_two_byte_aligned(dev):
                                       group_size=16))
 
 
-# int8 (B3) and int3 (B6) GQMM: the small design at b <= kern.SMALL_MAX_B,
-# the tensor-core ring above it; m not a multiple of any tile, b ragged
+def test_int4_rows_the_ring_cannot_stream(dev):
+    """int4 GQMM above the cut-over on rows the large design's TMA ring cannot
+    stream: layer slices of a stacked leaf (24-byte rows, slices 8-byte
+    aligned only) and n = 1040 (no multiple of 128) run the first design."""
+    w = quant.quantize(torch.randn((3, 9, 48), device=dev), 16, "int4")
+    x = quant.quantize_activation(torch.randn((40, 48), device=dev), 16)
+    for i in range(3):
+        wi = w[i]
+        assert kern.gqmm_design(40, 9, 48, 16, "int4", aligned=wi.qvalues.data_ptr() % 16 == 0) \
+            == ("first", 0)
+        got = kern.gqmm_cuda(wi.qvalues, wi.scales, x.qvalues, x.scales, group_size=16,
+                             fmt="int4")
+        _close(got, ref.gqmm_int4_ref(wi.qvalues, wi.scales, x.qvalues, x.scales,
+                                      group_size=16))
+    args = _rand_fmt(dev, "int4", 300, 1040, 16, 64, seed=4)
+    assert kern.gqmm_design(64, 300, 1040, 16, "int4") == ("first", 0)
+    _close(kern.gqmm_cuda(*args, group_size=16, fmt="int4"),
+           ref.gqmm_int4_ref(*args, group_size=16))
+
+
+# GQMM of every format (B3, B5, B6, B7): the small design at b <=
+# kern.SMALL_MAX_B, the tensor-core ring above it; m not a multiple of any
+# tile, b ragged
 TC_BATCHES = (1, 4, 8, 9, 16, 64, 200, 256)
 
 
@@ -204,7 +225,7 @@ def _rand_tc(dev, fmt, m, n, gs, b, seed):
 
 
 def _plain_tc(fmt):
-    return ref.gqmm_ref if fmt == "int8" else ref.gqmm_int3_ref
+    return ref.gqmm_ref if fmt == "int8" else PLAIN[fmt][1]
 
 
 @pytest.mark.parametrize("gs", [16, 32, 64, 128, 256])
@@ -215,7 +236,7 @@ def test_tensor_core_gqmm_matches_plain(dev, fmt, gs, b):
     before = kern.LAUNCHES[f"gqmm_{fmt}"]
     got = kern.gqmm_cuda(*args, group_size=gs, fmt=fmt)
     assert kern.LAUNCHES[f"gqmm_{fmt}"] == before + 1
-    _close(got, _plain_tc(fmt)(*args, group_size=gs))
+    _close_fmt(fmt, got, _plain_tc(fmt)(*args, group_size=gs))
 
 
 @pytest.mark.parametrize("m,n,gs,b", [(4100, 2048, 256, 256), (2048, 2048, 256, 256),
@@ -229,7 +250,8 @@ def test_tensor_core_gqmm_tiles_and_partial_slices(dev, fmt, m, n, gs, b):
     (n = 1040 at GS 16, 1056 at GS 32), and the small design at w2's
     width."""
     args = _rand_tc(dev, fmt, m, n, gs, b, seed=m + b)
-    _close(kern.gqmm_cuda(*args, group_size=gs, fmt=fmt), _plain_tc(fmt)(*args, group_size=gs))
+    _close_fmt(fmt, kern.gqmm_cuda(*args, group_size=gs, fmt=fmt),
+               _plain_tc(fmt)(*args, group_size=gs))
 
 
 @pytest.mark.parametrize("b", [1, 4, 9, 16])
@@ -246,8 +268,8 @@ def test_tensor_core_gqmm_designs_agree_at_one_b(dev, fmt, b):
     finally:
         kern.set_small_max_b(prev)
     assert prev == kern.SMALL_MAX_B
-    _close(small, want)
-    _close(large, want)
+    _close_fmt(fmt, small, want)
+    _close_fmt(fmt, large, want)
 
 
 def test_lowbit_wrappers_reject_bad_arguments(dev):
@@ -427,6 +449,8 @@ def _flash(dev, bh, bkv, s, t, hd, dtype=torch.float32, seed=0):
     (4, 4, 64, 96, 32, False, None, None),        # non-causal, t != s
     (16, 4, 70, 70, 128, True, None, None),       # hd 128, ragged tiles
     (8, 2, 33, 33, 32, True, 5, None),
+    (8, 4, 200, 200, 256, True, 48, 50.0),        # gemma2: hd 256, window + soft cap
+    (8, 8, 100, 100, 112, True, None, None),      # zamba2's shared attention: hd 112
 ])
 def test_flash_kernel_matches_plain_f32(dev, bh, bkv, s, t, hd, causal, window, softcap):
     q, k, v = _flash(dev, bh, bkv, s, t, hd, seed=s + hd)
@@ -456,6 +480,10 @@ def test_flash_kernel_bf16_within_rounding_of_plain(dev):
     (8, 2, 100, 37, 64, False, None, None),       # non-causal, t < s, t not a multiple
     (4, 4, 64, 200, 128, False, None, 30.0),      # non-causal, t > s, soft cap
     (8, 2, 33, 33, 32, True, 5, None),            # a window narrower than a tile
+    (8, 4, 200, 200, 256, True, 48, 50.0),        # gemma2: hd 256 (32-key tiles), window, cap
+    (16, 8, 2048, 2048, 256, True, None, None),   # hd 256, a 2048-token prompt
+    (8, 8, 100, 100, 112, True, None, None),      # zamba2: hd 112 (padded rows)
+    (4, 4, 64, 150, 112, False, None, 30.0),      # hd 112, non-causal, t > s, soft cap
 ])
 def test_flash_tensor_core_kernel_within_rounding_of_plain(dev, dtype, bh, bkv, s, t, hd,
                                                            causal, window, softcap):

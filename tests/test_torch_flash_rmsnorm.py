@@ -23,7 +23,7 @@ from repro.kernels.flash_attn import flash_attention_pallas  # noqa: E402
 from repro.kernels.rmsnorm_quant import rmsnorm_quant_pallas  # noqa: E402
 from repro.kernels.rmsnorm_quant import rmsnorm_quant_ref as jrmsnorm_quant_ref  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
-from repro.models.registry import load_config as jload  # noqa: E402
+from repro.models.registry import ARCH_IDS, load_config as jload  # noqa: E402
 from repro_torch.kernels import flash_attn as flash_kern  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import rmsnorm_quant as rmsq_kern  # noqa: E402
@@ -41,7 +41,9 @@ def _both(arrays):
     return [jnp.asarray(a) for a in arrays], [torch.from_numpy(a) for a in arrays]
 
 
-# (bh, bkv, s, t, hd, bq, bk, kwargs): every case of tests/test_flash_attn.py
+# (bh, bkv, s, t, hd, bq, bk, kwargs): every case of tests/test_flash_attn.py,
+# then the head dims of the reference configs past 128: gemma2's 256 (8 / 4
+# heads, window and soft cap) and zamba2's shared attention's 112
 FLASH_CASES = [
     (4, 4, 128, 128, 64, 32, 32, {}),
     (4, 4, 256, 256, 32, 64, 128, {}),
@@ -50,6 +52,8 @@ FLASH_CASES = [
     (2, 2, 128, 128, 32, 32, 32, dict(window=32, softcap=50.0)),
     (2, 2, 64, 64, 32, 32, 32, dict(causal=False)),
     (2, 2, 128, 128, 32, 32, 64, dict(scale=0.2)),                     # block shapes
+    (4, 2, 128, 128, 256, 32, 32, dict(window=48, softcap=50.0)),      # gemma2
+    (2, 2, 96, 96, 112, 32, 32, {}),                                   # zamba2
 ]
 
 
@@ -73,6 +77,27 @@ def test_flash_plain_keeps_dtype_and_cuts_chunk_to_a_divisor():
     out = ref.flash_attention_ref(q.bfloat16(), k.bfloat16(), v.bfloat16(), group=4,
                                   scale=0.2)
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
+
+
+# the model types whose attention runs the reference's gqa_forward /
+# gqa_prefill, and so its _mha_blockwise under blockwise_attention
+# (repro/models/transformer.py for GQA decoder LMs, zamba.py's shared block,
+# encdec.py); MLA decoder LMs and rwkv6 have no GQA attention
+BLOCKWISE_MODEL_TYPES = ("decoder_lm", "zamba2", "encdec")
+
+
+def test_flash_head_dims_cover_the_reference_blockwise_configs():
+    """Every head dim of a reference config whose GQA path reaches
+    _mha_blockwise (gemma2-2b's 256 and zamba2-7b's 112 among them) is one
+    the port's flash kernels take."""
+    seen = set()
+    for arch in ARCH_IDS:
+        cfg = jload(arch)
+        if cfg.model_type not in BLOCKWISE_MODEL_TYPES or cfg.mla:
+            continue
+        seen.add(cfg.resolved_head_dim)
+        assert cfg.resolved_head_dim in flash_kern.HEAD_DIMS, arch
+    assert {64, 112, 128, 256} <= seen
 
 
 @pytest.mark.parametrize("lengths", [None, (12, 5, 9)])

@@ -1,28 +1,34 @@
-"""The arithmetic of the tensor-core int8 (B3) and int3 (B6) GQMM designs
-of ``csrc/gqmm.cu``, emulated in plain PyTorch on the CPU and held against
-the reference package (the CUDA kernels run in tests/test_torch_cuda.py on
-the card).
+"""The arithmetic of the tensor-core GQMM designs of ``csrc/gqmm.cu``, int8
+(B3), int4 (B5), int3 (B6) and fp8 (B7), emulated in plain PyTorch on the
+CPU and held against the reference package (the CUDA kernels run in
+tests/test_torch_cuda.py on the card).
 
 - Large design (b above the cut-over): tiles of weight rows x 64 batch rows
   (ragged edges zero-filled), int32 sums of 32-column k-steps (16 at GS 16)
   added into each group's sum, each group's sum scaled as the plain version
-  scales it (int8 ``(s * ws) * xs``, int3 ``(s * xs) * ws``, each product
-  rounded in f32) and added in f32 into an even-group or odd-group sum,
-  each left to right; the output is even + odd.
+  scales it (int8 ``(s * ws) * xs``, int4 / int3 / fp8 ``(s * xs) * ws``,
+  each product rounded in f32) and added in f32 into an even-group or
+  odd-group sum, each left to right; the output is even + odd. fp8: f32
+  sums of 16-column k-steps (e4m3 weights and int8 activations in f16, whose
+  products are exact in f32), added in f32 into the group's sum.
 - Small design (b at or below the cut-over): units of whole groups (a group
   of GS >= 64, else a 64-column k-span), one per warp per round of 8; each
   round's terms added in group order into the even and odd sums, as above.
+  fp8's k16-steps there take, of each 64-column k-span, the columns 16t +
+  4i .. 16t + 4i + 3 (t = 0..3) as mma i.
 
 The one order of both designs is the first design's at GS 256 (the even groups summed
 on one lane, the odd ones on another, then added): with it the 2-layer
 int8 golden stays token-exact on the card.
 
-Both are held to the reference's oracles (``gqmm_ref``, ``gqmm_int3_ref``)
-and its Pallas kernels in interpret mode on numpy-made inputs: the int32
-group sums must be equal, the outputs within 1e-5 of max|ref| (another f32
-order of the sum across groups). Then the constants of ``kernels/gqmv.py``
-against ``csrc/gqmm.cu``, and the paged kernel's head dims against the
-reference's paged configs.
+Both are held to the reference's oracles (``gqmm_ref``, ``gqmm_int4_ref``,
+``gqmm_int3_ref``, ``gqmm_fp8_ref``) and its Pallas kernels in interpret
+mode on numpy-made inputs: the int32 group sums must be equal, the outputs
+within 1e-5 of max|ref| (another f32 order of the sum across groups); fp8
+within rtol 5e-4 and atol 1e-4 (``chip_smoke.FP8_TOL``, the reference's own
+for its fp8 kernel: the group sums are f32 sums in another order). Then the
+constants of ``kernels/gqmv.py`` against ``csrc/gqmm.cu``, and the paged
+kernel's head dims against the reference's paged configs.
 """
 
 import re
@@ -37,19 +43,27 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core import quant as jquant  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
-from repro.kernels.gqmv import gqmm_int3_pallas, gqmm_pallas  # noqa: E402
+from repro.kernels.gqmv import (gqmm_fp8_pallas, gqmm_int3_pallas,  # noqa: E402
+                                gqmm_int4_pallas, gqmm_pallas)
 from repro.models.registry import ARCH_IDS, build as jbuild, load_config as jload  # noqa: E402
-from repro_torch.core.quant import unpack_int3  # noqa: E402
+from repro_torch.core.quant import unpack_int3, unpack_int4  # noqa: E402
 from repro_torch.kernels import gqmv as kern  # noqa: E402
 from repro_torch.kernels import paged_attn as paged_kern  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 
 CSRC = Path(kern.__file__).resolve().parents[1] / "csrc"
 GROUP_SIZES = (16, 32, 64, 128, 256)
+INT_FORMATS = tuple(f for f in kern.TC_FORMATS if f != "fp8")   # exact int32 group sums
+FP8_TOL = (5e-4, 1e-4)      # chip_smoke.FP8_TOL: rtol, atol
+ORACLES = {"int8": (jref.gqmm_ref, gqmm_pallas, ref.gqmm_ref),
+           "int4": (jref.gqmm_int4_ref, gqmm_int4_pallas, ref.gqmm_int4_ref),
+           "int3": (jref.gqmm_int3_ref, gqmm_int3_pallas, ref.gqmm_int3_ref),
+           "fp8": (jref.gqmm_fp8_ref, gqmm_fp8_pallas, ref.gqmm_fp8_ref)}
 
 
 def _inputs(fmt, m, n, gs, b, seed):
-    """numpy-made (wq storage, ws, xq, xs) and the int8 weight values."""
+    """numpy-made (wq storage, ws, xq, xs) and the weight values (int8, or
+    f32 for fp8)."""
     rng = np.random.default_rng(seed)
     xq = rng.integers(-127, 128, (b, n), dtype=np.int8)
     xs = (rng.random((b, n // gs), dtype=np.float32) * 1e-2 + 1e-4).astype(np.float32)
@@ -57,9 +71,21 @@ def _inputs(fmt, m, n, gs, b, seed):
         wq = rng.integers(-127, 128, (m, n), dtype=np.int8)
         ws = (rng.random((m, n // gs), dtype=np.float32) * 1e-2 + 1e-4).astype(np.float32)
         return wq, ws, xq, xs, wq
-    w = jquant.quantize_int3(jnp.asarray(rng.standard_normal((m, n), dtype=np.float32)), gs)
+    quantize = {"int4": jquant.quantize_int4, "int3": jquant.quantize_int3,
+                "fp8": jquant.quantize_fp8}[fmt]
+    w = quantize(jnp.asarray(rng.standard_normal((m, n), dtype=np.float32)), gs)
     wq, ws = np.array(w.qvalues), np.array(w.scales)
-    return wq, ws, xq, xs, unpack_int3(torch.from_numpy(wq.copy())).numpy()
+    if fmt == "fp8":
+        return wq, ws, xq, xs, wq.astype(np.float32)
+    unpack = unpack_int4 if fmt == "int4" else unpack_int3
+    return wq, ws, xq, xs, unpack(torch.from_numpy(wq.copy())).numpy()
+
+
+def _torch(a):
+    """A numpy input as a torch tensor (e4m3 through its bytes)."""
+    if a.dtype.name == "float8_e4m3fn":
+        return torch.from_numpy(a.view(np.uint8).copy()).view(torch.float8_e4m3fn)
+    return torch.from_numpy(np.array(a))
 
 
 def _term(sums, ws, xs, fmt):
@@ -82,13 +108,43 @@ def _step_sums(wv, xq, gs):
     return steps.reshape(b, m, n // gs, gs // step).sum(-1)
 
 
+def _fp8_step_sums(wv, xq, gs, small=False):
+    """(b, m, ng) f32 group sums of fp8 built from the k16-steps the mma
+    runs: each step's products (exact in f32) summed in f32, the steps added
+    in f32 in order. Large design: 16 contiguous columns a step. Small
+    design: each 64-column k-span's mmas i = 0..3 in order, mma i taking
+    columns 16t + 4i + c of lanes t = 0..3; at GS 16 and 32 a group holds
+    one or two lanes t (the others' weights are zeroed), so its step i sums
+    4 or 8 columns."""
+    m, n = wv.shape
+    b = xq.shape[0]
+    ng = n // gs
+    prod = torch.from_numpy(xq.astype(np.float32))[:, None, :] * torch.from_numpy(wv)[None]
+    if small:
+        assert n % kern.SPAN == 0
+        lanes = min(gs, kern.SPAN) // 16             # lanes t whose columns a group holds
+        p = prod.reshape(b, m, n // kern.SPAN, 4, 4, 4).sum(-1)      # (span, t, mma i)
+        steps = p.reshape(b, m, n // kern.SPAN, 4 // lanes, lanes, 4).sum(4)
+    else:
+        steps = prod.reshape(b, m, ng, gs // 16, 16).sum(-1)
+    steps = steps.reshape(b, m, ng, -1)
+    acc = torch.zeros((b, m, ng))
+    for k in range(steps.shape[-1]):
+        acc = acc + steps[..., k]
+    return acc
+
+
+def _group_sums(wv, xq, gs, fmt, small=False):
+    return _fp8_step_sums(wv, xq, gs, small) if fmt == "fp8" else _step_sums(wv, xq, gs)
+
+
 def emulate_large(wv, ws, xq, xs, gs, fmt, rows=kern.WIDE_ROWS):
     """The large design: tiles of ``rows`` weight rows x LARGE_COLS batch
     rows, zero-padded at the ragged edges; groups added left to right."""
     m, n = wv.shape
     b = xq.shape[0]
     mp, bp = -(-m // rows) * rows, -(-b // kern.LARGE_COLS) * kern.LARGE_COLS
-    wpad = np.zeros((mp, n), np.int8)
+    wpad = np.zeros((mp, n), wv.dtype)
     wpad[:m] = wv
     xpad = np.zeros((bp, n), np.int8)
     xpad[:b] = xq
@@ -100,8 +156,8 @@ def emulate_large(wv, ws, xq, xs, gs, fmt, rows=kern.WIDE_ROWS):
     for m0 in range(0, mp, rows):
         for b0 in range(0, bp, kern.LARGE_COLS):
             wt, xt = wpad[m0:m0 + rows], xpad[b0:b0 + kern.LARGE_COLS]
-            terms = _term(_step_sums(wt, xt, gs), wsp[m0:m0 + rows], xsp[b0:b0 + kern.LARGE_COLS],
-                          fmt)
+            terms = _term(_group_sums(wt, xt, gs, fmt), wsp[m0:m0 + rows],
+                          xsp[b0:b0 + kern.LARGE_COLS], fmt)
             out[b0:b0 + kern.LARGE_COLS, m0:m0 + rows] = _even_odd(terms, range(terms.shape[-1]))
     return out[:b, :m]
 
@@ -132,21 +188,24 @@ def small_rounds(n, gs):
 def emulate_small(wv, ws, xq, xs, gs, fmt):
     """The small design: each round's terms, warp by warp and group by
     group, into the even and odd sums."""
-    terms = _term(_step_sums(wv, xq, gs), torch.from_numpy(ws), torch.from_numpy(xs), fmt)
+    terms = _term(_group_sums(wv, xq, gs, fmt, small=True), torch.from_numpy(ws),
+                  torch.from_numpy(xs), fmt)
     order = [g for rnd in small_rounds(wv.shape[1], gs) for unit in rnd for g in unit]
     return _even_odd(terms, order)
 
 
 def _oracles(fmt, wq, ws, xq, xs, gs):
-    oracle = jref.gqmm_ref if fmt == "int8" else jref.gqmm_int3_ref
-    pallas = gqmm_pallas if fmt == "int8" else gqmm_int3_pallas
+    oracle, pallas, _ = ORACLES[fmt]
     args = tuple(jnp.asarray(a) for a in (wq, ws, xq, xs))
     return (np.asarray(oracle(*args, group_size=gs)),
             np.asarray(pallas(*args, group_size=gs, interpret=True)))
 
 
-def _within(got, want):
-    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+def _within(got, want, fmt="int8"):
+    if fmt == "fp8":
+        assert (np.abs(got - want) <= FP8_TOL[0] * np.abs(want) + FP8_TOL[1]).all()
+    else:
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
 
 
 # (m, n, b): m no multiple of a tile; b on both sides of the cut-over
@@ -159,20 +218,19 @@ SHAPES = [(200, 1024, 3), (200, 1024, 16), (200, 1024, 17), (70, 512, 70)]
 def test_tensor_core_designs_match_reference(fmt, gs, m, n, b):
     wq, ws, xq, xs, wv = _inputs(fmt, m, n, gs, b, seed=gs * 7 + b)
     want, pallas = _oracles(fmt, wq, ws, xq, xs, gs)
-    plain = (ref.gqmm_ref if fmt == "int8" else ref.gqmm_int3_ref)(
-        *(torch.from_numpy(np.array(a)) for a in (wq, ws, xq, xs)), group_size=gs).numpy()
+    plain = ORACLES[fmt][2](*(_torch(a) for a in (wq, ws, xq, xs)), group_size=gs).numpy()
     for rows in (kern.WIDE_ROWS, kern.NARROW_ROWS):
         large = emulate_large(wv, ws, xq, xs, gs, fmt, rows).numpy()
-        _within(large, want)
-        _within(large, pallas)
+        _within(large, want, fmt)
+        _within(large, pallas, fmt)
     small = emulate_small(wv, ws, xq, xs, gs, fmt).numpy()
-    _within(small, want)
-    _within(small, pallas)
-    _within(plain, want)
+    _within(small, want, fmt)
+    _within(small, pallas, fmt)
+    _within(plain, want, fmt)
 
 
 @pytest.mark.parametrize("gs", GROUP_SIZES)
-@pytest.mark.parametrize("fmt", kern.TC_FORMATS)
+@pytest.mark.parametrize("fmt", INT_FORMATS)
 def test_k_step_group_sums_equal_the_reference(fmt, gs):
     """The int32 sums the mmas build (32-column k-steps, 16 at GS 16) are the
     reference's group sums exactly."""
@@ -185,7 +243,7 @@ def test_k_step_group_sums_equal_the_reference(fmt, gs):
 
 
 @pytest.mark.parametrize("n,gs", [(2048, 256), (5632, 256), (1024, 16), (1056, 32)])
-@pytest.mark.parametrize("fmt", kern.TC_FORMATS)
+@pytest.mark.parametrize("fmt", INT_FORMATS)
 def test_designs_agree_bitwise_and_keep_each_scaled_term(fmt, n, gs):
     """Both designs add the groups in one order (even groups, odd groups,
     each left to right): equal bits, at any b. Each term is the plain
@@ -237,7 +295,22 @@ def test_design_constants_mirror_the_cuda_source():
     assert c["kScaleStride"] == kern.SCALE_STRIDE
     assert c["kSwizzleAlign"] == kern.SWIZZLE_ALIGN
     assert c["kMaxSmem"] == kern.MAX_SMEM
+    assert c["kStagesF16"] == kern.FP8_STAGES
     src = (CSRC / "gqmm.cu").read_text()
+    assert "constexpr int kXAtomBytes = kLargeCols * 128;" in src
+    assert kern.X_ATOM_BYTES == kern.LARGE_COLS * 128
+    # the bytes a weight row takes in a stage, as stored, per format's ring
+    rings = dict(re.findall(
+        r"struct TcRing<Tc(\w+)> \{\n  static constexpr int kSliceBytes = ([^;]+);", src))
+    assert {k: eval(v, {"kBK": kern.BK}) for k, v in rings.items()} == {
+        "Int8": kern.SLICE_BYTES["int8"], "Int3": kern.SLICE_BYTES["int3"],
+        "Int4": kern.SLICE_BYTES["int4"]}
+    assert "struct TcRing<TcFp8> : TcRing<TcInt8> {};" in src
+    assert kern.SLICE_BYTES["fp8"] == kern.SLICE_BYTES["int8"] == kern.BK
+    # every format's GQMM runs the two tensor-core designs
+    for fmt, loader in (("int8", "TcInt8, false"), ("int4", "TcInt4, true"),
+                        ("int3", "TcInt3, true"), ("fp8", "TcFp8, true")):
+        assert f"GQMM_ENTRY_POINT({fmt}, (run_gqmm_tc<{loader}>))" in src
     # the large design's two tile widths: 32 rows a warp, 2 (narrow) or 4
     # (wide) warps along the rows
     assert "GQMM_LARGE(4, true)" in src and "GQMM_LARGE(2, true)" in src
@@ -273,18 +346,34 @@ def test_small_smem_bytes_mirror_the_layout():
 
 @pytest.mark.parametrize("fmt", kern.TC_FORMATS)
 def test_large_smem_bytes_fit_the_opt_in(fmt):
-    """Five stages (the weight slice, int3 packed at 48 bytes a row; the
-    activation slice; both scales; each padded to 1 KB, where a 128-byte-
-    swizzled TMA tile must start), int3's unpacked tile and an mbarrier a
-    stage, with 1 KB of room to align the base, fit the 227 KB a CTA can opt
-    into; two 64-row CTAs fit an SM."""
+    """Five stages, four for fp8 (the weight slice, int4 packed at 64 bytes
+    a row, int3 at 48; the activation slice; both scales; each padded to
+    1 KB, where a 128-byte-swizzled TMA tile must start), int4's and int3's
+    unpacked tile, fp8's f16 activation tile (64 rows x 256 bytes) and an
+    mbarrier a stage, with 1 KB of room to align the base, fit the 227 KB a
+    CTA can opt into; two 64-row CTAs fit an SM."""
     assert 2 * kern.large_smem_bytes(fmt, kern.NARROW_ROWS) <= 228 * 1024
+    stages = 4 if fmt == "fp8" else 5
     for rows in (kern.NARROW_ROWS, kern.WIDE_ROWS):
-        w_tile = rows * (128 if fmt == "int8" else 48)
+        w_tile = rows * {"int8": 128, "int4": 64, "int3": 48, "fp8": 128}[fmt]
         stage = -(-(w_tile + 64 * 128 + 4 * (rows + 64) * 9) // 1024) * 1024
-        want = 1024 + 5 * stage + (rows * 128 if fmt == "int3" else 0) + 8 * 5
+        want = (1024 + stages * stage + (rows * 128 if fmt in ("int4", "int3") else 0)
+                + (64 * 256 if fmt == "fp8" else 0) + 8 * stages)
         assert kern.large_smem_bytes(fmt, rows) == want <= kern.MAX_SMEM
         assert w_tile % 1024 == 0              # the activation tile starts swizzle-aligned
+
+
+def test_int4_rows_the_ring_cannot_stream_run_the_first_design():
+    """int4 rows are n / 2 bytes: a layer slice of a stacked leaf may be only
+    8-byte aligned, and n no multiple of 128 leaves a partial 64-byte slice;
+    above the cut-over both run the first design. int8 and fp8 rows always
+    stream (the wrapper requires 16-byte rows)."""
+    assert kern.gqmm_design(64, 300, 1040, 16, "int4") == ("first", 0)
+    assert kern.gqmm_design(64, 300, 1024, 16, "int4", aligned=False) == ("first", 0)
+    assert kern.gqmm_design(64, 300, 1024, 16, "int4") == ("large", 64)
+    assert kern.gqmm_design(256, 32000, 2048, 256, "int4") == ("large", 128)
+    assert kern.gqmm_design(16, 300, 1040, 16, "int4", aligned=False) == ("small", 2)
+    assert kern.gqmm_design(64, 300, 1040, 16, "fp8") == ("large", 64)
 
 
 def test_int3_rows_the_ring_cannot_stream_run_the_first_design():
@@ -324,3 +413,39 @@ def test_paged_tile_width_fits_shared_memory(hd, elt, cols):
     regions = [3 * 2 * tc * hd * elt, (3 * 2 * tc * 4) if quant else 0, 4 * 2 * hd, 4 * 2 * hd,
                4 * 2 * tc, 4 * 3 * 2, 4 * 5 * tc, 4 * 5 * tb, 4 * 3 * tc]
     assert paged_kern.smem_bytes(2, hd, 8, elt, quant) == sum(regions)
+
+
+def test_fp8_and_int8_values_are_exact_in_f16():
+    """fp8's tensor-core designs feed e4m3 weights and int8 activations to
+    f16 mmas with f32 sums: every finite e4m3 value and every int8 value is
+    an f16 value, the kernel's int8 -> f16 conversion (the byte biased by
+    128 as the mantissa of 1024 + 128 + x, minus 1152) is exact, and every
+    product of the two is exact in f32."""
+    codes = torch.arange(256, dtype=torch.int32).to(torch.uint8).view(torch.float8_e4m3fn)
+    e4m3 = codes.to(torch.float32)
+    e4m3 = e4m3[torch.isfinite(e4m3)]
+    assert e4m3.numel() == 254
+    assert torch.equal(e4m3.to(torch.float16).to(torch.float32), e4m3)
+    x = np.arange(-128, 128, dtype=np.int32)
+    biased = (0x6400 | ((x ^ 0x80) & 0xFF)).astype(np.uint16).view(np.float16)
+    assert np.array_equal((biased - np.float16(1152)).astype(np.int32), x)
+    assert np.array_equal(x.astype(np.float16).astype(np.int32), x)
+    prod32 = e4m3[:, None] * torch.from_numpy(x.astype(np.float32))[None]
+    prod64 = e4m3.double()[:, None] * torch.from_numpy(x.astype(np.float64))[None]
+    assert torch.equal(prod32.double(), prod64)
+
+
+@pytest.mark.parametrize("gs", GROUP_SIZES)
+def test_fp8_k16_group_sums_within_f32_rounding(gs):
+    """The f32 group sums of fp8's k16-steps, in either design's order, are
+    the exact group sums to within the f32 rounding of their additions
+    (GS / 16 + 16 terms' worth of 2^-24 of the largest partial sum)."""
+    m, n, b = 40, 512, 9
+    wq, ws, xq, xs, wv = _inputs("fp8", m, n, gs, b, seed=gs + 3)
+    exact = np.einsum("mgk,bgk->bmg", wv.reshape(m, n // gs, gs).astype(np.float64),
+                      xq.reshape(b, n // gs, gs).astype(np.float64))
+    absum = np.einsum("mgk,bgk->bmg", np.abs(wv.reshape(m, n // gs, gs)).astype(np.float64),
+                      np.abs(xq.reshape(b, n // gs, gs)).astype(np.float64))
+    for small in (False, True):
+        got = _fp8_step_sums(wv, xq, gs, small).double().numpy()
+        assert (np.abs(got - exact) <= (gs + 16) * 2.0 ** -24 * absum).all()

@@ -13,7 +13,8 @@ themselves run in tests/test_torch_cuda.py on the card).
 - The wrapper's split plan and shared-memory sizing, which mirror the CUDA
   source.
 - Flash attention on the tensor cores (``csrc/flash_attn.cu``): the online
-  softmax over 64-key tiles with the weights P rounded to bf16 before P V
+  softmax over 64-key tiles (32 at hd 256) with the weights P rounded to
+  bf16 before P V
   and the output rounded to bf16, held to the reference's
   ``flash_attention_pallas`` (interpret mode) on the same bf16 values within
   1e-2 * max|ref|: the tolerance the card holds the kernel to.
@@ -33,6 +34,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.flash_attn import flash_attention_pallas  # noqa: E402
 from repro.kernels.paged_attn import paged_attention_pallas  # noqa: E402
+from repro_torch.kernels import flash_attn as flash_kern  # noqa: E402
 from repro_torch.kernels import paged_attn as paged_kern  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 
@@ -269,13 +271,15 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
 
 
 def _flash_mma(q, k, v, *, group, scale, causal=True, window=None, softcap=None):
-    """The tensor-core kernel's arithmetic: 64 query rows x 64-key tiles,
-    S = q k^T in f32 from bf16 inputs, scale / soft cap / masks (keys past t
-    at -inf, masked keys at -1e30, tiles above the diagonal or wholly
-    outside the window skipped), online softmax in f32, P rounded to bf16
-    before P V, l summing the f32 weights, the output rounded to bf16."""
+    """The tensor-core kernel's arithmetic: 64 query rows x K/V tiles of
+    ``flash_attn.kv_tile(hd)`` keys, S = q k^T in f32 from bf16 inputs,
+    scale / soft cap / masks (keys past t at -inf, masked keys at -1e30,
+    tiles above the diagonal or wholly outside the window skipped), online
+    softmax in f32, P rounded to bf16 before P V, l summing the f32 weights,
+    the output rounded to bf16."""
     bh, s, hd = q.shape
     t = k.shape[1]
+    bk = flash_kern.kv_tile(hd)
     out = torch.empty_like(q)
     for row in range(bh):
         kr, vr = k[row // group], v[row // group]
@@ -283,13 +287,13 @@ def _flash_mma(q, k, v, *, group, scale, causal=True, window=None, softcap=None)
             qt = q[row, q0:q0 + 64]
             nq = qt.shape[0]
             k_end = min(t, q0 + nq) if causal else t
-            k_begin = (max(0, q0 - window + 1) // 64) * 64 if window else 0
+            k_begin = (max(0, q0 - window + 1) // bk) * bk if window else 0
             m = torch.full((nq,), NEG_INF)
             l = torch.zeros(nq)
             acc = torch.zeros((nq, hd))
             qp = torch.arange(q0, q0 + nq)[:, None]
-            for k0 in range(k_begin, k_end, 64):
-                kt, vt = kr[k0:k0 + 64], vr[k0:k0 + 64]
+            for k0 in range(k_begin, k_end, bk):
+                kt, vt = kr[k0:k0 + bk], vr[k0:k0 + bk]
                 sc = qt @ kt.T * scale
                 if softcap:
                     sc = softcap * torch.tanh(sc / softcap)
@@ -310,15 +314,21 @@ def _flash_mma(q, k, v, *, group, scale, causal=True, window=None, softcap=None)
     return _bf16(out)
 
 
-@pytest.mark.parametrize("case", ["tinyllama", "window_softcap", "ragged"])
+@pytest.mark.parametrize("case", ["tinyllama", "window_softcap", "ragged", "gemma2_hd256",
+                                  "zamba2_hd112"])
 def test_flash_bf16_p_emulation_within_tolerance_of_pallas(case):
     """TinyLlama's head layout (32 query / 4 KV heads, hd 64) over a 256-token
-    causal prompt; a window of 48 with a soft cap of 50; and s = t = 200 (a
-    ragged last tile). Inputs rounded to bf16 for both."""
+    causal prompt; a window of 48 with a soft cap of 50; s = t = 200 (a
+    ragged last tile); gemma2's 8 / 4 heads at hd 256 (32-key tiles) with a
+    window of 48 and a soft cap of 50 over 200 tokens; zamba2's shared
+    attention, hd 112 with as many KV heads as query heads. Inputs rounded
+    to bf16 for both."""
     bh, bkv, s, hd, kw = {
         "tinyllama": (32, 4, 256, 64, {}),
         "window_softcap": (8, 2, 256, 64, dict(window=48, softcap=50.0)),
         "ragged": (8, 2, 200, 64, {}),
+        "gemma2_hd256": (8, 4, 200, 256, dict(window=48, softcap=50.0)),
+        "zamba2_hd112": (4, 4, 136, 112, {}),
     }[case]
     rng = np.random.default_rng(hd + s + len(kw))
     arrays = [_bf16(torch.from_numpy(rng.normal(size=shape).astype(np.float32)))
@@ -329,3 +339,13 @@ def test_flash_bf16_p_emulation_within_tolerance_of_pallas(case):
                                              interpret=True, **kw))
     err = np.abs(got.numpy() - want).max()
     assert np.isfinite(got.numpy()).all() and err <= 1e-2 * np.abs(want).max(), err
+
+
+def test_flash_head_dims_and_tiles_mirror_the_cuda_source():
+    """Both flash kernels are built for every head dim the wrapper takes, and
+    the emulation's K/V tile is the kernel's (32 keys at hd 256, else 64)."""
+    src = (Path(flash_kern.__file__).resolve().parents[1] / "csrc" / "flash_attn.cu").read_text()
+    macro = re.search(r"#define FLASH_HEAD_DIMS\(X\) (.*)", src).group(1)
+    assert tuple(int(h) for h in re.findall(r"X\((\d+)\)", macro)) == flash_kern.HEAD_DIMS
+    assert "return HD > 128 ? 32 : 64;" in src
+    assert [flash_kern.kv_tile(h) for h in flash_kern.HEAD_DIMS] == [64, 64, 64, 64, 32]

@@ -280,5 +280,9 @@ def test_kernel_bounds_from_tinyllama_shapes():
     assert b2f.nbytes - b2.nbytes == 2 * (4 * 2048 + 2048)
     long = rows[("B4 flash_attention_pallas", "one layer, bf16 1 x 2048 tokens")]
     assert long.bound_by == "operations" and long.ops == 4 * 32 * 64 * 2048 * 2049 // 2
+    # the prefill's b = 256 pass: the integer formats by bytes at the int8
+    # tensor rate, fp8 (e4m3 x int8 on the f16 tensor cores) by operations
+    fp8 = rows[("B7 gqmm_fp8_pallas", "one pass, b=256")]
+    assert fp8.bound_by == "operations" and fp8.rate == "bf16"
     assert all(b.bound_by == "bytes" for (_, work), b in rows.items()
-               if "1 x 2048" not in work)
+               if "1 x 2048" not in work and b is not fp8)
