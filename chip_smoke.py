@@ -36,8 +36,9 @@ printing no result, when CUDA is missing. Phases, each fatal on failure:
              within 1e-2 * max|plain| of the plain arithmetic run in f32 on
              the same values (the kernel rounds once, to bf16, at the end).
              Timed the same way, over pools larger than the L2, with each
-             time's share of its bound; then, checked only, gemma2's paged
-             shape: G 2 at hd 256 over bf16, f32, int8 and fp8 pools.
+             time's share of its bound; then gemma2's paged shape, G 2 at
+             hd 256 over bf16, f32, int8 and fp8 pools, checked and timed the
+             same way.
              Then flash attention (B4): causal GQA 32/4 heads, hd 64, at
              4 x 64 and 1 x 2048 tokens, gemma2's 8/4 heads at hd 256 and
              zamba2's 32/32 at hd 112 over 1 x 2048 (timed, beside
@@ -515,6 +516,8 @@ def phase_kernels(dev) -> list[dict]:
                    "plain_us": 1e3 * p_ms, "bound_us": 1e6 * bnd, "bound_by": by}
             if kind == "gqmm" and fmt in kern.TC_FORMATS:
                 row["design"] = "%s/%d" % kern.gqmm_design(b, m, n, gs, fmt)
+            elif kind == "gqmv":
+                row["design"] = kern.gqmv_design(n, fmt, wq.data_ptr() % 16 == 0)
             if (kname, b) == ("gqmm_int8", INT_MM_B):
                 row["int_mm_us"] = 1e3 * device_time_ms(
                     lambda i: torch._int_mm(xq, pool[i % copies][0].t()), max(50, 2 * copies))[0]
@@ -598,7 +601,9 @@ def phase_tc_sweep(dev) -> list[dict]:
 def phase_group_sizes(dev) -> list[dict]:
     """Every kernel at every group size on a small shape, and the int3
     kernels on 18-byte rows (n = 48 at GS 16) of a stacked leaf's layer
-    slices, whose rows and lanes are only 2-byte aligned. Checked only."""
+    slices, whose rows and lanes are only 2-byte aligned, and int3 GQMV on
+    rows the streamed design cannot take (n 1056, storage off a 16-byte
+    boundary). Checked only."""
     gen = torch.Generator(device=dev).manual_seed(5)
     m, n = GS_SWEEP["m"], GS_SWEEP["n"]
     rows = []
@@ -623,9 +628,27 @@ def phase_group_sizes(dev) -> list[dict]:
                               pfn(w.qvalues, w.scales, xq, xs, group_size=16), "int3")
             rows.append({"kernel": f"{kind}_int3", "gs": 16, "m": 9, "n": 48, "b": b,
                          "max_abs_err": err, "layer_slice": i})
+    # int3 GQMV rows the streamed design cannot take: n 1056 at GS 32 (no
+    # multiple of 128) and storage 2 bytes off a 16-byte boundary
+    for width, gs, shift in ((1056, 32, 0), (2048, 64, 2)):
+        wq, ws = _rand_weights(gen, "int3", 60, width, gs, dev)
+        if shift:
+            moved = torch.empty(wq.numel() + shift, dtype=wq.dtype, device=dev)[shift:]
+            wq = moved.view(wq.shape).copy_(wq)
+        xq, xs = _rand_q(gen, (width,), gs, dev)
+        design = kern.gqmv_design(width, "int3", wq.data_ptr() % 16 == 0)
+        if design != "first":
+            raise AssertionError(f"gqmv_int3 n={width} shift {shift}: expected the first design")
+        kfn, pfn = _kernel_fns("gqmv", "int3")
+        err = check_close(f"gqmv_int3 n={width} GS {gs} shift {shift} ({design})",
+                          kfn(wq, ws, xq, xs, group_size=gs), pfn(wq, ws, xq, xs, group_size=gs),
+                          "int3")
+        rows.append({"kernel": "gqmv_int3", "gs": gs, "m": 60, "n": width, "b": 1,
+                     "max_abs_err": err, "design": design, "shift": shift})
     torch.cuda.synchronize()
     log(f"[kernels] {len(rows)} group-size cases pass (GS {GS_SWEEP['group_sizes']}, "
-        f"{m} x {n}, b in {GS_SWEEP['batches']} and GQMV; int3 on 18-byte rows)")
+        f"{m} x {n}, b in {GS_SWEEP['batches']} and GQMV; int3 on 18-byte rows; int3 GQMV's "
+        "first design at n 1056 and on storage off 16 bytes)")
     return rows
 
 
@@ -669,6 +692,11 @@ def phase_flash_kernels(dev) -> tuple[list[dict], dict]:
     GQA path), with the bound and the kernel's share of it."""
     gen = torch.Generator(device=dev).manual_seed(6)
     rows, sdpa = [], {}
+    for hd in fkern.HEAD_DIMS:
+        smem, ctas = fkern.f32_layout(hd, dev.index)
+        log(f"[flash] flash_attn_f32 hd {hd:3d}: {smem} bytes of shared memory, {ctas} CTAs "
+            f"of {fkern.F32_THREADS} threads an SM (K/V tiles of {fkern.f32_keys(hd)} keys, "
+            f"{fkern.f32_splits(hd)} d-split(s))")
     for case, dt in itertools.product(FLASH_TIMED + FLASH_CHECKED, FLASH_DTYPES):
         name, b, h, kv, s, t, hd, causal, window, cap = case
         q = torch.randn((b * h, s, hd), generator=gen, device=dev).to(dt)
@@ -828,6 +856,36 @@ def paged_call_bytes_ops(q, k_pages, pos, mask, table, quant: bool) -> tuple[int
     return nbytes, 4 * g * hd * kv * (rows + b)
 
 
+def _paged_variants(b: int, T: int, kv: int, hd: int, elt: int) -> int:
+    """Tables over distinct blocks that a timed paged run cycles through:
+    enough that the run reads more than the 50 MB L2 holds."""
+    return max(1, min(1000, math.ceil(160e6 / (b * (T // 2) * kv * hd * elt * 2))))
+
+
+def _time_paged(row, q, kp, vp, tables, pos, kn, vn, mask, kw, quant: bool) -> None:
+    """Adds to ``row`` the kernel's device time over ``tables`` (variants,
+    b, MB), its plain version's, the bound and the kernel's share of it."""
+    variants = tables.shape[0]
+    pos32 = pos.to(torch.int32)
+    # a call launches up to two kernels (the split pass and the combine)
+    # and the launch queue holds about a thousand, so at most 400 calls wait
+    # behind the GPU spin
+    k_ms, k_host = device_time_ms(
+        lambda i: pkern.paged_attention_cuda(q, kp, vp, tables[i % variants], pos32, kn, vn,
+                                             mask, **kw),
+        min(400, max(50, variants)))
+    # the plain version's enqueue outlasts every GPU spin (some step of it
+    # waits for the card): its device time comes from the profiler instead
+    turn = itertools.count()
+    p_ms = profile_device(lambda: paged_attention_ref(
+        q, kp, vp, tables[next(turn) % variants], pos, kn, vn, mask, **kw), 3)["device_ms"]
+    nbytes, nops = paged_call_bytes_ops(q, kp, pos, mask, tables[0], quant)
+    bnd, by = bound_s(nbytes, nops, F32_OPS_PER_S)
+    row.update({"us": 1e3 * k_ms, "host_us": 1e3 * k_host, "plain_us": 1e3 * p_ms,
+                "bound_us": 1e6 * bnd, "bound_by": by, "bytes": nbytes,
+                "variants": variants, "bound_share": 1e3 * bnd / k_ms})
+
+
 def phase_paged_kernels(dev) -> list[dict]:
     """The paged decode-attention kernel against its plain version at every
     pool type and shape of ``PAGED`` (the split plan S of each shape shown);
@@ -842,10 +900,7 @@ def phase_paged_kernels(dev) -> list[dict]:
         quant = pool != "float"
         kname = "paged_attn_quant" if quant else "paged_attn"
         mb = T // bs
-        # enough tables over distinct blocks that a timed run reads more
-        # than the 50 MB L2 holds
-        elt = qdt.itemsize if pool == "float" else 1
-        variants = max(1, min(1000, math.ceil(160e6 / (b * (T // 2) * kv * hd * elt * 2))))
+        variants = _paged_variants(b, T, kv, hd, qdt.itemsize if pool == "float" else 1)
         nb = variants * b * mb + 1                                  # block 0: the sink
         kp, vp, ks, vs = _paged_pools(gen, dev, pool, qdt, nb, bs)
         pos = torch.randint(0, T, (b,), generator=gen, device=dev)
@@ -879,25 +934,7 @@ def phase_paged_kernels(dev) -> list[dict]:
             if not err <= tol:
                 raise AssertionError(f"{kname}: kernel disagrees with its plain version: {row}")
             if softcap is None:
-                # a call launches up to two kernels (the split pass and the
-                # combine) and the launch queue holds about a thousand, so at
-                # most 400 calls wait behind the GPU spin
-                k_ms, k_host = device_time_ms(
-                    lambda i: pkern.paged_attention_cuda(
-                        q, kp, vp, tables[i % variants], pos32, kn, vn, mask, **kw),
-                    min(400, max(50, variants)))
-                # the plain version's enqueue outlasts every GPU spin (some
-                # step of it waits for the card): its device time comes
-                # from the profiler instead
-                turn = itertools.count()
-                p_ms = profile_device(lambda: paged_attention_ref(
-                    q, kp, vp, tables[next(turn) % variants], pos, kn, vn, mask, **kw),
-                    3)["device_ms"]
-                nbytes, nops = paged_call_bytes_ops(q, kp, pos, mask, tables[0], quant)
-                bnd, by = bound_s(nbytes, nops, F32_OPS_PER_S)
-                row.update({"us": 1e3 * k_ms, "host_us": 1e3 * k_host, "plain_us": 1e3 * p_ms,
-                            "bound_us": 1e6 * bnd, "bound_by": by, "bytes": nbytes,
-                            "variants": variants, "bound_share": 1e3 * bnd / k_ms})
+                _time_paged(row, q, kp, vp, tables, pos, kn, vn, mask, kw, quant)
             rows.append(row)
             log(f"[paged] {row['qdtype']:8s} {pool:5s} b={b:2d} BS={bs:2d} T={T:4d} "
                 f"S={row['splits']:2d} cap={softcap}  max|err| {err:.2e} (tol {tol:.1e})"
@@ -911,19 +948,23 @@ def phase_paged_kernels(dev) -> list[dict]:
 
 def phase_paged_hd256(dev) -> list[dict]:
     """The paged kernel at hd 256 (PAGED_HD256), every pool type, against
-    its plain version with the tolerance of phase 2's other paged cases.
-    Checked only."""
+    its plain version with the tolerance of phase 2's other paged cases;
+    timed as phase 2's other paged cases are (tables over distinct blocks
+    that together exceed the L2), with the bound and its share."""
     gen = torch.Generator(device=dev).manual_seed(4)
     c = PAGED_HD256
     kv, g, hd, b, bs = c["kv"], c["g"], c["hd"], c["b"], c["bs"]
     rows = []
     for (pool, qdt), T in itertools.product(c["cases"], c["widths"]):
         mb = T // bs
-        nb = b * mb + 1
+        variants = _paged_variants(b, T, kv, hd, qdt.itemsize if pool == "float" else 1)
+        nb = variants * b * mb + 1                                  # block 0: the sink
         kp, vp, ks, vs = _paged_pools(gen, dev, pool, qdt, nb, bs, kv, hd)
         pos = torch.randint(0, T, (b,), generator=gen, device=dev)
-        table = (torch.randperm(nb - 1, generator=gen, device=dev) + 1).reshape(b, mb)
-        table = torch.where(torch.arange(mb, device=dev)[None] > (pos // bs)[:, None], 0, table)
+        tables = (torch.randperm(nb - 1, generator=gen, device=dev) + 1).reshape(variants, b, mb)
+        past = torch.arange(mb, device=dev)[None] > (pos // bs)[:, None]
+        tables = torch.where(past[None], 0, tables).to(torch.int32)
+        table = tables[0]
         q = torch.randn((b, kv, g, hd), generator=gen, device=dev).to(qdt)
         kn, vn = (torch.randn((b, kv, hd), generator=gen, device=dev).to(qdt) for _ in range(2))
         mask = decode_mask(T, pos)
@@ -937,17 +978,21 @@ def phase_paged_hd256(dev) -> list[dict]:
         err = (got.float() - want).abs().max().item()
         tol = PAGED_TOL[qdt] * want.abs().max().item()
         cols = pkern.tile_cols(hd, kp.element_size())
-        row = {"kernel": "paged_attn_quant" if ks is not None else "paged_attn", "pool": pool,
+        kname = "paged_attn_quant" if ks is not None else "paged_attn"
+        row = {"kernel": kname, "pool": pool,
                "qdtype": str(qdt).split(".")[-1], "b": b, "g": g, "hd": hd, "bs": bs, "T": T,
                "tile_cols": cols, "splits": pkern.split_plan(b, kv, mb, bs, cols)[0],
                "max_abs_err": err, "tol": tol}
         if not err <= tol:
             raise AssertionError(f"paged attention at hd 256 disagrees with its plain version: "
                                  f"{row}")
+        _time_paged(row, q, kp, vp, tables, pos, kn, vn, mask, kw, ks is not None)
         rows.append(row)
         log(f"[paged] hd 256 G 2 {row['qdtype']:8s} {pool:5s} b={b} BS={bs} T={T:4d} "
-            f"tile {cols} S={row['splits']:2d}  max|err| {err:.2e} (tol {tol:.1e})")
-        del kp, vp, ks, vs
+            f"tile {cols} S={row['splits']:2d}  max|err| {err:.2e} (tol {tol:.1e})  "
+            f"{row['us']:7.2f} us  plain {row['plain_us']:8.1f} us  bound {row['bound_us']:5.2f} "
+            f"us ({row['bound_by']}, {100 * row['bound_share']:.1f} % of it) [{CARD['smi']}]")
+        del kp, vp, ks, vs, tables
     return rows
 
 

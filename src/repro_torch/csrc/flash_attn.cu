@@ -48,17 +48,49 @@
 // which keeps the kernel out of local memory; its 98,304 bytes of shared
 // memory are opted into.
 //
-// f32: flash_attn_kernel, the first design on the CUDA cores, kept as it
-// was: f32 values do not fit bf16 tensor-core operands within 1e-5, TF32
-// keeps about three decimal digits, and the f32 golden replay under the
-// serving flags rests on this kernel's order of operations. One CTA of 128
-// threads owns (row of b*H, tile of 32 query positions) and walks 64-key
-// tiles staged in shared memory as f32 (K padded to hd + 1 floats a row);
-// every thread forms scores with f32 FMAs, one warp per query position
-// updates m and l, and every thread rescales and accumulates its own output
-// elements in registers (hd / 4 of them: 64 at hd 256). Its shared memory,
-// 4 * (32 hd + 64 (hd + 1) + 64 hd + 32 * 64 + 96) bytes, is 172,672 at hd
-// 256, opted into at every launch.
+// f32: flash_attn_f32_kernel, register-tiled on the CUDA cores. f32 values
+// do not fit bf16 tensor-core operands within 1e-5 and TF32 keeps about
+// three decimal digits, so every product is an exact f32 FMA, as in the
+// plain version; only the order of the f32 sums differs. Bound: the f32
+// rate (67 TFLOP/s), since each staged element feeds 64 or more FMAs. The
+// first design formed each score as one thread's HD-long dot product from
+// shared memory (two loads an FMA: about 1/8 of the FMA rate), ran four
+// phases a tile with the softmax on one warp a row, staged K/V element by
+// element, and at hd 256 took 172,672 bytes: one 4-warp CTA an SM.
+// This one:
+// - A CTA of 8 warps owns 64 query rows of one (b*H) row; the grid is
+//   (b*H, query tiles), tiles handed out longest causal rows first.
+// - Thread layout: 16 row groups of 16 lanes (half a warp each); row group
+//   ty holds rows ty, ty + 16, ty + 32, ty + 48, so a row's m and l live in
+//   the registers of its 16 lanes.
+// - S = Q K^T: K/V tiles of f32_keys() keys: 64, 32 at hd 128, 16 at hd 256.
+//   The 16 lanes of a row group are key groups x d-splits (16 x 1, 8 x 2,
+//   4 x 4): a lane holds a 4 x 4 micro-tile of S (its 4 rows x keys kg,
+//   kg + KG, kg + 2 KG, kg + 3 KG) over the 16-byte d-chunks ds, ds + DS,
+//   ... Per chunk, 8 ld.shared.v4 (4 Q rows, 4 K rows) feed 64 FMAs; each
+//   partial sum runs left to right over the lane's d, the d-splits are
+//   added by an xor butterfly (every split ends with the same bits).
+// - Softmax in registers: scale, soft cap, masks (only on edge tiles), row
+//   max and sum by xor shuffles over the key groups (the sum: each lane's
+//   4 keys left to right, then a pairwise tree in lane order),
+//   l = fma(l, alpha, sum), O *= alpha.
+// - O += P V: P passes once through shared memory, one 16-byte vector a
+//   row and key group (keys kg + KG j); a lane owns 4 rows x the 16-byte
+//   dim-chunks g16, g16 + 16, ... (at hd 112 the 28 chunks leave lanes
+//   12-15 a duplicate of chunk 27 in their second slot, at hd 32 lanes 8-15
+//   one in their first; duplicates are not stored). Per P vector, 4 + 4 *
+//   (chunks a lane) loads feed 64 * (chunks a lane) FMAs, keys in the order
+//   of the P vectors: e, e + KG, e + 2 KG, e + 3 KG for e = 0 .. KG - 1.
+// - Staging: 16-byte cp.async (4-byte copies where q, k or v is not 16-byte
+//   aligned; an f32 row is a multiple of 16 bytes at every head dim), rows
+//   padded to f32_row_floats() so that the rows a warp reads at once fall in
+//   distinct 16-byte bank groups. K and V have one buffer each and fill in
+//   turn: V of tile i while S of tile i runs, K of tile i + 1 while P V of
+//   tile i runs; two barriers a tile.
+// - Shared memory: 4 * (64 * row + 2 * keys * row + 64 * (keys + 4)) bytes,
+//   at most 109,568 (hd 256): two CTAs (16 warps) fit an SM at every head
+//   dim (flash_attn_f32_layout reports the occupancy); at most 128
+//   registers a thread.
 //
 // Both kernels skip tiles above the causal diagonal or wholly outside the
 // window: they add nothing to any position that has a visible key (the
@@ -77,185 +109,336 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBQ = 32;           // query positions per CTA
-constexpr int kBK = 64;           // keys per staged tile
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
-
-template <int HD>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * ((size_t)kBQ * HD + (size_t)kBK * (HD + 1) + (size_t)kBK * HD +
-                          (size_t)kBQ * kBK + 3 * (size_t)kBQ);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// T: dtype of q, k, v and the output (float; bf16 and fp16 take the
-// tensor-core kernel below); HD: head dim.
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_attn_kernel(const T* __restrict__ q,      // (b*H, s, HD)
-                  const T* __restrict__ k,      // (b*KV, t, HD)
-                  const T* __restrict__ v,      // (b*KV, t, HD)
-                  T* __restrict__ out,          // (b*H, s, HD)
-                  int s, int t, int group, float scale, int causal, int window,
-                  float softcap) {
-  constexpr int kOut = kBQ * HD / kThreads;     // output elements per thread
-  constexpr int kHDP = HD + 1;
-  const int q0 = blockIdx.x * kBQ;
-  const int row = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-
-  extern __shared__ float smem[];
-  float* q_s = smem;                  // (BQ, HD)
-  float* k_s = q_s + kBQ * HD;        // (BK, HD + 1)
-  float* v_s = k_s + kBK * kHDP;      // (BK, HD)
-  float* p_s = v_s + kBK * HD;        // (BQ, BK) scores, then weights
-  float* m_s = p_s + kBQ * kBK;       // (BQ,) running maxima
-  float* l_s = m_s + kBQ;             // (BQ,) running denominators
-  float* a_s = l_s + kBQ;             // (BQ,) rescale of the running sums
-
-  const int nq = min(kBQ, s - q0);
-  const T* qb = q + ((size_t)row * s + q0) * HD;
-  const T* kb = k + (size_t)(row / group) * t * HD;
-  const T* vb = v + (size_t)(row / group) * t * HD;
-
-  for (int e = tid; e < kBQ * HD; e += kThreads) q_s[e] = e < nq * HD ? to_f32(qb[e]) : 0.f;
-  if (tid < kBQ) {
-    m_s[tid] = kNegInf;
-    l_s[tid] = 0.f;
-  }
-  float acc[kOut];
-#pragma unroll
-  for (int j = 0; j < kOut; ++j) acc[j] = 0.f;
-
-  // the keys this tile of query positions can see: none past the last
-  // position (causal), none at or before first position - window
-  const int k_end = causal ? min(t, q0 + nq) : t;
-  const int k_begin = window > 0 ? (max(0, q0 - window + 1) / kBK) * kBK : 0;
-
-  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
-    const int nk = min(kBK, t - k0);
-    __syncthreads();                  // the previous tile's weights and values are consumed
-    for (int e = tid; e < kBK * HD; e += kThreads) {
-      const int c = e / HD, d = e - c * HD;
-      float kf = 0.f, vf = 0.f;
-      if (c < nk) {
-        kf = to_f32(kb[(size_t)(k0 + c) * HD + d]);
-        vf = to_f32(vb[(size_t)(k0 + c) * HD + d]);
-      }
-      k_s[c * kHDP + d] = kf;
-      v_s[e] = vf;
-    }
-    __syncthreads();
-
-    // scores: scale, soft cap, masks
-    for (int e = tid; e < kBQ * kBK; e += kThreads) {
-      const int r = e / kBK, c = e - r * kBK;
-      float sc = -INFINITY;           // no key here (past t): weight 0
-      if (c < nk) {
-        const float* qr = q_s + r * HD;
-        const float* kr = k_s + c * kHDP;
-        float dot = 0.f;
-#pragma unroll 16
-        for (int d = 0; d < HD; ++d) dot = fmaf(qr[d], kr[d], dot);
-        sc = dot * scale;
-        if (softcap > 0.f) sc = softcap * tanhf(sc / softcap);
-        const int qp = q0 + r, kp = k0 + c;
-        bool ok = true;
-        if (causal) ok = ok && kp <= qp;
-        if (window > 0) ok = ok && (qp - kp) < window;
-        if (!ok) sc = kNegInf;
-      }
-      p_s[e] = sc;
-    }
-    __syncthreads();
-
-    // online softmax: one warp per query position
-    for (int r = warp; r < kBQ; r += kWarps) {
-      float* pr = p_s + r * kBK;
-      float mx = -INFINITY;
-      for (int c = lane; c < kBK; c += 32) mx = fmaxf(mx, pr[c]);
-      mx = warp_max(mx);
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int c = lane; c < kBK; c += 32) {
-        const float w = expf(pr[c] - m_new);
-        pr[c] = w;
-        sum += w;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float a = expf(m_prev - m_new);
-        a_s[r] = a;
-        l_s[r] = l_s[r] * a + sum;
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // rescale and accumulate: thread tid owns elements tid, tid + 128, ...
-#pragma unroll
-    for (int j = 0; j < kOut; ++j) {
-      const int e = tid + j * kThreads;
-      const int r = e / HD, d = e - r * HD;
-      const float* pr = p_s + r * kBK;
-      float a = acc[j] * a_s[r];
-#pragma unroll 8
-      for (int c = 0; c < kBK; ++c) a = fmaf(pr[c], v_s[c * HD + d], a);
-      acc[j] = a;
-    }
-  }
-  __syncthreads();
-
-  T* ob = out + ((size_t)row * s + q0) * HD;
-#pragma unroll
-  for (int j = 0; j < kOut; ++j) {
-    const int e = tid + j * kThreads;
-    const int r = e / HD;
-    if (r < nq) store_f32(ob + e, acc[j] / fmaxf(l_s[r], 1e-30f));
-  }
-}
-
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int bh, int s, int t,
-           int group, float scale, int causal, int window, float softcap,
-           cudaStream_t stream) {
-  constexpr size_t bytes = smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(flash_attn_kernel<T, HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((s + kBQ - 1) / kBQ, bh);
-  flash_attn_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), s, t, group, scale, causal, window, softcap);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // every head dim the wrapper takes (kernels/flash_attn.HEAD_DIMS)
 #define FLASH_HEAD_DIMS(X) X(32) X(64) X(112) X(128) X(256)
 
-template <typename T>
-int launch_hd(const void* q, const void* k, const void* v, void* out, int bh, int s, int t,
-              int hd, int group, float scale, int causal, int window, float softcap,
-              cudaStream_t stream) {
-#define FLASH_HD(H)                                                                         \
-  if (hd == H) return launch<T, H>(q, k, v, out, bh, s, t, group, scale, causal, window, \
-                                   softcap, stream);
+constexpr int kMaxDevices = 64;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+// 4 bytes, for sources that are not 16-byte aligned
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// ---------------------------------------------------------------------------
+// f32 on the CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int kF32Threads = 256;  // 8 warps
+constexpr int kF32BQ = 64;        // query rows a CTA
+constexpr int kF32Lanes = 16;     // lanes of a row group (half a warp)
+constexpr int kF32Rows = 4;       // rows a row group: ty + 16 i
+
+// Keys a K/V tile: 64, or fewer where Q's 64 staged rows take the room
+template <int HD>
+__host__ __device__ constexpr int f32_keys() {
+  return HD <= 112 ? 64 : HD <= 128 ? 32 : 16;
+}
+// d-splits of S: a row group's 16 lanes are (keys / 4) key groups x splits
+template <int HD>
+__host__ __device__ constexpr int f32_splits() {
+  return kF32Lanes * 4 / f32_keys<HD>();
+}
+// Floats between staged rows: the head dim and a pad that makes the row
+// stride, in 16-byte chunks, odd (one split), 3 mod 8 (two) or 4 mod 8
+// (four), so that the rows and d-chunks a warp reads at once fall in
+// distinct 16-byte bank groups.
+template <int HD>
+__host__ __device__ constexpr int f32_row_floats() {
+  return HD + (f32_splits<HD>() == 1 ? 4 : f32_splits<HD>() == 2 ? 12 : 16);
+}
+// Q's rows, one K and one V tile, and P (64 rows of keys + 4 floats)
+template <int HD>
+constexpr size_t f32_smem_bytes() {
+  return sizeof(float) * ((size_t)kF32BQ * f32_row_floats<HD>() +
+                          2 * (size_t)f32_keys<HD>() * f32_row_floats<HD>() +
+                          (size_t)kF32BQ * (f32_keys<HD>() + 4));
+}
+
+__device__ __forceinline__ float f4_at(const float4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// `rows` rows of HD floats from src (row stride HD) into dst (row stride
+// f32_row_floats), zero-filled from row `valid` on; 16-byte copies, or four
+// 4-byte ones where a source is not 16-byte aligned (vec false)
+template <int HD>
+__device__ __forceinline__ void stage_f32(float* dst, const float* src, int rows, int valid,
+                                          bool vec) {
+  constexpr int kChunks = HD / 4;
+  constexpr int kRow = f32_row_floats<HD>();
+  for (int e = threadIdx.x; e < rows * kChunks; e += kF32Threads) {
+    const int r = e / kChunks, ch = e - r * kChunks;   // a constant divisor: a multiply
+    const float* s = src + (size_t)min(r, valid - 1) * HD + 4 * ch;
+    float* d = dst + r * kRow + 4 * ch;
+    if (vec) {
+      cp_async16(d, s, r < valid);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) cp_async4(d + i, s + i, r < valid);
+    }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kF32Threads, 2)
+flash_attn_f32_kernel(const float* __restrict__ q,   // (b*H, s, HD)
+                      const float* __restrict__ k,   // (b*KV, t, HD)
+                      const float* __restrict__ v,   // (b*KV, t, HD)
+                      float* __restrict__ out,       // (b*H, s, HD)
+                      int s, int t, int group, float scale, int causal, int window,
+                      float softcap, int vec) {
+  constexpr int kKeys = f32_keys<HD>();
+  constexpr int kDS = f32_splits<HD>();
+  constexpr int kKG = kKeys / 4;                     // key groups: kKG * kDS = 16
+  constexpr int kRow = f32_row_floats<HD>();
+  constexpr int kPRow = kKeys + 4;
+  constexpr int kChunks = HD / 4;                    // 16-byte chunks of a row
+  constexpr int kOC = (kChunks + kF32Lanes - 1) / kF32Lanes;   // O chunks a lane, per row
+  // unrolling of the S and P V loops: less at hd 256, where O alone takes
+  // 64 registers a lane
+  constexpr int kUnrollS = HD > 128 ? 2 : 4, kUnrollPV = HD > 128 ? 1 : 4;
+  extern __shared__ __align__(16) float fsm[];
+  float* q_s = fsm;                    // (BQ, kRow)
+  float* k_s = q_s + kF32BQ * kRow;    // (kKeys, kRow)
+  float* v_s = k_s + kKeys * kRow;     // (kKeys, kRow)
+  float* p_s = v_s + kKeys * kRow;     // (BQ, kPRow): 16-byte vectors of keys kg + kKG j
+
+  const int row = blockIdx.x;
+  const int q0 = ((int)gridDim.y - 1 - (int)blockIdx.y) * kF32BQ;   // longest causal rows first
+  const int ty = threadIdx.x >> 4;     // row group: rows ty + 16 i
+  const int g16 = threadIdx.x & 15;
+  const int kg = g16 % kKG, ds = g16 / kKG;   // S: key group and d-split of this lane
+  const int nq = min(kF32BQ, s - q0);
+  const float* qb = q + ((size_t)row * s + q0) * HD;
+  const float* kb = k + (size_t)(row / group) * t * HD;
+  const float* vb = v + (size_t)(row / group) * t * HD;
+
+  // the keys this tile of query positions can see: none past the last
+  // position (causal), none at or before first position - window
+  const int k_end = causal ? min(t, q0 + nq) : t;
+  const int k_begin = window > 0 ? (max(0, q0 - window + 1) / kKeys) * kKeys : 0;
+  const int ntiles = k_end > k_begin ? (k_end - k_begin + kKeys - 1) / kKeys : 0;
+
+  stage_f32<HD>(q_s, qb, kF32BQ, nq, vec);
+  if (ntiles > 0)
+    stage_f32<HD>(k_s, kb + (size_t)k_begin * HD, kKeys, min(kKeys, t - k_begin), vec);
+  cp_async_commit();
+
+  float o[kF32Rows][kOC][4];
+#pragma unroll
+  for (int i = 0; i < kF32Rows; ++i)
+#pragma unroll
+    for (int c = 0; c < kOC; ++c) o[i][c][0] = o[i][c][1] = o[i][c][2] = o[i][c][3] = 0.f;
+  float m_r[kF32Rows], l_r[kF32Rows];
+#pragma unroll
+  for (int i = 0; i < kF32Rows; ++i) {
+    m_r[i] = kNegInf;
+    l_r[i] = 0.f;
+  }
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = k_begin + it * kKeys;
+    cp_async_wait<0>();
+    __syncthreads();                   // K (and Q) in place; the last tile's P and V are read
+    stage_f32<HD>(v_s, vb + (size_t)k0 * HD, kKeys, min(kKeys, t - k0), vec);
+    cp_async_commit();
+
+    // S: rows ty + 16 i x keys kg + kKG j, over the d-chunks ds, ds + kDS, ...
+    float sc[kF32Rows][4];
+#pragma unroll
+    for (int i = 0; i < kF32Rows; ++i) sc[i][0] = sc[i][1] = sc[i][2] = sc[i][3] = 0.f;
+#pragma unroll(kUnrollS)
+    for (int u = 0; u < kChunks / kDS; ++u) {
+      const int d = 4 * (ds + kDS * u);
+      float4 kv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(k_s + (kg + kKG * j) * kRow + d);
+#pragma unroll
+      for (int i = 0; i < kF32Rows; ++i) {
+        const float4 qv = *reinterpret_cast<const float4*>(q_s + (ty + 16 * i) * kRow + d);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float a = sc[i][j];
+          a = fmaf(qv.x, kv[j].x, a);
+          a = fmaf(qv.y, kv[j].y, a);
+          a = fmaf(qv.z, kv[j].z, a);
+          a = fmaf(qv.w, kv[j].w, a);
+          sc[i][j] = a;
+        }
+      }
+    }
+#pragma unroll
+    for (int off = kKG; off < kF32Lanes; off <<= 1)   // the d-splits' partial sums
+#pragma unroll
+      for (int i = 0; i < kF32Rows; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          sc[i][j] = __fadd_rn(sc[i][j], __shfl_xor_sync(0xffffffffu, sc[i][j], off));
+
+    // scale, soft cap, masks (only on tiles at an edge), running max
+    const bool edge = k0 + kKeys > t || (causal && k0 + kKeys - 1 > q0) ||
+                      (window > 0 && q0 + kF32BQ - 1 - k0 >= window);
+    float mx[kF32Rows];
+#pragma unroll
+    for (int i = 0; i < kF32Rows; ++i) {
+      mx[i] = m_r[i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float x = sc[i][j] * scale;
+        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+        if (edge) {
+          const int kp = k0 + kg + kKG * j, qp = q0 + ty + 16 * i;
+          if (kp >= t) {
+            x = -INFINITY;             // no key here: weight 0
+          } else if ((causal && kp > qp) || (window > 0 && qp - kp >= window)) {
+            x = kNegInf;
+          }
+        }
+        sc[i][j] = x;
+        mx[i] = fmaxf(mx[i], x);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < kKG; off <<= 1)
+#pragma unroll
+      for (int i = 0; i < kF32Rows; ++i)
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], off));
+    float alpha[kF32Rows], rs[kF32Rows];
+#pragma unroll
+    for (int i = 0; i < kF32Rows; ++i) {
+      alpha[i] = expf(m_r[i] - mx[i]);
+      m_r[i] = mx[i];
+      rs[i] = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        sc[i][j] = expf(sc[i][j] - mx[i]);
+        rs[i] = __fadd_rn(rs[i], sc[i][j]);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < kKG; off <<= 1)
+#pragma unroll
+      for (int i = 0; i < kF32Rows; ++i)
+        rs[i] = __fadd_rn(rs[i], __shfl_xor_sync(0xffffffffu, rs[i], off));
+#pragma unroll
+    for (int i = 0; i < kF32Rows; ++i) {
+      l_r[i] = fmaf(l_r[i], alpha[i], rs[i]);
+      if (i % kDS == ds)               // one d-split writes each row's P
+        *reinterpret_cast<float4*>(p_s + (ty + 16 * i) * kPRow + 4 * kg) =
+            make_float4(sc[i][0], sc[i][1], sc[i][2], sc[i][3]);
+#pragma unroll
+      for (int c = 0; c < kOC; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[i][c][e] = __fmul_rn(o[i][c][e], alpha[i]);
+    }
+    cp_async_wait<0>();
+    __syncthreads();                   // V and P in place; K is read
+    if (it + 1 < ntiles)
+      stage_f32<HD>(k_s, kb + (size_t)(k0 + kKeys) * HD, kKeys, min(kKeys, t - k0 - kKeys), vec);
+    cp_async_commit();
+
+    // O += P V: rows ty + 16 i x the dim-chunks g16 + 16 c
+#pragma unroll(kUnrollPV)
+    for (int e = 0; e < kKG; ++e) {
+      float4 pv[kF32Rows];
+#pragma unroll
+      for (int i = 0; i < kF32Rows; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(p_s + (ty + 16 * i) * kPRow + 4 * e);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float* vr = v_s + (e + kKG * j) * kRow;
+#pragma unroll
+        for (int c = 0; c < kOC; ++c) {
+          const float4 vv =
+              *reinterpret_cast<const float4*>(vr + 4 * min(g16 + kF32Lanes * c, kChunks - 1));
+#pragma unroll
+          for (int i = 0; i < kF32Rows; ++i) {
+            const float p = f4_at(pv[i], j);
+            o[i][c][0] = fmaf(p, vv.x, o[i][c][0]);
+            o[i][c][1] = fmaf(p, vv.y, o[i][c][1]);
+            o[i][c][2] = fmaf(p, vv.z, o[i][c][2]);
+            o[i][c][3] = fmaf(p, vv.w, o[i][c][3]);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  float* ob = out + ((size_t)row * s + q0) * HD;
+#pragma unroll
+  for (int i = 0; i < kF32Rows; ++i) {
+    const int r = ty + 16 * i;
+    const float l = fmaxf(l_r[i], 1e-30f);
+    if (r >= nq) continue;
+#pragma unroll
+    for (int c = 0; c < kOC; ++c) {
+      const int ch = g16 + kF32Lanes * c;
+      if (ch < kChunks)
+        *reinterpret_cast<float4*>(ob + (size_t)r * HD + 4 * ch) =
+            make_float4(o[i][c][0] / l, o[i][c][1] / l, o[i][c][2] / l, o[i][c][3] / l);
+    }
+  }
+}
+
+// the opt-in above 48 KB and the carveout that lets two CTAs share an SM,
+// once per device
+template <int HD>
+cudaError_t f32_attributes(int device) {
+  static bool done[kMaxDevices] = {};
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (done[device]) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(flash_attn_f32_kernel<HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(f32_smem_bytes<HD>()));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_attn_f32_kernel<HD>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) done[device] = true;
+  return err;
+}
+
+template <int HD>
+int launch_f32(const void* q, const void* k, const void* v, void* out, int bh, int s, int t,
+               int group, float scale, int causal, int window, float softcap, int device,
+               cudaStream_t stream) {
+  const int nqt = (s + kF32BQ - 1) / kF32BQ;
+  if (nqt > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = f32_attributes<HD>(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool vec = ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                     reinterpret_cast<uintptr_t>(v)) & 15) == 0;
+  flash_attn_f32_kernel<HD><<<dim3(bh, nqt), kF32Threads, f32_smem_bytes<HD>(), stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), s, t, group, scale, causal, window, softcap, vec ? 1 : 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_f32_hd(const void* q, const void* k, const void* v, void* out, int bh, int s, int t,
+                  int hd, int group, float scale, int causal, int window, float softcap,
+                  int device, cudaStream_t stream) {
+#define FLASH_HD(H)                                                                       \
+  if (hd == H) return launch_f32<H>(q, k, v, out, bh, s, t, group, scale, causal, window, \
+                                    softcap, device, stream);
   FLASH_HEAD_DIMS(FLASH_HD)
 #undef FLASH_HD
   return static_cast<int>(cudaErrorInvalidValue);
@@ -294,21 +477,6 @@ template <int HD>
 constexpr size_t mma_smem_bytes() {
   return 2 * ((size_t)kMmaBQ * row_elems<HD>() +
               2 * (size_t)kStages * kv_tile<HD>() * row_elems<HD>());
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
@@ -606,7 +774,8 @@ enum Dtype { kF32 = 0, kBF16 = 1, kF16 = 2 };
 
 // Returns cudaGetLastError() after the launch (0 on success); the Python
 // wrapper raises on anything else. window <= 0 means no window, softcap
-// <= 0 no soft cap. f32 runs the CUDA-core kernel, bf16 and fp16 the
+// <= 0 no soft cap. f32 runs the CUDA-core kernel (16-byte copies where
+// q, k and v are 16-byte aligned, else 4-byte ones), bf16 and fp16 the
 // tensor-core kernel (whose 16-byte copies need 16-byte aligned q, k, v).
 extern "C" int flash_attn(const void* q, const void* k, const void* v, void* out, int bh,
                           int bkv, int s, int t, int hd, int group, float scale, int causal,
@@ -617,13 +786,32 @@ extern "C" int flash_attn(const void* q, const void* k, const void* v, void* out
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
-    return launch_hd<float>(q, k, v, out, bh, s, t, hd, group, scale, causal, window, softcap,
-                            st);
+    return launch_f32_hd(q, k, v, out, bh, s, t, hd, group, scale, causal, window, softcap,
+                         device, st);
   if (dtype == kBF16)
     return launch_mma_hd<__nv_bfloat16>(q, k, v, out, bh, s, t, hd, group, scale, causal, window,
                                         softcap, st);
   if (dtype == kF16)
     return launch_mma_hd<__half>(q, k, v, out, bh, s, t, hd, group, scale, causal, window,
                                  softcap, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The f32 kernel's dynamic shared memory at head dim hd and how many of its
+// CTAs an SM holds (the card tests and chip_smoke.py check both). Returns 0
+// on success.
+extern "C" int flash_attn_f32_layout(int hd, int device, int* smem_bytes, int* ctas_per_sm) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+#define FLASH_HD(H)                                                                        \
+  if (hd == H) {                                                                           \
+    err = f32_attributes<H>(device);                                                       \
+    if (err != cudaSuccess) return static_cast<int>(err);                                  \
+    *smem_bytes = static_cast<int>(f32_smem_bytes<H>());                                   \
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(                \
+        ctas_per_sm, flash_attn_f32_kernel<H>, kF32Threads, f32_smem_bytes<H>()));         \
+  }
+  FLASH_HEAD_DIMS(FLASH_HD)
+#undef FLASH_HD
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -36,8 +36,9 @@
 // m*n weight bytes plus a 4*b*m-byte f32 output: bytes and int8 tensor-core
 // operations bound them about equally (wo 2.1 us, classifier 29.8 us).
 //
-// GQMV (all formats), and int4 / int3 GQMM on rows the large design's ring
-// cannot stream: the first, simple design (gqmm_kernel). The TPU kernel's
+// GQMV of int8, int4 and fp8 weights, int3 GQMV on rows the streamed design
+// cannot take, and int4 / int3 GQMM on rows the large design's ring cannot
+// stream: the first, simple design (gqmm_kernel). The TPU kernel's
 // sequential n-block grid axis, which carries the sum in VMEM, does not
 // carry over: here one warp owns one
 // output row for a tile of BB <= 8 batch rows and walks the whole
@@ -48,7 +49,36 @@
 // activation bytes (__dp4a). A group is GS/16 lanes, an aligned
 // power-of-two segment, whose partial sums are added with xor shuffles
 // before the segment's first lane scales the group sum and keeps a per-lane
-// f32 sum; a warp shuffle reduction adds the lanes at the end.
+// f32 sum; a warp shuffle reduction adds the lanes at the end. At b = 1 it
+// keeps one 6-byte int3 load (192 bytes a warp) in flight a lane behind a
+// chain of global activation and scale loads and a shuffle tree: about 3 KB
+// in flight an SM where HBM wants 17-20 KB (26.3 us for the classifier
+// against a 7.7 us bound).
+//
+// GQMV of int3 weights (B6, gqmv_int3_pallas): the streamed design
+// (gqmv_stream_kernel, a template over a weight loader; StreamInt3 is its
+// only loader so far). Bound: the weight bytes. A lane takes a chunk of 128
+// logical weights, 48 bytes of int3, as three 16-byte loads (a warp step
+// moves 1,536 bytes), issued with the chunk's weight scales before the lane
+// waits for anything; a half-warp of 16 lanes takes a piece of 16 chunks of
+// one row (a 2048-wide row, 768 bytes, is one piece: a warp covers two
+// rows); a CTA of 8 warps takes 16 pieces: 16 rows of one piece, or, for
+// longer rows (w2: 5632 wide, 44 chunks, 3 pieces), 16 / pieces rows whose
+// pieces sit in different half-warps and are added through shared memory.
+// One launch a call. The CTA stages the activation vector (n int8 bytes,
+// each chunk's eight 16-byte vectors XOR-swizzled by the chunk so that a
+// piece's 16 lanes read 8 bank groups) and its n / GS scales by cp.async
+// while the weights are in flight. Each lane unpacks its chunk in
+// registers (sext3 on four 24-bit words a 12 bytes) and forms exact int32
+// sums with __dp4a. The order of the f32 sums, fixed: a lane adds its
+// chunk's group terms s * (ws * xs) left to right (GS <= 128; at GS 256 a
+// group is the chunks of lanes 2j, 2j + 1, whose int32 sums are added and
+// scaled on the even lane); a piece's 16 lanes are added by an xor butterfly
+// (a pairwise tree in lane order); a row's pieces left to right. It runs
+// where the rows are 16-byte aligned and n is a multiple of 128 (at most
+// 32768: 16 pieces); other rows (a stacked leaf's slice off 16 bytes, GS 32
+// at n 1056) run the first design, chosen by pointer and shape
+// (run_gqmv_stream, mirrored by kernels/gqmv.gqmv_design).
 //
 // GQMM, every format: two designs on the tensor cores, chosen by b
 // (run_gqmm_tc): int8 (B3, gqmm_pallas), int4 (B5, gqmm_int4_pallas) and
@@ -408,6 +438,200 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// ---------------------------------------------------------------------------
+// GQMV, streamed design (gqmv_int3; the note at the top): a lane takes a
+// chunk of 128 logical weights with 16-byte loads, a half-warp a 16-chunk
+// piece of a row, a CTA 16 pieces; the activations are staged once a CTA.
+
+constexpr int kStreamThreads = 256;
+constexpr int kStreamLanes = 16;                                  // lanes a piece
+constexpr int kStreamPieces = kStreamThreads / kStreamLanes;     // pieces a CTA
+constexpr int kStreamChunk = 128;                                 // logical weights a lane
+constexpr int kStreamMaxN = kStreamPieces * kStreamLanes * kStreamChunk;   // one round
+
+// int3: a chunk is 48 bytes (three 16-byte loads), sixteen 24-bit words
+struct StreamInt3 {
+  static constexpr int kVecs = 3;
+  __host__ __device__ static size_t row_bytes(int n) { return (size_t)n / 8 * 3; }
+  // 16-byte loads need a 16-byte aligned base and whole chunks (a row of
+  // 3n/8 bytes is then a multiple of 48)
+  static bool stream_ok(const void* wq, int n) {
+    return (reinterpret_cast<uintptr_t>(wq) & 15) == 0 && n % kStreamChunk == 0 &&
+           n <= kStreamMaxN;
+  }
+  // the chunk's 128 weights as 32 words of four sign-extended int8 (word i:
+  // weights 4i .. 4i + 3); 12 bytes hold four 24-bit words of 8 fields
+  __device__ __forceinline__ static void unpack(const uint4 (&r)[kVecs], int (&w)[32]) {
+    const unsigned u[12] = {r[0].x, r[0].y, r[0].z, r[0].w, r[1].x, r[1].y,
+                            r[1].z, r[1].w, r[2].x, r[2].y, r[2].z, r[2].w};
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const unsigned a = u[3 * g], b = u[3 * g + 1], c = u[3 * g + 2];
+      const unsigned w24[4] = {a, (a >> 24) | (b << 8), (b >> 16) | (c << 16), c >> 8};
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        w[8 * g + 2 * h] = sext3(w24[h]);
+        w[8 * g + 2 * h + 1] = sext3(w24[h] >> 12);
+      }
+    }
+  }
+};
+
+// Dynamic shared memory of a streamed CTA (kernels/gqmv.stream_smem_bytes):
+// the activations, their scales, one partial sum a piece.
+__host__ __device__ inline size_t stream_smem_bytes(int n, int ng) {
+  return (size_t)n + 4 * (size_t)ng + 4 * kStreamPieces;
+}
+
+template <class L, int GSL>
+__global__ void __launch_bounds__(kStreamThreads)
+gqmv_stream_kernel(const uint8_t* __restrict__ wq, const float* __restrict__ ws,
+                   const int8_t* __restrict__ xq, const float* __restrict__ xs,
+                   float* __restrict__ out, int m, int n, int pieces, int rows_per_cta) {
+  constexpr int kGS = 1 << GSL;
+  constexpr bool kWhole = kGS <= kStreamChunk;                // groups lie within a chunk
+  constexpr int kGroups = kWhole ? kStreamChunk / kGS : 1;   // groups (or halves) a chunk
+  constexpr int kVecsPerGroup = kWhole ? kGS / 16 : 8;       // 16-byte activation vectors
+  extern __shared__ __align__(16) unsigned char gsm[];
+  const int ng = n >> GSL;
+  int8_t* x_s = reinterpret_cast<int8_t*>(gsm);             // n bytes, vectors swizzled
+  float* xs_s = reinterpret_cast<float*>(gsm + n);          // ng scales
+  float* part = xs_s + ng;                                  // a partial sum a piece
+
+  const int tid = threadIdx.x, l16 = tid & 15, h = tid >> 4;
+  const int rl = h / pieces, piece = h - rl * pieces;       // row of the CTA, piece of the row
+  const int row = blockIdx.x * rows_per_cta + rl;
+  const int chunk = piece * kStreamLanes + l16;
+  const bool live = rl < rows_per_cta && row < m && chunk < n / kStreamChunk;
+
+  // this lane's weights and weight scales, requested before anything waits
+  uint4 raw[L::kVecs];
+  float wsc[kGroups];
+  if (live) {
+    const uint4* src =
+        reinterpret_cast<const uint4*>(wq + (size_t)row * L::row_bytes(n)) + chunk * L::kVecs;
+#pragma unroll
+    for (int i = 0; i < L::kVecs; ++i) raw[i] = __ldg(src + i);
+    const float* wsr = ws + (size_t)row * ng;
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g)
+      wsc[g] = kWhole ? __ldg(wsr + chunk * kGroups + g) : __ldg(wsr + (chunk >> 1));
+  } else {
+#pragma unroll
+    for (int i = 0; i < L::kVecs; ++i) raw[i] = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) wsc[g] = 0.f;
+  }
+  // the activations (16-byte vector i of chunk c at position i ^ (c & 7) of
+  // the chunk's 128 bytes, so that the 16 lanes of a piece read 8 bank
+  // groups) and their scales, once a CTA
+  for (int e = tid; e < n / 16; e += kStreamThreads) {
+    const int c = e >> 3, i = e & 7;
+    cp_async16(x_s + c * 128 + 16 * (i ^ (c & 7)), xq + 16 * e, true);
+  }
+  for (int e = tid; e < ng; e += kStreamThreads) cp_async4(xs_s + e, xs + e, true);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // exact int32 sums of each 16-byte activation vector's 16 products
+  int sv[8];
+  if (live) {
+    int w[32];
+    L::unpack(raw, w);
+    const int8_t* xc = x_s + chunk * 128;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int4 x = *reinterpret_cast<const int4*>(xc + 16 * (i ^ (chunk & 7)));
+      int d = 0;
+      d = __dp4a(w[4 * i], x.x, d);
+      d = __dp4a(w[4 * i + 1], x.y, d);
+      d = __dp4a(w[4 * i + 2], x.z, d);
+      d = __dp4a(w[4 * i + 3], x.w, d);
+      sv[i] = d;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) sv[i] = 0;
+  }
+  // each group's term s * (ws * xs), the lane's groups left to right; at GS
+  // 256 a group is two chunks (lanes 2j, 2j + 1 of a piece), whose int32
+  // sums are added first and scaled on the even lane
+  float acc = 0.f;
+  if constexpr (kWhole) {
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) {
+      int s = 0;
+#pragma unroll
+      for (int i = 0; i < kVecsPerGroup; ++i) s += sv[g * kVecsPerGroup + i];
+      if (live)
+        acc = __fadd_rn(acc, __fmul_rn(__int2float_rn(s),
+                                       __fmul_rn(wsc[g], xs_s[chunk * kGroups + g])));
+    }
+  } else {
+    int s = 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s += sv[i];
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    if (live && (chunk & 1) == 0)
+      acc = __fmul_rn(__int2float_rn(s), __fmul_rn(wsc[0], xs_s[chunk >> 1]));
+  }
+  // the piece's 16 lanes: a pairwise tree in lane order
+#pragma unroll
+  for (int off = 1; off < kStreamLanes; off <<= 1)
+    acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, off));
+  if (pieces == 1) {
+    if (l16 == 0 && rl < rows_per_cta && row < m) out[row] = acc;
+    return;
+  }
+  // a row's pieces left to right, through shared memory
+  if (l16 == 0) part[h] = acc;
+  __syncthreads();
+  if (tid < rows_per_cta) {
+    const int r = blockIdx.x * rows_per_cta + tid;
+    if (r < m) {
+      float v = part[tid * pieces];
+      for (int p = 1; p < pieces; ++p) v = __fadd_rn(v, part[tid * pieces + p]);
+      out[r] = v;
+    }
+  }
+}
+
+template <class L, int GSL>
+int launch_stream(const void* wq, const void* ws, const void* xq, const void* xs, void* out,
+                  int m, int n, cudaStream_t stream) {
+  const int pieces = (n / kStreamChunk + kStreamLanes - 1) / kStreamLanes;
+  const int rows = kStreamPieces / pieces;
+  gqmv_stream_kernel<L, GSL><<<(m + rows - 1) / rows, kStreamThreads,
+                               stream_smem_bytes(n, n >> GSL), stream>>>(
+      static_cast<const uint8_t*>(wq), static_cast<const float*>(ws),
+      static_cast<const int8_t*>(xq), static_cast<const float*>(xs), static_cast<float*>(out),
+      m, n, pieces, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// GQMV with the streamed design where the rows allow it (L::stream_ok: by
+// pointer and shape, kernels/gqmv.gqmv_design mirrors it), else the first
+// design (First)
+template <class L, class First>
+int run_gqmv_stream(const void* wq, const void* ws, const void* xq, const void* xs, void* out,
+                    int m, int n, int group_size, int device, void* stream) {
+  const int gs_log2 = log2_group(group_size);
+  if (bad_args(1, m, n, gs_log2)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!L::stream_ok(wq, n))
+    return run_gqmv<First>(wq, ws, xq, xs, out, m, n, group_size, device, stream);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (gs_log2) {
+    case 4: return launch_stream<L, 4>(wq, ws, xq, xs, out, m, n, s);
+    case 5: return launch_stream<L, 5>(wq, ws, xq, xs, out, m, n, s);
+    case 6: return launch_stream<L, 6>(wq, ws, xq, xs, out, m, n, s);
+    case 7: return launch_stream<L, 7>(wq, ws, xq, xs, out, m, n, s);
+    default: return launch_stream<L, 8>(wq, ws, xq, xs, out, m, n, s);
+  }
 }
 
 // d += a (16 x 32, rows) . b (32 x 8, columns), s8 x s8 -> exact s32
@@ -1423,7 +1647,11 @@ int run_gqmm_tc(const void* wq, const void* ws, const void* xq, const void* xs, 
 
 GQMV_ENTRY_POINT(int8, Int8Weights)
 GQMV_ENTRY_POINT(int4, Int4Weights)
-GQMV_ENTRY_POINT(int3, Int3Weights)
+extern "C" int gqmv_int3(const void* wq, const void* ws, const void* xq, const void* xs,
+                         void* out, int m, int n, int group_size, int device, void* stream) {
+  return run_gqmv_stream<StreamInt3, Int3Weights>(wq, ws, xq, xs, out, m, n, group_size, device,
+                                                  stream);
+}
 GQMV_ENTRY_POINT(fp8, Fp8Weights)
 GQMM_ENTRY_POINT(int8, (run_gqmm_tc<TcInt8, false>))
 GQMM_ENTRY_POINT(int4, (run_gqmm_tc<TcInt4, true>))

@@ -9,6 +9,15 @@ Counterpart of ``repro/kernels/flash_attn.py``. The kernel is in
                            fp16 inputs run on the tensor cores
                            (``mma.sync``), f32 inputs on the CUDA cores
 
+The f32 kernel is register-tiled: a CTA of 8 warps owns 64 query rows,
+a lane holds a 4 x 4 micro-tile of S (4 rows x 4 keys, over a d-split of
+the head dim where the K/V tile is narrower than 64 keys) and 4 rows x the
+16-byte dim-chunks of O it owns; K/V tiles of :func:`f32_keys` keys are
+staged by 16-byte ``cp.async`` into rows of :func:`f32_row_floats` floats,
+and P passes once through shared memory. :func:`f32_smem_bytes` mirrors
+its shared memory (two CTAs fit an SM at every head dim);
+:func:`f32_layout` asks the card for it and for the CTAs an SM holds.
+
 The wrapper takes CUDA tensors only: it checks device, dtype, shape and
 contiguity (the kernel reads q (b*H, s, hd) and k/v (b*KV, t, hd) rows as
 dense arrays; a permuted view of the model's (b, s, H, hd) projection would
@@ -42,6 +51,50 @@ def kv_tile(hd: int) -> int:
     accumulators take 128 registers a lane."""
     return 32 if hd > 128 else 64
 
+# csrc/flash_attn.cu, the f32 kernel: threads a CTA, query rows a CTA,
+# lanes of a row group (which holds rows ty, ty + 16, ty + 32, ty + 48), and
+# the most shared memory a block may opt into
+F32_THREADS, F32_BQ, F32_LANES, F32_ROWS = 256, 64, 16, 4
+MAX_SMEM = 232448
+
+
+def f32_keys(hd: int) -> int:
+    """Keys a K/V tile of the f32 kernel (``f32_keys``): 64, 32 at hd 128,
+    16 at hd 256, where Q's 64 staged rows take most of the room."""
+    return 64 if hd <= 112 else 32 if hd <= 128 else 16
+
+
+def f32_splits(hd: int) -> int:
+    """d-splits of S (``f32_splits``): a row group's 16 lanes are
+    ``f32_keys(hd) / 4`` key groups x this many splits of the head dim."""
+    return F32_LANES * 4 // f32_keys(hd)
+
+
+def f32_row_floats(hd: int) -> int:
+    """Floats between staged rows (``f32_row_floats``): the head dim and a
+    pad that makes the stride in 16-byte chunks odd (one split), 3 mod 8
+    (two) or 4 mod 8 (four)."""
+    return hd + {1: 4, 2: 12, 4: 16}[f32_splits(hd)]
+
+
+def f32_smem_bytes(hd: int) -> int:
+    """The f32 kernel's dynamic shared memory (``f32_smem_bytes``): Q's 64
+    rows, one K and one V tile, and P (64 rows of keys + 4 floats)."""
+    row, keys = f32_row_floats(hd), f32_keys(hd)
+    return 4 * (F32_BQ * row + 2 * keys * row + F32_BQ * (keys + 4))
+
+
+def f32_layout(hd: int, device: int = 0) -> tuple[int, int]:
+    """(shared-memory bytes, CTAs an SM holds) of the compiled f32 kernel at
+    head dim ``hd``, from the card (``flash_attn_f32_layout``)."""
+    smem, ctas = ctypes.c_int(), ctypes.c_int()
+    rc = _lib().flash_attn_f32_layout(int(hd), int(device), ctypes.byref(smem),
+                                      ctypes.byref(ctas))
+    if rc != 0:
+        raise RuntimeError(f"flash_attn_f32_layout failed with CUDA error {rc}")
+    return smem.value, ctas.value
+
+
 # launches by kernel: the tensor-core kernel (bf16 / fp16) and the CUDA-core
 # kernel (f32); a run zeroes these, drives the model, and reads them
 LAUNCHES: dict[str, int] = {"flash_attn": 0, "flash_attn_f32": 0}
@@ -60,6 +113,8 @@ def _lib() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.flash_attn.argtypes = [p] * 4 + [i] * 6 + [f, i, i, f, i, i, p]
         lib.flash_attn.restype = i
+        lib.flash_attn_f32_layout.argtypes = [i, i, p, p]
+        lib.flash_attn_f32_layout.restype = i
         _LIB.append(lib)
     return _LIB[0]
 

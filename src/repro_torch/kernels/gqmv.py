@@ -18,8 +18,17 @@ unit, into ``wgmma``) above it. int8, int4 and int3 run the int8 tensor
 cores (int4 and int3 weights unpacked to int8 on the way); fp8 runs the
 f16 ones (e4m3 weights and int8 activations are exact in f16, their
 products exact in f32). int4 and int3 rows the large design's ring cannot
-stream run the first design (one warp an output row, ``__dp4a``), as GQMV
-always does.
+stream run the first design (one warp an output row, ``__dp4a``), as the
+int8, int4 and fp8 GQMV do.
+
+int3 GQMV runs the streamed design where its rows allow it
+(:func:`gqmv_design`: 16-byte aligned storage, n a multiple of
+``STREAM_CHUNK`` up to ``STREAM_MAX_N``), else the first design: a lane
+takes 128 logical weights (48 bytes, three 16-byte loads), a half-warp a
+16-chunk piece of a row, a CTA of 8 warps 16 pieces (:func:`stream_plan`);
+the activations are staged in shared memory once a CTA. Its f32 order: a
+lane's groups left to right, the piece's 16 lanes as a pairwise tree, a
+row's pieces left to right.
 
 ``wq`` is the format's storage array: int8 (m, n) for int8, packed int8
 (m, n/2) for int4, packed uint8 (m, 3n/8) for int3, float8_e4m3fn (m, n)
@@ -72,6 +81,36 @@ TC_FORMATS = ("int8", "int4", "int3", "fp8")
 # ring may not stream (then the first design runs)
 SLICE_BYTES = {"int8": BK, "int4": BK // 2, "int3": BK // 8 * 3, "fp8": BK}
 PACKED = ("int4", "int3")
+
+# csrc/gqmm.cu, the streamed GQMV design: threads a CTA, lanes a piece (half
+# a warp), pieces a CTA, logical weights a lane (a chunk), the widest row it
+# takes (16 pieces of 16 chunks), and the bytes of a chunk by format
+STREAM_THREADS, STREAM_LANES, STREAM_PIECES, STREAM_CHUNK = 256, 16, 16, 128
+STREAM_MAX_N = STREAM_PIECES * STREAM_LANES * STREAM_CHUNK
+STREAM_CHUNK_BYTES = {"int3": 48}
+
+
+def gqmv_design(n: int, fmt: str = "int3", aligned: bool = True) -> str:
+    """The GQMV design for rows of n logical weights (``run_gqmv_stream``):
+    "stream" for the formats that have it when the storage is 16-byte
+    ``aligned`` and n a multiple of STREAM_CHUNK up to STREAM_MAX_N, else
+    "first"."""
+    ok = fmt in STREAM_CHUNK_BYTES and aligned and n % STREAM_CHUNK == 0 and n <= STREAM_MAX_N
+    return "stream" if ok else "first"
+
+
+def stream_plan(m: int, n: int) -> tuple[int, int, int]:
+    """(pieces a row, rows a CTA, CTAs) of the streamed GQMV design."""
+    pieces = -(-(n // STREAM_CHUNK) // STREAM_LANES)
+    rows = STREAM_PIECES // pieces
+    return pieces, rows, -(-m // rows)
+
+
+def stream_smem_bytes(n: int, ng: int) -> int:
+    """Dynamic shared memory of a streamed CTA: the activations, their
+    scales, one partial sum a piece."""
+    return n + 4 * ng + 4 * STREAM_PIECES
+
 
 # launches per kernel; a run zeroes these, drives the model, and reads them
 LAUNCHES: dict[str, int] = {f"{kind}_{fmt}": 0 for fmt in WEIGHT_FORMATS

@@ -193,6 +193,45 @@ def test_int3_rows_only_two_byte_aligned(dev):
                                       group_size=16))
 
 
+@pytest.mark.parametrize("gs", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("m,n", [(37, 2048), (13, 5632), (40, 4096), (3, 32768)])
+def test_gqmv_int3_streamed_design_matches_plain(dev, gs, m, n):
+    """The streamed int3 GQMV at every GS: m not a multiple of a CTA's rows
+    (16 at n 2048, 5 at n 5632 (3 pieces a row), 8 at n 4096, 1 at the
+    widest row it takes, 16 pieces); one launch a call."""
+    assert kern.gqmv_design(n, "int3") == "stream"
+    args = _rand_fmt(dev, "int3", m, n, gs, None, seed=m + gs)
+    before = kern.LAUNCHES["gqmv_int3"]
+    got = kern.gqmv_cuda(*args, group_size=gs, fmt="int3")
+    assert kern.LAUNCHES["gqmv_int3"] == before + 1
+    _close(got, ref.gqmv_int3_ref(*args, group_size=gs))
+
+
+def test_gqmv_int3_rows_the_streamed_design_cannot_take(dev):
+    """Rows the streamed int3 GQMV cannot take run the first design, chosen
+    by pointer and shape: a stacked leaf's layer slices of 18-byte rows,
+    storage 2 bytes off a 16-byte boundary, n 1056 at GS 32 (no multiple of
+    128) and n wider than 16 pieces."""
+    w = quant.quantize(torch.randn((3, 9, 48), device=dev), 16, "int3")
+    x = quant.quantize_activation(torch.randn((48,), device=dev), 16)
+    for i in range(3):
+        wi = w[i]
+        _close(kern.gqmv_cuda(wi.qvalues, wi.scales, x.qvalues, x.scales, group_size=16,
+                              fmt="int3"),
+               ref.gqmv_int3_ref(wi.qvalues, wi.scales, x.qvalues, x.scales, group_size=16))
+    wq, ws, xq, xs = _rand_fmt(dev, "int3", 21, 2048, 64, None, seed=2)
+    off = torch.empty(wq.numel() + 2, dtype=wq.dtype, device=dev)[2:].view(wq.shape)
+    off.copy_(wq)
+    assert kern.gqmv_design(2048, "int3", aligned=off.data_ptr() % 16 == 0) == "first"
+    _close(kern.gqmv_cuda(off, ws, xq, xs, group_size=64, fmt="int3"),
+           ref.gqmv_int3_ref(wq, ws, xq, xs, group_size=64))
+    for m, n, gs in ((30, 1056, 32), (2, 32896, 128)):
+        assert kern.gqmv_design(n, "int3") == "first"
+        args = _rand_fmt(dev, "int3", m, n, gs, None, seed=n)
+        _close(kern.gqmv_cuda(*args, group_size=gs, fmt="int3"),
+               ref.gqmv_int3_ref(*args, group_size=gs))
+
+
 def test_int4_rows_the_ring_cannot_stream(dev):
     """int4 GQMM above the cut-over on rows the large design's TMA ring cannot
     stream: layer slices of a stacked leaf (24-byte rows, slices 8-byte
@@ -451,6 +490,14 @@ def _flash(dev, bh, bkv, s, t, hd, dtype=torch.float32, seed=0):
     (8, 2, 33, 33, 32, True, 5, None),
     (8, 4, 200, 200, 256, True, 48, 50.0),        # gemma2: hd 256, window + soft cap
     (8, 8, 100, 100, 112, True, None, None),      # zamba2's shared attention: hd 112
+    (8, 2, 150, 150, 32, True, 48, 50.0),         # every head dim: window 48 + soft cap 50,
+    (8, 2, 150, 150, 64, True, 48, 50.0),         # ragged lengths
+    (8, 8, 150, 150, 112, True, 48, 50.0),
+    (16, 8, 150, 150, 128, True, 48, 50.0),
+    (8, 2, 130, 37, 112, False, None, None),      # non-causal, t < s (hd 112, 128, 256)
+    (8, 2, 64, 150, 128, False, None, 30.0),      # non-causal, t > s, soft cap
+    (8, 4, 100, 37, 256, False, None, None),
+    (16, 8, 2048, 2048, 256, True, None, None),   # gemma2's 2048-token prompt
 ])
 def test_flash_kernel_matches_plain_f32(dev, bh, bkv, s, t, hd, causal, window, softcap):
     q, k, v = _flash(dev, bh, bkv, s, t, hd, seed=s + hd)
@@ -460,6 +507,29 @@ def test_flash_kernel_matches_plain_f32(dev, bh, bkv, s, t, hd, causal, window, 
     assert flash_kern.LAUNCHES["flash_attn_f32"] == before + 1
     want = ref.flash_attention_ref(q, k, v, **kw)
     assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.parametrize("hd", flash_kern.HEAD_DIMS)
+def test_flash_f32_kernel_unaligned_inputs_and_layout(dev, hd):
+    """The f32 kernel on q, k, v 4 bytes off a 16-byte boundary (its 4-byte
+    copies) equals its run on aligned copies; its shared memory is
+    flash_attn.f32_smem_bytes and two CTAs or more fit an SM."""
+    q, k, v = _flash(dev, 8, 2, 90, 90, hd, seed=hd)
+    kw = dict(group=4, scale=hd ** -0.5, window=40, softcap=50.0)
+
+    def shifted(x):
+        y = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)[1:].view(x.shape)
+        y.copy_(x)
+        return y
+
+    moved = [shifted(x) for x in (q, k, v)]
+    assert all(x.data_ptr() % 16 for x in moved)
+    got = flash_kern.flash_attention_cuda(*moved, **kw)
+    assert torch.equal(got, flash_kern.flash_attention_cuda(q, k, v, **kw))
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    smem, ctas = flash_kern.f32_layout(hd, dev.index)
+    assert smem == flash_kern.f32_smem_bytes(hd) and ctas >= 2
 
 
 def test_flash_kernel_bf16_within_rounding_of_plain(dev):

@@ -1,0 +1,194 @@
+"""The streamed int3 GQMV design (``csrc/gqmm.cu``, ``gqmv_stream_kernel``):
+its partition and order of f32 sums emulated in numpy on the CPU and held
+against the reference package's oracle ``gqmv_int3_ref``; its 48-byte
+unpacking against the port's ``unpack_int3``; its constants and the choice
+between it and the first design against the CUDA source (the kernel itself
+runs in tests/test_torch_cuda.py on the card).
+
+The partition: a lane takes a chunk of 128 logical weights (48 bytes); a
+half-warp of 16 lanes a piece of 16 chunks of one row; a CTA 16 pieces,
+``STREAM_PIECES // pieces`` rows of ``pieces`` pieces each. The order: each
+lane's group terms s * (ws * xs) left to right (at GS 256 a group is two
+lanes' chunks, summed as int32 and scaled on the even lane), the 16 lanes of
+a piece as a pairwise tree, a row's pieces left to right. Tolerance: the
+GQMV one of the card tests, rtol 1e-5 and atol 1e-5 * max|ref| (exact int32
+group sums; only the order of the f32 sum across groups differs).
+"""
+
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.core import quant  # noqa: E402
+from repro_torch.kernels import gqmv  # noqa: E402
+
+SRC = (Path(gqmv.__file__).resolve().parents[1] / "csrc" / "gqmm.cu").read_text()
+# TinyLlama's quantized projections: (name, m, n)
+PROJECTIONS = (("wqkv", 2560, 2048), ("wo", 2048, 2048), ("w13", 11264, 2048),
+               ("w2", 2048, 5632), ("classifier", 32000, 2048))
+CHUNK_BYTES = gqmv.STREAM_CHUNK_BYTES["int3"]
+
+
+def _sext3(w):
+    """The four 3-bit fields in bits 0..11 of each uint32 -> int8 (..., 4)."""
+    f = (w[..., None] >> (3 * np.arange(4, dtype=np.uint32))) & 7
+    return ((f.astype(np.int16) ^ 4) - 4).astype(np.int8)
+
+
+def unpack_chunks(raw: np.ndarray) -> np.ndarray:
+    """The kernel's StreamInt3::unpack on (..., 48) uint8 chunks -> (..., 128)
+    int8: twelve little-endian 32-bit words, each 12 bytes four 24-bit words
+    (a, (a >> 24) | (b << 8), (b >> 16) | (c << 16), c >> 8), each 24-bit
+    word two sext3 of 12 bits."""
+    u = np.ascontiguousarray(raw).view("<u4").astype(np.uint32)      # (..., 12)
+    a, b, c = u[..., 0::3], u[..., 1::3], u[..., 2::3]               # (..., 4)
+    w24 = np.stack([a, (a >> 24) | (b << 8), (b >> 16) | (c << 16), c >> 8], axis=-1)
+    halves = np.stack([_sext3(w24), _sext3(w24 >> 12)], axis=-2)     # (..., 4, 4, 2, 4)
+    return halves.reshape(*raw.shape[:-1], 128)
+
+
+def stream_gqmv_emulation(wp, ws, xq, xs, gs, block_rows=4096):
+    """(out (m,) f32, how often each (row, group) term was taken (m, ng))."""
+    m = wp.shape[0]
+    n = xq.shape[0]
+    ng, nchunks = n // gs, n // gqmv.STREAM_CHUNK
+    pieces, rows, ctas = gqmv.stream_plan(m, n)
+    x = xq.astype(np.float32).reshape(ng, gs)
+    lane_acc = np.zeros((m, pieces * gqmv.STREAM_LANES), np.float32)
+    count = np.zeros((m, ng), np.int64)
+    # the CTAs' half-warps and lanes: (row of the CTA, piece) and chunk
+    h = np.arange(gqmv.STREAM_PIECES)
+    rl, piece = h // pieces, h % pieces
+    lane = np.arange(gqmv.STREAM_LANES)
+    chunk = piece[:, None] * gqmv.STREAM_LANES + lane[None, :]        # (16, 16)
+    for r0 in range(0, m, block_rows):
+        r1 = min(m, r0 + block_rows)
+        w = unpack_chunks(wp[r0:r1].reshape(r1 - r0, nchunks, CHUNK_BYTES)).reshape(r1 - r0, n)
+        # exact int32 group sums (every partial sum is an integer below 2^24)
+        s = np.einsum("mgk,gk->mg", w.reshape(r1 - r0, ng, gs).astype(np.float32), x)
+        terms = s * (ws[r0:r1] * xs[None, :])                         # s * (ws * xs), f32
+        if gs <= gqmv.STREAM_CHUNK:
+            per = gqmv.STREAM_CHUNK // gs
+            t = terms.reshape(r1 - r0, nchunks, per)
+            acc = np.zeros((r1 - r0, nchunks), np.float32)
+            for g in range(per):                                      # left to right
+                acc = acc + t[:, :, g]
+        else:
+            acc = np.zeros((r1 - r0, nchunks), np.float32)
+            acc[:, 0::2] = terms                                      # the even lane scales
+        lane_acc[r0:r1, :nchunks] = acc
+    out = np.zeros(m, np.float32)
+    for cta in range(ctas):
+        for hh in range(gqmv.STREAM_PIECES):
+            row = cta * rows + rl[hh]
+            live = (rl[hh] < rows) & (row < m) & (chunk[hh] < nchunks)
+            if not live.any():
+                continue
+            for c in chunk[hh][live]:
+                groups = ([c * (gqmv.STREAM_CHUNK // gs) + g
+                           for g in range(gqmv.STREAM_CHUNK // gs)]
+                          if gs <= gqmv.STREAM_CHUNK else ([c // 2] if c % 2 == 0 else []))
+                count[row, groups] += 1
+        for r in range(rows):
+            row = cta * rows + r
+            if row >= m:
+                continue
+            v = None
+            for p in range(pieces):                                   # pieces left to right
+                part = lane_acc[row, p * gqmv.STREAM_LANES:(p + 1) * gqmv.STREAM_LANES]
+                while part.shape[-1] > 1:                             # the 16 lanes' tree
+                    part = part[0::2] + part[1::2]
+                v = part[0] if v is None else np.float32(v + part[0])
+            out[row] = v
+    return out, count
+
+
+def _inputs(m, n, gs, seed):
+    """Random packed int3 bytes (every field value -4..3), positive scales,
+    int8 activations."""
+    rng = np.random.default_rng(seed)
+    wp = rng.integers(0, 256, size=(m, n // 8 * 3), dtype=np.uint8)
+    ws = (rng.random((m, n // gs), dtype=np.float32) * 1e-2 + 1e-4).astype(np.float32)
+    xq = rng.integers(-127, 128, size=(n,), dtype=np.int8)
+    xs = (rng.random(n // gs, dtype=np.float32) * 1e-2 + 1e-4).astype(np.float32)
+    return wp, ws, xq, xs
+
+
+@pytest.mark.parametrize("gs", gqmv.GROUP_SIZES)
+@pytest.mark.parametrize("name,m,n", PROJECTIONS, ids=[p[0] for p in PROJECTIONS])
+def test_stream_partition_covers_every_group_and_matches_reference(name, m, n, gs):
+    assert gqmv.gqmv_design(n, "int3") == "stream"
+    wp, ws, xq, xs = _inputs(m, n, gs, seed=m + gs)
+    got, count = stream_gqmv_emulation(wp, ws, xq, xs, gs)
+    assert (count == 1).all()                        # every group's term exactly once
+    want = np.asarray(jref.gqmv_int3_ref(jnp.asarray(wp), jnp.asarray(ws), jnp.asarray(xq),
+                                         jnp.asarray(xs), group_size=gs))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+
+
+def test_stream_plan_of_tinyllama_projections():
+    """2048-wide rows are one piece (16 rows a CTA, two a warp); w2's 5632 are
+    44 chunks, three pieces, five rows a CTA; the widest row the design takes
+    is 16 pieces, one row a CTA."""
+    assert gqmv.stream_plan(2048, 2048) == (1, 16, 128)
+    assert gqmv.stream_plan(32000, 2048) == (1, 16, 2000)
+    assert gqmv.stream_plan(2048, 5632) == (3, 5, 410)
+    assert gqmv.stream_plan(3, gqmv.STREAM_MAX_N) == (16, 1, 3)
+    assert gqmv.stream_smem_bytes(5632, 5632 // 16) == 5632 + 4 * 352 + 4 * 16
+
+
+def test_a_48_byte_chunk_unpacks_like_unpack_int3():
+    rng = np.random.default_rng(0)
+    raw = rng.integers(0, 256, size=(500, CHUNK_BYTES), dtype=np.uint8)
+    want = quant.unpack_int3(torch.from_numpy(raw)).numpy()
+    assert want.shape == (500, 128)
+    np.testing.assert_array_equal(unpack_chunks(raw), want)
+
+
+def test_design_choice_by_shape_and_alignment():
+    """The streamed design takes 16-byte aligned int3 rows with n a multiple
+    of 128 up to STREAM_MAX_N; a misaligned layer slice of a stacked leaf,
+    n 1056 at GS 32 and wider rows run the first design, as do the other
+    formats' GQMV."""
+    for _, _, n in PROJECTIONS:
+        assert gqmv.gqmv_design(n, "int3") == "stream"
+    assert gqmv.gqmv_design(1056, "int3") == "first"
+    assert gqmv.gqmv_design(gqmv.STREAM_MAX_N + 128, "int3") == "first"
+    leaf = quant.quantize(torch.randn(3, 9, 48), 16, "int3")
+    for i in range(3):
+        wq = leaf[i].qvalues
+        aligned = wq.data_ptr() % 16 == 0
+        assert gqmv.gqmv_design(wq.shape[1] // 3 * 8, "int3", aligned) == "first"
+    assert not all(leaf[i].qvalues.data_ptr() % 16 == 0 for i in range(3))
+    assert gqmv.gqmv_design(2048, "int3", aligned=False) == "first"
+    for fmt in ("int8", "int4", "fp8"):
+        assert gqmv.gqmv_design(2048, fmt) == "first"
+
+
+def _cuda_int(name: str) -> int:
+    return int(re.search(rf"constexpr int {name} = (\d+);", SRC).group(1))
+
+
+def test_stream_constants_mirror_the_cuda_source():
+    assert _cuda_int("kStreamThreads") == gqmv.STREAM_THREADS
+    assert _cuda_int("kStreamLanes") == gqmv.STREAM_LANES
+    assert _cuda_int("kStreamChunk") == gqmv.STREAM_CHUNK
+    assert "kStreamPieces = kStreamThreads / kStreamLanes;" in SRC
+    assert gqmv.STREAM_PIECES == gqmv.STREAM_THREADS // gqmv.STREAM_LANES
+    assert "kStreamMaxN = kStreamPieces * kStreamLanes * kStreamChunk;" in SRC
+    assert "static constexpr int kVecs = 3;" in SRC and CHUNK_BYTES == 3 * 16
+    # the choice by pointer and shape, and the CTA's shared memory
+    assert ("(reinterpret_cast<uintptr_t>(wq) & 15) == 0 && n % kStreamChunk == 0 &&\n"
+            "           n <= kStreamMaxN;") in SRC
+    assert "return (size_t)n + 4 * (size_t)ng + 4 * kStreamPieces;" in SRC
+    assert "run_gqmv_stream<StreamInt3, Int3Weights>" in SRC
+    # only int3 runs it; the other GQMV entry points keep the first design
+    for fmt, loader in (("int8", "Int8Weights"), ("int4", "Int4Weights"), ("fp8", "Fp8Weights")):
+        assert f"GQMV_ENTRY_POINT({fmt}, {loader})" in SRC
