@@ -24,8 +24,13 @@ printing no result, when CUDA is missing. Phases, each fatal on failure:
              16 with each of its two designs (the times that set the
              cut-over); the int4 and fp8 GQMM designs at every projection,
              every group size 16-256 and b in {4, 8, 16, 256}, checked only;
-             and each kernel at every group size 16-256 on a small shape at b
-             up to 40 (and int3 on rows that are only 2-byte aligned),
+             the streamed GQMV of int4, int3 and fp8 (each GQMV row records
+             its design; these three must run the streamed one) at every
+             projection and every group size, checked only; and each kernel
+             at every group size 16-256 on a small shape at b up to 40, the
+             int3 and int4 kernels on a stacked leaf's layer slices (rows 2-
+             and 8-byte aligned), and the first GQMV design of the streamed
+             formats at n 1056 and on storage off a 16-byte boundary,
              checked only.
              Then paged decode attention (bf16, f32, int8 and fp8 pools;
              b in {1, 8, 32}, BS in {8, 16}, MB*BS in {256, 2048}, KV 4, G 8,
@@ -210,6 +215,13 @@ OPS_PER_S = {"int8": INT8_OPS_PER_S, "int4": INT8_OPS_PER_S, "int3": INT8_OPS_PE
              "fp8": BF16_OPS_PER_S}
 GS_SWEEP = {"m": 200, "n": 1024, "batches": (1, 4, 13, 40),
             "group_sizes": (16, 32, 64, 128, 256)}
+# the GQMV formats that run the streamed design, checked against their plain
+# versions at every projection and every group size
+GQMV_SWEEP = {"formats": ("int4", "int3", "fp8"), "group_sizes": (16, 32, 64, 128, 256)}
+# how far off a 16-byte boundary the first GQMV design still takes a format's
+# storage (fp8's first design needs 16 bytes itself): phase 2 checks the
+# first design there, at n 1056 (GS 32) and on a stacked leaf's layer slices
+FIRST_DESIGN_SHIFT = {"int3": 2, "int4": 8}
 # phase 3's weight settings after int8, and the one phase 5 serves paged
 FORMAT_SETTINGS = ("int4", "int3", "fp8", "mixed", "mixed3")
 RAGGED_FORMAT = "mixed3"
@@ -518,6 +530,8 @@ def phase_kernels(dev) -> list[dict]:
                 row["design"] = "%s/%d" % kern.gqmm_design(b, m, n, gs, fmt)
             elif kind == "gqmv":
                 row["design"] = kern.gqmv_design(n, fmt, wq.data_ptr() % 16 == 0)
+                if fmt in kern.STREAM_CHUNK_BYTES and row["design"] != "stream":
+                    raise AssertionError(f"{kname} {name}: expected the streamed design")
             if (kname, b) == ("gqmm_int8", INT_MM_B):
                 row["int_mm_us"] = 1e3 * device_time_ms(
                     lambda i: torch._int_mm(xq, pool[i % copies][0].t()), max(50, 2 * copies))[0]
@@ -598,12 +612,42 @@ def phase_tc_sweep(dev) -> list[dict]:
     return rows
 
 
+def phase_gqmv_sweep(dev) -> list[dict]:
+    """The streamed GQMV of every format of GQMV_SWEEP against its plain
+    version at every TinyLlama projection and every group size. Checked
+    only."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rows = []
+    for fmt, (name, m, n), gs in itertools.product(GQMV_SWEEP["formats"], PROJECTIONS,
+                                                   GQMV_SWEEP["group_sizes"]):
+        wq, ws = _rand_weights(gen, fmt, m, n, gs, dev)
+        xq, xs = _rand_q(gen, (n,), gs, dev)
+        design = kern.gqmv_design(n, fmt, wq.data_ptr() % 16 == 0)
+        if design != "stream":
+            raise AssertionError(f"gqmv_{fmt} {name} GS {gs}: expected the streamed design")
+        kfn, pfn = _kernel_fns("gqmv", fmt)
+        err = check_close(f"gqmv_{fmt} {name} GS {gs} ({design})",
+                          kfn(wq, ws, xq, xs, group_size=gs), pfn(wq, ws, xq, xs, group_size=gs),
+                          fmt)
+        rows.append({"kernel": f"gqmv_{fmt}", "shape": name, "m": m, "n": n, "gs": gs, "b": 1,
+                     "design": design, "max_abs_err": err})
+        del wq, ws
+    torch.cuda.synchronize()
+    for fmt in GQMV_SWEEP["formats"]:
+        mine = [r for r in rows if r["kernel"] == f"gqmv_{fmt}"]
+        log(f"[kernels] gqmv_{fmt}: {len(mine)} cases pass on the streamed design (every "
+            f"projection, GS {GQMV_SWEEP['group_sizes']}), max|err| "
+            f"{max(r['max_abs_err'] for r in mine):.2e}")
+    return rows
+
+
 def phase_group_sizes(dev) -> list[dict]:
-    """Every kernel at every group size on a small shape, and the int3
-    kernels on 18-byte rows (n = 48 at GS 16) of a stacked leaf's layer
-    slices, whose rows and lanes are only 2-byte aligned, and int3 GQMV on
-    rows the streamed design cannot take (n 1056, storage off a 16-byte
-    boundary). Checked only."""
+    """Every kernel at every group size on a small shape; the int3 and int4
+    kernels on a stacked leaf's layer slices (n = 48 at GS 16: int3's
+    18-byte rows and lanes are only 2-byte aligned, int4's 24-byte rows 8-byte
+    aligned); and the GQMV of each streamed format on rows the streamed
+    design cannot take (n 1056, storage off a 16-byte boundary by
+    FIRST_DESIGN_SHIFT), which run the first design. Checked only."""
     gen = torch.Generator(device=dev).manual_seed(5)
     m, n = GS_SWEEP["m"], GS_SWEEP["n"]
     rows = []
@@ -617,38 +661,44 @@ def phase_group_sizes(dev) -> list[dict]:
                           pfn(wq, ws, xq, xs, group_size=gs), fmt)
         rows.append({"kernel": f"{kind}_{fmt}", "gs": gs, "m": m, "n": n, "b": b,
                      "max_abs_err": err})
-    stacked = quantize(torch.randn((3, 9, 48), generator=gen, device=dev), 16, "int3")
-    for kind, b in (("gqmm", 2), ("gqmv", 1)):
-        xq, xs = _rand_q(gen, (b, 48) if kind == "gqmm" else (48,), 16, dev)
-        kfn, pfn = _kernel_fns(kind, "int3")
-        for i in range(3):
-            w = stacked[i]
-            err = check_close(f"{kind}_int3 18-byte rows, layer {i}",
-                              kfn(w.qvalues, w.scales, xq, xs, group_size=16),
-                              pfn(w.qvalues, w.scales, xq, xs, group_size=16), "int3")
-            rows.append({"kernel": f"{kind}_int3", "gs": 16, "m": 9, "n": 48, "b": b,
-                         "max_abs_err": err, "layer_slice": i})
-    # int3 GQMV rows the streamed design cannot take: n 1056 at GS 32 (no
-    # multiple of 128) and storage 2 bytes off a 16-byte boundary
-    for width, gs, shift in ((1056, 32, 0), (2048, 64, 2)):
-        wq, ws = _rand_weights(gen, "int3", 60, width, gs, dev)
-        if shift:
-            moved = torch.empty(wq.numel() + shift, dtype=wq.dtype, device=dev)[shift:]
-            wq = moved.view(wq.shape).copy_(wq)
-        xq, xs = _rand_q(gen, (width,), gs, dev)
-        design = kern.gqmv_design(width, "int3", wq.data_ptr() % 16 == 0)
-        if design != "first":
-            raise AssertionError(f"gqmv_int3 n={width} shift {shift}: expected the first design")
-        kfn, pfn = _kernel_fns("gqmv", "int3")
-        err = check_close(f"gqmv_int3 n={width} GS {gs} shift {shift} ({design})",
-                          kfn(wq, ws, xq, xs, group_size=gs), pfn(wq, ws, xq, xs, group_size=gs),
-                          "int3")
-        rows.append({"kernel": "gqmv_int3", "gs": gs, "m": 60, "n": width, "b": 1,
-                     "max_abs_err": err, "design": design, "shift": shift})
+    for fmt in FIRST_DESIGN_SHIFT:
+        stacked = quantize(torch.randn((3, 9, 48), generator=gen, device=dev), 16, fmt)
+        for kind, b in (("gqmm", 2), ("gqmv", 1)):
+            xq, xs = _rand_q(gen, (b, 48) if kind == "gqmm" else (48,), 16, dev)
+            kfn, pfn = _kernel_fns(kind, fmt)
+            for i in range(3):
+                w = stacked[i]
+                err = check_close(f"{kind}_{fmt} stacked leaf, layer {i}",
+                                  kfn(w.qvalues, w.scales, xq, xs, group_size=16),
+                                  pfn(w.qvalues, w.scales, xq, xs, group_size=16), fmt)
+                rows.append({"kernel": f"{kind}_{fmt}", "gs": 16, "m": 9, "n": 48, "b": b,
+                             "max_abs_err": err, "layer_slice": i})
+    # GQMV rows the streamed design cannot take: n 1056 at GS 32 (no multiple
+    # of 128) and storage off a 16-byte boundary
+    for fmt in GQMV_SWEEP["formats"]:
+        shapes = [(1056, 32, 0)] + ([(2048, 64, FIRST_DESIGN_SHIFT[fmt])]
+                                    if fmt in FIRST_DESIGN_SHIFT else [])
+        for width, gs, shift in shapes:
+            wq, ws = _rand_weights(gen, fmt, 60, width, gs, dev)
+            if shift:
+                moved = torch.empty(wq.numel() + shift, dtype=wq.dtype, device=dev)[shift:]
+                wq = moved.view(wq.shape).copy_(wq)
+            xq, xs = _rand_q(gen, (width,), gs, dev)
+            design = kern.gqmv_design(width, fmt, wq.data_ptr() % 16 == 0)
+            if design != "first":
+                raise AssertionError(f"gqmv_{fmt} n={width} shift {shift}: expected the first "
+                                     "design")
+            kfn, pfn = _kernel_fns("gqmv", fmt)
+            err = check_close(f"gqmv_{fmt} n={width} GS {gs} shift {shift} ({design})",
+                              kfn(wq, ws, xq, xs, group_size=gs),
+                              pfn(wq, ws, xq, xs, group_size=gs), fmt)
+            rows.append({"kernel": f"gqmv_{fmt}", "gs": gs, "m": 60, "n": width, "b": 1,
+                         "max_abs_err": err, "design": design, "shift": shift})
     torch.cuda.synchronize()
     log(f"[kernels] {len(rows)} group-size cases pass (GS {GS_SWEEP['group_sizes']}, "
-        f"{m} x {n}, b in {GS_SWEEP['batches']} and GQMV; int3 on 18-byte rows; int3 GQMV's "
-        "first design at n 1056 and on storage off 16 bytes)")
+        f"{m} x {n}, b in {GS_SWEEP['batches']} and GQMV; int3 and int4 on a stacked leaf's "
+        "slices; the first GQMV design of int4, int3 and fp8 at n 1056 and, for int3 and "
+        "int4, on storage off 16 bytes)")
     return rows
 
 
@@ -1963,6 +2013,7 @@ def main(argv=None) -> int:
     rows = phase_kernels(dev)
     corows = phase_cutover(dev)
     tcrows = phase_tc_sweep(dev)
+    mvrows = phase_gqmv_sweep(dev)
     gsrows = phase_group_sizes(dev)
     frows, sdpa = phase_flash_kernels(dev)
     rqrows = phase_rmsnorm_kernels(dev)
@@ -1985,8 +2036,8 @@ def main(argv=None) -> int:
     golden["deep"] = phase_golden_deep(dev)
 
     smi = card()
-    entries = kernel_entries(rows, gsrows + tcrows, serves, prows, ragged, frows, rqrows,
-                             flagres, golden)
+    entries = kernel_entries(rows, gsrows + tcrows + mvrows, serves, prows, ragged, frows,
+                             rqrows, flagres, golden)
     for e in entries:
         log(f"[kernels] {e['name']:16s} {e['launches']:6d} launches  {1e3 * e['ms']:10.3f} us  "
             f"bound {1e3 * e['bound_ms']:9.3f} us ({e['bound_by']}, {100 * e['bound_share']:.1f} "
@@ -1997,7 +2048,8 @@ def main(argv=None) -> int:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
         Path(args.report).write_text(json.dumps(
             {"card": smi, "kernel_rows": rows, "cutover_rows": corows,
-             "tc_sweep_rows": tcrows, "group_size_rows": gsrows, "sdpa": sdpa,
+             "tc_sweep_rows": tcrows, "gqmv_sweep_rows": mvrows, "group_size_rows": gsrows,
+             "sdpa": sdpa,
              "flash_rows": frows, "rmsnorm_quant_rows": rqrows, "paged_rows": prows,
              "paged_hd256_rows": p256rows,
              "serve": serves, "ragged": ragged, "flags": flagres, "golden": golden,

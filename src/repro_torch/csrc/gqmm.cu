@@ -10,9 +10,10 @@
 //   gqmv_fp8  <- gqmv_fp8_pallas   gqmm_fp8  <- gqmm_fp8_pallas      (B7)
 // The six Pallas kernels after B1/B3 share B1/B3's two compute bodies
 // (_gqmv_compute, _gqmm_compute) behind a stage that unpacks the weights,
-// and so do these: one kernel template, one weight loader per format, for
-// every GQMV and for int4 / fp8 GQMM; int8 and int3 GQMM have two designs
-// of their own on the tensor cores.
+// and so do these: each design is a kernel template over a weight loader
+// per format (the first design for int8 GQMV and for rows the others cannot
+// take; the streamed GQMV design for int4 and int3, with a tensor-core
+// variant for fp8; GQMM's two tensor-core designs for every format).
 //
 // What they compute (paper Alg. 1): for every output row i and batch row b,
 // the products of each quantization group (GS columns) are summed, the
@@ -36,7 +37,7 @@
 // m*n weight bytes plus a 4*b*m-byte f32 output: bytes and int8 tensor-core
 // operations bound them about equally (wo 2.1 us, classifier 29.8 us).
 //
-// GQMV of int8, int4 and fp8 weights, int3 GQMV on rows the streamed design
+// GQMV of int8 weights, int4 / int3 / fp8 GQMV on rows the streamed designs
 // cannot take, and int4 / int3 GQMM on rows the large design's ring cannot
 // stream: the first, simple design (gqmm_kernel). The TPU kernel's
 // sequential n-block grid axis, which carries the sum in VMEM, does not
@@ -50,18 +51,19 @@
 // power-of-two segment, whose partial sums are added with xor shuffles
 // before the segment's first lane scales the group sum and keeps a per-lane
 // f32 sum; a warp shuffle reduction adds the lanes at the end. At b = 1 it
-// keeps one 6-byte int3 load (192 bytes a warp) in flight a lane behind a
-// chain of global activation and scale loads and a shuffle tree: about 3 KB
-// in flight an SM where HBM wants 17-20 KB (26.3 us for the classifier
+// keeps one 16-byte load (6 bytes for int3) in flight a lane behind a chain
+// of global activation and scale loads and a shuffle tree: a few KB in
+// flight an SM where HBM wants 17-20 KB (int3: 26.3 us for the classifier
 // against a 7.7 us bound).
 //
-// GQMV of int3 weights (B6, gqmv_int3_pallas): the streamed design
-// (gqmv_stream_kernel, a template over a weight loader; StreamInt3 is its
-// only loader so far). Bound: the weight bytes. A lane takes a chunk of 128
-// logical weights, 48 bytes of int3, as three 16-byte loads (a warp step
-// moves 1,536 bytes), issued with the chunk's weight scales before the lane
-// waits for anything; a half-warp of 16 lanes takes a piece of 16 chunks of
-// one row (a 2048-wide row, 768 bytes, is one piece: a warp covers two
+// GQMV of int4 (B5, gqmv_int4_pallas) and int3 (B6, gqmv_int3_pallas)
+// weights: the streamed design (gqmv_stream_kernel, a template over a
+// weight loader: StreamInt4, StreamInt3). Bound: the weight bytes. A lane
+// takes a chunk of 128 logical weights of one row, 64 bytes of int4 or 48
+// of int3, as four or three 16-byte loads (a warp step moves 2,048 or 1,536
+// bytes), issued with the chunk's weight scales before the lane waits for
+// anything; a half-warp of 16 lanes takes a piece of 16 chunks of one row
+// (a 2048-wide row, 1,024 or 768 bytes, is one piece: a warp covers two
 // rows); a CTA of 8 warps takes 16 pieces: 16 rows of one piece, or, for
 // longer rows (w2: 5632 wide, 44 chunks, 3 pieces), 16 / pieces rows whose
 // pieces sit in different half-warps and are added through shared memory.
@@ -69,16 +71,55 @@
 // each chunk's eight 16-byte vectors XOR-swizzled by the chunk so that a
 // piece's 16 lanes read 8 bank groups) and its n / GS scales by cp.async
 // while the weights are in flight. Each lane unpacks its chunk in
-// registers (sext3 on four 24-bit words a 12 bytes) and forms exact int32
-// sums with __dp4a. The order of the f32 sums, fixed: a lane adds its
-// chunk's group terms s * (ws * xs) left to right (GS <= 128; at GS 256 a
-// group is the chunks of lanes 2j, 2j + 1, whose int32 sums are added and
-// scaled on the even lane); a piece's 16 lanes are added by an xor butterfly
-// (a pairwise tree in lane order); a row's pieces left to right. It runs
-// where the rows are 16-byte aligned and n is a multiple of 128 (at most
-// 32768: 16 pieces); other rows (a stacked leaf's slice off 16 bytes, GS 32
-// at n 1056) run the first design, chosen by pointer and shape
-// (run_gqmv_stream, mirrored by kernels/gqmv.gqmv_design).
+// registers into 32 words of four int8 in element order (int4:
+// unpack_int4_word, the nibbles sign-extended and interleaved by
+// __byte_perm; int3: sext3 on four 24-bit words a 12 bytes) and forms
+// exact int32 sums with __dp4a. The order of the f32 sums, fixed: a lane
+// adds its chunk's group terms s * (ws * xs) left to right (GS <= 128; at
+// GS 256 a group is the chunks of lanes 2j, 2j + 1, whose int32 sums are
+// added and scaled on the even lane); a piece's 16 lanes are added by an
+// xor butterfly (a pairwise tree in lane order); a row's pieces left to
+// right. What bounds it: about 4 us a call of fixed cost (launch, the
+// first loads' latency, the staging barrier) plus the bytes at ~2 TB/s:
+// each CTA issues its loads once and then computes, so an SM's bytes in
+// flight come and go with its CTAs.
+//
+// GQMV of fp8 weights (B7, gqmv_fp8_pallas): the streamed design on the
+// f16 tensor cores (gqmv_stream_fp8_kernel, loader StreamFp8). Bound: the
+// weight bytes. A lane's f32 dot on the CUDA cores, with the activations
+// staged as f32, pays for each e4m3 byte a conversion and an FMA: in the
+// GS-256 kernel 64 F2FP (e4m3x2 to f16x2), 128 HADD2.F32 and 128 FFMA for
+// 128 weights with the hardware cvt, and 2-3 integer instructions a byte in
+// place of the F2FP and HADD2 with a decode that moves the byte's bits into
+// an f32 as its value x 2^-120 (cuobjdump -sass; tests/time_torch_kernels.py
+// --sass), and its compute outlasted its loads: 32.7 (cvt) and 33.0
+// (integer decode) us at the classifier against the first design's 31.1,
+// with the next rows prefetched (H100 80GB HBM3, 700 W). Here e4m3 pairs convert to f16x2 (one
+// cvt a pair) for mma.sync m16n8k16, whose B operand is the activations as
+// f16 (exact: |x| <= 127) in all 8 columns: a 16-byte vector of a row costs
+// 8 cvts and 4 mmas. A block is 16 rows (an mma's); warp w of a CTA takes
+// its 256-column slices w, w + 8, ...; lane (gid, t) loads 16 bytes of rows
+// gid and gid + 8 at columns 16t .. 16t + 15 of each of a slice's four
+// 64-column spans (eight 16-byte loads, 128 bytes; a warp load is 8 rows x
+// 64 contiguous bytes) with the slice's weight scales. mma j of a span
+// takes the lane's columns 4j .. 4j + 3 as k-slots 2t, 2t + 1, 2t + 8,
+// 2t + 9 of both operands, so a k16 step covers columns {64p + 16t + 4j +
+// b}: a span is whole groups at GS >= 64, and at GS 16 and 32 each group
+// of a span runs its own mmas with the other lanes' activations zeroed. The
+// grid holds as many CTAs as the card runs at once (two an SM: 124
+// registers); a CTA stages the activations (as f16) and their scales once
+// and takes blocks blockIdx.x, blockIdx.x + gridDim.x, ...; each slice (the
+// next block's first, at a block's last) is requested before the one
+// before is computed, so an SM keeps ~64 KB in flight while its tensor
+// cores work. The order of the f32 sums: a group's k16 steps accumulate in
+// order in the mma's f32 accumulator (within a step the tensor core's own
+// order; each product is exact); a slice's group terms s * (ws * xs) left
+// to right; a row's slices left to right, through shared memory.
+// int4 / int3 / fp8 GQMV run the streamed designs where the rows are
+// 16-byte aligned and n is a multiple of 128 (at most 32768: 16 pieces);
+// other rows (a stacked leaf's slice off 16 bytes, GS 32 at n 1056) run
+// the first design, chosen by pointer and shape (run_gqmv_stream, mirrored
+// by kernels/gqmv.gqmv_design).
 //
 // GQMM, every format: two designs on the tensor cores, chosen by b
 // (run_gqmm_tc): int8 (B3, gqmm_pallas), int4 (B5, gqmm_int4_pallas) and
@@ -161,9 +202,10 @@
 // a lane's 6 bytes are two words, read as three 16-bit loads (an int3 row
 // is 3n/8 bytes, so a lane's chunk is only 2-byte aligned), and each run of
 // four fields is spread into the four bytes of a word and sign-extended as
-// (v ^ 4) - 4. fp8: pairs of e4m3 values are converted to half2 and then
-// float2 (both exact), and multiplied by the activation as f32 (exact: 4 x
-// 7 significant bits), so the only roundings are the f32 sums.
+// (v ^ 4) - 4. fp8 (first design): pairs of e4m3 values are converted to
+// half2 and then float2 (both exact), and multiplied by the activation as
+// f32 (exact: 4 x 7 significant bits), so the only roundings are the f32
+// sums; on the tensor cores (GQMM, streamed GQMV) pairs convert to f16x2.
 
 #include <cuda.h>   // CUtensorMap and its enums; the encoder is looked up at run time
 #include <cudaTypedefs.h>
@@ -203,6 +245,14 @@ struct Int8Weights {
 // four nibbles, one in the low half of each byte -> four sign-extended int8
 __device__ __forceinline__ int sext4(unsigned v) {
   return static_cast<int>(__vsub4(v ^ 0x08080808u, 0x08080808u));
+}
+
+// four packed int4 bytes (elements 0..7) -> two words of sign-extended int8
+// in element order: lo holds elements 0..3, hi 4..7
+__device__ __forceinline__ void unpack_int4_word(unsigned v, int& lo, int& hi) {
+  const unsigned even = v & 0x0F0F0F0Fu, odd = (v >> 4) & 0x0F0F0F0Fu;   // 0,2,4,6 / 1,3,5,7
+  lo = sext4(__byte_perm(even, odd, 0x5140));
+  hi = sext4(__byte_perm(even, odd, 0x7362));
 }
 
 struct Int4Weights {
@@ -440,10 +490,60 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// the opt-in above 48 KB of dynamic shared memory, once per device for the
+// kernel whose flags are `done`
+template <class K>
+cudaError_t opt_in(K kernel, bool (&done)[kMaxDevices], int device) {
+  if (done[device]) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (err == cudaSuccess) done[device] = true;
+  return err;
+}
+
+// d += a (16 x 32, rows) . b (32 x 8, columns), s8 x s8 -> exact s32
+__device__ __forceinline__ void mma_k32(int (&c)[4], int a0, int a1, int a2, int a3, int b0,
+                                        int b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// d += a (16 x 16, rows) . b (16 x 8, columns), f16 x f16 -> f32
+__device__ __forceinline__ void mma_f16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                        uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// two e4m3 values (low byte first) -> one f16x2 register (low half first), exactly
+__device__ __forceinline__ uint32_t fp8x2_to_h2(unsigned pair) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(pair & 0xFFFFu), __NV_E4M3);
+  return static_cast<uint32_t>(h.x) | (static_cast<uint32_t>(h.y) << 16);
+}
+
+// int8 bytes 2h, 2h + 1 of v -> one f16x2 register, exactly: the byte
+// biased by 128 is the mantissa of the f16 1024 + 128 + x, minus 1152
+__device__ __forceinline__ uint32_t i8x2_to_h2(unsigned v, int h) {
+  const unsigned biased = __byte_perm(v ^ 0x80808080u, 0x64646464u, h ? 0x4342 : 0x4140);
+  const __half2 r = __hsub2(*reinterpret_cast<const __half2*>(&biased),
+                            __half2(__float2half(1152.f), __float2half(1152.f)));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
 // ---------------------------------------------------------------------------
-// GQMV, streamed design (gqmv_int3; the note at the top): a lane takes a
-// chunk of 128 logical weights with 16-byte loads, a half-warp a 16-chunk
-// piece of a row, a CTA 16 pieces; the activations are staged once a CTA.
+// GQMV, streamed design (gqmv_int4, gqmv_int3, gqmv_fp8; the note at the
+// top). int4 and int3: a lane takes a chunk of 128 logical weights of one
+// row with 16-byte loads, a half-warp a 16-chunk piece of a row, a CTA 16
+// pieces (gqmv_stream_kernel). fp8: a warp takes 16 rows x 256-column
+// slices for the f16 tensor cores (gqmv_stream_fp8_kernel). Both stage the
+// activations once a CTA.
 
 constexpr int kStreamThreads = 256;
 constexpr int kStreamLanes = 16;                                  // lanes a piece
@@ -451,16 +551,18 @@ constexpr int kStreamPieces = kStreamThreads / kStreamLanes;     // pieces a CTA
 constexpr int kStreamChunk = 128;                                 // logical weights a lane
 constexpr int kStreamMaxN = kStreamPieces * kStreamLanes * kStreamChunk;   // one round
 
+// 16-byte loads need a 16-byte aligned base and whole chunks (a row of
+// int4, int3 or fp8 storage is then a multiple of 64, 48 or 128 bytes)
+bool stream_ok(const void* wq, int n) {
+  return (reinterpret_cast<uintptr_t>(wq) & 15) == 0 && n % kStreamChunk == 0 &&
+         n <= kStreamMaxN;
+}
+
 // int3: a chunk is 48 bytes (three 16-byte loads), sixteen 24-bit words
 struct StreamInt3 {
   static constexpr int kVecs = 3;
+  static constexpr bool kMma = false;
   __host__ __device__ static size_t row_bytes(int n) { return (size_t)n / 8 * 3; }
-  // 16-byte loads need a 16-byte aligned base and whole chunks (a row of
-  // 3n/8 bytes is then a multiple of 48)
-  static bool stream_ok(const void* wq, int n) {
-    return (reinterpret_cast<uintptr_t>(wq) & 15) == 0 && n % kStreamChunk == 0 &&
-           n <= kStreamMaxN;
-  }
   // the chunk's 128 weights as 32 words of four sign-extended int8 (word i:
   // weights 4i .. 4i + 3); 12 bytes hold four 24-bit words of 8 fields
   __device__ __forceinline__ static void unpack(const uint4 (&r)[kVecs], int (&w)[32]) {
@@ -479,8 +581,34 @@ struct StreamInt3 {
   }
 };
 
-// Dynamic shared memory of a streamed CTA (kernels/gqmv.stream_smem_bytes):
-// the activations, their scales, one partial sum a piece.
+// int4: a chunk is 64 bytes (four 16-byte loads); each 32-bit word holds
+// eight weights, the low nibble of a byte the even one, interleaved back
+// into element order (unpack_int4_word) as 32 words like int3's
+struct StreamInt4 {
+  static constexpr int kVecs = 4;
+  static constexpr bool kMma = false;
+  __host__ __device__ static size_t row_bytes(int n) { return (size_t)n / 2; }
+  __device__ __forceinline__ static void unpack(const uint4 (&r)[kVecs], int (&w)[32]) {
+#pragma unroll
+    for (int i = 0; i < kVecs; ++i) {
+      unpack_int4_word(r[i].x, w[8 * i], w[8 * i + 1]);
+      unpack_int4_word(r[i].y, w[8 * i + 2], w[8 * i + 3]);
+      unpack_int4_word(r[i].z, w[8 * i + 4], w[8 * i + 5]);
+      unpack_int4_word(r[i].w, w[8 * i + 6], w[8 * i + 7]);
+    }
+  }
+};
+
+// fp8: a lane's 128 bytes (eight 16-byte loads) are 16 bytes of two rows
+// at each of four 64-column spans (gqmv_stream_fp8_kernel)
+struct StreamFp8 {
+  static constexpr int kVecs = 8;
+  static constexpr bool kMma = true;
+};
+
+// Dynamic shared memory of a streamed int4 / int3 CTA
+// (kernels/gqmv.stream_smem_bytes): the activations, their scales, one
+// partial sum a piece.
 __host__ __device__ inline size_t stream_smem_bytes(int n, int ng) {
   return (size_t)n + 4 * (size_t)ng + 4 * kStreamPieces;
 }
@@ -599,75 +727,209 @@ gqmv_stream_kernel(const uint8_t* __restrict__ wq, const float* __restrict__ ws,
   }
 }
 
+// fp8 (B7) on the streamed design, with the f16 tensor cores for the group
+// dots: e4m3 weights and int8 activations are exact in f16 and their
+// products exact in f32 (mma.sync m16n8k16, f32 sums). A block is kFp8Rows
+// rows; warp w of a CTA takes the block's 256-column slices w, w + 8, ...;
+// lane (gid, t) loads 16 bytes of rows gid and gid + 8 at columns 16t ..
+// 16t + 15 of each of a slice's four 64-column spans (a warp load is 8 rows
+// x 64 contiguous bytes), with the slice's weight scales. The grid holds as
+// many CTAs as the card runs at once; a CTA takes blocks blockIdx.x,
+// blockIdx.x + gridDim.x, ..., and requests each slice (the next block's
+// first, at the last) before the one before is computed, so that its bytes
+// are in flight while the tensor cores work. mma j of a span takes the
+// lane's columns 4j .. 4j + 3 as k-slots 2t, 2t + 1, 2t + 8, 2t + 9 of both
+// operands: the activations (staged once a CTA as f16, the same for all 8
+// columns of B) and the weights (converted pairwise in registers).
+constexpr int kFp8Rows = 16;       // rows a block: an mma's 16
+constexpr int kFp8Slice = 256;     // columns a warp takes at a time: four 64-column spans
+
+// Dynamic shared memory of a streamed fp8 CTA (kernels/gqmv.stream_smem_bytes):
+// the activations as f16, their scales, one term a row a slice.
+__host__ __device__ inline size_t stream_fp8_smem_bytes(int n, int ng) {
+  return 2 * (size_t)n + 4 * (size_t)ng + 4 * (size_t)kFp8Rows * ((n + kFp8Slice - 1) / kFp8Slice);
+}
+
+template <int GSL>
+__global__ void __launch_bounds__(kStreamThreads)
+gqmv_stream_fp8_kernel(const uint8_t* __restrict__ wq, const float* __restrict__ ws,
+                       const int8_t* __restrict__ xq, const float* __restrict__ xs,
+                       float* __restrict__ out, int m, int n) {
+  constexpr int kGS = 1 << GSL;
+  // a group is kGroupSpans whole spans (GS >= 64), or a span holds
+  // kSpanGroups groups of GS / 16 lanes each (GS 16, 32)
+  constexpr int kGroupSpans = kGS >= 64 ? kGS / 64 : 1;
+  constexpr int kSpanGroups = kGS >= 64 ? 1 : 64 / kGS;
+  constexpr int kSliceGroups = kFp8Slice / kGS;
+  constexpr int kWarps = kStreamThreads / 32;
+  constexpr int kSpans = StreamFp8::kVecs / 2;   // a lane's 16 bytes of two rows a span
+  static_assert(kSpans * 64 == kFp8Slice, "a slice is four 64-column spans");
+  extern __shared__ __align__(16) unsigned char gsm[];
+  const int ng = n >> GSL, slices = (n + kFp8Slice - 1) / kFp8Slice;
+  const int blocks = (m + kFp8Rows - 1) / kFp8Rows;
+  uint32_t* x_s = reinterpret_cast<uint32_t*>(gsm);                   // n f16, in pairs
+  float* xs_s = reinterpret_cast<float*>(gsm + 2 * (size_t)n);        // ng scales
+  float* part = xs_s + ng;                                            // slices x kFp8Rows
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gid = lane >> 2, t = lane & 3;
+  // slice s of block b: 16 bytes of rows gid, gid + 8 at each span and
+  // their weight scales (zeros past m and n)
+  auto fetch = [&](int b, int s, uint4 (&r)[2][kSpans], float (&sc)[2][kSliceGroups]) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = b * kFp8Rows + gid + 8 * h;
+      const uint8_t* wr = wq + (size_t)row * n;
+#pragma unroll
+      for (int p = 0; p < kSpans; ++p) {
+        const int col = s * kFp8Slice + 64 * p + 16 * t;
+        r[h][p] = row < m && col < n ? __ldg(reinterpret_cast<const uint4*>(wr + col))
+                                     : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int g = 0; g < kSliceGroups; ++g) {
+        const int gg = s * kSliceGroups + g;
+        sc[h][g] = row < m && gg < ng ? __ldg(ws + (size_t)row * ng + gg) : 0.f;
+      }
+    }
+  };
+  int blk = blockIdx.x;
+  uint4 raw[2][kSpans];
+  float wsc[2][kSliceGroups];
+  if (warp < slices) fetch(blk, warp, raw, wsc);
+  // the activations as f16 (exact) and their scales, once a CTA
+  for (int e = tid; e < n / 16; e += kStreamThreads) {
+    const int4 q = __ldg(reinterpret_cast<const int4*>(xq) + e);
+    const unsigned v[4] = {static_cast<unsigned>(q.x), static_cast<unsigned>(q.y),
+                           static_cast<unsigned>(q.z), static_cast<unsigned>(q.w)};
+    uint4* dst = reinterpret_cast<uint4*>(x_s) + 2 * e;
+    dst[0] = make_uint4(i8x2_to_h2(v[0], 0), i8x2_to_h2(v[0], 1), i8x2_to_h2(v[1], 0),
+                        i8x2_to_h2(v[1], 1));
+    dst[1] = make_uint4(i8x2_to_h2(v[2], 0), i8x2_to_h2(v[2], 1), i8x2_to_h2(v[3], 0),
+                        i8x2_to_h2(v[3], 1));
+  }
+  for (int e = tid; e < ng; e += kStreamThreads) cp_async4(xs_s + e, xs + e, true);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  for (;;) {
+    const int nblk = blk + gridDim.x;
+    for (int s = warp; s < slices; s += kWarps) {
+      uint4 nraw[2][kSpans];
+      float nwsc[2][kSliceGroups];
+      if (s + kWarps < slices) fetch(blk, s + kWarps, nraw, nwsc);
+      else if (nblk < blocks) fetch(nblk, warp, nraw, nwsc);
+      // the group terms s * (ws * xs) of this slice, left to right
+      float acc[2] = {0.f, 0.f};
+#pragma unroll
+      for (int p0 = 0; p0 < kSpans; p0 += kGroupSpans) {
+#pragma unroll
+        for (int q = 0; q < kSpanGroups; ++q) {
+          const bool mine = t / (4 / kSpanGroups) == q;   // this lane's columns in group q
+          float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int p = p0; p < p0 + kGroupSpans; ++p) {
+            const uint4* xv = reinterpret_cast<const uint4*>(x_s) +
+                              (s * kFp8Slice + 64 * p + 16 * t) / 8;
+            const uint4 x0 = xv[0], x1 = xv[1];
+            const uint32_t xb[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+            const uint32_t w0[4] = {raw[0][p].x, raw[0][p].y, raw[0][p].z, raw[0][p].w};
+            const uint32_t w1[4] = {raw[1][p].x, raw[1][p].y, raw[1][p].z, raw[1][p].w};
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              mma_f16(c, fp8x2_to_h2(w0[j]), fp8x2_to_h2(w1[j]), fp8x2_to_h2(w0[j] >> 16),
+                      fp8x2_to_h2(w1[j] >> 16), mine ? xb[2 * j] : 0u, mine ? xb[2 * j + 1] : 0u);
+          }
+          const int g = (64 * p0) / kGS + q;               // the group within the slice
+          if (s * kSliceGroups + g < ng) {
+            const float x = xs_s[s * kSliceGroups + g];
+            acc[0] = __fadd_rn(acc[0], __fmul_rn(c[0], __fmul_rn(wsc[0][g], x)));
+            acc[1] = __fadd_rn(acc[1], __fmul_rn(c[2], __fmul_rn(wsc[1][g], x)));
+          }
+        }
+      }
+      if (t == 0) {
+        part[s * kFp8Rows + gid] = acc[0];
+        part[s * kFp8Rows + gid + 8] = acc[1];
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int p = 0; p < kSpans; ++p) raw[h][p] = nraw[h][p];
+#pragma unroll
+        for (int g = 0; g < kSliceGroups; ++g) wsc[h][g] = nwsc[h][g];
+      }
+    }
+    // a row's slices left to right
+    __syncthreads();
+    if (tid < kFp8Rows && blk * kFp8Rows + tid < m) {
+      float v = part[tid];
+      for (int s = 1; s < slices; ++s) v = __fadd_rn(v, part[s * kFp8Rows + tid]);
+      out[blk * kFp8Rows + tid] = v;
+    }
+    if (nblk >= blocks) return;
+    __syncthreads();   // part is read before the next block writes it
+    blk = nblk;
+  }
+}
+
 template <class L, int GSL>
 int launch_stream(const void* wq, const void* ws, const void* xq, const void* xs, void* out,
-                  int m, int n, cudaStream_t stream) {
-  const int pieces = (n / kStreamChunk + kStreamLanes - 1) / kStreamLanes;
-  const int rows = kStreamPieces / pieces;
-  gqmv_stream_kernel<L, GSL><<<(m + rows - 1) / rows, kStreamThreads,
-                               stream_smem_bytes(n, n >> GSL), stream>>>(
-      static_cast<const uint8_t*>(wq), static_cast<const float*>(ws),
-      static_cast<const int8_t*>(xq), static_cast<const float*>(xs), static_cast<float*>(out),
-      m, n, pieces, rows);
+                  int m, int n, int device, cudaStream_t stream) {
+  if constexpr (L::kMma) {
+    const auto kernel = gqmv_stream_fp8_kernel<GSL>;
+    const size_t smem = stream_fp8_smem_bytes(n, n >> GSL);
+    if (smem > 48 * 1024) {   // wide rows: the f16 activations past 48 KB
+      static bool opted[kMaxDevices] = {};
+      const cudaError_t err = opt_in(kernel, opted, device);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    // as many CTAs as the card runs at once, at most one a block
+    int per_sm = 0, sms = 0;
+    cudaError_t err =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kStreamThreads, smem);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int cap = per_sm * sms > 0 ? per_sm * sms : 1;
+    const int blocks = (m + kFp8Rows - 1) / kFp8Rows;
+    kernel<<<blocks < cap ? blocks : cap, kStreamThreads, smem, stream>>>(
+        static_cast<const uint8_t*>(wq), static_cast<const float*>(ws),
+        static_cast<const int8_t*>(xq), static_cast<const float*>(xs), static_cast<float*>(out),
+        m, n);
+  } else {
+    const int pieces = (n / kStreamChunk + kStreamLanes - 1) / kStreamLanes;
+    const int rows = kStreamPieces / pieces;
+    gqmv_stream_kernel<L, GSL><<<(m + rows - 1) / rows, kStreamThreads,
+                                 stream_smem_bytes(n, n >> GSL), stream>>>(
+        static_cast<const uint8_t*>(wq), static_cast<const float*>(ws),
+        static_cast<const int8_t*>(xq), static_cast<const float*>(xs), static_cast<float*>(out),
+        m, n, pieces, rows);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// GQMV with the streamed design where the rows allow it (L::stream_ok: by
+// GQMV with the streamed design where the rows allow it (stream_ok: by
 // pointer and shape, kernels/gqmv.gqmv_design mirrors it), else the first
 // design (First)
 template <class L, class First>
 int run_gqmv_stream(const void* wq, const void* ws, const void* xq, const void* xs, void* out,
                     int m, int n, int group_size, int device, void* stream) {
   const int gs_log2 = log2_group(group_size);
-  if (bad_args(1, m, n, gs_log2)) return static_cast<int>(cudaErrorInvalidValue);
-  if (!L::stream_ok(wq, n))
+  if (bad_args(1, m, n, gs_log2) || device < 0 || device >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!stream_ok(wq, n))
     return run_gqmv<First>(wq, ws, xq, xs, out, m, n, group_size, device, stream);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (gs_log2) {
-    case 4: return launch_stream<L, 4>(wq, ws, xq, xs, out, m, n, s);
-    case 5: return launch_stream<L, 5>(wq, ws, xq, xs, out, m, n, s);
-    case 6: return launch_stream<L, 6>(wq, ws, xq, xs, out, m, n, s);
-    case 7: return launch_stream<L, 7>(wq, ws, xq, xs, out, m, n, s);
-    default: return launch_stream<L, 8>(wq, ws, xq, xs, out, m, n, s);
+    case 4: return launch_stream<L, 4>(wq, ws, xq, xs, out, m, n, device, s);
+    case 5: return launch_stream<L, 5>(wq, ws, xq, xs, out, m, n, device, s);
+    case 6: return launch_stream<L, 6>(wq, ws, xq, xs, out, m, n, device, s);
+    case 7: return launch_stream<L, 7>(wq, ws, xq, xs, out, m, n, device, s);
+    default: return launch_stream<L, 8>(wq, ws, xq, xs, out, m, n, device, s);
   }
-}
-
-// d += a (16 x 32, rows) . b (32 x 8, columns), s8 x s8 -> exact s32
-__device__ __forceinline__ void mma_k32(int (&c)[4], int a0, int a1, int a2, int a3, int b0,
-                                        int b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// d += a (16 x 16, rows) . b (16 x 8, columns), f16 x f16 -> f32
-__device__ __forceinline__ void mma_f16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                        uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// two e4m3 values (low byte first) -> one f16x2 register (low half first), exactly
-__device__ __forceinline__ uint32_t fp8x2_to_h2(unsigned pair) {
-  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
-      static_cast<__nv_fp8x2_storage_t>(pair & 0xFFFFu), __NV_E4M3);
-  return static_cast<uint32_t>(h.x) | (static_cast<uint32_t>(h.y) << 16);
-}
-
-// int8 bytes 2h, 2h + 1 of v -> one f16x2 register, exactly: the byte
-// biased by 128 is the mantissa of the f16 1024 + 128 + x, minus 1152
-__device__ __forceinline__ uint32_t i8x2_to_h2(unsigned v, int h) {
-  const unsigned biased = __byte_perm(v ^ 0x80808080u, 0x64646464u, h ? 0x4342 : 0x4140);
-  const __half2 r = __hsub2(*reinterpret_cast<const __half2*>(&biased),
-                            __half2(__float2half(1152.f), __float2half(1152.f)));
-  return *reinterpret_cast<const uint32_t*>(&r);
 }
 
 __device__ __forceinline__ void ldmatrix_x4(int (&r)[4], uint32_t addr) {
@@ -744,14 +1006,6 @@ struct TcInt3 {
     w[3] = sext3(hi >> 12);
   }
 };
-
-// four packed int4 bytes (elements 0..7) -> two words of sign-extended int8
-// in element order: lo holds elements 0..3, hi 4..7
-__device__ __forceinline__ void unpack_int4_word(unsigned v, int& lo, int& hi) {
-  const unsigned even = v & 0x0F0F0F0Fu, odd = (v >> 4) & 0x0F0F0F0Fu;   // 0,2,4,6 / 1,3,5,7
-  lo = sext4(__byte_perm(even, odd, 0x5140));
-  hi = sext4(__byte_perm(even, odd, 0x7362));
-}
 
 // int4: 16 weights are 8 bytes at k / 2 of the row, the low nibble the even
 // element (rows are 8-byte aligned: n / 2 bytes, n a multiple of 16);
@@ -1542,17 +1796,6 @@ bool byte_map(CUtensorMap* tm, const void* ptr, uint64_t row_bytes, uint64_t row
 // b at or below which the small design runs; a timing knob (gqmm_set_small_max_b)
 int g_small_max_b = kSmallMaxB;
 
-// the opt-in above 48 KB of dynamic shared memory, once per device for the
-// kernel whose flags are `done`
-template <class K>
-cudaError_t opt_in(K kernel, bool (&done)[kMaxDevices], int device) {
-  if (done[device]) return cudaSuccess;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-  if (err == cudaSuccess) done[device] = true;
-  return err;
-}
-
 template <class L, int NB, bool kXsFirst>
 int launch_small(const void* wq, const void* ws, const void* xq, const void* xs, void* out, int b,
                  int m, int n, int gs_log2, int device, cudaStream_t stream) {
@@ -1632,11 +1875,11 @@ int run_gqmm_tc(const void* wq, const void* ws, const void* xq, const void* xs, 
 // Every entry point returns cudaGetLastError() after the launch (0 on
 // success); the Python wrapper raises on anything else. wq is the format's
 // storage: int8 (m, n), int8 (m, n/2), uint8 (m, 3n/8) or e4m3 (m, n).
-#define GQMV_ENTRY_POINT(FMT, W)                                                             \
+#define GQMV_ENTRY_POINT(FMT, RUN)                                                           \
   extern "C" int gqmv_##FMT(const void* wq, const void* ws, const void* xq, const void* xs, \
                             void* out, int m, int n, int group_size, int device,            \
                             void* stream) {                                                 \
-    return run_gqmv<W>(wq, ws, xq, xs, out, m, n, group_size, device, stream);              \
+    return RUN(wq, ws, xq, xs, out, m, n, group_size, device, stream);                      \
   }
 #define GQMM_ENTRY_POINT(FMT, RUN)                                                           \
   extern "C" int gqmm_##FMT(const void* wq, const void* ws, const void* xq, const void* xs, \
@@ -1645,14 +1888,10 @@ int run_gqmm_tc(const void* wq, const void* ws, const void* xq, const void* xs, 
     return RUN(wq, ws, xq, xs, out, b, m, n, group_size, device, stream);                   \
   }
 
-GQMV_ENTRY_POINT(int8, Int8Weights)
-GQMV_ENTRY_POINT(int4, Int4Weights)
-extern "C" int gqmv_int3(const void* wq, const void* ws, const void* xq, const void* xs,
-                         void* out, int m, int n, int group_size, int device, void* stream) {
-  return run_gqmv_stream<StreamInt3, Int3Weights>(wq, ws, xq, xs, out, m, n, group_size, device,
-                                                  stream);
-}
-GQMV_ENTRY_POINT(fp8, Fp8Weights)
+GQMV_ENTRY_POINT(int8, run_gqmv<Int8Weights>)
+GQMV_ENTRY_POINT(int4, (run_gqmv_stream<StreamInt4, Int4Weights>))
+GQMV_ENTRY_POINT(int3, (run_gqmv_stream<StreamInt3, Int3Weights>))
+GQMV_ENTRY_POINT(fp8, (run_gqmv_stream<StreamFp8, Fp8Weights>))
 GQMM_ENTRY_POINT(int8, (run_gqmm_tc<TcInt8, false>))
 GQMM_ENTRY_POINT(int4, (run_gqmm_tc<TcInt4, true>))
 GQMM_ENTRY_POINT(int3, (run_gqmm_tc<TcInt3, true>))

@@ -19,16 +19,23 @@ cores (int4 and int3 weights unpacked to int8 on the way); fp8 runs the
 f16 ones (e4m3 weights and int8 activations are exact in f16, their
 products exact in f32). int4 and int3 rows the large design's ring cannot
 stream run the first design (one warp an output row, ``__dp4a``), as the
-int8, int4 and fp8 GQMV do.
+int8 GQMV does.
 
-int3 GQMV runs the streamed design where its rows allow it
+int4, int3 and fp8 GQMV run the streamed design where their rows allow it
 (:func:`gqmv_design`: 16-byte aligned storage, n a multiple of
 ``STREAM_CHUNK`` up to ``STREAM_MAX_N``), else the first design: a lane
-takes 128 logical weights (48 bytes, three 16-byte loads), a half-warp a
-16-chunk piece of a row, a CTA of 8 warps 16 pieces (:func:`stream_plan`);
-the activations are staged in shared memory once a CTA. Its f32 order: a
-lane's groups left to right, the piece's 16 lanes as a pairwise tree, a
-row's pieces left to right.
+takes 128 logical weights (``STREAM_CHUNK_BYTES``: 64 bytes of int4, 48 of
+int3, 128 of fp8, as 16-byte loads), a half-warp a 16-chunk piece of a
+row, a CTA of 8 warps 16 pieces (:func:`stream_plan`); the activations are
+staged in shared memory once a CTA (as int8, or for fp8 as f32). The
+integer formats' group sums are exact int32 (``__dp4a``); fp8's are f32,
+each group as four FMA chains (chain j: byte 0..3 of word j of each
+16-byte vector, vectors left to right) added as (a0 + a1) + (a2 + a3),
+the e4m3 bytes decoded by integer operations into their value x 2^-120
+and the sum multiplied by 2^120 (exact). The f32 order across groups: a
+lane's groups left to right (at GS 256 the even lane's half plus the odd
+lane's, scaled on the even lane), the piece's 16 lanes as a pairwise tree,
+a row's pieces left to right.
 
 ``wq`` is the format's storage array: int8 (m, n) for int8, packed int8
 (m, n/2) for int4, packed uint8 (m, 3n/8) for int3, float8_e4m3fn (m, n)
@@ -84,31 +91,46 @@ PACKED = ("int4", "int3")
 
 # csrc/gqmm.cu, the streamed GQMV design: threads a CTA, lanes a piece (half
 # a warp), pieces a CTA, logical weights a lane (a chunk), the widest row it
-# takes (16 pieces of 16 chunks), and the bytes of a chunk by format
+# takes (16 pieces of 16 chunks), and the bytes a lane loads by format (int4
+# and int3: one row's chunk; fp8: 16 bytes of two rows at four spans). fp8's
+# CTA owns FP8_ROWS rows (an mma's 16), a warp FP8_SLICE columns of them at
+# a time (four 64-column spans).
 STREAM_THREADS, STREAM_LANES, STREAM_PIECES, STREAM_CHUNK = 256, 16, 16, 128
 STREAM_MAX_N = STREAM_PIECES * STREAM_LANES * STREAM_CHUNK
-STREAM_CHUNK_BYTES = {"int3": 48}
+STREAM_CHUNK_BYTES = {"int3": 48, "int4": 64, "fp8": 128}
+FP8_ROWS, FP8_SLICE = 16, 256
 
 
 def gqmv_design(n: int, fmt: str = "int3", aligned: bool = True) -> str:
     """The GQMV design for rows of n logical weights (``run_gqmv_stream``):
-    "stream" for the formats that have it when the storage is 16-byte
-    ``aligned`` and n a multiple of STREAM_CHUNK up to STREAM_MAX_N, else
-    "first"."""
+    "stream" for the formats that have it (int4, int3, fp8) when the storage
+    is 16-byte ``aligned`` and n a multiple of STREAM_CHUNK up to
+    STREAM_MAX_N, else "first" (and always for int8)."""
     ok = fmt in STREAM_CHUNK_BYTES and aligned and n % STREAM_CHUNK == 0 and n <= STREAM_MAX_N
     return "stream" if ok else "first"
 
 
 def stream_plan(m: int, n: int) -> tuple[int, int, int]:
-    """(pieces a row, rows a CTA, CTAs) of the streamed GQMV design."""
+    """(pieces a row, rows a CTA, CTAs) of the streamed int4 / int3 GQMV."""
     pieces = -(-(n // STREAM_CHUNK) // STREAM_LANES)
     rows = STREAM_PIECES // pieces
     return pieces, rows, -(-m // rows)
 
 
-def stream_smem_bytes(n: int, ng: int) -> int:
-    """Dynamic shared memory of a streamed CTA: the activations, their
-    scales, one partial sum a piece."""
+def stream_fp8_plan(m: int, n: int) -> tuple[int, int]:
+    """(FP8_SLICE-column slices a row, blocks of FP8_ROWS rows) of the
+    streamed fp8 GQMV; warp w of a CTA takes slices w, w + 8, ... of each
+    of its blocks, a CTA blocks blockIdx.x, blockIdx.x + gridDim.x, ..."""
+    return -(-n // FP8_SLICE), -(-m // FP8_ROWS)
+
+
+def stream_smem_bytes(n: int, ng: int, fmt: str = "int3") -> int:
+    """Dynamic shared memory of a streamed CTA. int4 / int3: the activations,
+    their scales, one partial sum a piece. fp8: the activations as f16, their
+    scales, one term a row a slice."""
+    if fmt == "fp8":
+        slices, _ = stream_fp8_plan(1, n)
+        return 2 * n + 4 * ng + 4 * FP8_ROWS * slices
     return n + 4 * ng + 4 * STREAM_PIECES
 
 

@@ -193,43 +193,56 @@ def test_int3_rows_only_two_byte_aligned(dev):
                                       group_size=16))
 
 
+# the GQMV formats that run the streamed design, and how far off a 16-byte
+# boundary their first design's loads still take the storage (fp8's first
+# design needs 16 bytes itself)
+STREAMED = ("int3", "int4", "fp8")
+FIRST_DESIGN_SHIFT = {"int3": 2, "int4": 8}
+
+
 @pytest.mark.parametrize("gs", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("m,n", [(37, 2048), (13, 5632), (40, 4096), (3, 32768)])
-def test_gqmv_int3_streamed_design_matches_plain(dev, gs, m, n):
-    """The streamed int3 GQMV at every GS: m not a multiple of a CTA's rows
-    (16 at n 2048, 5 at n 5632 (3 pieces a row), 8 at n 4096, 1 at the
-    widest row it takes, 16 pieces); one launch a call."""
-    assert kern.gqmv_design(n, "int3") == "stream"
-    args = _rand_fmt(dev, "int3", m, n, gs, None, seed=m + gs)
-    before = kern.LAUNCHES["gqmv_int3"]
-    got = kern.gqmv_cuda(*args, group_size=gs, fmt="int3")
-    assert kern.LAUNCHES["gqmv_int3"] == before + 1
-    _close(got, ref.gqmv_int3_ref(*args, group_size=gs))
+@pytest.mark.parametrize("fmt", STREAMED)
+def test_gqmv_int3_streamed_design_matches_plain(dev, fmt, gs, m, n):
+    """The streamed int3, int4 and fp8 GQMV at every GS: m not a multiple of
+    a CTA's rows (16 at n 2048, 5 at n 5632 (3 pieces a row), 8 at n 4096, 1
+    at the widest row it takes, 16 pieces; fp8 there stages 128 KB of f32
+    activations, past the 48 KB opt-in); one launch a call."""
+    assert kern.gqmv_design(n, fmt) == "stream"
+    args = _rand_fmt(dev, fmt, m, n, gs, None, seed=m + gs)
+    before = kern.LAUNCHES[f"gqmv_{fmt}"]
+    got = kern.gqmv_cuda(*args, group_size=gs, fmt=fmt)
+    assert kern.LAUNCHES[f"gqmv_{fmt}"] == before + 1
+    _close_fmt(fmt, got, PLAIN[fmt][0](*args, group_size=gs))
 
 
-def test_gqmv_int3_rows_the_streamed_design_cannot_take(dev):
-    """Rows the streamed int3 GQMV cannot take run the first design, chosen
-    by pointer and shape: a stacked leaf's layer slices of 18-byte rows,
-    storage 2 bytes off a 16-byte boundary, n 1056 at GS 32 (no multiple of
-    128) and n wider than 16 pieces."""
-    w = quant.quantize(torch.randn((3, 9, 48), device=dev), 16, "int3")
-    x = quant.quantize_activation(torch.randn((48,), device=dev), 16)
-    for i in range(3):
-        wi = w[i]
-        _close(kern.gqmv_cuda(wi.qvalues, wi.scales, x.qvalues, x.scales, group_size=16,
-                              fmt="int3"),
-               ref.gqmv_int3_ref(wi.qvalues, wi.scales, x.qvalues, x.scales, group_size=16))
-    wq, ws, xq, xs = _rand_fmt(dev, "int3", 21, 2048, 64, None, seed=2)
-    off = torch.empty(wq.numel() + 2, dtype=wq.dtype, device=dev)[2:].view(wq.shape)
-    off.copy_(wq)
-    assert kern.gqmv_design(2048, "int3", aligned=off.data_ptr() % 16 == 0) == "first"
-    _close(kern.gqmv_cuda(off, ws, xq, xs, group_size=64, fmt="int3"),
-           ref.gqmv_int3_ref(wq, ws, xq, xs, group_size=64))
+@pytest.mark.parametrize("fmt", STREAMED)
+def test_gqmv_int3_rows_the_streamed_design_cannot_take(dev, fmt):
+    """Rows the streamed GQMV cannot take run the first design, chosen by
+    pointer and shape: a stacked leaf's layer slices (int3's 18-byte rows,
+    int4's 24-byte ones), storage off a 16-byte boundary (int3 2 bytes, int4
+    8), n 1056 at GS 32 (no multiple of 128) and n wider than 16 pieces."""
+    plain = PLAIN[fmt][0]
+    if fmt in FIRST_DESIGN_SHIFT:
+        w = quant.quantize(torch.randn((3, 9, 48), device=dev), 16, fmt)
+        x = quant.quantize_activation(torch.randn((48,), device=dev), 16)
+        for i in range(3):
+            wi = w[i]
+            assert kern.gqmv_design(48, fmt, wi.qvalues.data_ptr() % 16 == 0) == "first"
+            _close(kern.gqmv_cuda(wi.qvalues, wi.scales, x.qvalues, x.scales, group_size=16,
+                                  fmt=fmt),
+                   plain(wi.qvalues, wi.scales, x.qvalues, x.scales, group_size=16))
+        shift = FIRST_DESIGN_SHIFT[fmt]
+        wq, ws, xq, xs = _rand_fmt(dev, fmt, 21, 2048, 64, None, seed=2)
+        off = torch.empty(wq.numel() + shift, dtype=wq.dtype, device=dev)[shift:].view(wq.shape)
+        off.copy_(wq)
+        assert kern.gqmv_design(2048, fmt, aligned=off.data_ptr() % 16 == 0) == "first"
+        _close(kern.gqmv_cuda(off, ws, xq, xs, group_size=64, fmt=fmt),
+               plain(wq, ws, xq, xs, group_size=64))
     for m, n, gs in ((30, 1056, 32), (2, 32896, 128)):
-        assert kern.gqmv_design(n, "int3") == "first"
-        args = _rand_fmt(dev, "int3", m, n, gs, None, seed=n)
-        _close(kern.gqmv_cuda(*args, group_size=gs, fmt="int3"),
-               ref.gqmv_int3_ref(*args, group_size=gs))
+        assert kern.gqmv_design(n, fmt) == "first"
+        args = _rand_fmt(dev, fmt, m, n, gs, None, seed=n)
+        _close_fmt(fmt, kern.gqmv_cuda(*args, group_size=gs, fmt=fmt), plain(*args, group_size=gs))
 
 
 def test_int4_rows_the_ring_cannot_stream(dev):

@@ -2,8 +2,9 @@
 its partition and order of f32 sums emulated in numpy on the CPU and held
 against the reference package's oracle ``gqmv_int3_ref``; its 48-byte
 unpacking against the port's ``unpack_int3``; its constants and the choice
-between it and the first design against the CUDA source (the kernel itself
-runs in tests/test_torch_cuda.py on the card).
+between the streamed designs (int4, int3, fp8) and the first design against
+the CUDA source (the kernels themselves run in tests/test_torch_cuda.py on
+the card; int4's and fp8's emulation is tests/test_torch_gqmv_stream_formats.py).
 
 The partition: a lane takes a chunk of 128 logical weights (48 bytes); a
 half-warp of 16 lanes a piece of 16 chunks of one row; a CTA 16 pieces,
@@ -153,23 +154,25 @@ def test_a_48_byte_chunk_unpacks_like_unpack_int3():
 
 
 def test_design_choice_by_shape_and_alignment():
-    """The streamed design takes 16-byte aligned int3 rows with n a multiple
-    of 128 up to STREAM_MAX_N; a misaligned layer slice of a stacked leaf,
-    n 1056 at GS 32 and wider rows run the first design, as do the other
-    formats' GQMV."""
+    """The streamed design takes 16-byte aligned int3, int4 and fp8 rows with
+    n a multiple of 128 up to STREAM_MAX_N; a misaligned layer slice of a
+    stacked leaf, n 1056 at GS 32 and wider rows run the first design, as
+    does every int8 GQMV."""
+    for fmt in ("int3", "int4", "fp8"):
+        for _, _, n in PROJECTIONS:
+            assert gqmv.gqmv_design(n, fmt) == "stream"
+        assert gqmv.gqmv_design(1056, fmt) == "first"
+        assert gqmv.gqmv_design(gqmv.STREAM_MAX_N + 128, fmt) == "first"
+        assert gqmv.gqmv_design(2048, fmt, aligned=False) == "first"
+    for fmt, pack in (("int3", 8 / 3), ("int4", 2)):
+        leaf = quant.quantize(torch.randn(3, 9, 48), 16, fmt)
+        for i in range(3):
+            wq = leaf[i].qvalues
+            aligned = wq.data_ptr() % 16 == 0
+            assert gqmv.gqmv_design(round(wq.shape[1] * pack), fmt, aligned) == "first"
+        assert not all(leaf[i].qvalues.data_ptr() % 16 == 0 for i in range(3))
     for _, _, n in PROJECTIONS:
-        assert gqmv.gqmv_design(n, "int3") == "stream"
-    assert gqmv.gqmv_design(1056, "int3") == "first"
-    assert gqmv.gqmv_design(gqmv.STREAM_MAX_N + 128, "int3") == "first"
-    leaf = quant.quantize(torch.randn(3, 9, 48), 16, "int3")
-    for i in range(3):
-        wq = leaf[i].qvalues
-        aligned = wq.data_ptr() % 16 == 0
-        assert gqmv.gqmv_design(wq.shape[1] // 3 * 8, "int3", aligned) == "first"
-    assert not all(leaf[i].qvalues.data_ptr() % 16 == 0 for i in range(3))
-    assert gqmv.gqmv_design(2048, "int3", aligned=False) == "first"
-    for fmt in ("int8", "int4", "fp8"):
-        assert gqmv.gqmv_design(2048, fmt) == "first"
+        assert gqmv.gqmv_design(n, "int8") == "first"
 
 
 def _cuda_int(name: str) -> int:
@@ -184,11 +187,23 @@ def test_stream_constants_mirror_the_cuda_source():
     assert gqmv.STREAM_PIECES == gqmv.STREAM_THREADS // gqmv.STREAM_LANES
     assert "kStreamMaxN = kStreamPieces * kStreamLanes * kStreamChunk;" in SRC
     assert "static constexpr int kVecs = 3;" in SRC and CHUNK_BYTES == 3 * 16
-    # the choice by pointer and shape, and the CTA's shared memory
+    # each loader's 16-byte loads a lane; fp8's blocks and warp slices
+    for loader, fmt in (("StreamInt3", "int3"), ("StreamInt4", "int4"), ("StreamFp8", "fp8")):
+        body = SRC[SRC.index(f"struct {loader} {{"):]
+        body = body[:body.index("\n};")]
+        assert f"static constexpr int kVecs = {gqmv.STREAM_CHUNK_BYTES[fmt] // 16};" in body
+    assert _cuda_int("kFp8Rows") == gqmv.FP8_ROWS
+    assert _cuda_int("kFp8Slice") == gqmv.FP8_SLICE
+    # the choice by pointer and shape, and the CTAs' shared memory
     assert ("(reinterpret_cast<uintptr_t>(wq) & 15) == 0 && n % kStreamChunk == 0 &&\n"
-            "           n <= kStreamMaxN;") in SRC
+            "         n <= kStreamMaxN;") in SRC
     assert "return (size_t)n + 4 * (size_t)ng + 4 * kStreamPieces;" in SRC
-    assert "run_gqmv_stream<StreamInt3, Int3Weights>" in SRC
-    # only int3 runs it; the other GQMV entry points keep the first design
-    for fmt, loader in (("int8", "Int8Weights"), ("int4", "Int4Weights"), ("fp8", "Fp8Weights")):
-        assert f"GQMV_ENTRY_POINT({fmt}, {loader})" in SRC
+    assert ("return 2 * (size_t)n + 4 * (size_t)ng + 4 * (size_t)kFp8Rows * "
+            "((n + kFp8Slice - 1) / kFp8Slice);") in SRC
+    assert gqmv.stream_smem_bytes(5632, 22, "fp8") == 2 * 5632 + 4 * 22 + 4 * 16 * 22
+    # int4, int3 and fp8 GQMV run it; int8's keeps the first design
+    for fmt, loader, first in (("int4", "StreamInt4", "Int4Weights"),
+                               ("int3", "StreamInt3", "Int3Weights"),
+                               ("fp8", "StreamFp8", "Fp8Weights")):
+        assert f"GQMV_ENTRY_POINT({fmt}, (run_gqmv_stream<{loader}, {first}>))" in SRC
+    assert "GQMV_ENTRY_POINT(int8, run_gqmv<Int8Weights>)" in SRC

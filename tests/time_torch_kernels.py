@@ -1,39 +1,53 @@
 #!/usr/bin/env python3
-"""Device times of the f32 flash-attention kernel and the int3 GQMV kernel
-of whichever ``repro_torch`` is first on the path, on one CUDA card, so that
-two trees of the port can be timed in turns in one run:
+"""Device times of the GQMV kernels (and, on request, the f32 flash-attention
+kernel) of whichever ``repro_torch`` is first on the path, on one CUDA card,
+so that two trees of the port can be timed in turns in one run:
 
-    PYTHONPATH=<tree>/src python tests/time_torch_kernels.py --tag NAME [--out FILE]
+    PYTHONPATH=<tree>/src python tests/time_torch_kernels.py --tag NAME \\
+        [--kernels gqmv flash] [--sass] [--out FILE]
 
-Shapes: the f32 cases of chip_smoke.py's FLASH_TIMED (TinyLlama's 32/4
-heads at hd 64 over 4 x 64 and 1 x 2048 tokens, gemma2-2b's 8/4 at hd 256
-and zamba2-7b's 32/32 at hd 112 over 1 x 2048, causal) and TinyLlama's five
-projections as int3 GQMV at GS 256. Each time is the mean of back-to-back
-calls between CUDA events, queued behind a GPU spin that keeps the host's
-launch cost out (as chip_smoke.device_time_ms); GQMV calls cycle through
-weight copies larger than the L2. Inputs come from a seeded generator.
-Prints one line per shape and, with --out, writes them as JSON.
+Shapes: TinyLlama's five projections as GQMV of int8, int4, int3 and fp8
+weights at GS 256 (``gqmv``), and the f32 cases of chip_smoke.py's
+FLASH_TIMED (``flash``: TinyLlama's 32/4 heads at hd 64 over 4 x 64 and
+1 x 2048 tokens, gemma2-2b's 8/4 at hd 256 and zamba2-7b's 32/32 at hd 112
+over 1 x 2048, causal). Each time is the mean of back-to-back calls between
+CUDA events, queued behind a GPU spin that keeps the host's launch cost out
+(as chip_smoke.device_time_ms); GQMV calls cycle through weight copies
+larger than the L2. Inputs come from a seeded generator, the same in every
+tree, and each GQMV row carries a checksum of its first output's bytes, so
+that two trees' results can be compared bit for bit. ``--sass`` also counts
+the SASS instructions of each streamed GQMV kernel at GS 256 in the built
+library (``cuobjdump -sass``), by opcode. Prints one line per shape and,
+with --out, writes them as JSON.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
+import hashlib
 import json
 import math
+import re
 import subprocess
 import time
+from pathlib import Path
 
 import torch
 
 from repro_torch.core.quant import quantize, quantize_activation
-from repro_torch.kernels import flash_attn, gqmv
+from repro_torch.kernels import cuda_build, flash_attn, gqmv
 
 FLASH = (("4x64", 4, 32, 4, 64, 64), ("1x2048", 1, 32, 4, 2048, 64),
          ("gemma2_1x2048", 1, 8, 4, 2048, 256), ("zamba2_1x2048", 1, 32, 32, 2048, 112))
 PROJECTIONS = (("wqkv", 2560, 2048), ("wo", 2048, 2048), ("w13", 11264, 2048),
                ("w2", 2048, 5632), ("classifier", 32000, 2048))
+GQMV_FORMATS = ("int8", "int4", "int3", "fp8")
 GS = 256
 SPIN_CYCLES_PER_MS = 2.0e6
+# the SASS opcodes shown per streamed kernel (the rest are counted in the total)
+SASS_SHOWN = ("FFMA", "FMUL", "FADD", "IDP", "PRMT", "LOP3", "SHF", "IMAD", "F2FP", "HADD2",
+              "I2F", "LDG", "LDS", "STS", "SHFL")
 
 
 def device_time_ms(fn, iters: int, host_ms_guess: float = 0.1) -> float:
@@ -57,40 +71,94 @@ def device_time_ms(fn, iters: int, host_ms_guess: float = 0.1) -> float:
     raise RuntimeError("the host's enqueue outlasted every GPU spin; no device time read")
 
 
+def time_flash(tag: str, gen) -> list[dict]:
+    rows = []
+    for name, b, h, kv, s, hd in FLASH:
+        q = torch.randn((b * h, s, hd), generator=gen, device="cuda")
+        k = torch.randn((b * kv, s, hd), generator=gen, device="cuda")
+        v = torch.randn((b * kv, s, hd), generator=gen, device="cuda")
+        kw = dict(group=h // kv, scale=hd ** -0.5, causal=True)
+        us = 1e3 * device_time_ms(lambda i: flash_attn.flash_attention_cuda(q, k, v, **kw), 20)
+        rows.append({"tag": tag, "kernel": "flash_attn_f32", "shape": name, "us": us})
+    return rows
+
+
+def time_gqmv(tag: str, gen) -> list[dict]:
+    rows = []
+    for fmt in GQMV_FORMATS:
+        for name, m, n in PROJECTIONS:
+            w = quantize(torch.randn((m, n), generator=gen, device="cuda"), GS, fmt)
+            x = quantize_activation(torch.randn((n,), generator=gen, device="cuda"), GS)
+            out = gqmv.gqmv_cuda(w.qvalues, w.scales, x.qvalues, x.scales, group_size=GS, fmt=fmt)
+            digest = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16]
+            copies = max(1, math.ceil(160e6 / (w.qvalues.numel() + 4 * w.scales.numel())))
+            pool = [(w.qvalues.clone(), w.scales.clone()) for _ in range(copies)]
+            us = 1e3 * device_time_ms(lambda i: gqmv.gqmv_cuda(
+                *pool[i % copies], x.qvalues, x.scales, group_size=GS, fmt=fmt),
+                max(50, 2 * copies))
+            rows.append({"tag": tag, "kernel": f"gqmv_{fmt}", "shape": name, "us": us,
+                         "design": gqmv.gqmv_design(n, fmt), "checksum": digest})
+            del pool
+    return rows
+
+
+def sass_counts() -> dict[str, dict[str, int]]:
+    """SASS opcode counts of each streamed GQMV kernel at GS 256 in the
+    built gqmm library (instructions in the code, not executed), keyed by
+    its loader (StreamInt4, StreamInt3, StreamFp8)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    lib = cuda_build.build_all(["gqmm"])["gqmm"].path
+    text = subprocess.run([str(Path(CUDA_HOME) / "bin" / "cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    counts: dict[str, dict[str, int]] = {}
+    current = None
+    for line in text.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            m = re.search(r"gqmv_stream_(fp8_)?kernelI(?:NS_\d+(\w+?)E)?Li8E", head.group(1))
+            current = collections.Counter() if m else None
+            if m:
+                counts["StreamFp8" if m.group(1) else m.group(2)] = current
+            continue
+        ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", line)
+        if current is not None and ins:
+            current[ins.group(1)] += 1
+    return {k: dict(v) for k, v in counts.items()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tag", required=True, help="name of the tree, printed on every line")
+    ap.add_argument("--kernels", nargs="+", choices=("gqmv", "flash"), default=["gqmv"],
+                    help="which kernels to time (default: gqmv)")
+    ap.add_argument("--sass", action="store_true",
+                    help="also count the streamed GQMV kernels' SASS instructions")
     ap.add_argument("--out", default=None, help="also write the rows as JSON here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("time_torch_kernels: needs a CUDA card")
-    dev = torch.device("cuda", 0)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
-    gen = torch.Generator(device=dev).manual_seed(0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for name, b, h, kv, s, hd in FLASH:
-        q = torch.randn((b * h, s, hd), generator=gen, device=dev)
-        k = torch.randn((b * kv, s, hd), generator=gen, device=dev)
-        v = torch.randn((b * kv, s, hd), generator=gen, device=dev)
-        kw = dict(group=h // kv, scale=hd ** -0.5, causal=True)
-        us = 1e3 * device_time_ms(lambda i: flash_attn.flash_attention_cuda(q, k, v, **kw), 20)
-        rows.append({"tag": args.tag, "kernel": "flash_attn_f32", "shape": name, "us": us})
-    for name, m, n in PROJECTIONS:
-        w = quantize(torch.randn((m, n), generator=gen, device=dev), GS, "int3")
-        x = quantize_activation(torch.randn((n,), generator=gen, device=dev), GS)
-        copies = max(1, math.ceil(160e6 / (w.qvalues.numel() + 4 * w.scales.numel())))
-        pool = [(w.qvalues.clone(), w.scales.clone()) for _ in range(copies)]
-        us = 1e3 * device_time_ms(lambda i: gqmv.gqmv_cuda(
-            *pool[i % copies], x.qvalues, x.scales, group_size=GS, fmt="int3"), max(50, 2 * copies))
-        rows.append({"tag": args.tag, "kernel": "gqmv_int3", "shape": name, "us": us})
-        del pool
+    if "flash" in args.kernels:
+        rows += time_flash(args.tag, gen)
+    if "gqmv" in args.kernels:
+        rows += time_gqmv(args.tag, gen)
     for r in rows:
-        print(f"[time] {r['tag']:8s} {r['kernel']:15s} {r['shape']:14s} {r['us']:10.2f} us  [{card}]",
-              flush=True)
+        print(f"[time] {r['tag']:8s} {r['kernel']:15s} {r['shape']:14s} {r['us']:10.2f} us  "
+              + (f"{r['design']:6s} {r['checksum']}  " if "checksum" in r else "")
+              + f"[{card}]", flush=True)
+    result = {"card": card, "rows": rows}
+    if args.sass:
+        result["sass"] = sass_counts()
+        for loader, c in result["sass"].items():
+            shown = "  ".join(f"{op} {c.get(op, 0)}" for op in SASS_SHOWN)
+            print(f"[sass] {args.tag:8s} {loader:10s} total {sum(c.values())}  {shown}", flush=True)
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"card": card, "rows": rows}, f, indent=1)
+            json.dump(result, f, indent=1)
     return 0
 
 
