@@ -20,18 +20,20 @@ printing no result, when CUDA is missing. Phases, each fatal on failure:
              a GPU spin that keeps the host's launch cost out; beside the int8
              GQMM at b=256, torch._int_mm on the same int8 operands (the
              tensor-core product without group scales, a yardstick the port
-             never calls; int_mm_us). Then GQMM of every format at b = 8 and
-             16 with each of its two designs (the times that set the
-             cut-over); the int4 and fp8 GQMM designs at every projection,
-             every group size 16-256 and b in {4, 8, 16, 256}, checked only;
-             the streamed GQMV of int4, int3 and fp8 (each GQMV row records
-             its design; these three must run the streamed one) at every
-             projection and every group size, checked only; and each kernel
-             at every group size 16-256 on a small shape at b up to 40, the
-             int3 and int4 kernels on a stacked leaf's layer slices (rows 2-
-             and 8-byte aligned), and the first GQMV design of the streamed
-             formats at n 1056 and on storage off a 16-byte boundary,
-             checked only.
+             never calls; int_mm_us); beside the int8 GQMV, the first GQMV
+             design on the same inputs (the library's streamed width set to 0
+             for the call: first_us, the time before the streamed design).
+             Then GQMM of every format at b = 8 and 16 with each of its two
+             designs (the times that set the cut-over); the int4 and fp8 GQMM
+             designs at every projection, every group size 16-256 and b in
+             {4, 8, 16, 256}, checked only; the streamed GQMV of every format
+             (each GQMV row records its design; all must run the streamed
+             one) at every projection and every group size, checked only;
+             and each kernel at every group size 16-256 on a small shape at
+             b up to 40, the int3 and int4 kernels on a stacked leaf's layer
+             slices (rows 2- and 8-byte aligned), and the first GQMV design
+             of every format at n 1056 and, for int3 and int4, on storage off
+             a 16-byte boundary, checked only.
              Then paged decode attention (bf16, f32, int8 and fp8 pools;
              b in {1, 8, 32}, BS in {8, 16}, MB*BS in {256, 2048}, KV 4, G 8,
              hd 64, softcap None or 50; random non-identity block tables with
@@ -54,10 +56,13 @@ printing no result, when CUDA is missing. Phases, each fatal on failure:
              bf16 runs the tensor-core kernel, f32 the CUDA-core one, with
              the paged kernel's tolerance rule. Then the fused RMSNorm +
              quantize (B2) at (4, 2048), (256, 2048) and (256, 5632), GS 256
-             (timed), and at every GS 16-256 on (13, 1024), bf16 and f32
-             input, zero groups included: scales within rtol 1e-5, int8
-             values equal except by 1 where the plain x/S lies within
-             max(1e-5, 1e-6 * |x/S|) of a .5 boundary (RMSQ_TIE).
+             (timed, beside an empty kernel launched the same way, the
+             card's floor for a launch, and beside the first design on the
+             same rows one element off 16 bytes, checked too), and at every
+             GS 16-256 on (13, 1024), bf16 and f32 input, zero groups
+             included: scales within rtol 1e-5, int8 values equal except by
+             1 where the plain x/S lies within max(1e-5, 1e-6 * |x/S|) of a
+             .5 boundary (RMSQ_TIE).
 3. serve:    full-width TinyLlama-1.1B (22 layers, d 2048, bf16, weights
              from the port's own init_lm) through InferenceEngine.generate:
              batch 4, prompt 64, 32 greedy tokens, once with int8 weights and
@@ -70,8 +75,10 @@ printing no result, when CUDA is missing. Phases, each fatal on failure:
              projection output to 2^-8 and 22 layers compound the kernel's
              other f32 summation order); the greedy-token agreement is shown.
              The 89 projections are timed as one pass at b = 4 and at the
-             prefill's b = 256. Then the matvec path: ops.quantized_matmul on
-             1-D activations (the GQMV kernels) over the same 89 projections.
+             prefill's b = 256, and at b = 1 (GQMV; with int8 weights also on
+             the first GQMV design). Then the matvec path:
+             ops.quantized_matmul on 1-D activations (the GQMV kernels) over
+             the same 89 projections.
 4. golden:   TinyLlama at full width (depth cut to the golden file's), f32,
              weights drawn by bridge.init_params_numpy: the greedy tokens
              must equal the reference package's (written by
@@ -132,6 +139,7 @@ power limit; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import hashlib
 import itertools
@@ -217,7 +225,7 @@ GS_SWEEP = {"m": 200, "n": 1024, "batches": (1, 4, 13, 40),
             "group_sizes": (16, 32, 64, 128, 256)}
 # the GQMV formats that run the streamed design, checked against their plain
 # versions at every projection and every group size
-GQMV_SWEEP = {"formats": ("int4", "int3", "fp8"), "group_sizes": (16, 32, 64, 128, 256)}
+GQMV_SWEEP = {"formats": ("int4", "int3", "fp8", "int8"), "group_sizes": (16, 32, 64, 128, 256)}
 # how far off a 16-byte boundary the first GQMV design still takes a format's
 # storage (fp8's first design needs 16 bytes itself): phase 2 checks the
 # first design there, at n 1056 (GS 32) and on a stacked leaf's layer slices
@@ -532,6 +540,11 @@ def phase_kernels(dev) -> list[dict]:
                 row["design"] = kern.gqmv_design(n, fmt, wq.data_ptr() % 16 == 0)
                 if fmt in kern.STREAM_CHUNK_BYTES and row["design"] != "stream":
                     raise AssertionError(f"{kname} {name}: expected the streamed design")
+                if fmt == "int8":
+                    with first_gqmv_design():
+                        row["first_us"] = 1e3 * device_time_ms(
+                            lambda i: kfn(*pool[i % copies], xq, xs, group_size=gs),
+                            max(50, 2 * copies))[0]
             if (kname, b) == ("gqmm_int8", INT_MM_B):
                 row["int_mm_us"] = 1e3 * device_time_ms(
                     lambda i: torch._int_mm(xq, pool[i % copies][0].t()), max(50, 2 * copies))[0]
@@ -540,10 +553,22 @@ def phase_kernels(dev) -> list[dict]:
                 f"max|err| {err:.2e}  {1e3 * k_ms:8.1f} us (host {1e3 * k_host:5.1f})  "
                 f"plain {1e3 * p_ms:8.1f} us  bound {1e6 * bnd:6.1f} us ({by})"
                 + (f"  design {row['design']}" if "design" in row else "")
+                + (f"  first design {row['first_us']:.1f} us" if "first_us" in row else "")
                 + (f"  int_mm {row['int_mm_us']:.1f} us" if "int_mm_us" in row else "")
                 + f"  [{CARD['smi']}]")
         del pool
     return rows
+
+
+@contextlib.contextmanager
+def first_gqmv_design():
+    """Every GQMV row on the first design inside the block (the library's
+    streamed width set to 0): the design before the streamed one, timed."""
+    prev = kern.set_stream_max_n(0)
+    try:
+        yield
+    finally:
+        kern.set_stream_max_n(prev)
 
 
 def phase_cutover(dev) -> list[dict]:
@@ -614,8 +639,9 @@ def phase_tc_sweep(dev) -> list[dict]:
 
 def phase_gqmv_sweep(dev) -> list[dict]:
     """The streamed GQMV of every format of GQMV_SWEEP against its plain
-    version at every TinyLlama projection and every group size. Checked
-    only."""
+    version at every TinyLlama projection and every group size (gqmv_design
+    must name the streamed design at every one of them; each row logs it).
+    Checked only."""
     gen = torch.Generator(device=dev).manual_seed(13)
     rows = []
     for fmt, (name, m, n), gs in itertools.product(GQMV_SWEEP["formats"], PROJECTIONS,
@@ -635,8 +661,9 @@ def phase_gqmv_sweep(dev) -> list[dict]:
     torch.cuda.synchronize()
     for fmt in GQMV_SWEEP["formats"]:
         mine = [r for r in rows if r["kernel"] == f"gqmv_{fmt}"]
-        log(f"[kernels] gqmv_{fmt}: {len(mine)} cases pass on the streamed design (every "
-            f"projection, GS {GQMV_SWEEP['group_sizes']}), max|err| "
+        designs = sorted({(r["shape"], r["design"]) for r in mine})
+        log(f"[kernels] gqmv_{fmt}: {len(mine)} cases pass (every projection, GS "
+            f"{GQMV_SWEEP['group_sizes']}; designs {designs}), max|err| "
             f"{max(r['max_abs_err'] for r in mine):.2e}")
     return rows
 
@@ -697,8 +724,8 @@ def phase_group_sizes(dev) -> list[dict]:
     torch.cuda.synchronize()
     log(f"[kernels] {len(rows)} group-size cases pass (GS {GS_SWEEP['group_sizes']}, "
         f"{m} x {n}, b in {GS_SWEEP['batches']} and GQMV; int3 and int4 on a stacked leaf's "
-        "slices; the first GQMV design of int4, int3 and fp8 at n 1056 and, for int3 and "
-        "int4, on storage off 16 bytes)")
+        "slices; the first GQMV design of int4, int3, fp8 and int8 at n 1056 and, for int3 "
+        "and int4, on storage off 16 bytes)")
     return rows
 
 
@@ -832,10 +859,20 @@ def _rmsq_check(name, x, w, gs, got) -> dict:
             "tie_flips": flips, "farthest_tie": far, "elements": q.numel()}
 
 
+def _off16(t: torch.Tensor) -> torch.Tensor:
+    """A copy of t whose data starts one element past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return buf[1:].view(t.shape).copy_(t)
+
+
 def phase_rmsnorm_kernels(dev) -> list[dict]:
     """The fused RMSNorm + quantize kernel (B2) against its plain version at
     TinyLlama's rows (GS 256; timed) and at every group size on a small
-    shape, bf16 and f32 input, each with a row holding a group of zeros."""
+    shape, bf16 and f32 input, each with a row holding a group of zeros, on
+    the design rkern.design names (the row design). The timed rows also run
+    the first design, on x one element off 16 bytes (checked and timed: the
+    time before the row design), and an empty kernel launched with the row
+    design's grid (the card's floor for such a launch)."""
     gen = torch.Generator(device=dev).manual_seed(7)
     gs0 = load_config(ARCH).group_size
     cases = ([(m, n, gs0, True) for m, n in RMSQ_TIMED]
@@ -850,7 +887,7 @@ def phase_rmsnorm_kernels(dev) -> list[dict]:
         if got[0][0, :gs].any() or got[1][0, 0] != 0:
             raise AssertionError("rmsnorm_quant: a group of zeros did not stay zero")
         row = {"kernel": "rmsnorm_quant", "m": m, "n": n, "gs": gs,
-               "dtype": str(dt).split(".")[-1],
+               "dtype": str(dt).split(".")[-1], "design": rkern.design(n, gs),
                **_rmsq_check(f"({m}, {n}) GS {gs} {dt}", x, w, gs, got)}
         if timed:
             k_ms, k_host = device_time_ms(lambda i: rkern.rmsnorm_quant_cuda(x, w, group_size=gs),
@@ -859,16 +896,30 @@ def phase_rmsnorm_kernels(dev) -> list[dict]:
             nbytes = x.numel() * x.element_size() + w.numel() * w.element_size() + m * n + \
                 4 * m * n // gs
             bnd, by = bound_s(nbytes, 8 * m * n, F32_OPS_PER_S)
+            ctas = rkern.plan(m, n)[2]
+            e_ms, _ = device_time_ms(lambda i: rkern.empty_cuda(ctas, dev), 100)
+            xo = _off16(x)
+            if rkern.design(n, gs, xo.data_ptr() % 16 == 0) != "first":
+                raise AssertionError("rmsnorm_quant: rows off 16 bytes must run the first design")
+            first = _rmsq_check(f"({m}, {n}) GS {gs} {dt} first design", x, w, gs,
+                                rkern.rmsnorm_quant_cuda(xo, w, group_size=gs))
+            f_ms, _ = device_time_ms(lambda i: rkern.rmsnorm_quant_cuda(xo, w, group_size=gs),
+                                     100)
             row.update({"us": 1e3 * k_ms, "host_us": 1e3 * k_host, "plain_us": 1e3 * p_ms,
-                        "bound_us": 1e6 * bnd, "bound_by": by})
+                        "bound_us": 1e6 * bnd, "bound_by": by, "empty_us": 1e3 * e_ms,
+                        "empty_ctas": ctas, "first_us": 1e3 * f_ms,
+                        "first_tie_flips": first["tie_flips"]})
             log(f"[rmsnorm_quant] {row['dtype']:8s} ({m:3d}, {n:4d}) GS {gs}  scales rel err "
                 f"{row['max_scale_rel_err']:.1e}, {row['tie_flips']} tie flips of {m * n} "
                 f"(farthest {row['farthest_tie']:.1e})  "
                 f"{row['us']:7.2f} us (host {row['host_us']:5.1f})  plain {row['plain_us']:7.1f} "
-                f"us  bound {row['bound_us']:5.3f} us ({by})")
+                f"us  bound {row['bound_us']:5.3f} us ({by})  empty kernel ({ctas} CTAs) "
+                f"{row['empty_us']:5.2f} us  first design {row['first_us']:6.2f} us "
+                f"({row['first_tie_flips']} tie flips) [{CARD['smi']}]")
         rows.append(row)
     log(f"[rmsnorm_quant] {len(rows)} cases pass (GS {RMSQ_SWEEP['group_sizes']} at "
-        f"({RMSQ_SWEEP['m']}, {RMSQ_SWEEP['n']}); bf16 and f32 input; zero groups)")
+        f"({RMSQ_SWEEP['m']}, {RMSQ_SWEEP['n']}); bf16 and f32 input; zero groups; designs "
+        f"{sorted({r['design'] for r in rows})})")
     return rows
 
 
@@ -1206,12 +1257,17 @@ def phase_serve(dev, rows, model, params, quantize) -> tuple[dict, InferenceEngi
     out["step_gqmm"] = step_timing(projs, SERVE["batch"], dev, rows)
     out["step_gqmm_prefill"] = step_timing(projs, b * p, dev, rows)
     out["step_gqmv"] = step_timing(projs, 1, dev, rows)
+    if tag == "int8":      # the int8 GQMV pass on its first design, the time before
+        with first_gqmv_design():
+            out["step_gqmv_first"] = step_timing(projs, 1, dev, rows)
     sm, sp, sv = out["step_gqmm"], out["step_gqmm_prefill"], out["step_gqmv"]
     log(f"[serve {tag}] one pass of 89 projections: GQMM b={b} {sm['ms']:.3f} ms (plain "
         f"{sm['plain_ms']:.2f} ms, bound {sm['bound_ms']:.3f} ms); GQMM b={b * p} "
         f"{sp['ms']:.3f} ms (plain {sp['plain_ms']:.2f} ms, bound {sp['bound_ms']:.3f} ms); "
         f"GQMV {sv['ms']:.3f} ms (plain {sv['plain_ms']:.2f} ms, bound {sv['bound_ms']:.3f} ms)"
-        f" [{CARD['smi']}]")
+        + (f"; GQMV on the first design {out['step_gqmv_first']['ms']:.3f} ms"
+           if "step_gqmv_first" in out else "")
+        + f" [{CARD['smi']}]")
 
     # the matvec path: 1-D activations reach GQMV through quantized_matmul
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -1894,9 +1950,15 @@ def kernel_entries(rows, gsrows, serves, prows, ragged, frows, rqrows, flagres,
                 k: serves[fmt]["step_gqmm_prefill"][k]
                 for k in ("ms", "plain_ms", "bound_ms", "bound_by")}} if kind == "gqmm" else {}),
             "shapes": [{k: r[k] for k in ("shape", "m", "n", "b", "us", "plain_us", "bound_us",
-                                          "max_abs_err", "design", "int_mm_us") if k in r}
+                                          "max_abs_err", "design", "int_mm_us", "first_us")
+                        if k in r}
                        for r in mine],
         })
+        if kname == "gqmv_int8":
+            entries[-1]["was_ms"] = serves[fmt]["step_gqmv_first"]["ms"]
+            entries[-1]["was_note"] = (
+                "was_ms: the same pass on the first GQMV design, timed in this run (the "
+                "design before the streamed one); first_us per shape likewise")
         if kname == "gqmm_int8":
             entries[-1]["int_mm_us"] = {r["shape"]: r["int_mm_us"] for r in mine
                                         if "int_mm_us" in r}
@@ -1968,7 +2030,10 @@ def kernel_entries(rows, gsrows, serves, prows, ragged, frows, rqrows, flagres,
         "replaces": REPLACES["rmsnorm_quant"],
         "launches": flagres["rmsnorm_quant"]["launches"],
         "max_abs_err": max(r["max_scale_abs_err"] for r in rqrows), **_timing(main),
-        "library_ms": None,
+        "library_ms": None, "was_ms": main["first_us"] / 1e3, "empty_ms": main["empty_us"] / 1e3,
+        "was_note": "was_ms: the first design (the design before the row design) on the same "
+                    "rows one element off 16 bytes, timed in this run; empty_ms: an empty "
+                    "kernel launched with the row design's grid, the card's floor for the launch",
         "per": f"one call on bf16 rows {RMSQ_MAIN}, GS 256; max_abs_err is the largest "
                "scale error over every phase-2 case (the int8 values are equal but for .5 "
                "ties, counted as tie_flips); no single PyTorch call does RMSNorm and group "
@@ -1976,7 +2041,8 @@ def kernel_entries(rows, gsrows, serves, prows, ragged, frows, rqrows, flagres,
         "path": "standalone op (no model path calls it, in the reference or the port): "
                 "ops.rmsnorm_quant at the model's 45 norm sites, phase 6 (d)",
         "shapes": [{k: r.get(k) for k in ("m", "n", "dtype", "us", "plain_us", "bound_us",
-                                          "tie_flips")} for r in rqrows if "us" in r],
+                                          "empty_us", "first_us", "tie_flips")}
+                   for r in rqrows if "us" in r],
     })
     return entries
 
@@ -2043,6 +2109,7 @@ def main(argv=None) -> int:
             f"bound {1e3 * e['bound_ms']:9.3f} us ({e['bound_by']}, {100 * e['bound_share']:.1f} "
             f"% of it)  plain {1e3 * e['plain_ms']:10.1f} us"
             + (f"  library {1e3 * e['library_ms']:8.2f} us" if e["library_ms"] else "")
+            + (f"  was {1e3 * e['was_ms']:10.3f} us" if "was_ms" in e else "")
             + f"  [{smi}]")
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)

@@ -11,9 +11,9 @@
 // The six Pallas kernels after B1/B3 share B1/B3's two compute bodies
 // (_gqmv_compute, _gqmm_compute) behind a stage that unpacks the weights,
 // and so do these: each design is a kernel template over a weight loader
-// per format (the first design for int8 GQMV and for rows the others cannot
-// take; the streamed GQMV design for int4 and int3, with a tensor-core
-// variant for fp8; GQMM's two tensor-core designs for every format).
+// per format (the first design for rows the others cannot take; the
+// streamed GQMV design for int4 and int3, with a tensor-core variant for
+// fp8 and int8; GQMM's two tensor-core designs for every format).
 //
 // What they compute (paper Alg. 1): for every output row i and batch row b,
 // the products of each quantization group (GS columns) are summed, the
@@ -37,24 +37,26 @@
 // m*n weight bytes plus a 4*b*m-byte f32 output: bytes and int8 tensor-core
 // operations bound them about equally (wo 2.1 us, classifier 29.8 us).
 //
-// GQMV of int8 weights, int4 / int3 / fp8 GQMV on rows the streamed designs
-// cannot take, and int4 / int3 GQMM on rows the large design's ring cannot
-// stream: the first, simple design (gqmm_kernel). The TPU kernel's
-// sequential n-block grid axis, which carries the sum in VMEM, does not
-// carry over: here one warp owns one
-// output row for a tile of BB <= 8 batch rows and walks the whole
-// contraction itself, so no sum crosses blocks and each block writes its
-// own output rows. Each lane takes 16 logical weights per step (16 bytes of
-// int8 or fp8, 8 of int4, 6 of int3: warp loads of 512, 256 or 192
-// contiguous bytes), unpacks them in registers and dots them with its 16
-// activation bytes (__dp4a). A group is GS/16 lanes, an aligned
+// GQMV of every format on rows the streamed designs cannot take, and
+// int4 / int3 GQMM on rows the large design's ring cannot stream: the
+// first, simple design (gqmm_kernel). The TPU kernel's sequential n-block
+// grid axis, which carries the sum in VMEM, does not carry over: here one
+// warp owns one output row for a tile of BB <= 8 batch rows and walks the
+// whole contraction itself, so no sum crosses blocks and each block writes
+// its own output rows. Each lane takes 16 logical weights per step (16
+// bytes of int8 or fp8, 8 of int4, 6 of int3: warp loads of 512, 256 or
+// 192 contiguous bytes), unpacks them in registers and dots them with its
+// 16 activation bytes (__dp4a). A group is GS/16 lanes, an aligned
 // power-of-two segment, whose partial sums are added with xor shuffles
 // before the segment's first lane scales the group sum and keeps a per-lane
-// f32 sum; a warp shuffle reduction adds the lanes at the end. At b = 1 it
-// keeps one 16-byte load (6 bytes for int3) in flight a lane behind a chain
-// of global activation and scale loads and a shuffle tree: a few KB in
-// flight an SM where HBM wants 17-20 KB (int3: 26.3 us for the classifier
-// against a 7.7 us bound).
+// f32 sum; a warp shuffle reduction adds the lanes at the end (at b = 1
+// and GS 256: the even groups left to right on lane 0, the odd ones on lane
+// 16, then the two). At b = 1 it keeps one 16-byte load (6 bytes for int3)
+// in flight a lane behind a chain of global activation and scale loads and
+// a shuffle tree: a few KB in flight an SM where HBM wants 17-20 KB; a
+// 2048-wide row is 4 such steps a warp, w2's 5632 11 (int8: 6.0 us for wo
+// against a 1.3 us bound on an H100 80GB HBM3 at 700 W; it reached 77 % of
+// its bound only at the classifier, by 8,000 CTAs of occupancy).
 //
 // GQMV of int4 (B5, gqmv_int4_pallas) and int3 (B6, gqmv_int3_pallas)
 // weights: the streamed design (gqmv_stream_kernel, a template over a
@@ -84,42 +86,64 @@
 // each CTA issues its loads once and then computes, so an SM's bytes in
 // flight come and go with its CTAs.
 //
-// GQMV of fp8 weights (B7, gqmv_fp8_pallas): the streamed design on the
-// f16 tensor cores (gqmv_stream_fp8_kernel, loader StreamFp8). Bound: the
-// weight bytes. A lane's f32 dot on the CUDA cores, with the activations
-// staged as f32, pays for each e4m3 byte a conversion and an FMA: in the
-// GS-256 kernel 64 F2FP (e4m3x2 to f16x2), 128 HADD2.F32 and 128 FFMA for
-// 128 weights with the hardware cvt, and 2-3 integer instructions a byte in
-// place of the F2FP and HADD2 with a decode that moves the byte's bits into
-// an f32 as its value x 2^-120 (cuobjdump -sass; tests/time_torch_kernels.py
-// --sass), and its compute outlasted its loads: 32.7 (cvt) and 33.0
-// (integer decode) us at the classifier against the first design's 31.1,
-// with the next rows prefetched (H100 80GB HBM3, 700 W). Here e4m3 pairs convert to f16x2 (one
-// cvt a pair) for mma.sync m16n8k16, whose B operand is the activations as
-// f16 (exact: |x| <= 127) in all 8 columns: a 16-byte vector of a row costs
-// 8 cvts and 4 mmas. A block is 16 rows (an mma's); warp w of a CTA takes
-// its 256-column slices w, w + 8, ...; lane (gid, t) loads 16 bytes of rows
-// gid and gid + 8 at columns 16t .. 16t + 15 of each of a slice's four
-// 64-column spans (eight 16-byte loads, 128 bytes; a warp load is 8 rows x
-// 64 contiguous bytes) with the slice's weight scales. mma j of a span
-// takes the lane's columns 4j .. 4j + 3 as k-slots 2t, 2t + 1, 2t + 8,
-// 2t + 9 of both operands, so a k16 step covers columns {64p + 16t + 4j +
-// b}: a span is whole groups at GS >= 64, and at GS 16 and 32 each group
-// of a span runs its own mmas with the other lanes' activations zeroed. The
-// grid holds as many CTAs as the card runs at once (two an SM: 124
-// registers); a CTA stages the activations (as f16) and their scales once
-// and takes blocks blockIdx.x, blockIdx.x + gridDim.x, ...; each slice (the
-// next block's first, at a block's last) is requested before the one
-// before is computed, so an SM keeps ~64 KB in flight while its tensor
-// cores work. The order of the f32 sums: a group's k16 steps accumulate in
-// order in the mma's f32 accumulator (within a step the tensor core's own
-// order; each product is exact); a slice's group terms s * (ws * xs) left
-// to right; a row's slices left to right, through shared memory.
-// int4 / int3 / fp8 GQMV run the streamed designs where the rows are
-// 16-byte aligned and n is a multiple of 128 (at most 32768: 16 pieces);
-// other rows (a stacked leaf's slice off 16 bytes, GS 32 at n 1056) run
-// the first design, chosen by pointer and shape (run_gqmv_stream, mirrored
-// by kernels/gqmv.gqmv_design).
+// GQMV of fp8 weights (B7, gqmv_fp8_pallas) and of int8 weights (B1,
+// gqmv_pallas): the streamed design in blocks of 16 rows
+// (gqmv_stream_block_kernel, loaders StreamFp8, StreamInt8). Bound: the
+// weight bytes. fp8 on the f16 tensor cores: a lane's f32 dot on the CUDA
+// cores, with the activations staged as f32, pays for each e4m3 byte a
+// conversion and an FMA: in the GS-256 kernel 64 F2FP (e4m3x2 to f16x2),
+// 128 HADD2.F32 and 128 FFMA for 128 weights with the hardware cvt, and 2-3
+// integer instructions a byte in place of the F2FP and HADD2 with a decode
+// that moves the byte's bits into an f32 as its value x 2^-120 (cuobjdump
+// -sass; tests/time_torch_kernels.py --sass), and its compute outlasted its
+// loads: 32.7 (cvt) and 33.0 (integer decode) us at the classifier against
+// the first design's 31.1, with the next rows prefetched (H100 80GB HBM3,
+// 700 W). Here e4m3 pairs convert to f16x2 (one cvt a pair) for mma.sync
+// m16n8k16, whose B operand is the activations as f16 (exact: |x| <= 127)
+// in all 8 columns: a 16-byte vector of a row costs 8 cvts and 4 mmas.
+// int8 needs no conversion: a lane's 16 bytes of a row are four __dp4a with
+// its 16 activation bytes (staged as int8 by cp.async), and a group's lanes
+// t are added by a 2-step xor butterfly, exact int32 (m16n8k32 s8 mmas in
+// the same partition, the accumulator holding the group sum, timed 1-3 %
+// slower at TinyLlama's projections, H100 80GB HBM3, 700 W). A block is 16
+// rows (an mma's); warp w of a CTA takes its 256-column slices w, w + 8,
+// ...; lane (gid, t) loads 16 bytes of rows gid and gid + 8 at columns
+// 16t .. 16t + 15 of each of a slice's four 64-column spans (eight 16-byte
+// loads, 128 bytes; a warp load is 8 rows x 64 contiguous bytes) with the
+// slice's weight scales. fp8: mma j of a span takes the lane's columns
+// 4j .. 4j + 3 as k-slots 2t, 2t + 1, 2t + 8, 2t + 9 of both operands, so a
+// k16 step covers columns {64p + 16t + 4j + b}. A span is whole groups at
+// GS >= 64, and at GS 16 and 32 each group of a span is summed with the
+// other groups' lanes masked (fp8: their activations zeroed; int8: their
+// dp4a sums). Long rows are split across warps, never walked by one: w2's
+// 5632 columns are 22 slices, 3 or 2 a warp of the CTA. The grid holds as
+// many CTAs as the card runs at once (the occupancy API; two an SM, fp8 124
+// registers, int8 about 100), cut so that every CTA but the last takes
+// ceil(blocks / that) blocks (w13's 704 blocks over 264 CTAs left a third
+// of them a block more); a CTA stages the activations (fp8 as f16, int8 as
+// int8) and their scales once and takes blocks blockIdx.x, blockIdx.x +
+// gridDim.x, ...; each slice (the next block's first, at a block's last) is
+// requested before the one before is computed, so an SM keeps its next
+// bytes in flight while it computes. The kernel is a programmatic dependent
+// launch (cudaLaunchKernelEx): its first weight loads are issued before
+// griddepcontrol.wait, while the kernel before it drains, and everything
+// else after it, so GQMV's weights must not be the output of the kernel
+// launched right before it (model weights, quantized once, never are).
+// What bounds it: without the dependent launch, about 4 us a call of fixed
+// cost (launch, the first loads' latency, the staging barrier) plus the
+// bytes at ~2.5-2.8 TB/s; the dependent launch hides most of the fixed
+// cost between consecutive calls. (Weights brought to shared memory by
+// bulk copies of 2 KB row pieces, three stages a CTA, timed slower: 28.8
+// against 26.6 us at the classifier.) The order of the f32 sums: a group's
+// sum is exact (int8: s32) or accumulates its k16 steps in order in the
+// mma's f32 accumulator (fp8: within a step the tensor core's own order,
+// each product exact); a slice's group terms s * (ws * xs) left to right;
+// a row's slices left to right, through shared memory.
+// Every format's GQMV runs its streamed design where the rows are 16-byte
+// aligned and n is a multiple of 128 (at most 32768: 16 pieces); other
+// rows (a stacked leaf's slice off 16 bytes, GS 32 at n 1056, wider rows)
+// run the first design, chosen by pointer and shape (run_gqmv_stream,
+// mirrored by kernels/gqmv.gqmv_design).
 //
 // GQMM, every format: two designs on the tensor cores, chosen by b
 // (run_gqmm_tc): int8 (B3, gqmm_pallas), int4 (B5, gqmm_int4_pallas) and
@@ -538,12 +562,12 @@ __device__ __forceinline__ uint32_t i8x2_to_h2(unsigned v, int h) {
 }
 
 // ---------------------------------------------------------------------------
-// GQMV, streamed design (gqmv_int4, gqmv_int3, gqmv_fp8; the note at the
-// top). int4 and int3: a lane takes a chunk of 128 logical weights of one
-// row with 16-byte loads, a half-warp a 16-chunk piece of a row, a CTA 16
-// pieces (gqmv_stream_kernel). fp8: a warp takes 16 rows x 256-column
-// slices for the f16 tensor cores (gqmv_stream_fp8_kernel). Both stage the
-// activations once a CTA.
+// GQMV, streamed design (every format; the note at the top). int4 and
+// int3: a lane takes a chunk of 128 logical weights of one row with 16-byte
+// loads, a half-warp a 16-chunk piece of a row, a CTA 16 pieces
+// (gqmv_stream_kernel). fp8 and int8: a warp takes 16-row blocks'
+// 256-column slices (gqmv_stream_block_kernel: fp8 on the f16 tensor cores,
+// int8 by __dp4a). Both stage the activations once a CTA.
 
 constexpr int kStreamThreads = 256;
 constexpr int kStreamLanes = 16;                                  // lanes a piece
@@ -551,17 +575,21 @@ constexpr int kStreamPieces = kStreamThreads / kStreamLanes;     // pieces a CTA
 constexpr int kStreamChunk = 128;                                 // logical weights a lane
 constexpr int kStreamMaxN = kStreamPieces * kStreamLanes * kStreamChunk;   // one round
 
+// the widest row the streamed designs take: kStreamMaxN, or less while a
+// timing run holds rows on the first design (gqmv_set_stream_max_n)
+int g_stream_max_n = kStreamMaxN;
+
 // 16-byte loads need a 16-byte aligned base and whole chunks (a row of
-// int4, int3 or fp8 storage is then a multiple of 64, 48 or 128 bytes)
+// int4, int3, fp8 or int8 storage is then a multiple of 64, 48 or 128 bytes)
 bool stream_ok(const void* wq, int n) {
   return (reinterpret_cast<uintptr_t>(wq) & 15) == 0 && n % kStreamChunk == 0 &&
-         n <= kStreamMaxN;
+         n <= g_stream_max_n;
 }
 
 // int3: a chunk is 48 bytes (three 16-byte loads), sixteen 24-bit words
 struct StreamInt3 {
   static constexpr int kVecs = 3;
-  static constexpr bool kMma = false;
+  static constexpr bool kBlock = false;
   __host__ __device__ static size_t row_bytes(int n) { return (size_t)n / 8 * 3; }
   // the chunk's 128 weights as 32 words of four sign-extended int8 (word i:
   // weights 4i .. 4i + 3); 12 bytes hold four 24-bit words of 8 fields
@@ -586,7 +614,7 @@ struct StreamInt3 {
 // into element order (unpack_int4_word) as 32 words like int3's
 struct StreamInt4 {
   static constexpr int kVecs = 4;
-  static constexpr bool kMma = false;
+  static constexpr bool kBlock = false;
   __host__ __device__ static size_t row_bytes(int n) { return (size_t)n / 2; }
   __device__ __forceinline__ static void unpack(const uint4 (&r)[kVecs], int (&w)[32]) {
 #pragma unroll
@@ -599,11 +627,21 @@ struct StreamInt4 {
   }
 };
 
-// fp8: a lane's 128 bytes (eight 16-byte loads) are 16 bytes of two rows
-// at each of four 64-column spans (gqmv_stream_fp8_kernel)
+// fp8 and int8 (gqmv_stream_block_kernel): a lane's 128 bytes (eight 16-byte
+// loads) are 16 bytes of two rows at each of four 64-column spans. fp8's
+// activations are staged as f16 (kXBytes 2) for m16n8k16 f16 mmas with f32
+// sums; int8's as int8 (kXBytes 1) for __dp4a with exact int32 sums.
 struct StreamFp8 {
   static constexpr int kVecs = 8;
-  static constexpr bool kMma = true;
+  static constexpr bool kBlock = true;
+  static constexpr int kXBytes = 2;
+  using Acc = float;
+};
+struct StreamInt8 {
+  static constexpr int kVecs = 8;
+  static constexpr bool kBlock = true;
+  static constexpr int kXBytes = 1;
+  using Acc = int;
 };
 
 // Dynamic shared memory of a streamed int4 / int3 CTA
@@ -727,49 +765,61 @@ gqmv_stream_kernel(const uint8_t* __restrict__ wq, const float* __restrict__ ws,
   }
 }
 
-// fp8 (B7) on the streamed design, with the f16 tensor cores for the group
-// dots: e4m3 weights and int8 activations are exact in f16 and their
-// products exact in f32 (mma.sync m16n8k16, f32 sums). A block is kFp8Rows
-// rows; warp w of a CTA takes the block's 256-column slices w, w + 8, ...;
-// lane (gid, t) loads 16 bytes of rows gid and gid + 8 at columns 16t ..
-// 16t + 15 of each of a slice's four 64-column spans (a warp load is 8 rows
-// x 64 contiguous bytes), with the slice's weight scales. The grid holds as
-// many CTAs as the card runs at once; a CTA takes blocks blockIdx.x,
-// blockIdx.x + gridDim.x, ..., and requests each slice (the next block's
-// first, at the last) before the one before is computed, so that its bytes
-// are in flight while the tensor cores work. mma j of a span takes the
-// lane's columns 4j .. 4j + 3 as k-slots 2t, 2t + 1, 2t + 8, 2t + 9 of both
-// operands: the activations (staged once a CTA as f16, the same for all 8
-// columns of B) and the weights (converted pairwise in registers).
-constexpr int kFp8Rows = 16;       // rows a block: an mma's 16
-constexpr int kFp8Slice = 256;     // columns a warp takes at a time: four 64-column spans
+// fp8 (B7) and int8 (B1) on the streamed design in blocks of 16 rows. fp8:
+// the f16 tensor cores (e4m3 weights and int8 activations are exact in f16
+// and their products exact in f32; mma.sync m16n8k16, f32 sums); int8: the
+// CUDA cores, each lane's 16 bytes of a row dotted with its 16 activation
+// bytes by four __dp4a and a group's lanes t added by an xor butterfly
+// (exact int32; m16n8k32 s8 mmas in the same partition timed a few percent
+// slower). A block is kBlockRows rows; warp w of a CTA takes the block's
+// 256-column slices w, w + 8, ...; lane (gid, t) loads 16 bytes of rows gid
+// and gid + 8 at columns 16t .. 16t + 15 of each of a slice's four
+// 64-column spans (a warp load is 8 rows x 64 contiguous bytes), with the
+// slice's weight scales. The grid holds as many CTAs as the card runs at
+// once, cut so that every CTA but the last takes as many blocks as the
+// others; a CTA takes blocks blockIdx.x, blockIdx.x + gridDim.x, ..., and
+// requests each slice (the next block's first, at the last) before the one
+// before is computed, so that its bytes are in flight while it computes.
+// It is a programmatic dependent launch: its first weight loads are issued
+// before griddepcontrol.wait, so they stream while the kernel before it
+// drains (the weights and their scales are no earlier kernel's output); the
+// activations are read after it. They are staged once a CTA (fp8: as f16;
+// int8: as int8, by cp.async); a warp's 16-byte reads of them are four
+// consecutive vectors, free of bank conflicts. fp8: mma j of a span takes
+// the lane's columns 4j .. 4j + 3 as k-slots 2t, 2t + 1, 2t + 8, 2t + 9 of
+// both operands (the weights converted pairwise in registers).
+constexpr int kBlockRows = 16;     // rows a block: an mma's 16
+constexpr int kBlockSlice = 256;   // columns a warp takes at a time: four 64-column spans
 
-// Dynamic shared memory of a streamed fp8 CTA (kernels/gqmv.stream_smem_bytes):
-// the activations as f16, their scales, one term a row a slice.
-__host__ __device__ inline size_t stream_fp8_smem_bytes(int n, int ng) {
-  return 2 * (size_t)n + 4 * (size_t)ng + 4 * (size_t)kFp8Rows * ((n + kFp8Slice - 1) / kFp8Slice);
+// Dynamic shared memory of a streamed fp8 / int8 CTA
+// (kernels/gqmv.stream_smem_bytes): the activations (xbytes each: f16 or
+// int8), their scales, one term a row a slice.
+__host__ __device__ inline size_t stream_block_smem_bytes(int n, int ng, int xbytes) {
+  return (size_t)xbytes * n + 4 * (size_t)ng +
+         4 * (size_t)kBlockRows * ((n + kBlockSlice - 1) / kBlockSlice);
 }
 
-template <int GSL>
+template <class L, int GSL>
 __global__ void __launch_bounds__(kStreamThreads)
-gqmv_stream_fp8_kernel(const uint8_t* __restrict__ wq, const float* __restrict__ ws,
-                       const int8_t* __restrict__ xq, const float* __restrict__ xs,
-                       float* __restrict__ out, int m, int n) {
+gqmv_stream_block_kernel(const uint8_t* __restrict__ wq, const float* __restrict__ ws,
+                         const int8_t* __restrict__ xq, const float* __restrict__ xs,
+                         float* __restrict__ out, int m, int n) {
   constexpr int kGS = 1 << GSL;
   // a group is kGroupSpans whole spans (GS >= 64), or a span holds
   // kSpanGroups groups of GS / 16 lanes each (GS 16, 32)
   constexpr int kGroupSpans = kGS >= 64 ? kGS / 64 : 1;
   constexpr int kSpanGroups = kGS >= 64 ? 1 : 64 / kGS;
-  constexpr int kSliceGroups = kFp8Slice / kGS;
+  constexpr int kSliceGroups = kBlockSlice / kGS;
   constexpr int kWarps = kStreamThreads / 32;
-  constexpr int kSpans = StreamFp8::kVecs / 2;   // a lane's 16 bytes of two rows a span
-  static_assert(kSpans * 64 == kFp8Slice, "a slice is four 64-column spans");
+  constexpr int kSpans = L::kVecs / 2;   // a lane's 16 bytes of two rows a span
+  static_assert(kSpans * 64 == kBlockSlice, "a slice is four 64-column spans");
+  using Acc = typename L::Acc;
   extern __shared__ __align__(16) unsigned char gsm[];
-  const int ng = n >> GSL, slices = (n + kFp8Slice - 1) / kFp8Slice;
-  const int blocks = (m + kFp8Rows - 1) / kFp8Rows;
-  uint32_t* x_s = reinterpret_cast<uint32_t*>(gsm);                   // n f16, in pairs
-  float* xs_s = reinterpret_cast<float*>(gsm + 2 * (size_t)n);        // ng scales
-  float* part = xs_s + ng;                                            // slices x kFp8Rows
+  const int ng = n >> GSL, slices = (n + kBlockSlice - 1) / kBlockSlice;
+  const int blocks = (m + kBlockRows - 1) / kBlockRows;
+  uint32_t* x_s = reinterpret_cast<uint32_t*>(gsm);                        // n f16 or int8
+  float* xs_s = reinterpret_cast<float*>(gsm + L::kXBytes * (size_t)n);    // ng scales
+  float* part = xs_s + ng;                                                 // slices x kBlockRows
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gid = lane >> 2, t = lane & 3;
   // slice s of block b: 16 bytes of rows gid, gid + 8 at each span and
@@ -777,11 +827,11 @@ gqmv_stream_fp8_kernel(const uint8_t* __restrict__ wq, const float* __restrict__
   auto fetch = [&](int b, int s, uint4 (&r)[2][kSpans], float (&sc)[2][kSliceGroups]) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int row = b * kFp8Rows + gid + 8 * h;
+      const int row = b * kBlockRows + gid + 8 * h;
       const uint8_t* wr = wq + (size_t)row * n;
 #pragma unroll
       for (int p = 0; p < kSpans; ++p) {
-        const int col = s * kFp8Slice + 64 * p + 16 * t;
+        const int col = s * kBlockSlice + 64 * p + 16 * t;
         r[h][p] = row < m && col < n ? __ldg(reinterpret_cast<const uint4*>(wr + col))
                                      : make_uint4(0u, 0u, 0u, 0u);
       }
@@ -796,16 +846,26 @@ gqmv_stream_fp8_kernel(const uint8_t* __restrict__ wq, const float* __restrict__
   uint4 raw[2][kSpans];
   float wsc[2][kSliceGroups];
   if (warp < slices) fetch(blk, warp, raw, wsc);
-  // the activations as f16 (exact) and their scales, once a CTA
-  for (int e = tid; e < n / 16; e += kStreamThreads) {
-    const int4 q = __ldg(reinterpret_cast<const int4*>(xq) + e);
-    const unsigned v[4] = {static_cast<unsigned>(q.x), static_cast<unsigned>(q.y),
-                           static_cast<unsigned>(q.z), static_cast<unsigned>(q.w)};
-    uint4* dst = reinterpret_cast<uint4*>(x_s) + 2 * e;
-    dst[0] = make_uint4(i8x2_to_h2(v[0], 0), i8x2_to_h2(v[0], 1), i8x2_to_h2(v[1], 0),
-                        i8x2_to_h2(v[1], 1));
-    dst[1] = make_uint4(i8x2_to_h2(v[2], 0), i8x2_to_h2(v[2], 1), i8x2_to_h2(v[3], 0),
-                        i8x2_to_h2(v[3], 1));
+  // launched as a programmatic dependent: the weights and their scales
+  // above may be read while the kernel before drains (they are no earlier
+  // kernel's output); everything below waits until that kernel is done
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  asm volatile("griddepcontrol.launch_dependents;\n" ::);
+  // the activations (fp8: as f16, exact) and their scales, once a CTA
+  if constexpr (L::kXBytes == 2) {
+    for (int e = tid; e < n / 16; e += kStreamThreads) {
+      const int4 q = __ldg(reinterpret_cast<const int4*>(xq) + e);
+      const unsigned v[4] = {static_cast<unsigned>(q.x), static_cast<unsigned>(q.y),
+                             static_cast<unsigned>(q.z), static_cast<unsigned>(q.w)};
+      uint4* dst = reinterpret_cast<uint4*>(x_s) + 2 * e;
+      dst[0] = make_uint4(i8x2_to_h2(v[0], 0), i8x2_to_h2(v[0], 1), i8x2_to_h2(v[1], 0),
+                          i8x2_to_h2(v[1], 1));
+      dst[1] = make_uint4(i8x2_to_h2(v[2], 0), i8x2_to_h2(v[2], 1), i8x2_to_h2(v[3], 0),
+                          i8x2_to_h2(v[3], 1));
+    }
+  } else {
+    for (int e = tid; e < n / 16; e += kStreamThreads)
+      cp_async16(reinterpret_cast<uint4*>(x_s) + e, xq + 16 * e, true);
   }
   for (int e = tid; e < ng; e += kStreamThreads) cp_async4(xs_s + e, xs + e, true);
   cp_async_commit();
@@ -826,31 +886,55 @@ gqmv_stream_fp8_kernel(const uint8_t* __restrict__ wq, const float* __restrict__
 #pragma unroll
         for (int q = 0; q < kSpanGroups; ++q) {
           const bool mine = t / (4 / kSpanGroups) == q;   // this lane's columns in group q
-          float c[4] = {0.f, 0.f, 0.f, 0.f};
+          Acc c[4] = {0, 0, 0, 0};
 #pragma unroll
           for (int p = p0; p < p0 + kGroupSpans; ++p) {
-            const uint4* xv = reinterpret_cast<const uint4*>(x_s) +
-                              (s * kFp8Slice + 64 * p + 16 * t) / 8;
-            const uint4 x0 = xv[0], x1 = xv[1];
-            const uint32_t xb[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-            const uint32_t w0[4] = {raw[0][p].x, raw[0][p].y, raw[0][p].z, raw[0][p].w};
-            const uint32_t w1[4] = {raw[1][p].x, raw[1][p].y, raw[1][p].z, raw[1][p].w};
+            if constexpr (L::kXBytes == 2) {
+              const uint4* xv = reinterpret_cast<const uint4*>(x_s) +
+                                (s * kBlockSlice + 64 * p + 16 * t) / 8;
+              const uint4 x0 = xv[0], x1 = xv[1];
+              const uint32_t xb[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+              const uint32_t w0[4] = {raw[0][p].x, raw[0][p].y, raw[0][p].z, raw[0][p].w};
+              const uint32_t w1[4] = {raw[1][p].x, raw[1][p].y, raw[1][p].z, raw[1][p].w};
 #pragma unroll
-            for (int j = 0; j < 4; ++j)
-              mma_f16(c, fp8x2_to_h2(w0[j]), fp8x2_to_h2(w1[j]), fp8x2_to_h2(w0[j] >> 16),
-                      fp8x2_to_h2(w1[j] >> 16), mine ? xb[2 * j] : 0u, mine ? xb[2 * j + 1] : 0u);
+              for (int j = 0; j < 4; ++j)
+                mma_f16(c, fp8x2_to_h2(w0[j]), fp8x2_to_h2(w1[j]), fp8x2_to_h2(w0[j] >> 16),
+                        fp8x2_to_h2(w1[j] >> 16), mine ? xb[2 * j] : 0u,
+                        mine ? xb[2 * j + 1] : 0u);
+            } else {   // c[0], c[2]: rows gid and gid + 8, where an mma would hold them
+              const int4 xv =
+                  reinterpret_cast<const int4*>(x_s)[(s * kBlockSlice + 64 * p) / 16 + t];
+              const uint4 w0 = raw[0][p], w1 = raw[1][p];
+              int d0 = __dp4a(static_cast<int>(w0.x), xv.x, 0);
+              d0 = __dp4a(static_cast<int>(w0.y), xv.y, d0);
+              d0 = __dp4a(static_cast<int>(w0.z), xv.z, d0);
+              d0 = __dp4a(static_cast<int>(w0.w), xv.w, d0);
+              int d1 = __dp4a(static_cast<int>(w1.x), xv.x, 0);
+              d1 = __dp4a(static_cast<int>(w1.y), xv.y, d1);
+              d1 = __dp4a(static_cast<int>(w1.z), xv.z, d1);
+              d1 = __dp4a(static_cast<int>(w1.w), xv.w, d1);
+              c[0] += mine ? d0 : 0;
+              c[2] += mine ? d1 : 0;
+            }
+          }
+          if constexpr (L::kXBytes == 1) {   // the group's lanes t: an xor butterfly
+#pragma unroll
+            for (int off = 1; off < 4; off <<= 1) {
+              c[0] += __shfl_xor_sync(0xffffffffu, c[0], off);
+              c[2] += __shfl_xor_sync(0xffffffffu, c[2], off);
+            }
           }
           const int g = (64 * p0) / kGS + q;               // the group within the slice
           if (s * kSliceGroups + g < ng) {
             const float x = xs_s[s * kSliceGroups + g];
-            acc[0] = __fadd_rn(acc[0], __fmul_rn(c[0], __fmul_rn(wsc[0][g], x)));
-            acc[1] = __fadd_rn(acc[1], __fmul_rn(c[2], __fmul_rn(wsc[1][g], x)));
+            acc[0] = __fadd_rn(acc[0], __fmul_rn(to_float(c[0]), __fmul_rn(wsc[0][g], x)));
+            acc[1] = __fadd_rn(acc[1], __fmul_rn(to_float(c[2]), __fmul_rn(wsc[1][g], x)));
           }
         }
       }
       if (t == 0) {
-        part[s * kFp8Rows + gid] = acc[0];
-        part[s * kFp8Rows + gid + 8] = acc[1];
+        part[s * kBlockRows + gid] = acc[0];
+        part[s * kBlockRows + gid + 8] = acc[1];
       }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -862,10 +946,10 @@ gqmv_stream_fp8_kernel(const uint8_t* __restrict__ wq, const float* __restrict__
     }
     // a row's slices left to right
     __syncthreads();
-    if (tid < kFp8Rows && blk * kFp8Rows + tid < m) {
+    if (tid < kBlockRows && blk * kBlockRows + tid < m) {
       float v = part[tid];
-      for (int s = 1; s < slices; ++s) v = __fadd_rn(v, part[s * kFp8Rows + tid]);
-      out[blk * kFp8Rows + tid] = v;
+      for (int s = 1; s < slices; ++s) v = __fadd_rn(v, part[s * kBlockRows + tid]);
+      out[blk * kBlockRows + tid] = v;
     }
     if (nblk >= blocks) return;
     __syncthreads();   // part is read before the next block writes it
@@ -876,10 +960,10 @@ gqmv_stream_fp8_kernel(const uint8_t* __restrict__ wq, const float* __restrict__
 template <class L, int GSL>
 int launch_stream(const void* wq, const void* ws, const void* xq, const void* xs, void* out,
                   int m, int n, int device, cudaStream_t stream) {
-  if constexpr (L::kMma) {
-    const auto kernel = gqmv_stream_fp8_kernel<GSL>;
-    const size_t smem = stream_fp8_smem_bytes(n, n >> GSL);
-    if (smem > 48 * 1024) {   // wide rows: the f16 activations past 48 KB
+  if constexpr (L::kBlock) {
+    const auto kernel = gqmv_stream_block_kernel<L, GSL>;
+    const size_t smem = stream_block_smem_bytes(n, n >> GSL, L::kXBytes);
+    if (smem > 48 * 1024) {   // wide rows: the staged activations past 48 KB
       static bool opted[kMaxDevices] = {};
       const cudaError_t err = opt_in(kernel, opted, device);
       if (err != cudaSuccess) return static_cast<int>(err);
@@ -892,11 +976,24 @@ int launch_stream(const void* wq, const void* ws, const void* xq, const void* xs
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (err != cudaSuccess) return static_cast<int>(err);
     const int cap = per_sm * sms > 0 ? per_sm * sms : 1;
-    const int blocks = (m + kFp8Rows - 1) / kFp8Rows;
-    kernel<<<blocks < cap ? blocks : cap, kStreamThreads, smem, stream>>>(
-        static_cast<const uint8_t*>(wq), static_cast<const float*>(ws),
+    const int blocks = (m + kBlockRows - 1) / kBlockRows;
+    const int per = (blocks + cap - 1) / cap;   // blocks a CTA, the same for all but the last
+    // a programmatic dependent launch (Hopper): the grid may be scheduled
+    // while the kernel before it drains, and stream its weights meanwhile
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((blocks + per - 1) / per);
+    cfg.blockDim = dim3(kStreamThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return static_cast<int>(cudaLaunchKernelEx(
+        &cfg, kernel, static_cast<const uint8_t*>(wq), static_cast<const float*>(ws),
         static_cast<const int8_t*>(xq), static_cast<const float*>(xs), static_cast<float*>(out),
-        m, n);
+        m, n));
   } else {
     const int pieces = (n / kStreamChunk + kStreamLanes - 1) / kStreamLanes;
     const int rows = kStreamPieces / pieces;
@@ -1888,7 +1985,7 @@ int run_gqmm_tc(const void* wq, const void* ws, const void* xq, const void* xs, 
     return RUN(wq, ws, xq, xs, out, b, m, n, group_size, device, stream);                   \
   }
 
-GQMV_ENTRY_POINT(int8, run_gqmv<Int8Weights>)
+GQMV_ENTRY_POINT(int8, (run_gqmv_stream<StreamInt8, Int8Weights>))
 GQMV_ENTRY_POINT(int4, (run_gqmv_stream<StreamInt4, Int4Weights>))
 GQMV_ENTRY_POINT(int3, (run_gqmv_stream<StreamInt3, Int3Weights>))
 GQMV_ENTRY_POINT(fp8, (run_gqmv_stream<StreamFp8, Fp8Weights>))
@@ -1896,6 +1993,16 @@ GQMM_ENTRY_POINT(int8, (run_gqmm_tc<TcInt8, false>))
 GQMM_ENTRY_POINT(int4, (run_gqmm_tc<TcInt4, true>))
 GQMM_ENTRY_POINT(int3, (run_gqmm_tc<TcInt3, true>))
 GQMM_ENTRY_POINT(fp8, (run_gqmm_tc<TcFp8, true>))
+
+// Sets the widest row that takes the streamed GQMV design (at most
+// kStreamMaxN; 0 sends every row to the first design, which keeps the
+// plain version's arithmetic in another order of f32 sums) and returns the
+// previous value. For timing the two designs at one shape.
+extern "C" int gqmv_set_stream_max_n(int n) {
+  const int prev = g_stream_max_n;
+  g_stream_max_n = n < kStreamMaxN ? n : kStreamMaxN;
+  return prev;
+}
 
 // Sets the largest b that takes the small design of GQMM (both designs
 // keep the plain versions' arithmetic; only their times differ) and

@@ -19,23 +19,34 @@ cores (int4 and int3 weights unpacked to int8 on the way); fp8 runs the
 f16 ones (e4m3 weights and int8 activations are exact in f16, their
 products exact in f32). int4 and int3 rows the large design's ring cannot
 stream run the first design (one warp an output row, ``__dp4a``), as the
-int8 GQMV does.
+GQMV rows the streamed design cannot take do.
 
-int4, int3 and fp8 GQMV run the streamed design where their rows allow it
+Every GQMV format runs a streamed design where its rows allow it
 (:func:`gqmv_design`: 16-byte aligned storage, n a multiple of
-``STREAM_CHUNK`` up to ``STREAM_MAX_N``), else the first design: a lane
-takes 128 logical weights (``STREAM_CHUNK_BYTES``: 64 bytes of int4, 48 of
-int3, 128 of fp8, as 16-byte loads), a half-warp a 16-chunk piece of a
-row, a CTA of 8 warps 16 pieces (:func:`stream_plan`); the activations are
-staged in shared memory once a CTA (as int8, or for fp8 as f32). The
-integer formats' group sums are exact int32 (``__dp4a``); fp8's are f32,
-each group as four FMA chains (chain j: byte 0..3 of word j of each
-16-byte vector, vectors left to right) added as (a0 + a1) + (a2 + a3),
-the e4m3 bytes decoded by integer operations into their value x 2^-120
-and the sum multiplied by 2^120 (exact). The f32 order across groups: a
-lane's groups left to right (at GS 256 the even lane's half plus the odd
-lane's, scaled on the even lane), the piece's 16 lanes as a pairwise tree,
-a row's pieces left to right.
+``STREAM_CHUNK`` up to ``STREAM_MAX_N``), else the first design. A lane
+loads 128 logical weights (``STREAM_CHUNK_BYTES``) as 16-byte loads, issued
+before it waits for anything, and the activations are staged in shared
+memory once a CTA. int4 and int3 (:func:`stream_plan`): a lane's 64 or 48
+bytes are one row's chunk, a half-warp takes a 16-chunk piece of a row, a
+CTA of 8 warps 16 pieces; exact int32 group sums by ``__dp4a``; the f32
+order: a lane's groups left to right (at GS 256 the even lane's half plus
+the odd lane's, scaled on the even lane), the piece's 16 lanes as a pairwise
+tree, a row's pieces left to right. fp8 and int8 (:func:`stream_block_plan`):
+a block is ``BLOCK_ROWS`` rows, warp w of a CTA takes its ``BLOCK_SLICE``-column
+slices w, w + 8, ..., lane (gid, t) 16 bytes of rows gid and gid + 8 at each
+of a slice's four 64-column spans (a warp load is 8 rows x 64 contiguous
+bytes); a persistent grid of as many CTAs as the card holds at once (each
+taking as many blocks as the others, but the last) walks the blocks and
+requests each next slice before it computes the current one. fp8's group
+dots run on the f16 tensor cores (``mma.sync`` m16n8k16, f32 sums;
+activations staged as f16), int8's on the CUDA cores (``__dp4a`` and an xor
+butterfly over a group's lanes: exact int32 sums; activations staged as
+int8 by ``cp.async``). The f32 order: a slice's group terms s * (ws * xs)
+left to right, a row's slices left to right. This kernel is a programmatic
+dependent launch: it issues its first weight loads before it waits for the
+kernel before it on the stream, so GQMV's weights and weight scales must
+not be the output of the kernel launched right before it (model weights,
+quantized once, never are).
 
 ``wq`` is the format's storage array: int8 (m, n) for int8, packed int8
 (m, n/2) for int4, packed uint8 (m, 3n/8) for int3, float8_e4m3fn (m, n)
@@ -92,21 +103,26 @@ PACKED = ("int4", "int3")
 # csrc/gqmm.cu, the streamed GQMV design: threads a CTA, lanes a piece (half
 # a warp), pieces a CTA, logical weights a lane (a chunk), the widest row it
 # takes (16 pieces of 16 chunks), and the bytes a lane loads by format (int4
-# and int3: one row's chunk; fp8: 16 bytes of two rows at four spans). fp8's
-# CTA owns FP8_ROWS rows (an mma's 16), a warp FP8_SLICE columns of them at
-# a time (four 64-column spans).
+# and int3: one row's chunk; fp8 and int8: 16 bytes of two rows at four
+# spans). The block variant's (fp8, int8) block is BLOCK_ROWS rows (an mma's
+# 16), a warp takes BLOCK_SLICE columns of them at a time (four 64-column
+# spans), and a CTA stages the activations at STREAM_X_BYTES bytes each
+# (fp8: f16; int8: int8).
 STREAM_THREADS, STREAM_LANES, STREAM_PIECES, STREAM_CHUNK = 256, 16, 16, 128
 STREAM_MAX_N = STREAM_PIECES * STREAM_LANES * STREAM_CHUNK
-STREAM_CHUNK_BYTES = {"int3": 48, "int4": 64, "fp8": 128}
-FP8_ROWS, FP8_SLICE = 16, 256
+STREAM_CHUNK_BYTES = {"int3": 48, "int4": 64, "fp8": 128, "int8": 128}
+BLOCK_ROWS, BLOCK_SLICE = 16, 256
+STREAM_X_BYTES = {"fp8": 2, "int8": 1}
 
 
-def gqmv_design(n: int, fmt: str = "int3", aligned: bool = True) -> str:
+def gqmv_design(n: int, fmt: str = "int3", aligned: bool = True,
+                stream_max_n: int = STREAM_MAX_N) -> str:
     """The GQMV design for rows of n logical weights (``run_gqmv_stream``):
-    "stream" for the formats that have it (int4, int3, fp8) when the storage
-    is 16-byte ``aligned`` and n a multiple of STREAM_CHUNK up to
-    STREAM_MAX_N, else "first" (and always for int8)."""
-    ok = fmt in STREAM_CHUNK_BYTES and aligned and n % STREAM_CHUNK == 0 and n <= STREAM_MAX_N
+    "stream" when the storage is 16-byte ``aligned`` and n a multiple of
+    STREAM_CHUNK up to ``stream_max_n`` (the library's STREAM_MAX_N unless a
+    timing run moved it: :func:`set_stream_max_n`), else "first"."""
+    ok = (fmt in STREAM_CHUNK_BYTES and aligned and n % STREAM_CHUNK == 0
+          and n <= min(stream_max_n, STREAM_MAX_N))
     return "stream" if ok else "first"
 
 
@@ -117,20 +133,29 @@ def stream_plan(m: int, n: int) -> tuple[int, int, int]:
     return pieces, rows, -(-m // rows)
 
 
-def stream_fp8_plan(m: int, n: int) -> tuple[int, int]:
-    """(FP8_SLICE-column slices a row, blocks of FP8_ROWS rows) of the
-    streamed fp8 GQMV; warp w of a CTA takes slices w, w + 8, ... of each
-    of its blocks, a CTA blocks blockIdx.x, blockIdx.x + gridDim.x, ..."""
-    return -(-n // FP8_SLICE), -(-m // FP8_ROWS)
+def stream_block_plan(m: int, n: int) -> tuple[int, int]:
+    """(BLOCK_SLICE-column slices a row, blocks of BLOCK_ROWS rows) of the
+    streamed fp8 and int8 GQMV; warp w of a CTA takes slices w, w + 8, ...
+    of each of its blocks, a CTA blocks blockIdx.x, blockIdx.x + gridDim.x,
+    ..."""
+    return -(-n // BLOCK_SLICE), -(-m // BLOCK_ROWS)
+
+
+def stream_block_grid(blocks: int, cap: int) -> int:
+    """CTAs of the fp8 / int8 block kernel for ``blocks`` blocks when the card
+    holds ``cap`` at once: every CTA but the last takes as many blocks as
+    the others, ceil(blocks / cap)."""
+    per = -(-blocks // cap)
+    return -(-blocks // per)
 
 
 def stream_smem_bytes(n: int, ng: int, fmt: str = "int3") -> int:
     """Dynamic shared memory of a streamed CTA. int4 / int3: the activations,
-    their scales, one partial sum a piece. fp8: the activations as f16, their
-    scales, one term a row a slice."""
-    if fmt == "fp8":
-        slices, _ = stream_fp8_plan(1, n)
-        return 2 * n + 4 * ng + 4 * FP8_ROWS * slices
+    their scales, one partial sum a piece. fp8 / int8: the activations (as
+    f16 / int8), their scales, one term a row a slice."""
+    if fmt in STREAM_X_BYTES:
+        slices, _ = stream_block_plan(1, n)
+        return STREAM_X_BYTES[fmt] * n + 4 * ng + 4 * BLOCK_ROWS * slices
     return n + 4 * ng + 4 * STREAM_PIECES
 
 
@@ -195,6 +220,14 @@ def set_small_max_b(b: int) -> int:
     return int(_lib().gqmm_set_small_max_b(int(b)))
 
 
+def set_stream_max_n(n: int) -> int:
+    """Set the widest row the compiled GQMV streams (at most STREAM_MAX_N; 0
+    sends every row to the first design) and return the previous value: for
+    timing both designs at one shape. Both keep the plain version's
+    arithmetic; only the order of the f32 sums differs."""
+    return int(_lib().gqmv_set_stream_max_n(int(n)))
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
@@ -209,8 +242,9 @@ def _lib() -> ctypes.CDLL:
             mv.argtypes = [p, p, p, p, p, i, i, i, i, p]
             mm.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
             mv.restype = mm.restype = i
-        lib.gqmm_set_small_max_b.argtypes = [i]
-        lib.gqmm_set_small_max_b.restype = i
+        for knob in (lib.gqmm_set_small_max_b, lib.gqmv_set_stream_max_n):
+            knob.argtypes = [i]
+            knob.restype = i
         _LIB.append(lib)
     return _LIB[0]
 

@@ -11,6 +11,20 @@ model rounds the normed row back to the compute dtype before
 ``quantize_activation``, which the fused kernel skips at bf16, so it is a
 standalone op held to its oracle (``kernels/ref.rmsnorm_quant_ref``).
 
+Two designs, chosen by pointer and shape (:func:`design`, mirroring
+``rows_ok`` in the CUDA source). The row design: a lane takes chunks of
+``CHUNK`` consecutive elements of x and w as 16-byte loads, all issued
+before it waits, a warp units of ``UNIT`` elements, a team of
+:func:`plan`'s warps a row (``WARPS // team`` rows a CTA); the row stays in
+registers; the sum of squares is each lane's chunks in order, an xor
+butterfly over the warp's lanes and, after one barrier, a pairwise tree
+over the team's 8 (or fewer, the rest +0) warp partials; each group's
+absmax by shuffles among its lanes; 8-byte int8 stores. Rows off 16 bytes,
+n no multiple of ``CHUNK`` and group sizes that are not a power of two from
+``CHUNK`` to ``UNIT`` run the first design (a CTA a row, the row in shared
+memory). Both keep the oracle's roundings; only the order of the sum of
+squares differs from it (and between the two designs).
+
 The wrapper takes CUDA tensors only: it checks device, dtype, shape and
 contiguity and raises on anything else; allocates the int8 values and f32
 scales with ``torch.empty``; launches on the current stream; raises if the
@@ -27,7 +41,37 @@ from repro_torch.kernels import cuda_build
 
 # dtype codes of csrc/rmsnorm_quant.cu
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-MAX_N = 12288       # the row lives in 48 KB of shared memory as f32
+MAX_N = 12288       # the first design's row lives in 48 KB of shared memory as f32
+# csrc/rmsnorm_quant.cu: threads and warps a CTA; the row design's elements a
+# lane takes at a time, a warp's unit, the chunks a lane holds at most, and
+# the chunks a lane aims at (which set a row's team of warps)
+THREADS = 256
+WARPS = THREADS // 32
+CHUNK = 8
+UNIT = 32 * CHUNK
+MAX_CHUNKS = MAX_N // (WARPS * UNIT)
+TEAM_CHUNKS = 1
+
+
+def design(n: int, group_size: int, aligned: bool = True) -> str:
+    """The design that runs rows of n elements (``rows_ok``): "rows" when x
+    and w are 16-byte ``aligned``, n a multiple of CHUNK and the group size
+    a power of two from CHUNK to UNIT, else "first"."""
+    gs = group_size
+    ok = aligned and n % CHUNK == 0 and CHUNK <= gs <= UNIT and gs & (gs - 1) == 0
+    return "rows" if ok else "first"
+
+
+def plan(m: int, n: int) -> tuple[int, int, int, int]:
+    """(warps a row, rows a CTA, CTAs, chunks a lane at most) of the row
+    design: the fewest warps, at most WARPS, that leave a lane TEAM_CHUNKS
+    chunks of the row's UNIT-element units."""
+    units = -(-n // UNIT)
+    team = 1
+    while team < WARPS and team * TEAM_CHUNKS < units:
+        team *= 2
+    rows = WARPS // team
+    return team, rows, -(-m // rows), -(-units // team)
 
 # launches; a run zeroes this, drives the op, and reads it
 LAUNCHES: dict[str, int] = {"rmsnorm_quant": 0}
@@ -46,6 +90,8 @@ def _lib() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.rmsnorm_quant.argtypes = [p] * 4 + [i] * 3 + [f, i, i, i, p]
         lib.rmsnorm_quant.restype = i
+        lib.rmsnorm_quant_empty.argtypes = [i, i, p]
+        lib.rmsnorm_quant_empty.restype = i
         _LIB.append(lib)
     return _LIB[0]
 
@@ -90,3 +136,13 @@ def rmsnorm_quant_cuda(x, w, *, group_size: int,
         raise RuntimeError(f"rmsnorm_quant kernel launch failed with CUDA error {rc}")
     LAUNCHES["rmsnorm_quant"] += 1
     return q, scales
+
+
+def empty_cuda(ctas: int, device: torch.device) -> None:
+    """Launch an empty kernel of ``ctas`` CTAs of THREADS threads on the
+    current stream: the card's floor for a launch like the row design's,
+    timed beside it. Counts no launch of the op."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = _lib().rmsnorm_quant_empty(int(ctas), device.index, stream)
+    if rc != 0:
+        raise RuntimeError(f"empty kernel launch failed with CUDA error {rc}")

@@ -139,7 +139,8 @@ def test_engine_on_cuda_matches_plain_tokens(dev):
 # ---------------------------------------------------------------------------
 
 LOWBIT = ("int4", "int3", "fp8")
-PLAIN = {"int4": (ref.gqmv_int4_ref, ref.gqmm_int4_ref),
+PLAIN = {"int8": (ref.gqmv_ref, ref.gqmm_ref),
+         "int4": (ref.gqmv_int4_ref, ref.gqmm_int4_ref),
          "int3": (ref.gqmv_int3_ref, ref.gqmm_int3_ref),
          "fp8": (ref.gqmv_fp8_ref, ref.gqmm_fp8_ref)}
 
@@ -194,9 +195,9 @@ def test_int3_rows_only_two_byte_aligned(dev):
 
 
 # the GQMV formats that run the streamed design, and how far off a 16-byte
-# boundary their first design's loads still take the storage (fp8's first
-# design needs 16 bytes itself)
-STREAMED = ("int3", "int4", "fp8")
+# boundary their first design's loads still take the storage (fp8's and
+# int8's first design need 16 bytes themselves)
+STREAMED = ("int3", "int4", "fp8", "int8")
 FIRST_DESIGN_SHIFT = {"int3": 2, "int4": 8}
 
 
@@ -204,10 +205,11 @@ FIRST_DESIGN_SHIFT = {"int3": 2, "int4": 8}
 @pytest.mark.parametrize("m,n", [(37, 2048), (13, 5632), (40, 4096), (3, 32768)])
 @pytest.mark.parametrize("fmt", STREAMED)
 def test_gqmv_int3_streamed_design_matches_plain(dev, fmt, gs, m, n):
-    """The streamed int3, int4 and fp8 GQMV at every GS: m not a multiple of
-    a CTA's rows (16 at n 2048, 5 at n 5632 (3 pieces a row), 8 at n 4096, 1
-    at the widest row it takes, 16 pieces; fp8 there stages 128 KB of f32
-    activations, past the 48 KB opt-in); one launch a call."""
+    """The streamed int3, int4, fp8 and int8 GQMV at every GS: m not a
+    multiple of a CTA's rows (int3 / int4: 16 at n 2048, 5 at n 5632 (3
+    pieces a row), 8 at n 4096, 1 at the widest row it takes, 16 pieces; fp8
+    / int8: blocks of 16 rows, fp8 staging 64 KB of f16 activations at the
+    widest row, past the 48 KB opt-in); one launch a call."""
     assert kern.gqmv_design(n, fmt) == "stream"
     args = _rand_fmt(dev, fmt, m, n, gs, None, seed=m + gs)
     before = kern.LAUNCHES[f"gqmv_{fmt}"]
@@ -221,7 +223,8 @@ def test_gqmv_int3_rows_the_streamed_design_cannot_take(dev, fmt):
     """Rows the streamed GQMV cannot take run the first design, chosen by
     pointer and shape: a stacked leaf's layer slices (int3's 18-byte rows,
     int4's 24-byte ones), storage off a 16-byte boundary (int3 2 bytes, int4
-    8), n 1056 at GS 32 (no multiple of 128) and n wider than 16 pieces."""
+    8), n 1056 at GS 32 (no multiple of 128) and n wider than 16 pieces; and
+    every row while a timing run holds the streamed width at 0."""
     plain = PLAIN[fmt][0]
     if fmt in FIRST_DESIGN_SHIFT:
         w = quant.quantize(torch.randn((3, 9, 48), device=dev), 16, fmt)
@@ -243,6 +246,14 @@ def test_gqmv_int3_rows_the_streamed_design_cannot_take(dev, fmt):
         assert kern.gqmv_design(n, fmt) == "first"
         args = _rand_fmt(dev, fmt, m, n, gs, None, seed=n)
         _close_fmt(fmt, kern.gqmv_cuda(*args, group_size=gs, fmt=fmt), plain(*args, group_size=gs))
+    args = _rand_fmt(dev, fmt, 37, 2048, 64, None, seed=3)
+    prev = kern.set_stream_max_n(0)
+    try:
+        assert kern.gqmv_design(2048, fmt, stream_max_n=0) == "first"
+        _close_fmt(fmt, kern.gqmv_cuda(*args, group_size=64, fmt=fmt), plain(*args, group_size=64))
+    finally:
+        assert kern.set_stream_max_n(prev) == 0
+    assert prev == kern.STREAM_MAX_N
 
 
 def test_int4_rows_the_ring_cannot_stream(dev):
@@ -663,6 +674,51 @@ def test_rmsnorm_quant_kernel_matches_plain(dev, m, n, gs, dtype):
     assert rmsq_kern.LAUNCHES["rmsnorm_quant"] == before + 1
     assert not got[0][0, :gs].any() and got[1][0, 0] == 0
     _assert_rmsq_close(x, w, gs, got)
+
+
+@pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16, torch.float16])
+def test_rmsnorm_quant_row_design_every_dtype_pair(dev, xdt, wdt):
+    """The row design at every (x, w) dtype pair, on widths that give a
+    team of 1, 4 and 8 warps (with a partial last unit at n 1000 and the
+    widest row, 12288), m no multiple of the rows a CTA."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for m, n, gs in ((3, 128, 16), (5, 1000, 8), (7, 2048, 256), (2, 12288, 64)):
+        assert rmsq_kern.design(n, gs) == "rows"
+        x = (torch.randn((m, n), generator=gen, device=dev) * 3).to(xdt)
+        w = (1 + 0.1 * torch.randn((n,), generator=gen, device=dev)).to(wdt)
+        _assert_rmsq_close(x, w, gs, rmsq_kern.rmsnorm_quant_cuda(x, w, group_size=gs))
+
+
+def test_rmsnorm_quant_first_design_rows(dev):
+    """Rows the row design cannot take run the first design, chosen by
+    pointer and shape: x or w off 16 bytes, n no multiple of 8, and group
+    sizes that are not a power of two from 8 to 256."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for m, n, gs, x_off, w_off in ((4, 2048, 256, 1, 0), (4, 2048, 256, 0, 1), (3, 100, 4, 0, 0),
+                                   (3, 96, 48, 0, 0), (2, 1024, 512, 0, 0), (6, 5632, 256, 3, 0)):
+        x = torch.randn((m, n), generator=gen, device=dev, dtype=torch.bfloat16) * 3
+        w = torch.randn((n,), generator=gen, device=dev)
+        x[0, :gs] = 0
+        xb = torch.empty(x.numel() + x_off, dtype=x.dtype, device=dev)[x_off:].view(x.shape)
+        wb = torch.empty(n + w_off, dtype=w.dtype, device=dev)[w_off:]
+        xb.copy_(x)
+        wb.copy_(w)
+        aligned = xb.data_ptr() % 16 == 0 and wb.data_ptr() % 16 == 0
+        assert rmsq_kern.design(n, gs, aligned) == "first"
+        got = rmsq_kern.rmsnorm_quant_cuda(xb, wb, group_size=gs)
+        assert not got[0][0, :gs].any() and got[1][0, 0] == 0
+        _assert_rmsq_close(x, w, gs, got)
+
+
+def test_rmsnorm_quant_empty_kernel_launches(dev):
+    before = dict(rmsq_kern.LAUNCHES)
+    for ctas in (1, rmsq_kern.plan(256, 2048)[2]):
+        rmsq_kern.empty_cuda(ctas, dev)
+    torch.cuda.synchronize()
+    assert rmsq_kern.LAUNCHES == before
+    with pytest.raises(RuntimeError):
+        rmsq_kern.empty_cuda(0, dev)
 
 
 def test_rmsnorm_quant_kernel_rejects_bad_arguments(dev):

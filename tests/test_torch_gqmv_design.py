@@ -2,9 +2,10 @@
 its partition and order of f32 sums emulated in numpy on the CPU and held
 against the reference package's oracle ``gqmv_int3_ref``; its 48-byte
 unpacking against the port's ``unpack_int3``; its constants and the choice
-between the streamed designs (int4, int3, fp8) and the first design against
-the CUDA source (the kernels themselves run in tests/test_torch_cuda.py on
-the card; int4's and fp8's emulation is tests/test_torch_gqmv_stream_formats.py).
+between the streamed designs (int4, int3, fp8, int8) and the first design
+against the CUDA source (the kernels themselves run in
+tests/test_torch_cuda.py on the card; int4's, fp8's and int8's emulation is
+tests/test_torch_gqmv_stream_formats.py).
 
 The partition: a lane takes a chunk of 128 logical weights (48 bytes); a
 half-warp of 16 lanes a piece of 16 chunks of one row; a CTA 16 pieces,
@@ -154,11 +155,11 @@ def test_a_48_byte_chunk_unpacks_like_unpack_int3():
 
 
 def test_design_choice_by_shape_and_alignment():
-    """The streamed design takes 16-byte aligned int3, int4 and fp8 rows with
-    n a multiple of 128 up to STREAM_MAX_N; a misaligned layer slice of a
-    stacked leaf, n 1056 at GS 32 and wider rows run the first design, as
-    does every int8 GQMV."""
-    for fmt in ("int3", "int4", "fp8"):
+    """The streamed design takes 16-byte aligned int3, int4, fp8 and int8
+    rows with n a multiple of 128 up to STREAM_MAX_N (or up to a smaller
+    width a timing run set); a misaligned layer slice of a stacked leaf, n
+    1056 at GS 32 and wider rows run the first design."""
+    for fmt in ("int3", "int4", "fp8", "int8"):
         for _, _, n in PROJECTIONS:
             assert gqmv.gqmv_design(n, fmt) == "stream"
         assert gqmv.gqmv_design(1056, fmt) == "first"
@@ -172,7 +173,10 @@ def test_design_choice_by_shape_and_alignment():
             assert gqmv.gqmv_design(round(wq.shape[1] * pack), fmt, aligned) == "first"
         assert not all(leaf[i].qvalues.data_ptr() % 16 == 0 for i in range(3))
     for _, _, n in PROJECTIONS:
-        assert gqmv.gqmv_design(n, "int8") == "first"
+        assert gqmv.gqmv_design(n, "int8") == "stream"
+        assert gqmv.gqmv_design(n, "int8", stream_max_n=0) == "first"
+        assert gqmv.gqmv_design(n, "int8", stream_max_n=n) == "stream"
+        assert gqmv.gqmv_design(n, "int8", stream_max_n=n - 128) == "first"
 
 
 def _cuda_int(name: str) -> int:
@@ -187,23 +191,44 @@ def test_stream_constants_mirror_the_cuda_source():
     assert gqmv.STREAM_PIECES == gqmv.STREAM_THREADS // gqmv.STREAM_LANES
     assert "kStreamMaxN = kStreamPieces * kStreamLanes * kStreamChunk;" in SRC
     assert "static constexpr int kVecs = 3;" in SRC and CHUNK_BYTES == 3 * 16
-    # each loader's 16-byte loads a lane; fp8's blocks and warp slices
-    for loader, fmt in (("StreamInt3", "int3"), ("StreamInt4", "int4"), ("StreamFp8", "fp8")):
+    # each loader's 16-byte loads a lane; the tensor-core variant's blocks
+    # and warp slices
+    for loader, fmt in (("StreamInt3", "int3"), ("StreamInt4", "int4"), ("StreamFp8", "fp8"),
+                        ("StreamInt8", "int8")):
         body = SRC[SRC.index(f"struct {loader} {{"):]
         body = body[:body.index("\n};")]
         assert f"static constexpr int kVecs = {gqmv.STREAM_CHUNK_BYTES[fmt] // 16};" in body
-    assert _cuda_int("kFp8Rows") == gqmv.FP8_ROWS
-    assert _cuda_int("kFp8Slice") == gqmv.FP8_SLICE
-    # the choice by pointer and shape, and the CTAs' shared memory
+    assert _cuda_int("kBlockRows") == gqmv.BLOCK_ROWS
+    assert _cuda_int("kBlockSlice") == gqmv.BLOCK_SLICE
+    # the block variant's loaders' staged activation bytes, and its grid:
+    # as many CTAs as the card holds, each but the last as many blocks
+    for loader, fmt in (("StreamFp8", "fp8"), ("StreamInt8", "int8")):
+        body = SRC[SRC.index(f"struct {loader} {{"):]
+        body = body[:body.index("\n};")]
+        assert f"static constexpr int kXBytes = {gqmv.STREAM_X_BYTES[fmt]};" in body
+        assert "static constexpr bool kBlock = true;" in body
+    assert "const int per = (blocks + cap - 1) / cap;" in SRC
+    assert "cfg.gridDim = dim3((blocks + per - 1) / per);" in SRC
+    for blocks in range(1, 3000, 37):
+        for cap in (132, 264, 396):
+            grid = gqmv.stream_block_grid(blocks, cap)
+            per = -(-blocks // grid)
+            assert grid <= cap and (grid - 1) * per < blocks <= grid * per
+            assert per == -(-blocks // cap)
+    # the choice by pointer and shape (the widest row a timing knob can only
+    # narrow), and the CTAs' shared memory
     assert ("(reinterpret_cast<uintptr_t>(wq) & 15) == 0 && n % kStreamChunk == 0 &&\n"
-            "         n <= kStreamMaxN;") in SRC
+            "         n <= g_stream_max_n;") in SRC
+    assert "int g_stream_max_n = kStreamMaxN;" in SRC
+    assert "g_stream_max_n = n < kStreamMaxN ? n : kStreamMaxN;" in SRC
     assert "return (size_t)n + 4 * (size_t)ng + 4 * kStreamPieces;" in SRC
-    assert ("return 2 * (size_t)n + 4 * (size_t)ng + 4 * (size_t)kFp8Rows * "
-            "((n + kFp8Slice - 1) / kFp8Slice);") in SRC
+    assert ("return (size_t)xbytes * n + 4 * (size_t)ng +\n"
+            "         4 * (size_t)kBlockRows * ((n + kBlockSlice - 1) / kBlockSlice);") in SRC
     assert gqmv.stream_smem_bytes(5632, 22, "fp8") == 2 * 5632 + 4 * 22 + 4 * 16 * 22
-    # int4, int3 and fp8 GQMV run it; int8's keeps the first design
+    assert gqmv.stream_smem_bytes(5632, 22, "int8") == 5632 + 4 * 22 + 4 * 16 * 22
+    # every format's GQMV runs it, with its first design for the other rows
     for fmt, loader, first in (("int4", "StreamInt4", "Int4Weights"),
                                ("int3", "StreamInt3", "Int3Weights"),
-                               ("fp8", "StreamFp8", "Fp8Weights")):
+                               ("fp8", "StreamFp8", "Fp8Weights"),
+                               ("int8", "StreamInt8", "Int8Weights")):
         assert f"GQMV_ENTRY_POINT({fmt}, (run_gqmv_stream<{loader}, {first}>))" in SRC
-    assert "GQMV_ENTRY_POINT(int8, run_gqmv<Int8Weights>)" in SRC
