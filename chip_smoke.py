@@ -66,7 +66,14 @@ printing no result, when CUDA is missing. Phases, each fatal on failure:
 3. serve:    full-width TinyLlama-1.1B (22 layers, d 2048, bf16, weights
              from the port's own init_lm) through InferenceEngine.generate:
              batch 4, prompt 64, 32 greedy tokens, once with int8 weights and
-             once each with int4, int3, fp8, mixed and mixed3. The GQMM
+             once each with int4, int3, fp8, mixed and mixed3. generate
+             replays its captured programs (serving/graphs.py: the prefill
+             once, the decode step 32 times); its tokens must equal an eager
+             prefill + decode_step loop's exactly, and one replayed decode
+             step must count one pass's launches. Eager and replayed wall
+             times, the replayed programs' device times (CUDA events), the
+             captures (count, seconds, graph-pool bytes) and the decode
+             step graph's nodes and programmatic edges are printed. The GQMM
              launch count must be 89 per forward pass (4 per layer x 22 +
              classifier): all of the weight format's kernel, or for the
              presets 88 of the packed format's and 1 of int8's (the
@@ -98,7 +105,10 @@ printing no result, when CUDA is missing. Phases, each fatal on failure:
 5. ragged:   the serve CLI's --ragged path at full width: the phase-3 model
              through serve_ragged with 16 requests (prompts 16-192 tokens,
              budgets 8-64, seed 0), 8 slots, chunk 4, block size 8, in paged
-             mode with float, int8 and fp8 KV pools and in continuous mode.
+             mode with float, int8 and fp8 KV pools, in continuous mode and
+             in bucketed mode: each once cold (capturing its programs), then
+             replayed (timed), then eagerly (serving/graphs.eager), whose
+             tokens and launch counts must equal the replayed pass's.
              Each paged pass must launch the paged-attention op exactly
              22 x its decode steps. A paged pass on the plain versions gives
              the token agreement, one paged decode step of 8 rows the logits
@@ -112,7 +122,8 @@ printing no result, when CUDA is missing. Phases, each fatal on failure:
              tokens) under blockwise_attention, deferred_decode_cache and
              kvt_cache_layout: 22 flash launches per prefill, first-step
              logits within 5e-2 * max|logit| of the plain versions, tokens
-             beside phase 3's, decode timing and a profiled step; (b) one
+             beside phase 3's and equal to an eager decode_step loop's,
+             decode timing (replayed and eager) and a profiled step; (b) one
              1 x 2048 prefill under blockwise_attention with prefill_dequant
              around it: 22 flash launches, no GQMM, its device time split
              into flash attention, float products and elementwise work;
@@ -128,8 +139,10 @@ printing no result, when CUDA is missing. Phases, each fatal on failure:
              flash kernel's f32 order moves one int8 activation of layer 0's
              wo input across a .5 tie, as ROADMAP Queue C records).
 
-Every time is printed beside the card's name and power limit from
-nvidia-smi. The lines before the last are a JSON object of the kernels (13
+A [graphs] line sums up eager against replayed: int8 decode ms/step wall
+and on the card with the busy share, the 4 x 64 prefill, the ragged tok/s,
+the captures and the graph pools. Every time is printed beside the card's
+name and power limit from nvidia-smi. The lines before the last are a JSON object of the kernels (13
 entries: B4 has a tensor-core and an f32 entry; the paged entries carry the
 b = 32, MB*BS 2048 row beside the serve's shape), then the card's name and
 power limit; the last line is
@@ -186,6 +199,7 @@ from repro_torch.serving.batching import (  # noqa: E402
     serve_ragged,
     slot_scheduler,
 )
+from repro_torch.serving import graphs  # noqa: E402
 from repro_torch.serving.engine import InferenceEngine  # noqa: E402
 from repro_torch.serving.paged import paged_scheduler  # noqa: E402
 
@@ -318,6 +332,10 @@ PAGED_HD256 = {"kv": 4, "g": 2, "hd": 256, "b": 3, "bs": 8, "widths": (256, 2048
 PAGED_MAIN = {"b": 8, "bs": 8, "T": 256, "qdtype": "bfloat16", "softcap": None}
 PAGED_LARGE = {"b": 32, "bs": 8, "T": 2048, "qdtype": "bfloat16", "softcap": None}
 # phase 5: the ragged trace at full width
+# the ragged passes run cold (capturing), replayed and eager: (name, KV pool, mode)
+RAGGED_REPLAYED = (("paged_float", None, "paged"), ("paged_int8", "int8", "paged"),
+                   ("paged_fp8", "fp8", "paged"), ("continuous", None, "continuous"),
+                   ("bucketed", None, "bucketed"))
 RAGGED = {"requests": 16, "prompt_lens": (16, 192), "budgets": (8, 64), "seed": 0,
           "slots": 8, "chunk": 4, "block_size": 8}
 SOURCES = {**{f"{k}_{f}": "src/repro_torch/csrc/gqmm.cu" for f in WEIGHT_FORMATS
@@ -1157,6 +1175,28 @@ def launches_per_pass(cfg, quantize) -> dict[str, int]:
     return out
 
 
+def step_loop(engine, batch, n: int) -> tuple[torch.Tensor, float, float]:
+    """Greedy tokens (b, n) of an eager ``prefill`` + ``decode_step`` loop
+    with a host-side position counter, n decode steps as generate runs
+    (the last one's token dropped); the prefill's and the steps' wall
+    seconds."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = engine.prefill(batch)
+    tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = [tok]
+    p = batch["tokens"].shape[1]
+    for i in range(n):
+        logits, cache = engine.decode_step(tok, cache, p + i)
+        tok = logits.argmax(-1)
+        out.append(tok)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return torch.stack(out[:n], 1).cpu(), t1 - t0, t2 - t1
+
+
 def phase_serve(dev, rows, model, params, quantize) -> tuple[dict, InferenceEngine]:
     """Full-width generate with one weight setting: launches per pass,
     timing, logits against the plain versions, the profiler's view of a
@@ -1206,6 +1246,34 @@ def phase_serve(dev, rows, model, params, quantize) -> tuple[dict, InferenceEngi
     if not bool(torch.isfinite(res.logits_last).all()):
         raise AssertionError("non-finite logits")
 
+    # the captured programs against eager execution on the card: the replayed
+    # tokens must equal an eager decode_step loop's (the same kernels in the
+    # same order), and one replayed decode step counts one pass's launches
+    pre_prog, dec_prog = engine.graphs.last["generate.prefill"], engine.graphs.last[
+        "generate.decode"]
+    replayed_gqmm = {k: n for _, k, n in dec_prog.launches if k.startswith("gqm")}
+    if replayed_gqmm != per_pass:
+        raise AssertionError(f"{tag}: a replayed decode step launches {replayed_gqmm}, "
+                             f"expected {per_pass}")
+    eager_toks, t_eager_prefill, t_eager_decode = step_loop(engine, batch,
+                                                            SERVE["max_new_tokens"])
+    if not torch.equal(eager_toks, toks):
+        raise AssertionError(f"{tag}: replayed tokens differ from the eager decode_step "
+                             f"loop's:\n replayed {toks.tolist()}\n eager {eager_toks.tolist()}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pre_prog.replay()
+    torch.cuda.synchronize()
+    t_prefill_replay = time.perf_counter() - t0
+    p0 = SERVE["prompt_len"]
+    dec_dev, dec_host = device_time_ms(lambda i: (dec_prog.load(pos=p0) if i == 0 else None,
+                                                  dec_prog.replay()), 8, host_ms_guess=0.2)
+    pre_dev, _ = device_time_ms(lambda i: pre_prog.replay(), 2, host_ms_guess=0.2)
+    census = graphs.census(dec_prog)
+    # the replayed step's kernels by the profiler (each run resets the
+    # position first: one fill kernel more than the step)
+    rprof = profile_device(lambda: (dec_prog.load(pos=p0), dec_prog.replay()), 3)
+
     with ops.impl_scope("plain"):
         logits_p, _ = engine.prefill(batch)
         res_p = engine.generate(batch, SERVE["max_new_tokens"])
@@ -1220,35 +1288,63 @@ def phase_serve(dev, rows, model, params, quantize) -> tuple[dict, InferenceEngi
         raise AssertionError(f"{tag}: kernel logits differ from plain by {logit_err:.3e}")
 
     b, p, new = SERVE["batch"], SERVE["prompt_len"], SERVE["max_new_tokens"]
-    t_decode = t_gen - t_prefill
-    out = {"quantize": tag, "prefill_s": t_prefill, "generate_s": t_gen, "decode_s": t_decode,
-           "prefill_tok_s": b * p / t_prefill, "decode_tok_s": b * new / t_decode,
-           "decode_ms_per_step": 1e3 * t_decode / new,
+    # replayed: generate's wall time less one replay of its prefill program;
+    # eager: the decode_step loop's 32 steps, its prefill apart
+    t_decode = t_gen - t_prefill_replay
+    programs = engine.graphs.stats()
+    out = {"quantize": tag, "prefill_s": t_prefill_replay, "generate_s": t_gen,
+           "decode_s": t_decode, "prefill_tok_s": b * p / t_prefill_replay,
+           "decode_tok_s": b * new / t_decode, "decode_ms_per_step": 1e3 * t_decode / new,
+           "decode_device_ms": dec_dev, "decode_replay_host_ms": dec_host,
+           "prefill_device_ms": pre_dev,
+           "replayed_decode_profile": {k: v for k, v in rprof.items() if k != "top"},
+           "eager": {"prefill_s": t_prefill, "prefill_loop_s": t_eager_prefill,
+                     "decode_s": t_eager_decode,
+                     "decode_ms_per_step": 1e3 * t_eager_decode / new,
+                     "decode_tok_s": b * new / t_eager_decode},
+           "programs": programs, "decode_graph": census, "replayed_step_launches": replayed_gqmm,
            "launches": launches, "prefill_launches": prefill_launches, "per_pass": per_pass,
            "logit_rel_err": logit_err, "token_agreement": agree,
            "quantized_fraction": engine.quantized_fraction, "tokens": toks.tolist()}
-    log(f"[serve {tag}] prefill {b}x{p}: {t_prefill * 1e3:.1f} ms ({out['prefill_tok_s']:.0f} "
-        f"tok/s); decode {new} steps: {t_decode * 1e3:.1f} ms ({out['decode_tok_s']:.1f} tok/s, "
-        f"{out['decode_ms_per_step']:.2f} ms/step); GQMM launches "
-        f"{ {k: v for k, v in launches.items() if v} } = {per_pass} x {passes}")
+    log(f"[serve {tag}] replayed: prefill {b}x{p} {t_prefill_replay * 1e3:.2f} ms wall, "
+        f"{pre_dev:.3f} ms on the card; decode {new} steps {t_decode * 1e3:.1f} ms "
+        f"({out['decode_tok_s']:.1f} tok/s, {out['decode_ms_per_step']:.3f} ms/step wall, "
+        f"{dec_dev:.3f} ms/step on the card, {100 * dec_dev / out['decode_ms_per_step']:.1f} % "
+        f"busy; the profiler: {rprof['device_ms']:.3f} ms in {rprof['kernels']} kernels; "
+        f"the host enqueues a replay in {dec_host:.3f} ms); "
+        f"GQMM launches { {k: v for k, v in launches.items() if v} } = {per_pass} x {passes} "
+        f"[{CARD['smi']}]")
+    log(f"[serve {tag}] eager (decode_step loop, tokens equal the replay's): prefill "
+        f"{t_prefill * 1e3:.1f} ms wall; decode {out['eager']['decode_ms_per_step']:.2f} ms/step "
+        f"wall ({out['eager']['decode_tok_s']:.1f} tok/s)")
+    log(f"[serve {tag}] programs: " + "; ".join(
+        f"{name} {st['captured']} captured, capture {st['capture_s']:.3f} s (warm-up "
+        f"{st['warmup_s']:.3f} s), graph pool {st['pool_bytes'] / 2**20:.0f} MiB"
+        for name, st in sorted(programs.items()))
+        + f"; the decode step's graph: {census['kernel_nodes']} kernel nodes of "
+        f"{census['nodes']}, {census['edges']} edges, {census['programmatic_edges']} "
+        "programmatic")
 
     # where the card's time goes: kernel time by name from the profiler
     logits0, cache = engine.prefill(batch)
     tok0 = logits0.argmax(-1)
     steps = iter(range(p, p + 8))
     dec = profile_device(lambda: engine.decode_step(tok0, cache, next(steps)), 3)
+    eager_ms = out["eager"]["decode_ms_per_step"]
     out.update({"decode_profile": dec,
-                "decode_device_busy_share": dec["device_ms"] / out["decode_ms_per_step"]})
-    msg = (f"[serve {tag}] profiler: decode step {dec['device_ms']:.3f} ms of device time "
-           f"({100 * out['decode_device_busy_share']:.1f} % of the "
-           f"{out['decode_ms_per_step']:.2f} ms step), GQMM {dec['gqmm_ms']:.3f} ms, "
-           f"{dec['kernels']} kernels")
+                "decode_device_busy_share": dec_dev / out["decode_ms_per_step"]})
+    out["eager"]["decode_device_busy_share"] = dec["device_ms"] / eager_ms
+    msg = (f"[serve {tag}] profiler: eager decode step {dec['device_ms']:.3f} ms of device "
+           f"time ({100 * out['eager']['decode_device_busy_share']:.1f} % of the "
+           f"{eager_ms:.2f} ms eager step), GQMM {dec['gqmm_ms']:.3f} ms, {dec['kernels']} kernels")
     if quantize is True:
         pre = profile_device(lambda: engine.prefill(batch), 1)
         out.update({"prefill_profile": pre,
-                    "prefill_device_busy_share": pre["device_ms"] / (1e3 * t_prefill)})
-        msg += (f"; prefill {pre['device_ms']:.3f} ms ({100 * out['prefill_device_busy_share']:.1f}"
-                f" % busy), GQMM {pre['gqmm_ms']:.3f} ms")
+                    "prefill_device_busy_share": pre_dev / (1e3 * t_prefill_replay)})
+        out["eager"]["prefill_device_busy_share"] = pre["device_ms"] / (1e3 * t_prefill)
+        msg += (f"; eager prefill {pre['device_ms']:.3f} ms "
+                f"({100 * out['eager']['prefill_device_busy_share']:.1f} % busy), GQMM "
+                f"{pre['gqmm_ms']:.3f} ms")
     log(msg)
     for name, ms in dec["top"]:
         log(f"[serve {tag}]   decode {ms:8.4f} ms/step  {name[:90]}")
@@ -1324,16 +1420,20 @@ def _ragged_pass(engine, reqs, mode: str, **kw) -> tuple[list, dict]:
     pkern.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = serve_ragged(engine, reqs, RAGGED["budgets"][1], mode=mode, **sk)
+    out = serve_ragged(engine, reqs, RAGGED["budgets"][1], mode=mode,
+                       **(sk if mode != "bucketed" else {}))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {**kern.LAUNCHES, **pkern.LAUNCHES}
-    sched = paged_scheduler(engine, **sk) if mode == "paged" else slot_scheduler(engine, **sk)
     toks = _served(reqs, out, engine.cfg.vocab_padded)
     info = {"mode": mode, "kv": engine.cfg.kv_quant or "float", "wall_s": wall, "tokens": toks,
-            "tok_s": toks / wall, "rounds": sched.last_rounds,
-            "decode_steps": sched.last_decode_steps, "ms_per_round": 1e3 * wall / sched.last_rounds,
-            "ms_per_decode_step": 1e3 * wall / sched.last_decode_steps, "launches": launches}
+            "tok_s": toks / wall, "launches": launches}
+    if mode == "bucketed":                  # one generate per bucket: no rounds
+        return out, info
+    sched = paged_scheduler(engine, **sk) if mode == "paged" else slot_scheduler(engine, **sk)
+    info.update({"rounds": sched.last_rounds, "decode_steps": sched.last_decode_steps,
+                 "ms_per_round": 1e3 * wall / sched.last_rounds,
+                 "ms_per_decode_step": 1e3 * wall / sched.last_decode_steps})
     if mode == "paged":
         info.update(peak_blocks=sched.last_peak_blocks, pool_blocks=sched.num_blocks - 1,
                     footprint_blocks=RAGGED["slots"] * sched.blocks_per_req)
@@ -1385,21 +1485,34 @@ def phase_ragged(dev, engine0, engine_fmt) -> dict:
     engines = {kvq: InferenceEngine(engine0.model, engine0.params, cache_len=cache_len,
                                     kv_quant=kvq, device=dev) for kvq in (None, "int8", "fp8")}
     warm = [Request(r.id, r.tokens, max_new=3) for r in reqs[:2]]
-    for eng in engines.values():
-        serve_ragged(eng, warm, 3, mode="paged", slots=RAGGED["slots"], chunk=RAGGED["chunk"],
-                     block_size=RAGGED["block_size"])
-    serve_ragged(engines[None], warm, 3, mode="continuous", slots=RAGGED["slots"],
-                 chunk=RAGGED["chunk"])
     log(f"[ragged] {len(reqs)} requests, prompt lengths {sorted(len(r.tokens) for r in reqs)}, "
         f"budgets {sorted(r.max_new for r in reqs)}; cache_len {cache_len}, slots "
         f"{RAGGED['slots']}, chunk {RAGGED['chunk']}, block size {RAGGED['block_size']}")
+    # cold passes: the whole trace once per engine and mode, capturing every
+    # program it needs (a decode step, a prefill per group size and bucket
+    # length; generate's two programs per bucket)
+    cold = {}
+    for name, kvq, mode in RAGGED_REPLAYED:
+        _, cold[name] = _ragged_pass(engines[kvq], reqs, mode)
+    programs = {kvq or "float": engines[kvq].graphs.stats() for kvq in engines}
+    for k, stats in programs.items():
+        log(f"[ragged] programs of the {k}-pool engine: " + "; ".join(
+            f"{name} {st['captured']} captured in {st['capture_s']:.2f} s (warm-ups "
+            f"{st['warmup_s']:.2f} s), graph pool {st['pool_bytes'] / 2**20:.0f} MiB"
+            for name, st in sorted(stats.items())))
+    census = graphs.census(engines[None].graphs.last["paged.decode"])
+    log(f"[ragged] the paged decode step's graph: {census['kernel_nodes']} kernel nodes of "
+        f"{census['nodes']}, {census['edges']} edges, {census['programmatic_edges']} "
+        "programmatic (the paged kernel's dependent launches)")
 
     passes, outs = {}, {}
 
     def show(name, info, extra=""):
+        rounds = ("" if "rounds" not in info else
+                  f"; {info['rounds']} rounds ({info['ms_per_round']:.1f} ms each), "
+                  f"{info['decode_steps']} decode steps")
         log(f"[ragged] {name:13s} {info['tokens']} tokens in {info['wall_s']:.2f} s "
-            f"({info['tok_s']:.1f} tok/s, prefill included); {info['rounds']} rounds "
-            f"({info['ms_per_round']:.1f} ms each), {info['decode_steps']} decode steps; "
+            f"({info['tok_s']:.1f} tok/s, prefill included){rounds}; "
             f"GQMM { {k: v for k, v in info['launches'].items() if v and 'gqm' in k} }, paged_attn "
             f"{info['launches']['paged_attn']}, paged_attn_quant "
             f"{info['launches']['paged_attn_quant']}"
@@ -1419,7 +1532,7 @@ def phase_ragged(dev, engine0, engine_fmt) -> dict:
         name = f"paged_{kvq or 'float'}"
         outs[name], passes[name] = _ragged_pass(engines[kvq], reqs, "paged")
         check_launches(name, passes[name], "paged_attn" if kvq is None else "paged_attn_quant")
-        show(name, passes[name])
+        show(name, passes[name], f" (cold, with captures: {cold[name]['tok_s']:.1f} tok/s)")
     outs["continuous"], passes["continuous"] = _ragged_pass(engines[None], reqs, "continuous")
     if passes["continuous"]["launches"]["paged_attn"]:
         raise AssertionError("the continuous pass launched the paged-attention kernel")
@@ -1427,6 +1540,28 @@ def phase_ragged(dev, engine0, engine_fmt) -> dict:
     show("continuous", passes["continuous"],
          "; token agreement with paged float/int8/fp8 "
          + "/".join(f"{agree[f'paged_{k}']:.4f}" for k in ("float", "int8", "fp8")))
+    outs["bucketed"], passes["bucketed"] = _ragged_pass(engines[None], reqs, "bucketed")
+    agree["bucketed"] = _agreement(outs["bucketed"], outs["continuous"])
+    show("bucketed", passes["bucketed"],
+         f"; token agreement with continuous {agree['bucketed']:.4f}")
+
+    # the same passes run eagerly on the card: tokens equal the replayed
+    # passes' exactly (the same kernels in the same order), and so do the
+    # launch counts
+    eager = {}
+    with graphs.eager():
+        for name, kvq, mode in RAGGED_REPLAYED:
+            out_e, eager[name] = _ragged_pass(engines[kvq], reqs, mode)
+            same = all(np.array_equal(a.tokens, b.tokens) and a.length == b.length
+                       for a, b in zip(out_e, outs[name]))
+            if not same or eager[name]["launches"] != passes[name]["launches"]:
+                raise AssertionError(f"{name}: the eager pass differs from the replayed one "
+                                     f"(tokens equal: {same}; launches "
+                                     f"{eager[name]['launches']} vs "
+                                     f"{passes[name]['launches']})")
+            log(f"[ragged] {name:13s} eager {eager[name]['tok_s']:.1f} tok/s, replayed "
+                f"{passes[name]['tok_s']:.1f} tok/s: tokens and launches equal "
+                f"[{CARD['smi']}]")
 
     with ops.impl_scope("plain"):
         outs["paged_plain"], passes["paged_plain"] = _ragged_pass(engines[None], reqs, "paged")
@@ -1474,6 +1609,7 @@ def phase_ragged(dev, engine0, engine_fmt) -> dict:
             f"{p['paged_kernels']} kernels (split passes and combines), GQMM "
             f"{p['gqmm_ms']:.3f} ms, {p['kernels']} kernels [{CARD['smi']}]")
     return {"cache_len": cache_len, "passes": passes, "agreement": agree,
+            "cold": cold, "eager": eager, "programs": programs, "paged_graph": census,
             "first_step": logits,
             "trace": [{"len": len(r.tokens), "max_new": r.max_new} for r in reqs]}
 
@@ -1551,6 +1687,16 @@ def phase_flags(dev, engine, serve3) -> dict:
         if toks.shape != (SERVE["batch"], SERVE["max_new_tokens"]) or not bool(
                 torch.isfinite(res.logits_last).all()):
             raise AssertionError(f"flags generate: bad output {tuple(toks.shape)}")
+        pre_prog = engine.graphs.last["generate.prefill"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pre_prog.replay()
+        torch.cuda.synchronize()
+        t_prefill_replay = time.perf_counter() - t0
+        eager_toks, _, t_eager_decode = step_loop(engine, batch, SERVE["max_new_tokens"])
+        if not torch.equal(eager_toks, toks):
+            raise AssertionError("flags generate: replayed tokens differ from the eager "
+                                 "decode_step loop's")
         with ops.impl_scope("plain"):
             (logits_p, _), plain_flash, _ = _flash_launches(lambda: engine.prefill(batch))
             res_p = engine.generate(batch, SERVE["max_new_tokens"])
@@ -1564,8 +1710,9 @@ def phase_flags(dev, engine, serve3) -> dict:
         tok0 = logits0.argmax(-1)
         _, cache = engine.prefill(batch)
         dec = profile_device(lambda: engine.decode_step(tok0, cache, next(steps)), 3)
-    t_decode = t_gen - t_prefill
+    t_decode = t_gen - t_prefill_replay
     ms_step = 1e3 * t_decode / SERVE["max_new_tokens"]
+    eager_ms = 1e3 * t_eager_decode / SERVE["max_new_tokens"]
     base = torch.as_tensor(serve3["tokens"])
     out["generate"] = {
         "flash_launches_prefill": pre_flash, "flash_launches_generate": gen_flash,
@@ -1573,7 +1720,8 @@ def phase_flags(dev, engine, serve3) -> dict:
         "logit_rel_err": logit_err,
         "token_agreement_plain": (toks == res_p.tokens).float().mean().item(),
         "token_agreement_phase3": (toks == base).float().mean().item(),
-        "prefill_s": t_prefill, "generate_s": t_gen, "decode_ms_per_step": ms_step,
+        "prefill_s": t_prefill, "prefill_replay_s": t_prefill_replay, "generate_s": t_gen,
+        "decode_ms_per_step": ms_step, "eager_decode_ms_per_step": eager_ms,
         "decode_profile": dec, "decode_device_busy_share": dec["device_ms"] / ms_step,
         "phase3_decode_ms_per_step": serve3["decode_ms_per_step"]}
     g = out["generate"]
@@ -1582,10 +1730,11 @@ def phase_flags(dev, engine, serve3) -> dict:
         f"{kv_shape}; first-step logits kernel vs plain {logit_err:.3e} (tol {LOGIT_TOL}); "
         f"greedy agreement with plain {g['token_agreement_plain']:.4f}, with phase 3's "
         f"default-flag run {g['token_agreement_phase3']:.4f}")
-    log(f"[flags] prefill {1e3 * t_prefill:.1f} ms; decode {ms_step:.2f} ms/step (phase 3: "
-        f"{serve3['decode_ms_per_step']:.2f}); profiler: decode step {dec['device_ms']:.3f} ms "
-        f"of device time ({100 * g['decode_device_busy_share']:.1f} % busy), GQMM "
-        f"{dec['gqmm_ms']:.3f} ms, {dec['kernels']} kernels")
+    log(f"[flags] prefill {1e3 * t_prefill:.1f} ms eager, {1e3 * t_prefill_replay:.2f} ms "
+        f"replayed; decode {ms_step:.3f} ms/step replayed, {eager_ms:.2f} eager (tokens equal; "
+        f"phase 3 replayed: {serve3['decode_ms_per_step']:.3f}); profiler: eager decode step "
+        f"{dec['device_ms']:.3f} ms of device time ({100 * g['decode_device_busy_share']:.1f} % "
+        f"of the replayed step), GQMM {dec['gqmm_ms']:.3f} ms, {dec['kernels']} kernels")
 
     # (b) one long prompt: blockwise attention, prefill_dequant around the prefill only
     gen = torch.Generator(device=dev).manual_seed(8)
@@ -2100,6 +2249,27 @@ def main(argv=None) -> int:
     del engines
     golden = phase_golden(dev)
     golden["deep"] = phase_golden_deep(dev)
+
+    s8, pf = serves["int8"], ragged["passes"]["paged_float"]
+    log(f"[graphs] int8, batch {SERVE['batch']}: decode eager {s8['eager']['decode_ms_per_step']:.2f} "
+        f"ms/step wall ({s8['decode_profile']['device_ms']:.3f} on the card, "
+        f"{100 * s8['eager']['decode_device_busy_share']:.1f} % busy), replayed "
+        f"{s8['decode_ms_per_step']:.3f} ms/step wall ({s8['decode_device_ms']:.3f} on the card, "
+        f"{100 * s8['decode_device_busy_share']:.1f} % busy); prefill {SERVE['batch']}x"
+        f"{SERVE['prompt_len']} eager {1e3 * s8['eager']['prefill_s']:.1f} ms wall "
+        f"({s8['prefill_profile']['device_ms']:.3f} on the card), replayed "
+        f"{1e3 * s8['prefill_s']:.2f} ms wall ({s8['prefill_device_ms']:.3f} on the card); "
+        f"ragged paged bf16 pool eager {ragged['eager']['paged_float']['tok_s']:.1f} tok/s, "
+        f"replayed {pf['tok_s']:.1f} tok/s; captures: generate "
+        + ", ".join(f"{k} {v['captured']} ({v['capture_s']:.3f} s)"
+                    for k, v in sorted(s8["programs"].items()))
+        + ", ragged bf16-pool engine " + ", ".join(
+            f"{k} {v['captured']} ({v['capture_s']:.2f} s)"
+            for k, v in sorted(ragged["programs"]["float"].items()))
+        + f"; graph pools {sum(v['pool_bytes'] for v in s8['programs'].values()) / 2**20:.0f} "
+        f"MiB (int8 generate), "
+        f"{sum(v['pool_bytes'] for v in ragged['programs']['float'].values()) / 2**20:.0f} MiB "
+        f"(ragged bf16-pool engine) [{CARD['smi']}]")
 
     smi = card()
     entries = kernel_entries(rows, gsrows + tcrows + mvrows, serves, prows, ragged, frows,

@@ -89,6 +89,12 @@ def impl_scope(impl: str):
         _SCOPE["impl"] = prev
 
 
+def scope_impl() -> str:
+    """The implementation the enclosing :func:`impl_scope` sets ('auto'
+    outside any): part of a captured program's key (``serving/graphs.py``)."""
+    return _SCOPE["impl"]
+
+
 def _resolve(impl: str | None, t: torch.Tensor) -> str:
     impl = _SCOPE["impl"] if impl is None else impl
     if impl not in IMPLS:

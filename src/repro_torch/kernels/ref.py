@@ -186,7 +186,9 @@ def paged_attention_ref(
     attn = torch.softmax(scores, dim=-1)
     attn_cur = attn[rows, :, :, pos][..., None].to(q.dtype)       # (b, KV, G, 1)
     attn_z = attn.clone()
-    attn_z[rows, :, :, pos] = 0.0
+    # a device zero: a Python scalar would be copied from the host, which a
+    # captured program (serving/graphs.py) cannot record
+    attn_z[rows, :, :, pos] = attn_z.new_zeros(())
     if quant:
         attn_z = attn_z * vs.permute(0, 2, 1)[:, :, None, :]
         v = v.to(q.dtype)

@@ -8,6 +8,9 @@ call) and hot: a uniform batch through ``InferenceEngine.generate``, or
 with ``--ragged`` a mixed-length trace through ``serve_ragged`` (``--mode``
 auto/paged/continuous/bucketed, ``--slots``, ``--block-size``). Runs on
 ``--device cuda`` by default; pass ``--device cpu`` to run on the CPU.
+Prints the captured programs by name (``serving/graphs.py``): how many, and
+their warm-up and capture seconds (on the CPU the programs run eagerly and
+none is captured).
 """
 
 from __future__ import annotations
@@ -29,6 +32,13 @@ def _timed(engine: InferenceEngine, batch, steps: int):
     t0 = time.perf_counter()
     res = engine.generate(batch, steps)     # tokens come back to the host: synchronised
     return res, time.perf_counter() - t0
+
+
+def _report_programs(engine: InferenceEngine) -> None:
+    for name, st in sorted(engine.graphs.stats().items()):
+        print(f"program {name}: {st['builds']} built, {st['captured']} captured "
+              f"(warm-up {st['warmup_s']:.2f}s, capture {st['capture_s']:.2f}s, "
+              f"graph pool {st['pool_bytes'] / 1e6:.1f}MB)")
 
 
 def main(argv=None):
@@ -105,6 +115,7 @@ def main(argv=None):
         print(f"ragged ({mode}, lengths {sorted(lengths.tolist())}): "
               f"{toks} tokens in {hot:.2f}s ({toks / hot:.2f} tok/s)")
         print("first sequence:", out[0].tokens[:16].tolist())
+        _report_programs(engine)
         return out
 
     batch = {"tokens": torch.as_tensor(
@@ -115,6 +126,7 @@ def main(argv=None):
     print(f"generated {toks} tokens: warm {warm:.2f}s, hot {hot:.2f}s "
           f"({toks / hot:.2f} tok/s)")
     print("first sequence:", res.tokens[0, :16].tolist())
+    _report_programs(engine)
     return res
 
 

@@ -53,7 +53,7 @@ class Model:
     init: Callable               # (seed=0, device="cuda") -> params
     forward: Callable            # (params, batch, remat=True) -> logits (b, s, vocab_padded)
     init_cache: Callable         # (batch, cache_len, dtype, device) -> cache
-    prefill: Callable            # (params, batch, cache_len) -> (logits, cache)
+    prefill: Callable            # (params, batch, cache_len, cache=None) -> (logits, cache)
     decode: Callable             # (params, token, cache, pos) -> (logits, cache)
     # the reference's capability surface (see repro.models.registry.Model)
     supports_lengths: bool = False
@@ -75,9 +75,9 @@ def build(cfg: ModelConfig) -> Model:
     def forward(params, batch, remat=True):
         return _tf.lm_forward(params, batch["tokens"], cfg, remat=remat)
 
-    def prefill(params, batch, cache_len):
+    def prefill(params, batch, cache_len, cache=None):
         return _tf.lm_prefill(params, batch["tokens"], cfg, cache_len,
-                              lengths=batch.get("lengths"))
+                              lengths=batch.get("lengths"), cache=cache)
 
     return Model(
         cfg=cfg,

@@ -191,16 +191,19 @@ def contiguous_to_paged(cache: dict, block_size: int):
 
 
 def lm_prefill(params, tokens: torch.Tensor, cfg: ModelConfig, cache_len: int,
-               lengths: torch.Tensor | None = None):
+               lengths: torch.Tensor | None = None, cache: dict | None = None):
     """Prompt pass: returns (last-position logits, populated cache).
 
     ``lengths`` (b,) enables ragged right-padded prompts: pad keys are
     masked (their cached K/V rows zeroed) and row i's logits are taken at
-    position lengths[i]-1."""
+    position lengths[i]-1. ``cache``, an ``lm_init_cache`` tree of these
+    shapes, is written in place (every slot of it) instead of a new one: a
+    captured prefill's static cache (serving/graphs.py)."""
     _check_ported(cfg)
     x = _embed(params, tokens, cfg)
     b = x.shape[0]
-    cache = lm_init_cache(cfg, b, cache_len, x.dtype, x.device)
+    if cache is None:
+        cache = lm_init_cache(cfg, b, cache_len, x.dtype, x.device)
     names = ("k_q", "k_s", "v_q", "v_s") if attn.kv_quant_format(cfg) else ("k", "v")
     for i in range(cfg.num_layers):
         lp = tree_index(params["layers"], i)

@@ -14,14 +14,18 @@ decode state is laid out and addressed:
   blocks are allocated on demand and reclaimed the step a slot finishes.
 
 ``SchedulerCore`` owns the queue, the slots, the budgets and the Response
-finalization; adapters own the device work (prefill, insert, decode).
-Adapters return device tensors and the core makes the host transfers: one
-per admission wave (the first tokens) and one per decode round (the
-round's tokens). Positions advance on the host by the round's step count,
-so they never cross back. Greedy sampling only. Not ported: speculative
-rounds (``spec_k`` raises, as the reference does for a family without a
-verify path), the repro-san sanitizer hooks and ``RecurrentAdapter`` (no
-recurrent family is ported).
+finalization; adapters own the device work, as captured programs
+(``serving/graphs.py``, the reference's jitted prefill and decode rounds):
+a prefill that scatters its rows into the slots' cache, one program per
+(group size, bucket length), and a decode step replayed once per step of a
+round, over static buffers (token, position, ``live``, the cache) that
+outlive a serve. Adapters return device tensors and the core makes the
+host transfers: one per admission wave (the first tokens) and one per
+decode round (the round's step count and tokens). Positions advance on the
+host by the round's step count, so they never cross back. Greedy sampling
+only. Not ported: speculative rounds (``spec_k`` raises, as the reference
+does for a family without a verify path), the repro-san sanitizer hooks and
+``RecurrentAdapter`` (no recurrent family is ported).
 """
 
 from __future__ import annotations
@@ -111,14 +115,15 @@ class CacheAdapter:
 
       alloc    ``can_admit`` / ``on_admit``  (paged: reservation-gated block
                allocation; contiguous: a free slot is the allocation)
-      insert   ``prefill`` + ``insert``      (batched prefill rows scattered
-               into the admitted slots)
+      insert   ``prefill_insert``            (batched prefill rows scattered
+               into the admitted slots, one program)
       commit   ``decode_round``              (advances the cache in place)
       free     ``on_finish``                 (paged: blocks back to the pool,
                table row sunk)
 
-    ``prefill`` and ``decode_round`` return device tensors; the core makes
-    the host transfers."""
+    The adapter owns its cache: static buffers that outlive a serve.
+    ``prefill_insert`` and ``decode_round`` return device tensors; the core
+    makes the host transfers."""
 
     kind: str = "abstract"
 
@@ -129,8 +134,8 @@ class CacheAdapter:
     def validate(self, requests, budget) -> None:
         """Reject requests that could never be served (capacity/layout)."""
 
-    def begin_serve(self):
-        """Fresh per-serve device cache (plus any host-side pool state)."""
+    def begin_serve(self) -> None:
+        """Reset the static cache (plus any host-side pool state)."""
         raise NotImplementedError
 
     def can_admit(self, r: Request, budget: int) -> bool:
@@ -144,12 +149,11 @@ class CacheAdapter:
         share one batched prefill per distinct value."""
         raise NotImplementedError
 
-    def prefill(self, params, toks: torch.Tensor, lens: torch.Tensor):
-        """Batched prefill + greedy first token -> (first tokens, cache rows)."""
-        raise NotImplementedError
-
-    def insert(self, cache, rows, group, length: int):
-        """Scatter prefill ``rows`` into ``group``'s slots; returns cache."""
+    def prefill_insert(self, params, toks: np.ndarray, lens: np.ndarray, group,
+                       length: int) -> torch.Tensor:
+        """Batched prefill of ``group``'s prompts (right-padded to
+        ``length``), its rows scattered into the group's slots; returns the
+        greedy first tokens (a device copy)."""
         raise NotImplementedError
 
     def before_round(self, pos, live) -> None:
@@ -162,9 +166,12 @@ class CacheAdapter:
         """Decode steps of the next round, from the host's budgets."""
         return self.core.chunk
 
-    def decode_round(self, params, tok, cache, pos, live, steps: int):
-        """Up to ``steps`` decode steps -> (toks (n, b) on the device, n,
-        cache). Frozen slots (``live`` False) keep their token and position."""
+    def decode_round(self, params, tok: np.ndarray, pos: np.ndarray, live: np.ndarray,
+                     steps: int):
+        """``steps`` decode steps from the host's tok/pos/live -> (toks
+        (steps, b), n (1,)), both on the device: the round's tokens, of which
+        the first n are real. Frozen slots (``live`` False) keep their token
+        and position."""
         raise NotImplementedError
 
     def on_finish(self, s: int) -> None:
@@ -178,6 +185,31 @@ class CacheAdapter:
         "table": block-table ndarray | None}`` (the reference's sanitizer
         registration; the sanitizer itself is not ported)."""
         raise NotImplementedError(f"{self.kind}: adapter registers no allocator state")
+
+
+def round_state(engine, slots: int, chunk: int, cache: dict) -> dict:
+    """Static round buffers: token, position and ``live`` per slot, the EOS
+    ``stopped`` flag, the step count ``n``, the round's tokens (chunk, slots)
+    and ``cache``."""
+    dev = engine.device
+    return {"tok": torch.zeros((slots,), dtype=torch.long, device=dev),
+            "pos": torch.zeros((slots,), dtype=torch.long, device=dev),
+            "live": torch.zeros((slots,), dtype=torch.bool, device=dev),
+            "stopped": torch.zeros((1,), dtype=torch.bool, device=dev),
+            "n": torch.zeros((1,), dtype=torch.long, device=dev),
+            "toks": torch.zeros((chunk, slots), dtype=torch.long, device=dev),
+            "cache": cache}
+
+
+def replay_round(prog, st: dict, tok, pos, live, steps: int, **extra):
+    """Load the host's tok/pos/live (and ``extra`` inputs) into ``prog``'s
+    static buffers, replay its one-step program ``steps`` times and keep
+    each step's tokens; returns (toks (steps, b), n) on the device."""
+    prog.load(tok=tok, pos=pos, live=live, stopped=False, n=0, **extra)
+    for i in range(steps):
+        prog.replay()
+        st["toks"][i] = st["tok"]
+    return st["toks"][:steps], st["n"]
 
 
 class ContiguousAdapter(CacheAdapter):
@@ -196,6 +228,14 @@ class ContiguousAdapter(CacheAdapter):
 
     def bind(self, core):
         self.core = core
+        self._key = (core.slots, core.chunk, self.engine.cache_len, core.sampler)
+
+    def _state(self) -> dict:
+        engine, slots = self.engine, self.core.slots
+        return engine.graphs.state("contiguous", self._key, lambda: round_state(
+            engine, slots, self.core.chunk,
+            engine.model.init_cache(slots, engine.cache_len, engine.cfg.cdtype(),
+                                    engine.device)))
 
     def validate(self, requests, budget):
         cache_len = self.engine.cache_len
@@ -207,39 +247,50 @@ class ContiguousAdapter(CacheAdapter):
                     f"needs {need} cache slots but cache_len={cache_len}")
 
     def begin_serve(self):
-        engine = self.engine
-        return engine.model.init_cache(self.core.slots, engine.cache_len,
-                                       engine.cfg.cdtype(), engine.device)
+        for leaf in self._state()["cache"].values():
+            leaf.zero_()
 
     def group_len(self, n):
         return bucket_length(n)
 
-    def prefill(self, params, toks, lens):
-        logits, rows = self.engine.model.prefill(
-            params, {"tokens": toks, "lengths": lens}, self.engine.cache_len)
-        return self.core.sample(logits), rows
+    def prefill_insert(self, params, toks, lens, group, length):
+        st, model, sample = self._state(), self.engine.model, self.core.sample
+        cache_len, bg, dev = self.engine.cache_len, len(group), self.engine.device
 
-    def insert(self, cache, rows, group, length):
-        del length
-        slots = torch.tensor([s for s, _ in group], device=self.engine.device)
-        return self.engine.model.insert_slots(cache, rows, slots)
+        def prefill(tokens, lengths, slots, cache):
+            logits, rows = model.prefill(params, {"tokens": tokens, "lengths": lengths},
+                                         cache_len)
+            model.insert_slots(cache, rows, slots)
+            return sample(logits)
+
+        prog = self.engine.graphs.program(
+            "contiguous.prefill", self._key + (bg, length), prefill, lambda: {
+                "tokens": torch.zeros((bg, length), dtype=torch.long, device=dev),
+                "lengths": torch.full((bg,), length, dtype=torch.long, device=dev),
+                "slots": torch.arange(bg, device=dev), "cache": st["cache"]})
+        prog.load(tokens=toks, lengths=lens, slots=np.asarray([s for s, _ in group]))
+        return prog.run()
 
     def check_positions(self, pos, live):
         cache_len = self.engine.cache_len
         assert not live.any() or int(pos[live].max()) < cache_len, (
             f"live slot position escaped the cache: {pos[live]} >= cache_len={cache_len}")
 
-    def decode_round(self, params, tok, cache, pos, live, steps):
+    def decode_round(self, params, tok, pos, live, steps):
         # chunk rounds run full length; a slot that finishes mid-chunk idles
         # frozen to the round's end, and budgets are trimmed on the host
-        model, sample = self.engine.model, self.core.sample
-        toks = []
-        for _ in range(steps):
-            logits, cache = model.decode(params, tok, cache, pos)
-            tok = torch.where(live, sample(logits), tok)
-            pos = torch.where(live, pos + 1, pos)
-            toks.append(tok)
-        return torch.stack(toks), steps, cache
+        st, model, sample = self._state(), self.engine.model, self.core.sample
+
+        def step(tok, pos, live, stopped, n, cache):
+            logits, _ = model.decode(params, tok, cache, pos)
+            tok.copy_(torch.where(live, sample(logits), tok))
+            pos.copy_(torch.where(live, pos + 1, pos))
+            n.add_(1)
+
+        prog = self.engine.graphs.program(
+            "contiguous.decode", self._key, step,
+            lambda: {k: st[k] for k in ("tok", "pos", "live", "stopped", "n", "cache")})
+        return replay_round(prog, st, tok, pos, live, steps)
 
     def san_state(self):
         # slot rows are the allocation: no pool, no table
@@ -256,7 +307,8 @@ class SchedulerCore:
 
     Responses always contain exactly the request's budget of tokens;
     sequences that hit EOS early are padded with EOS (``make_response``).
-    Host transfers: one per admission wave and one per decode round."""
+    Host transfers: one per admission wave and one per decode round; the
+    host's tok/pos/live are copied into the adapter's static buffers."""
 
     def __init__(self, engine, adapter: CacheAdapter, *, slots: int = 4, chunk: int = 4,
                  sampler: str = "greedy", spec_k: int | None = None):
@@ -271,6 +323,7 @@ class SchedulerCore:
         self.adapter = adapter
         self.slots = slots
         self.chunk = chunk
+        self.sampler = sampler
         self.sample = make_sampler(sampler)
         self.rounds = 0                # decode rounds of the last serve
         self.decode_steps = 0          # decode forward passes of the last serve
@@ -279,13 +332,13 @@ class SchedulerCore:
     @torch.inference_mode()
     def serve(self, requests: Sequence[Request], max_new_tokens: int) -> list[Response]:
         engine, adapter, B = self.engine, self.adapter, self.slots
-        eos, dev = engine.eos_id, engine.device
+        eos = engine.eos_id
 
         def budget(r: Request) -> int:
             return r.max_new if r.max_new is not None else max_new_tokens
 
         adapter.validate(requests, budget)
-        cache = adapter.begin_serve()
+        adapter.begin_serve()
         pending = deque(requests)
         slot_req: list[Request | None] = [None] * B
         slot_toks: list[list[int]] = [[] for _ in range(B)]
@@ -323,10 +376,8 @@ class SchedulerCore:
             staged = []
             for length, group in admitted.items():
                 toks_np, lens_np = pad_bucket([r for _, r in group], length)
-                t0, rows = adapter.prefill(engine.params, torch.from_numpy(toks_np).to(dev),
-                                           torch.from_numpy(lens_np).to(dev))
-                cache = adapter.insert(cache, rows, group, length)
-                staged.append((group, t0))
+                staged.append((group, adapter.prefill_insert(engine.params, toks_np, lens_np,
+                                                             group, length)))
             if staged:
                 # ONE host transfer for the whole admission wave
                 first = torch.cat([t for _, t in staged]).tolist()
@@ -348,13 +399,14 @@ class SchedulerCore:
 
             adapter.before_round(pos, live)
             adapter.check_positions(pos, live)
-            toks_d, steps, cache = adapter.decode_round(
-                engine.params, torch.from_numpy(tok).to(dev), cache,
-                torch.from_numpy(pos).to(dev), torch.from_numpy(live).to(dev),
-                adapter.round_steps(live, remaining))
-            # ONE host transfer per round: the round's tokens; positions
-            # advance here by the step count, as they did on the device
-            toks_np = toks_d[:steps].cpu().numpy()                  # (steps, B)
+            toks_d, n_d = adapter.decode_round(engine.params, tok, pos, live,
+                                               adapter.round_steps(live, remaining))
+            # ONE host transfer per round: the step count and the round's
+            # tokens; positions advance here by the step count, as they did
+            # on the device
+            host = torch.cat([n_d.expand(1, B), toks_d]).cpu().numpy()
+            steps = int(host[0, 0])
+            toks_np = host[1:1 + steps]                             # (steps, B)
             self.rounds += 1
             self.decode_steps += steps
             pos = np.where(live, pos + steps, pos)

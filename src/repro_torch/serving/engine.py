@@ -2,11 +2,15 @@
 ``repro/serving/engine.py``: the uniform and ragged ``generate`` paths, the
 paged path over an identity-mapped block pool, and the quantized KV cache).
 
-The reference jits a ``lax.scan`` over decode steps; here the loop runs
-eagerly on the device. Sampled tokens, positions and the EOS ``done`` mask
-stay on the device throughout, so the loop never waits for the card; the
-tokens cross to the host once, at the end. Speculative decode and top-p
-are not ported yet.
+The reference jits ``generate`` into one program per signature, prefill
+then a ``lax.scan`` over the decode steps. Here a signature has two
+captured programs (``serving/graphs.py``): the prefill, and one decode step
+replayed ``max_new_tokens`` times. Sampled tokens, positions (a (b,) device
+tensor on every path) and the EOS ``done`` mask live in the programs'
+static buffers on the device, so the loop never waits for the card; the
+tokens cross to the host once, at the end. ``prefill`` and ``decode_step``
+stay the eager one-step APIs. Speculative decode and top-p are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Mapping
 
+import numpy as np
 import torch
 
 from repro_torch.core.policy import quantize_params, quantized_fraction
@@ -22,13 +27,15 @@ from repro_torch.device import resolve_device
 from repro_torch.models.attention import KV_STORE_DTYPES
 from repro_torch.models.registry import Model, build
 from repro_torch.models.transformer import contiguous_to_paged
+from repro_torch.serving.graphs import GraphCache
 from repro_torch.serving.sampling import make_sampler
 
 
 @dataclasses.dataclass
 class GenerationResult:
     tokens: torch.Tensor        # (b, max_new_tokens) sampled token ids, on the host
-    logits_last: torch.Tensor   # (b, vocab_padded) logits of the last decode step, on the device
+    logits_last: torch.Tensor   # (b, vocab_padded) logits of the last decode step, on the
+                                # device (a copy: no later call overwrites it)
     steps: int                  # decode forward passes
 
 
@@ -52,7 +59,8 @@ class InferenceEngine:
     contiguous or paged, at storage width with per-row f32 scales,
     dequantized inside attention; GQA decoder_lm families only. ``device``
     defaults to "cuda" and raises when CUDA is missing; pass "cpu" to run
-    on the CPU. ``params`` are moved there.
+    on the CPU. ``params`` are moved there. ``graphs`` holds the engine's
+    captured programs (``serving/graphs.py``), kept for its lifetime.
     """
 
     def __init__(self, model: Model, params, *, cache_len: int,
@@ -82,6 +90,7 @@ class InferenceEngine:
             params = quantize_params(params, self.cfg.group_size, formats=formats)
         self.params = params
         self.quantized_fraction = quantized_fraction(params)
+        self.graphs = GraphCache(self.device)
 
     def _device_batch(self, batch: Mapping) -> dict:
         out = {"tokens": torch.as_tensor(batch["tokens"]).to(self.device, torch.long)}
@@ -100,6 +109,74 @@ class InferenceEngine:
         return self.model.decode(self.params, token, cache, pos)
 
     # -- full generation -------------------------------------------------------
+    def _generate_programs(self, b: int, prompt_len: int, ragged: bool, paged: bool,
+                           block_size: int, cache_len: int, sampler: str):
+        """(prefill, decode step, static state) of one ``generate`` signature.
+        The prefill writes the static cache (and, for a quantized paged
+        pool, its block layout) in place, samples the first token and sets
+        the positions; the decode step reads and advances them in place."""
+        model, params, eos, dev = self.model, self.params, self.eos_id, self.device
+        sample = make_sampler(sampler)
+        key = (b, prompt_len, ragged, paged, block_size, cache_len, sampler, eos)
+
+        def make_state():
+            zeros = dict(dtype=torch.long, device=dev)
+            st = {"tokens": torch.zeros((b, prompt_len), **zeros),
+                  "tok": torch.zeros((b,), **zeros), "pos": torch.zeros((b,), **zeros),
+                  "done": torch.zeros((b,), dtype=torch.bool, device=dev),
+                  "cache": model.init_cache(b, cache_len, self.cfg.cdtype(), dev)}
+            if ragged:
+                st["lengths"] = torch.full((b,), prompt_len, **zeros)
+            if paged:
+                # a float pool is a view of the contiguous cache; a quantized
+                # one is laid out anew (kvt-major rows to time-major blocks)
+                st["pool"], st["table"] = contiguous_to_paged(st["cache"], block_size)
+            return st
+
+        st = self.graphs.state("generate", key, make_state)
+        relayout = paged and "k_q" in st["cache"]
+
+        def prefill(tokens, tok, pos, done, cache, lengths=None, pool=None):
+            batch = {"tokens": tokens} if lengths is None else {"tokens": tokens,
+                                                                 "lengths": lengths}
+            logits, _ = model.prefill(params, batch, cache_len, cache=cache)
+            first = sample(logits)
+            tok.copy_(first)
+            if lengths is None:
+                pos.fill_(prompt_len)
+            else:
+                pos.copy_(lengths)
+            if eos is not None:
+                done.copy_(first == eos)
+            if relayout:
+                for name, leaf in contiguous_to_paged(cache, block_size)[0].items():
+                    pool[name].copy_(leaf)
+            return logits
+
+        def decode(tok, pos, done, cache, table=None):
+            if paged:
+                logits, _ = model.decode_paged(params, tok, cache, table, pos)
+            else:
+                logits, _ = model.decode(params, tok, cache, pos)
+            nxt = sample(logits)
+            if eos is not None:
+                nxt = torch.where(done, eos, nxt)
+                done |= nxt == eos
+            tok.copy_(nxt)
+            pos.add_(1)
+            return logits
+
+        names = ["tokens", "tok", "pos", "done", "cache"]
+        names += ["lengths"] * ragged + ["pool"] * relayout
+        pre = self.graphs.program("generate.prefill", key, prefill,
+                                  lambda: {k: st[k] for k in names})
+        dec_in = {"tok": st["tok"], "pos": st["pos"], "done": st["done"],
+                  "cache": st["pool"] if paged else st["cache"]}
+        if paged:
+            dec_in["table"] = st["table"]
+        dec = self.graphs.program("generate.decode", key, decode, lambda: dec_in)
+        return pre, dec, st
+
     @torch.inference_mode()
     def generate(self, batch: Mapping, max_new_tokens: int, *, sampler: str = "greedy",
                  lengths=None, paged: bool = False, block_size: int = 8) -> GenerationResult:
@@ -109,20 +186,21 @@ class InferenceEngine:
         ``paged`` decodes through the block-table path over an
         identity-mapped pool of ``block_size``-token blocks, token-identical
         to the contiguous path (the mixed-traffic scheduler is
-        serving/paged.py)."""
+        serving/paged.py). Runs the signature's captured prefill once and
+        its captured decode step ``max_new_tokens`` times."""
         if paged and not self.model.supports_paged:
             raise ValueError(f"{self.cfg.arch_id}: model family has no paged decode path "
                              "(GQA decoder_lm families only)")
         if max_new_tokens < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
-        sample = make_sampler(sampler)
-        if lengths is not None:
-            batch = dict(batch, lengths=lengths)
-        batch = self._device_batch(batch)
-        b, prompt_len = batch["tokens"].shape
-        lengths = batch.get("lengths")
+        make_sampler(sampler)
+        tokens = torch.as_tensor(batch["tokens"])
+        if lengths is None:
+            lengths = batch.get("lengths")
+        b, prompt_len = tokens.shape
         # validate up front: an index past the cache would fail mid-decode
-        start_max = prompt_len if lengths is None else int(lengths.max())
+        start_max = prompt_len if lengths is None else int(np.max(np.asarray(
+            torch.as_tensor(lengths).cpu())))
         need = max(prompt_len, start_max + max_new_tokens)
         if need > self.cache_len:
             raise ValueError(
@@ -135,32 +213,19 @@ class InferenceEngine:
             # pad the prefill target up to whole blocks so the contiguous
             # rows reshape exactly into the pool
             cache_len = -(-cache_len // block_size) * block_size
-        logits, cache = self.model.prefill(self.params, batch, cache_len)
-        tok = sample(logits)
-        # ragged rows continue at their own lengths (per-row cache commits);
-        # a uniform batch keeps one host-side position counter
-        pos = lengths.clone() if lengths is not None else prompt_len
-        if paged:
-            cache, table = contiguous_to_paged(cache, block_size)
-            if lengths is None:
-                pos = torch.full((b,), prompt_len, dtype=torch.long, device=self.device)
-        eos = self.eos_id
-        done = tok == eos if eos is not None else None
+        pre, dec, st = self._generate_programs(b, prompt_len, lengths is not None, paged,
+                                               block_size, cache_len, sampler)
+        pre.load(tokens=tokens)
+        if lengths is not None:
+            pre.load(lengths=torch.as_tensor(lengths))
+        pre.replay()
         out = torch.empty((b, max_new_tokens), dtype=torch.long, device=self.device)
-        out[:, 0] = tok
+        out[:, 0] = st["tok"]
         # max_new_tokens decode steps, the last one's token discarded: the
         # reference's scan, whose final logits are logits_last
         for step in range(max_new_tokens):
-            if paged:
-                logits, cache = self.model.decode_paged(self.params, tok, cache, table, pos)
-            else:
-                logits, cache = self.model.decode(self.params, tok, cache, pos)
-            nxt = sample(logits)
-            if eos is not None:
-                nxt = torch.where(done, eos, nxt)
-                done = done | (nxt == eos)
+            dec.replay()
             if step + 1 < max_new_tokens:
-                out[:, step + 1] = nxt
-            tok = nxt
-            pos = pos + 1
-        return GenerationResult(tokens=out.cpu(), logits_last=logits, steps=max_new_tokens)
+                out[:, step + 1] = st["tok"]
+        return GenerationResult(tokens=out.cpu(), logits_last=dec.copies(),
+                                steps=max_new_tokens)

@@ -1,0 +1,262 @@
+"""Captured programs: the port's counterpart of the reference's ``jax.jit``
+over ``generate`` (``repro/serving/engine.py``) and over the scheduler
+rounds (``repro/serving/core.py``, ``repro/serving/paged.py``).
+
+A :class:`Program` is one step function over static buffers, captured once
+per signature as a ``torch.cuda.CUDAGraph`` and replayed: the prefill of a
+``generate`` signature or of a serve's bucket, and one decode step, replayed
+once per step. Each engine keeps its programs and their static state in a
+:class:`GraphCache`, keyed like the reference's ``_generate_jit`` plus what
+the port reads at call time: the kernel implementation in force
+(``kernels/ops.impl_scope``) and the ``core/flags.py`` values. So a program
+captured on the CUDA kernels never replays under ``impl_scope("plain")``.
+
+The state a program reads and writes (tokens, positions as device tensors,
+the ``done`` / ``live`` / ``stopped`` flags, block tables, KV caches) lives
+in buffers allocated outside any capture and updated in place; a program's
+outputs live in the engine's graph pool, which every program of the engine
+shares, and are copied out (:meth:`Program.run`) before another program
+replays. On the card a program is built by one warm-up run on clones of
+its inputs, on a side stream (first-use set-up such as a kernel's
+shared-memory opt-in happens there), then captured; a capture or replay
+that fails raises, and nothing falls back to eager execution. On the CPU,
+and on the card inside :func:`eager`, the same plumbing runs the step
+function eagerly on the same static buffers.
+
+Launch counts (the kernels' ``LAUNCHES``): a warm-up's launches and the
+capture's (which launch nothing) are taken back out; each replay adds the
+counts its capture recorded, so a replayed step counts what an eager step
+counts.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import time
+from collections import defaultdict
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.core import flags
+from repro_torch.core.tree import tree_map
+from repro_torch.kernels import flash_attn, gqmv, ops, paged_attn, rmsnorm_quant
+
+__all__ = ["BUILD_LISTENERS", "GraphCache", "Program", "census", "eager"]
+
+# every kernel wrapper's launch counts
+_COUNTS = (gqmv.LAUNCHES, paged_attn.LAUNCHES, flash_attn.LAUNCHES, rmsnorm_quant.LAUNCHES)
+
+# callables (name, key) told of every program build (analysis/recompile.py)
+BUILD_LISTENERS: list[Callable[[str, tuple], None]] = []
+
+_MODE = {"eager": False}
+
+
+@contextlib.contextmanager
+def eager():
+    """Run the programs entered in this scope eagerly on their own static
+    buffers (keyed apart from the captured ones): the comparison run on the
+    card. The CPU always runs programs so."""
+    prev = _MODE["eager"]
+    _MODE["eager"] = True
+    try:
+        yield
+    finally:
+        _MODE["eager"] = prev
+
+
+def _snapshot() -> list[dict[str, int]]:
+    return [dict(c) for c in _COUNTS]
+
+
+def _restore(snap: list[dict[str, int]]) -> None:
+    for counts, saved in zip(_COUNTS, snap):
+        counts.update(saved)
+
+
+def _clone(tree):
+    return None if tree is None else tree_map(torch.clone, tree)
+
+
+class Program:
+    """One step function ``fn(**inputs)`` over static ``inputs`` (tensors or
+    dicts of them, updated in place by ``fn``); ``outputs`` is what ``fn``
+    returned at capture (static, overwritten by each replay)."""
+
+    def __init__(self, name: str, key: tuple, fn: Callable, inputs: dict,
+                 device: torch.device, pool, eager_mode: bool):
+        self.name, self.key, self.fn, self.inputs = name, key, fn, inputs
+        self.device, self.pool, self.eager = device, pool, eager_mode
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.outputs = None
+        self.launches: list[tuple[dict, str, int]] = []   # counts one replay adds
+        self.warmup_s = self.capture_s = 0.0
+        self.pool_bytes = 0
+
+    @torch.inference_mode()
+    def build(self) -> None:
+        """Warm up on clones of the inputs, then capture (on the card)."""
+        if self.eager:
+            return
+        dev = self.device
+        snap = _snapshot()
+        t0 = time.perf_counter()
+        main = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            scratch = _clone(self.inputs)
+            self.fn(**scratch)
+        main.wait_stream(side)
+        del scratch
+        _restore(snap)              # warm-up launches are build work, not the path's
+        t1 = time.perf_counter()
+        torch.cuda.empty_cache()    # the capture empties it too: reserved bytes compare
+        reserved = torch.cuda.memory_reserved(dev)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)       # kept for census()
+        with torch.cuda.graph(graph, pool=self.pool):
+            self.outputs = self.fn(**self.inputs)
+        graph.instantiate()
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        after = _snapshot()
+        self.launches = [(counts, k, after[i][k] - snap[i][k])
+                         for i, counts in enumerate(_COUNTS) for k in counts
+                         if after[i][k] != snap[i][k]]
+        _restore(snap)              # a capture launches nothing
+        self.graph = graph
+        self.warmup_s, self.capture_s = t1 - t0, time.perf_counter() - t1
+
+    @torch.inference_mode()
+    def load(self, **values) -> None:
+        """Copy host or device values into the static inputs (host arrays
+        are staged at once, so the caller may reuse them)."""
+        for name, v in values.items():
+            dst = self.inputs[name]
+            if isinstance(v, (bool, int, float)):
+                dst.fill_(v)
+            else:
+                src = torch.from_numpy(np.ascontiguousarray(v)) if isinstance(
+                    v, np.ndarray) else v
+                dst.copy_(src, non_blocking=True)
+
+    @torch.inference_mode()
+    def replay(self):
+        """One run of the program; returns its static outputs."""
+        if self.graph is None:
+            self.outputs = self.fn(**self.inputs)
+            return self.outputs
+        self.graph.replay()
+        for counts, k, n in self.launches:
+            counts[k] += n
+        return self.outputs
+
+    @torch.inference_mode()
+    def copies(self):
+        """Copies of the last run's outputs, which no later replay of this or
+        another program overwrites."""
+        return _clone(self.outputs)
+
+    def run(self):
+        """One run; returns copies of its outputs."""
+        self.replay()
+        return self.copies()
+
+
+class _Edge(ctypes.Structure):
+    # CUgraphEdgeData of the CUDA driver API
+    _fields_ = [("from_port", ctypes.c_ubyte), ("to_port", ctypes.c_ubyte),
+                ("type", ctypes.c_ubyte), ("reserved", ctypes.c_ubyte * 5)]
+
+
+def census(prog: Program) -> dict[str, int]:
+    """Nodes, kernel nodes, edges and programmatic edges (a programmatic
+    dependent launch kept as such) of a captured program's graph, read
+    through the CUDA driver API (``cuGraphGetNodes``, ``cuGraphNodeGetType``,
+    ``cuGraphGetEdges_v2``)."""
+    if prog.graph is None:
+        raise ValueError(f"{prog.name}: not a captured program")
+    cu = ctypes.CDLL("libcuda.so.1")
+    graph = ctypes.c_void_p(prog.graph.raw_cuda_graph())
+
+    def check(rc, what):
+        if rc != 0:
+            raise RuntimeError(f"{what} failed with CUDA driver error {rc}")
+
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+              "cuGraphNodeGetType")
+        kinds.append(kind.value)
+    e = ctypes.c_size_t(0)
+    check(cu.cuGraphGetEdges_v2(graph, None, None, None, ctypes.byref(e)), "cuGraphGetEdges_v2")
+    src, dst, data = (ctypes.c_void_p * e.value)(), (ctypes.c_void_p * e.value)(), \
+        (_Edge * e.value)()
+    check(cu.cuGraphGetEdges_v2(graph, src, dst, data, ctypes.byref(e)), "cuGraphGetEdges_v2")
+    # CU_GRAPH_NODE_TYPE_KERNEL = 0; CU_GRAPH_DEPENDENCY_TYPE_PROGRAMMATIC = 1
+    return {"nodes": n.value, "kernel_nodes": kinds.count(0), "edges": e.value,
+            "programmatic_edges": sum(d.type == 1 for d in data)}
+
+
+class GraphCache:
+    """An engine's programs and their static state, by signature. ``stats``
+    gives builds, warm-up and capture seconds and graph-pool bytes by
+    program name."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.programs: dict[tuple, Program] = {}
+        self.states: dict[tuple, dict] = {}
+        self.last: dict[str, Program] = {}     # the program of each name run last
+        self._pool = None
+
+    def _full_key(self, name: str, key: tuple) -> tuple:
+        eager_mode = self.device.type != "cuda" or _MODE["eager"]
+        return (name, key, ops.scope_impl(), tuple(sorted(flags.FLAGS.items())), eager_mode)
+
+    def state(self, name: str, key: tuple, make: Callable[[], dict]) -> dict:
+        """Static buffers for ``(name, key)`` under the current impl, flags
+        and mode, made by ``make()`` once."""
+        full = self._full_key(name, key)
+        if full not in self.states:
+            self.states[full] = make()
+        return self.states[full]
+
+    def program(self, name: str, key: tuple, fn: Callable, make_inputs: Callable[[], dict]
+                ) -> Program:
+        """The program ``name`` for ``key`` (which must determine every
+        static buffer ``make_inputs`` returns and everything ``fn`` closes
+        over), built at first use."""
+        full = self._full_key(name, key)
+        prog = self.programs.get(full)
+        if prog is None:
+            eager_mode = full[-1]
+            if not eager_mode and self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            prog = Program(name, full, fn, make_inputs(), self.device, self._pool, eager_mode)
+            prog.build()
+            self.programs[full] = prog
+            for listener in BUILD_LISTENERS:
+                listener(name, full)
+        self.last[name] = prog
+        return prog
+
+    def stats(self) -> dict[str, dict]:
+        out: dict[str, dict] = defaultdict(lambda: {"builds": 0, "captured": 0,
+                                                    "warmup_s": 0.0, "capture_s": 0.0,
+                                                    "pool_bytes": 0})
+        for p in self.programs.values():
+            s = out[p.name]
+            s["builds"] += 1
+            s["captured"] += p.graph is not None
+            s["warmup_s"] += p.warmup_s
+            s["capture_s"] += p.capture_s
+            s["pool_bytes"] += p.pool_bytes
+        return dict(out)

@@ -25,10 +25,14 @@ its own, so allocation for live slots never fails and no preemption path is
 needed.
 
 Where the reference runs a device ``while_loop`` that exits at the first
-finish, a round here takes ``min(chunk, min(remaining[live]))`` steps,
-computed on the host, which is the reference's budget exit without a host
-sync. Only with an ``eos_id`` does a round read one flag per step, to stop
-at the step a slot emits EOS.
+finish, a round here replays its captured decode step
+``min(chunk, min(remaining[live]))`` times, a count the host knows before
+the round (the reference's budget exit). The EOS exit stays on the device:
+the step at which a live slot emits EOS sets a ``stopped`` flag, later steps
+of the round leave tokens and positions as they are (their cache writes
+land at each slot's next position, which the next real step rewrites
+before it attends), and the round's step count ``n`` crosses to the host
+with its tokens, in the round's one transfer.
 """
 
 from __future__ import annotations
@@ -46,6 +50,8 @@ from repro_torch.serving.core import (
     Response,
     SchedulerCore,
     bucket_length,
+    replay_round,
+    round_state,
 )
 
 __all__ = ["BlockPool", "PagedAdapter", "PagedScheduler", "paged_scheduler", "serve_paged"]
@@ -121,6 +127,8 @@ class PagedAdapter(CacheAdapter):
         self.num_blocks = (self._num_blocks_arg if self._num_blocks_arg is not None
                            else core.slots * self.blocks_per_req + 1)
         self._ahead = core.chunk           # block lookahead per decode round
+        self._key = (core.slots, core.chunk, self.num_blocks, self.block_size,
+                     self.blocks_per_req, core.sampler)
 
     # -- sizing helpers -----------------------------------------------------
 
@@ -171,6 +179,20 @@ class PagedAdapter(CacheAdapter):
                     f"request {r.id}: needs {self._blocks_needed(r, budget(r))} "
                     f"blocks but the pool has {self.num_blocks - 1}")
 
+    def _state(self) -> dict:
+        """The static pool, block table and round buffers (they outlive a
+        serve)."""
+        engine, slots = self.engine, self.core.slots
+
+        def make():
+            st = round_state(engine, slots, self.core.chunk, engine.model.init_paged_cache(
+                self.num_blocks, self.block_size, engine.cfg.cdtype(), engine.device))
+            st["table"] = torch.zeros((slots, self.blocks_per_req), dtype=torch.int32,
+                                      device=engine.device)
+            return st
+
+        return engine.graphs.state("paged", self._key, make)
+
     def begin_serve(self):
         B, bs = self.core.slots, self.block_size
         self.pool = BlockPool(self.num_blocks, bs)
@@ -178,9 +200,8 @@ class PagedAdapter(CacheAdapter):
         self._slot_blocks: list[list[int]] = [[] for _ in range(B)]
         self._slot_need = [0] * B              # worst-case total blocks
         self._slot_live = np.zeros((B,), bool)
-        engine = self.engine
-        return engine.model.init_paged_cache(self.num_blocks, bs, engine.cfg.cdtype(),
-                                             engine.device)
+        for leaf in self._state()["cache"].values():
+            leaf.zero_()
 
     def can_admit(self, r, budget):
         # reservation-gated: admit only when the pool covers every live
@@ -199,35 +220,43 @@ class PagedAdapter(CacheAdapter):
     def group_len(self, n):
         return self._prompt_pad(n)
 
-    def prefill(self, params, toks, lens):
-        # pad target == the padded prompt length: the pool is the only
-        # persistent cache, so no cache_len-wide row is built
-        logits, rows = self.engine.model.prefill(
-            params, {"tokens": toks, "lengths": lens}, toks.shape[1])
-        return self.core.sample(logits), rows
+    def prefill_insert(self, params, toks, lens, group, length):
+        """Prefill to the padded prompt length (the pool is the only
+        persistent cache, so no cache_len-wide row is built), then scatter
+        the contiguous rows (L, bg, S, KV[, hd]) block by block into the
+        slots' prompt blocks, in place: one program per (group size,
+        length). Table entries past a prompt's own blocks are the sink: its
+        duplicate writes are harmless."""
+        st, model, sample = self._state(), self.engine.model, self.core.sample
+        bs, bg, dev = self.block_size, len(group), self.engine.device
 
-    def insert(self, cache, rows, group, length):
-        """Scatter the contiguous prefill rows (L, bg, S, KV[, hd]) block by
-        block into the slots' prompt blocks, in place. Table entries past a
-        prompt's own blocks are the sink: its duplicate writes are harmless."""
-        bs = self.block_size
-        tables = torch.tensor(np.stack([self.table[s, : length // bs] for s, _ in group]),
-                              dtype=torch.long, device=self.engine.device)
-
-        def put(pages, r):
+        def put(pages, r, tables):
             ell, bg = r.shape[:2]
             pages[:, tables] = r.reshape(ell, bg, tables.shape[1], bs, *r.shape[3:])
 
-        if "k_q" in rows:
-            # quantized prefill rows arrive kvt-major (L, bg, KV, S[, hd]):
-            # move time ahead of the heads so the block reshape applies
-            for leaf, name in (("k_pages", "k_q"), ("k_scales", "k_s"),
-                               ("v_pages", "v_q"), ("v_scales", "v_s")):
-                put(cache[leaf], rows[name].movedim(3, 2))
-        else:
-            put(cache["k_pages"], rows["k"])
-            put(cache["v_pages"], rows["v"])
-        return cache
+        def prefill(tokens, lengths, tables, cache):
+            logits, rows = model.prefill(params, {"tokens": tokens, "lengths": lengths},
+                                         length)
+            if "k_q" in rows:
+                # quantized prefill rows arrive kvt-major (L, bg, KV, S[, hd]):
+                # move time ahead of the heads so the block reshape applies
+                for leaf, name in (("k_pages", "k_q"), ("k_scales", "k_s"),
+                                   ("v_pages", "v_q"), ("v_scales", "v_s")):
+                    put(cache[leaf], rows[name].movedim(3, 2), tables)
+            else:
+                put(cache["k_pages"], rows["k"], tables)
+                put(cache["v_pages"], rows["v"], tables)
+            return sample(logits)
+
+        prog = self.engine.graphs.program(
+            "paged.prefill", self._key + (bg, length), prefill, lambda: {
+                "tokens": torch.zeros((bg, length), dtype=torch.long, device=dev),
+                "lengths": torch.full((bg,), length, dtype=torch.long, device=dev),
+                "tables": torch.zeros((bg, length // bs), dtype=torch.long, device=dev),
+                "cache": st["cache"]})
+        prog.load(tokens=toks, lengths=lens,
+                  tables=np.stack([self.table[s, : length // bs] for s, _ in group]))
+        return prog.run()
 
     def before_round(self, pos, live):
         for s in range(len(live)):
@@ -244,22 +273,30 @@ class PagedAdapter(CacheAdapter):
         step the first live slot reaches its budget, at most ``chunk``."""
         return min(self.core.chunk, int(remaining[live].min()))
 
-    def decode_round(self, params, tok, cache, pos, live, steps):
-        """``steps`` decode steps, or fewer: with an ``eos_id`` one flag per
-        step says whether a live slot emitted EOS, and the round stops there.
-        The block table crosses to the device as a snapshot (a copy, not a
-        view of the host array ``on_finish`` rewrites)."""
-        table = torch.tensor(self.table, device=self.engine.device)
-        model, sample, eos = self.engine.model, self.core.sample, self.engine.eos_id
-        toks = []
-        for _ in range(steps):
-            logits, cache = model.decode_paged(params, tok, cache, table, pos)
-            tok = torch.where(live, sample(logits), tok)     # frozen slots keep tok
-            pos = torch.where(live, pos + 1, pos)            # ...and their position
-            toks.append(tok)
-            if eos is not None and bool((live & (tok == eos)).any()):
-                break
-        return torch.stack(toks), len(toks), cache
+    def decode_round(self, params, tok, pos, live, steps):
+        """``steps`` replays of the captured paged decode step; with an
+        ``eos_id`` the step at which a live slot emits EOS stops the round on
+        the device (see the module docstring), and ``n`` counts the steps
+        up to it. The block table crosses to the device as a snapshot (a
+        copy into the static table, not a view of the host array
+        ``on_finish`` rewrites)."""
+        st, model, sample, eos = self._state(), self.engine.model, self.core.sample, \
+            self.engine.eos_id
+
+        def step(tok, pos, live, stopped, n, table, cache):
+            act = live & ~stopped
+            logits, _ = model.decode_paged(params, tok, cache, table, pos)
+            tok.copy_(torch.where(act, sample(logits), tok))   # frozen slots keep tok
+            pos.copy_(torch.where(act, pos + 1, pos))          # ...and their position
+            n.add_((~stopped).long())
+            if eos is not None:
+                stopped |= (act & (tok == eos)).any()
+
+        prog = self.engine.graphs.program(
+            "paged.decode", self._key + (eos,), step,
+            lambda: {k: st[k] for k in ("tok", "pos", "live", "stopped", "n", "table",
+                                        "cache")})
+        return replay_round(prog, st, tok, pos, live, steps, table=self.table)
 
     def on_finish(self, s):
         self.pool.free(self._slot_blocks[s])

@@ -730,3 +730,95 @@ def test_rmsnorm_quant_kernel_rejects_bad_arguments(dev):
     for (a, b_, gs), exc in bad:
         with pytest.raises(exc):
             rmsq_kern.rmsnorm_quant_cuda(a, b_, group_size=gs)
+
+
+# ---------------------------------------------------------------------------
+# captured programs (serving/graphs.py): replayed against eager, exactly
+# ---------------------------------------------------------------------------
+
+def _graph_engine(dev, kv_quant=None, quantize=True, cache_len=40):
+    cfg = load_config("tinyllama-1.1b").reduced()
+    model = build(cfg)
+    return InferenceEngine(model, model.init(seed=3, device=dev), cache_len=cache_len,
+                           quantize=quantize, kv_quant=kv_quant, device=dev)
+
+
+def _all_launches():
+    return {**kern.LAUNCHES, **paged_kern.LAUNCHES, **flash_kern.LAUNCHES}
+
+
+def _zero_launches():
+    kern.reset_launches()
+    paged_kern.reset_launches()
+    flash_kern.reset_launches()
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8", "fp8"])
+@pytest.mark.parametrize("path", ["uniform", "ragged", "paged"])
+def test_graph_generate_replays_eager_tokens_and_launches(dev, path, kv_quant):
+    """The captured prefill and decode step give the eager run's tokens and
+    logits bit for bit, and a replayed run counts the eager run's launches."""
+    from repro_torch.serving import graphs
+
+    eng = _graph_engine(dev, kv_quant)
+    toks = torch.randint(0, eng.cfg.vocab_size, (3, 12), generator=torch.Generator().manual_seed(5))
+    kw = {"paged": path == "paged"}
+    if path == "ragged":
+        kw["lengths"] = torch.tensor([12, 7, 3])
+    eng.generate({"tokens": toks}, 2, **kw)                 # build
+    _zero_launches()
+    got = eng.generate({"tokens": toks}, 9, **kw)
+    replayed = _all_launches()
+    assert eng.graphs.stats()["generate.decode"]["captured"] == 1
+    _zero_launches()
+    with graphs.eager():
+        want = eng.generate({"tokens": toks}, 9, **kw)
+    assert replayed == _all_launches() and sum(replayed.values()) > 0
+    assert torch.equal(got.tokens, want.tokens)
+    assert torch.equal(got.logits_last, want.logits_last)
+
+
+@pytest.mark.parametrize("mode", ["paged", "continuous", "bucketed"])
+def test_graph_serve_ragged_replays_eager(dev, mode):
+    from repro_torch.serving import graphs
+    from repro_torch.serving.batching import serve_ragged
+
+    eng = _graph_engine(dev)
+    reqs = [Request(i, list(range(1 + i, 4 + 3 * i)), max_new=3 + i) for i in range(5)]
+    got = serve_ragged(eng, reqs, 8, mode=mode, slots=2, chunk=3)
+    with graphs.eager():
+        want = serve_ragged(eng, reqs, 8, mode=mode, slots=2, chunk=3)
+    for a, b in zip(got, want):
+        assert a.length == b.length and (a.tokens == b.tokens).all()
+    assert sum(s["captured"] for s in eng.graphs.stats().values()) >= 2
+
+
+def test_graph_generate_under_serving_flags(dev):
+    """blockwise prefill (the flash kernel), deferred decode, the kvt cache:
+    replayed tokens equal eager ones, flash launched once a layer a prefill."""
+    from repro_torch.serving import graphs
+
+    eng = _graph_engine(dev)
+    toks = torch.randint(0, eng.cfg.vocab_size, (2, 16), generator=torch.Generator().manual_seed(6))
+    with flags.overrides(blockwise_attention=True, deferred_decode_cache=True,
+                         kvt_cache_layout=True):
+        eng.generate({"tokens": toks}, 2)
+        _zero_launches()
+        got = eng.generate({"tokens": toks}, 6)
+        assert flash_kern.LAUNCHES["flash_attn_f32"] == eng.cfg.num_layers
+        with graphs.eager():
+            want = eng.generate({"tokens": toks}, 6)
+    assert torch.equal(got.tokens, want.tokens)
+
+
+def test_graph_capture_failure_raises(dev):
+    """A host read inside a captured function fails the capture loudly;
+    nothing falls back to eager execution."""
+    eng = _graph_engine(dev)
+
+    def bad(x):
+        return x.sum().item()
+
+    with pytest.raises(RuntimeError):
+        eng.graphs.program("bad", (), bad, lambda: {"x": torch.ones(4, device=dev)})
+    assert not [k for k in eng.graphs.programs if k[0] == "bad"]
