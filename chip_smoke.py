@@ -138,6 +138,39 @@ printing no result, when CUDA is missing. Phases, each fatal on failure:
              exact, else the replay rule above (the CPU run is not exact: the
              flash kernel's f32 order moves one int8 activation of layer 0's
              wo input across a .5 tie, as ROADMAP Queue C records).
+7. spec:     speculative decoding (serving/spec.py, k = 4) on the phase-3 int8
+             model, run after phase 6. A verify row sums as its decode step
+             does (the projections over the chunk's b*k rows, the norms per
+             chunk column, each column attending through the decode step's
+             own attention), so greedy spec tokens are held to vanilla
+             decode's exactly. (a) generate (batch 4, prompt 64, 32 tokens)
+             on phase 3's engine (which keeps k slots of cache slack) with
+             the n-gram drafter and an oracle drafter that replays the
+             vanilla continuation, contiguous and paged: a cold run, a
+             replayed run (counts zeroed just before, read just after) and
+             an eager run (graphs.eager), whose tokens, spec_stats and
+             launches must equal the replayed run's; tokens equal phase 3's
+             (contiguous) or a paged vanilla generate's (paged); the oracle
+             takes ceil(31/4) = 8 verify steps, every draft accepted; a
+             verify step launches 89 GQMMs, all at b*k = 16 rows (rows
+             counted on the eager run), and, paged, the paged-attention
+             kernel 22 x 4 times. Printed: ms a verify step (wall and CUDA
+             events), busy share, tokens a step, ms a generated token beside
+             phase 3's vanilla ms/step. (b) serve_ragged on phase 5's trace
+             and engine (8 slots), paged and continuous, k 4, n-gram
+             drafter: replayed and eager passes equal in tokens and
+             launches, tokens equal to phase 5's vanilla pass's, 89 GQMMs
+             at 32 rows (the large design) a verify round, one 32-row
+             verify step's logits equal to a decode step's bit for bit;
+             last_spec_stats, tok/s and ms a round beside phase 5's. The
+             golden phase adds (c) top-p generate (p 0.9, seed 0) on the
+             2-layer int8 f32 model, on the kernels and on the plain versions
+             with the same noise: equal, or each row's first difference a
+             near tie of the kernels' perturbed scores; and (d) greedy spec
+             generate with the n-gram and the oracle drafter, int8 at 2
+             layers and f32 at 22: the golden tokens, the oracle accepted
+             throughout in ceil(15/4) = 4 steps (16 golden tokens); spec
+             top-p at p = 1e-6 equal to greedy spec.
 
 A [graphs] line sums up eager against replayed: int8 decode ms/step wall
 and on the card with the busy share, the 4 x 64 prefill, the ragged tok/s,
@@ -152,6 +185,7 @@ power limit; the last line is
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import hashlib
@@ -189,7 +223,7 @@ from repro_torch.kernels.ref import (  # noqa: E402
     paged_attention_ref,
     rmsnorm_quant_ref,
 )
-from repro_torch.models.common import decode_mask, rmsnorm  # noqa: E402
+from repro_torch.models.common import NEG_INF, decode_mask, rmsnorm  # noqa: E402
 from repro_torch.models.registry import build, load_config  # noqa: E402
 from repro_torch.models.transformer import contiguous_to_paged  # noqa: E402
 from repro_torch.serving.batching import (  # noqa: E402
@@ -202,6 +236,8 @@ from repro_torch.serving.batching import (  # noqa: E402
 from repro_torch.serving import graphs  # noqa: E402
 from repro_torch.serving.engine import InferenceEngine  # noqa: E402
 from repro_torch.serving.paged import paged_scheduler  # noqa: E402
+from repro_torch.serving.sampling import fill_gumbel, nucleus_mask  # noqa: E402
+from repro_torch.serving.spec import NgramDrafter  # noqa: E402
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, int8 tensor operations/s,
 # float32 operations/s outside the tensor cores
@@ -331,6 +367,9 @@ PAGED_HD256 = {"kv": 4, "g": 2, "hd": 256, "b": 3, "bs": 8, "widths": (256, 2048
 # beside it a long-cache batch (32 rows of 2048-token tables)
 PAGED_MAIN = {"b": 8, "bs": 8, "T": 256, "qdtype": "bfloat16", "softcap": None}
 PAGED_LARGE = {"b": 32, "bs": 8, "T": 2048, "qdtype": "bfloat16", "softcap": None}
+# phase 7: speculative decoding (k-token chunks, n-gram and oracle drafters)
+# and top-p (nucleus mass, and the tiny mass that collapses it to the argmax)
+SPEC = {"k": 4, "top_p": 0.9, "tiny_p": 1e-6, "seed": 0}
 # phase 5: the ragged trace at full width
 # the ragged passes run cold (capturing), replayed and eager: (name, KV pool, mode)
 RAGGED_REPLAYED = (("paged_float", None, "paged"), ("paged_int8", "int8", "paged"),
@@ -1204,8 +1243,10 @@ def phase_serve(dev, rows, model, params, quantize) -> tuple[dict, InferenceEngi
     cfg = model.cfg
     tag = "int8" if quantize is True else quantize
     t0 = time.perf_counter()
-    engine = InferenceEngine(model, params, cache_len=SERVE["prompt_len"] + SERVE["max_new_tokens"],
-                             quantize=quantize, device=dev)
+    # SPEC["k"] slots of slack: phase 7's verify chunks run on this engine
+    # and are held to this phase's tokens
+    engine = InferenceEngine(model, params, quantize=quantize, device=dev,
+                             cache_len=SERVE["prompt_len"] + SERVE["max_new_tokens"] + SPEC["k"])
     torch.cuda.synchronize()
     log(f"[serve {tag}] {cfg.arch_id}: {cfg.num_layers} layers, d {cfg.d_model}, "
         f"{cfg.param_dtype}, quantized fraction {engine.quantized_fraction:.3f}, quantize "
@@ -1478,10 +1519,15 @@ def _first_step_logits(engine, reqs, dev) -> dict:
             "positions": lens.tolist()}
 
 
-def phase_ragged(dev, engine0, engine_fmt) -> dict:
+def phase_ragged(dev, engine0, engine_fmt) -> tuple[dict, InferenceEngine, dict]:
+    """The ragged trace through serve_ragged. Returns the results, the
+    bf16-pool engine and the passes' responses (phase 7 serves the trace
+    speculatively on that engine, held to those responses)."""
     cfg = engine0.cfg
     reqs = ragged_trace(cfg.vocab_size)
-    cache_len = max(max(bucket_length(len(r.tokens)), len(r.tokens) + r.max_new) for r in reqs)
+    # SPEC["k"] slots of slack for phase 7's verify chunks
+    cache_len = max(max(bucket_length(len(r.tokens)), len(r.tokens) + r.max_new)
+                    for r in reqs) + SPEC["k"]
     engines = {kvq: InferenceEngine(engine0.model, engine0.params, cache_len=cache_len,
                                     kv_quant=kvq, device=dev) for kvq in (None, "int8", "fp8")}
     warm = [Request(r.id, r.tokens, max_new=3) for r in reqs[:2]]
@@ -1611,7 +1657,8 @@ def phase_ragged(dev, engine0, engine_fmt) -> dict:
     return {"cache_len": cache_len, "passes": passes, "agreement": agree,
             "cold": cold, "eager": eager, "programs": programs, "paged_graph": census,
             "first_step": logits,
-            "trace": [{"len": len(r.tokens), "max_new": r.max_new} for r in reqs]}
+            "trace": [{"len": len(r.tokens), "max_new": r.max_new} for r in reqs]}, \
+        engines[None], outs
 
 
 # ---------------------------------------------------------------------------
@@ -1821,6 +1868,312 @@ def phase_flags(dev, engine, serve3) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 7: speculative decoding and top-p at full width
+# ---------------------------------------------------------------------------
+
+class OracleDrafter:
+    """Drafts each row's vanilla greedy continuation (the reference's
+    ``SelfDrafter``), found by the row's prompt: every draft is the target's
+    own choice, so a verify step accepts all of them where verify's greedy
+    choice equals vanilla decode's."""
+
+    name = "oracle"
+
+    def __init__(self, prompts: np.ndarray, tokens: np.ndarray):
+        self.plen = prompts.shape[1]
+        self.rows = {tuple(int(t) for t in p): [int(t) for t in row]
+                     for p, row in zip(prompts, tokens)}
+
+    def draft(self, context, k: int) -> list[int]:
+        row = self.rows[tuple(int(t) for t in context[:self.plen])]
+        g = len(context) - self.plen          # tokens generated, the current one included
+        out = row[g:g + k]
+        return out + [0] * (k - len(out))
+
+
+@contextlib.contextmanager
+def gqmm_rows(cls, method: str):
+    """Counts the GQMM launches made inside ``cls.method`` by their
+    activation rows (b), while active: the format hooks' CUDA GQMM wrapped in
+    a recorder and the method in a flag, both restored on exit."""
+    rows: collections.Counter = collections.Counter()
+    inside = [False]
+    saved, orig = dict(ops.KERNEL_HOOKS), getattr(cls, method)
+    for name, hook in saved.items():
+        def rec(wq, ws, xq, xs, *, group_size, _fn=hook.gqmm_cuda):
+            if inside[0]:
+                rows[xq.shape[0]] += 1
+            return _fn(wq, ws, xq, xs, group_size=group_size)
+        ops.KERNEL_HOOKS[name] = dataclasses.replace(hook, gqmm_cuda=rec)
+
+    def flagged(*args, **kw):
+        inside[0] = True
+        try:
+            return orig(*args, **kw)
+        finally:
+            inside[0] = False
+
+    setattr(cls, method, flagged)
+    try:
+        yield rows
+    finally:
+        ops.KERNEL_HOOKS.update(saved)
+        setattr(cls, method, orig)
+
+
+def _launches() -> dict[str, int]:
+    return {k: v for k, v in {**kern.LAUNCHES, **pkern.LAUNCHES}.items() if v}
+
+
+def _reset_launches() -> None:
+    kern.reset_launches()
+    pkern.reset_launches()
+
+
+def step_logits(engine, batch, tokens: torch.Tensor) -> list[torch.Tensor]:
+    """f32 logits (b, V) that chose tokens[:, s], for every s: eager prefill,
+    then decode_step fed the given tokens (vanilla decode's arithmetic)."""
+    out = []
+    p = batch["tokens"].shape[1]
+    with torch.inference_mode():
+        logits, cache = engine.prefill(batch)
+        for s in range(tokens.shape[1]):
+            out.append(logits.float())
+            if s + 1 < tokens.shape[1]:
+                logits, cache = engine.decode_step(tokens[:, s].to(logits.device), cache, p + s)
+    return out
+
+
+def first_differences(want: np.ndarray, got: np.ndarray, scores) -> list[dict]:
+    """Per row, the first step where ``got`` leaves ``want``, and the gap
+    between the two tokens in ``scores[step]`` (the step's logits, or
+    perturbed scores for top-p) as a fraction of max|logit|: a traced near
+    tie when <= TIE_MARGIN."""
+    out = []
+    for row in range(want.shape[0]):
+        diff = np.flatnonzero(want[row] != got[row])
+        if diff.size:
+            s = int(diff[0])
+            sc, scale = scores(s, row)
+            a, c = int(want[row, s]), int(got[row, s])
+            out.append({"row": row, "step": s, "want": a, "got": c,
+                        "margin": abs(sc[a] - sc[c]).item() / scale})
+    return out
+
+
+def _check_ties(name: str, diffs: list[dict]) -> None:
+    if any(d["margin"] > TIE_MARGIN for d in diffs):
+        raise AssertionError(f"{name}: tokens leave the reference run at a step that is not a "
+                             f"near tie (margin > {TIE_MARGIN}): {diffs}")
+
+
+def _spec_generate(engine, batch, n: int, **kw) -> tuple:
+    """One replayed speculative generate (after a cold one that captured its
+    programs), counts zeroed just before and read just after, then the same
+    run eagerly (graphs.eager) with GQMM launches counted by rows; its tokens
+    and launches must equal the replayed run's. Returns the replayed run's
+    result, wall seconds, launches, its verify and prefill programs (the
+    captured ones), and the eager verify steps' GQMM launches by rows."""
+    engine.generate(batch, n, **kw)
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = engine.generate(batch, n, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    ver, pre = engine.graphs.last["generate.verify"], engine.graphs.last["generate.prefill"]
+    with graphs.eager(), gqmm_rows(InferenceEngine, "_generate_spec") as rows:
+        _reset_launches()
+        res_e = engine.generate(batch, n, **kw)
+        launches_e = _launches()
+    if not torch.equal(res.tokens, res_e.tokens) or launches != launches_e \
+            or res.spec_stats != res_e.spec_stats:
+        raise AssertionError(f"spec generate {kw}: the eager run differs from the replayed one "
+                             f"(launches {launches_e} vs {launches})")
+    return res, wall, launches, ver, pre, dict(rows)
+
+
+def _first_mismatch(want: np.ndarray, got: np.ndarray) -> list[dict]:
+    """Each row's first step where ``got`` leaves ``want``."""
+    out = []
+    for row in range(want.shape[0]):
+        d = np.flatnonzero(want[row] != got[row])
+        if d.size:
+            out.append({"row": row, "step": int(d[0]), "want": int(want[row, d[0]]),
+                        "got": int(got[row, d[0]])})
+    return out
+
+
+def phase_spec(dev, engine3, serve3, ragged3, reng, rvanilla) -> dict:
+    """Phase 7: speculative decoding on the phase-3 int8 model (its engine
+    and vanilla tokens) and on phase 5's engine and vanilla passes."""
+    cfg, k, n = engine3.cfg, SPEC["k"], SERVE["max_new_tokens"]
+    b, p = SERVE["batch"], SERVE["prompt_len"]
+    rng = np.random.default_rng(SERVE["seed"])
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(b, p)))}
+    vanilla = {False: np.asarray(serve3["tokens"])}
+    # paged decode (the paged-attention kernel) sums in other orders than
+    # contiguous decode: paged spec is held to paged vanilla
+    vanilla[True] = engine3.generate(batch, n, paged=True).tokens.numpy()
+    per_pass = launches_per_pass(cfg, True)
+    out = {"paged_vanilla_equal_contiguous": int((vanilla[True] == vanilla[False]).sum()),
+           "tokens_total": b * n, "runs": {}}
+    steps_oracle = math.ceil((n - 1) / k)
+    for paged in (False, True):
+        vtoks = vanilla[paged]
+        oracle = OracleDrafter(batch["tokens"].numpy(), vtoks)
+        for dname, drafter in (("ngram", NgramDrafter()), ("oracle", oracle)):
+            name = f"{'paged' if paged else 'contiguous'}_{dname}"
+            res, wall, launches, ver, pre, rows = _spec_generate(
+                engine3, batch, n, spec_k=k, drafter=drafter, paged=paged)
+            st, toks = res.spec_stats, res.tokens.numpy()
+            # the run's own captured prefill, replayed once more: its time
+            # comes off the run's wall time
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pre.replay()
+            torch.cuda.synchronize()
+            t_prefill = time.perf_counter() - t0
+            step_launches = {kn: c for _, kn, c in ver.launches}
+            want_step = {**per_pass, **({"paged_attn": cfg.num_layers * k} if paged else {})}
+            if step_launches != want_step:
+                raise AssertionError(f"{name}: a verify step launches {step_launches}, "
+                                     f"expected {want_step}")
+            if rows != {b * k: per_pass["gqmm_int8"] * st["verify_steps"]}:
+                raise AssertionError(f"{name}: GQMM launches of the verify steps by rows {rows}, "
+                                     f"expected {per_pass['gqmm_int8']} x {st['verify_steps']} "
+                                     f"at {b * k}")
+            want_all = {kn: c * st["verify_steps"] for kn, c in want_step.items()}
+            want_all["gqmm_int8"] += per_pass["gqmm_int8"]                  # the prefill
+            if launches != want_all:
+                raise AssertionError(f"{name}: launched {launches}, expected {want_all}")
+            diffs = _first_mismatch(vtoks, toks)
+            if diffs:
+                raise AssertionError(f"{name}: spec tokens leave vanilla decode's at {diffs}")
+            if dname == "oracle" and (st["verify_steps"] != steps_oracle
+                                      or st["accepted"] != st["drafted"]):
+                raise AssertionError(f"{name}: the oracle drafter took {st}; expected "
+                                     f"acceptance 1 in {steps_oracle} steps")
+            chunk = torch.as_tensor(vtoks[:, :k])
+            dev_ms, host_ms = device_time_ms(lambda i: (ver.load(
+                pos=p, chunk=chunk, live=np.ones(b, bool), remaining=np.full(b, n))
+                if i == 0 else None, ver.replay()), 6, host_ms_guess=0.3)
+            wall_step = 1e3 * (wall - t_prefill) / st["verify_steps"]
+            r = {"tokens_equal_vanilla": int((toks == vtoks).sum()), "spec_stats": st,
+                 "wall_s": wall, "verify_ms_wall": wall_step, "verify_ms_device": dev_ms,
+                 "replay_host_ms": host_ms, "busy_share": dev_ms / wall_step,
+                 "tokens_per_step": (st["generated"] - b) / (st["verify_steps"] * b),
+                 "ms_per_token": 1e3 * (wall - t_prefill) / (n - 1),
+                 "launches": launches, "step_launches": step_launches, "gqmm_rows": rows}
+            out["runs"][name] = r
+            log(f"[spec] generate {name}, k {k}: {r['tokens_equal_vanilla']}/{b * n} tokens equal "
+                f"{'paged' if paged else 'contiguous'} vanilla decode's; {st['verify_steps']} "
+                f"verify steps, {st['accepted']}/{st['drafted']} drafts accepted, "
+                f"{r['tokens_per_step']:.2f} tokens a step a row; verify step "
+                f"{wall_step:.3f} ms wall, {dev_ms:.3f} ms on the card "
+                f"({100 * r['busy_share']:.1f} % busy; the host enqueues a replay in "
+                f"{host_ms:.3f} ms); {r['ms_per_token']:.3f} ms a generated token beside "
+                f"vanilla's {serve3['decode_ms_per_step']:.3f} ms/step (phase 3); a step "
+                f"launches {step_launches}, GQMM at {b * k} rows "
+                f"({kern.gqmm_design(b * k, 2048, 2048, 256)[0]} design) [{CARD['smi']}]")
+    log(f"[spec] paged vanilla decode: {out['paged_vanilla_equal_contiguous']}/{b * n} tokens "
+        "equal contiguous vanilla decode's (phase 3)")
+
+    # (b) the ragged trace, paged and continuous, n-gram drafter, on phase
+    # 5's engine beside its vanilla passes
+    reqs = ragged_trace(cfg.vocab_size)
+    sk = dict(slots=RAGGED["slots"], chunk=RAGGED["chunk"])
+    out["ragged"] = {}
+    for mode, vname in (("paged", "paged_float"), ("continuous", "continuous")):
+        kw = dict(sk, **({"block_size": RAGGED["block_size"]} if mode == "paged" else {}))
+        serve_ragged(reng, reqs, RAGGED["budgets"][1], mode=mode, spec_k=k, **kw)
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sp = serve_ragged(reng, reqs, RAGGED["budgets"][1], mode=mode, spec_k=k, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        sched = (paged_scheduler(reng, spec_k=k, **kw) if mode == "paged"
+                 else slot_scheduler(reng, spec_k=k, **kw))
+        st = dict(sched.last_spec_stats)
+        adapter = type(sched._core.adapter)
+        with graphs.eager(), gqmm_rows(adapter, "verify_round") as rows:
+            _reset_launches()
+            sp_e = serve_ragged(reng, reqs, RAGGED["budgets"][1], mode=mode, spec_k=k, **kw)
+            launches_e = _launches()
+        same = all(np.array_equal(x.tokens, y.tokens) and x.length == y.length
+                   for x, y in zip(sp, sp_e))
+        if not same or launches != launches_e:
+            raise AssertionError(f"ragged spec {mode}: the eager pass differs from the replayed "
+                                 f"one (tokens equal: {same}; launches {launches_e} vs "
+                                 f"{launches})")
+        toks = _served(reqs, sp, cfg.vocab_padded)
+        large = {r: c for r, c in rows.items()
+                 if kern.gqmm_design(r, 2048, 2048, 256)[0] == "large"}
+        if dict(rows) != {RAGGED["slots"] * k: per_pass["gqmm_int8"] * st["verify_steps"]}:
+            raise AssertionError(f"ragged spec {mode}: GQMM launches of the verify rounds by "
+                                 f"rows {dict(rows)}, expected {per_pass['gqmm_int8']} x "
+                                 f"{st['verify_steps']} at {RAGGED['slots'] * k}")
+        diffs = [{"request": i, "step": int(np.flatnonzero(
+                      np.asarray(x.tokens) != np.asarray(y.tokens))[0])}
+                 for i, (x, y) in enumerate(zip(rvanilla[vname], sp))
+                 if not np.array_equal(x.tokens, y.tokens)]
+        if diffs:
+            raise AssertionError(f"ragged spec {mode}: tokens leave phase 5's vanilla pass's at "
+                                 f"{diffs}")
+        if not verify_step_equals_decode(reng, reqs, mode == "paged"):
+            raise AssertionError(f"ragged spec {mode}: a {RAGGED['slots'] * k}-row verify "
+                                 "step's logits differ from a decode step's")
+        van = ragged3["passes"][vname]
+        r = {"tokens": toks, "wall_s": wall, "tok_s": toks / wall, "vanilla_tok_s": van["tok_s"],
+             "spec_stats": st, "ms_per_verify_step": 1e3 * wall / st["verify_steps"],
+             "vanilla_ms_per_round": van["ms_per_round"], "vanilla_rounds": van["rounds"],
+             "vanilla_decode_steps": van["decode_steps"], "launches": launches,
+             "gqmm_rows": dict(rows), "large_design_launches": sum(large.values())}
+        out["ragged"][mode] = r
+        log(f"[spec] serve_ragged {mode}, {len(reqs)} requests, k {k}: {toks} tokens in {wall:.2f} s "
+            f"({r['tok_s']:.1f} tok/s; vanilla {van['tok_s']:.1f}, phase 5), every token "
+            f"equal to the vanilla pass's; last_spec_stats {st}; a verify round "
+            f"{r['ms_per_verify_step']:.1f} ms wall with prefills (vanilla: "
+            f"{van['ms_per_round']:.1f} ms a round of up to {RAGGED['chunk']} decode steps, "
+            f"{van['decode_steps']} steps in {van['rounds']} rounds); one "
+            f"{RAGGED['slots'] * k}-row verify step's logits equal a decode step's bit for bit; "
+            f"verify rounds' GQMM by rows {dict(rows)}, {r['large_design_launches']} on the "
+            f"large design; launches {launches} [{CARD['smi']}]")
+    return out
+
+
+def verify_step_equals_decode(engine, reqs, paged: bool) -> bool:
+    """The trace's first ``slots`` requests prefilled together, then one
+    verify step of chunk [token, token, ...] (slots * k rows: the large
+    GQMM design) and one decode step of the same tokens, over the
+    contiguous cache or its identity-mapped pool: verify row 0's logits
+    equal the decode step's bit for bit."""
+    group = reqs[:RAGGED["slots"]]
+    length = bucket_length(max(len(r.tokens) for r in group))
+    toks, lens = pad_bucket(group, length)
+    model, params, dev, bs = engine.model, engine.params, engine.device, RAGGED["block_size"]
+    with torch.inference_mode():
+        cache_len = -(-engine.cache_len // bs) * bs
+        logits, cache = model.prefill(params, {"tokens": torch.from_numpy(toks).to(dev),
+                                               "lengths": torch.from_numpy(lens).to(dev)},
+                                      cache_len)
+        tok, pos = logits.argmax(-1), torch.from_numpy(lens).to(dev)
+        chunk = tok[:, None].expand(-1, SPEC["k"]).contiguous()
+        if paged:
+            pool, table = contiguous_to_paged(cache, bs)
+            want, _ = model.decode_paged(params, tok, {k: v.clone() for k, v in pool.items()},
+                                         table, pos)
+            got, _ = model.verify_paged(params, chunk, pool, table, pos)
+        else:
+            want, _ = model.decode(params, tok, {k: v.clone() for k, v in cache.items()}, pos)
+            got, _ = model.verify(params, chunk, cache, pos)
+    return torch.equal(got[:, 0], want)
+
+
+# ---------------------------------------------------------------------------
 # phase 4: golden tokens from the reference package
 # ---------------------------------------------------------------------------
 
@@ -1873,6 +2226,8 @@ def phase_golden(dev) -> dict:
         f"GQMM launches {launches['gqmm_int8']})")
     if got != golden["tokens"]:
         raise AssertionError(f"golden tokens differ:\n port {got}\n  ref {golden['tokens']}")
+    spec = golden_spec(dev, engine, prompt, golden["tokens"], "int8, 2 layers")
+    spec["top_p"] = golden_top_p(dev, engine, prompt)
 
     # the ragged trace through serve_ragged(mode="paged"), one KV pool type each
     gr, ref = GOLDEN_RAGGED, golden["ragged"]
@@ -1974,7 +2329,77 @@ def phase_golden(dev) -> dict:
         raise AssertionError(f"golden replay under the flags: the reference's token is not a "
                              f"near-tie of the card's choice: {off_fl}")
     return {"tokens_equal": same, "tokens_total": total, "launches": launches,
-            "ragged": ragged, "formats": formats, "flags": flagged}
+            "ragged": ragged, "formats": formats, "flags": flagged, "spec": spec}
+
+
+def golden_spec(dev, engine, prompt, want, tag: str) -> dict:
+    """Phase 7 (d): greedy speculative generate (k = SPEC["k"]) on a golden
+    engine's weights must give the golden tokens: greedy spec tokens are
+    the vanilla tokens, each verify row summed as its decode step. With the
+    n-gram drafter, and with the oracle drafter (the golden continuation):
+    every draft accepted, in ceil((n-1)/k) verify steps. Spec top-p at p ->
+    0 collapses the nucleus to the argmax: the greedy spec tokens (f32
+    logits: no exact tie at the top)."""
+    k, n = SPEC["k"], GOLDEN["max_new_tokens"]
+    seng = InferenceEngine(engine.model, engine.params, device=dev,
+                           cache_len=GOLDEN["prompt_len"] + n + k)
+    batch = {"tokens": torch.as_tensor(prompt)}
+    _reset_launches()
+    res = seng.generate(batch, n, spec_k=k)
+    launches = _launches()
+    got = res.tokens.tolist()
+    same = sum(a == b for ra, rb in zip(got, want) for a, b in zip(ra, rb))
+    orc = seng.generate(batch, n, spec_k=k, drafter=OracleDrafter(prompt, np.asarray(want)))
+    steps = math.ceil((n - 1) / k)
+    tiny = seng.generate(batch, n, spec_k=k, sampler="top_p", sampler_kw={"p": SPEC["tiny_p"]})
+    log(f"[golden] spec generate ({tag}), k {k}: {same}/{GOLDEN['batch'] * n} tokens equal the "
+        f"reference's; {res.spec_stats}; launches {launches}; with the oracle drafter "
+        f"{orc.spec_stats}; top-p at p={SPEC['tiny_p']} equal to greedy spec: "
+        f"{torch.equal(tiny.tokens, res.tokens)}")
+    if got != want:
+        raise AssertionError(f"golden spec tokens ({tag}) differ:\n port {got}\n  ref {want}")
+    if orc.tokens.tolist() != want or orc.spec_stats["verify_steps"] != steps \
+            or orc.spec_stats["accepted"] != orc.spec_stats["drafted"]:
+        raise AssertionError(f"golden spec ({tag}): the oracle drafter took {orc.spec_stats}, "
+                             f"expected the golden tokens with acceptance 1 in {steps} steps")
+    if not torch.equal(tiny.tokens, res.tokens):
+        raise AssertionError(f"golden spec ({tag}): top-p at p={SPEC['tiny_p']} differs from "
+                             "greedy spec")
+    return {"tokens_equal": same, "spec_stats": res.spec_stats, "launches": launches,
+            "oracle": orc.spec_stats, "tiny_p_equals_greedy": True}
+
+
+def golden_top_p(dev, engine, prompt) -> dict:
+    """Phase 7 (c): top-p generate (p SPEC["top_p"], seed SPEC["seed"]) on the
+    kernels and on the plain versions, the same noise drawn for both: tokens
+    equal, or each row's first differing step a near tie of the kernels'
+    perturbed scores (filtered logits + the step's Gumbel draw) along the
+    common prefix, within TIE_MARGIN of max|logit|."""
+    n, p = GOLDEN["max_new_tokens"], SPEC["top_p"]
+    batch = {"tokens": torch.as_tensor(prompt)}
+    kw = dict(sampler="top_p", sampler_kw={"p": p}, seed=SPEC["seed"])
+    _reset_launches()
+    got = engine.generate(batch, n, **kw).tokens.numpy()
+    launches = _launches()
+    with ops.impl_scope("plain"):
+        want = engine.generate(batch, n, **kw).tokens.numpy()
+    gen = torch.Generator(device=dev).manual_seed(SPEC["seed"])
+    noise = [fill_gumbel(torch.empty((prompt.shape[0], engine.cfg.vocab_padded), device=dev), gen)
+             for _ in range(n)]
+    klog = step_logits(engine, batch, torch.as_tensor(want))
+
+    def perturbed(s, row):
+        lg = klog[s][row]
+        return (torch.where(nucleus_mask(lg, p), lg, NEG_INF) + noise[s][row],
+                lg.abs().max().item())
+
+    diffs = first_differences(want, got, perturbed)
+    log(f"[golden] top-p (p {p}, seed {SPEC['seed']}) kernels vs plain: "
+        f"{int((got == want).sum())}/{got.size} tokens equal; first differences {diffs} "
+        f"(tol {TIE_MARGIN}); launches {launches}")
+    _check_ties("top-p kernels vs plain", diffs)
+    return {"tokens_equal": int((got == want).sum()), "first_differences": diffs,
+            "launches": launches}
 
 
 def phase_golden_deep(dev) -> dict:
@@ -2029,6 +2454,8 @@ def phase_golden_deep(dev) -> dict:
             f"{out[setting]['seconds']:.1f} s")
         if setting == "float32" and got != want:
             raise AssertionError(f"deep golden f32 tokens differ:\n port {got}\n  ref {want}")
+        if setting == "float32":
+            out["spec"] = golden_spec(dev, eng, prompt, want, f"f32, {cfg.num_layers} layers")
         if got != want and not off:
             raise AssertionError("deep golden int8 tokens differ with no replayed tie")
         for o in off:
@@ -2043,17 +2470,23 @@ def phase_golden_deep(dev) -> dict:
 
 # ---------------------------------------------------------------------------
 
-def _phase_gqmm_launches(kname, kind, serves, ragged, flagres) -> dict[str, int]:
+def _phase_gqmm_launches(kname, kind, serves, ragged, flagres, spec) -> dict[str, int]:
     """Launches of one GQMV/GQMM kernel on the main paths, by run: phase 3's
     generate per weight setting (its matvec path for GQMV), phase 5's ragged
     passes, phase 6's generate and Model.forward (the 1 x 2048 prefill runs
-    prefill_dequant: no GQMM)."""
+    prefill_dequant: no GQMM), phase 7's replayed speculative generates and
+    serves."""
     key = "launches" if kind == "gqmm" else "matvec_launches"
     runs = {f"phase 3 {tag}": sv[key].get(kname, 0) for tag, sv in serves.items()}
     runs.update({f"phase 5 {name}": ps["launches"].get(kname, 0)
                  for name, ps in ragged["passes"].items()})
     runs["phase 6 generate"] = flagres["generate"]["gqmm_launches_generate"].get(kname, 0)
     runs["phase 6 forward"] = flagres["forward"]["gqmm_launches"].get(kname, 0)
+    if kind == "gqmm":
+        runs.update({f"phase 7 generate {name}": r["launches"].get(kname, 0)
+                     for name, r in spec["runs"].items()})
+        runs.update({f"phase 7 ragged {mode}": r["launches"].get(kname, 0)
+                     for mode, r in spec["ragged"].items()})
     return {k: v for k, v in runs.items() if v}
 
 
@@ -2065,18 +2498,19 @@ def _timing(row) -> dict:
 
 
 def kernel_entries(rows, gsrows, serves, prows, ragged, frows, rqrows, flagres,
-                   golden) -> list[dict]:
+                   golden, spec) -> list[dict]:
     """The kernels line. A GQMV/GQMM kernel's times are one forward pass of
     its format's uniform setting; its launches add up every run of phases 3,
     5 and 6 that launched it (the presets launch int4/int3 and the int8
-    classifier). The paged kernel's launches are phase 5's passes; the
+    classifier). The paged kernel's launches are phase 5's passes (and, for
+    the float pool, phase 7's paged verify runs); the
     tensor-core flash kernel's phase 6's three runs (bf16), the CUDA-core
     flash kernel's the golden phase's run under the flags (f32); the fused
     RMSNorm + quantize's its standalone run."""
     entries = []
     for fmt, kind in itertools.product(WEIGHT_FORMATS, ("gqmm", "gqmv")):
         kname = f"{kind}_{fmt}"
-        runs = _phase_gqmm_launches(kname, kind, serves, ragged, flagres)
+        runs = _phase_gqmm_launches(kname, kind, serves, ragged, flagres, spec)
         mine = [r for r in rows if r["kernel"] == kname]
         step = serves[fmt]["step_gqmm" if kind == "gqmm" else "step_gqmv"]
         entries.append({
@@ -2089,7 +2523,8 @@ def kernel_entries(rows, gsrows, serves, prows, ragged, frows, rqrows, flagres,
             "per": f"one forward pass of the 89 TinyLlama projections with {fmt} weights at b="
                    + str(SERVE["batch"] if kind == "gqmm" else 1),
             "path": ("InferenceEngine.generate (batch {b}, prompt {p}, {n} tokens), serve_ragged, "
-                     "the flags' generate and Model.forward".format(
+                     "the flags' generate and Model.forward, speculative generate and "
+                     "serve_ragged (verify at b*k rows)".format(
                          b=SERVE["batch"], p=SERVE["prompt_len"], n=SERVE["max_new_tokens"])
                      if kind == "gqmm" else
                      "ops.quantized_matmul on 1-D activations over the 89 projections")
@@ -2126,10 +2561,17 @@ def kernel_entries(rows, gsrows, serves, prows, ragged, frows, rqrows, flagres,
                 r[k] == v for k, v in shape.items()))
 
         main, large = timed(PAGED_MAIN), timed(PAGED_LARGE)
+        # phase 7's paged verify runs the float-pool kernel once a chunk
+        # column a layer
+        spec_runs = {} if kname != "paged_attn" else {
+            **{f"phase 7 generate {name}": r["launches"].get(kname, 0)
+               for name, r in spec["runs"].items() if name.startswith("paged")},
+            "phase 7 ragged paged": spec["ragged"]["paged"]["launches"].get(kname, 0)}
         entries.append({
             "name": kname, "route": "cuda", "source": SOURCES[kname],
             "replaces": REPLACES[kname],
-            "launches": sum(passes[n]["launches"][kname] for n in names),
+            "launches": sum(passes[n]["launches"][kname] for n in names)
+            + sum(spec_runs.values()),
             "max_abs_err": max(r["max_abs_err"] for r in mine), **_timing(main),
             "library_ms": None,
             "per": f"one call at b={PAGED_MAIN['b']}, BS {PAGED_MAIN['bs']}, MB*BS "
@@ -2143,7 +2585,8 @@ def kernel_entries(rows, gsrows, serves, prows, ragged, frows, rqrows, flagres,
             "path": "serve_ragged(mode='paged'), " + " and ".join(
                 f"{n} ({passes[n]['kv']} KV, {passes[n]['launches'][kname]} launches = "
                 f"{passes[n]['launches'][kname] // passes[n]['decode_steps']} layers x "
-                f"{passes[n]['decode_steps']} decode steps)" for n in names),
+                f"{passes[n]['decode_steps']} decode steps)" for n in names)
+            + "".join(f"; {t} {c}" for t, c in spec_runs.items()),
             "shapes": [{k: r[k] for k in ("qdtype", "pool", "b", "bs", "T", "splits", "us",
                                           "plain_us", "bound_us", "max_abs_err", "tol")}
                        for r in mine if "us" in r],
@@ -2244,9 +2687,14 @@ def main(argv=None) -> int:
             engines[tag] = eng
         del eng
     del params
-    ragged = phase_ragged(dev, engines["int8"], engines[RAGGED_FORMAT])
+    ragged, ragged_engine, ragged_outs = phase_ragged(dev, engines["int8"],
+                                                      engines[RAGGED_FORMAT])
     flagres = phase_flags(dev, engines["int8"], serves["int8"])
-    del engines
+    t_spec = time.perf_counter()
+    spec = phase_spec(dev, engines["int8"], serves["int8"], ragged, ragged_engine, ragged_outs)
+    spec["seconds"] = time.perf_counter() - t_spec
+    log(f"[spec] phase 7 (a) and (b) took {spec['seconds']:.1f} s")
+    del engines, ragged_engine, ragged_outs
     golden = phase_golden(dev)
     golden["deep"] = phase_golden_deep(dev)
 
@@ -2271,9 +2719,20 @@ def main(argv=None) -> int:
         f"{sum(v['pool_bytes'] for v in ragged['programs']['float'].values()) / 2**20:.0f} MiB "
         f"(ragged bf16-pool engine) [{CARD['smi']}]")
 
+    sc = spec["runs"]["contiguous_ngram"]
+    log(f"[spec] int8, batch {SERVE['batch']}, k {SPEC['k']}: verify step "
+        + ", ".join(f"{name} {r['verify_ms_wall']:.3f} ms wall ({r['verify_ms_device']:.3f} on "
+                    f"the card), {r['tokens_per_step']:.2f} tokens a row, {r['ms_per_token']:.3f} "
+                    f"ms a token" for name, r in spec["runs"].items())
+        + f"; vanilla {s8['decode_ms_per_step']:.3f} ms/step; ragged tok/s "
+        + ", ".join(f"{m} {r['tok_s']:.1f} (vanilla {r['vanilla_tok_s']:.1f})"
+                    for m, r in spec["ragged"].items())
+        + f"; n-gram acceptance {sc['spec_stats']['accepted']}/{sc['spec_stats']['drafted']} "
+        f"[{CARD['smi']}]")
+
     smi = card()
     entries = kernel_entries(rows, gsrows + tcrows + mvrows, serves, prows, ragged, frows,
-                             rqrows, flagres, golden)
+                             rqrows, flagres, golden, spec)
     for e in entries:
         log(f"[kernels] {e['name']:16s} {e['launches']:6d} launches  {1e3 * e['ms']:10.3f} us  "
             f"bound {1e3 * e['bound_ms']:9.3f} us ({e['bound_by']}, {100 * e['bound_share']:.1f} "
@@ -2290,6 +2749,7 @@ def main(argv=None) -> int:
              "flash_rows": frows, "rmsnorm_quant_rows": rqrows, "paged_rows": prows,
              "paged_hd256_rows": p256rows,
              "serve": serves, "ragged": ragged, "flags": flagres, "golden": golden,
+             "spec": spec,
              "kernels": entries,
              "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -24,9 +24,12 @@ Sync sites: ``torch.cuda.synchronize``; ``.cpu()`` and ``.item()``;
 as ``x.cpu().numpy()``); and ``bool()`` / ``int()`` / ``float()`` of a
 device value. A device value is a name bound from a ``torch.*`` call, a
 method call on a device value or a call with one as an argument,
-arithmetic or an index of one, a ``decode_round`` / ``prefill_insert``
-result, or a name ending ``_d``; in a captured function every parameter
-is one too. A name bound from a sync is a host value.
+arithmetic or an index of one, a ``decode_round`` / ``prefill_insert`` /
+``verify_round`` result or a program's ``replay()``, or a name ending
+``_d``; in a captured function every parameter is one too. A name bound
+from a sync is a host value. The speculative loops (``SchedulerCore.serve``'s
+verify round, ``InferenceEngine._generate_spec``) are held to one transfer
+a verify step by the same rules.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ SYNC_METHODS = {"item", "cpu", "tolist", "numpy"}
 IMPLICIT_CASTS = {"bool", "int", "float"}
 HOST_TORCH = {"torch.from_numpy"}                  # torch calls that make host tensors
 HOST_FUNCS = {"len", "isinstance", "type", "id", "print", "str", "repr"}
-DEVICE_RESULTS = {"decode_round", "prefill_insert"}
+DEVICE_RESULTS = {"decode_round", "prefill_insert", "verify_round", "replay"}
 
 DEFAULT_LOOP_FILES = (
     "*serving/batching.py",

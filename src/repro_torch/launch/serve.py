@@ -3,9 +3,11 @@
 Counterpart of ``repro/launch/serve.py``: random weights from ``--seed``,
 group-wise PTQ unless ``--no-quantize`` (the config's W8A8, or
 ``--quantize-format`` int8/int4/int3/fp8/mixed/mixed3), optionally a quantized KV
-cache (``--kv-quant int8|fp8``), then greedy requests, timed warm (first
-call) and hot: a uniform batch through ``InferenceEngine.generate``, or
-with ``--ragged`` a mixed-length trace through ``serve_ragged`` (``--mode``
+cache (``--kv-quant int8|fp8``), then requests, greedy or ``--sampler
+top_p`` (``--top-p``, ``--temperature``), optionally speculative
+(``--spec-k``, ``--drafter ngram|model:<arch-id>``), timed warm (first call)
+and hot: a uniform batch through ``InferenceEngine.generate``, or with
+``--ragged`` a mixed-length trace through ``serve_ragged`` (``--mode``
 auto/paged/continuous/bucketed, ``--slots``, ``--block-size``). Runs on
 ``--device cuda`` by default; pass ``--device cpu`` to run on the CPU.
 Prints the captured programs by name (``serving/graphs.py``): how many, and
@@ -26,11 +28,12 @@ from repro_torch.device import resolve_device
 from repro_torch.models.registry import build, load_config
 from repro_torch.serving.batching import Request, bucket_length, resolve_mode, serve_ragged
 from repro_torch.serving.engine import InferenceEngine
+from repro_torch.serving.spec import resolve_drafter
 
 
-def _timed(engine: InferenceEngine, batch, steps: int):
+def _timed(engine: InferenceEngine, batch, steps: int, **kw):
     t0 = time.perf_counter()
-    res = engine.generate(batch, steps)     # tokens come back to the host: synchronised
+    res = engine.generate(batch, steps, **kw)   # tokens come back to the host: synchronised
     return res, time.perf_counter() - t0
 
 
@@ -56,6 +59,11 @@ def main(argv=None):
     ap.add_argument("--kv-quant", default=None, choices=["int8", "fp8"],
                     help="store the KV cache quantized (per-row scales, "
                          "dequantized in the attention kernel)")
+    ap.add_argument("--sampler", default="greedy", choices=["greedy", "top_p"])
+    ap.add_argument("--top-p", type=float, default=0.9,
+                    help="nucleus mass for --sampler top_p")
+    ap.add_argument("--temperature", type=float, default=1.0,
+                    help="softmax temperature for --sampler top_p")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ragged", action="store_true",
                     help="serve a mixed-length trace through serve_ragged "
@@ -67,8 +75,20 @@ def main(argv=None):
                          "(auto prefers paged; validated against the arch's capabilities)")
     ap.add_argument("--block-size", type=int, default=8,
                     help="KV block size (tokens) for the paged scheduler")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative decode chunk: verify the current token plus "
+                         "spec_k-1 drafted candidates a forward pass (0 = off; needs >= 2)")
+    ap.add_argument("--drafter", default="ngram",
+                    help="speculative drafter: 'ngram' (prompt lookup, no weights) or "
+                         "'model:<arch-id>' (a small registry model, greedy drafts)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    sampler_kw = ({"p": args.top_p, "temperature": args.temperature}
+                  if args.sampler == "top_p" else None)
+    spec_k = args.spec_k or None
+    if spec_k and args.kv_quant:
+        ap.error("--kv-quant is incompatible with --spec-k (the verify chunk commits float "
+                 "rows; quantized rows cannot be partially rewritten)")
 
     try:
         cfg = load_config(args.arch)
@@ -79,7 +99,15 @@ def main(argv=None):
         cfg = cfg.reduced()
     model = build(cfg)
     params = model.init(seed=args.seed, device=device)
-    cache_len = args.prompt_len + args.steps
+    drafter = None
+    if spec_k:
+        try:
+            drafter = resolve_drafter(args.drafter, reduced=args.reduced, seed=args.seed + 7,
+                                      device=device)
+        except (ValueError, NotImplementedError) as e:
+            ap.error(str(e))
+    gen_kw = dict(sampler=args.sampler, sampler_kw=sampler_kw, spec_k=spec_k, drafter=drafter)
+    cache_len = args.prompt_len + args.steps + (spec_k or 0)
     if args.ragged:
         # ragged prompts are padded up to power-of-two buckets
         cache_len = max(cache_len, bucket_length(args.prompt_len))
@@ -106,10 +134,13 @@ def main(argv=None):
             mode = resolve_mode(engine, args.mode)    # resolved for the report
         except ValueError as e:
             ap.error(str(e))                          # lists the valid modes
-        kw = dict(slots=args.slots, mode=mode, block_size=args.block_size)
-        serve_ragged(engine, reqs, args.steps, **kw)  # warm
+        kw = dict(slots=args.slots, mode=mode, block_size=args.block_size, **gen_kw)
+        try:
+            serve_ragged(engine, reqs, args.steps, **kw)  # warm
+        except ValueError as e:
+            ap.error(str(e))                          # e.g. --spec-k with bucketed
         t0 = time.perf_counter()
-        out = serve_ragged(engine, reqs, args.steps, **kw)
+        out = serve_ragged(engine, reqs, args.steps, seed=args.seed + 1, **kw)
         hot = time.perf_counter() - t0
         toks = sum(r.length for r in out)
         print(f"ragged ({mode}, lengths {sorted(lengths.tolist())}): "
@@ -120,11 +151,16 @@ def main(argv=None):
 
     batch = {"tokens": torch.as_tensor(
         rng.integers(0, cfg.vocab_size, size=(args.batch, args.prompt_len)))}
-    _, warm = _timed(engine, batch, args.steps)
-    res, hot = _timed(engine, batch, args.steps)
+    _, warm = _timed(engine, batch, args.steps, **gen_kw)
+    res, hot = _timed(engine, batch, args.steps, seed=args.seed + 1, **gen_kw)
     toks = args.batch * args.steps
     print(f"generated {toks} tokens: warm {warm:.2f}s, hot {hot:.2f}s "
           f"({toks / hot:.2f} tok/s)")
+    if res.spec_stats:
+        st = res.spec_stats
+        print(f"speculative ({drafter.name}): {st['verify_steps']} verify steps for "
+              f"{st['generated']} tokens ({st['verify_steps'] / max(st['generated'], 1):.2f} "
+              f"fwd/tok, acceptance {st['accepted'] / max(st['drafted'], 1):.2f})")
     print("first sequence:", res.tokens[0, :16].tolist())
     _report_programs(engine)
     return res

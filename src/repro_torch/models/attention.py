@@ -20,7 +20,14 @@ flags (``core/flags.py``):
 - paged decode over a block pool (``gqa_decode_paged``), float or
   quantized, through ``kernels/ops.paged_attention`` (the CUDA kernel on
   the card), with the deferred commits ``commit_layers_paged`` /
-  ``commit_layers_bkt``.
+  ``commit_layers_bkt``;
+- speculative verify of a k-token chunk over the contiguous cache
+  (``gqa_verify``) or the block pool (``gqa_verify_paged``), base float
+  layout: the chunk's projections run once over its b·k rows, and each
+  chunk column attends through the decode step's own attention (``_mha``,
+  ``_attend_deferred`` or ``kernels/ops.paged_attention``), so a verify row
+  sums as its decode step does; the accepted prefix is committed with
+  ``commit_layers_verify`` / ``commit_layers_paged_verify``.
 
 The mask selectors keep the reference's sliding-window arguments, which
 stay None until a windowed config (gemma2) is ported. The sharding
@@ -136,6 +143,54 @@ def commit_layers_paged(pages: torch.Tensor, rows: torch.Tensor, block_table: to
     phys = block_table[torch.arange(b, device=pages.device), idx].long()
     pages[:, phys, pos % bs] = rows
     return pages
+
+
+def _masked_put(dst: torch.Tensor, index: tuple, rows: torch.Tensor,
+                keep: torch.Tensor) -> torch.Tensor:
+    """``dst[index] = rows`` where ``keep``; elsewhere each target gets back
+    the bits it holds. PyTorch's scatter has no out-of-bounds drop (the
+    reference's rejected-row route), and selecting the kept pairs would
+    take a data-dependent host read; so every target is written and a
+    rejected one changes no bit. ``index`` selects (L, b, k, ...) targets,
+    which must be distinct among kept pairs; ``keep`` (b, k)."""
+    old = dst[index]
+    dst[index] = torch.where(keep.view(1, *keep.shape, *(1,) * (rows.ndim - 3)), rows, old)
+    return dst
+
+
+def commit_layers_verify(cache: torch.Tensor, rows: torch.Tensor, pos: torch.Tensor,
+                         n_commit: torch.Tensor) -> torch.Tensor:
+    """Speculative-verify commit, (L, b, T, KV, hd) layout: write the chunk's
+    rows (L, b, k, KV, hd) at times ``pos + j`` for the accepted prefix
+    ``j < n_commit[b]`` only, in place (the reference returns a copy). A
+    rejected row changes no bit (``_masked_put``), so the cache after a
+    partial accept is bit-identical to one that never saw the rejected
+    drafts: rollback is a position rewind. ``pos + k`` must lie within T
+    (the callers' ``spec_k`` slack)."""
+    b, k = rows.shape[1], rows.shape[2]
+    j = torch.arange(k, device=cache.device)[None, :]
+    cols = pos.long()[:, None] + j                                      # (b, k)
+    rows_i = torch.arange(b, device=cache.device)[:, None]
+    return _masked_put(cache, (slice(None), rows_i, cols), rows, j < n_commit[:, None])
+
+
+def commit_layers_paged_verify(pages: torch.Tensor, rows: torch.Tensor,
+                               block_table: torch.Tensor, pos: torch.Tensor,
+                               n_commit: torch.Tensor) -> torch.Tensor:
+    """Speculative-verify commit into the block pool (L, NB, BS, KV, hd), in
+    place: row j of the chunk lands at virtual position ``pos + j``'s
+    (physical block, offset) for ``j < n_commit`` only. A rejected row
+    changes no bit (``_masked_put``); the reference drops it past the
+    pool's block axis, not into the sink block 0, which under the engine's
+    identity tables is a live block. Accepted rows lie in allocated blocks,
+    each a row's own, so their targets are distinct."""
+    bs = pages.shape[2]
+    b, k = rows.shape[1], rows.shape[2]
+    j = torch.arange(k, device=pages.device)[None, :]
+    vpos = pos.long()[:, None] + j                                      # (b, k)
+    idx = torch.clamp(vpos // bs, max=block_table.shape[1] - 1)
+    phys = torch.gather(block_table.long(), 1, idx)                     # (b, k)
+    return _masked_put(pages, (slice(None), phys, vpos % bs), rows, j < n_commit[:, None])
 
 
 def commit_layers_bkt(cache: torch.Tensor, rows: torch.Tensor, pos) -> torch.Tensor:
@@ -318,9 +373,8 @@ def gqa_decode(p, x: torch.Tensor, cache, pos, cfg: ModelConfig, *, window=None,
     q, k, v = _qkv(p, x[:, None, :], cfg, _pos_rows(pos, b, x.device))
     k_cache = _commit_bt(k_cache, k, pos)
     v_cache = _commit_bt(v_cache, v, pos)
-    mask = _bcast_decode_mask(
-        _flag_decode_mask(k_cache.shape[1], pos, window, use_window, x.device))
-    ctx = _mha(q, k_cache, v_cache, mask, cfg)                      # (b, 1, q_dim)
+    mask = _flag_decode_mask(k_cache.shape[1], pos, window, use_window, x.device)
+    ctx = _mha(q, k_cache, v_cache, _bcast_decode_mask(mask), cfg)  # (b, 1, q_dim)
     return linear(p["wo"], ctx[:, 0, :]), (k_cache, v_cache)
 
 
@@ -399,24 +453,20 @@ def gqa_decode_deferred_quant(p, x: torch.Tensor, cache, pos, cfg: ModelConfig, 
     return linear(p["wo"], ctx), rows
 
 
-def gqa_decode_deferred(p, x: torch.Tensor, cache, pos, cfg: ModelConfig, *, window=None,
-                        use_window=None):
-    """Decode WITHOUT writing the cache: attends over the read-only cache
-    (whose slot at ``pos`` is still zero) plus the freshly computed K/V row,
-    and returns that row for the caller to commit after the last layer
-    (``commit_layers_bt``, or ``commit_layers_bkt`` for the kvt layout).
-    Both float layouts: (b, T, KV, hd), and (b, KV, T, hd) under
-    ``flags.kvt_cache_layout``. The current token enters through
-    ``_col_update`` (its score replaces column ``pos``) and ``_col_at`` (its
-    weight times its value row), as in the reference. Plain PyTorch: the
-    reference runs XLA here too, no kernel."""
+def _attend_deferred(q, k_new, v_new, cache, pos, mask: torch.Tensor, cfg: ModelConfig
+                     ) -> torch.Tensor:
+    """The attention of a deferred decode step: q (b, 1, H, hd) over the
+    read-only float cache (``kvt_cache_layout`` picks its layout; its slot
+    at ``pos`` still zero) plus the step's own rows k_new, v_new (b, 1, KV,
+    hd), under the decode ``mask`` (t,) or (b, t). The current token enters
+    through ``_col_update`` (its score replaces column ``pos``) and
+    ``_col_at`` (its weight times its value row), as in the reference.
+    Returns ctx (b, H * hd)."""
     k_cache, v_cache = cache
-    b = x.shape[0]
+    b = q.shape[0]
     hd, kv_heads, h = cfg.resolved_head_dim, cfg.num_kv_heads, cfg.num_heads
     g = h // kv_heads
     kvt = bool(flags.get("kvt_cache_layout"))
-    q, k_new, v_new = _qkv(p, x[:, None, :], cfg, _pos_rows(pos, b, x.device))
-    t = k_cache.shape[2] if kvt else k_cache.shape[1]
     qg = q.reshape(b, kv_heads, g, hd)
     if kvt:
         scores = torch.einsum("bkgh,bkth->bkgt", qg, k_cache).to(torch.float32)
@@ -425,9 +475,8 @@ def gqa_decode_deferred(p, x: torch.Tensor, cache, pos, cfg: ModelConfig, *, win
     cur = torch.einsum("bkgh,bkh->bkg", qg, k_new[:, 0]).to(torch.float32)
     scores = _col_update(scores, cur, pos)
     scores = scores * _gqa_scale(cfg)
-    mask = _flag_decode_mask(t, pos, window, use_window, x.device)
     scores = scores + (mask[None, None, None, :] if mask.ndim == 1 else mask[:, None, None, :])
-    attn = torch.softmax(scores, dim=-1).to(x.dtype)                # (b, KV, G, T)
+    attn = torch.softmax(scores, dim=-1).to(q.dtype)                # (b, KV, G, T)
     # the cache's slot at pos is zero, so its contribution is exactly the
     # current-token term below
     if kvt:
@@ -435,7 +484,25 @@ def gqa_decode_deferred(p, x: torch.Tensor, cache, pos, cfg: ModelConfig, *, win
     else:
         ctx = torch.einsum("bkgt,btkh->bkgh", attn, v_cache)
     ctx = ctx + _col_at(attn, pos) * v_new[:, 0][:, :, None, :]
-    ctx = ctx.reshape(b, h * hd)
+    return ctx.reshape(b, h * hd)
+
+
+def gqa_decode_deferred(p, x: torch.Tensor, cache, pos, cfg: ModelConfig, *, window=None,
+                        use_window=None):
+    """Decode WITHOUT writing the cache: attends over the read-only cache
+    (whose slot at ``pos`` is still zero) plus the freshly computed K/V row
+    (``_attend_deferred``), and returns that row for the caller to commit
+    after the last layer (``commit_layers_bt``, or ``commit_layers_bkt`` for
+    the kvt layout). Both float layouts: (b, T, KV, hd), and (b, KV, T, hd)
+    under ``flags.kvt_cache_layout``. Plain PyTorch: the reference runs XLA
+    here too, no kernel."""
+    k_cache = cache[0]
+    b = x.shape[0]
+    kvt = bool(flags.get("kvt_cache_layout"))
+    q, k_new, v_new = _qkv(p, x[:, None, :], cfg, _pos_rows(pos, b, x.device))
+    t = k_cache.shape[2] if kvt else k_cache.shape[1]
+    mask = _flag_decode_mask(t, pos, window, use_window, x.device)
+    ctx = _attend_deferred(q, k_new, v_new, cache, pos, mask, cfg)
     if kvt:
         rows = (k_new[:, 0][:, :, None, :], v_new[:, 0][:, :, None, :])     # (b, KV, 1, hd)
     else:
@@ -443,32 +510,115 @@ def gqa_decode_deferred(p, x: torch.Tensor, cache, pos, cfg: ModelConfig, *, win
     return linear(p["wo"], ctx), rows
 
 
-def gqa_decode_paged(p, x: torch.Tensor, pages, block_table: torch.Tensor, pos: torch.Tensor,
-                     cfg: ModelConfig, *, window=None, use_window=None, scales=None):
-    """Paged decode step: attention over one layer's block pool through each
-    row's block table (``kernels/ops.paged_attention``: the CUDA kernel on
-    the card), the current token handled explicitly so the pool is read
-    only. x (b, d_model); pages (k_pages, v_pages) each (NB, BS, KV, hd);
-    block_table (b, MB); pos (b,) virtual positions. With cfg.kv_quant the
-    pool rows are int8/fp8 and ``scales`` is (k_scales, v_scales), each
-    (NB, BS, KV). Returns (y, rows): (k_new, v_new) (b, KV, hd), or the
-    quantized (k_q, k_s, v_q, v_s), for ``commit_layers_paged``."""
+def verify_steps(pos: torch.Tensor, k: int, t: int, block_table: torch.Tensor | None = None,
+                 block_size: int | None = None):
+    """The k decode steps a verify chunk starting at ``pos`` (b,) stands for,
+    computed once for all layers: (positions (b, k), the chunk rows' cache
+    targets, steps). A target is an index pair (i0, i1), each (b, k), into a
+    layer's (b, T, ...) cache (slot row, time) or, with ``block_table``, its
+    (NB, BS, ...) pool (physical block, offset; the block index clamped to
+    the table width, as ``commit_layers_paged``). ``steps[m]`` is (pos + m,
+    its decode mask over ``t`` slots, the target pair of column m)."""
+    b = pos.shape[0]
+    positions = pos.long()[:, None] + torch.arange(k, device=pos.device)[None, :]   # (b, k)
+    if block_table is None:
+        target = (torch.arange(b, device=pos.device)[:, None].expand(b, k), positions)
+    else:
+        idx = torch.clamp(positions // block_size, max=block_table.shape[1] - 1)
+        target = (torch.gather(block_table.long(), 1, idx), positions % block_size)
+    steps = []
+    for m in range(k):
+        pm = positions[:, m].contiguous()
+        steps.append((pm, decode_mask(t, pm), (target[0][:, m], target[1][:, m])))
+    return positions, target, steps
+
+
+def gqa_verify(p, x: torch.Tensor, cache, positions: torch.Tensor, steps, cfg: ModelConfig):
+    """Speculative-verify attention over the contiguous float cache (k, v)
+    each (b, T, KV, hd): x (b, k, d_model) the chunk, ``positions`` and
+    ``steps`` from :func:`verify_steps`. The chunk's projections run once
+    over its b·k rows (one GQMM each); chunk column m then attends as the
+    decode step at pos + m does (``gqa_decode``'s ``_mha``, or
+    ``_attend_deferred`` under ``deferred_decode_cache``), with the chunk's
+    rows 0..m-1 in the cache. Each verify row thus sums in its decode
+    step's order, so greedy verify picks vanilla decode's tokens bit for
+    bit on every device. Writes the chunk's K/V rows into their slots in
+    place: the caller restores them (``transformer.lm_verify``). Returns (y
+    (b, k, d_model), (k_rows, v_rows) (b, k, KV, hd)) for the commit of the
+    accepted prefix (``commit_layers_verify``). Plain PyTorch, as decode."""
+    k_cache, v_cache = cache
+    q, k_new, v_new = _qkv(p, x, cfg, positions)
+    deferred = bool(flags.get("deferred_decode_cache"))
+    ctx = []
+    for m, (pm, mask, target) in enumerate(steps):
+        qm, km, vm = (t[:, m:m + 1].contiguous() for t in (q, k_new, v_new))
+        if deferred:
+            ctx.append(_attend_deferred(qm, km, vm, cache, pm, mask, cfg))
+        k_cache[target] = km[:, 0]
+        v_cache[target] = vm[:, 0]
+        if not deferred:
+            ctx.append(_mha(qm, k_cache, v_cache, _bcast_decode_mask(mask), cfg)[:, 0, :])
+    return linear(p["wo"], torch.stack(ctx, dim=1)), (k_new, v_new)
+
+
+def gqa_verify_paged(p, x: torch.Tensor, pages, block_table: torch.Tensor,
+                     positions: torch.Tensor, steps, cfg: ModelConfig):
+    """Paged speculative-verify attention over one layer's float block pool
+    (k_pages, v_pages) each (NB, BS, KV, hd): chunk column m runs the paged
+    decode step's attention (``_attend_paged``: ``ops.paged_attention``, the
+    CUDA kernel on the card) at pos + m, then its K/V rows are written into
+    the pool for the columns after it. The contract of :func:`gqa_verify`;
+    commit with ``commit_layers_paged_verify``."""
     k_pages, v_pages = pages
-    b = x.shape[0]
+    q, k_new, v_new = _qkv(p, x, cfg, positions)
+    ctx = []
+    for m, (pm, mask, target) in enumerate(steps):
+        kn, vn = k_new[:, m].contiguous(), v_new[:, m].contiguous()
+        ctx.append(_attend_paged(q[:, m:m + 1], kn, vn, pages, block_table, pm, mask, cfg))
+        k_pages[target] = kn
+        v_pages[target] = vn
+    return linear(p["wo"], torch.stack(ctx, dim=1)), (k_new, v_new)
+
+
+def _attend_paged(q, kn, vn, pages, block_table: torch.Tensor, pos: torch.Tensor,
+                  mask: torch.Tensor, cfg: ModelConfig, scales=None) -> torch.Tensor:
+    """The attention of a paged decode step (``kernels/ops.paged_attention``:
+    the CUDA kernel on the card): q (b, 1, H, hd) over the block pool
+    through each row's block table, the current token's rows kn, vn (b, KV,
+    hd) handled explicitly so the pool is read only; ``mask`` (b, t).
+    Returns ctx (b, H * hd)."""
+    k_pages, v_pages = pages
+    b = q.shape[0]
     hd, kv_heads = cfg.resolved_head_dim, cfg.num_kv_heads
-    q, k_new, v_new = _qkv(p, x[:, None, :], cfg, _pos_rows(pos, b, x.device))
     g = cfg.num_heads // kv_heads
-    t = block_table.shape[1] * k_pages.shape[1]
     k_scales, v_scales = scales if scales is not None else (None, None)
-    # the kernel takes contiguous rows; q, k_new and v_new are views of the
-    # fused QKV projection
+    # the kernel takes contiguous rows; q is a view of the fused QKV
+    # projection
     qg = q.reshape(b, kv_heads, g, hd).contiguous()
-    kn, vn = k_new[:, 0].contiguous(), v_new[:, 0].contiguous()
-    mask = _flag_decode_mask(t, pos, window, use_window, x.device)     # (b, t)
-    ctx = ops.paged_attention(
+    return ops.paged_attention(
         qg, k_pages, v_pages, block_table, pos, kn, vn, mask,
         scale=_gqa_scale(cfg), softcap=cfg.attn_logit_softcap or None,
         k_scales=k_scales, v_scales=v_scales)
+
+
+def gqa_decode_paged(p, x: torch.Tensor, pages, block_table: torch.Tensor, pos: torch.Tensor,
+                     cfg: ModelConfig, *, window=None, use_window=None, scales=None):
+    """Paged decode step: attention over one layer's block pool through each
+    row's block table (``_attend_paged``), the current token handled
+    explicitly so the pool is read only. x (b, d_model); pages (k_pages,
+    v_pages) each (NB, BS, KV, hd); block_table (b, MB); pos (b,) virtual
+    positions. With cfg.kv_quant the pool rows are int8/fp8 and ``scales``
+    is (k_scales, v_scales), each (NB, BS, KV). Returns (y, rows): (k_new,
+    v_new) (b, KV, hd), or the quantized (k_q, k_s, v_q, v_s), for
+    ``commit_layers_paged``."""
+    b = x.shape[0]
+    q, k_new, v_new = _qkv(p, x[:, None, :], cfg, _pos_rows(pos, b, x.device))
+    t = block_table.shape[1] * pages[0].shape[1]
+    # the kernel takes contiguous rows; k_new and v_new are views of the
+    # fused QKV projection
+    kn, vn = k_new[:, 0].contiguous(), v_new[:, 0].contiguous()
+    mask = _flag_decode_mask(t, pos, window, use_window, x.device)     # (b, t)
+    ctx = _attend_paged(q, kn, vn, pages, block_table, pos, mask, cfg, scales)
     kvq = cfg.kv_quant
     if kvq:
         kq, ks = _quantize_rows(kn, kvq)                            # (b, KV, hd) / (b, KV)

@@ -45,6 +45,21 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
     return (x32 * inv * w.to(torch.float32)).to(dt)
 
 
+def rmsnorm_steps(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """:func:`rmsnorm` of a speculative-verify chunk x (b, k, d) whose sums of
+    squares run over each chunk column's (b, d) rows apart, as k decode
+    steps of b rows sum them: PyTorch's CUDA reduction splits a row's sum
+    by how many rows it reduces (at b = 4 across warps, at 16 one warp a
+    row), and a verify row must round as its decode step does. Everything
+    else is elementwise, the same op for op."""
+    dt = x.dtype
+    x32 = x.to(torch.float32)
+    sq = (x32 * x32).transpose(0, 1).contiguous()                 # (k, b, d)
+    ms = torch.stack([sq[m].mean(dim=-1, keepdim=True) for m in range(sq.shape[0])], dim=1)
+    inv = torch.rsqrt(ms + eps)
+    return (x32 * inv * w.to(torch.float32)).to(dt)
+
+
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return F.silu(gate) * up
 

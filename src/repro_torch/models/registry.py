@@ -5,9 +5,10 @@ architectures only TinyLlama-1.1B; ``load_config`` names the others and
 raises "not yet ported" for them. ``Model`` keeps the reference's entry
 points (the scoring ``forward``, ``prefill``, ``decode``) and its
 capability flags, each declared explicitly: ragged lengths, the paged
-block-pool cache (``init_paged_cache``/``decode_paged``) and the serving
-core's slot hooks (``cache_kind="kv"``, ``insert_slots``/``gather_slots``)
-are ported; speculative verify is not, so ``supports_spec`` stays off.
+block-pool cache (``init_paged_cache``/``decode_paged``), speculative
+verify over both caches (``verify``/``commit_verify`` and their paged
+siblings) and the serving core's slot hooks (``cache_kind="kv"``,
+``insert_slots``/``gather_slots``).
 """
 
 from __future__ import annotations
@@ -60,7 +61,13 @@ class Model:
     supports_paged: bool = False
     init_paged_cache: Callable | None = None   # (num_blocks, block_size, dtype, device) -> pool
     decode_paged: Callable | None = None       # (params, tok, pool, table, pos) -> (logits, pool)
+    # speculative verify: a k-token chunk's logits, the cache left as found,
+    # and a commit of the accepted prefix only (in place)
     supports_spec: bool = False
+    verify: Callable | None = None             # (params, toks (b,k), cache, pos) -> (logits (b,k,V), rows)
+    commit_verify: Callable | None = None      # (cache, rows, pos, n_commit) -> cache
+    verify_paged: Callable | None = None       # (params, toks, pool, table, pos) -> (logits, rows)
+    commit_verify_paged: Callable | None = None  # (pool, rows, table, pos, n_commit) -> pool
     cache_kind: str = "none"
     insert_slots: Callable | None = None       # (cache, rows, slots) -> cache
     gather_slots: Callable | None = None       # (cache, slots) -> per-slot rows
@@ -92,8 +99,12 @@ def build(cfg: ModelConfig) -> Model:
             cfg, nb, bs, dt, device),
         decode_paged=lambda p, tok, cache, table, pos: _tf.lm_decode_paged(
             p, tok, cache, table, pos, cfg),
-        # speculative verify (lm_verify / lm_commit_verify) is not ported
-        supports_spec=False,
+        supports_spec=True,
+        verify=lambda p, toks, cache, pos: _tf.lm_verify(p, toks, cache, pos, cfg),
+        commit_verify=_tf.lm_commit_verify,
+        verify_paged=lambda p, toks, cache, table, pos: _tf.lm_verify_paged(
+            p, toks, cache, table, pos, cfg),
+        commit_verify_paged=_tf.lm_commit_verify_paged,
         cache_kind="kv",
         insert_slots=_tf.lm_insert_slots,
         gather_slots=_tf.lm_gather_slots,

@@ -10,7 +10,10 @@ reference's layouts: the contiguous base (L, b, T, KV, hd) cache, the kvt
 (``cfg.kv_quant`` or ``flags.int8_kv_cache``), and the paged block pool
 (float or quantized). Decode writes them in place. ``lm_forward`` is the
 scoring forward (``Model.forward``); ``flags.blockwise_attention`` sends its
-attention and prefill's through the flash kernel.
+attention and prefill's through the flash kernel. ``lm_verify`` /
+``lm_verify_paged`` run a speculative k-token chunk as k decode steps'
+arithmetic and leave the cache as they found it, and
+``lm_commit_verify(_paged)`` commit its accepted prefix.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from repro_torch.core.tree import tree_index
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlpmod
-from repro_torch.models.common import dense_init, embed_init, rmsnorm
+from repro_torch.models.common import dense_init, embed_init, rmsnorm, rmsnorm_steps
 
 
 def _check_ported(cfg: ModelConfig) -> None:
@@ -72,16 +75,17 @@ def _embed(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return embedding_lookup(params["embed"], tokens, cfg.cdtype())
 
 
-def _logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+def _logits(params, x: torch.Tensor, cfg: ModelConfig, norm=rmsnorm) -> torch.Tensor:
+    x = norm(x, params["final_norm"], cfg.norm_eps)
     w = params["embed"] if cfg.tie_embeddings else params["classifier"]
     return linear(w, x)
 
 
-def _block(lp, x: torch.Tensor, cfg: ModelConfig, attn_fn) -> torch.Tensor:
-    """One residual block given an attention closure; shared by all paths."""
-    x = x + attn_fn(rmsnorm(x, lp["att_norm"], cfg.norm_eps))
-    return x + mlpmod.mlp_forward(lp["mlp"], rmsnorm(x, lp["ffn_norm"], cfg.norm_eps))
+def _block(lp, x: torch.Tensor, cfg: ModelConfig, attn_fn, norm=rmsnorm) -> torch.Tensor:
+    """One residual block given an attention closure; shared by all paths
+    (verify passes ``rmsnorm_steps``)."""
+    x = x + attn_fn(norm(x, lp["att_norm"], cfg.norm_eps))
+    return x + mlpmod.mlp_forward(lp["mlp"], norm(x, lp["ffn_norm"], cfg.norm_eps))
 
 
 # ---------------------------------------------------------------------------
@@ -302,3 +306,114 @@ def lm_decode_paged(params, token: torch.Tensor, cache: dict, block_table: torch
         attn.commit_layers_paged(cache[name], torch.stack([r[j] for r in rows]),
                                  block_table, pos)
     return _logits(params, x, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# speculative verify: k-token chunked decode
+# ---------------------------------------------------------------------------
+
+def _verify_embed(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    # gemma2's sqrt(d) embedding scale comes with the gemma2 slice
+    return embedding_lookup(params["embed"], tokens, cfg.cdtype())
+
+
+def _check_verify_layout(cfg: ModelConfig) -> None:
+    if cfg.mla:
+        raise ValueError(f"{cfg.arch_id}: speculative verify covers the GQA layouts; the "
+                         "MLA latent cache keeps the single-token path (supports_spec=False)")
+    if flags.get("kvt_cache_layout") or attn.kv_quant_format(cfg):
+        raise ValueError("speculative verify supports the base float KV layout "
+                         "(kvt_cache_layout / int8_kv_cache flags and kv_quant off)")
+
+
+def _chunk_pos(pos, tokens: torch.Tensor) -> torch.Tensor:
+    if not isinstance(pos, torch.Tensor) or not pos.ndim:
+        return torch.full((tokens.shape[0],), int(pos), dtype=torch.long, device=tokens.device)
+    return pos
+
+
+def _verify(params, tokens: torch.Tensor, cfg: ModelConfig, cache: dict, names, pos, t: int,
+            attn_fn, block_table=None):
+    """The layer loop of a verify chunk, k decode steps' arithmetic row by
+    row: the chunk's b·k rows run every projection as one GQMM (a row's
+    int8, int4 or int3 result does not depend on how many rows the GQMM
+    takes; fp8's small and large designs sum a group in other orders), the
+    norms sum each chunk column apart (``rmsnorm_steps``),
+    and ``attn_fn(i, lp, h, positions, steps)`` -> (y, (k, v)) attends each
+    column as its decode step. The attention writes the chunk's rows into
+    the cache leaves ``names``; their old bits are restored after the last
+    layer, so the cache leaves as it came. Returns (logits (b, k,
+    vocab_padded), rows {k, v} (L, b, k, KV, hd))."""
+    _check_ported(cfg)
+    _check_verify_layout(cfg)
+    bs = cache[names[0]].shape[2] if block_table is not None else None
+    positions, target, steps = attn.verify_steps(pos, tokens.shape[1], t, block_table, bs)
+    index = (slice(None),) + target
+    saved = [cache[name][index] for name in names]
+    x = _verify_embed(params, tokens, cfg)
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        lp = tree_index(params["layers"], i)
+
+        def layer_attn(h, lp=lp, i=i):
+            y, (k, v) = attn_fn(i, lp, h, positions, steps)
+            ks.append(k)
+            vs.append(v)
+            return y
+
+        x = _block(lp, x, cfg, layer_attn, norm=rmsnorm_steps)
+    for name, old in zip(names, saved):
+        cache[name][index] = old
+    logits = _logits(params, x, cfg, norm=rmsnorm_steps)
+    return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+def lm_verify(params, tokens: torch.Tensor, cache: dict, pos, cfg: ModelConfig):
+    """Chunked multi-token decode for speculative verification. tokens
+    (b, k): the current token followed by k-1 drafted candidates; cache the
+    contiguous {k, v} layout; pos (b,) or an int, the virtual position of
+    tokens[:, 0]. Returns (logits (b, k, vocab_padded), rows {k, v} (L, b,
+    k, KV, hd)). Row j's logits are those of the decode step that would
+    follow committing rows 0..j-1, bit for bit (``attention.gqa_verify``).
+    The cache comes back unchanged; the caller commits only the accepted
+    prefix (``lm_commit_verify``)."""
+    pos = _chunk_pos(pos, tokens)
+    return _verify(params, tokens, cfg, cache, ("k", "v"), pos, cache["k"].shape[2],
+                   lambda i, lp, h, positions, steps: attn.gqa_verify(
+                       lp["attn"], h, (cache["k"][i], cache["v"][i]), positions, steps, cfg))
+
+
+def lm_commit_verify(cache: dict, rows: dict, pos: torch.Tensor, n_commit: torch.Tensor
+                     ) -> dict:
+    """Commit the accepted prefix of a verify chunk in place: rows[:, i, :n]
+    land at positions pos[i]..pos[i]+n-1 for n = n_commit[i]; rejected rows
+    change nothing, so the cache is bit-identical to a trajectory that never
+    drafted them (rollback is ``pos + n_commit``)."""
+    for name in ("k", "v"):
+        attn.commit_layers_verify(cache[name], rows[name], pos, n_commit)
+    return cache
+
+
+def lm_verify_paged(params, tokens: torch.Tensor, cache: dict, block_table: torch.Tensor,
+                    pos, cfg: ModelConfig):
+    """Paged sibling of :func:`lm_verify`: each chunk column runs the paged
+    decode step's attention (``ops.paged_attention``, the CUDA kernel on the
+    card) through each row's block table over the ``*_pages`` pool. Same
+    return contract; commit with :func:`lm_commit_verify_paged`."""
+    pos = _chunk_pos(pos, tokens)
+    t = block_table.shape[1] * cache["k_pages"].shape[2]
+    return _verify(params, tokens, cfg, cache, ("k_pages", "v_pages"), pos, t,
+                   lambda i, lp, h, positions, steps: attn.gqa_verify_paged(
+                       lp["attn"], h, (cache["k_pages"][i], cache["v_pages"][i]), block_table,
+                       positions, steps, cfg),
+                   block_table=block_table)
+
+
+def lm_commit_verify_paged(cache: dict, rows: dict, block_table: torch.Tensor,
+                           pos: torch.Tensor, n_commit: torch.Tensor) -> dict:
+    """Commit the accepted prefix into the block pool in place (rejected rows
+    change nothing, block 0 included)."""
+    for name in ("k", "v"):
+        attn.commit_layers_paged_verify(cache[f"{name}_pages"], rows[name], block_table, pos,
+                                        n_commit)
+    return cache

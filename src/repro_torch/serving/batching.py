@@ -16,7 +16,9 @@ The serving modes, all length-aware:
   step a slot finishes. Token-identical greedy outputs to continuous.
   ``serve_ragged`` prefers it where the family supports it.
 
-Greedy sampling only; ``spec_k`` raises (speculative verify is not ported).
+``sampler_kw`` reaches the sampler (top-p's p and temperature) and ``seed``
+its noise generator in every mode. ``spec_k`` makes the continuous and paged
+schedulers speculative (serving/spec.py); bucketed mode refuses it.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from repro_torch.serving.core import (
     pad_bucket,
 )
 from repro_torch.serving.paged import serve_paged
+from repro_torch.serving.sampling import sampler_sig
 
 __all__ = [
     "Request",
@@ -61,7 +64,7 @@ __all__ = [
 # ---------------------------------------------------------------------------
 
 def serve_bucketed(engine, requests: Sequence[Request], max_new_tokens: int, *,
-                   sampler: str = "greedy") -> list[Response]:
+                   sampler: str = "greedy", sampler_kw=None, seed: int = 0) -> list[Response]:
     """Bucket requests, generate per bucket, reassemble in arrival order."""
     ragged = engine.model.supports_lengths
     eos = engine.eos_id
@@ -77,7 +80,10 @@ def serve_bucketed(engine, requests: Sequence[Request], max_new_tokens: int, *,
         budgets = [r.max_new if r.max_new is not None else max_new_tokens for r in reqs]
         # one generate per bucket runs to the bucket's longest budget; rows
         # with smaller budgets are decoded past their end and trimmed
+        # a noise stream of its own per bucket (seed + length): one shared seed
+        # would give every bucket the same draws a step
         res = engine.generate({"tokens": toks}, max(budgets), sampler=sampler,
+                              sampler_kw=sampler_kw, seed=seed + length,
                               lengths=lens if ragged else None)
         gen = np.asarray(res.tokens)
         for i, r in enumerate(reqs):
@@ -97,43 +103,51 @@ class SlotScheduler:
     that hit EOS early are padded with EOS."""
 
     def __init__(self, engine, *, slots: int = 4, chunk: int = 4, sampler: str = "greedy",
-                 spec_k: int | None = None):
+                 sampler_kw=None, spec_k: int | None = None, drafter=None):
         self.engine = engine
         self.adapter = ContiguousAdapter(engine)
         self._core = SchedulerCore(engine, self.adapter, slots=slots, chunk=chunk,
-                                   sampler=sampler, spec_k=spec_k)
+                                   sampler=sampler, sampler_kw=sampler_kw, spec_k=spec_k,
+                                   drafter=drafter)
         self.slots = slots
         self.chunk = chunk
+        self.spec_k = spec_k
         self.last_rounds = 0           # decode rounds of the last serve
         self.last_decode_steps = 0     # decode forward passes of the last serve
+        self.last_spec_stats = None    # speculative accounting of the last serve
 
-    def serve(self, requests: Sequence[Request], max_new_tokens: int) -> list[Response]:
-        out = self._core.serve(requests, max_new_tokens)
+    def serve(self, requests: Sequence[Request], max_new_tokens: int, *,
+              seed: int = 0) -> list[Response]:
+        out = self._core.serve(requests, max_new_tokens, seed=seed)
         self.last_rounds = self._core.rounds
         self.last_decode_steps = self._core.decode_steps
+        self.last_spec_stats = self._core.last_spec_stats
         return out
 
 
-def slot_scheduler(engine, *, sampler: str = "greedy", slots: int = 4, chunk: int = 4,
-                   spec_k: int | None = None) -> SlotScheduler:
+def slot_scheduler(engine, *, sampler: str = "greedy", sampler_kw=None, slots: int = 4,
+                   chunk: int = 4, spec_k: int | None = None, drafter=None) -> SlotScheduler:
     """The engine's cached ``SlotScheduler`` for these settings, the one
     ``serve_continuous`` serves through (its ``last_*`` fields report that serve)."""
     cache = getattr(engine, "_slot_schedulers", None)
     if cache is None:
         cache = engine._slot_schedulers = {}
-    sig = (slots, chunk, sampler, spec_k)
+    sig = (slots, chunk, sampler, sampler_sig(sampler_kw), spec_k,
+           id(drafter) if drafter is not None else None)
     if sig not in cache:
         cache[sig] = SlotScheduler(engine, slots=slots, chunk=chunk, sampler=sampler,
-                                   spec_k=spec_k)
+                                   sampler_kw=sampler_kw, spec_k=spec_k, drafter=drafter)
     return cache[sig]
 
 
 def serve_continuous(engine, requests: Sequence[Request], max_new_tokens: int, *,
-                     sampler: str = "greedy", slots: int = 4, chunk: int = 4,
-                     spec_k: int | None = None) -> list[Response]:
+                     sampler: str = "greedy", sampler_kw=None, seed: int = 0, slots: int = 4,
+                     chunk: int = 4, spec_k: int | None = None,
+                     drafter=None) -> list[Response]:
     """Continuous batching through a per-engine cached ``SlotScheduler``."""
-    return slot_scheduler(engine, sampler=sampler, slots=slots, chunk=chunk,
-                          spec_k=spec_k).serve(requests, max_new_tokens)
+    return slot_scheduler(engine, sampler=sampler, sampler_kw=sampler_kw, slots=slots,
+                          chunk=chunk, spec_k=spec_k, drafter=drafter).serve(
+        requests, max_new_tokens, seed=seed)
 
 
 def valid_modes(model) -> list[str]:
@@ -170,25 +184,30 @@ def resolve_mode(engine, mode: str) -> str:
 
 
 def serve_ragged(engine, requests: Sequence[Request], max_new_tokens: int, *,
-                 sampler: str = "greedy", mode: str = "auto", slots: int = 4,
-                 chunk: int = 4, block_size: int = 8, num_blocks: int | None = None,
-                 spec_k: int | None = None) -> list[Response]:
+                 sampler: str = "greedy", sampler_kw=None, seed: int = 0, mode: str = "auto",
+                 slots: int = 4, chunk: int = 4, block_size: int = 8,
+                 num_blocks: int | None = None, spec_k: int | None = None,
+                 drafter=None) -> list[Response]:
     """Serve a ragged request set; responses come back in arrival order.
 
     mode="paged" runs the block-pool scheduler (serving/paged.py),
     mode="continuous" the slot scheduler, mode="bucketed" the per-bucket
-    generate loop; mode="auto" prefers paged, then continuous."""
+    generate loop; mode="auto" prefers paged, then continuous. ``spec_k``
+    >= 2 makes the paged and continuous schedulers speculative: each round
+    verifies spec_k candidate tokens a slot in one forward pass
+    (serving/spec.py; ``drafter`` defaults to the n-gram drafter)."""
     if not requests:
         return []
     mode = resolve_mode(engine, mode)
     if spec_k is not None and mode == "bucketed":
         raise ValueError("speculative decoding needs the continuous or paged scheduler "
                          f"(resolved mode is 'bucketed' for {engine.cfg.arch_id})")
+    kw = dict(sampler=sampler, sampler_kw=sampler_kw, seed=seed)
     if mode == "paged":
-        return serve_paged(engine, requests, max_new_tokens, sampler=sampler, slots=slots,
-                           chunk=chunk, block_size=block_size, num_blocks=num_blocks,
-                           spec_k=spec_k)
+        return serve_paged(engine, requests, max_new_tokens, slots=slots, chunk=chunk,
+                           block_size=block_size, num_blocks=num_blocks, spec_k=spec_k,
+                           drafter=drafter, **kw)
     if mode == "continuous":
-        return serve_continuous(engine, requests, max_new_tokens, sampler=sampler,
-                                slots=slots, chunk=chunk, spec_k=spec_k)
-    return serve_bucketed(engine, requests, max_new_tokens, sampler=sampler)
+        return serve_continuous(engine, requests, max_new_tokens, slots=slots, chunk=chunk,
+                                spec_k=spec_k, drafter=drafter, **kw)
+    return serve_bucketed(engine, requests, max_new_tokens, **kw)

@@ -22,10 +22,17 @@ round, over static buffers (token, position, ``live``, the cache) that
 outlive a serve. Adapters return device tensors and the core makes the
 host transfers: one per admission wave (the first tokens) and one per
 decode round (the round's step count and tokens). Positions advance on the
-host by the round's step count, so they never cross back. Greedy sampling
-only. Not ported: speculative rounds (``spec_k`` raises, as the reference
-does for a family without a verify path), the repro-san sanitizer hooks and
-``RecurrentAdapter`` (no recurrent family is ported).
+host by the round's step count, so they never cross back.
+
+With ``spec_k`` a round is one speculative verify step instead
+(``serving/spec.py``): the core drafts on the host from each slot's token
+history, the adapter replays its captured verify program
+(``verify_round``), and one transfer brings the chunk's tokens and
+counts; positions advance on the host by each slot's commit count, as the
+program advanced them on the device. Top-p draws its noise from a
+generator on the engine's device seeded with the serve's ``seed``, into
+the programs' noise buffers before each replay. Not ported: the repro-san
+sanitizer hooks and ``RecurrentAdapter`` (no recurrent family is ported).
 """
 
 from __future__ import annotations
@@ -37,7 +44,15 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch.serving.sampling import make_sampler
+from repro_torch.serving.sampling import (
+    GUMBEL,
+    UNIFORM,
+    draw_noise,
+    make_sampler,
+    needs_noise,
+    sampler_sig,
+)
+from repro_torch.serving.spec import NgramDrafter, build_verify_step, draft_chunk, take_accepted
 
 __all__ = [
     "CacheAdapter",
@@ -117,7 +132,8 @@ class CacheAdapter:
                allocation; contiguous: a free slot is the allocation)
       insert   ``prefill_insert``            (batched prefill rows scattered
                into the admitted slots, one program)
-      commit   ``decode_round``              (advances the cache in place)
+      commit   ``decode_round`` / ``verify_round``  (advance the cache in
+               place)
       free     ``on_finish``                 (paged: blocks back to the pool,
                table row sunk)
 
@@ -126,13 +142,15 @@ class CacheAdapter:
     makes the host transfers."""
 
     kind: str = "abstract"
+    spec_capable: bool = False
 
     def bind(self, core) -> None:
         """Attach to a core."""
         raise NotImplementedError
 
-    def validate(self, requests, budget) -> None:
-        """Reject requests that could never be served (capacity/layout)."""
+    def validate(self, requests, budget, slack: int = 0) -> None:
+        """Reject requests that could never be served (capacity/layout);
+        ``slack`` is the speculative chunk's extra cache columns."""
 
     def begin_serve(self) -> None:
         """Reset the static cache (plus any host-side pool state)."""
@@ -174,6 +192,13 @@ class CacheAdapter:
         and position."""
         raise NotImplementedError
 
+    def verify_round(self, params, chunk: np.ndarray, pos: np.ndarray, live: np.ndarray,
+                     remaining: np.ndarray) -> torch.Tensor:
+        """One speculative verify step of the host's chunk (B, k) -> (B, k + 1)
+        on the device: each slot's ``out`` then ``n_out``
+        (``spec.build_verify_step``). Only ``spec_capable`` adapters have it."""
+        raise NotImplementedError(f"{self.kind}: no speculative verify path")
+
     def on_finish(self, s: int) -> None:
         """Free slot ``s``'s allocation (the core froze its tok/pos)."""
 
@@ -187,10 +212,16 @@ class CacheAdapter:
         raise NotImplementedError(f"{self.kind}: adapter registers no allocator state")
 
 
-def round_state(engine, slots: int, chunk: int, cache: dict) -> dict:
+def noise_buffer(engine, rows: int) -> dict:
+    """A sampler's Gumbel buffer (rows, V) under its ``draw_noise`` name."""
+    return {GUMBEL: torch.zeros((rows, engine.cfg.vocab_padded), dtype=torch.float32,
+                                device=engine.device)}
+
+
+def round_state(engine, slots: int, chunk: int, cache: dict, noise: bool = False) -> dict:
     """Static round buffers: token, position and ``live`` per slot, the EOS
-    ``stopped`` flag, the step count ``n``, the round's tokens (chunk, slots)
-    and ``cache``."""
+    ``stopped`` flag, the step count ``n``, the round's tokens (chunk, slots),
+    ``cache``, and with ``noise`` the sampler's Gumbel buffer."""
     dev = engine.device
     return {"tok": torch.zeros((slots,), dtype=torch.long, device=dev),
             "pos": torch.zeros((slots,), dtype=torch.long, device=dev),
@@ -198,18 +229,48 @@ def round_state(engine, slots: int, chunk: int, cache: dict) -> dict:
             "stopped": torch.zeros((1,), dtype=torch.bool, device=dev),
             "n": torch.zeros((1,), dtype=torch.long, device=dev),
             "toks": torch.zeros((chunk, slots), dtype=torch.long, device=dev),
-            "cache": cache}
+            "cache": cache, **(noise_buffer(engine, slots) if noise else {})}
 
 
-def replay_round(prog, st: dict, tok, pos, live, steps: int, **extra):
+def replay_round(prog, st: dict, tok, pos, live, steps: int, gen: torch.Generator, **extra):
     """Load the host's tok/pos/live (and ``extra`` inputs) into ``prog``'s
-    static buffers, replay its one-step program ``steps`` times and keep
-    each step's tokens; returns (toks (steps, b), n) on the device."""
+    static buffers, replay its one-step program ``steps`` times (drawing
+    the sampler's noise from ``gen`` before each) and keep each step's
+    tokens; returns (toks (steps, b), n) on the device."""
     prog.load(tok=tok, pos=pos, live=live, stopped=False, n=0, **extra)
     for i in range(steps):
+        draw_noise(prog.inputs, gen)
         prog.replay()
         st["toks"][i] = st["tok"]
     return st["toks"][:steps], st["n"]
+
+
+def verify_inputs(engine, rows: int, k: int, sampler: str, cache: dict, **extra) -> dict:
+    """A verify program's static buffers (``spec.build_verify_step``): the
+    chunk (rows, k), position, ``live`` and remaining budget per row,
+    ``cache``, for a noise-drawing sampler its accept draws and Gumbel
+    buffer, then ``extra`` (the paged table; buffers shared with other
+    programs)."""
+    dev = engine.device
+    ins = {"chunk": torch.zeros((rows, k), dtype=torch.long, device=dev),
+           "pos": torch.zeros((rows,), dtype=torch.long, device=dev),
+           "live": torch.zeros((rows,), dtype=torch.bool, device=dev),
+           "remaining": torch.zeros((rows,), dtype=torch.long, device=dev),
+           "cache": cache}
+    if needs_noise(sampler):
+        ins[UNIFORM] = torch.zeros((rows, k - 1), dtype=torch.float32, device=dev)
+        ins.update(noise_buffer(engine, rows))
+    return {**ins, **extra}
+
+
+def replay_verify(prog, gen: torch.Generator, chunk, pos, live, remaining, **extra
+                  ) -> torch.Tensor:
+    """Load the host's chunk, positions, ``live`` and budgets (and ``extra``
+    inputs), draw the noise, replay the verify program once; returns its
+    (slots, k + 1) output on the device."""
+    prog.load(chunk=chunk, pos=pos, live=live, remaining=remaining, **extra)
+    draw_noise(prog.inputs, gen)
+    return prog.replay()
 
 
 class ContiguousAdapter(CacheAdapter):
@@ -218,6 +279,7 @@ class ContiguousAdapter(CacheAdapter):
     are bounded by ``cache_len``."""
 
     kind = "contiguous"
+    spec_capable = True
 
     def __init__(self, engine):
         if not engine.model.supports_lengths:
@@ -229,22 +291,27 @@ class ContiguousAdapter(CacheAdapter):
     def bind(self, core):
         self.core = core
         self._key = (core.slots, core.chunk, self.engine.cache_len, core.sampler)
+        if core.spec_k is not None:
+            self._verify_step = build_verify_step(
+                self.engine.model, self.engine.params, sampler=core.sampler[0],
+                sampler_kw=dict(core.sampler[1]))
 
     def _state(self) -> dict:
         engine, slots = self.engine, self.core.slots
         return engine.graphs.state("contiguous", self._key, lambda: round_state(
             engine, slots, self.core.chunk,
             engine.model.init_cache(slots, engine.cache_len, engine.cfg.cdtype(),
-                                    engine.device)))
+                                    engine.device), needs_noise(self.core.sampler[0])))
 
-    def validate(self, requests, budget):
+    def validate(self, requests, budget, slack=0):
         cache_len = self.engine.cache_len
         for r in requests:
-            need = max(bucket_length(len(r.tokens)), len(r.tokens) + budget(r))
+            need = max(bucket_length(len(r.tokens)), len(r.tokens) + budget(r) + slack)
             if need > cache_len:
                 raise ValueError(
-                    f"request {r.id}: len={len(r.tokens)} + max_new={budget(r)} "
-                    f"needs {need} cache slots but cache_len={cache_len}")
+                    f"request {r.id}: len={len(r.tokens)} + max_new={budget(r)}"
+                    + (f" + spec_k={slack}" if slack else "")
+                    + f" needs {need} cache slots but cache_len={cache_len}")
 
     def begin_serve(self):
         for leaf in self._state()["cache"].values():
@@ -257,18 +324,20 @@ class ContiguousAdapter(CacheAdapter):
         st, model, sample = self._state(), self.engine.model, self.core.sample
         cache_len, bg, dev = self.engine.cache_len, len(group), self.engine.device
 
-        def prefill(tokens, lengths, slots, cache):
+        def prefill(tokens, lengths, slots, cache, gumbel=None):
             logits, rows = model.prefill(params, {"tokens": tokens, "lengths": lengths},
                                          cache_len)
             model.insert_slots(cache, rows, slots)
-            return sample(logits)
+            return sample(logits, gumbel=gumbel)
 
         prog = self.engine.graphs.program(
             "contiguous.prefill", self._key + (bg, length), prefill, lambda: {
                 "tokens": torch.zeros((bg, length), dtype=torch.long, device=dev),
                 "lengths": torch.full((bg,), length, dtype=torch.long, device=dev),
-                "slots": torch.arange(bg, device=dev), "cache": st["cache"]})
+                "slots": torch.arange(bg, device=dev), "cache": st["cache"],
+                **(noise_buffer(self.engine, bg) if GUMBEL in st else {})})
         prog.load(tokens=toks, lengths=lens, slots=np.asarray([s for s, _ in group]))
+        draw_noise(prog.inputs, self.core.gen)
         return prog.run()
 
     def check_positions(self, pos, live):
@@ -281,16 +350,25 @@ class ContiguousAdapter(CacheAdapter):
         # frozen to the round's end, and budgets are trimmed on the host
         st, model, sample = self._state(), self.engine.model, self.core.sample
 
-        def step(tok, pos, live, stopped, n, cache):
+        def step(tok, pos, live, stopped, n, cache, gumbel=None):
             logits, _ = model.decode(params, tok, cache, pos)
-            tok.copy_(torch.where(live, sample(logits), tok))
+            tok.copy_(torch.where(live, sample(logits, gumbel=gumbel), tok))
             pos.copy_(torch.where(live, pos + 1, pos))
             n.add_(1)
 
+        names = ("tok", "pos", "live", "stopped", "n", "cache") + (GUMBEL,) * (GUMBEL in st)
+        prog = self.engine.graphs.program("contiguous.decode", self._key, step,
+                                          lambda: {k: st[k] for k in names})
+        return replay_round(prog, st, tok, pos, live, steps, self.core.gen)
+
+    def verify_round(self, params, chunk, pos, live, remaining):
+        # the step closes over engine.params (bind): the tree the core passes
+        core, st = self.core, self._state()
         prog = self.engine.graphs.program(
-            "contiguous.decode", self._key, step,
-            lambda: {k: st[k] for k in ("tok", "pos", "live", "stopped", "n", "cache")})
-        return replay_round(prog, st, tok, pos, live, steps)
+            "contiguous.verify", self._key + (core.spec_k,), self._verify_step,
+            lambda: verify_inputs(self.engine, core.slots, core.spec_k, core.sampler[0],
+                                  st["cache"]))
+        return replay_verify(prog, core.gen, chunk, pos, live, remaining)
 
     def san_state(self):
         # slot rows are the allocation: no pool, no table
@@ -307,15 +385,19 @@ class SchedulerCore:
 
     Responses always contain exactly the request's budget of tokens;
     sequences that hit EOS early are padded with EOS (``make_response``).
-    Host transfers: one per admission wave and one per decode round; the
-    host's tok/pos/live are copied into the adapter's static buffers."""
+    Host transfers: one per admission wave and one per decode or verify
+    round; the host's tok/pos/live are copied into the adapter's static
+    buffers. ``spec_k`` (>= 2) makes every round a speculative verify step
+    with ``drafter`` (default: the n-gram drafter); ``last_spec_stats``
+    reports the last serve's verify steps, delivered tokens and drafts."""
 
     def __init__(self, engine, adapter: CacheAdapter, *, slots: int = 4, chunk: int = 4,
-                 sampler: str = "greedy", spec_k: int | None = None):
+                 sampler: str = "greedy", sampler_kw=None, spec_k: int | None = None,
+                 drafter=None):
         if spec_k is not None:
             if spec_k < 2:
                 raise ValueError(f"spec_k must be >= 2, got {spec_k}")
-            if not engine.model.supports_spec:
+            if not adapter.spec_capable or not engine.model.supports_spec:
                 raise ValueError(
                     f"{engine.cfg.arch_id}: model family has no speculative "
                     "verify path (GQA decoder_lm families only)")
@@ -323,22 +405,32 @@ class SchedulerCore:
         self.adapter = adapter
         self.slots = slots
         self.chunk = chunk
-        self.sampler = sampler
-        self.sample = make_sampler(sampler)
-        self.rounds = 0                # decode rounds of the last serve
-        self.decode_steps = 0          # decode forward passes of the last serve
+        self.spec_k = spec_k
+        self.sampler = (sampler, sampler_sig(sampler_kw))      # keys the programs
+        self.sample = make_sampler(sampler, **dict(sampler_kw or {}))
+        self.drafter = (drafter if drafter is not None else NgramDrafter()) if spec_k else None
+        self.gen: torch.Generator | None = None   # the serve's noise generator
+        self.rounds = 0                # decode (or verify) rounds of the last serve
+        self.decode_steps = 0          # decode (or verify) forward passes of the last serve
+        self.last_spec_stats: dict[str, int] | None = None
         adapter.bind(self)
 
     @torch.inference_mode()
-    def serve(self, requests: Sequence[Request], max_new_tokens: int) -> list[Response]:
+    def serve(self, requests: Sequence[Request], max_new_tokens: int, *,
+              seed: int = 0) -> list[Response]:
+        """Serve ``requests``; a noise-drawing sampler draws from a generator
+        on the engine's device seeded with ``seed``."""
         engine, adapter, B = self.engine, self.adapter, self.slots
         eos = engine.eos_id
 
         def budget(r: Request) -> int:
             return r.max_new if r.max_new is not None else max_new_tokens
 
-        adapter.validate(requests, budget)
+        # a verify chunk touches cache columns up to pos + spec_k - 1: spec_k
+        # slots of slack past the vanilla need (frozen slots' chunks index too)
+        adapter.validate(requests, budget, self.spec_k or 0)
         adapter.begin_serve()
+        self.gen = torch.Generator(device=engine.device).manual_seed(seed)
         pending = deque(requests)
         slot_req: list[Request | None] = [None] * B
         slot_toks: list[list[int]] = [[] for _ in range(B)]
@@ -348,6 +440,9 @@ class SchedulerCore:
         remaining = np.zeros((B,), np.int64)
         out: dict[int, Response] = {}
         self.rounds = self.decode_steps = 0
+        self.last_spec_stats = stats = (
+            {"verify_steps": 0, "generated": 0, "drafted": 0, "accepted": 0}
+            if self.spec_k is not None else None)
 
         def finish(s: int):
             r = slot_req[s]
@@ -389,6 +484,8 @@ class SchedulerCore:
                         slot_toks[s] = [t]
                         tok[s], pos[s] = t, len(r.tokens)
                         remaining[s] = budget(r) - 1
+                        if stats is not None:
+                            stats["generated"] += 1    # the prefill token is delivered too
                         if budget(r) <= 1 or (eos is not None and t == eos):
                             finish(s)
 
@@ -399,6 +496,31 @@ class SchedulerCore:
 
             adapter.before_round(pos, live)
             adapter.check_positions(pos, live)
+            self.rounds += 1
+            if self.spec_k is not None:
+                # speculative round: draft on the host from each slot's token
+                # history, verify the chunk in one forward pass, keep the
+                # accepted prefix (1..spec_k tokens a weight stream)
+                K = self.spec_k
+                chunk_np = draft_chunk(self.drafter, tok, live,
+                                       lambda s: slot_req[s].tokens + slot_toks[s], K)
+                out_d = adapter.verify_round(engine.params, chunk_np, pos, live, remaining)
+                # ONE host transfer per round: the chunk's tokens and counts;
+                # positions advance here by the commit counts, as on the device
+                host = out_d.cpu().numpy()
+                n_out = host[:, K]
+                self.decode_steps += 1
+                stats["verify_steps"] += 1
+                pos = np.where(live, pos + np.minimum(n_out, np.maximum(remaining, 0)), pos)
+                for s in np.flatnonzero(live):
+                    slot_toks[s].extend(take_accepted(host[s, :K], n_out[s], remaining[s],
+                                                      eos, stats, K))
+                    tok[s] = slot_toks[s][-1]
+                    n = budget(slot_req[s])
+                    remaining[s] = n - len(slot_toks[s])
+                    if len(slot_toks[s]) >= n or (eos is not None and eos in slot_toks[s][:n]):
+                        finish(s)
+                continue
             toks_d, n_d = adapter.decode_round(engine.params, tok, pos, live,
                                                adapter.round_steps(live, remaining))
             # ONE host transfer per round: the step count and the round's
@@ -407,7 +529,6 @@ class SchedulerCore:
             host = torch.cat([n_d.expand(1, B), toks_d]).cpu().numpy()
             steps = int(host[0, 0])
             toks_np = host[1:1 + steps]                             # (steps, B)
-            self.rounds += 1
             self.decode_steps += steps
             pos = np.where(live, pos + steps, pos)
             for s in range(B):

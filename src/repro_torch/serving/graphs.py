@@ -4,9 +4,10 @@ rounds (``repro/serving/core.py``, ``repro/serving/paged.py``).
 
 A :class:`Program` is one step function over static buffers, captured once
 per signature as a ``torch.cuda.CUDAGraph`` and replayed: the prefill of a
-``generate`` signature or of a serve's bucket, and one decode step, replayed
-once per step. Each engine keeps its programs and their static state in a
-:class:`GraphCache`, keyed like the reference's ``_generate_jit`` plus what
+``generate`` signature or of a serve's bucket, one decode step, replayed
+once per step, and one speculative verify step (``serving/spec.py``),
+replayed once per verify step. Each engine keeps its programs and their
+static state in a :class:`GraphCache`, keyed like the reference's ``_generate_jit`` plus what
 the port reads at call time: the kernel implementation in force
 (``kernels/ops.impl_scope``) and the ``core/flags.py`` values. So a program
 captured on the CUDA kernels never replays under ``impl_scope("plain")``.
@@ -33,6 +34,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import gc
 import time
 from collections import defaultdict
 from typing import Callable
@@ -117,8 +119,18 @@ class Program:
         torch.cuda.empty_cache()    # the capture empties it too: reserved bytes compare
         reserved = torch.cuda.memory_reserved(dev)
         graph = torch.cuda.CUDAGraph(keep_graph=True)       # kept for census()
-        with torch.cuda.graph(graph, pool=self.pool):
-            self.outputs = self.fn(**self.inputs)
+        # no garbage collection during the capture: collecting a dropped
+        # engine's graph there resets it, which ends the capture
+        # (cudaErrorStreamCaptureInvalidated); the capture itself no longer
+        # collects first
+        gc_was_on = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool):
+                self.outputs = self.fn(**self.inputs)
+        finally:
+            if gc_was_on:
+                gc.enable()
         graph.instantiate()
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         after = _snapshot()

@@ -50,9 +50,14 @@ from repro_torch.serving.core import (
     Response,
     SchedulerCore,
     bucket_length,
+    noise_buffer,
     replay_round,
+    replay_verify,
     round_state,
+    verify_inputs,
 )
+from repro_torch.serving.sampling import GUMBEL, draw_noise, needs_noise, sampler_sig
+from repro_torch.serving.spec import build_verify_step
 
 __all__ = ["BlockPool", "PagedAdapter", "PagedScheduler", "paged_scheduler", "serve_paged"]
 
@@ -105,6 +110,7 @@ class PagedAdapter(CacheAdapter):
     growth before each round, blocks reclaimed the step a slot finishes."""
 
     kind = "paged"
+    spec_capable = True
 
     def __init__(self, engine, *, block_size: int = 8, num_blocks: int | None = None,
                  max_len: int | None = None):
@@ -126,9 +132,15 @@ class PagedAdapter(CacheAdapter):
         # worst case); smaller pools exercise backpressure
         self.num_blocks = (self._num_blocks_arg if self._num_blocks_arg is not None
                            else core.slots * self.blocks_per_req + 1)
-        self._ahead = core.chunk           # block lookahead per decode round
+        # block lookahead per round: a verify chunk commits up to spec_k rows
+        # a slot in one step
+        self._ahead = core.chunk if core.spec_k is None else max(core.chunk, core.spec_k)
         self._key = (core.slots, core.chunk, self.num_blocks, self.block_size,
                      self.blocks_per_req, core.sampler)
+        if core.spec_k is not None:
+            self._verify_step = build_verify_step(
+                self.engine.model, self.engine.params, sampler=core.sampler[0],
+                sampler_kw=dict(core.sampler[1]), paged=True)
 
     # -- sizing helpers -----------------------------------------------------
 
@@ -162,17 +174,18 @@ class PagedAdapter(CacheAdapter):
 
     # -- CacheAdapter surface ------------------------------------------------
 
-    def validate(self, requests, budget):
+    def validate(self, requests, budget, slack=0):
         if flags.get("kvt_cache_layout") or flags.get("int8_kv_cache"):
             raise ValueError("paged serving supports the base float KV layout "
                              "(kvt_cache_layout / int8_kv_cache flags off)")
         mb, bs = self.blocks_per_req, self.block_size
         for r in requests:
-            need = max(self._prompt_pad(len(r.tokens)), len(r.tokens) + budget(r))
+            need = max(self._prompt_pad(len(r.tokens)), len(r.tokens) + budget(r) + slack)
             if need > mb * bs:
                 raise ValueError(
-                    f"request {r.id}: len={len(r.tokens)} + max_new={budget(r)} "
-                    f"needs {need} cache slots but the paged table covers "
+                    f"request {r.id}: len={len(r.tokens)} + max_new={budget(r)}"
+                    + (f" + spec_k={slack}" if slack else "")
+                    + f" needs {need} cache slots but the paged table covers "
                     f"{mb} blocks x {bs} = {mb * bs}")
             if self._blocks_needed(r, budget(r)) > self.num_blocks - 1:
                 raise ValueError(
@@ -186,7 +199,8 @@ class PagedAdapter(CacheAdapter):
 
         def make():
             st = round_state(engine, slots, self.core.chunk, engine.model.init_paged_cache(
-                self.num_blocks, self.block_size, engine.cfg.cdtype(), engine.device))
+                self.num_blocks, self.block_size, engine.cfg.cdtype(), engine.device),
+                needs_noise(self.core.sampler[0]))
             st["table"] = torch.zeros((slots, self.blocks_per_req), dtype=torch.int32,
                                       device=engine.device)
             return st
@@ -234,7 +248,7 @@ class PagedAdapter(CacheAdapter):
             ell, bg = r.shape[:2]
             pages[:, tables] = r.reshape(ell, bg, tables.shape[1], bs, *r.shape[3:])
 
-        def prefill(tokens, lengths, tables, cache):
+        def prefill(tokens, lengths, tables, cache, gumbel=None):
             logits, rows = model.prefill(params, {"tokens": tokens, "lengths": lengths},
                                          length)
             if "k_q" in rows:
@@ -246,16 +260,17 @@ class PagedAdapter(CacheAdapter):
             else:
                 put(cache["k_pages"], rows["k"], tables)
                 put(cache["v_pages"], rows["v"], tables)
-            return sample(logits)
+            return sample(logits, gumbel=gumbel)
 
         prog = self.engine.graphs.program(
             "paged.prefill", self._key + (bg, length), prefill, lambda: {
                 "tokens": torch.zeros((bg, length), dtype=torch.long, device=dev),
                 "lengths": torch.full((bg,), length, dtype=torch.long, device=dev),
                 "tables": torch.zeros((bg, length // bs), dtype=torch.long, device=dev),
-                "cache": st["cache"]})
+                "cache": st["cache"], **(noise_buffer(self.engine, bg) if GUMBEL in st else {})})
         prog.load(tokens=toks, lengths=lens,
                   tables=np.stack([self.table[s, : length // bs] for s, _ in group]))
+        draw_noise(prog.inputs, self.core.gen)
         return prog.run()
 
     def before_round(self, pos, live):
@@ -283,20 +298,31 @@ class PagedAdapter(CacheAdapter):
         st, model, sample, eos = self._state(), self.engine.model, self.core.sample, \
             self.engine.eos_id
 
-        def step(tok, pos, live, stopped, n, table, cache):
+        def step(tok, pos, live, stopped, n, table, cache, gumbel=None):
             act = live & ~stopped
             logits, _ = model.decode_paged(params, tok, cache, table, pos)
-            tok.copy_(torch.where(act, sample(logits), tok))   # frozen slots keep tok
+            tok.copy_(torch.where(act, sample(logits, gumbel=gumbel), tok))   # frozen: keep tok
             pos.copy_(torch.where(act, pos + 1, pos))          # ...and their position
             n.add_((~stopped).long())
             if eos is not None:
                 stopped |= (act & (tok == eos)).any()
 
+        names = ("tok", "pos", "live", "stopped", "n", "table", "cache") + (
+            GUMBEL,) * (GUMBEL in st)
+        prog = self.engine.graphs.program("paged.decode", self._key + (eos,), step,
+                                          lambda: {k: st[k] for k in names})
+        return replay_round(prog, st, tok, pos, live, steps, self.core.gen, table=self.table)
+
+    def verify_round(self, params, chunk, pos, live, remaining):
+        """One replay of the captured paged verify step over the pool, the
+        block table crossing as a snapshot (as in ``decode_round``). Rejected
+        rows change no pool bit, block 0 included."""
+        core, st = self.core, self._state()
         prog = self.engine.graphs.program(
-            "paged.decode", self._key + (eos,), step,
-            lambda: {k: st[k] for k in ("tok", "pos", "live", "stopped", "n", "table",
-                                        "cache")})
-        return replay_round(prog, st, tok, pos, live, steps, table=self.table)
+            "paged.verify", self._key + (core.spec_k,), self._verify_step,
+            lambda: verify_inputs(self.engine, core.slots, core.spec_k, core.sampler[0],
+                                  st["cache"], table=st["table"]))
+        return replay_verify(prog, core.gen, chunk, pos, live, remaining, table=self.table)
 
     def on_finish(self, s):
         self.pool.free(self._slot_blocks[s])
@@ -314,14 +340,17 @@ class PagedScheduler:
 
     def __init__(self, engine, *, slots: int = 4, chunk: int = 4, block_size: int = 8,
                  num_blocks: int | None = None, max_len: int | None = None,
-                 sampler: str = "greedy", spec_k: int | None = None):
+                 sampler: str = "greedy", sampler_kw=None, spec_k: int | None = None,
+                 drafter=None):
         self.adapter = PagedAdapter(engine, block_size=block_size, num_blocks=num_blocks,
                                     max_len=max_len)
         self._core = SchedulerCore(engine, self.adapter, slots=slots, chunk=chunk,
-                                   sampler=sampler, spec_k=spec_k)
+                                   sampler=sampler, sampler_kw=sampler_kw, spec_k=spec_k,
+                                   drafter=drafter)
         self.engine = engine
         self.slots = slots
         self.chunk = chunk
+        self.spec_k = spec_k
         self.block_size = block_size
         self.max_len = self.adapter.max_len
         self.blocks_per_req = self.adapter.blocks_per_req
@@ -329,36 +358,43 @@ class PagedScheduler:
         self.last_peak_blocks = 0          # residency high-water mark of the last serve
         self.last_rounds = 0               # decode rounds of the last serve
         self.last_decode_steps = 0         # paged decode forward passes of the last serve
+        self.last_spec_stats = None        # speculative accounting of the last serve
 
-    def serve(self, requests: Sequence[Request], max_new_tokens: int) -> list[Response]:
-        out = self._core.serve(requests, max_new_tokens)
+    def serve(self, requests: Sequence[Request], max_new_tokens: int, *,
+              seed: int = 0) -> list[Response]:
+        out = self._core.serve(requests, max_new_tokens, seed=seed)
         self.last_rounds = self._core.rounds
         self.last_decode_steps = self._core.decode_steps
+        self.last_spec_stats = self._core.last_spec_stats
         # the allocator's exact high-water mark
         self.last_peak_blocks = max(self.last_peak_blocks, self.adapter.pool.peak_live)
         return out
 
 
-def paged_scheduler(engine, *, sampler: str = "greedy", slots: int = 4, chunk: int = 4,
-                    block_size: int = 8, num_blocks: int | None = None,
-                    spec_k: int | None = None) -> PagedScheduler:
+def paged_scheduler(engine, *, sampler: str = "greedy", sampler_kw=None, slots: int = 4,
+                    chunk: int = 4, block_size: int = 8, num_blocks: int | None = None,
+                    spec_k: int | None = None, drafter=None) -> PagedScheduler:
     """The engine's cached ``PagedScheduler`` for these settings, the one
     ``serve_paged`` serves through (its ``last_*`` fields report that serve)."""
     cache = getattr(engine, "_paged_schedulers", None)
     if cache is None:
         cache = engine._paged_schedulers = {}
-    sig = (slots, chunk, block_size, num_blocks, sampler, spec_k)
+    sig = (slots, chunk, block_size, num_blocks, sampler, sampler_sig(sampler_kw), spec_k,
+           id(drafter) if drafter is not None else None)
     if sig not in cache:
         cache[sig] = PagedScheduler(engine, slots=slots, chunk=chunk, block_size=block_size,
-                                    num_blocks=num_blocks, sampler=sampler, spec_k=spec_k)
+                                    num_blocks=num_blocks, sampler=sampler,
+                                    sampler_kw=sampler_kw, spec_k=spec_k, drafter=drafter)
     return cache[sig]
 
 
 def serve_paged(engine, requests: Sequence[Request], max_new_tokens: int, *,
-                sampler: str = "greedy", slots: int = 4, chunk: int = 4, block_size: int = 8,
-                num_blocks: int | None = None, spec_k: int | None = None) -> list[Response]:
+                sampler: str = "greedy", sampler_kw=None, seed: int = 0, slots: int = 4,
+                chunk: int = 4, block_size: int = 8, num_blocks: int | None = None,
+                spec_k: int | None = None, drafter=None) -> list[Response]:
     """Paged continuous batching through a per-engine cached scheduler."""
-    sched = paged_scheduler(engine, sampler=sampler, slots=slots, chunk=chunk,
-                            block_size=block_size, num_blocks=num_blocks, spec_k=spec_k)
+    sched = paged_scheduler(engine, sampler=sampler, sampler_kw=sampler_kw, slots=slots,
+                            chunk=chunk, block_size=block_size, num_blocks=num_blocks,
+                            spec_k=spec_k, drafter=drafter)
     sched.last_peak_blocks = 0
-    return sched.serve(requests, max_new_tokens)
+    return sched.serve(requests, max_new_tokens, seed=seed)

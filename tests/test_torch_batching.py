@@ -125,8 +125,11 @@ def test_resolve_mode_and_validation(tree):
     with pytest.raises(ValueError, match="unknown serving mode"):
         batching.resolve_mode(teng, "bogus")
     assert batching.serve_ragged(teng, [], 4) == []
-    with pytest.raises(ValueError, match="speculative"):
-        batching.serve_ragged(teng, _requests(batching), 4, mode="paged", spec_k=2)
+    # speculative serving is ported: served paged, token-identical to vanilla
+    # (tests/test_torch_spec.py); the bucketed mode keeps its refusal
+    spec = batching.serve_ragged(teng, _requests(batching), 4, mode="paged", spec_k=2)
+    vanilla = batching.serve_ragged(teng, _requests(batching), 4, mode="paged")
+    assert [r.tokens.tolist() for r in spec] == [r.tokens.tolist() for r in vanilla]
     with pytest.raises(ValueError, match="speculative decoding needs"):
         batching.serve_ragged(teng, _requests(batching), 4, mode="bucketed", spec_k=2)
     long = [batching.Request(0, list(range(30)), max_new=20)]

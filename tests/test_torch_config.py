@@ -59,10 +59,11 @@ def test_model_declares_capabilities():
     assert model.supports_lengths is jmodel.supports_lengths is True
     assert model.supports_paged is jmodel.supports_paged is True
     assert model.cache_kind == jmodel.cache_kind == "kv"
-    for hook in ("init_paged_cache", "decode_paged", "insert_slots", "gather_slots"):
+    for hook in ("init_paged_cache", "decode_paged", "insert_slots", "gather_slots",
+                 "verify", "commit_verify", "verify_paged", "commit_verify_paged"):
         assert callable(getattr(model, hook)), hook
-    # speculative verify is not ported: declared off, unlike the reference
-    assert model.supports_spec is False and jmodel.supports_spec is True
+    # speculative verify is ported: declared as in the reference
+    assert model.supports_spec is jmodel.supports_spec is True
 
 
 def test_build_refuses_unported_features():

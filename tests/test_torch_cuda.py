@@ -822,3 +822,56 @@ def test_graph_capture_failure_raises(dev):
     with pytest.raises(RuntimeError):
         eng.graphs.program("bad", (), bad, lambda: {"x": torch.ones(4, device=dev)})
     assert not [k for k in eng.graphs.programs if k[0] == "bad"]
+
+
+def test_graph_capture_runs_without_garbage_collection(dev):
+    """No collection runs during a capture (the warm-up before it may): a
+    dropped engine's graph collected there would be reset inside the
+    capture and end it."""
+    import gc
+
+    eng = _graph_engine(dev)
+    seen = []
+
+    def fn(x):
+        seen.append(gc.isenabled())
+        return x * 2
+
+    assert gc.isenabled()
+    eng.graphs.program("gc", (), fn, lambda: {"x": torch.ones(4, device=dev)})
+    assert seen == [True, False] and gc.isenabled()
+
+
+@pytest.mark.parametrize("sampler", ["greedy", "top_p"])
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+def test_graph_spec_generate_replays_eager(dev, paged, sampler):
+    """The captured verify program (greedy, and top-p with its noise drawn
+    into static buffers before each replay) gives the eager run's tokens,
+    spec_stats, logits and launches; a verify step counts one pass's GQMMs
+    (and, paged, the paged-attention kernel once a chunk column a layer).
+    Greedy spec gives vanilla decode's tokens exactly on the card: each
+    verify row sums as its decode step does."""
+    from repro_torch.serving import graphs
+
+    eng = _graph_engine(dev, cache_len=48)
+    toks = torch.randint(0, eng.cfg.vocab_size, (3, 12), generator=torch.Generator().manual_seed(7))
+    kw = dict(spec_k=4, paged=paged, sampler=sampler,
+              sampler_kw={"p": 0.9} if sampler == "top_p" else None, seed=3)
+    eng.generate({"tokens": toks}, 3, **kw)                 # build
+    _zero_launches()
+    got = eng.generate({"tokens": toks}, 10, **kw)
+    replayed = _all_launches()
+    ver = eng.graphs.last["generate.verify"]
+    assert ver.graph is not None
+    step = {k: n for _, k, n in ver.launches}
+    assert step.get("gqmm_int8") == 4 * eng.cfg.num_layers + 1
+    assert step.get("paged_attn", 0) == (4 * eng.cfg.num_layers if paged else 0)
+    _zero_launches()
+    with graphs.eager():
+        want = eng.generate({"tokens": toks}, 10, **kw)
+    assert replayed == _all_launches()
+    assert torch.equal(got.tokens, want.tokens) and got.spec_stats == want.spec_stats
+    assert torch.equal(got.logits_last, want.logits_last)
+    if sampler == "greedy":
+        van = eng.generate({"tokens": toks}, 10, paged=paged)
+        assert torch.equal(got.tokens, van.tokens)

@@ -1,8 +1,11 @@
 """The port's host-sync checker (``repro_torch.analysis.host_sync``): it
 flags a per-step ``bool(t.any())`` in a round's ``for`` loop (the paged
 round's form before its repair), a sync inside a captured function and a
-serve loop over its per-round budget, and finds nothing in the port's
-``serving/`` package, whose rounds make one host transfer each."""
+serve loop over its per-round budget, a per-row ``.item()`` in the
+speculative loops (``SchedulerCore.serve``'s verify round and
+``InferenceEngine._generate_spec``), and finds nothing in the port's
+``serving/`` package, whose rounds and verify steps make one host transfer
+each."""
 
 import ast
 from pathlib import Path
@@ -60,6 +63,35 @@ def serve(self, adapter, B):
 '''
 
 
+# the speculative round's shape: one transfer of the verify step's output
+SPEC_ROUND = '''
+def serve(self, adapter, B):
+    while pending or live.any():
+        first = torch.cat(staged).tolist()
+        if self.spec_k is not None:
+            chunk_np = draft_chunk(self.drafter, tok, live, context, K)
+            out_d = adapter.verify_round(params, chunk_np, pos, live, remaining)
+            host = out_d.cpu().numpy()
+            for s in np.flatnonzero(live):
+                {per_row}
+            continue
+        toks_d, n_d = adapter.decode_round(params, tok, pos, live, steps)
+        host = torch.cat([n_d.expand(1, B), toks_d]).cpu().numpy()
+'''
+
+SPEC_GENERATE = '''
+def _generate_spec(self, st, ver, gen):
+    tok0 = st["tok"].cpu().numpy()
+    while True:
+        if not live.any():
+            break
+        ver.load(chunk=chunk, live=live, remaining=remaining)
+        host = ver.replay().cpu().numpy()
+        for i in np.flatnonzero(live):
+            {per_row}
+'''
+
+
 def _findings(source: str, path: str = SCHED) -> list[str]:
     return [f.render() for f in HostSyncChecker().check_file(path, ast.parse(source), source)]
 
@@ -108,6 +140,31 @@ def test_serve_loop_budget():
 def test_chained_transfer_counts_once_and_host_values_stay_clean():
     src = SERVE_LOOP.format(extra="more = int(host[1, 0]) + len(first)")
     assert _findings(src) == []
+
+
+@pytest.mark.parametrize("loop,path", [(SPEC_ROUND, "src/repro_torch/serving/core.py"),
+                                       (SPEC_GENERATE, "src/repro_torch/serving/engine.py")],
+                         ids=["serve", "generate"])
+def test_speculative_loops_one_transfer_a_step(loop, path):
+    """The speculative loops pass with one transfer a verify step (the host
+    copy's rows read on the host); a per-row ``.item()`` of the device
+    output inside the row loop is flagged."""
+    clean = loop.format(per_row="n = int(host[s, -1])")
+    assert _findings(clean, path) == []
+    per_row = loop.format(per_row="n = out_d[s, -1].item()" if "out_d" in loop
+                          else "n = ver.replay()[i, -1].item()")
+    found = _findings(per_row, path)
+    assert len(found) == 1 and "for loop of" in found[0] and ".item()" in found[0]
+
+
+def test_speculative_round_over_budget():
+    """A second transfer on the verify round's path (after the admission
+    wave's and the round's) is over the serve loop's budget."""
+    clean = SPEC_ROUND.format(per_row="n = int(host[s, -1])")
+    twice = clean.replace("            host = out_d", "            extra = out_d.sum().item()\n"
+                          "            host = out_d", 1)
+    found = _findings(twice, "src/repro_torch/serving/core.py")
+    assert len(found) == 1 and "3 host syncs on one path" in found[0], found
 
 
 def test_port_serving_package_is_clean():

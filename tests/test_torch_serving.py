@@ -78,8 +78,12 @@ def test_greedy_sampler():
     logits = torch.tensor([[0.0, 2.0, 2.0], [3.0, 1.0, 0.0]])
     assert greedy(logits).tolist() == [1, 0]          # first max on ties
     assert make_sampler("greedy") is greedy
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        make_sampler("top_p")
+    # top_p is ported: a sampler of logits and the reference's Gumbel draw;
+    # greedy takes no kwargs, as in the reference
+    top = make_sampler("top_p", p=1e-6)
+    assert top(logits, gumbel=torch.zeros_like(logits)).tolist() == [2, 0]   # argmax, last on ties
+    with pytest.raises(ValueError, match="greedy sampler takes no kwargs"):
+        make_sampler("greedy", p=0.9)
     with pytest.raises(ValueError):
         make_sampler("beam")
 

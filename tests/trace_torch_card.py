@@ -22,7 +22,13 @@ a .5 boundary is a tie; the later ones follow from it. With
 runs. ``--against NPZ`` (one format) holds the card's replay to the
 REFERENCE's activations instead, as ``tests/trace_torch_golden.py --dump``
 wrote them on the CPU for the same setting, depth and tokens, and skips the
-CPU runs. Imports the port only (no JAX), like ``chip_smoke.py``.
+CPU runs. ``--spec K`` (card only) holds the speculative verify path to
+vanilla decode instead: the golden tokens replayed through verify chunks of
+K that advance one token a step (chunk row 0 carries the step: the
+arithmetic of a speculative run whose drafts are all rejected) against the
+same tokens through decode steps, the first int8 rounding each batch row
+makes differently printed the same way. Imports the port only (no JAX),
+like ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -78,6 +84,43 @@ def _replay(engine, prompt, tokens) -> list[list]:
     return calls
 
 
+def _verify_replay(engine, prompt, tokens, k: int) -> list[list]:
+    """Prefill, then one verify chunk a step, tokens[:, s:s + k] (the last
+    repeated past the end), committing its first row only: every quantized
+    projection's (x, xq, xs) of chunk row 0 per forward pass, on the host
+    (prefill: all positions)."""
+    calls: list = []
+    qmm = ops.quantized_matmul
+
+    def record(x, w, *, impl=None):
+        q = ops.quantize_activation(x, group_size=w.group_size)
+        row0 = [t[:, 0] if x.ndim == 3 and calls[-1] is not prefill else t
+                for t in (x, q.qvalues, q.scales)]
+        calls[-1].append([t.float().cpu().numpy() if t.is_floating_point() else t.cpu().numpy()
+                          for t in row0])
+        return qmm(x, w, impl=impl)
+
+    b, n = tokens.shape
+    padded = np.concatenate([tokens, np.repeat(tokens[:, -1:], k, 1)], 1)
+    prefill: list = []
+    ops.quantized_matmul = record
+    try:
+        with torch.inference_mode():
+            calls.append(prefill)
+            _, cache = engine.prefill({"tokens": torch.as_tensor(prompt)})
+            pos = torch.full((b,), prompt.shape[1], dtype=torch.long, device=engine.device)
+            one = torch.ones((b,), dtype=torch.long, device=engine.device)
+            for step in range(n - 1):
+                calls.append([])
+                chunk = torch.as_tensor(padded[:, step:step + k]).to(engine.device)
+                _, rows = engine.model.verify(engine.params, chunk, cache, pos)
+                engine.model.commit_verify(cache, rows, pos, one)
+                pos += 1
+    finally:
+        ops.quantized_matmul = qmm
+    return calls
+
+
 def _dumped(path, tokens) -> list[list]:
     """The reference's (x, xq, xs) per forward pass from a trace dump."""
     d = np.load(path)
@@ -87,13 +130,14 @@ def _dumped(path, tokens) -> list[list]:
              for i in range(int(d["calls"]))] for st in range(int(d["steps"]))]
 
 
-def main(formats, layers: int | None = None, against: str | None = None) -> None:
+def main(formats, layers: int | None = None, against: str | None = None,
+         spec: int | None = None) -> None:
     g = chip_smoke.GOLDEN
     golden = json.loads(chip_smoke.GOLDEN_FILE.read_text())
     cfg = chip_smoke.golden_config(layers)
     tree = init_params_numpy(cfg, g["seed"])
     prompt = chip_smoke.golden_prompt(cfg.vocab_size)
-    cache_len = g["prompt_len"] + g["max_new_tokens"]
+    cache_len = g["prompt_len"] + g["max_new_tokens"] + (spec or 0)
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     model = build(cfg)
@@ -103,7 +147,7 @@ def main(formats, layers: int | None = None, against: str | None = None) -> None
             want = golden["deep"]["tokens"][fmt]
         else:
             want = golden["tokens"] if fmt == "int8" else golden["formats"][fmt]
-        devs = ("cuda",) if against else ("cuda", "cpu")
+        devs = ("cuda",) if against or spec else ("cuda", "cpu")
         engines = {d: InferenceEngine(model, params_from_numpy(tree, d), quantize=fmt,
                                       cache_len=cache_len, device=d) for d in devs}
         runs = {}
@@ -119,8 +163,18 @@ def main(formats, layers: int | None = None, against: str | None = None) -> None
               + ", ".join(f"{k} {v}/{total}" for k, v in runs.items()), flush=True)
         tokens = np.asarray(want)
         card = _replay(engines["cuda"], prompt, tokens)
-        cpu = _dumped(against, tokens) if against else _replay(engines["cpu"], prompt, tokens)
-        other = "reference" if against else "cpu"
+        if spec:
+            cpu = _verify_replay(engines["cuda"], prompt, tokens, spec)
+            other = f"verify (k {spec})"
+            sp = engines["cuda"].generate({"tokens": torch.as_tensor(prompt)},
+                                          g["max_new_tokens"], spec_k=spec)
+            print(f"{fmt}: speculative generate (k {spec}) on the card: "
+                  f"{_equal(sp.tokens.tolist(), want)}/{total} tokens equal the reference's; "
+                  f"{sp.spec_stats}", flush=True)
+        else:
+            cpu = _dumped(against, tokens) if against else _replay(engines["cpu"], prompt,
+                                                                   tokens)
+            other = "reference" if against else "cpu"
         for row in range(tokens.shape[0]):
             events = []          # (step, call) where the row's int8 activations differ
             for step, (cs, ps) in enumerate(zip(card, cpu)):
@@ -157,5 +211,6 @@ if __name__ == "__main__":
     ap.add_argument("formats", nargs="*", default=["int8", *chip_smoke.FORMAT_SETTINGS])
     ap.add_argument("--layers", type=int, default=None)
     ap.add_argument("--against", default=None)
+    ap.add_argument("--spec", type=int, default=None)
     a = ap.parse_args()
-    main(a.formats, a.layers, a.against)
+    main(a.formats, a.layers, a.against, a.spec)
