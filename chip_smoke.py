@@ -172,6 +172,39 @@ printing no result, when CUDA is missing. Phases, each fatal on failure:
              throughout in ceil(15/4) = 4 steps (16 golden tokens); spec
              top-p at p = 1e-6 equal to greedy spec.
 
+8. families: the dense GQA families beside TinyLlama at full width, bf16 and
+             int8 weights from the port's init_lm (FAMILIES: internlm2-1.8b
+             and gemma2-2b at every layer, pixtral-12b at 10 of 40,
+             deepseek-coder-33b at 4 of 62; the bf16 draw and its int8 copy
+             must fit the card). First their kernels at each family's
+             shapes: the int8 GQMM at b in {1, 4, 16, 256} and the streamed
+             int8 GQMV at every projection (timed, each beside its bound from
+             kernels/bounds.py and its plain version's time); every format's
+             GQMM (both designs at b 8-17) and streamed GQMV at rows of 9 and
+             75 groups (gemma2's d 2304, deepseek's d_ff 19200), checked;
+             flash attention (bf16) at each family's heads over 1 x 2048
+             tokens, gemma2's over 1 x 4608 with its 4096-token window and
+             cap 50; paged attention at each family's (KV, G, hd), bf16 and
+             int8 pools, gemma2's over 4608-token tables with the window and
+             cap, positions past the window; phase 2's tolerances. Then
+             each family: generate (batch 4, prompt 64, 32 tokens) replayed
+             (counts zeroed just before, read just after) against an eager
+             prefill + decode_step loop (tokens and launches equal), its
+             decode step wall and on the card, kernels a step, projection
+             bytes a step against the HBM bound, first-step logits against
+             the plain versions within 5e-2 * max|logit|; for internlm2 and
+             gemma2 the ragged paged serve over the first 8 requests of
+             phase 5's trace (replayed == eager, the paged kernel once a
+             layer a decode step) and speculative generate (k 4, oracle
+             drafter, contiguous and paged: vanilla decode's tokens, every
+             draft accepted); gemma2's 1 x 4608 prompt and 16 decode steps
+             (contiguous and paged) and the prefill under blockwise_attention,
+             each step's logits against the plain versions'; pixtral's
+             prefill of a 320-token prompt whose first 256 positions are
+             patch embeddings, against the plain versions. Last, the
+             internlm2 and gemma2 goldens (golden_<arch>.json: 2 layers,
+             f32, f32 and int8 weights), held to TinyLlama's 2-layer rule.
+
 A [graphs] line sums up eager against replayed: int8 decode ms/step wall
 and on the card with the busy share, the 4 x 64 prefill, the ragged tok/s,
 the captures and the graph pools. Every time is printed beside the card's
@@ -179,7 +212,8 @@ name and power limit from nvidia-smi. The lines before the last are a JSON objec
 entries: B4 has a tensor-core and an f32 entry; the paged entries carry the
 b = 32, MB*BS 2048 row beside the serve's shape), then the card's name and
 power limit; the last line is
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``. Phase 8's launches join each kernel's
+count (``launches_by_run``) and its shapes each kernel's ``family_shapes``.
 """
 
 from __future__ import annotations
@@ -213,7 +247,7 @@ from repro_torch.core.quant import (  # noqa: E402
     quantize_activation,
 )
 from repro_torch.core import flags  # noqa: E402
-from repro_torch.kernels import cuda_build, ops  # noqa: E402
+from repro_torch.kernels import bounds, cuda_build, ops  # noqa: E402
 from repro_torch.kernels import flash_attn as fkern  # noqa: E402
 from repro_torch.kernels import gqmv as kern  # noqa: E402
 from repro_torch.kernels import paged_attn as pkern  # noqa: E402
@@ -225,7 +259,7 @@ from repro_torch.kernels.ref import (  # noqa: E402
 )
 from repro_torch.models.common import NEG_INF, decode_mask, rmsnorm  # noqa: E402
 from repro_torch.models.registry import build, load_config  # noqa: E402
-from repro_torch.models.transformer import contiguous_to_paged  # noqa: E402
+from repro_torch.models.transformer import _layer_windows, contiguous_to_paged  # noqa: E402
 from repro_torch.serving.batching import (  # noqa: E402
     Request,
     bucket_length,
@@ -343,6 +377,12 @@ GOLDEN = {"arch": ARCH, "num_layers": 2, "dtype": "float32", "quantize": "int8",
 # tests/trace_torch_card.py int8 --layers 22 --against NPZ`, the NPZ from
 # `tests/trace_torch_golden.py int8 --layers 22 --steps 16 --dump NPZ`)
 GOLDEN_DEEP = {"num_layers": 22, "settings": ["float32", "int8"]}
+# the families' goldens (golden_<arch>.json, tests/make_torch_golden.py
+# --arch): full width, 2 layers, f32 compute, weights from
+# init_params_numpy; the reference's greedy tokens with f32 and int8 weights
+FAMILY_GOLDEN = {"archs": ["internlm2-1.8b", "gemma2-2b"], "num_layers": 2, "dtype": "float32",
+                 "settings": ["float32", "int8"], "seed": 0, "prompt_seed": 1, "batch": 2,
+                 "prompt_len": 16, "max_new_tokens": 16}
 DEEP_CARD_TIES = {"int8": [(11, 0)]}      # (decode step, batch row)
 # the golden ragged trace, served by serve_ragged(mode="paged") on the
 # golden model with a float, int8 and fp8 KV pool
@@ -377,6 +417,35 @@ RAGGED_REPLAYED = (("paged_float", None, "paged"), ("paged_int8", "int8", "paged
                    ("bucketed", None, "bucketed"))
 RAGGED = {"requests": 16, "prompt_lens": (16, 192), "budgets": (8, 64), "seed": 0,
           "slots": 8, "chunk": 4, "block_size": 8}
+# phase 8: the dense GQA families beside TinyLlama at full width, bf16 and
+# int8 weights from the port's init_lm; the depth each runs (None: every
+# layer). pixtral-12b (~273 M parameters a layer, 1.34 G of embedding and
+# classifier) and deepseek-coder-33b (~530 M a layer: 62 layers of bf16
+# draw and int8 copy would not fit in 80 GB) are cut
+FAMILIES = {"internlm2-1.8b": None, "gemma2-2b": None, "pixtral-12b": 10,
+            "deepseek-coder-33b": 4}
+FAMILY_FULL = ("internlm2-1.8b", "gemma2-2b")      # + ragged serve and speculative
+FAMILY_RAGGED = 8               # the first requests of phase 5's trace
+# gemma2's long prompt: past its 4096-token window, so the local layers
+# mask keys, then decode steps on the contiguous and the paged cache
+FAMILY_LONG = {"arch": "gemma2-2b", "prompt_len": 4608, "steps": 16}
+FAMILY_PATCH_PROMPT = 320       # pixtral: the first 256 positions are patch embeddings
+# phase 2 at the families' shapes: the int8 GQMM at these b and the int8
+# GQMV at every projection of each config; every format and design at rows
+# with an odd number of groups (gemma2's d 2304 is 9 groups of 256,
+# deepseek's d_ff 19200 is 75), checked only; flash attention (bf16) and
+# paged attention (bf16 and int8 pools) at each config's attention shape
+FAMILY_KERNEL_BATCHES = (1, 4, 16, 256)
+ODD_GROUPS = {"m": 512, "widths": (2304, 19200), "batches": (1, 4, 8, 9, 16, 17, 256)}
+FAMILY_FLASH = (("internlm2 1x2048", 1, 16, 8, 2048, 128, None, None),
+                ("deepseek 1x2048", 1, 56, 8, 2048, 128, None, None),
+                ("pixtral 1x2048", 1, 32, 8, 2048, 128, None, None),
+                ("gemma2 1x4608 w4096 cap50", 1, 8, 4, 4608, 256, 4096, 50.0))
+FAMILY_PAGED = (("internlm2", 8, 2, 128, 2048, None, None),
+                ("deepseek", 8, 7, 128, 2048, None, None),
+                ("pixtral", 8, 4, 128, 2048, None, None),
+                ("gemma2 w4096 cap50", 4, 2, 256, 4608, 4096, 50.0))
+FAMILY_PAGED_B = 8
 SOURCES = {**{f"{k}_{f}": "src/repro_torch/csrc/gqmm.cu" for f in WEIGHT_FORMATS
               for k in ("gqmv", "gqmm")},
            "paged_attn": "src/repro_torch/csrc/paged_attn.cu",
@@ -404,6 +473,22 @@ def golden_config(num_layers: int | None = None):
     cfg = load_config(GOLDEN["arch"])
     return dataclasses.replace(cfg, num_layers=num_layers or GOLDEN["num_layers"],
                                param_dtype=GOLDEN["dtype"], compute_dtype=GOLDEN["dtype"])
+
+
+def family_golden_file(arch: str) -> Path:
+    return ROOT / "src" / "repro_torch" / f"golden_{arch.replace('-', '_').replace('.', '_')}.json"
+
+
+def family_golden_config(arch: str):
+    return dataclasses.replace(load_config(arch), num_layers=FAMILY_GOLDEN["num_layers"],
+                               param_dtype=FAMILY_GOLDEN["dtype"],
+                               compute_dtype=FAMILY_GOLDEN["dtype"])
+
+
+def family_golden_prompt(vocab_size: int) -> np.ndarray:
+    rng = np.random.RandomState(FAMILY_GOLDEN["prompt_seed"])
+    return rng.randint(0, vocab_size, size=(FAMILY_GOLDEN["batch"],
+                                            FAMILY_GOLDEN["prompt_len"]))
 
 
 def golden_prompt(vocab_size: int) -> np.ndarray:
@@ -1152,6 +1237,202 @@ def phase_paged_hd256(dev) -> list[dict]:
             f"us ({row['bound_by']}, {100 * row['bound_share']:.1f} % of it) [{CARD['smi']}]")
         del kp, vp, ks, vs, tables
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 2 at the families' shapes
+# ---------------------------------------------------------------------------
+
+def family_projections() -> list[tuple[str, int, int]]:
+    """(name, m, n) of every quantized projection of each family config,
+    the classifier (vocab_padded rows; gemma2's is its tied embedding)
+    included."""
+    out = []
+    for arch in FAMILIES:
+        cfg = load_config(arch)
+        hd = cfg.resolved_head_dim
+        out += [(f"{arch} wqkv", (cfg.num_heads + 2 * cfg.num_kv_heads) * hd, cfg.d_model),
+                (f"{arch} wo", cfg.d_model, cfg.num_heads * hd),
+                (f"{arch} w13", 2 * cfg.d_ff, cfg.d_model),
+                (f"{arch} w2", cfg.d_model, cfg.d_ff),
+                (f"{arch} classifier", cfg.vocab_padded, cfg.d_model)]
+    return out
+
+
+def phase_family_kernels(dev) -> list[dict]:
+    """The int8 GQMM (b in FAMILY_KERNEL_BATCHES) and the streamed int8 GQMV
+    at every projection of the families, against their plain versions,
+    timed as phase 2's TinyLlama rows are, each beside its bound from
+    kernels/bounds.py; then every format's GQMM (both designs at b 8-17) and
+    streamed GQMV at rows of 9 and 75 groups, checked only."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    gs = 256
+    rows = []
+    for name, m, n in family_projections():
+        wq, ws = _rand_weights(gen, "int8", m, n, gs, dev)
+        copies = max(1, math.ceil(160e6 / (wq.numel() + 4 * ws.numel())))
+        pool = [(wq, ws)] + [(wq.clone(), ws.clone()) for _ in range(copies - 1)]
+        for kind, b in [("gqmm", bb) for bb in FAMILY_KERNEL_BATCHES] + [("gqmv", 1)]:
+            kfn, pfn = _kernel_fns(kind, "int8")
+            xq, xs = _rand_q(gen, (b, n) if kind == "gqmm" else (n,), gs, dev)
+            got = kfn(wq, ws, xq, xs, group_size=gs)
+            err = check_close(f"{kind}_int8 {name} b={b}", got,
+                              pfn(wq, ws, xq, xs, group_size=gs))
+            k_ms, _ = device_time_ms(lambda i: kfn(*pool[i % copies], xq, xs, group_size=gs),
+                                     max(50, 2 * copies))
+            p_ms, _ = device_time_ms(lambda i: pfn(*pool[i % copies], xq, xs, group_size=gs), 3,
+                                     host_ms_guess=2.0)
+            bnd = bounds.projection("int8", m, n, b, gs)
+            row = {"kernel": f"{kind}_int8", "shape": name, "m": m, "n": n, "b": b,
+                   "groups": n // gs, "max_abs_err": err, "us": 1e3 * k_ms,
+                   "plain_us": 1e3 * p_ms, "bound_us": 1e6 * bnd.seconds,
+                   "bound_by": bnd.bound_by,
+                   "design": ("%s/%d" % kern.gqmm_design(b, m, n, gs) if kind == "gqmm"
+                              else kern.gqmv_design(n, "int8", True))}
+            rows.append(row)
+            log(f"[families kernels] {kind}_int8 {name:30s} m={m:6d} n={n:5d} b={b:3d} "
+                f"({n // gs} groups)  max|err| {err:.2e}  {row['us']:9.1f} us  plain "
+                f"{row['plain_us']:9.1f} us  bound {row['bound_us']:7.1f} us ({bnd.bound_by}, "
+                f"{100 * row['bound_us'] / row['us']:.1f} % of it)  design {row['design']} "
+                f"[{CARD['smi']}]")
+        del pool
+    # odd group counts: every format, both GQMM designs where b allows, and
+    # the streamed GQMV
+    checked = 0
+    for fmt, n in itertools.product(WEIGHT_FORMATS, ODD_GROUPS["widths"]):
+        m = ODD_GROUPS["m"]
+        wq, ws = _rand_weights(gen, fmt, m, n, gs, dev)
+        kfn, pfn = _kernel_fns("gqmm", fmt)
+        for b in ODD_GROUPS["batches"]:
+            xq, xs = _rand_q(gen, (b, n), gs, dev)
+            want = pfn(wq, ws, xq, xs, group_size=gs)
+            designs = (("small", 10 ** 6), ("large", 0)) if 8 <= b <= 17 else (("auto", None),)
+            for design, cut in designs:
+                prev = kern.set_small_max_b(cut) if cut is not None else None
+                try:
+                    err = check_close(f"gqmm_{fmt} m={m} n={n} b={b} {design}",
+                                      kfn(wq, ws, xq, xs, group_size=gs), want, fmt)
+                finally:
+                    if cut is not None:
+                        kern.set_small_max_b(prev)
+                rows.append({"kernel": f"gqmm_{fmt}", "shape": f"odd groups n={n}", "m": m,
+                             "n": n, "b": b, "groups": n // gs, "max_abs_err": err,
+                             "design": design if cut is not None
+                             else "%s/%d" % kern.gqmm_design(b, m, n, gs, fmt)})
+                checked += 1
+        vfn, vpfn = _kernel_fns("gqmv", fmt)
+        xq, xs = _rand_q(gen, (n,), gs, dev)
+        err = check_close(f"gqmv_{fmt} m={m} n={n}", vfn(wq, ws, xq, xs, group_size=gs),
+                          vpfn(wq, ws, xq, xs, group_size=gs), fmt)
+        design = kern.gqmv_design(n, fmt, wq.data_ptr() % 16 == 0)
+        if fmt in kern.STREAM_CHUNK_BYTES and design != "stream":
+            raise AssertionError(f"gqmv_{fmt} n={n}: expected the streamed design, got {design}")
+        rows.append({"kernel": f"gqmv_{fmt}", "shape": f"odd groups n={n}", "m": m, "n": n,
+                     "b": 1, "groups": n // gs, "max_abs_err": err, "design": design})
+        checked += 1
+    log(f"[families kernels] {checked} odd-group cases pass (formats {WEIGHT_FORMATS}, "
+        f"n {ODD_GROUPS['widths']} = {[n // gs for n in ODD_GROUPS['widths']]} groups, b "
+        f"{ODD_GROUPS['batches']}, both GQMM designs at b 8-17, the streamed GQMV); the small "
+        f"design at n 19200 takes b <= {max(b for b in range(1, 17) if kern.gqmm_design(b, 4096, 19200, gs)[0] == 'small')}")
+    return rows
+
+
+def _visible_pairs(s: int, window: int | None) -> int:
+    """Causal (query, key) pairs of an s-token prompt, inside ``window``."""
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def phase_family_attention(dev) -> tuple[list[dict], list[dict]]:
+    """Flash attention (bf16, the tensor-core kernel) and paged attention
+    (bf16 and int8 pools) at each family's attention shape, gemma2's with
+    its 4096-token window and soft cap 50 over a 4608-token prompt (the
+    window masks keys): against the plain versions with phase 2's
+    tolerances, timed, with the bound from the work this data needs (the
+    window's pairs and rows only) and, for flash without a window or cap,
+    scaled_dot_product_attention on the same inputs."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    frows, prows = [], []
+    dt = torch.bfloat16
+    for name, b, h, kv, s, hd, window, cap in FAMILY_FLASH:
+        q = torch.randn((b * h, s, hd), generator=gen, device=dev).to(dt)
+        k = torch.randn((b * kv, s, hd), generator=gen, device=dev).to(dt)
+        v = torch.randn((b * kv, s, hd), generator=gen, device=dev).to(dt)
+        kw = dict(group=h // kv, scale=hd ** -0.5, causal=True, window=window, softcap=cap)
+        got = fkern.flash_attention_cuda(q, k, v, **kw)
+        want = flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+        err = (got.float() - want).abs().max().item()
+        tol = FLASH_TOL[dt] * want.abs().max().item()
+        if not err <= tol:
+            raise AssertionError(f"flash_attn {name}: kernel disagrees with its plain version "
+                                 f"({err:.3e} > {tol:.3e})")
+        k_ms, _ = device_time_ms(lambda i: fkern.flash_attention_cuda(q, k, v, **kw), 20)
+        p_ms = profile_device(lambda: flash_attention_ref(q, k, v, **kw), 2)["device_ms"]
+        nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+        bnd, by = bound_s(nbytes, 4 * hd * b * h * _visible_pairs(s, window), BF16_OPS_PER_S)
+        row = {"kernel": "flash_attn", "case": name, "dtype": "bfloat16", "b": b, "heads": h,
+               "kv_heads": kv, "s": s, "hd": hd, "window": window, "softcap": cap,
+               "max_abs_err": err, "tol": tol, "us": 1e3 * k_ms, "plain_us": 1e3 * p_ms,
+               "bound_us": 1e6 * bnd, "bound_by": by, "library_us": None}
+        if window is None and cap is None:
+            row["library_us"] = 1e3 * _sdpa_ms(q.reshape(b, h, s, hd), k.reshape(b, kv, s, hd),
+                                               v.reshape(b, kv, s, hd))[0]
+        frows.append(row)
+        log(f"[families flash] {name:26s} H {h}/{kv} hd {hd} max|err| {err:.2e} (tol "
+            f"{tol:.1e})  {row['us']:9.2f} us  plain {row['plain_us']:9.1f} us  bound "
+            f"{row['bound_us']:7.2f} us ({by}, {100 * row['bound_us'] / row['us']:.1f} % of it)"
+            + (f"  sdpa {row['library_us']:7.2f} us" if row["library_us"] else
+               "  (no library call takes the window and cap)") + f" [{CARD['smi']}]")
+        del q, k, v, got, want
+    bs, b = 8, FAMILY_PAGED_B
+    for (name, kv, g, hd, T, window, cap), pool in itertools.product(FAMILY_PAGED,
+                                                                     ("float", "int8")):
+        mb = T // bs
+        variants = _paged_variants(b, T, kv, hd, 2 if pool == "float" else 1)
+        nb = variants * b * mb + 1
+        kp, vp, ks, vs = _paged_pools(gen, dev, pool, dt, nb, bs, kv, hd)
+        lo = 0 if window is None else window
+        pos = torch.randint(lo, T, (b,), generator=gen, device=dev)
+        tables = (torch.randperm(nb - 1, generator=gen, device=dev) + 1).reshape(variants, b, mb)
+        past = torch.arange(mb, device=dev)[None] > (pos // bs)[:, None]
+        tables = torch.where(past[None], 0, tables).to(torch.int32)
+        q = torch.randn((b, kv, g, hd), generator=gen, device=dev).to(dt)
+        kn, vn = (torch.randn((b, kv, hd), generator=gen, device=dev).to(dt) for _ in range(2))
+        mask = decode_mask(T, pos, window)
+        kw = dict(scale=hd ** -0.5, softcap=cap, k_scales=ks, v_scales=vs)
+        got = pkern.paged_attention_cuda(q, kp, vp, tables[0], pos.to(torch.int32), kn, vn,
+                                         mask, **kw)
+        up = [t.float() if t.dtype == torch.bfloat16 else t for t in (q, kp, vp)]
+        want = paged_attention_ref(up[0], up[1], up[2], tables[0], pos, kn.float(), vn.float(),
+                                   mask, **kw)
+        err = (got.float() - want).abs().max().item()
+        tol = PAGED_TOL[dt] * want.abs().max().item()
+        quant = pool != "float"
+        kname = "paged_attn_quant" if quant else "paged_attn"
+        row = {"kernel": kname, "case": name, "pool": pool, "qdtype": "bfloat16", "b": b,
+               "kv": kv, "g": g, "hd": hd, "bs": bs, "T": T, "window": window, "softcap": cap,
+               "splits": pkern.split_plan(b, kv, mb, bs, pkern.tile_cols(hd, kp.element_size()))[0],
+               "max_abs_err": err, "tol": tol}
+        if not err <= tol:
+            raise AssertionError(f"{kname} {name}: kernel disagrees with its plain version: {row}")
+        _time_paged(row, q, kp, vp, tables, pos, kn, vn, mask, kw, quant)
+        if window is not None:
+            # the work this data needs: the rows inside the window only
+            visible = int(((mask > NEG_INF / 2) & (torch.arange(T, device=dev)[None]
+                                                   < pos[:, None])).sum())
+            nbytes = row["bytes"] - (int(pos.sum()) - visible) * kv * hd * kp.element_size() * 2
+            bnd, by = bound_s(nbytes, 4 * g * hd * kv * (visible + b), F32_OPS_PER_S)
+            row.update({"bound_us": 1e6 * bnd, "bound_by": by, "bytes": nbytes,
+                        "bound_share": 1e6 * bnd / row["us"],
+                        "visible_rows": visible})
+        prows.append(row)
+        log(f"[families paged] {name:20s} {pool:5s} b={b} KV {kv} G {g} hd {hd} T={T} "
+            f"S={row['splits']}  max|err| {err:.2e} (tol {tol:.1e})  {row['us']:7.2f} us  plain "
+            f"{row['plain_us']:8.1f} us  bound {row['bound_us']:5.2f} us ({row['bound_by']}) "
+            f"[{CARD['smi']}]")
+        del kp, vp, ks, vs, tables
+    return frows, prows
 
 
 # ---------------------------------------------------------------------------
@@ -2470,6 +2751,403 @@ def phase_golden_deep(dev) -> dict:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 8: the dense GQA families at full width
+# ---------------------------------------------------------------------------
+
+def family_config(arch: str):
+    cfg = load_config(arch)
+    layers = FAMILIES[arch]
+    return cfg if layers is None else dataclasses.replace(cfg, num_layers=layers)
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return (got.float() - want.float()).abs().max().item() / want.float().abs().max().item()
+
+
+def _check_logits(tag: str, got, want) -> float:
+    err = _rel_err(got, want)
+    if not (err <= LOGIT_TOL and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"{tag}: kernel logits differ from plain by {err:.3e} "
+                             f"(tol {LOGIT_TOL})")
+    return err
+
+
+def family_generate(dev, engine, tag: str) -> dict:
+    """Phase 3's generate at b 4, prompt 64, 32 greedy tokens on one family:
+    replayed (counts zeroed just before, read just after) against an eager
+    prefill + decode_step loop, whose tokens and launches must equal the
+    replay's; the decode step's time wall and on the card, its kernels, and
+    the first-step logits against the plain versions."""
+    cfg = engine.cfg
+    b, p, new = SERVE["batch"], SERVE["prompt_len"], SERVE["max_new_tokens"]
+    rng = np.random.default_rng(SERVE["seed"])
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(b, p)))}
+    engine.generate(batch, 2)                               # captures
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = engine.generate(batch, new)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    launches = _launches()
+    per_pass = launches_per_pass(cfg, True)
+    want = {k: v * (1 + new) for k, v in per_pass.items()}
+    if launches != want:
+        raise AssertionError(f"{tag}: generate launched {launches}, expected {want}")
+    toks = res.tokens
+    if toks.shape != (b, new) or not bool(((toks >= 0) & (toks < cfg.vocab_padded)).all()) \
+            or not bool(torch.isfinite(res.logits_last).all()):
+        raise AssertionError(f"{tag}: bad generate output")
+    _reset_launches()
+    eager_toks, _, t_eager = step_loop(engine, batch, new)
+    eager_launches = _launches()
+    if not torch.equal(eager_toks, toks) or eager_launches != launches:
+        raise AssertionError(f"{tag}: replayed tokens/launches differ from the eager loop's "
+                             f"({eager_launches} vs {launches}):\n replayed {toks.tolist()}\n"
+                             f" eager {eager_toks.tolist()}")
+    pre_prog, dec_prog = (engine.graphs.last["generate.prefill"],
+                          engine.graphs.last["generate.decode"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pre_prog.replay()
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    dec_dev, _ = device_time_ms(lambda i: (dec_prog.load(pos=p) if i == 0 else None,
+                                           dec_prog.replay()), 8, host_ms_guess=0.2)
+    prof = profile_device(lambda: (dec_prog.load(pos=p), dec_prog.replay()), 3)
+    wall_ms = 1e3 * (t_gen - t_pre) / new
+    with torch.inference_mode():
+        logits_k, _ = engine.prefill(batch)
+        with ops.impl_scope("plain"):
+            logits_p, _ = engine.prefill(batch)
+    err = _check_logits(f"{tag} first step", logits_k, logits_p)
+    wbound = bounds.projection_pass(cfg, "int8", b)
+    out = {"tokens": toks.tolist(), "launches": launches, "per_pass": per_pass,
+           "decode_ms_wall": wall_ms, "decode_ms_device": dec_dev,
+           "busy_share": dec_dev / wall_ms, "eager_decode_ms": 1e3 * t_eager / new,
+           "kernels_per_step": prof["kernels"], "gqmm_ms_per_step": prof["gqmm_ms"],
+           "weight_bytes_per_step": wbound.nbytes,
+           "bytes_bound_ms": 1e3 * wbound.nbytes / HBM_BYTES_PER_S,
+           "logit_rel_err": err, "first_token_agreement": (
+               logits_k.argmax(-1) == logits_p.argmax(-1)).float().mean().item()}
+    log(f"[families {tag}] generate b={b}, prompt {p}, {new} tokens: replayed == eager "
+        f"(tokens and launches {launches}); decode {wall_ms:.3f} ms/step wall, {dec_dev:.3f} on "
+        f"the card ({100 * out['busy_share']:.1f} % busy; eager {out['eager_decode_ms']:.2f} "
+        f"ms/step), {prof['kernels']} kernels a step, GQMM {prof['gqmm_ms']:.3f} ms; "
+        f"projection bytes a step {wbound.nbytes / 1e9:.3f} GB -> HBM bound "
+        f"{out['bytes_bound_ms']:.3f} ms; first-step logits kernel vs plain {err:.3e} "
+        f"(tol {LOGIT_TOL}) [{CARD['smi']}]")
+    out["batch"] = batch
+    return out
+
+
+def family_ragged_and_spec(dev, engine, gen_out: dict, tag: str) -> dict:
+    """The first FAMILY_RAGGED requests of phase 5's trace through the paged
+    serve (float pool), replayed against eager (tokens and launches equal;
+    the paged kernel once a layer a decode step); then speculative generate
+    (k 4, the oracle drafter), contiguous and paged, replayed and eager,
+    whose greedy tokens must equal vanilla decode's."""
+    cfg = engine.cfg
+    reqs = ragged_trace(cfg.vocab_size)[:FAMILY_RAGGED]
+    cache_len = max(max(bucket_length(len(r.tokens)), len(r.tokens) + r.max_new)
+                    for r in reqs) + SPEC["k"]
+    reng = InferenceEngine(engine.model, engine.params, cache_len=cache_len, device=dev)
+    _ragged_pass(reng, reqs, "paged")                      # captures
+    out_r, info = _ragged_pass(reng, reqs, "paged")
+    with graphs.eager():
+        out_e, info_e = _ragged_pass(reng, reqs, "paged")
+    same = all(np.array_equal(np.asarray(a.tokens), np.asarray(b.tokens))
+               for a, b in zip(out_r, out_e))
+    la = {k: v for k, v in info["launches"].items() if v}
+    le = {k: v for k, v in info_e["launches"].items() if v}
+    if not same or la != le:
+        raise AssertionError(f"{tag} ragged: the eager pass differs from the replayed one "
+                             f"({le} vs {la})")
+    if la.get("paged_attn") != cfg.num_layers * info["decode_steps"]:
+        raise AssertionError(f"{tag} ragged: paged_attn launched {la.get('paged_attn')}, "
+                             f"expected {cfg.num_layers} x {info['decode_steps']}")
+    log(f"[families {tag}] ragged paged serve, {len(reqs)} requests: {info['tokens']} tokens, "
+        f"{info['tok_s']:.1f} tok/s replayed ({info_e['tok_s']:.1f} eager), replayed == eager "
+        f"(tokens and launches {la}) [{CARD['smi']}]")
+    batch, b, new, k = gen_out["batch"], SERVE["batch"], SERVE["max_new_tokens"], SPEC["k"]
+    prompts = batch["tokens"].numpy()
+    spec = {}
+    for paged in (False, True):
+        van = (torch.as_tensor(gen_out["tokens"]) if not paged
+               else engine.generate(batch, new, paged=True).tokens)
+        oracle = OracleDrafter(prompts, van.numpy())
+        res, wall, launches, ver, _, _ = _spec_generate(engine, batch, new, spec_k=k,
+                                                        drafter=oracle, paged=paged)
+        st = res.spec_stats
+        if not torch.equal(res.tokens, van) or st["accepted"] != st["drafted"] \
+                or st["verify_steps"] != math.ceil((new - 1) / k):
+            raise AssertionError(f"{tag} spec ({'paged' if paged else 'contiguous'}): greedy "
+                                 f"spec tokens differ from vanilla decode's, or the oracle did "
+                                 f"not take every draft in ceil({new - 1}/{k}) steps ({st}):\n "
+                                 f"spec {res.tokens.tolist()}\n vanilla {van.tolist()}")
+        spec["paged" if paged else "contiguous"] = {"launches": launches, "spec_stats": st,
+                                                    "wall_s": wall}
+        log(f"[families {tag}] speculative generate k {k}, oracle drafter, "
+            f"{'paged' if paged else 'contiguous'}: tokens == vanilla decode's, "
+            f"{st['verify_steps']} verify steps, replayed == eager; launches {launches}")
+    return {"ragged": {"replayed": info, "eager": info_e}, "spec": spec}
+
+
+def family_long(dev, engine) -> dict:
+    """gemma2's 1 x FAMILY_LONG prompt, past its 4096-token window, then
+    FAMILY_LONG["steps"] decode steps fed the kernels' greedy tokens on the
+    contiguous cache and on the paged pool, each step's logits against the
+    plain versions'; and the prefill under blockwise_attention (the flash
+    kernel with the window and the cap, once a layer) against its plain
+    version."""
+    cfg, model, params = engine.cfg, engine.model, engine.params
+    n, steps = FAMILY_LONG["prompt_len"], FAMILY_LONG["steps"]
+    cache_len = -(-(n + steps) // 8) * 8           # whole blocks of 8 for the pool
+    rng = np.random.default_rng(SERVE["seed"] + 1)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, n)),
+                                       device=dev)}
+    errs = {"prefill": [], "contiguous": [], "paged": [], "blockwise": []}
+    launches = {}
+    with torch.inference_mode():
+        _reset_launches()
+        lk, ck = model.prefill(params, batch, cache_len)
+        launches["prefill"] = _launches()
+        with ops.impl_scope("plain"):
+            lp, cp = model.prefill(params, batch, cache_len)
+        errs["prefill"].append(_check_logits("gemma2 long prefill", lk, lp))
+        pk, table = contiguous_to_paged({k: v.clone() for k, v in ck.items()}, 8)
+        pp, _ = contiguous_to_paged({k: v.clone() for k, v in cp.items()}, 8)
+        tok = lk.argmax(-1)
+        toks = []
+        _reset_launches()
+        for i in range(steps):
+            pos = n + i
+            gk, ck = model.decode(params, tok, ck, pos)
+            with ops.impl_scope("plain"):
+                gp, cp = model.decode(params, tok, cp, pos)
+            errs["contiguous"].append(_check_logits(f"gemma2 long decode step {i}", gk, gp))
+            tok = gk.argmax(-1)
+            toks.append(int(tok[0]))
+        launches["decode"] = _launches()
+        tok = lk.argmax(-1)
+        posv = torch.full((1,), n, device=dev, dtype=torch.long)
+        _reset_launches()
+        for i in range(steps):
+            gk, pk = model.decode_paged(params, tok, pk, table, posv + i)
+            with ops.impl_scope("plain"):
+                gp, pp = model.decode_paged(params, tok, pp, table, posv + i)
+            errs["paged"].append(_check_logits(f"gemma2 long paged step {i}", gk, gp))
+            tok = gk.argmax(-1)
+        launches["decode_paged"] = _launches()
+        if launches["decode_paged"].get("paged_attn") != cfg.num_layers * steps:
+            raise AssertionError(f"gemma2 long paged decode launched {launches['decode_paged']}")
+        with flags.overrides(blockwise_attention=True):
+            fkern.reset_launches()
+            _reset_launches()
+            lf, _ = model.prefill(params, batch, cache_len)
+            launches["blockwise_prefill"] = {**_launches(), "flash_attn":
+                                             fkern.LAUNCHES["flash_attn"]}
+            with ops.impl_scope("plain"):
+                lfp, _ = model.prefill(params, batch, cache_len)
+        errs["blockwise"].append(_check_logits("gemma2 long blockwise prefill", lf, lfp))
+        if fkern.LAUNCHES["flash_attn"] != cfg.num_layers:
+            raise AssertionError(f"gemma2 long blockwise prefill: {fkern.LAUNCHES}")
+    local = sum(_layer_windows(cfg))
+    out = {"prompt_len": n, "steps": steps, "max_rel_err": {k: max(v) for k, v in errs.items()},
+           "launches": launches, "tokens": toks, "local_layers": local,
+           "keys_masked_last_step": n + steps - 1 - (cfg.sliding_window - 1)}
+    log(f"[families gemma2-2b] 1 x {n} prompt, {steps} decode steps: kernel vs plain logits "
+        + ", ".join(f"{k} {v:.3e}" for k, v in out["max_rel_err"].items())
+        + f" (tol {LOGIT_TOL}); its {local} local layers mask the "
+        f"{out['keys_masked_last_step']} oldest keys at the last step; launches {launches} "
+        f"[{CARD['smi']}]")
+    return out
+
+
+def patch_batch(cfg, seed: int = 0) -> dict:
+    """One FAMILY_PATCH_PROMPT-token prompt whose first num_frontend_tokens
+    positions are patch embeddings, N(0, 1) as the reference's
+    ``smoke_batch`` draws them, from ``SERVE["seed"] + 2 + seed``."""
+    rng = np.random.default_rng(SERVE["seed"] + 2 + seed)
+    return {"tokens": rng.integers(0, cfg.vocab_size, size=(1, FAMILY_PATCH_PROMPT)),
+            "patch_embeds": rng.normal(size=(1, cfg.num_frontend_tokens, cfg.d_model)
+                                       ).astype(np.float32)}
+
+
+@contextlib.contextmanager
+def projections_as(fn):
+    """Every quantized projection inside the block runs ``fn(qmm, x, w)``,
+    ``qmm`` being ops.quantized_matmul itself (restored on exit)."""
+    qmm = ops.quantized_matmul
+    ops.quantized_matmul = lambda x, w, *, impl=None: fn(qmm, x, w)
+    try:
+        yield
+    finally:
+        ops.quantized_matmul = qmm
+
+
+def prefill_logits(engine, batch, mode: str = "kernel") -> torch.Tensor:
+    """A prefill's logits, its projections run as ``mode`` says: "kernel";
+    "plain"; "checked" (the kernel, each output held to the plain version on
+    the same input by ``check_close``); "shadow" (the plain version's
+    output, the kernel launched beside it on the same input and dropped:
+    any effect a kernel has outside its output shows); "ulp" (the plain
+    version's, layer 0's first output moved one f32 ulp up: how far the
+    model carries a rounding-sized change)."""
+    calls = itertools.count()
+
+    def run(qmm, x, w):
+        i = next(calls)
+        if mode == "checked":
+            y = qmm(x, w, impl="cuda")
+            check_close(f"projection call {i} x {tuple(x.shape)} w {tuple(w.shape)}", y,
+                        qmm(x, w, impl="plain"), w.fmt)
+            return y
+        want = qmm(x, w, impl="plain")
+        if mode == "shadow":
+            qmm(x, w, impl="cuda")
+        elif mode == "ulp" and i == 0:
+            want = torch.nextafter(want, torch.full_like(want, float("inf")))
+        return want
+
+    with torch.inference_mode():
+        if mode == "kernel":
+            return engine.prefill(batch)[0].float()
+        if mode == "plain":
+            with ops.impl_scope("plain"):
+                return engine.prefill(batch)[0].float()
+        with projections_as(run):
+            return engine.prefill(batch)[0].float()
+
+
+def family_patches(dev, engine) -> dict:
+    """pixtral's prefill of a patch-embedding prompt (``patch_batch``),
+    kernels against the plain versions. The end-to-end logits are not held
+    to LOGIT_TOL here: on this prompt the model carries a one-ulp change of
+    layer 0's first projection to ~5e-2 of max|logit| (``tests/
+    trace_torch_families.py``; ROADMAP Queue C), the tolerance itself. So
+    every projection of the kernel prefill is held to its plain version on
+    the same input (phase 2's rule), the plain prefill with every kernel
+    launched beside it must give the plain logits bit for bit (no kernel
+    acts outside its output), and the end-to-end difference is printed
+    beside the one-ulp one."""
+    cfg = engine.cfg
+    batch = patch_batch(cfg)
+    _reset_launches()
+    lk = prefill_logits(engine, batch)
+    launches = _launches()
+    lp = prefill_logits(engine, batch, "plain")
+    prefill_logits(engine, batch, "checked")
+    if not torch.equal(prefill_logits(engine, batch, "shadow"), lp):
+        raise AssertionError("pixtral patch prefill: launching the kernels beside the plain "
+                             "versions changed the plain logits")
+    if not bool(torch.isfinite(lk).all()):
+        raise AssertionError("pixtral patch prefill: non-finite logits")
+    err, ulp = _rel_err(lk, lp), _rel_err(prefill_logits(engine, batch, "ulp"), lp)
+    with torch.inference_mode():
+        text_only, _ = engine.prefill({"tokens": batch["tokens"]})
+    moved = _rel_err(text_only, lk)
+    if not moved > 0:
+        raise AssertionError("pixtral: the patch embeddings did not reach the logits")
+    log(f"[families pixtral-12b] prefill 1 x {FAMILY_PATCH_PROMPT}, the first "
+        f"{cfg.num_frontend_tokens} positions patch embeddings: every projection within "
+        f"{RTOL} of its plain version on the same input, kernels beside the plain run change "
+        f"nothing; logits kernel vs plain {err:.3e}, plain vs plain with one ulp moved "
+        f"{ulp:.3e} (of max|logit|); the text-only prompt's logits differ by {moved:.3e}; "
+        f"launches {launches}")
+    return {"logit_rel_err": err, "ulp_rel_err": ulp, "text_only_rel_diff": moved,
+            "launches": launches}
+
+
+def phase_families(dev) -> dict:
+    """Phase 8 (module docstring): each family at its FAMILIES depth."""
+    out = {}
+    for arch in FAMILIES:
+        t0 = time.perf_counter()
+        cfg = family_config(arch)
+        model = build(cfg)
+        params = model.init(seed=SERVE["seed"], device=dev)
+        engine = InferenceEngine(model, params, quantize=True, device=dev,
+                                 cache_len=SERVE["prompt_len"] + SERVE["max_new_tokens"]
+                                 + SPEC["k"])
+        del params
+        torch.cuda.synchronize()
+        cut = ("" if FAMILIES[arch] is None else
+               f"depth cut to {cfg.num_layers} of {load_config(arch).num_layers} layers, ")
+        log(f"[families {arch}] full width d {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} "
+            f"heads of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+            f"{cut}{cfg.num_layers} layers, {cfg.param_dtype}, int8 weights")
+        res = family_generate(dev, engine, arch)
+        if arch in FAMILY_FULL:
+            res.update(family_ragged_and_spec(dev, engine, res, arch))
+        if arch == FAMILY_LONG["arch"]:
+            res["long"] = family_long(dev, engine)
+        if cfg.frontend == "patch_embed":
+            res["patches"] = family_patches(dev, engine)
+        res.pop("batch")
+        res.update({"layers": cfg.num_layers, "full_layers": load_config(arch).num_layers,
+                    "seconds": time.perf_counter() - t0})
+        out[arch] = res
+        del engine, model
+        torch.cuda.empty_cache()
+        log(f"[families {arch}] {res['seconds']:.1f} s")
+    out["goldens"] = family_goldens(dev)
+    return out
+
+
+def family_goldens(dev) -> dict:
+    """The families' goldens (golden_<arch>.json): full width, 2 layers,
+    f32, weights by init_params_numpy; greedy tokens with f32 and int8
+    weights must equal the reference's (the rule of TinyLlama's 2-layer
+    golden); where the port's own CPU run was not exact, the reference's
+    tokens replayed must each be the card's choice or within TIE_MARGIN."""
+    out = {}
+    fg = FAMILY_GOLDEN
+    for arch in fg["archs"]:
+        path = family_golden_file(arch)
+        golden = json.loads(path.read_text())
+        for k, v in fg.items():
+            if golden[k] != v:
+                raise AssertionError(f"{path.name}: {k}={golden[k]!r}, this script uses {v!r}")
+        cfg = family_golden_config(arch)
+        tree = init_params_numpy(cfg, fg["seed"])
+        if weights_checksum(tree) != golden["weights_checksum"]:
+            raise AssertionError(f"{arch}: numpy drew other weights than the golden run")
+        prompt = family_golden_prompt(cfg.vocab_size)
+        if prompt.tolist() != golden["prompt"]:
+            raise AssertionError(f"{arch}: golden prompt differs")
+        params = params_from_numpy(tree, dev)
+        del tree
+        total = fg["batch"] * fg["max_new_tokens"]
+        res = {}
+        for setting in fg["settings"]:
+            eng = InferenceEngine(build(cfg), params, device=dev,
+                                  quantize=False if setting == "float32" else setting,
+                                  cache_len=fg["prompt_len"] + fg["max_new_tokens"])
+            got = eng.generate({"tokens": torch.as_tensor(prompt)},
+                               fg["max_new_tokens"]).tokens.tolist()
+            want = golden["tokens"][setting]
+            same = sum(a == b for ra, rb in zip(got, want) for a, b in zip(ra, rb))
+            off = [] if got == want else replay_choices(eng, prompt, np.asarray(want))
+            cpu = golden["port_cpu_equal"][setting]
+            res[setting] = {"tokens_equal": same, "tokens_total": total, "cpu_tokens_equal": cpu,
+                            "replay_differs": off}
+            log(f"[families golden] {arch} d {cfg.d_model} x {cfg.num_layers} layers f32, "
+                f"{setting} weights: {same}/{total} tokens equal the reference's (the port's "
+                f"CPU run: {cpu}/{total})"
+                + "".join(f"; step {o['step']} row {o['row']}: margin {o['margin']:.2e}"
+                          for o in off))
+            if got != want and (cpu == total or any(o["margin"] > TIE_MARGIN for o in off)):
+                raise AssertionError(f"{arch} golden ({setting}) tokens differ:\n port {got}\n"
+                                     f"  ref {want}\n replayed {off}")
+            del eng
+        out[arch] = res
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
 def _phase_gqmm_launches(kname, kind, serves, ragged, flagres, spec) -> dict[str, int]:
     """Launches of one GQMV/GQMM kernel on the main paths, by run: phase 3's
     generate per weight setting (its matvec path for GQMV), phase 5's ragged
@@ -2639,6 +3317,52 @@ def kernel_entries(rows, gsrows, serves, prows, ragged, frows, rqrows, flagres,
     return entries
 
 
+def family_runs(fam: dict) -> dict[str, dict[str, int]]:
+    """Phase 8's launch counts by run (each counted from 0 just before it)."""
+    runs = {}
+    for arch, r in fam.items():
+        if arch == "goldens":
+            continue
+        runs[f"phase 8 {arch} generate"] = r["launches"]
+        if "ragged" in r:
+            runs[f"phase 8 {arch} ragged paged"] = r["ragged"]["replayed"]["launches"]
+            for mode, sp in r["spec"].items():
+                runs[f"phase 8 {arch} spec generate {mode}"] = sp["launches"]
+        for name, counts in r.get("long", {}).get("launches", {}).items():
+            runs[f"phase 8 {arch} 1x{FAMILY_LONG['prompt_len']} {name}"] = counts
+        if "patches" in r:
+            runs[f"phase 8 {arch} patch prefill"] = r["patches"]["launches"]
+    return runs
+
+
+def add_families(entries: list[dict], fam: dict, rows: list[dict]) -> None:
+    """Phase 8's launches and the families' phase-2 rows into the kernels
+    line's entries."""
+    runs = family_runs(fam)
+    for e in entries:
+        by_run = e.setdefault("launches_by_run", {})
+        for run, counts in runs.items():
+            if counts.get(e["name"]):
+                by_run[run] = counts[e["name"]]
+                e["launches"] += counts[e["name"]]
+        mine = [r for r in rows if r["kernel"] == e["name"]]
+        if mine:
+            e["family_shapes"] = mine
+            e["max_abs_err"] = max([e["max_abs_err"]] + [r["max_abs_err"] for r in mine])
+
+
+def family_summary(fam: dict, smi: str) -> None:
+    for arch, r in fam.items():
+        if arch == "goldens":
+            continue
+        log(f"[families] {arch}: {r['layers']} of {r['full_layers']} layers; decode b="
+            f"{SERVE['batch']} {r['decode_ms_wall']:.3f} ms/step wall, {r['decode_ms_device']:.3f} "
+            f"on the card ({100 * r['busy_share']:.1f} % busy), {r['kernels_per_step']} kernels "
+            f"a step; projection bytes {r['weight_bytes_per_step'] / 1e9:.3f} GB a step, HBM "
+            f"bound {r['bytes_bound_ms']:.3f} ms; first-step logits vs plain "
+            f"{r['logit_rel_err']:.3e}; {r['seconds']:.1f} s [{smi}]")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", default=None, help="also write the full results as JSON here")
@@ -2697,6 +3421,12 @@ def main(argv=None) -> int:
     del engines, ragged_engine, ragged_outs
     golden = phase_golden(dev)
     golden["deep"] = phase_golden_deep(dev)
+    t_fam = time.perf_counter()
+    famrows = phase_family_kernels(dev)
+    ffrows, fprows = phase_family_attention(dev)
+    fam = phase_families(dev)
+    fam_s = time.perf_counter() - t_fam
+    log(f"[families] phase 8 with its phase-2 shapes took {fam_s:.1f} s")
 
     s8, pf = serves["int8"], ragged["passes"]["paged_float"]
     log(f"[graphs] int8, batch {SERVE['batch']}: decode eager {s8['eager']['decode_ms_per_step']:.2f} "
@@ -2733,6 +3463,8 @@ def main(argv=None) -> int:
     smi = card()
     entries = kernel_entries(rows, gsrows + tcrows + mvrows, serves, prows, ragged, frows,
                              rqrows, flagres, golden, spec)
+    add_families(entries, fam, famrows + ffrows + fprows)
+    family_summary(fam, smi)
     for e in entries:
         log(f"[kernels] {e['name']:16s} {e['launches']:6d} launches  {1e3 * e['ms']:10.3f} us  "
             f"bound {1e3 * e['bound_ms']:9.3f} us ({e['bound_by']}, {100 * e['bound_share']:.1f} "
@@ -2750,6 +3482,8 @@ def main(argv=None) -> int:
              "paged_hd256_rows": p256rows,
              "serve": serves, "ragged": ragged, "flags": flagres, "golden": golden,
              "spec": spec,
+             "family_kernel_rows": famrows, "family_flash_rows": ffrows,
+             "family_paged_rows": fprows, "families": fam, "families_seconds": fam_s,
              "kernels": entries,
              "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

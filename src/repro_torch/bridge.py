@@ -58,13 +58,21 @@ def params_from_numpy(tree, device="cuda"):
     return conv(tree)
 
 
-def init_params_numpy(cfg: ModelConfig, seed: int) -> dict:
+def init_params_numpy(cfg: ModelConfig, seed: int, *, norm_scale: float = 0.0) -> dict:
     """Random f32 weights in the reference ``init_lm`` layout (dense GQA
-    decoder): N(0, 1/in) projections, N(0, 0.02^2) embeddings, unit norms.
-    Stacked layer leaves are (L, out, in). The draws are f32 whatever
-    ``cfg.param_dtype`` says; the golden run uses an f32 config."""
+    decoder): N(0, 1/in) projections, N(0, 0.02^2) embeddings, and the
+    reference's norms: ones, or for gemma2 (``plus_one`` norms, which
+    store w - 1) zeros, with its ``post_att_norm``/``post_ffn_norm``.
+    Stacked layer leaves are (L, out, in); a tied config has no
+    ``classifier``. The draws are f32 whatever ``cfg.param_dtype`` says;
+    the golden run uses an f32 config.
+
+    ``norm_scale`` > 0 adds N(0, norm_scale^2) to every norm weight, drawn
+    after all other leaves (so the other leaves do not change), for tests
+    that must see the norm weights act (gemma2's + 1 included)."""
     rng = np.random.RandomState(seed)
     d, L, vp = cfg.d_model, cfg.num_layers, cfg.vocab_padded
+    norm = np.zeros if cfg.gemma_norms else np.ones
 
     def normal(shape, scale):
         return (rng.standard_normal(shape).astype(np.float32) * np.float32(scale))
@@ -75,15 +83,23 @@ def init_params_numpy(cfg: ModelConfig, seed: int) -> dict:
     params = {
         "embed": normal((vp, d), 0.02),
         "layers": {
-            "att_norm": np.ones((L, d), np.float32),
+            "att_norm": norm((L, d), np.float32),
             "attn": {"wqkv": dense(cfg.q_dim + 2 * cfg.kv_dim, d, (L,)),
                      "wo": dense(d, cfg.q_dim, (L,))},
-            "ffn_norm": np.ones((L, d), np.float32),
+            "ffn_norm": norm((L, d), np.float32),
             "mlp": {"w13": dense(2 * cfg.d_ff, d, (L,)),
                     "w2": dense(d, cfg.d_ff, (L,))},
         },
-        "final_norm": np.ones((d,), np.float32),
+        "final_norm": norm((d,), np.float32),
     }
     if not cfg.tie_embeddings:
         params["classifier"] = dense(vp, d)
+    if cfg.gemma_norms:
+        params["layers"]["post_att_norm"] = np.zeros((L, d), np.float32)
+        params["layers"]["post_ffn_norm"] = np.zeros((L, d), np.float32)
+    if norm_scale:
+        layers = params["layers"]
+        for name in sorted(k for k in layers if k.endswith("norm")):
+            layers[name] = layers[name] + normal(layers[name].shape, norm_scale)
+        params["final_norm"] = params["final_norm"] + normal((d,), norm_scale)
     return params

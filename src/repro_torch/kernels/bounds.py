@@ -1,7 +1,9 @@
 """Least time one H100 could take for the function of each TPU kernel of the
-reference package, computed from TinyLlama-1.1B's shapes.
+reference package, computed from a ported config's shapes.
 
-    python -m repro_torch.kernels.bounds
+    python -m repro_torch.kernels.bounds [--arch ID ... | --arch all]
+
+(TinyLlama-1.1B by default; ``all`` prints every ported config's table.)
 
 A bound is the larger of two times: the bytes the function must move (each
 input read once, each output written once) over the HBM rate, and the
@@ -51,15 +53,22 @@ def projections(cfg: ModelConfig) -> list[tuple[int, int, int]]:
     return [(m, n, cfg.num_layers) for m, n in layer] + [(cfg.vocab_size, cfg.d_model, 1)]
 
 
+def projection(fmt: str, m: int, n: int, b: int, gs: int) -> Bound:
+    """One W8A8-style projection (m, n) at batch b: weights at ``fmt``'s
+    width and their f32 group scales, int8 activations and their scales in,
+    f32 outputs out; 2 operations per multiply-add."""
+    nbytes = m * n * WEIGHT_BITS[fmt] // 8 + 4 * m * n // gs + b * n + 4 * b * n // gs + 4 * b * m
+    return Bound(nbytes, 2 * b * m * n, "bf16" if fmt == "fp8" else "int8")
+
+
 def projection_pass(cfg: ModelConfig, fmt: str, b: int) -> Bound:
-    """The 89 W8A8-style projections of one forward pass at batch b: weights
-    at ``fmt``'s width and their f32 group scales, int8 activations and their
-    scales in, f32 outputs out; 2 operations per multiply-add."""
-    gs, bits = cfg.group_size, WEIGHT_BITS[fmt]
+    """The 4 L + 1 projections of one forward pass at batch b (TinyLlama's
+    89), each a :func:`projection`."""
     nbytes = ops = 0
     for m, n, count in projections(cfg):
-        nbytes += count * (m * n * bits // 8 + 4 * m * n // gs + b * n + 4 * b * n // gs + 4 * b * m)
-        ops += count * 2 * b * m * n
+        one = projection(fmt, m, n, b, cfg.group_size)
+        nbytes += count * one.nbytes
+        ops += count * one.ops
     return Bound(nbytes, ops, "bf16" if fmt == "fp8" else "int8")
 
 
@@ -108,13 +117,24 @@ def table(cfg: ModelConfig) -> list[tuple[str, str, Bound]]:
     return rows
 
 
-def main() -> None:
-    from repro_torch.configs.tinyllama_1_1b import CONFIG
+def main(argv=None) -> None:
+    import argparse
 
-    print(f"{'kernel':28s} {'work':32s} {'bytes':>13s} {'operations':>15s} {'bound us':>10s}  by")
-    for name, work, bnd in table(CONFIG):
-        print(f"{name:28s} {work:32s} {bnd.nbytes:13d} {bnd.ops:15d} "
-              f"{1e6 * bnd.seconds:10.3f}  {bnd.bound_by}")
+    from repro_torch.models.registry import PORTED_ARCHS, load_config
+
+    ap = argparse.ArgumentParser(description="shape-derived bounds of every TPU kernel's "
+                                             "function, per ported config")
+    ap.add_argument("--arch", nargs="+", default=["tinyllama-1.1b"],
+                    help=f"config ids, or 'all' ({', '.join(PORTED_ARCHS)})")
+    args = ap.parse_args(argv)
+    archs = PORTED_ARCHS if args.arch == ["all"] else args.arch
+    for arch in archs:
+        print(f"{arch}:")
+        print(f"{'kernel':28s} {'work':32s} {'bytes':>13s} {'operations':>15s} "
+              f"{'bound us':>10s}  by")
+        for name, work, bnd in table(load_config(arch)):
+            print(f"{name:28s} {work:32s} {bnd.nbytes:13d} {bnd.ops:15d} "
+                  f"{1e6 * bnd.seconds:10.3f}  {bnd.bound_by}")
 
 
 if __name__ == "__main__":

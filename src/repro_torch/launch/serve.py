@@ -1,6 +1,8 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch <id> [...]``.
 
-Counterpart of ``repro/launch/serve.py``: random weights from ``--seed``,
+Counterpart of ``repro/launch/serve.py``: a ported arch (``--arch``, one of
+``registry.PORTED_ARCHS``; any other known id exits with "not yet ported"),
+full size or ``--reduced``, random weights from ``--seed``,
 group-wise PTQ unless ``--no-quantize`` (the config's W8A8, or
 ``--quantize-format`` int8/int4/int3/fp8/mixed/mixed3), optionally a quantized KV
 cache (``--kv-quant int8|fp8``), then requests, greedy or ``--sampler
@@ -25,7 +27,7 @@ import torch
 
 from repro_torch.core.policy import format_breakdown
 from repro_torch.device import resolve_device
-from repro_torch.models.registry import build, load_config
+from repro_torch.models.registry import PORTED_ARCHS, build, load_config
 from repro_torch.serving.batching import Request, bucket_length, resolve_mode, serve_ragged
 from repro_torch.serving.engine import InferenceEngine
 from repro_torch.serving.spec import resolve_drafter
@@ -46,7 +48,7 @@ def _report_programs(engine: InferenceEngine) -> None:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, help=f"ported: {', '.join(PORTED_ARCHS)}")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)

@@ -29,9 +29,14 @@ flags (``core/flags.py``):
   sums as its decode step does; the accepted prefix is committed with
   ``commit_layers_verify`` / ``commit_layers_paged_verify``.
 
-The mask selectors keep the reference's sliding-window arguments, which
-stay None until a windowed config (gemma2) is ported. The sharding
-annotations (``logical.constrain``) come with the sharding slice.
+Every path takes the reference's sliding-window arguments: ``window``
+(gemma2's ``cfg.sliding_window``) and ``use_window``, the layer's static
+bool from ``transformer._layer_windows`` (so a captured step has each
+layer's mask baked in). ``cfg.attn_logit_softcap`` caps the scores where
+the reference caps them: after the scale, before the mask (``_mha``,
+``_attend_deferred``, ``gqa_decode_deferred_quant``, and inside the flash
+and paged kernels). The sharding annotations (``logical.constrain``) come
+with the sharding slice.
 
 Projections go through ``linear``, so the same code runs float weights or
 the W8A8 kernels. QKV is one fused projection (paper Alg. 2 line 4).
@@ -56,6 +61,7 @@ from repro_torch.models.common import (
     decode_mask,
     dense_init,
     length_mask,
+    softcap,
 )
 
 
@@ -230,13 +236,22 @@ def _qkv(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
     return apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta), v
 
 
+def _scale_cap(scores: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The f32 scores times the query scale, then gemma2's attention soft
+    cap where the config has one (the reference's order: scale, cap, mask)."""
+    scores = scores * _gqa_scale(cfg)
+    if cfg.attn_logit_softcap:
+        scores = softcap(scores, cfg.attn_logit_softcap)
+    return scores
+
+
 def _mha(q, k, v, mask: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """q: (b,s,H,hd); k,v: (b,t,KV,hd); mask additive (s,t) or (b,s,t)."""
     b, s, h, hd = q.shape
     kv = k.shape[2]
     qg = q.reshape(b, s, kv, h // kv, hd)
     scores = torch.einsum("bskgh,btkh->bkgst", qg, k).to(torch.float32)
-    scores = scores * _gqa_scale(cfg)
+    scores = _scale_cap(scores, cfg)
     scores = scores + (mask[None, None, None] if mask.ndim == 2 else mask[:, None, None])
     attn = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgst,btkh->bskgh", attn, v)
@@ -258,15 +273,15 @@ def _mha_blockwise(q, k, v, cfg: ModelConfig, *, causal=True, window=None,
     caching; and the logits are taken at lengths[i] - 1. Only the hidden
     states at pad positions differ from the reference's, and nothing reads
     them. ``use_window`` (gemma2's per-layer local/global switch) is a
-    static bool or None here; a tensor raises until a windowed family is
-    ported.
+    static bool or None here (the layer loop passes each layer's bool); a
+    tensor raises.
 
     At bf16 the reference rounds its chunk scores and weights to bf16; the
     kernel and its plain version keep f32 and round the output once."""
     if isinstance(use_window, torch.Tensor):
         raise NotImplementedError(
-            "a per-layer tensor use_window (gemma2's local/global layers) is not ported; "
-            "pass a bool or None")
+            "a per-layer tensor use_window is not taken here; pass the layer's bool "
+            "(transformer._layer_windows) or None")
     if lengths is not None and not causal:
         raise ValueError("ragged lengths need causal attention")
     if use_window is not None and not use_window:
@@ -284,25 +299,24 @@ def _mha_blockwise(q, k, v, cfg: ModelConfig, *, causal=True, window=None,
 
 
 def _flag_mask(s: int, window, use_window, device) -> torch.Tensor:
-    """(s, s) additive mask; ``use_window`` (a bool tensor) selects the
-    sliding-window variant per layer (gemma2's local/global alternation)."""
-    full = causal_mask(s, None, device=device)
-    if window is None:
-        return full
+    """(s, s) additive mask; ``use_window`` selects the sliding-window
+    variant per layer (gemma2's local/global alternation): a bool builds
+    only the mask it selects, a bool tensor selects between both."""
+    if window is None or use_window is False:
+        return causal_mask(s, None, device=device)
     local = causal_mask(s, window, device=device)
-    if use_window is None:
+    if use_window is None or use_window is True:
         return local
-    return torch.where(use_window, local, full)
+    return torch.where(use_window, local, causal_mask(s, None, device=device))
 
 
 def _flag_decode_mask(cache_len: int, pos, window, use_window, device) -> torch.Tensor:
-    full = decode_mask(cache_len, pos, None, device=device)
-    if window is None:
-        return full
+    if window is None or use_window is False:
+        return decode_mask(cache_len, pos, None, device=device)
     local = decode_mask(cache_len, pos, window, device=device)
-    if use_window is None:
+    if use_window is None or use_window is True:
         return local
-    return torch.where(use_window, local, full)
+    return torch.where(use_window, local, decode_mask(cache_len, pos, None, device=device))
 
 
 def gqa_forward(p, x: torch.Tensor, cfg: ModelConfig, *, window=None, use_window=None,
@@ -438,7 +452,7 @@ def gqa_decode_deferred_quant(p, x: torch.Tensor, cache, pos, cfg: ModelConfig, 
     scores = scores * ks_c[:, :, None, :]
     cur = torch.einsum("bkgh,bkh->bkg", qg, k_new[:, 0]).to(torch.float32)
     scores = _col_update(scores, cur, pos)
-    scores = scores * _gqa_scale(cfg)
+    scores = _scale_cap(scores, cfg)
     dm = _flag_decode_mask(t, pos, window, use_window, x.device)
     scores = scores + (dm[None, None, None, :] if dm.ndim == 1 else dm[:, None, None, :])
     attn = torch.softmax(scores, dim=-1)                            # f32 (b, KV, G, T)
@@ -474,7 +488,7 @@ def _attend_deferred(q, k_new, v_new, cache, pos, mask: torch.Tensor, cfg: Model
         scores = torch.einsum("bkgh,btkh->bkgt", qg, k_cache).to(torch.float32)
     cur = torch.einsum("bkgh,bkh->bkg", qg, k_new[:, 0]).to(torch.float32)
     scores = _col_update(scores, cur, pos)
-    scores = scores * _gqa_scale(cfg)
+    scores = _scale_cap(scores, cfg)
     scores = scores + (mask[None, None, None, :] if mask.ndim == 1 else mask[:, None, None, :])
     attn = torch.softmax(scores, dim=-1).to(q.dtype)                # (b, KV, G, T)
     # the cache's slot at pos is zero, so its contribution is exactly the
@@ -511,14 +525,16 @@ def gqa_decode_deferred(p, x: torch.Tensor, cache, pos, cfg: ModelConfig, *, win
 
 
 def verify_steps(pos: torch.Tensor, k: int, t: int, block_table: torch.Tensor | None = None,
-                 block_size: int | None = None):
+                 block_size: int | None = None, window: int | None = None):
     """The k decode steps a verify chunk starting at ``pos`` (b,) stands for,
     computed once for all layers: (positions (b, k), the chunk rows' cache
     targets, steps). A target is an index pair (i0, i1), each (b, k), into a
     layer's (b, T, ...) cache (slot row, time) or, with ``block_table``, its
     (NB, BS, ...) pool (physical block, offset; the block index clamped to
     the table width, as ``commit_layers_paged``). ``steps[m]`` is (pos + m,
-    its decode mask over ``t`` slots, the target pair of column m)."""
+    its decode masks over ``t`` slots, the target pair of column m); the
+    masks are (full, local), local the ``window`` mask (None without one),
+    and each layer takes its own (``_step_mask``)."""
     b = pos.shape[0]
     positions = pos.long()[:, None] + torch.arange(k, device=pos.device)[None, :]   # (b, k)
     if block_table is None:
@@ -529,11 +545,21 @@ def verify_steps(pos: torch.Tensor, k: int, t: int, block_table: torch.Tensor | 
     steps = []
     for m in range(k):
         pm = positions[:, m].contiguous()
-        steps.append((pm, decode_mask(t, pm), (target[0][:, m], target[1][:, m])))
+        masks = (decode_mask(t, pm), None if window is None else decode_mask(t, pm, window))
+        steps.append((pm, masks, (target[0][:, m], target[1][:, m])))
     return positions, target, steps
 
 
-def gqa_verify(p, x: torch.Tensor, cache, positions: torch.Tensor, steps, cfg: ModelConfig):
+def _step_mask(masks, use_window) -> torch.Tensor:
+    """A verify column's decode mask for a layer: the window mask where the
+    layer uses the window (``use_window`` True or None, as
+    ``_flag_decode_mask``), else the full one."""
+    full, local = masks
+    return local if local is not None and use_window is not False else full
+
+
+def gqa_verify(p, x: torch.Tensor, cache, positions: torch.Tensor, steps, cfg: ModelConfig, *,
+               use_window=None):
     """Speculative-verify attention over the contiguous float cache (k, v)
     each (b, T, KV, hd): x (b, k, d_model) the chunk, ``positions`` and
     ``steps`` from :func:`verify_steps`. The chunk's projections run once
@@ -545,12 +571,14 @@ def gqa_verify(p, x: torch.Tensor, cache, positions: torch.Tensor, steps, cfg: M
     bit on every device. Writes the chunk's K/V rows into their slots in
     place: the caller restores them (``transformer.lm_verify``). Returns (y
     (b, k, d_model), (k_rows, v_rows) (b, k, KV, hd)) for the commit of the
-    accepted prefix (``commit_layers_verify``). Plain PyTorch, as decode."""
+    accepted prefix (``commit_layers_verify``). ``use_window`` picks each
+    column's mask (``_step_mask``). Plain PyTorch, as decode."""
     k_cache, v_cache = cache
     q, k_new, v_new = _qkv(p, x, cfg, positions)
     deferred = bool(flags.get("deferred_decode_cache"))
     ctx = []
-    for m, (pm, mask, target) in enumerate(steps):
+    for m, (pm, masks, target) in enumerate(steps):
+        mask = _step_mask(masks, use_window)
         qm, km, vm = (t[:, m:m + 1].contiguous() for t in (q, k_new, v_new))
         if deferred:
             ctx.append(_attend_deferred(qm, km, vm, cache, pm, mask, cfg))
@@ -562,7 +590,7 @@ def gqa_verify(p, x: torch.Tensor, cache, positions: torch.Tensor, steps, cfg: M
 
 
 def gqa_verify_paged(p, x: torch.Tensor, pages, block_table: torch.Tensor,
-                     positions: torch.Tensor, steps, cfg: ModelConfig):
+                     positions: torch.Tensor, steps, cfg: ModelConfig, *, use_window=None):
     """Paged speculative-verify attention over one layer's float block pool
     (k_pages, v_pages) each (NB, BS, KV, hd): chunk column m runs the paged
     decode step's attention (``_attend_paged``: ``ops.paged_attention``, the
@@ -572,9 +600,10 @@ def gqa_verify_paged(p, x: torch.Tensor, pages, block_table: torch.Tensor,
     k_pages, v_pages = pages
     q, k_new, v_new = _qkv(p, x, cfg, positions)
     ctx = []
-    for m, (pm, mask, target) in enumerate(steps):
+    for m, (pm, masks, target) in enumerate(steps):
         kn, vn = k_new[:, m].contiguous(), v_new[:, m].contiguous()
-        ctx.append(_attend_paged(q[:, m:m + 1], kn, vn, pages, block_table, pm, mask, cfg))
+        ctx.append(_attend_paged(q[:, m:m + 1], kn, vn, pages, block_table, pm,
+                                 _step_mask(masks, use_window), cfg))
         k_pages[target] = kn
         v_pages[target] = vn
     return linear(p["wo"], torch.stack(ctx, dim=1)), (k_new, v_new)

@@ -36,16 +36,23 @@ def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype) -> torch.Tenso
 # norms / activations
 # ---------------------------------------------------------------------------
 
-def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5, *,
+            plus_one: bool = False) -> torch.Tensor:
     """RMSNorm in f32, cast back to the input dtype (the reference's rounding).
-    (gemma2's ``plus_one`` weights come with the gemma2 slice.)"""
+    gemma2 stores w - 1 and applies (1 + w): ``plus_one`` selects that."""
     dt = x.dtype
     x32 = x.to(torch.float32)
     inv = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
-    return (x32 * inv * w.to(torch.float32)).to(dt)
+    return (x32 * inv * _norm_scale(w, plus_one)).to(dt)
 
 
-def rmsnorm_steps(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+def _norm_scale(w: torch.Tensor, plus_one: bool) -> torch.Tensor:
+    w32 = w.to(torch.float32)
+    return 1.0 + w32 if plus_one else w32
+
+
+def rmsnorm_steps(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5, *,
+                  plus_one: bool = False) -> torch.Tensor:
     """:func:`rmsnorm` of a speculative-verify chunk x (b, k, d) whose sums of
     squares run over each chunk column's (b, d) rows apart, as k decode
     steps of b rows sum them: PyTorch's CUDA reduction splits a row's sum
@@ -57,7 +64,13 @@ def rmsnorm_steps(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.
     sq = (x32 * x32).transpose(0, 1).contiguous()                 # (k, b, d)
     ms = torch.stack([sq[m].mean(dim=-1, keepdim=True) for m in range(sq.shape[0])], dim=1)
     inv = torch.rsqrt(ms + eps)
-    return (x32 * inv * w.to(torch.float32)).to(dt)
+    return (x32 * inv * _norm_scale(w, plus_one)).to(dt)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """gemma2's logit soft cap, cap * tanh(x / cap), in x's dtype (the
+    reference's order: divide, tanh, multiply)."""
+    return cap * torch.tanh(x / cap)
 
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:

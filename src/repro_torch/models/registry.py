@@ -1,10 +1,13 @@
 """Uniform model API (counterpart of ``repro/models/registry.py``).
 
-Only the dense GQA ``decoder_lm`` family is ported, and of the
-architectures only TinyLlama-1.1B; ``load_config`` names the others and
+Only the dense GQA ``decoder_lm`` family is ported: TinyLlama-1.1B,
+internlm2-1.8b, deepseek-coder-33b, pixtral-12b (its ViT frontend a stub:
+the caller's ``batch["patch_embeds"]`` replace the first positions, as in
+the reference) and gemma2-2b. ``load_config`` names the other six and
 raises "not yet ported" for them. ``Model`` keeps the reference's entry
 points (the scoring ``forward``, ``prefill``, ``decode``) and its
-capability flags, each declared explicitly: ragged lengths, the paged
+capability flags, each declared explicitly and equal to the reference's
+for every ported arch: ragged lengths, the paged
 block-pool cache (``init_paged_cache``/``decode_paged``), speculative
 verify over both caches (``verify``/``commit_verify`` and their paged
 siblings) and the serving core's slot hooks (``cache_kind="kv"``,
@@ -16,6 +19,8 @@ from __future__ import annotations
 import dataclasses
 import importlib
 from typing import Callable
+
+import numpy as np
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as _tf
@@ -34,7 +39,8 @@ ARCH_IDS = [
     "seamless-m4t-large-v2",
 ]
 
-PORTED_ARCHS = ("tinyllama-1.1b",)
+PORTED_ARCHS = ("tinyllama-1.1b", "internlm2-1.8b", "deepseek-coder-33b", "pixtral-12b",
+                "gemma2-2b")
 
 
 def load_config(arch_id: str) -> ModelConfig:
@@ -80,10 +86,12 @@ def build(cfg: ModelConfig) -> Model:
     _tf._check_ported(cfg)
 
     def forward(params, batch, remat=True):
-        return _tf.lm_forward(params, batch["tokens"], cfg, remat=remat)
+        return _tf.lm_forward(params, batch["tokens"], cfg,
+                              frontend_embeds=batch.get("patch_embeds"), remat=remat)
 
     def prefill(params, batch, cache_len, cache=None):
         return _tf.lm_prefill(params, batch["tokens"], cfg, cache_len,
+                              frontend_embeds=batch.get("patch_embeds"),
                               lengths=batch.get("lengths"), cache=cache)
 
     return Model(
@@ -110,3 +118,18 @@ def build(cfg: ModelConfig) -> Model:
         gather_slots=_tf.lm_gather_slots,
     )
 
+
+
+def smoke_batch(cfg: ModelConfig, *, batch: int = 2, seq: int = 16, seed: int = 0) -> dict:
+    """Small concrete batch as numpy arrays, the reference's draws from
+    ``numpy.random.default_rng(seed)``: tokens, labels (tokens shifted by
+    one) and, for pixtral's patch-embed stub, ``patch_embeds`` (batch,
+    num_frontend_tokens, d_model) f32. Hand it to ``forward``/``prefill``
+    through ``torch.as_tensor``."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, size=(batch, seq)).astype(np.int32)
+    out = {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}
+    if cfg.frontend == "patch_embed":
+        out["patch_embeds"] = rng.normal(
+            size=(batch, cfg.num_frontend_tokens, cfg.d_model)).astype(np.float32)
+    return out

@@ -1,10 +1,15 @@
 """Decoder-only transformer LM (counterpart of ``repro/models/transformer.py``),
-the dense GQA path of TinyLlama.
+the dense GQA families: TinyLlama, internlm2, deepseek-coder, pixtral's
+backbone (its patch embeddings replace the first positions) and gemma2
+(``plus_one`` norms with post-attention and post-FFN norms, the ×√d
+embedding, sliding-window layers, attention and final soft caps).
 
 Parameters keep the reference's tree: stacked (L, ...) layer leaves under
 the same keys, so a reference checkpoint crosses through ``bridge.py``
 unchanged. The reference scans over layers; here a Python loop takes one
-layer's views out of the stacked leaves at a time. The caches are the
+layer's views out of the stacked leaves at a time, and gemma2's
+local/global switch is each layer's static bool (``_layer_windows``), so a
+captured step has each layer's mask baked in. The caches are the
 reference's layouts: the contiguous base (L, b, T, KV, hd) cache, the kvt
 (L, b, KV, T, hd) cache (``flags.kvt_cache_layout``), its quantized variant
 (``cfg.kv_quant`` or ``flags.int8_kv_cache``), and the paged block pool
@@ -27,20 +32,42 @@ from repro_torch.core.tree import tree_index
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlpmod
-from repro_torch.models.common import dense_init, embed_init, rmsnorm, rmsnorm_steps
+from repro_torch.models.common import (
+    dense_init,
+    embed_init,
+    rmsnorm,
+    rmsnorm_steps,
+    softcap,
+)
+
+# the frontend stubs whose embeddings the decoder takes (pixtral's)
+PORTED_FRONTENDS = (None, "patch_embed")
 
 
 def _check_ported(cfg: ModelConfig) -> None:
     unported = [name for name, on in (
-        ("mla", cfg.mla), ("moe", cfg.moe), ("gemma_norms", cfg.gemma_norms),
-        ("sliding_window", cfg.sliding_window),
-        ("attn_logit_softcap", cfg.attn_logit_softcap),
-        ("final_logit_softcap", cfg.final_logit_softcap),
-        ("frontend", cfg.frontend)) if on]
+        ("mla", cfg.mla), ("moe", cfg.moe),
+        ("frontend", cfg.frontend not in PORTED_FRONTENDS)) if on]
     if cfg.model_type != "decoder_lm" or unported:
         raise NotImplementedError(
             f"{cfg.arch_id}: {cfg.model_type} with {unported} is not yet ported "
             "to repro_torch (dense GQA decoder_lm only)")
+
+
+def _layer_windows(cfg: ModelConfig) -> list[bool]:
+    """One bool a layer: True where the layer uses the sliding window
+    (gemma2's 'L' layers of ``layer_pattern``). A Python list, so each
+    layer's mask is fixed when the step is built."""
+    if not cfg.layer_pattern or not cfg.sliding_window:
+        return [False] * cfg.num_layers
+    pat = (cfg.layer_pattern * cfg.num_layers)[: cfg.num_layers]
+    return [c == "L" for c in pat]
+
+
+def _window_kw(cfg: ModelConfig) -> list[dict]:
+    """Each layer's attention keywords: the config's window and the layer's
+    ``use_window``."""
+    return [{"window": cfg.sliding_window, "use_window": w} for w in _layer_windows(cfg)]
 
 
 def init_lm(cfg: ModelConfig, device="cuda", *, seed: int = 0) -> dict:
@@ -52,16 +79,21 @@ def init_lm(cfg: ModelConfig, device="cuda", *, seed: int = 0) -> dict:
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt, d, L = cfg.pdtype(), cfg.d_model, cfg.num_layers
+    # gemma2's norms store w - 1: zeros
+    norm = torch.zeros if cfg.gemma_norms else torch.ones
     params = {
         "embed": embed_init(gen, cfg.vocab_padded, d, dt),
         "layers": {
-            "att_norm": torch.ones((L, d), dtype=dt, device=dev),
+            "att_norm": norm((L, d), dtype=dt, device=dev),
             "attn": attn.init_gqa(gen, cfg, lead=(L,)),
-            "ffn_norm": torch.ones((L, d), dtype=dt, device=dev),
+            "ffn_norm": norm((L, d), dtype=dt, device=dev),
             "mlp": mlpmod.init_mlp(gen, cfg, lead=(L,)),
         },
-        "final_norm": torch.ones((d,), dtype=dt, device=dev),
+        "final_norm": norm((d,), dtype=dt, device=dev),
     }
+    if cfg.gemma_norms:
+        params["layers"]["post_att_norm"] = torch.zeros((L, d), dtype=dt, device=dev)
+        params["layers"]["post_ffn_norm"] = torch.zeros((L, d), dtype=dt, device=dev)
     if not cfg.tie_embeddings:
         params["classifier"] = dense_init(gen, cfg.vocab_padded, d, dt)
     return params
@@ -71,37 +103,60 @@ def init_lm(cfg: ModelConfig, device="cuda", *, seed: int = 0) -> dict:
 # shared pieces
 # ---------------------------------------------------------------------------
 
-def _embed(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return embedding_lookup(params["embed"], tokens, cfg.cdtype())
+def _embed(params, tokens: torch.Tensor, cfg: ModelConfig,
+           frontend_embeds: torch.Tensor | None = None) -> torch.Tensor:
+    """Token embeddings (× √d for gemma2, in the compute dtype); pixtral's
+    precomputed patch embeddings (b, P, d) replace the first P positions."""
+    x = embedding_lookup(params["embed"], tokens, cfg.cdtype())
+    if cfg.gemma_norms:
+        # √d rounded to the compute dtype first, as the reference does
+        x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype))
+    if frontend_embeds is not None:
+        pfx = frontend_embeds.to(x.dtype)
+        x = torch.cat([pfx, x[:, pfx.shape[1]:, :]], dim=1)
+    return x
 
 
 def _logits(params, x: torch.Tensor, cfg: ModelConfig, norm=rmsnorm) -> torch.Tensor:
-    x = norm(x, params["final_norm"], cfg.norm_eps)
+    x = norm(x, params["final_norm"], cfg.norm_eps, plus_one=cfg.gemma_norms)
     w = params["embed"] if cfg.tie_embeddings else params["classifier"]
-    return linear(w, x)
+    logits = linear(w, x)
+    if cfg.final_logit_softcap:
+        logits = softcap(logits, cfg.final_logit_softcap)
+    return logits
 
 
 def _block(lp, x: torch.Tensor, cfg: ModelConfig, attn_fn, norm=rmsnorm) -> torch.Tensor:
     """One residual block given an attention closure; shared by all paths
-    (verify passes ``rmsnorm_steps``)."""
-    x = x + attn_fn(norm(x, lp["att_norm"], cfg.norm_eps))
-    return x + mlpmod.mlp_forward(lp["mlp"], norm(x, lp["ffn_norm"], cfg.norm_eps))
+    (verify passes ``rmsnorm_steps``). gemma2 normalises the attention and
+    FFN outputs too (``post_att_norm`` / ``post_ffn_norm``)."""
+    g = cfg.gemma_norms
+    a = attn_fn(norm(x, lp["att_norm"], cfg.norm_eps, plus_one=g))
+    if g:
+        a = norm(a, lp["post_att_norm"], cfg.norm_eps, plus_one=True)
+    x = x + a
+    f = mlpmod.mlp_forward(lp["mlp"], norm(x, lp["ffn_norm"], cfg.norm_eps, plus_one=g))
+    if g:
+        f = norm(f, lp["post_ffn_norm"], cfg.norm_eps, plus_one=True)
+    return x + f
 
 
 # ---------------------------------------------------------------------------
 # training / scoring forward
 # ---------------------------------------------------------------------------
 
-def lm_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *, remat: bool = True
+def lm_forward(params, tokens: torch.Tensor, cfg: ModelConfig,
+               frontend_embeds: torch.Tensor | None = None, *, remat: bool = True
                ) -> torch.Tensor:
     """tokens (b, s) -> logits (b, s, vocab_padded). ``remat`` is accepted
     for the reference's signature and has no effect: nothing here keeps
     activations for a backward pass (training is not ported)."""
     _check_ported(cfg)
-    x = _embed(params, tokens, cfg)
-    for i in range(cfg.num_layers):
+    x = _embed(params, tokens, cfg, frontend_embeds)
+    for i, wkw in enumerate(_window_kw(cfg)):
         lp = tree_index(params["layers"], i)
-        x = _block(lp, x, cfg, lambda h, lp=lp: attn.gqa_forward(lp["attn"], h, cfg))
+        x = _block(lp, x, cfg,
+                   lambda h, lp=lp, wkw=wkw: attn.gqa_forward(lp["attn"], h, cfg, **wkw))
     return _logits(params, x, cfg)
 
 
@@ -195,6 +250,7 @@ def contiguous_to_paged(cache: dict, block_size: int):
 
 
 def lm_prefill(params, tokens: torch.Tensor, cfg: ModelConfig, cache_len: int,
+               frontend_embeds: torch.Tensor | None = None,
                lengths: torch.Tensor | None = None, cache: dict | None = None):
     """Prompt pass: returns (last-position logits, populated cache).
 
@@ -202,18 +258,19 @@ def lm_prefill(params, tokens: torch.Tensor, cfg: ModelConfig, cache_len: int,
     masked (their cached K/V rows zeroed) and row i's logits are taken at
     position lengths[i]-1. ``cache``, an ``lm_init_cache`` tree of these
     shapes, is written in place (every slot of it) instead of a new one: a
-    captured prefill's static cache (serving/graphs.py)."""
+    captured prefill's static cache (serving/graphs.py). ``frontend_embeds``
+    (b, P, d) replace the first P positions' embeddings (pixtral)."""
     _check_ported(cfg)
-    x = _embed(params, tokens, cfg)
+    x = _embed(params, tokens, cfg, frontend_embeds)
     b = x.shape[0]
     if cache is None:
         cache = lm_init_cache(cfg, b, cache_len, x.dtype, x.device)
     names = ("k_q", "k_s", "v_q", "v_s") if attn.kv_quant_format(cfg) else ("k", "v")
-    for i in range(cfg.num_layers):
+    for i, wkw in enumerate(_window_kw(cfg)):
         lp = tree_index(params["layers"], i)
 
-        def attn_fn(h, lp=lp, i=i):
-            y, leaves = attn.gqa_prefill(lp["attn"], h, cfg, cache_len, lengths=lengths)
+        def attn_fn(h, lp=lp, i=i, wkw=wkw):
+            y, leaves = attn.gqa_prefill(lp["attn"], h, cfg, cache_len, lengths=lengths, **wkw)
             for name, leaf in zip(names, leaves):
                 cache[name][i] = leaf
             return y
@@ -241,23 +298,23 @@ def lm_decode(params, token: torch.Tensor, cache: dict, pos, cfg: ModelConfig):
     quant = attn.kv_quant_format(cfg) is not None
     kvt = bool(flags.get("kvt_cache_layout")) or quant
     deferred = bool(flags.get("deferred_decode_cache")) or kvt
-    x = embedding_lookup(params["embed"], token, cfg.cdtype())
+    x = _embed(params, token, cfg)
     rows: list = []
-    for i in range(cfg.num_layers):
+    for i, wkw in enumerate(_window_kw(cfg)):
         lp = tree_index(params["layers"], i)
 
-        def attn_fn(h, lp=lp, i=i):
+        def attn_fn(h, lp=lp, i=i, wkw=wkw):
             if quant:
                 c = (cache["k_q"][i], cache["k_s"][i], cache["v_q"][i], cache["v_s"][i])
-                y, r = attn.gqa_decode_deferred_quant(lp["attn"], h, c, pos, cfg)
+                y, r = attn.gqa_decode_deferred_quant(lp["attn"], h, c, pos, cfg, **wkw)
                 rows.append(r)
                 return y
             c = (cache["k"][i], cache["v"][i])
             if deferred:
-                y, r = attn.gqa_decode_deferred(lp["attn"], h, c, pos, cfg)
+                y, r = attn.gqa_decode_deferred(lp["attn"], h, c, pos, cfg, **wkw)
                 rows.append(r)
                 return y
-            y, _ = attn.gqa_decode(lp["attn"], h, c, pos, cfg)
+            y, _ = attn.gqa_decode(lp["attn"], h, c, pos, cfg, **wkw)
             return y
 
         x = _block(lp, x, cfg, attn_fn)
@@ -287,16 +344,16 @@ def lm_decode_paged(params, token: torch.Tensor, cache: dict, block_table: torch
     quant = attn.kv_quant_format(cfg) is not None
     if not isinstance(pos, torch.Tensor) or not pos.ndim:
         pos = torch.full((token.shape[0],), int(pos), dtype=torch.long, device=token.device)
-    x = embedding_lookup(params["embed"], token, cfg.cdtype())
+    x = _embed(params, token, cfg)
     rows: list = []
-    for i in range(cfg.num_layers):
+    for i, wkw in enumerate(_window_kw(cfg)):
         lp = tree_index(params["layers"], i)
 
-        def attn_fn(h, lp=lp, i=i):
+        def attn_fn(h, lp=lp, i=i, wkw=wkw):
             scales = (cache["k_scales"][i], cache["v_scales"][i]) if quant else None
             y, r = attn.gqa_decode_paged(
                 lp["attn"], h, (cache["k_pages"][i], cache["v_pages"][i]), block_table,
-                pos, cfg, scales=scales)
+                pos, cfg, scales=scales, **wkw)
             rows.append(r)
             return y
 
@@ -311,11 +368,6 @@ def lm_decode_paged(params, token: torch.Tensor, cache: dict, block_table: torch
 # ---------------------------------------------------------------------------
 # speculative verify: k-token chunked decode
 # ---------------------------------------------------------------------------
-
-def _verify_embed(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    # gemma2's sqrt(d) embedding scale comes with the gemma2 slice
-    return embedding_lookup(params["embed"], tokens, cfg.cdtype())
-
 
 def _check_verify_layout(cfg: ModelConfig) -> None:
     if cfg.mla:
@@ -339,24 +391,25 @@ def _verify(params, tokens: torch.Tensor, cfg: ModelConfig, cache: dict, names, 
     int8, int4 or int3 result does not depend on how many rows the GQMM
     takes; fp8's small and large designs sum a group in other orders), the
     norms sum each chunk column apart (``rmsnorm_steps``),
-    and ``attn_fn(i, lp, h, positions, steps)`` -> (y, (k, v)) attends each
-    column as its decode step. The attention writes the chunk's rows into
+    and ``attn_fn(i, lp, h, positions, steps, use_window)`` -> (y, (k, v))
+    attends each column as its decode step. The attention writes the chunk's rows into
     the cache leaves ``names``; their old bits are restored after the last
     layer, so the cache leaves as it came. Returns (logits (b, k,
     vocab_padded), rows {k, v} (L, b, k, KV, hd))."""
     _check_ported(cfg)
     _check_verify_layout(cfg)
     bs = cache[names[0]].shape[2] if block_table is not None else None
-    positions, target, steps = attn.verify_steps(pos, tokens.shape[1], t, block_table, bs)
+    positions, target, steps = attn.verify_steps(pos, tokens.shape[1], t, block_table, bs,
+                                                 window=cfg.sliding_window)
     index = (slice(None),) + target
     saved = [cache[name][index] for name in names]
-    x = _verify_embed(params, tokens, cfg)
+    x = _embed(params, tokens, cfg)
     ks, vs = [], []
-    for i in range(cfg.num_layers):
+    for i, use_window in enumerate(_layer_windows(cfg)):
         lp = tree_index(params["layers"], i)
 
-        def layer_attn(h, lp=lp, i=i):
-            y, (k, v) = attn_fn(i, lp, h, positions, steps)
+        def layer_attn(h, lp=lp, i=i, use_window=use_window):
+            y, (k, v) = attn_fn(i, lp, h, positions, steps, use_window)
             ks.append(k)
             vs.append(v)
             return y
@@ -379,8 +432,9 @@ def lm_verify(params, tokens: torch.Tensor, cache: dict, pos, cfg: ModelConfig):
     prefix (``lm_commit_verify``)."""
     pos = _chunk_pos(pos, tokens)
     return _verify(params, tokens, cfg, cache, ("k", "v"), pos, cache["k"].shape[2],
-                   lambda i, lp, h, positions, steps: attn.gqa_verify(
-                       lp["attn"], h, (cache["k"][i], cache["v"][i]), positions, steps, cfg))
+                   lambda i, lp, h, positions, steps, uw: attn.gqa_verify(
+                       lp["attn"], h, (cache["k"][i], cache["v"][i]), positions, steps, cfg,
+                       use_window=uw))
 
 
 def lm_commit_verify(cache: dict, rows: dict, pos: torch.Tensor, n_commit: torch.Tensor
@@ -403,9 +457,9 @@ def lm_verify_paged(params, tokens: torch.Tensor, cache: dict, block_table: torc
     pos = _chunk_pos(pos, tokens)
     t = block_table.shape[1] * cache["k_pages"].shape[2]
     return _verify(params, tokens, cfg, cache, ("k_pages", "v_pages"), pos, t,
-                   lambda i, lp, h, positions, steps: attn.gqa_verify_paged(
+                   lambda i, lp, h, positions, steps, uw: attn.gqa_verify_paged(
                        lp["attn"], h, (cache["k_pages"][i], cache["v_pages"][i]), block_table,
-                       positions, steps, cfg),
+                       positions, steps, cfg, use_window=uw),
                    block_table=block_table)
 
 

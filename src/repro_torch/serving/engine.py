@@ -103,12 +103,14 @@ class InferenceEngine:
             params = quantize_params(params, self.cfg.group_size, formats=formats)
         self.params = params
         self.quantized_fraction = quantized_fraction(params)
-        self.graphs = GraphCache(self.device)
+        self.graphs = GraphCache(self.device, self.cfg)
 
     def _device_batch(self, batch: Mapping) -> dict:
         out = {"tokens": torch.as_tensor(batch["tokens"]).to(self.device, torch.long)}
         if batch.get("lengths") is not None:
             out["lengths"] = torch.as_tensor(batch["lengths"]).to(self.device, torch.long)
+        if batch.get("patch_embeds") is not None:
+            out["patch_embeds"] = torch.as_tensor(batch["patch_embeds"]).to(self.device)
         return out
 
     # -- one-step APIs ---------------------------------------------------------
@@ -123,12 +125,15 @@ class InferenceEngine:
 
     # -- full generation -------------------------------------------------------
     def _generate_state(self, b: int, prompt_len: int, ragged: bool, paged: bool,
-                        block_size: int, cache_len: int, sampler: tuple) -> tuple[tuple, dict]:
+                        block_size: int, cache_len: int, sampler: tuple,
+                        patch: torch.Tensor | None = None) -> tuple[tuple, dict]:
         """(key, static buffers) of one ``generate`` signature: the prompt,
-        token, position, EOS flag, cache (and pool and table), and for a
-        sampler that draws noise its Gumbel buffer (b, V)."""
+        token, position, EOS flag, cache (and pool and table), for a
+        sampler that draws noise its Gumbel buffer (b, V), and for a batch
+        with pixtral's ``patch_embeds`` a buffer of their shape and type."""
         dev = self.device
-        key = (b, prompt_len, ragged, paged, block_size, cache_len, sampler, self.eos_id)
+        pshape = None if patch is None else (tuple(patch.shape), patch.dtype)
+        key = (b, prompt_len, ragged, paged, block_size, cache_len, sampler, self.eos_id, pshape)
 
         def make_state():
             zeros = dict(dtype=torch.long, device=dev)
@@ -138,6 +143,8 @@ class InferenceEngine:
                   "cache": self.model.init_cache(b, cache_len, self.cfg.cdtype(), dev)}
             if ragged:
                 st["lengths"] = torch.full((b,), prompt_len, **zeros)
+            if patch is not None:
+                st["patch_embeds"] = torch.zeros(pshape[0], dtype=pshape[1], device=dev)
             if paged:
                 # a float pool is a view of the contiguous cache; a quantized
                 # one is laid out anew (kvt-major rows to time-major blocks)
@@ -157,9 +164,9 @@ class InferenceEngine:
         model, params, eos = self.model, self.params, self.eos_id
         relayout = "pool" in st and "k_q" in st["cache"]
 
-        def prefill(tokens, tok, pos, done, cache, lengths=None, pool=None, gumbel=None):
-            batch = {"tokens": tokens} if lengths is None else {"tokens": tokens,
-                                                                 "lengths": lengths}
+        def prefill(tokens, tok, pos, done, cache, lengths=None, pool=None, gumbel=None,
+                    patch_embeds=None):
+            batch = {"tokens": tokens, "lengths": lengths, "patch_embeds": patch_embeds}
             logits, _ = model.prefill(params, batch, cache_len, cache=cache)
             first = sample(logits, gumbel=gumbel)
             tok.copy_(first)
@@ -175,7 +182,8 @@ class InferenceEngine:
             return logits
 
         names = ["tokens", "tok", "pos", "done", "cache"]
-        names += [n for n in ("lengths", GUMBEL) if n in st] + ["pool"] * relayout
+        names += [n for n in ("lengths", GUMBEL, "patch_embeds") if n in st]
+        names += ["pool"] * relayout
         return self.graphs.program("generate.prefill", key, prefill,
                                    lambda: {k: st[k] for k in names})
 
@@ -283,11 +291,15 @@ class InferenceEngine:
             # rows reshape exactly into the pool
             cache_len = -(-cache_len // block_size) * block_size
         sig = (sampler, sampler_sig(sampler_kw))
+        patch = batch.get("patch_embeds")
+        patch = None if patch is None else torch.as_tensor(patch)
         key, st = self._generate_state(b, prompt_len, lengths is not None, paged, block_size,
-                                       cache_len, sig)
+                                       cache_len, sig, patch)
         pre = self._prefill_program(key, st, prompt_len, cache_len, block_size, sample)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         pre.load(tokens=tokens)
+        if patch is not None:
+            pre.load(patch_embeds=patch)
         if lengths is not None:
             pre.load(lengths=torch.as_tensor(lengths))
         draw_noise(pre.inputs, gen)

@@ -222,8 +222,11 @@ class GraphCache:
     gives builds, warm-up and capture seconds and graph-pool bytes by
     program name."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, config):
         self.device = device
+        # the model config (arch included) is part of every signature, so no
+        # program is ever shared across configs
+        self.config = config
         self.programs: dict[tuple, Program] = {}
         self.states: dict[tuple, dict] = {}
         self.last: dict[str, Program] = {}     # the program of each name run last
@@ -231,7 +234,8 @@ class GraphCache:
 
     def _full_key(self, name: str, key: tuple) -> tuple:
         eager_mode = self.device.type != "cuda" or _MODE["eager"]
-        return (name, key, ops.scope_impl(), tuple(sorted(flags.FLAGS.items())), eager_mode)
+        return (name, self.config, key, ops.scope_impl(), tuple(sorted(flags.FLAGS.items())),
+                eager_mode)
 
     def state(self, name: str, key: tuple, make: Callable[[], dict]) -> dict:
         """Static buffers for ``(name, key)`` under the current impl, flags

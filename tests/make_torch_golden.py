@@ -1,6 +1,18 @@
 """Write the golden tokens that ``chip_smoke.py`` holds the port to.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_torch_golden.py [--deep-only]
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_torch_golden.py --arch ID
+
+With ``--arch`` (one of ``chip_smoke.FAMILY_GOLDEN["archs"]``: internlm2-1.8b,
+gemma2-2b) it writes that family's golden instead,
+``src/repro_torch/golden_<arch>.json``: the config at full width, depth cut
+to ``chip_smoke.FAMILY_GOLDEN``'s layer count, f32 params and compute,
+weights from ``init_params_numpy``; the reference's greedy ``generate``
+tokens on the golden prompt with f32 weights and with int8 weights, and
+how many of them the port's plain path reproduces on the CPU, each
+setting replayed on the reference's tokens too (the steps where the port
+chooses another token, with the margin). A few GB and a minute or two a
+family (gemma2's 256,000 x 2304 tied embedding is the largest leaf).
 
 Builds TinyLlama at full width (depth cut to ``chip_smoke.GOLDEN``'s layer
 count, f32 params and compute) with ``repro_torch.bridge.init_params_numpy``,
@@ -101,7 +113,51 @@ def deep_section(prompt: np.ndarray) -> dict:
     return out
 
 
+def family_golden(arch: str) -> None:
+    fg = chip_smoke.FAMILY_GOLDEN
+    cfg_port = chip_smoke.family_golden_config(arch)
+    cfg = dataclasses.replace(load_config(arch), num_layers=fg["num_layers"],
+                              param_dtype=fg["dtype"], compute_dtype=fg["dtype"])
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(cfg_port), "config drift"
+    tree = init_params_numpy(cfg_port, fg["seed"])
+    prompt = chip_smoke.family_golden_prompt(cfg.vocab_size)
+    cache_len = fg["prompt_len"] + fg["max_new_tokens"]
+    tparams = params_from_numpy(tree, "cpu")
+    out = dict(fg, arch=arch, d_model=cfg.d_model, prompt=prompt.tolist(), tokens={},
+               port_cpu_equal={}, port_cpu_replay_differs={})
+    for setting in fg["settings"]:
+        quantize = setting if setting != "float32" else False
+        eng = InferenceEngine(build(cfg), numpy_to_jax(tree), quantize=quantize,
+                              cache_len=cache_len)
+        want = np.asarray(eng.generate({"tokens": jnp.asarray(prompt, jnp.int32)},
+                                       fg["max_new_tokens"]).tokens)
+        del eng
+        te = TEngine(tbuild(cfg_port), tparams, quantize=quantize, cache_len=cache_len,
+                     device="cpu")
+        got = te.generate({"tokens": torch.as_tensor(prompt)}, fg["max_new_tokens"]).tokens
+        out["tokens"][setting] = want.tolist()
+        out["port_cpu_equal"][setting] = _equal(got.tolist(), want.tolist())
+        # the steps where the port's CPU run, fed the reference's tokens,
+        # chooses another token (with the margin)
+        out["port_cpu_replay_differs"][setting] = chip_smoke.replay_choices(te, prompt, want)
+        print(f"{arch} {setting}: the port's plain CPU run reproduces "
+              f"{out['port_cpu_equal'][setting]}/{want.size} tokens; replayed, it differs at "
+              f"{out['port_cpu_replay_differs'][setting]}", flush=True)
+        del te
+    out.update({"weights_checksum": chip_smoke.weights_checksum(tree),
+                "numpy": np.__version__, "jax": jax.__version__,
+                "made_by": "tests/make_torch_golden.py --arch " + arch})
+    path = chip_smoke.family_golden_file(arch)
+    path.write_text(json.dumps(out, indent=1) + "\n")
+    print(f"wrote {path.relative_to(ROOT)}")
+
+
 def main() -> None:
+    if "--arch" in sys.argv[1:]:
+        arch = sys.argv[sys.argv.index("--arch") + 1]
+        if arch != chip_smoke.GOLDEN["arch"]:
+            family_golden(arch)
+            return
     if "--deep-only" in sys.argv[1:]:
         out = json.loads(chip_smoke.GOLDEN_FILE.read_text())
         out["deep"] = deep_section(np.asarray(out["prompt"]))

@@ -8,10 +8,10 @@ torch = pytest.importorskip("torch")
 
 from repro.configs.base import ModelConfig as JModelConfig  # noqa: E402
 from repro.models import registry as jreg  # noqa: E402
-from repro_torch.configs.base import ModelConfig  # noqa: E402
+from repro_torch.configs.base import ModelConfig, MoEConfig  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
 
-UNPORTED = [a for a in jreg.ARCH_IDS if a != "tinyllama-1.1b"]
+UNPORTED = [a for a in jreg.ARCH_IDS if a not in registry.PORTED_ARCHS]
 
 
 @pytest.mark.parametrize("reduced", [False, True])
@@ -67,7 +67,8 @@ def test_model_declares_capabilities():
 
 
 def test_build_refuses_unported_features():
+    # MoE (dbrx) is not ported; gemma2's window, caps and norms are
     cfg = dataclasses.replace(registry.load_config("tinyllama-1.1b").reduced(),
-                              sliding_window=8)
+                              moe=MoEConfig(num_experts=4, top_k=2, d_expert=64))
     with pytest.raises(NotImplementedError, match="not yet ported"):
         registry.build(cfg)

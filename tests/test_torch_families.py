@@ -1,0 +1,374 @@
+"""The dense GQA families beside TinyLlama (internlm2-1.8b, deepseek-coder-33b,
+pixtral-12b with its patch-embed stub, gemma2-2b) in the port's model code,
+against the reference on their reduced configs with numpy-made weights
+(``bridge.init_params_numpy`` with random norm weights, so gemma2's
+``plus_one`` norms act), f32 and int8.
+
+Tolerances are TinyLlama's (``tests/test_torch_model.py``): float weights
+atol 1e-4, int8 weights 2e-3 * max|logit| (an f32 reordering can flip one
+activation's int8 rounding); caches atol 1e-3; verify logits and rows
+within 1e-5 of max|value| (``tests/test_torch_spec.py``). With int8
+weights these prompts (72 tokens, where TinyLlama's tests take 10) often
+hold an activation whose x/S lies on a .5 boundary to f32 rounding, the
+golden's documented gap (ROADMAP Queue C): the two packages' f32 orders
+round it to neighbouring integers, and through attention every later
+position moves by more than one quantum. So an int8 case that misses the
+tolerance is run again with every int8 rounding recorded in both packages
+(each quantized projection's activations, and the int8 KV cache's rows),
+and holds only if the first values that round differently are all such
+ties: x/S within 1e-4 * max(1, |x/S|) of the same .5 boundary in both
+packages (the float inputs agree to f32 reordering, and the two integers
+are neighbours).
+
+gemma2's reduced window is 64 (every other layer), so its prompts are
+longer than 64 and its decode and verify positions lie past 64: the local
+layers mask keys. Its soft caps (50 on attention scores, 30 on logits)
+hardly bend the reduced model's small values, so a "gemma2-2b-tight" case
+runs the same config with caps of 1 and 2, where they bend everything.
+The last tests drop the attention cap from the port (``_scale_cap``) and
+show every path that applies it then leaves the reference. The decode
+steps are in ``tests/test_torch_families_decode.py``; the cases, the
+weights and the tie rule in ``tests/_torch_families.py`` (every variant on
+gemma2's two cases, one or two on each plain GQA family).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from _torch_families import (  # noqa: E402
+    CACHE_LEN, CASES, NORM_SCALE, PROMPT, LENGTHS, VERIFY_TOL, ARCHS, Held, both, hold,
+    matrix, patches, setup, tokens, tol, tree_of,
+)
+from _torch_helpers import both_flags, numpy_to_jax  # noqa: E402
+from repro.core.policy import quantize_params as jquantize_params  # noqa: E402
+from repro.models import attention as jattn  # noqa: E402
+from repro.models import common as jcommon  # noqa: E402
+from repro.models import registry as jreg  # noqa: E402
+from repro.models import transformer as jtf  # noqa: E402
+from repro_torch import bridge  # noqa: E402
+from repro_torch.core.policy import format_breakdown, quantize_params  # noqa: E402
+from repro_torch.core.quant import QuantizedTensor  # noqa: E402
+from repro_torch.models import attention, common, registry, transformer  # noqa: E402
+
+
+# ---------------------------------------------------------------------------
+# building blocks and the registry
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", registry.PORTED_ARCHS)
+@pytest.mark.parametrize("reduced", [False, True])
+def test_ported_config_and_layer_windows_equal_reference(arch, reduced):
+    cfg, jcfg = registry.load_config(arch), jreg.load_config(arch)
+    if reduced:
+        cfg, jcfg = cfg.reduced(), jcfg.reduced()
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    got = transformer._layer_windows(cfg)
+    assert got == np.asarray(jtf._layer_windows(jcfg)).tolist()
+    assert all(type(w) is bool for w in got)
+    if arch == "gemma2-2b":
+        assert got[:2] == [True, False]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_softcap_and_plus_one_rmsnorm_match_reference(dtype):
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(3, 5, 64)).astype(np.float32) * 40
+    w = rng.normal(size=(64,)).astype(np.float32) * 0.3
+    jx, tx = jnp.asarray(x).astype(dtype), torch.as_tensor(x).to(getattr(torch, dtype))
+    jw, tw = jnp.asarray(w).astype(dtype), torch.as_tensor(w).to(getattr(torch, dtype))
+    rtol = 1e-6 if dtype == "float32" else 8e-3      # tanh's last bit (XLA's, PyTorch's)
+    for cap in (50.0, 30.0, 1.0):
+        np.testing.assert_allclose(common.softcap(tx, cap).float().numpy(),
+                                   np.asarray(jcommon.softcap(jx, cap)).astype(np.float32),
+                                   rtol=rtol, atol=1e-6)
+    for plus_one in (False, True):
+        want = np.asarray(jcommon.rmsnorm(jx, jw, 1e-6, plus_one=plus_one)).astype(np.float32)
+        got = common.rmsnorm(tx, tw, 1e-6, plus_one=plus_one).float().numpy()
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=1e-6)
+        # the verify chunk's per-column norm computes the same values
+        steps = common.rmsnorm_steps(tx, tw, 1e-6, plus_one=plus_one).float().numpy()
+        np.testing.assert_allclose(steps, got, rtol=rtol, atol=1e-6)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_smoke_batch_equals_reference(arch):
+    cfg = registry.load_config(arch).reduced()
+    mine = registry.smoke_batch(cfg, batch=2, seq=12, seed=4)
+    ref = jreg.smoke_batch(jreg.load_config(arch).reduced(), batch=2, seq=12, seed=4)
+    assert set(mine) == set(ref)
+    for k in ref:
+        np.testing.assert_array_equal(mine[k], np.asarray(ref[k]))
+    assert ("patch_embeds" in mine) == (arch == "pixtral-12b")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_init_lm_layout_equals_numpy_layout(arch):
+    """The port's own init and ``init_params_numpy`` draw the reference's
+    tree: gemma2's norms zero (``plus_one``) with both post norms, and no
+    classifier where the embedding is tied."""
+    cfg = registry.load_config(arch).reduced()
+    tree = bridge.init_params_numpy(cfg, seed=1)
+    params = transformer.init_lm(cfg, "cpu", seed=1)
+
+    def shapes(t):
+        return {k: shapes(v) if isinstance(v, dict) else tuple(v.shape) for k, v in t.items()}
+
+    assert shapes(params) == shapes(tree)
+    assert ("classifier" in tree) == (not cfg.tie_embeddings)
+    assert ("post_att_norm" in tree["layers"]) == cfg.gemma_norms
+    norm = 0.0 if cfg.gemma_norms else 1.0
+    assert (tree["final_norm"] == norm).all() and (params["final_norm"] == norm).all()
+    # the random norm weights are drawn after every other leaf
+    scaled = bridge.init_params_numpy(cfg, seed=1, norm_scale=NORM_SCALE)
+    np.testing.assert_array_equal(scaled["embed"], tree["embed"])
+    assert not (scaled["layers"]["att_norm"] == tree["layers"]["att_norm"]).any()
+
+
+@pytest.mark.parametrize("preset", ["int8", "mixed", "mixed3"])
+def test_tied_embedding_quantized_once_as_reference(preset):
+    """gemma2's tied embedding is the lookup table and the classifier: one
+    quantized leaf, the reference's format in every preset, counted once."""
+    cfg = registry.load_config("gemma2-2b").reduced()
+    tree = tree_of("gemma2-2b")
+    jq = jquantize_params(numpy_to_jax(tree), cfg.group_size, formats=preset)
+    tq = quantize_params(bridge.params_from_numpy(tree, "cpu"), cfg.group_size, formats=preset)
+    assert isinstance(tq["embed"], QuantizedTensor) and "classifier" not in tq
+    assert (tq["embed"].fmt, tq["embed"].group_size) == (jq["embed"].fmt, jq["embed"].group_size)
+    np.testing.assert_array_equal(tq["embed"].qvalues.numpy(), np.asarray(jq["embed"].qvalues))
+    fmts = format_breakdown(tq)
+    assert fmts[tq["embed"].fmt] >= tq["embed"].nbytes()
+    total = sum(fmts.values())
+    assert total == sum(leaf.nbytes() if isinstance(leaf, QuantizedTensor)
+                        else leaf.numel() * leaf.element_size()
+                        for leaf in _leaves(tq))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+# ---------------------------------------------------------------------------
+# forward, prefill, decode against the reference
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("case", CASES)
+def test_forward_matches_reference(case, quantized):
+    """``Model.forward`` through the registry (pixtral with its patch
+    embeddings)."""
+    cfg, jcfg, params, jparams = setup(case, quantized)
+    batch = registry.smoke_batch(cfg, batch=2, seq=PROMPT, seed=1)
+
+    def run(held):
+        want = jreg.build(jcfg).forward(jparams, {k: jnp.asarray(v) for k, v in batch.items()})
+        with torch.inference_mode():
+            got = registry.build(cfg).forward(params, {k: torch.as_tensor(v)
+                                                       for k, v in batch.items()})
+        held.logits(got, want)
+        if cfg.final_logit_softcap:
+            assert got.abs().max() < cfg.final_logit_softcap
+
+    hold(run, quantized)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_blockwise_forward_and_prefill_match_reference(case):
+    """Under ``blockwise_attention`` the flash path (its plain version on the
+    CPU) takes each layer's window and the attention cap."""
+    cfg, jcfg, params, jparams = setup(case, False)
+    toks = tokens(cfg, b=2)
+    jpatch, tpatch = both(patches(cfg, b=2))
+
+    def run(held):
+        with both_flags(blockwise_attention=True):
+            jf = jtf.lm_forward(jparams, jnp.asarray(toks, jnp.int32), jcfg, jpatch)
+            jl, jc = jtf.lm_prefill(jparams, jnp.asarray(toks, jnp.int32), jcfg, CACHE_LEN,
+                                    jpatch)
+            with torch.inference_mode():
+                tf = transformer.lm_forward(params, torch.as_tensor(toks), cfg, tpatch)
+                tl, tc = transformer.lm_prefill(params, torch.as_tensor(toks), cfg, CACHE_LEN,
+                                                tpatch)
+        held.logits(tf, jf, "forward")
+        held.logits(tl, jl, "prefill")
+        held.cache(tc, jc)
+
+    hold(run, False)
+
+
+@pytest.mark.parametrize("case,ragged,quantized", matrix(
+    [(r, q) for r in (False, True) for q in (False, True)],
+    {"internlm2-1.8b": [(True, True)], "deepseek-coder-33b": [(True, False)],
+     "pixtral-12b": [(False, True), (True, True)]}))
+def test_prefill_logits_and_cache_match_reference(case, ragged, quantized):
+    cfg, jcfg, params, jparams = setup(case, quantized)
+    toks = tokens(cfg)
+    jlen, tlen = both(LENGTHS if ragged else None)
+    jpatch, tpatch = both(patches(cfg))
+
+    def run(held):
+        jl, jc = jtf.lm_prefill(jparams, jnp.asarray(toks, jnp.int32), jcfg, CACHE_LEN, jpatch,
+                                lengths=jlen)
+        with torch.inference_mode():
+            tl, tc = transformer.lm_prefill(params, torch.as_tensor(toks), cfg, CACHE_LEN,
+                                            tpatch, lengths=tlen)
+        held.logits(tl, jl)
+        held.cache(tc, jc)
+
+    hold(run, quantized)
+
+
+# ---------------------------------------------------------------------------
+# speculative verify and its commit
+# ---------------------------------------------------------------------------
+
+def _prefilled(case, quantized):
+    """Both packages' caches after a 62-token prefill, and a 4-token chunk at
+    positions 62-65 (across gemma2's reduced window)."""
+    cfg, jcfg, params, jparams = setup(case, quantized)
+    toks = tokens(cfg, b=2, s=62, seed=3)
+    jl, jc = jtf.lm_prefill(jparams, jnp.asarray(toks, jnp.int32), jcfg, CACHE_LEN)
+    with torch.inference_mode():
+        _, tc = transformer.lm_prefill(params, torch.as_tensor(toks), cfg, CACHE_LEN)
+    tok0 = np.asarray(jl).argmax(-1)
+    chunk = np.concatenate([tok0[:, None], [[3, 5, 7], [2, 4, 6]]], 1)
+    return cfg, jcfg, params, jparams, jc, tc, chunk, np.full((2,), 62)
+
+
+def _close(got, want, tol=VERIFY_TOL):
+    want = np.asarray(want, np.float32)
+    err = np.abs(got.float().numpy() - want).max()
+    assert err <= tol * np.abs(want).max(), err
+
+
+@pytest.mark.parametrize("case,paged", matrix(
+    [(False,), (True,)], {"internlm2-1.8b": [(True,)], "deepseek-coder-33b": [(False,)],
+                          "pixtral-12b": [(True,)]}))
+def test_verify_and_commit_match_reference(case, paged):
+    """f32 weights: verify logits and K/V rows within 1e-5 of the
+    reference's, then a partial commit (3 rows of one chunk, 1 of the
+    other) gives the reference's cache."""
+    cfg, jcfg, params, jparams, jc, tc, chunk, pos = _prefilled(case, False)
+    jpos, tpos = jnp.asarray(pos, jnp.int32), torch.as_tensor(pos)
+    jchunk, tchunk = jnp.asarray(chunk, jnp.int32), torch.as_tensor(chunk)
+    n = np.array([3, 1])
+    with torch.inference_mode():
+        if paged:
+            jc, jtab = jtf.contiguous_to_paged(jc, 8)
+            tc, ttab = transformer.contiguous_to_paged(tc, 8)
+            want = jtf.lm_verify_paged(jparams, jchunk, jc, jtab, jpos, jcfg)
+            got = transformer.lm_verify_paged(params, tchunk, tc, ttab, tpos, cfg)
+            jc = jtf.lm_commit_verify_paged(jc, want[1], jtab, jpos, jnp.asarray(n))
+            transformer.lm_commit_verify_paged(tc, got[1], ttab, tpos, torch.as_tensor(n))
+        else:
+            want = jtf.lm_verify(jparams, jchunk, jc, jpos, jcfg)
+            got = transformer.lm_verify(params, tchunk, tc, tpos, cfg)
+            jc = jtf.lm_commit_verify(jc, want[1], jpos, jnp.asarray(n))
+            transformer.lm_commit_verify(tc, got[1], tpos, torch.as_tensor(n))
+    _close(got[0], want[0])
+    for name in ("k", "v"):
+        _close(got[1][name], want[1][name])
+    held = Held(False)
+    held.cache(tc, jc)
+    assert not held.misses, held.misses
+
+
+@pytest.mark.parametrize("case,paged", matrix(
+    [(False,), (True,)], {"deepseek-coder-33b": [(True,)]}))
+def test_verify_rows_are_decode_steps_bit_for_bit(case, paged):
+    """int8 weights: verify row m's logits equal those of the decode step at
+    pos + m bit for bit (each layer's window mask and both caps included),
+    and the verify leaves the cache as it found it."""
+    cfg, _, params, _, _, cache, chunk, pos = _prefilled(case, True)
+    pos_t, chunk_t = torch.as_tensor(pos), torch.as_tensor(chunk)
+    with torch.inference_mode():
+        table = None
+        if paged:
+            cache, table = transformer.contiguous_to_paged(cache, 8)
+        before = {name: v.clone() for name, v in cache.items()}
+        if paged:
+            logits, _ = transformer.lm_verify_paged(params, chunk_t, cache, table, pos_t, cfg)
+        else:
+            logits, _ = transformer.lm_verify(params, chunk_t, cache, pos_t, cfg)
+        for name in cache:
+            assert torch.equal(cache[name], before[name])
+        dec = before
+        for m in range(chunk.shape[1]):
+            if paged:
+                lg, dec = transformer.lm_decode_paged(params, chunk_t[:, m], dec, table,
+                                                      pos_t + m, cfg)
+            else:
+                lg, dec = transformer.lm_decode(params, chunk_t[:, m], dec, pos_t + m, cfg)
+            assert torch.equal(logits[:, m], lg), m
+
+
+# ---------------------------------------------------------------------------
+# the attention cap: dropped from the port, every path leaves the reference
+# ---------------------------------------------------------------------------
+
+def _scale_only(scores, cfg):
+    return scores * attention._gqa_scale(cfg)
+
+
+CAP_PATHS = ("forward", "decode", "deferred", "deferred_quant", "verify")
+
+
+@pytest.mark.parametrize("path", CAP_PATHS)
+def test_attention_cap_applied_where_the_reference_applies_it(path, monkeypatch):
+    """gemma2 with tight caps: each path agrees with the reference, and with
+    the attention cap dropped (``_scale_cap`` scaling only) it does not.
+    The paths are ``_mha`` (forward, prefill and the plain decode),
+    ``_attend_deferred`` (``gqa_decode_deferred``; the verify chunk under
+    ``deferred_decode_cache``), and ``gqa_decode_deferred_quant``."""
+    kvq = "int8" if path == "deferred_quant" else None
+    flag = {"deferred_decode_cache": True} if path in ("deferred", "verify") else {}
+    cfg, jcfg, params, jparams = setup("gemma2-2b-tight", False, kvq)
+    toks = tokens(cfg, b=2, s=66, seed=4)
+    tok = np.array([11, 12])
+
+    def run(mod, tfm, p, c, toks_, tok_):
+        if path == "forward":
+            return tfm.lm_forward(p, toks_, c)
+        _, cache = tfm.lm_prefill(p, toks_, c, CACHE_LEN)
+        if path == "verify":
+            chunk = mod.stack([tok_, tok_ + 1, tok_ + 2], 1)
+            return tfm.lm_verify(p, chunk, cache, 66, c)[0]
+        return tfm.lm_decode(p, tok_, cache, 66, c)[0]
+
+    with both_flags(**flag):
+        want = run(jnp, jtf, jparams, jcfg, jnp.asarray(toks, jnp.int32),
+                   jnp.asarray(tok, jnp.int32))
+        with torch.inference_mode():
+            got = run(torch, transformer, params, cfg, torch.as_tensor(toks),
+                      torch.as_tensor(tok))
+            held = Held(False)
+            held.logits(got, want)
+            assert not held.misses, held.misses
+            monkeypatch.setattr(attention, "_scale_cap", _scale_only)
+            dropped = run(torch, transformer, params, cfg, torch.as_tensor(toks),
+                          torch.as_tensor(tok))
+    ref = np.asarray(want, np.float32)
+    assert np.abs(dropped.numpy() - ref).max() > 100 * tol(False, ref)
+
+
+def test_flag_masks_take_the_layer_bool():
+    """A static ``use_window`` builds only the mask it selects, equal to the
+    reference's selection by a traced bool."""
+    for use in (True, False):
+        np.testing.assert_array_equal(
+            attention._flag_mask(70, 64, use, "cpu").numpy(),
+            np.asarray(jattn._flag_mask(70, 64, jnp.asarray(use))))
+        pos = torch.tensor([66, 80])
+        np.testing.assert_array_equal(
+            attention._flag_decode_mask(96, pos, 64, use, "cpu").numpy(),
+            np.asarray(jattn._flag_decode_mask(96, jnp.asarray(pos.numpy()), 64,
+                                               jnp.asarray(use))))

@@ -229,6 +229,36 @@ def test_tensor_core_designs_match_reference(fmt, gs, m, n, b):
     _within(plain, want, fmt)
 
 
+# the families' rows with an odd number of groups at GS 256 (gemma2-2b's
+# d 2304: 9; deepseek-coder-33b's d_ff 19200: 75), a few rows each, b on
+# both sides of the cut-over: the even/odd order of the group terms with
+# one more even term than odd
+ODD_GROUP_SHAPES = [(24, 2304, 4), (24, 2304, 17), (8, 19200, 3), (8, 19200, 17)]
+
+
+@pytest.mark.parametrize("m,n,b", ODD_GROUP_SHAPES)
+@pytest.mark.parametrize("fmt", kern.TC_FORMATS)
+def test_tensor_core_designs_match_reference_at_odd_group_counts(fmt, m, n, b):
+    gs = 256
+    wq, ws, xq, xs, wv = _inputs(fmt, m, n, gs, b, seed=n + b)
+    want = _oracles(fmt, wq, ws, xq, xs, gs)[0]
+    for rows in (kern.WIDE_ROWS, kern.NARROW_ROWS):
+        _within(emulate_large(wv, ws, xq, xs, gs, fmt, rows).numpy(), want, fmt)
+    _within(emulate_small(wv, ws, xq, xs, gs, fmt).numpy(), want, fmt)
+
+
+@pytest.mark.parametrize("b", range(1, 18))
+def test_small_design_cut_over_at_deepseek_w2(b):
+    """deepseek-coder-33b's w2 (n 19200, 75 groups): up to 8 activation rows
+    fit the small design's shared memory (one 8-row tile, ~177 KB), 9-16
+    would need two tiles (~351 KB, past the opt-in), so they run the large
+    design."""
+    tiles8 = 1 if b <= 8 else 2
+    fits = kern.small_smem_bytes(tiles8, 19200, 75) <= kern.MAX_SMEM
+    assert fits == (b <= 8)
+    assert kern.gqmm_design(b, 7168, 19200, 256)[0] == ("small" if b <= 8 else "large")
+
+
 @pytest.mark.parametrize("gs", GROUP_SIZES)
 @pytest.mark.parametrize("fmt", INT_FORMATS)
 def test_k_step_group_sums_equal_the_reference(fmt, gs):

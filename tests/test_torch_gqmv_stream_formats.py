@@ -254,3 +254,24 @@ def test_a_64_byte_int4_chunk_unpacks_like_unpack_int4():
     want = quant.unpack_int4(torch.from_numpy(raw)).numpy()
     assert want.shape == (500, 128)
     np.testing.assert_array_equal(unpack_int4_chunks(raw), want)
+
+
+# the families' rows with an odd number of groups at GS 256, cut to a few
+# rows each: gemma2-2b's d 2304 (9 groups) and deepseek-coder-33b's d_ff
+# 19200 (75 groups); the TinyLlama rows above have 8 and 22
+ODD_ROWS = (("gemma2_d2304", 24, 2304), ("deepseek_w2_19200", 8, 19200))
+
+
+@pytest.mark.parametrize("name,m,n", ODD_ROWS, ids=[r[0] for r in ODD_ROWS])
+@pytest.mark.parametrize("fmt", ("int4", "fp8", "int8"))
+def test_stream_partition_at_odd_group_counts(fmt, name, m, n):
+    gs = 256
+    assert gqmv.gqmv_design(n, fmt) == "stream" and (n // gs) % 2 == 1
+    wp, ws, xq, xs = _inputs(fmt, m, n, gs, seed=n + m)
+    if fmt == "int4":
+        got, count = int4_stream_emulation(wp, ws, xq, xs, gs)
+    else:
+        got, count = block_stream_emulation(fmt, wp, ws, xq, xs, gs)
+    assert (count == 1).all()
+    want = _reference(fmt, wp, ws, xq, xs, gs)
+    np.testing.assert_allclose(got, want, **TOL[fmt](want))

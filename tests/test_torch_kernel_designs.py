@@ -262,6 +262,53 @@ def test_paged_smem_bytes_mirror_the_layout(g, hd, bs, elt, quant):
     assert row % 16 == 0 and sum(regions[:2]) % 16 == 0    # 16-byte copies stay aligned
 
 
+# the families' paged shapes (KV, G, hd): deepseek-coder-33b's 8 / 7,
+# internlm2-1.8b's 8 / 2 and pixtral-12b's 8 / 4 at hd 128, gemma2-2b's 4 / 2
+# at hd 256
+FAMILY_PAGED = [(8, 7, 128), (8, 2, 128), (8, 4, 128), (4, 2, 256)]
+
+
+@pytest.mark.parametrize("kv,g,hd", FAMILY_PAGED)
+def test_paged_plan_and_smem_at_the_families_shapes(kv, g, hd):
+    """Every pool type (bf16, f32, int8/fp8 bytes) at blocks of 8 and 16 fits
+    the shared memory, G * hd fits the CTA's outputs, and the split plan
+    covers every tile once at b 1-32 over 256-4608-token tables."""
+    assert hd in paged_kern.HEAD_DIMS and g * hd <= paged_kern.MAX_OUT * paged_kern.THREADS
+    for (elt, quant), bs in itertools.product(((2, False), (4, False), (1, True)), (8, 16)):
+        assert paged_kern.smem_bytes(g, hd, bs, elt, quant) <= paged_kern.MAX_SMEM
+        cols = paged_kern.tile_cols(hd, elt)
+        for b, t in itertools.product((1, 3, 8, 32), (256, 2048, 4608)):
+            mb = t // bs
+            nsplit, tps = paged_kern.split_plan(b, kv, mb, bs, cols)
+            ntiles = -(-mb // paged_kern.tile_blocks(bs, cols))
+            assert (nsplit - 1) * tps < ntiles <= nsplit * tps
+
+
+@pytest.mark.parametrize("pool", ["float", "int8"])
+@pytest.mark.parametrize("g,hd,window,softcap", [(7, 128, None, None), (2, 256, 40, 50.0)],
+                         ids=["deepseek_g7_hd128", "gemma2_hd256_window_cap"])
+def test_split_k_paged_emulation_at_the_families_heads(pool, g, hd, window, softcap):
+    """The split kernel's two passes at deepseek-coder's G 7 (hd 128) and at
+    gemma2's hd 256 with a window mask (positions past it, so whole tiles
+    are masked and skipped) and soft cap, against the reference's oracle
+    and its Pallas kernel interpreted."""
+    a = _inputs(pool, seed=g * hd, b=3, kv=2, g=g, hd=hd, bs=8, mb=24,
+                positions=[191, 120, 57])
+    if window is not None:
+        cols = np.arange(a["mask"].shape[1])[None, :]
+        pos = a["pos"][:, None]
+        a["mask"] = np.where((cols <= pos) & (pos - cols < window), 0.0, -1e30
+                             ).astype(np.float32)
+    kw = dict(scale=hd ** -0.5, softcap=softcap)
+    got, plan = _call(_split_paged, a, _torch, splits=3, **kw)
+    assert plan == (3, 1)
+    oracle = np.asarray(_call(jref.paged_attention_ref, a, jnp.asarray, **kw))
+    pallas = np.asarray(_call(paged_attention_pallas, a, jnp.asarray, interpret=True, **kw))
+    tol = 1e-5 * np.abs(oracle).max()
+    np.testing.assert_allclose(got.numpy(), oracle, rtol=1e-5, atol=tol)
+    np.testing.assert_allclose(got.numpy(), pallas, rtol=1e-5, atol=tol)
+
+
 # ---------------------------------------------------------------------------
 # flash attention on the tensor cores: bf16 P
 # ---------------------------------------------------------------------------
