@@ -172,38 +172,56 @@ printing no result, when CUDA is missing. Phases, each fatal on failure:
              throughout in ceil(15/4) = 4 steps (16 golden tokens); spec
              top-p at p = 1e-6 equal to greedy spec.
 
-8. families: the dense GQA families beside TinyLlama at full width, bf16 and
-             int8 weights from the port's init_lm (FAMILIES: internlm2-1.8b
-             and gemma2-2b at every layer, pixtral-12b at 10 of 40,
-             deepseek-coder-33b at 4 of 62; the bf16 draw and its int8 copy
-             must fit the card). First their kernels at each family's
-             shapes: the int8 GQMM at b in {1, 4, 16, 256} and the streamed
-             int8 GQMV at every projection (timed, each beside its bound from
-             kernels/bounds.py and its plain version's time); every format's
-             GQMM (both designs at b 8-17) and streamed GQMV at rows of 9 and
-             75 groups (gemma2's d 2304, deepseek's d_ff 19200), checked;
-             flash attention (bf16) at each family's heads over 1 x 2048
-             tokens, gemma2's over 1 x 4608 with its 4096-token window and
-             cap 50; paged attention at each family's (KV, G, hd), bf16 and
-             int8 pools, gemma2's over 4608-token tables with the window and
-             cap, positions past the window; phase 2's tolerances. Then
-             each family: generate (batch 4, prompt 64, 32 tokens) replayed
+8. families: the families beside TinyLlama at full width, bf16 and int8
+             weights from the port's init_lm (FAMILIES: internlm2-1.8b,
+             gemma2-2b and minicpm3-4b at every layer, pixtral-12b at 10 of
+             40, deepseek-coder-33b at 4 of 62 and dbrx-132b at 4 of 40 (the
+             bf16 draw and its int8 copy must fit the card), deepseek-v2-lite-16b
+             at 4 of 27 (phase 8's 300 s budget); each cut printed with its
+             reason). First their kernels at each family's shapes: the int8
+             GQMM at b in {1, 4, 16, 256} and the int8 GQMV at every
+             projection (the MoE experts' and shared expert's, MLA's wq /
+             wdq / wuq / wdkv / wukv, each at its own GS: deepseek-v2-lite's
+             128), timed, each beside its bound from kernels/bounds.py and
+             its plain version's time; at the MoE and MLA families'
+             projections (m 288, 1 to 42 groups, odd counts) int4, int3 and
+             fp8 too, checked; every format's GQMM (both designs at b 8-17)
+             and streamed GQMV at rows of 9 and 75 groups (gemma2's d 2304,
+             deepseek's d_ff 19200), checked; flash attention (bf16) at each
+             GQA family's heads over 1 x 2048 tokens (dbrx's G 6 included),
+             gemma2's over 1 x 4608 with its 4096-token window and cap 50;
+             paged attention at each GQA family's (KV, G, hd), bf16 and int8
+             pools, gemma2's over 4608-token tables with the window and cap,
+             positions past the window; phase 2's tolerances. Then each
+             family: generate (batch 4, prompt 64, 32 tokens) replayed
              (counts zeroed just before, read just after) against an eager
-             prefill + decode_step loop (tokens and launches equal), its
-             decode step wall and on the card, kernels a step, projection
-             bytes a step against the HBM bound, first-step logits against
-             the plain versions within 5e-2 * max|logit|; for internlm2 and
-             gemma2 the ragged paged serve over the first 8 requests of
-             phase 5's trace (replayed == eager, the paged kernel once a
-             layer a decode step) and speculative generate (k 4, oracle
-             drafter, contiguous and paged: vanilla decode's tokens, every
-             draft accepted); gemma2's 1 x 4608 prompt and 16 decode steps
-             (contiguous and paged) and the prefill under blockwise_attention,
-             each step's logits against the plain versions'; pixtral's
-             prefill of a 320-token prompt whose first 256 positions are
-             patch embeddings, against the plain versions. Last, the
-             internlm2 and gemma2 goldens (golden_<arch>.json: 2 layers,
-             f32, f32 and int8 weights), held to TinyLlama's 2-layer rule.
+             prefill + decode_step loop (tokens and launches equal; the GQMM
+             count from the config: a MoE layer 2 per expert and 2 for the
+             shared one, an MLA layer 3 or 4 in decode, wukv dequantized, and
+             one more in prefill), its decode step wall and on the card,
+             kernels a step, the decode graph's nodes, captures (seconds,
+             pool bytes), projection bytes a step against the HBM bound,
+             first-step logits against the plain versions within 5e-2 *
+             max|logit|, or for a MoE family whose router choices flipped
+             between the two runs, the flips printed with their margins and
+             every projection held to its plain version on the same input;
+             for internlm2, gemma2 and dbrx the ragged paged serve over the
+             first 8 requests of phase 5's trace (replayed == eager, the
+             paged kernel once a layer a decode step), dbrx's also in
+             continuous (replayed == eager) and bucketed mode and on int8
+             and fp8 pools, and speculative generate (k 4, oracle drafter,
+             contiguous and paged: vanilla decode's tokens, every draft
+             accepted); the MLA families the continuous (replayed == eager)
+             and bucketed serve and the reference's refusals (paged
+             generate, spec_k, kv_quant, the paged mode and pool);
+             gemma2's 1 x 4608 prompt and 16 decode steps (contiguous and
+             paged) and the prefill under blockwise_attention, each step's
+             logits against the plain versions'; pixtral's prefill of a
+             320-token prompt whose first 256 positions are patch
+             embeddings, against the plain versions. Last, the internlm2,
+             gemma2, minicpm3 and deepseek-v2-lite goldens
+             (golden_<arch>.json: 2 layers, f32, f32 and int8 weights), held
+             to TinyLlama's 2-layer rule.
 
 A [graphs] line sums up eager against replayed: int8 decode ms/step wall
 and on the card with the busy share, the 4 x 64 prefill, the ragged tok/s,
@@ -257,15 +275,18 @@ from repro_torch.kernels.ref import (  # noqa: E402
     paged_attention_ref,
     rmsnorm_quant_ref,
 )
+from repro_torch.models import mlp as mlpmod  # noqa: E402
 from repro_torch.models.common import NEG_INF, decode_mask, rmsnorm  # noqa: E402
 from repro_torch.models.registry import build, load_config  # noqa: E402
 from repro_torch.models.transformer import _layer_windows, contiguous_to_paged  # noqa: E402
+from repro_torch.models.transformer import lm_init_paged_cache as init_paged_cache  # noqa: E402
 from repro_torch.serving.batching import (  # noqa: E402
     Request,
     bucket_length,
     pad_bucket,
     serve_ragged,
     slot_scheduler,
+    valid_modes,
 )
 from repro_torch.serving import graphs  # noqa: E402
 from repro_torch.serving.engine import InferenceEngine  # noqa: E402
@@ -380,7 +401,8 @@ GOLDEN_DEEP = {"num_layers": 22, "settings": ["float32", "int8"]}
 # the families' goldens (golden_<arch>.json, tests/make_torch_golden.py
 # --arch): full width, 2 layers, f32 compute, weights from
 # init_params_numpy; the reference's greedy tokens with f32 and int8 weights
-FAMILY_GOLDEN = {"archs": ["internlm2-1.8b", "gemma2-2b"], "num_layers": 2, "dtype": "float32",
+FAMILY_GOLDEN = {"archs": ["internlm2-1.8b", "gemma2-2b", "minicpm3-4b", "deepseek-v2-lite-16b"],
+                 "num_layers": 2, "dtype": "float32",
                  "settings": ["float32", "int8"], "seed": 0, "prompt_seed": 1, "batch": 2,
                  "prompt_len": 16, "max_new_tokens": 16}
 DEEP_CARD_TIES = {"int8": [(11, 0)]}      # (decode step, batch row)
@@ -417,15 +439,38 @@ RAGGED_REPLAYED = (("paged_float", None, "paged"), ("paged_int8", "int8", "paged
                    ("bucketed", None, "bucketed"))
 RAGGED = {"requests": 16, "prompt_lens": (16, 192), "budgets": (8, 64), "seed": 0,
           "slots": 8, "chunk": 4, "block_size": 8}
-# phase 8: the dense GQA families beside TinyLlama at full width, bf16 and
-# int8 weights from the port's init_lm; the depth each runs (None: every
-# layer). pixtral-12b (~273 M parameters a layer, 1.34 G of embedding and
+# phase 8: the families beside TinyLlama at full width, bf16 and int8
+# weights from the port's init_lm; the depth each runs (None: every layer).
+# pixtral-12b (~273 M parameters a layer, 1.34 G of embedding and
 # classifier) and deepseek-coder-33b (~530 M a layer: 62 layers of bf16
-# draw and int8 copy would not fit in 80 GB) are cut
+# draw and int8 copy would not fit in 80 GB) are cut, and dbrx-132b (~3.3 G
+# a layer: 6.5 GB of bf16 draw and 3.3 GB of int8 copy); deepseek-v2-lite
+# for time (FAMILY_CUT_REASONS)
 FAMILIES = {"internlm2-1.8b": None, "gemma2-2b": None, "pixtral-12b": 10,
-            "deepseek-coder-33b": 4}
-FAMILY_FULL = ("internlm2-1.8b", "gemma2-2b")      # + ragged serve and speculative
+            "deepseek-coder-33b": 4, "minicpm3-4b": None, "deepseek-v2-lite-16b": 4,
+            "dbrx-132b": 4}
+FAMILY_CUT_REASONS = {
+    "pixtral-12b": "memory", "deepseek-coder-33b": "memory", "dbrx-132b": "memory",
+    "deepseek-v2-lite-16b": "phase 8's 300 s budget: every one of a layer's 64 experts "
+                            "runs each step, two GQMMs and their glue, and the eager "
+                            "comparison runs launch each of those kernels from the host"}
+# + the ragged serve and speculative generate on both caches; the MLA
+# families (no paged pool, no verify) run the continuous and bucketed serve
+# and their refusals instead
+FAMILY_FULL = ("internlm2-1.8b", "gemma2-2b", "dbrx-132b", "minicpm3-4b",
+               "deepseek-v2-lite-16b")
+# the MoE and MLA families' projections: phase 2's check in every format;
+# their int8 GQMM timed at decode's and prefill's b only (checked at all)
+FAMILY_ALL_FORMATS = ("minicpm3-4b", "deepseek-v2-lite-16b", "dbrx-132b")
+FAMILY_TIMED_BATCHES = {arch: (4, 256) for arch in FAMILY_ALL_FORMATS}
 FAMILY_RAGGED = 8               # the first requests of phase 5's trace
+# the serve_ragged modes a family runs (the family's every mode where not
+# named), those held to an eager pass (bucketed mode replays generate
+# programs, held to eager by family_generate), and the quantized KV pools
+# of its paged mode
+FAMILY_RAGGED_MODES = {"internlm2-1.8b": ("paged",), "gemma2-2b": ("paged",)}
+FAMILY_EAGER_MODES = ("paged", "continuous")
+FAMILY_KV_POOLS = {"dbrx-132b": ("int8", "fp8")}
 # gemma2's long prompt: past its 4096-token window, so the local layers
 # mask keys, then decode steps on the contiguous and the paged cache
 FAMILY_LONG = {"arch": "gemma2-2b", "prompt_len": 4608, "steps": 16}
@@ -440,11 +485,13 @@ ODD_GROUPS = {"m": 512, "widths": (2304, 19200), "batches": (1, 4, 8, 9, 16, 17,
 FAMILY_FLASH = (("internlm2 1x2048", 1, 16, 8, 2048, 128, None, None),
                 ("deepseek 1x2048", 1, 56, 8, 2048, 128, None, None),
                 ("pixtral 1x2048", 1, 32, 8, 2048, 128, None, None),
-                ("gemma2 1x4608 w4096 cap50", 1, 8, 4, 4608, 256, 4096, 50.0))
+                ("gemma2 1x4608 w4096 cap50", 1, 8, 4, 4608, 256, 4096, 50.0),
+                ("dbrx 1x2048", 1, 48, 8, 2048, 128, None, None))
 FAMILY_PAGED = (("internlm2", 8, 2, 128, 2048, None, None),
                 ("deepseek", 8, 7, 128, 2048, None, None),
                 ("pixtral", 8, 4, 128, 2048, None, None),
-                ("gemma2 w4096 cap50", 4, 2, 256, 4608, 4096, 50.0))
+                ("gemma2 w4096 cap50", 4, 2, 256, 4608, 4096, 50.0),
+                ("dbrx", 8, 6, 128, 2048, None, None))
 FAMILY_PAGED_B = 8
 SOURCES = {**{f"{k}_{f}": "src/repro_torch/csrc/gqmm.cu" for f in WEIGHT_FORMATS
               for k in ("gqmv", "gqmm")},
@@ -543,6 +590,10 @@ def call_bytes(wq, ws, xq, xs, out_numel: int) -> int:
 SPIN_CYCLES_PER_MS = 2.0e6   # >= the H100's top SM clock: a spin of x ms lasts >= x ms
 
 
+class HostBound(RuntimeError):
+    """The host's enqueue outlasted every GPU spin (``device_time_ms``)."""
+
+
 def device_time_ms(fn, iters: int, host_ms_guess: float = 0.1) -> tuple[float, float]:
     """(mean device ms, mean host enqueue ms) of fn(0), ..., fn(iters-1) run
     back to back. A GPU spin queued first keeps the card busy while the host
@@ -566,7 +617,7 @@ def device_time_ms(fn, iters: int, host_ms_guess: float = 0.1) -> tuple[float, f
         if host_ms < 0.8 * spin_ms:
             return start.elapsed_time(end) / iters, host_ms / iters
         spin_ms = 2.0 * host_ms
-    raise RuntimeError("the host's enqueue outlasted every GPU spin; no device time read")
+    raise HostBound("the host's enqueue outlasted every GPU spin; no device time read")
 
 
 def profile_device(fn, reps: int) -> dict:
@@ -1243,59 +1294,85 @@ def phase_paged_hd256(dev) -> list[dict]:
 # phase 2 at the families' shapes
 # ---------------------------------------------------------------------------
 
-def family_projections() -> list[tuple[str, int, int]]:
-    """(name, m, n) of every quantized projection of each family config,
-    the classifier (vocab_padded rows; gemma2's is its tied embedding)
-    included."""
+def family_projections() -> list[tuple[str, int, int, int]]:
+    """(name, m, n, GS) of every quantized weight matrix of each family
+    config (``bounds.layer_projections``: GQA's or MLA's attention, the
+    dense FFN or one expert's and the shared expert's), at the weight
+    policy's group size for its n, the classifier (vocab_padded rows;
+    gemma2's is its tied embedding) included."""
     out = []
     for arch in FAMILIES:
         cfg = load_config(arch)
-        hd = cfg.resolved_head_dim
-        out += [(f"{arch} wqkv", (cfg.num_heads + 2 * cfg.num_kv_heads) * hd, cfg.d_model),
-                (f"{arch} wo", cfg.d_model, cfg.num_heads * hd),
-                (f"{arch} w13", 2 * cfg.d_ff, cfg.d_model),
-                (f"{arch} w2", cfg.d_model, cfg.d_ff),
-                (f"{arch} classifier", cfg.vocab_padded, cfg.d_model)]
+        for name, m, n, _ in bounds.layer_projections(cfg):
+            out.append((f"{arch} {name}", m, n, bounds.group_size(cfg, n)))
+        out.append((f"{arch} classifier", cfg.vocab_padded, cfg.d_model,
+                    bounds.group_size(cfg, cfg.d_model)))
     return out
 
 
 def phase_family_kernels(dev) -> list[dict]:
-    """The int8 GQMM (b in FAMILY_KERNEL_BATCHES) and the streamed int8 GQMV
-    at every projection of the families, against their plain versions,
-    timed as phase 2's TinyLlama rows are, each beside its bound from
-    kernels/bounds.py; then every format's GQMM (both designs at b 8-17) and
-    streamed GQMV at rows of 9 and 75 groups, checked only."""
+    """The int8 GQMM (b in FAMILY_KERNEL_BATCHES) and the int8 GQMV at every
+    projection of the families, against their plain versions, timed as
+    phase 2's TinyLlama rows are, each beside its bound from
+    kernels/bounds.py; the MoE and MLA families' projections (m 288, 1 to
+    42 groups, GS 128) in int4, int3 and fp8 too, checked only; then every
+    format's GQMM (both designs at b 8-17) and streamed GQMV at rows of 9
+    and 75 groups, checked only."""
     gen = torch.Generator(device=dev).manual_seed(12)
     gs = 256
     rows = []
-    for name, m, n in family_projections():
-        wq, ws = _rand_weights(gen, "int8", m, n, gs, dev)
+    checked = 0
+    for name, m, n, pgs in family_projections():
+        if name.split()[0] in FAMILY_ALL_FORMATS:
+            for fmt in WEIGHT_FORMATS[1:]:
+                wq, ws = _rand_weights(gen, fmt, m, n, pgs, dev)
+                for kind, b in [("gqmm", bb) for bb in FAMILY_KERNEL_BATCHES] + [("gqmv", 1)]:
+                    kfn, pfn = _kernel_fns(kind, fmt)
+                    xq, xs = _rand_q(gen, (b, n) if kind == "gqmm" else (n,), pgs, dev)
+                    err = check_close(f"{kind}_{fmt} {name} b={b}",
+                                      kfn(wq, ws, xq, xs, group_size=pgs),
+                                      pfn(wq, ws, xq, xs, group_size=pgs), fmt)
+                    rows.append({"kernel": f"{kind}_{fmt}", "shape": name, "m": m, "n": n,
+                                 "b": b, "gs": pgs, "groups": n // pgs, "max_abs_err": err,
+                                 "design": ("%s/%d" % kern.gqmm_design(b, m, n, pgs, fmt)
+                                            if kind == "gqmm" else
+                                            kern.gqmv_design(n, fmt, wq.data_ptr() % 16 == 0))})
+                    checked += 1
+                del wq, ws
+        wq, ws = _rand_weights(gen, "int8", m, n, pgs, dev)
         copies = max(1, math.ceil(160e6 / (wq.numel() + 4 * ws.numel())))
         pool = [(wq, ws)] + [(wq.clone(), ws.clone()) for _ in range(copies - 1)]
         for kind, b in [("gqmm", bb) for bb in FAMILY_KERNEL_BATCHES] + [("gqmv", 1)]:
             kfn, pfn = _kernel_fns(kind, "int8")
-            xq, xs = _rand_q(gen, (b, n) if kind == "gqmm" else (n,), gs, dev)
-            got = kfn(wq, ws, xq, xs, group_size=gs)
+            xq, xs = _rand_q(gen, (b, n) if kind == "gqmm" else (n,), pgs, dev)
+            got = kfn(wq, ws, xq, xs, group_size=pgs)
             err = check_close(f"{kind}_int8 {name} b={b}", got,
-                              pfn(wq, ws, xq, xs, group_size=gs))
-            k_ms, _ = device_time_ms(lambda i: kfn(*pool[i % copies], xq, xs, group_size=gs),
+                              pfn(wq, ws, xq, xs, group_size=pgs))
+            if kind == "gqmm" and b not in FAMILY_TIMED_BATCHES.get(name.split()[0], (b,)):
+                rows.append({"kernel": "gqmm_int8", "shape": name, "m": m, "n": n, "b": b,
+                             "gs": pgs, "groups": n // pgs, "max_abs_err": err,
+                             "design": "%s/%d" % kern.gqmm_design(b, m, n, pgs)})
+                continue
+            k_ms, _ = device_time_ms(lambda i: kfn(*pool[i % copies], xq, xs, group_size=pgs),
                                      max(50, 2 * copies))
-            p_ms, _ = device_time_ms(lambda i: pfn(*pool[i % copies], xq, xs, group_size=gs), 3,
+            p_ms, _ = device_time_ms(lambda i: pfn(*pool[i % copies], xq, xs, group_size=pgs), 3,
                                      host_ms_guess=2.0)
-            bnd = bounds.projection("int8", m, n, b, gs)
-            row = {"kernel": f"{kind}_int8", "shape": name, "m": m, "n": n, "b": b,
-                   "groups": n // gs, "max_abs_err": err, "us": 1e3 * k_ms,
+            bnd = bounds.projection("int8", m, n, b, pgs)
+            row = {"kernel": f"{kind}_int8", "shape": name, "m": m, "n": n, "b": b, "gs": pgs,
+                   "groups": n // pgs, "max_abs_err": err, "us": 1e3 * k_ms,
                    "plain_us": 1e3 * p_ms, "bound_us": 1e6 * bnd.seconds,
                    "bound_by": bnd.bound_by,
-                   "design": ("%s/%d" % kern.gqmm_design(b, m, n, gs) if kind == "gqmm"
+                   "design": ("%s/%d" % kern.gqmm_design(b, m, n, pgs) if kind == "gqmm"
                               else kern.gqmv_design(n, "int8", True))}
             rows.append(row)
             log(f"[families kernels] {kind}_int8 {name:30s} m={m:6d} n={n:5d} b={b:3d} "
-                f"({n // gs} groups)  max|err| {err:.2e}  {row['us']:9.1f} us  plain "
+                f"({n // pgs} groups of {pgs})  max|err| {err:.2e}  {row['us']:9.1f} us  plain "
                 f"{row['plain_us']:9.1f} us  bound {row['bound_us']:7.1f} us ({bnd.bound_by}, "
                 f"{100 * row['bound_us'] / row['us']:.1f} % of it)  design {row['design']} "
                 f"[{CARD['smi']}]")
         del pool
+    log(f"[families kernels] int4, int3 and fp8 at the projections of {FAMILY_ALL_FORMATS}: "
+        f"{checked} cases (GQMM at b {FAMILY_KERNEL_BATCHES}, GQMV) within phase 2's tolerances")
     # odd group counts: every format, both GQMM designs where b allows, and
     # the streamed GQMV
     checked = 0
@@ -1482,13 +1559,22 @@ def step_timing(projs, b: int, dev, rows) -> dict:
             "bound_by": by}
 
 
-def launches_per_pass(cfg, quantize) -> dict[str, int]:
+def launches_per_pass(cfg, quantize, path: str = "decode") -> dict[str, int]:
     """GQMM launches of one forward pass by kernel, from the weight policy:
-    wqkv and wo take the attn class's format, w13 and w2 the ffn class's,
-    the classifier its own (TinyLlama's GS 256 packs every format)."""
+    the attention projections take the attn class's format, the FFN's the
+    ffn class's, the classifier its own (every GS here packs every format).
+    A layer's attention runs wqkv and wo, or MLA's query projection(s),
+    wdkv and wo, and in a prefill (``path``) also wukv, which decode
+    dequantizes instead; its FFN w13 and w2, or with a MoE both for every
+    expert and the shared expert."""
     fmap = resolve_format_map(cfg.quant_format if quantize is True else quantize)
+    attn, ffn = 2, 2
+    if cfg.mla:
+        attn = (4 if cfg.mla.q_lora_rank else 3) + (path == "prefill")
+    if cfg.moe:
+        ffn = 2 * cfg.moe.num_experts + 2 * bool(cfg.moe.num_shared)
     out: dict[str, int] = {}
-    for cls, count in (("attn", 2 * cfg.num_layers), ("ffn", 2 * cfg.num_layers),
+    for cls, count in (("attn", attn * cfg.num_layers), ("ffn", ffn * cfg.num_layers),
                        ("classifier", 1)):
         k = f"gqmm_{fmap[cls]}"
         out[k] = out.get(k, 0) + count
@@ -2792,7 +2878,8 @@ def family_generate(dev, engine, tag: str) -> dict:
     t_gen = time.perf_counter() - t0
     launches = _launches()
     per_pass = launches_per_pass(cfg, True)
-    want = {k: v * (1 + new) for k, v in per_pass.items()}
+    pre_pass = launches_per_pass(cfg, True, "prefill")
+    want = {k: pre_pass[k] + v * new for k, v in per_pass.items()}
     if launches != want:
         raise AssertionError(f"{tag}: generate launched {launches}, expected {want}")
     toks = res.tokens
@@ -2813,18 +2900,30 @@ def family_generate(dev, engine, tag: str) -> dict:
     pre_prog.replay()
     torch.cuda.synchronize()
     t_pre = time.perf_counter() - t0
-    dec_dev, _ = device_time_ms(lambda i: (dec_prog.load(pos=p) if i == 0 else None,
-                                           dec_prog.replay()), 8, host_ms_guess=0.2)
+    try:
+        dec_dev, _ = device_time_ms(lambda i: (dec_prog.load(pos=p) if i == 0 else None,
+                                               dec_prog.replay()), 8, host_ms_guess=0.2)
+        timing = "spin"
+    except HostBound:
+        # a graph of tens of thousands of kernels fills the launch queue
+        # behind the spin; its own launch is short beside its run, so
+        # back-to-back replays keep the card busy between the events
+        dec_dev, timing = replay_events_ms(dec_prog, lambda: dec_prog.load(pos=p), 8), "events"
     prof = profile_device(lambda: (dec_prog.load(pos=p), dec_prog.replay()), 3)
     wall_ms = 1e3 * (t_gen - t_pre) / new
     with torch.inference_mode():
         logits_k, _ = engine.prefill(batch)
         with ops.impl_scope("plain"):
             logits_p, _ = engine.prefill(batch)
-    err = _check_logits(f"{tag} first step", logits_k, logits_p)
+    err, flips = _check_family_logits(tag, engine, batch, logits_k, logits_p)
     wbound = bounds.projection_pass(cfg, "int8", b)
+    census = graphs.census(dec_prog)
+    gstats = engine.graphs.stats()
     out = {"tokens": toks.tolist(), "launches": launches, "per_pass": per_pass,
-           "decode_ms_wall": wall_ms, "decode_ms_device": dec_dev,
+           "prefill_pass": pre_pass, "router_flips": flips, "decode_graph": census,
+           "captures": {k: {f: v[f] for f in ("captured", "capture_s", "pool_bytes")}
+                        for k, v in gstats.items()},
+           "decode_ms_wall": wall_ms, "decode_ms_device": dec_dev, "device_timing": timing,
            "busy_share": dec_dev / wall_ms, "eager_decode_ms": 1e3 * t_eager / new,
            "kernels_per_step": prof["kernels"], "gqmm_ms_per_step": prof["gqmm_ms"],
            "weight_bytes_per_step": wbound.nbytes,
@@ -2833,43 +2932,152 @@ def family_generate(dev, engine, tag: str) -> dict:
                logits_k.argmax(-1) == logits_p.argmax(-1)).float().mean().item()}
     log(f"[families {tag}] generate b={b}, prompt {p}, {new} tokens: replayed == eager "
         f"(tokens and launches {launches}); decode {wall_ms:.3f} ms/step wall, {dec_dev:.3f} on "
-        f"the card ({100 * out['busy_share']:.1f} % busy; eager {out['eager_decode_ms']:.2f} "
+        f"the card ({timing}; {100 * out['busy_share']:.1f} % busy; eager "
+        f"{out['eager_decode_ms']:.2f} "
         f"ms/step), {prof['kernels']} kernels a step, GQMM {prof['gqmm_ms']:.3f} ms; "
         f"projection bytes a step {wbound.nbytes / 1e9:.3f} GB -> HBM bound "
         f"{out['bytes_bound_ms']:.3f} ms; first-step logits kernel vs plain {err:.3e} "
-        f"(tol {LOGIT_TOL}) [{CARD['smi']}]")
+        f"(tol {LOGIT_TOL}); decode graph {census['nodes']} nodes ({census['kernel_nodes']} "
+        f"kernels); captures " + ", ".join(
+            f"{k} {v['capture_s']:.2f} s, {v['pool_bytes'] / 2**20:.0f} MiB pool"
+            for k, v in sorted(out["captures"].items())) + f" [{CARD['smi']}]")
     out["batch"] = batch
     return out
 
 
+def replay_events_ms(prog, reset, reps: int) -> float:
+    """Device ms a replay of ``prog``, from CUDA events around ``reps``
+    back-to-back replays (``reset()`` first: the step advances its own
+    position), after one replay to warm."""
+    reset()
+    prog.replay()
+    torch.cuda.synchronize()
+    reset()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        prog.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def router_flips(engine, batch) -> list[dict]:
+    """The MoE router choices that differ between the kernels' prefill and
+    the plain versions' (every layer, row and position whose top-k expert
+    set differs), each with the plain run's gap between its k-th and
+    (k+1)-th probability relative to the k-th, in layer order."""
+    k = engine.cfg.moe.top_k
+    runs = []
+    orig = mlpmod.moe_forward
+
+    def rec(p, x, cfg, **kw):
+        runs[-1].append(torch.softmax(mlpmod._router_logits(x, p["router_w"]), -1).float())
+        return orig(p, x, cfg, **kw)
+
+    mlpmod.moe_forward = rec
+    try:
+        with torch.inference_mode():
+            for impl in ("auto", "plain"):
+                runs.append([])
+                with ops.impl_scope(impl):
+                    engine.prefill(batch)
+    finally:
+        mlpmod.moe_forward = orig
+    out = []
+    for layer, (pk, pp) in enumerate(zip(*runs)):
+        ik = torch.topk(pk, k, dim=-1).indices.sort(-1).values
+        ip = torch.topk(pp, k, dim=-1).indices.sort(-1).values
+        top = torch.topk(pp, k + 1, dim=-1).values
+        for row, pos in torch.nonzero((ik != ip).any(-1)).tolist():
+            gap = (top[row, pos, k - 1] - top[row, pos, k]) / top[row, pos, k - 1]
+            out.append({"layer": layer, "row": row, "pos": pos, "margin": gap.item()})
+    return out
+
+
+def _check_family_logits(tag: str, engine, batch, got, want) -> tuple[float, list[dict]]:
+    """First-step logits, kernels against plain, within LOGIT_TOL; or, for a
+    MoE family, where a router choice flipped between the two runs: the
+    flips traced and printed with their margins (a flip moves a token's
+    FFN output by a whole expert), and every projection of the kernel
+    prefill held to its plain version on the same input instead."""
+    err = _rel_err(got, want)
+    if err <= LOGIT_TOL and bool(torch.isfinite(got).all()):
+        return err, []
+    flips = router_flips(engine, batch) if engine.cfg.moe else []
+    if not flips or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{tag} first step: kernel logits differ from plain by {err:.3e} "
+                             f"(tol {LOGIT_TOL}) and no router choice flipped")
+    prefill_logits(engine, batch, "checked")
+    log(f"[families {tag}] first-step logits kernel vs plain {err:.3e} > {LOGIT_TOL}: "
+        f"{len(flips)} router choices flipped between the two runs (first: layer "
+        f"{flips[0]['layer']} row {flips[0]['row']} position {flips[0]['pos']}, margin "
+        f"{flips[0]['margin']:.2e}; smallest margin {min(f['margin'] for f in flips):.2e}, "
+        f"largest {max(f['margin'] for f in flips):.2e}); every projection within {RTOL} of "
+        f"its plain version on the same input")
+    return err, flips
+
+
 def family_ragged_and_spec(dev, engine, gen_out: dict, tag: str) -> dict:
-    """The first FAMILY_RAGGED requests of phase 5's trace through the paged
-    serve (float pool), replayed against eager (tokens and launches equal;
-    the paged kernel once a layer a decode step); then speculative generate
-    (k 4, the oracle drafter), contiguous and paged, replayed and eager,
-    whose greedy tokens must equal vanilla decode's."""
+    """The first FAMILY_RAGGED requests of phase 5's trace through
+    serve_ragged in each of the family's FAMILY_RAGGED_MODES (the paged one
+    on a float pool), replayed, and in FAMILY_EAGER_MODES against eager
+    (tokens and launches equal; the paged kernel once a layer a decode
+    step), and for dbrx its
+    int8 and fp8 KV pools too (the quantized paged kernel once a layer a
+    decode step); then speculative generate (k 4, the oracle drafter),
+    contiguous and paged, replayed and eager, whose greedy tokens must equal
+    vanilla decode's. An MLA family has no paged pool and no verify: the
+    reference's refusals are checked to raise instead."""
     cfg = engine.cfg
     reqs = ragged_trace(cfg.vocab_size)[:FAMILY_RAGGED]
     cache_len = max(max(bucket_length(len(r.tokens)), len(r.tokens) + r.max_new)
                     for r in reqs) + SPEC["k"]
     reng = InferenceEngine(engine.model, engine.params, cache_len=cache_len, device=dev)
-    _ragged_pass(reng, reqs, "paged")                      # captures
-    out_r, info = _ragged_pass(reng, reqs, "paged")
-    with graphs.eager():
-        out_e, info_e = _ragged_pass(reng, reqs, "paged")
-    same = all(np.array_equal(np.asarray(a.tokens), np.asarray(b.tokens))
-               for a, b in zip(out_r, out_e))
-    la = {k: v for k, v in info["launches"].items() if v}
-    le = {k: v for k, v in info_e["launches"].items() if v}
-    if not same or la != le:
-        raise AssertionError(f"{tag} ragged: the eager pass differs from the replayed one "
-                             f"({le} vs {la})")
-    if la.get("paged_attn") != cfg.num_layers * info["decode_steps"]:
-        raise AssertionError(f"{tag} ragged: paged_attn launched {la.get('paged_attn')}, "
-                             f"expected {cfg.num_layers} x {info['decode_steps']}")
-    log(f"[families {tag}] ragged paged serve, {len(reqs)} requests: {info['tokens']} tokens, "
-        f"{info['tok_s']:.1f} tok/s replayed ({info_e['tok_s']:.1f} eager), replayed == eager "
-        f"(tokens and launches {la}) [{CARD['smi']}]")
+    ragged = {}
+    for mode in FAMILY_RAGGED_MODES.get(tag, valid_modes(engine.model)):
+        _ragged_pass(reng, reqs, mode)                     # captures
+        out_r, info = _ragged_pass(reng, reqs, mode)
+        if mode not in FAMILY_EAGER_MODES:
+            ragged[mode] = {"replayed": info}
+            log(f"[families {tag}] ragged {mode} serve, {len(reqs)} requests: {info['tokens']} "
+                f"tokens, {info['tok_s']:.1f} tok/s replayed, launches "
+                f"{ {k: v for k, v in info['launches'].items() if v} } [{CARD['smi']}]")
+            continue
+        with graphs.eager():
+            out_e, info_e = _ragged_pass(reng, reqs, mode)
+        same = all(np.array_equal(np.asarray(a.tokens), np.asarray(b.tokens))
+                   for a, b in zip(out_r, out_e))
+        la = {k: v for k, v in info["launches"].items() if v}
+        le = {k: v for k, v in info_e["launches"].items() if v}
+        if not same or la != le:
+            raise AssertionError(f"{tag} ragged {mode}: the eager pass differs from the replayed "
+                                 f"one ({le} vs {la})")
+        if mode == "paged" and la.get("paged_attn") != cfg.num_layers * info["decode_steps"]:
+            raise AssertionError(f"{tag} ragged: paged_attn launched {la.get('paged_attn')}, "
+                                 f"expected {cfg.num_layers} x {info['decode_steps']}")
+        ragged[mode] = {"replayed": info, "eager": info_e}
+        log(f"[families {tag}] ragged {mode} serve, {len(reqs)} requests: {info['tokens']} "
+            f"tokens, {info['tok_s']:.1f} tok/s replayed ({info_e['tok_s']:.1f} eager), replayed "
+            f"== eager (tokens and launches {la}) [{CARD['smi']}]")
+    if tag in FAMILY_KV_POOLS:
+        for kvq in FAMILY_KV_POOLS[tag]:
+            qeng = InferenceEngine(engine.model, engine.params, cache_len=cache_len, device=dev,
+                                   kv_quant=kvq)
+            _ragged_pass(qeng, reqs, "paged")              # captures
+            _, info = _ragged_pass(qeng, reqs, "paged")
+            got = info["launches"].get("paged_attn_quant")
+            if got != cfg.num_layers * info["decode_steps"] or info["launches"].get("paged_attn"):
+                raise AssertionError(f"{tag} ragged paged {kvq} pool: paged_attn_quant launched "
+                                     f"{got}, expected {cfg.num_layers} x "
+                                     f"{info['decode_steps']}")
+            ragged[f"paged_{kvq}"] = {"replayed": info}
+            log(f"[families {tag}] ragged paged serve, {kvq} KV pool: {info['tokens']} tokens, "
+                f"{info['tok_s']:.1f} tok/s replayed, launches "
+                f"{ {k: v for k, v in info['launches'].items() if v} } [{CARD['smi']}]")
+            del qeng
+    if not engine.model.supports_spec:
+        return {"ragged": ragged, "refusals": family_refusals(dev, engine, gen_out["batch"])}
     batch, b, new, k = gen_out["batch"], SERVE["batch"], SERVE["max_new_tokens"], SPEC["k"]
     prompts = batch["tokens"].numpy()
     spec = {}
@@ -2891,7 +3099,35 @@ def family_ragged_and_spec(dev, engine, gen_out: dict, tag: str) -> dict:
         log(f"[families {tag}] speculative generate k {k}, oracle drafter, "
             f"{'paged' if paged else 'contiguous'}: tokens == vanilla decode's, "
             f"{st['verify_steps']} verify steps, replayed == eager; launches {launches}")
-    return {"ragged": {"replayed": info, "eager": info_e}, "spec": spec}
+    return {"ragged": ragged, "spec": spec}
+
+
+def family_refusals(dev, engine, batch) -> list[str]:
+    """An MLA family refuses what the reference refuses, with its errors:
+    generate(paged=True), spec_k, kv_quant, serve_ragged(mode="paged") and
+    a paged cache; the model declares no paged or verify hooks."""
+    model, out = engine.model, []
+    calls = {"generate(paged=True)": lambda: engine.generate(batch, 2, paged=True),
+             "generate(spec_k=4)": lambda: engine.generate(batch, 2, spec_k=SPEC["k"]),
+             "InferenceEngine(kv_quant='int8')": lambda: InferenceEngine(
+                 model, engine.params, cache_len=8, device=dev, kv_quant="int8"),
+             "serve_ragged(mode='paged')": lambda: serve_ragged(
+                 engine, ragged_trace(engine.cfg.vocab_size)[:1], 2, mode="paged"),
+             "lm_init_paged_cache": lambda: init_paged_cache(engine.cfg, 4, 8, torch.bfloat16,
+                                                              dev)}
+    for name, call in calls.items():
+        try:
+            call()
+        except ValueError as e:
+            out.append(f"{name}: {e}")
+            continue
+        raise AssertionError(f"{engine.cfg.arch_id}: {name} did not raise")
+    if model.supports_paged or model.supports_spec or any(getattr(model, h) is not None for h in (
+            "init_paged_cache", "decode_paged", "verify", "commit_verify", "verify_paged",
+            "commit_verify_paged")):
+        raise AssertionError(f"{engine.cfg.arch_id}: an MLA model declares a paged or verify hook")
+    log(f"[families {engine.cfg.arch_id}] refusals as in the reference: " + "; ".join(out))
+    return out
 
 
 def family_long(dev, engine) -> dict:
@@ -2980,7 +3216,7 @@ def projections_as(fn):
     """Every quantized projection inside the block runs ``fn(qmm, x, w)``,
     ``qmm`` being ops.quantized_matmul itself (restored on exit)."""
     qmm = ops.quantized_matmul
-    ops.quantized_matmul = lambda x, w, *, impl=None: fn(qmm, x, w)
+    ops.quantized_matmul = lambda x, w, *, impl=None, xq=None: fn(qmm, x, w)
     try:
         yield
     finally:
@@ -3074,7 +3310,8 @@ def phase_families(dev) -> dict:
         del params
         torch.cuda.synchronize()
         cut = ("" if FAMILIES[arch] is None else
-               f"depth cut to {cfg.num_layers} of {load_config(arch).num_layers} layers, ")
+               f"depth cut to {cfg.num_layers} of {load_config(arch).num_layers} layers "
+               f"({FAMILY_CUT_REASONS[arch]}), ")
         log(f"[families {arch}] full width d {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} "
             f"heads of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
             f"{cut}{cfg.num_layers} layers, {cfg.param_dtype}, int8 weights")
@@ -3324,10 +3561,10 @@ def family_runs(fam: dict) -> dict[str, dict[str, int]]:
         if arch == "goldens":
             continue
         runs[f"phase 8 {arch} generate"] = r["launches"]
-        if "ragged" in r:
-            runs[f"phase 8 {arch} ragged paged"] = r["ragged"]["replayed"]["launches"]
-            for mode, sp in r["spec"].items():
-                runs[f"phase 8 {arch} spec generate {mode}"] = sp["launches"]
+        for mode, rr in r.get("ragged", {}).items():
+            runs[f"phase 8 {arch} ragged {mode}"] = rr["replayed"]["launches"]
+        for mode, sp in r.get("spec", {}).items():
+            runs[f"phase 8 {arch} spec generate {mode}"] = sp["launches"]
         for name, counts in r.get("long", {}).get("launches", {}).items():
             runs[f"phase 8 {arch} 1x{FAMILY_LONG['prompt_len']} {name}"] = counts
         if "patches" in r:

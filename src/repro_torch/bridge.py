@@ -24,6 +24,9 @@ from repro_torch.core.quant import QuantizedTensor, get_format
 from repro_torch.device import resolve_device
 
 _QT_KEYS = {"qvalues", "scales", "group_size"}
+# init_params_numpy draws a larger leaf in slices of at most this many
+# values (numpy's f64 draw of a whole leaf would be twice its f32 size)
+_DRAW_CHUNK = 1 << 24
 # ml_dtypes types -> (the numpy type of their bit pattern, the torch type)
 _BIT_CAST = {"bfloat16": (np.int16, torch.bfloat16),
              "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
@@ -59,23 +62,41 @@ def params_from_numpy(tree, device="cuda"):
 
 
 def init_params_numpy(cfg: ModelConfig, seed: int, *, norm_scale: float = 0.0) -> dict:
-    """Random f32 weights in the reference ``init_lm`` layout (dense GQA
-    decoder): N(0, 1/in) projections, N(0, 0.02^2) embeddings, and the
-    reference's norms: ones, or for gemma2 (``plus_one`` norms, which
-    store w - 1) zeros, with its ``post_att_norm``/``post_ffn_norm``.
-    Stacked layer leaves are (L, out, in); a tied config has no
-    ``classifier``. The draws are f32 whatever ``cfg.param_dtype`` says;
-    the golden run uses an f32 config.
+    """Random f32 weights in the reference ``init_lm`` layout: N(0, 1/in)
+    projections, N(0, 0.02^2) embeddings, and the reference's norms: ones,
+    or for gemma2 (``plus_one`` norms, which store w - 1) zeros, with its
+    ``post_att_norm``/``post_ffn_norm``. Stacked layer leaves are (L, out,
+    in); a tied config has no ``classifier``. The draws are f32 whatever
+    ``cfg.param_dtype`` says; the golden run uses an f32 config.
+
+    An MLA config draws its attention leaves (``wdkv``, ``wukv``, ``wo``,
+    then ``wq`` or ``wdq``/``wuq``; ``kv_norm``/``q_norm`` ones) where a GQA
+    config draws ``wqkv``/``wo``; a MoE config its ``router_w`` (L, E, d),
+    the experts' ``w13``/``w2`` (L, E, out, in) and its ``shared`` SwiGLU
+    where a dense one draws ``w13``/``w2``. So the dense GQA configs' draws
+    are those they always were. A large leaf is drawn a slice at a time
+    (``_DRAW_CHUNK``), the same numbers as one draw (numpy's stream is
+    sequential).
 
     ``norm_scale`` > 0 adds N(0, norm_scale^2) to every norm weight, drawn
-    after all other leaves (so the other leaves do not change), for tests
-    that must see the norm weights act (gemma2's + 1 included)."""
+    after all other leaves (so the other leaves do not change; MLA's
+    ``kv_norm``/``q_norm`` last), for tests that must see the norm weights
+    act (gemma2's + 1 included)."""
     rng = np.random.RandomState(seed)
     d, L, vp = cfg.d_model, cfg.num_layers, cfg.vocab_padded
     norm = np.zeros if cfg.gemma_norms else np.ones
 
     def normal(shape, scale):
-        return (rng.standard_normal(shape).astype(np.float32) * np.float32(scale))
+        row = int(np.prod(shape[1:]))
+        if row * shape[0] <= _DRAW_CHUNK or len(shape) < 2:
+            return rng.standard_normal(shape).astype(np.float32) * np.float32(scale)
+        out = np.empty(shape, np.float32)
+        step = max(1, _DRAW_CHUNK // row)
+        for i in range(0, shape[0], step):
+            sub = (min(step, shape[0] - i), *shape[1:])
+            out[i:i + step] = (normal(sub[1:], scale)[None] if row > _DRAW_CHUNK
+                               else normal(sub, scale))
+        return out
 
     def dense(out_dim, in_dim, lead=()):
         return normal((*lead, out_dim, in_dim), in_dim ** -0.5)
@@ -84,11 +105,13 @@ def init_params_numpy(cfg: ModelConfig, seed: int, *, norm_scale: float = 0.0) -
         "embed": normal((vp, d), 0.02),
         "layers": {
             "att_norm": norm((L, d), np.float32),
-            "attn": {"wqkv": dense(cfg.q_dim + 2 * cfg.kv_dim, d, (L,)),
-                     "wo": dense(d, cfg.q_dim, (L,))},
+            "attn": _mla_numpy(cfg, dense) if cfg.mla else {
+                "wqkv": dense(cfg.q_dim + 2 * cfg.kv_dim, d, (L,)),
+                "wo": dense(d, cfg.q_dim, (L,))},
             "ffn_norm": norm((L, d), np.float32),
-            "mlp": {"w13": dense(2 * cfg.d_ff, d, (L,)),
-                    "w2": dense(d, cfg.d_ff, (L,))},
+            "mlp": _moe_numpy(cfg, dense) if cfg.moe else {
+                "w13": dense(2 * cfg.d_ff, d, (L,)),
+                "w2": dense(d, cfg.d_ff, (L,))},
         },
         "final_norm": norm((d,), np.float32),
     }
@@ -102,4 +125,34 @@ def init_params_numpy(cfg: ModelConfig, seed: int, *, norm_scale: float = 0.0) -
         for name in sorted(k for k in layers if k.endswith("norm")):
             layers[name] = layers[name] + normal(layers[name].shape, norm_scale)
         params["final_norm"] = params["final_norm"] + normal((d,), norm_scale)
+        at = layers["attn"]
+        for name in sorted(k for k in at if k.endswith("norm")):
+            at[name] = at[name] + normal(at[name].shape, norm_scale)
     return params
+
+
+def _mla_numpy(cfg: ModelConfig, dense) -> dict:
+    m, d, h, L = cfg.mla, cfg.d_model, cfg.num_heads, cfg.num_layers
+    p = {"wdkv": dense(m.kv_lora_rank + m.qk_rope_dim, d, (L,)),
+         "kv_norm": np.ones((L, m.kv_lora_rank), np.float32),
+         "wukv": dense(h * (m.qk_nope_dim + m.v_head_dim), m.kv_lora_rank, (L,)),
+         "wo": dense(d, h * m.v_head_dim, (L,))}
+    qk_dim = m.qk_nope_dim + m.qk_rope_dim
+    if m.q_lora_rank:
+        p["wdq"] = dense(m.q_lora_rank, d, (L,))
+        p["q_norm"] = np.ones((L, m.q_lora_rank), np.float32)
+        p["wuq"] = dense(h * qk_dim, m.q_lora_rank, (L,))
+    else:
+        p["wq"] = dense(h * qk_dim, d, (L,))
+    return p
+
+
+def _moe_numpy(cfg: ModelConfig, dense) -> dict:
+    m, d, L = cfg.moe, cfg.d_model, cfg.num_layers
+    p = {"router_w": dense(m.num_experts, d, (L,)),
+         "experts": {"w13": dense(2 * m.d_expert, d, (L, m.num_experts)),
+                     "w2": dense(d, m.d_expert, (L, m.num_experts))}}
+    if m.num_shared:
+        f = m.d_expert * m.num_shared
+        p["shared"] = {"w13": dense(2 * f, d, (L,)), "w2": dense(d, f, (L,))}
+    return p

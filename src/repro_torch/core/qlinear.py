@@ -18,13 +18,14 @@ from repro_torch.core import flags
 from repro_torch.core.quant import QuantizedTensor
 from repro_torch.kernels import ops
 
-__all__ = ["linear", "embedding_lookup", "split_fused"]
+__all__ = ["linear", "embedding_lookup", "quantize_input", "split_fused"]
 
 
-def linear(w, x: torch.Tensor) -> torch.Tensor:
+def linear(w, x: torch.Tensor, xq: QuantizedTensor | None = None) -> torch.Tensor:
     """y = x @ W^T for W (out, in); the quantized kernel when W is quantized.
     The kernel's f32 output is rounded to the activation dtype, as in the
-    reference.
+    reference. ``xq`` is x's int8 activations from :func:`quantize_input`
+    (None: quantized here).
 
     Under ``flags.prefill_dequant`` a quantized weight is dequantized to the
     activation dtype and multiplied as a float matrix, for every call while
@@ -33,8 +34,21 @@ def linear(w, x: torch.Tensor) -> torch.Tensor:
     if isinstance(w, QuantizedTensor):
         if flags.get("prefill_dequant"):
             return torch.einsum("...i,oi->...o", x, w.dequantize(x.dtype))
-        return ops.quantized_matmul(x, w).to(x.dtype)
+        if xq is None:      # the call the trace tools wrap (tests/trace_torch_*.py)
+            return ops.quantized_matmul(x, w).to(x.dtype)
+        return ops.quantized_matmul(x, w, xq=xq).to(x.dtype)
     return F.linear(x, w.to(x.dtype))
+
+
+def quantize_input(w, x: torch.Tensor) -> QuantizedTensor | None:
+    """x's int8 activations for the quantized kernel of ``w`` (None where
+    ``linear`` runs no kernel): quantize an input once, then hand it to
+    ``linear`` with every weight of that leaf that takes it, as the
+    reference's ``vmap`` over the MoE experts quantizes their shared input
+    once."""
+    if not isinstance(w, QuantizedTensor) or flags.get("prefill_dequant"):
+        return None
+    return ops.quantize_activation(x, group_size=w.group_size)
 
 
 def embedding_lookup(w, ids: torch.Tensor, dtype=torch.float32) -> torch.Tensor:

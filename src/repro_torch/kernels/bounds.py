@@ -18,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.quant import largest_pow2_group
 
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"int8": 1979e12, "fp8": 1979e12, "bf16": 989e12, "f32": 67e12}
@@ -44,13 +45,45 @@ class Bound:
         return "bytes" if tb >= self.ops / PEAK_OPS_PER_S[self.rate] else "operations"
 
 
+def layer_projections(cfg: ModelConfig) -> list[tuple[str, int, int, int]]:
+    """(name, m, n, count) of one layer's quantized weight matrices: GQA's
+    wqkv and wo, or MLA's query projection(s), wdkv, wukv and wo; the dense
+    SwiGLU's w13 and w2, or every expert's (count E) and the shared
+    expert's. Every one is read each step (MLA's decode dequantizes wukv
+    where prefill runs it as a GQMM)."""
+    d, h = cfg.d_model, cfg.num_heads
+    if cfg.mla:
+        m = cfg.mla
+        qk = h * (m.qk_nope_dim + m.qk_rope_dim)
+        out = ([("wdq", m.q_lora_rank, d, 1), ("wuq", qk, m.q_lora_rank, 1)]
+               if m.q_lora_rank else [("wq", qk, d, 1)])
+        out += [("wdkv", m.kv_lora_rank + m.qk_rope_dim, d, 1),
+                ("wukv", h * (m.qk_nope_dim + m.v_head_dim), m.kv_lora_rank, 1),
+                ("wo", d, h * m.v_head_dim, 1)]
+    else:
+        hd = cfg.resolved_head_dim
+        out = [("wqkv", (h + 2 * cfg.num_kv_heads) * hd, d, 1), ("wo", d, h * hd, 1)]
+    if cfg.moe:
+        e, f = cfg.moe.num_experts, cfg.moe.d_expert
+        out += [("expert w13", 2 * f, d, e), ("expert w2", d, f, e)]
+        if cfg.moe.num_shared:
+            fs = f * cfg.moe.num_shared
+            out += [("shared w13", 2 * fs, d, 1), ("shared w2", d, fs, 1)]
+    else:
+        out += [("w13", 2 * cfg.d_ff, d, 1), ("w2", d, cfg.d_ff, 1)]
+    return out
+
+
 def projections(cfg: ModelConfig) -> list[tuple[int, int, int]]:
     """(m, n, count) of the quantized projections of one forward pass."""
-    hd = cfg.resolved_head_dim
-    qkv = (cfg.num_heads + 2 * cfg.num_kv_heads) * hd
-    layer = [(qkv, cfg.d_model), (cfg.d_model, cfg.num_heads * hd),
-             (2 * cfg.d_ff, cfg.d_model), (cfg.d_model, cfg.d_ff)]
-    return [(m, n, cfg.num_layers) for m, n in layer] + [(cfg.vocab_size, cfg.d_model, 1)]
+    return ([(m, n, c * cfg.num_layers) for _, m, n, c in layer_projections(cfg)]
+            + [(cfg.vocab_size, cfg.d_model, 1)])
+
+
+def group_size(cfg: ModelConfig, n: int) -> int:
+    """The weight policy's group size for a contraction of n
+    (``core/policy.leaf_group_size``)."""
+    return largest_pow2_group(n, cfg.group_size, min_gs=16)
 
 
 def projection(fmt: str, m: int, n: int, b: int, gs: int) -> Bound:
@@ -62,11 +95,11 @@ def projection(fmt: str, m: int, n: int, b: int, gs: int) -> Bound:
 
 
 def projection_pass(cfg: ModelConfig, fmt: str, b: int) -> Bound:
-    """The 4 L + 1 projections of one forward pass at batch b (TinyLlama's
-    89), each a :func:`projection`."""
+    """Every projection of one forward pass at batch b (TinyLlama's 4 L + 1
+    = 89), each a :func:`projection` at its group size."""
     nbytes = ops = 0
     for m, n, count in projections(cfg):
-        one = projection(fmt, m, n, b, cfg.group_size)
+        one = projection(fmt, m, n, b, group_size(cfg, n))
         nbytes += count * one.nbytes
         ops += count * one.ops
     return Bound(nbytes, ops, "bf16" if fmt == "fp8" else "int8")

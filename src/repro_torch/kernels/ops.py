@@ -168,16 +168,20 @@ def rmsnorm_quant(x, w, *, group_size: int, eps: float = 1e-5,
 
 
 def quantized_matmul(x: torch.Tensor, w: QuantizedTensor, *,
-                     impl: str | None = None) -> torch.Tensor:
+                     impl: str | None = None, xq: QuantizedTensor | None = None
+                     ) -> torch.Tensor:
     """y = x @ dequant(w).T with run-time int8 activation quantization.
 
     ``x`` is float (..., n); ``w`` a QuantizedTensor (m, n logical) in any
     registered format, whose kernel hook picks the GQMV/GQMM pair. Returns
     float32 (..., m). A 1-D ``x`` goes to GQMV, anything else (flattened to
-    rows) to GQMM, the reference's dispatch.
+    rows) to GQMM, the reference's dispatch. ``xq``, x's int8 activations
+    at w's group size (``quantize_activation``), skips quantizing x again
+    where several weights take one input (the MoE experts' ``w13``).
     """
     kernel = get_format(w.fmt).kernel
-    xq = quantize_activation(x, group_size=w.group_size)
+    if xq is None:
+        xq = quantize_activation(x, group_size=w.group_size)
     lead = x.shape[:-1]
     if lead == ():
         return gqmv(w.qvalues, w.scales, xq.qvalues, xq.scales,

@@ -1,7 +1,13 @@
-"""GQA attention (counterpart of the GQA half of ``repro/models/attention.py``).
+"""Attention (counterpart of ``repro/models/attention.py``): GQA, and MLA
+(multi-head latent attention, minicpm3 and deepseek-v2-lite: the scoring /
+prefill ``mla_forward`` and ``mla_prefill`` materialize K/V from the latent
+through ``wukv``; the absorbed decode ``mla_decode`` / ``mla_decode_deferred``
+folds ``wukv``, dequantized to f32, into the query and the output, and
+attends over the latent cache itself; plain PyTorch, as the reference's
+einsums).
 
-Ported paths, under the reference's default flags and its perf-variant
-flags (``core/flags.py``):
+Ported GQA paths, under the reference's default flags and its
+perf-variant flags (``core/flags.py``):
 
 - full ``_mha`` attention in the scoring forward (``gqa_forward``),
   prefill and decode over the base (b, T, KV, hd) cache layout;
@@ -53,7 +59,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import flags
 from repro_torch.core.qlinear import linear, split_fused
-from repro_torch.core.quant import FP8_MAX
+from repro_torch.core.quant import FP8_MAX, QuantizedTensor
 from repro_torch.kernels import ops
 from repro_torch.models.common import (
     apply_rope,
@@ -61,6 +67,7 @@ from repro_torch.models.common import (
     decode_mask,
     dense_init,
     length_mask,
+    rmsnorm,
     softcap,
 )
 
@@ -72,14 +79,29 @@ def _pos_rows(pos, b: int, device) -> torch.Tensor:
     return torch.full((b, 1), pos, dtype=torch.long, device=device)
 
 
+def _put_rows(dst: torch.Tensor, index: tuple, val: torch.Tensor, pos: torch.Tensor,
+              t: int, row_dim: int) -> None:
+    """``dst[index] = val`` for per-row positions ``pos`` (b,) along a time
+    axis of length ``t`` (``index`` built from ``pos`` clamped to t - 1):
+    a row whose position lies past the axis writes nothing, as the
+    reference's out-of-bounds scatter drops it. Such a row is a continuous
+    batch's slot that finished within its chunk and idles frozen; its
+    target gets back the bits it holds. ``row_dim``: the axis of ``val``
+    that is the row."""
+    ok = (pos < t).view(*(1,) * row_dim, -1, *(1,) * (val.ndim - row_dim - 1))
+    dst[index] = torch.where(ok, val, dst[index])
+
+
 def _commit_bt(cache: torch.Tensor, rows: torch.Tensor, pos) -> torch.Tensor:
     """Write rows (b, 1, ...) into cache (b, T, ...) at time ``pos``.
 
     Writes IN PLACE (the reference returns an updated copy): ``cache`` is a
     view into the stacked (L, b, T, ...) cache, which therefore holds the
-    new rows afterwards."""
+    new rows afterwards. A per-row position past T writes nothing."""
     if isinstance(pos, torch.Tensor) and pos.ndim:
-        cache[torch.arange(cache.shape[0], device=cache.device), pos] = rows[:, 0]
+        t = cache.shape[1]
+        idx = (torch.arange(cache.shape[0], device=cache.device), pos.clamp(max=t - 1))
+        _put_rows(cache, idx, rows[:, 0], pos, t, 0)
     else:
         cache[:, pos] = rows[:, 0]
     return cache
@@ -87,12 +109,14 @@ def _commit_bt(cache: torch.Tensor, rows: torch.Tensor, pos) -> torch.Tensor:
 
 def _commit_bkt(cache: torch.Tensor, rows: torch.Tensor, pos) -> torch.Tensor:
     """Write rows (b, KV, 1, ...) into cache (b, KV, T, ...) at time ``pos``,
-    in place (the reference returns an updated copy)."""
+    in place (the reference returns an updated copy); a per-row position
+    past T writes nothing."""
     if isinstance(pos, torch.Tensor) and pos.ndim:
-        b, kv = cache.shape[:2]
+        b, kv, t = cache.shape[:3]
         dev = cache.device
-        cache[torch.arange(b, device=dev)[:, None], torch.arange(kv, device=dev)[None, :],
-              pos[:, None]] = rows[:, :, 0]
+        idx = (torch.arange(b, device=dev)[:, None], torch.arange(kv, device=dev)[None, :],
+               pos.clamp(max=t - 1)[:, None])
+        _put_rows(cache, idx, rows[:, :, 0], pos, t, 0)
     else:
         cache[:, :, pos] = rows[:, :, 0]
     return cache
@@ -100,21 +124,24 @@ def _commit_bkt(cache: torch.Tensor, rows: torch.Tensor, pos) -> torch.Tensor:
 
 def _col_update(scores: torch.Tensor, cur: torch.Tensor, pos) -> torch.Tensor:
     """scores (b, ..., t): overwrite column ``pos`` (per row when a (b,)
-    tensor) with cur (b, ...), in place."""
+    tensor; a position past t writes nothing) with cur (b, ...), in place."""
     if isinstance(pos, torch.Tensor) and pos.ndim:
+        t = scores.shape[-1]
         idx = (torch.arange(scores.shape[0], device=scores.device),) + (
-            slice(None),) * (scores.ndim - 2) + (pos,)
-        scores[idx] = cur
+            slice(None),) * (scores.ndim - 2) + (pos.clamp(max=t - 1),)
+        _put_rows(scores, idx, cur, pos, t, 0)
     else:
         scores[..., pos] = cur
     return scores
 
 
 def _col_at(attn: torch.Tensor, pos) -> torch.Tensor:
-    """attn (b, ..., t) -> (b, ..., 1) column at ``pos`` (per row when a tensor)."""
+    """attn (b, ..., t) -> (b, ..., 1) column at ``pos`` (per row when a
+    tensor; a position past t reads column t - 1, as the reference's
+    gather clamps)."""
     if isinstance(pos, torch.Tensor) and pos.ndim:
         idx = (torch.arange(attn.shape[0], device=attn.device),) + (
-            slice(None),) * (attn.ndim - 2) + (pos,)
+            slice(None),) * (attn.ndim - 2) + (pos.clamp(max=attn.shape[-1] - 1),)
         return attn[idx][..., None]
     return attn[..., pos:pos + 1]
 
@@ -126,10 +153,14 @@ def _bcast_decode_mask(m: torch.Tensor) -> torch.Tensor:
 
 def commit_layers_bt(cache: torch.Tensor, rows: torch.Tensor, pos) -> torch.Tensor:
     """Deferred-decode commit, (L, b, T, ...) layout: write rows
-    (L, b, 1, ...) at time ``pos`` (an int, or (b,) per-row positions), for
-    all layers at once, in place (the reference returns an updated copy)."""
+    (L, b, 1, ...) at time ``pos`` (an int, or (b,) per-row positions; one
+    past T writes nothing), for all layers at once, in place (the reference
+    returns an updated copy)."""
     if isinstance(pos, torch.Tensor) and pos.ndim:
-        cache[:, torch.arange(cache.shape[1], device=cache.device), pos] = rows[:, :, 0]
+        t = cache.shape[2]
+        idx = (slice(None), torch.arange(cache.shape[1], device=cache.device),
+               pos.clamp(max=t - 1))
+        _put_rows(cache, idx, rows[:, :, 0], pos, t, 1)
     else:
         cache[:, :, pos] = rows[:, :, 0]
     return cache
@@ -201,13 +232,14 @@ def commit_layers_paged_verify(pages: torch.Tensor, rows: torch.Tensor,
 
 def commit_layers_bkt(cache: torch.Tensor, rows: torch.Tensor, pos) -> torch.Tensor:
     """Deferred-decode commit, (L, b, KV, T, ...) layout (the kvt and
-    quantized caches): write rows (L, b, KV, 1, ...) at time ``pos``, in
-    place."""
+    quantized caches): write rows (L, b, KV, 1, ...) at time ``pos`` (a
+    per-row position past T writes nothing), in place."""
     if isinstance(pos, torch.Tensor) and pos.ndim:
-        b, kv = cache.shape[1], cache.shape[2]
+        b, kv, t = cache.shape[1], cache.shape[2], cache.shape[3]
         dev = cache.device
-        cache[:, torch.arange(b, device=dev)[:, None], torch.arange(kv, device=dev)[None, :],
-              pos[:, None]] = rows[:, :, :, 0]
+        idx = (slice(None), torch.arange(b, device=dev)[:, None],
+               torch.arange(kv, device=dev)[None, :], pos.clamp(max=t - 1)[:, None])
+        _put_rows(cache, idx, rows[:, :, :, 0], pos, t, 1)
     else:
         cache[:, :, :, pos] = rows[:, :, :, 0]
     return cache
@@ -654,3 +686,181 @@ def gqa_decode_paged(p, x: torch.Tensor, pages, block_table: torch.Tensor, pos: 
         vq, vs = _quantize_rows(vn, kvq)
         return linear(p["wo"], ctx), (kq, ks, vq, vs)
     return linear(p["wo"], ctx), (kn, vn)
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention: minicpm3, deepseek-v2-lite)
+# ---------------------------------------------------------------------------
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig, lead: tuple[int, ...] = ()) -> dict:
+    """The reference's MLA tree: the fused latent + rope-key projection
+    ``wdkv``, ``kv_norm``, the latent up-projection ``wukv``, ``wo``, and
+    the query projection ``wq``, or with ``q_lora_rank`` its low-rank pair
+    ``wdq`` / ``q_norm`` / ``wuq``."""
+    m = cfg.mla
+    dt, d, h = cfg.pdtype(), cfg.d_model, cfg.num_heads
+    qk_dim = m.qk_nope_dim + m.qk_rope_dim
+    dev = gen.device
+    p = {
+        "wdkv": dense_init(gen, m.kv_lora_rank + m.qk_rope_dim, d, dt, lead),
+        "kv_norm": torch.ones((*lead, m.kv_lora_rank), dtype=dt, device=dev),
+        "wukv": dense_init(gen, h * (m.qk_nope_dim + m.v_head_dim), m.kv_lora_rank, dt, lead),
+        "wo": dense_init(gen, d, h * m.v_head_dim, dt, lead),
+    }
+    if m.q_lora_rank:
+        p["wdq"] = dense_init(gen, m.q_lora_rank, d, dt, lead)
+        p["q_norm"] = torch.ones((*lead, m.q_lora_rank), dtype=dt, device=dev)
+        p["wuq"] = dense_init(gen, h * qk_dim, m.q_lora_rank, dt, lead)
+    else:
+        p["wq"] = dense_init(gen, h * qk_dim, d, dt, lead)
+    return p
+
+
+def _mla_q(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+    m = cfg.mla
+    b, s, _ = x.shape
+    if m.q_lora_rank:
+        q = linear(p["wuq"], rmsnorm(linear(p["wdq"], x), p["q_norm"], cfg.norm_eps))
+    else:
+        q = linear(p["wq"], x)
+    q = q.reshape(b, s, cfg.num_heads, m.qk_nope_dim + m.qk_rope_dim)
+    q_nope, q_rope = q[..., : m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_latent(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+    """(normed latent c_kv (b, s, kv_lora_rank), RoPE'd shared key k_rope
+    (b, s, qk_rope_dim)) from the fused ``wdkv`` projection."""
+    m = cfg.mla
+    c = linear(p["wdkv"], x)
+    c_kv, k_rope = c[..., : m.kv_lora_rank], c[..., m.kv_lora_rank:]
+    c_kv = rmsnorm(c_kv, p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+    return c_kv, k_rope
+
+
+def _mla_scale(m) -> float:
+    return (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+
+
+def _mla_attend(p, x: torch.Tensor, cfg: ModelConfig, q, latent, *, window=None,
+                lengths=None) -> torch.Tensor:
+    """The reference's ``mla_forward`` after its projections: K/V
+    materialized from the latent through ``wukv`` (a GQMM with quantized
+    weights), causal scores as the sum of the no-RoPE and RoPE einsums in
+    x's dtype, then f32 and the scale; ``lengths`` masks right-pad keys."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    q_nope, q_rope = q
+    c_kv, k_rope = latent
+    kv = linear(p["wukv"], c_kv).reshape(b, s, h, m.qk_nope_dim + m.v_head_dim)
+    k_nope, v = kv[..., : m.qk_nope_dim], kv[..., m.qk_nope_dim:]
+    scores = (torch.einsum("bshd,bthd->bhst", q_nope, k_nope)
+              + torch.einsum("bshd,btd->bhst", q_rope, k_rope)).to(torch.float32)
+    scores = scores * _mla_scale(m)
+    mask = causal_mask(s, window, device=x.device)
+    if lengths is not None:
+        mask = (mask[None] + length_mask(lengths, s)[:, None, :])[:, None]   # (b, 1, s, s)
+    attn = torch.softmax(scores + mask, dim=-1).to(x.dtype)
+    ctx = torch.einsum("bhst,bthd->bshd", attn, v).reshape(b, s, h * m.v_head_dim)
+    return linear(p["wo"], ctx)
+
+
+def mla_forward(p, x: torch.Tensor, cfg: ModelConfig, *, window=None,
+                lengths: torch.Tensor | None = None) -> torch.Tensor:
+    """Naive (materialized) MLA for scoring and prefill. ``lengths`` (b,)
+    masks right-pad keys per row (ragged prefill)."""
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    return _mla_attend(p, x, cfg, _mla_q(p, x, cfg, positions),
+                       _mla_latent(p, x, cfg, positions), window=window, lengths=lengths)
+
+
+def mla_prefill(p, x: torch.Tensor, cfg: ModelConfig, cache_len: int, *, window=None,
+                lengths: torch.Tensor | None = None):
+    """Returns (y, (c_kv, k_rope)) with the latent cache rows padded to
+    ``cache_len`` (MLA's memory saving: the cache holds the low-rank latent,
+    not K/V). ``lengths`` (b,): pad keys masked and their latent rows
+    zeroed, as in ``gqa_prefill``. The reference computes the latent twice
+    (in ``mla_forward`` and again for the cache); here once, the same
+    values."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None, :]
+    q = _mla_q(p, x, cfg, positions)
+    c_kv, k_rope = _mla_latent(p, x, cfg, positions)
+    y = _mla_attend(p, x, cfg, q, (c_kv, k_rope), window=window, lengths=lengths)
+    if lengths is not None:
+        valid = (torch.arange(s, device=x.device)[None, :] < lengths[:, None])[..., None]
+        c_kv = torch.where(valid, c_kv, 0)
+        k_rope = torch.where(valid, k_rope, 0)
+    pad = (0, 0, 0, cache_len - s)
+    return y, (F.pad(c_kv, pad), F.pad(k_rope, pad))
+
+
+def _maybe_dequant(w) -> torch.Tensor:
+    """A quantized weight dequantized to f32 (``dequantize()``'s default), as
+    the reference's decode takes ``wukv``; a float weight as it is."""
+    return w.dequantize() if isinstance(w, QuantizedTensor) else w
+
+
+def _mla_absorbed(p, x: torch.Tensor, cfg: ModelConfig, pos):
+    """A decode step's absorbed query: (q_abs (b, H, kv_lora_rank), q_rope
+    (b, H, rope), the step's latent rows (c_new, r_new) each (b, 1, .), and
+    ``wuv`` (H, v, kv_lora_rank) in x's dtype). ``wukv`` is dequantized,
+    never a GQMM."""
+    m = cfg.mla
+    b = x.shape[0]
+    h = cfg.num_heads
+    positions = _pos_rows(pos, b, x.device)
+    q_nope, q_rope = _mla_q(p, x[:, None, :], cfg, positions)
+    c_new, r_new = _mla_latent(p, x[:, None, :], cfg, positions)
+    wukv = _maybe_dequant(p["wukv"]).reshape(h, m.qk_nope_dim + m.v_head_dim, m.kv_lora_rank)
+    wuk, wuv = wukv[:, : m.qk_nope_dim, :], wukv[:, m.qk_nope_dim:, :]
+    q_abs = torch.einsum("bhd,hdc->bhc", q_nope[:, 0], wuk.to(x.dtype))
+    return q_abs, q_rope[:, 0], (c_new, r_new), wuv.to(x.dtype)
+
+
+def mla_decode_deferred(p, x: torch.Tensor, cache, pos, cfg: ModelConfig, *, window=None):
+    """Absorbed MLA decode WITHOUT writing the latent cache: attends over the
+    read-only cache (slot ``pos`` still zero) plus the current latent row
+    (``_col_update`` / ``_col_at``, as ``_attend_deferred``) and returns
+    (y, (c_new, r_new) (b, 1, .)) for one commit a leaf after the last
+    layer (``commit_layers_bt``)."""
+    m = cfg.mla
+    b = x.shape[0]
+    c_cache, r_cache = cache                        # (b, T, kvr) / (b, T, rope)
+    t = c_cache.shape[1]
+    q_abs, q_rope, (c_new, r_new), wuv = _mla_absorbed(p, x, cfg, pos)
+    scores = (torch.einsum("bhc,btc->bht", q_abs, c_cache)
+              + torch.einsum("bhd,btd->bht", q_rope, r_cache)).to(torch.float32)
+    cur = (torch.einsum("bhc,bc->bh", q_abs, c_new[:, 0])
+           + torch.einsum("bhd,bd->bh", q_rope, r_new[:, 0])).to(torch.float32)
+    scores = _col_update(scores, cur, pos)
+    dm = decode_mask(t, pos, window, device=x.device)
+    scores = scores * _mla_scale(m) + _bcast_decode_mask(dm)
+    attn = torch.softmax(scores, dim=-1).to(x.dtype)
+    # the cache's slot at pos is zero: its contribution is the explicit term
+    ctx = torch.einsum("bht,btc->bhc", attn, c_cache)
+    ctx = ctx + _col_at(attn, pos) * c_new[:, 0][:, None, :]
+    out = torch.einsum("bhc,hvc->bhv", ctx, wuv).reshape(b, cfg.num_heads * m.v_head_dim)
+    return linear(p["wo"], out), (c_new, r_new)
+
+
+def mla_decode(p, x: torch.Tensor, cache, pos, cfg: ModelConfig, *, window=None):
+    """Absorbed-matrix decode: writes the step's latent rows into the cache
+    (in place), then attends directly over the latent cache without
+    materializing per-position K/V. Returns (y, (c_cache, r_cache))."""
+    m = cfg.mla
+    b = x.shape[0]
+    c_cache, r_cache = cache                        # (b, T, kvr) / (b, T, rope)
+    q_abs, q_rope, (c_kv, k_rope), wuv = _mla_absorbed(p, x, cfg, pos)
+    c_cache = _commit_bt(c_cache, c_kv, pos)
+    r_cache = _commit_bt(r_cache, k_rope, pos)
+    scores = (torch.einsum("bhc,btc->bht", q_abs, c_cache)
+              + torch.einsum("bhd,btd->bht", q_rope, r_cache)).to(torch.float32)
+    scores = scores * _mla_scale(m)
+    dm = decode_mask(c_cache.shape[1], pos, window, device=x.device)
+    attn = torch.softmax(scores + _bcast_decode_mask(dm), dim=-1).to(x.dtype)
+    ctx = torch.einsum("bht,btc->bhc", attn, c_cache)
+    out = torch.einsum("bhc,hvc->bhv", ctx, wuv).reshape(b, cfg.num_heads * m.v_head_dim)
+    return linear(p["wo"], out), (c_cache, r_cache)

@@ -1,17 +1,21 @@
 """Uniform model API (counterpart of ``repro/models/registry.py``).
 
-Only the dense GQA ``decoder_lm`` family is ported: TinyLlama-1.1B,
+The ``decoder_lm`` family is ported: the dense GQA archs TinyLlama-1.1B,
 internlm2-1.8b, deepseek-coder-33b, pixtral-12b (its ViT frontend a stub:
 the caller's ``batch["patch_embeds"]`` replace the first positions, as in
-the reference) and gemma2-2b. ``load_config`` names the other six and
-raises "not yet ported" for them. ``Model`` keeps the reference's entry
-points (the scoring ``forward``, ``prefill``, ``decode``) and its
-capability flags, each declared explicitly and equal to the reference's
-for every ported arch: ragged lengths, the paged
-block-pool cache (``init_paged_cache``/``decode_paged``), speculative
-verify over both caches (``verify``/``commit_verify`` and their paged
-siblings) and the serving core's slot hooks (``cache_kind="kv"``,
-``insert_slots``/``gather_slots``).
+the reference) and gemma2-2b; dbrx-132b (GQA with a 16-expert MoE FFN);
+and the MLA archs minicpm3-4b (dense FFN) and deepseek-v2-lite-16b (MoE
+with shared experts). ``load_config`` names the other three (the
+recurrent families and the encoder-decoder) and raises "not yet ported"
+for them. ``Model`` keeps the reference's entry points (the scoring
+``forward``, ``prefill``, ``decode``) and its capability flags, each
+declared explicitly and equal to the reference's for every ported arch:
+ragged lengths, and the serving core's slot hooks (``cache_kind="kv"``,
+``insert_slots``/``gather_slots``) for all; the paged block-pool cache
+(``init_paged_cache``/``decode_paged``) and speculative verify over both
+caches (``verify``/``commit_verify`` and their paged siblings) for the GQA
+archs only: the MLA latent cache keeps the contiguous single-token path,
+and its hooks are None, as in the reference.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ ARCH_IDS = [
 ]
 
 PORTED_ARCHS = ("tinyllama-1.1b", "internlm2-1.8b", "deepseek-coder-33b", "pixtral-12b",
-                "gemma2-2b")
+                "gemma2-2b", "dbrx-132b", "minicpm3-4b", "deepseek-v2-lite-16b")
 
 
 def load_config(arch_id: str) -> ModelConfig:
@@ -94,6 +98,9 @@ def build(cfg: ModelConfig) -> Model:
                               frontend_embeds=batch.get("patch_embeds"),
                               lengths=batch.get("lengths"), cache=cache)
 
+    # the paged pool and speculative verify cover the GQA layouts; the MLA
+    # latent cache keeps the contiguous single-token path (the reference's rule)
+    paged = not cfg.mla
     return Model(
         cfg=cfg,
         init=lambda seed=0, device="cuda": _tf.init_lm(cfg, device, seed=seed),
@@ -102,17 +109,18 @@ def build(cfg: ModelConfig) -> Model:
         prefill=prefill,
         decode=lambda p, tok, cache, pos: _tf.lm_decode(p, tok, cache, pos, cfg),
         supports_lengths=True,
-        supports_paged=True,
-        init_paged_cache=lambda nb, bs, dt, device: _tf.lm_init_paged_cache(
-            cfg, nb, bs, dt, device),
-        decode_paged=lambda p, tok, cache, table, pos: _tf.lm_decode_paged(
-            p, tok, cache, table, pos, cfg),
-        supports_spec=True,
-        verify=lambda p, toks, cache, pos: _tf.lm_verify(p, toks, cache, pos, cfg),
-        commit_verify=_tf.lm_commit_verify,
-        verify_paged=lambda p, toks, cache, table, pos: _tf.lm_verify_paged(
-            p, toks, cache, table, pos, cfg),
-        commit_verify_paged=_tf.lm_commit_verify_paged,
+        supports_paged=paged,
+        init_paged_cache=(lambda nb, bs, dt, device: _tf.lm_init_paged_cache(
+            cfg, nb, bs, dt, device)) if paged else None,
+        decode_paged=(lambda p, tok, cache, table, pos: _tf.lm_decode_paged(
+            p, tok, cache, table, pos, cfg)) if paged else None,
+        supports_spec=paged,
+        verify=(lambda p, toks, cache, pos: _tf.lm_verify(p, toks, cache, pos, cfg))
+        if paged else None,
+        commit_verify=_tf.lm_commit_verify if paged else None,
+        verify_paged=(lambda p, toks, cache, table, pos: _tf.lm_verify_paged(
+            p, toks, cache, table, pos, cfg)) if paged else None,
+        commit_verify_paged=_tf.lm_commit_verify_paged if paged else None,
         cache_kind="kv",
         insert_slots=_tf.lm_insert_slots,
         gather_slots=_tf.lm_gather_slots,

@@ -1,8 +1,11 @@
-"""Decoder-only transformer LM (counterpart of ``repro/models/transformer.py``),
-the dense GQA families: TinyLlama, internlm2, deepseek-coder, pixtral's
+"""Decoder-only transformer LM (counterpart of ``repro/models/transformer.py``):
+the dense GQA families TinyLlama, internlm2, deepseek-coder, pixtral's
 backbone (its patch embeddings replace the first positions) and gemma2
 (``plus_one`` norms with post-attention and post-FFN norms, the ×√d
-embedding, sliding-window layers, attention and final soft caps).
+embedding, sliding-window layers, attention and final soft caps); dbrx
+(GQA with a MoE FFN); and the MLA families minicpm3 (dense FFN) and
+deepseek-v2-lite (MoE with shared experts), whose cache is the latent
+{ckv, krope} pair, contiguous only (no paged pool, no verify).
 
 Parameters keep the reference's tree: stacked (L, ...) layer leaves under
 the same keys, so a reference checkpoint crosses through ``bridge.py``
@@ -45,13 +48,10 @@ PORTED_FRONTENDS = (None, "patch_embed")
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    unported = [name for name, on in (
-        ("mla", cfg.mla), ("moe", cfg.moe),
-        ("frontend", cfg.frontend not in PORTED_FRONTENDS)) if on]
-    if cfg.model_type != "decoder_lm" or unported:
+    if cfg.model_type != "decoder_lm" or cfg.frontend not in PORTED_FRONTENDS:
         raise NotImplementedError(
-            f"{cfg.arch_id}: {cfg.model_type} with {unported} is not yet ported "
-            "to repro_torch (dense GQA decoder_lm only)")
+            f"{cfg.arch_id}: {cfg.model_type} with frontend {cfg.frontend!r} is not yet "
+            f"ported to repro_torch (decoder_lm with frontends {PORTED_FRONTENDS} only)")
 
 
 def _layer_windows(cfg: ModelConfig) -> list[bool]:
@@ -85,9 +85,10 @@ def init_lm(cfg: ModelConfig, device="cuda", *, seed: int = 0) -> dict:
         "embed": embed_init(gen, cfg.vocab_padded, d, dt),
         "layers": {
             "att_norm": norm((L, d), dtype=dt, device=dev),
-            "attn": attn.init_gqa(gen, cfg, lead=(L,)),
+            "attn": (attn.init_mla if cfg.mla else attn.init_gqa)(gen, cfg, lead=(L,)),
             "ffn_norm": norm((L, d), dtype=dt, device=dev),
-            "mlp": mlpmod.init_mlp(gen, cfg, lead=(L,)),
+            "mlp": (mlpmod.init_moe(gen, cfg, lead=(L,)) if cfg.moe
+                    else mlpmod.init_mlp(gen, cfg, lead=(L,))),
         },
         "final_norm": norm((d,), dtype=dt, device=dev),
     }
@@ -126,16 +127,29 @@ def _logits(params, x: torch.Tensor, cfg: ModelConfig, norm=rmsnorm) -> torch.Te
     return logits
 
 
+def _ffn(p, h: torch.Tensor, cfg: ModelConfig, by_column: bool = False) -> torch.Tensor:
+    """The layer's FFN: the MoE where ``cfg.moe`` (a decode step's (b, d)
+    rows as a (b, 1, d) sequence, the reference's ``h[:, None, :]``), else
+    the dense SwiGLU."""
+    if not cfg.moe:
+        return mlpmod.mlp_forward(p, h)
+    if h.ndim == 2:
+        return mlpmod.moe_forward(p, h[:, None, :], cfg)[:, 0, :]
+    return mlpmod.moe_forward(p, h, cfg, by_column=by_column)
+
+
 def _block(lp, x: torch.Tensor, cfg: ModelConfig, attn_fn, norm=rmsnorm) -> torch.Tensor:
     """One residual block given an attention closure; shared by all paths
-    (verify passes ``rmsnorm_steps``). gemma2 normalises the attention and
-    FFN outputs too (``post_att_norm`` / ``post_ffn_norm``)."""
+    (verify passes ``rmsnorm_steps``, and its MoE router then takes each
+    chunk column apart). gemma2 normalises the attention and FFN outputs
+    too (``post_att_norm`` / ``post_ffn_norm``)."""
     g = cfg.gemma_norms
     a = attn_fn(norm(x, lp["att_norm"], cfg.norm_eps, plus_one=g))
     if g:
         a = norm(a, lp["post_att_norm"], cfg.norm_eps, plus_one=True)
     x = x + a
-    f = mlpmod.mlp_forward(lp["mlp"], norm(x, lp["ffn_norm"], cfg.norm_eps, plus_one=g))
+    f = _ffn(lp["mlp"], norm(x, lp["ffn_norm"], cfg.norm_eps, plus_one=g), cfg,
+             by_column=norm is rmsnorm_steps)
     if g:
         f = norm(f, lp["post_ffn_norm"], cfg.norm_eps, plus_one=True)
     return x + f
@@ -155,6 +169,9 @@ def lm_forward(params, tokens: torch.Tensor, cfg: ModelConfig,
     x = _embed(params, tokens, cfg, frontend_embeds)
     for i, wkw in enumerate(_window_kw(cfg)):
         lp = tree_index(params["layers"], i)
+        if cfg.mla:
+            x = _block(lp, x, cfg, lambda h, lp=lp: attn.mla_forward(lp["attn"], h, cfg))
+            continue
         x = _block(lp, x, cfg,
                    lambda h, lp=lp, wkw=wkw: attn.gqa_forward(lp["attn"], h, cfg, **wkw))
     return _logits(params, x, cfg)
@@ -168,7 +185,14 @@ def lm_init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype, device) -
     """The contiguous KV cache: base (L, b, T, KV, hd) leaves ``k``/``v``,
     (L, b, KV, T, hd) under ``flags.kvt_cache_layout``, or with a quantized
     KV format the kvt-major storage rows ``k_q``/``v_q`` (L, b, KV, T, hd)
-    and their f32 scales ``k_s``/``v_s`` (L, b, KV, T)."""
+    and their f32 scales ``k_s``/``v_s`` (L, b, KV, T). An MLA config's is
+    the latent cache, whatever the flags: ``ckv`` (L, b, T, kv_lora_rank)
+    and ``krope`` (L, b, T, qk_rope_dim)."""
+    if cfg.mla:
+        return {"ckv": torch.zeros((cfg.num_layers, batch, cache_len, cfg.mla.kv_lora_rank),
+                                   dtype=dtype, device=device),
+                "krope": torch.zeros((cfg.num_layers, batch, cache_len, cfg.mla.qk_rope_dim),
+                                     dtype=dtype, device=device)}
     hd = cfg.resolved_head_dim
     kvq = attn.kv_quant_format(cfg)
     if kvq:
@@ -209,7 +233,11 @@ def lm_init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int, dtyp
     ``v_scales`` (L, NB, BS, KV) their f32 scales. Block 0 is the
     allocator's write-off sink (serving/paged.py); blocks are recycled
     without zeroing, since paged attention never reads an unmasked stale
-    slot."""
+    slot. The MLA latent cache has no pool (``supports_paged`` False)."""
+    if cfg.mla:
+        raise ValueError(
+            f"{cfg.arch_id}: paged KV cache covers the GQA layouts; the MLA "
+            "latent cache keeps the contiguous path (supports_paged=False)")
     hd = cfg.resolved_head_dim
     shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads, hd)
     kvq = attn.kv_quant_format(cfg)
@@ -249,6 +277,14 @@ def contiguous_to_paged(cache: dict, block_size: int):
     return {"k_pages": pool(cache["k"]), "v_pages": pool(cache["v"])}, table
 
 
+def _cache_names(cfg: ModelConfig) -> tuple[str, ...]:
+    """The contiguous cache's leaves in the order a layer's attention
+    returns its rows."""
+    if cfg.mla:
+        return ("ckv", "krope")
+    return ("k_q", "k_s", "v_q", "v_s") if attn.kv_quant_format(cfg) else ("k", "v")
+
+
 def lm_prefill(params, tokens: torch.Tensor, cfg: ModelConfig, cache_len: int,
                frontend_embeds: torch.Tensor | None = None,
                lengths: torch.Tensor | None = None, cache: dict | None = None):
@@ -265,12 +301,16 @@ def lm_prefill(params, tokens: torch.Tensor, cfg: ModelConfig, cache_len: int,
     b = x.shape[0]
     if cache is None:
         cache = lm_init_cache(cfg, b, cache_len, x.dtype, x.device)
-    names = ("k_q", "k_s", "v_q", "v_s") if attn.kv_quant_format(cfg) else ("k", "v")
+    names = _cache_names(cfg)
     for i, wkw in enumerate(_window_kw(cfg)):
         lp = tree_index(params["layers"], i)
 
         def attn_fn(h, lp=lp, i=i, wkw=wkw):
-            y, leaves = attn.gqa_prefill(lp["attn"], h, cfg, cache_len, lengths=lengths, **wkw)
+            if cfg.mla:
+                y, leaves = attn.mla_prefill(lp["attn"], h, cfg, cache_len, lengths=lengths)
+            else:
+                y, leaves = attn.gqa_prefill(lp["attn"], h, cfg, cache_len, lengths=lengths,
+                                             **wkw)
             for name, leaf in zip(names, leaves):
                 cache[name][i] = leaf
             return y
@@ -293,17 +333,35 @@ def lm_decode(params, token: torch.Tensor, cache: dict, pos, cfg: ModelConfig):
     only and return their new rows, committed once after the last layer with
     one write per leaf (``commit_layers_bt``, or ``commit_layers_bkt`` for
     the (L, b, KV, T, ...) layouts), as in the reference; no layer reads its
-    own uncommitted row from the cache."""
+    own uncommitted row from the cache.
+
+    An MLA config's latent cache is never quantized nor kvt; any of those
+    three flags (or ``deferred_decode_cache`` alone) selects the deferred
+    ``mla_decode_deferred`` and one ``commit_layers_bt`` a leaf, as in the
+    reference; else ``mla_decode`` writes each layer's rows before it
+    attends."""
     _check_ported(cfg)
-    quant = attn.kv_quant_format(cfg) is not None
-    kvt = bool(flags.get("kvt_cache_layout")) or quant
-    deferred = bool(flags.get("deferred_decode_cache")) or kvt
+    if cfg.mla:
+        quant = kvt = False
+        deferred = any(bool(flags.get(f)) for f in (
+            "deferred_decode_cache", "kvt_cache_layout", "int8_kv_cache"))
+    else:
+        quant = attn.kv_quant_format(cfg) is not None
+        kvt = bool(flags.get("kvt_cache_layout")) or quant
+        deferred = bool(flags.get("deferred_decode_cache")) or kvt
     x = _embed(params, token, cfg)
     rows: list = []
     for i, wkw in enumerate(_window_kw(cfg)):
         lp = tree_index(params["layers"], i)
 
         def attn_fn(h, lp=lp, i=i, wkw=wkw):
+            if cfg.mla:
+                c = (cache["ckv"][i], cache["krope"][i])
+                if deferred:
+                    y, r = attn.mla_decode_deferred(lp["attn"], h, c, pos, cfg)
+                    rows.append(r)
+                    return y
+                return attn.mla_decode(lp["attn"], h, c, pos, cfg)[0]
             if quant:
                 c = (cache["k_q"][i], cache["k_s"][i], cache["v_q"][i], cache["v_s"][i])
                 y, r = attn.gqa_decode_deferred_quant(lp["attn"], h, c, pos, cfg, **wkw)
@@ -319,9 +377,8 @@ def lm_decode(params, token: torch.Tensor, cache: dict, pos, cfg: ModelConfig):
 
         x = _block(lp, x, cfg, attn_fn)
     if deferred:
-        names = ("k_q", "k_s", "v_q", "v_s") if quant else ("k", "v")
         commit = attn.commit_layers_bkt if kvt else attn.commit_layers_bt
-        for j, name in enumerate(names):
+        for j, name in enumerate(_cache_names(cfg)):
             commit(cache[name], torch.stack([r[j] for r in rows]), pos)
     return _logits(params, x, cfg), cache
 
@@ -397,7 +454,6 @@ def _verify(params, tokens: torch.Tensor, cfg: ModelConfig, cache: dict, names, 
     layer, so the cache leaves as it came. Returns (logits (b, k,
     vocab_padded), rows {k, v} (L, b, k, KV, hd))."""
     _check_ported(cfg)
-    _check_verify_layout(cfg)
     bs = cache[names[0]].shape[2] if block_table is not None else None
     positions, target, steps = attn.verify_steps(pos, tokens.shape[1], t, block_table, bs,
                                                  window=cfg.sliding_window)
@@ -430,6 +486,7 @@ def lm_verify(params, tokens: torch.Tensor, cache: dict, pos, cfg: ModelConfig):
     follow committing rows 0..j-1, bit for bit (``attention.gqa_verify``).
     The cache comes back unchanged; the caller commits only the accepted
     prefix (``lm_commit_verify``)."""
+    _check_verify_layout(cfg)
     pos = _chunk_pos(pos, tokens)
     return _verify(params, tokens, cfg, cache, ("k", "v"), pos, cache["k"].shape[2],
                    lambda i, lp, h, positions, steps, uw: attn.gqa_verify(
@@ -454,6 +511,7 @@ def lm_verify_paged(params, tokens: torch.Tensor, cache: dict, block_table: torc
     decode step's attention (``ops.paged_attention``, the CUDA kernel on the
     card) through each row's block table over the ``*_pages`` pool. Same
     return contract; commit with :func:`lm_commit_verify_paged`."""
+    _check_verify_layout(cfg)
     pos = _chunk_pos(pos, tokens)
     t = block_table.shape[1] * cache["k_pages"].shape[2]
     return _verify(params, tokens, cfg, cache, ("k_pages", "v_pages"), pos, t,

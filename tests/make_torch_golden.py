@@ -4,15 +4,21 @@
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_torch_golden.py --arch ID
 
 With ``--arch`` (one of ``chip_smoke.FAMILY_GOLDEN["archs"]``: internlm2-1.8b,
-gemma2-2b) it writes that family's golden instead,
-``src/repro_torch/golden_<arch>.json``: the config at full width, depth cut
-to ``chip_smoke.FAMILY_GOLDEN``'s layer count, f32 params and compute,
-weights from ``init_params_numpy``; the reference's greedy ``generate``
-tokens on the golden prompt with f32 weights and with int8 weights, and
-how many of them the port's plain path reproduces on the CPU, each
-setting replayed on the reference's tokens too (the steps where the port
-chooses another token, with the margin). A few GB and a minute or two a
-family (gemma2's 256,000 x 2304 tied embedding is the largest leaf).
+gemma2-2b, minicpm3-4b, deepseek-v2-lite-16b) it writes that family's golden
+instead, ``src/repro_torch/golden_<arch>.json``: the config at full width,
+depth cut to ``chip_smoke.FAMILY_GOLDEN``'s layer count, f32 params and
+compute, weights from ``init_params_numpy``; the reference's greedy
+``generate`` tokens on the golden prompt with f32 weights and with int8
+weights, and how many of them the port's plain path reproduces on the CPU,
+each setting replayed on the reference's tokens too (the steps where the
+port chooses another token, with the margin), and where the CPU run is not
+exact the first int8 rounding (or MoE router choice) in which the two
+packages differ along the reference's tokens (``port_cpu_first_difference``,
+``tests/_torch_families.first_difference``). A few GB and a minute or two a
+family (gemma2's 256,000 x 2304 tied embedding is the largest leaf);
+deepseek-v2-lite-16b's 2 x 64 experts make ~8 GB of f32 weights a package.
+dbrx-132b has no golden: 2 layers at full width are ~6.5 G weights, ~26 GB
+of f32 in each package.
 
 Builds TinyLlama at full width (depth cut to ``chip_smoke.GOLDEN``'s layer
 count, f32 params and compute) with ``repro_torch.bridge.init_params_numpy``,
@@ -63,6 +69,7 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from _torch_families import first_difference  # noqa: E402
 from _torch_helpers import both_flags, numpy_to_jax  # noqa: E402
 from repro.models.registry import build, load_config  # noqa: E402
 from repro.serving.batching import Request, serve_ragged  # noqa: E402
@@ -124,22 +131,27 @@ def family_golden(arch: str) -> None:
     cache_len = fg["prompt_len"] + fg["max_new_tokens"]
     tparams = params_from_numpy(tree, "cpu")
     out = dict(fg, arch=arch, d_model=cfg.d_model, prompt=prompt.tolist(), tokens={},
-               port_cpu_equal={}, port_cpu_replay_differs={})
+               port_cpu_equal={}, port_cpu_replay_differs={}, port_cpu_first_difference={})
     for setting in fg["settings"]:
         quantize = setting if setting != "float32" else False
         eng = InferenceEngine(build(cfg), numpy_to_jax(tree), quantize=quantize,
                               cache_len=cache_len)
         want = np.asarray(eng.generate({"tokens": jnp.asarray(prompt, jnp.int32)},
                                        fg["max_new_tokens"]).tokens)
-        del eng
         te = TEngine(tbuild(cfg_port), tparams, quantize=quantize, cache_len=cache_len,
                      device="cpu")
         got = te.generate({"tokens": torch.as_tensor(prompt)}, fg["max_new_tokens"]).tokens
         out["tokens"][setting] = want.tolist()
         out["port_cpu_equal"][setting] = _equal(got.tolist(), want.tolist())
         # the steps where the port's CPU run, fed the reference's tokens,
-        # chooses another token (with the margin)
+        # chooses another token (with the margin), and where it is not
+        # exact, the first rounding or router choice behind it
         out["port_cpu_replay_differs"][setting] = chip_smoke.replay_choices(te, prompt, want)
+        if out["port_cpu_equal"][setting] != want.size:
+            out["port_cpu_first_difference"][setting] = first_difference(eng, te, prompt, want)
+            print(f"{arch} {setting}: first difference "
+                  f"{out['port_cpu_first_difference'][setting]}", flush=True)
+        del eng
         print(f"{arch} {setting}: the port's plain CPU run reproduces "
               f"{out['port_cpu_equal'][setting]}/{want.size} tokens; replayed, it differs at "
               f"{out['port_cpu_replay_differs'][setting]}", flush=True)

@@ -25,6 +25,20 @@ def test_tinyllama_config_equals_reference(reduced):
         assert getattr(cfg, prop) == getattr(ref, prop), prop
 
 
+@pytest.mark.parametrize("reduced", [False, True])
+@pytest.mark.parametrize("arch", ["dbrx-132b", "deepseek-v2-lite-16b", "minicpm3-4b"])
+def test_moe_mla_configs_equal_reference(arch, reduced):
+    """The MoE and MLA configs field for field, their MoEConfig / MLAConfig
+    and reduced() cut included."""
+    ref, cfg = jreg.load_config(arch), registry.load_config(arch)
+    if reduced:
+        ref, cfg = ref.reduced(), cfg.reduced()
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
+    assert (cfg.moe is None) == (ref.moe is None) and (cfg.mla is None) == (ref.mla is None)
+    for prop in ("vocab_padded", "resolved_head_dim", "q_dim", "kv_dim"):
+        assert getattr(cfg, prop) == getattr(ref, prop), prop
+
+
 def test_dataclass_fields_and_defaults_match_reference():
     mine = {f.name: f.default for f in dataclasses.fields(ModelConfig)}
     ref = {f.name: f.default for f in dataclasses.fields(JModelConfig)}
@@ -67,8 +81,12 @@ def test_model_declares_capabilities():
 
 
 def test_build_refuses_unported_features():
-    # MoE (dbrx) is not ported; gemma2's window, caps and norms are
+    # a frontend other than pixtral's patch embeddings (seamless's speech frames) is
+    # not ported; MoE, MLA and gemma2's window, caps and norms are
     cfg = dataclasses.replace(registry.load_config("tinyllama-1.1b").reduced(),
-                              moe=MoEConfig(num_experts=4, top_k=2, d_expert=64))
+                              frontend="frames")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         registry.build(cfg)
+    moe = dataclasses.replace(registry.load_config("tinyllama-1.1b").reduced(),
+                              moe=MoEConfig(num_experts=4, top_k=2, d_expert=64))
+    assert registry.build(moe).supports_spec

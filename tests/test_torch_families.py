@@ -1,8 +1,11 @@
-"""The dense GQA families beside TinyLlama (internlm2-1.8b, deepseek-coder-33b,
-pixtral-12b with its patch-embed stub, gemma2-2b) in the port's model code,
+"""The families beside TinyLlama (internlm2-1.8b, deepseek-coder-33b,
+pixtral-12b with its patch-embed stub, gemma2-2b; the MoE and MLA families
+dbrx-132b, minicpm3-4b and deepseek-v2-lite-16b) in the port's model code,
 against the reference on their reduced configs with numpy-made weights
 (``bridge.init_params_numpy`` with random norm weights, so gemma2's
-``plus_one`` norms act), f32 and int8.
+``plus_one`` norms and MLA's latent and query norms act), f32 and int8.
+A MoE case also holds under a router near tie (``tests/_torch_families.py``):
+a top-k choice that one f32 ulp can flip moves a token by a whole expert.
 
 Tolerances are TinyLlama's (``tests/test_torch_model.py``): float weights
 atol 1e-4, int8 weights 2e-3 * max|logit| (an f32 reordering can flip one
@@ -43,7 +46,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from _torch_families import (  # noqa: E402
     CACHE_LEN, CASES, NORM_SCALE, PROMPT, LENGTHS, VERIFY_TOL, ARCHS, Held, both, hold,
-    matrix, patches, setup, tokens, tol, tree_of,
+    matrix, patches, setup, tokens, tol, top_k, tree_of,
 )
 from _torch_helpers import both_flags, numpy_to_jax  # noqa: E402
 from repro.core.policy import quantize_params as jquantize_params  # noqa: E402
@@ -178,7 +181,7 @@ def test_forward_matches_reference(case, quantized):
         if cfg.final_logit_softcap:
             assert got.abs().max() < cfg.final_logit_softcap
 
-    hold(run, quantized)
+    hold(run, quantized, top_k=top_k(cfg))
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -202,13 +205,15 @@ def test_blockwise_forward_and_prefill_match_reference(case):
         held.logits(tl, jl, "prefill")
         held.cache(tc, jc)
 
-    hold(run, False)
+    hold(run, False, top_k=top_k(cfg))
 
 
 @pytest.mark.parametrize("case,ragged,quantized", matrix(
     [(r, q) for r in (False, True) for q in (False, True)],
     {"internlm2-1.8b": [(True, True)], "deepseek-coder-33b": [(True, False)],
-     "pixtral-12b": [(False, True), (True, True)]}))
+     "pixtral-12b": [(False, True), (True, True)], "dbrx-132b": [(True, True)],
+     "minicpm3-4b": [(False, True), (True, False)],
+     "deepseek-v2-lite-16b": [(True, True), (False, False)]}))
 def test_prefill_logits_and_cache_match_reference(case, ragged, quantized):
     cfg, jcfg, params, jparams = setup(case, quantized)
     toks = tokens(cfg)
@@ -224,7 +229,7 @@ def test_prefill_logits_and_cache_match_reference(case, ragged, quantized):
         held.logits(tl, jl)
         held.cache(tc, jc)
 
-    hold(run, quantized)
+    hold(run, quantized, top_k=top_k(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -252,7 +257,7 @@ def _close(got, want, tol=VERIFY_TOL):
 
 @pytest.mark.parametrize("case,paged", matrix(
     [(False,), (True,)], {"internlm2-1.8b": [(True,)], "deepseek-coder-33b": [(False,)],
-                          "pixtral-12b": [(True,)]}))
+                          "pixtral-12b": [(True,)], "dbrx-132b": [(False,), (True,)]}))
 def test_verify_and_commit_match_reference(case, paged):
     """f32 weights: verify logits and K/V rows within 1e-5 of the
     reference's, then a partial commit (3 rows of one chunk, 1 of the
@@ -283,7 +288,7 @@ def test_verify_and_commit_match_reference(case, paged):
 
 
 @pytest.mark.parametrize("case,paged", matrix(
-    [(False,), (True,)], {"deepseek-coder-33b": [(True,)]}))
+    [(False,), (True,)], {"deepseek-coder-33b": [(True,)], "dbrx-132b": [(False,), (True,)]}))
 def test_verify_rows_are_decode_steps_bit_for_bit(case, paged):
     """int8 weights: verify row m's logits equal those of the decode step at
     pos + m bit for bit (each layer's window mask and both caps included),

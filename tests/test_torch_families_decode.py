@@ -1,4 +1,4 @@
-"""The dense GQA families' decode steps against the reference on their
+"""The families' decode steps against the reference on their
 reduced configs (``tests/test_torch_families.py`` states the weights, the
 tolerances and the int8 tie rule; ``tests/_torch_families.py`` the cases):
 three decode steps at per-row positions past gemma2's reduced window of 64
@@ -6,7 +6,9 @@ on the base cache, under ``deferred_decode_cache`` and
 ``kvt_cache_layout`` (entered in both packages) and over the int8 KV cache;
 and three paged decode steps over a float or int8 block pool under a
 permuted block table; logits every step and the cache or pool after the
-last.
+last. The MLA families' latent cache takes the plain and the deferred
+decode (``kvt_cache_layout`` selects the deferred one, as in the
+reference); dbrx's MoE runs over the base cache and the paged pool.
 """
 
 import numpy as np
@@ -16,7 +18,9 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
-from _torch_families import CACHE_LEN, LENGTHS, both, hold, matrix, setup, tokens  # noqa: E402
+from _torch_families import (  # noqa: E402
+    CACHE_LEN, LENGTHS, both, hold, matrix, setup, tokens, top_k,
+)
 from _torch_helpers import both_flags  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
@@ -29,7 +33,9 @@ DECODE_MODES = {"plain": {}, "deferred": {"deferred_decode_cache": True},
     [("plain", False), ("plain", True), ("deferred", False), ("kvt", False),
      ("int8_kv", False)],
     {"internlm2-1.8b": [("plain", True)], "deepseek-coder-33b": [("kvt", False)],
-     "pixtral-12b": [("int8_kv", False)]},
+     "pixtral-12b": [("int8_kv", False)], "dbrx-132b": [("plain", True)],
+     "minicpm3-4b": [("plain", True), ("deferred", False)],
+     "deepseek-v2-lite-16b": [("plain", False), ("kvt", True)]},
     tight=[("plain", False), ("deferred", False), ("int8_kv", False)]))
 def test_decode_vector_positions_match_reference(case, mode, quantized):
     """Ragged prefill, then three decode steps at per-row positions past
@@ -60,13 +66,14 @@ def test_decode_vector_positions_match_reference(case, mode, quantized):
                 jpos, tpos = jpos + 1, tpos + 1
         held.cache(tc, jc)
 
-    hold(run, quantized, kvq)
+    hold(run, quantized, kvq, top_k(cfg))
 
 
 @pytest.mark.parametrize("case,kv_quant,quantized", matrix(
     [(None, False), (None, True), ("int8", False)],
     {"internlm2-1.8b": [(None, True)], "deepseek-coder-33b": [("int8", False)],
-     "pixtral-12b": [(None, False)]}, tight=[(None, False), ("int8", False)]))
+     "pixtral-12b": [(None, False)], "dbrx-132b": [(None, True)]},
+    tight=[(None, False), ("int8", False)]))
 def test_decode_paged_matches_reference(case, kv_quant, quantized):
     """The contiguous prefill cache as a block pool under a permuted table,
     then three paged decode steps past the window: logits and the pool."""
@@ -99,6 +106,6 @@ def test_decode_paged_matches_reference(case, kv_quant, quantized):
             tok, pos = np.asarray(jlog).argmax(-1), pos + 1
         held.cache(tpool, jpool)
 
-    hold(run, quantized, kv_quant)
+    hold(run, quantized, kv_quant, top_k(cfg))
 
 

@@ -1,9 +1,11 @@
-"""The dense GQA families through ``serve_ragged`` against the reference on
-their reduced configs (``tests/test_torch_families_serving.py`` states the
+"""The families through ``serve_ragged`` against the reference on their
+reduced configs (``tests/test_torch_families_serving.py`` states the
 weights and gemma2's window, cut to 16): the paged, continuous and
-bucketed modes, and speculative (k = 4) in the first two, whose tokens
-must equal the reference's vanilla ones. Every mode runs on gemma2, one
-on its tight-cap case and on each plain GQA family.
+bucketed modes, and speculative (k = 4) in the first two where the family
+verifies, whose tokens must equal the reference's vanilla ones. Every mode
+runs on gemma2, one on its tight-cap case and on each plain GQA family and
+dbrx; the MLA families (no paged pool, no verify) run the continuous
+(minicpm3) and bucketed (deepseek-v2-lite) modes.
 """
 
 import numpy as np
@@ -38,7 +40,8 @@ def _same(got, want):
 @pytest.mark.parametrize("case,mode", [
     ("gemma2-2b", "paged"), ("gemma2-2b", "continuous"), ("gemma2-2b", "bucketed"),
     ("gemma2-2b-tight", "paged"), ("internlm2-1.8b", "continuous"),
-    ("deepseek-coder-33b", "bucketed"), ("pixtral-12b", "paged")])
+    ("deepseek-coder-33b", "bucketed"), ("pixtral-12b", "paged"), ("dbrx-132b", "paged"),
+    ("minicpm3-4b", "continuous"), ("deepseek-v2-lite-16b", "bucketed")])
 def test_serve_ragged_modes_and_spec_match_reference(case, mode):
     jeng, teng = serving_engines(case, True, SERVE_CACHE)
     cfg = teng.cfg
@@ -46,6 +49,6 @@ def test_serve_ragged_modes_and_spec_match_reference(case, mode):
     want = jbatching.serve_ragged(jeng, _requests(jbatching, cfg), 10, **kw)
     got = batching.serve_ragged(teng, _requests(batching, cfg), 10, **kw)
     _same(got, want)
-    if mode != "bucketed":
+    if mode != "bucketed" and teng.model.supports_spec:
         spec = batching.serve_ragged(teng, _requests(batching, cfg), 10, spec_k=4, **kw)
         _same(spec, want)

@@ -1,15 +1,18 @@
-"""The dense GQA families beside TinyLlama (internlm2-1.8b, deepseek-coder-33b,
-pixtral-12b, gemma2-2b, and gemma2 with caps that bend its values) on the
-port's serving paths, against the reference on their reduced configs with
-numpy-made weights (random norm weights, ``tests/test_torch_families.py``):
+"""The families beside TinyLlama (internlm2-1.8b, deepseek-coder-33b,
+pixtral-12b, gemma2-2b, and gemma2 with caps that bend its values; dbrx-132b,
+minicpm3-4b and deepseek-v2-lite-16b) on the port's serving paths, against
+the reference on their reduced configs with numpy-made weights (random norm
+weights, ``tests/test_torch_families.py``):
 
 - ``generate``, contiguous and paged, f32 and int8 weights: greedy tokens
   equal to the reference's; speculative (k = 4, the n-gram drafter) equal
   to vanilla decode's, and on the contiguous path to the reference's
   speculative run with its ``spec_stats``; pixtral with its patch
-  embeddings;
+  embeddings; the MoE and MLA families' contiguous generate with f32, int8
+  and mixed3 weights (the MLA families have no paged or speculative path);
 - ``serve_ragged``: ``tests/test_torch_families_ragged.py``;
-- the serve CLI on each reduced family, ragged and speculative;
+- the serve CLI on each reduced family, ragged (and speculative where the
+  family verifies);
 - the capability flags of every ported arch against ``tests/arch_matrix.py``
   and the reference's, and ``kernels/bounds.table`` for every ported config.
 
@@ -33,7 +36,8 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 import arch_matrix  # noqa: E402
-from _torch_families import ARCHS, serving_engines  # noqa: E402
+from _torch_families import first_difference, traced  # noqa: E402
+from _torch_families import ARCHS, MOE_MLA, serving_engines  # noqa: E402
 from repro.models import registry as jreg  # noqa: E402
 from repro_torch.kernels import bounds  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -56,7 +60,7 @@ def _batch(cfg, b=2, s=PROMPT, seed=0):
     *(("gemma2-2b", p, q) for p in (False, True) for q in (False, True)),
     ("gemma2-2b-tight", False, True), ("gemma2-2b-tight", True, False),
     ("internlm2-1.8b", False, True), ("deepseek-coder-33b", True, True),
-    ("pixtral-12b", False, False)])
+    ("pixtral-12b", False, False), ("dbrx-132b", False, True), ("dbrx-132b", True, False)])
 def test_generate_greedy_and_spec_match_reference(case, paged, quantize):
     """24-token prompts and 12 new tokens: gemma2's decode passes its
     window of 16."""
@@ -91,13 +95,38 @@ def test_generate_with_patch_embeds_matches_reference():
     assert len(teng.graphs.programs) == 4     # prefill and decode, each signature
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch,setting", [
+    *((a, q) for a in MOE_MLA for q in (False, True)),
+    ("minicpm3-4b", "mixed3"), ("deepseek-v2-lite-16b", "mixed3")])
+def test_generate_greedy_matches_reference_moe_mla(arch, setting):
+    """The MoE and MLA families' greedy generate (contiguous cache) with f32
+    and int8 weights, and the MLA ones with mixed3 (int3 attention and FFN,
+    deepseek-v2-lite's experts included; dbrx's int3 parting from the
+    reference at a .5 tie is ROADMAP Queue C's record):
+    tokens equal to the reference's, or, with quantized weights, parted
+    only by a tie: along the reference's tokens the first decision the two
+    packages make differently is an int8 rounding on a .5 boundary or a
+    router near tie (``tests/_torch_families.first_difference``)."""
+    jeng, teng = serving_engines(arch, setting, CACHE_LEN)
+    batch = _batch(teng.cfg)
+    want = np.asarray(jeng.generate({k: jnp.asarray(v) for k, v in batch.items()}, 12).tokens)
+    got = teng.generate({k: torch.as_tensor(v) for k, v in batch.items()}, 12).tokens.numpy()
+    if not np.array_equal(got, want):
+        assert setting, (got, want)
+        first = first_difference(jeng, teng, batch["tokens"], want)
+        assert traced(first["kind"], first["values"]), first
+
+
+@pytest.mark.parametrize("arch", ARCHS + MOE_MLA)
 def test_serve_cli_runs_each_family_on_cpu(arch, capsys):
+    """The ragged CLI, speculative where the family verifies (the MLA ones
+    serve continuously, with no paged pool)."""
+    mla = registry.load_config(arch).mla is not None
     out = serve.main(["--arch", arch, "--reduced", "--batch", "2", "--prompt-len", "6",
-                      "--steps", "3", "--device", "cpu", "--ragged", "--slots", "2",
-                      "--spec-k", "2"])
+                      "--steps", "3", "--device", "cpu", "--ragged", "--slots", "2"]
+                     + ([] if mla else ["--spec-k", "2"]))
     text = capsys.readouterr().out
-    assert f"arch: {arch}" in text and "ragged (paged" in text
+    assert f"arch: {arch}" in text and ("ragged (continuous" if mla else "ragged (paged") in text
     assert len(out) == 2 and all(r.tokens.shape == (3,) for r in out)
 
 
@@ -111,7 +140,11 @@ def test_capability_flags_match_arch_matrix_and_reference(arch):
     assert model.cache_kind == jmodel.cache_kind == "kv"
     for hook in ("init_paged_cache", "decode_paged", "verify", "commit_verify",
                  "verify_paged", "commit_verify_paged", "insert_slots", "gather_slots"):
-        assert callable(getattr(model, hook)) and callable(getattr(jmodel, hook)), hook
+        # the MLA families declare no paged or verify hook, as in the reference
+        assert callable(getattr(model, hook)) is callable(getattr(jmodel, hook)), hook
+        assert callable(getattr(model, hook)) or getattr(model, hook) is None, hook
+    assert callable(model.insert_slots) and callable(model.gather_slots)
+    assert callable(model.decode_paged) is model.supports_paged is (model.cfg.mla is None)
 
 
 @pytest.mark.parametrize("arch", registry.PORTED_ARCHS)
@@ -125,11 +158,16 @@ def test_bounds_table_runs_for_every_ported_config(arch, capsys):
     assert capsys.readouterr().out.startswith(f"{arch}:")
 
 
-@pytest.mark.parametrize("arch", ["internlm2-1.8b", "gemma2-2b"])
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "gemma2-2b", "minicpm3-4b",
+                                  "deepseek-v2-lite-16b"])
 def test_family_golden_file_matches_chip_smoke(arch):
     """golden_<arch>.json holds what chip_smoke.py's family golden reads: its
     settings, the prompt, the reference's tokens for f32 and int8 weights,
-    and the port's plain CPU run, which reproduced every one of them."""
+    and the port's plain CPU run, which reproduced every one of them, or
+    (the MLA families' int8 runs) lost tokens only behind a traced tie: the
+    first int8 rounding in which the packages differ along the reference's
+    tokens lies on a .5 boundary in both, and every replayed step the port
+    would choose otherwise is within TIE_MARGIN of max|logit|."""
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
@@ -147,7 +185,13 @@ def test_family_golden_file_matches_chip_smoke(arch):
         toks = np.asarray(golden["tokens"][setting])
         assert toks.shape == (cs.FAMILY_GOLDEN["batch"], cs.FAMILY_GOLDEN["max_new_tokens"])
         assert ((toks >= 0) & (toks < cfg.vocab_size)).all()
-        assert golden["port_cpu_equal"][setting] == total
-        assert golden["port_cpu_replay_differs"][setting] == []
+        if golden["port_cpu_equal"][setting] == total:
+            assert golden["port_cpu_replay_differs"][setting] == []
+            continue
+        assert setting == "int8" and cfg.mla is not None, setting
+        first = golden["port_cpu_first_difference"][setting]
+        assert traced(first["kind"], [tuple(v) for v in first["values"]]), first
+        assert golden["port_cpu_replay_differs"][setting]
+        assert all(d["margin"] <= cs.TIE_MARGIN for d in golden["port_cpu_replay_differs"][setting])
     assert len(golden["weights_checksum"]) == 64
     assert golden["made_by"] == f"tests/make_torch_golden.py --arch {arch}"

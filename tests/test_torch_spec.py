@@ -479,7 +479,7 @@ def test_resolve_drafter():
     with pytest.raises(ValueError, match="unknown drafter"):
         spec.resolve_drafter("medusa")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        spec.resolve_drafter("model:dbrx-132b", reduced=True, device="cpu")
+        spec.resolve_drafter("model:rwkv6-7b", reduced=True, device="cpu")
 
 
 # ---------------------------------------------------------------------------
