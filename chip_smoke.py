@@ -204,7 +204,9 @@ printing no result, when CUDA is missing. Phases, each fatal on failure:
              first-step logits against the plain versions within 5e-2 *
              max|logit|, or for a MoE family whose router choices flipped
              between the two runs, the flips printed with their margins and
-             every projection held to its plain version on the same input;
+             hold_per_kernel's rule (every kernel held to its plain version
+             on the same input, the plain run with the kernels launched
+             beside it bit-equal; the one-ulp change printed);
              for internlm2, gemma2 and dbrx the ragged paged serve over the
              first 8 requests of phase 5's trace (replayed == eager, the
              paged kernel once a layer a decode step), dbrx's also in
@@ -218,10 +220,48 @@ printing no result, when CUDA is missing. Phases, each fatal on failure:
              paged) and the prefill under blockwise_attention, each step's
              logits against the plain versions'; pixtral's prefill of a
              320-token prompt whose first 256 positions are patch
-             embeddings, against the plain versions. Last, the internlm2,
-             gemma2, minicpm3 and deepseek-v2-lite goldens
+             embeddings, against the plain versions by hold_per_kernel's
+             rule, its logits within ULP_FACTOR x the one-ulp change. Last,
+             the internlm2, gemma2, minicpm3 and deepseek-v2-lite goldens
              (golden_<arch>.json: 2 layers, f32, f32 and int8 weights), held
              to TinyLlama's 2-layer rule.
+
+9. recurrent: rwkv6-7b and zamba2-7b (Mamba2 SSD + a shared attention
+             block) at full width and every layer (RECURRENT_ARCHS), bf16,
+             int8 weights from the port's init. (a) the int8 GQMM at b in
+             {1, 4, 256} and the streamed int8 GQMV at every projection
+             shape of both (zamba2's win 14576 x 3584, wout, the shared
+             block's wqkv / wo / w13 / w2, the classifiers; rwkv6's six
+             4096 x 4096 mixing matrices, wff1, wff2), timed beside their
+             bounds and plain versions; int4, int3 and fp8 GQMM at b 4 and
+             256, checked; B4 bf16 at the shape zamba2's blockwise prefill
+             gives it (4 x 64, 32/32 heads, hd 112), SDPA beside it. (b)
+             generate as phase 8's (b 4, prompt 64, 32 tokens; replayed ==
+             eager in tokens and launches; 257 and 215 GQMMs a decode step;
+             the bytes bound with the recurrent state read and written; the
+             first-step logits kernel vs plain within LOGIT_TOL, or, as at
+             full depth these random models carry one f32 ulp at layer 0 to
+             ~1e-1 of max|logit| and more, hold_per_kernel: every kernel of
+             the prefill held to its plain version on the same input, the
+             plain prefill with every kernel launched beside it bit-equal,
+             and the logits within ULP_FACTOR x the one-ulp change of the
+             all-plain prefill). (c) serve_ragged of 8 requests (prompts of
+             16, 24 or 32 tokens, budgets 8-32, 4 slots, chunk 4) in
+             continuous mode (the RecurrentAdapter) and bucketed mode,
+             replayed == eager. (d) zamba2: a prefill under
+             blockwise_attention runs the flash kernel 13 times (once per
+             shared-block application), logits against plain by (b)'s rule
+             (its checked run holds the 13 flash calls too); generate under
+             deferred decode, the kvt layout and int8_kv_cache replayed ==
+             eager, the shared cache kvt and float. (e) zamba2's 1 x 512
+             tokens with the chunked SSD (chunk 128) against the sequential
+             scan: layer 0's output and state within RECURRENT_CHUNKED's
+             tolerances, the whole prefill's logits printed. (f) the
+             reference's refusals (paged, spec_k, kv_quant, lengths=). (g)
+             the rwkv6 (2 layers) and zamba2 (7 layers) goldens, held to the
+             families' rule, and each int8 golden model's first-step logits
+             kernel vs plain within LOGIT_TOL. Budget 150 s; its time is
+             printed.
 
 A [graphs] line sums up eager against replayed: int8 decode ms/step wall
 and on the card with the busy share, the 4 x 64 prefill, the ragged tok/s,
@@ -238,6 +278,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import concurrent.futures
 import contextlib
 import dataclasses
 import hashlib
@@ -265,6 +306,8 @@ from repro_torch.core.quant import (  # noqa: E402
     quantize_activation,
 )
 from repro_torch.core import flags  # noqa: E402
+from repro_torch.core.qlinear import embedding_lookup  # noqa: E402
+from repro_torch.core.tree import tree_index  # noqa: E402
 from repro_torch.kernels import bounds, cuda_build, ops  # noqa: E402
 from repro_torch.kernels import flash_attn as fkern  # noqa: E402
 from repro_torch.kernels import gqmv as kern  # noqa: E402
@@ -276,6 +319,7 @@ from repro_torch.kernels.ref import (  # noqa: E402
     rmsnorm_quant_ref,
 )
 from repro_torch.models import mlp as mlpmod  # noqa: E402
+from repro_torch.models import ssm  # noqa: E402
 from repro_torch.models.common import NEG_INF, decode_mask, rmsnorm  # noqa: E402
 from repro_torch.models.registry import build, load_config  # noqa: E402
 from repro_torch.models.transformer import _layer_windows, contiguous_to_paged  # noqa: E402
@@ -401,10 +445,14 @@ GOLDEN_DEEP = {"num_layers": 22, "settings": ["float32", "int8"]}
 # the families' goldens (golden_<arch>.json, tests/make_torch_golden.py
 # --arch): full width, 2 layers, f32 compute, weights from
 # init_params_numpy; the reference's greedy tokens with f32 and int8 weights
-FAMILY_GOLDEN = {"archs": ["internlm2-1.8b", "gemma2-2b", "minicpm3-4b", "deepseek-v2-lite-16b"],
+FAMILY_GOLDEN = {"archs": ["internlm2-1.8b", "gemma2-2b", "minicpm3-4b", "deepseek-v2-lite-16b",
+                           "rwkv6-7b", "zamba2-7b"],
                  "num_layers": 2, "dtype": "float32",
                  "settings": ["float32", "int8"], "seed": 0, "prompt_seed": 1, "batch": 2,
                  "prompt_len": 16, "max_new_tokens": 16}
+# zamba2's golden depth: at 2 layers it has no shared block; 7 is one group
+# of 6 Mamba2 layers, one shared-block application and a tail layer
+FAMILY_GOLDEN_LAYERS = {"zamba2-7b": 7}
 DEEP_CARD_TIES = {"int8": [(11, 0)]}      # (decode step, batch row)
 # the golden ragged trace, served by serve_ragged(mode="paged") on the
 # golden model with a float, int8 and fp8 KV pool
@@ -493,6 +541,44 @@ FAMILY_PAGED = (("internlm2", 8, 2, 128, 2048, None, None),
                 ("gemma2 w4096 cap50", 4, 2, 256, 4608, 4096, 50.0),
                 ("dbrx", 8, 6, 128, 2048, None, None))
 FAMILY_PAGED_B = 8
+# phase 9: the recurrent families at full width and every layer, bf16 and
+# int8 weights from the port's init
+RECURRENT_ARCHS = ("rwkv6-7b", "zamba2-7b")
+RECURRENT_BUDGET_S = 150
+RECURRENT_MODEL_TYPES = ("rwkv6", "zamba2")
+# a family whose kernel logits leave the plain ones by more than LOGIT_TOL
+# is held per kernel, and (but for a MoE, whose router flips jump) its
+# logits to ULP_FACTOR x the change one f32 ulp at layer 0 makes in the
+# plain run (hold_per_kernel)
+ULP_FACTOR = 2.0
+# GQMM launches a decode step: rwkv6 8 a layer + the classifier; zamba2 2
+# a Mamba2 layer, 4 a shared-block application (13) + the classifier
+RECURRENT_GQMM_PER_STEP = {"rwkv6-7b": 257, "zamba2-7b": 215}
+# (a) the int8 GQMM at these b and the int8 GQMV, timed, at every projection
+# shape of both configs; int4, int3 and fp8 GQMM at RECURRENT_CHECKED_B,
+# checked; B4 bf16 at the shape zamba2's blockwise prefill gives it (the
+# serve's 4 x 64 prompt, 32/32 heads, hd 112; phase 2's zamba2_1x2048 row
+# holds one 2048-token prompt)
+RECURRENT_KERNEL_BATCHES = (1, 4, 256)
+RECURRENT_CHECKED_B = (4, 256)
+RECURRENT_FLASH = ("zamba2 4x64", 4, 32, 32, 64, 112, None, None)
+# (c) serve_ragged: prompts of exact lengths from a few values, so the
+# exact-length prefill programs (a per-position scan each) stay few
+RECURRENT_RAGGED = {"requests": 8, "prompt_lens": (16, 24, 32), "budgets": (8, 32), "seed": 0,
+                    "slots": 4, "chunk": 4}
+# (d) zamba2's shared cache under the KV-layout flags (kvt, floats)
+RECURRENT_FLAGS = {"deferred_decode_cache": True, "kvt_cache_layout": True,
+                   "int8_kv_cache": True}
+# (e) the chunked SSD against the sequential scan, zamba2's first Mamba2
+# layer over 1 x 512 tokens. Tolerance: the CPU test
+# (tests/test_torch_recurrent.py) holds the two forms within 1e-4 of each
+# other at f32 (|y| ~ 1), f32 reordering; here each form's f32 y is rounded
+# to bf16 (2^-8 relative) before the gate norm and wout, so the outputs may
+# sit a couple of bf16 steps apart: 1e-2 of max|y|; the f32 state h keeps
+# the f32 rule, 1e-4 of max|h|. The whole prefill's logits are printed
+# beside the model's one-ulp sensitivity (phase 9 (b)): at full depth the
+# random model carries one f32 ulp to ~1e-1 of max|logit|
+RECURRENT_CHUNKED = {"b": 1, "s": 512, "chunk": 128, "y_tol": 1e-2, "h_tol": 1e-4}
 SOURCES = {**{f"{k}_{f}": "src/repro_torch/csrc/gqmm.cu" for f in WEIGHT_FORMATS
               for k in ("gqmv", "gqmm")},
            "paged_attn": "src/repro_torch/csrc/paged_attn.cu",
@@ -526,8 +612,17 @@ def family_golden_file(arch: str) -> Path:
     return ROOT / "src" / "repro_torch" / f"golden_{arch.replace('-', '_').replace('.', '_')}.json"
 
 
+def family_golden_settings(arch: str) -> dict:
+    """What golden_<arch>.json was made with: FAMILY_GOLDEN but its arch
+    list, at the arch's golden depth."""
+    out = {k: v for k, v in FAMILY_GOLDEN.items() if k != "archs"}
+    out["num_layers"] = FAMILY_GOLDEN_LAYERS.get(arch, FAMILY_GOLDEN["num_layers"])
+    return out
+
+
 def family_golden_config(arch: str):
-    return dataclasses.replace(load_config(arch), num_layers=FAMILY_GOLDEN["num_layers"],
+    return dataclasses.replace(load_config(arch),
+                               num_layers=family_golden_settings(arch)["num_layers"],
                                param_dtype=FAMILY_GOLDEN["dtype"],
                                compute_dtype=FAMILY_GOLDEN["dtype"])
 
@@ -1310,6 +1405,72 @@ def family_projections() -> list[tuple[str, int, int, int]]:
     return out
 
 
+def _format_rows(gen, dev, name: str, m: int, n: int, pgs: int, formats, batches,
+                 gqmv: bool) -> list[dict]:
+    """GQMM of each of ``formats`` at each b of ``batches`` (and, with
+    ``gqmv``, GQMV) on random (m, n) weights at GS ``pgs``, each against its
+    plain version with phase 2's tolerance; checked, not timed."""
+    rows = []
+    for fmt in formats:
+        wq, ws = _rand_weights(gen, fmt, m, n, pgs, dev)
+        for kind, b in [("gqmm", bb) for bb in batches] + [("gqmv", 1)] * gqmv:
+            kfn, pfn = _kernel_fns(kind, fmt)
+            xq, xs = _rand_q(gen, (b, n) if kind == "gqmm" else (n,), pgs, dev)
+            err = check_close(f"{kind}_{fmt} {name} b={b}",
+                              kfn(wq, ws, xq, xs, group_size=pgs),
+                              pfn(wq, ws, xq, xs, group_size=pgs), fmt)
+            rows.append({"kernel": f"{kind}_{fmt}", "shape": name, "m": m, "n": n,
+                         "b": b, "gs": pgs, "groups": n // pgs, "max_abs_err": err,
+                         "design": ("%s/%d" % kern.gqmm_design(b, m, n, pgs, fmt)
+                                    if kind == "gqmm" else
+                                    kern.gqmv_design(n, fmt, wq.data_ptr() % 16 == 0))})
+        del wq, ws
+    return rows
+
+
+def _int8_rows(gen, dev, name: str, m: int, n: int, pgs: int, batches, timed,
+               tag: str) -> list[dict]:
+    """The int8 GQMM at each b of ``batches`` and the int8 GQMV on random
+    (m, n) weights at GS ``pgs``, against their plain versions; the GQMV and
+    the GQMM at the b in ``timed`` timed as phase 2's rows are (weight
+    copies past the L2, behind a GPU spin), each beside its bound from
+    kernels/bounds.py and its plain version's time."""
+    rows = []
+    wq, ws = _rand_weights(gen, "int8", m, n, pgs, dev)
+    copies = max(1, math.ceil(160e6 / (wq.numel() + 4 * ws.numel())))
+    pool = [(wq, ws)] + [(wq.clone(), ws.clone()) for _ in range(copies - 1)]
+    for kind, b in [("gqmm", bb) for bb in batches] + [("gqmv", 1)]:
+        kfn, pfn = _kernel_fns(kind, "int8")
+        xq, xs = _rand_q(gen, (b, n) if kind == "gqmm" else (n,), pgs, dev)
+        got = kfn(wq, ws, xq, xs, group_size=pgs)
+        err = check_close(f"{kind}_int8 {name} b={b}", got,
+                          pfn(wq, ws, xq, xs, group_size=pgs))
+        if kind == "gqmm" and b not in timed:
+            rows.append({"kernel": "gqmm_int8", "shape": name, "m": m, "n": n, "b": b,
+                         "gs": pgs, "groups": n // pgs, "max_abs_err": err,
+                         "design": "%s/%d" % kern.gqmm_design(b, m, n, pgs)})
+            continue
+        k_ms, _ = device_time_ms(lambda i: kfn(*pool[i % copies], xq, xs, group_size=pgs),
+                                 max(50, 2 * copies))
+        p_ms, _ = device_time_ms(lambda i: pfn(*pool[i % copies], xq, xs, group_size=pgs), 3,
+                                 host_ms_guess=2.0)
+        bnd = bounds.projection("int8", m, n, b, pgs)
+        row = {"kernel": f"{kind}_int8", "shape": name, "m": m, "n": n, "b": b, "gs": pgs,
+               "groups": n // pgs, "max_abs_err": err, "us": 1e3 * k_ms,
+               "plain_us": 1e3 * p_ms, "bound_us": 1e6 * bnd.seconds,
+               "bound_by": bnd.bound_by,
+               "design": ("%s/%d" % kern.gqmm_design(b, m, n, pgs) if kind == "gqmm"
+                          else kern.gqmv_design(n, "int8", True))}
+        rows.append(row)
+        log(f"[{tag}] {kind}_int8 {name:30s} m={m:6d} n={n:5d} b={b:3d} "
+            f"({n // pgs} groups of {pgs})  max|err| {err:.2e}  {row['us']:9.1f} us  plain "
+            f"{row['plain_us']:9.1f} us  bound {row['bound_us']:7.1f} us ({bnd.bound_by}, "
+            f"{100 * row['bound_us'] / row['us']:.1f} % of it)  design {row['design']} "
+            f"[{CARD['smi']}]")
+    del pool
+    return rows
+
+
 def phase_family_kernels(dev) -> list[dict]:
     """The int8 GQMM (b in FAMILY_KERNEL_BATCHES) and the int8 GQMV at every
     projection of the families, against their plain versions, timed as
@@ -1324,53 +1485,13 @@ def phase_family_kernels(dev) -> list[dict]:
     checked = 0
     for name, m, n, pgs in family_projections():
         if name.split()[0] in FAMILY_ALL_FORMATS:
-            for fmt in WEIGHT_FORMATS[1:]:
-                wq, ws = _rand_weights(gen, fmt, m, n, pgs, dev)
-                for kind, b in [("gqmm", bb) for bb in FAMILY_KERNEL_BATCHES] + [("gqmv", 1)]:
-                    kfn, pfn = _kernel_fns(kind, fmt)
-                    xq, xs = _rand_q(gen, (b, n) if kind == "gqmm" else (n,), pgs, dev)
-                    err = check_close(f"{kind}_{fmt} {name} b={b}",
-                                      kfn(wq, ws, xq, xs, group_size=pgs),
-                                      pfn(wq, ws, xq, xs, group_size=pgs), fmt)
-                    rows.append({"kernel": f"{kind}_{fmt}", "shape": name, "m": m, "n": n,
-                                 "b": b, "gs": pgs, "groups": n // pgs, "max_abs_err": err,
-                                 "design": ("%s/%d" % kern.gqmm_design(b, m, n, pgs, fmt)
-                                            if kind == "gqmm" else
-                                            kern.gqmv_design(n, fmt, wq.data_ptr() % 16 == 0))})
-                    checked += 1
-                del wq, ws
-        wq, ws = _rand_weights(gen, "int8", m, n, pgs, dev)
-        copies = max(1, math.ceil(160e6 / (wq.numel() + 4 * ws.numel())))
-        pool = [(wq, ws)] + [(wq.clone(), ws.clone()) for _ in range(copies - 1)]
-        for kind, b in [("gqmm", bb) for bb in FAMILY_KERNEL_BATCHES] + [("gqmv", 1)]:
-            kfn, pfn = _kernel_fns(kind, "int8")
-            xq, xs = _rand_q(gen, (b, n) if kind == "gqmm" else (n,), pgs, dev)
-            got = kfn(wq, ws, xq, xs, group_size=pgs)
-            err = check_close(f"{kind}_int8 {name} b={b}", got,
-                              pfn(wq, ws, xq, xs, group_size=pgs))
-            if kind == "gqmm" and b not in FAMILY_TIMED_BATCHES.get(name.split()[0], (b,)):
-                rows.append({"kernel": "gqmm_int8", "shape": name, "m": m, "n": n, "b": b,
-                             "gs": pgs, "groups": n // pgs, "max_abs_err": err,
-                             "design": "%s/%d" % kern.gqmm_design(b, m, n, pgs)})
-                continue
-            k_ms, _ = device_time_ms(lambda i: kfn(*pool[i % copies], xq, xs, group_size=pgs),
-                                     max(50, 2 * copies))
-            p_ms, _ = device_time_ms(lambda i: pfn(*pool[i % copies], xq, xs, group_size=pgs), 3,
-                                     host_ms_guess=2.0)
-            bnd = bounds.projection("int8", m, n, b, pgs)
-            row = {"kernel": f"{kind}_int8", "shape": name, "m": m, "n": n, "b": b, "gs": pgs,
-                   "groups": n // pgs, "max_abs_err": err, "us": 1e3 * k_ms,
-                   "plain_us": 1e3 * p_ms, "bound_us": 1e6 * bnd.seconds,
-                   "bound_by": bnd.bound_by,
-                   "design": ("%s/%d" % kern.gqmm_design(b, m, n, pgs) if kind == "gqmm"
-                              else kern.gqmv_design(n, "int8", True))}
-            rows.append(row)
-            log(f"[families kernels] {kind}_int8 {name:30s} m={m:6d} n={n:5d} b={b:3d} "
-                f"({n // pgs} groups of {pgs})  max|err| {err:.2e}  {row['us']:9.1f} us  plain "
-                f"{row['plain_us']:9.1f} us  bound {row['bound_us']:7.1f} us ({bnd.bound_by}, "
-                f"{100 * row['bound_us'] / row['us']:.1f} % of it)  design {row['design']} "
-                f"[{CARD['smi']}]")
-        del pool
+            fr = _format_rows(gen, dev, name, m, n, pgs, WEIGHT_FORMATS[1:],
+                              FAMILY_KERNEL_BATCHES, gqmv=True)
+            rows += fr
+            checked += len(fr)
+        rows += _int8_rows(gen, dev, name, m, n, pgs, FAMILY_KERNEL_BATCHES,
+                           FAMILY_TIMED_BATCHES.get(name.split()[0], FAMILY_KERNEL_BATCHES),
+                           "families kernels")
     log(f"[families kernels] int4, int3 and fp8 at the projections of {FAMILY_ALL_FORMATS}: "
         f"{checked} cases (GQMM at b {FAMILY_KERNEL_BATCHES}, GQMV) within phase 2's tolerances")
     # odd group counts: every format, both GQMM designs where b allows, and
@@ -1421,6 +1542,39 @@ def _visible_pairs(s: int, window: int | None) -> int:
     return window * (window + 1) // 2 + (s - window) * window
 
 
+def _flash_row(gen, dev, case: tuple, tag: str) -> dict:
+    """Flash attention (bf16, the tensor-core kernel) of one (name, b, H,
+    KV, s, hd, window, cap) case against its plain version with phase 2's
+    tolerance, timed, with the bound from the work this data needs (the
+    window's pairs only) and, without a window or cap,
+    scaled_dot_product_attention on the same inputs."""
+    name, b, h, kv, s, hd, window, cap = case
+    dt = torch.bfloat16
+    q = torch.randn((b * h, s, hd), generator=gen, device=dev).to(dt)
+    k = torch.randn((b * kv, s, hd), generator=gen, device=dev).to(dt)
+    v = torch.randn((b * kv, s, hd), generator=gen, device=dev).to(dt)
+    kw = dict(group=h // kv, scale=hd ** -0.5, causal=True, window=window, softcap=cap)
+    err, tol = check_flash(f"flash_attn {name}", fkern.flash_attention_cuda(q, k, v, **kw),
+                           q, k, v, **kw)
+    k_ms, _ = device_time_ms(lambda i: fkern.flash_attention_cuda(q, k, v, **kw), 20)
+    p_ms = profile_device(lambda: flash_attention_ref(q, k, v, **kw), 2)["device_ms"]
+    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+    bnd, by = bound_s(nbytes, 4 * hd * b * h * _visible_pairs(s, window), BF16_OPS_PER_S)
+    row = {"kernel": "flash_attn", "case": name, "dtype": "bfloat16", "b": b, "heads": h,
+           "kv_heads": kv, "s": s, "hd": hd, "window": window, "softcap": cap,
+           "max_abs_err": err, "tol": tol, "us": 1e3 * k_ms, "plain_us": 1e3 * p_ms,
+           "bound_us": 1e6 * bnd, "bound_by": by, "library_us": None}
+    if window is None and cap is None:
+        row["library_us"] = 1e3 * _sdpa_ms(q.reshape(b, h, s, hd), k.reshape(b, kv, s, hd),
+                                           v.reshape(b, kv, s, hd))[0]
+    log(f"[{tag}] {name:26s} H {h}/{kv} hd {hd} max|err| {err:.2e} (tol "
+        f"{tol:.1e})  {row['us']:9.2f} us  plain {row['plain_us']:9.1f} us  bound "
+        f"{row['bound_us']:7.2f} us ({by}, {100 * row['bound_us'] / row['us']:.1f} % of it)"
+        + (f"  sdpa {row['library_us']:7.2f} us" if row["library_us"] else
+           "  (no library call takes the window and cap)") + f" [{CARD['smi']}]")
+    return row
+
+
 def phase_family_attention(dev) -> tuple[list[dict], list[dict]]:
     """Flash attention (bf16, the tensor-core kernel) and paged attention
     (bf16 and int8 pools) at each family's attention shape, gemma2's with
@@ -1432,36 +1586,8 @@ def phase_family_attention(dev) -> tuple[list[dict], list[dict]]:
     gen = torch.Generator(device=dev).manual_seed(13)
     frows, prows = [], []
     dt = torch.bfloat16
-    for name, b, h, kv, s, hd, window, cap in FAMILY_FLASH:
-        q = torch.randn((b * h, s, hd), generator=gen, device=dev).to(dt)
-        k = torch.randn((b * kv, s, hd), generator=gen, device=dev).to(dt)
-        v = torch.randn((b * kv, s, hd), generator=gen, device=dev).to(dt)
-        kw = dict(group=h // kv, scale=hd ** -0.5, causal=True, window=window, softcap=cap)
-        got = fkern.flash_attention_cuda(q, k, v, **kw)
-        want = flash_attention_ref(q.float(), k.float(), v.float(), **kw)
-        err = (got.float() - want).abs().max().item()
-        tol = FLASH_TOL[dt] * want.abs().max().item()
-        if not err <= tol:
-            raise AssertionError(f"flash_attn {name}: kernel disagrees with its plain version "
-                                 f"({err:.3e} > {tol:.3e})")
-        k_ms, _ = device_time_ms(lambda i: fkern.flash_attention_cuda(q, k, v, **kw), 20)
-        p_ms = profile_device(lambda: flash_attention_ref(q, k, v, **kw), 2)["device_ms"]
-        nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
-        bnd, by = bound_s(nbytes, 4 * hd * b * h * _visible_pairs(s, window), BF16_OPS_PER_S)
-        row = {"kernel": "flash_attn", "case": name, "dtype": "bfloat16", "b": b, "heads": h,
-               "kv_heads": kv, "s": s, "hd": hd, "window": window, "softcap": cap,
-               "max_abs_err": err, "tol": tol, "us": 1e3 * k_ms, "plain_us": 1e3 * p_ms,
-               "bound_us": 1e6 * bnd, "bound_by": by, "library_us": None}
-        if window is None and cap is None:
-            row["library_us"] = 1e3 * _sdpa_ms(q.reshape(b, h, s, hd), k.reshape(b, kv, s, hd),
-                                               v.reshape(b, kv, s, hd))[0]
-        frows.append(row)
-        log(f"[families flash] {name:26s} H {h}/{kv} hd {hd} max|err| {err:.2e} (tol "
-            f"{tol:.1e})  {row['us']:9.2f} us  plain {row['plain_us']:9.1f} us  bound "
-            f"{row['bound_us']:7.2f} us ({by}, {100 * row['bound_us'] / row['us']:.1f} % of it)"
-            + (f"  sdpa {row['library_us']:7.2f} us" if row["library_us"] else
-               "  (no library call takes the window and cap)") + f" [{CARD['smi']}]")
-        del q, k, v, got, want
+    for case in FAMILY_FLASH:
+        frows.append(_flash_row(gen, dev, case, "families flash"))
     bs, b = 8, FAMILY_PAGED_B
     for (name, kv, g, hd, T, window, cap), pool in itertools.product(FAMILY_PAGED,
                                                                      ("float", "int8")):
@@ -1573,9 +1699,18 @@ def launches_per_pass(cfg, quantize, path: str = "decode") -> dict[str, int]:
         attn = (4 if cfg.mla.q_lora_rank else 3) + (path == "prefill")
     if cfg.moe:
         ffn = 2 * cfg.moe.num_experts + 2 * bool(cfg.moe.num_shared)
+    attn_n, ffn_n = attn * cfg.num_layers, ffn * cfg.num_layers
+    if cfg.model_type == "rwkv6":
+        # time mix wr, wk, wv, wg, wout (attn class); channel mix wffr,
+        # wff1, wff2 (ffn); the decay LoRA stays float
+        attn_n, ffn_n = 5 * cfg.num_layers, 3 * cfg.num_layers
+    elif cfg.model_type == "zamba2":
+        # each Mamba2 layer's win and wout (attn class), and the shared
+        # block's wqkv, wo and w13, w2 at each of its applications
+        groups = cfg.num_layers // cfg.shared_attn_every
+        attn_n, ffn_n = 2 * cfg.num_layers + 2 * groups, 2 * groups
     out: dict[str, int] = {}
-    for cls, count in (("attn", attn * cfg.num_layers), ("ffn", ffn * cfg.num_layers),
-                       ("classifier", 1)):
+    for cls, count in (("attn", attn_n), ("ffn", ffn_n), ("classifier", 1)):
         k = f"gqmm_{fmap[cls]}"
         out[k] = out.get(k, 0) + count
     return out
@@ -1818,10 +1953,11 @@ def _served(reqs, out, vocab_padded: int) -> int:
     return sum(resp.length for resp in out)
 
 
-def _ragged_pass(engine, reqs, mode: str, **kw) -> tuple[list, dict]:
+def _ragged_pass(engine, reqs, mode: str, *, slots: int = RAGGED["slots"],
+                 chunk: int = RAGGED["chunk"], **kw) -> tuple[list, dict]:
     """One serve_ragged pass, every launch count set to 0 just before it and
     read just after; host clock around it, ended by a synchronise."""
-    sk = dict(slots=RAGGED["slots"], chunk=RAGGED["chunk"])
+    sk = dict(slots=slots, chunk=chunk)
     if mode == "paged":
         sk.update(block_size=RAGGED["block_size"], **kw)
     kern.reset_launches()
@@ -1844,7 +1980,7 @@ def _ragged_pass(engine, reqs, mode: str, **kw) -> tuple[list, dict]:
                  "ms_per_decode_step": 1e3 * wall / sched.last_decode_steps})
     if mode == "paged":
         info.update(peak_blocks=sched.last_peak_blocks, pool_blocks=sched.num_blocks - 1,
-                    footprint_blocks=RAGGED["slots"] * sched.blocks_per_req)
+                    footprint_blocks=slots * sched.blocks_per_req)
     return out, info
 
 
@@ -2859,7 +2995,7 @@ def _check_logits(tag: str, got, want) -> float:
     return err
 
 
-def family_generate(dev, engine, tag: str) -> dict:
+def family_generate(dev, engine, tag: str, prefix: str = "families") -> dict:
     """Phase 3's generate at b 4, prompt 64, 32 greedy tokens on one family:
     replayed (counts zeroed just before, read just after) against an eager
     prefill + decode_step loop, whose tokens and launches must equal the
@@ -2915,27 +3051,29 @@ def family_generate(dev, engine, tag: str) -> dict:
         logits_k, _ = engine.prefill(batch)
         with ops.impl_scope("plain"):
             logits_p, _ = engine.prefill(batch)
-    err, flips = _check_family_logits(tag, engine, batch, logits_k, logits_p)
-    wbound = bounds.projection_pass(cfg, "int8", b)
+    err, rule = _check_family_logits(tag, engine, batch, logits_k, logits_p)
+    # the projections' bytes, and a recurrent family's state read and written
+    wbound = bounds.decode_step(cfg, "int8", b)
     census = graphs.census(dec_prog)
     gstats = engine.graphs.stats()
     out = {"tokens": toks.tolist(), "launches": launches, "per_pass": per_pass,
-           "prefill_pass": pre_pass, "router_flips": flips, "decode_graph": census,
+           "prefill_pass": pre_pass, "logit_rule": rule, "decode_graph": census,
            "captures": {k: {f: v[f] for f in ("captured", "capture_s", "pool_bytes")}
                         for k, v in gstats.items()},
            "decode_ms_wall": wall_ms, "decode_ms_device": dec_dev, "device_timing": timing,
            "busy_share": dec_dev / wall_ms, "eager_decode_ms": 1e3 * t_eager / new,
            "kernels_per_step": prof["kernels"], "gqmm_ms_per_step": prof["gqmm_ms"],
            "weight_bytes_per_step": wbound.nbytes,
+           "state_bytes_per_step": bounds.recurrent_state_bytes(cfg, b),
            "bytes_bound_ms": 1e3 * wbound.nbytes / HBM_BYTES_PER_S,
            "logit_rel_err": err, "first_token_agreement": (
                logits_k.argmax(-1) == logits_p.argmax(-1)).float().mean().item()}
-    log(f"[families {tag}] generate b={b}, prompt {p}, {new} tokens: replayed == eager "
+    log(f"[{prefix} {tag}] generate b={b}, prompt {p}, {new} tokens: replayed == eager "
         f"(tokens and launches {launches}); decode {wall_ms:.3f} ms/step wall, {dec_dev:.3f} on "
         f"the card ({timing}; {100 * out['busy_share']:.1f} % busy; eager "
         f"{out['eager_decode_ms']:.2f} "
         f"ms/step), {prof['kernels']} kernels a step, GQMM {prof['gqmm_ms']:.3f} ms; "
-        f"projection bytes a step {wbound.nbytes / 1e9:.3f} GB -> HBM bound "
+        f"bytes a step (projections, recurrent state) {wbound.nbytes / 1e9:.3f} GB -> HBM bound "
         f"{out['bytes_bound_ms']:.3f} ms; first-step logits kernel vs plain {err:.3e} "
         f"(tol {LOGIT_TOL}); decode graph {census['nodes']} nodes ({census['kernel_nodes']} "
         f"kernels); captures " + ", ".join(
@@ -2995,27 +3133,60 @@ def router_flips(engine, batch) -> list[dict]:
     return out
 
 
-def _check_family_logits(tag: str, engine, batch, got, want) -> tuple[float, list[dict]]:
-    """First-step logits, kernels against plain, within LOGIT_TOL; or, for a
-    MoE family, where a router choice flipped between the two runs: the
-    flips traced and printed with their margins (a flip moves a token's
-    FFN output by a whole expert), and every projection of the kernel
-    prefill held to its plain version on the same input instead."""
+def hold_per_kernel(tag: str, engine, batch, want, err: float, ulp_bound: bool = True) -> dict:
+    """The rule for a prefill whose kernel logits leave the plain versions'
+    (``want``) by ``err`` > LOGIT_TOL, every other op plain in each run
+    (``prefill_logits``): every kernel of the prefill held to its plain
+    version on the same input ("checked", raises); the plain prefill with
+    every kernel launched beside it must give ``want`` bit for bit (no
+    kernel acts outside its output, "shadow"); the plain prefill with one
+    f32 ulp moved at layer 0 ("ulp") says how far the model carries a
+    rounding-sized change, and with ``ulp_bound`` ``err`` must stay within
+    ULP_FACTOR x that."""
+    calls: dict[str, int] = {}
+    prefill_logits(engine, batch, "checked", calls)
+    if not torch.equal(prefill_logits(engine, batch, "shadow"), want.float()):
+        raise AssertionError(f"{tag}: launching the kernels beside the plain versions changed "
+                             "the plain logits")
+    ulp = _rel_err(prefill_logits(engine, batch, "ulp"), want)
+    if ulp_bound and err > ULP_FACTOR * ulp:
+        raise AssertionError(f"{tag}: kernel logits differ from plain by {err:.3e}, more than "
+                             f"{ULP_FACTOR} x the {ulp:.3e} that one f32 ulp at layer 0 makes")
+    log(f"[logit rule {tag}] logits kernel vs plain {err:.3e} (LOGIT_TOL {LOGIT_TOL}): every "
+        f"kernel of the prefill within its tolerance of its plain version on the same input ("
+        + ", ".join(f"{n} {k}" for k, n in sorted(calls.items()))
+        + "), kernels beside the plain run change nothing; one f32 ulp at layer 0's first "
+        f"projection moves the plain logits {ulp:.3e}"
+        + (f" (the kernels' within {ULP_FACTOR} x that)" if ulp_bound else ""))
+    return {"checked_calls": calls, "ulp_rel_err": ulp, "ulp_bound": ulp_bound}
+
+
+def _check_family_logits(tag: str, engine, batch, got, want) -> tuple[float, dict]:
+    """First-step logits, kernels against plain, within LOGIT_TOL; past it,
+    ``hold_per_kernel``'s rule (its record returned): for a recurrent
+    family, whose full depth carries one f32 ulp at layer 0 to ~1e-1 of
+    max|logit|; for a MoE family only where a router choice flipped between
+    the two runs (a flip moves a token's FFN output by a whole expert, so
+    the logits are not bounded by the one-ulp change there), the flips
+    traced and printed with their margins."""
     err = _rel_err(got, want)
-    if err <= LOGIT_TOL and bool(torch.isfinite(got).all()):
-        return err, []
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{tag} first step: non-finite kernel logits")
+    if err <= LOGIT_TOL:
+        return err, {}
+    if engine.cfg.model_type in RECURRENT_MODEL_TYPES:
+        return err, hold_per_kernel(tag, engine, batch, want, err)
     flips = router_flips(engine, batch) if engine.cfg.moe else []
-    if not flips or not bool(torch.isfinite(got).all()):
+    if not flips:
         raise AssertionError(f"{tag} first step: kernel logits differ from plain by {err:.3e} "
                              f"(tol {LOGIT_TOL}) and no router choice flipped")
-    prefill_logits(engine, batch, "checked")
     log(f"[families {tag}] first-step logits kernel vs plain {err:.3e} > {LOGIT_TOL}: "
         f"{len(flips)} router choices flipped between the two runs (first: layer "
         f"{flips[0]['layer']} row {flips[0]['row']} position {flips[0]['pos']}, margin "
         f"{flips[0]['margin']:.2e}; smallest margin {min(f['margin'] for f in flips):.2e}, "
-        f"largest {max(f['margin'] for f in flips):.2e}); every projection within {RTOL} of "
-        f"its plain version on the same input")
-    return err, flips
+        f"largest {max(f['margin'] for f in flips):.2e})")
+    return err, {"router_flips": flips,
+                 **hold_per_kernel(tag, engine, batch, want, err, ulp_bound=False)}
 
 
 def family_ragged_and_spec(dev, engine, gen_out: dict, tag: str) -> dict:
@@ -3212,29 +3383,50 @@ def patch_batch(cfg, seed: int = 0) -> dict:
 
 
 @contextlib.contextmanager
-def projections_as(fn):
+def projections_as(fn, attention=None):
     """Every quantized projection inside the block runs ``fn(qmm, x, w)``,
-    ``qmm`` being ops.quantized_matmul itself (restored on exit)."""
-    qmm = ops.quantized_matmul
+    ``qmm`` being ops.quantized_matmul itself, and with ``attention`` every
+    flash attention call ``attention(fa, q, k, v, **kw)``, ``fa`` being
+    ops.flash_attention (both restored on exit)."""
+    qmm, fa = ops.quantized_matmul, ops.flash_attention
     ops.quantized_matmul = lambda x, w, *, impl=None, xq=None: fn(qmm, x, w)
+    if attention is not None:
+        ops.flash_attention = lambda q, k, v, *, impl=None, **kw: attention(fa, q, k, v, **kw)
     try:
         yield
     finally:
-        ops.quantized_matmul = qmm
+        ops.quantized_matmul, ops.flash_attention = qmm, fa
 
 
-def prefill_logits(engine, batch, mode: str = "kernel") -> torch.Tensor:
-    """A prefill's logits, its projections run as ``mode`` says: "kernel";
-    "plain"; "checked" (the kernel, each output held to the plain version on
-    the same input by ``check_close``); "shadow" (the plain version's
-    output, the kernel launched beside it on the same input and dropped:
-    any effect a kernel has outside its output shows); "ulp" (the plain
-    version's, layer 0's first output moved one f32 ulp up: how far the
-    model carries a rounding-sized change)."""
-    calls = itertools.count()
+def check_flash(name, got, q, k, v, **kw) -> tuple[float, float]:
+    """Flash attention's output against flash_attention_ref on the f32 of
+    the same inputs, within phase 2's FLASH_TOL of max|ref| (raises):
+    (max |err|, tol)."""
+    want = flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+    err = (got.float() - want).abs().max().item()
+    tol = FLASH_TOL[q.dtype] * want.abs().max().item()
+    if not err <= tol:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version "
+                             f"({err:.3e} > {tol:.3e})")
+    return err, tol
+
+
+def prefill_logits(engine, batch, mode: str = "kernel", counts: dict | None = None
+                   ) -> torch.Tensor:
+    """A prefill's logits, its kernels run as ``mode`` says: "kernel";
+    "plain"; "checked" (each projection's and flash attention call's kernel,
+    its output held to the plain version on the same input by
+    ``check_close`` / ``check_flash``); "shadow" (the plain versions'
+    outputs, each kernel launched beside on the same input and dropped: any
+    effect a kernel has outside its output shows); "ulp" (the plain
+    versions', layer 0's first projection output moved one f32 ulp up: how
+    far the model carries a rounding-sized change). The last three run
+    every other op plain. ``counts`` gets the calls by kind."""
+    calls = collections.Counter()
 
     def run(qmm, x, w):
-        i = next(calls)
+        i = calls["projections"]
+        calls["projections"] += 1
         if mode == "checked":
             y = qmm(x, w, impl="cuda")
             check_close(f"projection call {i} x {tuple(x.shape)} w {tuple(w.shape)}", y,
@@ -3247,14 +3439,29 @@ def prefill_logits(engine, batch, mode: str = "kernel") -> torch.Tensor:
             want = torch.nextafter(want, torch.full_like(want, float("inf")))
         return want
 
+    def attend(fa, q, k, v, **kw):
+        i = calls["flash_attention"]
+        calls["flash_attention"] += 1
+        if mode == "checked":
+            y = fa(q, k, v, impl="cuda", **kw)
+            check_flash(f"flash attention call {i} q {tuple(q.shape)} k {tuple(k.shape)}", y,
+                        q, k, v, **kw)
+            return y
+        if mode == "shadow":
+            fa(q, k, v, impl="cuda", **kw)
+        return fa(q, k, v, impl="plain", **kw)
+
     with torch.inference_mode():
         if mode == "kernel":
             return engine.prefill(batch)[0].float()
-        if mode == "plain":
-            with ops.impl_scope("plain"):
+        with ops.impl_scope("plain"):
+            if mode == "plain":
                 return engine.prefill(batch)[0].float()
-        with projections_as(run):
-            return engine.prefill(batch)[0].float()
+            with projections_as(run, attend):
+                out = engine.prefill(batch)[0].float()
+    if counts is not None:
+        counts.update(calls)
+    return out
 
 
 def family_patches(dev, engine) -> dict:
@@ -3263,37 +3470,29 @@ def family_patches(dev, engine) -> dict:
     to LOGIT_TOL here: on this prompt the model carries a one-ulp change of
     layer 0's first projection to ~5e-2 of max|logit| (``tests/
     trace_torch_families.py``; ROADMAP Queue C), the tolerance itself. So
-    every projection of the kernel prefill is held to its plain version on
-    the same input (phase 2's rule), the plain prefill with every kernel
-    launched beside it must give the plain logits bit for bit (no kernel
-    acts outside its output), and the end-to-end difference is printed
-    beside the one-ulp one."""
+    ``hold_per_kernel``'s rule holds it, and the patch embeddings must
+    reach the logits."""
     cfg = engine.cfg
     batch = patch_batch(cfg)
     _reset_launches()
     lk = prefill_logits(engine, batch)
     launches = _launches()
     lp = prefill_logits(engine, batch, "plain")
-    prefill_logits(engine, batch, "checked")
-    if not torch.equal(prefill_logits(engine, batch, "shadow"), lp):
-        raise AssertionError("pixtral patch prefill: launching the kernels beside the plain "
-                             "versions changed the plain logits")
     if not bool(torch.isfinite(lk).all()):
         raise AssertionError("pixtral patch prefill: non-finite logits")
-    err, ulp = _rel_err(lk, lp), _rel_err(prefill_logits(engine, batch, "ulp"), lp)
+    err = _rel_err(lk, lp)
+    held = hold_per_kernel("pixtral-12b patch prefill", engine, batch, lp, err)
     with torch.inference_mode():
         text_only, _ = engine.prefill({"tokens": batch["tokens"]})
     moved = _rel_err(text_only, lk)
     if not moved > 0:
         raise AssertionError("pixtral: the patch embeddings did not reach the logits")
     log(f"[families pixtral-12b] prefill 1 x {FAMILY_PATCH_PROMPT}, the first "
-        f"{cfg.num_frontend_tokens} positions patch embeddings: every projection within "
-        f"{RTOL} of its plain version on the same input, kernels beside the plain run change "
-        f"nothing; logits kernel vs plain {err:.3e}, plain vs plain with one ulp moved "
-        f"{ulp:.3e} (of max|logit|); the text-only prompt's logits differ by {moved:.3e}; "
-        f"launches {launches}")
-    return {"logit_rel_err": err, "ulp_rel_err": ulp, "text_only_rel_diff": moved,
-            "launches": launches}
+        f"{cfg.num_frontend_tokens} positions patch embeddings: logits kernel vs plain "
+        f"{err:.3e}, plain vs plain with one ulp moved {held['ulp_rel_err']:.3e} (of "
+        f"max|logit|); the text-only prompt's logits differ by {moved:.3e}; launches {launches}")
+    return {"logit_rel_err": err, "ulp_rel_err": held["ulp_rel_err"],
+            "text_only_rel_diff": moved, "launches": launches}
 
 
 def phase_families(dev) -> dict:
@@ -3329,27 +3528,39 @@ def phase_families(dev) -> dict:
         del engine, model
         torch.cuda.empty_cache()
         log(f"[families {arch}] {res['seconds']:.1f} s")
-    out["goldens"] = family_goldens(dev)
+    out["goldens"] = family_goldens(dev, [a for a in FAMILY_GOLDEN["archs"]
+                                          if a not in RECURRENT_ARCHS])
     return out
 
 
-def family_goldens(dev) -> dict:
-    """The families' goldens (golden_<arch>.json): full width, 2 layers,
-    f32, weights by init_params_numpy; greedy tokens with f32 and int8
-    weights must equal the reference's (the rule of TinyLlama's 2-layer
-    golden); where the port's own CPU run was not exact, the reference's
-    tokens replayed must each be the card's choice or within TIE_MARGIN."""
+def golden_tree(arch: str) -> tuple[dict, str]:
+    """The golden's numpy weights (init_params_numpy) and their checksum."""
+    tree = init_params_numpy(family_golden_config(arch), FAMILY_GOLDEN["seed"])
+    return tree, weights_checksum(tree)
+
+
+def family_goldens(dev, archs, drawn=None, hold_logits: bool = False) -> dict:
+    """The goldens of ``archs`` (golden_<arch>.json): full width, 2 layers
+    (zamba2 7), f32, weights by init_params_numpy (``drawn``: futures of
+    ``golden_tree`` by arch, drawn beside earlier work); greedy tokens with
+    f32 and int8 weights must equal the reference's (the rule of
+    TinyLlama's 2-layer golden); where the port's own CPU run was not
+    exact, the reference's tokens replayed must each be the card's choice
+    or within TIE_MARGIN. With ``hold_logits``, the quantized model's
+    first-step logits, kernels against plain, within LOGIT_TOL too (at this
+    depth a rounding-sized change stays small: the end-to-end check that
+    full depth cannot give)."""
     out = {}
     fg = FAMILY_GOLDEN
-    for arch in fg["archs"]:
+    for arch in archs:
         path = family_golden_file(arch)
         golden = json.loads(path.read_text())
-        for k, v in fg.items():
+        for k, v in family_golden_settings(arch).items():
             if golden[k] != v:
                 raise AssertionError(f"{path.name}: {k}={golden[k]!r}, this script uses {v!r}")
         cfg = family_golden_config(arch)
-        tree = init_params_numpy(cfg, fg["seed"])
-        if weights_checksum(tree) != golden["weights_checksum"]:
+        tree, checksum = drawn.pop(arch).result() if drawn else golden_tree(arch)
+        if checksum != golden["weights_checksum"]:
             raise AssertionError(f"{arch}: numpy drew other weights than the golden run")
         prompt = family_golden_prompt(cfg.vocab_size)
         if prompt.tolist() != golden["prompt"]:
@@ -3370,11 +3581,20 @@ def family_goldens(dev) -> dict:
             cpu = golden["port_cpu_equal"][setting]
             res[setting] = {"tokens_equal": same, "tokens_total": total, "cpu_tokens_equal": cpu,
                             "replay_differs": off}
+            held = ""
+            if hold_logits and setting != "float32":
+                batch = {"tokens": torch.as_tensor(prompt)}
+                err = _rel_err(prefill_logits(eng, batch), prefill_logits(eng, batch, "plain"))
+                if not err <= LOGIT_TOL:
+                    raise AssertionError(f"{arch} golden model ({setting}): first-step logits "
+                                         f"kernel vs plain {err:.3e} (tol {LOGIT_TOL})")
+                res[setting]["logit_rel_err"] = err
+                held = f"; first-step logits kernel vs plain {err:.3e} (tol {LOGIT_TOL})"
             log(f"[families golden] {arch} d {cfg.d_model} x {cfg.num_layers} layers f32, "
                 f"{setting} weights: {same}/{total} tokens equal the reference's (the port's "
                 f"CPU run: {cpu}/{total})"
                 + "".join(f"; step {o['step']} row {o['row']}: margin {o['margin']:.2e}"
-                          for o in off))
+                          for o in off) + held)
             if got != want and (cpu == total or any(o["margin"] > TIE_MARGIN for o in off)):
                 raise AssertionError(f"{arch} golden ({setting}) tokens differ:\n port {got}\n"
                                      f"  ref {want}\n replayed {off}")
@@ -3383,6 +3603,298 @@ def family_goldens(dev) -> dict:
         del params
         torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the recurrent families at full width
+# ---------------------------------------------------------------------------
+
+def recurrent_projections() -> list[tuple[str, int, int, int]]:
+    """(name, m, n, GS) of each distinct quantized weight shape of the two
+    recurrent configs (``bounds.layer_projections``; rwkv6's six d x d
+    matrices are one shape), the classifier (vocab_padded rows) included."""
+    out = []
+    for arch in RECURRENT_ARCHS:
+        cfg = load_config(arch)
+        shapes: dict[tuple[int, int], list[str]] = {}
+        for name, m, n, _ in bounds.layer_projections(cfg):
+            shapes.setdefault((m, n), []).append(name.replace("shared ", "shared-"))
+        shapes.setdefault((cfg.vocab_padded, cfg.d_model), []).append("classifier")
+        out += [(f"{arch} {'/'.join(names)}", m, n, bounds.group_size(cfg, n))
+                for (m, n), names in shapes.items()]
+    return out
+
+
+def phase_recurrent_kernels(dev) -> tuple[list[dict], list[dict]]:
+    """(a) The int8 GQMM at RECURRENT_KERNEL_BATCHES and the int8 GQMV at
+    every projection shape of rwkv6 and zamba2, timed beside their bounds
+    and plain versions; int4, int3 and fp8 GQMM at RECURRENT_CHECKED_B,
+    checked; B4 bf16 at RECURRENT_FLASH, the shape zamba2's blockwise
+    prefill gives it, SDPA beside it. Phase 2's tolerances."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    rows, checked = [], 0
+    for name, m, n, pgs in recurrent_projections():
+        fr = _format_rows(gen, dev, name, m, n, pgs, WEIGHT_FORMATS[1:], RECURRENT_CHECKED_B,
+                          gqmv=False)
+        rows += fr
+        checked += len(fr)
+        rows += _int8_rows(gen, dev, name, m, n, pgs, RECURRENT_KERNEL_BATCHES,
+                           RECURRENT_KERNEL_BATCHES, "recurrent kernels")
+    log(f"[recurrent kernels] int4, int3 and fp8 GQMM at b {RECURRENT_CHECKED_B}: {checked} "
+        f"cases within phase 2's tolerances")
+    return rows, [_flash_row(gen, dev, RECURRENT_FLASH, "recurrent flash")]
+
+
+def recurrent_trace(vocab_size: int) -> list[Request]:
+    rr = RECURRENT_RAGGED
+    rng = np.random.default_rng(rr["seed"])
+    lens = rng.choice(rr["prompt_lens"], size=rr["requests"])
+    budgets = rng.integers(rr["budgets"][0], rr["budgets"][1] + 1, size=rr["requests"])
+    return [Request(i, rng.integers(0, vocab_size, size=int(n)).tolist(), max_new=int(k))
+            for i, (n, k) in enumerate(zip(lens, budgets))]
+
+
+def recurrent_ragged(dev, engine, tag: str) -> dict:
+    """(c) RECURRENT_RAGGED's requests through serve_ragged in continuous
+    mode (the RecurrentAdapter: exact-length admission groups, a prefill
+    program per group size and length) and in bucketed mode (generate per
+    exact length): a cold pass that captures, then a replayed and an eager
+    pass, equal in tokens and launches."""
+    rr = RECURRENT_RAGGED
+    reqs = recurrent_trace(engine.cfg.vocab_size)
+    cache_len = max(len(r.tokens) + r.max_new for r in reqs)
+    reng = InferenceEngine(engine.model, engine.params, cache_len=cache_len, device=dev)
+    sk = dict(slots=rr["slots"], chunk=rr["chunk"])
+    out = {}
+    for mode in ("continuous", "bucketed"):
+        t0 = time.perf_counter()
+        _ragged_pass(reng, reqs, mode, **sk)                   # captures
+        cold = time.perf_counter() - t0
+        out_r, info = _ragged_pass(reng, reqs, mode, **sk)
+        with graphs.eager():
+            out_e, info_e = _ragged_pass(reng, reqs, mode, **sk)
+        same = all(np.array_equal(np.asarray(a.tokens), np.asarray(b.tokens))
+                   for a, b in zip(out_r, out_e))
+        la = {k: v for k, v in info["launches"].items() if v}
+        le = {k: v for k, v in info_e["launches"].items() if v}
+        if not same or la != le:
+            raise AssertionError(f"{tag} ragged {mode}: the eager pass differs from the replayed "
+                                 f"one ({le} vs {la})")
+        out[mode] = {"replayed": info, "eager": info_e, "cold_s": cold}
+        log(f"[recurrent {tag}] ragged {mode} serve, {len(reqs)} requests (prompts "
+            f"{sorted({len(r.tokens) for r in reqs})}): {info['tokens']} tokens, "
+            f"{info['tok_s']:.1f} tok/s replayed ({info_e['tok_s']:.1f} eager; cold pass "
+            f"{cold:.1f} s with its captures), replayed == eager (tokens and launches {la}) "
+            f"[{CARD['smi']}]")
+    out["captures"] = {k: {f: v[f] for f in ("builds", "captured", "capture_s", "pool_bytes")}
+                       for k, v in reng.graphs.stats().items()}
+    log(f"[recurrent {tag}] ragged captures: " + ", ".join(
+        f"{k} {v['captured']} ({v['capture_s']:.2f} s, {v['pool_bytes'] / 2**20:.0f} MiB)"
+        for k, v in sorted(out["captures"].items())))
+    return out
+
+
+def recurrent_refusals(dev, engine, batch) -> list[str]:
+    """(f) A recurrent family refuses what the reference refuses, with its
+    errors: a paged cache, spec_k (generate and serve), kv_quant, ragged
+    lengths=; the model declares no paged or verify hook."""
+    model, out = engine.model, []
+    lens = torch.full((batch["tokens"].shape[0],), batch["tokens"].shape[1])
+    reqs = recurrent_trace(engine.cfg.vocab_size)[:1]
+    calls = {"generate(paged=True)": lambda: engine.generate(batch, 2, paged=True),
+             "generate(spec_k=4)": lambda: engine.generate(batch, 2, spec_k=SPEC["k"]),
+             "generate(lengths=)": lambda: engine.generate(batch, 2, lengths=lens),
+             "InferenceEngine(kv_quant='int8')": lambda: InferenceEngine(
+                 model, engine.params, cache_len=8, device=dev, kv_quant="int8"),
+             "serve_ragged(mode='paged')": lambda: serve_ragged(engine, reqs, 2, mode="paged"),
+             "serve_ragged(spec_k=4)": lambda: serve_ragged(engine, reqs, 2, spec_k=SPEC["k"])}
+    for name, call in calls.items():
+        try:
+            call()
+        except ValueError as e:
+            out.append(f"{name}: {e}")
+            continue
+        raise AssertionError(f"{engine.cfg.arch_id}: {name} did not raise")
+    if model.supports_paged or model.supports_spec or model.supports_lengths or any(
+            getattr(model, h) is not None for h in ("init_paged_cache", "decode_paged", "verify",
+                                                    "commit_verify", "verify_paged",
+                                                    "commit_verify_paged")):
+        raise AssertionError(f"{engine.cfg.arch_id}: a recurrent model declares a ragged, "
+                             "paged or verify capability")
+    log(f"[recurrent {engine.cfg.arch_id}] refusals as in the reference: " + "; ".join(out))
+    return out
+
+
+def recurrent_flags(dev, engine, batch) -> dict:
+    """(d) zamba2 under the flags: a prefill under blockwise_attention runs
+    the flash kernel once per shared-block application (13, hd 112), its
+    logits against the plain versions' (phase 9's rule: LOGIT_TOL, else
+    ``hold_per_kernel``, which holds the flash calls too);
+    generate under deferred decode, the kvt layout and int8_kv_cache
+    replayed == an eager loop (tokens and launches), the shared cache kvt
+    and float."""
+    cfg = engine.cfg
+    groups = cfg.num_layers // cfg.shared_attn_every
+    new = SERVE["max_new_tokens"]
+    fname = fkern.kernel_name(cfg.cdtype())             # the tensor-core kernel at bf16
+    with flags.overrides(blockwise_attention=True):
+        with torch.inference_mode():
+            (logits_k, _), fl, gq = _flash_launches(lambda: engine.prefill(batch))
+        if fl != {fname: groups}:
+            raise AssertionError(f"zamba2 blockwise prefill: flash launches {fl}, expected "
+                                 f"{groups} of {fname}")
+        err, rule = _check_family_logits("zamba2-7b blockwise prefill", engine, batch,
+                                         logits_k.float(), prefill_logits(engine, batch, "plain"))
+    with flags.overrides(**RECURRENT_FLAGS):
+        engine.generate(batch, 2)                               # captures
+        _reset_launches()
+        res = engine.generate(batch, new)
+        launches = _launches()
+        _reset_launches()
+        eager, _, _ = step_loop(engine, batch, new)
+        le = _launches()
+        cache = engine.graphs.last["generate.decode"].inputs["cache"]
+    if not torch.equal(eager, res.tokens) or le != launches:
+        raise AssertionError(f"zamba2 under {RECURRENT_FLAGS}: replayed tokens/launches differ "
+                             f"from the eager loop's ({le} vs {launches})")
+    sk = cache["shared_k"]
+    if sk.dtype != cfg.cdtype() or tuple(sk.shape[2:4]) != (cfg.num_kv_heads,
+                                                             engine.cache_len):
+        raise AssertionError(f"zamba2 shared cache under the flags: {sk.dtype} {tuple(sk.shape)}, "
+                             "expected the kvt layout in floats")
+    log(f"[recurrent zamba2-7b] blockwise prefill: {fname} x {fl[fname]} (hd "
+        f"{cfg.resolved_head_dim}), logits vs plain {err:.3e}; generate under "
+        f"{sorted(RECURRENT_FLAGS)}: replayed == eager (tokens and launches {launches}), shared "
+        f"cache {str(sk.dtype).removeprefix('torch.')} {tuple(sk.shape)} [{CARD['smi']}]")
+    return {"blockwise_launches": {**fl, **gq}, "blockwise_logit_rel_err": err,
+            "blockwise_logit_rule": rule, "launches": launches,
+            "shared_cache": [str(sk.dtype), list(sk.shape)]}
+
+
+def recurrent_chunked(dev, engine, ulp: float | None) -> dict:
+    """(e) zamba2's first Mamba2 layer over 1 x 512 tokens with the chunked
+    SSD (chunk 128) against the sequential scan, on the card: y and the
+    final state h within RECURRENT_CHUNKED's tolerances (its comment says
+    why); then the whole 1 x 512 prefill in both forms, finite, its logits
+    printed beside the model's one-ulp sensitivity ``ulp``, both prefills
+    timed on the host clock."""
+    rc = RECURRENT_CHUNKED
+    cfg = engine.cfg
+    ceng = InferenceEngine(engine.model, engine.params, cache_len=rc["s"], device=dev)
+    rng = np.random.default_rng(SERVE["seed"] + 5)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(rc["b"], rc["s"])),
+                             device=dev)
+    lp = tree_index(tree_index(ceng.params["mamba_layers"], 0), 0)
+    chunked = {"chunked_ssd": True, "ssd_chunk": rc["chunk"]}
+    layer, times, logits = {}, {}, {}
+    for form, kw in (("sequential", {}), ("chunked", chunked)):
+        with flags.overrides(**kw), torch.inference_mode():
+            x = embedding_lookup(ceng.params["embed"], tokens, cfg.cdtype())
+            layer[form] = ssm.mamba2_forward(lp["mamba"], rmsnorm(x, lp["norm"], cfg.norm_eps),
+                                             cfg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits[form], _ = ceng.prefill({"tokens": tokens})
+            torch.cuda.synchronize()
+            times[form] = time.perf_counter() - t0
+    y_err = _rel_err(layer["chunked"][0], layer["sequential"][0])
+    h_err = _rel_err(layer["chunked"][1][1], layer["sequential"][1][1])
+    err = _rel_err(logits["chunked"], logits["sequential"])
+    if not (y_err <= rc["y_tol"] and h_err <= rc["h_tol"]
+            and bool(torch.isfinite(logits["chunked"]).all())):
+        raise AssertionError(f"zamba2 chunked SSD: layer 0's y {y_err:.3e} (tol {rc['y_tol']}), "
+                             f"h {h_err:.3e} (tol {rc['h_tol']}) from the sequential scan's, or "
+                             "non-finite logits")
+    log(f"[recurrent zamba2-7b] {rc['b']} x {rc['s']}, chunked SSD (chunk {rc['chunk']}) vs the "
+        f"sequential scan: layer 0 y {y_err:.3e} (tol {rc['y_tol']}), h {h_err:.3e} (tol "
+        f"{rc['h_tol']}) of max; the whole prefill's logits {err:.3e} of max|logit| (one f32 "
+        f"ulp moves the model's logits {ulp if ulp is not None else float('nan'):.3e}); "
+        f"eager wall {times['chunked']:.2f} s chunked, {times['sequential']:.2f} s sequential "
+        f"[{CARD['smi']}]")
+    return {"layer0_y_rel_err": y_err, "layer0_h_rel_err": h_err, "logit_rel_err": err,
+            "seconds": times}
+
+
+def phase_recurrent(dev) -> tuple[dict, list[dict], list[dict]]:
+    """Phase 9 (module docstring): (a) the kernels at the new shapes, then
+    each recurrent family at every layer: (b) generate, (c) the
+    ragged serve, (f) the refusals, zamba2's (d) flags and (e) chunked SSD;
+    (g) the goldens."""
+    t_start = time.perf_counter()
+    golden_archs = [a for a in FAMILY_GOLDEN["archs"] if a in RECURRENT_ARCHS]
+    # (g)'s numpy draws and hashes (~1 G values each) run on host threads
+    # beside (a)-(f)'s work on the card; numpy and hashlib release the GIL
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=len(golden_archs))
+    drawn = {a: pool.submit(golden_tree, a) for a in golden_archs}
+    pool.shutdown(wait=False)
+    krows, frows = phase_recurrent_kernels(dev)
+    out = {"kernels_s": time.perf_counter() - t_start}
+    for arch in RECURRENT_ARCHS:
+        t0 = time.perf_counter()
+        cfg = load_config(arch)
+        model = build(cfg)
+        params = model.init(seed=SERVE["seed"], device=dev)
+        engine = InferenceEngine(model, params, quantize=True, device=dev,
+                                 cache_len=SERVE["prompt_len"] + SERVE["max_new_tokens"]
+                                 + SPEC["k"])
+        del params
+        torch.cuda.synchronize()
+        log(f"[recurrent {arch}] full width d {cfg.d_model}, d_ff {cfg.d_ff}, vocab "
+            f"{cfg.vocab_size}, {cfg.num_layers} layers, {cfg.param_dtype}, int8 weights, "
+            f"state {bounds.recurrent_state_bytes(cfg, SERVE['batch']) / 2 / 1e6:.1f} MB at b "
+            f"{SERVE['batch']}")
+        res = family_generate(dev, engine, arch, prefix="recurrent")
+        got = res["per_pass"].get("gqmm_int8")
+        if got != RECURRENT_GQMM_PER_STEP[arch]:
+            raise AssertionError(f"{arch}: {got} GQMMs a decode step, expected "
+                                 f"{RECURRENT_GQMM_PER_STEP[arch]}")
+        res["ragged"] = recurrent_ragged(dev, engine, arch)
+        res["refusals"] = recurrent_refusals(dev, engine, res["batch"])
+        if arch == "zamba2-7b":
+            res["flags"] = recurrent_flags(dev, engine, res["batch"])
+            ulp = res["logit_rule"].get("ulp_rel_err")
+            res["chunked"] = recurrent_chunked(dev, engine, ulp)
+        res.pop("batch")
+        res.update({"layers": cfg.num_layers, "seconds": time.perf_counter() - t0})
+        out[arch] = res
+        del engine, model
+        torch.cuda.empty_cache()
+        log(f"[recurrent {arch}] {res['seconds']:.1f} s")
+    t0 = time.perf_counter()
+    out["goldens"] = family_goldens(dev, golden_archs, drawn, hold_logits=True)
+    out["goldens_s"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"[recurrent] phase 9 took {out['seconds']:.1f} s (budget {RECURRENT_BUDGET_S} s; "
+        f"kernels {out['kernels_s']:.1f}, goldens {out['goldens_s']:.1f})")
+    return out, krows, frows
+
+
+def recurrent_runs(rec: dict) -> dict[str, dict[str, int]]:
+    """Phase 9's launch counts by run (each counted from 0 just before it)."""
+    runs = {}
+    for arch in RECURRENT_ARCHS:
+        r = rec[arch]
+        runs[f"phase 9 {arch} generate"] = r["launches"]
+        for mode in ("continuous", "bucketed"):
+            runs[f"phase 9 {arch} ragged {mode}"] = r["ragged"][mode]["replayed"]["launches"]
+        if "flags" in r:
+            runs[f"phase 9 {arch} blockwise prefill"] = r["flags"]["blockwise_launches"]
+            runs[f"phase 9 {arch} generate under the KV flags"] = r["flags"]["launches"]
+    return runs
+
+
+def recurrent_summary(rec: dict, smi: str) -> None:
+    for arch in RECURRENT_ARCHS:
+        r = rec[arch]
+        rg = r["ragged"]
+        log(f"[recurrent] {arch}: {r['layers']} layers; decode b="
+            f"{SERVE['batch']} {r['decode_ms_wall']:.3f} ms/step wall, {r['decode_ms_device']:.3f} "
+            f"on the card ({100 * r['busy_share']:.1f} % busy), {r['kernels_per_step']} kernels "
+            f"a step, GQMM {r['gqmm_ms_per_step']:.3f} ms; bytes a step "
+            f"{r['weight_bytes_per_step'] / 1e9:.3f} GB (state "
+            f"{r['state_bytes_per_step'] / 1e9:.3f}), HBM bound {r['bytes_bound_ms']:.3f} ms; "
+            f"ragged continuous {rg['continuous']['replayed']['tok_s']:.1f} tok/s, bucketed "
+            f"{rg['bucketed']['replayed']['tok_s']:.1f}; {r['seconds']:.1f} s [{smi}]")
 
 
 def _phase_gqmm_launches(kname, kind, serves, ragged, flagres, spec) -> dict[str, int]:
@@ -3572,10 +4084,9 @@ def family_runs(fam: dict) -> dict[str, dict[str, int]]:
     return runs
 
 
-def add_families(entries: list[dict], fam: dict, rows: list[dict]) -> None:
-    """Phase 8's launches and the families' phase-2 rows into the kernels
-    line's entries."""
-    runs = family_runs(fam)
+def add_runs(entries: list[dict], runs: dict, rows: list[dict], key: str) -> None:
+    """A phase's launches by run and its kernel rows (under ``key``) into the
+    kernels line's entries."""
     for e in entries:
         by_run = e.setdefault("launches_by_run", {})
         for run, counts in runs.items():
@@ -3584,8 +4095,14 @@ def add_families(entries: list[dict], fam: dict, rows: list[dict]) -> None:
                 e["launches"] += counts[e["name"]]
         mine = [r for r in rows if r["kernel"] == e["name"]]
         if mine:
-            e["family_shapes"] = mine
+            e[key] = mine
             e["max_abs_err"] = max([e["max_abs_err"]] + [r["max_abs_err"] for r in mine])
+
+
+def add_families(entries: list[dict], fam: dict, rows: list[dict]) -> None:
+    """Phase 8's launches and the families' phase-2 rows into the kernels
+    line's entries."""
+    add_runs(entries, family_runs(fam), rows, "family_shapes")
 
 
 def family_summary(fam: dict, smi: str) -> None:
@@ -3664,6 +4181,7 @@ def main(argv=None) -> int:
     fam = phase_families(dev)
     fam_s = time.perf_counter() - t_fam
     log(f"[families] phase 8 with its phase-2 shapes took {fam_s:.1f} s")
+    rec, rkrows, rfrows = phase_recurrent(dev)
 
     s8, pf = serves["int8"], ragged["passes"]["paged_float"]
     log(f"[graphs] int8, batch {SERVE['batch']}: decode eager {s8['eager']['decode_ms_per_step']:.2f} "
@@ -3701,7 +4219,9 @@ def main(argv=None) -> int:
     entries = kernel_entries(rows, gsrows + tcrows + mvrows, serves, prows, ragged, frows,
                              rqrows, flagres, golden, spec)
     add_families(entries, fam, famrows + ffrows + fprows)
+    add_runs(entries, recurrent_runs(rec), rkrows + rfrows, "recurrent_shapes")
     family_summary(fam, smi)
+    recurrent_summary(rec, smi)
     for e in entries:
         log(f"[kernels] {e['name']:16s} {e['launches']:6d} launches  {1e3 * e['ms']:10.3f} us  "
             f"bound {1e3 * e['bound_ms']:9.3f} us ({e['bound_by']}, {100 * e['bound_share']:.1f} "
@@ -3721,6 +4241,8 @@ def main(argv=None) -> int:
              "spec": spec,
              "family_kernel_rows": famrows, "family_flash_rows": ffrows,
              "family_paged_rows": fprows, "families": fam, "families_seconds": fam_s,
+             "recurrent_kernel_rows": rkrows, "recurrent_flash_rows": rfrows,
+             "recurrent": rec,
              "kernels": entries,
              "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

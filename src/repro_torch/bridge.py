@@ -78,10 +78,14 @@ def init_params_numpy(cfg: ModelConfig, seed: int, *, norm_scale: float = 0.0) -
     (``_DRAW_CHUNK``), the same numbers as one draw (numpy's stream is
     sequential).
 
+    The recurrent families draw their own trees (``_rwkv_numpy``,
+    ``_zamba_numpy``) with the reference's constants.
+
     ``norm_scale`` > 0 adds N(0, norm_scale^2) to every norm weight, drawn
     after all other leaves (so the other leaves do not change; MLA's
-    ``kv_norm``/``q_norm`` last), for tests that must see the norm weights
-    act (gemma2's + 1 included)."""
+    ``kv_norm``/``q_norm`` last; a recurrent tree's norms in sorted path
+    order), for tests that must see the norm weights act (gemma2's + 1
+    included)."""
     rng = np.random.RandomState(seed)
     d, L, vp = cfg.d_model, cfg.num_layers, cfg.vocab_padded
     norm = np.zeros if cfg.gemma_norms else np.ones
@@ -101,6 +105,11 @@ def init_params_numpy(cfg: ModelConfig, seed: int, *, norm_scale: float = 0.0) -
     def dense(out_dim, in_dim, lead=()):
         return normal((*lead, out_dim, in_dim), in_dim ** -0.5)
 
+    if cfg.model_type in _RECURRENT:
+        params = _RECURRENT[cfg.model_type](cfg, normal, dense)
+        if norm_scale:
+            _add_norm_noise(params, lambda shape: normal(shape, norm_scale))
+        return params
     params = {
         "embed": normal((vp, d), 0.02),
         "layers": {
@@ -156,3 +165,77 @@ def _moe_numpy(cfg: ModelConfig, dense) -> dict:
         f = m.d_expert * m.num_shared
         p["shared"] = {"w13": dense(2 * f, d, (L,)), "w2": dense(d, f, (L,))}
     return p
+
+
+def _rwkv_numpy(cfg: ModelConfig, normal, dense) -> dict:
+    """rwkv6's tree: the reference's constants (norms ones, mixes 0.5,
+    ``decay_w0`` -6) and draws (the decay LoRA and mixing matrices N(0,
+    1/in), ``bonus_u`` N(0, 0.1²)); embeddings, then the layers' drawn
+    leaves in the reference's order, then the classifier."""
+    d, f, L, vp = cfg.d_model, cfg.d_ff, cfg.num_layers, cfg.vocab_padded
+    hd = cfg.resolved_head_dim
+    embed = normal((vp, d), 0.02)
+    layers = {"att_norm": np.ones((L, d), np.float32),
+              **{m: np.full((L, d), 0.5, np.float32)
+                 for m in ("mix_r", "mix_k", "mix_v", "mix_g", "mix_w")},
+              "decay_w0": np.full((L, d), -6.0, np.float32),
+              "decay_lora_a": dense(64, d, (L,)), "decay_lora_b": dense(d, 64, (L,)),
+              "bonus_u": normal((L, d // hd, hd), 0.1)}
+    for name in ("wr", "wk", "wv", "wg", "wout"):
+        layers[name] = dense(d, d, (L,))
+    layers.update({"ffn_norm": np.ones((L, d), np.float32),
+                   "mix_ffn": np.full((L, d), 0.5, np.float32),
+                   "wffr": dense(d, d, (L,)), "wff1": dense(f, d, (L,)),
+                   "wff2": dense(d, f, (L,))})
+    return {"embed": embed, "layers": layers, "final_norm": np.ones((d,), np.float32),
+            "classifier": dense(vp, d)}
+
+
+def _zamba_numpy(cfg: ModelConfig, normal, dense) -> dict:
+    """zamba2's tree: Mamba2 layers (groups, per, ...) and, where
+    num_layers is no multiple of shared_attn_every, (tail, ...); ``win`` and
+    ``wout`` N(0, 1/in), ``conv_w`` N(0, 0.1²), ``a_log`` / ``dt_bias``
+    zeros, ``d_skip`` and the norms ones; the shared GQA + SwiGLU block.
+    Drawn in order: embeddings, the groups' Mamba2 layers, the shared
+    block, the classifier, the tail."""
+    d, vp, s = cfg.d_model, cfg.vocab_padded, cfg.ssm
+    k = cfg.shared_attn_every
+    groups, tail = cfg.num_layers // k, cfg.num_layers % k
+    d_inner = s.expand * d
+    nheads = d_inner // s.head_dim
+    conv_ch = d_inner + 2 * s.state_dim
+    in_dim = 2 * d_inner + 2 * s.state_dim + nheads
+
+    def mamba(lead):
+        return {"norm": np.ones((*lead, d), np.float32),
+                "mamba": {"win": dense(in_dim, d, lead),
+                          "conv_w": normal((*lead, s.conv_kernel, conv_ch), 0.1),
+                          "a_log": np.zeros((*lead, nheads), np.float32),
+                          "dt_bias": np.zeros((*lead, nheads), np.float32),
+                          "d_skip": np.ones((*lead, nheads), np.float32),
+                          "gate_norm": np.ones((*lead, d_inner), np.float32),
+                          "wout": dense(d, d_inner, lead)}}
+
+    params = {"embed": normal((vp, d), 0.02), "mamba_layers": mamba((groups, k)),
+              "shared": {"att_norm": np.ones((d,), np.float32),
+                         "attn": {"wqkv": dense(cfg.q_dim + 2 * cfg.kv_dim, d),
+                                  "wo": dense(d, cfg.q_dim)},
+                         "ffn_norm": np.ones((d,), np.float32),
+                         "mlp": {"w13": dense(2 * cfg.d_ff, d), "w2": dense(d, cfg.d_ff)}},
+              "final_norm": np.ones((d,), np.float32), "classifier": dense(vp, d)}
+    if tail:
+        params["tail_layers"] = mamba((tail,))
+    return params
+
+
+_RECURRENT = {"rwkv6": _rwkv_numpy, "zamba2": _zamba_numpy}
+
+
+def _add_norm_noise(tree: dict, draw) -> None:
+    """Add ``draw(shape)`` to every leaf whose key ends in "norm", in sorted
+    path order, in place."""
+    for key in sorted(tree):
+        if isinstance(tree[key], dict):
+            _add_norm_noise(tree[key], draw)
+        elif key.endswith("norm"):
+            tree[key] = tree[key] + draw(tree[key].shape)

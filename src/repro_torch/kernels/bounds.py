@@ -45,13 +45,32 @@ class Bound:
         return "bytes" if tb >= self.ops / PEAK_OPS_PER_S[self.rate] else "operations"
 
 
+def _gqa_swiglu(cfg: ModelConfig) -> list[tuple[str, int, int, int]]:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    return [("wqkv", (cfg.num_heads + 2 * cfg.num_kv_heads) * hd, d, 1),
+            ("wo", d, cfg.num_heads * hd, 1),
+            ("w13", 2 * cfg.d_ff, d, 1), ("w2", d, cfg.d_ff, 1)]
+
+
 def layer_projections(cfg: ModelConfig) -> list[tuple[str, int, int, int]]:
     """(name, m, n, count) of one layer's quantized weight matrices: GQA's
     wqkv and wo, or MLA's query projection(s), wdkv, wukv and wo; the dense
     SwiGLU's w13 and w2, or every expert's (count E) and the shared
     expert's. Every one is read each step (MLA's decode dequantizes wukv
-    where prefill runs it as a GQMM)."""
+    where prefill runs it as a GQMM). rwkv6: the time mix's wr, wk, wv, wg,
+    wout and the channel mix's wffr, wff1, wff2. zamba2: a Mamba2 layer's
+    win and wout, then the shared block's four ("shared ..."), which a
+    pass reads once per application (``pass_projections``)."""
     d, h = cfg.d_model, cfg.num_heads
+    if cfg.model_type == "rwkv6":
+        return ([(name, d, d, 1) for name in ("wr", "wk", "wv", "wg", "wout", "wffr")]
+                + [("wff1", cfg.d_ff, d, 1), ("wff2", d, cfg.d_ff, 1)])
+    if cfg.model_type == "zamba2":
+        s = cfg.ssm
+        d_inner = s.expand * d
+        win = 2 * d_inner + 2 * s.state_dim + d_inner // s.head_dim
+        return ([("win", win, d, 1), ("wout", d, d_inner, 1)]
+                + [(f"shared {name}", m, n, c) for name, m, n, c in _gqa_swiglu(cfg)])
     if cfg.mla:
         m = cfg.mla
         qk = h * (m.qk_nope_dim + m.qk_rope_dim)
@@ -74,9 +93,22 @@ def layer_projections(cfg: ModelConfig) -> list[tuple[str, int, int, int]]:
     return out
 
 
+def pass_projections(cfg: ModelConfig) -> list[tuple[str, int, int, int]]:
+    """(name, m, n, count) of the quantized projections of one forward pass
+    (the classifier apart): each layer's, and zamba2's shared block once
+    per application (num_layers // shared_attn_every: its 205.5 M weights
+    do not stay in the L2 from one application to the next)."""
+    out = []
+    for name, m, n, c in layer_projections(cfg):
+        shared = cfg.model_type == "zamba2" and name.startswith("shared ")
+        out.append((name, m, n, c * (cfg.num_layers // cfg.shared_attn_every if shared
+                                     else cfg.num_layers)))
+    return out
+
+
 def projections(cfg: ModelConfig) -> list[tuple[int, int, int]]:
     """(m, n, count) of the quantized projections of one forward pass."""
-    return ([(m, n, c * cfg.num_layers) for _, m, n, c in layer_projections(cfg)]
+    return ([(m, n, c) for _, m, n, c in pass_projections(cfg)]
             + [(cfg.vocab_size, cfg.d_model, 1)])
 
 
@@ -106,6 +138,36 @@ def projection_pass(cfg: ModelConfig, fmt: str, b: int) -> Bound:
 
 
 DTYPE_BYTES = {"bf16": 2, "f32": 4}
+
+
+def recurrent_state_bytes(cfg: ModelConfig, b: int) -> int:
+    """Bytes of a recurrent family's O(1) decode state, read and written
+    once each decode step at batch b (0 for the others): rwkv6's f32 wkv
+    (L, b, h, hd, hd) and its two token-shift rows (L, b, d); zamba2's f32
+    SSM state h (L, b, H, hd, N) and conv tails (L, b, k-1, channels). The
+    compute dtype's rows at bf16 width (the shared KV cache is attention's
+    and grows with the cache length: not counted)."""
+    e = DTYPE_BYTES["bf16"] if cfg.compute_dtype == "bfloat16" else DTYPE_BYTES["f32"]
+    L = cfg.num_layers
+    if cfg.model_type == "rwkv6":
+        hd = cfg.resolved_head_dim
+        one = 4 * b * cfg.d_model * hd + e * 2 * b * cfg.d_model
+    elif cfg.model_type == "zamba2":
+        s = cfg.ssm
+        d_inner = s.expand * cfg.d_model
+        one = 4 * b * d_inner * s.state_dim + e * b * (s.conv_kernel - 1) * (
+            d_inner + 2 * s.state_dim)
+    else:
+        return 0
+    return 2 * L * one
+
+
+def decode_step(cfg: ModelConfig, fmt: str, b: int) -> Bound:
+    """A decode step's bytes and operations at batch b: the projection pass
+    (:func:`projection_pass`) and the recurrent state read and written
+    (:func:`recurrent_state_bytes`)."""
+    p = projection_pass(cfg, fmt, b)
+    return Bound(p.nbytes + recurrent_state_bytes(cfg, b), p.ops, p.rate)
 
 
 def rmsnorm_quant(cfg: ModelConfig, b: int, n: int | None = None, dtype: str = "bf16") -> Bound:
@@ -145,8 +207,13 @@ def table(cfg: ModelConfig) -> list[tuple[str, str, Bound]]:
                   rmsnorm_quant(cfg, b, n, dt))
                  for b, n in ((4, cfg.d_model), (256, cfg.d_model), (256, cfg.d_ff))]
     for dt in ("bf16", "f32"):
+        # rwkv6 has no attention
         rows += [("B4 flash_attention_pallas", f"one layer, {dt} {b} x {s} tokens",
-                  flash_prefill(cfg, b, s, dt)) for b, s in ((4, 64), (1, 2048))]
+                  flash_prefill(cfg, b, s, dt)) for b, s in ((4, 64), (1, 2048))
+                 if cfg.num_kv_heads]
+    if cfg.model_type in ("rwkv6", "zamba2"):
+        rows += [("decode step (int8)", f"projections + recurrent state, b={b}",
+                  decode_step(cfg, "int8", b)) for b in (1, 4)]
     return rows
 
 

@@ -10,7 +10,11 @@ top_p`` (``--top-p``, ``--temperature``), optionally speculative
 (``--spec-k``, ``--drafter ngram|model:<arch-id>``), timed warm (first call)
 and hot: a uniform batch through ``InferenceEngine.generate``, or with
 ``--ragged`` a mixed-length trace through ``serve_ragged`` (``--mode``
-auto/paged/continuous/bucketed, ``--slots``, ``--block-size``). Runs on
+auto/paged/continuous/bucketed, ``--slots``, ``--block-size``; auto takes
+the family's preferred mode: paged, or continuous for the MLA and the
+recurrent archs). What a family lacks (a paged cache, ``--spec-k``,
+``--kv-quant`` on the MLA and recurrent archs) exits with the reference's
+error. Runs on
 ``--device cuda`` by default; pass ``--device cpu`` to run on the CPU.
 Prints the captured programs by name (``serving/graphs.py``): how many, and
 their warm-up and capture seconds (on the CPU the programs run eagerly and
@@ -153,7 +157,10 @@ def main(argv=None):
 
     batch = {"tokens": torch.as_tensor(
         rng.integers(0, cfg.vocab_size, size=(args.batch, args.prompt_len)))}
-    _, warm = _timed(engine, batch, args.steps, **gen_kw)
+    try:
+        _, warm = _timed(engine, batch, args.steps, **gen_kw)
+    except ValueError as e:
+        ap.error(str(e))                              # e.g. --spec-k on a recurrent arch
     res, hot = _timed(engine, batch, args.steps, seed=args.seed + 1, **gen_kw)
     toks = args.batch * args.steps
     print(f"generated {toks} tokens: warm {warm:.2f}s, hot {hot:.2f}s "

@@ -1,21 +1,26 @@
 """Uniform model API (counterpart of ``repro/models/registry.py``).
 
-The ``decoder_lm`` family is ported: the dense GQA archs TinyLlama-1.1B,
+Ported: the ``decoder_lm`` family (the dense GQA archs TinyLlama-1.1B,
 internlm2-1.8b, deepseek-coder-33b, pixtral-12b (its ViT frontend a stub:
 the caller's ``batch["patch_embeds"]`` replace the first positions, as in
 the reference) and gemma2-2b; dbrx-132b (GQA with a 16-expert MoE FFN);
 and the MLA archs minicpm3-4b (dense FFN) and deepseek-v2-lite-16b (MoE
-with shared experts). ``load_config`` names the other three (the
-recurrent families and the encoder-decoder) and raises "not yet ported"
-for them. ``Model`` keeps the reference's entry points (the scoring
-``forward``, ``prefill``, ``decode``) and its capability flags, each
-declared explicitly and equal to the reference's for every ported arch:
-ragged lengths, and the serving core's slot hooks (``cache_kind="kv"``,
-``insert_slots``/``gather_slots``) for all; the paged block-pool cache
+with shared experts)), and the recurrent families rwkv6-7b
+(``models/rwkv.py``) and zamba2-7b (Mamba2 with a shared attention block,
+``models/zamba.py``). ``load_config`` names the encoder-decoder
+(seamless-m4t-large-v2) and raises "not yet ported" for it. ``Model``
+keeps the reference's entry points (the scoring ``forward``, ``prefill``,
+``decode``) and its capability flags, each declared explicitly and equal
+to the reference's for every ported arch: for ``decoder_lm`` ragged
+lengths and the serving core's slot hooks (``cache_kind="kv"``,
+``insert_slots``/``gather_slots``); the paged block-pool cache
 (``init_paged_cache``/``decode_paged``) and speculative verify over both
 caches (``verify``/``commit_verify`` and their paged siblings) for the GQA
-archs only: the MLA latent cache keeps the contiguous single-token path,
-and its hooks are None, as in the reference.
+archs only (the MLA latent cache keeps the contiguous single-token path,
+its hooks None, as in the reference). The recurrent families declare
+``cache_kind="state"`` with both slot hooks (``RecurrentAdapter``) and no
+ragged lengths, paged cache or verify: a recurrent prefill cannot skip pad
+tokens, so the serving front ends group them by exact length.
 """
 
 from __future__ import annotations
@@ -27,7 +32,9 @@ from typing import Callable
 import numpy as np
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import rwkv as _rwkv
 from repro_torch.models import transformer as _tf
+from repro_torch.models import zamba as _zamba
 
 ARCH_IDS = [
     "tinyllama-1.1b",
@@ -44,7 +51,8 @@ ARCH_IDS = [
 ]
 
 PORTED_ARCHS = ("tinyllama-1.1b", "internlm2-1.8b", "deepseek-coder-33b", "pixtral-12b",
-                "gemma2-2b", "dbrx-132b", "minicpm3-4b", "deepseek-v2-lite-16b")
+                "gemma2-2b", "dbrx-132b", "minicpm3-4b", "deepseek-v2-lite-16b",
+                "rwkv6-7b", "zamba2-7b")
 
 
 def load_config(arch_id: str) -> ModelConfig:
@@ -83,7 +91,45 @@ class Model:
     gather_slots: Callable | None = None       # (cache, slots) -> per-slot rows
 
 
+def _recurrent(cfg: ModelConfig, init, forward, init_cache, prefill, decode, insert,
+               gather) -> Model:
+    """A recurrent family's Model: recurrent state cannot skip pad tokens,
+    has no paged layout and no uncommitted k-token verify (the reference's
+    exclusions); the slot hooks make continuous batching a state scatter
+    (``serving/core.RecurrentAdapter``)."""
+    return Model(
+        cfg=cfg,
+        init=lambda seed=0, device="cuda": init(cfg, device, seed=seed),
+        forward=forward,
+        init_cache=init_cache,
+        prefill=lambda params, batch, cache_len, cache=None: prefill(
+            params, batch["tokens"], cfg, cache_len, cache=cache),
+        decode=lambda p, tok, cache, pos: decode(p, tok, cache, pos, cfg),
+        supports_lengths=False,
+        supports_paged=False,
+        supports_spec=False,
+        cache_kind="state",
+        insert_slots=insert,
+        gather_slots=gather,
+    )
+
+
 def build(cfg: ModelConfig) -> Model:
+    if cfg.model_type == "rwkv6":
+        return _recurrent(
+            cfg, _rwkv.init_rwkv,
+            lambda params, batch, remat=True: _rwkv.rwkv_forward(params, batch["tokens"], cfg),
+            lambda b, t, dt, device: _rwkv.rwkv_init_state(cfg, b, dt, device),
+            _rwkv.rwkv_prefill, _rwkv.rwkv_decode, _rwkv.rwkv_insert_slots,
+            _rwkv.rwkv_gather_slots)
+    if cfg.model_type == "zamba2":
+        return _recurrent(
+            cfg, _zamba.init_zamba,
+            lambda params, batch, remat=True: _zamba.zamba_forward(
+                params, batch["tokens"], cfg, remat=remat),
+            lambda b, t, dt, device: _zamba.zamba_init_cache(cfg, b, t, dt, device),
+            _zamba.zamba_prefill, _zamba.zamba_decode, _zamba.zamba_insert_slots,
+            _zamba.zamba_gather_slots)
     if cfg.model_type != "decoder_lm":
         raise NotImplementedError(
             f"model_type {cfg.model_type!r} is not yet ported to repro_torch")

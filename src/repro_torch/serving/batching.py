@@ -5,10 +5,12 @@ The serving modes, all length-aware:
 
 - **bucketed**: requests are right-padded to power-of-two buckets and each
   bucket runs one ``InferenceEngine.generate`` with the true lengths, so a
-  padded row decodes exactly like its unpadded self.
+  padded row decodes exactly like its unpadded self; a recurrent family
+  (no ragged lengths) groups by exact length instead.
 - **continuous** (``SlotScheduler``): a fixed-width decode batch of slots
   fed by the scheduling core (serving/core.py) over per-slot ``cache_len``
-  cache rows (``ContiguousAdapter``). Decode runs in rounds of ``chunk``
+  cache rows (``ContiguousAdapter``) or per-slot recurrent state
+  (``RecurrentAdapter``). Decode runs in rounds of ``chunk``
   steps between admission points; a slot that finishes mid-round idles,
   token and position frozen, until the round ends.
 - **paged** (``PagedScheduler``, serving/paged.py): the block-pool KV cache
@@ -31,6 +33,7 @@ import numpy as np
 from repro_torch.core import flags
 from repro_torch.serving.core import (
     ContiguousAdapter,
+    RecurrentAdapter,
     Request,
     Response,
     SchedulerCore,
@@ -98,14 +101,25 @@ def serve_bucketed(engine, requests: Sequence[Request], max_new_tokens: int, *,
 
 class SlotScheduler:
     """Slot-based continuous batching over one engine: the scheduling-core
-    loop behind a ``ContiguousAdapter`` (per-slot ``cache_len`` cache rows).
+    loop behind a ``ContiguousAdapter`` (decoder_lm: per-slot ``cache_len``
+    cache rows) or a ``RecurrentAdapter`` (``cache_kind="state"``: O(1)
+    per-slot recurrent state, exact-length admission groups).
     Responses always hold exactly the request's budget of tokens; sequences
     that hit EOS early are padded with EOS."""
 
     def __init__(self, engine, *, slots: int = 4, chunk: int = 4, sampler: str = "greedy",
                  sampler_kw=None, spec_k: int | None = None, drafter=None):
+        if engine.model.cache_kind == "state":
+            adapter = RecurrentAdapter(engine)
+        elif engine.model.supports_lengths:
+            adapter = ContiguousAdapter(engine)
+        else:
+            raise ValueError(
+                f"{engine.cfg.arch_id}: continuous batching needs length-aware prefill "
+                "(decoder_lm families) or O(1) per-slot recurrent state "
+                "(cache_kind='state' families)")
         self.engine = engine
-        self.adapter = ContiguousAdapter(engine)
+        self.adapter = adapter
         self._core = SchedulerCore(engine, self.adapter, slots=slots, chunk=chunk,
                                    sampler=sampler, sampler_kw=sampler_kw, spec_k=spec_k,
                                    drafter=drafter)
@@ -155,7 +169,7 @@ def valid_modes(model) -> list[str]:
     modes = []
     if model.supports_paged:
         modes.append("paged")
-    if model.supports_lengths:
+    if model.supports_lengths or model.cache_kind == "state":
         modes.append("continuous")
     modes.append("bucketed")
     return modes

@@ -12,6 +12,10 @@ decode state is laid out and addressed:
 - ``PagedAdapter`` (serving/paged.py): a ``BlockPool`` of fixed-size KV
   blocks behind per-slot block tables; admission is reservation-gated and
   blocks are allocated on demand and reclaimed the step a slot finishes.
+- ``RecurrentAdapter``: O(1) per-slot recurrent state (rwkv6, zamba2's
+  SSM backbone): admission groups by exact prompt length and continuous
+  batching is a state scatter, with no paging and, for a fully O(1)
+  family, no cache capacity to validate.
 
 ``SchedulerCore`` owns the queue, the slots, the budgets and the Response
 finalization; adapters own the device work, as captured programs
@@ -32,7 +36,7 @@ counts; positions advance on the host by each slot's commit count, as the
 program advanced them on the device. Top-p draws its noise from a
 generator on the engine's device seeded with the serve's ``seed``, into
 the programs' noise buffers before each replay. Not ported: the repro-san
-sanitizer hooks and ``RecurrentAdapter`` (no recurrent family is ported).
+sanitizer hooks.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.tree import tree_leaves
 from repro_torch.serving.sampling import (
     GUMBEL,
     UNIFORM,
@@ -57,6 +62,7 @@ from repro_torch.serving.spec import NgramDrafter, build_verify_step, draft_chun
 __all__ = [
     "CacheAdapter",
     "ContiguousAdapter",
+    "RecurrentAdapter",
     "Request",
     "Response",
     "SchedulerCore",
@@ -314,7 +320,7 @@ class ContiguousAdapter(CacheAdapter):
                     + f" needs {need} cache slots but cache_len={cache_len}")
 
     def begin_serve(self):
-        for leaf in self._state()["cache"].values():
+        for leaf in tree_leaves(self._state()["cache"]):
             leaf.zero_()
 
     def group_len(self, n):
@@ -372,6 +378,77 @@ class ContiguousAdapter(CacheAdapter):
 
     def san_state(self):
         # slot rows are the allocation: no pool, no table
+        return {"pool": None, "table": None}
+
+
+class RecurrentAdapter(ContiguousAdapter):
+    """Slot-state continuous batching for the recurrent families (rwkv6,
+    zamba2's SSM backbone): a slot's "cache" is O(1) recurrent state, so
+    admission is a state scatter (``Model.insert_slots``), with no paging
+    and no per-slot KV rows to size. The decode round is the contiguous
+    form's. Two deltas from it:
+
+    - a recurrent prefill cannot mask pads out of the recurrence, so
+      admission groups by EXACT prompt length and the batched prefill, a
+      program per (group size, length), sees no pad token and no lengths;
+    - position bounds exist only where the state still carries a bounded
+      cache axis (zamba2's shared-attention KV rows); a fully O(1) family
+      (rwkv6, ``engine.unbounded_state``) has nothing to overflow.
+
+    A slot that finishes mid-round runs on frozen and its state advances;
+    the next admission's ``insert_slots`` overwrites it."""
+
+    kind = "recurrent"
+    spec_capable = False
+
+    def __init__(self, engine):
+        if engine.model.cache_kind != "state":
+            raise ValueError(f"{engine.cfg.arch_id}: the recurrent adapter serves "
+                             "cache_kind='state' families only")
+        # no supports_lengths gate: exact-length groups need no lengths
+        self.engine = engine
+
+    def validate(self, requests, budget, slack=0):
+        engine = self.engine
+        if engine.unbounded_state:
+            return
+        for r in requests:
+            need = len(r.tokens) + budget(r) + slack
+            if need > engine.cache_len:
+                raise ValueError(
+                    f"request {r.id}: len={len(r.tokens)} + max_new={budget(r)} needs {need} "
+                    f"cache slots but cache_len={engine.cache_len}")
+
+    def group_len(self, n):
+        # exact length: no pad token may enter the recurrence
+        return n
+
+    def prefill_insert(self, params, toks, lens, group, length):
+        del lens   # exact-length groups: every row is its length
+        st, model, sample = self._state(), self.engine.model, self.core.sample
+        cache_len, bg, dev = self.engine.cache_len, len(group), self.engine.device
+
+        def prefill(tokens, slots, cache, gumbel=None):
+            logits, rows = model.prefill(params, {"tokens": tokens}, cache_len)
+            model.insert_slots(cache, rows, slots)
+            return sample(logits, gumbel=gumbel)
+
+        prog = self.engine.graphs.program(
+            "recurrent.prefill", self._key + (bg, length), prefill, lambda: {
+                "tokens": torch.zeros((bg, length), dtype=torch.long, device=dev),
+                "slots": torch.arange(bg, device=dev), "cache": st["cache"],
+                **(noise_buffer(self.engine, bg) if GUMBEL in st else {})})
+        prog.load(tokens=toks, slots=np.asarray([s for s, _ in group]))
+        draw_noise(prog.inputs, self.core.gen)
+        return prog.run()
+
+    def check_positions(self, pos, live):
+        if not self.engine.unbounded_state:
+            ContiguousAdapter.check_positions(self, pos, live)
+
+    def san_state(self):
+        # declared in this class's own body, as the reference's adapter
+        # contract asks of every concrete adapter: no pool, no table
         return {"pool": None, "table": None}
 
 

@@ -14,6 +14,13 @@ stay the eager one-step APIs. Top-p draws its noise from a generator on the
 device into a static buffer before each replay (``serving/sampling.py``).
 Speculative decode (``spec_k``) replays the prefill, then one captured
 verify program a step (``serving/spec.py``), drafting on the host.
+
+The recurrent families (``cache_kind="state"``: rwkv6, zamba2) take the
+same programs: the static cache is their recurrent state, which prefill
+writes and each decode step advances in place. They refuse ragged
+``lengths`` (a recurrent prefill cannot skip pad tokens), and a family
+whose state does not grow with ``cache_len`` (``unbounded_state``) skips
+the overflow check.
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.policy import quantize_params, quantized_fraction
-from repro_torch.core.tree import tree_to
+from repro_torch.core.tree import tree_leaves, tree_to
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import KV_STORE_DTYPES
 from repro_torch.models.registry import Model, build
@@ -89,7 +96,7 @@ class InferenceEngine:
                 # supports_paged == "GQA decoder_lm cache layouts", the
                 # families whose KV rows the quantized layout covers
                 raise ValueError(f"{model.cfg.arch_id}: kv_quant covers the GQA "
-                                 "decoder_lm cache layouts only")
+                                 "decoder_lm cache layouts only (no MLA/recurrent/encdec)")
             if model.cfg.kv_quant != kv_quant:
                 # rebuild so every model closure sees the threaded config
                 model = build(dataclasses.replace(model.cfg, kv_quant=kv_quant))
@@ -104,6 +111,13 @@ class InferenceEngine:
         self.params = params
         self.quantized_fraction = quantized_fraction(params)
         self.graphs = GraphCache(self.device, self.cfg)
+        # True for a cache_kind="state" family whose decode state is O(1) in
+        # cache_len (rwkv6; zamba2's shared KV rows grow with it): nothing to
+        # overflow, so the generate and serve length checks are skipped.
+        # Probed on the meta device, as the reference probes with eval_shape.
+        self.unbounded_state = model.cache_kind == "state" and all(
+            x.shape == y.shape for x, y in zip(*(
+                tree_leaves(model.init_cache(1, t, self.cfg.cdtype(), "meta")) for t in (8, 16))))
 
     def _device_batch(self, batch: Mapping) -> dict:
         out = {"tokens": torch.as_tensor(batch["tokens"]).to(self.device, torch.long)}
@@ -259,6 +273,9 @@ class InferenceEngine:
         tokens = torch.as_tensor(batch["tokens"])
         if lengths is None:
             lengths = batch.get("lengths")
+        if lengths is not None and not self.model.supports_lengths:
+            raise ValueError(f"{self.cfg.arch_id}: model family does not support ragged "
+                             "lengths; batch by exact length instead (see serving/batching.py)")
         b, prompt_len = tokens.shape
         # validate up front: an index past the cache would fail mid-decode; a
         # verify chunk reads and writes columns up to pos + spec_k - 1, so the
@@ -266,7 +283,8 @@ class InferenceEngine:
         start_max = prompt_len if lengths is None else int(np.max(np.asarray(
             torch.as_tensor(lengths).cpu())))
         need = max(prompt_len, start_max + max_new_tokens + (spec_k or 0))
-        if need > self.cache_len:
+        # a family with O(1) state (rwkv6) has no cache axis to overflow
+        if need > self.cache_len and not self.unbounded_state:
             raise ValueError(
                 f"KV cache overflow: prompt_len={prompt_len} (max start {start_max}) "
                 f"+ max_new_tokens={max_new_tokens}"

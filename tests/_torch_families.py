@@ -35,12 +35,11 @@ from repro.kernels import ops as jops
 from repro.models import attention as jattn
 from repro.models import mlp as jmlp
 from repro.models import registry as jreg
-from repro.models import transformer as jtf
 from repro.serving.engine import InferenceEngine as JEngine
 from repro_torch import bridge
 from repro_torch.core.policy import quantize_params
 from repro_torch.kernels import ops
-from repro_torch.models import attention, mlp, registry, transformer
+from repro_torch.models import attention, mlp, registry
 from repro_torch.serving.engine import InferenceEngine
 
 def matrix(variants, plain, tight=None):
@@ -293,22 +292,24 @@ def first_difference(jeng, teng, prompt: np.ndarray, want: np.ndarray) -> dict:
     tokens ``want`` (b, T), on each engine's own weights, every int8
     rounding and MoE router recorded: the first decision where the packages
     differ, as ``first_flips`` gives it ({"kind", "values"}). Where two
-    greedy runs part, this finds what parted them."""
-    cfg, tcfg = jeng.cfg, teng.cfg
+    greedy runs part, this finds what parted them. Through each registry
+    ``Model``'s ``prefill`` and ``decode``, so any family."""
+    cfg, jm, tm = jeng.cfg, jeng.model, teng.model
     p = prompt.shape[1]
     with recorded() as (ref, port):
-        logits, cache = jtf.lm_prefill(jeng.params, jnp.asarray(prompt, jnp.int32), cfg,
-                                       jeng.cache_len)
+        # traced here, inside the recorder (fresh functions: no cached trace)
+        jpre = jax.jit(lambda prm, t: jm.prefill(prm, {"tokens": t}, jeng.cache_len))
+        jdec = jax.jit(lambda prm, t, c, pos: jm.decode(prm, t, c, pos))
+        logits, cache = jpre(jeng.params, jnp.asarray(prompt, jnp.int32))
         for step in range(want.shape[1] - 1):
-            logits, cache = jtf.lm_decode(jeng.params, jnp.asarray(want[:, step], jnp.int32),
-                                          cache, p + step, cfg)
+            logits, cache = jdec(jeng.params, jnp.asarray(want[:, step], jnp.int32), cache,
+                                 jnp.int32(p + step))
         jax.block_until_ready(logits)
         with torch.inference_mode():
-            _, tcache = transformer.lm_prefill(teng.params, torch.as_tensor(prompt), tcfg,
-                                               teng.cache_len)
+            _, tcache = tm.prefill(teng.params, {"tokens": torch.as_tensor(prompt)},
+                                   teng.cache_len)
             for step in range(want.shape[1] - 1):
-                transformer.lm_decode(teng.params, torch.as_tensor(want[:, step]), tcache,
-                                      p + step, tcfg)
+                tm.decode(teng.params, torch.as_tensor(want[:, step]), tcache, p + step)
     kind, flips = first_flips(ref, port, top_k(cfg))
     return {"kind": kind, "values": flips[:8]}
 

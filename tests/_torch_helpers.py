@@ -4,7 +4,8 @@ The two packages exchange parameters as nested dicts of numpy arrays, the
 form ``repro_torch.bridge.params_from_numpy`` reads; these helpers convert
 the reference's pytrees (with ``QuantizedTensor`` leaves) to and from it.
 The perf-variant flags are separate globals in the two packages;
-``both_flags`` sets a variant in both.
+``both_flags`` sets a variant in both. Importing it sets PyTorch's
+intra-op threads to one (see below).
 """
 
 from __future__ import annotations
@@ -13,10 +14,17 @@ import contextlib
 
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 from repro.core import flags as jflags
 from repro.core.quant import QuantizedTensor as JQT
 from repro_torch.core import flags as tflags
+
+# The suite runs one pytest process per core (pytest-xdist): a process's
+# own intra-op threads would only contend with the other processes for
+# the same cores (every test module is imported in every process, so this
+# holds for all of them). The port's CPU tests take no speed from them.
+torch.set_num_threads(1)
 
 
 def jax_to_numpy(tree):

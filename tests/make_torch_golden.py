@@ -4,9 +4,11 @@
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_torch_golden.py --arch ID
 
 With ``--arch`` (one of ``chip_smoke.FAMILY_GOLDEN["archs"]``: internlm2-1.8b,
-gemma2-2b, minicpm3-4b, deepseek-v2-lite-16b) it writes that family's golden
-instead, ``src/repro_torch/golden_<arch>.json``: the config at full width,
-depth cut to ``chip_smoke.FAMILY_GOLDEN``'s layer count, f32 params and
+gemma2-2b, minicpm3-4b, deepseek-v2-lite-16b, rwkv6-7b, zamba2-7b) it writes
+that family's golden instead, ``src/repro_torch/golden_<arch>.json``: the
+config at full width, depth cut to ``chip_smoke.family_golden_settings``'s
+layer count (2; zamba2 7: one shared-block application and a tail layer;
+about 4 GB of f32 weights a package each), f32 params and
 compute, weights from ``init_params_numpy``; the reference's greedy
 ``generate`` tokens on the golden prompt with f32 weights and with int8
 weights, and how many of them the port's plain path reproduces on the CPU,
@@ -121,7 +123,7 @@ def deep_section(prompt: np.ndarray) -> dict:
 
 
 def family_golden(arch: str) -> None:
-    fg = chip_smoke.FAMILY_GOLDEN
+    fg = chip_smoke.family_golden_settings(arch)
     cfg_port = chip_smoke.family_golden_config(arch)
     cfg = dataclasses.replace(load_config(arch), num_layers=fg["num_layers"],
                               param_dtype=fg["dtype"], compute_dtype=fg["dtype"])

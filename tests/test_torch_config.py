@@ -39,6 +39,20 @@ def test_moe_mla_configs_equal_reference(arch, reduced):
         assert getattr(cfg, prop) == getattr(ref, prop), prop
 
 
+@pytest.mark.parametrize("reduced", [False, True])
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-7b"])
+def test_recurrent_configs_equal_reference(arch, reduced):
+    """The recurrent configs field for field, their SSMConfig, shared-block
+    period and reduced() cut included."""
+    ref, cfg = jreg.load_config(arch), registry.load_config(arch)
+    if reduced:
+        ref, cfg = ref.reduced(), cfg.reduced()
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
+    assert (cfg.ssm is None) == (ref.ssm is None)
+    for prop in ("vocab_padded", "resolved_head_dim", "q_dim", "kv_dim"):
+        assert getattr(cfg, prop) == getattr(ref, prop), prop
+
+
 def test_dataclass_fields_and_defaults_match_reference():
     mine = {f.name: f.default for f in dataclasses.fields(ModelConfig)}
     ref = {f.name: f.default for f in dataclasses.fields(JModelConfig)}

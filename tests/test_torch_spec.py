@@ -479,6 +479,8 @@ def test_resolve_drafter():
     with pytest.raises(ValueError, match="unknown drafter"):
         spec.resolve_drafter("medusa")
     with pytest.raises(NotImplementedError, match="not yet ported"):
+        spec.resolve_drafter("model:seamless-m4t-large-v2", reduced=True, device="cpu")
+    with pytest.raises(ValueError, match="length-aware prefill"):
         spec.resolve_drafter("model:rwkv6-7b", reduced=True, device="cpu")
 
 
