@@ -263,6 +263,32 @@ printing no result, when CUDA is missing. Phases, each fatal on failure:
              kernel vs plain within LOGIT_TOL. Budget 150 s; its time is
              printed.
 
+10. encdec:  seamless-m4t-large-v2 (24 encoder + 24 decoder layers, d 1024,
+             16/16 heads of 64, vocab 256,206 in 256,224 classifier rows) at
+             full width and every layer, bf16, int8 weights from the port's
+             init. (a) the int8 GQMM at b 4 and 2048 and the int8 GQMV at
+             every projection shape (wqkv, wo / cross wq / cross wo, cross
+             wkv, w13, w2, the classifier), timed beside their bounds and
+             plain versions; int4, int3 and fp8 GQMM at b 4 and 256,
+             checked; B4 bf16 at the encoder's shape (4 x 512, non-causal)
+             and the decoder prompt's (4 x 64, causal), SDPA beside it. (b)
+             generate: frames (4, 512, 1024) from a seeded torch.Generator,
+             a decoder prompt of 4 x 64, 32 greedy tokens, cache_len 96;
+             replayed == eager (tokens and launches); 145 GQMMs a decode
+             step and 265 a prefill; the static cross cache of 512 rows;
+             decode ms wall and on the card, kernels a step, the bytes bound
+             (decoder and classifier weights, cross K/V); the prefill's ms;
+             first-step logits kernel vs plain within LOGIT_TOL, else
+             hold_per_kernel (phase 9's rule). (c) blockwise_attention: 48
+             B4 calls a prefill (24 non-causal, 24 causal), each held within
+             FLASH_TOL on a checked prefill with its error printed; the
+             logits by (b)'s rule; generate replayed == eager. (d) the
+             refusals (serve_ragged, paged, spec_k, lengths=, kv_quant, the
+             kvt and int8 KV flags). (e) the golden (2 + 2 layers, f32,
+             frames N(0, 1) of the prompt's length), held to the families'
+             rule, and the int8 golden model's first-step logits kernel vs
+             plain within LOGIT_TOL. Budget 120 s; its time is printed.
+
 A [graphs] line sums up eager against replayed: int8 decode ms/step wall
 and on the card with the busy share, the 4 x 64 prefill, the ragged tok/s,
 the captures and the graph pools. Every time is printed beside the card's
@@ -446,13 +472,17 @@ GOLDEN_DEEP = {"num_layers": 22, "settings": ["float32", "int8"]}
 # --arch): full width, 2 layers, f32 compute, weights from
 # init_params_numpy; the reference's greedy tokens with f32 and int8 weights
 FAMILY_GOLDEN = {"archs": ["internlm2-1.8b", "gemma2-2b", "minicpm3-4b", "deepseek-v2-lite-16b",
-                           "rwkv6-7b", "zamba2-7b"],
+                           "rwkv6-7b", "zamba2-7b", "seamless-m4t-large-v2"],
                  "num_layers": 2, "dtype": "float32",
                  "settings": ["float32", "int8"], "seed": 0, "prompt_seed": 1, "batch": 2,
                  "prompt_len": 16, "max_new_tokens": 16}
 # zamba2's golden depth: at 2 layers it has no shared block; 7 is one group
-# of 6 Mamba2 layers, one shared-block application and a tail layer
+# of 6 Mamba2 layers, one shared-block application and a tail layer. The
+# encoder-decoder's golden has as many encoder layers as decoder layers (2
+# + 2) and frames (batch, prompt_len, d_model), N(0, 1) from a numpy
+# RandomState seeded with frames_seed
 FAMILY_GOLDEN_LAYERS = {"zamba2-7b": 7}
+FAMILY_GOLDEN_FRAMES_SEED = 2
 DEEP_CARD_TIES = {"int8": [(11, 0)]}      # (decode step, batch row)
 # the golden ragged trace, served by serve_ragged(mode="paged") on the
 # golden model with a float, int8 and fp8 KV pool
@@ -546,6 +576,9 @@ FAMILY_PAGED_B = 8
 RECURRENT_ARCHS = ("rwkv6-7b", "zamba2-7b")
 RECURRENT_BUDGET_S = 150
 RECURRENT_MODEL_TYPES = ("rwkv6", "zamba2")
+# the deep families whose kernel logits past LOGIT_TOL are held per kernel
+# (``_check_family_logits``): the recurrent ones and the encoder-decoder
+HELD_MODEL_TYPES = RECURRENT_MODEL_TYPES + ("encdec",)
 # a family whose kernel logits leave the plain ones by more than LOGIT_TOL
 # is held per kernel, and (but for a MoE, whose router flips jump) its
 # logits to ULP_FACTOR x the change one f32 ulp at layer 0 makes in the
@@ -579,6 +612,28 @@ RECURRENT_FLAGS = {"deferred_decode_cache": True, "kvt_cache_layout": True,
 # beside the model's one-ulp sensitivity (phase 9 (b)): at full depth the
 # random model carries one f32 ulp to ~1e-1 of max|logit|
 RECURRENT_CHUNKED = {"b": 1, "s": 512, "chunk": 128, "y_tol": 1e-2, "h_tol": 1e-4}
+# phase 10: seamless-m4t-large-v2, the encoder-decoder, at full width and
+# every layer (24 + 24), bf16, int8 weights from the port's init
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+ENCDEC_BUDGET_S = 120
+# generate as phase 8's (SERVE: b 4, a decoder prompt of 64 tokens, 32
+# greedy tokens) with frames (b, s_enc, d_model) f32 from a torch.Generator
+# on the card seeded with "seed"; the self cache of cache_len rows (the
+# cross K/V of s_enc rows)
+ENCDEC = {"s_enc": 512, "cache_len": 96, "seed": 0}
+# GQMM launches: a decode step runs each decoder layer's wqkv, wo, cross wq,
+# cross wo, w13, w2 and the classifier (24 x 6 + 1); a prefill the encoder's
+# four a layer, the decoder's seven (the cross wkv too) and the classifier
+# (24 x 4 + 24 x 7 + 1)
+ENCDEC_GQMM = {"decode": 24 * 6 + 1, "prefill": 24 * 4 + 24 * 7 + 1}
+# (a) the int8 GQMM timed at decode's rows and the encoder's (4 x 512), and
+# the int8 GQMV, at every projection shape; int4, int3 and fp8 GQMM at
+# ENCDEC_CHECKED_B, checked; B4 bf16 at the encoder's shape (non-causal,
+# 4 x 512, 16/16 heads, hd 64) and the decoder prompt's (causal, 4 x 64)
+ENCDEC_KERNEL_BATCHES = (4, 2048)
+ENCDEC_CHECKED_B = (4, 256)
+ENCDEC_FLASH = ((("seamless encoder 4x512", 4, 16, 16, 512, 64, None, None), False),
+                (("seamless decoder 4x64", 4, 16, 16, 64, 64, None, None), True))
 SOURCES = {**{f"{k}_{f}": "src/repro_torch/csrc/gqmm.cu" for f in WEIGHT_FORMATS
               for k in ("gqmv", "gqmm")},
            "paged_attn": "src/repro_torch/csrc/paged_attn.cu",
@@ -614,17 +669,32 @@ def family_golden_file(arch: str) -> Path:
 
 def family_golden_settings(arch: str) -> dict:
     """What golden_<arch>.json was made with: FAMILY_GOLDEN but its arch
-    list, at the arch's golden depth."""
+    list, at the arch's golden depth (the encoder-decoder's: as many
+    encoder layers, and its frames' seed)."""
     out = {k: v for k, v in FAMILY_GOLDEN.items() if k != "archs"}
     out["num_layers"] = FAMILY_GOLDEN_LAYERS.get(arch, FAMILY_GOLDEN["num_layers"])
+    if load_config(arch).model_type == "encdec":
+        out.update(encoder_layers=out["num_layers"], frames_seed=FAMILY_GOLDEN_FRAMES_SEED)
     return out
 
 
 def family_golden_config(arch: str):
-    return dataclasses.replace(load_config(arch),
-                               num_layers=family_golden_settings(arch)["num_layers"],
+    st = family_golden_settings(arch)
+    cfg = load_config(arch)
+    return dataclasses.replace(cfg, num_layers=st["num_layers"],
+                               encoder_layers=st.get("encoder_layers", cfg.encoder_layers),
                                param_dtype=FAMILY_GOLDEN["dtype"],
                                compute_dtype=FAMILY_GOLDEN["dtype"])
+
+
+def family_golden_extra(cfg) -> dict:
+    """The golden prompt's other inputs: the encoder-decoder's frames
+    (batch, prompt_len, d_model), else none."""
+    if cfg.model_type != "encdec":
+        return {}
+    rng = np.random.RandomState(FAMILY_GOLDEN_FRAMES_SEED)
+    return {"frames": rng.standard_normal((FAMILY_GOLDEN["batch"], FAMILY_GOLDEN["prompt_len"],
+                                           cfg.d_model)).astype(np.float32)}
 
 
 def family_golden_prompt(vocab_size: int) -> np.ndarray:
@@ -1028,20 +1098,21 @@ def flash_bytes_ops(q, k, causal: bool) -> tuple[int, int]:
     return nbytes, 4 * hd * pairs
 
 
-def _sdpa_ms(q4, k4, v4) -> tuple[float, float]:
+def _sdpa_ms(q4, k4, v4, causal: bool = True) -> tuple[float, float]:
     """(device ms, max |err| against the f32 arithmetic) of
-    scaled_dot_product_attention, causal GQA, on (b, H, s, hd) tensors."""
+    scaled_dot_product_attention, GQA, causal or not, on (b, H, s, hd)
+    tensors."""
     F = torch.nn.functional
     h, kv = q4.shape[1], k4.shape[1]
-    out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True, enable_gqa=True)
+    out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal, enable_gqa=True)
     ref_out = F.scaled_dot_product_attention(
         q4.float(), k4.float().repeat_interleave(h // kv, 1),
-        v4.float().repeat_interleave(h // kv, 1), is_causal=True)
+        v4.float().repeat_interleave(h // kv, 1), is_causal=causal)
     err = (out.float() - ref_out).abs().max().item()
     if not err <= 2e-2 * ref_out.abs().max().item():
         raise AssertionError(f"scaled_dot_product_attention disagrees with f32: {err:.3e}")
     ms, _ = device_time_ms(lambda i: F.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True, enable_gqa=True), 50)
+        q4, k4, v4, is_causal=causal, enable_gqa=True), 50)
     return ms, err
 
 
@@ -1542,31 +1613,33 @@ def _visible_pairs(s: int, window: int | None) -> int:
     return window * (window + 1) // 2 + (s - window) * window
 
 
-def _flash_row(gen, dev, case: tuple, tag: str) -> dict:
+def _flash_row(gen, dev, case: tuple, tag: str, causal: bool = True) -> dict:
     """Flash attention (bf16, the tensor-core kernel) of one (name, b, H,
-    KV, s, hd, window, cap) case against its plain version with phase 2's
-    tolerance, timed, with the bound from the work this data needs (the
-    window's pairs only) and, without a window or cap,
-    scaled_dot_product_attention on the same inputs."""
+    KV, s, hd, window, cap) case, causal or not, against its plain version
+    with phase 2's tolerance, timed, with the bound from the work this data
+    needs (the window's pairs only; every pair when not causal) and,
+    without a window or cap, scaled_dot_product_attention on the same
+    inputs."""
     name, b, h, kv, s, hd, window, cap = case
     dt = torch.bfloat16
     q = torch.randn((b * h, s, hd), generator=gen, device=dev).to(dt)
     k = torch.randn((b * kv, s, hd), generator=gen, device=dev).to(dt)
     v = torch.randn((b * kv, s, hd), generator=gen, device=dev).to(dt)
-    kw = dict(group=h // kv, scale=hd ** -0.5, causal=True, window=window, softcap=cap)
+    kw = dict(group=h // kv, scale=hd ** -0.5, causal=causal, window=window, softcap=cap)
     err, tol = check_flash(f"flash_attn {name}", fkern.flash_attention_cuda(q, k, v, **kw),
                            q, k, v, **kw)
     k_ms, _ = device_time_ms(lambda i: fkern.flash_attention_cuda(q, k, v, **kw), 20)
     p_ms = profile_device(lambda: flash_attention_ref(q, k, v, **kw), 2)["device_ms"]
     nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
-    bnd, by = bound_s(nbytes, 4 * hd * b * h * _visible_pairs(s, window), BF16_OPS_PER_S)
+    pairs = _visible_pairs(s, window) if causal else s * s
+    bnd, by = bound_s(nbytes, 4 * hd * b * h * pairs, BF16_OPS_PER_S)
     row = {"kernel": "flash_attn", "case": name, "dtype": "bfloat16", "b": b, "heads": h,
-           "kv_heads": kv, "s": s, "hd": hd, "window": window, "softcap": cap,
+           "kv_heads": kv, "s": s, "hd": hd, "window": window, "softcap": cap, "causal": causal,
            "max_abs_err": err, "tol": tol, "us": 1e3 * k_ms, "plain_us": 1e3 * p_ms,
            "bound_us": 1e6 * bnd, "bound_by": by, "library_us": None}
     if window is None and cap is None:
         row["library_us"] = 1e3 * _sdpa_ms(q.reshape(b, h, s, hd), k.reshape(b, kv, s, hd),
-                                           v.reshape(b, kv, s, hd))[0]
+                                           v.reshape(b, kv, s, hd), causal)[0]
     log(f"[{tag}] {name:26s} H {h}/{kv} hd {hd} max|err| {err:.2e} (tol "
         f"{tol:.1e})  {row['us']:9.2f} us  plain {row['plain_us']:9.1f} us  bound "
         f"{row['bound_us']:7.2f} us ({by}, {100 * row['bound_us'] / row['us']:.1f} % of it)"
@@ -1709,6 +1782,14 @@ def launches_per_pass(cfg, quantize, path: str = "decode") -> dict[str, int]:
         # block's wqkv, wo and w13, w2 at each of its applications
         groups = cfg.num_layers // cfg.shared_attn_every
         attn_n, ffn_n = 2 * cfg.num_layers + 2 * groups, 2 * groups
+    elif cfg.model_type == "encdec":
+        # a decode step: each decoder layer's wqkv, wo and the cross
+        # attention's wq, wo (attn class), w13, w2; a prefill adds the cross
+        # wkv and the encoder's layers (wqkv, wo, w13, w2)
+        attn_n, ffn_n = 4 * cfg.num_layers, 2 * cfg.num_layers
+        if path == "prefill":
+            attn_n += cfg.num_layers + 2 * cfg.encoder_layers
+            ffn_n += 2 * cfg.encoder_layers
     out: dict[str, int] = {}
     for cls, count in (("attn", attn_n), ("ffn", ffn_n), ("classifier", 1)):
         k = f"gqmm_{fmap[cls]}"
@@ -2680,14 +2761,15 @@ def verify_step_equals_decode(engine, reqs, paged: bool) -> bool:
 # phase 4: golden tokens from the reference package
 # ---------------------------------------------------------------------------
 
-def replay_choices(engine, prompt, tokens) -> list[dict]:
-    """Prefill, then decode the reference's tokens (b, T) step by step; at
+def replay_choices(engine, prompt, tokens, extra: dict | None = None) -> list[dict]:
+    """Prefill (``extra`` joining the prompt's batch: the encoder-decoder's
+    frames), then decode the reference's tokens (b, T) step by step; at
     each step where the card's greedy token is not the reference's, the gap
     between the card's top logit and the reference token's logit, as a
     fraction of max|logit|."""
     off = []
     with torch.inference_mode():
-        logits, cache = engine.prefill({"tokens": torch.as_tensor(prompt)})
+        logits, cache = engine.prefill({"tokens": torch.as_tensor(prompt), **(extra or {})})
         for step in range(tokens.shape[1]):
             want = torch.as_tensor(tokens[:, step], device=logits.device)
             lg = logits.float()
@@ -2995,16 +3077,22 @@ def _check_logits(tag: str, got, want) -> float:
     return err
 
 
-def family_generate(dev, engine, tag: str, prefix: str = "families") -> dict:
-    """Phase 3's generate at b 4, prompt 64, 32 greedy tokens on one family:
-    replayed (counts zeroed just before, read just after) against an eager
-    prefill + decode_step loop, whose tokens and launches must equal the
-    replay's; the decode step's time wall and on the card, its kernels, and
-    the first-step logits against the plain versions."""
+def family_generate(dev, engine, tag: str, prefix: str = "families",
+                    batch: dict | None = None) -> dict:
+    """Phase 3's generate at b 4, prompt 64, 32 greedy tokens on one family
+    (or on ``batch``, the encoder-decoder's with its frames): replayed
+    (counts zeroed just before, read just after) against an eager prefill +
+    decode_step loop, whose tokens and launches must equal the replay's;
+    the decode step's time wall and on the card, its kernels, and the
+    first-step logits against the plain versions."""
     cfg = engine.cfg
-    b, p, new = SERVE["batch"], SERVE["prompt_len"], SERVE["max_new_tokens"]
-    rng = np.random.default_rng(SERVE["seed"])
-    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(b, p)))}
+    new = SERVE["max_new_tokens"]
+    if batch is None:
+        rng = np.random.default_rng(SERVE["seed"])
+        batch = {"tokens": torch.as_tensor(rng.integers(
+            0, cfg.vocab_size, size=(SERVE["batch"], SERVE["prompt_len"])))}
+    b, p = batch["tokens"].shape
+    s_enc = batch["frames"].shape[1] if "frames" in batch else 0
     engine.generate(batch, 2)                               # captures
     _reset_launches()
     torch.cuda.synchronize()
@@ -3052,8 +3140,9 @@ def family_generate(dev, engine, tag: str, prefix: str = "families") -> dict:
         with ops.impl_scope("plain"):
             logits_p, _ = engine.prefill(batch)
     err, rule = _check_family_logits(tag, engine, batch, logits_k, logits_p)
-    # the projections' bytes, and a recurrent family's state read and written
-    wbound = bounds.decode_step(cfg, "int8", b)
+    # the projections' bytes, a recurrent family's state read and written,
+    # the encoder-decoder's cross K/V read
+    wbound = bounds.decode_step(cfg, "int8", b, s_enc)
     census = graphs.census(dec_prog)
     gstats = engine.graphs.stats()
     out = {"tokens": toks.tolist(), "launches": launches, "per_pass": per_pass,
@@ -3065,6 +3154,7 @@ def family_generate(dev, engine, tag: str, prefix: str = "families") -> dict:
            "kernels_per_step": prof["kernels"], "gqmm_ms_per_step": prof["gqmm_ms"],
            "weight_bytes_per_step": wbound.nbytes,
            "state_bytes_per_step": bounds.recurrent_state_bytes(cfg, b),
+           "cross_kv_bytes_per_step": bounds.cross_kv_bytes(cfg, b, s_enc),
            "bytes_bound_ms": 1e3 * wbound.nbytes / HBM_BYTES_PER_S,
            "logit_rel_err": err, "first_token_agreement": (
                logits_k.argmax(-1) == logits_p.argmax(-1)).float().mean().item()}
@@ -3073,7 +3163,8 @@ def family_generate(dev, engine, tag: str, prefix: str = "families") -> dict:
         f"the card ({timing}; {100 * out['busy_share']:.1f} % busy; eager "
         f"{out['eager_decode_ms']:.2f} "
         f"ms/step), {prof['kernels']} kernels a step, GQMM {prof['gqmm_ms']:.3f} ms; "
-        f"bytes a step (projections, recurrent state) {wbound.nbytes / 1e9:.3f} GB -> HBM bound "
+        f"bytes a step (projections, recurrent state, cross K/V) {wbound.nbytes / 1e9:.3f} GB "
+        f"-> HBM bound "
         f"{out['bytes_bound_ms']:.3f} ms; first-step logits kernel vs plain {err:.3e} "
         f"(tol {LOGIT_TOL}); decode graph {census['nodes']} nodes ({census['kernel_nodes']} "
         f"kernels); captures " + ", ".join(
@@ -3144,7 +3235,8 @@ def hold_per_kernel(tag: str, engine, batch, want, err: float, ulp_bound: bool =
     rounding-sized change, and with ``ulp_bound`` ``err`` must stay within
     ULP_FACTOR x that."""
     calls: dict[str, int] = {}
-    prefill_logits(engine, batch, "checked", calls)
+    flash: list = []
+    prefill_logits(engine, batch, "checked", calls, flash)
     if not torch.equal(prefill_logits(engine, batch, "shadow"), want.float()):
         raise AssertionError(f"{tag}: launching the kernels beside the plain versions changed "
                              "the plain logits")
@@ -3158,14 +3250,26 @@ def hold_per_kernel(tag: str, engine, batch, want, err: float, ulp_bound: bool =
         + "), kernels beside the plain run change nothing; one f32 ulp at layer 0's first "
         f"projection moves the plain logits {ulp:.3e}"
         + (f" (the kernels' within {ULP_FACTOR} x that)" if ulp_bound else ""))
-    return {"checked_calls": calls, "ulp_rel_err": ulp, "ulp_bound": ulp_bound}
+    if flash:
+        log_flash_errors(tag, flash)
+    return {"checked_calls": calls, "ulp_rel_err": ulp, "ulp_bound": ulp_bound,
+            "flash_errors": flash}
+
+
+def log_flash_errors(tag: str, flash: list) -> None:
+    """Print each held flash call's max |err| against its plain version, in
+    call order, as a fraction of its FLASH_TOL bound (the error over the
+    tolerance, which is FLASH_TOL x max|ref| of that call)."""
+    log(f"[logit rule {tag}] {len(flash)} flash calls held, max|err| each (causal C, "
+        f"non-causal N; share of its tolerance): " + ", ".join(
+            f"{i}{'C' if c else 'N'} {e:.2e} ({e / t:.2f})" for i, (e, t, c) in enumerate(flash)))
 
 
 def _check_family_logits(tag: str, engine, batch, got, want) -> tuple[float, dict]:
     """First-step logits, kernels against plain, within LOGIT_TOL; past it,
     ``hold_per_kernel``'s rule (its record returned): for a recurrent
-    family, whose full depth carries one f32 ulp at layer 0 to ~1e-1 of
-    max|logit|; for a MoE family only where a router choice flipped between
+    family and the encoder-decoder, whose full depth may carry one f32 ulp
+    at layer 0 to ~1e-1 of max|logit|; for a MoE family only where a router choice flipped between
     the two runs (a flip moves a token's FFN output by a whole expert, so
     the logits are not bounded by the one-ulp change there), the flips
     traced and printed with their margins."""
@@ -3174,7 +3278,7 @@ def _check_family_logits(tag: str, engine, batch, got, want) -> tuple[float, dic
         raise AssertionError(f"{tag} first step: non-finite kernel logits")
     if err <= LOGIT_TOL:
         return err, {}
-    if engine.cfg.model_type in RECURRENT_MODEL_TYPES:
+    if engine.cfg.model_type in HELD_MODEL_TYPES:
         return err, hold_per_kernel(tag, engine, batch, want, err)
     flips = router_flips(engine, batch) if engine.cfg.moe else []
     if not flips:
@@ -3411,8 +3515,8 @@ def check_flash(name, got, q, k, v, **kw) -> tuple[float, float]:
     return err, tol
 
 
-def prefill_logits(engine, batch, mode: str = "kernel", counts: dict | None = None
-                   ) -> torch.Tensor:
+def prefill_logits(engine, batch, mode: str = "kernel", counts: dict | None = None,
+                   flash_errs: list | None = None) -> torch.Tensor:
     """A prefill's logits, its kernels run as ``mode`` says: "kernel";
     "plain"; "checked" (each projection's and flash attention call's kernel,
     its output held to the plain version on the same input by
@@ -3421,7 +3525,8 @@ def prefill_logits(engine, batch, mode: str = "kernel", counts: dict | None = No
     effect a kernel has outside its output shows); "ulp" (the plain
     versions', layer 0's first projection output moved one f32 ulp up: how
     far the model carries a rounding-sized change). The last three run
-    every other op plain. ``counts`` gets the calls by kind."""
+    every other op plain. ``counts`` gets the calls by kind, and
+    ``flash_errs`` each checked flash call's (max |err|, tol, causal)."""
     calls = collections.Counter()
 
     def run(qmm, x, w):
@@ -3444,8 +3549,10 @@ def prefill_logits(engine, batch, mode: str = "kernel", counts: dict | None = No
         calls["flash_attention"] += 1
         if mode == "checked":
             y = fa(q, k, v, impl="cuda", **kw)
-            check_flash(f"flash attention call {i} q {tuple(q.shape)} k {tuple(k.shape)}", y,
-                        q, k, v, **kw)
+            err, tol = check_flash(f"flash attention call {i} q {tuple(q.shape)} k "
+                                   f"{tuple(k.shape)}", y, q, k, v, **kw)
+            if flash_errs is not None:
+                flash_errs.append((err, tol, kw.get("causal", True)))
             return y
         if mode == "shadow":
             fa(q, k, v, impl="cuda", **kw)
@@ -3529,7 +3636,7 @@ def phase_families(dev) -> dict:
         torch.cuda.empty_cache()
         log(f"[families {arch}] {res['seconds']:.1f} s")
     out["goldens"] = family_goldens(dev, [a for a in FAMILY_GOLDEN["archs"]
-                                          if a not in RECURRENT_ARCHS])
+                                          if a not in (*RECURRENT_ARCHS, ENCDEC_ARCH)])
     return out
 
 
@@ -3565,6 +3672,7 @@ def family_goldens(dev, archs, drawn=None, hold_logits: bool = False) -> dict:
         prompt = family_golden_prompt(cfg.vocab_size)
         if prompt.tolist() != golden["prompt"]:
             raise AssertionError(f"{arch}: golden prompt differs")
+        extra = {k: torch.as_tensor(v) for k, v in family_golden_extra(cfg).items()}
         params = params_from_numpy(tree, dev)
         del tree
         total = fg["batch"] * fg["max_new_tokens"]
@@ -3573,17 +3681,17 @@ def family_goldens(dev, archs, drawn=None, hold_logits: bool = False) -> dict:
             eng = InferenceEngine(build(cfg), params, device=dev,
                                   quantize=False if setting == "float32" else setting,
                                   cache_len=fg["prompt_len"] + fg["max_new_tokens"])
-            got = eng.generate({"tokens": torch.as_tensor(prompt)},
+            got = eng.generate({"tokens": torch.as_tensor(prompt), **extra},
                                fg["max_new_tokens"]).tokens.tolist()
             want = golden["tokens"][setting]
             same = sum(a == b for ra, rb in zip(got, want) for a, b in zip(ra, rb))
-            off = [] if got == want else replay_choices(eng, prompt, np.asarray(want))
+            off = [] if got == want else replay_choices(eng, prompt, np.asarray(want), extra)
             cpu = golden["port_cpu_equal"][setting]
             res[setting] = {"tokens_equal": same, "tokens_total": total, "cpu_tokens_equal": cpu,
                             "replay_differs": off}
             held = ""
             if hold_logits and setting != "float32":
-                batch = {"tokens": torch.as_tensor(prompt)}
+                batch = {"tokens": torch.as_tensor(prompt), **extra}
                 err = _rel_err(prefill_logits(eng, batch), prefill_logits(eng, batch, "plain"))
                 if not err <= LOGIT_TOL:
                     raise AssertionError(f"{arch} golden model ({setting}): first-step logits "
@@ -3897,6 +4005,235 @@ def recurrent_summary(rec: dict, smi: str) -> None:
             f"{rg['bucketed']['replayed']['tok_s']:.1f}; {r['seconds']:.1f} s [{smi}]")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the encoder-decoder at full width
+# ---------------------------------------------------------------------------
+
+def encdec_projections() -> list[tuple[str, int, int, int]]:
+    """(name, m, n, GS) of each distinct quantized weight shape of the
+    encoder-decoder (``bounds.layer_projections``: wqkv 3072 x 1024; wo and
+    the cross wq / wo 1024 x 1024; cross wkv 2048 x 1024; w13; w2), the
+    classifier (vocab_padded rows) included."""
+    cfg = load_config(ENCDEC_ARCH)
+    shapes: dict[tuple[int, int], list[str]] = {}
+    for name, m, n, _ in bounds.layer_projections(cfg):
+        names = shapes.setdefault((m, n), [])
+        short = name.split(" ", 1)[1].replace("cross ", "cross-")
+        if short not in names:
+            names.append(short)
+    shapes.setdefault((cfg.vocab_padded, cfg.d_model), []).append("classifier")
+    return [(f"seamless {'/'.join(names)}", m, n, bounds.group_size(cfg, n))
+            for (m, n), names in shapes.items()]
+
+
+def phase_encdec_kernels(dev) -> tuple[list[dict], list[dict]]:
+    """(a) The int8 GQMM at ENCDEC_KERNEL_BATCHES and the int8 GQMV at every
+    projection shape, timed beside their bounds and plain versions; int4,
+    int3 and fp8 GQMM at ENCDEC_CHECKED_B, checked; B4 bf16 at the
+    encoder's non-causal and the decoder prompt's causal shape, SDPA beside
+    it. Phase 2's tolerances."""
+    gen = torch.Generator(device=dev).manual_seed(15)
+    rows, checked = [], 0
+    for name, m, n, pgs in encdec_projections():
+        fr = _format_rows(gen, dev, name, m, n, pgs, WEIGHT_FORMATS[1:], ENCDEC_CHECKED_B,
+                          gqmv=False)
+        rows += fr
+        checked += len(fr)
+        rows += _int8_rows(gen, dev, name, m, n, pgs, ENCDEC_KERNEL_BATCHES,
+                           ENCDEC_KERNEL_BATCHES, "encdec kernels")
+    log(f"[encdec kernels] int4, int3 and fp8 GQMM at b {ENCDEC_CHECKED_B}: {checked} cases "
+        f"within phase 2's tolerances")
+    return rows, [_flash_row(gen, dev, case, "encdec flash", causal=causal)
+                  for case, causal in ENCDEC_FLASH]
+
+
+def encdec_batch(cfg, dev) -> dict:
+    """SERVE's decoder prompt (numpy, seeded) and ENCDEC's frames (a
+    torch.Generator on the card, seeded), N(0, 1) f32."""
+    b = SERVE["batch"]
+    rng = np.random.default_rng(ENCDEC["seed"])
+    gen = torch.Generator(device=dev).manual_seed(ENCDEC["seed"])
+    return {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                                   size=(b, SERVE["prompt_len"]))),
+            "frames": torch.randn((b, ENCDEC["s_enc"], cfg.d_model), generator=gen,
+                                  device=dev)}
+
+
+def encdec_blockwise(dev, engine, batch) -> dict:
+    """Under blockwise_attention: the prefill runs B4 once an encoder layer
+    (non-causal) and once a decoder layer (the prompt, causal), 48 in all;
+    every flash call (and projection) of a checked prefill held to its
+    plain version on the same input, each call's error printed; the
+    logits kernel vs plain by the families' rule; generate replayed ==
+    eager (tokens and launches)."""
+    cfg = engine.cfg
+    new = SERVE["max_new_tokens"]
+    fname = fkern.kernel_name(cfg.cdtype())
+    want_fl = cfg.encoder_layers + cfg.num_layers
+    with flags.overrides(blockwise_attention=True):
+        with torch.inference_mode():
+            (logits_k, _), fl, gq = _flash_launches(lambda: engine.prefill(batch))
+        if fl != {fname: want_fl}:
+            raise AssertionError(f"seamless blockwise prefill: flash launches {fl}, expected "
+                                 f"{want_fl} of {fname}")
+        flash: list = []
+        prefill_logits(engine, batch, "checked", flash_errs=flash)
+        causal = [c for _, _, c in flash]
+        if causal != [False] * cfg.encoder_layers + [True] * cfg.num_layers:
+            raise AssertionError(f"seamless blockwise prefill: checked flash calls {causal}")
+        log_flash_errors("seamless blockwise prefill", flash)
+        err, rule = _check_family_logits("seamless blockwise prefill", engine, batch,
+                                         logits_k.float(), prefill_logits(engine, batch, "plain"))
+        engine.generate(batch, 2)                               # captures
+        _reset_launches()
+        fkern.reset_launches()
+        res = engine.generate(batch, new)
+        launches = {**_launches(), **{k: v for k, v in fkern.LAUNCHES.items() if v}}
+        _reset_launches()
+        fkern.reset_launches()
+        eager, _, _ = step_loop(engine, batch, new)
+        le = {**_launches(), **{k: v for k, v in fkern.LAUNCHES.items() if v}}
+    if not torch.equal(eager, res.tokens) or le != launches:
+        raise AssertionError(f"seamless under blockwise_attention: replayed tokens/launches "
+                             f"differ from the eager loop's ({le} vs {launches})")
+    if launches.get(fname) != want_fl:
+        raise AssertionError(f"seamless generate under blockwise_attention: {launches}")
+    log(f"[encdec] blockwise prefill: {fname} x {fl[fname]} ({cfg.encoder_layers} non-causal, "
+        f"{cfg.num_layers} causal; hd {cfg.resolved_head_dim}), each held within FLASH_TOL "
+        f"(largest share of its tolerance {max(e / t for e, t, _ in flash):.2f}), logits vs "
+        f"plain {err:.3e}; generate under it replayed == eager (tokens and launches {launches}) "
+        f"[{CARD['smi']}]")
+    return {"blockwise_launches": {**fl, **gq}, "flash_errors": flash,
+            "blockwise_logit_rel_err": err, "blockwise_logit_rule": rule, "launches": launches,
+            "tokens": res.tokens.tolist()}
+
+
+def encdec_refusals(dev, engine, batch) -> list[str]:
+    """The encoder-decoder refuses what the reference refuses or fails on:
+    serve_ragged (bucketed: a request carries no frames), a paged cache,
+    spec_k, ragged lengths=, kv_quant (ValueError), and the kvt and int8
+    KV-cache flags (NotImplementedError); the model declares no ragged,
+    paged, verify or slot capability."""
+    model, out = engine.model, []
+    lens = torch.full((batch["tokens"].shape[0],), batch["tokens"].shape[1])
+    reqs = [Request(0, batch["tokens"][0, :8].tolist())]
+    calls = {"serve_ragged": (ValueError, lambda: serve_ragged(engine, reqs, 2)),
+             "generate(paged=True)": (ValueError, lambda: engine.generate(batch, 2, paged=True)),
+             "generate(spec_k=4)": (ValueError, lambda: engine.generate(batch, 2, spec_k=4)),
+             "generate(lengths=)": (ValueError, lambda: engine.generate(batch, 2, lengths=lens)),
+             "InferenceEngine(kv_quant='int8')": (ValueError, lambda: InferenceEngine(
+                 model, engine.params, cache_len=8, device=dev, kv_quant="int8"))}
+    for flag in ("kvt_cache_layout", "int8_kv_cache"):
+        def under(flag=flag):
+            with flags.overrides(**{flag: True}):
+                engine.generate(batch, 2)
+        calls[f"generate under {flag}"] = (NotImplementedError, under)
+    for name, (exc, call) in calls.items():
+        try:
+            call()
+        except exc as e:
+            out.append(f"{name}: {type(e).__name__}: {e}")
+            continue
+        raise AssertionError(f"seamless: {name} did not raise {exc.__name__}")
+    if model.supports_paged or model.supports_spec or model.supports_lengths or \
+            model.cache_kind != "none" or any(getattr(model, h) is not None for h in (
+                "init_paged_cache", "decode_paged", "verify", "commit_verify", "verify_paged",
+                "commit_verify_paged", "insert_slots", "gather_slots")):
+        raise AssertionError("seamless: the model declares a ragged, paged, verify or slot "
+                             "capability")
+    log("[encdec] refusals as in the reference: " + "; ".join(out))
+    return out
+
+
+def phase_encdec(dev) -> tuple[dict, list[dict], list[dict]]:
+    """Phase 10 (module docstring): (a) the kernels at the encoder-decoder's
+    shapes; (b) generate at full width and every layer; (c) the prefill and
+    generate under blockwise_attention; (d) the refusals; (e) the golden."""
+    t_start = time.perf_counter()
+    # (e)'s numpy draw and hash (~0.65 G values) run on a host thread
+    # beside (a)-(d)'s work on the card
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    drawn = {ENCDEC_ARCH: pool.submit(golden_tree, ENCDEC_ARCH)}
+    pool.shutdown(wait=False)
+    krows, frows = phase_encdec_kernels(dev)
+    out = {"kernels_s": time.perf_counter() - t_start}
+    cfg = load_config(ENCDEC_ARCH)
+    model = build(cfg)
+    params = model.init(seed=ENCDEC["seed"], device=dev)
+    engine = InferenceEngine(model, params, quantize=True, device=dev,
+                             cache_len=ENCDEC["cache_len"])
+    del params
+    torch.cuda.synchronize()
+    log(f"[encdec] {ENCDEC_ARCH} full width d {cfg.d_model}, {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} heads of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size} ({cfg.vocab_padded} rows), {cfg.encoder_layers} encoder + "
+        f"{cfg.num_layers} decoder layers, {cfg.param_dtype}, int8 weights; frames "
+        f"{SERVE['batch']} x {ENCDEC['s_enc']}, decoder prompt {SERVE['batch']} x "
+        f"{SERVE['prompt_len']}")
+    batch = encdec_batch(cfg, dev)
+    res = family_generate(dev, engine, ENCDEC_ARCH, prefix="encdec", batch=batch)
+    for path, key in (("decode", "per_pass"), ("prefill", "prefill_pass")):
+        if res[key] != {"gqmm_int8": ENCDEC_GQMM[path]}:
+            raise AssertionError(f"seamless: GQMM launches a {path} {res[key]}, expected "
+                                 f"{ENCDEC_GQMM[path]}")
+    cache = engine.graphs.last["generate.prefill"].inputs["cache"]
+    if cache["cross_k"].shape[2] != ENCDEC["s_enc"]:
+        raise AssertionError(f"seamless: the static cross cache holds "
+                             f"{cache['cross_k'].shape[2]} rows, not the frames' "
+                             f"{ENCDEC['s_enc']}")
+    res["prefill_ms"] = encdec_prefill_time(engine)
+    res.pop("batch")
+    res["blockwise"] = encdec_blockwise(dev, engine, batch)
+    res["refusals"] = encdec_refusals(dev, engine, batch)
+    out.update(res, layers=(cfg.encoder_layers, cfg.num_layers))
+    del engine, model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["goldens"] = family_goldens(dev, [ENCDEC_ARCH], drawn, hold_logits=True)
+    out["goldens_s"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"[encdec] phase 10 took {out['seconds']:.1f} s (budget {ENCDEC_BUDGET_S} s; kernels "
+        f"{out['kernels_s']:.1f}, golden {out['goldens_s']:.1f})")
+    return out, krows, frows
+
+
+def encdec_prefill_time(engine) -> dict:
+    """The captured prefill (encoder 4 x 512, decoder prompt 4 x 64): wall
+    ms of one replay (host clock, synchronised) and device ms (CUDA events
+    around back-to-back replays)."""
+    prog = engine.graphs.last["generate.prefill"]
+    prog.replay()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prog.replay()
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    dev_ms = replay_events_ms(prog, lambda: None, 4)
+    log(f"[encdec] prefill (encoder {SERVE['batch']} x {ENCDEC['s_enc']}, decoder "
+        f"{SERVE['batch']} x {SERVE['prompt_len']}) replayed {wall:.3f} ms wall, {dev_ms:.3f} "
+        f"on the card [{CARD['smi']}]")
+    return {"wall": wall, "device": dev_ms}
+
+
+def encdec_runs(enc: dict) -> dict[str, dict[str, int]]:
+    """Phase 10's launch counts by run (each counted from 0 just before it)."""
+    return {"phase 10 generate": enc["launches"],
+            "phase 10 blockwise prefill": enc["blockwise"]["blockwise_launches"],
+            "phase 10 generate under blockwise_attention": enc["blockwise"]["launches"]}
+
+
+def encdec_summary(enc: dict, smi: str) -> None:
+    log(f"[encdec] {ENCDEC_ARCH}: {enc['layers'][0]} + {enc['layers'][1]} layers; decode "
+        f"b={SERVE['batch']} "
+        f"{enc['decode_ms_wall']:.3f} ms/step wall, {enc['decode_ms_device']:.3f} on the card "
+        f"({100 * enc['busy_share']:.1f} % busy), {enc['kernels_per_step']} kernels a step, "
+        f"GQMM {enc['gqmm_ms_per_step']:.3f} ms ({ENCDEC_GQMM['decode']} launches); bytes a "
+        f"step {enc['weight_bytes_per_step'] / 1e9:.3f} GB (cross K/V "
+        f"{enc['cross_kv_bytes_per_step'] / 1e9:.3f}), HBM bound {enc['bytes_bound_ms']:.3f} "
+        f"ms; prefill {enc['prefill_ms']['wall']:.3f} ms wall, {enc['prefill_ms']['device']:.3f} "
+        f"on the card ({ENCDEC_GQMM['prefill']} GQMMs); {enc['seconds']:.1f} s [{smi}]")
+
+
 def _phase_gqmm_launches(kname, kind, serves, ragged, flagres, spec) -> dict[str, int]:
     """Launches of one GQMV/GQMM kernel on the main paths, by run: phase 3's
     generate per weight setting (its matvec path for GQMV), phase 5's ragged
@@ -4182,6 +4519,7 @@ def main(argv=None) -> int:
     fam_s = time.perf_counter() - t_fam
     log(f"[families] phase 8 with its phase-2 shapes took {fam_s:.1f} s")
     rec, rkrows, rfrows = phase_recurrent(dev)
+    enc, ekrows, efrows = phase_encdec(dev)
 
     s8, pf = serves["int8"], ragged["passes"]["paged_float"]
     log(f"[graphs] int8, batch {SERVE['batch']}: decode eager {s8['eager']['decode_ms_per_step']:.2f} "
@@ -4220,8 +4558,10 @@ def main(argv=None) -> int:
                              rqrows, flagres, golden, spec)
     add_families(entries, fam, famrows + ffrows + fprows)
     add_runs(entries, recurrent_runs(rec), rkrows + rfrows, "recurrent_shapes")
+    add_runs(entries, encdec_runs(enc), ekrows + efrows, "encdec_shapes")
     family_summary(fam, smi)
     recurrent_summary(rec, smi)
+    encdec_summary(enc, smi)
     for e in entries:
         log(f"[kernels] {e['name']:16s} {e['launches']:6d} launches  {1e3 * e['ms']:10.3f} us  "
             f"bound {1e3 * e['bound_ms']:9.3f} us ({e['bound_by']}, {100 * e['bound_share']:.1f} "
@@ -4243,6 +4583,7 @@ def main(argv=None) -> int:
              "family_paged_rows": fprows, "families": fam, "families_seconds": fam_s,
              "recurrent_kernel_rows": rkrows, "recurrent_flash_rows": rfrows,
              "recurrent": rec,
+             "encdec_kernel_rows": ekrows, "encdec_flash_rows": efrows, "encdec": enc,
              "kernels": entries,
              "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -78,14 +78,15 @@ def init_params_numpy(cfg: ModelConfig, seed: int, *, norm_scale: float = 0.0) -
     (``_DRAW_CHUNK``), the same numbers as one draw (numpy's stream is
     sequential).
 
-    The recurrent families draw their own trees (``_rwkv_numpy``,
-    ``_zamba_numpy``) with the reference's constants.
+    The recurrent families and the encoder-decoder draw their own trees
+    (``_rwkv_numpy``, ``_zamba_numpy``, ``_encdec_numpy``) with the
+    reference's constants.
 
     ``norm_scale`` > 0 adds N(0, norm_scale^2) to every norm weight, drawn
     after all other leaves (so the other leaves do not change; MLA's
     ``kv_norm``/``q_norm`` last; a recurrent tree's norms in sorted path
-    order), for tests that must see the norm weights act (gemma2's + 1
-    included)."""
+    order; so an own tree's), for tests that must see the norm weights act
+    (gemma2's + 1 included)."""
     rng = np.random.RandomState(seed)
     d, L, vp = cfg.d_model, cfg.num_layers, cfg.vocab_padded
     norm = np.zeros if cfg.gemma_norms else np.ones
@@ -105,8 +106,8 @@ def init_params_numpy(cfg: ModelConfig, seed: int, *, norm_scale: float = 0.0) -
     def dense(out_dim, in_dim, lead=()):
         return normal((*lead, out_dim, in_dim), in_dim ** -0.5)
 
-    if cfg.model_type in _RECURRENT:
-        params = _RECURRENT[cfg.model_type](cfg, normal, dense)
+    if cfg.model_type in _OWN_TREES:
+        params = _OWN_TREES[cfg.model_type](cfg, normal, dense)
         if norm_scale:
             _add_norm_noise(params, lambda shape: normal(shape, norm_scale))
         return params
@@ -228,7 +229,34 @@ def _zamba_numpy(cfg: ModelConfig, normal, dense) -> dict:
     return params
 
 
-_RECURRENT = {"rwkv6": _rwkv_numpy, "zamba2": _zamba_numpy}
+def _encdec_numpy(cfg: ModelConfig, normal, dense) -> dict:
+    """The encoder-decoder's tree: norms ones, projections N(0, 1/in).
+    Drawn in order: embeddings, the encoder layers (wqkv, wo, w13, w2),
+    the decoder layers (wqkv, wo, the cross attention's wq, wkv, wo, then
+    w13, w2), the classifier."""
+    d, vp = cfg.d_model, cfg.vocab_padded
+
+    def layers(lead, cross: bool) -> dict:
+        ones = np.ones((*lead, d), np.float32)
+        out = {"att_norm": ones, "attn": {"wqkv": dense(cfg.q_dim + 2 * cfg.kv_dim, d, lead),
+                                          "wo": dense(d, cfg.q_dim, lead)}}
+        if cross:
+            out["cross_norm"] = ones.copy()
+            out["cross"] = {"wq": dense(cfg.q_dim, d, lead), "wkv": dense(2 * cfg.kv_dim, d, lead),
+                            "wo": dense(d, cfg.q_dim, lead)}
+        out["ffn_norm"] = ones.copy()
+        out["mlp"] = {"w13": dense(2 * cfg.d_ff, d, lead), "w2": dense(d, cfg.d_ff, lead)}
+        return out
+
+    embed = normal((vp, d), 0.02)
+    enc = layers((cfg.encoder_layers,), cross=False)
+    dec = layers((cfg.num_layers,), cross=True)
+    return {"embed": embed, "enc_layers": enc, "enc_norm": np.ones((d,), np.float32),
+            "dec_layers": dec, "final_norm": np.ones((d,), np.float32),
+            "classifier": dense(vp, d)}
+
+
+_OWN_TREES = {"rwkv6": _rwkv_numpy, "zamba2": _zamba_numpy, "encdec": _encdec_numpy}
 
 
 def _add_norm_noise(tree: dict, draw) -> None:

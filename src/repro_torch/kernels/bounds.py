@@ -60,8 +60,17 @@ def layer_projections(cfg: ModelConfig) -> list[tuple[str, int, int, int]]:
     where prefill runs it as a GQMM). rwkv6: the time mix's wr, wk, wv, wg,
     wout and the channel mix's wffr, wff1, wff2. zamba2: a Mamba2 layer's
     win and wout, then the shared block's four ("shared ..."), which a
-    pass reads once per application (``pass_projections``)."""
+    pass reads once per application (``pass_projections``). The
+    encoder-decoder: an encoder layer's wqkv, wo, w13, w2 ("enc ...") and a
+    decoder layer's, with the cross attention's wq, wkv and wo ("dec
+    ...")."""
     d, h = cfg.d_model, cfg.num_heads
+    if cfg.model_type == "encdec":
+        gqa = _gqa_swiglu(cfg)
+        cross = [("cross wq", cfg.q_dim, d, 1), ("cross wkv", 2 * cfg.kv_dim, d, 1),
+                 ("cross wo", d, cfg.q_dim, 1)]
+        return ([(f"enc {name}", m, n, c) for name, m, n, c in gqa]
+                + [(f"dec {name}", m, n, c) for name, m, n, c in gqa[:2] + cross + gqa[2:]])
     if cfg.model_type == "rwkv6":
         return ([(name, d, d, 1) for name in ("wr", "wk", "wv", "wg", "wout", "wffr")]
                 + [("wff1", cfg.d_ff, d, 1), ("wff2", d, cfg.d_ff, 1)])
@@ -95,14 +104,19 @@ def layer_projections(cfg: ModelConfig) -> list[tuple[str, int, int, int]]:
 
 def pass_projections(cfg: ModelConfig) -> list[tuple[str, int, int, int]]:
     """(name, m, n, count) of the quantized projections of one forward pass
-    (the classifier apart): each layer's, and zamba2's shared block once
-    per application (num_layers // shared_attn_every: its 205.5 M weights
-    do not stay in the L2 from one application to the next)."""
+    (the classifier apart): each layer's, zamba2's shared block once per
+    application (num_layers // shared_attn_every: its 205.5 M weights do
+    not stay in the L2 from one application to the next), and the
+    encoder-decoder's encoder layers encoder_layers times."""
     out = []
     for name, m, n, c in layer_projections(cfg):
-        shared = cfg.model_type == "zamba2" and name.startswith("shared ")
-        out.append((name, m, n, c * (cfg.num_layers // cfg.shared_attn_every if shared
-                                     else cfg.num_layers)))
+        if cfg.model_type == "zamba2" and name.startswith("shared "):
+            layers = cfg.num_layers // cfg.shared_attn_every
+        elif name.startswith("enc "):
+            layers = cfg.encoder_layers
+        else:
+            layers = cfg.num_layers
+        out.append((name, m, n, c * layers))
     return out
 
 
@@ -126,18 +140,40 @@ def projection(fmt: str, m: int, n: int, b: int, gs: int) -> Bound:
     return Bound(nbytes, 2 * b * m * n, "bf16" if fmt == "fp8" else "int8")
 
 
-def projection_pass(cfg: ModelConfig, fmt: str, b: int) -> Bound:
-    """Every projection of one forward pass at batch b (TinyLlama's 4 L + 1
-    = 89), each a :func:`projection` at its group size."""
+def decode_projections(cfg: ModelConfig) -> list[tuple[int, int, int]]:
+    """(m, n, count) of the projections a decode step reads: a forward
+    pass's (:func:`projections`), but for the encoder-decoder the decoder's
+    and the classifier only (the encoder and the cross ``wkv`` run once, at
+    prefill)."""
+    if cfg.model_type != "encdec":
+        return projections(cfg)
+    return ([(m, n, c) for name, m, n, c in pass_projections(cfg)
+             if name.startswith("dec ") and name != "dec cross wkv"]
+            + [(cfg.vocab_size, cfg.d_model, 1)])
+
+
+def _projections_bound(cfg: ModelConfig, fmt: str, b: int, projs) -> Bound:
+    """The sum of a :func:`projection` at its group size for each (m, n,
+    count) of ``projs`` at batch b."""
     nbytes = ops = 0
-    for m, n, count in projections(cfg):
+    for m, n, count in projs:
         one = projection(fmt, m, n, b, group_size(cfg, n))
         nbytes += count * one.nbytes
         ops += count * one.ops
     return Bound(nbytes, ops, "bf16" if fmt == "fp8" else "int8")
 
 
+def projection_pass(cfg: ModelConfig, fmt: str, b: int) -> Bound:
+    """Every projection of one forward pass at batch b (TinyLlama's 4 L + 1
+    = 89), each a :func:`projection` at its group size."""
+    return _projections_bound(cfg, fmt, b, projections(cfg))
+
+
 DTYPE_BYTES = {"bf16": 2, "f32": 4}
+# the encoder-decoder's table rows: the encoder's non-causal flash
+# attention at (b, s_enc), and the decode step at (b, s_enc)
+ENCDEC_FLASH = ((4, 512),)
+ENCDEC_DECODE = ((1, 512), (4, 512))
 
 
 def recurrent_state_bytes(cfg: ModelConfig, b: int) -> int:
@@ -162,12 +198,24 @@ def recurrent_state_bytes(cfg: ModelConfig, b: int) -> int:
     return 2 * L * one
 
 
-def decode_step(cfg: ModelConfig, fmt: str, b: int) -> Bound:
-    """A decode step's bytes and operations at batch b: the projection pass
-    (:func:`projection_pass`) and the recurrent state read and written
-    (:func:`recurrent_state_bytes`)."""
-    p = projection_pass(cfg, fmt, b)
-    return Bound(p.nbytes + recurrent_state_bytes(cfg, b), p.ops, p.rate)
+def cross_kv_bytes(cfg: ModelConfig, b: int, s_enc: int) -> int:
+    """Bytes of the encoder-decoder's cross K/V that a decode step reads at
+    batch b over s_enc encoder positions: L x b x s_enc x 2 x kv_dim in the
+    compute dtype (0 for the others)."""
+    if cfg.model_type != "encdec":
+        return 0
+    e = DTYPE_BYTES["bf16"] if cfg.compute_dtype == "bfloat16" else DTYPE_BYTES["f32"]
+    return cfg.num_layers * b * s_enc * 2 * cfg.kv_dim * e
+
+
+def decode_step(cfg: ModelConfig, fmt: str, b: int, s_enc: int = 0) -> Bound:
+    """A decode step's bytes and operations at batch b: the projections it
+    reads (:func:`decode_projections`), the recurrent state read and written
+    (:func:`recurrent_state_bytes`), and the encoder-decoder's cross K/V
+    over ``s_enc`` encoder positions (:func:`cross_kv_bytes`)."""
+    p = _projections_bound(cfg, fmt, b, decode_projections(cfg))
+    return Bound(p.nbytes + recurrent_state_bytes(cfg, b) + cross_kv_bytes(cfg, b, s_enc),
+                 p.ops, p.rate)
 
 
 def rmsnorm_quant(cfg: ModelConfig, b: int, n: int | None = None, dtype: str = "bf16") -> Bound:
@@ -182,16 +230,19 @@ def rmsnorm_quant(cfg: ModelConfig, b: int, n: int | None = None, dtype: str = "
     return Bound(e * b * n + e * n + b * n + 4 * b * n // cfg.group_size, 8 * b * n, "f32")
 
 
-def flash_prefill(cfg: ModelConfig, b: int, s: int, dtype: str = "bf16") -> Bound:
-    """One layer's causal prefill attention over (b, s) tokens stored as
+def flash_prefill(cfg: ModelConfig, b: int, s: int, dtype: str = "bf16",
+                  causal: bool = True) -> Bound:
+    """One layer's prefill attention over (b, s) tokens stored as
     ``dtype``: q and out (b, H, s, hd), k and v (b, KV, s, hd); q . k and
-    p . v over the s (s + 1) / 2 causal pairs of each head, at the tensor
-    cores' bf16 rate (f32 inputs at the f32 rate outside them)."""
+    p . v over the s (s + 1) / 2 causal pairs of each head (s x s when not
+    ``causal``: the encoder's), at the tensor cores' bf16 rate (f32 inputs
+    at the f32 rate outside them)."""
     hd = cfg.resolved_head_dim
     q = b * cfg.num_heads * s * hd
     kv = b * cfg.num_kv_heads * s * hd
     e = DTYPE_BYTES[dtype]
-    return Bound(e * (2 * q + 2 * kv), 4 * b * cfg.num_heads * hd * s * (s + 1) // 2, dtype)
+    pairs = s * (s + 1) // 2 if causal else s * s
+    return Bound(e * (2 * q + 2 * kv), 4 * b * cfg.num_heads * hd * pairs, dtype)
 
 
 def table(cfg: ModelConfig) -> list[tuple[str, str, Bound]]:
@@ -214,6 +265,12 @@ def table(cfg: ModelConfig) -> list[tuple[str, str, Bound]]:
     if cfg.model_type in ("rwkv6", "zamba2"):
         rows += [("decode step (int8)", f"projections + recurrent state, b={b}",
                   decode_step(cfg, "int8", b)) for b in (1, 4)]
+    if cfg.model_type == "encdec":
+        rows += [("B4 flash_attention_pallas", f"one encoder layer, bf16 {b} x {s}, non-causal",
+                  flash_prefill(cfg, b, s, "bf16", causal=False)) for b, s in ENCDEC_FLASH]
+        rows += [("decode step (int8)", f"decoder + classifier + cross K/V, b={b}, "
+                  f"s_enc={s_enc}", decode_step(cfg, "int8", b, s_enc))
+                 for b, s_enc in ENCDEC_DECODE]
     return rows
 
 

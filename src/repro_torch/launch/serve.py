@@ -1,24 +1,27 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch <id> [...]``.
 
-Counterpart of ``repro/launch/serve.py``: a ported arch (``--arch``, one of
-``registry.PORTED_ARCHS``; any other known id exits with "not yet ported"),
-full size or ``--reduced``, random weights from ``--seed``,
-group-wise PTQ unless ``--no-quantize`` (the config's W8A8, or
-``--quantize-format`` int8/int4/int3/fp8/mixed/mixed3), optionally a quantized KV
-cache (``--kv-quant int8|fp8``), then requests, greedy or ``--sampler
-top_p`` (``--top-p``, ``--temperature``), optionally speculative
-(``--spec-k``, ``--drafter ngram|model:<arch-id>``), timed warm (first call)
-and hot: a uniform batch through ``InferenceEngine.generate``, or with
-``--ragged`` a mixed-length trace through ``serve_ragged`` (``--mode``
+Counterpart of ``repro/launch/serve.py``: an arch (``--arch``, one of
+``registry.PORTED_ARCHS``, all 11 configs), full size or ``--reduced``,
+random weights from ``--seed``, group-wise PTQ unless ``--no-quantize``
+(the config's W8A8, or ``--quantize-format``
+int8/int4/int3/fp8/mixed/mixed3), optionally a quantized KV cache
+(``--kv-quant int8|fp8``), then requests, greedy or ``--sampler top_p``
+(``--top-p``, ``--temperature``), optionally speculative (``--spec-k``,
+``--drafter ngram|model:<arch-id>``), timed warm (first call) and hot: a
+uniform batch through ``InferenceEngine.generate``, or with ``--ragged`` a
+mixed-length trace through ``serve_ragged`` (``--mode``
 auto/paged/continuous/bucketed, ``--slots``, ``--block-size``; auto takes
 the family's preferred mode: paged, or continuous for the MLA and the
-recurrent archs). What a family lacks (a paged cache, ``--spec-k``,
-``--kv-quant`` on the MLA and recurrent archs) exits with the reference's
-error. Runs on
-``--device cuda`` by default; pass ``--device cpu`` to run on the CPU.
-Prints the captured programs by name (``serving/graphs.py``): how many, and
-their warm-up and capture seconds (on the CPU the programs run eagerly and
-none is captured).
+recurrent archs). The encoder-decoder (seamless-m4t-large-v2) serves
+``generate`` with frame embeddings (batch, prompt_len, d_model) drawn after
+the prompt, as the reference does; its ``--ragged`` exits (the bucketed
+path gives the encoder no frames). What a family lacks (a paged cache,
+``--spec-k``, ``--kv-quant`` on the MLA, recurrent and encoder-decoder
+archs) exits with the reference's error. Runs on ``--device cuda`` by
+default; pass ``--device cpu`` to run on the CPU. Prints the captured
+programs by name (``serving/graphs.py``): how many, and their warm-up and
+capture seconds (on the CPU the programs run eagerly and none is
+captured).
 """
 
 from __future__ import annotations
@@ -144,7 +147,7 @@ def main(argv=None):
         try:
             serve_ragged(engine, reqs, args.steps, **kw)  # warm
         except ValueError as e:
-            ap.error(str(e))                          # e.g. --spec-k with bucketed
+            ap.error(str(e))                          # e.g. --spec-k with bucketed, encdec
         t0 = time.perf_counter()
         out = serve_ragged(engine, reqs, args.steps, seed=args.seed + 1, **kw)
         hot = time.perf_counter() - t0
@@ -157,6 +160,9 @@ def main(argv=None):
 
     batch = {"tokens": torch.as_tensor(
         rng.integers(0, cfg.vocab_size, size=(args.batch, args.prompt_len)))}
+    if cfg.model_type == "encdec":
+        batch["frames"] = torch.as_tensor(
+            rng.normal(size=(args.batch, args.prompt_len, cfg.d_model)).astype(np.float32))
     try:
         _, warm = _timed(engine, batch, args.steps, **gen_kw)
     except ValueError as e:

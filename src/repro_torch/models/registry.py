@@ -7,8 +7,9 @@ the reference) and gemma2-2b; dbrx-132b (GQA with a 16-expert MoE FFN);
 and the MLA archs minicpm3-4b (dense FFN) and deepseek-v2-lite-16b (MoE
 with shared experts)), and the recurrent families rwkv6-7b
 (``models/rwkv.py``) and zamba2-7b (Mamba2 with a shared attention block,
-``models/zamba.py``). ``load_config`` names the encoder-decoder
-(seamless-m4t-large-v2) and raises "not yet ported" for it. ``Model``
+``models/zamba.py``), and the encoder-decoder seamless-m4t-large-v2
+(``models/encdec.py``; its speech frontend a stub: the caller's
+``batch["frames"]``): all 11 configs. ``Model``
 keeps the reference's entry points (the scoring ``forward``, ``prefill``,
 ``decode``) and its capability flags, each declared explicitly and equal
 to the reference's for every ported arch: for ``decoder_lm`` ragged
@@ -20,7 +21,10 @@ archs only (the MLA latent cache keeps the contiguous single-token path,
 its hooks None, as in the reference). The recurrent families declare
 ``cache_kind="state"`` with both slot hooks (``RecurrentAdapter``) and no
 ragged lengths, paged cache or verify: a recurrent prefill cannot skip pad
-tokens, so the serving front ends group them by exact length.
+tokens, so the serving front ends group them by exact length. The
+encoder-decoder declares none of them (``cache_kind="none"``, no hooks), as
+in the reference: its cross K/V is per-request state no slot or paged
+scheduler carries, so it serves through ``generate`` (bucketed).
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from typing import Callable
 import numpy as np
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import encdec as _encdec
 from repro_torch.models import rwkv as _rwkv
 from repro_torch.models import transformer as _tf
 from repro_torch.models import zamba as _zamba
@@ -52,15 +57,12 @@ ARCH_IDS = [
 
 PORTED_ARCHS = ("tinyllama-1.1b", "internlm2-1.8b", "deepseek-coder-33b", "pixtral-12b",
                 "gemma2-2b", "dbrx-132b", "minicpm3-4b", "deepseek-v2-lite-16b",
-                "rwkv6-7b", "zamba2-7b")
+                "rwkv6-7b", "zamba2-7b", "seamless-m4t-large-v2")
 
 
 def load_config(arch_id: str) -> ModelConfig:
     if arch_id not in ARCH_IDS:
         raise ValueError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
-    if arch_id not in PORTED_ARCHS:
-        raise NotImplementedError(
-            f"{arch_id} is not yet ported to repro_torch; ported: {PORTED_ARCHS}")
     mod = importlib.import_module(
         f"repro_torch.configs.{arch_id.replace('-', '_').replace('.', '_')}")
     return mod.CONFIG
@@ -71,7 +73,8 @@ class Model:
     cfg: ModelConfig
     init: Callable               # (seed=0, device="cuda") -> params
     forward: Callable            # (params, batch, remat=True) -> logits (b, s, vocab_padded)
-    init_cache: Callable         # (batch, cache_len, dtype, device) -> cache
+    init_cache: Callable         # (batch, cache_len, dtype, device) -> cache; the
+    #                              encdec's also takes memory_len (its cross K/V rows)
     prefill: Callable            # (params, batch, cache_len, cache=None) -> (logits, cache)
     decode: Callable             # (params, token, cache, pos) -> (logits, cache)
     # the reference's capability surface (see repro.models.registry.Model)
@@ -130,9 +133,27 @@ def build(cfg: ModelConfig) -> Model:
             lambda b, t, dt, device: _zamba.zamba_init_cache(cfg, b, t, dt, device),
             _zamba.zamba_prefill, _zamba.zamba_decode, _zamba.zamba_insert_slots,
             _zamba.zamba_gather_slots)
+    if cfg.model_type == "encdec":
+        # the encoder output is per-request state the slot and paged
+        # schedulers don't carry; the decoder cache stays contiguous and
+        # bucket-served (the reference's flags)
+        return Model(
+            cfg=cfg,
+            init=lambda seed=0, device="cuda": _encdec.init_encdec(cfg, device, seed=seed),
+            forward=lambda params, batch, remat=True: _encdec.encdec_forward(
+                params, batch, cfg, remat=remat),
+            init_cache=lambda b, t, dt, device, memory_len=_encdec.DEFAULT_MEMORY_LEN: (
+                _encdec.encdec_init_cache(cfg, b, t, dt, device, memory_len)),
+            prefill=lambda params, batch, cache_len, cache=None: _encdec.encdec_prefill(
+                params, batch, cfg, cache_len, cache=cache),
+            decode=lambda p, tok, cache, pos: _encdec.encdec_decode(p, tok, cache, pos, cfg),
+            supports_lengths=False,
+            supports_paged=False,
+            supports_spec=False,
+            cache_kind="none",
+        )
     if cfg.model_type != "decoder_lm":
-        raise NotImplementedError(
-            f"model_type {cfg.model_type!r} is not yet ported to repro_torch")
+        raise ValueError(f"unknown model_type: {cfg.model_type}")
     _tf._check_ported(cfg)
 
     def forward(params, batch, remat=True):
@@ -178,11 +199,14 @@ def smoke_batch(cfg: ModelConfig, *, batch: int = 2, seq: int = 16, seed: int = 
     """Small concrete batch as numpy arrays, the reference's draws from
     ``numpy.random.default_rng(seed)``: tokens, labels (tokens shifted by
     one) and, for pixtral's patch-embed stub, ``patch_embeds`` (batch,
-    num_frontend_tokens, d_model) f32. Hand it to ``forward``/``prefill``
-    through ``torch.as_tensor``."""
+    num_frontend_tokens, d_model) f32, and for the encoder-decoder ``frames``
+    (batch, seq, d_model) f32, drawn after the tokens. Hand it to
+    ``forward``/``prefill`` through ``torch.as_tensor``."""
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, cfg.vocab_size, size=(batch, seq)).astype(np.int32)
     out = {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}
+    if cfg.model_type == "encdec":
+        out["frames"] = rng.normal(size=(batch, seq, cfg.d_model)).astype(np.float32)
     if cfg.frontend == "patch_embed":
         out["patch_embeds"] = rng.normal(
             size=(batch, cfg.num_frontend_tokens, cfg.d_model)).astype(np.float32)

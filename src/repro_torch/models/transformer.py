@@ -50,8 +50,9 @@ PORTED_FRONTENDS = (None, "patch_embed")
 def _check_ported(cfg: ModelConfig) -> None:
     if cfg.model_type != "decoder_lm" or cfg.frontend not in PORTED_FRONTENDS:
         raise NotImplementedError(
-            f"{cfg.arch_id}: {cfg.model_type} with frontend {cfg.frontend!r} is not yet "
-            f"ported to repro_torch (decoder_lm with frontends {PORTED_FRONTENDS} only)")
+            f"{cfg.arch_id}: {cfg.model_type} with frontend {cfg.frontend!r} is not ported to "
+            f"this module (decoder_lm with frontends {PORTED_FRONTENDS} only; the 'frames' "
+            "frontend is the encoder-decoder's, models/encdec.py)")
 
 
 def _layer_windows(cfg: ModelConfig) -> list[bool]:

@@ -6,7 +6,8 @@ The serving modes, all length-aware:
 - **bucketed**: requests are right-padded to power-of-two buckets and each
   bucket runs one ``InferenceEngine.generate`` with the true lengths, so a
   padded row decodes exactly like its unpadded self; a recurrent family
-  (no ragged lengths) groups by exact length instead.
+  (no ragged lengths) groups by exact length instead. The encoder-decoder
+  resolves here and is refused: a request carries no frames.
 - **continuous** (``SlotScheduler``): a fixed-width decode batch of slots
   fed by the scheduling core (serving/core.py) over per-slot ``cache_len``
   cache rows (``ContiguousAdapter``) or per-slot recurrent state
@@ -68,7 +69,15 @@ __all__ = [
 
 def serve_bucketed(engine, requests: Sequence[Request], max_new_tokens: int, *,
                    sampler: str = "greedy", sampler_kw=None, seed: int = 0) -> list[Response]:
-    """Bucket requests, generate per bucket, reassemble in arrival order."""
+    """Bucket requests, generate per bucket, reassemble in arrival order.
+    An encoder-decoder (the ``frames`` frontend) is refused: a ``Request``
+    carries tokens only, so its encoder would get no frames (the reference
+    fails here with ``KeyError: 'frames'``)."""
+    if engine.cfg.frontend == "frames":
+        raise ValueError(
+            f"{engine.cfg.arch_id}: the bucketed path hands generate only the requests' tokens, "
+            "and the encoder needs batch['frames'] (a Request carries none; the reference "
+            "fails here with KeyError: 'frames'); call InferenceEngine.generate with frames")
     ragged = engine.model.supports_lengths
     eos = engine.eos_id
     buckets: dict[int, list[Request]] = defaultdict(list)

@@ -21,6 +21,11 @@ writes and each decode step advances in place. They refuse ragged
 ``lengths`` (a recurrent prefill cannot skip pad tokens), and a family
 whose state does not grow with ``cache_len`` (``unbounded_state``) skips
 the overflow check.
+
+The encoder-decoder (``cache_kind="none"``) takes ``batch["frames"]``, its
+encoder's input, into a static buffer of the signature beside the prompt;
+its static cache holds exactly as many cross K/V rows as the frames have
+positions (cross attention attends to every memory row).
 """
 
 from __future__ import annotations
@@ -41,6 +46,10 @@ from repro_torch.serving.graphs import GraphCache
 from repro_torch.serving.core import verify_inputs
 from repro_torch.serving.sampling import GUMBEL, draw_noise, make_sampler, needs_noise, sampler_sig
 from repro_torch.serving.spec import NgramDrafter, build_verify_step, draft_chunk, take_accepted
+
+# a batch's model inputs beside the tokens: pixtral's patch embeddings, the
+# encoder-decoder's frames
+EXTRA_INPUTS = ("patch_embeds", "frames")
 
 
 @dataclasses.dataclass
@@ -123,8 +132,9 @@ class InferenceEngine:
         out = {"tokens": torch.as_tensor(batch["tokens"]).to(self.device, torch.long)}
         if batch.get("lengths") is not None:
             out["lengths"] = torch.as_tensor(batch["lengths"]).to(self.device, torch.long)
-        if batch.get("patch_embeds") is not None:
-            out["patch_embeds"] = torch.as_tensor(batch["patch_embeds"]).to(self.device)
+        for name in EXTRA_INPUTS:
+            if batch.get(name) is not None:
+                out[name] = torch.as_tensor(batch[name]).to(self.device)
         return out
 
     # -- one-step APIs ---------------------------------------------------------
@@ -140,25 +150,28 @@ class InferenceEngine:
     # -- full generation -------------------------------------------------------
     def _generate_state(self, b: int, prompt_len: int, ragged: bool, paged: bool,
                         block_size: int, cache_len: int, sampler: tuple,
-                        patch: torch.Tensor | None = None) -> tuple[tuple, dict]:
+                        extra: dict[str, torch.Tensor]) -> tuple[tuple, dict]:
         """(key, static buffers) of one ``generate`` signature: the prompt,
         token, position, EOS flag, cache (and pool and table), for a
-        sampler that draws noise its Gumbel buffer (b, V), and for a batch
-        with pixtral's ``patch_embeds`` a buffer of their shape and type."""
+        sampler that draws noise its Gumbel buffer (b, V), and for each of
+        the batch's ``extra`` inputs (pixtral's ``patch_embeds``, the
+        encoder-decoder's ``frames``) a buffer of its shape and type. With
+        ``frames`` (b, s_enc, d) the cache's cross K/V get s_enc rows."""
         dev = self.device
-        pshape = None if patch is None else (tuple(patch.shape), patch.dtype)
-        key = (b, prompt_len, ragged, paged, block_size, cache_len, sampler, self.eos_id, pshape)
+        shapes = tuple((name, tuple(t.shape), t.dtype) for name, t in sorted(extra.items()))
+        key = (b, prompt_len, ragged, paged, block_size, cache_len, sampler, self.eos_id, shapes)
 
         def make_state():
             zeros = dict(dtype=torch.long, device=dev)
+            mem = {"memory_len": extra["frames"].shape[1]} if "frames" in extra else {}
             st = {"tokens": torch.zeros((b, prompt_len), **zeros),
                   "tok": torch.zeros((b,), **zeros), "pos": torch.zeros((b,), **zeros),
                   "done": torch.zeros((b,), dtype=torch.bool, device=dev),
-                  "cache": self.model.init_cache(b, cache_len, self.cfg.cdtype(), dev)}
+                  "cache": self.model.init_cache(b, cache_len, self.cfg.cdtype(), dev, **mem)}
             if ragged:
                 st["lengths"] = torch.full((b,), prompt_len, **zeros)
-            if patch is not None:
-                st["patch_embeds"] = torch.zeros(pshape[0], dtype=pshape[1], device=dev)
+            for name, shape, dtype in shapes:
+                st[name] = torch.zeros(shape, dtype=dtype, device=dev)
             if paged:
                 # a float pool is a view of the contiguous cache; a quantized
                 # one is laid out anew (kvt-major rows to time-major blocks)
@@ -179,8 +192,9 @@ class InferenceEngine:
         relayout = "pool" in st and "k_q" in st["cache"]
 
         def prefill(tokens, tok, pos, done, cache, lengths=None, pool=None, gumbel=None,
-                    patch_embeds=None):
-            batch = {"tokens": tokens, "lengths": lengths, "patch_embeds": patch_embeds}
+                    patch_embeds=None, frames=None):
+            batch = {"tokens": tokens, "lengths": lengths, "patch_embeds": patch_embeds,
+                     "frames": frames}
             logits, _ = model.prefill(params, batch, cache_len, cache=cache)
             first = sample(logits, gumbel=gumbel)
             tok.copy_(first)
@@ -196,7 +210,7 @@ class InferenceEngine:
             return logits
 
         names = ["tokens", "tok", "pos", "done", "cache"]
-        names += [n for n in ("lengths", GUMBEL, "patch_embeds") if n in st]
+        names += [n for n in ("lengths", GUMBEL, *EXTRA_INPUTS) if n in st]
         names += ["pool"] * relayout
         return self.graphs.program("generate.prefill", key, prefill,
                                    lambda: {k: st[k] for k in names})
@@ -309,15 +323,13 @@ class InferenceEngine:
             # rows reshape exactly into the pool
             cache_len = -(-cache_len // block_size) * block_size
         sig = (sampler, sampler_sig(sampler_kw))
-        patch = batch.get("patch_embeds")
-        patch = None if patch is None else torch.as_tensor(patch)
+        extra = {name: torch.as_tensor(batch[name]) for name in EXTRA_INPUTS
+                 if batch.get(name) is not None}
         key, st = self._generate_state(b, prompt_len, lengths is not None, paged, block_size,
-                                       cache_len, sig, patch)
+                                       cache_len, sig, extra)
         pre = self._prefill_program(key, st, prompt_len, cache_len, block_size, sample)
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        pre.load(tokens=tokens)
-        if patch is not None:
-            pre.load(patch_embeds=patch)
+        pre.load(tokens=tokens, **extra)
         if lengths is not None:
             pre.load(lengths=torch.as_tensor(lengths))
         draw_noise(pre.inputs, gen)

@@ -287,18 +287,24 @@ def hold(run, quantized: bool, kv_quant=None, top_k: int | None = None) -> None:
     assert traced(kind, flips), (kind, flips[:4], held.misses)
 
 
-def first_difference(jeng, teng, prompt: np.ndarray, want: np.ndarray) -> dict:
+def first_difference(jeng, teng, prompt: np.ndarray, want: np.ndarray,
+                     extra: dict | None = None) -> dict:
     """Both engines' prefill and decode steps fed the reference's greedy
     tokens ``want`` (b, T), on each engine's own weights, every int8
     rounding and MoE router recorded: the first decision where the packages
     differ, as ``first_flips`` gives it ({"kind", "values"}). Where two
     greedy runs part, this finds what parted them. Through each registry
-    ``Model``'s ``prefill`` and ``decode``, so any family."""
+    ``Model``'s ``prefill`` and ``decode``, so any family; ``extra`` (numpy
+    arrays by name, e.g. the encoder-decoder's ``frames``) joins the
+    prefill batch."""
     cfg, jm, tm = jeng.cfg, jeng.model, teng.model
     p = prompt.shape[1]
+    extra = extra or {}
+    jextra = {k: jnp.asarray(v) for k, v in extra.items()}
+    textra = {k: torch.as_tensor(v) for k, v in extra.items()}
     with recorded() as (ref, port):
         # traced here, inside the recorder (fresh functions: no cached trace)
-        jpre = jax.jit(lambda prm, t: jm.prefill(prm, {"tokens": t}, jeng.cache_len))
+        jpre = jax.jit(lambda prm, t: jm.prefill(prm, {"tokens": t, **jextra}, jeng.cache_len))
         jdec = jax.jit(lambda prm, t, c, pos: jm.decode(prm, t, c, pos))
         logits, cache = jpre(jeng.params, jnp.asarray(prompt, jnp.int32))
         for step in range(want.shape[1] - 1):
@@ -306,7 +312,7 @@ def first_difference(jeng, teng, prompt: np.ndarray, want: np.ndarray) -> dict:
                                  jnp.int32(p + step))
         jax.block_until_ready(logits)
         with torch.inference_mode():
-            _, tcache = tm.prefill(teng.params, {"tokens": torch.as_tensor(prompt)},
+            _, tcache = tm.prefill(teng.params, {"tokens": torch.as_tensor(prompt), **textra},
                                    teng.cache_len)
             for step in range(want.shape[1] - 1):
                 tm.decode(teng.params, torch.as_tensor(want[:, step]), tcache, p + step)

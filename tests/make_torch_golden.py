@@ -4,11 +4,13 @@
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_torch_golden.py --arch ID
 
 With ``--arch`` (one of ``chip_smoke.FAMILY_GOLDEN["archs"]``: internlm2-1.8b,
-gemma2-2b, minicpm3-4b, deepseek-v2-lite-16b, rwkv6-7b, zamba2-7b) it writes
-that family's golden instead, ``src/repro_torch/golden_<arch>.json``: the
-config at full width, depth cut to ``chip_smoke.family_golden_settings``'s
-layer count (2; zamba2 7: one shared-block application and a tail layer;
-about 4 GB of f32 weights a package each), f32 params and
+gemma2-2b, minicpm3-4b, deepseek-v2-lite-16b, rwkv6-7b, zamba2-7b,
+seamless-m4t-large-v2) it writes that family's golden instead,
+``src/repro_torch/golden_<arch>.json``: the config at full width, depth cut
+to ``chip_smoke.family_golden_settings``'s layer count (2; zamba2 7: one
+shared-block application and a tail layer; seamless 2 + 2, with frames
+from ``chip_smoke.family_golden_extra``; about 4 GB of f32 weights a
+package each, seamless 2.6 GB), f32 params and
 compute, weights from ``init_params_numpy``; the reference's greedy
 ``generate`` tokens on the golden prompt with f32 weights and with int8
 weights, and how many of them the port's plain path reproduces on the CPU,
@@ -126,10 +128,14 @@ def family_golden(arch: str) -> None:
     fg = chip_smoke.family_golden_settings(arch)
     cfg_port = chip_smoke.family_golden_config(arch)
     cfg = dataclasses.replace(load_config(arch), num_layers=fg["num_layers"],
+                              encoder_layers=fg.get("encoder_layers", 0),
                               param_dtype=fg["dtype"], compute_dtype=fg["dtype"])
     assert dataclasses.asdict(cfg) == dataclasses.asdict(cfg_port), "config drift"
     tree = init_params_numpy(cfg_port, fg["seed"])
     prompt = chip_smoke.family_golden_prompt(cfg.vocab_size)
+    extra = chip_smoke.family_golden_extra(cfg_port)      # the encoder-decoder's frames
+    jextra = {k: jnp.asarray(v) for k, v in extra.items()}
+    textra = {k: torch.as_tensor(v) for k, v in extra.items()}
     cache_len = fg["prompt_len"] + fg["max_new_tokens"]
     tparams = params_from_numpy(tree, "cpu")
     out = dict(fg, arch=arch, d_model=cfg.d_model, prompt=prompt.tolist(), tokens={},
@@ -138,19 +144,22 @@ def family_golden(arch: str) -> None:
         quantize = setting if setting != "float32" else False
         eng = InferenceEngine(build(cfg), numpy_to_jax(tree), quantize=quantize,
                               cache_len=cache_len)
-        want = np.asarray(eng.generate({"tokens": jnp.asarray(prompt, jnp.int32)},
+        want = np.asarray(eng.generate({"tokens": jnp.asarray(prompt, jnp.int32), **jextra},
                                        fg["max_new_tokens"]).tokens)
         te = TEngine(tbuild(cfg_port), tparams, quantize=quantize, cache_len=cache_len,
                      device="cpu")
-        got = te.generate({"tokens": torch.as_tensor(prompt)}, fg["max_new_tokens"]).tokens
+        got = te.generate({"tokens": torch.as_tensor(prompt), **textra},
+                          fg["max_new_tokens"]).tokens
         out["tokens"][setting] = want.tolist()
         out["port_cpu_equal"][setting] = _equal(got.tolist(), want.tolist())
         # the steps where the port's CPU run, fed the reference's tokens,
         # chooses another token (with the margin), and where it is not
         # exact, the first rounding or router choice behind it
-        out["port_cpu_replay_differs"][setting] = chip_smoke.replay_choices(te, prompt, want)
+        out["port_cpu_replay_differs"][setting] = chip_smoke.replay_choices(te, prompt, want,
+                                                                            textra)
         if out["port_cpu_equal"][setting] != want.size:
-            out["port_cpu_first_difference"][setting] = first_difference(eng, te, prompt, want)
+            out["port_cpu_first_difference"][setting] = first_difference(eng, te, prompt, want,
+                                                                         extra)
             print(f"{arch} {setting}: first difference "
                   f"{out['port_cpu_first_difference'][setting]}", flush=True)
         del eng

@@ -11,8 +11,6 @@ from repro.models import registry as jreg  # noqa: E402
 from repro_torch.configs.base import ModelConfig, MoEConfig  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
 
-UNPORTED = [a for a in jreg.ARCH_IDS if a not in registry.PORTED_ARCHS]
-
 
 @pytest.mark.parametrize("reduced", [False, True])
 def test_tinyllama_config_equals_reference(reduced):
@@ -70,10 +68,19 @@ def test_arch_ids_match_reference():
     assert registry.ARCH_IDS == jreg.ARCH_IDS
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_arch_raises_not_yet_ported(arch):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        registry.load_config(arch)
+@pytest.mark.parametrize("reduced", [False, True])
+def test_seamless_config_equals_reference(reduced):
+    """The encoder-decoder, the last config to port: field for field, its
+    encoder depth and frames frontend included; every config is ported."""
+    ref, cfg = jreg.load_config("seamless-m4t-large-v2"), registry.load_config(
+        "seamless-m4t-large-v2")
+    if reduced:
+        ref, cfg = ref.reduced(), cfg.reduced()
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
+    for prop in ("vocab_padded", "resolved_head_dim", "q_dim", "kv_dim"):
+        assert getattr(cfg, prop) == getattr(ref, prop), prop
+    assert (cfg.encoder_layers, cfg.frontend) == ((2, "frames") if reduced else (24, "frames"))
+    assert set(registry.PORTED_ARCHS) == set(jreg.ARCH_IDS)
 
 
 def test_unknown_arch_raises():
@@ -95,11 +102,12 @@ def test_model_declares_capabilities():
 
 
 def test_build_refuses_unported_features():
-    # a frontend other than pixtral's patch embeddings (seamless's speech frames) is
-    # not ported; MoE, MLA and gemma2's window, caps and norms are
+    # a decoder LM takes no frontend but pixtral's patch embeddings (seamless's
+    # speech frames belong to the encoder-decoder); MoE, MLA and gemma2's window,
+    # caps and norms are ported
     cfg = dataclasses.replace(registry.load_config("tinyllama-1.1b").reduced(),
                               frontend="frames")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(NotImplementedError, match="not ported"):
         registry.build(cfg)
     moe = dataclasses.replace(registry.load_config("tinyllama-1.1b").reduced(),
                               moe=MoEConfig(num_experts=4, top_k=2, d_expert=64))

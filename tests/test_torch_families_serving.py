@@ -137,14 +137,19 @@ def test_capability_flags_match_arch_matrix_and_reference(arch):
     assert model.supports_lengths is jmodel.supports_lengths is (arch in arch_matrix.RAGGED_ARCHS)
     assert model.supports_paged is jmodel.supports_paged is (arch in arch_matrix.PAGED_ARCHS)
     assert model.supports_spec is jmodel.supports_spec is (arch in arch_matrix.SPEC_ARCHS)
+    # "kv" for the length-aware decoder LMs, "state" for the recurrent ones,
+    # "none" for the encoder-decoder (neither list)
     assert model.cache_kind == jmodel.cache_kind == (
-        "state" if arch in arch_matrix.SLOT_STATE_ARCHS else "kv")
+        "state" if arch in arch_matrix.SLOT_STATE_ARCHS
+        else "kv" if arch in arch_matrix.RAGGED_ARCHS else "none")
     for hook in ("init_paged_cache", "decode_paged", "verify", "commit_verify",
                  "verify_paged", "commit_verify_paged", "insert_slots", "gather_slots"):
-        # the MLA families declare no paged or verify hook, as in the reference
+        # the MLA families declare no paged or verify hook, the encoder-decoder
+        # none at all, as in the reference
         assert callable(getattr(model, hook)) is callable(getattr(jmodel, hook)), hook
         assert callable(getattr(model, hook)) or getattr(model, hook) is None, hook
-    assert callable(model.insert_slots) and callable(model.gather_slots)
+    slots = model.cache_kind != "none"
+    assert callable(model.insert_slots) is callable(model.gather_slots) is slots
     # the GQA decoder_lm families have the paged pool; MLA and recurrent ones not
     assert callable(model.decode_paged) is model.supports_paged is (
         model.cfg.model_type == "decoder_lm" and model.cfg.mla is None)
@@ -165,12 +170,13 @@ def test_bounds_table_runs_for_every_ported_config(arch, capsys):
 
 
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "gemma2-2b", "minicpm3-4b",
-                                  "deepseek-v2-lite-16b", "rwkv6-7b", "zamba2-7b"])
+                                  "deepseek-v2-lite-16b", "rwkv6-7b", "zamba2-7b",
+                                  "seamless-m4t-large-v2"])
 def test_family_golden_file_matches_chip_smoke(arch):
     """golden_<arch>.json holds what chip_smoke.py's family golden reads: its
     settings, the prompt, the reference's tokens for f32 and int8 weights,
     and the port's plain CPU run, which reproduced every one of them, or
-    (the MLA and recurrent families' int8 runs) lost tokens only behind a
+    (the MLA, recurrent and encoder-decoder int8 runs) lost tokens only behind a
     traced tie: the
     first int8 rounding in which the packages differ along the reference's
     tokens lies on a .5 boundary in both, and every replayed step the port
@@ -186,8 +192,9 @@ def test_family_golden_file_matches_chip_smoke(arch):
         assert golden[k] == v, k
     cfg = cs.family_golden_config(arch)
     assert golden["arch"] == arch and golden["d_model"] == cfg.d_model
-    # 2 layers; zamba2 7, so that its shared block runs once
+    # 2 layers; zamba2 7, so that its shared block runs once; seamless 2 + 2
     assert cfg.num_layers == settings["num_layers"] == (7 if arch == "zamba2-7b" else 2)
+    assert cfg.encoder_layers == (2 if arch == "seamless-m4t-large-v2" else 0)
     assert cfg.d_model == registry.load_config(arch).d_model
     assert golden["prompt"] == cs.family_golden_prompt(cfg.vocab_size).tolist()
     total = cs.FAMILY_GOLDEN["batch"] * cs.FAMILY_GOLDEN["max_new_tokens"]
@@ -198,10 +205,11 @@ def test_family_golden_file_matches_chip_smoke(arch):
         if golden["port_cpu_equal"][setting] == total:
             assert golden["port_cpu_replay_differs"][setting] == []
             continue
-        # the CPU runs that lose int8 tokens at a traced tie: the MLA and
-        # the recurrent families'
+        # the CPU runs that lose int8 tokens at a traced tie: the MLA, the
+        # recurrent families' and the encoder-decoder's
         assert setting == "int8" and arch in ("minicpm3-4b", "deepseek-v2-lite-16b",
-                                              "rwkv6-7b", "zamba2-7b"), setting
+                                              "rwkv6-7b", "zamba2-7b",
+                                              "seamless-m4t-large-v2"), setting
         first = golden["port_cpu_first_difference"][setting]
         assert traced(first["kind"], [tuple(v) for v in first["values"]]), first
         assert golden["port_cpu_replay_differs"][setting]

@@ -101,7 +101,7 @@ def test_serve_cli_no_quantize_and_bad_arch(capsys):
                 "--prompt-len", "4", "--steps", "2", "--device", "cpu", "--no-quantize"])
     assert "quantized bytes fraction: 0.000" in capsys.readouterr().out
     with pytest.raises(SystemExit):
-        serve.main(["--arch", "seamless-m4t-large-v2", "--device", "cpu"])
+        serve.main(["--arch", "llama-9000", "--device", "cpu"])
 
 
 def test_entry_points_require_cuda_unless_cpu_is_asked(monkeypatch, capsys):

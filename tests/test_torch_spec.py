@@ -478,7 +478,8 @@ def test_resolve_drafter():
     assert len(md.draft([1, 2, 3], 2)) == 2
     with pytest.raises(ValueError, match="unknown drafter"):
         spec.resolve_drafter("medusa")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    # the encoder-decoder refuses as in the reference (repro's ModelDrafter)
+    with pytest.raises(ValueError, match="ModelDrafter needs length-aware prefill"):
         spec.resolve_drafter("model:seamless-m4t-large-v2", reduced=True, device="cpu")
     with pytest.raises(ValueError, match="length-aware prefill"):
         spec.resolve_drafter("model:rwkv6-7b", reduced=True, device="cpu")
