@@ -173,12 +173,13 @@ printing no result, when CUDA is missing. Phases, each fatal on failure:
              top-p at p = 1e-6 equal to greedy spec.
 
 8. families: the families beside TinyLlama at full width, bf16 and int8
-             weights from the port's init_lm (FAMILIES: internlm2-1.8b,
-             gemma2-2b and minicpm3-4b at every layer, pixtral-12b at 10 of
-             40, deepseek-coder-33b at 4 of 62 and dbrx-132b at 4 of 40 (the
+             weights from the port's init_lm (FAMILIES: internlm2-1.8b and
+             gemma2-2b at every layer, pixtral-12b at 10 of 40,
+             deepseek-coder-33b at 4 of 62 and dbrx-132b at 4 of 40 (the
              bf16 draw and its int8 copy must fit the card), deepseek-v2-lite-16b
-             at 4 of 27 (phase 8's 300 s budget); each cut printed with its
-             reason). First their kernels at each family's shapes: the int8
+             at 4 of 27 (phase 8's 300 s budget), minicpm3-4b at 16 of 62
+             (the script's time, once phase 11 was added); each cut printed
+             with its reason). First their kernels at each family's shapes: the int8
              GQMM at b in {1, 4, 16, 256} and the int8 GQMV at every
              projection (the MoE experts' and shared expert's, MLA's wq /
              wdq / wuq / wdkv / wukv, each at its own GS: deepseek-v2-lite's
@@ -289,11 +290,38 @@ printing no result, when CUDA is missing. Phases, each fatal on failure:
              rule, and the int8 golden model's first-step logits kernel vs
              plain within LOGIT_TOL. Budget 120 s; its time is printed.
 
+11. train:   training (train/loop.py, optim/adamw.py, checkpoint/ckpt.py)
+             on TinyLlama-1.1B at full width, bf16 params and compute. (a)
+             the flash backward (flash_attn_bwd, B4's gradient; three
+             launches a call) against its plain version at TinyLlama's 4 x
+             128 and 1 x 2048 (32/4 heads of 64), gemma2's hd 256 over 1 x
+             4608 with its 4096-token window and cap 50, zamba2's hd 112 and
+             seamless's non-causal 4 x 512 (16/16), f32 and bf16: dQ, dK, dV
+             within 1e-4 (f32) / 2e-2 (bf16) of max|plain| (the plain
+             backward in f32 on the same values), the forward's log-sum-exp
+             within 1e-5 / 1e-3 of the plain version's, the forward's output
+             with the lse pointer bit-equal to it without, a second call
+             bit-equal (no atomics); timed beside the bound (five products
+             of 2 hd operations a visible pair, or the bytes), the plain
+             version and SDPA's backward. (b) run_loop with the train CLI's
+             defaults (SyntheticLM seed 0, batch 8, seq 128, lr 3e-4), 8
+             steps at 22 layers: losses finite and falling, ms a step,
+             tok/s, peak memory, grad norms. (c) one step at 1 x 2048 under
+             blockwise_attention: 44 B4 forwards (remat recomputes each
+             layer) and 22 backwards, counted from 0 around it; every
+             gradient leaf against the plain path's (impl "plain") within
+             5e-2 of its max|plain|, every B4 call held to its plain version
+             on the same inputs. (d) at 2 layers of full width (11 GB a
+             checkpoint at 22): 8 steps with checkpoints at 4 and 8, the
+             latter removed, a resume from 4: the restored params and AdamW
+             state bit-equal to those after step 4, the resumed losses equal
+             to the straight run's. Its time is printed.
+
 A [graphs] line sums up eager against replayed: int8 decode ms/step wall
 and on the card with the busy share, the 4 x 64 prefill, the ragged tok/s,
 the captures and the graph pools. Every time is printed beside the card's
-name and power limit from nvidia-smi. The lines before the last are a JSON object of the kernels (13
-entries: B4 has a tensor-core and an f32 entry; the paged entries carry the
+name and power limit from nvidia-smi. The lines before the last are a JSON object of the kernels (14
+entries: B4 has a tensor-core and an f32 entry and its backward one; the paged entries carry the
 b = 32, MB*BS 2048 row beside the serve's shape), then the card's name and
 power limit; the last line is
 ``{"ok": true, "device": {...}}``. Phase 8's launches join each kernel's
@@ -311,6 +339,7 @@ import hashlib
 import itertools
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -333,13 +362,15 @@ from repro_torch.core.quant import (  # noqa: E402
 )
 from repro_torch.core import flags  # noqa: E402
 from repro_torch.core.qlinear import embedding_lookup  # noqa: E402
-from repro_torch.core.tree import tree_index  # noqa: E402
+from repro_torch.core.tree import tree_index, tree_items, tree_map  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels import bounds, cuda_build, ops  # noqa: E402
 from repro_torch.kernels import flash_attn as fkern  # noqa: E402
 from repro_torch.kernels import gqmv as kern  # noqa: E402
 from repro_torch.kernels import paged_attn as pkern  # noqa: E402
 from repro_torch.kernels import rmsnorm_quant as rkern  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
+    flash_attention_bwd_ref,
     flash_attention_ref,
     paged_attention_ref,
     rmsnorm_quant_ref,
@@ -363,6 +394,15 @@ from repro_torch.serving.engine import InferenceEngine  # noqa: E402
 from repro_torch.serving.paged import paged_scheduler  # noqa: E402
 from repro_torch.serving.sampling import fill_gumbel, nucleus_mask  # noqa: E402
 from repro_torch.serving.spec import NgramDrafter  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.train.loop import (  # noqa: E402
+    LoopConfig,
+    batch_to,
+    make_loss_fn,
+    make_train_step,
+    run_loop,
+    value_and_grad,
+)
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, int8 tensor operations/s,
 # float32 operations/s outside the tensor cores
@@ -523,12 +563,14 @@ RAGGED = {"requests": 16, "prompt_lens": (16, 192), "budgets": (8, 64), "seed": 
 # classifier) and deepseek-coder-33b (~530 M a layer: 62 layers of bf16
 # draw and int8 copy would not fit in 80 GB) are cut, and dbrx-132b (~3.3 G
 # a layer: 6.5 GB of bf16 draw and 3.3 GB of int8 copy); deepseek-v2-lite
-# for time (FAMILY_CUT_REASONS)
+# and minicpm3 for time (FAMILY_CUT_REASONS)
 FAMILIES = {"internlm2-1.8b": None, "gemma2-2b": None, "pixtral-12b": 10,
-            "deepseek-coder-33b": 4, "minicpm3-4b": None, "deepseek-v2-lite-16b": 4,
+            "deepseek-coder-33b": 4, "minicpm3-4b": 16, "deepseek-v2-lite-16b": 4,
             "dbrx-132b": 4}
 FAMILY_CUT_REASONS = {
     "pixtral-12b": "memory", "deepseek-coder-33b": "memory", "dbrx-132b": "memory",
+    "minicpm3-4b": "the script's time: phase 11 (training) adds ~60 s, and at 62 layers "
+                   "this family took 61.5 s of phase 8, the most of any",
     "deepseek-v2-lite-16b": "phase 8's 300 s budget: every one of a layer's 64 experts "
                             "runs each step, two GQMMs and their glue, and the eager "
                             "comparison runs launch each of those kernels from the host"}
@@ -634,12 +676,41 @@ ENCDEC_KERNEL_BATCHES = (4, 2048)
 ENCDEC_CHECKED_B = (4, 256)
 ENCDEC_FLASH = ((("seamless encoder 4x512", 4, 16, 16, 512, 64, None, None), False),
                 (("seamless decoder 4x64", 4, 16, 16, 64, 64, None, None), True))
+# phase 11: training, TinyLlama-1.1B at full width (bf16 params and
+# compute). (a) the flash backward (flash_attn_bwd) against its plain
+# version at (name, b, H, KV, s, hd, causal, window, soft cap), f32 and
+# bf16, within TRAIN_GRAD_TOL of max|plain| for each of dQ, dK and dV (the
+# plain arithmetic in f32 on the same values); the forward's log-sum-exp
+# within TRAIN_LSE_TOL (absolute) of the plain version's
+TRAIN_FLASH = (("tinyllama 4x128", 4, 32, 4, 128, 64, True, None, None),
+               ("tinyllama 1x2048", 1, 32, 4, 2048, 64, True, None, None),
+               ("gemma2 1x4608 window cap", 1, 8, 4, 4608, 256, True, 4096, 50.0),
+               ("zamba2 1x2048", 1, 32, 32, 2048, 112, True, None, None),
+               ("seamless encoder 4x512", 4, 16, 16, 512, 64, False, None, None))
+TRAIN_FLASH_MAIN = "tinyllama 1x2048"   # the kernels line: (c)'s shape
+TRAIN_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+TRAIN_LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
+# (b) the train CLI's defaults (SyntheticLM seed 0, batch 8, seq 128, lr
+# 3e-4) for 8 steps through run_loop; (d) at resume_layers layers (full
+# width): 8 steps with a checkpoint every resume_at, then a resume from
+# step resume_at to step 8
+TRAIN = {"batch": 8, "seq": 128, "lr": 3e-4, "steps": 8, "seed": 0, "resume_at": 4,
+         "resume_layers": 2}
+TRAIN_RESUME_CUT = ("checkpoint I/O: a 22-layer checkpoint is 11 GB (bf16 params, f32 m "
+                    "and v), ~15 s a save or restore, and (d) writes three and reads one")
+# (c) one step under blockwise_attention at 1 x 2048: every gradient leaf
+# of the kernel path against the plain path's within TRAIN_LEAF_TOL of the
+# leaf's max|plain|, and every B4 call of the step held to its plain version
+# on the same inputs (FLASH_TOL / TRAIN_GRAD_TOL)
+TRAIN_BLOCKWISE = {"b": 1, "s": 2048}
+TRAIN_LEAF_TOL = 5e-2
 SOURCES = {**{f"{k}_{f}": "src/repro_torch/csrc/gqmm.cu" for f in WEIGHT_FORMATS
               for k in ("gqmv", "gqmm")},
            "paged_attn": "src/repro_torch/csrc/paged_attn.cu",
            "paged_attn_quant": "src/repro_torch/csrc/paged_attn.cu",
            "flash_attn": "src/repro_torch/csrc/flash_attn.cu",
            "flash_attn_f32": "src/repro_torch/csrc/flash_attn.cu",
+           "flash_attn_bwd": "src/repro_torch/csrc/flash_attn.cu",
            "rmsnorm_quant": "src/repro_torch/csrc/rmsnorm_quant.cu"}
 REPLACES = {"gqmv_int8": "src/repro/kernels/gqmv.py:166",     # gqmv_pallas
             "gqmm_int8": "src/repro/kernels/gqmv.py:312",     # gqmm_pallas
@@ -654,6 +725,9 @@ REPLACES = {"gqmv_int8": "src/repro/kernels/gqmv.py:166",     # gqmv_pallas
             "paged_attn_quant": "src/repro/kernels/paged_attn.py:116",
             "flash_attn": "src/repro/kernels/flash_attn.py:82",       # flash_attention_pallas
             "flash_attn_f32": "src/repro/kernels/flash_attn.py:82",
+            # the gradient of flash_attention_pallas's function (the
+            # reference differentiates its XLA twin _mha_blockwise)
+            "flash_attn_bwd": "src/repro/kernels/flash_attn.py:82",
             "rmsnorm_quant": "src/repro/kernels/rmsnorm_quant.py:36"}  # rmsnorm_quant_pallas
 
 
@@ -818,13 +892,15 @@ def profile_device(fn, reps: int) -> dict:
         return sum(v for k, v in by_name.items() if pred(k))
 
     # the port's kernels by name (the paged op's split pass and combine, both
-    # flash kernels); float products: cuBLAS / CUTLASS GEMMs
+    # flash kernels, the flash backward's three); float products: cuBLAS /
+    # CUTLASS GEMMs
     products = ("gemm", "nvjet", "xmma", "cutlass", "cublas", "s16816")
     return {"device_ms": total, "kernels": count // reps,
             "gqmm_ms": ms(lambda k: "gqmm_" in k),
             "paged_ms": ms(lambda k: "paged_attn" in k),
             "paged_kernels": sum(c for k, c in counts.items() if "paged_attn" in k) // reps,
-            "flash_ms": ms(lambda k: "flash_attn" in k),
+            "flash_ms": ms(lambda k: "flash_attn" in k and "flash_bwd" not in k),
+            "flash_bwd_ms": ms(lambda k: "flash_bwd" in k),
             "products_ms": ms(lambda k: any(w in k.lower() for w in products)),
             "top": top}
 
@@ -4234,6 +4310,378 @@ def encdec_summary(enc: dict, smi: str) -> None:
         f"on the card ({ENCDEC_GQMM['prefill']} GQMMs); {enc['seconds']:.1f} s [{smi}]")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: training at full width
+# ---------------------------------------------------------------------------
+
+def _sdpa_bwd_ms(q, k, v, do, b: int, h: int, kv: int, causal: bool, iters: int) -> float:
+    """Device ms of scaled_dot_product_attention's backward (GQA) on the
+    same (b, heads, s, hd) inputs: the library call for dQ, dK, dV."""
+    F = torch.nn.functional
+    s, hd = q.shape[1], q.shape[2]
+    q4, k4, v4 = (x.reshape(b, n, s, hd).detach().requires_grad_(True)
+                  for x, n in ((q, h), (k, kv), (v, kv)))
+    out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal, enable_gqa=True)
+    do4 = do.reshape(b, h, s, hd)
+    ms, _ = device_time_ms(lambda i: torch.autograd.grad(out, (q4, k4, v4), do4,
+                                                         retain_graph=True), iters)
+    return ms
+
+
+def train_flash_rows(dev) -> list[dict]:
+    """Phase 11 (a): the flash backward against its plain version at every
+    TRAIN_FLASH case, f32 and bf16: the forward with the log-sum-exp
+    pointer bit-equal to the forward without it, its lse within
+    TRAIN_LSE_TOL of the plain version's, dQ, dK, dV within TRAIN_GRAD_TOL
+    of max|plain| (the plain backward in f32 on the same values), the same
+    bits from a second call (no atomics); timed (CUDA events behind a GPU
+    spin) beside its bound from this data's visible pairs, the plain
+    version and, without a window or cap, SDPA's backward."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rows = []
+    for case, dt in itertools.product(TRAIN_FLASH, FLASH_DTYPES):
+        name, b, h, kv, s, hd, causal, window, cap = case
+        q, do = (torch.randn((b * h, s, hd), generator=gen, device=dev).to(dt) for _ in range(2))
+        k, v = (torch.randn((b * kv, s, hd), generator=gen, device=dev).to(dt) for _ in range(2))
+        kw = dict(group=h // kv, scale=hd ** -0.5, causal=causal, window=window, softcap=cap)
+        plain_out = fkern.flash_attention_cuda(q, k, v, **kw)
+        out, lse = fkern.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        f32 = [x.float() for x in (q, k, v, do)]
+        rout, rlse = flash_attention_ref(*f32[:3], return_lse=True, **kw)
+        got = fkern.flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
+        again = fkern.flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
+        want = flash_attention_bwd_ref(*f32[:3], rout, rlse, f32[3], **kw)
+        rel = {n: ((g.float() - w).abs().max() / w.abs().max()).item()
+               for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+        row = {"kernel": "flash_attn_bwd", "case": name, "dtype": str(dt).split(".")[-1],
+               "b": b, "heads": h, "kv_heads": kv, "s": s, "hd": hd, "causal": causal,
+               "window": window, "softcap": cap, "rel_err": rel,
+               "max_abs_err": max((g.float() - w).abs().max().item() for g, w in zip(got, want)),
+               "tol": TRAIN_GRAD_TOL[dt], "lse_err": (lse - rlse).abs().max().item(),
+               "lse_tol": TRAIN_LSE_TOL[dt], "out_equal": torch.equal(out, plain_out),
+               "deterministic": all(torch.equal(x, y) for x, y in zip(got, again))}
+        if not (row["out_equal"] and row["deterministic"] and row["lse_err"] <= row["lse_tol"]
+                and max(rel.values()) <= row["tol"]):
+            raise AssertionError(f"flash_attn_bwd: kernel disagrees with its plain version: {row}")
+        iters = 10 if s * s * h * b <= 2 ** 26 else 3
+        k_ms, _ = device_time_ms(lambda i: fkern.flash_attention_bwd_cuda(
+            q, k, v, out, lse, do, **kw), iters, host_ms_guess=0.3)
+        p_ms = profile_device(lambda: flash_attention_bwd_ref(q, k, v, out, lse, do, **kw),
+                              1)["device_ms"]
+        pairs = b * h * (_visible_pairs(s, window) if causal else s * s)
+        bnd = bounds.flash_backward_bound(b * h, b * kv, s, s, hd, pairs,
+                                          "bf16" if dt == torch.bfloat16 else "f32")
+        row.update({"us": 1e3 * k_ms, "plain_us": 1e3 * p_ms, "bound_us": 1e6 * bnd.seconds,
+                    "bound_by": bnd.bound_by, "bound_share": 1e3 * bnd.seconds / k_ms,
+                    "pairs": pairs})
+        if window is None and cap is None:
+            row["library_us"] = 1e3 * _sdpa_bwd_ms(q, k, v, do, b, h, kv, causal, iters)
+        rows.append(row)
+        log(f"[train (a)] flash_attn_bwd {row['dtype']:8s} {name:25s} b*H={b * h:3d} s={s:4d} "
+            f"hd={hd:3d} causal={causal} window={window} cap={cap}  dq/dk/dv "
+            + "/".join(f"{e:.2e}" for e in rel.values()) + f" of max|plain| (tol "
+            f"{row['tol']:.0e}); lse {row['lse_err']:.2e} (tol {row['lse_tol']:.0e}); out with "
+            f"lse bit-equal; deterministic  {row['us']:10.2f} us  plain {row['plain_us']:10.1f} us"
+            f"  bound {row['bound_us']:8.2f} us ({row['bound_by']}, "
+            f"{100 * row['bound_share']:.2f} % of it)"
+            + (f"  sdpa bwd {row['library_us']:8.2f} us" if "library_us" in row else "")
+            + f" [{CARD['smi']}]")
+        del q, k, v, do, out, lse, got, again, want, rout, rlse
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _clone_tree(tree):
+    if isinstance(tree, adamw.AdamWState):
+        return adamw.AdamWState(*(_clone_tree(x) for x in tree))
+    return tree_map(lambda t: t.clone(), tree) if isinstance(tree, dict) else tree.clone()
+
+
+def _trees_equal(a, b) -> list[str]:
+    """The paths whose leaves differ in a bit (dtype, shape or value)."""
+    fa = dict(tree_items({"params": a[0], "opt": {"step": a[1].step, "m": a[1].m, "v": a[1].v}}))
+    fb = dict(tree_items({"params": b[0], "opt": {"step": b[1].step, "m": b[1].m, "v": b[1].v}}))
+    return [k for k in fa if fa[k].dtype != fb[k].dtype or not torch.equal(fa[k], fb[k])]
+
+
+def train_setup(dev, seq: int, batch: int, layers: int | None = None):
+    cfg = load_config(ARCH)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    model = build(cfg)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
+                                  seed=TRAIN["seed"]))
+    opt_cfg = adamw.AdamWConfig(lr=TRAIN["lr"], total_steps=TRAIN["steps"],
+                                warmup_steps=max(1, TRAIN["steps"] // 20))
+    return cfg, model, data, opt_cfg
+
+
+def train_steps(dev) -> dict:
+    """Phase 11 (b): TinyLlama-1.1B (22 layers, bf16) through run_loop with
+    the train CLI's defaults for TRAIN["steps"] steps (run_loop's own
+    checkpoint at the end); every loss finite and the last below the first;
+    ms a step (host clock after the loss reaches the host, steps 2 on),
+    tok/s, peak memory, the grad norms."""
+    cfg, model, data, opt_cfg = train_setup(dev, TRAIN["seq"], TRAIN["batch"])
+    ckdir = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    loop_cfg = LoopConfig(total_steps=TRAIN["steps"], ckpt_every=TRAIN["steps"],
+                          ckpt_dir=str(ckdir), log_every=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = model.init(seed=TRAIN["seed"], device=dev)
+    params, opt_state, hist = run_loop(model, params, data, opt_cfg, loop_cfg, resume=False,
+                                       log=lambda m: log(f"[train (b)] {m}"))
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    shutil.rmtree(ckdir, ignore_errors=True)
+    step_fn = make_train_step(model, opt_cfg)
+    batch = batch_to(data.batch_at(0), dev)
+    prof = profile_device(lambda: step_fn(params, opt_state, batch), 1)
+    del params, opt_state
+    losses = [h["loss"] for h in hist]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train (b): losses not finite or not falling: {losses}")
+    ms = 1e3 * sum(h["sec"] for h in hist[1:]) / (len(hist) - 1)
+    tok = TRAIN["batch"] * TRAIN["seq"]
+    res = {"layers": cfg.num_layers, "losses": losses,
+           "grad_norms": [h["grad_norm"] for h in hist], "step_ms": [1e3 * h["sec"] for h in hist],
+           "ms_per_step": ms, "tok_s": tok / (ms / 1e3), "peak_bytes": peak, "run_s": run_s,
+           "profile": prof}
+    bnd = bounds.train_step(cfg, TRAIN["batch"], TRAIN["seq"])
+    res.update({"bound_ms": 1e3 * bnd.seconds, "bound_by": bnd.bound_by})
+    log(f"[train (b)] {ARCH} {cfg.num_layers} layers d {cfg.d_model} bf16, batch "
+        f"{TRAIN['batch']} x seq {TRAIN['seq']}, lr {TRAIN['lr']}: losses "
+        + ", ".join(f"{x:.4f}" for x in losses) + "; grad norms "
+        + ", ".join(f"{h['grad_norm']:.3f}" for h in hist)
+        + f"; {ms:.2f} ms a step (host clock, steps 2-{len(hist)}; bound {res['bound_ms']:.2f} "
+        f"ms, {res['bound_by']}), {res['tok_s']:.0f} tok/s; "
+        f"peak memory {peak / 2**30:.2f} GiB; run_loop with its final checkpoint {run_s:.1f} s; "
+        f"profiler, one step: {prof['device_ms']:.2f} ms on the card, {prof['kernels']} kernels, "
+        f"products {prof['products_ms']:.2f} ms; top " + ", ".join(
+            f"{k[:40]} {v:.2f}" for k, v in prof["top"][:5]) + f" [{CARD['smi']}]")
+    return res
+
+
+def train_resume(dev) -> dict:
+    """Phase 11 (d), at TRAIN["resume_layers"] layers of full width (the
+    depth cut and its reason printed): a straight run_loop of TRAIN["steps"]
+    steps with a checkpoint every TRAIN["resume_at"] (the state after that
+    step kept on the card), the newest checkpoint removed, then a resume
+    from step resume_at to the end: the restored params and AdamW state
+    bit-equal to the kept ones, the resumed losses equal to the straight
+    run's."""
+    cfg, model, data, opt_cfg = train_setup(dev, TRAIN["seq"], TRAIN["batch"],
+                                            TRAIN["resume_layers"])
+    log(f"[train (d)] depth cut to {cfg.num_layers} of {load_config(ARCH).num_layers} layers "
+        f"({TRAIN_RESUME_CUT}); full width d {cfg.d_model}, vocab {cfg.vocab_size}, bf16")
+    ckdir = ROOT / "build" / "chip_smoke_resume"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    loop_cfg = LoopConfig(total_steps=TRAIN["steps"], ckpt_every=TRAIN["resume_at"],
+                          ckpt_dir=str(ckdir), log_every=TRAIN["steps"])
+    step_fn = make_train_step(model, opt_cfg)
+    kept, checked = {}, {}
+
+    def keep(params, opt_state, batch):
+        params, opt_state, m = step_fn(params, opt_state, batch)
+        if int(opt_state.step) == TRAIN["resume_at"]:
+            kept["state"] = (_clone_tree(params), _clone_tree(opt_state))
+        return params, opt_state, m
+
+    def check_first(params, opt_state, batch):
+        if not checked:
+            checked["differ"] = _trees_equal((params, opt_state), kept["state"])
+        return step_fn(params, opt_state, batch)
+
+    t0 = time.perf_counter()
+    _, _, hist = run_loop(model, model.init(seed=TRAIN["seed"], device=dev), data, opt_cfg,
+                          loop_cfg, train_step=keep, resume=False,
+                          log=lambda m: log(f"[train (d)] {m}"))
+    shutil.rmtree(ckdir / f"step_{TRAIN['steps']:08d}")
+    like = model.init(seed=TRAIN["seed"] + 1, device=dev)
+    _, _, rhist = run_loop(model, like, data, opt_cfg, loop_cfg, train_step=check_first,
+                           resume=True, log=lambda m: log(f"[train (d)] {m}"))
+    shutil.rmtree(ckdir, ignore_errors=True)
+    resumed = [h["loss"] for h in rhist]
+    straight = [h["loss"] for h in hist][TRAIN["resume_at"]:]
+    res = {"layers": cfg.num_layers, "restored_differ": checked["differ"], "losses": resumed,
+           "straight_losses": straight, "equal": resumed == straight,
+           "leaves": 3 * len(tree_items(like)) + 1, "seconds": time.perf_counter() - t0}
+    log(f"[train (d)] resumed at step {TRAIN['resume_at']}: restored params and AdamW state "
+        f"({res['leaves']} leaves, bf16 params) "
+        + ("bit-equal to the state kept after the step" if not checked["differ"] else
+           f"DIFFER at {checked['differ'][:5]}")
+        + "; losses " + ", ".join(f"{x:.6f}" for x in resumed) + " against the straight run's "
+        + ", ".join(f"{x:.6f}" for x in straight) + (" (equal)" if res["equal"] else
+                                                      " (NOT equal)")
+        + f"; {res['seconds']:.1f} s with 3 checkpoints and a restore")
+    if checked["differ"] or not res["equal"]:
+        raise AssertionError(f"train (d): resume is not the straight run: {res}")
+    return res
+
+
+@contextlib.contextmanager
+def held_flash(calls: list):
+    """Every flash call (forward with lse, backward) inside held to its plain
+    version on the same inputs: the forward within FLASH_TOL of max|plain|
+    and its lse within TRAIN_LSE_TOL, each gradient within TRAIN_GRAD_TOL
+    (raises); the errors appended to ``calls``."""
+    fwd, bwd = fkern.flash_attention_cuda, fkern.flash_attention_bwd_cuda
+
+    def f(q, k, v, **kw):
+        res = fwd(q, k, v, **kw)
+        out, lse = res if kw.get("return_lse") else (res, None)
+        want = flash_attention_ref(q.float(), k.float(), v.float(), **{
+            **kw, "return_lse": lse is not None})
+        wout, wlse = want if lse is not None else (want, None)
+        err = ((out.float() - wout).abs().max() / wout.abs().max()).item()
+        lerr = (lse - wlse).abs().max().item() if lse is not None else 0.0
+        calls.append({"call": "forward", "rel_err": err, "lse_err": lerr})
+        if not (err <= FLASH_TOL[q.dtype] and lerr <= TRAIN_LSE_TOL[q.dtype]):
+            raise AssertionError(f"held flash forward: {calls[-1]}")
+        return res
+
+    def g(q, k, v, out, lse, dout, **kw):
+        got = bwd(q, k, v, out, lse, dout, **kw)
+        want = flash_attention_bwd_ref(q.float(), k.float(), v.float(), out.float(), lse,
+                                       dout.float(), **kw)
+        rel = [((a.float() - w).abs().max() / w.abs().max()).item() for a, w in zip(got, want)]
+        calls.append({"call": "backward", "rel_err": rel})
+        if not max(rel) <= TRAIN_GRAD_TOL[q.dtype]:
+            raise AssertionError(f"held flash backward: {calls[-1]}")
+        return got
+
+    fkern.flash_attention_cuda, fkern.flash_attention_bwd_cuda = f, g
+    try:
+        yield calls
+    finally:
+        fkern.flash_attention_cuda, fkern.flash_attention_bwd_cuda = fwd, bwd
+
+
+def _reset_all_launches() -> None:
+    for mod in (kern, pkern, fkern, rkern):
+        mod.reset_launches()
+
+
+def _all_launches() -> dict[str, int]:
+    return {k: v for mod in (kern, pkern, fkern, rkern) for k, v in mod.LAUNCHES.items() if v}
+
+
+def train_blockwise(dev) -> dict:
+    """Phase 11 (c): one full-width step (22 layers, bf16) under
+    blockwise_attention at 1 x 2048: launches counted from 0 around the
+    second step (2 x 22 B4 forwards: remat recomputes each layer; 22
+    backwards), its ms (host clock, synchronised); then the gradients of the
+    kernel path, every B4 call held to its plain version (held_flash),
+    against the plain path's (impl "plain" end to end) on the same params
+    and batch, leaf by leaf against TRAIN_LEAF_TOL of the leaf's
+    max|plain|."""
+    bw = TRAIN_BLOCKWISE
+    cfg, model, data, opt_cfg = train_setup(dev, bw["s"], bw["b"])
+    params = model.init(seed=TRAIN["seed"], device=dev)
+    batch = batch_to(data.batch_at(0), dev)
+    step_fn = make_train_step(model, opt_cfg)
+    opt_state = adamw.init(params)
+    loss_fn = make_loss_fn(model)
+    with flags.overrides(blockwise_attention=True):
+        step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        _reset_all_launches()
+        t0 = time.perf_counter()
+        _, _, m = step_fn(params, opt_state, batch)
+        loss = float(m["loss"])
+        ms = 1e3 * (time.perf_counter() - t0)
+        launches = _all_launches()
+        want = {"flash_attn": 2 * cfg.num_layers, "flash_attn_bwd": cfg.num_layers}
+        if launches != want:
+            raise AssertionError(f"train (c): launches {launches}, expected {want}")
+        prof = profile_device(lambda: step_fn(params, opt_state, batch), 1)
+        calls: list = []
+        with held_flash(calls):
+            (kloss, _), kgrads = value_and_grad(loss_fn, params, batch)
+        with ops.impl_scope("plain"):
+            (ploss, _), pgrads = value_and_grad(loss_fn, params, batch)
+    pflat = dict(tree_items(pgrads))
+    leaf_err = {path: ((g.float() - pflat[path].float()).abs().max()
+                       / pflat[path].float().abs().max()).item()
+                for path, g in tree_items(kgrads)}
+    worst = max(leaf_err, key=leaf_err.get)
+    fwd_err = max(c["rel_err"] for c in calls if c["call"] == "forward")
+    bwd_err = max(max(c["rel_err"]) for c in calls if c["call"] == "backward")
+    bnd = bounds.train_step(cfg, bw["b"], bw["s"])
+    res = {"launches": launches, "ms_per_step": ms, "profile": prof, "bound_ms": 1e3 * bnd.seconds,
+           "bound_by": bnd.bound_by, "loss": loss, "kernel_loss": kloss.item(),
+           "plain_loss": ploss.item(), "leaf_rel_err": leaf_err,
+           "leaves_within_tol": leaf_err[worst] <= TRAIN_LEAF_TOL,
+           "held_calls": {"forward": sum(c["call"] == "forward" for c in calls),
+                          "backward": sum(c["call"] == "backward" for c in calls),
+                          "forward_max_rel_err": fwd_err, "backward_max_rel_err": bwd_err}}
+    log(f"[train (c)] blockwise 1x{bw['s']} step: {ms:.1f} ms (host clock, synchronised; bound "
+        f"{res['bound_ms']:.2f} ms, {res['bound_by']}; profiler: {prof['device_ms']:.1f} ms on the "
+        f"card, B4 forward {prof['flash_ms']:.1f}, backward {prof['flash_bwd_ms']:.1f}, products "
+        f"{prof['products_ms']:.1f}), "
+        f"launches {launches}; loss kernel {kloss.item():.6f} plain {ploss.item():.6f}; "
+        f"gradient leaves kernel vs plain: worst {worst} {leaf_err[worst]:.3e} of max|plain| "
+        f"(tol {TRAIN_LEAF_TOL}), " + ", ".join(f"{k.split('/')[-1]} {v:.2e}"
+                                                for k, v in sorted(leaf_err.items()))
+        + f"; every B4 call held to its plain version on the same inputs: "
+        f"{res['held_calls']['forward']} forwards (max {fwd_err:.2e}, tol "
+        f"{FLASH_TOL[torch.bfloat16]}), {res['held_calls']['backward']} backwards (max "
+        f"{bwd_err:.2e}, tol {TRAIN_GRAD_TOL[torch.bfloat16]}) [{CARD['smi']}]")
+    if not res["leaves_within_tol"]:
+        log(f"[train (c)] the leaves of a {cfg.num_layers}-layer random bf16 model leave the "
+            f"plain path's by more than {TRAIN_LEAF_TOL}: held per B4 call above")
+    return res
+
+
+def phase_train(dev) -> tuple[dict, list[dict]]:
+    t0 = time.perf_counter()
+    rows = train_flash_rows(dev)
+    out = {"steps": train_steps(dev)}
+    torch.cuda.empty_cache()
+    out["resume"] = train_resume(dev)
+    torch.cuda.empty_cache()
+    out["blockwise"] = train_blockwise(dev)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[train] phase 11 {out['seconds']:.1f} s")
+    return out, rows
+
+
+def train_entry(rows: list[dict], train: dict) -> dict:
+    """The kernels line's flash_attn_bwd entry: times at (c)'s shape (bf16),
+    launches added from phase 11 (c)'s run by add_runs."""
+    main = next(r for r in rows if r["case"] == TRAIN_FLASH_MAIN and r["dtype"] == "bfloat16")
+    return {
+        "name": "flash_attn_bwd", "route": "cuda", "source": SOURCES["flash_attn_bwd"],
+        "replaces": REPLACES["flash_attn_bwd"],
+        "replaces_note": "the gradient of flash_attention_pallas's function: the reference "
+                         "differentiates _mha_blockwise with XLA "
+                         "(src/repro/models/attention.py:194)",
+        "launches": 0, "max_abs_err": max(r["max_abs_err"] for r in rows), **_timing(main),
+        "library_ms": main["library_us"] / 1e3,
+        "per": f"one call (three launches: D, dK/dV, dQ), causal GQA 32/4, hd 64, bfloat16, "
+               f"{TRAIN_FLASH_MAIN} tokens (one layer of phase 11 (c)'s step); library: "
+               "scaled_dot_product_attention's backward on the same inputs; max_abs_err over "
+               "every phase-11 (a) case",
+        "path": "phase 11 (c): a full-width TinyLlama train step under blockwise_attention",
+        "shapes": [{k: r.get(k) for k in ("case", "dtype", "s", "us", "plain_us", "bound_us",
+                                          "bound_by", "library_us", "rel_err", "max_abs_err")}
+                   for r in rows],
+    }
+
+
+def train_summary(train: dict, smi: str) -> None:
+    st, bw = train["steps"], train["blockwise"]
+    log(f"[train] {ARCH} bf16 {st['layers']} layers, batch {TRAIN['batch']} x seq "
+        f"{TRAIN['seq']}: {st['ms_per_step']:.2f} ms a step, {st['tok_s']:.0f} tok/s, peak "
+        f"{st['peak_bytes'] / 2**30:.2f} GiB, loss {st['losses'][0]:.4f} -> "
+        f"{st['losses'][-1]:.4f}; resume ({train['resume']['layers']} layers) bit-equal; "
+        f"blockwise 1x{TRAIN_BLOCKWISE['s']} step "
+        f"{bw['ms_per_step']:.1f} ms ({bw['launches']}); phase {train['seconds']:.1f} s [{smi}]")
+
+
 def _phase_gqmm_launches(kname, kind, serves, ragged, flagres, spec) -> dict[str, int]:
     """Launches of one GQMV/GQMM kernel on the main paths, by run: phase 3's
     generate per weight setting (its matvec path for GQMV), phase 5's ragged
@@ -4520,6 +4968,7 @@ def main(argv=None) -> int:
     log(f"[families] phase 8 with its phase-2 shapes took {fam_s:.1f} s")
     rec, rkrows, rfrows = phase_recurrent(dev)
     enc, ekrows, efrows = phase_encdec(dev)
+    train, trows = phase_train(dev)
 
     s8, pf = serves["int8"], ragged["passes"]["paged_float"]
     log(f"[graphs] int8, batch {SERVE['batch']}: decode eager {s8['eager']['decode_ms_per_step']:.2f} "
@@ -4559,9 +5008,13 @@ def main(argv=None) -> int:
     add_families(entries, fam, famrows + ffrows + fprows)
     add_runs(entries, recurrent_runs(rec), rkrows + rfrows, "recurrent_shapes")
     add_runs(entries, encdec_runs(enc), ekrows + efrows, "encdec_shapes")
+    entries.append(train_entry(trows, train))
+    add_runs(entries, {"phase 11 blockwise train step": train["blockwise"]["launches"]}, [],
+             "train_shapes")
     family_summary(fam, smi)
     recurrent_summary(rec, smi)
     encdec_summary(enc, smi)
+    train_summary(train, smi)
     for e in entries:
         log(f"[kernels] {e['name']:16s} {e['launches']:6d} launches  {1e3 * e['ms']:10.3f} us  "
             f"bound {1e3 * e['bound_ms']:9.3f} us ({e['bound_by']}, {100 * e['bound_share']:.1f} "
@@ -4584,6 +5037,7 @@ def main(argv=None) -> int:
              "recurrent_kernel_rows": rkrows, "recurrent_flash_rows": rfrows,
              "recurrent": rec,
              "encdec_kernel_rows": ekrows, "encdec_flash_rows": efrows, "encdec": enc,
+             "train_flash_rows": trows, "train": train,
              "kernels": entries,
              "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -30,6 +30,18 @@ def tree_leaves(tree) -> list:
     return out
 
 
+def tree_items(tree, prefix: str = "") -> list[tuple[str, Any]]:
+    """(path, leaf) pairs in the reference's flatten order: a dict's keys
+    sorted at every level, as ``jax.tree.leaves`` orders them (a sum over
+    leaves then adds in the reference's order)."""
+    if isinstance(tree, dict):
+        out: list = []
+        for k in sorted(tree):
+            out += tree_items(tree[k], f"{prefix}/{k}" if prefix else str(k))
+        return out
+    return [(prefix, tree)]
+
+
 def tree_to(tree, device: torch.device):
     """Move every leaf to ``device`` (no copy for leaves already there)."""
     return tree_map(lambda leaf: leaf.to(device), tree)

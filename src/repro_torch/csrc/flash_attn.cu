@@ -202,6 +202,7 @@ flash_attn_f32_kernel(const float* __restrict__ q,   // (b*H, s, HD)
                       const float* __restrict__ k,   // (b*KV, t, HD)
                       const float* __restrict__ v,   // (b*KV, t, HD)
                       float* __restrict__ out,       // (b*H, s, HD)
+                      float* __restrict__ lse,       // (b*H, s) or null
                       int s, int t, int group, float scale, int causal, int window,
                       float softcap, int vec) {
   constexpr int kKeys = f32_keys<HD>();
@@ -389,6 +390,8 @@ flash_attn_f32_kernel(const float* __restrict__ q,   // (b*H, s, HD)
     const int r = ty + 16 * i;
     const float l = fmaxf(l_r[i], 1e-30f);
     if (r >= nq) continue;
+    // every lane of the row group holds the row's m and l
+    if (lse != nullptr && g16 == 0) lse[(size_t)row * s + q0 + r] = m_r[i] + logf(l_r[i]);
 #pragma unroll
     for (int c = 0; c < kOC; ++c) {
       const int ch = g16 + kF32Lanes * c;
@@ -418,9 +421,9 @@ cudaError_t f32_attributes(int device) {
 }
 
 template <int HD>
-int launch_f32(const void* q, const void* k, const void* v, void* out, int bh, int s, int t,
-               int group, float scale, int causal, int window, float softcap, int device,
-               cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* out, float* lse, int bh,
+               int s, int t, int group, float scale, int causal, int window, float softcap,
+               int device, cudaStream_t stream) {
   const int nqt = (s + kF32BQ - 1) / kF32BQ;
   if (nqt > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = f32_attributes<HD>(device);
@@ -429,15 +432,15 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int bh, i
                      reinterpret_cast<uintptr_t>(v)) & 15) == 0;
   flash_attn_f32_kernel<HD><<<dim3(bh, nqt), kF32Threads, f32_smem_bytes<HD>(), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), s, t, group, scale, causal, window, softcap, vec ? 1 : 0);
+      static_cast<float*>(out), lse, s, t, group, scale, causal, window, softcap, vec ? 1 : 0);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_f32_hd(const void* q, const void* k, const void* v, void* out, int bh, int s, int t,
-                  int hd, int group, float scale, int causal, int window, float softcap,
-                  int device, cudaStream_t stream) {
-#define FLASH_HD(H)                                                                       \
-  if (hd == H) return launch_f32<H>(q, k, v, out, bh, s, t, group, scale, causal, window, \
+int launch_f32_hd(const void* q, const void* k, const void* v, void* out, float* lse, int bh,
+                  int s, int t, int hd, int group, float scale, int causal, int window,
+                  float softcap, int device, cudaStream_t stream) {
+#define FLASH_HD(H)                                                                            \
+  if (hd == H) return launch_f32<H>(q, k, v, out, lse, bh, s, t, group, scale, causal, window, \
                                     softcap, device, stream);
   FLASH_HEAD_DIMS(FLASH_HD)
 #undef FLASH_HD
@@ -543,6 +546,7 @@ flash_attn_mma_kernel(const T* __restrict__ q,   // (b*H, s, HD)
                       const T* __restrict__ k,   // (b*KV, t, HD)
                       const T* __restrict__ v,   // (b*KV, t, HD)
                       T* __restrict__ out,       // (b*H, s, HD)
+                      float* __restrict__ lse,   // (b*H, s) or null
                       int s, int t, int group, float scale, int causal, int window,
                       float softcap) {
   constexpr int kChunks = HD / 8;       // 16-byte chunks a row
@@ -727,6 +731,9 @@ flash_attn_mma_kernel(const T* __restrict__ q,   // (b*H, s, HD)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = warp * 16 + gid + h * 8;
+    // the 4 lanes of a row hold its m and (now) its whole l
+    if (r < nq && lse != nullptr && tig == 0)
+      lse[(size_t)row * s + q0 + r] = m_r[h] + logf(l_r[h]);
     if (r < nq) {
 #pragma unroll
       for (int n = 0; n < kOTiles; ++n) {
@@ -738,8 +745,8 @@ flash_attn_mma_kernel(const T* __restrict__ q,   // (b*H, s, HD)
 }
 
 template <typename T, int HD>
-int launch_mma(const void* q, const void* k, const void* v, void* out, int bh, int s, int t,
-               int group, float scale, int causal, int window, float softcap,
+int launch_mma(const void* q, const void* k, const void* v, void* out, float* lse, int bh,
+               int s, int t, int group, float scale, int causal, int window, float softcap,
                cudaStream_t stream) {
   constexpr size_t bytes = mma_smem_bytes<HD>();
   if (bytes > 48 * 1024) {
@@ -751,17 +758,370 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, int bh, i
   const dim3 grid((s + kMmaBQ - 1) / kMmaBQ, bh);
   flash_attn_mma_kernel<T, HD><<<grid, kMmaThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), s, t, group, scale, causal, window, softcap);
+      static_cast<T*>(out), lse, s, t, group, scale, causal, window, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_mma_hd(const void* q, const void* k, const void* v, void* out, int bh, int s, int t,
-                  int hd, int group, float scale, int causal, int window, float softcap,
-                  cudaStream_t stream) {
-#define FLASH_HD(H)                                                                             \
-  if (hd == H) return launch_mma<T, H>(q, k, v, out, bh, s, t, group, scale, causal, window, \
+int launch_mma_hd(const void* q, const void* k, const void* v, void* out, float* lse, int bh,
+                  int s, int t, int hd, int group, float scale, int causal, int window,
+                  float softcap, cudaStream_t stream) {
+#define FLASH_HD(H)                                                                               \
+  if (hd == H) return launch_mma<T, H>(q, k, v, out, lse, bh, s, t, group, scale, causal, window, \
                                        softcap, stream);
+  FLASH_HEAD_DIMS(FLASH_HD)
+#undef FLASH_HD
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+
+// ---------------------------------------------------------------------------
+// backward: dQ, dK, dV for every dtype, f32 arithmetic on the CUDA cores
+// ---------------------------------------------------------------------------
+//
+// FlashAttention-2's scheme: the forward writes each query row's f32
+// log-sum-exp (lse = m + log l); the backward recomputes the scores as the
+// forward forms them (q . k * scale, the soft cap, the masks as -1e30) and
+// the weights P = exp(score - lse), with D = rowsum(dO * O) per query row:
+//   dV = P^T dO,  dP = dO V^T,  dS = P (dP - D) on the visible pairs (0 on
+//   masked ones), times 1 - tanh^2 under a soft cap, times the scale;
+//   dQ = dS K,  dK = dS^T Q.
+// Three launches, each a plain deterministic loop (no atomics: every output
+// element has one owner thread that adds its terms in a fixed order):
+// - flash_bwd_delta_kernel: D, a warp a query row (an xor butterfly);
+// - flash_bwd_dkdv_kernel: a CTA per (KV row, tile of 32 keys) stages the
+//   tile's K and V once, then walks every query head of the KV row's group
+//   and every tile of 32 query rows that can see the keys (causal: from the
+//   key tile on; window: up to the last key + window); a thread owns one
+//   key and every 8th 16-byte chunk of its dK and dV rows;
+// - flash_bwd_dq_kernel: a CTA per (query row, tile of 32 positions) walks
+//   the key tiles the forward walks; a thread owns one query position and
+//   every 8th 16-byte chunk of its dQ row.
+// A 32 x 32 tile's S and dP are formed by 256 threads, each one key (its
+// lane) x 4 query rows (warp + 8 i), from f32 copies of the tiles in shared
+// memory with rows HD + 4 floats apart (16-byte vector reads; a warp's 32
+// keys' chunks fall in distinct bank groups, HD / 4 + 1 being odd), 10
+// vector loads for 32 FMAs; P and dS pass through shared memory to the
+// dK/dV or dQ products, where a thread owns the 16-byte chunks sub, sub +
+// 8, ... of its row (a vector load for 4 FMAs). The inputs are read
+// as bf16 / fp16 / f32 and every product and sum is f32; the gradients are
+// rounded once to the inputs' dtype. A simple design: each score is a
+// thread's serial HD-long dot product on the CUDA cores, and the dK/dV
+// CTAs of the first key tiles see the most query tiles. Bound
+// (kernels/bounds.py flash_backward): five products of 2 * HD operations a
+// visible (query, key) pair over the bf16 tensor-core rate (or the f32
+// rate), or the bytes of q, k, v, o, dO, dq, dk, dv and the lse, whichever
+// is larger.
+
+constexpr int kBwdThreads = 256;
+constexpr int kBwdQ = 32;   // query positions a tile
+constexpr int kBwdK = 32;   // keys a tile
+
+template <typename T>
+__device__ __forceinline__ float to_f32(T x);
+template <>
+__device__ __forceinline__ float to_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <>
+__device__ __forceinline__ float to_f32<__half>(__half x) { return __half2float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) { return __float2half_rn(x); }
+
+// a += x * b, element by element
+__device__ __forceinline__ void fma4(float4& a, float x, const float4& b) {
+  a.x = fmaf(x, b.x, a.x);
+  a.y = fmaf(x, b.y, a.y);
+  a.z = fmaf(x, b.z, a.z);
+  a.w = fmaf(x, b.w, a.w);
+}
+template <typename T>
+__device__ __forceinline__ void store4(T* dst, const float4& v) {
+  dst[0] = from_f32<T>(v.x);
+  dst[1] = from_f32<T>(v.y);
+  dst[2] = from_f32<T>(v.z);
+  dst[3] = from_f32<T>(v.w);
+}
+
+// floats between staged rows: a multiple of 4 (16-byte rows) whose count
+// of 16-byte chunks, HD / 4 + 1, is odd, so a warp reading one chunk of 32
+// rows hits distinct bank groups
+template <int HD>
+__host__ __device__ constexpr int bwd_row() {
+  return HD + 4;
+}
+// two (32, HD) tiles of each side (K, V; Q, dO), P and dS (32 x 33), the
+// query rows' lse and D
+template <int HD>
+constexpr size_t bwd_smem_bytes() {
+  return sizeof(float) * (2 * (size_t)(kBwdK + kBwdQ) * bwd_row<HD>() +
+                          2 * (size_t)kBwdQ * (kBwdK + 1) + 2 * (size_t)kBwdQ);
+}
+
+// rows [r0, r0 + rows) of a (len, HD) matrix into f32 rows of stride
+// bwd_row; rows at or past len are zero
+template <typename T, int HD>
+__device__ __forceinline__ void stage_bwd(float* dst, const T* src, int r0, int len, int rows) {
+  for (int e = threadIdx.x; e < rows * HD; e += kBwdThreads) {
+    const int r = e / HD, d = e - r * HD;
+    dst[r * bwd_row<HD>() + d] = r0 + r < len ? to_f32(src[(size_t)(r0 + r) * HD + d]) : 0.f;
+  }
+}
+
+// the query tile's lse and D into shared memory (0 past s)
+__device__ __forceinline__ void stage_rows(float* lse_s, float* dl_s, const float* lse,
+                                           const float* delta, size_t base, int q0, int s) {
+  for (int e = threadIdx.x; e < kBwdQ; e += kBwdThreads) {
+    const bool in = q0 + e < s;
+    lse_s[e] = in ? lse[base + q0 + e] : 0.f;
+    dl_s[e] = in ? delta[base + q0 + e] : 0.f;
+  }
+}
+
+// P and dS of one (query tile q0, key tile k0) pair into p_s / ds_s
+// (32 x 33): thread (warp w, lane j) forms key j x query rows w + 8 i
+template <int HD>
+__device__ __forceinline__ void bwd_tile(const float* q_s, const float* do_s, const float* k_s,
+                                         const float* v_s, const float* lse_s, const float* dl_s,
+                                         float* p_s, float* ds_s, int q0, int k0, int s, int t,
+                                         float scale, int causal, int window, float softcap) {
+  constexpr int kRow = bwd_row<HD>();
+  const int w = threadIdx.x >> 5, j = threadIdx.x & 31;
+  float sc[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
+  const float4* kr = reinterpret_cast<const float4*>(k_s + j * kRow);
+  const float4* vr = reinterpret_cast<const float4*>(v_s + j * kRow);
+#pragma unroll 2
+  for (int d = 0; d < HD / 4; ++d) {
+    const float4 kd = kr[d], vd = vr[d];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 qd = reinterpret_cast<const float4*>(q_s + (w + 8 * i) * kRow)[d];
+      const float4 od = reinterpret_cast<const float4*>(do_s + (w + 8 * i) * kRow)[d];
+      sc[i] = fmaf(qd.w, kd.w, fmaf(qd.z, kd.z, fmaf(qd.y, kd.y, fmaf(qd.x, kd.x, sc[i]))));
+      dp[i] = fmaf(od.w, vd.w, fmaf(od.z, vd.z, fmaf(od.y, vd.y, fmaf(od.x, vd.x, dp[i]))));
+    }
+  }
+  const int kp = k0 + j;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = w + 8 * i, qp = q0 + r;
+    float x = sc[i] * scale, th = 0.f;
+    if (softcap > 0.f) {
+      th = tanhf(x / softcap);
+      x = softcap * th;
+    }
+    const bool ok = !((causal && kp > qp) || (window > 0 && qp - kp >= window));
+    float p = 0.f, ds = 0.f;
+    if (kp < t && qp < s) {
+      p = expf((ok ? x : kNegInf) - lse_s[r]);
+      if (ok) {
+        ds = p * (dp[i] - dl_s[r]);
+        if (softcap > 0.f) ds *= 1.f - th * th;
+        ds *= scale;
+      }
+    }
+    p_s[r * (kBwdK + 1) + j] = p;
+    ds_s[r * (kBwdK + 1) + j] = ds;
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
+                       float* __restrict__ delta, long long rows) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long r = (long long)blockIdx.x * (kBwdThreads / 32) + warp;
+  if (r >= rows) return;
+  const T* o = out + r * HD;
+  const T* g = dout + r * HD;
+  float acc = 0.f;
+  for (int d = lane; d < HD; d += 32) acc = fmaf(to_f32(o[d]), to_f32(g[d]), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) delta[r] = acc;
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      const T* __restrict__ dout, const float* __restrict__ lse,
+                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                      int s, int t, int group, float scale, int causal, int window,
+                      float softcap) {
+  constexpr int kRow = bwd_row<HD>();
+  constexpr int kC = (HD / 4 + 7) / 8;   // 16-byte chunks a thread owns: sub, sub + 8, ...
+  extern __shared__ __align__(16) float bsm[];
+  float* k_s = bsm;
+  float* v_s = k_s + kBwdK * kRow;
+  float* q_s = v_s + kBwdK * kRow;
+  float* do_s = q_s + kBwdQ * kRow;
+  float* p_s = do_s + kBwdQ * kRow;
+  float* ds_s = p_s + kBwdQ * (kBwdK + 1);
+  float* lse_s = ds_s + kBwdQ * (kBwdK + 1);
+  float* dl_s = lse_s + kBwdQ;
+
+  const int kvrow = blockIdx.x, k0 = blockIdx.y * kBwdK;
+  const int kj = threadIdx.x >> 3, sub = threadIdx.x & 7;
+  stage_bwd<T, HD>(k_s, k + (size_t)kvrow * t * HD, k0, t, kBwdK);
+  stage_bwd<T, HD>(v_s, v + (size_t)kvrow * t * HD, k0, t, kBwdK);
+  float4 ak[kC], av[kC];
+#pragma unroll
+  for (int c = 0; c < kC; ++c) ak[c] = av[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  // the query positions that see a key of this tile
+  const int k_last = min(k0 + kBwdK, t) - 1;
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window > 0 ? min(s, k_last + window) : s;
+  for (int g = 0; g < group; ++g) {
+    const int row = kvrow * group + g;
+    const T* qb = q + (size_t)row * s * HD;
+    const T* dob = dout + (size_t)row * s * HD;
+    for (int q0 = (q_lo / kBwdQ) * kBwdQ; q0 < q_hi; q0 += kBwdQ) {
+      __syncthreads();                  // the last tile's Q, dO, P and dS are read
+      stage_bwd<T, HD>(q_s, qb, q0, s, kBwdQ);
+      stage_bwd<T, HD>(do_s, dob, q0, s, kBwdQ);
+      stage_rows(lse_s, dl_s, lse, delta, (size_t)row * s, q0, s);
+      __syncthreads();
+      bwd_tile<HD>(q_s, do_s, k_s, v_s, lse_s, dl_s, p_s, ds_s, q0, k0, s, t, scale, causal,
+                   window, softcap);
+      __syncthreads();
+      for (int r = 0; r < kBwdQ; ++r) {
+        const float p = p_s[r * (kBwdK + 1) + kj], ds = ds_s[r * (kBwdK + 1) + kj];
+        const float4* qr = reinterpret_cast<const float4*>(q_s + r * kRow);
+        const float4* dor = reinterpret_cast<const float4*>(do_s + r * kRow);
+#pragma unroll
+        for (int c = 0; c < kC; ++c) {
+          if (sub + 8 * c < HD / 4) {
+            fma4(av[c], p, dor[sub + 8 * c]);
+            fma4(ak[c], ds, qr[sub + 8 * c]);
+          }
+        }
+      }
+    }
+  }
+  if (k0 + kj < t) {
+    const size_t base = ((size_t)kvrow * t + k0 + kj) * HD;
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      if (sub + 8 * c < HD / 4) {
+        store4(dk + base + 4 * (sub + 8 * c), ak[c]);
+        store4(dv + base + 4 * (sub + 8 * c), av[c]);
+      }
+    }
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const T* __restrict__ dout, const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq, int s, int t, int group,
+                    float scale, int causal, int window, float softcap) {
+  constexpr int kRow = bwd_row<HD>();
+  constexpr int kC = (HD / 4 + 7) / 8;
+  extern __shared__ __align__(16) float bsm[];
+  float* k_s = bsm;
+  float* v_s = k_s + kBwdK * kRow;
+  float* q_s = v_s + kBwdK * kRow;
+  float* do_s = q_s + kBwdQ * kRow;
+  float* p_s = do_s + kBwdQ * kRow;
+  float* ds_s = p_s + kBwdQ * (kBwdK + 1);
+  float* lse_s = ds_s + kBwdQ * (kBwdK + 1);
+  float* dl_s = lse_s + kBwdQ;
+
+  const int row = blockIdx.x, q0 = blockIdx.y * kBwdQ;
+  const int qi = threadIdx.x >> 3, sub = threadIdx.x & 7;
+  const int nq = min(kBwdQ, s - q0);
+  const T* kb = k + (size_t)(row / group) * t * HD;
+  const T* vb = v + (size_t)(row / group) * t * HD;
+  stage_bwd<T, HD>(q_s, q + (size_t)row * s * HD, q0, s, kBwdQ);
+  stage_bwd<T, HD>(do_s, dout + (size_t)row * s * HD, q0, s, kBwdQ);
+  stage_rows(lse_s, dl_s, lse, delta, (size_t)row * s, q0, s);
+  float4 aq[kC];
+#pragma unroll
+  for (int c = 0; c < kC; ++c) aq[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  // the forward's key range for these query positions
+  const int k_end = causal ? min(t, q0 + nq) : t;
+  const int k_begin = window > 0 ? (max(0, q0 - window + 1) / kBwdK) * kBwdK : 0;
+  for (int k0 = k_begin; k0 < k_end; k0 += kBwdK) {
+    __syncthreads();                    // the last tile's K and dS are read
+    stage_bwd<T, HD>(k_s, kb, k0, t, kBwdK);
+    stage_bwd<T, HD>(v_s, vb, k0, t, kBwdK);
+    __syncthreads();
+    bwd_tile<HD>(q_s, do_s, k_s, v_s, lse_s, dl_s, p_s, ds_s, q0, k0, s, t, scale, causal,
+                 window, softcap);
+    __syncthreads();
+    for (int j = 0; j < kBwdK; ++j) {
+      const float ds = ds_s[qi * (kBwdK + 1) + j];
+      const float4* kr = reinterpret_cast<const float4*>(k_s + j * kRow);
+#pragma unroll
+      for (int c = 0; c < kC; ++c)
+        if (sub + 8 * c < HD / 4) fma4(aq[c], ds, kr[sub + 8 * c]);
+    }
+  }
+  if (qi < nq) {
+    const size_t base = ((size_t)row * s + q0 + qi) * HD;
+#pragma unroll
+    for (int c = 0; c < kC; ++c)
+      if (sub + 8 * c < HD / 4) store4(dq + base + 4 * (sub + 8 * c), aq[c]);
+  }
+}
+
+template <typename T, int HD>
+int launch_bwd(const void* q, const void* k, const void* v, const void* out, const void* dout,
+               const void* lse, void* delta, void* dq, void* dk, void* dv, int bh, int bkv, int s,
+               int t, int group, float scale, int causal, int window, float softcap,
+               cudaStream_t stream) {
+  constexpr size_t bytes = bwd_smem_bytes<HD>();
+  if ((s + kBwdQ - 1) / kBwdQ > 65535 || (t + kBwdK - 1) / kBwdK > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const T* qp = static_cast<const T*>(q);
+  const T* kp = static_cast<const T*>(k);
+  const T* vp = static_cast<const T*>(v);
+  const T* gp = static_cast<const T*>(dout);
+  const float* lp = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  const long long rows = (long long)bh * s;
+  const long long warps = kBwdThreads / 32;
+  flash_bwd_delta_kernel<T, HD><<<(unsigned)((rows + warps - 1) / warps), kBwdThreads, 0,
+                                  stream>>>(static_cast<const T*>(out), gp, dl, rows);
+  flash_bwd_dkdv_kernel<T, HD><<<dim3(bkv, (t + kBwdK - 1) / kBwdK), kBwdThreads, bytes,
+                                 stream>>>(qp, kp, vp, gp, lp, dl, static_cast<T*>(dk),
+                                           static_cast<T*>(dv), s, t, group, scale, causal,
+                                           window, softcap);
+  flash_bwd_dq_kernel<T, HD><<<dim3(bh, (s + kBwdQ - 1) / kBwdQ), kBwdThreads, bytes, stream>>>(
+      qp, kp, vp, gp, lp, dl, static_cast<T*>(dq), s, t, group, scale, causal, window, softcap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd_hd(const void* q, const void* k, const void* v, const void* out, const void* dout,
+                  const void* lse, void* delta, void* dq, void* dk, void* dv, int bh, int bkv,
+                  int s, int t, int hd, int group, float scale, int causal, int window,
+                  float softcap, cudaStream_t stream) {
+#define FLASH_HD(H)                                                                           \
+  if (hd == H) return launch_bwd<T, H>(q, k, v, out, dout, lse, delta, dq, dk, dv, bh, bkv, s, \
+                                       t, group, scale, causal, window, softcap, stream);
   FLASH_HEAD_DIMS(FLASH_HD)
 #undef FLASH_HD
   return static_cast<int>(cudaErrorInvalidValue);
@@ -777,22 +1137,24 @@ enum Dtype { kF32 = 0, kBF16 = 1, kF16 = 2 };
 // <= 0 no soft cap. f32 runs the CUDA-core kernel (16-byte copies where
 // q, k and v are 16-byte aligned, else 4-byte ones), bf16 and fp16 the
 // tensor-core kernel (whose 16-byte copies need 16-byte aligned q, k, v).
-extern "C" int flash_attn(const void* q, const void* k, const void* v, void* out, int bh,
-                          int bkv, int s, int t, int hd, int group, float scale, int causal,
-                          int window, float softcap, int dtype, int device, void* stream) {
+extern "C" int flash_attn(const void* q, const void* k, const void* v, void* out, void* lse,
+                          int bh, int bkv, int s, int t, int hd, int group, float scale,
+                          int causal, int window, float softcap, int dtype, int device,
+                          void* stream) {
   if (bh < 1 || bh > 65535 || s < 1 || t < 1 || group < 1 || bkv * group != bh)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == kF32)
-    return launch_f32_hd(q, k, v, out, bh, s, t, hd, group, scale, causal, window, softcap,
+    return launch_f32_hd(q, k, v, out, l, bh, s, t, hd, group, scale, causal, window, softcap,
                          device, st);
   if (dtype == kBF16)
-    return launch_mma_hd<__nv_bfloat16>(q, k, v, out, bh, s, t, hd, group, scale, causal, window,
-                                        softcap, st);
+    return launch_mma_hd<__nv_bfloat16>(q, k, v, out, l, bh, s, t, hd, group, scale, causal,
+                                        window, softcap, st);
   if (dtype == kF16)
-    return launch_mma_hd<__half>(q, k, v, out, bh, s, t, hd, group, scale, causal, window,
+    return launch_mma_hd<__half>(q, k, v, out, l, bh, s, t, hd, group, scale, causal, window,
                                  softcap, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -813,5 +1175,32 @@ extern "C" int flash_attn_f32_layout(int hd, int device, int* smem_bytes, int* c
   }
   FLASH_HEAD_DIMS(FLASH_HD)
 #undef FLASH_HD
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The backward of flash_attn: dq (b*H, s, hd), dk and dv (b*KV, t, hd) in
+// the inputs' dtype from q, k, v, the forward's output and its lse (f32,
+// b*H x s), and dout; delta is an f32 workspace of b*H x s. Three launches
+// on the stream (D, then dK/dV, then dQ); returns cudaGetLastError() after
+// them (0 on success). window <= 0 means no window, softcap <= 0 none.
+extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v, const void* out,
+                              const void* dout, const void* lse, void* delta, void* dq, void* dk,
+                              void* dv, int bh, int bkv, int s, int t, int hd, int group,
+                              float scale, int causal, int window, float softcap, int dtype,
+                              int device, void* stream) {
+  if (bh < 1 || bh > 65535 || bkv < 1 || s < 1 || t < 1 || group < 1 || bkv * group != bh)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32)
+    return launch_bwd_hd<float>(q, k, v, out, dout, lse, delta, dq, dk, dv, bh, bkv, s, t, hd,
+                                group, scale, causal, window, softcap, st);
+  if (dtype == kBF16)
+    return launch_bwd_hd<__nv_bfloat16>(q, k, v, out, dout, lse, delta, dq, dk, dv, bh, bkv, s,
+                                        t, hd, group, scale, causal, window, softcap, st);
+  if (dtype == kF16)
+    return launch_bwd_hd<__half>(q, k, v, out, dout, lse, delta, dq, dk, dv, bh, bkv, s, t, hd,
+                                 group, scale, causal, window, softcap, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

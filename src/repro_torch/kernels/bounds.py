@@ -245,6 +245,49 @@ def flash_prefill(cfg: ModelConfig, b: int, s: int, dtype: str = "bf16",
     return Bound(e * (2 * q + 2 * kv), 4 * b * cfg.num_heads * hd * pairs, dtype)
 
 
+def flash_backward_bound(bh: int, bkv: int, s: int, t: int, hd: int, pairs: int,
+                         dtype: str = "bf16") -> Bound:
+    """The backward of flash attention over q (bh, s, hd) and k, v (bkv, t,
+    hd) with ``pairs`` visible (query, key) pairs: q, k, v, out, dout and the
+    f32 log-sum-exp read once, dq, dk, dv written once; five products (S,
+    dP, dV, dQ, dK) of 2 * hd operations a visible pair, at the bf16
+    tensor-core rate (f32 inputs at the f32 rate)."""
+    e = DTYPE_BYTES[dtype]
+    return Bound(e * (4 * bh * s * hd + 4 * bkv * t * hd) + 4 * bh * s, 10 * hd * pairs, dtype)
+
+
+def flash_backward(cfg: ModelConfig, b: int, s: int, dtype: str = "bf16",
+                   causal: bool = True) -> Bound:
+    """One layer's attention backward over (b, s) tokens (B4's backward: the
+    reference has no Pallas kernel for it; XLA differentiates
+    ``_mha_blockwise``), causal or over every pair."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    return flash_backward_bound(b * cfg.num_heads, b * cfg.num_kv_heads, s, s,
+                                cfg.resolved_head_dim, b * cfg.num_heads * pairs, dtype)
+
+
+def train_step(cfg: ModelConfig, b: int, s: int, dtype: str = "bf16") -> Bound:
+    """One AdamW train step of a ``decoder_lm`` config over (b, s) tokens
+    with ``remat``: each layer's projections (2 operations a weight a
+    token; a MoE's every expert, as its dense dispatch runs them) in the
+    forward, again in the recomputed forward and twice in the backward (dX
+    and dW), the classifier's three times; attention's causal products
+    (``flash_prefill``'s twice, ``flash_backward``'s once a layer). Bytes:
+    what the update must move, each parameter and its gradient read and
+    written in ``dtype`` and its f32 m and v read and written
+    (activations, which depend on the kernels' fusion, not counted)."""
+    e = DTYPE_BYTES[dtype]
+    layer = sum(m * n * c for _, m, n, c in pass_projections(cfg))
+    head = cfg.vocab_padded * cfg.d_model
+    tok = b * s
+    attn = cfg.num_layers * (2 * flash_prefill(cfg, b, s, dtype).ops
+                             + flash_backward(cfg, b, s, dtype).ops)
+    ops = 2 * tok * (4 * layer + 3 * head) + attn
+    norms = (2 * cfg.num_layers + 1) * cfg.d_model
+    params = layer + head * (1 if cfg.tie_embeddings else 2) + norms
+    return Bound((4 * e + 16) * params, ops, dtype)
+
+
 def table(cfg: ModelConfig) -> list[tuple[str, str, Bound]]:
     rows = [("B1 gqmv_pallas (int8)", "one pass, b=1", projection_pass(cfg, "int8", 1)),
             ("B3 gqmm_pallas (int8)", "one pass, b=4", projection_pass(cfg, "int8", 4)),

@@ -7,7 +7,14 @@ Counterpart of ``repro/kernels/flash_attn.py``. The kernel is in
                            causal / windowed / soft-capped GQA attention
                            with an online softmax, f32 inside; bf16 and
                            fp16 inputs run on the tensor cores
-                           (``mma.sync``), f32 inputs on the CUDA cores
+                           (``mma.sync``), f32 inputs on the CUDA cores;
+                           optionally also each row's f32 log-sum-exp
+  flash_attention_bwd_cuda  dQ, dK, dV of that function (no Pallas
+                           counterpart: the reference differentiates
+                           ``_mha_blockwise`` with XLA): FlashAttention-2's
+                           recomputation from the log-sum-exp, f32 on the
+                           CUDA cores for every dtype, deterministic (no
+                           atomics)
 
 The f32 kernel is register-tiled: a CTA of 8 warps owns 64 query rows,
 a lane holds a 4 x 4 micro-tile of S (4 rows x 4 keys, over a d-split of
@@ -25,8 +32,10 @@ be read wrongly, so the caller makes them contiguous) and raises on
 anything else; allocates the output with ``torch.empty``; launches on the
 current stream; raises if the launch reports a CUDA error; and adds one to
 ``LAUNCHES`` under the kernel the dtype chose: ``flash_attn`` (bf16 / fp16,
-tensor cores) or ``flash_attn_f32`` (f32, CUDA cores). The plain version is
-``kernels/ref.flash_attention_ref``.
+tensor cores) or ``flash_attn_f32`` (f32, CUDA cores), and ``flash_attn_bwd``
+for a backward (its three launches: D = rowsum(dO * O), dK/dV, dQ). The
+plain versions are ``kernels/ref.flash_attention_ref`` and
+``flash_attention_bwd_ref``.
 """
 
 from __future__ import annotations
@@ -95,9 +104,10 @@ def f32_layout(hd: int, device: int = 0) -> tuple[int, int]:
     return smem.value, ctas.value
 
 
-# launches by kernel: the tensor-core kernel (bf16 / fp16) and the CUDA-core
-# kernel (f32); a run zeroes these, drives the model, and reads them
-LAUNCHES: dict[str, int] = {"flash_attn": 0, "flash_attn_f32": 0}
+# launches by kernel: the tensor-core kernel (bf16 / fp16), the CUDA-core
+# kernel (f32) and the backward (one a call, every dtype); a run zeroes
+# these, drives the model, and reads them
+LAUNCHES: dict[str, int] = {"flash_attn": 0, "flash_attn_f32": 0, "flash_attn_bwd": 0}
 
 _LIB: list[ctypes.CDLL] = []
 
@@ -111,8 +121,10 @@ def _lib() -> ctypes.CDLL:
     if not _LIB:
         lib = cuda_build.load("flash_attn")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_attn.argtypes = [p] * 4 + [i] * 6 + [f, i, i, f, i, i, p]
+        lib.flash_attn.argtypes = [p] * 5 + [i] * 6 + [f, i, i, f, i, i, p]
         lib.flash_attn.restype = i
+        lib.flash_attn_bwd.argtypes = [p] * 10 + [i] * 6 + [f, i, i, f, i, i, p]
+        lib.flash_attn_bwd.restype = i
         lib.flash_attn_f32_layout.argtypes = [i, i, p, p]
         lib.flash_attn_f32_layout.restype = i
         _LIB.append(lib)
@@ -159,22 +171,62 @@ def _check(q, k, v, *, group: int, window) -> tuple[int, int, int, int, int]:
 
 
 def flash_attention_cuda(q, k, v, *, group: int, scale: float, causal: bool = True,
-                         window: int | None = None,
-                         softcap: float | None = None) -> torch.Tensor:
+                         window: int | None = None, softcap: float | None = None,
+                         return_lse: bool = False):
     """out (b*H, s, hd) in q's dtype (see ``kernels/ref.flash_attention_ref``
-    for the math)."""
+    for the math); with ``return_lse`` (out, lse), lse the f32 (b*H, s)
+    log-sum-exp of each row's scores, which the same launch writes (without
+    it the kernel is given no pointer and writes none)."""
     bh, bkv, s, t, hd = _check(q, k, v, group=group, window=window)
     out = torch.empty_like(q)
+    lse = torch.empty((bh, s), dtype=torch.float32, device=q.device) if return_lse else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _lib().flash_attn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, bkv, s, t, hd, group,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if return_lse else None, bh, bkv, s, t, hd, group,
         float(scale), int(bool(causal)), int(window or 0), float(softcap or 0.0),
         _DTYPES[q.dtype], q.device.index, stream)
     name = kernel_name(q.dtype)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
     LAUNCHES[name] += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, group: int, scale: float,
+                             causal: bool = True, window: int | None = None,
+                             softcap: float | None = None):
+    """(dq, dk, dv) in the inputs' dtype: the gradient of
+    :func:`flash_attention_cuda`'s output ``out`` times ``dout``, from its
+    ``lse`` (see ``kernels/ref.flash_attention_bwd_ref`` for the math). dk
+    and dv sum over each KV row's group of query rows. Refuses a window with
+    more query positions than keys (rows that see no key, whose forward
+    weights are not a softmax of visible scores)."""
+    bh, bkv, s, t, hd = _check(q, k, v, group=group, window=window)
+    for name, x in (("out", out), ("dout", dout)):
+        if (not isinstance(x, torch.Tensor) or x.device != q.device or x.dtype != q.dtype
+                or tuple(x.shape) != tuple(q.shape) or not x.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous {q.dtype} tensor of shape "
+                             f"{tuple(q.shape)} on {q.device}")
+    if (not isinstance(lse, torch.Tensor) or lse.device != q.device
+            or lse.dtype != torch.float32 or tuple(lse.shape) != (bh, s)
+            or not lse.is_contiguous()):
+        raise ValueError(f"lse must be a contiguous float32 tensor of shape {(bh, s)} on "
+                         f"{q.device}")
+    if window is not None and s > t:
+        raise ValueError(f"a window with s ({s}) > t ({t}) leaves rows with no visible key")
+    delta = torch.empty((bh, s), dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _lib().flash_attn_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        bh, bkv, s, t, hd, group, float(scale), int(bool(causal)), int(window or 0),
+        float(softcap or 0.0), _DTYPES[q.dtype], q.device.index, stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attn_bwd kernel launch failed with CUDA error {rc}")
+    LAUNCHES["flash_attn_bwd"] += 1
+    return dq, dk, dv
 
 
 def kernel_name(dtype: torch.dtype) -> str:

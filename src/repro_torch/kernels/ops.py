@@ -149,11 +149,51 @@ def flash_attention(q, k, v, *, group: int, scale: float, causal: bool = True,
     window masks counted from position 0, online softmax (see
     ``kernels/ref.flash_attention_ref``). The CUDA kernel skips the tiles
     above the diagonal and outside the window; the plain version walks
-    ``flags.attention_chunk`` chunks of every key."""
+    ``flags.attention_chunk`` chunks of every key.
+
+    With grad enabled and q, k or v requiring grad the call goes through
+    :class:`FlashAttention`, whose backward is the hand-written backward
+    kernel on the card (the plain backward on the CPU); otherwise it is the
+    forward alone."""
     kw = dict(group=group, scale=scale, causal=causal, window=window, softcap=softcap)
-    if _resolve(impl, q) == "cuda":
+    impl = _resolve(impl, q)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, impl, group, scale, causal, window, softcap)
+    if impl == "cuda":
         return _flash.flash_attention_cuda(q, k, v, **kw)
     return _ref.flash_attention_ref(q, k, v, **kw)
+
+
+class FlashAttention(torch.autograd.Function):
+    """B4 with a backward: the forward also writes each query row's f32
+    log-sum-exp (b*H, s), and the backward recomputes the softmax weights
+    from Q, K and it (FlashAttention-2's scheme) for dQ, dK and dV: the
+    CUDA kernels ``flash_attn`` / ``flash_attn_f32`` and ``flash_attn_bwd``
+    for ``impl`` 'cuda', ``kernels/ref.flash_attention_ref`` /
+    ``flash_attention_bwd_ref`` for 'plain'. dK and dV sum over each KV
+    head's group of query heads; the gradients come back in the inputs'
+    dtypes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, impl, group, scale, causal, window, softcap):
+        kw = dict(group=group, scale=scale, causal=causal, window=window, softcap=softcap)
+        if impl == "cuda":
+            out, lse = _flash.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        else:
+            out, lse = _ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.impl, ctx.kw = impl, kw
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        if ctx.impl == "cuda":
+            dq, dk, dv = _flash.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **ctx.kw)
+        else:
+            dq, dk, dv = _ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def rmsnorm_quant(x, w, *, group_size: int, eps: float = 1e-5,

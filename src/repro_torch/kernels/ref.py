@@ -208,7 +208,8 @@ def flash_attention_ref(
     window: int | None = None,
     softcap: float | None = None,
     chunk: int | None = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Plain version of the flash-attention kernel (``csrc/flash_attn.cu``):
     the reference Pallas kernel's chunked online softmax
     (``flash_attention_pallas``), all in f32. Per K/V chunk: scores
@@ -218,38 +219,99 @@ def flash_attention_ref(
     rescaled denominator and accumulator; the output is
     ``acc / max(l, 1e-30)`` in q's dtype. ``chunk`` defaults to
     ``flags.attention_chunk``, cut to a divisor of t as the reference's
-    ``_mha_blockwise`` cuts it."""
+    ``_mha_blockwise`` cuts it. ``return_lse`` also returns each row's f32
+    log-sum-exp of the (capped, masked) scores, m + log(l), (b*H, s): what
+    the backward recomputes the softmax weights from."""
     bh, s, hd = q.shape
     t = k.shape[1]
-    chunk = int(flags.get("attention_chunk") if chunk is None else chunk)
-    chunk = min(chunk, t)
-    while t % chunk:
-        chunk //= 2
+    chunk = _chunk(t, chunk)
     qf = q.to(torch.float32)
     kf = k.to(torch.float32).repeat_interleave(group, dim=0)
     vf = v.to(torch.float32).repeat_interleave(group, dim=0)
     m = torch.full((bh, s), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((bh, s), dtype=torch.float32, device=q.device)
     acc = torch.zeros((bh, s, hd), dtype=torch.float32, device=q.device)
-    q_pos = torch.arange(s, device=q.device)[:, None]
     for c0 in range(0, t, chunk):
-        sc = torch.einsum("hsd,htd->hst", qf, kf[:, c0:c0 + chunk]) * scale
-        if softcap is not None:
-            sc = softcap * torch.tanh(sc / softcap)
-        k_pos = c0 + torch.arange(chunk, device=q.device)[None, :]
-        ok = torch.ones((s, chunk), dtype=torch.bool, device=q.device)
-        if causal:
-            ok &= k_pos <= q_pos
-        if window is not None:
-            ok &= (q_pos - k_pos) < window
-        sc = torch.where(ok, sc, NEG_INF)
+        sc = _flash_scores(qf, kf[:, c0:c0 + chunk], c0, scale=scale, causal=causal,
+                           window=window, softcap=softcap)[0]
         m_new = torch.maximum(m, sc.amax(dim=-1))
         alpha = torch.exp(m - m_new)
         p = torch.exp(sc - m_new[..., None])
         l = l * alpha + p.sum(dim=-1)
         acc = acc * alpha[..., None] + torch.einsum("hst,htd->hsd", p, vf[:, c0:c0 + chunk])
         m = m_new
-    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+    out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+    return (out, m + torch.log(l)) if return_lse else out
+
+
+def _chunk(t: int, chunk: int | None) -> int:
+    """``flags.attention_chunk`` (or ``chunk``) cut to a divisor of t."""
+    chunk = min(int(flags.get("attention_chunk") if chunk is None else chunk), t)
+    while t % chunk:
+        chunk //= 2
+    return chunk
+
+
+def _flash_scores(qf, kc, c0: int, *, scale, causal, window, softcap):
+    """One K chunk's scores as the forward forms them: (capped, masked, the
+    visible pairs, tanh of the cap's argument or None)."""
+    s, chunk = qf.shape[1], kc.shape[1]
+    sc = torch.einsum("hsd,htd->hst", qf, kc) * scale
+    th = None
+    if softcap is not None:
+        th = torch.tanh(sc / softcap)
+        sc = softcap * th
+    q_pos = torch.arange(s, device=qf.device)[:, None]
+    k_pos = c0 + torch.arange(chunk, device=qf.device)[None, :]
+    ok = torch.ones((s, chunk), dtype=torch.bool, device=qf.device)
+    if causal:
+        ok &= k_pos <= q_pos
+    if window is not None:
+        ok &= (q_pos - k_pos) < window
+    return torch.where(ok, sc, NEG_INF), ok, th
+
+
+def flash_attention_bwd_ref(
+    q, k, v, out, lse, dout, *, group: int, scale: float, causal: bool = True,
+    window: int | None = None, softcap: float | None = None, chunk: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the flash-attention backward (``flash_attn_bwd`` in
+    ``csrc/flash_attn.cu``): dQ, dK and dV of :func:`flash_attention_ref`
+    given its output ``out``, its log-sum-exp ``lse`` (b*H, s) and the
+    output's gradient ``dout``, written out step by step in f32 over
+    ``flags.attention_chunk`` chunks of the keys (FlashAttention-2's
+    scheme): D = rowsum(dO * O); per chunk the scores as the forward forms
+    them, P = exp(s - lse), dV += P^T dO, dP = dO V^T, dS = P (dP - D) on
+    the visible pairs (0 on masked ones, whose score is a constant), times
+    1 - tanh^2 under a soft cap, times the scale; dQ += dS K, dK += dS^T Q.
+    dK and dV sum over the group of query heads that reads each KV row.
+    The gradients come back in q's, k's and v's dtypes."""
+    bh, s, hd = q.shape
+    bkv, t = k.shape[0], k.shape[1]
+    chunk = _chunk(t, chunk)
+    qf, of, dof = (x.to(torch.float32) for x in (q, out, dout))
+    kf = k.to(torch.float32).repeat_interleave(group, dim=0)
+    vf = v.to(torch.float32).repeat_interleave(group, dim=0)
+    delta = (dof * of).sum(dim=-1)
+    dq = torch.zeros((bh, s, hd), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((bh, t, hd), dtype=torch.float32, device=q.device)
+    dv = torch.zeros((bh, t, hd), dtype=torch.float32, device=q.device)
+    for c0 in range(0, t, chunk):
+        kc, vc = kf[:, c0:c0 + chunk], vf[:, c0:c0 + chunk]
+        sc, ok, th = _flash_scores(qf, kc, c0, scale=scale, causal=causal, window=window,
+                                   softcap=softcap)
+        p = torch.exp(sc - lse[..., None])
+        dv[:, c0:c0 + chunk] = torch.einsum("hst,hsd->htd", p, dof)
+        dp = torch.einsum("hsd,htd->hst", dof, vc)
+        ds = torch.where(ok, p * (dp - delta[..., None]), 0.0)
+        if th is not None:
+            ds = ds * (1 - th * th)
+        ds = ds * scale
+        dq += torch.einsum("hst,htd->hsd", ds, kc)
+        dk[:, c0:c0 + chunk] = torch.einsum("hst,hsd->htd", ds, qf)
+    dk = dk.reshape(bkv, group, t, hd).sum(dim=1)
+    dv = dv.reshape(bkv, group, t, hd).sum(dim=1)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def rmsnorm_quant_ref(x: torch.Tensor, w: torch.Tensor, *, group_size: int,

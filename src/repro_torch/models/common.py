@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 NEG_INF = -1e30
 
@@ -75,6 +76,16 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return F.silu(gate) * up
+
+
+def remat_call(fn, x: torch.Tensor, remat: bool) -> torch.Tensor:
+    """``fn(x)``, under ``torch.utils.checkpoint`` (non-reentrant) where
+    ``remat`` is set and grad is enabled: only x is kept and ``fn`` runs
+    again in the backward, as under the reference's ``jax.checkpoint`` of a
+    layer."""
+    if remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, x, use_reentrant=False)
+    return fn(x)
 
 
 # ---------------------------------------------------------------------------

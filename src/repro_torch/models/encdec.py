@@ -40,7 +40,7 @@ from repro_torch.core.tree import tree_index
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlpmod
-from repro_torch.models.common import dense_init, embed_init, rmsnorm
+from repro_torch.models.common import dense_init, embed_init, remat_call, rmsnorm
 
 # cross-attention encoder-memory length of the reference's decode-shape specs
 DEFAULT_MEMORY_LEN = 4096
@@ -110,14 +110,18 @@ def _frames(batch) -> torch.Tensor:
 def encode(params, frames: torch.Tensor, cfg: ModelConfig, *, remat: bool = True
            ) -> torch.Tensor:
     """frames (b, s_enc, d_model) -> the encoder memory (b, s_enc, d_model):
-    bidirectional self attention. ``remat`` is accepted for the
-    reference's signature and has no effect (training is not ported)."""
+    bidirectional self attention. ``remat`` with grad enabled recomputes
+    each layer in the backward (``common.remat_call``), as the
+    reference's ``jax.checkpoint``."""
+    def layer(x, lp):
+        x = x + attn.gqa_forward(lp["attn"], rmsnorm(x, lp["att_norm"], cfg.norm_eps), cfg,
+                                 causal=False)
+        return x + mlpmod.mlp_forward(lp["mlp"], rmsnorm(x, lp["ffn_norm"], cfg.norm_eps))
+
     x = frames.to(cfg.cdtype())
     for i in range(cfg.encoder_layers):
         lp = tree_index(params["enc_layers"], i)
-        x = x + attn.gqa_forward(lp["attn"], rmsnorm(x, lp["att_norm"], cfg.norm_eps), cfg,
-                                 causal=False)
-        x = x + mlpmod.mlp_forward(lp["mlp"], rmsnorm(x, lp["ffn_norm"], cfg.norm_eps))
+        x = remat_call(lambda x, lp=lp: layer(x, lp), x, remat)
     return rmsnorm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -140,12 +144,15 @@ def _logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def decode_train(params, tokens: torch.Tensor, memory: torch.Tensor, cfg: ModelConfig, *,
                  remat: bool = True) -> torch.Tensor:
     """Teacher-forced decoder pass: tokens (b, s_dec), memory (b, t, d) ->
-    logits (b, s_dec, vocab_padded). ``remat`` has no effect."""
+    logits (b, s_dec, vocab_padded); ``remat`` as in :func:`encode`."""
+    def layer(x, lp):
+        x = x + attn.gqa_forward(lp["attn"], rmsnorm(x, lp["att_norm"], cfg.norm_eps), cfg)
+        return _cross_ffn(lp, x, cfg, *cross_kv(lp["cross"], memory, cfg))
+
     x = embedding_lookup(params["embed"], tokens, cfg.cdtype())
     for i in range(cfg.num_layers):
         lp = tree_index(params["dec_layers"], i)
-        x = x + attn.gqa_forward(lp["attn"], rmsnorm(x, lp["att_norm"], cfg.norm_eps), cfg)
-        x = _cross_ffn(lp, x, cfg, *cross_kv(lp["cross"], memory, cfg))
+        x = remat_call(lambda x, lp=lp: layer(x, lp), x, remat)
     return _logits(params, x, cfg)
 
 

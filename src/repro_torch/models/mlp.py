@@ -111,3 +111,16 @@ def moe_forward(p, x: torch.Tensor, cfg: ModelConfig, *, by_column: bool = False
     if m.num_shared:
         y = y + mlp_forward(p["shared"], x)
     return y
+
+
+def moe_aux_loss(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Switch-style load-balancing auxiliary loss (framework substrate, the
+    reference's ``moe_aux_loss``; like the reference, ``lm_loss`` does not
+    add it)."""
+    m = cfg.moe
+    probs = torch.softmax(_router_logits(x, p["router_w"]), dim=-1)
+    top_idx = torch.topk(probs, m.top_k, dim=-1)[1]
+    frac_tokens = torch.mean(
+        torch.nn.functional.one_hot(top_idx, m.num_experts).to(torch.float32), dim=(0, 1, 2))
+    frac_probs = torch.mean(probs, dim=(0, 1))
+    return m.num_experts * torch.sum(frac_tokens * frac_probs)

@@ -17,8 +17,9 @@ reference's layouts: the contiguous base (L, b, T, KV, hd) cache, the kvt
 (L, b, KV, T, hd) cache (``flags.kvt_cache_layout``), its quantized variant
 (``cfg.kv_quant`` or ``flags.int8_kv_cache``), and the paged block pool
 (float or quantized). Decode writes them in place. ``lm_forward`` is the
-scoring forward (``Model.forward``); ``flags.blockwise_attention`` sends its
-attention and prefill's through the flash kernel. ``lm_verify`` /
+scoring and training forward (``Model.forward``);
+``flags.blockwise_attention`` sends its attention and prefill's through the
+flash kernel (its backward kernel too in a train step). ``lm_verify`` /
 ``lm_verify_paged`` run a speculative k-token chunk as k decode steps'
 arithmetic and leave the cache as they found it, and
 ``lm_commit_verify(_paged)`` commit its accepted prefix.
@@ -38,6 +39,7 @@ from repro_torch.models import mlp as mlpmod
 from repro_torch.models.common import (
     dense_init,
     embed_init,
+    remat_call,
     rmsnorm,
     rmsnorm_steps,
     softcap,
@@ -163,18 +165,23 @@ def _block(lp, x: torch.Tensor, cfg: ModelConfig, attn_fn, norm=rmsnorm) -> torc
 def lm_forward(params, tokens: torch.Tensor, cfg: ModelConfig,
                frontend_embeds: torch.Tensor | None = None, *, remat: bool = True
                ) -> torch.Tensor:
-    """tokens (b, s) -> logits (b, s, vocab_padded). ``remat`` is accepted
-    for the reference's signature and has no effect: nothing here keeps
-    activations for a backward pass (training is not ported)."""
+    """tokens (b, s) -> logits (b, s, vocab_padded). The training forward
+    too: with ``remat`` and grad enabled each layer runs under
+    ``torch.utils.checkpoint`` (non-reentrant), which keeps only the
+    layer's input and recomputes the layer in the backward, as the
+    reference's ``jax.checkpoint(body)`` does; with grad off ``remat``
+    changes nothing."""
     _check_ported(cfg)
     x = _embed(params, tokens, cfg, frontend_embeds)
     for i, wkw in enumerate(_window_kw(cfg)):
         lp = tree_index(params["layers"], i)
         if cfg.mla:
-            x = _block(lp, x, cfg, lambda h, lp=lp: attn.mla_forward(lp["attn"], h, cfg))
-            continue
-        x = _block(lp, x, cfg,
-                   lambda h, lp=lp, wkw=wkw: attn.gqa_forward(lp["attn"], h, cfg, **wkw))
+            def attn_fn(h, lp=lp):
+                return attn.mla_forward(lp["attn"], h, cfg)
+        else:
+            def attn_fn(h, lp=lp, wkw=wkw):
+                return attn.gqa_forward(lp["attn"], h, cfg, **wkw)
+        x = remat_call(lambda x, lp=lp, attn_fn=attn_fn: _block(lp, x, cfg, attn_fn), x, remat)
     return _logits(params, x, cfg)
 
 

@@ -599,7 +599,7 @@ def test_flash_variant_counters_follow_the_dtype(dev):
         q, k, v = _flash(dev, 8, 2, 40, 40, 64, dtype=dtype)
         for _ in range(n):
             flash_kern.flash_attention_cuda(q, k, v, group=4, scale=0.125)
-    assert flash_kern.LAUNCHES == {"flash_attn": 3, "flash_attn_f32": 3}
+    assert flash_kern.LAUNCHES == {"flash_attn": 3, "flash_attn_f32": 3, "flash_attn_bwd": 0}
     assert flash_kern.kernel_name(torch.bfloat16) == "flash_attn"
     q, k, v = _flash(dev, 8, 2, 40, 40, 64, dtype=torch.bfloat16)
     shifted = torch.empty(q.numel() + 4, dtype=q.dtype, device=dev)[4:].view(q.shape)
