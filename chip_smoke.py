@@ -292,8 +292,11 @@ printing no result, when CUDA is missing. Phases, each fatal on failure:
 
 11. train:   training (train/loop.py, optim/adamw.py, checkpoint/ckpt.py)
              on TinyLlama-1.1B at full width, bf16 params and compute. (a)
-             the flash backward (flash_attn_bwd, B4's gradient; three
-             launches a call) against its plain version at TinyLlama's 4 x
+             the flash backward (flash_attn_bwd, B4's gradient: bf16 on
+             the tensor cores, f32 register-tiled; D, dK/dV, dQ and for GQA
+             the group sum, four launches counted as one call; the layout
+             of its two products kernels against the Python mirror) against
+             its plain version at TinyLlama's 4 x
              128 and 1 x 2048 (32/4 heads of 64), gemma2's hd 256 over 1 x
              4608 with its 4096-token window and cap 50, zamba2's hd 112 and
              seamless's non-causal 4 x 512 (16/16), f32 and bf16: dQ, dK, dV
@@ -303,12 +306,14 @@ printing no result, when CUDA is missing. Phases, each fatal on failure:
              with the lse pointer bit-equal to it without, a second call
              bit-equal (no atomics); timed beside the bound (five products
              of 2 hd operations a visible pair, or the bytes), the plain
-             version and SDPA's backward. (b) run_loop with the train CLI's
-             defaults (SyntheticLM seed 0, batch 8, seq 128, lr 3e-4), 8
+             version, SDPA's backward and the first design's time ("was",
+             a constant). (b) run_loop with the train CLI's defaults
+             (SyntheticLM seed 0, batch 8, seq 128, lr 3e-4), 8
              steps at 22 layers: losses finite and falling, ms a step,
              tok/s, peak memory, grad norms. (c) one step at 1 x 2048 under
              blockwise_attention: 44 B4 forwards (remat recomputes each
-             layer) and 22 backwards, counted from 0 around it; every
+             layer) and 22 backwards, counted from 0 around it, the
+             backward's card time split into its kernels; every
              gradient leaf against the plain path's (impl "plain") within
              5e-2 of its max|plain|, every B4 call held to its plain version
              on the same inputs. (d) at 2 layers of full width (11 GB a
@@ -688,6 +693,16 @@ TRAIN_FLASH = (("tinyllama 4x128", 4, 32, 4, 128, 64, True, None, None),
                ("zamba2 1x2048", 1, 32, 32, 2048, 112, True, None, None),
                ("seamless encoder 4x512", 4, 16, 16, 512, 64, False, None, None))
 TRAIN_FLASH_MAIN = "tinyllama 1x2048"   # the kernels line: (c)'s shape
+# each case's backward on the first design (f32 on the CUDA cores for every
+# dtype), measured by this script on an NVIDIA H100 80GB HBM3 at 700.00 W,
+# us by (case, dtype): printed beside this run's as "was"
+TRAIN_FLASH_WAS_US = {
+    ("tinyllama 4x128", "bfloat16"): 249.6, ("tinyllama 4x128", "float32"): 247.6,
+    ("tinyllama 1x2048", "bfloat16"): 5563.0, ("tinyllama 1x2048", "float32"): 5561.0,
+    ("gemma2 1x4608 window cap", "bfloat16"): 26991.0,
+    ("gemma2 1x4608 window cap", "float32"): 27419.0,
+    ("zamba2 1x2048", "bfloat16"): 7398.0, ("zamba2 1x2048", "float32"): 7578.0,
+    ("seamless encoder 4x512", "bfloat16"): 971.7, ("seamless encoder 4x512", "float32"): 985.3}
 TRAIN_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 TRAIN_LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
 # (b) the train CLI's defaults (SyntheticLM seed 0, batch 8, seq 128, lr
@@ -892,15 +907,21 @@ def profile_device(fn, reps: int) -> dict:
         return sum(v for k, v in by_name.items() if pred(k))
 
     # the port's kernels by name (the paged op's split pass and combine, both
-    # flash kernels, the flash backward's three); float products: cuBLAS /
+    # flash kernels, the flash backward's launches); float products: cuBLAS /
     # CUTLASS GEMMs
     products = ("gemm", "nvjet", "xmma", "cutlass", "cublas", "s16816")
+    bwd_split: dict[str, float] = {}
+    for k, v in by_name.items():
+        if "flash_bwd" in k:
+            part = ("D" if "delta" in k else "group sum" if "group_sum" in k
+                    else "dQ" if "true>" in k else "dK/dV")
+            bwd_split[part] = bwd_split.get(part, 0.0) + v
     return {"device_ms": total, "kernels": count // reps,
             "gqmm_ms": ms(lambda k: "gqmm_" in k),
             "paged_ms": ms(lambda k: "paged_attn" in k),
             "paged_kernels": sum(c for k, c in counts.items() if "paged_attn" in k) // reps,
             "flash_ms": ms(lambda k: "flash_attn" in k and "flash_bwd" not in k),
-            "flash_bwd_ms": ms(lambda k: "flash_bwd" in k),
+            "flash_bwd_ms": ms(lambda k: "flash_bwd" in k), "flash_bwd_split": bwd_split,
             "products_ms": ms(lambda k: any(w in k.lower() for w in products)),
             "top": top}
 
@@ -4366,8 +4387,10 @@ def train_flash_rows(dev) -> list[dict]:
         iters = 10 if s * s * h * b <= 2 ** 26 else 3
         k_ms, _ = device_time_ms(lambda i: fkern.flash_attention_bwd_cuda(
             q, k, v, out, lse, do, **kw), iters, host_ms_guess=0.3)
-        p_ms = profile_device(lambda: flash_attention_bwd_ref(q, k, v, out, lse, do, **kw),
-                              1)["device_ms"]
+        # the plain version by CUDA events too: torch.profiler has read it
+        # well below the events here (missed kernels)
+        p_ms, _ = device_time_ms(lambda i: flash_attention_bwd_ref(q, k, v, out, lse, do, **kw),
+                                 1, host_ms_guess=3.0)
         pairs = b * h * (_visible_pairs(s, window) if causal else s * s)
         bnd = bounds.flash_backward_bound(b * h, b * kv, s, s, hd, pairs,
                                           "bf16" if dt == torch.bfloat16 else "f32")
@@ -4385,7 +4408,8 @@ def train_flash_rows(dev) -> list[dict]:
             f"  bound {row['bound_us']:8.2f} us ({row['bound_by']}, "
             f"{100 * row['bound_share']:.2f} % of it)"
             + (f"  sdpa bwd {row['library_us']:8.2f} us" if "library_us" in row else "")
-            + f" [{CARD['smi']}]")
+            + f"  was {TRAIN_FLASH_WAS_US[(name, row['dtype'])]:.1f} us (the first design, "
+            f"not timed in this run) [{CARD['smi']}]")
         del q, k, v, do, out, lse, got, again, want, rout, rlse
     torch.cuda.empty_cache()
     return rows
@@ -4619,7 +4643,9 @@ def train_blockwise(dev) -> dict:
                           "forward_max_rel_err": fwd_err, "backward_max_rel_err": bwd_err}}
     log(f"[train (c)] blockwise 1x{bw['s']} step: {ms:.1f} ms (host clock, synchronised; bound "
         f"{res['bound_ms']:.2f} ms, {res['bound_by']}; profiler: {prof['device_ms']:.1f} ms on the "
-        f"card, B4 forward {prof['flash_ms']:.1f}, backward {prof['flash_bwd_ms']:.1f}, products "
+        f"card, B4 forward {prof['flash_ms']:.1f}, backward {prof['flash_bwd_ms']:.1f} ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in sorted(prof["flash_bwd_split"].items()))
+        + f"), products "
         f"{prof['products_ms']:.1f}), "
         f"launches {launches}; loss kernel {kloss.item():.6f} plain {ploss.item():.6f}; "
         f"gradient leaves kernel vs plain: worst {worst} {leaf_err[worst]:.3e} of max|plain| "
@@ -4638,7 +4664,7 @@ def train_blockwise(dev) -> dict:
 def phase_train(dev) -> tuple[dict, list[dict]]:
     t0 = time.perf_counter()
     rows = train_flash_rows(dev)
-    out = {"steps": train_steps(dev)}
+    out = {"layout": train_layout(), "steps": train_steps(dev)}
     torch.cuda.empty_cache()
     out["resume"] = train_resume(dev)
     torch.cuda.empty_cache()
@@ -4649,9 +4675,29 @@ def phase_train(dev) -> tuple[dict, list[dict]]:
     return out, rows
 
 
+def train_layout() -> dict:
+    """Shared memory and CTAs an SM of both backward products kernels
+    (dK/dV, dQ) at every head dim and dtype of phase 11 (a), from the card
+    (flash_attn_bwd_layout); raises where the shared memory is not the
+    Python mirror's (flash_attn.bwd_smem_bytes)."""
+    out = {}
+    for (_, _, _, _, _, hd, *_), dt in itertools.product(TRAIN_FLASH, FLASH_DTYPES):
+        for dq in (False, True):
+            smem, ctas = fkern.bwd_layout(hd, dt, dq)
+            want = fkern.bwd_smem_bytes(hd, dq, dt)
+            if smem != want or ctas < 1:
+                raise AssertionError(f"flash_attn_bwd layout hd {hd} {dt} dq {dq}: {smem} bytes "
+                                     f"(mirror {want}), {ctas} CTAs an SM")
+            out[f"{str(dt).split('.')[-1]} hd {hd} {'dq' if dq else 'dkdv'}"] = {
+                "smem_bytes": smem, "ctas_per_sm": ctas}
+    log("[train (a)] flash_attn_bwd layout (shared memory = the mirror's; CTAs an SM): "
+        + ", ".join(f"{k} {v['smem_bytes']} B {v['ctas_per_sm']}" for k, v in out.items()))
+    return out
+
+
 def train_entry(rows: list[dict], train: dict) -> dict:
     """The kernels line's flash_attn_bwd entry: times at (c)'s shape (bf16),
-    launches added from phase 11 (c)'s run by add_runs."""
+    launches added from phase 11 (c)'s run by add_runs, and the kernels' layout."""
     main = next(r for r in rows if r["case"] == TRAIN_FLASH_MAIN and r["dtype"] == "bfloat16")
     return {
         "name": "flash_attn_bwd", "route": "cuda", "source": SOURCES["flash_attn_bwd"],
@@ -4661,14 +4707,15 @@ def train_entry(rows: list[dict], train: dict) -> dict:
                          "(src/repro/models/attention.py:194)",
         "launches": 0, "max_abs_err": max(r["max_abs_err"] for r in rows), **_timing(main),
         "library_ms": main["library_us"] / 1e3,
-        "per": f"one call (three launches: D, dK/dV, dQ), causal GQA 32/4, hd 64, bfloat16, "
-               f"{TRAIN_FLASH_MAIN} tokens (one layer of phase 11 (c)'s step); library: "
+        "layout": train["layout"],
+        "per": f"one call (four launches: D, dK/dV, dQ, the group sum), causal GQA 32/4, hd 64, "
+               f"bfloat16, {TRAIN_FLASH_MAIN} tokens (one layer of phase 11 (c)'s step); library: "
                "scaled_dot_product_attention's backward on the same inputs; max_abs_err over "
                "every phase-11 (a) case",
         "path": "phase 11 (c): a full-width TinyLlama train step under blockwise_attention",
         "shapes": [{k: r.get(k) for k in ("case", "dtype", "s", "us", "plain_us", "bound_us",
-                                          "bound_by", "library_us", "rel_err", "max_abs_err")}
-                   for r in rows],
+                                          "bound_by", "library_us", "rel_err",
+                                          "max_abs_err")} for r in rows],
     }
 
 

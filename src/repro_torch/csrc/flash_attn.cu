@@ -107,6 +107,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr float kNegInf = -1e30f;
@@ -776,7 +778,7 @@ int launch_mma_hd(const void* q, const void* k, const void* v, void* out, float*
 
 
 // ---------------------------------------------------------------------------
-// backward: dQ, dK, dV for every dtype, f32 arithmetic on the CUDA cores
+// backward: dQ, dK, dV
 // ---------------------------------------------------------------------------
 //
 // FlashAttention-2's scheme: the forward writes each query row's f32
@@ -786,36 +788,101 @@ int launch_mma_hd(const void* q, const void* k, const void* v, void* out, float*
 //   dV = P^T dO,  dP = dO V^T,  dS = P (dP - D) on the visible pairs (0 on
 //   masked ones), times 1 - tanh^2 under a soft cap, times the scale;
 //   dQ = dS K,  dK = dS^T Q.
-// Three launches, each a plain deterministic loop (no atomics: every output
-// element has one owner thread that adds its terms in a fixed order):
+// Bound (kernels/bounds.py flash_backward): five products of 2 * HD
+// operations a visible (query, key) pair over the bf16 tensor-core rate (or
+// the f32 rate), or the bytes of q, k, v, o, dO, dq, dk, dv and the lse,
+// whichever is larger. At 1 x 2048 and up it is the products.
+//
+// Deterministic, no atomics: every output element has one owner that adds
+// its terms in a fixed order, so two calls give the same bits.
+//
+// The launches, for every dtype:
 // - flash_bwd_delta_kernel: D, a warp a query row (an xor butterfly);
-// - flash_bwd_dkdv_kernel: a CTA per (KV row, tile of 32 keys) stages the
-//   tile's K and V once, then walks every query head of the KV row's group
-//   and every tile of 32 query rows that can see the keys (causal: from the
-//   key tile on; window: up to the last key + window); a thread owns one
-//   key and every 8th 16-byte chunk of its dK and dV rows;
-// - flash_bwd_dq_kernel: a CTA per (query row, tile of 32 positions) walks
-//   the key tiles the forward walks; a thread owns one query position and
-//   every 8th 16-byte chunk of its dQ row.
-// A 32 x 32 tile's S and dP are formed by 256 threads, each one key (its
-// lane) x 4 query rows (warp + 8 i), from f32 copies of the tiles in shared
-// memory with rows HD + 4 floats apart (16-byte vector reads; a warp's 32
-// keys' chunks fall in distinct bank groups, HD / 4 + 1 being odd), 10
-// vector loads for 32 FMAs; P and dS pass through shared memory to the
-// dK/dV or dQ products, where a thread owns the 16-byte chunks sub, sub +
-// 8, ... of its row (a vector load for 4 FMAs). The inputs are read
-// as bf16 / fp16 / f32 and every product and sum is f32; the gradients are
-// rounded once to the inputs' dtype. A simple design: each score is a
-// thread's serial HD-long dot product on the CUDA cores, and the dK/dV
-// CTAs of the first key tiles see the most query tiles. Bound
-// (kernels/bounds.py flash_backward): five products of 2 * HD operations a
-// visible (query, key) pair over the bf16 tensor-core rate (or the f32
-// rate), or the bytes of q, k, v, o, dO, dq, dk, dv and the lse, whichever
-// is larger.
+// - the dK/dV kernel: a CTA per (query head, key tile), grid (b*H, key
+//   tiles), the first key tiles (which see the most causal queries) handed
+//   out first. It stages the tile's K and V once and walks the query tiles
+//   that can see a key of it (causal: from the key tile on; window: up to
+//   the last key + window), with Q, dO (and their rows' lse and D) streamed.
+//   Per query tile: S^T = K Q^T and dP^T = V dO^T, P^T and dS^T from them,
+//   then dV += P^T dO and dK += dS^T Q;
+// - flash_bwd_group_sum_kernel (only for GQA, group > 1): the dK/dV kernel
+//   writes each query head's dK and dV as f32 partials to a workspace of
+//   2 x (b*H, t, HD) floats that the wrapper allocates; this kernel adds
+//   the group's G partials of each KV row in head order 0 .. G-1 and rounds
+//   the sum once to the dtype (group 1 writes the dtype directly);
+// - the dQ kernel: a CTA per (query head, 64-row query tile), grid (b*H,
+//   query tiles), the last tiles (the longest causal rows) first, walks the
+//   forward's key range with K and V streamed: S = Q K^T, dP = dO V^T, P and
+//   dS again, dQ += dS K. S and dP are formed twice (once per kernel): seven
+//   products against the bound's five, which buys dK/dV and dQ each one
+//   owner without atomics or a reduction over query tiles.
+// Both products kernels are one template each for the two roles (kDQ):
+// "rows" are the tile a CTA owns and keeps (keys, or query positions),
+// "columns" the tiles it streams (query positions, or keys), X = R1 C1^T
+// and Y = R2 C2^T (S^T and dP^T, or S and dP), lse and D per column (dK/dV)
+// or per row (dQ); the accumulations read the streamed tiles again
+// (dK += dS^T C1, dV += P^T C2; dQ += dS C1). Masks are applied only on
+// tiles at an edge (the diagonal, the window's edge, past s or t); tiles
+// that no visible pair touches are not walked.
+//
+// bf16 / fp16: flash_bwd_mma_kernel on the tensor cores (FA2's backward on
+// mma.sync.m16n8k16, f32 accumulators), built from the forward's parts:
+// 4 warps, 16 rows a warp; the streamed tiles arrive through a 2-stage
+// cp.async ring of 16-byte copies into the XOR-swizzled layout (swz), the
+// next tile in flight while this one is multiplied; A operands from the
+// kept rows by ldmatrix, B of X and Y by ldmatrix, B of the accumulations by
+// ldmatrix.trans; P and dS are rounded to bf16 / fp16 in registers and
+// reused as A operands (the C layout of two n-tiles is the A layout of one
+// k-step), as the forward does with P. Rounding P and dS adds up to 2^-9
+// (bf16) relative per term against the all-f32 plain version. Tiles: rows
+// 64 a CTA (bwd_rows), columns 32 a streamed tile (kBwdCols). At hd 256 a
+// dK/dV CTA's dK and dV of 16 keys would take 256 registers a lane, so two
+// warps share 16 keys and split the head dim of the accumulators
+// (bwd_dsplit; both form the same S^T and dP^T: 1.5x the products of that
+// kernel) and a CTA owns 32 keys; at hd 112 the staged rows are padded to
+// 128 elements, as in the forward. Shared memory: the kept
+// rows' two tiles and two ring stages of two column tiles (and their lse
+// and D), at most 131,072 bytes (the dQ kernel at hd 256), opted into.
+//
+// f32: flash_bwd_f32_kernel on the CUDA cores, register-tiled as the
+// forward's f32 kernel (no TF32: f32 stays within 1e-4 of the plain
+// version): 8 warps, 64 rows a CTA; 16 row groups of 16 lanes (half a warp),
+// row group ty holding rows ty + 16 i; X and Y as 4 x 4 micro-tiles a lane
+// (its 4 rows x columns cg + CG j) over the 16-byte d-chunks ds, ds + DS, ...
+// (column tiles of f32_keys() columns: 64, 32 at hd 128, 16 at hd 256,
+// and f32_splits() d-splits), each partial sum left to right over the
+// lane's d, the d-splits added by an xor butterfly; P and dS pass once
+// through shared memory as 16-byte vectors of columns cg + CG j; a lane owns
+// 4 rows x the dim-chunks g16, g16 + 16, ... of each accumulator and adds
+// the columns in the order of the vectors (e, e + CG, e + 2 CG, e + 3 CG for
+// e = 0 .. CG - 1), tile after tile. Staging: 16-byte cp.async (4-byte where
+// an input is not 16-byte aligned) into rows of f32_row_floats() floats;
+// one buffer a tile, so a tile's copies do not overlap its products: at hd
+// 32 and 64 two CTAs share an SM and cover each other's copies. Both f32
+// products kernels run at 43-47 % of the f32 FMA peak on the visible pairs
+// at 1 x 2048 (hd 64 with two CTAs an SM, hd 112 with one), the share of the
+// forward's f32 kernel at the same shapes: issue slots and shared-memory
+// reads (8 ld.shared.v4 a 64 FMAs in X and Y, as many in the accumulations),
+// the P / dS pass through shared memory and two barriers a tile, not the
+// bytes, bound it (NVIDIA H100 80GB HBM3 at 700 W,
+// tests/profile_torch_flash_bwd.py).
+//
+// What the first design did and this one does not: every product
+// on the CUDA cores in f32 for every dtype, each score one thread's serial
+// HD-long dot product from shared memory (10 vector loads for 32 FMAs);
+// tiles staged element by element with synchronous loads; one dK/dV CTA per
+// (KV row, 32 keys) walking every head of the group and every visible query
+// tile in series (256 CTAs at 1 x 2048, the first walking 8 x 64 tiles).
+//
+// Next for the tensor-core path: wgmma for the products whose B operands
+// sit in shared memory (X and Y from the kept rows and the streamed tiles,
+// both K-major as wgmma wants; the accumulations need the streamed tiles
+// transposed, which wgmma reads from a transposed smem layout, or P and dS
+// as register A operands), fed by TMA with an mbarrier ring in place of
+// cp.async, with 64-row warpgroup tiles: a CTA of 2 warpgroups over 128 rows.
 
-constexpr int kBwdThreads = 256;
-constexpr int kBwdQ = 32;   // query positions a tile
-constexpr int kBwdK = 32;   // keys a tile
+constexpr int kBwdThreads = 128;      // the tensor-core kernels: 4 warps
+constexpr int kBwdDeltaThreads = 256;
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T x);
@@ -846,102 +913,61 @@ __device__ __forceinline__ void fma4(float4& a, float x, const float4& b) {
   a.z = fmaf(x, b.z, a.z);
   a.w = fmaf(x, b.w, a.w);
 }
-template <typename T>
-__device__ __forceinline__ void store4(T* dst, const float4& v) {
-  dst[0] = from_f32<T>(v.x);
-  dst[1] = from_f32<T>(v.y);
-  dst[2] = from_f32<T>(v.z);
-  dst[3] = from_f32<T>(v.w);
+
+// The pair (query position qp, key position kp) is visible: a key there,
+// a query there, and neither mask hides it.
+__device__ __forceinline__ bool visible(int qp, int kp, int s, int t, int causal, int window) {
+  return kp < t && qp < s && !(causal && kp > qp) && !(window > 0 && qp - kp >= window);
 }
 
-// floats between staged rows: a multiple of 4 (16-byte rows) whose count
-// of 16-byte chunks, HD / 4 + 1, is odd, so a warp reading one chunk of 32
-// rows hits distinct bank groups
-template <int HD>
-__host__ __device__ constexpr int bwd_row() {
-  return HD + 4;
-}
-// two (32, HD) tiles of each side (K, V; Q, dO), P and dS (32 x 33), the
-// query rows' lse and D
-template <int HD>
-constexpr size_t bwd_smem_bytes() {
-  return sizeof(float) * (2 * (size_t)(kBwdK + kBwdQ) * bwd_row<HD>() +
-                          2 * (size_t)kBwdQ * (kBwdK + 1) + 2 * (size_t)kBwdQ);
-}
-
-// rows [r0, r0 + rows) of a (len, HD) matrix into f32 rows of stride
-// bwd_row; rows at or past len are zero
-template <typename T, int HD>
-__device__ __forceinline__ void stage_bwd(float* dst, const T* src, int r0, int len, int rows) {
-  for (int e = threadIdx.x; e < rows * HD; e += kBwdThreads) {
-    const int r = e / HD, d = e - r * HD;
-    dst[r * bwd_row<HD>() + d] = r0 + r < len ? to_f32(src[(size_t)(r0 + r) * HD + d]) : 0.f;
+// P and dS of one pair from its score x (q . k, unscaled), its dP y and its
+// query row's lse and D; the plain version's order of operations
+__device__ __forceinline__ void p_ds(float x, float y, float l, float d, float scale,
+                                     float softcap, bool vis, float& p, float& ds) {
+  x *= scale;
+  float th = 0.f;
+  if (softcap > 0.f) {
+    th = tanhf(x / softcap);
+    x = softcap * th;
   }
+  p = vis ? expf(x - l) : 0.f;
+  ds = vis ? p * (y - d) : 0.f;
+  if (softcap > 0.f) ds *= 1.f - th * th;
+  ds *= scale;
 }
 
-// the query tile's lse and D into shared memory (0 past s)
-__device__ __forceinline__ void stage_rows(float* lse_s, float* dl_s, const float* lse,
-                                           const float* delta, size_t base, int q0, int s) {
-  for (int e = threadIdx.x; e < kBwdQ; e += kBwdThreads) {
-    const bool in = q0 + e < s;
-    lse_s[e] = in ? lse[base + q0 + e] : 0.f;
-    dl_s[e] = in ? delta[base + q0 + e] : 0.f;
-  }
+// The edge of a (key tile, query tile) pair: some pair in it is masked or
+// lies past s or t
+__device__ __forceinline__ bool bwd_edge(int k0, int nk, int q0, int nq, int s, int t, int causal,
+                                         int window) {
+  return k0 + nk > t || q0 + nq > s || (causal && k0 + nk - 1 > q0) ||
+         (window > 0 && q0 + nq - 1 - k0 >= window);
 }
 
-// P and dS of one (query tile q0, key tile k0) pair into p_s / ds_s
-// (32 x 33): thread (warp w, lane j) forms key j x query rows w + 8 i
-template <int HD>
-__device__ __forceinline__ void bwd_tile(const float* q_s, const float* do_s, const float* k_s,
-                                         const float* v_s, const float* lse_s, const float* dl_s,
-                                         float* p_s, float* ds_s, int q0, int k0, int s, int t,
-                                         float scale, int causal, int window, float softcap) {
-  constexpr int kRow = bwd_row<HD>();
-  const int w = threadIdx.x >> 5, j = threadIdx.x & 31;
-  float sc[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
-  const float4* kr = reinterpret_cast<const float4*>(k_s + j * kRow);
-  const float4* vr = reinterpret_cast<const float4*>(v_s + j * kRow);
-#pragma unroll 2
-  for (int d = 0; d < HD / 4; ++d) {
-    const float4 kd = kr[d], vd = vr[d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float4 qd = reinterpret_cast<const float4*>(q_s + (w + 8 * i) * kRow)[d];
-      const float4 od = reinterpret_cast<const float4*>(do_s + (w + 8 * i) * kRow)[d];
-      sc[i] = fmaf(qd.w, kd.w, fmaf(qd.z, kd.z, fmaf(qd.y, kd.y, fmaf(qd.x, kd.x, sc[i]))));
-      dp[i] = fmaf(od.w, vd.w, fmaf(od.z, vd.z, fmaf(od.y, vd.y, fmaf(od.x, vd.x, dp[i]))));
-    }
+// The streamed tiles a CTA walks: [*begin, end) in tiles of `cols`, from
+// its kept rows [r0, r0 + rows) (keys for dK/dV, query positions for dQ)
+__device__ __forceinline__ int bwd_range(bool dq, int r0, int rows, int cols, int s, int t,
+                                         int causal, int window, int* begin) {
+  int lo, hi;
+  if (dq) {   // the forward's key range of these query positions
+    const int nq = min(rows, s - r0);
+    hi = causal ? min(t, r0 + nq) : t;
+    lo = window > 0 ? max(0, r0 - window + 1) : 0;
+  } else {    // the query positions that see a key of this tile
+    const int k_last = min(r0 + rows, t) - 1;
+    lo = causal ? r0 : 0;
+    hi = window > 0 ? min(s, k_last + window) : s;
   }
-  const int kp = k0 + j;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = w + 8 * i, qp = q0 + r;
-    float x = sc[i] * scale, th = 0.f;
-    if (softcap > 0.f) {
-      th = tanhf(x / softcap);
-      x = softcap * th;
-    }
-    const bool ok = !((causal && kp > qp) || (window > 0 && qp - kp >= window));
-    float p = 0.f, ds = 0.f;
-    if (kp < t && qp < s) {
-      p = expf((ok ? x : kNegInf) - lse_s[r]);
-      if (ok) {
-        ds = p * (dp[i] - dl_s[r]);
-        if (softcap > 0.f) ds *= 1.f - th * th;
-        ds *= scale;
-      }
-    }
-    p_s[r * (kBwdK + 1) + j] = p;
-    ds_s[r * (kBwdK + 1) + j] = ds;
-  }
+  *begin = (lo / cols) * cols;
+  return hi > *begin ? (hi - *begin + cols - 1) / cols : 0;
 }
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kBwdDeltaThreads)
 flash_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
                        float* __restrict__ delta, long long rows) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long r = (long long)blockIdx.x * (kBwdThreads / 32) + warp;
+  const long long r = (long long)blockIdx.x * (kBwdDeltaThreads / 32) + warp;
   if (r >= rows) return;
   const T* o = out + r * HD;
   const T* g = dout + r * HD;
@@ -952,148 +978,529 @@ flash_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
   if (lane == 0) delta[r] = acc;
 }
 
-template <typename T, int HD>
+// dk = sum over g of dk_part[kv * group + g] in the order g = 0 .. group - 1,
+// rounded once; the same for dv. n = b*KV * t * HD, per = t * HD (both
+// multiples of 4).
+template <typename T>
+__global__ void __launch_bounds__(256)
+flash_bwd_group_sum_kernel(const float* __restrict__ dk_part, const float* __restrict__ dv_part,
+                           T* __restrict__ dk, T* __restrict__ dv, long long n, long long per,
+                           int group) {
+  for (long long i = 4 * ((long long)blockIdx.x * blockDim.x + threadIdx.x); i < n;
+       i += 4 * (long long)gridDim.x * blockDim.x) {
+    const long long kv = i / per, off = i - kv * per;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+    for (int g = 0; g < group; ++g) {
+      const size_t at = (size_t)(kv * group + g) * per + off;
+      const float4 x = *reinterpret_cast<const float4*>(dk_part + at);
+      const float4 y = *reinterpret_cast<const float4*>(dv_part + at);
+      a = make_float4(a.x + x.x, a.y + x.y, a.z + x.z, a.w + x.w);
+      b = make_float4(b.x + y.x, b.y + y.y, b.z + y.z, b.w + y.w);
+    }
+    const float ak[4] = {a.x, a.y, a.z, a.w}, av[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dk[i + e] = from_f32<T>(ak[e]);
+      dv[i + e] = from_f32<T>(av[e]);
+    }
+  }
+}
+
+// ---- bf16 / fp16 on the tensor cores --------------------------------------
+
+// Warps that share one 16-row block and split the head dim of its
+// accumulators: 2 for dK/dV at hd 256, else 1.
+template <int HD, bool kDQ>
+__host__ __device__ constexpr int bwd_dsplit() {
+  return !kDQ && HD > 128 ? 2 : 1;
+}
+// Rows a CTA keeps: 16 a warp over the d-splits.
+template <int HD, bool kDQ>
+__host__ __device__ constexpr int bwd_rows() {
+  return 16 * (kBwdThreads / 32) / bwd_dsplit<HD, kDQ>();
+}
+// Columns a streamed tile, 32 at every head dim: 64-column tiles hold
+// twice the X and Y accumulators (32 registers a lane more), which costs a
+// CTA an SM. The bits do not depend on it: the accumulations' k-steps of 16
+// columns run in the same order either way.
+constexpr int kBwdCols = 32;
+// the kept rows' two tiles, two ring stages of two column tiles and, for
+// dK/dV, the columns' lse and D in each stage
+template <int HD, bool kDQ>
+constexpr size_t bwd_mma_smem_bytes() {
+  return 2 * (2 * (size_t)bwd_rows<HD, kDQ>() * row_elems<HD>() +
+              2 * (size_t)kStages * kBwdCols * row_elems<HD>()) +
+         (kDQ ? 0 : sizeof(float) * 2 * (size_t)kStages * kBwdCols);
+}
+
+// kDQ false: dK/dV of the key tile blockIdx.y of query head blockIdx.x
+// (rows: keys of KV row blockIdx.x / group; columns: that head's query
+// positions); kDQ true: dQ of the query tile (nqt - 1 - blockIdx.y) of query
+// row blockIdx.x (rows: its query positions; columns: keys).
+template <typename T, int HD, bool kDQ>
 __global__ void __launch_bounds__(kBwdThreads)
-flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                      const T* __restrict__ dout, const float* __restrict__ lse,
-                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                      int s, int t, int group, float scale, int causal, int window,
-                      float softcap) {
-  constexpr int kRow = bwd_row<HD>();
-  constexpr int kC = (HD / 4 + 7) / 8;   // 16-byte chunks a thread owns: sub, sub + 8, ...
-  extern __shared__ __align__(16) float bsm[];
-  float* k_s = bsm;
-  float* v_s = k_s + kBwdK * kRow;
-  float* q_s = v_s + kBwdK * kRow;
-  float* do_s = q_s + kBwdQ * kRow;
-  float* p_s = do_s + kBwdQ * kRow;
-  float* ds_s = p_s + kBwdQ * (kBwdK + 1);
-  float* lse_s = ds_s + kBwdQ * (kBwdK + 1);
-  float* dl_s = lse_s + kBwdQ;
+flash_bwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const T* __restrict__ dout, const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dq, T* __restrict__ dk,
+                     T* __restrict__ dv, float* __restrict__ dk_part,
+                     float* __restrict__ dv_part, int s, int t, int group, float scale,
+                     int causal, int window, float softcap) {
+  constexpr int kChunks = HD / 8;            // 16-byte chunks a row
+  constexpr int kRow = row_elems<HD>();
+  constexpr int kSplit = bwd_dsplit<HD, kDQ>();
+  constexpr int kRows = bwd_rows<HD, kDQ>();
+  constexpr int kCols = kBwdCols;
+  constexpr int kXTiles = kCols / 8;         // n-tiles of X and Y
+  constexpr int kAccD = HD / kSplit;         // accumulator dims a warp
+  constexpr int kAccTiles = kAccD / 8;       // n-tiles of an accumulator
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* r1_s = reinterpret_cast<T*>(smem_raw);             // (kRows, kRow): K or Q
+  T* r2_s = r1_s + kRows * kRow;                        // V or dO
+  T* c1_s = r2_s + kRows * kRow;                        // (stages, kCols, kRow): Q or K
+  T* c2_s = c1_s + kStages * kCols * kRow;              // dO or V
+  float* lse_s = reinterpret_cast<float*>(c2_s + kStages * kCols * kRow);   // (stages, kCols)
+  float* dl_s = lse_s + kStages * kCols;
 
-  const int kvrow = blockIdx.x, k0 = blockIdx.y * kBwdK;
-  const int kj = threadIdx.x >> 3, sub = threadIdx.x & 7;
-  stage_bwd<T, HD>(k_s, k + (size_t)kvrow * t * HD, k0, t, kBwdK);
-  stage_bwd<T, HD>(v_s, v + (size_t)kvrow * t * HD, k0, t, kBwdK);
-  float4 ak[kC], av[kC];
-#pragma unroll
-  for (int c = 0; c < kC; ++c) ak[c] = av[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int row = blockIdx.x;                // query head (b*H row)
+  const int kvrow = row / group;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int wrow = (warp / kSplit) * 16;     // the warp's 16 rows in the CTA
+  const int dchunk = (warp % kSplit) * (kAccD / 8);   // its first accumulator chunk
+  const int rlen = kDQ ? s : t, clen = kDQ ? t : s;
+  const int r0 = kDQ ? ((int)gridDim.y - 1 - (int)blockIdx.y) * kRows : (int)blockIdx.y * kRows;
+  const int nr = min(kRows, rlen - r0);
+  const T* r1 = kDQ ? q + (size_t)row * s * HD : k + (size_t)kvrow * t * HD;
+  const T* r2 = kDQ ? dout + (size_t)row * s * HD : v + (size_t)kvrow * t * HD;
+  const T* c1 = kDQ ? k + (size_t)kvrow * t * HD : q + (size_t)row * s * HD;
+  const T* c2 = kDQ ? v + (size_t)kvrow * t * HD : dout + (size_t)row * s * HD;
 
-  // the query positions that see a key of this tile
-  const int k_last = min(k0 + kBwdK, t) - 1;
-  const int q_lo = causal ? k0 : 0;
-  const int q_hi = window > 0 ? min(s, k_last + window) : s;
-  for (int g = 0; g < group; ++g) {
-    const int row = kvrow * group + g;
-    const T* qb = q + (size_t)row * s * HD;
-    const T* dob = dout + (size_t)row * s * HD;
-    for (int q0 = (q_lo / kBwdQ) * kBwdQ; q0 < q_hi; q0 += kBwdQ) {
-      __syncthreads();                  // the last tile's Q, dO, P and dS are read
-      stage_bwd<T, HD>(q_s, qb, q0, s, kBwdQ);
-      stage_bwd<T, HD>(do_s, dob, q0, s, kBwdQ);
-      stage_rows(lse_s, dl_s, lse, delta, (size_t)row * s, q0, s);
-      __syncthreads();
-      bwd_tile<HD>(q_s, do_s, k_s, v_s, lse_s, dl_s, p_s, ds_s, q0, k0, s, t, scale, causal,
-                   window, softcap);
-      __syncthreads();
-      for (int r = 0; r < kBwdQ; ++r) {
-        const float p = p_s[r * (kBwdK + 1) + kj], ds = ds_s[r * (kBwdK + 1) + kj];
-        const float4* qr = reinterpret_cast<const float4*>(q_s + r * kRow);
-        const float4* dor = reinterpret_cast<const float4*>(do_s + r * kRow);
+  for (int e = tid; e < kRows * kChunks; e += kBwdThreads) {
+    const int r = e / kChunks, ch = e % kChunks;
+    const size_t off = (size_t)(r0 + min(r, nr - 1)) * HD + ch * 8;
+    cp_async16(r1_s + swz<HD>(r, ch), r1 + off, r < nr);
+    cp_async16(r2_s + swz<HD>(r, ch), r2 + off, r < nr);
+  }
+  int c_begin;
+  const int ntiles = bwd_range(kDQ, r0, kRows, kCols, s, t, causal, window, &c_begin);
+
+  auto load_cols = [&](int tile, int stage) {
+    const int c0 = c_begin + tile * kCols;
+    T* d1 = c1_s + stage * kCols * kRow;
+    T* d2 = c2_s + stage * kCols * kRow;
+    for (int e = tid; e < kCols * kChunks; e += kBwdThreads) {
+      const int r = e / kChunks, ch = e % kChunks;
+      const size_t off = (size_t)min(c0 + r, clen - 1) * HD + ch * 8;
+      cp_async16(d1 + swz<HD>(r, ch), c1 + off, c0 + r < clen);
+      cp_async16(d2 + swz<HD>(r, ch), c2 + off, c0 + r < clen);
+    }
+    if constexpr (!kDQ) {
+      for (int e = tid; e < kCols; e += kBwdThreads) {
+        const size_t at = (size_t)row * s + min(c0 + e, s - 1);
+        cp_async4(lse_s + stage * kCols + e, lse + at, c0 + e < s);
+        cp_async4(dl_s + stage * kCols + e, delta + at, c0 + e < s);
+      }
+    }
+  };
+  if (ntiles > 0) load_cols(0, 0);
+  cp_async_commit();                    // group 0: the kept rows and the first tile
+
+  // dQ: the lse and D of the lane's rows gid and gid + 8
+  float lse_r[2] = {0.f, 0.f}, dl_r[2] = {0.f, 0.f};
+  if constexpr (kDQ) {
 #pragma unroll
-        for (int c = 0; c < kC; ++c) {
-          if (sub + 8 * c < HD / 4) {
-            fma4(av[c], p, dor[sub + 8 * c]);
-            fma4(ak[c], ds, qr[sub + 8 * c]);
+    for (int h = 0; h < 2; ++h) {
+      const size_t at = (size_t)row * s + min(r0 + wrow + gid + 8 * h, s - 1);
+      lse_r[h] = lse[at];
+      dl_r[h] = delta[at];
+    }
+  }
+  float acc_a[kDQ ? 1 : kAccTiles][4];       // dV (dK/dV only)
+  float acc_b[kAccTiles][4];                 // dK or dQ
+#pragma unroll
+  for (int n = 0; n < kAccTiles; ++n) {
+    acc_b[n][0] = acc_b[n][1] = acc_b[n][2] = acc_b[n][3] = 0.f;
+    if constexpr (!kDQ) acc_a[n][0] = acc_a[n][1] = acc_a[n][2] = acc_a[n][3] = 0.f;
+  }
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it & 1;
+    if (it + 1 < ntiles) load_cols(it + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();                 // tile it (and the kept rows) have landed
+    __syncthreads();
+    const T* t1 = c1_s + st * kCols * kRow;
+    const T* t2 = c2_s + st * kCols * kRow;
+
+    // X = R1 C1^T, Y = R2 C2^T: 16 rows x kCols columns a warp
+    float xs[kXTiles][4], ys[kXTiles][4];
+#pragma unroll
+    for (int j = 0; j < kXTiles; ++j) {
+      xs[j][0] = xs[j][1] = xs[j][2] = xs[j][3] = 0.f;
+      ys[j][0] = ys[j][1] = ys[j][2] = ys[j][3] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t a1[4], a2[4];
+      ldmatrix_x4(a1, r1_s + swz<HD>(wrow + (lane & 15), 2 * kk + (lane >> 4)));
+      ldmatrix_x4(a2, r2_s + swz<HD>(wrow + (lane & 15), 2 * kk + (lane >> 4)));
+#pragma unroll
+      for (int j = 0; j < kXTiles; j += 2) {
+        const int br = j * 8 + (lane >> 4) * 8 + (lane & 7), bc = 2 * kk + ((lane >> 3) & 1);
+        uint32_t b[4];
+        ldmatrix_x4(b, t1 + swz<HD>(br, bc));
+        Mma<T>::run(xs[j], a1, b[0], b[1]);
+        Mma<T>::run(xs[j + 1], a1, b[2], b[3]);
+        ldmatrix_x4(b, t2 + swz<HD>(br, bc));
+        Mma<T>::run(ys[j], a2, b[0], b[1]);
+        Mma<T>::run(ys[j + 1], a2, b[2], b[3]);
+      }
+    }
+
+    // P and dS in place of X and Y
+    const int c0 = c_begin + it * kCols;
+    const bool edge = kDQ ? bwd_edge(c0, kCols, r0, kRows, s, t, causal, window)
+                          : bwd_edge(r0, kRows, c0, kCols, s, t, causal, window);
+#pragma unroll
+    for (int j = 0; j < kXTiles; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int rp = r0 + wrow + gid + (e >> 1) * 8, cc = j * 8 + 2 * tig + (e & 1);
+        const int cp = c0 + cc;
+        const float l = kDQ ? lse_r[e >> 1] : lse_s[st * kCols + cc];
+        const float d = kDQ ? dl_r[e >> 1] : dl_s[st * kCols + cc];
+        const bool vis = !edge || (kDQ ? visible(rp, cp, s, t, causal, window)
+                                       : visible(cp, rp, s, t, causal, window));
+        p_ds(xs[j][e], ys[j][e], l, d, scale, softcap, vis, xs[j][e], ys[j][e]);
+      }
+    }
+
+    // dQ += dS C1 (K); dK += dS^T C1 (Q), dV += P^T C2 (dO): P and dS from
+    // the X / Y accumulators, C1 and C2 through ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < kCols / 16; ++kk) {
+      uint32_t a_ds[4], a_p[4];
+      a_ds[0] = Mma<T>::pack(ys[2 * kk][0], ys[2 * kk][1]);
+      a_ds[1] = Mma<T>::pack(ys[2 * kk][2], ys[2 * kk][3]);
+      a_ds[2] = Mma<T>::pack(ys[2 * kk + 1][0], ys[2 * kk + 1][1]);
+      a_ds[3] = Mma<T>::pack(ys[2 * kk + 1][2], ys[2 * kk + 1][3]);
+      if constexpr (!kDQ) {
+        a_p[0] = Mma<T>::pack(xs[2 * kk][0], xs[2 * kk][1]);
+        a_p[1] = Mma<T>::pack(xs[2 * kk][2], xs[2 * kk][3]);
+        a_p[2] = Mma<T>::pack(xs[2 * kk + 1][0], xs[2 * kk + 1][1]);
+        a_p[3] = Mma<T>::pack(xs[2 * kk + 1][2], xs[2 * kk + 1][3]);
+      }
+#pragma unroll
+      for (int n = 0; n < kAccTiles; n += 2) {
+        const int br = kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
+        const int bc = dchunk + n + (lane >> 4);
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, t1 + swz<HD>(br, bc));
+        Mma<T>::run(acc_b[n], a_ds, b[0], b[1]);
+        Mma<T>::run(acc_b[n + 1], a_ds, b[2], b[3]);
+        if constexpr (!kDQ) {
+          ldmatrix_x4_trans(b, t2 + swz<HD>(br, bc));
+          Mma<T>::run(acc_a[n], a_p, b[0], b[1]);
+          Mma<T>::run(acc_a[n + 1], a_p, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();                    // stage st is free for tile it + 2
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = wrow + gid + 8 * h;
+    if (r >= nr) continue;
+    const size_t base = ((size_t)row * rlen + r0 + r) * HD + dchunk * 8 + 2 * tig;
+#pragma unroll
+    for (int n = 0; n < kAccTiles; ++n) {
+      if constexpr (kDQ) {
+        *reinterpret_cast<uint32_t*>(dq + base + n * 8) =
+            Mma<T>::pack(acc_b[n][2 * h], acc_b[n][2 * h + 1]);
+      } else if (dk_part == nullptr) {   // group 1: row is the KV row
+        *reinterpret_cast<uint32_t*>(dk + base + n * 8) =
+            Mma<T>::pack(acc_b[n][2 * h], acc_b[n][2 * h + 1]);
+        *reinterpret_cast<uint32_t*>(dv + base + n * 8) =
+            Mma<T>::pack(acc_a[n][2 * h], acc_a[n][2 * h + 1]);
+      } else {
+        *reinterpret_cast<float2*>(dk_part + base + n * 8) =
+            make_float2(acc_b[n][2 * h], acc_b[n][2 * h + 1]);
+        *reinterpret_cast<float2*>(dv_part + base + n * 8) =
+            make_float2(acc_a[n][2 * h], acc_a[n][2 * h + 1]);
+      }
+    }
+  }
+}
+
+// ---- f32 on the CUDA cores ------------------------------------------------
+
+// the kept rows' two tiles (64 rows), one buffer of each column tile, dS
+// (and P) as 64 rows of columns + 4 floats, and for dK/dV the columns' lse
+// and D
+template <int HD, bool kDQ>
+constexpr size_t bwd_f32_smem_bytes() {
+  return sizeof(float) * (2 * (size_t)kF32BQ * f32_row_floats<HD>() +
+                          2 * (size_t)f32_keys<HD>() * f32_row_floats<HD>() +
+                          (kDQ ? 1 : 2) * (size_t)kF32BQ * (f32_keys<HD>() + 4) +
+                          (kDQ ? 0 : 2 * (size_t)f32_keys<HD>()));
+}
+// The f32 kernels are compiled for two CTAs an SM where their shared memory
+// lets two share one (hd 32 and 64), else for one with every register. At
+// 128 registers the dK/dV kernel spills 16 (hd 32) and 60 (hd 64) bytes a
+// thread; compiled for one CTA an SM it spills nothing (168 registers) but
+// took 11 % longer at 1 x 2048, hd 64 (1,220 against 1,095 us on an NVIDIA
+// H100 80GB HBM3 at 700 W, tests/profile_torch_flash_bwd.py), so two stay.
+template <int HD, bool kDQ>
+__global__ void __launch_bounds__(kF32Threads, HD <= 64 ? 2 : 1)
+flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
+                     float* __restrict__ dk_part, float* __restrict__ dv_part, int s, int t,
+                     int group, float scale, int causal, int window, float softcap, int vec) {
+  constexpr int kCols = f32_keys<HD>();
+  constexpr int kDS = f32_splits<HD>();
+  constexpr int kCG = kCols / 4;                     // column groups: kCG * kDS = 16
+  constexpr int kRow = f32_row_floats<HD>();
+  constexpr int kPRow = kCols + 4;
+  constexpr int kChunks = HD / 4;
+  constexpr int kOC = (kChunks + kF32Lanes - 1) / kF32Lanes;   // accumulator chunks a lane
+  constexpr int kUnroll = HD > 128 ? 2 : 4, kUnrollAcc = kDQ ? 4 : 2;
+  extern __shared__ __align__(16) float fsm[];
+  float* r1_s = fsm;                      // (64, kRow): K or Q
+  float* r2_s = r1_s + kF32BQ * kRow;     // V or dO
+  float* c1_s = r2_s + kF32BQ * kRow;     // (kCols, kRow): Q or K
+  float* c2_s = c1_s + kCols * kRow;      // dO or V
+  float* ds_s = c2_s + kCols * kRow;      // (64, kPRow)
+  float* p_s = ds_s + kF32BQ * kPRow;     // (64, kPRow), dK/dV only
+  float* lse_s = p_s + kF32BQ * kPRow;    // (kCols), dK/dV only
+  float* dl_s = lse_s + kCols;
+
+  const int row = blockIdx.x;
+  const int kvrow = row / group;
+  const int ty = threadIdx.x >> 4, g16 = threadIdx.x & 15;
+  const int cg = g16 % kCG, ds = g16 / kCG;
+  const int rlen = kDQ ? s : t, clen = kDQ ? t : s;
+  const int r0 = kDQ ? ((int)gridDim.y - 1 - (int)blockIdx.y) * kF32BQ
+                     : (int)blockIdx.y * kF32BQ;
+  const int nr = min(kF32BQ, rlen - r0);
+  const float* r1 = kDQ ? q + ((size_t)row * s + r0) * HD : k + ((size_t)kvrow * t + r0) * HD;
+  const float* r2 = kDQ ? dout + ((size_t)row * s + r0) * HD : v + ((size_t)kvrow * t + r0) * HD;
+  const float* c1 = kDQ ? k + (size_t)kvrow * t * HD : q + (size_t)row * s * HD;
+  const float* c2 = kDQ ? v + (size_t)kvrow * t * HD : dout + (size_t)row * s * HD;
+  stage_f32<HD>(r1_s, r1, kF32BQ, nr, vec);
+  stage_f32<HD>(r2_s, r2, kF32BQ, nr, vec);
+  cp_async_commit();
+  int c_begin;
+  const int ntiles = bwd_range(kDQ, r0, kF32BQ, kCols, s, t, causal, window, &c_begin);
+
+  float lse_r[kF32Rows], dl_r[kF32Rows];   // dQ: the rows' lse and D
+  if constexpr (kDQ) {
+#pragma unroll
+    for (int i = 0; i < kF32Rows; ++i) {
+      const size_t at = (size_t)row * s + min(r0 + ty + 16 * i, s - 1);
+      lse_r[i] = lse[at];
+      dl_r[i] = delta[at];
+    }
+  }
+  float4 acc_a[kDQ ? 1 : kF32Rows][kOC];     // dV
+  float4 acc_b[kF32Rows][kOC];               // dK or dQ
+#pragma unroll
+  for (int i = 0; i < kF32Rows; ++i)
+#pragma unroll
+    for (int c = 0; c < kOC; ++c) {
+      acc_b[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if constexpr (!kDQ) acc_a[i][c] = acc_b[i][c];
+    }
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int c0 = c_begin + it * kCols;
+    __syncthreads();                      // the last tile's columns, P and dS are read
+    stage_f32<HD>(c1_s, c1 + (size_t)c0 * HD, kCols, min(kCols, clen - c0), vec);
+    stage_f32<HD>(c2_s, c2 + (size_t)c0 * HD, kCols, min(kCols, clen - c0), vec);
+    if constexpr (!kDQ) {
+      for (int e = threadIdx.x; e < kCols; e += kF32Threads) {
+        const size_t at = (size_t)row * s + min(c0 + e, s - 1);
+        cp_async4(lse_s + e, lse + at, c0 + e < s);
+        cp_async4(dl_s + e, delta + at, c0 + e < s);
+      }
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+
+    // X = R1 C1^T, Y = R2 C2^T: rows ty + 16 i x columns cg + kCG j, over
+    // the d-chunks ds, ds + kDS, ...
+    float xs[kF32Rows][4], ys[kF32Rows][4];
+#pragma unroll
+    for (int i = 0; i < kF32Rows; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) xs[i][j] = ys[i][j] = 0.f;
+#pragma unroll(kUnroll)
+    for (int u = 0; u < kChunks / kDS; ++u) {
+      const int d = 4 * (ds + kDS * u);
+      float4 cv1[4], cv2[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        cv1[j] = *reinterpret_cast<const float4*>(c1_s + (cg + kCG * j) * kRow + d);
+        cv2[j] = *reinterpret_cast<const float4*>(c2_s + (cg + kCG * j) * kRow + d);
+      }
+#pragma unroll
+      for (int i = 0; i < kF32Rows; ++i) {
+        const float4 a = *reinterpret_cast<const float4*>(r1_s + (ty + 16 * i) * kRow + d);
+        const float4 b = *reinterpret_cast<const float4*>(r2_s + (ty + 16 * i) * kRow + d);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float x = xs[i][j], y = ys[i][j];
+          x = fmaf(a.x, cv1[j].x, x);
+          x = fmaf(a.y, cv1[j].y, x);
+          x = fmaf(a.z, cv1[j].z, x);
+          x = fmaf(a.w, cv1[j].w, x);
+          y = fmaf(b.x, cv2[j].x, y);
+          y = fmaf(b.y, cv2[j].y, y);
+          y = fmaf(b.z, cv2[j].z, y);
+          y = fmaf(b.w, cv2[j].w, y);
+          xs[i][j] = x;
+          ys[i][j] = y;
+        }
+      }
+    }
+#pragma unroll
+    for (int off = kCG; off < kF32Lanes; off <<= 1)   // the d-splits' partial sums
+#pragma unroll
+      for (int i = 0; i < kF32Rows; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          xs[i][j] = __fadd_rn(xs[i][j], __shfl_xor_sync(0xffffffffu, xs[i][j], off));
+          ys[i][j] = __fadd_rn(ys[i][j], __shfl_xor_sync(0xffffffffu, ys[i][j], off));
+        }
+
+    // P and dS; one d-split writes each row's vectors
+    const bool edge = kDQ ? bwd_edge(c0, kCols, r0, kF32BQ, s, t, causal, window)
+                          : bwd_edge(r0, kF32BQ, c0, kCols, s, t, causal, window);
+#pragma unroll
+    for (int i = 0; i < kF32Rows; ++i) {
+      const int rp = r0 + ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int cc = cg + kCG * j, cp = c0 + cc;
+        const float l = kDQ ? lse_r[i] : lse_s[cc];
+        const float d = kDQ ? dl_r[i] : dl_s[cc];
+        const bool vis = !edge || (kDQ ? visible(rp, cp, s, t, causal, window)
+                                       : visible(cp, rp, s, t, causal, window));
+        p_ds(xs[i][j], ys[i][j], l, d, scale, softcap, vis, xs[i][j], ys[i][j]);
+      }
+      if (i % kDS == ds) {
+        *reinterpret_cast<float4*>(ds_s + (ty + 16 * i) * kPRow + 4 * cg) =
+            make_float4(ys[i][0], ys[i][1], ys[i][2], ys[i][3]);
+        if constexpr (!kDQ)
+          *reinterpret_cast<float4*>(p_s + (ty + 16 * i) * kPRow + 4 * cg) =
+              make_float4(xs[i][0], xs[i][1], xs[i][2], xs[i][3]);
+      }
+    }
+    __syncthreads();
+
+    // acc_b += dS C1, acc_a += P C2: rows ty + 16 i x the dim-chunks
+    // g16 + 16 c, columns in the order of the vectors
+#pragma unroll(kUnrollAcc)
+    for (int e = 0; e < kCG; ++e) {
+      float4 dsv[kF32Rows], pv[kDQ ? 1 : kF32Rows];
+#pragma unroll
+      for (int i = 0; i < kF32Rows; ++i) {
+        dsv[i] = *reinterpret_cast<const float4*>(ds_s + (ty + 16 * i) * kPRow + 4 * e);
+        if constexpr (!kDQ)
+          pv[i] = *reinterpret_cast<const float4*>(p_s + (ty + 16 * i) * kPRow + 4 * e);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int cr = (e + kCG * j) * kRow;
+#pragma unroll
+        for (int c = 0; c < kOC; ++c) {
+          const int ch = 4 * min(g16 + kF32Lanes * c, kChunks - 1);
+          const float4 b1 = *reinterpret_cast<const float4*>(c1_s + cr + ch);
+#pragma unroll
+          for (int i = 0; i < kF32Rows; ++i) fma4(acc_b[i][c], f4_at(dsv[i], j), b1);
+          if constexpr (!kDQ) {
+            const float4 b2 = *reinterpret_cast<const float4*>(c2_s + cr + ch);
+#pragma unroll
+            for (int i = 0; i < kF32Rows; ++i) fma4(acc_a[i][c], f4_at(pv[i], j), b2);
           }
         }
       }
     }
   }
-  if (k0 + kj < t) {
-    const size_t base = ((size_t)kvrow * t + k0 + kj) * HD;
+  cp_async_wait<0>();
+
 #pragma unroll
-    for (int c = 0; c < kC; ++c) {
-      if (sub + 8 * c < HD / 4) {
-        store4(dk + base + 4 * (sub + 8 * c), ak[c]);
-        store4(dv + base + 4 * (sub + 8 * c), av[c]);
+  for (int i = 0; i < kF32Rows; ++i) {
+    const int r = ty + 16 * i;
+    if (r >= nr) continue;
+    const size_t base = ((size_t)row * rlen + r0 + r) * HD;
+#pragma unroll
+    for (int c = 0; c < kOC; ++c) {
+      const int ch = g16 + kF32Lanes * c;
+      if (ch >= kChunks) continue;
+      const size_t at = base + 4 * ch;
+      if constexpr (kDQ) {
+        *reinterpret_cast<float4*>(dq + at) = acc_b[i][c];
+      } else {
+        float* ok = dk_part == nullptr ? dk : dk_part;   // group 1: row is the KV row
+        float* ov = dk_part == nullptr ? dv : dv_part;
+        *reinterpret_cast<float4*>(ok + at) = acc_b[i][c];
+        *reinterpret_cast<float4*>(ov + at) = acc_a[i][c];
       }
     }
   }
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kBwdThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq, int s, int t, int group,
-                    float scale, int causal, int window, float softcap) {
-  constexpr int kRow = bwd_row<HD>();
-  constexpr int kC = (HD / 4 + 7) / 8;
-  extern __shared__ __align__(16) float bsm[];
-  float* k_s = bsm;
-  float* v_s = k_s + kBwdK * kRow;
-  float* q_s = v_s + kBwdK * kRow;
-  float* do_s = q_s + kBwdQ * kRow;
-  float* p_s = do_s + kBwdQ * kRow;
-  float* ds_s = p_s + kBwdQ * (kBwdK + 1);
-  float* lse_s = ds_s + kBwdQ * (kBwdK + 1);
-  float* dl_s = lse_s + kBwdQ;
+// ---- launch ---------------------------------------------------------------
 
-  const int row = blockIdx.x, q0 = blockIdx.y * kBwdQ;
-  const int qi = threadIdx.x >> 3, sub = threadIdx.x & 7;
-  const int nq = min(kBwdQ, s - q0);
-  const T* kb = k + (size_t)(row / group) * t * HD;
-  const T* vb = v + (size_t)(row / group) * t * HD;
-  stage_bwd<T, HD>(q_s, q + (size_t)row * s * HD, q0, s, kBwdQ);
-  stage_bwd<T, HD>(do_s, dout + (size_t)row * s * HD, q0, s, kBwdQ);
-  stage_rows(lse_s, dl_s, lse, delta, (size_t)row * s, q0, s);
-  float4 aq[kC];
-#pragma unroll
-  for (int c = 0; c < kC; ++c) aq[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+// The products kernel of dtype T at head dim HD for one role: its function,
+// shared memory, threads and rows a CTA.
+template <typename T, int HD, bool kDQ>
+struct BwdKernel {
+  static auto fn() { return flash_bwd_mma_kernel<T, HD, kDQ>; }
+  static constexpr size_t bytes = bwd_mma_smem_bytes<HD, kDQ>();
+  static constexpr int threads = kBwdThreads, rows = bwd_rows<HD, kDQ>();
+};
+template <int HD, bool kDQ>
+struct BwdKernel<float, HD, kDQ> {
+  static auto fn() { return flash_bwd_f32_kernel<HD, kDQ>; }
+  static constexpr size_t bytes = bwd_f32_smem_bytes<HD, kDQ>();
+  static constexpr int threads = kF32Threads, rows = kF32BQ;
+};
 
-  // the forward's key range for these query positions
-  const int k_end = causal ? min(t, q0 + nq) : t;
-  const int k_begin = window > 0 ? (max(0, q0 - window + 1) / kBwdK) * kBwdK : 0;
-  for (int k0 = k_begin; k0 < k_end; k0 += kBwdK) {
-    __syncthreads();                    // the last tile's K and dS are read
-    stage_bwd<T, HD>(k_s, kb, k0, t, kBwdK);
-    stage_bwd<T, HD>(v_s, vb, k0, t, kBwdK);
-    __syncthreads();
-    bwd_tile<HD>(q_s, do_s, k_s, v_s, lse_s, dl_s, p_s, ds_s, q0, k0, s, t, scale, causal,
-                 window, softcap);
-    __syncthreads();
-    for (int j = 0; j < kBwdK; ++j) {
-      const float ds = ds_s[qi * (kBwdK + 1) + j];
-      const float4* kr = reinterpret_cast<const float4*>(k_s + j * kRow);
-#pragma unroll
-      for (int c = 0; c < kC; ++c)
-        if (sub + 8 * c < HD / 4) fma4(aq[c], ds, kr[sub + 8 * c]);
-    }
-  }
-  if (qi < nq) {
-    const size_t base = ((size_t)row * s + q0 + qi) * HD;
-#pragma unroll
-    for (int c = 0; c < kC; ++c)
-      if (sub + 8 * c < HD / 4) store4(dq + base + 4 * (sub + 8 * c), aq[c]);
-  }
+// the opt-in above 48 KB and the carveout for shared memory, once per
+// kernel and device
+template <typename K>
+cudaError_t bwd_attributes(int device) {
+  static bool done[kMaxDevices] = {};
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (done[device]) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(K::fn(), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(K::bytes));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(K::fn(), cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) done[device] = true;
+  return err;
 }
 
 template <typename T, int HD>
 int launch_bwd(const void* q, const void* k, const void* v, const void* out, const void* dout,
-               const void* lse, void* delta, void* dq, void* dk, void* dv, int bh, int bkv, int s,
-               int t, int group, float scale, int causal, int window, float softcap,
-               cudaStream_t stream) {
-  constexpr size_t bytes = bwd_smem_bytes<HD>();
-  if ((s + kBwdQ - 1) / kBwdQ > 65535 || (t + kBwdK - 1) / kBwdK > 65535)
+               const void* lse, void* delta, void* dq, void* dk, void* dv, void* dk_part,
+               void* dv_part, int bh, int bkv, int s, int t, int group, float scale, int causal,
+               int window, float softcap, int device, cudaStream_t stream) {
+  using KV = BwdKernel<T, HD, false>;
+  using DQ = BwdKernel<T, HD, true>;
+  const int kv_tiles = (t + KV::rows - 1) / KV::rows, q_tiles = (s + DQ::rows - 1) / DQ::rows;
+  if (kv_tiles > 65535 || q_tiles > 65535 || (group > 1 && (dk_part == nullptr ||
+                                                            dv_part == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, HD>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(bytes));
+  cudaError_t err = bwd_attributes<KV>(device);
+  if (err == cudaSuccess) err = bwd_attributes<DQ>(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
@@ -1101,30 +1508,62 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out, con
   const T* gp = static_cast<const T*>(dout);
   const float* lp = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
+  float* pk = group > 1 ? static_cast<float*>(dk_part) : nullptr;
+  float* pv = group > 1 ? static_cast<float*>(dv_part) : nullptr;
   const long long rows = (long long)bh * s;
-  const long long warps = kBwdThreads / 32;
-  flash_bwd_delta_kernel<T, HD><<<(unsigned)((rows + warps - 1) / warps), kBwdThreads, 0,
+  const long long warps = kBwdDeltaThreads / 32;
+  flash_bwd_delta_kernel<T, HD><<<(unsigned)((rows + warps - 1) / warps), kBwdDeltaThreads, 0,
                                   stream>>>(static_cast<const T*>(out), gp, dl, rows);
-  flash_bwd_dkdv_kernel<T, HD><<<dim3(bkv, (t + kBwdK - 1) / kBwdK), kBwdThreads, bytes,
-                                 stream>>>(qp, kp, vp, gp, lp, dl, static_cast<T*>(dk),
-                                           static_cast<T*>(dv), s, t, group, scale, causal,
-                                           window, softcap);
-  flash_bwd_dq_kernel<T, HD><<<dim3(bh, (s + kBwdQ - 1) / kBwdQ), kBwdThreads, bytes, stream>>>(
-      qp, kp, vp, gp, lp, dl, static_cast<T*>(dq), s, t, group, scale, causal, window, softcap);
+  if constexpr (std::is_same<T, float>::value) {
+    const int vec = ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                      reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout)) &
+                     15) == 0;
+    flash_bwd_f32_kernel<HD, false><<<dim3(bh, kv_tiles), KV::threads, KV::bytes, stream>>>(
+        qp, kp, vp, gp, lp, dl, nullptr, static_cast<float*>(dk), static_cast<float*>(dv), pk,
+        pv, s, t, group, scale, causal, window, softcap, vec);
+    flash_bwd_f32_kernel<HD, true><<<dim3(bh, q_tiles), DQ::threads, DQ::bytes, stream>>>(
+        qp, kp, vp, gp, lp, dl, static_cast<float*>(dq), nullptr, nullptr, nullptr, nullptr, s,
+        t, group, scale, causal, window, softcap, vec);
+  } else {
+    flash_bwd_mma_kernel<T, HD, false><<<dim3(bh, kv_tiles), KV::threads, KV::bytes, stream>>>(
+        qp, kp, vp, gp, lp, dl, nullptr, static_cast<T*>(dk), static_cast<T*>(dv), pk, pv, s, t,
+        group, scale, causal, window, softcap);
+    flash_bwd_mma_kernel<T, HD, true><<<dim3(bh, q_tiles), DQ::threads, DQ::bytes, stream>>>(
+        qp, kp, vp, gp, lp, dl, static_cast<T*>(dq), nullptr, nullptr, nullptr, nullptr, s, t,
+        group, scale, causal, window, softcap);
+  }
+  if (group > 1) {
+    const long long n = (long long)bkv * t * HD;
+    const long long want = (n / 4 + 255) / 256, blocks = want < 132 * 16 ? want : 132 * 16;
+    flash_bwd_group_sum_kernel<T><<<(unsigned)blocks, 256, 0, stream>>>(
+        pk, pv, static_cast<T*>(dk), static_cast<T*>(dv), n, (long long)t * HD, group);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_bwd_hd(const void* q, const void* k, const void* v, const void* out, const void* dout,
-                  const void* lse, void* delta, void* dq, void* dk, void* dv, int bh, int bkv,
-                  int s, int t, int hd, int group, float scale, int causal, int window,
-                  float softcap, cudaStream_t stream) {
-#define FLASH_HD(H)                                                                           \
-  if (hd == H) return launch_bwd<T, H>(q, k, v, out, dout, lse, delta, dq, dk, dv, bh, bkv, s, \
-                                       t, group, scale, causal, window, softcap, stream);
+                  const void* lse, void* delta, void* dq, void* dk, void* dv, void* dk_part,
+                  void* dv_part, int bh, int bkv, int s, int t, int hd, int group, float scale,
+                  int causal, int window, float softcap, int device, cudaStream_t stream) {
+#define FLASH_HD(H)                                                                             \
+  if (hd == H) return launch_bwd<T, H>(q, k, v, out, dout, lse, delta, dq, dk, dv, dk_part,      \
+                                       dv_part, bh, bkv, s, t, group, scale, causal, window,     \
+                                       softcap, device, stream);
   FLASH_HEAD_DIMS(FLASH_HD)
 #undef FLASH_HD
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// shared memory and CTAs an SM of one backward products kernel
+template <typename T, int HD, bool kDQ>
+int bwd_layout(int device, int* smem_bytes, int* ctas_per_sm) {
+  using K = BwdKernel<T, HD, kDQ>;
+  const cudaError_t err = bwd_attributes<K>(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *smem_bytes = static_cast<int>(K::bytes);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, K::fn(), K::threads, K::bytes));
 }
 
 // dtype codes shared with kernels/flash_attn.py
@@ -1180,27 +1619,58 @@ extern "C" int flash_attn_f32_layout(int hd, int device, int* smem_bytes, int* c
 
 // The backward of flash_attn: dq (b*H, s, hd), dk and dv (b*KV, t, hd) in
 // the inputs' dtype from q, k, v, the forward's output and its lse (f32,
-// b*H x s), and dout; delta is an f32 workspace of b*H x s. Three launches
-// on the stream (D, then dK/dV, then dQ); returns cudaGetLastError() after
-// them (0 on success). window <= 0 means no window, softcap <= 0 none.
+// b*H x s), and dout; delta is an f32 workspace of b*H x s, and for group >
+// 1 dk_part and dv_part f32 workspaces of b*H x t x hd each (null for group
+// 1). Three launches on the stream (D, dK/dV, dQ) and for group > 1 a
+// fourth (the group sum); returns cudaGetLastError() after them (0 on
+// success). window <= 0 means no window, softcap <= 0 none. f32 runs the
+// CUDA-core kernels (16-byte copies where q, k, v and dout are 16-byte
+// aligned, else 4-byte ones), bf16 and fp16 the tensor-core kernels (16-byte
+// aligned q, k, v and dout).
 extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v, const void* out,
                               const void* dout, const void* lse, void* delta, void* dq, void* dk,
-                              void* dv, int bh, int bkv, int s, int t, int hd, int group,
-                              float scale, int causal, int window, float softcap, int dtype,
-                              int device, void* stream) {
+                              void* dv, void* dk_part, void* dv_part, int bh, int bkv, int s,
+                              int t, int hd, int group, float scale, int causal, int window,
+                              float softcap, int dtype, int device, void* stream) {
   if (bh < 1 || bh > 65535 || bkv < 1 || s < 1 || t < 1 || group < 1 || bkv * group != bh)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
-    return launch_bwd_hd<float>(q, k, v, out, dout, lse, delta, dq, dk, dv, bh, bkv, s, t, hd,
-                                group, scale, causal, window, softcap, st);
+    return launch_bwd_hd<float>(q, k, v, out, dout, lse, delta, dq, dk, dv, dk_part, dv_part, bh,
+                                bkv, s, t, hd, group, scale, causal, window, softcap, device, st);
   if (dtype == kBF16)
-    return launch_bwd_hd<__nv_bfloat16>(q, k, v, out, dout, lse, delta, dq, dk, dv, bh, bkv, s,
-                                        t, hd, group, scale, causal, window, softcap, st);
+    return launch_bwd_hd<__nv_bfloat16>(q, k, v, out, dout, lse, delta, dq, dk, dv, dk_part,
+                                        dv_part, bh, bkv, s, t, hd, group, scale, causal, window,
+                                        softcap, device, st);
   if (dtype == kF16)
-    return launch_bwd_hd<__half>(q, k, v, out, dout, lse, delta, dq, dk, dv, bh, bkv, s, t, hd,
-                                 group, scale, causal, window, softcap, st);
+    return launch_bwd_hd<__half>(q, k, v, out, dout, lse, delta, dq, dk, dv, dk_part, dv_part,
+                                 bh, bkv, s, t, hd, group, scale, causal, window, softcap,
+                                 device, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// One backward products kernel's dynamic shared memory at head dim hd and
+// how many of its CTAs an SM holds: dtype 0 (f32) the CUDA-core kernels,
+// 1 / 2 (bf16 / fp16) the tensor-core ones; dq 0 the dK/dV kernel, 1 the dQ
+// kernel (the card tests and chip_smoke.py check both against
+// kernels/flash_attn.py). Returns 0 on success.
+extern "C" int flash_attn_bwd_layout(int hd, int dtype, int dq, int device, int* smem_bytes,
+                                     int* ctas_per_sm) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+#define FLASH_LAYOUT(T, H)                                                         \
+  return dq ? bwd_layout<T, H, true>(device, smem_bytes, ctas_per_sm)              \
+            : bwd_layout<T, H, false>(device, smem_bytes, ctas_per_sm);
+#define FLASH_HD(H)                                                                \
+  if (hd == H) {                                                                   \
+    if (dtype == kF32) FLASH_LAYOUT(float, H)                                      \
+    if (dtype == kBF16) FLASH_LAYOUT(__nv_bfloat16, H)                             \
+    if (dtype == kF16) FLASH_LAYOUT(__half, H)                                     \
+  }
+  FLASH_HEAD_DIMS(FLASH_HD)
+#undef FLASH_HD
+#undef FLASH_LAYOUT
   return static_cast<int>(cudaErrorInvalidValue);
 }

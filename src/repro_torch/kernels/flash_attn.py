@@ -12,9 +12,9 @@ Counterpart of ``repro/kernels/flash_attn.py``. The kernel is in
   flash_attention_bwd_cuda  dQ, dK, dV of that function (no Pallas
                            counterpart: the reference differentiates
                            ``_mha_blockwise`` with XLA): FlashAttention-2's
-                           recomputation from the log-sum-exp, f32 on the
-                           CUDA cores for every dtype, deterministic (no
-                           atomics)
+                           recomputation from the log-sum-exp, bf16 and
+                           fp16 on the tensor cores, f32 register-tiled on
+                           the CUDA cores, deterministic (no atomics)
 
 The f32 kernel is register-tiled: a CTA of 8 warps owns 64 query rows,
 a lane holds a 4 x 4 micro-tile of S (4 rows x 4 keys, over a d-split of
@@ -25,6 +25,13 @@ and P passes once through shared memory. :func:`f32_smem_bytes` mirrors
 its shared memory (two CTAs fit an SM at every head dim);
 :func:`f32_layout` asks the card for it and for the CTAs an SM holds.
 
+The backward's two products kernels (dK/dV: a CTA per query head and key
+tile; dQ: a CTA per query head and query tile) keep :func:`bwd_rows` rows
+and stream tiles of ``BWD_COLS`` columns (the f32 kernels: 64 rows and
+:func:`f32_keys` columns); :func:`bwd_smem_bytes` mirrors their shared
+memory, :func:`bwd_workspace_bytes` the f32 partials of dK and dV that GQA
+sums in head order, and :func:`bwd_layout` asks the card.
+
 The wrapper takes CUDA tensors only: it checks device, dtype, shape and
 contiguity (the kernel reads q (b*H, s, hd) and k/v (b*KV, t, hd) rows as
 dense arrays; a permuted view of the model's (b, s, H, hd) projection would
@@ -33,9 +40,9 @@ anything else; allocates the output with ``torch.empty``; launches on the
 current stream; raises if the launch reports a CUDA error; and adds one to
 ``LAUNCHES`` under the kernel the dtype chose: ``flash_attn`` (bf16 / fp16,
 tensor cores) or ``flash_attn_f32`` (f32, CUDA cores), and ``flash_attn_bwd``
-for a backward (its three launches: D = rowsum(dO * O), dK/dV, dQ). The
-plain versions are ``kernels/ref.flash_attention_ref`` and
-``flash_attention_bwd_ref``.
+for a backward (its launches: D = rowsum(dO * O), dK/dV, dQ, and for GQA
+the group sum). The plain versions are ``kernels/ref.flash_attention_ref``
+and ``flash_attention_bwd_ref``.
 """
 
 from __future__ import annotations
@@ -104,6 +111,61 @@ def f32_layout(hd: int, device: int = 0) -> tuple[int, int]:
     return smem.value, ctas.value
 
 
+# csrc/flash_attn.cu, the backward: threads of a tensor-core CTA (4 warps,
+# 16 rows a warp) and columns a streamed tile (kBwdCols)
+BWD_THREADS, BWD_COLS = 128, 32
+
+
+def bwd_dsplit(hd: int, dq: bool) -> int:
+    """Warps that share 16 rows and split the head dim of the tensor-core
+    dK/dV kernel's accumulators (``bwd_dsplit``): 2 at hd 256, else 1."""
+    return 2 if not dq and hd > 128 else 1
+
+
+def bwd_rows(hd: int, dq: bool) -> int:
+    """Rows (keys for dK/dV, query positions for dQ) a tensor-core CTA keeps
+    (``bwd_rows``): 16 a warp over the d-splits."""
+    return 16 * (BWD_THREADS // 32) // bwd_dsplit(hd, dq)
+
+
+def row_elems(hd: int) -> int:
+    """Elements a staged bf16 / fp16 row takes (``row_elems``): hd, or hd 112
+    padded to 128 for the swizzle."""
+    return hd if hd < 64 or hd % 64 == 0 else -(-hd // 64) * 64
+
+
+def bwd_smem_bytes(hd: int, dq: bool, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Dynamic shared memory of a backward products kernel
+    (``bwd_mma_smem_bytes`` / ``bwd_f32_smem_bytes``): the kept rows' two
+    tiles, the streamed column tiles (two ring stages of two for bf16 /
+    fp16, one of each for f32), P and dS (f32), and for dK/dV the columns'
+    lse and D."""
+    if dtype == torch.float32:
+        row, cols = f32_row_floats(hd), f32_keys(hd)
+        return 4 * (2 * F32_BQ * row + 2 * cols * row + (1 if dq else 2) * F32_BQ * (cols + 4)
+                    + (0 if dq else 2 * cols))
+    rows, cols, row = bwd_rows(hd, dq), BWD_COLS, row_elems(hd)
+    return 2 * (2 * rows * row + 2 * 2 * cols * row) + (0 if dq else 4 * 2 * 2 * cols)
+
+
+def bwd_workspace_bytes(bh: int, t: int, hd: int, group: int) -> int:
+    """The f32 partials of dK and dV that the wrapper allocates for GQA
+    (group > 1): one (b*H, t, hd) each; none for group 1."""
+    return 0 if group == 1 else 2 * bh * t * hd * 4
+
+
+def bwd_layout(hd: int, dtype: torch.dtype, dq: bool, device: int = 0) -> tuple[int, int]:
+    """(shared-memory bytes, CTAs an SM holds) of the compiled backward
+    products kernel (``flash_attn_bwd_layout``) for ``dtype`` at head dim
+    ``hd``: the dQ kernel if ``dq``, else dK/dV."""
+    smem, ctas = ctypes.c_int(), ctypes.c_int()
+    rc = _lib().flash_attn_bwd_layout(int(hd), _DTYPES[dtype], int(bool(dq)), int(device),
+                                      ctypes.byref(smem), ctypes.byref(ctas))
+    if rc != 0:
+        raise RuntimeError(f"flash_attn_bwd_layout failed with CUDA error {rc}")
+    return smem.value, ctas.value
+
+
 # launches by kernel: the tensor-core kernel (bf16 / fp16), the CUDA-core
 # kernel (f32) and the backward (one a call, every dtype); a run zeroes
 # these, drives the model, and reads them
@@ -123,10 +185,12 @@ def _lib() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.flash_attn.argtypes = [p] * 5 + [i] * 6 + [f, i, i, f, i, i, p]
         lib.flash_attn.restype = i
-        lib.flash_attn_bwd.argtypes = [p] * 10 + [i] * 6 + [f, i, i, f, i, i, p]
+        lib.flash_attn_bwd.argtypes = [p] * 12 + [i] * 6 + [f, i, i, f, i, i, p]
         lib.flash_attn_bwd.restype = i
         lib.flash_attn_f32_layout.argtypes = [i, i, p, p]
         lib.flash_attn_f32_layout.restype = i
+        lib.flash_attn_bwd_layout.argtypes = [i, i, i, i, p, p]
+        lib.flash_attn_bwd_layout.restype = i
         _LIB.append(lib)
     return _LIB[0]
 
@@ -199,9 +263,10 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, group: int, scale: floa
     """(dq, dk, dv) in the inputs' dtype: the gradient of
     :func:`flash_attention_cuda`'s output ``out`` times ``dout``, from its
     ``lse`` (see ``kernels/ref.flash_attention_bwd_ref`` for the math). dk
-    and dv sum over each KV row's group of query rows. Refuses a window with
-    more query positions than keys (rows that see no key, whose forward
-    weights are not a softmax of visible scores)."""
+    and dv sum over each KV row's group of query rows (for group > 1 through
+    f32 partials of :func:`bwd_workspace_bytes`, added in head order).
+    Refuses a window with more query positions than keys (rows that see no
+    key, whose forward weights are not a softmax of visible scores)."""
     bh, bkv, s, t, hd = _check(q, k, v, group=group, window=window)
     for name, x in (("out", out), ("dout", dout)):
         if (not isinstance(x, torch.Tensor) or x.device != q.device or x.dtype != q.dtype
@@ -215,12 +280,18 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, group: int, scale: floa
                          f"{q.device}")
     if window is not None and s > t:
         raise ValueError(f"a window with s ({s}) > t ({t}) leaves rows with no visible key")
+    if q.dtype != torch.float32 and dout.data_ptr() % 16:
+        dout = dout.clone()         # the tensor-core kernels copy 16-byte chunks
     delta = torch.empty((bh, s), dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    part = (torch.empty((2, bh, t, hd), dtype=torch.float32, device=q.device)
+            if group > 1 else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _lib().flash_attn_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        None if part is None else part[0].data_ptr(),
+        None if part is None else part[1].data_ptr(),
         bh, bkv, s, t, hd, group, float(scale), int(bool(causal)), int(window or 0),
         float(softcap or 0.0), _DTYPES[q.dtype], q.device.index, stream)
     if rc != 0:

@@ -634,8 +634,10 @@ def test_blockwise_forward_on_cuda_launches_kernel_per_layer(dev):
     with flags.overrides(blockwise_attention=True):
         flash_kern.reset_launches()
         got = model.forward(params, {"tokens": toks.to(dev)})
-        # the reduced config is f32: the CUDA-core kernel, once per layer
-        assert flash_kern.LAUNCHES == {"flash_attn": 0, "flash_attn_f32": cfg.num_layers}
+        # the reduced config is f32: the CUDA-core kernel, once per layer;
+        # no backward without grad
+        assert flash_kern.LAUNCHES == {"flash_attn": 0, "flash_attn_f32": cfg.num_layers,
+                                       "flash_attn_bwd": 0}
         with ops.impl_scope("plain"):
             want = model.forward(params, {"tokens": toks.to(dev)})
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()

@@ -42,6 +42,11 @@ CASES = [
     (16, 16, 96, 96, 64, False, None, None),      # seamless encoder: non-causal
     (8, 2, 40, 70, 64, False, None, 30.0),        # non-causal, t > s, soft cap
     (8, 2, 33, 33, 32, True, 5, None),            # a window narrower than a tile
+    (16, 4, 150, 150, 64, True, None, None),      # s, t no multiple of 64 (ragged tiles)
+    (4, 4, 130, 130, 128, True, None, None),      # group 1: no group sum, hd 128
+    (16, 2, 190, 190, 64, True, None, None),      # group 8 over several key tiles
+    (8, 4, 100, 100, 256, True, 20, 50.0),        # hd 256, a window narrower than a key tile
+    (8, 2, 50, 130, 112, False, None, None),      # hd 112, t > s, non-causal
 ]
 
 
@@ -83,6 +88,36 @@ def test_flash_backward_kernel_within_tolerance_of_plain(dev, dtype, bh, bkv, s,
     again = flash_kern.flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
     for g, a in zip(got, again):            # no atomics: the same bits every call
         assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("hd", flash_kern.HEAD_DIMS)
+def test_flash_backward_layout_equals_the_mirror(dev, dtype, hd):
+    """Both backward products kernels (dK/dV, dQ) of the compiled library:
+    their shared memory is kernels/flash_attn.bwd_smem_bytes, and at least
+    one CTA fits an SM (two for the f32 kernels at hd 32 and 64)."""
+    for dq in (False, True):
+        smem, ctas = flash_kern.bwd_layout(hd, dtype, dq)
+        assert smem == flash_kern.bwd_smem_bytes(hd, dq, dtype), (dq, smem)
+        assert ctas >= (2 if dtype == torch.float32 and hd <= 64 else 1), (dq, ctas)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_flash_backward_takes_a_dout_off_16_bytes(dev, dtype):
+    """A contiguous dout 8 bytes off a 16-byte boundary (an autograd
+    gradient can be one) gives the same bits as an aligned copy: the
+    wrapper copies it for the tensor-core kernels' 16-byte loads."""
+    q, k, v, do = _inputs(dev, 8, 2, 70, 70, 64, dtype)
+    kw = dict(group=4, scale=0.125)
+    out, lse = flash_kern.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    per = 8 // do.element_size()
+    shifted = torch.empty(do.numel() + per, dtype=dtype, device=dev)[per:].view(do.shape)
+    shifted.copy_(do)
+    assert shifted.data_ptr() % 16 == 8
+    want = flash_kern.flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
+    got = flash_kern.flash_attention_bwd_cuda(q, k, v, out, lse, shifted, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_autograd_function_launches_the_backward_kernel(dev):
