@@ -228,7 +228,8 @@ printing no result, when CUDA is missing. Phases, each fatal on failure:
              to TinyLlama's 2-layer rule.
 
 9. recurrent: rwkv6-7b and zamba2-7b (Mamba2 SSD + a shared attention
-             block) at full width and every layer (RECURRENT_ARCHS), bf16,
+             block) at full width, rwkv6 at every layer and zamba2 at 27 of
+             81 (RECURRENT_LAYERS; the cut printed with its reason), bf16,
              int8 weights from the port's init. (a) the int8 GQMM at b in
              {1, 4, 256} and the streamed int8 GQMV at every projection
              shape of both (zamba2's win 14576 x 3584, wout, the shared
@@ -238,7 +239,7 @@ printing no result, when CUDA is missing. Phases, each fatal on failure:
              256, checked; B4 bf16 at the shape zamba2's blockwise prefill
              gives it (4 x 64, 32/32 heads, hd 112), SDPA beside it. (b)
              generate as phase 8's (b 4, prompt 64, 32 tokens; replayed ==
-             eager in tokens and launches; 257 and 215 GQMMs a decode step;
+             eager in tokens and launches; 257 and 71 GQMMs a decode step;
              the bytes bound with the recurrent state read and written; the
              first-step logits kernel vs plain within LOGIT_TOL, or, as at
              full depth these random models carry one f32 ulp at layer 0 to
@@ -250,9 +251,9 @@ printing no result, when CUDA is missing. Phases, each fatal on failure:
              16, 24 or 32 tokens, budgets 8-32, 4 slots, chunk 4) in
              continuous mode (the RecurrentAdapter) and bucketed mode,
              replayed == eager. (d) zamba2: a prefill under
-             blockwise_attention runs the flash kernel 13 times (once per
+             blockwise_attention runs the flash kernel 4 times (once per
              shared-block application), logits against plain by (b)'s rule
-             (its checked run holds the 13 flash calls too); generate under
+             (its checked run holds the 4 flash calls too); generate under
              deferred decode, the kvt layout and int8_kv_cache replayed ==
              eager, the shared cache kvt and float. (e) zamba2's 1 x 512
              tokens with the chunked SSD (chunk 128) against the sequential
@@ -320,7 +321,19 @@ printing no result, when CUDA is missing. Phases, each fatal on failure:
              checkpoint at 22): 8 steps with checkpoints at 4 and 8, the
              latter removed, a resume from 4: the restored params and AdamW
              state bit-equal to those after step 4, the resumed losses equal
-             to the straight run's. Its time is printed.
+             to the straight run's. (e) rwkv6-7b and (f) zamba2-7b at full
+             width, bf16, depth cut to what the card holds (10 of 32 and 19
+             of 81 layers: 3 groups of 6 and a tail of 1; the cut and the
+             memory reckoning printed): 3 steps of run_loop with (b)'s
+             settings, checkpoints not written (tens of GB; (d) holds
+             them), every loss finite and the first batch's falling, ms a
+             step (host clock and CUDA events), tok/s, peak memory, grad
+             norms, the bound; (e) also one f32 step at 2 layers, 1 x 16,
+             on the card against the CPU (every leaf within 1e-3 of
+             max|cpu|); (f) also (c)'s step under blockwise_attention and
+             chunked_ssd at 1 x 2048: one B4 forward and backward an
+             application of the shared block (3), each held, every leaf
+             within 5e-2 of the plain path's. Its time is printed.
 
 A [graphs] line sums up eager against replayed: int8 decode ms/step wall
 and on the card with the busy share, the 4 x 64 prefill, the ragged tok/s,
@@ -357,6 +370,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.bridge import init_params_numpy, params_from_numpy  # noqa: E402
+from repro_torch.checkpoint import ckpt  # noqa: E402
 from repro_torch.core.policy import resolve_format_map  # noqa: E402
 from repro_torch.core.quant import (  # noqa: E402
     FP8_MAX,
@@ -618,9 +632,15 @@ FAMILY_PAGED = (("internlm2", 8, 2, 128, 2048, None, None),
                 ("gemma2 w4096 cap50", 4, 2, 256, 4608, 4096, 50.0),
                 ("dbrx", 8, 6, 128, 2048, None, None))
 FAMILY_PAGED_B = 8
-# phase 9: the recurrent families at full width and every layer, bf16 and
+# phase 9: the recurrent families at full width, bf16 and
 # int8 weights from the port's init
 RECURRENT_ARCHS = ("rwkv6-7b", "zamba2-7b")
+# the depth each runs (None: every layer), cut for the script's time:
+# phase 11 (e) and (f) (training of the recurrent families) add ~57 s, and
+# at every layer zamba2-7b took ~84 s of phase 9 on an H100 80GB HBM3 at 700 W
+RECURRENT_LAYERS = {"rwkv6-7b": None, "zamba2-7b": 27}
+RECURRENT_CUT_REASON = ("the script's time: phase 11 (e) and (f) add ~57 s; 27 layers keep the "
+                        "full config's tail of 3 and apply the shared block 4 times")
 RECURRENT_BUDGET_S = 150
 RECURRENT_MODEL_TYPES = ("rwkv6", "zamba2")
 # the deep families whose kernel logits past LOGIT_TOL are held per kernel
@@ -631,9 +651,6 @@ HELD_MODEL_TYPES = RECURRENT_MODEL_TYPES + ("encdec",)
 # logits to ULP_FACTOR x the change one f32 ulp at layer 0 makes in the
 # plain run (hold_per_kernel)
 ULP_FACTOR = 2.0
-# GQMM launches a decode step: rwkv6 8 a layer + the classifier; zamba2 2
-# a Mamba2 layer, 4 a shared-block application (13) + the classifier
-RECURRENT_GQMM_PER_STEP = {"rwkv6-7b": 257, "zamba2-7b": 215}
 # (a) the int8 GQMM at these b and the int8 GQMV, timed, at every projection
 # shape of both configs; int4, int3 and fp8 GQMM at RECURRENT_CHECKED_B,
 # checked; B4 bf16 at the shape zamba2's blockwise prefill gives it (the
@@ -719,6 +736,17 @@ TRAIN_RESUME_CUT = ("checkpoint I/O: a 22-layer checkpoint is 11 GB (bf16 params
 # on the same inputs (FLASH_TOL / TRAIN_GRAD_TOL)
 TRAIN_BLOCKWISE = {"b": 1, "s": 2048}
 TRAIN_LEAF_TOL = 5e-2
+# (e), (f): the recurrent families trained at full width through run_loop
+# with (b)'s settings, bf16, the depth cut to what the card holds (printed
+# with the reckoning of train_memory); (e) also one f32 step of rwkv6 at
+# TRAIN_RECURRENT_CPU's depth and tokens on the card against the same step
+# on the CPU (allow_tf32 off), every leaf within its tol of max|cpu|; (f)
+# also zamba2's blockwise step (train_blockwise) under chunked_ssd, every
+# leaf within TRAIN_LEAF_TOL; the two within TRAIN_RECURRENT_BUDGET_S
+TRAIN_RECURRENT = {"rwkv6-7b": 10, "zamba2-7b": 19}
+TRAIN_RECURRENT_STEPS = 3
+TRAIN_RECURRENT_CPU = {"arch": "rwkv6-7b", "layers": 2, "b": 1, "s": 16, "tol": 1e-3}
+TRAIN_RECURRENT_BUDGET_S = 90
 SOURCES = {**{f"{k}_{f}": "src/repro_torch/csrc/gqmm.cu" for f in WEIGHT_FORMATS
               for k in ("gqmv", "gqmm")},
            "paged_attn": "src/repro_torch/csrc/paged_attn.cu",
@@ -3932,7 +3960,7 @@ def recurrent_refusals(dev, engine, batch) -> list[str]:
 
 def recurrent_flags(dev, engine, batch) -> dict:
     """(d) zamba2 under the flags: a prefill under blockwise_attention runs
-    the flash kernel once per shared-block application (13, hd 112), its
+    the flash kernel once per shared-block application (4 at 27 layers, hd 112), its
     logits against the plain versions' (phase 9's rule: LOGIT_TOL, else
     ``hold_per_kernel``, which holds the flash calls too);
     generate under deferred decode, the kvt layout and int8_kv_cache
@@ -4020,9 +4048,23 @@ def recurrent_chunked(dev, engine, ulp: float | None) -> dict:
             "seconds": times}
 
 
+def recurrent_config(arch: str):
+    cfg, layers = load_config(arch), RECURRENT_LAYERS[arch]
+    return cfg if layers is None else dataclasses.replace(cfg, num_layers=layers)
+
+
+def recurrent_gqmm_per_step(cfg) -> int:
+    """GQMM launches a decode step: rwkv6 8 a layer + the classifier (257 at
+    32 layers); zamba2 2 a Mamba2 layer, 4 a shared-block application + the
+    classifier (215 at 81 layers, 13 applications)."""
+    if cfg.model_type == "rwkv6":
+        return 8 * cfg.num_layers + 1
+    return 2 * cfg.num_layers + 4 * (cfg.num_layers // cfg.shared_attn_every) + 1
+
+
 def phase_recurrent(dev) -> tuple[dict, list[dict], list[dict]]:
     """Phase 9 (module docstring): (a) the kernels at the new shapes, then
-    each recurrent family at every layer: (b) generate, (c) the
+    each recurrent family at RECURRENT_LAYERS: (b) generate, (c) the
     ragged serve, (f) the refusals, zamba2's (d) flags and (e) chunked SSD;
     (g) the goldens."""
     t_start = time.perf_counter()
@@ -4036,7 +4078,7 @@ def phase_recurrent(dev) -> tuple[dict, list[dict], list[dict]]:
     out = {"kernels_s": time.perf_counter() - t_start}
     for arch in RECURRENT_ARCHS:
         t0 = time.perf_counter()
-        cfg = load_config(arch)
+        cfg, full = recurrent_config(arch), load_config(arch)
         model = build(cfg)
         params = model.init(seed=SERVE["seed"], device=dev)
         engine = InferenceEngine(model, params, quantize=True, device=dev,
@@ -4045,14 +4087,15 @@ def phase_recurrent(dev) -> tuple[dict, list[dict], list[dict]]:
         del params
         torch.cuda.synchronize()
         log(f"[recurrent {arch}] full width d {cfg.d_model}, d_ff {cfg.d_ff}, vocab "
-            f"{cfg.vocab_size}, {cfg.num_layers} layers, {cfg.param_dtype}, int8 weights, "
+            f"{cfg.vocab_size}, {cfg.num_layers} of {full.num_layers} layers"
+            + (f" (depth cut: {RECURRENT_CUT_REASON})" if cfg.num_layers < full.num_layers
+               else "") + f", {cfg.param_dtype}, int8 weights, "
             f"state {bounds.recurrent_state_bytes(cfg, SERVE['batch']) / 2 / 1e6:.1f} MB at b "
             f"{SERVE['batch']}")
         res = family_generate(dev, engine, arch, prefix="recurrent")
-        got = res["per_pass"].get("gqmm_int8")
-        if got != RECURRENT_GQMM_PER_STEP[arch]:
-            raise AssertionError(f"{arch}: {got} GQMMs a decode step, expected "
-                                 f"{RECURRENT_GQMM_PER_STEP[arch]}")
+        got, want = res["per_pass"].get("gqmm_int8"), recurrent_gqmm_per_step(cfg)
+        if got != want:
+            raise AssertionError(f"{arch}: {got} GQMMs a decode step, expected {want}")
         res["ragged"] = recurrent_ragged(dev, engine, arch)
         res["refusals"] = recurrent_refusals(dev, engine, res["batch"])
         if arch == "zamba2-7b":
@@ -4428,15 +4471,16 @@ def _trees_equal(a, b) -> list[str]:
     return [k for k in fa if fa[k].dtype != fb[k].dtype or not torch.equal(fa[k], fb[k])]
 
 
-def train_setup(dev, seq: int, batch: int, layers: int | None = None):
-    cfg = load_config(ARCH)
+def train_setup(dev, seq: int, batch: int, layers: int | None = None, arch: str = ARCH,
+                steps: int = TRAIN["steps"]):
+    cfg = load_config(arch)
     if layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=layers)
     model = build(cfg)
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
                                   seed=TRAIN["seed"]))
-    opt_cfg = adamw.AdamWConfig(lr=TRAIN["lr"], total_steps=TRAIN["steps"],
-                                warmup_steps=max(1, TRAIN["steps"] // 20))
+    opt_cfg = adamw.AdamWConfig(lr=TRAIN["lr"], total_steps=steps,
+                                warmup_steps=max(1, steps // 20))
     return cfg, model, data, opt_cfg
 
 
@@ -4592,23 +4636,35 @@ def _all_launches() -> dict[str, int]:
     return {k: v for mod in (kern, pkern, fkern, rkern) for k, v in mod.LAUNCHES.items() if v}
 
 
-def train_blockwise(dev) -> dict:
-    """Phase 11 (c): one full-width step (22 layers, bf16) under
-    blockwise_attention at 1 x 2048: launches counted from 0 around the
-    second step (2 x 22 B4 forwards: remat recomputes each layer; 22
-    backwards), its ms (host clock, synchronised); then the gradients of the
-    kernel path, every B4 call held to its plain version (held_flash),
-    against the plain path's (impl "plain" end to end) on the same params
-    and batch, leaf by leaf against TRAIN_LEAF_TOL of the leaf's
-    max|plain|."""
+def train_flash_launches(cfg) -> dict[str, int]:
+    """B4's launches in one train step under blockwise_attention: a
+    decoder layer's forward twice (remat recomputes it) and its backward
+    once; zamba2's shared block, which remat leaves out (as the reference's
+    jax.checkpoint does), forward and backward once an application."""
+    if cfg.model_type == "zamba2":
+        apps = cfg.num_layers // cfg.shared_attn_every
+        return {"flash_attn": apps, "flash_attn_bwd": apps}
+    return {"flash_attn": 2 * cfg.num_layers, "flash_attn_bwd": cfg.num_layers}
+
+
+def train_blockwise(dev, arch: str = ARCH, layers: int | None = None, tag: str = "(c)",
+                    profile: bool = True, **flag_kw) -> dict:
+    """Phase 11 (c), and (f) for zamba2: one full-width step (bf16) under
+    blockwise_attention (and ``flag_kw``) at TRAIN_BLOCKWISE's 1 x 2048:
+    launches counted from 0 around the second step (train_flash_launches:
+    TinyLlama's 2 x 22 B4 forwards and 22 backwards), its ms (host clock,
+    synchronised); then the gradients of the kernel path, every B4 call
+    held to its plain version (held_flash), against the plain path's (impl
+    "plain" end to end) on the same params and batch, leaf by leaf against
+    TRAIN_LEAF_TOL of the leaf's max|plain|."""
     bw = TRAIN_BLOCKWISE
-    cfg, model, data, opt_cfg = train_setup(dev, bw["s"], bw["b"])
+    cfg, model, data, opt_cfg = train_setup(dev, bw["s"], bw["b"], layers, arch)
     params = model.init(seed=TRAIN["seed"], device=dev)
     batch = batch_to(data.batch_at(0), dev)
     step_fn = make_train_step(model, opt_cfg)
     opt_state = adamw.init(params)
     loss_fn = make_loss_fn(model)
-    with flags.overrides(blockwise_attention=True):
+    with flags.overrides(blockwise_attention=True, **flag_kw):
         step_fn(params, opt_state, batch)
         torch.cuda.synchronize()
         _reset_all_launches()
@@ -4617,10 +4673,10 @@ def train_blockwise(dev) -> dict:
         loss = float(m["loss"])
         ms = 1e3 * (time.perf_counter() - t0)
         launches = _all_launches()
-        want = {"flash_attn": 2 * cfg.num_layers, "flash_attn_bwd": cfg.num_layers}
+        want = train_flash_launches(cfg)
         if launches != want:
-            raise AssertionError(f"train (c): launches {launches}, expected {want}")
-        prof = profile_device(lambda: step_fn(params, opt_state, batch), 1)
+            raise AssertionError(f"train {tag}: launches {launches}, expected {want}")
+        prof = profile_device(lambda: step_fn(params, opt_state, batch), 1) if profile else None
         calls: list = []
         with held_flash(calls):
             (kloss, _), kgrads = value_and_grad(loss_fn, params, batch)
@@ -4641,12 +4697,13 @@ def train_blockwise(dev) -> dict:
            "held_calls": {"forward": sum(c["call"] == "forward" for c in calls),
                           "backward": sum(c["call"] == "backward" for c in calls),
                           "forward_max_rel_err": fwd_err, "backward_max_rel_err": bwd_err}}
-    log(f"[train (c)] blockwise 1x{bw['s']} step: {ms:.1f} ms (host clock, synchronised; bound "
-        f"{res['bound_ms']:.2f} ms, {res['bound_by']}; profiler: {prof['device_ms']:.1f} ms on the "
-        f"card, B4 forward {prof['flash_ms']:.1f}, backward {prof['flash_bwd_ms']:.1f} ("
-        + ", ".join(f"{k} {v:.1f}" for k, v in sorted(prof["flash_bwd_split"].items()))
-        + f"), products "
-        f"{prof['products_ms']:.1f}), "
+    log(f"[train {tag}] {arch} {cfg.num_layers} layers, blockwise"
+        + "".join(f" + {k}" for k in flag_kw) + f" 1x{bw['s']} step: {ms:.1f} ms (host clock, "
+        f"synchronised; bound {res['bound_ms']:.2f} ms, {res['bound_by']}"
+        + (f"; profiler: {prof['device_ms']:.1f} ms on the card, B4 forward "
+           f"{prof['flash_ms']:.1f}, backward {prof['flash_bwd_ms']:.1f} ("
+           + ", ".join(f"{k} {v:.1f}" for k, v in sorted(prof["flash_bwd_split"].items()))
+           + f"), products {prof['products_ms']:.1f}" if prof else "") + "), "
         f"launches {launches}; loss kernel {kloss.item():.6f} plain {ploss.item():.6f}; "
         f"gradient leaves kernel vs plain: worst {worst} {leaf_err[worst]:.3e} of max|plain| "
         f"(tol {TRAIN_LEAF_TOL}), " + ", ".join(f"{k.split('/')[-1]} {v:.2e}"
@@ -4656,9 +4713,169 @@ def train_blockwise(dev) -> dict:
         f"{FLASH_TOL[torch.bfloat16]}), {res['held_calls']['backward']} backwards (max "
         f"{bwd_err:.2e}, tol {TRAIN_GRAD_TOL[torch.bfloat16]}) [{CARD['smi']}]")
     if not res["leaves_within_tol"]:
-        log(f"[train (c)] the leaves of a {cfg.num_layers}-layer random bf16 model leave the "
+        log(f"[train {tag}] the leaves of a {cfg.num_layers}-layer random bf16 model leave the "
             f"plain path's by more than {TRAIN_LEAF_TOL}: held per B4 call above")
     return res
+
+
+@contextlib.contextmanager
+def no_checkpoints(saved: list):
+    """run_loop with its checkpoints not written, each step it would save
+    appended to ``saved``: a full-width 7B state is tens of GB a checkpoint
+    (bf16 params, f32 m and v), and (d) holds checkpoints and resume."""
+    save, retain = ckpt.save, ckpt.retain
+    ckpt.save = lambda ckpt_dir, step, state, **kw: saved.append(step)
+    ckpt.retain = lambda ckpt_dir, keep: None
+    try:
+        yield saved
+    finally:
+        ckpt.save, ckpt.retain = save, retain
+
+
+def train_memory(cfg) -> dict:
+    """The card's reckoning for a train step of ``cfg``: 12 bytes a parameter
+    of state (bf16 param and gradient, f32 m and v) and 24 at the update
+    (AdamW is functional: the old and the new params, m and v live together
+    with the gradients and their clipped copy), against the card's memory."""
+    n = bounds.train_params(cfg)
+    return {"params": n, "state_bytes": 12 * n, "update_bytes": 24 * n,
+            "card_bytes": torch.cuda.get_device_properties(0).total_memory}
+
+
+def train_recurrent_run(dev, arch: str) -> dict:
+    """Phase 11 (e) / (f): ``arch`` at full width and TRAIN_RECURRENT's
+    depth (the cut printed with train_memory's reckoning at full and cut
+    depth) through run_loop with the train CLI's defaults (SyntheticLM seed
+    0, batch 8 x seq 128, lr 3e-4) for TRAIN_RECURRENT_STEPS steps, its
+    checkpoints not written (no_checkpoints): every loss finite and the
+    first batch's loss after the run below its first (a step's loss on its
+    new batch barely moves in so few steps); ms a step on the host clock (the loss on the
+    host) and on the card (CUDA events around each step), steps 2 on;
+    tok/s, peak memory, the grad norms and bounds.train_step."""
+    full = load_config(arch)
+    steps = TRAIN_RECURRENT_STEPS
+    cfg, model, data, opt_cfg = train_setup(dev, TRAIN["seq"], TRAIN["batch"],
+                                            TRAIN_RECURRENT[arch], arch, steps)
+    fm, cm = train_memory(full), train_memory(cfg)
+    tag = "(e)" if arch == "rwkv6-7b" else "(f)"
+    log(f"[train {tag}] {arch}: depth cut to {cfg.num_layers} of {full.num_layers} layers "
+        f"(memory: {full.num_layers} layers are {fm['params'] / 1e9:.3f} B parameters, "
+        f"{fm['state_bytes'] / 1e9:.1f} GB of state at 12 bytes a parameter and "
+        f"{fm['update_bytes'] / 1e9:.1f} GB at the update's 24, more than the card's "
+        f"{fm['card_bytes'] / 1e9:.1f} GB; {cfg.num_layers} layers are "
+        f"{cm['params'] / 1e9:.3f} B, {cm['state_bytes'] / 1e9:.1f} / "
+        f"{cm['update_bytes'] / 1e9:.1f} GB, with room for a layer's recomputed scan "
+        f"states; and time: (e) and (f) within {TRAIN_RECURRENT_BUDGET_S} s); full width d "
+        f"{cfg.d_model}, vocab {cfg.vocab_size}, bf16")
+    loop_cfg = LoopConfig(total_steps=steps, ckpt_every=steps,
+                          ckpt_dir=str(ROOT / "build" / "chip_smoke_recurrent"), log_every=1)
+    step_fn, events, saved = make_train_step(model, opt_cfg), [], []
+
+    def timed(params, opt_state, batch):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = step_fn(params, opt_state, batch)
+        ev[1].record()
+        events.append(ev)
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with no_checkpoints(saved):
+        params, opt_state, hist = run_loop(
+            model, model.init(seed=TRAIN["seed"], device=dev), data, opt_cfg, loop_cfg,
+            train_step=timed, resume=False, log=lambda m: log(f"[train {tag}] {m}"))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    del opt_state
+    with torch.no_grad():
+        first_after = make_loss_fn(model)(params, batch_to(data.batch_at(0), dev))[0].item()
+    del params
+    torch.cuda.empty_cache()
+    losses = [h["loss"] for h in hist]
+    if not all(math.isfinite(x) for x in losses + [first_after]) or not first_after < losses[0]:
+        raise AssertionError(f"train {tag}: losses not finite or the first batch's not falling: "
+                             f"{losses}, after the run {first_after}")
+    card_ms = [a.elapsed_time(b) for a, b in events]
+    ms = 1e3 * sum(h["sec"] for h in hist[1:]) / (len(hist) - 1)
+    dms = sum(card_ms[1:]) / (len(card_ms) - 1)
+    bnd = bounds.train_step(cfg, TRAIN["batch"], TRAIN["seq"])
+    res = {"arch": arch, "layers": cfg.num_layers, "full_layers": full.num_layers,
+           "memory": cm, "full_memory": fm, "losses": losses, "first_batch_after": first_after,
+           "grad_norms": [h["grad_norm"] for h in hist], "step_ms": [1e3 * h["sec"] for h in hist],
+           "step_card_ms": card_ms, "ms_per_step": ms, "card_ms_per_step": dms,
+           "tok_s": TRAIN["batch"] * TRAIN["seq"] / (ms / 1e3), "peak_bytes": peak,
+           "run_s": run_s, "checkpoints_not_written": saved, "bound_ms": 1e3 * bnd.seconds,
+           "bound_by": bnd.bound_by}
+    log(f"[train {tag}] {arch} {cfg.num_layers} layers bf16, batch {TRAIN['batch']} x seq "
+        f"{TRAIN['seq']}, lr {TRAIN['lr']}: losses " + ", ".join(f"{x:.4f}" for x in losses)
+        + f" (each step's new batch; the first batch's {losses[0]:.4f} -> {first_after:.4f} "
+        "after the run); grad norms " + ", ".join(f"{x:.3f}" for x in res["grad_norms"])
+        + f"; {ms:.1f} ms a step on the host clock, {dms:.1f} on the card (CUDA events; steps "
+        f"2-{len(hist)}; bound {res['bound_ms']:.2f} ms, {res['bound_by']}), "
+        f"{res['tok_s']:.0f} tok/s; peak memory {peak / 1e9:.1f} GB; run_loop {run_s:.1f} s "
+        f"(checkpoints at steps {saved} not written) [{CARD['smi']}]")
+    return res
+
+
+def train_recurrent_cpu(dev) -> dict:
+    """Phase 11 (e): one f32 train step of TRAIN_RECURRENT_CPU's config
+    (full width, its depth cut) on the card against the same step on the
+    CPU, the same params (copied from the card) and batch: the loss and
+    every gradient leaf within ``tol`` of the CPU leaf's max|g|."""
+    c = TRAIN_RECURRENT_CPU
+    cfg, model, data, _ = train_setup(dev, c["s"], c["b"], c["layers"], c["arch"])
+    cfg = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    model = build(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed=TRAIN["seed"], device=dev)
+    raw = data.batch_at(0)
+    loss_fn = make_loss_fn(model)
+    (kloss, _), kgrads = value_and_grad(loss_fn, params, batch_to(raw, dev))
+    host = tree_map(lambda t: t.cpu(), params)
+    del params
+    (closs, _), cgrads = value_and_grad(loss_fn, host, batch_to(raw, torch.device("cpu")))
+    cflat = dict(tree_items(cgrads))
+    errs = {path: ((g.cpu() - cflat[path]).abs().max() / cflat[path].abs().max()).item()
+            for path, g in tree_items(kgrads)}
+    worst = max(errs, key=errs.get)
+    res = {"arch": c["arch"], "layers": cfg.num_layers, "tokens": [c["b"], c["s"]],
+           "loss_card": kloss.item(), "loss_cpu": closs.item(),
+           "loss_rel_err": abs(kloss.item() - closs.item()) / abs(closs.item()),
+           "leaf_rel_err": errs, "worst": worst, "tol": c["tol"],
+           "seconds": time.perf_counter() - t0}
+    log(f"[train (e)] {c['arch']} {cfg.num_layers} layers f32 (full width), {c['b']} x {c['s']} "
+        f"tokens, allow_tf32 off: the card's step against the CPU's: loss {res['loss_card']:.7f} "
+        f"/ {res['loss_cpu']:.7f} ({res['loss_rel_err']:.1e}); gradient leaves: worst {worst} "
+        f"{errs[worst]:.3e} of max|cpu| (tol {c['tol']}), " + ", ".join(
+            f"{k} {v:.1e}" for k, v in sorted(errs.items())) + f"; {res['seconds']:.1f} s")
+    del kgrads, cgrads, host
+    torch.cuda.empty_cache()
+    if errs[worst] > c["tol"] or res["loss_rel_err"] > c["tol"]:
+        raise AssertionError(f"train (e): the card's f32 gradient leaves the CPU's: {worst} "
+                             f"{errs[worst]}")
+    return res
+
+
+def phase_train_recurrent(dev) -> dict:
+    """Phase 11 (e) rwkv6-7b and (f) zamba2-7b (train_recurrent_run), with
+    (e)'s step against the CPU and (f)'s blockwise + chunked_ssd step at
+    zamba2's cut depth (4 B4 forwards and 4 backwards: the shared block's
+    applications; every leaf within TRAIN_LEAF_TOL)."""
+    t0 = time.perf_counter()
+    out = {"rwkv6-7b": train_recurrent_run(dev, "rwkv6-7b"), "cpu": train_recurrent_cpu(dev),
+           "zamba2-7b": train_recurrent_run(dev, "zamba2-7b")}
+    out["blockwise"] = bw = train_blockwise(dev, "zamba2-7b", TRAIN_RECURRENT["zamba2-7b"], "(f)",
+                                            profile=False, chunked_ssd=True)
+    if not bw["leaves_within_tol"]:
+        raise AssertionError(f"train (f): gradient leaves leave the plain path's: "
+                             f"{max(bw['leaf_rel_err'].values())}")
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[train] (e) and (f) took {out['seconds']:.1f} s (budget {TRAIN_RECURRENT_BUDGET_S} s)")
+    return out
 
 
 def phase_train(dev) -> tuple[dict, list[dict]]:
@@ -4670,6 +4887,7 @@ def phase_train(dev) -> tuple[dict, list[dict]]:
     torch.cuda.empty_cache()
     out["blockwise"] = train_blockwise(dev)
     torch.cuda.empty_cache()
+    out["recurrent"] = phase_train_recurrent(dev)
     out["seconds"] = time.perf_counter() - t0
     log(f"[train] phase 11 {out['seconds']:.1f} s")
     return out, rows
@@ -4720,13 +4938,21 @@ def train_entry(rows: list[dict], train: dict) -> dict:
 
 
 def train_summary(train: dict, smi: str) -> None:
-    st, bw = train["steps"], train["blockwise"]
+    st, bw, rec = train["steps"], train["blockwise"], train["recurrent"]
     log(f"[train] {ARCH} bf16 {st['layers']} layers, batch {TRAIN['batch']} x seq "
         f"{TRAIN['seq']}: {st['ms_per_step']:.2f} ms a step, {st['tok_s']:.0f} tok/s, peak "
         f"{st['peak_bytes'] / 2**30:.2f} GiB, loss {st['losses'][0]:.4f} -> "
         f"{st['losses'][-1]:.4f}; resume ({train['resume']['layers']} layers) bit-equal; "
         f"blockwise 1x{TRAIN_BLOCKWISE['s']} step "
-        f"{bw['ms_per_step']:.1f} ms ({bw['launches']}); phase {train['seconds']:.1f} s [{smi}]")
+        f"{bw['ms_per_step']:.1f} ms ({bw['launches']}); " + "; ".join(
+            f"{r['arch']} ({r['layers']} of {r['full_layers']} layers) {r['ms_per_step']:.1f} ms "
+            f"a step ({r['card_ms_per_step']:.1f} on the card), {r['tok_s']:.0f} tok/s, peak "
+            f"{r['peak_bytes'] / 1e9:.1f} GB, loss {r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}"
+            for r in (rec["rwkv6-7b"], rec["zamba2-7b"]))
+        + f"; zamba2 blockwise + chunked_ssd 1x{TRAIN_BLOCKWISE['s']} step "
+        f"{rec['blockwise']['ms_per_step']:.1f} ms ({rec['blockwise']['launches']}); rwkv6 f32 "
+        f"card vs CPU worst leaf {rec['cpu']['leaf_rel_err'][rec['cpu']['worst']]:.2e}; phase "
+        f"{train['seconds']:.1f} s [{smi}]")
 
 
 def _phase_gqmm_launches(kname, kind, serves, ragged, flagres, spec) -> dict[str, int]:
@@ -5056,8 +5282,9 @@ def main(argv=None) -> int:
     add_runs(entries, recurrent_runs(rec), rkrows + rfrows, "recurrent_shapes")
     add_runs(entries, encdec_runs(enc), ekrows + efrows, "encdec_shapes")
     entries.append(train_entry(trows, train))
-    add_runs(entries, {"phase 11 blockwise train step": train["blockwise"]["launches"]}, [],
-             "train_shapes")
+    add_runs(entries, {"phase 11 blockwise train step": train["blockwise"]["launches"],
+                       "phase 11 (f) zamba2 blockwise train step":
+                       train["recurrent"]["blockwise"]["launches"]}, [], "train_shapes")
     family_summary(fam, smi)
     recurrent_summary(rec, smi)
     encdec_summary(enc, smi)

@@ -19,6 +19,7 @@ import dataclasses
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.quant import largest_pow2_group
+from repro_torch.models.rwkv import DECAY_LORA_RANK, MIXES
 
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"int8": 1979e12, "fp8": 1979e12, "bf16": 989e12, "f32": 67e12}
@@ -266,26 +267,76 @@ def flash_backward(cfg: ModelConfig, b: int, s: int, dtype: str = "bf16",
                                 cfg.resolved_head_dim, b * cfg.num_heads * pairs, dtype)
 
 
-def train_step(cfg: ModelConfig, b: int, s: int, dtype: str = "bf16") -> Bound:
-    """One AdamW train step of a ``decoder_lm`` config over (b, s) tokens
-    with ``remat``: each layer's projections (2 operations a weight a
-    token; a MoE's every expert, as its dense dispatch runs them) in the
-    forward, again in the recomputed forward and twice in the backward (dX
-    and dW), the classifier's three times; attention's causal products
-    (``flash_prefill``'s twice, ``flash_backward``'s once a layer). Bytes:
-    what the update must move, each parameter and its gradient read and
-    written in ``dtype`` and its f32 m and v read and written
-    (activations, which depend on the kernels' fusion, not counted)."""
-    e = DTYPE_BYTES[dtype]
+def scan_state(cfg: ModelConfig) -> int:
+    """f32 state elements one recurrent layer updates and contracts at each
+    position of a batch row: rwkv6's wkv (h, hd, hd), d x hd; a zamba2
+    Mamba2 layer's h (H, hd, N), d_inner x N; 0 for the others."""
+    if cfg.model_type == "rwkv6":
+        return cfg.d_model * cfg.resolved_head_dim
+    if cfg.model_type == "zamba2":
+        return cfg.ssm.expand * cfg.d_model * cfg.ssm.state_dim
+    return 0
+
+
+def train_params(cfg: ModelConfig) -> int:
+    """Parameters a train step updates. ``decoder_lm``: the projections of
+    a pass, the embedding (and an untied classifier), two norms a layer and
+    the final norm (a layer's other small leaves not counted). rwkv6 and
+    zamba2: every leaf (rwkv6's mixes, decay LoRA and ``bonus_u``; zamba2's
+    conv, scan parameters and gate norm, its shared block once)."""
+    d, L = cfg.d_model, cfg.num_layers
+    head = cfg.vocab_padded * d * (1 if cfg.tie_embeddings else 2)
+    if cfg.model_type == "rwkv6":
+        small = (len(MIXES) + 4) * d + 2 * DECAY_LORA_RANK * d + d
+        return sum(m * n * c for _, m, n, c in pass_projections(cfg)) + L * small + head + d
+    if cfg.model_type == "zamba2":
+        s = cfg.ssm
+        d_inner = s.expand * d
+        mamba = sum(m * n for name, m, n, _ in layer_projections(cfg)
+                    if not name.startswith("shared "))
+        small = (d + s.conv_kernel * (d_inner + 2 * s.state_dim)
+                 + 3 * d_inner // s.head_dim + d_inner)
+        shared = sum(m * n for name, m, n, _ in layer_projections(cfg)
+                     if name.startswith("shared ")) + 2 * d
+        return L * (mamba + small) + shared + head + d
     layer = sum(m * n * c for _, m, n, c in pass_projections(cfg))
+    return layer + head + (2 * L + 1) * d
+
+
+def train_step(cfg: ModelConfig, b: int, s: int, dtype: str = "bf16") -> Bound:
+    """One AdamW train step over (b, s) tokens with ``remat``: each
+    recomputed layer's projections (2 operations a weight a token; a MoE's
+    every expert, as its dense dispatch runs them) in the forward, again in
+    the recomputed forward and twice in the backward (dX and dW); zamba2's
+    shared block, which is not recomputed, three times an application;
+    the classifier three times. Attention's causal products:
+    ``flash_prefill``'s twice and ``flash_backward``'s once a layer, or at
+    zamba2's hd 112 once each an application of the shared block (none for
+    rwkv6). The recurrent scans: a multiply-add per state element
+    (:func:`scan_state`) a position for the update and one for the
+    contraction, in the forward and the recomputed forward, and twice that
+    in the backward (a multiply-add's gradient is two); all at the ``dtype``
+    rate. Bytes: what the update must move, each parameter
+    (:func:`train_params`) and its gradient read and written in ``dtype``
+    and its f32 m and v read and written (activations, which depend on the
+    kernels' fusion, not counted)."""
+    e = DTYPE_BYTES[dtype]
+    projs = pass_projections(cfg)
+    shared = sum(m * n * c for name, m, n, c in projs
+                 if cfg.model_type == "zamba2" and name.startswith("shared "))
+    layer = sum(m * n * c for _, m, n, c in projs) - shared
     head = cfg.vocab_padded * cfg.d_model
     tok = b * s
-    attn = cfg.num_layers * (2 * flash_prefill(cfg, b, s, dtype).ops
-                             + flash_backward(cfg, b, s, dtype).ops)
-    ops = 2 * tok * (4 * layer + 3 * head) + attn
-    norms = (2 * cfg.num_layers + 1) * cfg.d_model
-    params = layer + head * (1 if cfg.tie_embeddings else 2) + norms
-    return Bound((4 * e + 16) * params, ops, dtype)
+    fwd, bwd = flash_prefill(cfg, b, s, dtype).ops, flash_backward(cfg, b, s, dtype).ops
+    if cfg.model_type == "zamba2":
+        attn = cfg.num_layers // cfg.shared_attn_every * (fwd + bwd)
+    elif cfg.num_kv_heads:
+        attn = cfg.num_layers * (2 * fwd + bwd)
+    else:
+        attn = 0
+    scan = 4 * 4 * tok * cfg.num_layers * scan_state(cfg)
+    ops = 2 * tok * (4 * layer + 3 * shared + 3 * head) + attn + scan
+    return Bound((4 * e + 16) * train_params(cfg), ops, dtype)
 
 
 def table(cfg: ModelConfig) -> list[tuple[str, str, Bound]]:

@@ -48,7 +48,7 @@ def main(argv=None):
     model = build(cfg)
     opt_cfg = adamw.AdamWConfig(lr=args.lr, total_steps=args.steps,
                                 warmup_steps=max(1, args.steps // 20))
-    step_fn = make_train_step(model, opt_cfg)   # refuses an untrainable family first
+    step_fn = make_train_step(model, opt_cfg)
     print(f"device: {device}  arch: {cfg.arch_id}")
 
     params = model.init(seed=args.seed, device=device)

@@ -59,23 +59,6 @@ PORTED_ARCHS = ("tinyllama-1.1b", "internlm2-1.8b", "deepseek-coder-33b", "pixtr
                 "gemma2-2b", "dbrx-132b", "minicpm3-4b", "deepseek-v2-lite-16b",
                 "rwkv6-7b", "zamba2-7b", "seamless-m4t-large-v2")
 
-# the model types whose scoring forward autograd differentiates: the
-# decoder_lm configs (dense GQA, MoE, MLA) and the encoder-decoder. The
-# recurrent scans update their f32 state in place (models/rwkv.py
-# _wkv_scan, models/ssm.py _ssd_scan), which autograd cannot differentiate.
-TRAINABLE_MODEL_TYPES = ("decoder_lm", "encdec")
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming the reason for a config whose
-    gradient the port cannot take (a wrong gradient must never be silent)."""
-    if cfg.model_type not in TRAINABLE_MODEL_TYPES:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: training {cfg.model_type} is not ported: its scan updates the "
-            "f32 state in place (models/rwkv.py _wkv_scan, models/ssm.py _ssd_scan), which "
-            "autograd cannot differentiate; trainable model types: "
-            f"{TRAINABLE_MODEL_TYPES}")
-
 
 def load_config(arch_id: str) -> ModelConfig:
     if arch_id not in ARCH_IDS:
@@ -138,7 +121,8 @@ def build(cfg: ModelConfig) -> Model:
     if cfg.model_type == "rwkv6":
         return _recurrent(
             cfg, _rwkv.init_rwkv,
-            lambda params, batch, remat=True: _rwkv.rwkv_forward(params, batch["tokens"], cfg),
+            lambda params, batch, remat=True: _rwkv.rwkv_forward(
+                params, batch["tokens"], cfg, remat=remat),
             lambda b, t, dt, device: _rwkv.rwkv_init_state(cfg, b, dt, device),
             _rwkv.rwkv_prefill, _rwkv.rwkv_decode, _rwkv.rwkv_insert_slots,
             _rwkv.rwkv_gather_slots)

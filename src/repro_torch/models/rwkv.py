@@ -8,7 +8,9 @@ through ``linear`` (GQMM under quantized weights); the decay LoRA, the
 token-shift mixes and ``bonus_u`` stay float (the policy's exclusions), so
 ``_decay``'s two products are float matmuls in x's dtype. The WKV scan has
 no Pallas kernel behind it in the reference and is plain PyTorch: a loop
-over positions on the f32 state (b, h, hd, hd).
+over positions on the f32 state (b, h, hd, hd), updated in place; autograd
+differentiates it as it does an out-of-place loop (the same gradient, bit
+for bit).
 
 The decode state is {att_x, wkv, ffn_x}, each (L, b, ...), O(1) in the
 sequence length; ``rwkv_decode`` updates it in place.
@@ -23,7 +25,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.qlinear import embedding_lookup, linear
 from repro_torch.core.tree import tree_index
 from repro_torch.device import resolve_device
-from repro_torch.models.common import dense_init, embed_init, rmsnorm
+from repro_torch.models.common import dense_init, embed_init, remat_call, rmsnorm
 from repro_torch.models.mlp import _stacked_init
 
 DECAY_LORA_RANK = 64
@@ -189,13 +191,22 @@ def _logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return linear(params["classifier"], rmsnorm(x, params["final_norm"], cfg.norm_eps))
 
 
-def rwkv_forward(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """tokens (b, s) -> logits (b, s, vocab_padded)."""
+def _layer(lp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    x = x + time_mix_forward(lp, rmsnorm(x, lp["att_norm"], cfg.norm_eps), cfg)[0]
+    return x + channel_mix_forward(lp, rmsnorm(x, lp["ffn_norm"], cfg.norm_eps))[0]
+
+
+def rwkv_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *, remat: bool = True
+                 ) -> torch.Tensor:
+    """tokens (b, s) -> logits (b, s, vocab_padded). With ``remat`` and grad
+    enabled each layer (time mix and channel mix) is recomputed in the
+    backward (``common.remat_call``), as the reference's
+    ``jax.checkpoint(body)`` does: a layer keeps only its input, not the
+    scan's per-position states."""
     x = embedding_lookup(params["embed"], tokens, cfg.cdtype())
     for i in range(cfg.num_layers):
         lp = tree_index(params["layers"], i)
-        x = x + time_mix_forward(lp, rmsnorm(x, lp["att_norm"], cfg.norm_eps), cfg)[0]
-        x = x + channel_mix_forward(lp, rmsnorm(x, lp["ffn_norm"], cfg.norm_eps))[0]
+        x = remat_call(lambda x, lp=lp: _layer(lp, x, cfg), x, remat)
     return _logits(params, x, cfg)
 
 

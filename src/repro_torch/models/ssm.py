@@ -10,10 +10,11 @@ The in/out projections (``win``, ``wout``) go through ``linear`` (GQMM under
 quantized weights); the scan parameters (``a_log``, ``dt_bias``,
 ``d_skip``) and the depthwise conv stay float. The scan itself has no
 Pallas kernel behind it in the reference and is plain PyTorch here: the
-sequential form loops over positions on the f32 state h (b, H, hd, N), the
-chunked form (``flags.chunked_ssd``) is Mamba2's matmul duality per chunk.
-Decode's state is (conv tail, h), updated in the caller's cache tensors in
-place.
+sequential form loops over positions on the f32 state h (b, H, hd, N), in
+place where grad is off and out of place where autograd records (a train
+step), the chunked form (``flags.chunked_ssd``) is Mamba2's matmul duality
+per chunk. Decode's state is (conv tail, h), updated in the caller's cache
+tensors in place.
 """
 
 from __future__ import annotations
@@ -85,21 +86,24 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, tail: torch.Tensor | None = N
     return F.silu(out), xp[:, -(k - 1):, :]
 
 
-def _ssd_scan(xs, Bv, Cv, dtv, a_neg, h: torch.Tensor) -> torch.Tensor:
-    """The sequential scan (the reference's ``_ssd_step`` at every position),
-    on ``h`` (b, H, hd, N) f32 IN PLACE. xs (b, s, H, hd), B and C (b, s, N),
-    dt (b, s, H), all f32. The decay and dt·x of every position are taken
-    before the loop (the same elementwise values); a step is the state's
-    decay, its outer-product add and the contraction with C. Returns y
-    (b, s, H, hd)."""
+def _ssd_scan(xs, Bv, Cv, dtv, a_neg, h: torch.Tensor, *, in_place: bool):
+    """The sequential scan (the reference's ``_ssd_step`` at every position)
+    on the f32 state ``h`` (b, H, hd, N). xs (b, s, H, hd), B and C (b, s,
+    N), dt (b, s, H), all f32. The decay and dt·x of every position are
+    taken before the loop (the same elementwise values); a step is the
+    state's decay, its outer-product add and the contraction with C.
+    ``in_place`` updates ``h`` itself (decode's cache views, serving);
+    otherwise each step makes a new state with the same ops in the same
+    order, which autograd can differentiate (the contraction saves every
+    position's state). Returns (y (b, s, H, hd), the last state)."""
     decay = torch.exp(a_neg * dtv)                                  # (b, s, H)
     dx = dtv[..., None] * xs                                        # (b, s, H, hd)
     ys = []
     for t in range(xs.shape[1]):
-        h.mul_(decay[:, t, :, None, None]).addcmul_(dx[:, t, :, :, None],
-                                                    Bv[:, t, None, None, :])
+        dec, dxt, bt = decay[:, t, :, None, None], dx[:, t, :, :, None], Bv[:, t, None, None, :]
+        h = h.mul_(dec).addcmul_(dxt, bt) if in_place else torch.addcmul(h * dec, dxt, bt)
         ys.append(torch.matmul(h, Cv[:, t, None, :, None])[..., 0])
-    return torch.stack(ys, dim=1)
+    return torch.stack(ys, dim=1), h
 
 
 def _ssd_chunked(xs, Bv, Cv, dtv, a_neg, h0: torch.Tensor, chunk: int):
@@ -120,8 +124,12 @@ def _ssd_chunked(xs, Bv, Cv, dtv, a_neg, h0: torch.Tensor, chunk: int):
         la = a_neg[None, None, :] * dtq                              # (b, Q, H), <= 0
         P = torch.cumsum(la, dim=1)
         G = torch.einsum("btn,bsn->bts", Cq, Bq)                     # (b, Q, Q)
-        W = torch.exp(P[:, :, None, :] - P[:, None, :, :]) * dtq[:, None, :, :]
-        M = torch.where(tri[None, :, :, None], G[..., None] * W, 0.0)
+        # the exponent masked before exp: above the diagonal P_t - P_s > 0
+        # overflows f32 past ~88 (a chunk of 128 at dt ~0.7), and the
+        # reference's exp-then-where gives NaN gradients there (inf * 0);
+        # the kept entries are the same values
+        diff = torch.where(tri[None, :, :, None], P[:, :, None, :] - P[:, None, :, :], -torch.inf)
+        M = G[..., None] * (torch.exp(diff) * dtq[:, None, :, :])
         y = torch.einsum("btsh,bshd->bthd", M, xq)                   # intra
         y = y + torch.exp(P)[..., None] * torch.einsum("bhdn,btn->bthd", h, Cq)
         wfull = torch.exp(P[:, -1:, :] - P) * dtq                    # (b, Q, H)
@@ -162,7 +170,7 @@ def mamba2_forward(p, x: torch.Tensor, cfg: ModelConfig, state=None):
     if flags.get("chunked_ssd") and s % chunk == 0 and s > chunk:
         y, h = _ssd_chunked(xs, Bf, Cf, dtv, a_neg, h, chunk)
     else:
-        y = _ssd_scan(xs, Bf, Cf, dtv, a_neg, h)
+        y, h = _ssd_scan(xs, Bf, Cf, dtv, a_neg, h, in_place=not torch.is_grad_enabled())
     return _gated_out(p, y, xs, z, x.dtype, cfg), (conv_tail, h)
 
 
@@ -181,6 +189,6 @@ def mamba2_decode(p, x: torch.Tensor, state, cfg: ModelConfig):
     xc, Bv, Cv = split_fused(conv_out, (d_inner, sc.state_dim, sc.state_dim))
     dt1 = softplus(dtv.to(torch.float32) + p["dt_bias"])                  # (b, 1, H)
     xs = xc.reshape(b, 1, nheads, sc.head_dim).to(torch.float32)
-    y = _ssd_scan(xs, Bv.to(torch.float32), Cv.to(torch.float32), dt1, -torch.exp(p["a_log"]),
-                  h)
+    y, _ = _ssd_scan(xs, Bv.to(torch.float32), Cv.to(torch.float32), dt1,
+                     -torch.exp(p["a_log"]), h, in_place=True)
     return _gated_out(p, y[:, 0], xs[:, 0], z[:, 0], x.dtype, cfg), (conv_tail, h)

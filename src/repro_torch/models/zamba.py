@@ -30,7 +30,7 @@ from repro_torch.core.tree import tree_index
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlpmod
-from repro_torch.models.common import dense_init, embed_init, rmsnorm
+from repro_torch.models.common import dense_init, embed_init, remat_call, rmsnorm
 from repro_torch.models.ssm import init_mamba2, mamba2_decode, mamba2_forward, ssm_dims
 
 
@@ -102,13 +102,16 @@ def _logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def zamba_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *, remat: bool = True
                   ) -> torch.Tensor:
-    """tokens (b, s) -> logits (b, s, vocab_padded). ``remat`` is accepted
-    for the reference's signature and has no effect (training is not
-    ported)."""
+    """tokens (b, s) -> logits (b, s, vocab_padded). With ``remat`` and grad
+    enabled each Mamba2 layer is recomputed in the backward
+    (``common.remat_call``) and the shared block is not, as in the
+    reference (``jax.checkpoint`` of the Mamba2 body only); the shared
+    block's gradient sums over its applications."""
     x = _embed(params, tokens, cfg)
     sp, per = params["shared"], cfg.shared_attn_every
     for where, lp in _mamba_layers(params):
-        x = x + mamba2_forward(lp["mamba"], rmsnorm(x, lp["norm"], cfg.norm_eps), cfg)[0]
+        x = remat_call(lambda x, lp=lp: x + mamba2_forward(
+            lp["mamba"], rmsnorm(x, lp["norm"], cfg.norm_eps), cfg)[0], x, remat)
         if len(where) == 2 and where[1] == per - 1:
             x = _shared_block(sp, x, cfg, lambda h: attn.gqa_forward(sp["attn"], h, cfg))
     return _logits(params, x, cfg)

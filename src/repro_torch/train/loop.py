@@ -12,9 +12,10 @@ all-reduce with error feedback (``optim/compress.py``) first.
 Under ``flags.blockwise_attention`` attention runs the flash kernel (B4)
 forward and its hand-written backward on the card (``kernels/ops.
 FlashAttention``); ``Model.forward`` recomputes each layer in the backward
-(``remat``), as the reference's ``jax.checkpoint`` does. The families whose
-forward updates a state in place (rwkv6, zamba2) are refused by name
-(``models/registry.check_trainable``).
+(``remat``), as the reference's ``jax.checkpoint`` does. Every config
+trains: zamba2's SSD scan makes a new state each position where autograd
+records (``models/ssm._ssd_scan``); rwkv6's in-place WKV scan
+differentiates as an out-of-place loop does.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import torch
 from repro_torch.checkpoint import ckpt
 from repro_torch.core.quant import QuantizedTensor
 from repro_torch.core.tree import tree_items, tree_map
-from repro_torch.models.registry import Model, check_trainable
+from repro_torch.models.registry import Model
 from repro_torch.optim import adamw
 from repro_torch.optim.compress import compressed_all_reduce
 
@@ -81,9 +82,7 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
     With ``compress_group`` (a ``torch.distributed`` process group, or
     ``"default"`` for the default group) gradients are int8-group-compressed
     with error feedback before the all-reduce, and the step takes and
-    returns the residuals. Refuses, by name, a family it cannot
-    differentiate."""
-    check_trainable(model.cfg)
+    returns the residuals."""
     loss_fn = make_loss_fn(model)
 
     if compress_group is None:

@@ -2,8 +2,8 @@
 pipeline, AdamW (schedule, clipping, one update), the int8 gradient
 compression with error feedback, the losses, one train step's loss and
 gradients on reduced TinyLlama (with and without ``blockwise_attention``),
-a 6-step loss curve, the autograd flash attention, the refusals and the
-train CLI. Tolerances are stated in each test."""
+a 6-step loss curve, the autograd flash attention, the refusal of
+quantized params and the train CLI. Tolerances are stated in each test."""
 
 import numpy as np
 import pytest
@@ -14,10 +14,9 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 
-from _torch_train import assert_grads_close, both_grads, flat, setup  # noqa: E402
+from _torch_train import assert_grads_close, both_grads, flat, loss_curves, setup  # noqa: E402
 from repro.data import pipeline as jpipe  # noqa: E402
 from repro.models import mlp as jmlp  # noqa: E402
-from repro.models.registry import build as jbuild  # noqa: E402
 from repro.optim import adamw as jadamw  # noqa: E402
 from repro.optim import compress as jcompress  # noqa: E402
 from repro.train import loop as jloop  # noqa: E402
@@ -259,28 +258,8 @@ def test_tinyllama_six_step_loss_curve_equals_reference():
     """Six AdamW steps on the seeded SyntheticLM stream (the CLI's lr
     schedule shape, lr 1e-3): every loss within 1e-4 relative of the
     reference's jitted train step."""
-    cfg, jcfg, params, jparams = setup("tinyllama-1.1b")
-    data = pipeline.SyntheticLM(pipeline.DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
-                                                    global_batch=4))
-    opt = dict(lr=1e-3, warmup_steps=2, total_steps=10)
-    step = loop.make_train_step(build(cfg), adamw.AdamWConfig(**opt))
-    jstep = jax.jit(jloop.make_train_step(jbuild(jcfg), jadamw.AdamWConfig(**opt)))
-    state, jstate = adamw.init(params), jadamw.init(jparams)
-    got, want = [], []
-    for i in range(6):
-        b = data.batch_at(i)
-        params, state, m = step(params, state, loop.batch_to(b, torch.device("cpu")))
-        jparams, jstate, jm = jstep(jparams, jstate, jax.tree.map(jnp.asarray, b))
-        got.append(float(m["loss"]))
-        want.append(float(jm["loss"]))
+    got, want = loss_curves("tinyllama-1.1b")
     np.testing.assert_allclose(got, want, rtol=1e-4)
-
-
-@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-7b"])
-def test_train_step_refuses_in_place_recurrent_families(arch):
-    model = build(load_config(arch).reduced())
-    with pytest.raises(NotImplementedError, match="in place"):
-        loop.make_train_step(model, adamw.AdamWConfig())
 
 
 def test_train_step_refuses_quantized_params():
@@ -377,8 +356,3 @@ def test_train_cli_default_device_needs_cuda(tmp_path):
         train_cli.main(["--arch", "tinyllama-1.1b", "--reduced", "--steps", "1", "--ckpt-dir",
                         str(tmp_path / "ck")])
 
-
-def test_train_cli_refuses_recurrent_family(tmp_path):
-    with pytest.raises(NotImplementedError, match="rwkv6"):
-        train_cli.main(["--arch", "rwkv6-7b", "--reduced", "--steps", "1", "--device", "cpu",
-                        "--ckpt-dir", str(tmp_path / "ck")])
