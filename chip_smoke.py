@@ -173,12 +173,12 @@ printing no result, when CUDA is missing. Phases, each fatal on failure:
              top-p at p = 1e-6 equal to greedy spec.
 
 8. families: the families beside TinyLlama at full width, bf16 and int8
-             weights from the port's init_lm (FAMILIES: internlm2-1.8b and
-             gemma2-2b at every layer, pixtral-12b at 10 of 40,
-             deepseek-coder-33b at 4 of 62 and dbrx-132b at 4 of 40 (the
-             bf16 draw and its int8 copy must fit the card), deepseek-v2-lite-16b
-             at 4 of 27 (phase 8's 300 s budget), minicpm3-4b at 16 of 62
-             (the script's time, once phase 11 was added); each cut printed
+             weights from the port's init_lm (FAMILIES: internlm2-1.8b at 12
+             of 24 and gemma2-2b at 13 of 26 (the script's time, once phase
+             12 was added), pixtral-12b at 10 of 40, deepseek-coder-33b at 4
+             of 62 and dbrx-132b at 2 of 40 (the bf16 draw and its int8 copy
+             must fit the card; 2, not 4, for time), deepseek-v2-lite-16b at
+             2 of 27 and minicpm3-4b at 8 of 62 (time); each cut printed
              with its reason). First their kernels at each family's shapes: the int8
              GQMM at b in {1, 4, 16, 256} and the int8 GQMV at every
              projection (the MoE experts' and shared expert's, MLA's wq /
@@ -335,6 +335,27 @@ printing no result, when CUDA is missing. Phases, each fatal on failure:
              application of the shared block (3), each held, every leaf
              within 5e-2 of the plain path's. Its time is printed.
 
+12. sanitize: repro-san (analysis/sanitizer.py), run after phase 7 on
+             phase 5's int8 engine (bf16 pool) and trace. (a) The trace in
+             paged and continuous mode on an engine with sanitize=True (a
+             cold pass that captures, then SANITIZE_PAIRS replayed passes
+             in turns with the unsanitized engine's): tokens bit-identical
+             (and equal to phase 5's), launches equal, B8 once a layer a decode
+             step, every round checked, blocks poisoned, poison reach 0,
+             finalize clean; median tok/s on and off. (b) B8 at the serve's decode
+             shape over a bf16 pool whose rows from each row's position on
+             (masked columns, the stale slot at pos) and whose dead blocks
+             hold POISON: bit-equal to the same pool with zeros there, within
+             PAGED_TOL of the plain arithmetic. (c) Planted faults through
+             the captured programs: a use-after-free (block and
+             generation), a leak at finish (request and blocks), NaN in the
+             pool (leaf and layer), and a corrupt weight at a sanitized
+             engine's init (QuantNumericsError with param and layer class).
+             (d) kv_quant int8 and fp8 pools refused under sanitize. (e)
+             rwkv6-7b at full width and SANITIZE_RWKV_LAYERS layers through
+             the RecurrentAdapter: tokens equal on and off, audit clean.
+             Its time is printed.
+
 A [graphs] line sums up eager against replayed: int8 decode ms/step wall
 and on the card with the busy share, the 4 x 64 prefill, the ragged tok/s,
 the captures and the graph pools. Every time is printed beside the card's
@@ -370,14 +391,18 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.bridge import init_params_numpy, params_from_numpy  # noqa: E402
+from repro_torch.analysis.shadow import POISON, SanitizerError  # noqa: E402
 from repro_torch.checkpoint import ckpt  # noqa: E402
 from repro_torch.core.policy import resolve_format_map  # noqa: E402
 from repro_torch.core.quant import (  # noqa: E402
     FP8_MAX,
     QuantizedTensor,
+    QuantNumericsError,
     get_format,
+    numerics_checks_enabled,
     quantize,
     quantize_activation,
+    set_numerics_checks,
 )
 from repro_torch.core import flags  # noqa: E402
 from repro_torch.core.qlinear import embedding_lookup  # noqa: E402
@@ -409,8 +434,9 @@ from repro_torch.serving.batching import (  # noqa: E402
     valid_modes,
 )
 from repro_torch.serving import graphs  # noqa: E402
+from repro_torch.serving.core import SchedulerCore  # noqa: E402
 from repro_torch.serving.engine import InferenceEngine  # noqa: E402
-from repro_torch.serving.paged import paged_scheduler  # noqa: E402
+from repro_torch.serving.paged import PagedAdapter, paged_scheduler  # noqa: E402
 from repro_torch.serving.sampling import fill_gumbel, nucleus_mask  # noqa: E402
 from repro_torch.serving.spec import NgramDrafter  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
@@ -581,18 +607,28 @@ RAGGED = {"requests": 16, "prompt_lens": (16, 192), "budgets": (8, 64), "seed": 
 # pixtral-12b (~273 M parameters a layer, 1.34 G of embedding and
 # classifier) and deepseek-coder-33b (~530 M a layer: 62 layers of bf16
 # draw and int8 copy would not fit in 80 GB) are cut, and dbrx-132b (~3.3 G
-# a layer: 6.5 GB of bf16 draw and 3.3 GB of int8 copy); deepseek-v2-lite
-# and minicpm3 for time (FAMILY_CUT_REASONS)
-FAMILIES = {"internlm2-1.8b": None, "gemma2-2b": None, "pixtral-12b": 10,
-            "deepseek-coder-33b": 4, "minicpm3-4b": 16, "deepseek-v2-lite-16b": 4,
-            "dbrx-132b": 4}
+# a layer: 6.5 GB of bf16 draw and 3.3 GB of int8 copy); the others, and
+# dbrx further, for time (FAMILY_CUT_REASONS)
+FAMILIES = {"internlm2-1.8b": 12, "gemma2-2b": 13, "pixtral-12b": 10,
+            "deepseek-coder-33b": 4, "minicpm3-4b": 8, "deepseek-v2-lite-16b": 2,
+            "dbrx-132b": 2}
+# phase 12 (sanitize) added ~17 s and the script read 802.1 and 858.5 s on
+# two runs of one tree (phase 8 took 272.0 and 285.6 of them; NVIDIA H100
+# 80GB HBM3, 700 W): halving these depths took ~60 s off phase 8
+_PHASE12 = "; halved when phase 12 was added, for the script's time"
 FAMILY_CUT_REASONS = {
-    "pixtral-12b": "memory", "deepseek-coder-33b": "memory", "dbrx-132b": "memory",
+    "pixtral-12b": "memory", "deepseek-coder-33b": "memory",
+    "dbrx-132b": "memory: 4 layers fit" + _PHASE12,
+    "internlm2-1.8b": "the script's time: 14.0 s at every layer" + _PHASE12,
+    "gemma2-2b": "the script's time: 27.8 s at every layer (13 keeps local and global "
+                 "layers alike)" + _PHASE12,
     "minicpm3-4b": "the script's time: phase 11 (training) adds ~60 s, and at 62 layers "
-                   "this family took 61.5 s of phase 8, the most of any",
+                   "this family took 61.5 s of phase 8, the most of any; 16 layers "
+                   "17.3 s" + _PHASE12,
     "deepseek-v2-lite-16b": "phase 8's 300 s budget: every one of a layer's 64 experts "
                             "runs each step, two GQMMs and their glue, and the eager "
-                            "comparison runs launch each of those kernels from the host"}
+                            "comparison runs launch each of those kernels from the host; "
+                            "4 layers 30.1 s" + _PHASE12}
 # + the ragged serve and speculative generate on both caches; the MLA
 # families (no paged pool, no verify) run the continuous and bucketed serve
 # and their refusals instead
@@ -663,6 +699,12 @@ RECURRENT_FLASH = ("zamba2 4x64", 4, 32, 32, 64, 112, None, None)
 # exact-length prefill programs (a per-position scan each) stay few
 RECURRENT_RAGGED = {"requests": 8, "prompt_lens": (16, 24, 32), "budgets": (8, 32), "seed": 0,
                     "slots": 4, "chunk": 4}
+# phase 12 (e): rwkv6-7b's depth under the sanitizer (full width), for the
+# script's time; phase 9 serves it at every layer
+SANITIZE_RWKV_LAYERS = 4
+# phase 12 (a): replayed passes a mode with the sanitizer off and on, in
+# turns (off, on, on, off, ...): one pass reads +-15 % on the host clock
+SANITIZE_PAIRS = 3
 # (d) zamba2's shared cache under the KV-layout flags (kvt, floats)
 RECURRENT_FLAGS = {"deferred_decode_cache": True, "kvt_cache_layout": True,
                    "int8_kv_cache": True}
@@ -5142,6 +5184,245 @@ def family_runs(fam: dict) -> dict[str, dict[str, int]]:
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 12: repro-san (analysis/sanitizer.py) at full width
+# ---------------------------------------------------------------------------
+
+class _UafAdapter(PagedAdapter):
+    """Frees a live slot's first block but leaves the table mapping it."""
+
+    tripped = False
+
+    def before_round(self, pos, live):
+        super().before_round(pos, live)
+        if not self.tripped:
+            s = int(np.flatnonzero(live)[0])
+            self.pool.free([self._slot_blocks[s][0]])      # pre_round poisons it
+            self.tripped = True
+
+
+class _LeakOnFinishAdapter(PagedAdapter):
+    """Drops the bookkeeping at finish but never returns the blocks."""
+
+    def on_finish(self, s):
+        self._slot_blocks[s], self._slot_need[s] = [], 0
+        self.table[s, :] = 0
+        self._slot_live[s] = False
+
+
+class _NanCacheAdapter(PagedAdapter):
+    """Writes NaN into the pool (layer 0, block 2) after a decode round."""
+
+    tripped = False
+
+    def decode_round(self, params, tok, pos, live, steps):
+        out = super().decode_round(params, tok, pos, live, steps)
+        if not self.tripped:
+            self.cache()["k_pages"][0, 2] = float("nan")
+            self.tripped = True
+        return out
+
+
+def _sanitize_pass(engine, reqs, mode: str) -> tuple[list, dict]:
+    """One phase-5 ragged pass; with a sanitized engine it adds the
+    sanitizer's stats of the serve."""
+    out, info = _ragged_pass(engine, reqs, mode)
+    if engine.sanitize:
+        sk = dict(slots=RAGGED["slots"], chunk=RAGGED["chunk"])
+        sched = (paged_scheduler(engine, block_size=RAGGED["block_size"], **sk) if mode == "paged"
+                 else slot_scheduler(engine, **sk))
+        info["sanitizer"] = dict(sched._core.sanitizer.stats)
+    return out, info
+
+
+def _sanitized_b8(dev) -> dict:
+    """(b) B8 at the serve's decode shape (PAGED_MAIN) over a bf16 pool
+    whose columns from each row's position on (the masked ones and the
+    stale slot at pos, which k_new replaces) and whose dead blocks hold
+    POISON: the output equals, bit for bit, the kernel's on the same pool
+    with zeros there, and lies within PAGED_TOL of the plain arithmetic in
+    f32 on the poisoned values."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    b, bs, T = PAGED_MAIN["b"], PAGED_MAIN["bs"], PAGED_MAIN["T"]
+    kv, g, hd, mb = PAGED["kv"], PAGED["g"], PAGED["hd"], T // bs
+    nb = b * mb + 1                                          # block 0: the sink
+    kp, vp, _, _ = _paged_pools(gen, dev, "float", torch.bfloat16, nb, bs)
+    pos = torch.randint(1, T, (b,), generator=gen, device=dev)
+    table = (torch.randperm(nb - 1, generator=gen, device=dev) + 1).reshape(b, mb)
+    table = table.to(torch.int32)
+    # every (physical block, in-block row) at or past its row's position
+    t = torch.arange(T, device=dev)
+    stale = (t[None, :] >= pos[:, None]).reshape(b, mb, bs)
+    phys = table.long()[:, :, None].expand(b, mb, bs)
+    rows = torch.arange(bs, device=dev)[None, None, :].expand(b, mb, bs)
+    dead_blocks = int((stale.all(-1)).sum())
+    poisoned, zeroed = (kp.clone(), vp.clone()), (kp.clone(), vp.clone())
+    for pages in poisoned:
+        pages[phys[stale], rows[stale]] = POISON
+    for pages in zeroed:
+        pages[phys[stale], rows[stale]] = 0
+    q = torch.randn((b, kv, g, hd), generator=gen, device=dev).to(torch.bfloat16)
+    kn = torch.randn((b, kv, hd), generator=gen, device=dev).to(torch.bfloat16)
+    vn = torch.randn((b, kv, hd), generator=gen, device=dev).to(torch.bfloat16)
+    mask = decode_mask(T, pos)
+    pos32 = pos.to(torch.int32)
+    kw = dict(scale=hd ** -0.5, softcap=None, k_scales=None, v_scales=None)
+    got = pkern.paged_attention_cuda(q, *poisoned, table, pos32, kn, vn, mask, **kw)
+    clean = pkern.paged_attention_cuda(q, *zeroed, table, pos32, kn, vn, mask, **kw)
+    want = paged_attention_ref(q.float(), poisoned[0].float(), poisoned[1].float(), table, pos,
+                               kn.float(), vn.float(), mask, **kw)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(want).all()) or not bool(torch.isfinite(got.float()).all()):
+        raise AssertionError("paged attention over the poisoned pool is not finite")
+    err = (got.float() - want).abs().max().item()
+    tol = PAGED_TOL[torch.bfloat16] * want.abs().max().item()
+    same = torch.equal(got, clean)
+    row = {"kernel": "paged_attn", "case": "poisoned pool", "b": b, "bs": bs, "T": T,
+           "poisoned_rows": int(stale.sum()), "dead_blocks": dead_blocks,
+           "bit_equal_to_zeroed": same, "max_abs_err": err, "tol": tol}
+    if not same or not err <= tol:
+        raise AssertionError(f"paged_attn under poison: {row}")
+    log(f"[sanitize] (b) B8 over a bf16 pool with {row['poisoned_rows']} poisoned rows "
+        f"({dead_blocks} dead blocks): output bit-equal to the zeroed pool's; max|err| vs "
+        f"plain {err:.2e} (tol {tol:.1e})")
+    return row
+
+
+def _caught(part: str, what: str, fn, err_type, needles) -> str:
+    """Runs a planted fault; it must raise ``err_type`` naming every needle."""
+    try:
+        fn()
+    except err_type as e:
+        msg = str(e)
+        if not all(n in msg for n in needles):
+            raise AssertionError(f"{what}: caught without its attribution {needles}: {msg}")
+        log(f"[sanitize] ({part}) {what} caught: {msg}")
+        return msg
+    raise AssertionError(f"{what}: the planted fault was not caught")
+
+
+def phase_sanitize(dev, reng, rvanilla) -> dict:
+    """Phase 12: repro-san at full width on phase 5's int8 engine and trace
+    (bf16 pool); see the module docstring. ``reng`` is phase 5's bf16-pool
+    engine and ``rvanilla`` its replayed passes' responses."""
+    t_start = time.perf_counter()
+    prev_checks = numerics_checks_enabled()
+    reqs = ragged_trace(reng.cfg.vocab_size)
+    san = InferenceEngine(reng.model, reng.params, cache_len=reng.cache_len, sanitize=True,
+                          device=dev)
+    res = {"passes": {}}
+    # (a) parity: the unsanitized engine's programs are phase 5's (replayed);
+    # the sanitized engine's are captured by a cold pass, then replayed
+    for mode in ("paged", "continuous"):
+        name = "paged_float" if mode == "paged" else "continuous"
+        _, cold = _sanitize_pass(san, reqs, mode)
+        runs = {"off": [], "on": []}
+        for i in range(2 * SANITIZE_PAIRS):
+            side = ("off", "on")[(i + i // 2) % 2]          # off, on, on, off, off, on
+            out, info = _sanitize_pass(san if side == "on" else reng, reqs, mode)
+            same = all(np.array_equal(a.tokens, b.tokens) and a.length == b.length
+                       for a, b in zip(out, rvanilla[name]))
+            if not same:
+                raise AssertionError(f"{mode} serve with the sanitizer {side}: tokens differ "
+                                     "from phase 5's replayed pass")
+            runs[side].append(info)
+        off, on = runs["off"][-1], runs["on"][-1]
+        st = on["sanitizer"]
+        if any(r["launches"] != off["launches"] for r in runs["on"] + runs["off"]):
+            raise AssertionError(f"sanitized {mode} serve: launches differ from the "
+                                 f"unsanitized serve's ({on['launches']} vs {off['launches']})")
+        if st["poison_reach"] or st["rounds_checked"] != on["rounds"] or (
+                mode == "paged" and not st["blocks_poisoned"]):
+            raise AssertionError(f"sanitized {mode} serve: bad sanitizer stats {st}")
+        if mode == "paged" and on["launches"]["paged_attn"] != \
+                reng.cfg.num_layers * on["decode_steps"]:
+            raise AssertionError("the sanitized paged serve did not run B8 once a layer a step")
+        tok_s = {k: float(np.median([r["tok_s"] for r in v])) for k, v in runs.items()}
+        round_ms = {k: float(np.median([1e3 * r["wall_s"] / r["rounds"] for r in v]))
+                    for k, v in runs.items()}
+        res["passes"][mode] = {"off": off, "on": on, "cold_on": cold, "runs": runs,
+                               "median_tok_s": tok_s, "median_ms_per_round": round_ms}
+        log(f"[sanitize] (a) {mode:10s} tokens bit-identical on/off (and equal to phase 5's); "
+            f"finalize clean; {st['blocks_poisoned']} blocks poisoned, {st['rounds_checked']} "
+            f"rounds checked, poison reach {st['poison_reach']}; median tok/s of "
+            f"{SANITIZE_PAIRS} passes in turns: off {tok_s['off']:.1f} (" + ", ".join(
+                f"{r['tok_s']:.1f}" for r in runs["off"]) + f"), on {tok_s['on']:.1f} ("
+            + ", ".join(f"{r['tok_s']:.1f}" for r in runs["on"])
+            + f"): {tok_s['on'] / tok_s['off']:.3f}x; ms a round off {round_ms['off']:.3f}, "
+            f"on {round_ms['on']:.3f} ({on['rounds']} rounds), of which the round check "
+            f"{1e3 * st['check_s'] / st['rounds_checked']:.3f} (host clock to its device read) "
+            f"[{CARD['smi']}]")
+
+    res["b8"] = _sanitized_b8(dev)
+
+    # (c) planted faults on the sanitized engine, the trace's slots and block
+    # size (the programs of (a) replay), one request each
+    sk = dict(slots=RAGGED["slots"], chunk=RAGGED["chunk"])
+    one = [Request(0, reqs[0].tokens, max_new=12)]
+
+    def serve_with(cls):
+        core = SchedulerCore(san, cls(san, block_size=RAGGED["block_size"]), **sk)
+        return core.serve(one, 12)
+
+    res["faults"] = {
+        "use_after_free": _caught("c", "use-after-free", lambda: serve_with(_UafAdapter),
+                                  SanitizerError, ("use-after-free", "freed physical block",
+                                                   "generation")),
+        "leak": _caught("c", "leak at finish", lambda: serve_with(_LeakOnFinishAdapter),
+                        SanitizerError, ("leak — request 0", "still owns block(s)")),
+        "nan_cache": _caught("c", "NaN in the pool", lambda: serve_with(_NanCacheAdapter),
+                             SanitizerError, ("cache leaf ['k_pages']", "(layer) indices [0]")),
+    }
+    model1 = build(dataclasses.replace(load_config(ARCH), num_layers=1))
+    bad = model1.init(seed=SERVE["seed"], device=dev)
+    bad["layers"]["attn"]["wqkv"][0, 5, 7] = float("nan")
+    res["faults"]["corrupt_weight"] = _caught(
+        "c", "corrupt weight at a sanitized engine's init",
+        lambda: InferenceEngine(model1, bad, cache_len=64, quantize=True, sanitize=True,
+                                device=dev),
+        QuantNumericsError, ("quantize[int8].input", "param 'layers/attn/wqkv'",
+                             "layer-class attn"))
+    del bad, model1
+
+    # (d) the quantized pools are refused under sanitize
+    res["refusals"] = {}
+    for kvq in ("int8", "fp8"):
+        qeng = InferenceEngine(reng.model, reng.params, cache_len=reng.cache_len, kv_quant=kvq,
+                               sanitize=True, device=dev)
+        res["refusals"][kvq] = _caught(
+            "d", f"kv_quant {kvq} pool refused",
+            lambda: serve_ragged(qeng, reqs[:2], 4, mode="paged", block_size=RAGGED["block_size"],
+                                 **sk),
+            NotImplementedError, ("poison", "OverflowError for int8", "NaN for float8_e4m3fn"))
+        del qeng
+
+    # (e) rwkv6-7b at full width, SANITIZE_RWKV_LAYERS layers, continuous
+    cfg = dataclasses.replace(load_config("rwkv6-7b"), num_layers=SANITIZE_RWKV_LAYERS)
+    model = build(cfg)
+    rreqs = recurrent_trace(cfg.vocab_size)
+    cache_len = max(len(r.tokens) + r.max_new for r in rreqs)
+    off_eng = InferenceEngine(model, model.init(seed=SERVE["seed"], device=dev),
+                              cache_len=cache_len, quantize=True, device=dev)
+    on_eng = InferenceEngine(model, off_eng.params, cache_len=cache_len, sanitize=True,
+                             device=dev)
+    rk = dict(slots=RECURRENT_RAGGED["slots"], chunk=RECURRENT_RAGGED["chunk"])
+    want = serve_ragged(off_eng, rreqs, RECURRENT_RAGGED["budgets"][1], mode="continuous", **rk)
+    got = serve_ragged(on_eng, rreqs, RECURRENT_RAGGED["budgets"][1], mode="continuous", **rk)
+    st = dict(slot_scheduler(on_eng, **rk)._core.sanitizer.stats)
+    if not all(np.array_equal(a.tokens, b.tokens) for a, b in zip(got, want)):
+        raise AssertionError("rwkv6: sanitized tokens differ from unsanitized ones")
+    _served(rreqs, got, cfg.vocab_padded)
+    res["rwkv6"] = {"layers": SANITIZE_RWKV_LAYERS, "requests": len(rreqs), "sanitizer": st}
+    log(f"[sanitize] (e) rwkv6-7b at {SANITIZE_RWKV_LAYERS} of 32 layers, full width: "
+        f"{len(rreqs)} requests continuous, tokens equal on/off, audit clean, "
+        f"{st['rounds_checked']} rounds checked")
+    del off_eng, on_eng, model, san
+    set_numerics_checks(prev_checks)
+    res["seconds"] = time.perf_counter() - t_start
+    log(f"[sanitize] phase 12 took {res['seconds']:.1f} s [{CARD['smi']}]")
+    return res
+
+
 def add_runs(entries: list[dict], runs: dict, rows: list[dict], key: str) -> None:
     """A phase's launches by run and its kernel rows (under ``key``) into the
     kernels line's entries."""
@@ -5230,6 +5511,7 @@ def main(argv=None) -> int:
     spec = phase_spec(dev, engines["int8"], serves["int8"], ragged, ragged_engine, ragged_outs)
     spec["seconds"] = time.perf_counter() - t_spec
     log(f"[spec] phase 7 (a) and (b) took {spec['seconds']:.1f} s")
+    sanitize = phase_sanitize(dev, ragged_engine, ragged_outs)
     del engines, ragged_engine, ragged_outs
     golden = phase_golden(dev)
     golden["deep"] = phase_golden_deep(dev)
@@ -5285,6 +5567,9 @@ def main(argv=None) -> int:
     add_runs(entries, {"phase 11 blockwise train step": train["blockwise"]["launches"],
                        "phase 11 (f) zamba2 blockwise train step":
                        train["recurrent"]["blockwise"]["launches"]}, [], "train_shapes")
+    add_runs(entries, {f"phase 12 sanitized {m} serve": p["on"]["launches"]
+                       for m, p in sanitize["passes"].items()}, [sanitize["b8"]],
+             "sanitize_shapes")
     family_summary(fam, smi)
     recurrent_summary(rec, smi)
     encdec_summary(enc, smi)
@@ -5311,7 +5596,7 @@ def main(argv=None) -> int:
              "recurrent_kernel_rows": rkrows, "recurrent_flash_rows": rfrows,
              "recurrent": rec,
              "encdec_kernel_rows": ekrows, "encdec_flash_rows": efrows, "encdec": enc,
-             "train_flash_rows": trows, "train": train,
+             "train_flash_rows": trows, "train": train, "sanitize": sanitize,
              "kernels": entries,
              "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -1,24 +1,37 @@
 """The port's static-analysis framework: its own copy of the checker
-protocol and AST helpers of ``repro/analysis/engine.py`` (the port imports
-nothing of the reference package).
+protocol, allowlist and AST helpers of ``repro/analysis/engine.py`` (the
+port imports nothing of the reference package).
 
-A checker implements ``check_file(path, tree, source)`` and yields
-:class:`Finding`s; :func:`run_analysis` runs checkers over files and
-directories. The reference's allowlist file and project-level checkers
-are not ported: the port's checkers run on its own files only.
+Two checker shapes exist, as in the reference:
+
+- **file checkers** implement ``check_file(path, tree, source)`` and run on
+  every scanned ``*.py`` (AST only, no imports);
+- **project checkers** implement ``check_project(root)`` and run once per
+  invocation; they may import the port's modules (the format registry, the
+  model registry) to hold live objects to their declared contracts.
+
+:func:`run_analysis` runs both. Deliberate exceptions live in an allowlist
+file (the CLI's default ``.repro-torch-lint-allow`` at the repo root), one
+finding pattern per line,
+
+    <checker-id>  <relpath-glob[:line]>  <justification...>
+
+Every suppression carries a justification; the CLI reports unused entries.
 """
 
 from __future__ import annotations
 
 import ast
 import dataclasses
+import fnmatch
 import os
 from typing import Iterable
 
 SEVERITIES = ("error", "warning")
 
-# directories never scanned
-SKIP_DIRS = {".git", "__pycache__", ".pytest_cache", "node_modules", ".venv"}
+# directories never scanned (fixtures are analyzed only when named explicitly)
+SKIP_DIRS = {".git", "__pycache__", ".pytest_cache", "node_modules", ".venv",
+             "analysis_fixtures"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,13 +58,75 @@ class Finding:
 
 
 class BaseChecker:
-    """No-op default; a checker overrides ``check_file``."""
+    """No-op defaults so a checker implements only the hook it needs."""
 
     id = "base"
     description = ""
 
     def check_file(self, path: str, tree: ast.AST, source: str) -> Iterable[Finding]:
         return ()
+
+    def check_project(self, root: str) -> Iterable[Finding]:
+        return ()
+
+
+@dataclasses.dataclass
+class AllowRule:
+    checker: str
+    pattern: str         # fnmatch over "relpath" or "relpath:line"
+    reason: str
+    lineno: int
+    hits: int = 0
+
+    def matches(self, f: Finding) -> bool:
+        if self.checker not in ("*", f.checker):
+            return False
+        return fnmatch.fnmatch(f.path, self.pattern) or fnmatch.fnmatch(f.anchor, self.pattern)
+
+
+class Allowlist:
+    """Parsed allowlist file. Lines: ``checker glob justification...``;
+    ``#`` comments and blank lines ignored; a justification is mandatory.
+    ``suppressed`` collects the findings it filtered out."""
+
+    def __init__(self, rules: list[AllowRule], path: str | None = None):
+        self.rules = rules
+        self.path = path
+        self.suppressed: list[Finding] = []
+
+    @classmethod
+    def load(cls, path: str) -> "Allowlist":
+        rules = []
+        with open(path, encoding="utf-8") as fh:
+            for i, raw in enumerate(fh, 1):
+                line = raw.split("#", 1)[0].strip()
+                if not line:
+                    continue
+                parts = line.split(None, 2)
+                if len(parts) < 3:
+                    raise ValueError(f"{path}:{i}: allowlist entries are '<checker> <glob> "
+                                     "<justification>'; a justification is required")
+                rules.append(AllowRule(parts[0], parts[1], parts[2], i))
+        return cls(rules, path)
+
+    @classmethod
+    def empty(cls) -> "Allowlist":
+        return cls([])
+
+    def filter(self, findings: list[Finding]) -> list[Finding]:
+        """The findings no rule matches; counts each rule's hits."""
+        kept = []
+        for f in findings:
+            rule = next((r for r in self.rules if r.matches(f)), None)
+            if rule is None:
+                kept.append(f)
+            else:
+                rule.hits += 1
+                self.suppressed.append(f)
+        return kept
+
+    def unused(self) -> list[AllowRule]:
+        return [r for r in self.rules if r.hits == 0]
 
 
 def iter_python_files(paths: list[str], root: str) -> list[str]:
@@ -68,10 +143,13 @@ def iter_python_files(paths: list[str], root: str) -> list[str]:
     return out
 
 
-def run_analysis(checkers: list, paths: list[str], root: str) -> list[Finding]:
-    """Every checker over ``paths``, findings sorted by (path, line,
-    checker); a file that fails to parse is itself a finding."""
+def run_analysis(checkers: list, paths: list[str], root: str,
+                 allowlist: Allowlist | None = None) -> list[Finding]:
+    """Every file checker over ``paths``, then every project checker once;
+    findings sorted by (path, line, checker), less those ``allowlist``
+    suppresses. A file that fails to parse is itself a finding."""
     findings: list[Finding] = []
+    file_checkers = [c for c in checkers if type(c).check_file is not BaseChecker.check_file]
     for fp in iter_python_files(paths, root):
         rel = os.path.relpath(fp, root).replace(os.sep, "/")
         try:
@@ -81,10 +159,13 @@ def run_analysis(checkers: list, paths: list[str], root: str) -> list[Finding]:
         except (SyntaxError, UnicodeDecodeError) as e:
             findings.append(Finding("parse", rel, getattr(e, "lineno", 0) or 0, str(e)))
             continue
-        for c in checkers:
+        for c in file_checkers:
             findings.extend(c.check_file(rel, tree, source))
+    for c in checkers:
+        if type(c).check_project is not BaseChecker.check_project:
+            findings.extend(c.check_project(root))
     findings.sort(key=lambda f: (f.path, f.line, f.checker))
-    return findings
+    return (allowlist or Allowlist.empty()).filter(findings)
 
 
 def dotted_name(node: ast.AST) -> str:

@@ -11,6 +11,10 @@ leaves fall into layer classes (embed / classifier / attn / ffn / other)
 and a format map gives each class a registry format. The "mixed" preset
 keeps embeddings and classifier at int8 and packs attention/FFN to int4;
 "mixed3" packs them to int3.
+
+With the numerics checks on (``core/quant.py``, armed by a sanitized
+engine before its PTQ) a corrupt weight raises ``QuantNumericsError``
+naming its param path and layer class, as in the reference.
 """
 
 from __future__ import annotations
@@ -21,8 +25,11 @@ import torch
 
 from repro_torch.core.quant import (
     QuantizedTensor,
+    QuantNumericsError,
+    _numerics_guard,
     get_format,
     largest_pow2_group,
+    numerics_checks_enabled,
 )
 from repro_torch.core.tree import tree_leaves, tree_map_with_path
 
@@ -135,7 +142,11 @@ def quantize_params(params, group_size: int, formats="int8"):
         fmt = get_format(fmt_name)
         if gs % fmt.pack:
             fmt = get_format("int8")  # packing impossible on this geometry
-        return _quantize_stacked(fmt, leaf, gs)
+        try:
+            return _quantize_stacked(fmt, leaf, gs)
+        except QuantNumericsError as e:
+            # repro-san attribution: which weight, which layer class
+            raise QuantNumericsError(f"{e} [param {p!r}, layer-class {leaf_class(p)}]") from e
 
     return tree_map_with_path(convert, params)
 
@@ -144,20 +155,28 @@ def _quantize_stacked(fmt, leaf: torch.Tensor, gs: int) -> QuantizedTensor:
     """``fmt.quantize`` of a stacked (..., out, in) leaf one (out, in) slice
     at a time into the stacked storage: the same values (groups lie along
     each row), without the f32 copies of the whole leaf that one call makes
-    (a layer of dbrx's experts is 2.1 G weights)."""
+    (a layer of dbrx's experts is 2.1 G weights). The numerics checks
+    guard the whole leaf's input and scales, as the reference's one call
+    does, so a fault is reported at the same index."""
     if leaf.ndim <= 2:
         return fmt.quantize(leaf, gs)
+    check = numerics_checks_enabled()
+    if check:
+        _numerics_guard(f"quantize[{fmt.name}].input", leaf)
     flat = leaf.reshape(-1, *leaf.shape[-2:])
-    first = fmt.quantize(flat[0], gs)
+    first = fmt.quantize_fn(flat[0], group_size=gs)
     qv = first.qvalues.new_empty((flat.shape[0], *first.qvalues.shape))
     sc = first.scales.new_empty((flat.shape[0], *first.scales.shape))
     qv[0], sc[0] = first.qvalues, first.scales
     for i in range(1, flat.shape[0]):
-        one = fmt.quantize(flat[i], gs)
+        one = fmt.quantize_fn(flat[i], group_size=gs)
         qv[i], sc[i] = one.qvalues, one.scales
     lead = leaf.shape[:-2]
-    return QuantizedTensor(qv.reshape(*lead, *qv.shape[1:]), sc.reshape(*lead, *sc.shape[1:]),
-                           gs, fmt.name)
+    qt = QuantizedTensor(qv.reshape(*lead, *qv.shape[1:]), sc.reshape(*lead, *sc.shape[1:]),
+                         gs, fmt.name)
+    if check:
+        _numerics_guard(f"quantize[{fmt.name}].scales", qt.scales)
+    return qt
 
 
 def quantized_fraction(params) -> float:

@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import flags
-from repro_torch.core.quant import QuantizedTensor
+from repro_torch.core.quant import QuantizedTensor, dequantize_unchecked
 from repro_torch.kernels import ops
 
 __all__ = ["linear", "embedding_lookup", "quantize_input", "split_fused"]
@@ -33,7 +33,7 @@ def linear(w, x: torch.Tensor, xq: QuantizedTensor | None = None) -> torch.Tenso
     reference leaves that product to XLA, so no kernel of the port runs."""
     if isinstance(w, QuantizedTensor):
         if flags.get("prefill_dequant"):
-            return torch.einsum("...i,oi->...o", x, w.dequantize(x.dtype))
+            return torch.einsum("...i,oi->...o", x, dequantize_unchecked(w, x.dtype))
         if xq is None:      # the call the trace tools wrap (tests/trace_torch_*.py)
             return ops.quantized_matmul(x, w).to(x.dtype)
         return ops.quantized_matmul(x, w, xq=xq).to(x.dtype)

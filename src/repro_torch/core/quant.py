@@ -20,11 +20,20 @@ constant in f32, a true division, round half to even, clip to +-qmax (the
 all-zero group keeps scale 0 and values 0); fp8 rounds to nearest even in
 the storage cast. Activations are always quantized to int8 (W4A8, W3A8 and
 fp8-weight x int8-activation products).
+
+The repro-san numerics tripwires (``set_numerics_checks``, armed by the
+sanitizer, ``analysis/sanitizer.py``) guard the format-dispatched
+``quantize`` and ``dequantize`` entry points: the input, the scales and
+the output. They run where the reference's run, on concrete values (PTQ
+at engine init, direct calls): the model step's own dequantize
+(``dequantize_unchecked``) and anything run while a CUDA graph is being
+captured pass unchecked, as the reference's guards pass its tracers.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from contextlib import contextmanager
 from typing import Callable
 
 import torch
@@ -32,6 +41,65 @@ import torch
 DEFAULT_GROUP_SIZE = 256  # paper §III-A: GS=256 divides every TinyLlama dim
 
 FP8_MAX = 448.0  # float8_e4m3fn's largest finite value
+
+
+# ---------------------------------------------------------------------------
+# repro-san numerics tripwires (off unless the sanitizer arms them)
+# ---------------------------------------------------------------------------
+
+_OVERFLOW_LIMIT = 1e30          # |x| beyond this at a boundary is an error
+_NUMERICS = {"on": False}       # process-global, like the format registry
+# elements a guard reads at once: a stacked leaf of billions of weights is
+# checked a slice at a time, so the check adds no leaf-sized temporary
+_GUARD_CHUNK = 1 << 24
+
+
+class QuantNumericsError(ArithmeticError):
+    """NaN/Inf/overflow crossing a quantize/dequantize boundary."""
+
+
+def set_numerics_checks(on: bool) -> None:
+    _NUMERICS["on"] = bool(on)
+
+
+def numerics_checks_enabled() -> bool:
+    return _NUMERICS["on"]
+
+
+@contextmanager
+def numerics_checks(on: bool = True):
+    """Scoped enable/disable for tests and one-off audits."""
+    prev = _NUMERICS["on"]
+    _NUMERICS["on"] = bool(on)
+    try:
+        yield
+    finally:
+        _NUMERICS["on"] = prev
+
+
+def _numerics_guard(tag: str, x: torch.Tensor) -> None:
+    """Raise :class:`QuantNumericsError` if ``x`` holds a NaN, an Inf or a
+    value past ``_OVERFLOW_LIMIT``, naming the count and the first one
+    (the reference's message). Integer tensors, and any tensor while a
+    CUDA graph is being captured (a device read there ends the capture),
+    pass."""
+    if not x.is_floating_point() or (x.is_cuda and torch.cuda.is_current_stream_capturing()):
+        return
+    flat = x.detach().reshape(-1)
+    n, first = 0, None
+    for i in range(0, flat.numel(), _GUARD_CHUNK):
+        part = flat[i:i + _GUARD_CHUNK].float()
+        bad = ~(part.abs() <= _OVERFLOW_LIMIT)          # NaN compares False
+        k = int(bad.sum())
+        if k and first is None:
+            first = i + int(bad.nonzero()[0, 0])
+        n += k
+    if n:
+        idx = tuple(int(v) for v in torch.unravel_index(torch.tensor(first), tuple(x.shape)))
+        val = flat[first].float().cpu().numpy()[()]
+        raise QuantNumericsError(
+            f"repro-san[numerics]: {tag}: {n} non-finite/overflow value(s) "
+            f"of {x.numel()}, first at index {idx} = {val!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,7 +188,12 @@ class QuantFormat:
     pack_storage: int = 1
 
     def quantize(self, r: torch.Tensor, group_size: int) -> QuantizedTensor:
-        return self.quantize_fn(r, group_size=group_size)
+        if _NUMERICS["on"]:
+            _numerics_guard(f"quantize[{self.name}].input", r)
+        qt = self.quantize_fn(r, group_size=group_size)
+        if _NUMERICS["on"]:
+            _numerics_guard(f"quantize[{self.name}].scales", qt.scales)
+        return qt
 
     def unpack_values(self, qvalues: torch.Tensor) -> torch.Tensor:
         """Storage -> logical values (identity when unpacked)."""
@@ -311,7 +384,19 @@ def quantize(r: torch.Tensor, group_size: int = DEFAULT_GROUP_SIZE,
 
 
 def dequantize(qt: QuantizedTensor, dtype=torch.float32) -> torch.Tensor:
-    """r_hat = Q(r) * S (Eq. 2) over ``qt``'s unpacked logical values."""
+    """r_hat = Q(r) * S (Eq. 2), its scales and output guarded when the
+    numerics checks are on."""
+    if _NUMERICS["on"]:
+        _numerics_guard(f"dequantize[{qt.fmt}].scales", qt.scales)
+    out = dequantize_unchecked(qt, dtype)
+    if _NUMERICS["on"]:
+        _numerics_guard(f"dequantize[{qt.fmt}].output", out)
+    return out
+
+
+def dequantize_unchecked(qt: QuantizedTensor, dtype=torch.float32) -> torch.Tensor:
+    """``dequantize`` without the tripwires: the model step's own dequantize
+    (a host read per projection would stall every step)."""
     v = qt.format.unpack_values(qt.qvalues)
     g = v.reshape(*v.shape[:-1], qt.num_groups, qt.group_size)
     out = g.to(torch.float32) * qt.scales[..., None]

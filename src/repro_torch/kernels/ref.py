@@ -4,7 +4,8 @@ Counterpart of ``repro/kernels/ref.py`` (``gqmv_ref``, ``gqmm_ref``, their
 int4/int3/fp8 siblings, ``paged_attention_ref``), of the reference's
 oracles for its flash-attention and fused RMSNorm + quantize kernels
 (``flash_attention_ref``, ``rmsnorm_quant_ref``), and the yardstick the CUDA
-kernels in ``csrc/`` are held to. GQMV/GQMM (paper Algorithm 1,
+kernels in ``csrc/`` are held to; also the sanitizer's use-after-free
+oracle, ``paged_poison_counts``. GQMV/GQMM (paper Algorithm 1,
 ``csrc/gqmm.cu``):
 
   for each output row i:
@@ -195,6 +196,38 @@ def paged_attention_ref(
     ctx = torch.einsum("bkgt,btkh->bkgh", attn_z.to(q.dtype), v)
     ctx = ctx + attn_cur * v_new[:, :, None, :]
     return ctx.reshape(b, kv * g * hd)
+
+
+def paged_poison_counts(
+    k_pages: torch.Tensor,      # (L, NB, BS, KV, hd) the block pool, every layer
+    v_pages: torch.Tensor,      # (L, NB, BS, KV, hd)
+    block_table: torch.Tensor,  # (b, MB) physical block per virtual block
+    pos: torch.Tensor,          # (b,) current decode position per row
+    poison: float,
+) -> torch.Tensor:
+    """repro-san's use-after-free oracle (the reference's
+    ``paged_poison_counts``): per (layer, slot, virtual block) the count of
+    committed positions whose gathered K or V row holds the poison fill
+    (analysis/shadow.py ``POISON``, written over freed blocks).
+
+    It gathers through ``block_table`` as :func:`paged_attention_ref` does,
+    so a hit means a freed block is reachable by a slot at a position the
+    mask does not exclude. Only positions ``t < pos[slot]`` count: lookahead
+    blocks (allocated ahead of the write frontier, perhaps recycled and
+    poisoned) and finished slots' sink-mapped rows stay clean. Runs on the
+    pool's device; returns int32 (L, b, MB)."""
+    ell, _, bs = k_pages.shape[:3]
+    b, mb = block_table.shape
+    dev = k_pages.device
+    table = block_table.to(dev, torch.long)
+    t = torch.arange(mb * bs, device=dev)
+    committed = (t[None, :] < pos.to(dev, torch.long)[:, None]).reshape(b, mb, bs)
+    out = torch.zeros((ell, b, mb), dtype=torch.int32, device=dev)
+    for pages in (k_pages, v_pages):
+        value = torch.tensor(poison, dtype=pages.dtype).to(dev)
+        bad = (pages[:, table] == value).reshape(ell, b, mb, bs, -1).any(-1)
+        out += (bad & committed[None]).sum(-1, dtype=torch.int32)
+    return out
 
 
 def flash_attention_ref(

@@ -17,7 +17,8 @@ recurrent archs). The encoder-decoder (seamless-m4t-large-v2) serves
 the prompt, as the reference does; its ``--ragged`` exits (the bucketed
 path gives the encoder no frames). What a family lacks (a paged cache,
 ``--spec-k``, ``--kv-quant`` on the MLA, recurrent and encoder-decoder
-archs) exits with the reference's error. Runs on ``--device cuda`` by
+archs) exits with the reference's error. ``--sanitize`` arms repro-san
+(analysis/sanitizer.py; as ``REPRO_SAN=1`` does). Runs on ``--device cuda`` by
 default; pass ``--device cpu`` to run on the CPU. Prints the captured
 programs by name (``serving/graphs.py``): how many, and their warm-up and
 capture seconds (on the CPU the programs run eagerly and none is
@@ -90,6 +91,10 @@ def main(argv=None):
     ap.add_argument("--drafter", default="ngram",
                     help="speculative drafter: 'ngram' (prompt lookup, no weights) or "
                          "'model:<arch-id>' (a small registry model, greedy drafts)")
+    ap.add_argument("--sanitize", action="store_true",
+                    help="repro-san debug mode: shadow block/slot tracking, poison-on-free "
+                         "use-after-free detection, NaN/Inf tripwires (equivalent to "
+                         "REPRO_SAN=1)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     sampler_kw = ({"p": args.top_p, "temperature": args.temperature}
@@ -125,7 +130,8 @@ def main(argv=None):
         quantize = args.quantize_format
     try:
         engine = InferenceEngine(model, params, cache_len=cache_len, quantize=quantize,
-                                 kv_quant=args.kv_quant, device=device)
+                                 kv_quant=args.kv_quant, device=device,
+                                 sanitize=True if args.sanitize else None)
     except ValueError as e:
         ap.error(str(e))
     breakdown = format_breakdown(engine.params)
@@ -146,8 +152,9 @@ def main(argv=None):
         kw = dict(slots=args.slots, mode=mode, block_size=args.block_size, **gen_kw)
         try:
             serve_ragged(engine, reqs, args.steps, **kw)  # warm
-        except ValueError as e:
-            ap.error(str(e))                          # e.g. --spec-k with bucketed, encdec
+        except (ValueError, NotImplementedError) as e:
+            # e.g. --spec-k with bucketed, encdec; --sanitize on a quantized pool
+            ap.error(str(e))
         t0 = time.perf_counter()
         out = serve_ragged(engine, reqs, args.steps, seed=args.seed + 1, **kw)
         hot = time.perf_counter() - t0

@@ -59,7 +59,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import flags
 from repro_torch.core.qlinear import linear, split_fused
-from repro_torch.core.quant import FP8_MAX, QuantizedTensor
+from repro_torch.core.quant import FP8_MAX, QuantizedTensor, dequantize_unchecked
 from repro_torch.kernels import ops
 from repro_torch.models.common import (
     apply_rope,
@@ -800,7 +800,7 @@ def mla_prefill(p, x: torch.Tensor, cfg: ModelConfig, cache_len: int, *, window=
 def _maybe_dequant(w) -> torch.Tensor:
     """A quantized weight dequantized to f32 (``dequantize()``'s default), as
     the reference's decode takes ``wukv``; a float weight as it is."""
-    return w.dequantize() if isinstance(w, QuantizedTensor) else w
+    return dequantize_unchecked(w) if isinstance(w, QuantizedTensor) else w
 
 
 def _mla_absorbed(p, x: torch.Tensor, cfg: ModelConfig, pos):

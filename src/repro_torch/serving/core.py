@@ -35,8 +35,14 @@ history, the adapter replays its captured verify program
 counts; positions advance on the host by each slot's commit count, as the
 program advanced them on the device. Top-p draws its noise from a
 generator on the engine's device seeded with the serve's ``seed``, into
-the programs' noise buffers before each replay. Not ported: the repro-san
-sanitizer hooks.
+the programs' noise buffers before each replay.
+
+With ``sanitize`` (analysis/sanitizer.py; by default the engine's setting)
+the core calls the repro-san hooks at the reference's points: admission,
+each prefill group, each finish (after ``adapter.on_finish``), before and
+after every decode or verify round, and at the end of the serve. The
+sanitizer reads and poisons the adapter's static cache in place
+(``CacheAdapter.cache``), between replays, with one device read a round.
 """
 
 from __future__ import annotations
@@ -48,7 +54,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.tree import tree_leaves
+from repro_torch.analysis.sanitizer import Sanitizer
+from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.serving.sampling import (
     GUMBEL,
     UNIFORM,
@@ -142,8 +149,11 @@ class CacheAdapter:
                place)
       free     ``on_finish``                 (paged: blocks back to the pool,
                table row sunk)
+      snapshot ``snapshot``                  (host copy of per-slot state,
+               for preemption and debugging)
 
-    The adapter owns its cache: static buffers that outlive a serve.
+    The adapter owns its cache: static buffers that outlive a serve
+    (``cache``).
     ``prefill_insert`` and ``decode_round`` return device tensors; the core
     makes the host transfers."""
 
@@ -161,6 +171,15 @@ class CacheAdapter:
     def begin_serve(self) -> None:
         """Reset the static cache (plus any host-side pool state)."""
         raise NotImplementedError
+
+    def _state(self) -> dict:
+        """The static buffers: the round state and the ``cache``."""
+        raise NotImplementedError
+
+    def cache(self) -> dict:
+        """The static device cache the adapter's programs read and write in
+        place (the sanitizer's view of it)."""
+        return self._state()["cache"]
 
     def can_admit(self, r: Request, budget: int) -> bool:
         return True
@@ -211,11 +230,18 @@ class CacheAdapter:
     def end_serve(self) -> None:
         """Post-serve bookkeeping (paged: pool high-water accounting)."""
 
+    def snapshot(self, slots):
+        """Host copy of the per-slot cache state for ``slots``."""
+        raise NotImplementedError
+
     def san_state(self) -> dict:
-        """The adapter's host allocator state, ``{"pool": BlockPool | None,
-        "table": block-table ndarray | None}`` (the reference's sanitizer
-        registration; the sanitizer itself is not ported)."""
-        raise NotImplementedError(f"{self.kind}: adapter registers no allocator state")
+        """repro-san registration (analysis/sanitizer.py): the adapter's host
+        allocator state as ``{"pool": BlockPool | None, "table": block-table
+        ndarray | None}``. Every concrete adapter defines this in its own
+        body (the ``adapter-lifecycle`` checker holds it to that) so the
+        shadow tracker can mirror whatever the adapter allocates."""
+        raise NotImplementedError(f"{self.kind}: adapter registers no "
+                                  "sanitizer state (san_state)")
 
 
 def noise_buffer(engine, rows: int) -> dict:
@@ -376,6 +402,15 @@ class ContiguousAdapter(CacheAdapter):
                                   st["cache"]))
         return replay_verify(prog, core.gen, chunk, pos, live, remaining)
 
+    def snapshot(self, slots):
+        """The slots' cache rows (``Model.gather_slots``), copied to the host."""
+        san = self.core.sanitizer
+        if san is not None:
+            san.on_snapshot(slots)
+        idx = torch.as_tensor(np.asarray(slots), dtype=torch.long).to(self.engine.device)
+        rows = self.engine.model.gather_slots(self.cache(), idx)
+        return tree_map(lambda x: x.to("cpu", copy=True), rows)
+
     def san_state(self):
         # slot rows are the allocation: no pool, no table
         return {"pool": None, "table": None}
@@ -466,11 +501,13 @@ class SchedulerCore:
     round; the host's tok/pos/live are copied into the adapter's static
     buffers. ``spec_k`` (>= 2) makes every round a speculative verify step
     with ``drafter`` (default: the n-gram drafter); ``last_spec_stats``
-    reports the last serve's verify steps, delivered tokens and drafts."""
+    reports the last serve's verify steps, delivered tokens and drafts.
+    ``sanitize`` arms repro-san (``sanitizer``); None takes the engine's
+    setting, so every scheduler over a sanitized engine is sanitized."""
 
     def __init__(self, engine, adapter: CacheAdapter, *, slots: int = 4, chunk: int = 4,
                  sampler: str = "greedy", sampler_kw=None, spec_k: int | None = None,
-                 drafter=None):
+                 drafter=None, sanitize: bool | None = None):
         if spec_k is not None:
             if spec_k < 2:
                 raise ValueError(f"spec_k must be >= 2, got {spec_k}")
@@ -490,6 +527,8 @@ class SchedulerCore:
         self.rounds = 0                # decode (or verify) rounds of the last serve
         self.decode_steps = 0          # decode (or verify) forward passes of the last serve
         self.last_spec_stats: dict[str, int] | None = None
+        san_on = engine.sanitize if sanitize is None else bool(sanitize)
+        self.sanitizer = Sanitizer(self) if san_on else None
         adapter.bind(self)
 
     @torch.inference_mode()
@@ -507,6 +546,9 @@ class SchedulerCore:
         # slots of slack past the vanilla need (frozen slots' chunks index too)
         adapter.validate(requests, budget, self.spec_k or 0)
         adapter.begin_serve()
+        san = self.sanitizer
+        if san is not None:
+            san.begin_serve(adapter, adapter.cache())
         self.gen = torch.Generator(device=engine.device).manual_seed(seed)
         pending = deque(requests)
         slot_req: list[Request | None] = [None] * B
@@ -528,6 +570,10 @@ class SchedulerCore:
             remaining[s] = 0
             live[s] = False                # token and position stay frozen
             adapter.on_finish(s)
+            if san is not None:
+                # freeze the slot shadow, audit the request's blocks, and
+                # poison its frees now, before any re-allocation can write
+                san.on_request_finish(s, r.id, pos[s])
 
         while pending or live.any():
             # admission: pop pending in arrival order while a slot (and, for
@@ -543,10 +589,14 @@ class SchedulerCore:
                 s = free_slots.pop(0)
                 slot_req[s], slot_toks[s] = r, []
                 live[s] = True
+                if san is not None:
+                    san.on_admit(s, r)
                 adapter.on_admit(s, r, budget(r))
                 admitted[adapter.group_len(len(r.tokens))].append((s, r))
             staged = []
             for length, group in admitted.items():
+                if san is not None:
+                    san.on_prefill_group(group, length)
                 toks_np, lens_np = pad_bucket([r for _, r in group], length)
                 staged.append((group, adapter.prefill_insert(engine.params, toks_np, lens_np,
                                                              group, length)))
@@ -573,6 +623,8 @@ class SchedulerCore:
 
             adapter.before_round(pos, live)
             adapter.check_positions(pos, live)
+            if san is not None:
+                san.pre_round()
             self.rounds += 1
             if self.spec_k is not None:
                 # speculative round: draft on the host from each slot's token
@@ -597,6 +649,8 @@ class SchedulerCore:
                     remaining[s] = n - len(slot_toks[s])
                     if len(slot_toks[s]) >= n or (eos is not None and eos in slot_toks[s][:n]):
                         finish(s)
+                if san is not None:
+                    san.check_round(pos, live)
                 continue
             toks_d, n_d = adapter.decode_round(engine.params, tok, pos, live,
                                                adapter.round_steps(live, remaining))
@@ -620,6 +674,10 @@ class SchedulerCore:
                     done = True
                 if done:
                     finish(s)
+            if san is not None:
+                san.check_round(pos, live)
 
+        if san is not None:
+            san.finalize()
         adapter.end_serve()
         return [out[r.id] for r in requests]

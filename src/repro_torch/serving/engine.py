@@ -26,6 +26,12 @@ The encoder-decoder (``cache_kind="none"``) takes ``batch["frames"]``, its
 encoder's input, into a static buffer of the signature beside the prompt;
 its static cache holds exactly as many cross K/V rows as the frames have
 positions (cross attention attends to every memory row).
+
+``sanitize`` (None: the ``REPRO_SAN`` environment decides) arms repro-san
+(analysis/sanitizer.py): the quantize/dequantize tripwires before the
+weights are quantized, every scheduler over the engine, and a check of
+``generate``'s last logits. ``snapshot``/``restore`` carry generation state
+(with the block table on the paged path) to the host and back.
 """
 
 from __future__ import annotations
@@ -36,8 +42,10 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from repro_torch.analysis.sanitizer import check_array, sanitize_enabled
 from repro_torch.core.policy import quantize_params, quantized_fraction
-from repro_torch.core.tree import tree_leaves, tree_to
+from repro_torch.core.quant import set_numerics_checks
+from repro_torch.core.tree import tree_leaves, tree_map, tree_to
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import KV_STORE_DTYPES
 from repro_torch.models.registry import Model, build
@@ -90,11 +98,12 @@ class InferenceEngine:
     defaults to "cuda" and raises when CUDA is missing; pass "cpu" to run
     on the CPU. ``params`` are moved there. ``graphs`` holds the engine's
     captured programs (``serving/graphs.py``), kept for its lifetime.
+    ``sanitize`` arms repro-san; None defers to ``REPRO_SAN``.
     """
 
     def __init__(self, model: Model, params, *, cache_len: int,
                  quantize: bool | str | Mapping[str, str | None] = False,
-                 eos_id: int | None = None,
+                 eos_id: int | None = None, sanitize: bool | None = None,
                  kv_quant: str | None = None, device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
         if kv_quant:
@@ -113,6 +122,12 @@ class InferenceEngine:
         self.cfg = model.cfg
         self.cache_len = cache_len
         self.eos_id = eos_id
+        # schedulers built on this engine take the resolved setting; the
+        # numerics checks arm before quantization, so a corrupt checkpoint
+        # fails at init with its param path and layer class
+        self.sanitize = bool(sanitize_enabled() if sanitize is None else sanitize)
+        if self.sanitize:
+            set_numerics_checks(True)
         params = tree_to(params, self.device)
         if quantize is not False and quantize is not None:
             formats = self.cfg.quant_format if quantize is True else quantize
@@ -347,8 +362,10 @@ class InferenceEngine:
             dec.replay()
             if step + 1 < max_new_tokens:
                 out[:, step + 1] = st["tok"]
-        return GenerationResult(tokens=out.cpu(), logits_last=dec.copies(),
-                                steps=max_new_tokens)
+        logits = dec.copies()
+        if self.sanitize:
+            check_array("generate.logits_last", logits)
+        return GenerationResult(tokens=out.cpu(), logits_last=logits, steps=max_new_tokens)
 
     def _generate_spec(self, key, st, tokens, lengths, logits0, max_new: int, spec_k: int,
                        drafter, sampler: tuple, gen) -> GenerationResult:
@@ -397,6 +414,32 @@ class InferenceEngine:
         out = np.full((b, max_new), pad, np.int64)
         for i in range(b):
             out[i, : len(outs[i])] = outs[i][:max_new]
-        return GenerationResult(tokens=torch.from_numpy(out),
-                                logits_last=ver.inputs["last"].clone(),
+        logits = ver.inputs["last"].clone()
+        if self.sanitize:
+            check_array("generate_spec.logits_last", logits)
+        return GenerationResult(tokens=torch.from_numpy(out), logits_last=logits,
                                 steps=stats["verify_steps"], spec_stats=stats)
+
+    # -- generation state ------------------------------------------------------
+    @staticmethod
+    def snapshot(cache, pos, tokens, block_table=None) -> dict:
+        """Generation state copied to the host. On the paged path the cache
+        is the block pool, so the block table is part of the state: without
+        it the pool's rows are unaddressable."""
+        snap = {"cache": tree_map(lambda x: x.detach().to("cpu", copy=True), cache),
+                "pos": torch.as_tensor(pos).to("cpu", copy=True).numpy(),
+                "tokens": torch.as_tensor(tokens).to("cpu", copy=True)}
+        if block_table is not None:
+            snap["block_table"] = torch.as_tensor(block_table).to("cpu", copy=True).numpy()
+        return snap
+
+    def restore(self, snap: dict):
+        """``snapshot``'s state on the engine's device: (cache, pos, tokens),
+        and the int32 block table when the snapshot has one."""
+        out = (tree_to(snap["cache"], self.device),
+               torch.as_tensor(snap["pos"], dtype=torch.long).to(self.device),
+               torch.as_tensor(snap["tokens"]).to(self.device))
+        if "block_table" in snap:
+            return out + (torch.as_tensor(snap["block_table"], dtype=torch.int32)
+                          .to(self.device),)
+        return out

@@ -19,6 +19,11 @@ row per slot:
 - ``PagedScheduler``: the front that picks the adapter and reports the
   residency high-water mark.
 
+Under repro-san (analysis/sanitizer.py) the pool's ``shadow`` mirrors
+every alloc and free, freed blocks are filled with the poison value in the
+pool's own storage, and ``PagedAdapter.snapshot`` checks the slots against
+the shadow.
+
 Admission is reservation-gated (``can_admit``): a request is admitted only
 when the pool covers every live request's worst-case remaining need plus
 its own, so allocation for live slots never fails and no preemption path is
@@ -76,6 +81,9 @@ class BlockPool:
         self._free = list(range(num_blocks - 1, 0, -1))   # LIFO reuse
         self._free_set = set(self._free)
         self.peak_live = 0
+        # repro-san hook (analysis/shadow.py ShadowBlockTracker): when set,
+        # every alloc and free is mirrored (ownership, generations, poison)
+        self.shadow = None
 
     @property
     def free_blocks(self) -> int:
@@ -92,9 +100,15 @@ class BlockPool:
         out = [self._free.pop() for _ in range(n)]
         self._free_set.difference_update(out)
         self.peak_live = max(self.peak_live, self.live_blocks)
+        if self.shadow is not None:
+            self.shadow.on_alloc(out)
         return out
 
     def free(self, blocks: Sequence[int]) -> None:
+        if self.shadow is not None:
+            # first: the shadow's diagnosis (double free with its generation)
+            # says more than the bare ValueError below
+            self.shadow.on_free(blocks)
         for b in blocks:
             # a double free would hand one physical block to two requests
             if not 0 < b < self.num_blocks or b in self._free_set:
@@ -167,6 +181,8 @@ class PagedAdapter(CacheAdapter):
         target = min(math.ceil((p + self._ahead) / bs), self._slot_need[s])
         delta = target - len(self._slot_blocks[s])
         if delta > 0:
+            if self.pool.shadow is not None:
+                self.pool.shadow.set_context(s)   # attribute the growth alloc
             new = self.pool.alloc(delta)
             start = len(self._slot_blocks[s])
             self._slot_blocks[s].extend(new)
@@ -329,6 +345,15 @@ class PagedAdapter(CacheAdapter):
         self._slot_blocks[s], self._slot_need[s] = [], 0
         self.table[s, :] = 0                   # stray writes go to the sink
         self._slot_live[s] = False
+
+    def snapshot(self, slots):
+        """The pool and each slot's block-table row, copied to the host: pool
+        rows are unaddressable without the table."""
+        san = self.core.sanitizer
+        if san is not None:
+            san.on_snapshot(slots)
+        return {"cache": {k: v.to("cpu", copy=True) for k, v in self.cache().items()},
+                "table": self.table[np.asarray(slots)].copy()}
 
     def san_state(self):
         return {"pool": self.pool, "table": self.table}

@@ -45,7 +45,13 @@ def test_port_file_list_is_complete():
                  "src/repro_torch/kernels/paged_attn.py", "src/repro_torch/serving/core.py",
                  "src/repro_torch/serving/batching.py", "src/repro_torch/serving/paged.py",
                  "src/repro_torch/core/flags.py", "src/repro_torch/kernels/flash_attn.py",
-                 "src/repro_torch/kernels/rmsnorm_quant.py"):
+                 "src/repro_torch/kernels/rmsnorm_quant.py",
+                 "src/repro_torch/analysis/shadow.py", "src/repro_torch/analysis/sanitizer.py",
+                 "src/repro_torch/analysis/adapter_lifecycle.py",
+                 "src/repro_torch/analysis/registry_coverage.py",
+                 "src/repro_torch/analysis/shadow_coverage.py",
+                 "src/repro_torch/analysis/quant_invariants.py",
+                 "src/repro_torch/analysis/__main__.py"):
         assert must in names
 
 
