@@ -355,6 +355,24 @@ printing no result, when CUDA is missing. Phases, each fatal on failure:
              rwkv6-7b at full width and SANITIZE_RWKV_LAYERS layers through
              the RecurrentAdapter: tokens equal on and off, audit clean.
              Its time is printed.
+13. mesh:    the platform layers (dist/sharding.py, ft/elastic.py, the
+             placed train step, launch/dryrun.py) on a one-rank NCCL group
+             over a HashStore: (a) elastic_mesh() is 1 x 1 (this machine has
+             one card) and every placement of TinyLlama's tree degrades to
+             replicated. (b) 2 steps at phase 11 (b)'s 8 x 128, placed
+             (make_train_step with the mesh: DTensor params and moments,
+             gathered a step) against unplaced from the same weights:
+             losses, grad norms and every leaf of params, m and v bit-equal;
+             ms a step both ways (host clock and CUDA events). (c) (b)'s
+             comparison for one step at 1 x 2048 under blockwise_attention,
+             the placed step's B4 and B4' launches counted from 0 around it.
+             (d) compressed_all_reduce over the group on (b)'s gradients,
+             bit-equal to compress_leaf + decompress_leaf. (e) the dry-run's
+             host cell: train_4k's and prefill_32k's arguments allocated and
+             placed, memory_allocated's growth within 1 % of the dry-run's
+             bytes a device; decode_32k (a 94.5 GB cache) marked as not
+             fitting and not allocated. The group is destroyed; the time is
+             printed.
 
 A [graphs] line sums up eager against replayed: int8 decode ms/step wall
 and on the card with the busy share, the 4 x 64 prefill, the ragged tok/s,
@@ -386,6 +404,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -406,8 +425,16 @@ from repro_torch.core.quant import (  # noqa: E402
 )
 from repro_torch.core import flags  # noqa: E402
 from repro_torch.core.qlinear import embedding_lookup  # noqa: E402
-from repro_torch.core.tree import tree_index, tree_items, tree_map  # noqa: E402
+from repro_torch.configs.base import SHAPES  # noqa: E402
+from repro_torch.core.tree import (  # noqa: E402
+    tensor_map_with_path,
+    tree_index,
+    tree_items,
+    tree_map,
+)
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
+from repro_torch.dist import sharding  # noqa: E402
+from repro_torch.ft.elastic import elastic_mesh  # noqa: E402
 from repro_torch.kernels import bounds, cuda_build, ops  # noqa: E402
 from repro_torch.kernels import flash_attn as fkern  # noqa: E402
 from repro_torch.kernels import gqmv as kern  # noqa: E402
@@ -439,7 +466,13 @@ from repro_torch.serving.engine import InferenceEngine  # noqa: E402
 from repro_torch.serving.paged import PagedAdapter, paged_scheduler  # noqa: E402
 from repro_torch.serving.sampling import fill_gumbel, nucleus_mask  # noqa: E402
 from repro_torch.serving.spec import NgramDrafter  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.optim.compress import (  # noqa: E402
+    compress_leaf,
+    compressed_all_reduce,
+    decompress_leaf,
+)
 from repro_torch.train.loop import (  # noqa: E402
     LoopConfig,
     batch_to,
@@ -789,6 +822,17 @@ TRAIN_RECURRENT = {"rwkv6-7b": 10, "zamba2-7b": 19}
 TRAIN_RECURRENT_STEPS = 3
 TRAIN_RECURRENT_CPU = {"arch": "rwkv6-7b", "layers": 2, "b": 1, "s": 16, "tol": 1e-3}
 TRAIN_RECURRENT_BUDGET_S = 90
+# phase 13 (mesh): the platform layers on a one-rank NCCL group. This
+# machine has one card, so elastic_mesh() is 1 x 1 and every placement
+# replicates. (b)'s 8 x 128 steps, placed against unplaced; (c)'s 1 x 2048
+# step under blockwise_attention; compressed_all_reduce; and the dry-run's
+# host cell: the cells' arguments placed on the card, the allocator's
+# growth within MESH_BYTES_RTOL of the dry-run's bytes (it rounds each
+# block up to 512 bytes); the cell not allocated (its cache outgrows the
+# card) must be marked as not fitting
+MESH = {"steps": 2, "cells": ("train_4k", "prefill_32k"), "unallocated": "decode_32k",
+        "budget_s": 45}
+MESH_BYTES_RTOL = 1e-2
 SOURCES = {**{f"{k}_{f}": "src/repro_torch/csrc/gqmm.cu" for f in WEIGHT_FORMATS
               for k in ("gqmv", "gqmm")},
            "paged_attn": "src/repro_torch/csrc/paged_attn.cu",
@@ -5423,6 +5467,251 @@ def phase_sanitize(dev, reng, rvanilla) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the platform layers (placement, the placed step, the dry-run)
+# ---------------------------------------------------------------------------
+
+def _timed_step(step_fn, params, opt_state, batch):
+    """One train step: (params, opt_state, metrics, host ms to the loss on
+    the host, the card's span by CUDA events)."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev[0].record()
+    params, opt_state, m = step_fn(params, opt_state, batch)
+    ev[1].record()
+    float(m["loss"])
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return params, opt_state, m, host_ms, ev[0].elapsed_time(ev[1])
+
+
+def _state(params, opt_state) -> dict[str, torch.Tensor]:
+    """Every leaf of a (placed or plain) train state, gathered."""
+    full = sharding.gather({"params": params, "m": opt_state.m, "v": opt_state.v})
+    return {**dict(tree_items(full)), "step": opt_state.step}
+
+
+def _differ(a: dict, b: dict) -> list[str]:
+    return [k for k in b if a[k].dtype != b[k].dtype or not torch.equal(a[k], b[k])]
+
+
+def mesh_replicated(mesh, params) -> int:
+    """Every placement of ``params`` on the 1 x 1 mesh degrades to
+    replicated (raises otherwise); returns the leaves checked."""
+    from torch.distributed.tensor import Replicate
+
+    specs = sharding.param_specs(params, mesh, "train")
+    bad = [k for k, s in specs.items() if any(s) or not all(
+        isinstance(p, Replicate) for p in sharding.placements(s, mesh))]
+    if bad:
+        raise AssertionError(f"mesh (a): placements on 1 x 1 not replicated: {bad[:5]}")
+    return len(specs)
+
+
+def mesh_steps(dev, mesh) -> dict:
+    """(b): MESH["steps"] steps of TinyLlama at the train CLI's 8 x 128,
+    through the unplaced step and the placed one (make_train_step with
+    the mesh) from the same weights: losses, grad norms and every leaf of
+    params, m and v bit-equal; ms a step both ways (host clock to the loss
+    on the host, and CUDA events), the last step's."""
+    cfg, model, data, opt_cfg = train_setup(dev, TRAIN["seq"], TRAIN["batch"],
+                                            steps=MESH["steps"])
+    init = model.init(seed=TRAIN["seed"], device=dev)
+    leaves = mesh_replicated(mesh, init)
+    runs = {}
+    for name in ("unplaced", "placed"):
+        placed = name == "placed"
+        step_fn = make_train_step(model, opt_cfg, mesh=mesh if placed else None)
+        params = sharding.distribute(init, sharding.param_specs(init, mesh, "train"), mesh) \
+            if placed else init
+        opt_state, hist = adamw.init(params), []
+        for i in range(MESH["steps"]):
+            params, opt_state, m, host_ms, card_ms = _timed_step(
+                step_fn, params, opt_state, batch_to(data.batch_at(i), dev))
+            hist.append({"loss": m["loss"], "grad_norm": m["grad_norm"], "host_ms": host_ms,
+                         "card_ms": card_ms})
+        runs[name] = {"hist": hist, "state": _state(params, opt_state)}
+        del params, opt_state
+    u, p = runs["unplaced"], runs["placed"]
+    metrics = [k for i in range(MESH["steps"]) for k in ("loss", "grad_norm")
+               if not torch.equal(u["hist"][i][k], p["hist"][i][k])]
+    differ = _differ(p["state"], u["state"])
+    res = {"leaves": leaves, "state_leaves": len(u["state"]), "metrics_differ": metrics,
+           "state_differ": differ,
+           "losses": [float(h["loss"]) for h in u["hist"]],
+           "grad_norms": [float(h["grad_norm"]) for h in u["hist"]],
+           **{f"{n}_{k}": r["hist"][-1][k] for n, r in runs.items()
+              for k in ("host_ms", "card_ms")}}
+    log(f"[mesh (b)] {ARCH} {cfg.num_layers} layers bf16, {TRAIN['batch']} x {TRAIN['seq']}, "
+        f"{MESH['steps']} steps on the 1 x 1 mesh ({leaves} leaves, every placement "
+        f"replicated): losses " + ", ".join(f"{x:.6f}" for x in res["losses"]) + ", grad norms "
+        + ", ".join(f"{x:.4f}" for x in res["grad_norms"]) + "; placed against unplaced: "
+        + ("losses, grad norms and every leaf of params, m, v bit-equal"
+           if not metrics and not differ else f"DIFFER {metrics} {differ[:5]}")
+        + f"; last step unplaced {res['unplaced_host_ms']:.2f} ms (host clock; "
+        f"{res['unplaced_card_ms']:.2f} by CUDA events), placed {res['placed_host_ms']:.2f} "
+        f"ms ({res['placed_card_ms']:.2f}) [{CARD['smi']}]")
+    if metrics or differ:
+        raise AssertionError(f"mesh (b): the placed step is not the unplaced one: {metrics} "
+                             f"{differ[:10]}")
+    grads = value_and_grad(make_loss_fn(model), init, batch_to(data.batch_at(0), dev))[1]
+    res["compress"] = mesh_compress(grads)
+    return res
+
+
+def mesh_compress(grads) -> dict:
+    """(d): compressed_all_reduce over the one-rank NCCL group on the full
+    gradient tree, twice (the second call timed apart from the first's
+    communicator set-up), bit-equal to compress_leaf and decompress_leaf on
+    the same gradients (a sum over one rank, divided by 1); the leaves that
+    do not divide into groups averaged uncompressed with zero residual."""
+    ms = []
+    for _ in range(2):      # the first call also sets up NCCL's communicator
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        mean = resid = None
+        torch.cuda.synchronize()
+        ev[0].record()
+        mean, resid = compressed_all_reduce(grads, None)
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+    fm, fr = dict(tree_items(mean)), dict(tree_items(resid))
+    differ, grouped = [], 0
+    for path, g in tree_items(grads):
+        g32 = g.to(torch.float32)
+        if g.shape[-1] % 256 == 0:
+            local = decompress_leaf(*compress_leaf(g32, 256), 256)
+            want, wres = local, g32 - local
+            grouped += 1
+        else:
+            want, wres = g32, torch.zeros_like(g32)
+        if not (torch.equal(fm[path], want) and torch.equal(fr[path], wres)):
+            differ.append(path)
+    res = {"leaves": len(fm), "grouped": grouped, "differ": differ,
+           "first_ms": ms[0], "ms": ms[1],
+           "bytes": sum(4 * g.numel() for _, g in tree_items(grads))}
+    log(f"[mesh (d)] compressed_all_reduce over NCCL world 1, {res['leaves']} gradient leaves "
+        f"({grouped} in int8 groups of 256, {res['bytes'] / 1e9:.2f} GB of f32): "
+        + ("bit-equal to compress_leaf + decompress_leaf" if not differ else f"DIFFER {differ}")
+        + f"; {res['ms']:.2f} ms by CUDA events ({res['first_ms']:.2f} the first call, which "
+        f"also sets up NCCL's communicator) [{CARD['smi']}]")
+    if differ:
+        raise AssertionError(f"mesh (d): compressed_all_reduce differs at {differ}")
+    return res
+
+
+def mesh_blockwise(dev, mesh) -> dict:
+    """(c): one step at TRAIN_BLOCKWISE's 1 x 2048 under blockwise_attention
+    (B4 forward, B4' backward), unplaced then placed from the same weights:
+    loss, grad norm and every leaf bit-equal; the placed step's launches
+    counted from 0 around it (train_flash_launches)."""
+    bw = TRAIN_BLOCKWISE
+    cfg, model, data, opt_cfg = train_setup(dev, bw["s"], bw["b"])
+    init = model.init(seed=TRAIN["seed"], device=dev)
+    batch = batch_to(data.batch_at(0), dev)
+    out = {}
+    with flags.overrides(blockwise_attention=True):
+        for name in ("unplaced", "placed"):
+            placed = name == "placed"
+            params = sharding.distribute(init, sharding.param_specs(init, mesh, "train"), mesh) \
+                if placed else init
+            step_fn = make_train_step(model, opt_cfg, mesh=mesh if placed else None)
+            if placed:
+                _reset_all_launches()
+            params, opt_state, m, host_ms, card_ms = _timed_step(
+                step_fn, params, adamw.init(params), batch)
+            out[name] = {"m": m, "state": _state(params, opt_state), "host_ms": host_ms,
+                         "card_ms": card_ms, "launches": _all_launches() if placed else None}
+            del params, opt_state
+    u, p = out["unplaced"], out["placed"]
+    differ = [k for k in ("loss", "grad_norm") if not torch.equal(u["m"][k], p["m"][k])]
+    differ += _differ(p["state"], u["state"])
+    want = train_flash_launches(cfg)
+    res = {"launches": p["launches"], "differ": differ, "loss": float(u["m"]["loss"]),
+           **{f"{n}_{k}": out[n][k] for n in out for k in ("host_ms", "card_ms")}}
+    log(f"[mesh (c)] {ARCH} {cfg.num_layers} layers, blockwise 1x{bw['s']} step on the 1 x 1 "
+        f"mesh: placed against unplaced "
+        + ("bit-equal (loss, grad norm, every leaf)" if not differ else f"DIFFER {differ[:5]}")
+        + f"; launches of the placed step {p['launches']} (want {want}); unplaced "
+        f"{res['unplaced_host_ms']:.1f} ms ({res['unplaced_card_ms']:.1f} by CUDA events), "
+        f"placed {res['placed_host_ms']:.1f} ms ({res['placed_card_ms']:.1f}) [{CARD['smi']}]")
+    if differ or p["launches"] != want:
+        raise AssertionError(f"mesh (c): {differ[:10]}, launches {p['launches']} vs {want}")
+    return res
+
+
+def mesh_cells(dev, mesh) -> dict:
+    """(e): the dry-run's host cell (make_host_mesh: this process's 1 x 1)
+    against the card: each of MESH["cells"]'s arguments (train_4k: bf16
+    params, f32 m and v, AdamW's step, the batch; prefill_32k: int8 params
+    and the batch) allocated empty and placed on the mesh, the allocator's
+    growth (memory_allocated) within MESH_BYTES_RTOL of the dry-run's bytes
+    a device; MESH["unallocated"] must be marked as not fitting."""
+    cfg = load_config(ARCH)
+    out = {}
+    for name in MESH["cells"]:
+        rec = dryrun.run_cell(ARCH, name, mesh, "host")
+        args, _ = dryrun.cell_arguments(cfg, SHAPES[name], mesh)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated(dev)
+        placed = {k: sharding.distribute(tensor_map_with_path(
+            lambda _, t: torch.empty(t.shape, dtype=t.dtype, device=dev), tree), specs, mesh)
+            for k, (tree, specs) in args.items()}
+        grown = torch.cuda.memory_allocated(dev) - before
+        del placed
+        want = rec["memory"]["argument_bytes"]
+        out[name] = {"dryrun_bytes": want, "allocated_bytes": grown,
+                     "rel_err": abs(grown - want) / want, "memory": rec["memory"],
+                     "fits": rec["fits"], "least": rec["least"]}
+    dec = dryrun.run_cell(ARCH, MESH["unallocated"], mesh, "host")
+    total = torch.cuda.get_device_properties(0).total_memory
+    out[MESH["unallocated"]] = {"dryrun_bytes": dec["memory"]["argument_bytes"],
+                                "memory": dec["memory"], "fits": dec["fits"],
+                                "card_bytes": total, "least": dec["least"]}
+    torch.cuda.empty_cache()
+    log("[mesh (e)] dry-run host cell (1 x 1) against the card's allocator: " + "; ".join(
+        f"{k} {v['dryrun_bytes'] / 1e9:.4f} GB by shapes ("
+        + ", ".join(f"{n.split('_')[0]} {b / 1e9:.4f}" for n, b in v["memory"].items()
+                    if n != "argument_bytes" and b)
+        + f"), allocated {v['allocated_bytes'] / 1e9:.4f} GB ({100 * v['rel_err']:.4f} %)"
+        for k, v in out.items() if "allocated_bytes" in v)
+        + f"; {MESH['unallocated']} {out[MESH['unallocated']]['dryrun_bytes'] / 1e9:.2f} GB "
+        f"(cache {dec['memory']['cache_bytes'] / 1e9:.2f} GB) against the card's "
+        f"{total / 1e9:.2f} GB: " + ("fits" if dec["fits"] else "does not fit, not allocated")
+        + f" [{CARD['smi']}]")
+    bad = [k for k, v in out.items() if v.get("rel_err", 0) > MESH_BYTES_RTOL]
+    if bad or dec["fits"]:
+        raise AssertionError(f"mesh (e): allocated bytes off the dry-run's in {bad}, or "
+                             f"{MESH['unallocated']} marked as fitting: {out}")
+    return out
+
+
+def phase_mesh(dev) -> dict:
+    """Phase 13: a one-rank NCCL group on a HashStore and elastic_mesh() over
+    it (1 x 1), then (b)-(e); the group destroyed at the end."""
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = elastic_mesh(dev)
+        shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        if shape != {"data": 1, "model": 1}:
+            raise AssertionError(f"mesh (a): elastic_mesh() on one rank gave {shape}")
+        log(f"[mesh (a)] NCCL world 1, elastic_mesh() {shape}")
+        out = {"mesh": shape, "steps": mesh_steps(dev, mesh)}
+        torch.cuda.empty_cache()
+        out["blockwise"] = mesh_blockwise(dev, mesh)
+        torch.cuda.empty_cache()
+        out["cells"] = mesh_cells(dev, mesh)
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[mesh] phase 13 {out['seconds']:.1f} s (budget {MESH['budget_s']} s) [{CARD['smi']}]")
+    return out
+
+
+
 def add_runs(entries: list[dict], runs: dict, rows: list[dict], key: str) -> None:
     """A phase's launches by run and its kernel rows (under ``key``) into the
     kernels line's entries."""
@@ -5524,6 +5813,7 @@ def main(argv=None) -> int:
     rec, rkrows, rfrows = phase_recurrent(dev)
     enc, ekrows, efrows = phase_encdec(dev)
     train, trows = phase_train(dev)
+    mesh = phase_mesh(dev)
 
     s8, pf = serves["int8"], ragged["passes"]["paged_float"]
     log(f"[graphs] int8, batch {SERVE['batch']}: decode eager {s8['eager']['decode_ms_per_step']:.2f} "
@@ -5567,6 +5857,8 @@ def main(argv=None) -> int:
     add_runs(entries, {"phase 11 blockwise train step": train["blockwise"]["launches"],
                        "phase 11 (f) zamba2 blockwise train step":
                        train["recurrent"]["blockwise"]["launches"]}, [], "train_shapes")
+    add_runs(entries, {"phase 13 placed blockwise train step": mesh["blockwise"]["launches"]},
+             [], "mesh_shapes")
     add_runs(entries, {f"phase 12 sanitized {m} serve": p["on"]["launches"]
                        for m, p in sanitize["passes"].items()}, [sanitize["b8"]],
              "sanitize_shapes")
@@ -5596,7 +5888,7 @@ def main(argv=None) -> int:
              "recurrent_kernel_rows": rkrows, "recurrent_flash_rows": rfrows,
              "recurrent": rec,
              "encdec_kernel_rows": ekrows, "encdec_flash_rows": efrows, "encdec": enc,
-             "train_flash_rows": trows, "train": train, "sanitize": sanitize,
+             "train_flash_rows": trows, "train": train, "sanitize": sanitize, "mesh": mesh,
              "kernels": entries,
              "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

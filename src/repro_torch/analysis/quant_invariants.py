@@ -17,9 +17,11 @@ dim (d_model, q/kv projections, d_ff, vocab_padded, expert and MLA dims,
 the SSM's inner width) and every tensor-parallel degree in ``TP_DEGREES``,
 a shard's contraction length must be a whole number of storage elements
 of every packed format, and the group size ``largest_pow2_group`` picks
-for it a multiple of ``pack``. The port serves on one card, so this is
-arithmetic on the configs: a shard split it flags is one the reference's
-sharding would refuse.
+for it a multiple of ``pack``. ``TP_DEGREES`` reaches 16, the model axis
+of the production meshes (``launch/mesh.py``), where the policy sizes
+groups to n/tp (``core/policy.leaf_group_size``); the card runs 1 x 1, so
+this is arithmetic on the configs: a shard split it flags is one the
+placement (``dist/sharding.validate_quant_partition``) would refuse.
 
 A project checker: it imports the live registries (quant formats, kernel
 hooks, arch configs); tests inject synthetic ones through the constructor.
@@ -31,7 +33,7 @@ from typing import Iterable, Sequence
 
 from repro_torch.analysis.engine import BaseChecker, Finding
 
-TP_DEGREES = (1, 2, 4, 8)
+TP_DEGREES = (1, 2, 4, 8, 16)
 REGISTRY_ANCHOR = "src/repro_torch/core/quant.py"
 CONFIG_ANCHOR = "src/repro_torch/configs"
 

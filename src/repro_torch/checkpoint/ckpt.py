@@ -20,6 +20,13 @@ pattern (bf16 and fp16 as uint16, fp8 as uint8) and the manifest's
 reference saves a bf16 leaf through ``ml_dtypes`` as a 2-byte void array
 that its own restore cannot cast.) An f32 checkpoint the reference wrote
 has no ``dtypes`` entry and restores as its arrays say.
+
+Placed trees (DTensor leaves, ``dist/sharding.distribute``) save as the
+reference's global arrays do: every rank gathers each leaf (a collective,
+in ``tensor_items`` order), rank 0 alone writes, and all ranks leave
+``save`` together. ``restore`` reads the full arrays and places each as
+the ``like`` leaf is placed, on whatever mesh that is now: a checkpoint of
+a 2 x 2 run restores onto 1 x 2 (the reference's elastic restart).
 """
 
 from __future__ import annotations
@@ -30,8 +37,11 @@ import shutil
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.quant import QuantizedTensor
+from repro_torch.core.tree import tensor_items, tensor_map_with_path
+from repro_torch.dist.sharding import gather_leaf, place_like
 
 MANIFEST = "manifest.json"
 ARRAYS = "arrays.npz"
@@ -40,22 +50,6 @@ ARRAYS = "arrays.npz"
 _BITS = {torch.bfloat16: (np.uint16, "bfloat16"), torch.float16: (np.uint16, "float16"),
          torch.float8_e4m3fn: (np.uint8, "float8_e4m3fn")}
 _BY_NAME = {name: dt for dt, (_, name) in _BITS.items()}
-
-
-def _items(tree, prefix: str = "", quant: bool = False) -> list[tuple[str, object]]:
-    """(path, leaf) in the reference's flatten order: dict keys sorted,
-    NamedTuple fields and QuantizedTensor children in their own order
-    (``quant`` keeps QuantizedTensor leaves whole)."""
-    def join(k):
-        return f"{prefix}/{k}" if prefix else str(k)
-
-    if isinstance(tree, dict):
-        return [it for k in sorted(tree) for it in _items(tree[k], join(k), quant)]
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return [it for k in tree._fields for it in _items(getattr(tree, k), join(k), quant)]
-    if isinstance(tree, QuantizedTensor) and not quant:
-        return [(join("qvalues"), tree.qvalues), (join("scales"), tree.scales)]
-    return [(prefix, tree)]
 
 
 def _to_numpy(leaf) -> tuple[np.ndarray, str | None]:
@@ -73,19 +67,34 @@ def _to_numpy(leaf) -> tuple[np.ndarray, str | None]:
 def _quant_meta(tree) -> dict:
     """{tree path: {"fmt", "group_size"}} for every QuantizedTensor leaf."""
     return {path: {"fmt": leaf.fmt, "group_size": leaf.group_size}
-            for path, leaf in _items(tree, quant=True) if isinstance(leaf, QuantizedTensor)}
+            for path, leaf in tensor_items(tree, quant=True) if isinstance(leaf, QuantizedTensor)}
+
+
+def _rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier() -> None:
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
 
 
 def save(directory: str, step: int, tree, extra: dict | None = None) -> str:
-    """Atomically write checkpoint for ``step``. Returns the final path."""
-    os.makedirs(directory, exist_ok=True)
+    """Atomically write checkpoint for ``step``. Returns the final path.
+    With DTensor leaves every rank must call it (each leaf is gathered);
+    rank 0 writes."""
     final = os.path.join(directory, f"step_{step:08d}")
+    full = [(key, gather_leaf(leaf)) for key, leaf in tensor_items(tree)]
+    if _rank() != 0:
+        _barrier()
+        return final
+    os.makedirs(directory, exist_ok=True)
     tmp = os.path.join(directory, f"tmp.{step}")
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
     arrays, dtypes = {}, {}
-    for key, leaf in _items(tree):
+    for key, leaf in full:
         arrays[key], name = _to_numpy(leaf)
         if name:
             dtypes[key] = name
@@ -103,6 +112,7 @@ def save(directory: str, step: int, tree, extra: dict | None = None) -> str:
     if os.path.exists(final):
         shutil.rmtree(final)
     os.replace(tmp, final)
+    _barrier()
     return final
 
 
@@ -134,8 +144,8 @@ def _restore_leaf(key: str, arr: np.ndarray, saved_dtype: str | None, like) -> t
 def restore(directory: str, like, step: int | None = None):
     """Restore into the structure of ``like`` (a tree of tensors, meta
     tensors included, shaped as the checkpoint's). Leaves come back with
-    ``like``'s dtypes, on its leaves' devices (the CPU for meta leaves).
-    Returns (tree, step, extra)."""
+    ``like``'s dtypes, on its leaves' devices (the CPU for meta leaves),
+    placed as its DTensor leaves are. Returns (tree, step, extra)."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -157,25 +167,14 @@ def restore(directory: str, like, step: int | None = None):
                     "instead of reinterpreting packed qvalues"
                 )
 
-    def build(node, prefix: str):
-        def join(k):
-            return f"{prefix}/{k}" if prefix else str(k)
-
-        if isinstance(node, dict):
-            return {k: build(v, join(k)) for k, v in node.items()}
-        if isinstance(node, tuple) and hasattr(node, "_fields"):
-            return type(node)(*(build(getattr(node, k), join(k)) for k in node._fields))
-        if isinstance(node, QuantizedTensor):
-            return QuantizedTensor(build(node.qvalues, join("qvalues")),
-                                   build(node.scales, join("scales")), node.group_size, node.fmt)
-        return _restore_leaf(prefix, arrays[prefix], saved_dtypes.get(prefix), node)
-
-    return build(like, ""), manifest["step"], manifest["extra"]
+    tree = tensor_map_with_path(lambda key, node: place_like(
+        _restore_leaf(key, arrays[key], saved_dtypes.get(key), node), node), like)
+    return tree, manifest["step"], manifest["extra"]
 
 
 def retain(directory: str, keep: int = 3) -> None:
-    """Delete all but the newest ``keep`` complete checkpoints."""
-    if not os.path.isdir(directory):
+    """Delete all but the newest ``keep`` complete checkpoints (rank 0)."""
+    if _rank() != 0 or not os.path.isdir(directory):
         return
     steps = sorted(
         int(n.split("_")[1]) for n in os.listdir(directory) if n.startswith("step_")

@@ -141,3 +141,25 @@ class ModelConfig:
         if self.ssm:
             changes["ssm"] = SSMConfig(state_dim=16, head_dim=16, expand=2, conv_kernel=4)
         return dataclasses.replace(self, **changes)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One assigned input-shape cell."""
+
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+    @property
+    def step_name(self) -> str:
+        return {"train": "train_step", "prefill": "prefill_step", "decode": "serve_step"}[self.kind]
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524_288, 1),
+}

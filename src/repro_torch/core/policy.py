@@ -44,6 +44,19 @@ EXCLUDE_PATTERNS = (
 
 MIN_QUANT_DIM = 32  # don't quantize anything smaller than one group
 
+# Leaves whose contraction axis is sharded over the model axis when serving
+# tensor-parallel (Megatron row-parallel, ``dist/sharding.ROW_PARALLEL``):
+# their groups must fit within one shard, so the group size divides n/tp.
+# MoE expert leaves are sharded on the expert axis; their contraction
+# stays whole.
+ROW_PARALLEL_KEYS = ("wo", "w2", "wout", "wff2")
+
+
+def _row_parallel(path: str) -> bool:
+    if "experts" in path:
+        return False
+    return path.rsplit("/", 1)[-1] in ROW_PARALLEL_KEYS
+
 LEAF_CLASSES = ("embed", "classifier", "attn", "ffn", "other")
 _FFN_LEAVES = ("w13", "w2", "wff1", "wff2", "wffr")
 _ATTN_CONTAINERS = ("attn", "cross", "mamba")
@@ -113,20 +126,27 @@ def should_quantize(path: str, leaf: Any, group_size: int) -> bool:
     return n % group_size == 0 and n >= MIN_QUANT_DIM
 
 
-def leaf_group_size(path: str, leaf, preferred: int) -> int | None:
+def leaf_group_size(path: str, leaf, preferred: int, tp: int = 1) -> int | None:
     """Per-leaf GS: the largest power of two <= ``preferred`` (and >= 16)
-    dividing the contraction dim; None leaves the leaf in float. (The
-    reference also divides row-parallel leaves by a tensor-parallel degree;
-    sharding is not ported.)"""
-    return largest_pow2_group(leaf.shape[-1], preferred, min_gs=16)
+    dividing the per-shard contraction dim (n/tp for row-parallel leaves, n
+    otherwise); None leaves the leaf in float, as does a row-parallel n
+    that ``tp`` does not divide."""
+    n = leaf.shape[-1]
+    if _row_parallel(path):
+        if n % tp:
+            return None
+        n //= tp
+    return largest_pow2_group(n, preferred, min_gs=16)
 
 
-def quantize_params(params, group_size: int, formats="int8"):
+def quantize_params(params, group_size: int, tp: int = 1, formats="int8"):
     """PTQ entry point: replace every quantizable weight leaf with a
     :class:`QuantizedTensor` (groups along the trailing/contraction axis) in
-    the format its layer class maps to (``resolve_format_map``). A packed
-    format whose pack factor does not divide the leaf's group size falls
-    back to int8, never to float."""
+    the format its layer class maps to (``resolve_format_map``). ``tp`` is
+    the serving mesh's tensor-parallel degree: it sizes each row-parallel
+    leaf's groups so that none straddles a shard. A packed format whose
+    pack factor does not divide the leaf's group size falls back to int8,
+    never to float."""
     fmt_map = resolve_format_map(formats)
 
     def convert(path, leaf):
@@ -136,7 +156,7 @@ def quantize_params(params, group_size: int, formats="int8"):
         fmt_name = fmt_map[leaf_class(p)]
         if fmt_name is None:
             return leaf
-        gs = leaf_group_size(p, leaf, group_size)
+        gs = leaf_group_size(p, leaf, group_size, tp)
         if gs is None:
             return leaf
         fmt = get_format(fmt_name)
@@ -155,10 +175,11 @@ def _quantize_stacked(fmt, leaf: torch.Tensor, gs: int) -> QuantizedTensor:
     """``fmt.quantize`` of a stacked (..., out, in) leaf one (out, in) slice
     at a time into the stacked storage: the same values (groups lie along
     each row), without the f32 copies of the whole leaf that one call makes
-    (a layer of dbrx's experts is 2.1 G weights). The numerics checks
+    (a layer of dbrx's experts is 2.1 G weights); a meta leaf (shapes only,
+    ``models/registry.param_struct``) takes the one call. The numerics checks
     guard the whole leaf's input and scales, as the reference's one call
     does, so a fault is reported at the same index."""
-    if leaf.ndim <= 2:
+    if leaf.ndim <= 2 or leaf.is_meta:
         return fmt.quantize(leaf, gs)
     check = numerics_checks_enabled()
     if check:

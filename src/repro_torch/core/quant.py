@@ -33,7 +33,9 @@ captured pass unchecked, as the reference's guards pass its tracers.
 from __future__ import annotations
 
 import dataclasses
+import math
 from contextlib import contextmanager
+from functools import reduce
 from typing import Callable
 
 import torch
@@ -252,13 +254,27 @@ def _group_quantize(r: torch.Tensor, group_size: int, qmax: int):
 
 
 def largest_pow2_group(n: int, preferred: int, min_gs: int) -> int | None:
-    """Largest power-of-two group size in [min_gs, preferred] dividing n."""
+    """Largest power-of-two group size in [min_gs, preferred] dividing n:
+    the one descent shared by :func:`choose_group_size` (floor 32) and
+    ``policy.leaf_group_size`` (floor 16)."""
     gs = preferred
     while gs >= min_gs:
         if n % gs == 0:
             return gs
         gs //= 2
     return None
+
+
+def choose_group_size(dims: list[int], preferred: int = DEFAULT_GROUP_SIZE,
+                      min_gs: int = 32) -> int:
+    """The largest power-of-two GS <= ``preferred`` (and >= ``min_gs``)
+    dividing every quantized dim. The paper picks 256 because every
+    TinyLlama dim divides by it; a 1408-wide FFN (deepseek-v2-lite) needs
+    128."""
+    gs = largest_pow2_group(reduce(math.gcd, dims), preferred, min_gs)
+    if gs is None:
+        raise ValueError(f"no group size in [{min_gs}, {preferred}] divides all of {dims}")
+    return gs
 
 
 # ---------------------------------------------------------------------------
@@ -407,3 +423,22 @@ def quantize_activation(x: torch.Tensor, group_size: int = DEFAULT_GROUP_SIZE) -
     """Run-time activation quantization (paper Alg. 2 lines 3/8/13/16):
     always int8, whatever the weight format."""
     return quantize_groupwise(x, group_size=group_size)
+
+
+def quantization_error_stats(r: torch.Tensor, group_size: int = DEFAULT_GROUP_SIZE,
+                             fmt: str = "int8") -> dict[str, float]:
+    """Per-element |r_hat - r| statistics (paper Table IV, Eq. 3), in f32:
+    max, min, mean and (population) std of the error, and the mean and std
+    of the error relative to |r| in % (|r| = 0 counts as 1)."""
+    qt = quantize(r, group_size, fmt)
+    err = (qt.dequantize() - r.to(torch.float32)).abs()
+    denom = torch.where(r.abs() > 0, r.abs(), 1.0).to(torch.float32)
+    rel = err / denom
+    return {
+        "max": float(err.max()),
+        "min": float(err.min()),
+        "mean": float(err.mean()),
+        "std": float(err.std(correction=0)),
+        "rel_mean_pct": float(100.0 * rel.mean()),
+        "rel_std_pct": float(100.0 * rel.std(correction=0)),
+    }

@@ -12,6 +12,8 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.core.quant import QuantizedTensor
+
 
 def tree_map_with_path(fn: Callable[[str, Any], Any], tree, prefix: str = ""):
     if isinstance(tree, dict):
@@ -40,6 +42,42 @@ def tree_items(tree, prefix: str = "") -> list[tuple[str, Any]]:
             out += tree_items(tree[k], f"{prefix}/{k}" if prefix else str(k))
         return out
     return [(prefix, tree)]
+
+
+def tensor_items(tree, prefix: str = "", quant: bool = False) -> list[tuple[str, Any]]:
+    """(path, tensor) for every stored tensor, in the reference's flatten
+    order: dict keys sorted, NamedTuple fields (``AdamWState``) and a
+    ``QuantizedTensor``'s ``qvalues`` and ``scales`` in their own order,
+    as ``jax.tree_util.tree_flatten_with_path`` gives them (``quant``
+    keeps QuantizedTensor leaves whole)."""
+    def join(k):
+        return f"{prefix}/{k}" if prefix else str(k)
+
+    if isinstance(tree, dict):
+        return [it for k in sorted(tree) for it in tensor_items(tree[k], join(k), quant)]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [it for k in tree._fields for it in tensor_items(getattr(tree, k), join(k), quant)]
+    if isinstance(tree, QuantizedTensor) and not quant:
+        return [(join("qvalues"), tree.qvalues), (join("scales"), tree.scales)]
+    return [(prefix, tree)]
+
+
+def tensor_map_with_path(fn: Callable[[str, Any], Any], tree, prefix: str = ""):
+    """``fn(path, tensor)`` over :func:`tensor_items`' tensors, in their
+    order, rebuilding the tree (dicts, NamedTuples, QuantizedTensors)."""
+    def join(k):
+        return f"{prefix}/{k}" if prefix else str(k)
+
+    if isinstance(tree, dict):
+        done = {k: tensor_map_with_path(fn, tree[k], join(k)) for k in sorted(tree)}
+        return {k: done[k] for k in tree}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tensor_map_with_path(fn, getattr(tree, k), join(k))
+                            for k in tree._fields))
+    if isinstance(tree, QuantizedTensor):
+        return QuantizedTensor(fn(join("qvalues"), tree.qvalues), fn(join("scales"), tree.scales),
+                               tree.group_size, tree.fmt)
+    return fn(prefix, tree)
 
 
 def tree_to(tree, device: torch.device):

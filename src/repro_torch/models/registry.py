@@ -34,8 +34,10 @@ import importlib
 from typing import Callable
 
 import numpy as np
+import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeSpec
+from repro_torch.core.tree import tree_map
 from repro_torch.models import encdec as _encdec
 from repro_torch.models import rwkv as _rwkv
 from repro_torch.models import transformer as _tf
@@ -194,6 +196,57 @@ def build(cfg: ModelConfig) -> Model:
         gather_slots=_tf.lm_gather_slots,
     )
 
+
+# ---------------------------------------------------------------------------
+# shapes without allocation (meta tensors, torch's jax.eval_shape) + smoke
+# batches
+# ---------------------------------------------------------------------------
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def param_struct(cfg: ModelConfig) -> dict:
+    """The parameter tree of ``cfg`` as meta tensors: the paths, shapes and
+    dtypes ``Model.init`` gives, with nothing allocated (``init`` runs on
+    fake tensors; full-size dbrx is 132 B parameters)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        fake = build(cfg).init(seed=0, device="cpu")
+    return tree_map(lambda t: _meta(t.shape, t.dtype), fake)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
+    """Meta tensors for the step inputs of one (arch, shape) cell, the
+    reference's ``ShapeDtypeStruct``s: ``decode`` kinds describe only
+    (token, pos); the cache comes from ``cache_specs``."""
+    b, s = shape.global_batch, shape.seq_len
+    tok = torch.int32
+    if shape.kind == "train":
+        batch = {"tokens": _meta((b, s), tok), "labels": _meta((b, s), tok)}
+        if cfg.model_type == "encdec":
+            batch["frames"] = _meta((b, s, cfg.d_model), cfg.cdtype())
+        if cfg.frontend == "patch_embed":
+            batch["patch_embeds"] = _meta((b, cfg.num_frontend_tokens, cfg.d_model), cfg.cdtype())
+        return batch
+    if shape.kind == "prefill":
+        batch = {"tokens": _meta((b, s), tok)}
+        if cfg.model_type == "encdec":
+            # the encoder takes the whole source; the decoder is primed with
+            # a short prompt (64): the 32k prefill's cost is the encoder's
+            batch = {"frames": _meta((b, s, cfg.d_model), cfg.cdtype()),
+                     "tokens": _meta((b, 64), tok)}
+        if cfg.frontend == "patch_embed":
+            batch["patch_embeds"] = _meta((b, cfg.num_frontend_tokens, cfg.d_model), cfg.cdtype())
+        return batch
+    # decode: one new token against a cache of seq_len
+    return {"token": _meta((b,), tok), "pos": _meta((), torch.int32)}
+
+
+def cache_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
+    """The cache tree of a decode cell as meta tensors (nothing allocated)."""
+    return build(cfg).init_cache(shape.global_batch, shape.seq_len, cfg.cdtype(), "meta")
 
 
 def smoke_batch(cfg: ModelConfig, *, batch: int = 2, seq: int = 16, seed: int = 0) -> dict:

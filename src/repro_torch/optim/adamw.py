@@ -63,8 +63,9 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 def init(params) -> AdamWState:
+    """Zero moments shaped (and, for DTensor params, placed) like the params."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32)
 
     step = torch.zeros((), dtype=torch.int32, device=tree_items(params)[0][1].device)
     return AdamWState(step=step, m=tree_map(zeros, params), v=tree_map(zeros, params))
@@ -74,6 +75,14 @@ def init(params) -> AdamWState:
 def apply(cfg: AdamWConfig, params, grads, state: AdamWState):
     """Returns (new_params, new_state, metrics {"grad_norm", "lr"})."""
     grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    return apply_clipped(cfg, params, grads, state, gnorm)
+
+
+@torch.no_grad()
+def apply_clipped(cfg: AdamWConfig, params, grads, state: AdamWState, gnorm: torch.Tensor):
+    """The update of :func:`apply` on gradients already clipped (their
+    global norm before clipping ``gnorm``): elementwise, so it runs as well
+    on each rank's block of the params, gradients and moments."""
     step = state.step + 1
     lr = schedule(cfg, step)
     stepf = step.to(torch.float32)

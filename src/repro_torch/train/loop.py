@@ -9,6 +9,18 @@ reference's ``jax.value_and_grad`` + ``adamw.apply`` does. With a
 ``compress_group`` the gradients go through the int8 group-compressed
 all-reduce with error feedback (``optim/compress.py``) first.
 
+With a ``mesh`` the step is placed (the reference's ``jit`` over
+``NamedSharding``s, done by hand): each rank stores the DTensor shards of
+the params and AdamW moments that ``dist/sharding.param_specs(params,
+mesh, "train")`` gives it (FSDP over ``data``, Megatron-style over
+``model``), gathers every leaf (``full_tensor()``, in ``tree_items``
+order on every rank), runs ``value_and_grad`` on its share of the global
+batch (``batch_specs``), averages the gradients over the data-parallel
+axes (the int8 compressed all-reduce over one of them where asked), clips
+by the global norm of the full mean, and applies AdamW to its own blocks.
+Ranks along ``model`` shard storage, not compute: each computes the whole
+model on its data shard.
+
 Under ``flags.blockwise_attention`` attention runs the flash kernel (B4)
 forward and its hand-written backward on the card (``kernels/ops.
 FlashAttention``); ``Model.forward`` recomputes each layer in the backward
@@ -21,6 +33,7 @@ differentiates as an out-of-place loop does.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import tempfile
 import time
@@ -28,10 +41,13 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import ckpt
 from repro_torch.core.quant import QuantizedTensor
-from repro_torch.core.tree import tree_items, tree_map
+from repro_torch.core.tree import tree_items, tree_map, tree_map_with_path
+from repro_torch.dist import sharding
+from repro_torch.dist.logical import axis_sizes
 from repro_torch.models.registry import Model
 from repro_torch.optim import adamw
 from repro_torch.optim.compress import compressed_all_reduce
@@ -76,13 +92,17 @@ def value_and_grad(loss_fn: Callable, params, batch):
 
 
 def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
-                    *, compress_group=None) -> Callable:
+                    *, compress_group=None, mesh=None) -> Callable:
     """Returns train_step(params, opt_state, batch[, residuals]).
 
     With ``compress_group`` (a ``torch.distributed`` process group, or
     ``"default"`` for the default group) gradients are int8-group-compressed
     with error feedback before the all-reduce, and the step takes and
-    returns the residuals."""
+    returns the residuals. With a ``mesh`` (a ``DeviceMesh``) the step is
+    placed (:func:`make_placed_train_step`); ``compress_group`` is then the
+    name of the mesh axis to compress over."""
+    if mesh is not None:
+        return make_placed_train_step(model, opt_cfg, mesh, compress_axis=compress_group)
     loss_fn = make_loss_fn(model)
 
     if compress_group is None:
@@ -101,6 +121,86 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
         # reference's does after its compressed psum
         grads, residuals = compressed_all_reduce(grads, group, residuals=residuals)
         params, opt_state, metrics = adamw.apply(opt_cfg, params, grads, opt_state)
+        return params, opt_state, residuals, {**aux, **metrics}
+
+    return train_step
+
+
+def _mean_over(x: torch.Tensor, groups: list, n: int) -> torch.Tensor:
+    """The sum of ``x`` over each process group in turn, over ``n``."""
+    if n == 1:
+        return x
+    x = x.clone()
+    for g in groups:
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=g)
+    return x / n
+
+
+def make_placed_train_step(model: Model, opt_cfg: adamw.AdamWConfig, mesh,
+                           *, compress_axis: str | None = None) -> Callable:
+    """train_step(params, opt_state, batch[, residuals]) on DTensor params
+    and moments placed on ``mesh`` (``dist/sharding.distribute`` by
+    ``param_specs(params, mesh, "train")``; ``adamw.init`` places the
+    moments like the params). ``batch`` is the global batch, the same on
+    every rank; each takes its data-parallel block. With ``compress_axis``
+    (a data-parallel axis of ``mesh``, e.g. "pod") the gradients' mean over
+    that axis goes through ``compressed_all_reduce`` on its group (the
+    step then takes and returns each rank's residuals, full-shaped), over
+    the other data-parallel axes through a plain all-reduce. On a 1 x 1
+    mesh every gather is the rank's own tensor and no mean is taken, so
+    the step is the unplaced one, bit for bit."""
+    loss_fn = make_loss_fn(model)
+    sizes = axis_sizes(mesh)
+    dp = sharding.dp_axes(mesh)
+    if compress_axis is not None and compress_axis not in dp:
+        raise ValueError(f"compress_axis {compress_axis!r} is not a data-parallel axis of {dp}")
+    plain = [a for a in dp if a != compress_axis and sizes[a] > 1]
+    plain_groups = [mesh.get_group(a) for a in plain]
+    n_plain = math.prod(sizes[a] for a in plain)
+    dp_groups = [mesh.get_group(a) for a in dp if sizes[a] > 1]
+    n_dp = math.prod(sizes[a] for a in dp)
+
+    def grads_of(params, batch):
+        full = sharding.gather(params)
+        specs = sharding.batch_specs(batch, mesh)
+        mine = {k: sharding.block(v, specs[k], mesh) for k, v in batch.items()}
+        (loss, aux), grads = value_and_grad(loss_fn, full, mine)
+        grads = tree_map(lambda g: _mean_over(g, plain_groups, n_plain), grads)
+        aux = {**aux, "loss": _mean_over(loss, dp_groups, n_dp)}
+        return aux, grads
+
+    def update(params, opt_state, grads):
+        grads, gnorm = adamw.clip_by_global_norm(grads, opt_cfg.grad_clip)
+        flat = dict(tree_items(params))
+
+        def mine(tree):
+            return tree_map_with_path(lambda path, t: sharding.block_like(t, flat[path]), tree)
+
+        loc = adamw.AdamWState(opt_state.step, *(tree_map(sharding.local, t)
+                                                 for t in (opt_state.m, opt_state.v)))
+        new_p, new_s, metrics = adamw.apply_clipped(
+            opt_cfg, tree_map(sharding.local, params), mine(grads), loc, gnorm)
+
+        def placed(tree):
+            return tree_map_with_path(lambda path, t: sharding.local_like(t, flat[path]), tree)
+
+        return placed(new_p), adamw.AdamWState(new_s.step, placed(new_s.m),
+                                               placed(new_s.v)), metrics
+
+    if compress_axis is None:
+        def train_step(params, opt_state, batch):
+            aux, grads = grads_of(params, batch)
+            params, opt_state, metrics = update(params, opt_state, grads)
+            return params, opt_state, {**aux, **metrics}
+
+        return train_step
+
+    group = mesh.get_group(compress_axis)
+
+    def train_step(params, opt_state, batch, residuals):
+        aux, grads = grads_of(params, batch)
+        grads, residuals = compressed_all_reduce(grads, group, residuals=residuals)
+        params, opt_state, metrics = update(params, opt_state, grads)
         return params, opt_state, residuals, {**aux, **metrics}
 
     return train_step

@@ -161,12 +161,15 @@ def test_quant_invariants_flags_non_pow2_pack():
 
 def test_quant_invariants_flags_pack_group_straddle():
     """d_model 16 at tp 1 is quantized (GS 16), but a pack-32 format's storage
-    element would straddle it; d_model 6 has no pow2 group >= 16 and is
-    left in float, so nothing is flagged for it."""
+    element would straddle it, as it would each 256-wide dim's shard of 16
+    at tp 16 (the production meshes' model axis); d_model 6 has no pow2
+    group >= 16 and is left in float, so nothing is flagged for it."""
     wide = QuantFormat(name="int1x32", bits=1, storage_dtype=torch.int8, pack=32,
                        pack_storage=4, qmax=0, kernel="gqmv_int4", unpack_fn=lambda p: p)
     msgs = _quant_msgs(wide, [_fake_cfg(arch_id="fake-16d", d_model=16)])
-    assert len(msgs) == 1 and "d_model=16" in msgs[0] and "straddle" in msgs[0]
+    assert len(msgs) == 5 and all("straddle" in m for m in msgs)
+    assert sum("d_model=16 at tp=1 " in m for m in msgs) == 1
+    assert sum("at tp=16 gives shard 16" in m for m in msgs) == 4
     assert _quant_msgs(get_format("int4"), [_fake_cfg(arch_id="fake-6d", d_model=6)]) == []
     msgs = _quant_msgs(get_format("int4"), [_fake_cfg(arch_id="fake", group_size=96)])
     assert len(msgs) == 1 and "not a power of two" in msgs[0]
