@@ -373,6 +373,26 @@ printing no result, when CUDA is missing. Phases, each fatal on failure:
              bytes a device; decode_32k (a 94.5 GB cache) marked as not
              fitting and not allocated. The group is destroyed; the time is
              printed.
+14. contracts: the compiled-program contracts' card halves
+             (analysis/xray.card_audit, analysis/launch_contract.
+             card_contract). TinyLlama generate at batch 1, cache 64, full
+             width and depth, with each of the six weight presets phase 3
+             quantized (its weights kept on the host since) and with int8
+             weights over an int8 and an fp8 KV cache: each captured decode
+             program's kernel nodes (cuGraphKernelNodeGetParams, their
+             argument values mapped to weights, cache and graph pool) read
+             every quantized weight slice exactly once, in a GQMV/GQMM node;
+             the weight bytes they read within 15 % of the registry nbytes
+             model (printed beside bounds.decode_step's); 4 L + 1 = 89
+             projection nodes; no NCCL node; the cache in place across a
+             replay and the graph pool below one cache leaf; no pool block
+             of a dequantized weight's size. Then every kernel node of every
+             captured program still alive (those, a paged int8 and int8-KV
+             decode, a blockwise prefill, two fused RMSNorm + quantize
+             programs): block <= 1024, grid y/z <= 65535, dynamic shared
+             memory <= the opt-in and, for a hand-written kernel, equal to
+             its kernels/ mirror. Launch counts are restored after; the
+             time is printed beside CONTRACTS["budget_s"].
 
 A [graphs] line sums up eager against replayed: int8 decode ms/step wall
 and on the card with the busy share, the 4 x 64 prefill, the ragged tok/s,
@@ -410,6 +430,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.bridge import init_params_numpy, params_from_numpy  # noqa: E402
+from repro_torch.analysis.program import kernel_signature  # noqa: E402
 from repro_torch.analysis.shadow import POISON, SanitizerError  # noqa: E402
 from repro_torch.checkpoint import ckpt  # noqa: E402
 from repro_torch.core.policy import resolve_format_map  # noqa: E402
@@ -431,6 +452,7 @@ from repro_torch.core.tree import (  # noqa: E402
     tree_index,
     tree_items,
     tree_map,
+    tree_to,
 )
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.dist import sharding  # noqa: E402
@@ -833,6 +855,15 @@ TRAIN_RECURRENT_BUDGET_S = 90
 MESH = {"steps": 2, "cells": ("train_4k", "prefill_32k"), "unallocated": "decode_32k",
         "budget_s": 45}
 MESH_BYTES_RTOL = 1e-2
+# phase 14 (contracts): the card halves of the xray audits
+# (analysis/xray.card_audit) on full-depth TinyLlama generate decode programs
+# at batch 1, cache 64, one a weight preset of phase 3 (its weights kept on
+# the host since) and int8 weights over an int8 and an fp8 KV cache; then the
+# launch contract's card half (analysis/launch_contract.card_contract) over
+# every captured program still alive, with a paged decode, a blockwise
+# prefill and a fused RMSNorm + quantize program beside them
+CONTRACTS = {"batch": 1, "cache_len": 64, "prompt_len": 8, "new_tokens": 4,
+             "blockwise_prompt": 48, "rmsq_rows": (1, 4), "budget_s": 45}
 SOURCES = {**{f"{k}_{f}": "src/repro_torch/csrc/gqmm.cu" for f in WEIGHT_FORMATS
               for k in ("gqmv", "gqmm")},
            "paged_attn": "src/repro_torch/csrc/paged_attn.cu",
@@ -4722,6 +4753,13 @@ def _all_launches() -> dict[str, int]:
     return {k: v for mod in (kern, pkern, fkern, rkern) for k, v in mod.LAUNCHES.items() if v}
 
 
+def _restore_launches(saved: dict[str, int]) -> None:
+    """Every kernel's launch count back to ``saved`` (``_all_launches``)."""
+    for mod in (kern, pkern, fkern, rkern):
+        for k in mod.LAUNCHES:
+            mod.LAUNCHES[k] = saved.get(k, 0)
+
+
 def train_flash_launches(cfg) -> dict[str, int]:
     """B4's launches in one train step under blockwise_attention: a
     decoder layer's forward twice (remat recomputes it) and its backward
@@ -5712,6 +5750,100 @@ def phase_mesh(dev) -> dict:
 
 
 
+def preset_bound_bytes(cfg, preset: str) -> int:
+    """``bounds.decode_step``'s bytes at batch 1 with each projection at its
+    layer class's format under ``preset`` (the classifier's too)."""
+    fmap = resolve_format_map(preset)
+    total = 0
+    for name, m, n, c in bounds.pass_projections(cfg):
+        fmt = fmap["ffn" if name in ("w13", "w2") else "attn"]
+        total += c * bounds.projection(fmt, m, n, 1, bounds.group_size(cfg, n)).nbytes
+    return total + bounds.projection(fmap["classifier"], cfg.vocab_size, cfg.d_model, 1,
+                                     bounds.group_size(cfg, cfg.d_model)).nbytes
+
+
+def phase_contracts(dev, held: dict) -> dict:
+    """Phase 14: the four xray audits' card halves on the captured decode
+    program of each weight preset of phase 3 (``held``: its quantized
+    weights, on the host since phase 3) and of int8 weights over an int8
+    and an fp8 KV cache, full width and depth, batch 1, cache 64; then the
+    launch contract over every captured program still alive. A failed
+    audit fails the run. The kernels' launch counts are restored after."""
+    from repro_torch.analysis import launch_contract, xray
+
+    t0 = time.perf_counter()
+    saved = _all_launches()
+    c = CONTRACTS
+    model = build(load_config(ARCH))
+    cfg = model.cfg
+    prompt = {"tokens": torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(c["batch"], c["prompt_len"])))}
+    engines, rows, bad = {}, {}, []
+    runs = [(fmt, fmt, None) for fmt in xray.BYTES_PRESETS] + \
+        [(f"int8+kv_{kvq}", "int8", kvq) for kvq in xray.KV_QUANT_PRESETS]
+    for tag, preset, kvq in runs:
+        params = tree_to(held[preset], dev) if kvq is None else engines["int8"].params
+        eng = InferenceEngine(model, params, cache_len=c["cache_len"], quantize=False,
+                              kv_quant=kvq, device=dev)
+        eng.generate(prompt, c["new_tokens"])
+        fails, stats = xray.card_audit(eng.graphs.last["generate.decode"], eng, name=tag)
+        stats["bound_bytes"] = preset_bound_bytes(cfg, preset)
+        bad += fails
+        rows[tag] = stats
+        engines[tag] = eng
+        log(f"[contracts] {tag}: weights read by kernel nodes "
+            f"{stats['weight_bytes_read'] / 1e6:.3f} MB, registry model "
+            f"{stats['registry_weight_bytes'] / 1e6:.3f} MB "
+            f"({stats['weight_bytes_read'] / stats['registry_weight_bytes']:.6f}x), "
+            f"bounds.decode_step {stats['bound_bytes'] / 1e6:.3f} MB "
+            f"({stats['weight_bytes_read'] / stats['bound_bytes']:.4f}x); "
+            f"{stats['kernel_nodes']} kernel nodes, {stats['projection_nodes']} GQMV/GQMM "
+            f"(expected {stats['expected_projections']}); graph pool {stats['pool_bytes']} "
+            f"bytes (a cache leaf {stats['cache_leaf_min_bytes']})"
+            + (f"; FAILED: {fails}" if fails else ""))
+    # more kernels for the launch contract: B8 and B9 (paged decode), B4
+    # (blockwise prefill), B2 (a program of the fused RMSNorm + quantize)
+    eng8 = engines["int8"]
+    eng8.generate(prompt, c["new_tokens"], paged=True)
+    engines["int8+kv_int8"].generate(prompt, c["new_tokens"], paged=True)
+    with flags.overrides(blockwise_attention=True):
+        eng8.generate({"tokens": prompt["tokens"].repeat(1, c["blockwise_prompt"]
+                                                         // c["prompt_len"])}, 2)
+    norm_w = eng8.params["final_norm"]
+    rmsq = [eng8.graphs.program(
+        "contracts.rmsnorm_quant", (m,),
+        lambda x, w: ops.rmsnorm_quant(x, w, group_size=cfg.group_size),
+        lambda m=m: {"x": torch.randn((m, cfg.d_model), device=dev, dtype=norm_w.dtype),
+                     "w": norm_w}) for m in c["rmsq_rows"]]
+    checked = mirrored = 0
+    names = collections.Counter()
+    progs = graphs.captured()
+    n_progs = len(progs)
+    for prog in progs:
+        nodes = graphs.kernel_nodes(prog)
+        fails, n_mirrored = launch_contract.card_contract(nodes, prog.name)
+        bad += fails
+        checked += len(nodes)
+        mirrored += n_mirrored
+        names.update(kernel_signature(n.name)[0] for n in nodes
+                     if launch_contract.card_mirror(n.name, n.values()) is not None)
+    del rmsq, engines, eng8, progs
+    torch.cuda.empty_cache()
+    _restore_launches(saved)
+    out = {"rows": rows, "programs_checked": n_progs, "kernel_nodes_checked": checked,
+           "hand_written_nodes": mirrored, "hand_written_kernels": dict(names),
+           "seconds": time.perf_counter() - t0}
+    log(f"[contracts] launch contract: {checked} kernel nodes of the {n_progs} captured "
+        f"programs alive checked, {mirrored} hand-written nodes held to their shared-memory "
+        f"mirrors ("
+        + ", ".join(f"{k} {v}" for k, v in sorted(names.items())) + ")")
+    log(f"[contracts] phase 14 {out['seconds']:.1f} s (budget {c['budget_s']} s) "
+        f"[{CARD['smi']}]")
+    if bad:
+        raise AssertionError("phase 14 (contracts) failed:\n" + "\n".join(bad))
+    return out
+
+
 def add_runs(entries: list[dict], runs: dict, rows: list[dict], key: str) -> None:
     """A phase's launches by run and its kernel rows (under ``key``) into the
     kernels line's entries."""
@@ -5785,10 +5917,11 @@ def main(argv=None) -> int:
     p256rows = phase_paged_hd256(dev)
     model = build(load_config(ARCH))
     params = model.init(seed=SERVE["seed"], device=dev)
-    serves, engines = {}, {}
+    serves, engines, held = {}, {}, {}
     for quantize in (True, *FORMAT_SETTINGS):
         tag = "int8" if quantize is True else quantize
         serves[tag], eng = phase_serve(dev, rows, model, params, quantize)
+        held[tag] = tree_to(eng.params, "cpu")      # phase 14's weights
         if tag in ("int8", RAGGED_FORMAT):
             engines[tag] = eng
         del eng
@@ -5814,6 +5947,8 @@ def main(argv=None) -> int:
     enc, ekrows, efrows = phase_encdec(dev)
     train, trows = phase_train(dev)
     mesh = phase_mesh(dev)
+    contracts = phase_contracts(dev, held)
+    del held
 
     s8, pf = serves["int8"], ragged["passes"]["paged_float"]
     log(f"[graphs] int8, batch {SERVE['batch']}: decode eager {s8['eager']['decode_ms_per_step']:.2f} "
@@ -5889,6 +6024,7 @@ def main(argv=None) -> int:
              "recurrent": rec,
              "encdec_kernel_rows": ekrows, "encdec_flash_rows": efrows, "encdec": enc,
              "train_flash_rows": trows, "train": train, "sanitize": sanitize, "mesh": mesh,
+             "contracts": contracts,
              "kernels": entries,
              "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

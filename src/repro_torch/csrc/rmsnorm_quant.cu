@@ -299,11 +299,15 @@ cudaLaunchConfig_t dependent_launch(int ctas, cudaStream_t stream, cudaLaunchAtt
   return cfg;
 }
 
+// Dynamic shared memory of a first-design CTA (kernels/rmsnorm_quant.
+// first_smem_bytes mirrors it): the row as f32, at most kMaxN of them (48 KB).
+__host__ __device__ inline size_t first_smem_bytes(int n) { return (size_t)n * sizeof(float); }
+
 template <typename T, typename W>
 int launch(const void* x, const void* w, void* q, void* scales, int m, int n, int gs, float eps,
            cudaStream_t stream) {
   if (!rows_ok(x, w, n, gs)) {
-    rmsnorm_quant_first_kernel<T, W><<<m, kThreads, n * sizeof(float), stream>>>(
+    rmsnorm_quant_first_kernel<T, W><<<m, kThreads, first_smem_bytes(n), stream>>>(
         static_cast<const T*>(x), static_cast<const W*>(w), static_cast<int8_t*>(q),
         static_cast<float*>(scales), n, gs, eps);
     return static_cast<int>(cudaGetLastError());

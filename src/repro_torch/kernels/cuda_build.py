@@ -21,6 +21,11 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
+
+# the most dynamic shared memory a block can opt into on the H100 (227 KB):
+# every csrc/ file's kMaxSmem, held to this one value by the launch
+# contract (analysis/launch_contract.py)
+MAX_SMEM = 232448
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 NVCC_FLAGS = (

@@ -52,6 +52,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import cuda_build
+from repro_torch.kernels.cuda_build import MAX_SMEM  # noqa: F401  (the kernels' opt-in)
 
 # dtype codes of csrc/flash_attn.cu
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -68,10 +69,8 @@ def kv_tile(hd: int) -> int:
     return 32 if hd > 128 else 64
 
 # csrc/flash_attn.cu, the f32 kernel: threads a CTA, query rows a CTA,
-# lanes of a row group (which holds rows ty, ty + 16, ty + 32, ty + 48), and
-# the most shared memory a block may opt into
+# lanes of a row group (which holds rows ty, ty + 16, ty + 32, ty + 48)
 F32_THREADS, F32_BQ, F32_LANES, F32_ROWS = 256, 64, 16, 4
-MAX_SMEM = 232448
 
 
 def f32_keys(hd: int) -> int:
@@ -111,6 +110,10 @@ def f32_layout(hd: int, device: int = 0) -> tuple[int, int]:
     return smem.value, ctas.value
 
 
+# csrc/flash_attn.cu, the tensor-core forward: query rows a CTA and stages
+# of the K/V ring
+MMA_BQ, MMA_STAGES = 64, 2
+
 # csrc/flash_attn.cu, the backward: threads of a tensor-core CTA (4 warps,
 # 16 rows a warp) and columns a streamed tile (kBwdCols)
 BWD_THREADS, BWD_COLS = 128, 32
@@ -132,6 +135,13 @@ def row_elems(hd: int) -> int:
     """Elements a staged bf16 / fp16 row takes (``row_elems``): hd, or hd 112
     padded to 128 for the swizzle."""
     return hd if hd < 64 or hd % 64 == 0 else -(-hd // 64) * 64
+
+
+def mma_smem_bytes(hd: int) -> int:
+    """The tensor-core forward kernel's dynamic shared memory
+    (``mma_smem_bytes``): Q's 64 rows and two ring stages of a K and a V
+    tile (:func:`kv_tile` keys), 2-byte elements of :func:`row_elems`."""
+    return 2 * (MMA_BQ * row_elems(hd) + 2 * MMA_STAGES * kv_tile(hd) * row_elems(hd))
 
 
 def bwd_smem_bytes(hd: int, dq: bool, dtype: torch.dtype = torch.bfloat16) -> int:

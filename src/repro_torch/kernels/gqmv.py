@@ -68,6 +68,7 @@ import torch
 
 from repro_torch.core.quant import get_format
 from repro_torch.kernels import cuda_build
+from repro_torch.kernels.cuda_build import MAX_SMEM
 
 GROUP_SIZES = (16, 32, 64, 128, 256)
 
@@ -92,7 +93,7 @@ LARGE_COLS, WIDE_ROWS, NARROW_ROWS, BK, STAGES = 64, 128, 64, 128, 5
 FP8_STAGES = 4
 STAGE_GROUPS, SCALE_STRIDE, SWIZZLE_ALIGN = 8, 9, 1024
 X_ATOM_BYTES = LARGE_COLS * 128
-SMS, MAX_SMEM = 132, 232448
+SMS = 132
 TC_FORMATS = ("int8", "int4", "int3", "fp8")
 # bytes a weight row takes in a stage of the ring, as stored (int4 and int3
 # packed, then unpacked to an int8 tile), and the formats whose rows the

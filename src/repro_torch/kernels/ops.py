@@ -72,6 +72,22 @@ def _hook(kernel: str) -> KernelHook:
         raise ValueError(f"unknown kernel hook {kernel!r}; registered: "
                          f"{sorted(KERNEL_HOOKS)}") from None
 
+# the active step recorders (analysis/program.py): each entry point below is
+# one node of a recorded step, and the ops it runs inside are not recorded
+# apart (on the card they are the kernel's own registers)
+RECORDERS: list = []
+
+
+def _entry(fn: Callable) -> Callable:
+    """An entry point that the innermost active recorder records whole."""
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        if not RECORDERS:
+            return fn(*args, **kwargs)
+        return RECORDERS[-1].entry(fn, args, kwargs)
+    return call
+
+
 IMPLS = ("auto", "cuda", "plain")
 _SCOPE = {"impl": "auto"}
 
@@ -121,6 +137,7 @@ def gqmm(wq, ws, xq, xs, *, group_size: int, impl: str | None = None,
     return fn(wq, ws, xq, xs, group_size=group_size)
 
 
+@_entry
 def paged_attention(q, k_pages, v_pages, block_table, pos, k_new, v_new, mask, *,
                     scale: float, softcap: float | None = None, k_scales=None,
                     v_scales=None, impl: str | None = None) -> torch.Tensor:
@@ -139,6 +156,7 @@ def paged_attention(q, k_pages, v_pages, block_table, pos, k_new, v_new, mask, *
     return _ref.paged_attention_ref(*args, **kw)
 
 
+@_entry
 def flash_attention(q, k, v, *, group: int, scale: float, causal: bool = True,
                     window: int | None = None, softcap: float | None = None,
                     impl: str | None = None) -> torch.Tensor:
@@ -196,6 +214,7 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None, None
 
 
+@_entry
 def rmsnorm_quant(x, w, *, group_size: int, eps: float = 1e-5,
                   impl: str | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused RMSNorm and int8 group quantization of x (m, n) with weight w
@@ -207,6 +226,7 @@ def rmsnorm_quant(x, w, *, group_size: int, eps: float = 1e-5,
     return _ref.rmsnorm_quant_ref(x, w, group_size=group_size, eps=eps)
 
 
+@_entry
 def quantized_matmul(x: torch.Tensor, w: QuantizedTensor, *,
                      impl: str | None = None, xq: QuantizedTensor | None = None
                      ) -> torch.Tensor:

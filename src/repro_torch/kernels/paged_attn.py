@@ -33,6 +33,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import cuda_build
+from repro_torch.kernels.cuda_build import MAX_SMEM
 
 # dtype codes of csrc/paged_attn.cu
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -41,9 +42,9 @@ _QUANT_DTYPES = {torch.int8: 2, torch.float8_e4m3fn: 3}
 # csrc/paged_attn.cu: threads a CTA, columns a tile (whole blocks; half as
 # many where a staged row is wider than WIDE_ROW bytes), output elements a
 # thread, tiles of K/V rows in the ring, tiles of mask / table entries, the
-# most shared memory a CTA can opt into, the head dims it is built for
+# head dims it is built for
 THREADS, TILE_COLS, WIDE_ROW, MAX_OUT = 256, 64, 512, 4
-STAGES, SLOTS, MAX_SMEM = 3, 5, 232448
+STAGES, SLOTS = 3, 5
 HEAD_DIMS = (32, 64, 128, 256)
 # split-K aims at this many CTAs: eight for each of the H100's 132 SMs; at
 # most MAX_SPLITS splits a row (the combine stages every split's m and l);
@@ -93,6 +94,13 @@ def smem_bytes(g: int, hd: int, bs: int, elt: int, quant: bool) -> int:
     tc = tb * bs
     return (2 * STAGES * tc * hd * elt + (2 * STAGES * tc * 4 if quant else 0)
             + 4 * (g * hd + 2 * hd + g * tc + 3 * g) + 4 * (SLOTS * (tc + tb) + STAGES * tc))
+
+
+def combine_smem_bytes(g: int, nsplit: int) -> int:
+    """Dynamic shared memory of one combine CTA (``combine_smem_bytes``): m
+    (then the weights) and l of every split and head, and each head's
+    denominator."""
+    return 4 * (2 * nsplit * g + g)
 
 
 def split_plan(b: int, kv: int, mb: int, bs: int, cols: int = TILE_COLS) -> tuple[int, int]:

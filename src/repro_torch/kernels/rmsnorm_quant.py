@@ -62,6 +62,12 @@ def design(n: int, group_size: int, aligned: bool = True) -> str:
     return "rows" if ok else "first"
 
 
+def first_smem_bytes(n: int) -> int:
+    """Dynamic shared memory of a first-design CTA (``first_smem_bytes``):
+    the row as f32."""
+    return 4 * n
+
+
 def plan(m: int, n: int) -> tuple[int, int, int, int]:
     """(warps a row, rows a CTA, CTAs, chunks a lane at most) of the row
     design: the fewest warps, at most WARPS, that leave a lane TEAM_CHUNKS

@@ -25,8 +25,11 @@ compiled or allocated (meta tensors, ``models/registry.param_struct``):
 Nothing is measured, so there is no MFU and no collective column.
 ``--mesh host`` is the ``make_host_mesh()`` cell: the ranks that exist now
 (one process: 1 x 1, the one card here); ``fits`` says whether a cell's
-arguments fit one device's memory. The reference's ``launch/hlo_analysis``
-(XLA HLO) has no counterpart.
+arguments fit one device's memory, and ``roofline`` is the cell's step
+recorded on its meta arguments (``analysis/program.py``, the counterpart of
+the reference's ``launch/hlo_analysis``): the operations of its entry
+points and dot ops, the bytes of every op's new buffers (an eager step
+fuses nothing), and the reference's roofline fields, ``mfu`` 0.
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ from repro_torch.kernels.bounds import HBM_BYTES_PER_S, PEAK_OPS_PER_S
 from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.models.registry import (
     ARCH_IDS,
+    build,
     cache_specs,
     input_specs,
     load_config,
@@ -131,6 +135,28 @@ def cell_arguments(cfg: ModelConfig, shape: ShapeSpec, mesh) -> dict:
     return args, qparams
 
 
+def cell_roofline(cfg: ModelConfig, shape: ShapeSpec, args: dict, model_flops: float) -> dict:
+    """The roofline of one cell's step recorded on its meta arguments: the
+    train step's loss and backward, prefill over the batch, or one decode
+    step (at a (b,) position, as the engine decodes)."""
+    from repro_torch.analysis.program import record_step, roofline_from_record
+    from repro_torch.train.loop import make_loss_fn, value_and_grad
+
+    model = build(cfg)
+    params, batch = args["params"][0], args["batch"][0]
+    if shape.kind == "train":
+        rec, _ = record_step(value_and_grad, (make_loss_fn(model), params, batch),
+                             weights=params)
+    elif shape.kind == "prefill":
+        rec, _ = record_step(model.prefill, (params, batch, shape.seq_len), weights=params)
+    else:
+        cache, tok = args["cache"][0], batch["token"]
+        pos = torch.zeros(tok.shape, dtype=torch.long, device="meta")
+        rec, _ = record_step(model.decode, (params, tok, cache, pos), weights=params,
+                             cache=cache)
+    return roofline_from_record(rec, model_flops=model_flops).as_dict()
+
+
 def least_time(cfg: ModelConfig, shape: ShapeSpec, flops: float, nbytes: int,
                chips: int) -> dict:
     rate = ("bf16" if cfg.compute_dtype == "bfloat16" else "f32") if shape.kind == "train" \
@@ -171,6 +197,8 @@ def run_cell(arch: str, shape_name: str, mesh, mesh_name: str,
             "device_bytes": DEVICE_BYTES,
             "least": least_time(cfg, shape, mf, total, math.prod(sizes.values())),
         })
+        if mesh_name == "host":
+            rec["roofline"] = cell_roofline(cfg, shape, args, mf)
     except Exception as e:  # a failing cell is a bug; record it loudly
         rec.update(status="error", error=f"{type(e).__name__}: {e}",
                    traceback=traceback.format_exc()[-2000:])

@@ -276,7 +276,10 @@ def contiguous_to_paged(cache: dict, block_size: int):
     def pool(leaf):
         if quant:                                 # (L, b, KV, T, ...) -> (L, b, T, KV, ...)
             leaf = leaf.movedim(3, 2)
-        return leaf.reshape(L, b * mb, block_size, *leaf.shape[3:])
+        out = leaf.reshape(L, b * mb, block_size, *leaf.shape[3:])
+        # a quantized pool is a layout of its own, and contiguous as the paged
+        # kernel needs it (at b = 1 the reshape alone is a strided view)
+        return out.contiguous() if quant else out
 
     table = torch.arange(b * mb, dtype=torch.int32, device=first.device).reshape(b, mb)
     if quant:

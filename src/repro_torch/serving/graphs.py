@@ -28,14 +28,22 @@ Launch counts (the kernels' ``LAUNCHES``): a warm-up's launches and the
 capture's (which launch nothing) are taken back out; each replay adds the
 counts its capture recorded, so a replayed step counts what an eager step
 counts.
+
+A captured program is read through the CUDA driver API: :func:`census`
+counts its nodes and edges, :func:`kernel_nodes` lists its kernel nodes
+with their names, launch configurations and argument values (the card
+halves of ``analysis/xray.py`` and ``analysis/launch_contract.py`` read
+them), and :func:`captured` gives every captured program still alive.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import gc
 import time
+import weakref
 from collections import defaultdict
 from typing import Callable
 
@@ -46,7 +54,8 @@ from repro_torch.core import flags
 from repro_torch.core.tree import tree_map
 from repro_torch.kernels import flash_attn, gqmv, ops, paged_attn, rmsnorm_quant
 
-__all__ = ["BUILD_LISTENERS", "GraphCache", "Program", "census", "eager"]
+__all__ = ["BUILD_LISTENERS", "GraphCache", "KernelNode", "Program", "captured", "census",
+           "eager", "kernel_nodes"]
 
 # every kernel wrapper's launch counts
 _COUNTS = (gqmv.LAUNCHES, paged_attn.LAUNCHES, flash_attn.LAUNCHES, rmsnorm_quant.LAUNCHES)
@@ -55,6 +64,14 @@ _COUNTS = (gqmv.LAUNCHES, paged_attn.LAUNCHES, flash_attn.LAUNCHES, rmsnorm_quan
 BUILD_LISTENERS: list[Callable[[str, tuple], None]] = []
 
 _MODE = {"eager": False}
+
+# every captured program still alive (the launch contract's card half walks them)
+_CAPTURED: weakref.WeakSet = weakref.WeakSet()
+
+
+def captured() -> list["Program"]:
+    """The captured programs still alive, in no particular order."""
+    return [p for p in list(_CAPTURED) if p.graph is not None]
 
 
 @contextlib.contextmanager
@@ -139,6 +156,7 @@ class Program:
                          if after[i][k] != snap[i][k]]
         _restore(snap)              # a capture launches nothing
         self.graph = graph
+        _CAPTURED.add(self)
         self.warmup_s, self.capture_s = t1 - t0, time.perf_counter() - t1
 
     @torch.inference_mode()
@@ -183,37 +201,129 @@ class _Edge(ctypes.Structure):
                 ("type", ctypes.c_ubyte), ("reserved", ctypes.c_ubyte * 5)]
 
 
+class _KernelParams(ctypes.Structure):
+    # CUDA_KERNEL_NODE_PARAMS_v2 of the CUDA driver API
+    _fields_ = [("func", ctypes.c_void_p),
+                *((f, ctypes.c_uint) for f in ("grid_x", "grid_y", "grid_z", "block_x",
+                                                "block_y", "block_z", "smem")),
+                ("kernel_params", ctypes.POINTER(ctypes.c_void_p)),
+                ("extra", ctypes.POINTER(ctypes.c_void_p)),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def _check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} failed with CUDA driver error {rc}")
+
+
+def _graph_nodes(prog: Program) -> tuple[ctypes.CDLL, ctypes.c_void_p, list[int], list[int]]:
+    """(the driver, the graph, its nodes, each node's type) of a captured
+    program (``cuGraphGetNodes``, ``cuGraphNodeGetType``)."""
+    if prog.graph is None:
+        raise ValueError(f"{prog.name}: not a captured program")
+    cu = ctypes.CDLL("libcuda.so.1")
+    graph = ctypes.c_void_p(prog.graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    _check(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    _check(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        _check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+               "cuGraphNodeGetType")
+        kinds.append(kind.value)
+    return cu, graph, list(nodes), kinds
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelNode:
+    """One kernel node of a captured program: the kernel's (mangled) name,
+    its launch configuration, and each argument's bytes (empty where the
+    driver does not say how the arguments are laid out)."""
+
+    name: str
+    grid: tuple[int, int, int]
+    block: tuple[int, int, int]
+    smem: int
+    args: tuple[bytes, ...]
+
+    @property
+    def threads(self) -> int:
+        return self.block[0] * self.block[1] * self.block[2]
+
+    def values(self) -> list[int]:
+        """Each argument as an unsigned little-endian integer (a pointer
+        argument's address)."""
+        return [int.from_bytes(a, "little") for a in self.args]
+
+
+def _param_layout(cu, func: ctypes.c_void_p, kern: ctypes.c_void_p) -> list[tuple[int, int]]:
+    """(offset, size) of each argument of a kernel, from
+    ``cuFuncGetParamInfo`` (or ``cuKernelGetParamInfo``): the index past the
+    last one returns an error."""
+    get = cu.cuFuncGetParamInfo if func.value else cu.cuKernelGetParamInfo
+    handle = func if func.value else kern
+    out = []
+    off, size = ctypes.c_size_t(0), ctypes.c_size_t(0)
+    while get(handle, ctypes.c_size_t(len(out)), ctypes.byref(off), ctypes.byref(size)) == 0:
+        out.append((off.value, size.value))
+    return out
+
+
+def kernel_nodes(prog: Program) -> list[KernelNode]:
+    """The kernel nodes of a captured program, in the graph's node order:
+    each kernel's function (``cuGraphKernelNodeGetParams``), its name
+    (``cuFuncGetName``), grid, block and dynamic shared memory, and its
+    arguments' values (``cuFuncGetParamInfo``'s layout over the node's
+    ``kernelParams`` or ``extra`` buffer)."""
+    cu, _, nodes, kinds = _graph_nodes(prog)
+    get_params = getattr(cu, "cuGraphKernelNodeGetParams_v2", None) or \
+        cu.cuGraphKernelNodeGetParams
+    out = []
+    for node, kind in zip(nodes, kinds):
+        if kind != 0:       # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        p = _KernelParams()
+        _check(get_params(ctypes.c_void_p(node), ctypes.byref(p)), "cuGraphKernelNodeGetParams")
+        func, kern = ctypes.c_void_p(p.func), ctypes.c_void_p(p.kern)
+        name = ctypes.c_char_p()
+        if func.value:
+            _check(cu.cuFuncGetName(ctypes.byref(name), func), "cuFuncGetName")
+        else:
+            _check(cu.cuKernelGetName(ctypes.byref(name), kern), "cuKernelGetName")
+        layout = _param_layout(cu, func, kern)
+        args: list[bytes] = []
+        if layout and p.kernel_params:
+            args = [ctypes.string_at(p.kernel_params[i], size)
+                    for i, (_, size) in enumerate(layout)]
+        elif layout and p.extra:
+            # CU_LAUNCH_PARAM_BUFFER_POINTER (1) then its address, ..., END (0)
+            i, buf = 0, None
+            while p.extra[i]:
+                if p.extra[i] == 1:
+                    buf = p.extra[i + 1]
+                i += 2
+            if buf:
+                args = [ctypes.string_at(buf + off, size) for off, size in layout]
+        out.append(KernelNode(name.value.decode(), (p.grid_x, p.grid_y, p.grid_z),
+                              (p.block_x, p.block_y, p.block_z), p.smem, tuple(args)))
+    return out
+
+
 def census(prog: Program) -> dict[str, int]:
     """Nodes, kernel nodes, edges and programmatic edges (a programmatic
     dependent launch kept as such) of a captured program's graph, read
     through the CUDA driver API (``cuGraphGetNodes``, ``cuGraphNodeGetType``,
     ``cuGraphGetEdges_v2``)."""
-    if prog.graph is None:
-        raise ValueError(f"{prog.name}: not a captured program")
-    cu = ctypes.CDLL("libcuda.so.1")
-    graph = ctypes.c_void_p(prog.graph.raw_cuda_graph())
-
-    def check(rc, what):
-        if rc != 0:
-            raise RuntimeError(f"{what} failed with CUDA driver error {rc}")
-
-    n = ctypes.c_size_t(0)
-    check(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)), "cuGraphGetNodes")
-    nodes = (ctypes.c_void_p * n.value)()
-    check(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)), "cuGraphGetNodes")
-    kinds = []
-    for node in nodes:
-        kind = ctypes.c_int(-1)
-        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
-              "cuGraphNodeGetType")
-        kinds.append(kind.value)
+    cu, graph, nodes, kinds = _graph_nodes(prog)
     e = ctypes.c_size_t(0)
-    check(cu.cuGraphGetEdges_v2(graph, None, None, None, ctypes.byref(e)), "cuGraphGetEdges_v2")
+    _check(cu.cuGraphGetEdges_v2(graph, None, None, None, ctypes.byref(e)), "cuGraphGetEdges_v2")
     src, dst, data = (ctypes.c_void_p * e.value)(), (ctypes.c_void_p * e.value)(), \
         (_Edge * e.value)()
-    check(cu.cuGraphGetEdges_v2(graph, src, dst, data, ctypes.byref(e)), "cuGraphGetEdges_v2")
+    _check(cu.cuGraphGetEdges_v2(graph, src, dst, data, ctypes.byref(e)), "cuGraphGetEdges_v2")
     # CU_GRAPH_NODE_TYPE_KERNEL = 0; CU_GRAPH_DEPENDENCY_TYPE_PROGRAMMATIC = 1
-    return {"nodes": n.value, "kernel_nodes": kinds.count(0), "edges": e.value,
+    return {"nodes": len(nodes), "kernel_nodes": kinds.count(0), "edges": e.value,
             "programmatic_edges": sum(d.type == 1 for d in data)}
 
 

@@ -347,7 +347,8 @@ def test_cli_lists_the_checkers(capsys):
     out = capsys.readouterr().out
     ids = [c.id for c in default_checkers()]
     assert ids == ["host-sync", "quant-invariants", "registry-coverage", "adapter-lifecycle",
-                   "shadow-coverage"]
+                   "shadow-coverage", "capture-guard", "launch-contract", "xray-donation",
+                   "xray-dequant", "xray-bytes", "xray-collective"]
     for cid in ids:
         assert cid in out
 
@@ -379,4 +380,4 @@ def test_cli_clean_on_port_tree(capsys):
     ``tests/test_torch_*.py``, ``chip_smoke.py``) and the project checks."""
     assert cli_main(["--root", str(ROOT), "--strict-allowlist"]) == 0, \
         capsys.readouterr().out
-    assert "5 checker(s)" in capsys.readouterr().err
+    assert "11 checker(s)" in capsys.readouterr().err

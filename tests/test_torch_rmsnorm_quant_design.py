@@ -164,8 +164,9 @@ def test_constants_mirror_the_cuda_source():
     # first design's row as f32 (MAX_N of them fit 48 KB)
     assert "const int rows = kWarps >> lg;" in SRC
     assert "__shared__ float part[kWarps];" in SRC
-    assert "<<<m, kThreads, n * sizeof(float), stream>>>" in SRC
-    assert 4 * rkern.MAX_N == 48 * 1024
+    assert "<<<m, kThreads, first_smem_bytes(n), stream>>>" in SRC
+    assert "first_smem_bytes(int n) { return (size_t)n * sizeof(float); }" in SRC
+    assert rkern.first_smem_bytes(rkern.MAX_N) == 4 * rkern.MAX_N == 48 * 1024
     # the team: the fewest warps, at most kWarps, leaving kTeamChunks chunks a lane
     assert ("while ((1 << lg) < kWarps && ((1 << lg) * kTeamChunks) < units) ++lg;") in SRC
     # the choice by pointer and shape
