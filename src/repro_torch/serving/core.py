@@ -43,11 +43,18 @@ each prefill group, each finish (after ``adapter.on_finish``), before and
 after every decode or verify round, and at the end of the serve. The
 sanitizer reads and poisons the adapter's static cache in place
 (``CacheAdapter.cache``), between replays, with one device read a round.
+
+While spans are recorded (``serving/spans.py``) the loop opens, per call,
+``serve``; per admission wave ``admit``, a ``prefill`` per group and
+``prefill.readback``; per round ``round.prepare``, ``round.replay``,
+``round.readback`` and ``round.commit``; and at each finish it adds the
+request's ``request`` span. Off, each site reads one flag.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import defaultdict, deque
 from typing import Sequence
 
@@ -56,6 +63,7 @@ import torch
 
 from repro_torch.analysis.sanitizer import Sanitizer
 from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.serving import spans
 from repro_torch.serving.sampling import (
     GUMBEL,
     UNIFORM,
@@ -535,9 +543,27 @@ class SchedulerCore:
     def serve(self, requests: Sequence[Request], max_new_tokens: int, *,
               seed: int = 0) -> list[Response]:
         """Serve ``requests``; a noise-drawing sampler draws from a generator
-        on the engine's device seeded with ``seed``."""
+        on the engine's device seeded with ``seed``. While spans are recorded
+        (``serving/spans.py``) the call is a ``serve`` span, closed also when
+        it raises."""
+        if not spans.ON:
+            return self._serve(requests, max_new_tokens, seed, None)
+        sp = spans.begin("serve", requests=len(requests), slots=self.slots)
+        try:
+            return self._serve(requests, max_new_tokens, seed, sp)
+        finally:
+            spans.end(sp)
+
+    def _serve(self, requests: Sequence[Request], max_new_tokens: int, seed: int,
+               sp: int | None) -> list[Response]:
+        """The loop; ``sp`` is the ``serve`` span (None: spans are off), the
+        parent of the ``request`` spans."""
         engine, adapter, B = self.engine, self.adapter, self.slots
         eos = engine.eos_id
+        rec = sp is not None
+        if rec:
+            arrival = time.perf_counter_ns()        # every request arrives at the call
+            admit_ns, first_ns = [0] * B, [0] * B
 
         def budget(r: Request) -> int:
             return r.max_new if r.max_new is not None else max_new_tokens
@@ -574,11 +600,16 @@ class SchedulerCore:
                 # freeze the slot shadow, audit the request's blocks, and
                 # poison its frees now, before any re-allocation can write
                 san.on_request_finish(s, r.id, pos[s])
+            if rec:
+                spans.add("request", arrival, time.perf_counter_ns(), sp, id=r.id,
+                          admit_ns=admit_ns[s], first_token_ns=first_ns[s],
+                          tokens=out[r.id].length)
 
         while pending or live.any():
             # admission: pop pending in arrival order while a slot (and, for
             # gated adapters, worst-case capacity) is free; one batched
             # prefill per distinct group length, one scatter-insert per group
+            ad = spans.begin("admit") if rec else None
             free_slots = [s for s in range(B) if slot_req[s] is None]
             admitted: dict[int, list[tuple[int, Request]]] = defaultdict(list)
             while free_slots and pending:
@@ -593,16 +624,28 @@ class SchedulerCore:
                     san.on_admit(s, r)
                 adapter.on_admit(s, r, budget(r))
                 admitted[adapter.group_len(len(r.tokens))].append((s, r))
+            padded = [(length, group, *pad_bucket([r for _, r in group], length))
+                      for length, group in admitted.items()]
+            if ad is not None:
+                t_admit = spans.end(ad, admitted=sum(len(g) for g in admitted.values()))
+                for group in admitted.values():
+                    for s, _ in group:
+                        admit_ns[s] = t_admit
             staged = []
-            for length, group in admitted.items():
+            for length, group, toks_np, lens_np in padded:
                 if san is not None:
                     san.on_prefill_group(group, length)
-                toks_np, lens_np = pad_bucket([r for _, r in group], length)
+                pf = spans.begin("prefill", rows=len(group), length=length) if rec else None
                 staged.append((group, adapter.prefill_insert(engine.params, toks_np, lens_np,
                                                              group, length)))
+                if pf is not None:
+                    spans.end(pf)
             if staged:
                 # ONE host transfer for the whole admission wave
+                rb = spans.begin("prefill.readback") if rec else None
                 first = torch.cat([t for _, t in staged]).tolist()
+                if rb is not None:
+                    t_first = spans.end(rb)
                 k = 0
                 for group, _ in staged:
                     for s, r in group:
@@ -611,6 +654,8 @@ class SchedulerCore:
                         slot_toks[s] = [t]
                         tok[s], pos[s] = t, len(r.tokens)
                         remaining[s] = budget(r) - 1
+                        if rec:
+                            first_ns[s] = t_first
                         if stats is not None:
                             stats["generated"] += 1    # the prefill token is delivered too
                         if budget(r) <= 1 or (eos is not None and t == eos):
@@ -621,6 +666,7 @@ class SchedulerCore:
                     continue
                 break
 
+            pr = spans.begin("round.prepare", live=int(live.sum())) if rec else None
             adapter.before_round(pos, live)
             adapter.check_positions(pos, live)
             if san is not None:
@@ -633,10 +679,20 @@ class SchedulerCore:
                 K = self.spec_k
                 chunk_np = draft_chunk(self.drafter, tok, live,
                                        lambda s: slot_req[s].tokens + slot_toks[s], K)
+                if pr is not None:
+                    spans.end(pr)
+                rp = spans.begin("round.replay", steps=1) if rec else None
                 out_d = adapter.verify_round(engine.params, chunk_np, pos, live, remaining)
+                if rp is not None:
+                    spans.end(rp)
                 # ONE host transfer per round: the chunk's tokens and counts;
                 # positions advance here by the commit counts, as on the device
+                rb = spans.begin("round.readback") if rec else None
                 host = out_d.cpu().numpy()
+                if rb is not None:
+                    spans.end(rb)
+                cm = spans.begin("round.commit") if rec else None
+                finished = len(out)
                 n_out = host[:, K]
                 self.decode_steps += 1
                 stats["verify_steps"] += 1
@@ -649,15 +705,27 @@ class SchedulerCore:
                     remaining[s] = n - len(slot_toks[s])
                     if len(slot_toks[s]) >= n or (eos is not None and eos in slot_toks[s][:n]):
                         finish(s)
+                if cm is not None:
+                    spans.end(cm, finished=len(out) - finished)
                 if san is not None:
                     san.check_round(pos, live)
                 continue
-            toks_d, n_d = adapter.decode_round(engine.params, tok, pos, live,
-                                               adapter.round_steps(live, remaining))
+            want = adapter.round_steps(live, remaining)
+            if pr is not None:
+                spans.end(pr)
+            rp = spans.begin("round.replay") if rec else None
+            toks_d, n_d = adapter.decode_round(engine.params, tok, pos, live, want)
+            if rp is not None:
+                spans.end(rp)
             # ONE host transfer per round: the step count and the round's
             # tokens; positions advance here by the step count, as they did
             # on the device
+            rb = spans.begin("round.readback") if rec else None
             host = torch.cat([n_d.expand(1, B), toks_d]).cpu().numpy()
+            if rb is not None:
+                spans.end(rb)
+            cm = spans.begin("round.commit") if rec else None
+            finished = len(out)
             steps = int(host[0, 0])
             toks_np = host[1:1 + steps]                             # (steps, B)
             self.decode_steps += steps
@@ -674,6 +742,9 @@ class SchedulerCore:
                     done = True
                 if done:
                     finish(s)
+            if cm is not None:
+                spans.note(rp, steps=steps)          # the steps the round counted
+                spans.end(cm, finished=len(out) - finished)
             if san is not None:
                 san.check_round(pos, live)
 

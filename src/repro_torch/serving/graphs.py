@@ -34,6 +34,9 @@ counts its nodes and edges, :func:`kernel_nodes` lists its kernel nodes
 with their names, launch configurations and argument values (the card
 halves of ``analysis/xray.py`` and ``analysis/launch_contract.py`` read
 them), and :func:`captured` gives every captured program still alive.
+
+While spans are recorded (``serving/spans.py``) every :meth:`Program.replay`
+is a ``program.replay`` span carrying the program's name.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ import torch
 from repro_torch.core import flags
 from repro_torch.core.tree import tree_map
 from repro_torch.kernels import flash_attn, gqmv, ops, paged_attn, rmsnorm_quant
+from repro_torch.serving import spans
 
 __all__ = ["BUILD_LISTENERS", "GraphCache", "KernelNode", "Program", "captured", "census",
            "eager", "kernel_nodes"]
@@ -175,12 +179,15 @@ class Program:
     @torch.inference_mode()
     def replay(self):
         """One run of the program; returns its static outputs."""
+        sp = spans.begin("program.replay", program=self.name) if spans.ON else None
         if self.graph is None:
             self.outputs = self.fn(**self.inputs)
-            return self.outputs
-        self.graph.replay()
-        for counts, k, n in self.launches:
-            counts[k] += n
+        else:
+            self.graph.replay()
+            for counts, k, n in self.launches:
+                counts[k] += n
+        if sp is not None:
+            spans.end(sp)
         return self.outputs
 
     @torch.inference_mode()
